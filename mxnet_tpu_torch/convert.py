@@ -1,0 +1,37 @@
+"""Carry parameters from the JAX package into the port.
+
+Both packages keep convolution weights as OIHW and fully connected
+weights as (N, K), so a parameter crosses over as a typed copy: same
+name, shape, dtype and values, now a tensor on the chosen device.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+
+from .context import Context
+from .ndarray import NDArray, array
+
+__all__ = ["convert_params"]
+
+
+def convert_params(params: Mapping[str, np.ndarray],
+                   ctx: Optional[Context] = None
+                   ) -> Tuple[Dict[str, NDArray], Dict[str, NDArray]]:
+    """The JAX package's parameters (numpy arrays, or anything
+    ``np.asarray`` takes, such as its NDArrays' ``asnumpy()``), keyed with
+    or without the checkpoint's ``arg:``/``aux:`` prefixes, as
+    ``(arg_params, aux_params)`` of port NDArrays on ``ctx`` (default:
+    the current context).  Unprefixed names are arguments."""
+    arg_params: Dict[str, NDArray] = {}
+    aux_params: Dict[str, NDArray] = {}
+    for key, value in params.items():
+        value = np.asarray(value)
+        target, name = arg_params, key
+        if key.startswith("aux:"):
+            target, name = aux_params, key[4:]
+        elif key.startswith("arg:"):
+            name = key[4:]
+        target[name] = array(value, ctx=ctx, dtype=value.dtype)
+    return arg_params, aux_params

@@ -1,0 +1,11 @@
+"""Operator library: registry plus the ops the port carries so far.
+
+Importing this package registers every op; the symbol layer generates
+its constructors (``sym.FullyConnected`` ...) from the registry.
+"""
+from .registry import OpDef, OpContext, Param, register_op, get_op, list_ops
+from . import tensor  # noqa: F401  (Flatten)
+from . import nn      # noqa: F401  (the layers VGG-16 and the MLP use)
+from . import fused   # noqa: F401  (the epilogue-fused serving ops)
+
+__all__ = ["OpDef", "OpContext", "Param", "register_op", "get_op", "list_ops"]

@@ -1,0 +1,247 @@
+"""Hand-written CUDA kernels for Hopper, their plain PyTorch versions, and
+their build.
+
+The counterpart of ``mxnet_tpu/ops/pallas_kernels.py``.  Each kernel has:
+
+* a wrapper that checks its inputs, allocates the output with
+  ``torch.empty``, launches on the current stream and raises if the
+  launch fails.  A CUDA tensor always reaches the kernel; only a tensor
+  that lies on the CPU takes the plain version;
+* the plain PyTorch version beside it (``*_reference``), used on the CPU
+  and by ``chip_smoke.py`` to check the kernel on the card;
+* a launch count (:data:`LAUNCHES`), raised by one where the wrapper
+  launches the kernel and nowhere else.
+
+Sources live in ``mxnet_tpu_torch/csrc``.  Each is compiled on first use
+with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
+interface under ``mxnet_tpu_torch/_build`` and loaded with ``ctypes``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Optional
+
+import torch
+
+from ..base import MXNetError
+from .nn import ACTIVATIONS
+
+__all__ = ["fused_fc_epilogue", "fused_fc_epilogue_reference", "requantize",
+           "LAUNCHES", "reset_launches", "build", "nvcc_command", "SOURCES"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+# kernel name -> source file under csrc/
+SOURCES = {"fused_fc_epilogue": "fc_epilogue.cu"}
+
+# kernel name -> launches since the last reset_launches()
+LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+_launch_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _count(name: str) -> None:
+    with _launch_lock:
+        LAUNCHES[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# build
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_build_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise MXNetError("nvcc not found (looked on PATH and in $CUDA_HOME/"
+                         "bin); the CUDA kernels are built from "
+                         "mxnet_tpu_torch/csrc at first use")
+    return path
+
+
+def nvcc_command(source: str, output: str, nvcc: str = "nvcc") -> list:
+    """The compile line for one kernel source: Hopper (``sm_90a``) code,
+    a shared library with a plain C interface."""
+    return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            "-o", output, source]
+
+
+def _lib_path(name: str) -> str:
+    """The library's path carries a digest of its source and compile
+    line, so an edit to either always rebuilds."""
+    h = hashlib.sha256(" ".join(nvcc_command("", "")).encode())
+    with open(os.path.join(_CSRC, SOURCES[name]), "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, h.hexdigest()[:16]))
+
+
+def build(names=None) -> Dict[str, str]:
+    """Compile the named kernels (default: all) that are not built yet,
+    one ``nvcc`` per source, all started together.  Returns each built
+    kernel's compiler output (``-Xptxas -v``: registers, shared memory,
+    spills)."""
+    names = list(SOURCES) if names is None else list(names)
+    logs: Dict[str, str] = {}
+    with _build_lock:
+        todo = [n for n in names if not os.path.exists(_lib_path(n))]
+        if not todo:
+            return logs
+        nvcc = _nvcc()
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        procs = {}
+        for n in todo:
+            out = _lib_path(n)
+            tmp = "%s.tmp-%d" % (out, os.getpid())
+            cmd = nvcc_command(os.path.join(_CSRC, SOURCES[n]), tmp, nvcc)
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True),
+                        tmp, out)
+        failed = []
+        for n, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            logs[n] = log
+            if proc.returncode != 0:
+                failed.append("%s (nvcc exit %d):\n%s"
+                              % (n, proc.returncode, log))
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise MXNetError("kernel build failed: " + "\n".join(failed))
+    return logs
+
+
+def _library(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build([name])
+    with _build_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(_lib_path(name))
+            _declare(name, lib)
+            _libs[name] = lib
+    return lib
+
+
+def _declare(name: str, lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mxtt_error_string.argtypes = [i]
+    lib.mxtt_error_string.restype = ctypes.c_char_p
+    if name == "fused_fc_epilogue":
+        lib.mxtt_fc_epilogue.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
+                                         ctypes.c_float, i, p]
+        lib.mxtt_fc_epilogue.restype = i
+
+
+def _check(lib: ctypes.CDLL, name: str, rc: int) -> None:
+    if rc != 0:
+        raise MXNetError("%s kernel launch failed: CUDA error %d (%s)"
+                         % (name, rc, lib.mxtt_error_string(rc).decode()))
+
+
+# ---------------------------------------------------------------------------
+# fused_fc_epilogue
+
+ACT_CODES = {"none": 0, "relu": 1, "sigmoid": 2, "tanh": 3, "softrelu": 4}
+_FLOAT_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+INT8_QMAX = 127
+
+
+def requantize(y: torch.Tensor, out_scale: float) -> torch.Tensor:
+    """float -> int8 codes ``clamp(round_half_even(y / out_scale), ±127)``,
+    dividing elementwise as the reference does (a tensor-by-scalar
+    division may multiply by the reciprocal instead)."""
+    if not float(out_scale) > 0:
+        raise MXNetError("out_scale must be > 0, got %r" % (out_scale,))
+    q = torch.round(torch.div(y, torch.full_like(y, float(out_scale))))
+    return torch.clamp(q, -INT8_QMAX, INT8_QMAX).to(torch.int8)
+
+
+def fused_fc_epilogue_reference(x: torch.Tensor, w: torch.Tensor,
+                                b: Optional[torch.Tensor], act_type: str,
+                                out_scale: Optional[float] = None
+                                ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_fc_epilogue`: the same
+    arithmetic (float32 products and sums, the same activation formulas,
+    division by ``out_scale`` and round-half-to-even) in library calls."""
+    acc = torch.matmul(x.float(), w.float().t())
+    if b is not None:
+        acc = acc + b.float()
+    if act_type != "none":
+        acc = ACTIVATIONS[act_type](acc)
+    return acc.to(x.dtype) if out_scale is None else \
+        requantize(acc, out_scale)
+
+
+def fused_fc_epilogue(x: torch.Tensor, w: torch.Tensor,
+                      b: Optional[torch.Tensor], act_type: str,
+                      out_scale: Optional[float] = None) -> torch.Tensor:
+    """``act(x · wᵀ + b)`` for x (M, K), w (N, K), b (N,) or None, summed
+    in float32; the result is (M, N) in x's dtype, or int8 codes
+    ``clamp(rint(y / out_scale), ±127)`` when ``out_scale`` is set.
+
+    CUDA tensors launch the hand-written kernel (csrc/fc_epilogue.cu);
+    CPU tensors take :func:`fused_fc_epilogue_reference`."""
+    if act_type not in ACT_CODES:
+        raise MXNetError("fused_fc_epilogue: unknown act_type %r (have %s)"
+                         % (act_type, sorted(ACT_CODES)))
+    if out_scale is not None and not float(out_scale) > 0:
+        raise MXNetError("fused_fc_epilogue: out_scale must be > 0, got %r"
+                         % (out_scale,))
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1]:
+        raise MXNetError("fused_fc_epilogue: need x (M, K) and w (N, K), got "
+                         "%s and %s" % (tuple(x.shape), tuple(w.shape)))
+    m, k = x.shape
+    n = w.shape[0]
+    if b is not None and tuple(b.shape) != (n,):
+        raise MXNetError("fused_fc_epilogue: bias shape %s != (%d,)"
+                         % (tuple(b.shape), n))
+    tensors = [x, w] + ([b] if b is not None else [])
+    if all(t.device.type == "cpu" for t in tensors):
+        return fused_fc_epilogue_reference(x, w, b, act_type, out_scale)
+    if any(t.device != x.device for t in tensors) or x.device.type != "cuda":
+        raise MXNetError("fused_fc_epilogue: inputs must all be on one CUDA "
+                         "device, got %s" % [str(t.device) for t in tensors])
+    for t, what in ((x, "x"), (w, "w")):
+        if t.dtype not in _FLOAT_CODES:
+            raise MXNetError("fused_fc_epilogue: %s dtype %s not in %s"
+                             % (what, t.dtype, list(_FLOAT_CODES)))
+        if not t.is_contiguous():
+            raise MXNetError("fused_fc_epilogue: %s must be contiguous" % what)
+    if m > 65535 * 8 or n > 2 ** 31 - 1:
+        raise MXNetError("fused_fc_epilogue: shape (%d, %d) exceeds the "
+                         "kernel's grid" % (m, n))
+    out = torch.empty((m, n), device=x.device,
+                      dtype=torch.int8 if out_scale is not None else x.dtype)
+    if m == 0 or n == 0:
+        return out
+    b32 = b.to(torch.float32).contiguous() if b is not None else None
+    lib = _library("fused_fc_epilogue")
+    rc = lib.mxtt_fc_epilogue(
+        x.data_ptr(), w.data_ptr(), b32.data_ptr() if b32 is not None else None,
+        out.data_ptr(), m, n, k, _FLOAT_CODES[x.dtype], _FLOAT_CODES[w.dtype],
+        ACT_CODES[act_type], int(out_scale is not None),
+        float(out_scale) if out_scale is not None else 1.0,
+        x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
+    _check(lib, "fused_fc_epilogue", rc)
+    _count("fused_fc_epilogue")
+    return out

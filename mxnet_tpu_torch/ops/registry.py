@@ -1,0 +1,173 @@
+"""Operator registry: op metadata plus a forward function on tensors.
+
+The counterpart of ``mxnet_tpu/ops/registry.py``.  The metadata (names,
+parameter schemas with dmlc-style string parsing, shape and type rules,
+argument names) is kept identical to the JAX package's, so a graph
+serializes to the same symbol JSON in both packages.  ``forward`` takes
+and returns ``torch.Tensor``s.
+"""
+from __future__ import annotations
+
+import ast
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..base import MXNetError, _AttrDict
+
+__all__ = ["Param", "OpDef", "register_op", "get_op", "list_ops", "OpContext"]
+
+_OP_REGISTRY: Dict[str, "OpDef"] = {}
+
+
+def _parse_shape(v):
+    if isinstance(v, (tuple, list)):
+        return tuple(int(x) for x in v)
+    if isinstance(v, (int, np.integer)):
+        return (int(v),)
+    if isinstance(v, str):
+        val = ast.literal_eval(v.strip())
+        if isinstance(val, (int, float)):
+            return (int(val),)
+        return tuple(int(x) for x in val)
+    raise ValueError("cannot parse shape from %r" % (v,))
+
+
+def _parse_bool(v):
+    if isinstance(v, str):
+        return v.lower() in ("1", "true", "yes")
+    return bool(v)
+
+
+class Param:
+    """One dmlc::Parameter field: typed, defaulted, documented, str-parseable."""
+
+    def __init__(self, name: str, typ, default=None, required: bool = False,
+                 doc: str = "", enum: Optional[Sequence[str]] = None):
+        self.name = name
+        self.typ = typ
+        self.default = default
+        self.required = required
+        self.doc = doc
+        self.enum = enum
+
+    def parse(self, value):
+        if value is None:
+            return None
+        if self.typ == "shape":
+            return _parse_shape(value)
+        if self.typ is bool:
+            return _parse_bool(value)
+        if self.typ is int:
+            return int(float(value)) if isinstance(value, str) else int(value)
+        if self.typ is float:
+            return float(value)
+        if self.typ is str:
+            value = str(value)
+            if self.enum and value not in self.enum:
+                raise MXNetError("param %s expects one of %s, got %r"
+                                 % (self.name, self.enum, value))
+            return value
+        return value
+
+    def to_string(self, value) -> str:
+        """Serialize for symbol JSON attrs."""
+        if self.typ == "shape":
+            return "(" + ", ".join(str(x) for x in value) + ")"
+        if self.typ is bool:
+            return "True" if value else "False"
+        return str(value)
+
+
+class OpContext:
+    """Per-call execution context handed to forward."""
+
+    def __init__(self, is_train: bool = False):
+        self.is_train = is_train
+
+
+class OpDef:
+    """Base class for op definitions.  Subclass and register with
+    @register_op; override ``params``, ``list_arguments``,
+    ``list_outputs``, ``list_auxiliary_states``, ``infer_shape``,
+    ``infer_type`` and ``forward``."""
+
+    params: List[Param] = []
+    hint: Optional[str] = None
+    needs_rng: bool = False
+
+    def __init__(self, name: str):
+        self.name = name
+
+    # -- metadata -----------------------------------------------------------
+    def parse_params(self, kwargs: Dict[str, Any]) -> _AttrDict:
+        p = _AttrDict()
+        schema = {x.name: x for x in self.params}
+        for k, v in kwargs.items():
+            if k not in schema:
+                raise MXNetError("%s got unknown parameter %r (accepts: %s)"
+                                 % (self.name, k, sorted(schema)))
+            p[k] = schema[k].parse(v)
+        for x in self.params:
+            if x.name not in p:
+                if x.required:
+                    raise MXNetError("%s requires parameter %r"
+                                     % (self.name, x.name))
+                p[x.name] = x.parse(x.default) if x.default is not None \
+                    else None
+        return p
+
+    def serialize_params(self, p) -> Dict[str, str]:
+        out = {}
+        for x in self.params:
+            v = p.get(x.name)
+            if v is not None:
+                out[x.name] = x.to_string(v)
+        return out
+
+    def list_arguments(self, p) -> List[str]:
+        return ["data"]
+
+    def list_outputs(self, p) -> List[str]:
+        return ["output"]
+
+    def list_auxiliary_states(self, p) -> List[str]:
+        return []
+
+    # -- inference ----------------------------------------------------------
+    def infer_shape(self, p, in_shapes: List[Optional[Tuple[int, ...]]]):
+        """Return (in_shapes, out_shapes, aux_shapes); None = unknown."""
+        return in_shapes, [in_shapes[0]], []
+
+    def infer_type(self, p, in_types: List[Optional[np.dtype]]):
+        t = next((x for x in in_types if x is not None), np.dtype(np.float32))
+        return [t] * len(in_types), [t] * len(self.list_outputs(p)), \
+            [t] * len(self.list_auxiliary_states(p))
+
+    # -- execution ----------------------------------------------------------
+    def forward(self, p, inputs: List[Any], aux: List[Any], ctx: OpContext):
+        """Return the list of output tensors."""
+        raise NotImplementedError(self.name)
+
+
+def register_op(name: str, hint: Optional[str] = None):
+    def deco(cls):
+        op = cls(name)
+        if hint is not None:
+            op.hint = hint
+        elif op.hint is None:
+            op.hint = name.lstrip("_").lower()
+        _OP_REGISTRY[name] = op
+        return cls
+    return deco
+
+
+def get_op(name: str) -> OpDef:
+    if name not in _OP_REGISTRY:
+        raise MXNetError("operator %r is not registered in the port (have "
+                         "%s)" % (name, sorted(_OP_REGISTRY)))
+    return _OP_REGISTRY[name]
+
+
+def list_ops() -> List[str]:
+    return sorted(_OP_REGISTRY)

@@ -1,0 +1,287 @@
+"""ServeEngine: batch buckets + dynamic batching + hot reload on the card
+(counterpart of ``mxnet_tpu/serve/engine.py``).
+
+The engine binds one executor per batch bucket over a Predictor (all
+buckets share one set of parameter buffers on the device), warms each
+bucket by running it once, and serves ``submit()`` calls through a
+micro-batcher that coalesces concurrent requests into the smallest
+bucket that fits, padding the tail rows.  The dispatcher thread runs a
+batch and starts the device-to-host copy into pinned memory; the
+completion thread waits for that copy while the next batch runs.
+
+``reload(...)`` swaps weights under the lock the dispatcher holds while
+running a batch, so each batch runs entirely under one weights version.
+
+It runs on ``gpu(dev_id)`` unless ``dev_type="cpu"`` is asked for.
+``fuse=True`` builds the serving pass pipeline (fold, CSE, DCE, MoE
+parity, epilogue and elementwise fusion); ``fuse=None`` (the default)
+serves the graph as loaded, as the JAX package does.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..base import get_env
+from ..passes.quantize import build_serving_pipeline, not_ported
+from ..predictor import Predictor, load_checkpoint_pair
+from .batcher import MicroBatcher
+from .errors import ServeError, ServeRequestError
+from .stats import ServeStats
+
+__all__ = ["ServeEngine", "default_buckets"]
+
+
+def default_buckets(max_batch_size: int) -> Tuple[int, ...]:
+    """Power-of-two batch buckets up to (and including) max_batch_size."""
+    if max_batch_size < 1:
+        raise ServeError("max_batch_size must be >= 1, got %d"
+                         % max_batch_size)
+    buckets = []
+    b = 1
+    while b < max_batch_size:
+        buckets.append(b)
+        b *= 2
+    buckets.append(max_batch_size)
+    return tuple(buckets)
+
+
+class ServeEngine:
+    """Dynamic-batching inference server over a Predictor.
+
+    ``input_shapes`` names every input with a leading batch dim (a
+    template: the engine rebinds dim 0 to each bucket); a request is one
+    item of ``input_shapes[data_name][1:]`` and the other inputs (labels)
+    are zero-filled.  ``batch_buckets`` defaults to the power-of-two grid
+    up to ``MXNET_SERVE_MAX_BATCH`` (8); ``max_delay_ms``,
+    ``queue_depth`` and ``deadline_ms`` default from
+    ``MXNET_SERVE_MAX_DELAY_MS`` (2), ``MXNET_SERVE_QUEUE_DEPTH`` (4x max
+    batch) and ``MXNET_SERVE_DEADLINE_MS`` (1000; 0 disables).
+
+    ``mesh``, ``param_specs``, ``quantize``, ``calib_data``, ``u8_wire``,
+    ``autotune`` and ``embed_dedup`` are not in the port yet and raise
+    ``NotImplementedError`` when given.
+    """
+
+    def __init__(self, symbol, params: Dict,
+                 input_shapes: Dict[str, Tuple[int, ...]], *,
+                 data_name: Optional[str] = None,
+                 batch_buckets: Optional[Sequence[int]] = None,
+                 max_delay_ms: Optional[float] = None,
+                 queue_depth: Optional[int] = None,
+                 deadline_ms: Optional[float] = None,
+                 output_index: int = 0,
+                 dev_type: str = "gpu", dev_id: int = 0,
+                 type_dict: Optional[Dict] = None,
+                 name: str = "serve", warmup: bool = True,
+                 mesh=None, param_specs: Optional[Dict] = None,
+                 quantize=None, calib_data=None, u8_wire=None,
+                 fuse=None, pipeline=None, autotune=None,
+                 embed_dedup=None):
+        for option, value in (("ServeEngine(mesh=)", mesh),
+                              ("ServeEngine(param_specs=)", param_specs),
+                              ("ServeEngine(quantize=)", quantize),
+                              ("ServeEngine(calib_data=)", calib_data),
+                              ("ServeEngine(u8_wire=)", u8_wire),
+                              ("ServeEngine(autotune=)", autotune),
+                              ("ServeEngine(embed_dedup=)", embed_dedup)):
+            if value is not None and value is not False:
+                raise not_ported(option)
+        if not input_shapes:
+            raise ServeError("input_shapes must name at least one input")
+        sym_json = symbol.tojson() if hasattr(symbol, "tojson") else symbol
+        if batch_buckets is None:
+            batch_buckets = default_buckets(
+                get_env("MXNET_SERVE_MAX_BATCH", 8, int))
+        self._buckets = tuple(sorted(set(int(b) for b in batch_buckets)))
+        if not self._buckets or self._buckets[0] < 1:
+            raise ServeError("batch_buckets must be positive ints, got %r"
+                             % (batch_buckets,))
+        self.max_batch_size = self._buckets[-1]
+        if max_delay_ms is None:
+            max_delay_ms = get_env("MXNET_SERVE_MAX_DELAY_MS", 2.0, float)
+        if queue_depth is None:
+            queue_depth = get_env("MXNET_SERVE_QUEUE_DEPTH",
+                                  4 * self.max_batch_size, int)
+        if deadline_ms is None:
+            deadline_ms = get_env("MXNET_SERVE_DEADLINE_MS", 1000.0, float)
+        self.max_delay_ms = float(max_delay_ms)
+        self.queue_depth = int(queue_depth)
+        self.deadline_ms = float(deadline_ms) or None
+        self._shapes_tpl = {k: tuple(v) for k, v in input_shapes.items()}
+        if data_name is None:
+            data_name = "data" if "data" in self._shapes_tpl \
+                else next(iter(self._shapes_tpl))
+        if data_name not in self._shapes_tpl:
+            raise ServeError("data_name %r not in input_shapes %s"
+                             % (data_name, sorted(self._shapes_tpl)))
+        self.data_name = data_name
+        self.item_shape = self._shapes_tpl[data_name][1:]
+        self._output_index = int(output_index)
+        self.name = name
+        self.weights_version = 0
+        # serializes batch execution against weight swaps
+        self._swap_lock = threading.Lock()
+        # RLock: a future's done-callback may close() again inline on the
+        # closing thread
+        self._close_lock = threading.RLock()
+        self._shapes_by_bucket = {b: {k: (b,) + v[1:]
+                                      for k, v in self._shapes_tpl.items()}
+                                  for b in self._buckets}
+        if pipeline is None and fuse:
+            pipeline = build_serving_pipeline(fuse=fuse, name=name)
+        self.pipeline = pipeline
+        self._predictor = Predictor(
+            sym_json, params, self._shapes_by_bucket[self.max_batch_size],
+            dev_type, dev_id, type_dict=type_dict, pipeline=pipeline)
+        self._data_dtype = self._predictor._exec.arg_dict[data_name].dtype
+        self.stats = ServeStats(name, self.max_batch_size)
+        self._bind_grid()
+        self._batcher = MicroBatcher(
+            self._run_batch, self._finish,
+            max_batch_size=self.max_batch_size,
+            max_delay_ms=self.max_delay_ms, queue_depth=self.queue_depth,
+            default_deadline_ms=self.deadline_ms, validate=self._validate,
+            stats=self.stats, name=name,
+            on_start=self._warmup if warmup else None)
+        self._closed = False
+
+    @classmethod
+    def from_checkpoint(cls, prefix: str, epoch: int,
+                        input_shapes: Dict[str, Tuple[int, ...]],
+                        **kwargs) -> "ServeEngine":
+        """Serve a ``save_checkpoint`` pair."""
+        sym_json, params = load_checkpoint_pair(prefix, epoch)
+        return cls(sym_json, params, input_shapes, **kwargs)
+
+    # -- bucket grid -------------------------------------------------------
+    def _grid_fail(self, bucket, phase, exc):
+        raise ServeError(
+            "serve bucket-grid construction failed at bucket %d (input "
+            "shapes %s, %s phase): %s: %s"
+            % (bucket, sorted(self._shapes_by_bucket[bucket].items()),
+               phase, type(exc).__name__, exc)) from exc
+
+    def _bind_grid(self) -> None:
+        """Bind every bucket's executor; they share the parameters."""
+        for b in self._buckets:
+            try:
+                self._predictor.ensure_bound(self._shapes_by_bucket[b])
+            except Exception as e:
+                self._grid_fail(b, "bind", e)
+
+    def _warmup(self) -> None:
+        """Run every bucket once through the batch path, on the
+        dispatcher thread: allocator pools, the pinned output buffers,
+        the thread's cuDNN/cuBLAS handles and plans and the kernels'
+        libraries are all ready before the first request."""
+        for b in self._buckets:
+            try:
+                self._finish(self._execute(
+                    np.zeros((b,) + self.item_shape, self._data_dtype), b))
+            except Exception as e:
+                self._grid_fail(b, "first run", e)
+
+    def _validate(self, data) -> np.ndarray:
+        """Admission-time request validation (caller's thread)."""
+        arr = np.asarray(data)
+        if arr.dtype.kind not in "biuf":
+            raise ServeRequestError(
+                "request dtype %s is not numeric (expected castable to %s)"
+                % (arr.dtype, self._data_dtype))
+        if tuple(arr.shape) != tuple(self.item_shape):
+            raise ServeRequestError(
+                "request shape %s != item shape %s (submit ONE item; the "
+                "server owns the batch dim)"
+                % (tuple(arr.shape), tuple(self.item_shape)))
+        return np.ascontiguousarray(arr, dtype=self._data_dtype)
+
+    def _pick_bucket(self, n: int) -> int:
+        for b in self._buckets:
+            if b >= n:
+                return b
+        return self.max_batch_size
+
+    # -- batch execution (dispatcher thread) ------------------------------
+    def _run_batch(self, reqs) -> Tuple:
+        n = len(reqs)
+        bucket = self._pick_bucket(n)
+        data = np.stack([r.data for r in reqs])
+        if bucket > n:
+            pad = np.zeros((bucket - n,) + self.item_shape, self._data_dtype)
+            data = np.concatenate([data, pad], axis=0)
+        handoff = self._execute(data, n)
+        self.stats.on_batch(n, bucket)
+        return handoff
+
+    def _execute(self, data: np.ndarray, n: int) -> Tuple:
+        """Run one padded batch; start the copy of its first ``n`` output
+        rows to the host and return without waiting for it."""
+        with self._swap_lock:
+            p = self._predictor
+            p.reshape(self._shapes_by_bucket[data.shape[0]])
+            p.set_input(self.data_name, data)
+            p.forward()
+            out = p._exec.outputs[self._output_index]._get()
+        done = None
+        if out.is_cuda:
+            # copy into pinned memory; the completion thread waits on the
+            # event while this thread runs the next batch
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(out.device))
+            out = host
+        return out, done, n
+
+    def _finish(self, handoff) -> List[np.ndarray]:
+        """Completion thread: wait for the copy, slice per request."""
+        out, done, n = handoff
+        if done is not None:
+            done.synchronize()
+        host = out.numpy()
+        return [np.array(host[i]) for i in range(n)]
+
+    # -- client API --------------------------------------------------------
+    def submit(self, data, deadline_ms: Optional[float] = None):
+        """Enqueue one item (shape ``item_shape``); returns a Future of
+        its output row."""
+        return self._batcher.submit(data, deadline_ms=deadline_ms)
+
+    # -- hot weight reload -------------------------------------------------
+    def reload(self, arg_params: Dict,
+               aux_params: Optional[Dict] = None) -> int:
+        """Swap weights between batches; returns the new version."""
+        with self._swap_lock:
+            self._predictor.set_params(arg_params, aux_params)
+            self.weights_version += 1
+            version = self.weights_version
+        self.stats.on_reload()
+        return version
+
+    # -- introspection -----------------------------------------------------
+    @property
+    def buckets(self) -> Tuple[int, ...]:
+        return self._buckets
+
+    # -- lifecycle ---------------------------------------------------------
+    def close(self, drain: bool = True) -> None:
+        """Stop admissions, drain (or fail) queued requests, join the
+        worker threads.  Thread-safe and idempotent."""
+        if self._batcher.is_worker_thread():
+            self._batcher.request_close(drain=drain)
+            return
+        with self._close_lock:
+            if self._closed:
+                return
+            self._closed = True
+            self._batcher.close(drain=drain)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

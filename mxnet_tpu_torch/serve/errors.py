@@ -1,0 +1,46 @@
+"""Serving error taxonomy (counterpart of ``mxnet_tpu/serve/errors.py``).
+
+Every failure a client can see maps to one concrete subclass of
+:class:`ServeError` (itself an :class:`~mxnet_tpu_torch.base.MXNetError`), so
+callers can route on type instead of parsing messages:
+
+* :class:`ServeRequestError` — the request itself is malformed (wrong
+  item shape, non-numeric dtype).  Raised at **admission time** in the
+  caller's thread, before the request touches the queue: one bad request
+  can never poison a batch of good ones.
+* :class:`ServeOverloadError` — the bounded request queue is full.
+  Raised **immediately** from ``submit`` (fast-fail): under overload the
+  caller learns in microseconds, never by a hang.  Shed or retry with
+  backoff upstream.
+* :class:`ServeDeadlineError` — the request's deadline expired while it
+  waited in the queue; delivered through the future.
+* :class:`ServeClosedError` — the engine is shut down (or was closed
+  without draining while this request was queued).
+"""
+from __future__ import annotations
+
+from ..base import MXNetError
+
+__all__ = ["ServeError", "ServeOverloadError", "ServeDeadlineError",
+           "ServeRequestError", "ServeClosedError"]
+
+
+class ServeError(MXNetError):
+    """Base class for inference-serving failures."""
+
+
+class ServeOverloadError(ServeError):
+    """Bounded request queue is full: request rejected at submit time."""
+
+
+class ServeDeadlineError(ServeError):
+    """Request deadline expired before it could be dispatched."""
+
+
+class ServeRequestError(ServeError):
+    """Malformed request rejected at admission (shape/dtype validation)."""
+
+
+class ServeClosedError(ServeError):
+    """Engine closed: no new requests accepted / queued request dropped."""
+

@@ -1,0 +1,136 @@
+"""Serving instrumentation for one ServeEngine (counterpart of
+``ServeStats`` in ``mxnet_tpu/serve/stats.py``): latency p50/p95/p99
+over a sliding window of completed requests (queue wait + inference +
+device-to-host copy, what the client saw), batch occupancy, pad waste,
+per-bucket hit counts, queue depth and the reject/expiry/cancel/failure
+counters.  Decode and paged-decode stats come with their slices.
+"""
+from __future__ import annotations
+
+import collections
+import math
+import threading
+from typing import Dict, List
+
+
+__all__ = ["ServeStats"]
+
+# sliding latency window: big enough for stable p99, small enough that a
+# report reflects the recent regime rather than the whole process life
+LATENCY_WINDOW = 4096
+
+
+def _percentile(sorted_ms: List[float], q: float) -> float:
+    """Nearest-rank percentile of an already-sorted list (0 when empty)."""
+    if not sorted_ms:
+        return 0.0
+    idx = max(0, min(len(sorted_ms) - 1,
+                     int(math.ceil(q / 100.0 * len(sorted_ms))) - 1))
+    return sorted_ms[idx]
+
+
+class ServeStats:
+    """Counters for one ServeEngine; written from the submit/dispatch/
+    completion threads under a lock, snapshotted atomically by
+    ``report()``."""
+
+    def __init__(self, name: str, max_batch_size: int):
+        self.name = name
+        self.max_batch_size = int(max_batch_size)
+        self._lock = threading.Lock()
+        self._submitted = 0
+        self._completed = 0
+        self._overloaded = 0
+        self._expired = 0
+        self._cancelled = 0
+        self._failed = 0
+        self._reloads = 0
+        self._batches = 0
+        self._batch_items = 0
+        self._pad_items = 0
+        self._bucket_hits: Dict[int, int] = {}
+        self._queue_depth = 0
+        self._queue_depth_max = 0
+        self._lat_ms = collections.deque(maxlen=LATENCY_WINDOW)
+
+    # -- recording ---------------------------------------------------------
+    def on_submit(self, queue_depth: int) -> None:
+        with self._lock:
+            self._submitted += 1
+            self._queue_depth = queue_depth
+            if queue_depth > self._queue_depth_max:
+                self._queue_depth_max = queue_depth
+
+    def on_overload(self) -> None:
+        with self._lock:
+            self._overloaded += 1
+
+    def on_expired(self, n: int) -> None:
+        with self._lock:
+            self._expired += n
+
+    def on_cancelled(self, n: int) -> None:
+        with self._lock:
+            self._cancelled += n
+
+    def on_failed(self, n: int) -> None:
+        with self._lock:
+            self._failed += n
+
+    def on_batch(self, items: int, bucket: int) -> None:
+        with self._lock:
+            self._batches += 1
+            self._batch_items += items
+            self._pad_items += bucket - items
+            self._bucket_hits[bucket] = self._bucket_hits.get(bucket, 0) + 1
+
+    def on_complete(self, latencies_ms) -> None:
+        with self._lock:
+            self._completed += len(latencies_ms)
+            self._lat_ms.extend(latencies_ms)
+
+    def on_reload(self) -> None:
+        with self._lock:
+            self._reloads += 1
+
+    def set_queue_depth(self, depth: int) -> None:
+        with self._lock:
+            self._queue_depth = depth
+
+    def _outstanding_locked(self) -> int:
+        """Terminal-outcome balance — EVERY new terminal counter must be
+        subtracted here and only here (lock held by the caller)."""
+        return max(0, self._submitted - self._completed - self._failed
+                   - self._expired - self._cancelled)
+
+    # -- reading -----------------------------------------------------------
+    def report(self) -> Dict:
+        with self._lock:
+            lat = sorted(self._lat_ms)
+            dispatched = self._batch_items + self._pad_items
+            out = {
+                "kind": "engine",
+                "max_batch_size": self.max_batch_size,
+                "outstanding": self._outstanding_locked(),
+                "submitted": self._submitted,
+                "completed": self._completed,
+                "overloaded": self._overloaded,
+                "expired": self._expired,
+                "cancelled": self._cancelled,
+                "failed": self._failed,
+                "reloads": self._reloads,
+                "batches": self._batches,
+                "batch_occupancy": round(
+                    self._batch_items
+                    / (self._batches * self.max_batch_size), 4)
+                if self._batches else 0.0,
+                "pad_waste_frac": round(self._pad_items / dispatched, 4)
+                if dispatched else 0.0,
+                "bucket_hits": dict(sorted(self._bucket_hits.items())),
+                "queue_depth": self._queue_depth,
+                "queue_depth_max": self._queue_depth_max,
+            }
+        out["latency_p50_ms"] = round(_percentile(lat, 50), 3)
+        out["latency_p95_ms"] = round(_percentile(lat, 95), 3)
+        out["latency_p99_ms"] = round(_percentile(lat, 99), 3)
+        return out

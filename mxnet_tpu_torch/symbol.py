@@ -1,0 +1,401 @@
+"""Symbolic graph construction (counterpart of ``mxnet_tpu/symbol.py``).
+
+A Symbol is a list of output heads over a DAG of ``_Node`` (op + params
++ attrs + inputs).  The JSON it serializes to is byte-for-byte the JAX
+package's (same node order, same parameter strings, the
+``"mxnet_tpu_version": 1`` graph attribute), so a graph written by
+either package loads in the other.  Atomic constructors
+(``sym.FullyConnected`` ...) are generated from the op registry.
+"""
+from __future__ import annotations
+
+import ast
+import json
+import sys
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .attribute import AttrScope
+from .base import MXNetError, _AttrDict, atomic_local_write
+from .name import NameManager
+from .ops import OpDef, get_op, list_ops
+
+__all__ = ["Symbol", "Variable", "Group", "load", "load_json", "var"]
+
+
+class _Node:
+    """Graph node: op application or variable."""
+
+    __slots__ = ("op", "name", "attrs", "params", "inputs", "is_aux")
+
+    def __init__(self, op: Optional[OpDef], name: str,
+                 params=None, attrs=None, inputs=None, is_aux=False):
+        self.op = op
+        self.name = name
+        self.params = params if params is not None else {}
+        self.attrs = dict(attrs) if attrs else {}
+        self.inputs: List[Tuple["_Node", int]] = list(inputs) if inputs else []
+        self.is_aux = is_aux
+
+    @property
+    def is_variable(self):
+        return self.op is None
+
+    def num_outputs(self):
+        return 1 if self.op is None else len(self.op.list_outputs(self.params))
+
+
+def _topo(heads: Sequence[Tuple[_Node, int]]) -> List[_Node]:
+    """DFS post-order over the graph (the JAX package's node order)."""
+    visited = set()
+    order: List[_Node] = []
+
+    def visit(node: _Node):
+        if id(node) in visited:
+            return
+        visited.add(id(node))
+        for (inp, _) in node.inputs:
+            visit(inp)
+        order.append(node)
+
+    for (n, _) in heads:
+        visit(n)
+    return order
+
+
+class Symbol:
+    """Symbol = list of output heads over a shared DAG."""
+
+    def __init__(self, heads: Sequence[Tuple[_Node, int]],
+                 graph_attrs: Optional[Dict[str, str]] = None):
+        self._heads: List[Tuple[_Node, int]] = list(heads)
+        # graph-level attrs, serialized into the json "attrs" block; the
+        # pass pipeline stamps its fingerprint here (``__passes__``)
+        self._graph_attrs: Dict[str, str] = dict(graph_attrs or {})
+
+    # -- composition --------------------------------------------------------
+    def __call__(self, *args, **kwargs):
+        """Compose: substitute free variables with other symbols."""
+        s = self.__copy__()
+        s._compose(*args, **kwargs)
+        return s
+
+    def _compose(self, *args, **kwargs):
+        name = kwargs.pop("name", None)
+        arg_names = self.list_arguments()
+        if args:
+            if len(args) > len(arg_names):
+                raise MXNetError("too many positional arguments")
+            kwargs.update(dict(zip(arg_names, args)))
+        sub = {}
+        for k, v in kwargs.items():
+            if not isinstance(v, Symbol):
+                raise TypeError("compose expects Symbol arguments")
+            if len(v._heads) != 1:
+                raise MXNetError("cannot compose with grouped symbol")
+            if k not in arg_names:
+                raise MXNetError("unknown argument %r (has %s)"
+                                 % (k, arg_names))
+            sub[k] = v._heads[0]
+        for node in _topo(self._heads):
+            node.inputs = [sub.get(inp.name, (inp, idx)) if inp.is_variable
+                           else (inp, idx) for (inp, idx) in node.inputs]
+        if name is not None and len(self._heads) == 1:
+            self._heads[0][0].name = name
+
+    def __copy__(self) -> "Symbol":
+        """Deep copy of the reachable graph."""
+        mapping: Dict[int, _Node] = {}
+        for node in _topo(self._heads):
+            new = _Node(node.op, node.name, _AttrDict(node.params),
+                        dict(node.attrs),
+                        [(mapping[id(i)], x) for (i, x) in node.inputs],
+                        node.is_aux)
+            mapping[id(node)] = new
+        return Symbol([(mapping[id(n)], i) for (n, i) in self._heads],
+                      graph_attrs=self._graph_attrs)
+
+    def __deepcopy__(self, memo=None):
+        return self.__copy__()
+
+    copy = __copy__
+
+    # -- introspection ------------------------------------------------------
+    @property
+    def name(self) -> Optional[str]:
+        nodes = {id(n) for (n, _) in self._heads}
+        if len(nodes) == 1:
+            return self._heads[0][0].name
+        return None
+
+    def list_arguments(self) -> List[str]:
+        return [n.name for n in _topo(self._heads)
+                if n.is_variable and not n.is_aux]
+
+    def list_outputs(self) -> List[str]:
+        out = []
+        for (node, idx) in self._heads:
+            if node.is_variable:
+                out.append(node.name)
+            else:
+                names = node.op.list_outputs(node.params)
+                out.append("%s_%s" % (node.name, names[idx]))
+        return out
+
+    def list_auxiliary_states(self) -> List[str]:
+        out = []
+        for n in _topo(self._heads):
+            if n.is_variable and n.is_aux:
+                out.append(n.name)
+            elif not n.is_variable:
+                for aux in n.op.list_auxiliary_states(n.params):
+                    out.append("%s_%s" % (n.name, aux))
+        return out
+
+    def get_internals(self) -> "Symbol":
+        heads = []
+        for node in _topo(self._heads):
+            for i in range(node.num_outputs()):
+                heads.append((node, i))
+        return Symbol(heads, graph_attrs=self._graph_attrs)
+
+    # -- shape / type inference ---------------------------------------------
+    def infer_shape(self, *args, **kwargs):
+        """-> (arg_shapes, out_shapes, aux_shapes), or three Nones when
+        the given shapes do not determine every one."""
+        arg_names = self.list_arguments()
+        known: Dict[str, Tuple[int, ...]] = {}
+        for name, shape in zip(arg_names, args):
+            if shape is not None:
+                known[name] = tuple(shape)
+        for k, v in kwargs.items():
+            if k not in arg_names:
+                raise MXNetError("unknown argument %r in infer_shape (has %s)"
+                                 % (k, arg_names))
+            known[k] = tuple(v)
+
+        node_out_shapes: Dict[Tuple[int, int], Optional[Tuple[int, ...]]] = {}
+        var_shapes: Dict[str, Optional[Tuple[int, ...]]] = {}
+        aux_shapes_map: Dict[str, Optional[Tuple[int, ...]]] = {}
+        for node in _topo(self._heads):
+            if node.is_variable:
+                shape = known.get(node.name)
+                if shape is None and "__shape__" in node.attrs:
+                    shape = tuple(int(x) for x in
+                                  ast.literal_eval(node.attrs["__shape__"]))
+                var_shapes.setdefault(node.name, shape)
+                node_out_shapes[(id(node), 0)] = var_shapes[node.name]
+                continue
+            in_shapes = [node_out_shapes.get((id(i), x))
+                         for (i, x) in node.inputs]
+            new_in, out_s, aux_s = node.op.infer_shape(node.params, in_shapes)
+            for (inp, x), s in zip(node.inputs, new_in):
+                if s is None:
+                    continue
+                prev = node_out_shapes.get((id(inp), x))
+                if prev is None:
+                    node_out_shapes[(id(inp), x)] = tuple(s)
+                    if inp.is_variable:
+                        var_shapes[inp.name] = tuple(s)
+                elif tuple(prev) != tuple(s):
+                    raise MXNetError("shape inconsistency at %s: %s vs %s"
+                                     % (node.name, prev, s))
+            for i, s in enumerate(out_s):
+                node_out_shapes[(id(node), i)] = \
+                    tuple(s) if s is not None else None
+            aux_names = node.op.list_auxiliary_states(node.params)
+            for an, s in zip(aux_names, aux_s):
+                aux_shapes_map["%s_%s" % (node.name, an)] = \
+                    tuple(s) if s is not None else None
+
+        arg_shapes = [var_shapes.get(n) for n in arg_names]
+        out_shapes = [node_out_shapes.get((id(n), i)) for (n, i) in self._heads]
+        aux_shapes = [aux_shapes_map.get(n)
+                      for n in self.list_auxiliary_states()]
+        if any(s is None for s in arg_shapes + out_shapes):
+            return None, None, None
+        return arg_shapes, out_shapes, aux_shapes
+
+    def infer_type(self, *args, **kwargs):
+        arg_names = self.list_arguments()
+        known: Dict[str, Any] = {}
+        for name, t in zip(arg_names, args):
+            if t is not None:
+                known[name] = np.dtype(t)
+        for k, v in kwargs.items():
+            known[k] = np.dtype(v)
+        node_types: Dict[Tuple[int, int], Any] = {}
+        var_types: Dict[str, Any] = {}
+        aux_types_map: Dict[str, Any] = {}
+        for node in _topo(self._heads):
+            if node.is_variable:
+                t = known.get(node.name, np.dtype(np.float32))
+                var_types.setdefault(node.name, t)
+                node_types[(id(node), 0)] = var_types[node.name]
+                continue
+            in_types = [node_types.get((id(i), x)) for (i, x) in node.inputs]
+            _new_in, out_t, aux_t = node.op.infer_type(node.params, in_types)
+            for i, t in enumerate(out_t):
+                node_types[(id(node), i)] = t
+            for an, t in zip(node.op.list_auxiliary_states(node.params), aux_t):
+                aux_types_map["%s_%s" % (node.name, an)] = t
+        arg_types = [var_types.get(n, np.dtype(np.float32)) for n in arg_names]
+        out_types = [node_types.get((id(n), i)) for (n, i) in self._heads]
+        aux_types = [aux_types_map.get(n) for n in self.list_auxiliary_states()]
+        return arg_types, out_types, aux_types
+
+    # -- serialization ------------------------------------------------------
+    def tojson(self) -> str:
+        nodes = _topo(self._heads)
+        idx = {id(n): i for i, n in enumerate(nodes)}
+        jnodes = []
+        for n in nodes:
+            if n.is_variable:
+                jnodes.append({"op": "null", "name": n.name,
+                               "attr": dict(n.attrs), "inputs": []})
+            else:
+                jnodes.append({
+                    "op": n.op.name, "name": n.name,
+                    "param": n.op.serialize_params(n.params),
+                    "attr": dict(n.attrs),
+                    "inputs": [[idx[id(i)], x] for (i, x) in n.inputs]})
+        heads = [[idx[id(n)], i] for (n, i) in self._heads]
+        arg_nodes = [i for i, n in enumerate(nodes) if n.is_variable]
+        attrs = {"mxnet_tpu_version": 1}
+        attrs.update(self._graph_attrs)
+        return json.dumps({"nodes": jnodes, "arg_nodes": arg_nodes,
+                           "heads": heads, "attrs": attrs}, indent=2)
+
+    def save(self, fname: str) -> None:
+        """Write the JSON, published atomically."""
+        with atomic_local_write(fname, "w") as f:
+            f.write(self.tojson())
+
+    def __repr__(self):
+        if len(self._heads) == 1:
+            return "<Symbol %s>" % self.name
+        return "<Symbol group [%s]>" % ", ".join(self.list_outputs())
+
+    # -- binding -------------------------------------------------------------
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    shared_exec=None, **kwargs):
+        from .executor import simple_bind as _sb
+        return _sb(self, ctx, grad_req=grad_req, type_dict=type_dict,
+                   shared_exec=shared_exec, **kwargs)
+
+
+def Variable(name: str, attr=None, shape=None, lr_mult=None, wd_mult=None,
+             dtype=None, init=None) -> Symbol:
+    """Create a symbolic variable."""
+    if not isinstance(name, str):
+        raise TypeError("Expect a string for variable name")
+    attr = AttrScope.current().get(attr)
+    attr = dict(attr) if attr else {}
+    if shape is not None:
+        attr["__shape__"] = str(tuple(shape))
+    if lr_mult is not None:
+        attr["lr_mult"] = str(lr_mult)
+    if wd_mult is not None:
+        attr["wd_mult"] = str(wd_mult)
+    return Symbol([(_Node(None, name, attrs=attr), 0)])
+
+
+var = Variable
+
+
+def Group(symbols: Sequence[Symbol]) -> Symbol:
+    """Group symbols into one multi-output symbol."""
+    heads = []
+    gattrs: Dict[str, str] = {}
+    for s in symbols:
+        if not isinstance(s, Symbol):
+            raise TypeError("Expected Symbol in Group")
+        heads.extend(s._heads)
+        gattrs.update(s._graph_attrs)
+    return Symbol(heads, graph_attrs=gattrs)
+
+
+def load(fname: str) -> Symbol:
+    with open(fname) as f:
+        return load_json(f.read())
+
+
+def load_json(json_str: str) -> Symbol:
+    data = json.loads(json_str)
+    nodes: List[_Node] = []
+    for jn in data["nodes"]:
+        if jn["op"] == "null":
+            nodes.append(_Node(None, jn["name"], attrs=jn.get("attr", {})))
+        else:
+            op = get_op(jn["op"])
+            params = op.parse_params(jn.get("param", {}))
+            inputs = [(nodes[i], x) for (i, x) in jn["inputs"]]
+            nodes.append(_Node(op, jn["name"], params=params,
+                               attrs=jn.get("attr", {}), inputs=inputs))
+    heads = [(nodes[i], x) for (i, x) in data["heads"]]
+    graph_attrs = {k: v for k, v in (data.get("attrs") or {}).items()
+                   if k != "mxnet_tpu_version"}
+    return Symbol(heads, graph_attrs=graph_attrs)
+
+
+# ---------------------------------------------------------------------------
+# atomic symbol constructors
+
+def _create(op_name: str, input_syms: Sequence[Symbol],
+            name: Optional[str] = None, attr=None, **params) -> Symbol:
+    op = get_op(op_name)
+    named_inputs = {k: v for k, v in params.items() if isinstance(v, Symbol)}
+    for k in named_inputs:
+        params.pop(k)
+    p = op.parse_params(params)
+    arg_names = op.list_arguments(p)
+
+    inputs_by_name: Dict[str, Symbol] = dict(zip(arg_names, input_syms))
+    for k, v in named_inputs.items():
+        if k not in arg_names:
+            raise MXNetError("%s got unexpected input %r (args: %s)"
+                             % (op_name, k, arg_names))
+        inputs_by_name[k] = v
+
+    attr = AttrScope.current().get(attr)
+    name = NameManager.current().get(name, op.hint)
+    inputs: List[Tuple[_Node, int]] = []
+    for an in arg_names:
+        if an in inputs_by_name:
+            s = inputs_by_name[an]
+            if len(s._heads) != 1:
+                raise MXNetError("cannot use grouped symbol as input")
+            inputs.append(s._heads[0])
+        else:
+            # auto-create a missing argument variable, e.g. fc1_weight
+            vnode = _Node(None, "%s_%s" % (name, an),
+                          attrs=dict(attr) if attr else {})
+            inputs.append((vnode, 0))
+    node = _Node(op, name, params=p, attrs=dict(attr) if attr else {},
+                 inputs=inputs)
+    return Symbol([(node, i) for i in range(node.num_outputs())])
+
+
+def _make_atomic_symbol_function(op_name: str):
+    def creator(*args, **kwargs):
+        name = kwargs.pop("name", None)
+        attr = kwargs.pop("attr", None)
+        input_syms = [a for a in args if isinstance(a, Symbol)]
+        return _create(op_name, input_syms, name=name, attr=attr, **kwargs)
+    creator.__name__ = op_name
+    creator.__doc__ = "Auto-generated constructor for operator %s" % op_name
+    return creator
+
+
+def _init_symbol_module():
+    module = sys.modules[__name__]
+    for op_name in list_ops():
+        fn = _make_atomic_symbol_function(op_name)
+        setattr(module, op_name, fn)
+        public = op_name.lstrip("_")
+        if not hasattr(module, public):
+            setattr(module, public, fn)
+
+
+_init_symbol_module()
