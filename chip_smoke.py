@@ -17,7 +17,19 @@ Phases, in order; any failure exits nonzero:
    fused serving pipeline on the default device -> 32 requests from 4
    client threads, each answer held against an unfused Predictor, the
    kernels' launch counts read around exactly this run;
-5. the ``kernels`` JSON line, then the ``{"ok": true, ...}`` line.
+5. paged_attention against its plain version at the LLM path's shapes
+   (16 slots, 12 heads of 64, 16-token blocks, C = 1, 9, 32, contexts
+   over 1..1024, scattered page tables) and at ragged ones; bitwise
+   layout invariance; kernel, plain version and gather + SDPA timed;
+6. serve an LM at GPT-2-small geometry (vocab 50257, dim 768, 12 heads,
+   12 layers, context 1024; 124 M float32 parameters from a numpy seed)
+   through PagedDecodeEngine on the default device: 32 mixed-length
+   streams from 4 client threads through the paged engine, the
+   dense-stripe engine and the speculative engine (1-layer draft),
+   streams held equal; teacher-forced logits of the kernel against the
+   plain version; launch counts read around each engine run; a profile
+   of one chunk-width step and one decode step;
+7. the ``kernels`` JSON line, then the ``{"ok": true, ...}`` line.
 """
 import json
 import math
@@ -35,7 +47,8 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
-REPLACES = {"fused_fc_epilogue": "mxnet_tpu/ops/pallas_kernels.py:347"}
+REPLACES = {"fused_fc_epilogue": "mxnet_tpu/ops/pallas_kernels.py:347",
+            "paged_attention": "mxnet_tpu/ops/pallas_kernels.py:262"}
 
 
 def fail(msg):
@@ -377,6 +390,547 @@ def conv_gflop(symbol, shapes):
     return total / 1e9
 
 
+# ---------------------------------------------------------------------------
+# phase 5: paged_attention against its plain version
+
+def engine_positions(np_lengths, c):
+    """q_pos as the engine builds it: each slot's last min(c, length)
+    positions, the rows past them at position 0."""
+    q_pos = np.zeros((len(np_lengths), c), np.int32)
+    for i, n in enumerate(np_lengths):
+        nv = min(c, int(n))
+        q_pos[i, :nv] = n - nv + np.arange(nv)
+    return q_pos
+
+
+def paged_case(torch, dev, seed, lengths, c, h=12, d=64, bt=16, b=64,
+               blocks=None, scatter=True):
+    """A paged-KV scenario on the card: pools of ``blocks`` real blocks
+    plus the sentinel scratch row (filled with large finite values, which
+    the lengths must mask), each slot's blocks assigned from a permutation
+    (scatter) or as stripes, unassigned entries at the sentinel."""
+    rng = np.random.default_rng(seed)
+    lengths = np.asarray(lengths, np.int32)
+    s = len(lengths)
+    need = [-(-int(n) // bt) for n in lengths]
+    blocks = blocks or max(sum(need), 1)
+    pages = np.full((s, b), blocks, np.int32)
+    order = rng.permutation(blocks) if scatter else np.arange(blocks)
+    nxt = 0
+    for i, n in enumerate(need):
+        pages[i, :n] = order[nxt:nxt + n]
+        nxt += n
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k_pool = torch.randn((blocks + 1, bt, h, d), generator=gen, device=dev)
+    v_pool = torch.randn((blocks + 1, bt, h, d), generator=gen, device=dev)
+    k_pool[blocks] = 1e4
+    v_pool[blocks] = 1e4
+    q = torch.randn((s, c, h, d), generator=gen, device=dev)
+    q_pos = engine_positions(lengths, c)
+    return {"q": q, "k_pool": k_pool, "v_pool": v_pool,
+            "pages": torch.from_numpy(pages).to(dev),
+            "lengths": torch.from_numpy(lengths).to(dev),
+            "q_pos": torch.from_numpy(q_pos).to(dev),
+            "np_lengths": lengths, "np_q_pos": q_pos}
+
+
+def paged_args(case):
+    return (case["q"], case["k_pool"], case["v_pool"], case["pages"],
+            case["lengths"], case["q_pos"])
+
+
+def paged_bound_ms(case, causal=True):
+    """Least time for the work this case's data needs: each slot's
+    visible keys' K and V read once (a key is visible to some row when
+    it lies below the length and, causally, at or below that row's
+    position), q read, out written; 4·D flops per (row, visible key,
+    head)."""
+    q = case["q"]
+    s, c, h, d = q.shape
+    lengths, q_pos = case["np_lengths"], case["np_q_pos"]
+    cap = case["pages"].shape[1] * case["k_pool"].shape[1]
+    seen = np.minimum(lengths[:, None], cap)
+    if causal:
+        seen = np.minimum(seen, q_pos + 1)
+    seen = np.maximum(seen, 0)
+    keys_read = seen.max(axis=1).sum()
+    nbytes = (2 * keys_read * h * d * 4 + 2 * q.numel() * 4
+              + case["pages"].numel() * 4 + lengths.size * 4 + q_pos.size * 4)
+    flops = 4.0 * h * d * float(seen.sum())
+    by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    by_flops = 1e3 * flops / PEAK_F32_FLOPS
+    return max(by_bytes, by_flops), ("bytes" if by_bytes >= by_flops
+                                     else "operations")
+
+
+def sdpa_library(torch, case, causal=True):
+    """The same function as one library attention call after a gather:
+    page-table gather + F.scaled_dot_product_attention with a boolean
+    mask.  A yardstick only (rows with no visible key give NaN there)."""
+    import torch.nn.functional as F
+    q, kp, vp, pages, lengths, q_pos = paged_args(case)
+    s, c, h, d = q.shape
+    n, bt = kp.shape[0], kp.shape[1]
+    b = pages.shape[1]
+    safe = pages.long().clamp(0, n - 1)
+    k_idx = torch.arange(b * bt, device=q.device)
+    mask = (k_idx[None, :] < lengths.long()[:, None])[:, None, None, :]
+    if causal:
+        mask = mask & (k_idx[None, None, :]
+                       <= q_pos.long()[:, :, None])[:, None]
+
+    def call():
+        kg = kp[safe].reshape(s, b * bt, h, d).transpose(1, 2)
+        vg = vp[safe].reshape(s, b * bt, h, d).transpose(1, 2)
+        return F.scaled_dot_product_attention(q.transpose(1, 2), kg, vg,
+                                              attn_mask=mask)
+    return call
+
+
+def paged_kernel_phase(torch, ck):
+    dev = torch.device("cuda", 0)
+    # Tolerance: the kernel walks keys in chunks with an online softmax
+    # (running max, rescaled sums), the plain version takes one global
+    # max and sums in einsum's order; both in float32 over at most 1024
+    # keys of 64-wide dot products, so they differ by a few ulps of the
+    # O(1) outputs: 1e-5 * max(1, max|plain|).
+    tol_rel = 1e-5
+    spread = np.linspace(1, 1024, 16).round().astype(np.int32)
+    cases = []
+    for c in (1, 9, 32):
+        cases.append(("main-C%d" % c, dict(seed=c, lengths=spread, c=c,
+                                           blocks=1100), True, True))
+    ragged = np.array([0, 1, 7, 15, 16, 17, 31, 33, 100, 257, 511, 513,
+                       999, 1023, 1024, 5], np.int32)
+    cases += [
+        ("ragged-C1", dict(seed=11, lengths=ragged, c=1), True, False),
+        ("ragged-C32", dict(seed=12, lengths=ragged, c=32), True, False),
+        ("ragged-full", dict(seed=13, lengths=ragged, c=9), False, False),
+        ("C>len", dict(seed=14, lengths=[3, 0, 2, 40], c=32), True, False),
+        ("bt8-D128", dict(seed=15, lengths=[9, 200, 64], c=9, h=4, d=128,
+                          bt=8, b=32), True, False),
+        ("D10-scalar", dict(seed=16, lengths=[5, 77, 33], c=4, h=3, d=10,
+                            bt=16, b=8), True, False),
+    ]
+    main_err = 0.0
+    for name, kw, causal, main in cases:
+        case = paged_case(torch, dev, **kw)
+        out = ck.paged_attention(*paged_args(case), causal=causal)
+        ref = ck.paged_attention_reference(*paged_args(case), causal=causal)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = tol_rel * max(1.0, ref.abs().max().item())
+        empty = case["np_lengths"] == 0
+        zeros = bool((out[torch.from_numpy(empty).to(dev)] == 0).all())
+        print("kernel check paged %-12s S=%-2d C=%-2d H=%-2d D=%-3d bt=%-2d "
+              "causal=%d max_abs_err=%.3g tol=%.3g finite=%s empty-zero=%s"
+              % (name, out.shape[0], out.shape[1], out.shape[2],
+                 out.shape[3], case["k_pool"].shape[1], causal, err, tol,
+                 bool(torch.isfinite(out).all()), zeros))
+        if not (err <= tol and torch.isfinite(out).all() and zeros):
+            fail("paged %s: max_abs_err %.3g > tol %.3g, or non-finite, "
+                 "or an empty slot not zero" % (name, err, tol))
+        if main:
+            main_err = max(main_err, err)
+
+    # bitwise layout invariance on the card: the same logical cache as
+    # stripes and scattered gives identical floats
+    for c in (1, 32):
+        dense = paged_case(torch, dev, 21, spread, c, blocks=1100,
+                           scatter=False)
+        perm = torch.randperm(1100, generator=torch.Generator().manual_seed(
+            c)).to(dev)
+        moved = dict(dense)
+        moved["k_pool"] = dense["k_pool"].clone()
+        moved["v_pool"] = dense["v_pool"].clone()
+        moved["k_pool"][perm] = dense["k_pool"][:1100]
+        moved["v_pool"][perm] = dense["v_pool"][:1100]
+        pages = dense["pages"].long()
+        moved["pages"] = torch.where(pages < 1100,
+                                     perm[pages.clamp(max=1099)],
+                                     pages).to(torch.int32).contiguous()
+        a = ck.paged_attention(*paged_args(dense))
+        b = ck.paged_attention(*paged_args(moved))
+        torch.cuda.synchronize()
+        same = bool(torch.equal(a, b))
+        print("kernel check paged layout-invariance C=%d: stripes and "
+              "scattered bitwise equal=%s" % (c, same))
+        if not same:
+            fail("paged_attention output depends on the page layout "
+                 "(C=%d, max diff %.3g)" % (c, (a - b).abs().max().item()))
+
+    flush = torch.zeros(256 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    rows = []
+    for c in (1, 9, 32):
+        case = paged_case(torch, dev, 30 + c, spread, c, blocks=1100)
+        bound, bound_by = paged_bound_ms(case)
+        row = {
+            "shape": "S=16 C=%d H=12 D=64 bt=16 ctx=1..1024" % c, "C": c,
+            "ms": time_ms(torch, lambda: ck.paged_attention(
+                *paged_args(case)), flush),
+            "plain_ms": time_ms(torch, lambda: ck.paged_attention_reference(
+                *paged_args(case)), flush),
+            "library_ms": time_ms(torch, sdpa_library(torch, case), flush),
+            "bound_ms": bound, "bound_by": bound_by,
+        }
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        print("kernel time paged_attention %s" % json.dumps(row))
+        rows.append(row)
+    del flush
+    timed = [r for r in rows if r["C"] in (1, 32)]
+    by_bytes = sum(r["bound_ms"] for r in timed if r["bound_by"] == "bytes")
+    return {"max_abs_err": main_err,
+            "ms": sum(r["ms"] for r in timed),
+            "plain_ms": sum(r["plain_ms"] for r in timed),
+            "library_ms": sum(r["library_ms"] for r in timed),
+            "bound_ms": sum(r["bound_ms"] for r in timed),
+            "bound_by": "bytes" if 2 * by_bytes >= sum(
+                r["bound_ms"] for r in timed) else "operations",
+            "rows": rows}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: serve an LM at GPT-2-small geometry through PagedDecodeEngine
+
+# GPT-2 small's published geometry (openai-community/gpt2 config.json:
+# n_embd 768, n_head 12, n_layer 12, n_positions 1024, vocab_size 50257);
+# the layers are the repo's (RMSNorm, no biases, tanh GELU, tied unembed)
+LM_GEOMETRY = dict(vocab=50257, dim=768, heads=12, layers=12,
+                   max_context=1024)
+LM_SLOTS = 16
+LM_BLOCK_TOKENS = 16
+LM_POOL_BLOCKS = 512            # half the dense equivalent, 16 * 64
+LM_CHUNK = 32
+LM_SPEC_K = 8
+LM_MAX_NEW = 64
+LM_STREAMS = 32
+LM_THREADS = 4
+# bench_llm.py's chat/document mix stretched over the 1024 context
+LM_PROMPT_LENS = (4, 134, 410, 58, 640, 211, 13, 96, 512, 38, 307, 77,
+                  900, 26, 160, 9)
+# Logits tolerance: the kernel and the plain version differ by a few ulps
+# in each layer's attention output (see paged_kernel_phase); 12 layers of
+# float32 GEMMs (K <= 3072) carry that into logits of magnitude ~1 as
+# differences near 1e-6 relative, so 1e-4 * max(1, max|logits|) holds a
+# right kernel while a wrong mask or page moves logits by far more.
+LOGIT_TOL_REL = 1e-4
+
+
+def run_streams(ck, engine, prompts):
+    """32 streams from 4 client threads through one engine; the kernels'
+    launch counts and the engine's forward counts read around exactly
+    this run."""
+    answers = [None] * len(prompts)
+    errors = []
+
+    def client(idx):
+        try:
+            futs = [(i, engine.submit(prompts[i], max_new_tokens=LM_MAX_NEW))
+                    for i in range(idx, len(prompts), LM_THREADS)]
+            for i, f in futs:
+                answers[i] = f.result(timeout=300)
+        except Exception as e:              # reported below, fails the run
+            errors.append(repr(e))
+
+    before = dict(engine.forward_counts)
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(LM_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    after = dict(engine.forward_counts)
+    if errors or any(t.is_alive() for t in threads):
+        fail("LM client errors: %s" % errors)
+    return {"streams": answers, "wall": wall, "launches": launches,
+            "target_steps": after["target"] - before["target"],
+            "draft_steps": after["draft"] - before["draft"],
+            "report": engine.stats.report(),
+            "kv_bytes": engine.pool.device_bytes()}
+
+
+def top2_margin(torch, pdev, cfg, prompt, stream, i, dev):
+    """Replay prompt + stream[:i] teacher-forced through the plain model
+    (whole-sequence causal attention) and return the top-2 margin of the
+    logits that choose token i, with the logits tolerance there."""
+    from mxnet_tpu_torch.serve.paged import causal_attend, lm_forward
+    seq = np.concatenate([prompt, np.asarray(stream[:i], np.int64)])
+    tokens = torch.from_numpy(seq[None]).to(dev)
+    positions = torch.arange(len(seq), device=dev)[None]
+    with torch.no_grad():
+        logits = lm_forward(pdev, tokens, positions, causal_attend,
+                            cfg)[0, -1]
+    top = torch.topk(logits, 2).values
+    return ((top[0] - top[1]).item(),
+            LOGIT_TOL_REL * max(1.0, logits.abs().max().item()))
+
+
+def teacher_forced_phase(torch, ck, pdev, cfg, dev):
+    """paged_forward with the kernel and with the plain version on cloned
+    pools, for one prefill-chunk window (C=32) and one decode window
+    (C=1), after contexts spread over 0..880 tokens were prefilled through
+    the kernel path into a 512-block pool whose blocks interleave across
+    slots as the engine assigns them.  Returns each window's arguments
+    and pool state, for the profile."""
+    from mxnet_tpu_torch.serve.paged import KVBlockPool, paged_forward
+    s, bt, c = LM_SLOTS, LM_BLOCK_TOKENS, LM_CHUNK
+    ctx = np.linspace(0, 880, s).round().astype(np.int64)
+    pool = KVBlockPool(s, cfg.max_context // bt, num_blocks=LM_POOL_BLOCKS,
+                       block_tokens=bt, device=dev)
+    pool.add_view("target", cfg.layers, cfg.heads, cfg.head_dim)
+    rng = np.random.default_rng(5)
+    for i in range(s):
+        if not pool.reserve(i, pool.blocks_for(ctx[i] + c + 1)):
+            fail("teacher-forced contexts do not fit the pool")
+    seqs = [rng.integers(0, cfg.vocab, size=int(ctx[i]) + c + 1)
+            for i in range(s)]
+    kv_k, kv_v = pool.view("target")
+
+    def window(starts, widths, width):
+        tokens = np.zeros((s, width), np.int32)
+        positions = np.zeros((s, width), np.int32)
+        for i in range(s):
+            nv = int(widths[i])
+            tokens[i, :nv] = seqs[i][starts[i]:starts[i] + nv]
+            positions[i, :nv] = starts[i] + np.arange(nv)
+        n_valid = np.asarray(widths, np.int32)
+        lengths = (np.asarray(starts) + n_valid).astype(np.int32)
+        for i in range(s):          # blocks interleave across slots
+            pool.ensure(i, int(lengths[i]))
+        return [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in
+                (tokens, pool.page_table(), positions, n_valid, lengths)]
+
+    done = np.zeros(s, np.int64)
+    with torch.no_grad():
+        while (done < ctx).any():
+            widths = np.minimum(c, ctx - done)
+            paged_forward(pdev, kv_k, kv_v, *window(done, widths, c),
+                          cfg=cfg, use_kernel=True)
+            done += widths
+        windows = {}
+        for label, width in (("prefill-chunk", c), ("decode", 1)):
+            widths = np.full(s, width)
+            args = window(done, widths, width)
+            kk, vk = kv_k.clone(), kv_v.clone()
+            kp, vp = kv_k.clone(), kv_v.clone()
+            windows[width] = (args, kv_k.clone(), kv_v.clone())
+            a = paged_forward(pdev, kk, vk, *args, cfg=cfg, use_kernel=True)
+            b = paged_forward(pdev, kp, vp, *args, cfg=cfg, use_kernel=False)
+            torch.cuda.synchronize()
+            err = (a - b).abs().max().item()
+            tol = LOGIT_TOL_REL * max(1.0, b.abs().max().item())
+            top = torch.topk(b, 2, dim=-1).values
+            decided = (top[..., 0] - top[..., 1]) > tol
+            same = (a.argmax(-1) == b.argmax(-1)) | ~decided
+            print("teacher-forced %-13s C=%-2d contexts %d..%d: logits "
+                  "max_abs_err=%.3g tol=%.3g (max|logits| %.3f); argmax "
+                  "equal at %d of %d decided rows (%d rows within tol)"
+                  % (label, width, int(done.min()), int(done.max()), err,
+                     tol, b.abs().max().item(),
+                     int(((a.argmax(-1) == b.argmax(-1)) & decided).sum()),
+                     int(decided.sum()), int((~decided).sum())))
+            if not (err <= tol and bool(same.all())
+                    and bool(torch.isfinite(a).all())):
+                fail("teacher-forced %s: kernel logits differ from the "
+                     "plain version's (err %.3g, tol %.3g)" % (label, err,
+                                                               tol))
+            kv_k.copy_(kk)
+            kv_v.copy_(vk)
+            done += widths
+    return windows
+
+
+def profile_step(torch, pdev, cfg, window, reps=3):
+    """Where one step of the 12-layer model over ``window`` (16 slots of
+    C tokens) spends its device time, by kernel group, and its wall time
+    without the profiler (ending in the host copy of the tokens, as the
+    engine's step does)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch.serve.paged import paged_step
+    args, kv_k, kv_v = window
+    c = args[0].shape[1]
+
+    def step():
+        return paged_step(pdev, kv_k, kv_v, *args, cfg=cfg, use_kernel=True)
+
+    with torch.no_grad():
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step().cpu()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                step().cpu()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0))
+        if t > 0:
+            rows.append((t / 1e3 / reps, e.key, e.count // reps))
+    rows.sort(reverse=True)
+    device = sum(t for t, _, _ in rows)
+    print("profile: LM step C=%d (16 slots x %d tokens, 12 layers) %.3f ms "
+          "wall (no profiler); device time %.3f ms per step, busy share "
+          "%.3f" % (c, c, wall, device, device / wall if wall else 0.0))
+    for t, key, n in rows[:8]:
+        print("profile:   %8.3f ms  %5.1f%%  x%-3d %s"
+              % (t, 100.0 * t / device if device else 0.0, n, key[:80]))
+    groups = {}
+    for t, key, _ in rows:
+        name = key.lower()
+        group = ("paged_attention" if "paged_attention" in name else
+                 "gemm" if any(w in name for w in (
+                     "gemm", "cutlass", "xmma", "gemv")) else
+                 "index/gather/scatter" if any(w in name for w in (
+                     "index", "gather", "scatter")) else
+                 "reduce/argmax" if "reduce" in name or "argmax" in name
+                 else "elementwise" if "elementwise" in name else "other")
+        groups[group] = groups.get(group, 0.0) + t
+    for group, t in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print("profile: group %-22s %8.3f ms  %5.1f%%"
+              % (group, t, 100.0 * t / device if device else 0.0))
+    return {"wall_ms": wall, "device_ms": device, "groups": groups}
+
+
+def llm_phase(torch, ck):
+    from mxnet_tpu_torch.convert import convert_lm_params
+    from mxnet_tpu_torch.serve import (LMConfig, PagedDecodeEngine,
+                                       init_lm_params)
+    dev = torch.device("cuda", 0)
+    cfg = LMConfig(**LM_GEOMETRY)
+    draft_cfg = cfg._replace(layers=1)
+    t0 = time.perf_counter()
+    params = init_lm_params(cfg, seed=0, scale=0.005)
+    # bench_llm.py's draft: one layer sharing the embedding and positions
+    draft = init_lm_params(draft_cfg, seed=1, scale=0.005,
+                           embed=params["embed"])
+    draft["pos"] = params["pos"].copy()
+    print("llm: LMConfig%s, %d float32 parameters (draft %d) made in %.1f s"
+          % (tuple(cfg), sum(v.size for v in params.values()),
+             sum(v.size for v in draft.values()), time.perf_counter() - t0))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, size=LM_PROMPT_LENS[
+        i % len(LM_PROMPT_LENS)]).astype(np.int64)
+        for i in range(LM_STREAMS)]
+    runs = {}
+    for label, kw in (
+            ("paged", dict(num_blocks=LM_POOL_BLOCKS)),
+            ("dense", dict(paged=False)),
+            ("spec", dict(num_blocks=LM_POOL_BLOCKS, draft_params=draft,
+                          draft_cfg=draft_cfg, spec_k=LM_SPEC_K,
+                          chunk_tokens=LM_SPEC_K + 1))):
+        kw.setdefault("chunk_tokens", LM_CHUNK)
+        t0 = time.perf_counter()
+        eng = PagedDecodeEngine(params, cfg, num_slots=LM_SLOTS,
+                                block_tokens=LM_BLOCK_TOKENS,
+                                max_new_tokens=LM_MAX_NEW,
+                                name="llm-" + label, **kw)
+        try:
+            if not eng.use_kernel:
+                fail("the engine on %s does not use the kernel" % eng.device)
+            built = time.perf_counter() - t0
+            run = run_streams(ck, eng, prompts)
+        finally:
+            eng.close()
+        del eng
+        torch.cuda.empty_cache()
+        rep = run["report"]
+        tokens = sum(len(x) for x in run["streams"])
+        want = cfg.layers * run["target_steps"] + \
+            draft_cfg.layers * run["draft_steps"]
+        got = run["launches"]["paged_attention"]
+        print("llm %-5s: built+warmed %.2f s; %d streams, %d tokens in "
+              "%.3f s = %.1f tokens/s; inter-token p50 %.3f ms p99 %.3f ms; "
+              "stream latency p50 %.1f ms p99 %.1f ms; %d steps (%d target "
+              "+ %d draft forwards), %d prefill tokens; kv pool %d blocks, "
+              "peak use %.4f; spec %d/%d accepted (%.4f); dropped %d"
+              % (label, built, LM_STREAMS, tokens, run["wall"],
+                 tokens / run["wall"], rep["inter_token_p50_ms"],
+                 rep["inter_token_p99_ms"], rep["latency_p50_ms"],
+                 rep["latency_p99_ms"], rep["steps"], run["target_steps"],
+                 run["draft_steps"], rep["prefill_tokens"], rep["kv_blocks"],
+                 rep["kv_utilization_peak"], rep["spec_accepted"],
+                 rep["spec_proposed"], rep["spec_accept_rate"],
+                 rep["dropped_streams"]))
+        print("llm %-5s: paged_attention launches %d, want %d layers x %d "
+              "target + %d layer x %d draft forwards = %d"
+              % (label, got, cfg.layers, run["target_steps"],
+                 draft_cfg.layers, run["draft_steps"], want))
+        if got != want or got < 1:
+            fail("%s: paged_attention launched %d times, want %d"
+                 % (label, got, want))
+        if rep["dropped_streams"] or rep["completed"] != LM_STREAMS \
+                or rep["failed"]:
+            fail("%s: %d dropped, %d of %d completed, %d failed" % (
+                label, rep["dropped_streams"], rep["completed"],
+                LM_STREAMS, rep["failed"]))
+        for i, st in enumerate(run["streams"]):
+            if st is None or st.dtype != np.int32 or len(st) != LM_MAX_NEW \
+                    or st.min() < 0 or st.max() >= cfg.vocab:
+                fail("%s: stream %d malformed: %r" % (label, i, st))
+        runs[label] = run
+
+    # (a) paged == dense stripes, bitwise
+    for i, (a, b) in enumerate(zip(runs["paged"]["streams"],
+                                   runs["dense"]["streams"])):
+        if not np.array_equal(a, b):
+            fail("paged stream %d differs from the dense-stripe stream "
+                 "at token %d" % (i, int(np.argmax(a != b))))
+    print("llm check: all %d paged streams equal the dense-stripe streams "
+          "bitwise" % LM_STREAMS)
+    pdev = convert_lm_params(params, dev)
+    # (b) speculative == plain, up to a logit tie at the first difference
+    ties = 0
+    for i, (a, b) in enumerate(zip(runs["paged"]["streams"],
+                                   runs["spec"]["streams"])):
+        if np.array_equal(a, b):
+            continue
+        j = int(np.argmax(a != b))
+        margin, tol = top2_margin(torch, pdev, cfg, prompts[i], a, j, dev)
+        print("llm check: spec stream %d differs at token %d (plain %d, "
+              "spec %d); plain top-2 margin there %.3g, tol %.3g"
+              % (i, j, a[j], b[j], margin, tol))
+        if not margin < tol:
+            fail("spec stream %d differs from plain decode at token %d "
+                 "where the top-2 margin %.3g exceeds tol %.3g"
+                 % (i, j, margin, tol))
+        ties += 1
+    print("llm check: %d of %d speculative streams equal plain decode "
+          "(%d differ after a logit tie)" % (LM_STREAMS - ties, LM_STREAMS,
+                                             ties))
+    # (c) teacher-forced logits, kernel vs plain version
+    windows = teacher_forced_phase(torch, ck, pdev, cfg, dev)
+    paged_bytes = runs["paged"]["kv_bytes"]
+    dense_bytes = runs["dense"]["kv_bytes"]
+    prep = runs["paged"]["report"]
+    gen = sum(len(x) for x in runs["paged"]["streams"])
+    print("llm result: %.1f generated tokens/s (paged, %d tokens in %.3f s); "
+          "inter-token p50 %.3f ms p99 %.3f ms; peak KV-pool use %.4f of %d "
+          "blocks; KV bytes per stream paged %d vs dense %d (%.4f); spec "
+          "%.1f tokens/s at acceptance %.4f"
+          % (gen / runs["paged"]["wall"], gen, runs["paged"]["wall"],
+             prep["inter_token_p50_ms"], prep["inter_token_p99_ms"],
+             prep["kv_utilization_peak"], prep["kv_blocks"],
+             paged_bytes // LM_SLOTS, dense_bytes // LM_SLOTS,
+             paged_bytes / dense_bytes,
+             gen / runs["spec"]["wall"],
+             runs["spec"]["report"]["spec_accept_rate"]))
+    for c in (LM_CHUNK, 1):
+        profile_step(torch, pdev, cfg, windows[c])
+    return {"launches": sum(r["launches"]["paged_attention"]
+                            for r in runs.values())}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -422,10 +976,16 @@ def main():
     # phase 3: kernels against their plain versions
     fc = kernel_phase(torch, ck)
 
-    # phase 4: the serving path
+    # phase 4: the VGG-16 serving path
     served = serve_phase(torch, mt, ck)
 
-    # phase 5: results
+    # phase 5: paged_attention against its plain version
+    paged = paged_kernel_phase(torch, ck)
+
+    # phase 6: the LLM serving path
+    llm = llm_phase(torch, ck)
+
+    # phase 7: results
     kernels = [{
         "name": "fused_fc_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["fused_fc_epilogue"],
@@ -435,12 +995,24 @@ def main():
         "ms": fc["ms"], "plain_ms": fc["plain_ms"],
         "bound_ms": fc["bound_ms"], "bound_by": "bytes",
         "library_ms": fc["library_ms"],
+    }, {
+        "name": "paged_attention", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["paged_attention"],
+        "replaces": REPLACES["paged_attention"],
+        "launches": llm["launches"],
+        "max_abs_err": paged["max_abs_err"],
+        "ms": paged["ms"], "plain_ms": paged["plain_ms"],
+        "bound_ms": paged["bound_ms"], "bound_by": paged["bound_by"],
+        "library_ms": paged["library_ms"],
     }]
     missing = [k for k in ck.SOURCES
                if k not in [e["name"] for e in kernels]]
     if missing:
         fail("kernels not held against their plain versions: %s" % missing)
-    print("kernel times are one bucket-8 batch's fc6 + fc7 launches")
+    print("kernel times: fused_fc_epilogue is one bucket-8 batch's fc6 + "
+          "fc7 launches; paged_attention is one C=1 plus one C=32 launch "
+          "at 16 slots x 12 heads x 64, contexts 1..1024; its launches "
+          "are those of the paged, dense-stripe and speculative LM runs")
     print(json.dumps({"kernels": kernels}))
     print("card: %s" % smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,18 +2,21 @@
 
 Both packages keep convolution weights as OIHW and fully connected
 weights as (N, K), so a parameter crosses over as a typed copy: same
-name, shape, dtype and values, now a tensor on the chosen device.
+name, shape, dtype and values, now a tensor on the chosen device.  The
+paged-serving LM blob (``serve.paged.model``) is a flat dict of float32
+arrays in both packages, with the same names and layouts.
 """
 from __future__ import annotations
 
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .context import Context
 from .ndarray import NDArray, array
 
-__all__ = ["convert_params"]
+__all__ = ["convert_params", "convert_lm_params"]
 
 
 def convert_params(params: Mapping[str, np.ndarray],
@@ -35,3 +38,19 @@ def convert_params(params: Mapping[str, np.ndarray],
             name = key[4:]
         target[name] = array(value, ctx=ctx, dtype=value.dtype)
     return arg_params, aux_params
+
+
+def convert_lm_params(params: Mapping[str, np.ndarray], device
+                      ) -> Dict[str, torch.Tensor]:
+    """The JAX package's LM blob (``init_lm_params``: numpy arrays, or
+    anything ``np.asarray`` takes, or tensors) as float32 tensors on
+    ``device`` (a ``torch.device``, a device string or a
+    :class:`Context`), under the same names.  The tensors are copies:
+    the caller's arrays stay its own."""
+    if isinstance(device, Context):
+        device = device.torch_device()
+    return {k: torch.as_tensor(v if isinstance(v, torch.Tensor)
+                               else np.asarray(v)).to(
+                                   device=device, dtype=torch.float32,
+                                   copy=True)
+            for k, v in params.items()}

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -32,6 +33,7 @@ from ..base import MXNetError
 from .nn import ACTIVATIONS
 
 __all__ = ["fused_fc_epilogue", "fused_fc_epilogue_reference", "requantize",
+           "paged_attention", "paged_attention_reference",
            "LAUNCHES", "reset_launches", "build", "nvcc_command", "SOURCES"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -39,7 +41,8 @@ _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 # kernel name -> source file under csrc/
-SOURCES = {"fused_fc_epilogue": "fc_epilogue.cu"}
+SOURCES = {"fused_fc_epilogue": "fc_epilogue.cu",
+           "paged_attention": "paged_attention.cu"}
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
@@ -150,6 +153,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.mxtt_fc_epilogue.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                          ctypes.c_float, i, p]
         lib.mxtt_fc_epilogue.restype = i
+    elif name == "paged_attention":
+        lib.mxtt_paged_attention.argtypes = [p] * 7 + [i] * 8 + [
+            ctypes.c_float, i, p]
+        lib.mxtt_paged_attention.restype = i
 
 
 def _check(lib: ctypes.CDLL, name: str, rc: int) -> None:
@@ -244,4 +251,114 @@ def fused_fc_epilogue(x: torch.Tensor, w: torch.Tensor,
         x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
     _check(lib, "fused_fc_epilogue", rc)
     _count("fused_fc_epilogue")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# paged_attention
+
+PAGED_MAX_HEAD_DIM = 128
+
+
+def paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor, pages: torch.Tensor,
+                              lengths: torch.Tensor, q_pos: torch.Tensor,
+                              causal: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of :func:`paged_attention` (the counterpart
+    of ``_paged_attention_dense``): gather each slot's blocks through the
+    clamped page table into logical order, one masked softmax over the
+    whole (S, B * bt) context, in float32.  The gather makes the result
+    bitwise independent of where the blocks lie in the pool."""
+    n, bt = k_pool.shape[0], k_pool.shape[1]
+    s_, c, h, d = q.shape
+    b = pages.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    safe = pages.long().clamp(0, n - 1)
+    kg = k_pool[safe].reshape(s_, b * bt, h, d).float()
+    vg = v_pool[safe].reshape(s_, b * bt, h, d).float()
+    s = torch.einsum("schd,skhd->shck", q.float(), kg) * scale
+    k_idx = torch.arange(b * bt, dtype=torch.int64, device=q.device)
+    mask = (k_idx[None, :] < lengths.long()[:, None])[:, None, None, :]
+    if causal:
+        mask = mask & (k_idx[None, None, :]
+                       <= q_pos.long()[:, :, None])[:, None, :, :]
+    s = torch.where(mask, s, -math.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    m_safe = torch.where(torch.isinf(m), 0.0, m)
+    p = torch.where(torch.isinf(s), 0.0, torch.exp(s - m_safe))
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
+    out = torch.einsum("shck,skhd->schd", p / l, vg)
+    return out.to(q.dtype)
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, pages: torch.Tensor,
+                    lengths: torch.Tensor,
+                    q_pos: Optional[torch.Tensor] = None,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention through a paged KV cache.  q (S, C, H, D) is a window of
+    C queries per slot; k_pool / v_pool (N, bt, H, D) are the block pools
+    (a sentinel scratch block may sit at N - 1: page entries clamp to
+    it, and its keys lie past ``lengths``); pages (S, B) holds each
+    slot's physical block per logical block; lengths (S,) the valid
+    context per slot; q_pos (S, C) each query's position (default: the
+    last C positions).  Returns (S, C, H, D) in q's dtype.
+
+    CUDA tensors launch the hand-written kernel (csrc/paged_attention.cu,
+    float32 q and pools, int32 indices, D <= 128); CPU tensors take
+    :func:`paged_attention_reference`."""
+    if q.dim() != 4 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape \
+            or k_pool.shape[2:] != q.shape[2:]:
+        raise MXNetError("paged_attention: need q (S, C, H, D) and pools "
+                         "(N, bt, H, D), got %s, %s, %s" % (
+                             tuple(q.shape), tuple(k_pool.shape),
+                             tuple(v_pool.shape)))
+    s_, c, h, d = q.shape
+    if pages.dim() != 2 or pages.shape[0] != s_ \
+            or tuple(lengths.shape) != (s_,):
+        raise MXNetError("paged_attention: need pages (%d, B) and lengths "
+                         "(%d,), got %s and %s" % (s_, s_, tuple(pages.shape),
+                                                   tuple(lengths.shape)))
+    if q_pos is None:                  # the last c positions of each slot
+        q_pos = (lengths.to(torch.int32)[:, None] - c + torch.arange(
+            c, dtype=torch.int32, device=lengths.device)[None])
+    if tuple(q_pos.shape) != (s_, c):
+        raise MXNetError("paged_attention: q_pos shape %s != (%d, %d)"
+                         % (tuple(q_pos.shape), s_, c))
+    tensors = (q, k_pool, v_pool, pages, lengths, q_pos)
+    if all(t.device.type == "cpu" for t in tensors):
+        return paged_attention_reference(q, k_pool, v_pool, pages, lengths,
+                                         q_pos, causal)
+    if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
+        raise MXNetError("paged_attention: inputs must all be on one CUDA "
+                         "device, got %s" % [str(t.device) for t in tensors])
+    for t, what, dtype in ((q, "q", torch.float32),
+                           (k_pool, "k_pool", torch.float32),
+                           (v_pool, "v_pool", torch.float32),
+                           (pages, "pages", torch.int32),
+                           (lengths, "lengths", torch.int32),
+                           (q_pos, "q_pos", torch.int32)):
+        if t.dtype != dtype:
+            raise MXNetError("paged_attention: %s dtype %s, the kernel "
+                             "takes %s" % (what, t.dtype, dtype))
+        if not t.is_contiguous():
+            raise MXNetError("paged_attention: %s must be contiguous" % what)
+    if d > PAGED_MAX_HEAD_DIM:
+        raise MXNetError("paged_attention: head dim %d > %d" % (
+            d, PAGED_MAX_HEAD_DIM))
+    n, bt = k_pool.shape[0], k_pool.shape[1]
+    b = pages.shape[1]
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    if n == 0 or b == 0:
+        raise MXNetError("paged_attention: empty pool or page table")
+    lib = _library("paged_attention")
+    rc = lib.mxtt_paged_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pages.data_ptr(),
+        lengths.data_ptr(), q_pos.data_ptr(), out.data_ptr(), s_, c, h, d, n,
+        bt, b, int(bool(causal)), 1.0 / math.sqrt(d), q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check(lib, "paged_attention", rc)
+    _count("paged_attention")
     return out

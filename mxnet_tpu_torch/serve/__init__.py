@@ -9,15 +9,28 @@
     rows = [f.result(timeout=10.0) for f in futures]
     eng.close()
 
-Decode, multiplexing, routing and paged LLM serving come with later
+Paged LLM serving (continuous batching over a paged KV cache, chunked
+prefill, speculative decode):
+
+    cfg = LMConfig(vocab=50257, dim=768, heads=12, layers=12,
+                   max_context=1024)
+    eng = PagedDecodeEngine(init_lm_params(cfg, seed=0), cfg,
+                            num_slots=16, max_new_tokens=64)
+    tokens = eng.submit(prompt_ids).result(timeout=60)
+    eng.close()
+
+The dense ``DecodeEngine``, multiplexing and routing come with later
 slices.
 """
 from .batcher import MicroBatcher
 from .engine import ServeEngine, default_buckets
 from .errors import (ServeClosedError, ServeDeadlineError, ServeError,
                      ServeOverloadError, ServeRequestError)
-from .stats import ServeStats
+from .paged import KVBlockPool, LMConfig, PagedDecodeEngine, init_lm_params
+from .stats import DecodeStats, PagedStats, ServeStats
 
 __all__ = ["ServeEngine", "MicroBatcher", "ServeStats", "default_buckets",
            "ServeError", "ServeOverloadError", "ServeDeadlineError",
-           "ServeRequestError", "ServeClosedError"]
+           "ServeRequestError", "ServeClosedError", "PagedDecodeEngine",
+           "KVBlockPool", "LMConfig", "init_lm_params", "DecodeStats",
+           "PagedStats"]

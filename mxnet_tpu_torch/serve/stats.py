@@ -3,7 +3,14 @@
 over a sliding window of completed requests (queue wait + inference +
 device-to-host copy, what the client saw), batch occupancy, pad waste,
 per-bucket hit counts, queue depth and the reject/expiry/cancel/failure
-counters.  Decode and paged-decode stats come with their slices.
+counters.
+
+:class:`DecodeStats` (continuous-batching decode) adds slot occupancy,
+steps and tokens emitted and admission counters; :class:`PagedStats`
+(paged LLM serving) adds prefill tokens, speculative-decode
+proposed/accepted counters, KV-block-pool gauges (used / reserved /
+total, and the peak), an inter-token latency window, and
+``dropped_streams``, which exact block reservation holds at 0.
 """
 from __future__ import annotations
 
@@ -13,7 +20,7 @@ import threading
 from typing import Dict, List
 
 
-__all__ = ["ServeStats"]
+__all__ = ["ServeStats", "DecodeStats", "PagedStats"]
 
 # sliding latency window: big enough for stable p99, small enough that a
 # report reflects the recent regime rather than the whole process life
@@ -133,4 +140,191 @@ class ServeStats:
         out["latency_p50_ms"] = round(_percentile(lat, 50), 3)
         out["latency_p95_ms"] = round(_percentile(lat, 95), 3)
         out["latency_p99_ms"] = round(_percentile(lat, 99), 3)
+        return out
+
+
+class DecodeStats:
+    """Counters for one continuous-batching decode engine: stream
+    admission, steps, tokens emitted and slot occupancy (mean fraction of
+    slots active per step), and the latency window measured submit ->
+    stream resolved."""
+
+    def __init__(self, name: str, num_slots: int):
+        self.name = name
+        self.num_slots = int(num_slots)
+        self._lock = threading.Lock()
+        self._submitted = 0
+        self._admitted = 0
+        self._completed = 0
+        self._failed = 0
+        self._expired = 0
+        self._cancelled = 0
+        self._overloaded = 0
+        self._reloads = 0
+        self._steps = 0
+        self._slot_steps = 0
+        self._tokens_out = 0
+        self._queue_depth = 0
+        self._queue_depth_max = 0
+        self._lat_ms = collections.deque(maxlen=LATENCY_WINDOW)
+
+    # -- recording ---------------------------------------------------------
+    def on_submit(self, queue_depth: int) -> None:
+        with self._lock:
+            self._submitted += 1
+            self._queue_depth = queue_depth
+            if queue_depth > self._queue_depth_max:
+                self._queue_depth_max = queue_depth
+
+    def on_overload(self) -> None:
+        with self._lock:
+            self._overloaded += 1
+
+    def on_admitted(self, n: int = 1) -> None:
+        with self._lock:
+            self._admitted += n
+
+    def on_expired(self, n: int = 1) -> None:
+        with self._lock:
+            self._expired += n
+
+    def on_cancelled(self, n: int = 1) -> None:
+        with self._lock:
+            self._cancelled += n
+
+    def on_failed(self, n: int = 1) -> None:
+        with self._lock:
+            self._failed += n
+
+    def on_step(self, active: int, emitted: int) -> None:
+        with self._lock:
+            self._steps += 1
+            self._slot_steps += active
+            self._tokens_out += emitted
+
+    def on_complete(self, latencies_ms) -> None:
+        with self._lock:
+            self._completed += len(latencies_ms)
+            self._lat_ms.extend(latencies_ms)
+
+    def on_reload(self) -> None:
+        with self._lock:
+            self._reloads += 1
+
+    def set_queue_depth(self, depth: int) -> None:
+        with self._lock:
+            self._queue_depth = depth
+
+    def _outstanding_locked(self) -> int:
+        """Terminal-outcome balance — EVERY new terminal counter must be
+        subtracted here and only here (lock held by the caller)."""
+        return max(0, self._submitted - self._completed - self._failed
+                   - self._expired - self._cancelled)
+
+    def outstanding(self) -> int:
+        with self._lock:
+            return self._outstanding_locked()
+
+    # -- reading -----------------------------------------------------------
+    def report(self) -> Dict:
+        with self._lock:
+            lat = sorted(self._lat_ms)
+            out = {
+                "kind": "decode",
+                "num_slots": self.num_slots,
+                "outstanding": self._outstanding_locked(),
+                "submitted": self._submitted,
+                "admitted": self._admitted,
+                "completed": self._completed,
+                "overloaded": self._overloaded,
+                "expired": self._expired,
+                "cancelled": self._cancelled,
+                "failed": self._failed,
+                "reloads": self._reloads,
+                "steps": self._steps,
+                "tokens_out": self._tokens_out,
+                "slot_occupancy": round(
+                    self._slot_steps / (self._steps * self.num_slots), 4)
+                if self._steps else 0.0,
+                "queue_depth": self._queue_depth,
+                "queue_depth_max": self._queue_depth_max,
+            }
+        out["latency_p50_ms"] = round(_percentile(lat, 50), 3)
+        out["latency_p95_ms"] = round(_percentile(lat, 95), 3)
+        out["latency_p99_ms"] = round(_percentile(lat, 99), 3)
+        return out
+
+
+class PagedStats(DecodeStats):
+    """DecodeStats plus the paged-serving axes (see module docstring).
+    ``dropped_streams`` is not a terminal counter (a dropped stream also
+    counts failed); it is the gauge that must stay 0."""
+
+    def __init__(self, name: str, num_slots: int, pool_blocks: int):
+        super().__init__(name, num_slots)
+        self.pool_blocks = int(pool_blocks)
+        self._prefill_tokens = 0
+        self._spec_rounds = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._dropped_streams = 0
+        self._blocks_used = 0
+        self._blocks_reserved = 0
+        self._blocks_used_peak = 0
+        self._it_ms = collections.deque(maxlen=LATENCY_WINDOW)
+
+    # -- recording ---------------------------------------------------------
+    def on_prefill(self, tokens: int) -> None:
+        with self._lock:
+            self._prefill_tokens += tokens
+
+    def on_spec_round(self, proposed: int, accepted: int) -> None:
+        with self._lock:
+            self._spec_rounds += 1
+            self._spec_proposed += proposed
+            self._spec_accepted += accepted
+
+    def on_dropped(self, n: int = 1) -> None:
+        with self._lock:
+            self._dropped_streams += n
+
+    def on_inter_token(self, gaps_ms) -> None:
+        with self._lock:
+            self._it_ms.extend(gaps_ms)
+
+    def set_pool(self, used: int, reserved: int) -> None:
+        with self._lock:
+            self._blocks_used = used
+            self._blocks_reserved = reserved
+            if used > self._blocks_used_peak:
+                self._blocks_used_peak = used
+
+    # -- reading -----------------------------------------------------------
+    def report(self) -> Dict:
+        out = super().report()
+        with self._lock:
+            it = sorted(self._it_ms)
+            out.update({
+                "kind": "paged",
+                "prefill_tokens": self._prefill_tokens,
+                "spec_rounds": self._spec_rounds,
+                "spec_proposed": self._spec_proposed,
+                "spec_accepted": self._spec_accepted,
+                "spec_accept_rate": round(
+                    self._spec_accepted / self._spec_proposed, 4)
+                if self._spec_proposed else 0.0,
+                "dropped_streams": self._dropped_streams,
+                "kv_blocks": self.pool_blocks,
+                "kv_blocks_used": self._blocks_used,
+                "kv_blocks_reserved": self._blocks_reserved,
+                "kv_utilization": round(
+                    self._blocks_used / self.pool_blocks, 4)
+                if self.pool_blocks else 0.0,
+                # the peak outlives the streams that made it
+                "kv_utilization_peak": round(
+                    self._blocks_used_peak / self.pool_blocks, 4)
+                if self.pool_blocks else 0.0,
+            })
+        out["inter_token_p50_ms"] = round(_percentile(it, 50), 3)
+        out["inter_token_p99_ms"] = round(_percentile(it, 99), 3)
         return out
