@@ -29,7 +29,30 @@ Phases, in order; any failure exits nonzero:
    streams held equal; teacher-forced logits of the kernel against the
    plain version; launch counts read around each engine run; a profile
    of one chunk-width step and one decode step;
-7. the ``kernels`` JSON line, then the ``{"ok": true, ...}`` line.
+7. flash_attention against its plain version at the kernel search's shape
+   (B 4, T 1024, H 12, D 64; GPT-2 small's attention geometry), causal and
+   not, at ragged T and D in {10, 16, 32, 64, 128}, and for every compiled
+   tile instance; bitwise repeatability;
+8. the kernel search path: ``mx.autotune.kernelsearch.search_flash(4, 1024,
+   12, 64, causal=True)`` into a fresh store (every candidate gated, the
+   shortlist measured, the winner persisted), a second identical search (a
+   store hit: zero gate, featurize and measure calls, zero launches), then
+   ``flash_attention`` under MXNET_KERNEL_SEARCH=1 resolving the winner,
+   bitwise equal to the explicit-tile call; the launch count read around
+   this path; kernel, plain version and F.scaled_dot_product_attention
+   timed, and every tile;
+9. correlation against its plain version at FlowNetC's stage (N 8, C 256,
+   48x64, max displacement 20, stride2 2: 441 displacements), PWC-Net's
+   cost volume (N 8, C 64, 56x128, 4, 1) and ragged shapes, both
+   is_multiply; kernel and plain version timed;
+10. FlowNetC's correlation stage (Siamese conv tower sharing its weights,
+   correlation, conv_redir, concat, conv3_1; 2.1 M float32 parameters from a
+   numpy seed) as a checkpoint pair through ``Predictor`` on the default
+   device at 8 x 384x512 image pairs: correlation launches equal to the
+   forwards, output held against the port's CPU run of the same checkpoint,
+   a profile of one forward;
+11. the ``kernels`` JSON line (all four kernels), then the
+   ``{"ok": true, ...}`` line.
 """
 import json
 import math
@@ -48,7 +71,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 REPLACES = {"fused_fc_epilogue": "mxnet_tpu/ops/pallas_kernels.py:347",
-            "paged_attention": "mxnet_tpu/ops/pallas_kernels.py:262"}
+            "paged_attention": "mxnet_tpu/ops/pallas_kernels.py:262",
+            "flash_attention": "mxnet_tpu/ops/pallas_kernels.py:121",
+            "correlation": "mxnet_tpu/ops/pallas_kernels.py:417"}
 
 
 def fail(msg):
@@ -321,26 +346,24 @@ def serve_phase(torch, mt, ck, image=224, classes=1000, n_requests=32,
     return {"launches": launches, "batches": batches}
 
 
-def profile_forward(torch, predictor, shapes, data, reps=3):
-    """Where one bucket-8 forward of the fused serving graph spends its
-    time: wall per forward (synchronized), device time by kernel from
-    torch.profiler, and the device's busy share of the wall time."""
+def device_profile(torch, step, reps=3):
+    """Wall time of step() (synchronized, no profiler) and its device time
+    by kernel from torch.profiler, per step: (wall_ms, device_ms, rows of
+    (ms, kernel name, launches))."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    predictor.reshape(shapes)
-    predictor.set_input("data", data)
-    predictor.forward()
+    step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        predictor.forward()
+        step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / reps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            predictor.forward()
+            step()
         torch.cuda.synchronize()
-    from torch.autograd import DeviceType
     rows = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -348,27 +371,45 @@ def profile_forward(torch, predictor, shapes, data, reps=3):
         t = getattr(e, "self_device_time_total",
                     getattr(e, "self_cuda_time_total", 0))
         if t > 0:
-            rows.append((t / 1e3 / reps, e.key))
+            rows.append((t / 1e3 / reps, e.key, e.count // reps))
     rows.sort(reverse=True)
-    device = sum(t for t, _ in rows)
+    return wall, sum(t for t, _, _ in rows), rows
+
+
+def print_groups(rows, device, classify, width=12):
+    groups = {}
+    for t, key, _ in rows:
+        group = classify(key.lower())
+        groups[group] = groups.get(group, 0.0) + t
+    for group, t in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print("profile: group %-*s %8.3f ms  %5.1f%%"
+              % (width, group, t, 100.0 * t / device if device else 0.0))
+    return groups
+
+
+def conv_group(name):
+    return ("convolution" if any(s in name for s in (
+        "fprop", "fft", "conv", "pointwise_mult_and_sum", "xmma",
+        "implicit_gemm")) else
+            "pooling" if "pool" in name else
+            "elementwise" if "elementwise" in name else "other")
+
+
+def profile_forward(torch, predictor, shapes, data, reps=3):
+    """Where one bucket-8 forward of the fused serving graph spends its
+    time: wall per forward (synchronized), device time by kernel from
+    torch.profiler, and the device's busy share of the wall time."""
+    predictor.reshape(shapes)
+    predictor.set_input("data", data)
+    wall, device, rows = device_profile(torch, predictor.forward, reps)
     print("profile: bucket-8 forward %.3f ms wall (no profiler); device "
           "time %.3f ms per forward, busy share %.3f"
           % (wall, device, device / wall if wall else 0.0))
-    for t, key in rows[:10]:
+    for t, key, _ in rows[:10]:
         print("profile:   %8.3f ms  %5.1f%%  %s"
               % (t, 100.0 * t / device if device else 0.0, key[:90]))
-    groups = {}
-    for t, key in rows:
-        name = key.lower()
-        group = ("fc_epilogue" if "fc_epilogue" in name else
-                 "convolution" if any(s in name for s in (
-                     "fprop", "fft", "conv", "pointwise_mult_and_sum")) else
-                 "pooling" if "pool" in name else
-                 "elementwise" if "elementwise" in name else "other")
-        groups[group] = groups.get(group, 0.0) + t
-    for group, t in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print("profile: group %-12s %8.3f ms  %5.1f%%"
-              % (group, t, 100.0 * t / device if device else 0.0))
+    groups = print_groups(rows, device, lambda name: (
+        "fc_epilogue" if "fc_epilogue" in name else conv_group(name)))
     gflop = conv_gflop(predictor.symbol, shapes)
     conv_ms = groups.get("convolution", 0.0)
     print("profile: convolutions %.1f GFLOP per forward, %.1f TFLOP/s over "
@@ -749,56 +790,30 @@ def profile_step(torch, pdev, cfg, window, reps=3):
     C tokens) spends its device time, by kernel group, and its wall time
     without the profiler (ending in the host copy of the tokens, as the
     engine's step does)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from mxnet_tpu_torch.serve.paged import paged_step
     args, kv_k, kv_v = window
     c = args[0].shape[1]
 
     def step():
-        return paged_step(pdev, kv_k, kv_v, *args, cfg=cfg, use_kernel=True)
+        return paged_step(pdev, kv_k, kv_v, *args, cfg=cfg,
+                          use_kernel=True).cpu()
 
     with torch.no_grad():
-        step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            step().cpu()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                step().cpu()
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        t = getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0))
-        if t > 0:
-            rows.append((t / 1e3 / reps, e.key, e.count // reps))
-    rows.sort(reverse=True)
-    device = sum(t for t, _, _ in rows)
+        wall, device, rows = device_profile(torch, step, reps)
     print("profile: LM step C=%d (16 slots x %d tokens, 12 layers) %.3f ms "
           "wall (no profiler); device time %.3f ms per step, busy share "
           "%.3f" % (c, c, wall, device, device / wall if wall else 0.0))
     for t, key, n in rows[:8]:
         print("profile:   %8.3f ms  %5.1f%%  x%-3d %s"
               % (t, 100.0 * t / device if device else 0.0, n, key[:80]))
-    groups = {}
-    for t, key, _ in rows:
-        name = key.lower()
-        group = ("paged_attention" if "paged_attention" in name else
-                 "gemm" if any(w in name for w in (
-                     "gemm", "cutlass", "xmma", "gemv")) else
-                 "index/gather/scatter" if any(w in name for w in (
-                     "index", "gather", "scatter")) else
-                 "reduce/argmax" if "reduce" in name or "argmax" in name
-                 else "elementwise" if "elementwise" in name else "other")
-        groups[group] = groups.get(group, 0.0) + t
-    for group, t in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print("profile: group %-22s %8.3f ms  %5.1f%%"
-              % (group, t, 100.0 * t / device if device else 0.0))
+    groups = print_groups(rows, device, lambda name: (
+        "paged_attention" if "paged_attention" in name else
+        "gemm" if any(w in name for w in (
+            "gemm", "cutlass", "xmma", "gemv")) else
+        "index/gather/scatter" if any(w in name for w in (
+            "index", "gather", "scatter")) else
+        "reduce/argmax" if "reduce" in name or "argmax" in name
+        else "elementwise" if "elementwise" in name else "other"), 22)
     return {"wall_ms": wall, "device_ms": device, "groups": groups}
 
 
@@ -931,6 +946,452 @@ def llm_phase(torch, ck):
                             for r in runs.values())}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: flash_attention against its plain version
+
+# the kernel search's shape: GPT-2 small's attention geometry
+# (openai-community/gpt2 config.json: n_head 12, n_embd 768 -> D 64,
+# n_positions 1024) at batch 4
+FLASH_SHAPE = (4, 1024, 12, 64)
+# Tolerance: the kernel walks the keys in tiles with an online softmax
+# (running max, rescaled sums, per-lane partial dot products), the plain
+# version takes one global max and sums in einsum's order; both in float32
+# over at most 1024 keys of products of unit-normal values scaled by
+# 1/sqrt(D), so they differ by a few ulps of outputs that are weighted means
+# of unit-normal V rows: absolute 2e-5, the JAX package's own tolerance for
+# its flash kernel (tests/test_pallas.py).
+FLASH_ATOL = 2e-5
+
+
+def flash_inputs(torch, dev, seed, b, t, h, d):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((b, t, h, d), generator=gen, device=dev)
+            for _ in range(3)]
+
+
+def flash_bound_ms(b, t, h, d, causal):
+    """Least time for the work: q, k, v read once and out written once;
+    4·D flops (q·k and p·v) per (row, visible key) pair of every head."""
+    pairs = t * (t + 1) / 2.0 if causal else float(t * t)
+    flops = 4.0 * d * b * h * pairs
+    nbytes = 4 * b * t * h * d * 4
+    by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    by_flops = 1e3 * flops / PEAK_F32_FLOPS
+    return max(by_bytes, by_flops), ("bytes" if by_bytes >= by_flops
+                                     else "operations")
+
+
+def flash_kernel_phase(torch, ck):
+    dev = torch.device("cuda", 0)
+    b, t, h, d = FLASH_SHAPE
+    cases = [("main-causal", FLASH_SHAPE, True, None),
+             ("main-full", FLASH_SHAPE, False, None)]
+    for tt, dd in ((1, 64), (7, 16), (33, 32), (100, 64), (129, 128),
+                   (1000, 64), (77, 10)):
+        for causal in (False, True):
+            cases.append(("ragged-T%d-D%d" % (tt, dd), (2, tt, 3, dd),
+                          causal, None))
+    for dd in (16, 32, 64, 128):
+        for tile in ck.FLASH_TILES:
+            cases.append(("tile-%dx%d-D%d" % (tile + (dd,)), (1, 300, 2, dd),
+                          True, tile))
+    main_err = 0.0
+    for seed, (name, shape, causal, tile) in enumerate(cases):
+        q, k, v = flash_inputs(torch, dev, 100 + seed, *shape)
+        bq, bk = tile if tile else (None, None)
+        out = ck.flash_attention(q, k, v, causal=causal, block_q=bq,
+                                 block_k=bk)
+        ref = ck.flash_attention_reference(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        finite = bool(torch.isfinite(out).all())
+        if name.startswith("main") or tile is None:
+            print("kernel check flash %-16s B=%d T=%-4d H=%-2d D=%-3d causal=%d "
+                  "tile=%s max_abs_err=%.3g tol=%.3g finite=%s"
+                  % ((name,) + shape + (causal, ck.flash_tiles(
+                      shape[1], shape[3], causal, q.dtype, dev, bq, bk),
+                      err, FLASH_ATOL, finite)))
+        if not (err <= FLASH_ATOL and finite):
+            fail("flash %s: max_abs_err %.3g > tol %.3g, or non-finite"
+                 % (name, err, FLASH_ATOL))
+        if name.startswith("main"):
+            main_err = max(main_err, err)
+    n_tiles = sum(1 for c in cases if c[3] is not None)
+    print("kernel check flash: all %d compiled tiles x D in (16, 32, 64, 128) "
+          "at B=1 T=300 H=2 causal within tol (%d cases)"
+          % (len(ck.FLASH_TILES), n_tiles))
+    # bitwise repeatable: no atomics, a fixed order per tile
+    q, k, v = flash_inputs(torch, dev, 7, *FLASH_SHAPE)
+    a = ck.flash_attention(q, k, v, causal=True)
+    a2 = ck.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    if not torch.equal(a, a2):
+        fail("flash_attention is not bitwise repeatable")
+    print("kernel check flash: two calls bitwise equal")
+    return {"max_abs_err": main_err}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the kernel search at GPT-2-small attention geometry
+
+def flash_search_phase(torch, mt, ck, trials=2):
+    """search_flash into a fresh store, a second identical search (a store
+    hit), then call-time resolution under MXNET_KERNEL_SEARCH=1; the
+    kernel's launch count is read around exactly this path."""
+    ks = mt.autotune.kernelsearch
+    dev = torch.device("cuda", 0)
+    b, t, h, d = FLASH_SHAPE
+    saved = {k: os.environ.get(k) for k in ("MXNET_AUTOTUNE_DIR",
+                                            "MXNET_KERNEL_SEARCH")}
+    with tempfile.TemporaryDirectory() as store:
+        os.environ["MXNET_AUTOTUNE_DIR"] = store
+        os.environ.pop("MXNET_KERNEL_SEARCH", None)
+        try:
+            fails0 = ks.parity_fail_total()
+            ck.reset_launches()
+            t0 = time.perf_counter()
+            win = ks.search_flash(b, t, h, d, causal=True, trials=trials)
+            wall1 = time.perf_counter() - t0
+            first = mt.autotune.recent_stats()[-1].report()
+            after1 = ck.LAUNCHES["flash_attention"]
+            t0 = time.perf_counter()
+            win2 = ks.search_flash(b, t, h, d, causal=True, trials=trials)
+            wall2 = time.perf_counter() - t0
+            second = mt.autotune.recent_stats()[-1].report()
+            after2 = ck.LAUNCHES["flash_attention"]
+            os.environ["MXNET_KERNEL_SEARCH"] = "1"
+            q, k, v = flash_inputs(torch, dev, 42, *FLASH_SHAPE)
+            tiles = ck.flash_tiles(t, d, True, q.dtype, dev)
+            via_winner = ck.flash_attention(q, k, v, causal=True)
+            explicit = ck.flash_attention(q, k, v, causal=True,
+                                          block_q=win["block_q"],
+                                          block_k=win["block_k"])
+            torch.cuda.synchronize()
+            launches = ck.LAUNCHES["flash_attention"]
+        finally:
+            for key, val in saved.items():
+                if val is None:
+                    os.environ.pop(key, None)
+                else:
+                    os.environ[key] = val
+    cands = ks.flash_candidates(t)
+    print("search: search_flash(%d, %d, %d, %d, causal=True) on %s: %d "
+          "candidates, wall %.3f s, calls %s, winner %s"
+          % (b, t, h, d, torch.cuda.get_device_name(0), len(cands), wall1,
+             first["calls"], win))
+    for cfg, cost in first["trials"]:
+        print("search:   %-70s %s" % (
+            json.dumps({k: v for k, v in sorted(cfg.items())
+                        if k != "_feat"}),
+            "%.6f s" % cost if cost > 0 else "not measured"))
+    print("search: second search %s in %.4f s, calls %s, kernel launches %d"
+          % (second["source"], wall2, second["calls"], after2 - after1))
+    fails = ks.parity_fail_total() - fails0
+    if fails or first["calls"]["gate"] != len(cands):
+        fail("search gate: %d parity failures, %d of %d candidates gated"
+             % (fails, first["calls"]["gate"], len(cands)))
+    if first["source"] != "measured" or first["calls"]["measure"] < 1 \
+            or win not in cands:
+        fail("first search did not measure a winner among the candidates: "
+             "%s" % first)
+    if win2 != win or second["source"] != "cache" \
+            or any(second["calls"].values()) or after2 != after1:
+        fail("second search was not a store hit with zero gate, featurize "
+             "and measure calls: %s, %d launches" % (second,
+                                                     after2 - after1))
+    runs = (1 + trials) * ks.FLASH_MEASURE_REPS
+    want = first["calls"]["gate"] + first["calls"]["measure"] * runs
+    if after1 != want:
+        fail("search launched the kernel %d times, want %d gates + %d "
+             "measured x %d runs = %d" % (after1, first["calls"]["gate"],
+                                          first["calls"]["measure"], runs,
+                                          want))
+    same = bool(torch.equal(via_winner, explicit))
+    ref = ck.flash_attention_reference(q, k, v, causal=True)
+    err = (via_winner - ref).abs().max().item()
+    print("search: call-time tiles under MXNET_KERNEL_SEARCH=1 %s; output "
+          "bitwise equal to the explicit-tile call=%s; max_abs_err vs plain "
+          "%.3g" % (tiles, same, err))
+    if tiles != (win["block_q"], win["block_k"]) or not same \
+            or not err <= FLASH_ATOL:
+        fail("call-time winner: tiles %s, bitwise equal %s, err %.3g"
+             % (tiles, same, err))
+    print("search: flash_attention launches on the search path %d (search "
+          "%d, store hit %d, call-time %d)" % (launches, after1,
+                                               after2 - after1,
+                                               launches - after2))
+
+    # times at the search shape, causal, with the winning tile
+    import torch.nn.functional as F
+    flush = torch.zeros(256 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    bq, bk = win["block_q"], win["block_k"]
+    bound, bound_by = flash_bound_ms(b, t, h, d, True)
+    row = {
+        "shape": "B=%d T=%d H=%d D=%d causal tile=%dx%d" % (b, t, h, d, bq,
+                                                            bk),
+        "ms": time_ms(torch, lambda: ck.flash_attention(
+            q, k, v, causal=True, block_q=bq, block_k=bk), flush),
+        "plain_ms": time_ms(torch, lambda: ck.flash_attention_reference(
+            q, k, v, causal=True), flush),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True), flush),
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    print("kernel time flash_attention %s" % json.dumps(row))
+    others = {}
+    for tile in ck.FLASH_TILES:
+        others["%dx%d" % tile] = time_ms(torch, lambda: ck.flash_attention(
+            q, k, v, causal=True, block_q=tile[0], block_k=tile[1]), flush,
+            iters=10)
+    print("kernel time flash_attention every tile (causal, ms): %s"
+          % json.dumps(others))
+    del flush
+    return dict(row, launches=launches, search_wall_s=wall1)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: correlation against its plain version
+
+# FlowNetC's correlation stage (Dosovitskiy et al., FlowNet, ICCV 2015, sec.
+# 3 and Fig. 2; the released FlowNetC prototxt): 384x512 images through
+# three stride-2 convolutions give 48x64 maps of 256 channels, compared over
+# displacements up to 20 pixels in steps of 2 (21 x 21 = 441)
+FLOWNETC = dict(n=8, c=256, h=48, w=64, m=20, s2=2)
+# PWC-Net's cost volume (Sun et al., CVPR 2018): 4-pixel displacements in
+# steps of 1 (9 x 9 = 81) over 64-channel features
+PWCNET = dict(n=8, c=64, h=56, w=128, m=4, s2=1)
+# Tolerance: both sum C float32 products (or absolute differences) of
+# unit-normal values, in channel order in the kernel and in torch's
+# reduction order in the plain version, then divide by C; outputs are O(1),
+# so they differ by a few ulps: 1e-5 * max(1, max|plain|).
+CORR_TOL_REL = 1e-5
+
+
+def corr_inputs(torch, dev, seed, n, c, h, w):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((n, c, h, w), generator=gen, device=dev)
+            for _ in range(2)]
+
+
+def corr_bound_ms(n, c, h, w, m, s2):
+    """Least time: a and b read once, the output written once; 2 flops
+    (multiply and add, or subtract and add) per channel of each output."""
+    d2 = 2 * (m // s2) + 1
+    nbytes = 4 * (2 * n * c * h * w + n * d2 * d2 * h * w)
+    flops = 2.0 * n * d2 * d2 * h * w * c
+    by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    by_flops = 1e3 * flops / PEAK_F32_FLOPS
+    return max(by_bytes, by_flops), ("bytes" if by_bytes >= by_flops
+                                     else "operations")
+
+
+def correlation_kernel_phase(torch, ck):
+    dev = torch.device("cuda", 0)
+    cases = [("flownetc", FLOWNETC), ("pwcnet", PWCNET),
+             ("ragged-m3s2", dict(n=3, c=5, h=7, w=45, m=3, s2=2)),
+             ("s2-not-dividing", dict(n=1, c=3, h=33, w=31, m=4, s2=3)),
+             ("m1", dict(n=2, c=16, h=9, w=70, m=1, s2=1)),
+             ("m0", dict(n=2, c=7, h=5, w=5, m=0, s2=1)),
+             ("d2-21-s1", dict(n=1, c=8, h=20, w=40, m=10, s2=1)),
+             ("c1-tall", dict(n=1, c=1, h=67, w=3, m=2, s2=1)),
+             # windows over 1024 floats a channel: the runtime-stride
+             # instance, with 16-byte and with 4-byte staging
+             ("wide-window", dict(n=2, c=10, h=21, w=44, m=8, s2=8)),
+             ("wide-odd-w", dict(n=1, c=5, h=19, w=45, m=12, s2=4))]
+    main_err = 0.0
+    for seed, (name, g) in enumerate(cases):
+        a, b = corr_inputs(torch, dev, 200 + seed, g["n"], g["c"], g["h"],
+                           g["w"])
+        for mult in (True, False):
+            out = ck.correlation(a, b, g["m"], g["s2"], mult)
+            ref = ck.correlation_reference(a, b, g["m"], g["s2"], mult)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            tol = CORR_TOL_REL * max(1.0, ref.abs().max().item())
+            print("kernel check corr %-16s N=%d C=%-3d %dx%-3d m=%-2d s2=%d "
+                  "D2^2=%-3d multiply=%d max_abs_err=%.3g tol=%.3g"
+                  % (name, g["n"], g["c"], g["h"], g["w"], g["m"], g["s2"],
+                     out.shape[1], mult, err, tol))
+            if out.shape != ref.shape or not err <= tol \
+                    or not bool(torch.isfinite(out).all()):
+                fail("correlation %s multiply=%s: max_abs_err %.3g > tol "
+                     "%.3g, or shape %s != %s" % (name, mult, err, tol,
+                                                  tuple(out.shape),
+                                                  tuple(ref.shape)))
+            if name == "flownetc":
+                main_err = max(main_err, err)
+
+    flush = torch.zeros(256 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    rows = []
+    for name, g in (("flownetc", FLOWNETC), ("pwcnet", PWCNET)):
+        a, b = corr_inputs(torch, dev, 300, g["n"], g["c"], g["h"], g["w"])
+        for mult in (True, False):
+            bound, bound_by = corr_bound_ms(g["n"], g["c"], g["h"], g["w"],
+                                            g["m"], g["s2"])
+            row = {"shape": "%s N=%d C=%d %dx%d m=%d s2=%d multiply=%d" % (
+                       name, g["n"], g["c"], g["h"], g["w"], g["m"], g["s2"],
+                       mult),
+                   "ms": time_ms(torch, lambda: ck.correlation(
+                       a, b, g["m"], g["s2"], mult), flush),
+                   "plain_ms": time_ms(torch, lambda: ck.correlation_reference(
+                       a, b, g["m"], g["s2"], mult), flush, iters=5),
+                   "library_ms": None,
+                   "bound_ms": bound, "bound_by": bound_by}
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            print("kernel time correlation %s" % json.dumps(row))
+            rows.append(row)
+    del flush
+    main = rows[0]
+    return dict(main, max_abs_err=main_err, rows=rows)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: FlowNetC's correlation stage through Predictor
+
+FLOWNETC_IMAGE = (384, 512)
+# Tolerance of the served output against the same graph run by the port on
+# the CPU (where the correlation wrapper takes its plain version): both in
+# float32 (TF32 off), five convolution layers summing up to 4257 products in
+# cuDNN's order and in the CPU's, and the correlation in the kernel's order
+# and torch's; those differences stay near 1e-6 relative, so 1e-4 *
+# max(1, max|cpu|) holds a right path while a wrong displacement, channel
+# order or weight moves outputs at the scale of max|cpu|.
+FLOWNETC_TOL_REL = 1e-4
+
+
+def flownetc_symbol(sym, widths=(64, 128, 256), redir=32, out=256,
+                    max_displacement=20, stride2=2):
+    """FlowNetC up to conv3_1 (Dosovitskiy et al., ICCV 2015, Fig. 2; the
+    released FlowNetC prototxt): a Siamese tower (conv1 7x7/2, conv2 5x5/2,
+    conv3 5x5/2, each with LeakyReLU 0.1) whose weights both images share,
+    the correlation of the two towers (kernel 1, stride1 1, pad = max
+    displacement), conv_redir 1x1 on tower 1, their concatenation, conv3_1
+    3x3.  Every layer is followed by LeakyReLU 0.1 as in the prototxt.
+    ``sym`` is either package's symbol module."""
+    shared = {}
+
+    def tower(x, tag):
+        for i, (f, k) in enumerate(zip(widths, (7, 5, 5)), 1):
+            name = "conv%d" % i
+            if name not in shared:
+                shared[name] = (sym.Variable(name + "_weight"),
+                                sym.Variable(name + "_bias"))
+            w, b = shared[name]
+            x = sym.Convolution(data=x, weight=w, bias=b, kernel=(k, k),
+                                stride=(2, 2), pad=(k // 2, k // 2),
+                                num_filter=f, name=name + tag)
+            x = sym.LeakyReLU(data=x, act_type="leaky", slope=0.1,
+                              name="relu%d%s" % (i, tag))
+        return x
+
+    a = tower(sym.Variable("img1"), "a")
+    b = tower(sym.Variable("img2"), "b")
+    corr = sym.Correlation(data1=a, data2=b, kernel_size=1,
+                           max_displacement=max_displacement, stride1=1,
+                           stride2=stride2, pad_size=max_displacement,
+                           name="corr")
+    corr = sym.LeakyReLU(data=corr, act_type="leaky", slope=0.1,
+                         name="corr_relu")
+    rd = sym.Convolution(data=a, kernel=(1, 1), num_filter=redir,
+                         name="conv_redir")
+    rd = sym.LeakyReLU(data=rd, act_type="leaky", slope=0.1,
+                       name="redir_relu")
+    cat = sym.Concat(rd, corr, dim=1, name="concat_redir_corr")
+    x = sym.Convolution(data=cat, kernel=(3, 3), pad=(1, 1), num_filter=out,
+                        name="conv3_1")
+    return sym.LeakyReLU(data=x, act_type="leaky", slope=0.1, name="relu3_1")
+
+
+def flownetc_phase(torch, mt, ck, n=8, forwards=4, n_check=2, seed=0):
+    sym = flownetc_symbol(mt.sym)
+    hh, ww = FLOWNETC_IMAGE
+    shapes = {"img1": (n, 3, hh, ww), "img2": (n, 3, hh, ww)}
+    params = xavier_params(sym, shapes, seed)
+    n_params = sum(v.size for v in params.values())
+    rng = np.random.default_rng(seed + 1)
+    frames = []
+    for _ in range(forwards):
+        img1 = rng.random((n, 3, hh, ww), dtype=np.float32)
+        # the second frame: the first moved by (8, 16) pixels, plus noise
+        img2 = np.roll(img1, (8, 16), axis=(2, 3)) + np.float32(0.05) * \
+            rng.standard_normal((n, 3, hh, ww), dtype=np.float32)
+        frames.append((img1, img2.astype(np.float32)))
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "flownetc")
+        mt.model.save_checkpoint(
+            prefix, 0, sym,
+            {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in params.items()}, {})
+        t0 = time.perf_counter()
+        pred = mt.Predictor(prefix + "-symbol.json", prefix + "-0000.params",
+                            input_shapes=shapes)
+        built = time.perf_counter() - t0
+        cpu_pred = mt.Predictor(
+            prefix + "-symbol.json", prefix + "-0000.params",
+            input_shapes={k: (n_check,) + v[1:] for k, v in shapes.items()},
+            dev_type="cpu")
+    print("flownetc: %d float32 parameters (seed %d), inputs 2 x %s, "
+          "Predictor on %s built in %.2f s"
+          % (n_params, seed, shapes["img1"], pred.ctx, built))
+
+    def forward(img1, img2):
+        pred.set_input("img1", img1)
+        pred.set_input("img2", img2)
+        pred.forward()
+        return pred.get_output(0)
+
+    forward(*frames[0])                   # cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    outs = [forward(*f) for f in frames]
+    wall = (time.perf_counter() - t0) * 1e3 / forwards
+    launches = dict(ck.LAUNCHES)
+    print("flownetc: %d forwards, %.3f ms each (wall, ending in the output "
+          "copy); launches %s" % (forwards, wall, launches))
+    if launches["correlation"] != forwards or any(
+            v for k, v in launches.items() if k != "correlation"):
+        fail("flownetc: correlation launched %d times for %d forwards "
+             "(launches %s)" % (launches["correlation"], forwards, launches))
+    want_shape = (n, 256, hh // 8, ww // 8)
+    for i, o in enumerate(outs):
+        if o.shape != want_shape or not np.all(np.isfinite(o)):
+            fail("flownetc output %d malformed: %s" % (i, o.shape))
+    # the same graph and checkpoint on the CPU, first samples of each batch
+    worst, tol = 0.0, 0.0
+    for (img1, img2), o in zip(frames[:2], outs[:2]):
+        cpu_pred.set_input("img1", img1[:n_check])
+        cpu_pred.set_input("img2", img2[:n_check])
+        cpu_pred.forward()
+        ref = cpu_pred.get_output(0)
+        err = float(np.abs(o[:n_check] - ref).max())
+        tol = max(tol, FLOWNETC_TOL_REL * max(1.0, float(np.abs(ref).max())))
+        worst = max(worst, err)
+        if not err <= tol:
+            fail("flownetc output differs from the CPU run of the same "
+                 "graph: max abs err %.3g > tol %.3g" % (err, tol))
+    print("flownetc check: output %s finite; the first %d samples of 2 "
+          "batches within tol of the port's CPU run of the same checkpoint "
+          "(max abs err %.3g, tol %.3g, max|out| %.3f)"
+          % (want_shape, n_check, worst, tol, float(np.abs(outs[0]).max())))
+
+    pred.set_input("img1", frames[0][0])
+    pred.set_input("img2", frames[0][1])
+    dwall, device, rows = device_profile(torch, pred.forward)
+    print("profile: FlowNetC forward (batch %d, %dx%d) %.3f ms wall (no "
+          "profiler); device time %.3f ms per forward, busy share %.3f"
+          % (n, hh, ww, dwall, device, device / dwall if dwall else 0.0))
+    for t, key, cnt in rows[:10]:
+        print("profile:   %8.3f ms  %5.1f%%  x%-2d %s"
+              % (t, 100.0 * t / device if device else 0.0, cnt, key[:80]))
+    print_groups(rows, device, lambda name: (
+        "correlation" if "correlation" in name else
+        "concat" if "cat" in name else conv_group(name)))
+    return {"launches": launches["correlation"], "forwards": forwards,
+            "wall_ms": wall, "device_ms": device}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -985,7 +1446,19 @@ def main():
     # phase 6: the LLM serving path
     llm = llm_phase(torch, ck)
 
-    # phase 7: results
+    # phase 7: flash_attention against its plain version
+    flash = flash_kernel_phase(torch, ck)
+
+    # phase 8: the kernel search path
+    search = flash_search_phase(torch, mt, ck)
+
+    # phase 9: correlation against its plain version
+    corr = correlation_kernel_phase(torch, ck)
+
+    # phase 10: FlowNetC's correlation stage through Predictor
+    flow = flownetc_phase(torch, mt, ck)
+
+    # phase 11: results
     kernels = [{
         "name": "fused_fc_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["fused_fc_epilogue"],
@@ -1004,6 +1477,24 @@ def main():
         "ms": paged["ms"], "plain_ms": paged["plain_ms"],
         "bound_ms": paged["bound_ms"], "bound_by": paged["bound_by"],
         "library_ms": paged["library_ms"],
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["flash_attention"],
+        "replaces": REPLACES["flash_attention"],
+        "launches": search["launches"],
+        "max_abs_err": flash["max_abs_err"],
+        "ms": search["ms"], "plain_ms": search["plain_ms"],
+        "bound_ms": search["bound_ms"], "bound_by": search["bound_by"],
+        "library_ms": search["library_ms"],
+    }, {
+        "name": "correlation", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["correlation"],
+        "replaces": REPLACES["correlation"],
+        "launches": flow["launches"],
+        "max_abs_err": corr["max_abs_err"],
+        "ms": corr["ms"], "plain_ms": corr["plain_ms"],
+        "bound_ms": corr["bound_ms"], "bound_by": corr["bound_by"],
+        "library_ms": None,
     }]
     missing = [k for k in ck.SOURCES
                if k not in [e["name"] for e in kernels]]
@@ -1012,7 +1503,14 @@ def main():
     print("kernel times: fused_fc_epilogue is one bucket-8 batch's fc6 + "
           "fc7 launches; paged_attention is one C=1 plus one C=32 launch "
           "at 16 slots x 12 heads x 64, contexts 1..1024; its launches "
-          "are those of the paged, dense-stripe and speculative LM runs")
+          "are those of the paged, dense-stripe and speculative LM runs; "
+          "flash_attention is one causal launch at B=4 T=1024 H=12 D=64 "
+          "with the searched tile, its launches those of the search, the "
+          "store hit and the call-time use; correlation is one launch at "
+          "FlowNetC's stage (N=8 C=256 48x64, 441 displacements, "
+          "multiply), its launches those of the FlowNetC forwards; no "
+          "single PyTorch call computes the correlation, so its "
+          "library_ms is null")
     print(json.dumps({"kernels": kernels}))
     print("card: %s" % smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,8 @@
 
 The same user surface as the JAX package, on one NVIDIA H100:
 ``import mxnet_tpu_torch as mx``, then ``mx.nd``, ``mx.sym``,
-``mx.predictor``, ``mx.serve``.  Plain tensor code is PyTorch; the
-package's TPU kernels are hand-written Hopper kernels
+``mx.predictor``, ``mx.serve``, ``mx.autotune``.  Plain tensor code is
+PyTorch; the package's TPU kernels are hand-written Hopper kernels
 (``ops/cuda_kernels.py``, sources in ``csrc/``).  Entry points run on
 ``gpu(0)`` unless the caller asks for ``cpu()``.
 
@@ -28,9 +28,11 @@ from . import passes
 from . import serve
 from . import models
 from . import convert
+from . import parallel
+from . import autotune
 
 __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "current_context", "nd", "ndarray", "sym", "symbol", "ops",
            "AttrScope", "NameManager", "executor", "model", "predictor",
            "Predictor", "create_predictor", "passes", "serve", "models",
-           "convert"]
+           "convert", "parallel", "autotune"]

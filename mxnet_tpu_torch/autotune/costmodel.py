@@ -1,0 +1,311 @@
+"""The shared learned cost model (counterpart of
+``mxnet_tpu/autotune/costmodel.py``; numpy only, the same schema, prior,
+regression and persistence).
+
+Two layers:
+
+* :func:`analytic_cost` -- a deterministic roofline prior over the
+  feature vector (compute / device memory / interconnect terms from the
+  ``MXNET_PEAK_TFLOPS`` / ``MXNET_HBM_GBPS`` / ``MXNET_ICI_GBPS`` knobs,
+  plus dispatch/scan/padding overhead terms).
+* :class:`CostModel` -- ridge regression on ``log(cost)`` over
+  log-compressed features plus the log of the prior, so an untrained
+  model degrades to the prior.
+
+The port's peak defaults are one NVIDIA H100 SXM's, from its data sheet at
+the 700 W power limit: 67 TFLOP/s in float32 outside the tensor cores (the
+port's kernels run no tensor cores), 3,350 GB/s of HBM3, and 450 GB/s each
+way over NVLink.  A card set below 700 W runs below them.
+
+Training data is the autotune store itself: every measured candidate a
+tuner logs carries its feature vector under ``"_feat"``, so
+:func:`refit_from_store` rebuilds the model from every measurement in the
+store.  The fitted model pickles per backend descriptor next to the store
+(``costmodel-<digest>.pkl``), stamped with ``COSTMODEL_VERSION``.
+"""
+from __future__ import annotations
+
+import hashlib
+import math
+import os
+import pickle
+import warnings
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..base import get_env, make_lock
+from .measure import backend_descriptor
+from .store import list_configs, load_config, store_dir
+
+__all__ = ["COSTMODEL_VERSION", "FEATURE_NAMES", "AUDIT_KEYS", "features",
+           "analytic_cost", "CostModel", "model_path", "load_model",
+           "save_model", "get_model", "refit_from_store", "clean_config",
+           "report", "PEAK_TFLOPS", "HBM_GBPS", "ICI_GBPS"]
+
+#: Bump when FEATURE_NAMES, the transform, or the prior changes meaning:
+#: stale pickles retrain, and store entries ranked by an older model are
+#: invalidated on load instead of resurrected (store.load_config).
+COSTMODEL_VERSION = 1
+
+#: The fixed feature schema.  Every tuner maps its candidate onto this
+#: vector via :func:`features`; unused axes stay 0.  Plain floats, so a
+#: vector rides the JSON audit log unchanged.
+FEATURE_NAMES = (
+    "bias",          # always 1.0
+    "gflops",        # flops / 1e9 (per step/call)
+    "hbm_gb",        # device-memory bytes / 1e9
+    "coll_gb",       # collective census total_bytes / 1e9
+    "coll_count",    # collective census op count
+    "inv_k",         # 1 / superstep K (dispatch overhead amortization)
+    "superstep_k",   # superstep K itself
+    "unroll",        # scan unroll factor
+    "remat",         # 1.0 when the loss is recomputed (checkpointed)
+    "fuse",          # serve: fusion pass on
+    "quant_ops",     # serve: number of quantized op types
+    "num_buckets",   # serve: bucket-grid size
+    "pad_waste",     # serve: mean padded-slot fraction over request sizes
+    "mesh_devices",  # dist: devices in the mesh
+    "mesh_axes",     # dist: number of mesh axes
+    "block_q",       # kernelsearch: flash q-block
+    "block_k",       # kernelsearch: flash k-block
+    "block_n",       # kernelsearch: fc epilogue n-block
+)
+
+#: Keys a tuner adds to logged configs for the audit trail; stripped
+#: from the winner before it is applied (see :func:`clean_config`).
+AUDIT_KEYS = ("_feat", "est_s", "shortlisted", "parity")
+
+# overhead priors (seconds) — rough magnitudes; the learned residual
+# absorbs the host-specific truth
+_DISPATCH_S = 2e-4       # per-step host dispatch, amortized by superstep K
+_SCAN_ITER_S = 2e-5      # per-scan-iteration control, amortized by unroll
+_COST_FLOOR_S = 1e-9
+
+# NVIDIA H100 SXM data sheet, 700 W: float32 outside the tensor cores,
+# HBM3 bandwidth, NVLink bandwidth each way
+PEAK_TFLOPS = 67.0
+HBM_GBPS = 3350.0
+ICI_GBPS = 450.0
+
+
+def features(**kw: float) -> List[float]:
+    """A feature vector from named axes; unnamed axes are 0.  Raises on
+    a name outside :data:`FEATURE_NAMES` (schema drift must be loud)."""
+    unknown = set(kw) - set(FEATURE_NAMES)
+    if unknown:
+        raise ValueError("costmodel: unknown feature(s) %s" % sorted(unknown))
+    vec = [float(kw.get(name, 0.0)) for name in FEATURE_NAMES]
+    vec[0] = 1.0
+    return vec
+
+
+def clean_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """The config minus audit-trail keys — what the tuner applies and
+    what store-hit membership tests compare against."""
+    return {k: v for k, v in cfg.items() if k not in AUDIT_KEYS}
+
+
+def analytic_cost(feat: Sequence[float]) -> float:
+    """The roofline prior in seconds.  Deterministic in (features, env
+    knobs), so processes that rank with it shortlist identically."""
+    f = dict(zip(FEATURE_NAMES, feat))
+    peak = get_env("MXNET_PEAK_TFLOPS", PEAK_TFLOPS, float)
+    hbm = get_env("MXNET_HBM_GBPS", HBM_GBPS, float)
+    ici = get_env("MXNET_ICI_GBPS", ICI_GBPS, float)
+    compute = f["gflops"] / max(peak * 1e3, 1e-9)
+    cost = compute + f["hbm_gb"] / max(hbm, 1e-9) \
+        + f["coll_gb"] / max(ici, 1e-9)
+    if f["remat"]:
+        cost += compute / 3.0        # one extra forward of the remat region
+    cost += _DISPATCH_S * f["inv_k"]
+    if f["superstep_k"] > 1.0:
+        cost += _SCAN_ITER_S / max(f["unroll"], 1.0)
+    cost *= 1.0 + f["pad_waste"]
+    if f["quant_ops"]:
+        cost *= max(0.7, 1.0 - 0.05 * f["quant_ops"])
+    if f["fuse"]:
+        cost *= 0.95
+    return max(cost, _COST_FLOOR_S)
+
+
+class CostModel:
+    """Ridge regression on ``log(cost_s)``; predicts the analytic prior
+    until it has seen at least :data:`MIN_SAMPLES` measurements."""
+
+    MIN_SAMPLES = 8
+    _RIDGE_LAMBDA = 1e-3
+
+    def __init__(self, backend: Optional[str] = None):
+        self.backend = backend or backend_descriptor()
+        self.coef: Optional[np.ndarray] = None
+        self.n = 0
+
+    def _transform(self, feat: Sequence[float]) -> List[float]:
+        # log1p-compress the scale features (gflops spans orders of
+        # magnitude) and append the log-prior: the regression learns a
+        # residual over the roofline, not absolute time from scratch
+        x = [1.0]
+        x.extend(math.log1p(abs(float(v))) for v in feat[1:])
+        x.append(math.log(analytic_cost(feat)))
+        return x
+
+    def fit(self, samples: Sequence[Tuple[Sequence[float], float]]) -> "CostModel":
+        """Fit from ``[(feature_vector, cost_s), ...]``; non-positive
+        costs and wrong-arity vectors are skipped.  Deterministic: the
+        normal equations have one solution for one sample list."""
+        rows, ys = [], []
+        for feat, cost in samples:
+            if len(feat) != len(FEATURE_NAMES) or not cost or cost <= 0:
+                continue
+            rows.append(self._transform(feat))
+            ys.append(math.log(float(cost)))
+        self.n = len(rows)
+        if self.n < self.MIN_SAMPLES:
+            self.coef = None
+            return self
+        x = np.asarray(rows, np.float64)
+        y = np.asarray(ys, np.float64)
+        d = x.shape[1]
+        self.coef = np.linalg.solve(x.T @ x + self._RIDGE_LAMBDA * np.eye(d),
+                                    x.T @ y)
+        return self
+
+    @property
+    def trained(self) -> bool:
+        return self.coef is not None
+
+    def predict(self, feat: Sequence[float]) -> float:
+        """Predicted cost in seconds (the prior when untrained)."""
+        if self.coef is None:
+            return analytic_cost(feat)
+        z = float(np.asarray(self._transform(feat)) @ self.coef)
+        # exp of a wild extrapolation must not overflow the sort
+        return max(math.exp(min(z, 50.0)), _COST_FLOOR_S)
+
+    def rank(self, feats: Sequence[Sequence[float]]) -> List[int]:
+        """Candidate indices best-first; ties break by index, so the
+        ranking is a pure function of (model, feature list)."""
+        preds = [self.predict(f) for f in feats]
+        return sorted(range(len(feats)), key=lambda i: (preds[i], i))
+
+
+# -- persistence (per backend-descriptor fingerprint) ------------------------
+
+def model_path(backend: Optional[str] = None) -> str:
+    backend = backend or backend_descriptor()
+    digest = hashlib.sha256(backend.encode()).hexdigest()[:16]
+    return os.path.join(store_dir(), "costmodel-%s.pkl" % digest)
+
+
+def save_model(model: CostModel) -> str:
+    from ..base import atomic_local_write
+    path = model_path(model.backend)
+    os.makedirs(store_dir(), exist_ok=True)
+    doc = {"version": COSTMODEL_VERSION, "features": FEATURE_NAMES,
+           "backend": model.backend, "n": model.n,
+           "coef": None if model.coef is None else model.coef.tolist()}
+    with atomic_local_write(path, "wb") as f:
+        pickle.dump(doc, f)
+    return path
+
+
+def load_model(backend: Optional[str] = None) -> Optional[CostModel]:
+    """The pickled model for this backend, or None.  Corrupt or stale
+    (version / feature-schema / backend mismatch) pickles warn, unlink,
+    and return None — the caller retrains from the store."""
+    backend = backend or backend_descriptor()
+    path = model_path(backend)
+    try:
+        with open(path, "rb") as f:
+            doc = pickle.load(f)
+    except FileNotFoundError:
+        return None
+    except Exception as e:
+        warnings.warn("costmodel: dropping unreadable model %s (%s); "
+                      "retraining" % (path, e))
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+        return None
+    if not isinstance(doc, dict) or doc.get("version") != COSTMODEL_VERSION \
+            or tuple(doc.get("features") or ()) != FEATURE_NAMES \
+            or doc.get("backend") != backend:
+        warnings.warn("costmodel: dropping stale model %s (v%s, current "
+                      "v%d); retraining" % (path, doc.get("version")
+                                            if isinstance(doc, dict)
+                                            else "?", COSTMODEL_VERSION))
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+        return None
+    model = CostModel(backend)
+    model.n = int(doc.get("n") or 0)
+    coef = doc.get("coef")
+    model.coef = None if coef is None else np.asarray(coef, np.float64)
+    return model
+
+
+_MODELS: Dict[str, CostModel] = {}
+_model_lock = make_lock("autotune.costmodel")
+
+
+def get_model(backend: Optional[str] = None) -> CostModel:
+    """The process's cached model for this backend: memory, then disk,
+    then a fresh fit from the store's persisted logs."""
+    backend = backend or backend_descriptor()
+    with _model_lock:
+        model = _MODELS.get(backend)
+        if model is not None:
+            return model
+    model = load_model(backend)
+    if model is None:
+        model = refit_from_store(backend)
+    with _model_lock:
+        _MODELS[backend] = model
+    return model
+
+
+def refit_from_store(backend: Optional[str] = None,
+                     persist: bool = True) -> CostModel:
+    """Rebuild the model from every featurized measurement in the
+    config store (the logs ARE the training set), cache it, and pickle
+    it.  Called after every tuning run that produced new measurements."""
+    backend = backend or backend_descriptor()
+    samples: List[Tuple[List[float], float]] = []
+    for key in list_configs():
+        doc = load_config(key)
+        if doc is None:
+            continue
+        for cfg, cost in doc.get("log") or []:
+            feat = cfg.get("_feat") if isinstance(cfg, dict) else None
+            if isinstance(feat, list) and len(feat) == len(FEATURE_NAMES) \
+                    and isinstance(cost, (int, float)) and cost > 0:
+                samples.append(([float(v) for v in feat], float(cost)))
+    model = CostModel(backend).fit(samples)
+    with _model_lock:
+        _MODELS[backend] = model
+    if persist:
+        try:
+            save_model(model)
+        except OSError as e:           # read-only store: model stays in-memory
+            warnings.warn("costmodel: could not persist model (%s)" % e)
+    return model
+
+
+def report(backend: Optional[str] = None) -> dict:
+    """Lifecycle snapshot for ``mx.profiler.costmodel_report()``."""
+    backend = backend or backend_descriptor()
+    with _model_lock:
+        model = _MODELS.get(backend)
+    path = model_path(backend)
+    return {
+        "backend": backend,
+        "version": COSTMODEL_VERSION,
+        "loaded": model is not None,
+        "trained": bool(model is not None and model.trained),
+        "samples": 0 if model is None else model.n,
+        "path": path if os.path.exists(path) else None,
+    }

@@ -8,11 +8,13 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 from typing import Any, Callable
 
 import numpy as np
 
-__all__ = ["MXNetError", "numeric_types", "get_env", "atomic_local_write"]
+__all__ = ["MXNetError", "numeric_types", "get_env", "atomic_local_write",
+           "make_lock"]
 
 
 class MXNetError(Exception):
@@ -33,6 +35,13 @@ def get_env(name: str, default: Any = None, typ: Callable = str) -> Any:
         return typ(val)
     except (TypeError, ValueError):
         return default
+
+
+def make_lock(name: str) -> threading.Lock:
+    """A ``threading.Lock``.  ``name`` is the lock's class, dotted
+    ``subsystem.role`` as in the JAX package, kept so that call sites read
+    the same; it is not recorded."""
+    return threading.Lock()
 
 
 @contextlib.contextmanager

@@ -4,8 +4,9 @@ Importing this package registers every op; the symbol layer generates
 its constructors (``sym.FullyConnected`` ...) from the registry.
 """
 from .registry import OpDef, OpContext, Param, register_op, get_op, list_ops
-from . import tensor  # noqa: F401  (Flatten)
-from . import nn      # noqa: F401  (the layers VGG-16 and the MLP use)
+from . import tensor  # noqa: F401  (Flatten, Concat)
+from . import nn      # noqa: F401  (the layers VGG-16, the MLP, FlowNetC use)
 from . import fused   # noqa: F401  (the epilogue-fused serving ops)
+from . import special  # noqa: F401  (Correlation)
 
 __all__ = ["OpDef", "OpContext", "Param", "register_op", "get_op", "list_ops"]

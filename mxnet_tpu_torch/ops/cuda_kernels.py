@@ -29,11 +29,13 @@ from typing import Dict, Optional
 
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, get_env
 from .nn import ACTIVATIONS
 
 __all__ = ["fused_fc_epilogue", "fused_fc_epilogue_reference", "requantize",
            "paged_attention", "paged_attention_reference",
+           "flash_attention", "flash_attention_reference", "FLASH_TILES",
+           "correlation", "correlation_reference",
            "LAUNCHES", "reset_launches", "build", "nvcc_command", "SOURCES"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -42,7 +44,9 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 # kernel name -> source file under csrc/
 SOURCES = {"fused_fc_epilogue": "fc_epilogue.cu",
-           "paged_attention": "paged_attention.cu"}
+           "paged_attention": "paged_attention.cu",
+           "flash_attention": "flash_attention.cu",
+           "correlation": "correlation.cu"}
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
@@ -157,6 +161,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.mxtt_paged_attention.argtypes = [p] * 7 + [i] * 8 + [
             ctypes.c_float, i, p]
         lib.mxtt_paged_attention.restype = i
+    elif name == "flash_attention":
+        lib.mxtt_flash_attention.argtypes = [p] * 4 + [i] * 5 + [
+            ctypes.c_float, i, i, i, p]
+        lib.mxtt_flash_attention.restype = i
+    elif name == "correlation":
+        lib.mxtt_correlation.argtypes = [p] * 3 + [i] * 8 + [p]
+        lib.mxtt_correlation.restype = i
 
 
 def _check(lib: ctypes.CDLL, name: str, rc: int) -> None:
@@ -361,4 +372,194 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     _check(lib, "paged_attention", rc)
     _count("paged_attention")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+
+# the kernel's compiled tile instances (csrc/flash_attention.cu FLASH_TILE);
+# the largest, (64, 128) at D = 128, takes 197 KB of a block's 227 KB of
+# shared memory and stays within the 255 registers a thread may hold
+FLASH_BLOCK_Q = (16, 32, 64)
+FLASH_BLOCK_K = (32, 64, 128)
+FLASH_TILES = tuple((bq, bk) for bq in FLASH_BLOCK_Q for bk in FLASH_BLOCK_K)
+FLASH_DEFAULT_TILE = (64, 64)
+FLASH_MAX_HEAD_DIM = 128
+
+
+def clamp_tile(block: int, t: int, sizes) -> int:
+    """``block`` cut to the smallest compiled size that covers ``t``
+    tokens: a larger tile holds the same one tile of work."""
+    cover = next((s for s in sizes if s >= t), sizes[-1])
+    return min(int(block), cover)
+
+
+def _searched_flash(t, d, causal, dtype, device):
+    """The kernel search's persisted winner for this call's shape class
+    on this device, or None.  Consulted only under
+    ``MXNET_KERNEL_SEARCH=1`` and load-only (never a search on the call
+    path); see ``autotune.kernelsearch.best_config``."""
+    if not get_env("MXNET_KERNEL_SEARCH", False, bool):
+        return None
+    from ..autotune import kernelsearch as ks
+    return ks.best_config(ks.flash_class(t, d, causal, dtype), device=device)
+
+
+def flash_tiles(t: int, d: int, causal: bool, dtype, device,
+                block_q: Optional[int] = None,
+                block_k: Optional[int] = None):
+    """The (block_q, block_k) a call runs: an explicit argument wins, then
+    the searched winner under ``MXNET_KERNEL_SEARCH=1``, then
+    :data:`FLASH_DEFAULT_TILE`; each cut to the sequence length
+    (:func:`clamp_tile`).  A tile that is not a compiled instance raises."""
+    if block_q is None or block_k is None:
+        win = _searched_flash(t, d, causal, dtype, device) or {}
+        block_q = int(win.get("block_q", FLASH_DEFAULT_TILE[0])) \
+            if block_q is None else block_q
+        block_k = int(win.get("block_k", FLASH_DEFAULT_TILE[1])) \
+            if block_k is None else block_k
+    if block_q not in FLASH_BLOCK_Q or block_k not in FLASH_BLOCK_K:
+        raise MXNetError("flash_attention: tile (%s, %s) is not a compiled "
+                         "instance (block_q in %s, block_k in %s)"
+                         % (block_q, block_k, FLASH_BLOCK_Q, FLASH_BLOCK_K))
+    return clamp_tile(block_q, t, FLASH_BLOCK_Q), \
+        clamp_tile(block_k, t, FLASH_BLOCK_K)
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, causal: bool = False
+                              ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`flash_attention`:
+    ``parallel.ring.attention_reference`` in float32, one softmax over
+    the whole (T, T) score matrix, cast back to q's dtype."""
+    from ..parallel.ring import attention_reference
+    return attention_reference(q.float(), k.float(), v.float(),
+                               causal=causal).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False, block_q: Optional[int] = None,
+                    block_k: Optional[int] = None) -> torch.Tensor:
+    """Blockwise attention, q, k, v (B, T, H, D) -> (B, T, H, D), scale
+    1/sqrt(D), causal optional.  The tile resolves as :func:`flash_tiles`
+    says.
+
+    CUDA tensors launch the hand-written kernel (csrc/flash_attention.cu,
+    float32, contiguous, D <= 128); CPU tensors take
+    :func:`flash_attention_reference`."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise MXNetError("flash_attention: need q, k, v of one shape (B, T, "
+                         "H, D), got %s, %s, %s" % (tuple(q.shape),
+                                                    tuple(k.shape),
+                                                    tuple(v.shape)))
+    b, t, h, d = q.shape
+    bq, bk = flash_tiles(t, d, causal, q.dtype, q.device, block_q, block_k)
+    tensors = (q, k, v)
+    if all(x.device.type == "cpu" for x in tensors):
+        return flash_attention_reference(q, k, v, causal)
+    if any(x.device != q.device for x in tensors) or q.device.type != "cuda":
+        raise MXNetError("flash_attention: inputs must all be on one CUDA "
+                         "device, got %s" % [str(x.device) for x in tensors])
+    for x, what in ((q, "q"), (k, "k"), (v, "v")):
+        if x.dtype != torch.float32:
+            raise MXNetError("flash_attention: %s dtype %s, the kernel takes "
+                             "torch.float32" % (what, x.dtype))
+        if not x.is_contiguous():
+            raise MXNetError("flash_attention: %s must be contiguous" % what)
+    if d > FLASH_MAX_HEAD_DIM:
+        raise MXNetError("flash_attention: head dim %d > %d"
+                         % (d, FLASH_MAX_HEAD_DIM))
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = _library("flash_attention")
+    rc = lib.mxtt_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, h, d,
+        int(bool(causal)), 1.0 / math.sqrt(d), bq, bk, q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check(lib, "flash_attention", rc)
+    _count("flash_attention")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# correlation
+
+
+def correlation_geometry(max_displacement: int, stride2: int):
+    """(ng, D2) of a displacement window: ng = m // stride2 steps each
+    way, D2 = 2 * ng + 1 per axis."""
+    ng = int(max_displacement) // int(stride2)
+    return ng, 2 * ng + 1
+
+
+def correlation_reference(a: torch.Tensor, b: torch.Tensor,
+                          max_displacement: int, stride2: int = 1,
+                          is_multiply: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of :func:`correlation`: b zero-padded by m,
+    then for each displacement (row-major over (dy, dx)) the product (or
+    absolute difference) with a, summed over channels and divided by C,
+    in float32."""
+    n, c, h, w = a.shape
+    m = int(max_displacement)
+    ng, d2 = correlation_geometry(m, stride2)
+    af = a.float()
+    bp = torch.nn.functional.pad(b.float(), (m, m, m, m))
+    outs = []
+    for i in range(d2):
+        oy = m + (i - ng) * stride2
+        for j in range(d2):
+            ox = m + (j - ng) * stride2
+            tile = bp[:, :, oy:oy + h, ox:ox + w]
+            val = af * tile if is_multiply else (af - tile).abs()
+            outs.append(val.sum(dim=1) / c)
+    return torch.stack(outs, dim=1).to(a.dtype)
+
+
+def correlation(a: torch.Tensor, b: torch.Tensor, max_displacement: int,
+                stride2: int = 1, is_multiply: bool = True) -> torch.Tensor:
+    """FlowNet correlation for kernel_size 1, stride1 1, pad = m:
+    a, b (N, C, H, W) -> (N, D2 * D2, H, W), D2 = 2 * (m // stride2) + 1,
+    ``out[n, i * D2 + j, y, x] = sum_c a[n, c, y, x] * b[n, c, y + dy_i,
+    x + dx_j] / C`` with dy_i = (i - ng) * stride2 (likewise dx_j) and b
+    zero outside the image; ``|a - b|`` when ``is_multiply`` is False.
+
+    CUDA tensors launch the hand-written kernel (csrc/correlation.cu,
+    float32, contiguous, any D2); CPU tensors take
+    :func:`correlation_reference`."""
+    if a.dim() != 4 or b.shape != a.shape:
+        raise MXNetError("correlation: need a and b of one shape (N, C, H, "
+                         "W), got %s and %s" % (tuple(a.shape),
+                                                tuple(b.shape)))
+    if int(max_displacement) < 0 or int(stride2) < 1:
+        raise MXNetError("correlation: need max_displacement >= 0 and "
+                         "stride2 >= 1, got %r, %r" % (max_displacement,
+                                                       stride2))
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return correlation_reference(a, b, max_displacement, stride2,
+                                     is_multiply)
+    if b.device != a.device or a.device.type != "cuda":
+        raise MXNetError("correlation: inputs must both be on one CUDA "
+                         "device, got %s and %s" % (a.device, b.device))
+    for x, what in ((a, "a"), (b, "b")):
+        if x.dtype != torch.float32:
+            raise MXNetError("correlation: %s dtype %s, the kernel takes "
+                             "torch.float32" % (what, x.dtype))
+        if not x.is_contiguous():
+            raise MXNetError("correlation: %s must be contiguous" % what)
+    n, c, h, w = a.shape
+    _ng, d2 = correlation_geometry(max_displacement, stride2)
+    out = torch.empty((n, d2 * d2, h, w), dtype=a.dtype, device=a.device)
+    if out.numel() == 0:
+        return out
+    if c == 0:
+        raise MXNetError("correlation: zero channels")
+    lib = _library("correlation")
+    rc = lib.mxtt_correlation(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), n, c, h, w,
+        int(max_displacement), int(stride2), int(bool(is_multiply)),
+        a.device.index or 0, torch.cuda.current_stream(a.device).cuda_stream)
+    _check(lib, "correlation", rc)
+    _count("correlation")
     return out

@@ -1,9 +1,10 @@
 """Neural-network layer ops (counterpart of ``mxnet_tpu/ops/nn.py``).
 
-Forward only, and only the layers VGG-16 and the MLP use.  Convolution
-goes to ``torch.nn.functional.conv2d`` and the plain matrix product to
-``torch.matmul``, as the JAX package left both to XLA.  Layouts are the
-reference's: NCHW data, OIHW convolution weights, (N, K) FC weights.
+Forward only, and only the layers VGG-16, the MLP and FlowNetC's
+correlation stage use.  Convolution goes to ``torch.nn.functional.conv2d``
+and the plain matrix product to ``torch.matmul``, as the JAX package left
+both to XLA.  Layouts are the reference's: NCHW data, OIHW convolution
+weights, (N, K) FC weights.
 """
 from __future__ import annotations
 
@@ -215,3 +216,46 @@ class SoftmaxOutputOp(OpDef):
             d3 = data.reshape(n, data.shape[1], -1)
             return [torch.softmax(d3, dim=1).reshape(data.shape)]
         return [torch.softmax(data.reshape(n, -1), dim=1).reshape(data.shape)]
+
+
+@register_op("LeakyReLU", hint="leakyrelu")
+class LeakyReLUOp(OpDef):
+    """Leaky, exponential and parametric rectifiers (reference
+    leaky_relu-inl.h).  rrelu at inference uses the mean slope
+    (lower + upper) / 2; rrelu in training draws a slope per element and
+    raises until training is ported."""
+    params = [Param("act_type", str, default="leaky",
+                    enum=["leaky", "prelu", "rrelu", "elu"]),
+              Param("slope", float, default=0.25),
+              Param("lower_bound", float, default=0.125),
+              Param("upper_bound", float, default=0.334)]
+    needs_rng = True
+
+    def list_arguments(self, p):
+        return ["data", "gamma"] if p.act_type == "prelu" else ["data"]
+
+    def infer_shape(self, p, in_shapes):
+        d = in_shapes[0]
+        if d is None:
+            return in_shapes, [None], []
+        if p.act_type == "prelu":
+            return [d, (d[1],)], [d], []
+        return [d], [d], []
+
+    def forward(self, p, inputs, aux, ctx):
+        x = inputs[0]
+        if p.act_type == "leaky":
+            # x > 0 ? x : slope * x, in one pass
+            return [F.leaky_relu(x, p.slope)]
+        if p.act_type == "elu":
+            return [torch.where(x > 0, x, p.slope * (torch.exp(x) - 1))]
+        if p.act_type == "prelu":
+            gamma = inputs[1].reshape([1, -1] + [1] * (x.dim() - 2))
+            return [torch.where(x > 0, x, gamma * x)]
+        if p.act_type == "rrelu":
+            if ctx.is_train:
+                raise NotImplementedError(
+                    "LeakyReLU(act_type='rrelu') in training mode is not in "
+                    "the port yet (ROADMAP.md, queue 1 item 2: training)")
+            return [F.leaky_relu(x, (p.lower_bound + p.upper_bound) / 2.0)]
+        raise MXNetError("unknown act_type %s" % p.act_type)

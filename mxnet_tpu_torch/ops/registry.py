@@ -95,6 +95,9 @@ class OpDef:
     params: List[Param] = []
     hint: Optional[str] = None
     needs_rng: bool = False
+    # an op that takes a variable number of inputs (Concat) names the
+    # parameter that counts them; the symbol constructor fills it in
+    variable_args: Optional[str] = None
 
     def __init__(self, name: str):
         self.name = name

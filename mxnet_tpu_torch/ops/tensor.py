@@ -2,8 +2,9 @@
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from .registry import OpDef, register_op
+from .registry import OpDef, Param, register_op
 
 
 @register_op("Flatten", hint="flatten")
@@ -19,3 +20,25 @@ class FlattenOp(OpDef):
     def forward(self, p, inputs, aux, ctx):
         x = inputs[0]
         return [x.reshape(x.shape[0], -1)]
+
+
+@register_op("Concat", hint="concat")
+class ConcatOp(OpDef):
+    """Join ``num_args`` inputs along ``dim`` (reference concat-inl.h)."""
+    params = [Param("num_args", int, required=True),
+              Param("dim", int, default=1)]
+    variable_args = "num_args"
+
+    def list_arguments(self, p):
+        return ["arg%d" % i for i in range(p.num_args)]
+
+    def infer_shape(self, p, in_shapes):
+        known = [s for s in in_shapes if s is not None]
+        if not known:
+            return in_shapes, [None], []
+        out = list(known[0])
+        out[p.dim] = int(np.sum([s[p.dim] for s in known]))
+        return in_shapes, [tuple(out)], []
+
+    def forward(self, p, inputs, aux, ctx):
+        return [torch.cat(list(inputs), dim=p.dim)]

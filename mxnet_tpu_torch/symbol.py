@@ -348,6 +348,8 @@ def _create(op_name: str, input_syms: Sequence[Symbol],
     named_inputs = {k: v for k, v in params.items() if isinstance(v, Symbol)}
     for k in named_inputs:
         params.pop(k)
+    if op.variable_args is not None and op.variable_args not in params:
+        params[op.variable_args] = len(input_syms) + len(named_inputs)
     p = op.parse_params(params)
     arg_names = op.list_arguments(p)
 
