@@ -19,8 +19,11 @@ Phases, in order; any failure exits nonzero:
    kernels' launch counts read around exactly this run;
 5. paged_attention against its plain version at the LLM path's shapes
    (16 slots, 12 heads of 64, 16-token blocks, C = 1, 9, 32, contexts
-   over 1..1024, scattered page tables) and at ragged ones; bitwise
-   layout invariance; kernel, plain version and gather + SDPA timed;
+   over 1..1024, scattered page tables), at ragged ones, at the edges
+   of the split-K partitions and in decode at D 128, 32 and 10; bitwise
+   layout invariance and two calls bitwise equal at C = 1, 9, 32 (and at
+   C = 1 for D 128, 32, 10); kernel (split-K and one pass), plain version
+   and gather + SDPA timed;
 6. serve an LM at GPT-2-small geometry (vocab 50257, dim 768, 12 heads,
    12 layers, context 1024; 124 M float32 parameters from a numpy seed)
    through PagedDecodeEngine on the default device: 32 mixed-length
@@ -32,7 +35,7 @@ Phases, in order; any failure exits nonzero:
 7. flash_attention against its plain version at the kernel search's shape
    (B 4, T 1024, H 12, D 64; GPT-2 small's attention geometry), causal and
    not, at ragged T and D in {10, 16, 32, 64, 128}, and for every compiled
-   tile instance; bitwise repeatability;
+   tile instance at D in {16, 32, 64, 128}; bitwise repeatability;
 8. the kernel search path: ``mx.autotune.kernelsearch.search_flash(4, 1024,
    12, 64, causal=True)`` into a fresh store (every candidate gated, the
    shortlist measured, the winner persisted), a second identical search (a
@@ -57,6 +60,7 @@ Phases, in order; any failure exits nonzero:
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -65,10 +69,23 @@ import time
 
 import numpy as np
 
-# H100 SXM published peaks at 700 W (NVIDIA data sheet): HBM3 bandwidth and
-# float32 outside the tensor cores (the kernels here run no tensor cores)
+# H100 SXM published peaks at 700 W (NVIDIA data sheet): HBM3 bandwidth,
+# float32 outside the tensor cores, and dense TF32 on the tensor cores
+# (flash_attention's products: 3 TF32 products per float32 product)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+FLASH_PEAK = "3xTF32: 3 TF32 products per float32 product at 495 TFLOP/s"
+
+# The redesigned kernels' times before their tensor-core, split-K designs:
+# quoted, not measured by this script.  attention_ab.py timed the earlier
+# kernels with time_ms below on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md,
+# Findings): flash_attention at the search shape with its best tile, and
+# paged_attention at the time rows' cases, by C.  Printed in the time rows
+# beside the measured times, never in the kernels line.
+EARLIER_FLASH_MS = 0.3174
+EARLIER_PAGED_MS = {1: 0.1114, 9: 0.1529, 32: 0.1588}
+EARLIER_FROM = "quoted: PERF.md Findings (attention_ab.py), not this run"
 
 REPLACES = {"fused_fc_epilogue": "mxnet_tpu/ops/pallas_kernels.py:347",
             "paged_attention": "mxnet_tpu/ops/pallas_kernels.py:262",
@@ -80,6 +97,34 @@ def fail(msg):
     raise RuntimeError("chip_smoke: " + msg)
 
 
+def ptxas_instances(log):
+    """[(kernel instance, registers, spill bytes)] from ``-Xptxas -v``
+    output: one entry per compiled entry function, named by its kernel
+    and template arguments."""
+    found, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^' ]+)", line)
+        if m:
+            cur = m.group(1)
+            found.setdefault(cur, [0, 0])
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            found[cur][1] = max(int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            found[cur][0] = int(m.group(1))
+    out = []
+    for name, (regs, spill) in found.items():
+        base = re.search(r"([a-z][a-z_]*_kernel)I", name)
+        args = re.findall(r"Li(\d+)E", name)
+        out.append(("%s<%s>" % (base.group(1), ",".join(args)) if base
+                    else name[:60], regs, spill))
+    return out
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -87,17 +132,26 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
+# cycles of a device-side spin queued ahead of each timed call: 0.2 ms at
+# the H100's clocks, longer than any wrapper's host work, so the card is
+# still busy when the timed launches arrive and no host gap enters the span
+SPIN_CYCLES = 400000
+
+
 def time_ms(torch, fn, flush, iters=20):
     """Median device time of fn() in ms, CUDA events around each call.
     Before each call (outside the timed span) a read of a 256 MB buffer
     leaves the 50 MB L2 holding clean, unrelated lines: the weights
-    arrive cold, as they do in a forward pass."""
+    arrive cold, as they do in a forward pass; then a spin kernel keeps
+    the card busy while the host enqueues the start event and fn()'s
+    launches."""
     fn()
     torch.cuda.synchronize()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
         flush.sum()
+        torch.cuda._sleep(SPIN_CYCLES)
         s.record()
         fn()
         e.record()
@@ -528,6 +582,16 @@ def sdpa_library(torch, case, causal=True):
     return call
 
 
+# the LLM path's contexts: 16 slots from 1 to 1024 keys
+PAGED_SPREAD = np.linspace(1, 1024, 16).round().astype(np.int32)
+
+
+def paged_time_case(torch, dev, c):
+    """The case each ``kernel time paged_attention`` row times at C = c
+    (attention_ab.py times the same)."""
+    return paged_case(torch, dev, 30 + c, PAGED_SPREAD, c, blocks=1100)
+
+
 def paged_kernel_phase(torch, ck):
     dev = torch.device("cuda", 0)
     # Tolerance: the kernel walks keys in chunks with an online softmax
@@ -536,13 +600,37 @@ def paged_kernel_phase(torch, ck):
     # keys of 64-wide dot products, so they differ by a few ulps of the
     # O(1) outputs: 1e-5 * max(1, max|plain|).
     tol_rel = 1e-5
-    spread = np.linspace(1, 1024, 16).round().astype(np.int32)
+    spread = PAGED_SPREAD
     cases = []
     for c in (1, 9, 32):
         cases.append(("main-C%d" % c, dict(seed=c, lengths=spread, c=c,
                                            blocks=1100), True, True))
     ragged = np.array([0, 1, 7, 15, 16, 17, 31, 33, 100, 257, 511, 513,
                        999, 1023, 1024, 5], np.int32)
+    # the split-K partitions' edges: lengths of exactly P, P - 1, P + 1;
+    # a causal window straddling a boundary (P + 4 at C = 9, 2P + 10 and
+    # 3P + 16 at C = 32); an empty slot beside one at the page table's
+    # full width (64 blocks x 16 = 1024 keys)
+    part = ck.PAGED_PARTITION_KEYS
+    edges = np.array([part, part - 1, part + 1, 0, 1024, part + 4,
+                      2 * part + 10, 3 * part + 16], np.int32)
+    for c in (1, 9, 32):
+        cases.append(("part-edges-C%d" % c, dict(seed=40 + c, lengths=edges,
+                                                 c=c), True, False))
+    cases.append(("part-edges-full", dict(seed=49, lengths=edges, c=9),
+                  False, False))
+    # decode (C = 1) at each head-dim bucket of its kernel, over several
+    # partitions and the merge: D 128 (two warps a block), D 32, and D 10
+    # through the scalar copies, on a 512-key page table
+    half = np.array([part, part - 1, part + 1, 0, 512, part + 4, 511, 1],
+                    np.int32)
+    cases += [
+        ("C1-D128", dict(seed=17, lengths=edges, c=1, h=4, d=128), True,
+         False),
+        ("C1-D32", dict(seed=18, lengths=edges, c=1, h=6, d=32), True, False),
+        ("C1-D10", dict(seed=19, lengths=half, c=1, h=3, d=10, b=32), True,
+         False),
+    ]
     cases += [
         ("ragged-C1", dict(seed=11, lengths=ragged, c=1), True, False),
         ("ragged-C32", dict(seed=12, lengths=ragged, c=32), True, False),
@@ -575,40 +663,57 @@ def paged_kernel_phase(torch, ck):
             main_err = max(main_err, err)
 
     # bitwise layout invariance on the card: the same logical cache as
-    # stripes and scattered gives identical floats
-    for c in (1, 32):
-        dense = paged_case(torch, dev, 21, spread, c, blocks=1100,
-                           scatter=False)
-        perm = torch.randperm(1100, generator=torch.Generator().manual_seed(
+    # stripes and scattered gives identical floats; two calls give
+    # identical floats.  At the path's shape for each C, and at C = 1 for
+    # the decode kernel's other head-dim buckets
+    layouts = [(c, spread, {}) for c in (1, 9, 32)] + [
+        (1, spread, dict(h=4, d=128)), (1, spread, dict(h=6, d=32)),
+        (1, np.minimum(spread, 512), dict(h=3, d=10, b=32))]
+    for c, lens, kw in layouts:
+        dense = paged_case(torch, dev, 21, lens, c, scatter=False, **kw)
+        nb = dense["k_pool"].shape[0] - 1          # the sentinel block last
+        perm = torch.randperm(nb, generator=torch.Generator().manual_seed(
             c)).to(dev)
         moved = dict(dense)
         moved["k_pool"] = dense["k_pool"].clone()
         moved["v_pool"] = dense["v_pool"].clone()
-        moved["k_pool"][perm] = dense["k_pool"][:1100]
-        moved["v_pool"][perm] = dense["v_pool"][:1100]
+        moved["k_pool"][perm] = dense["k_pool"][:nb]
+        moved["v_pool"][perm] = dense["v_pool"][:nb]
         pages = dense["pages"].long()
-        moved["pages"] = torch.where(pages < 1100,
-                                     perm[pages.clamp(max=1099)],
+        moved["pages"] = torch.where(pages < nb,
+                                     perm[pages.clamp(max=nb - 1)],
                                      pages).to(torch.int32).contiguous()
         a = ck.paged_attention(*paged_args(dense))
         b = ck.paged_attention(*paged_args(moved))
+        a2 = ck.paged_attention(*paged_args(dense))
         torch.cuda.synchronize()
         same = bool(torch.equal(a, b))
-        print("kernel check paged layout-invariance C=%d: stripes and "
-              "scattered bitwise equal=%s" % (c, same))
+        again = bool(torch.equal(a, a2))
+        d = dense["q"].shape[3]
+        print("kernel check paged layout-invariance C=%d D=%d: stripes and "
+              "scattered bitwise equal=%s; two calls bitwise equal=%s"
+              % (c, d, same, again))
         if not same:
             fail("paged_attention output depends on the page layout "
-                 "(C=%d, max diff %.3g)" % (c, (a - b).abs().max().item()))
+                 "(C=%d D=%d, max diff %.3g)"
+                 % (c, d, (a - b).abs().max().item()))
+        if not again:
+            fail("paged_attention is not bitwise repeatable (C=%d D=%d)"
+                 % (c, d))
 
     flush = torch.zeros(256 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
     rows = []
     for c in (1, 9, 32):
-        case = paged_case(torch, dev, 30 + c, spread, c, blocks=1100)
+        case = paged_time_case(torch, dev, c)
         bound, bound_by = paged_bound_ms(case)
+        cap = case["pages"].shape[1] * case["k_pool"].shape[1]
+        n_part = ck.paged_partitions(c, cap)
         row = {
             "shape": "S=16 C=%d H=12 D=64 bt=16 ctx=1..1024" % c, "C": c,
+            "partitions": n_part,
             "ms": time_ms(torch, lambda: ck.paged_attention(
                 *paged_args(case)), flush),
+            "earlier_ms": EARLIER_PAGED_MS[c], "earlier_from": EARLIER_FROM,
             "plain_ms": time_ms(torch, lambda: ck.paged_attention_reference(
                 *paged_args(case)), flush),
             "library_ms": time_ms(torch, sdpa_library(torch, case), flush),
@@ -617,6 +722,16 @@ def paged_kernel_phase(torch, ck):
         row["bound_share"] = row["bound_ms"] / row["ms"]
         print("kernel time paged_attention %s" % json.dumps(row))
         rows.append(row)
+        # does split-K pay at this C: the kernel with P-key partitions
+        # against one pass per (slot, head, row tile), in turns
+        split = [-(-cap // ck.PAGED_PARTITION_KEYS), 1]
+        ab = {}
+        for n in split + split[::-1]:
+            ab.setdefault(n, []).append(time_ms(
+                torch, lambda: ck._launch_paged(*paged_args(case), True, n),
+                flush))
+        print("kernel time paged_attention split-K C=%d: %s" % (c, json.dumps(
+            {"partitions=%d" % n: ts for n, ts in ab.items()})))
     del flush
     timed = [r for r in rows if r["C"] in (1, 32)]
     by_bytes = sum(r["bound_ms"] for r in timed if r["bound_by"] == "bytes")
@@ -971,12 +1086,14 @@ def flash_inputs(torch, dev, seed, b, t, h, d):
 
 def flash_bound_ms(b, t, h, d, causal):
     """Least time for the work: q, k, v read once and out written once;
-    4·D flops (q·k and p·v) per (row, visible key) pair of every head."""
+    4·D flops (q·k and p·v) per (row, visible key) pair of every head, each
+    float32 product taken as 3 TF32 products on the tensor cores as the
+    kernel computes it (FLASH_PEAK)."""
     pairs = t * (t + 1) / 2.0 if causal else float(t * t)
     flops = 4.0 * d * b * h * pairs
     nbytes = 4 * b * t * h * d * 4
     by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
-    by_flops = 1e3 * flops / PEAK_F32_FLOPS
+    by_flops = 1e3 * 3 * flops / PEAK_TF32_FLOPS
     return max(by_bytes, by_flops), ("bytes" if by_bytes >= by_flops
                                      else "operations")
 
@@ -1133,10 +1250,11 @@ def flash_search_phase(torch, mt, ck, trials=2):
             q, k, v, causal=True, block_q=bq, block_k=bk), flush),
         "plain_ms": time_ms(torch, lambda: ck.flash_attention_reference(
             q, k, v, causal=True), flush),
+        "earlier_ms": EARLIER_FLASH_MS, "earlier_from": EARLIER_FROM,
         "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True), flush),
-        "bound_ms": bound, "bound_by": bound_by,
+        "bound_ms": bound, "bound_by": bound_by, "bound_peak": FLASH_PEAK,
     }
     row["bound_share"] = row["bound_ms"] / row["ms"]
     print("kernel time flash_attention %s" % json.dumps(row))
@@ -1433,6 +1551,10 @@ def main():
         print("build %s: %d kernel instantiations, registers max %d, "
               "spill/stack bytes max %d" % (name, len(regs), max(regs or [0]),
                                             max(spills or [0])))
+        if name in ("flash_attention", "paged_attention"):
+            for inst, nreg, spill in ptxas_instances(log):
+                print("build %s:   %-40s registers %3d, spill bytes %d"
+                      % (name, inst, nreg, spill))
 
     # phase 3: kernels against their plain versions
     fc = kernel_phase(torch, ck)
@@ -1485,6 +1607,7 @@ def main():
         "max_abs_err": flash["max_abs_err"],
         "ms": search["ms"], "plain_ms": search["plain_ms"],
         "bound_ms": search["bound_ms"], "bound_by": search["bound_by"],
+        "bound_peak": search["bound_peak"],
         "library_ms": search["library_ms"],
     }, {
         "name": "correlation", "route": "cuda",
@@ -1506,7 +1629,9 @@ def main():
           "are those of the paged, dense-stripe and speculative LM runs; "
           "flash_attention is one causal launch at B=4 T=1024 H=12 D=64 "
           "with the searched tile, its launches those of the search, the "
-          "store hit and the call-time use; correlation is one launch at "
+          "store hit and the call-time use, its bound at the tensor cores' "
+          "TF32 peak, 3 TF32 products per float32 product; correlation "
+          "is one launch at "
           "FlowNetC's stage (N=8 C=256 48x64, 441 displacements, "
           "multiply), its launches those of the FlowNetC forwards; no "
           "single PyTorch call computes the correlation, so its "

@@ -15,8 +15,8 @@ shape class:
   :func:`parity_fail_total` and can never win.  The JAX gate also asks for
   bitwise equality with a jnp replay of the kernel's blockwise op
   sequence; that part has no counterpart here, because a PyTorch replay
-  cannot reproduce the float order of the kernel's per-lane and shuffle
-  sums;
+  cannot reproduce the float order of the kernel's tensor-core (3xTF32)
+  and shuffle sums;
 * **ranking**: the shared cost model over the JAX package's features (a
   smaller q tile re-reads K and V more often); the shortlist is measured
   on the card (each trial :data:`FLASH_MEASURE_REPS` launches back to

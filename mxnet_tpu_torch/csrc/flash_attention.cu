@@ -18,125 +18,90 @@
 // What bounds it.  A (row, visible key) pair costs 4·D flops (q·k and p·v)
 // against 2·D floats of K and V that every row of a tile shares, so at the
 // kernel-search shape (B 4, T 1024, H 12, D 64, causal) the work is 6.4
-// GFLOP over 50 MB: bound by float32 arithmetic (no tensor cores here), near
-// 0.1 ms on an H100 SXM at 67 TFLOP/s.
+// GFLOP over 50 MB: bound by arithmetic.  Both products run on the tensor
+// cores in 3xTF32 (three TF32 products per float32 product, see
+// attention.cuh), so the floor is 3 x 6.4 GFLOP at the 495 TFLOP/s dense
+// TF32 peak, near 0.04 ms on an H100 SXM.  One-pass TF32 would keep about
+// three decimal digits and miss the 2e-5 tolerance the JAX package holds
+// this kernel to.
 //
-// Design.  A block is 4 warps and owns kBQ query rows: warp w owns rows
-// w·kBQ/4 ..  The q tile sits in shared memory.  For each key tile of kBK
-// keys (only tiles up to the block's last row when causal, so no tile is
-// wholly masked) the block stages K (row stride padded odd, so lanes reading
-// different keys hit different banks) and V in shared memory, zero past T.
-// Lane j scores keys j, j+32, .. against all the warp's rows at once (each K
-// element read once for all rows, q read as float4 broadcasts); the warp
-// reduces each row's max and sum with butterfly shuffles and updates its
-// float32 m/l/acc as _flash_kernel does (pallas_kernels.py:84-108), writing
-// the row's p to its own shared-memory slab; lane t then accumulates head
-// dims t, t+32, .. of p · V, p read as float4 broadcasts.  Causal q tiles
-// carry unequal work, so the heaviest (last) tiles are launched first.  Every
-// sum runs in an order fixed by the tile, with no atomics, so a call is
-// bitwise repeatable.  Tensor cores (wgmma), TMA and a pipelined K/V ring are
-// left to later work.
+// Design (FlashAttention-2 on mma.sync).  A block is kBQ / 16 warps; warp w
+// owns query rows w·16 .. w·16+15 of the tile and keeps them in registers
+// as m16n8k8 A fragments, split once into TF32 parts.  Key tiles of kBK
+// keys pass through a ring of kStages shared-memory stages filled by
+// cp.async (16-byte copies when D % 4 == 0 and the tensors are aligned,
+// zeros past T), so tile j+1 lands while tile j is multiplied.  Once tile
+// j has landed (a barrier that also frees the stage tile j+1 is copied
+// into), the block splits it for all warps, TF32 high parts in place and
+// remainders in a buffer beside the ring, and a second barrier publishes
+// them: each warp would otherwise split every element it reads.  K and V
+// rows are padded to kD + 4 floats, so the (g, t) fragment reads of Kᵀ
+// (row g, column t) and of V (row 2t, column g) hit 32 different banks.
+// Each warp's step over a tile is attention.cuh's attention_tile, which the
+// paged kernel shares.  S = Q·Kᵀ accumulates in registers; the softmax runs
+// on the accumulator fragments, where a row lies in the 4 lanes of a quad
+// (2 shuffles for its max; the row sum stays per lane until the end).
+// P goes from the
+// accumulator layout to the A layout of P·V without moving: the 8 keys of
+// an n-tile are taken in the order 0, 2, 4, 6, 1, 3, 5, 7, and V's rows
+// are read in the same order.  Causal q tiles carry unequal work, so the
+// heaviest (last) tiles are launched first; each warp stops at its last
+// visible key (the masked slices of its last tile are multiplied all the
+// same: branching around them costs more than it saves).  Every sum runs
+// in an order fixed by the tile, with no atomics, so a call is bitwise
+// repeatable.
 //
-// Compiled tile instances (kBQ, kBK): kBQ in {16, 32, 64}, kBK in {32, 64,
-// 128}, each for D <= 32, <= 64 and <= 128.  The largest, (64, 128) at
-// D = 128, holds 197 KB of shared memory (q 32 KB, K 66 KB, V 64 KB, p 32 KB)
-// of the 227 KB a block may opt into, and its 16 rows per warp keep
-// 16 x 4 scores and 16 x 4 accumulators per lane in registers, within the
-// 255 a thread may hold.
+// Compiled tile instances (kBQ, kBK): kBQ in {64, 128}, kBK in {32, 64},
+// each for D <= 32, <= 64 and <= 128.  The largest, kBK 64 at D 128, holds
+// a two-stage ring and the remainders, 3 x 2 x 64 x 132 floats = 198 KB of
+// the 227 KB a block may use.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention.cuh"
+
 namespace {
 
-constexpr int kWarps = 4;                        // warps per block
-constexpr int kThreads = kWarps * 32;
+using mxtt::cp_async16;
+using mxtt::cp_async4;
+using mxtt::cp_async_commit;
+using mxtt::cp_async_wait;
+using mxtt::split_tf32;
+
+constexpr int kStages = 2;                       // K/V ring depth
 constexpr int kMaxD = 128;                       // head dim limit
 constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
+// Blocks per SM the register budget must allow (the compiler caps each
+// thread's registers to fit them): three 4-warp blocks at D <= 64; at
+// D = 128, whose q fragments and accumulators alone take 192 registers,
+// and for 8-warp blocks, whatever the registers allow.
+__host__ __device__ constexpr int min_blocks(int bq, int d) {
+  return bq > 64 || d > 64 ? 1 : 3;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
-// Shared-memory geometry for head dim D: rows padded to a multiple of 4
-// floats (float4 reads of q and V), K rows one float longer (odd stride).
-struct Geometry {
-  int qstride, kstride, vstride;                 // in floats
-  __host__ __device__ explicit Geometry(int D) {
-    qstride = (D + 3) / 4 * 4;
-    kstride = qstride + 1;
-    vstride = qstride;
-  }
-  __host__ __device__ int kfloats(int bk) const {
-    return (bk * kstride + 3) / 4 * 4;           // keeps V 16-byte aligned
-  }
-  __host__ __device__ size_t floats(int bq, int bk) const {
-    return (size_t)bq * qstride + kfloats(bk) + (size_t)bk * vstride +
-           (size_t)bq * bk;
-  }
-};
-
-// Copy `rows` tokens of one head (D floats each, token stride `tok`) from
-// src, starting at token t_first, into dst rows of `stride` floats; tokens
-// at or past T and the padding dims are written as 0.
-__device__ __forceinline__ void stage(float* dst, int stride,
-                                      const float* __restrict__ src,
-                                      int t_first, int rows, int T,
-                                      size_t tok, int D, int qstride,
-                                      bool vec) {
-  if (vec) {                                     // D % 4 == 0, aligned rows
-    const int d4n = D / 4;
-    for (int i = threadIdx.x; i < rows * d4n; i += kThreads) {
-      const int r = i / d4n, d = (i % d4n) * 4;
-      const int t = t_first + r;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (t < T)
-        x = __ldg(reinterpret_cast<const float4*>(src + (size_t)t * tok + d));
-      float* o = dst + r * stride + d;
-      if (stride % 4 == 0) {
-        *reinterpret_cast<float4*>(o) = x;
-      } else {
-        o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * qstride; i += kThreads) {
-      const int r = i / qstride, d = i % qstride;
-      const int t = t_first + r;
-      dst[r * stride + d] =
-          t < T && d < D ? __ldg(src + (size_t)t * tok + d) : 0.f;
-    }
-  }
-}
-
-// kBQ query rows and kBK keys per tile; kDpl head dims per lane.
-template <int kBQ, int kBK, int kDpl>
-__global__ void __launch_bounds__(kThreads)
+// kBQ query rows (16 per warp) and kBK keys per tile; head dims padded to kD.
+template <int kBQ, int kBK, int kD>
+__global__ void __launch_bounds__(kBQ * 2, min_blocks(kBQ, kD))
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
-                       int BH, int T, int H, int D, int causal, float scale,
-                       int n_qtiles, bool vec) {
-  constexpr int kR = kBQ / kWarps;               // query rows per warp
-  constexpr int kKpl = kBK / 32;                 // keys per lane
+                       int BH, int T, int H, int D, int causal,
+                       float scale_log2, int n_qtiles, bool vec) {
+  constexpr int kThreads = kBQ * 2;
+  constexpr int kStride = kD + 4;                // padded row, in floats
+  constexpr int kTile = kBK * kStride;           // one K (or V) tile
+  constexpr int kDSteps = kD / 8;                // 8-wide head-dim slices
+  constexpr int kKSlices = kBK / 8;              // 8-key slices of a tile
+  // [stage][K, V][kBK][kStride] raw, then TF32 high parts in place; then
+  // [K, V][kBK][kStride] the TF32 remainders of the tile being multiplied
   extern __shared__ __align__(16) float smem[];
-
-  const Geometry g(D);
-  float* qs = smem;
-  float* ks = qs + kBQ * g.qstride;
-  float* vs = ks + g.kfloats(kBK);
-  float* ps = vs + kBK * g.vstride;
+  float* const lo_k = smem + kStages * 2 * kTile;
+  float* const lo_v = lo_k + kTile;
 
   const int bh = blockIdx.x % BH;
   const int qt = n_qtiles - 1 - blockIdx.x / BH;  // heaviest tiles first
@@ -146,136 +111,164 @@ flash_attention_kernel(const float* __restrict__ q,
   const size_t head = ((size_t)b * T * H + h) * D;  // (b, 0, h, 0)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int r0 = warp * kR;
-
-  stage(qs, g.qstride, q + head, t0, kBQ, T, tok, D, g.qstride, vec);
-
-  float m[kR], l[kR], acc[kR][kDpl];
-#pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int t = 0; t < kDpl; ++t) acc[r][t] = 0.f;
-  }
+  const int g = lane >> 2, tq = lane & 3;
+  const int r0 = t0 + warp * 16;                 // the warp's first row
+  const int row_a = r0 + g, row_b = r0 + g + 8;  // this lane's two rows
 
   // Keys any row of this tile can see: all of T, or up to its last row.
   const int k_limit = causal ? min(t0 + kBQ, T) : T;
   const int n_ktiles = (k_limit + kBK - 1) / kBK;
-  for (int kt = 0; kt < n_ktiles; ++kt) {
+
+  // Head dims D .. kD-1 are never copied: zero them once in every stage.
+  if (D < kD)
+    for (int i = threadIdx.x; i < kStages * 2 * kBK * (kD - D);
+         i += kThreads) {
+      const int r = i / (kD - D);
+      smem[r * kStride + D + (i - r * (kD - D))] = 0.f;
+    }
+
+  // One key tile into its stage as one cp.async group; zeros past T.
+  auto load_tile = [&](int kt) {
+    float* ks = smem + (kt % kStages) * 2 * kTile;
+    float* vs = ks + kTile;
     const int k0 = kt * kBK;
-    __syncthreads();                             // K/V of the last tile read
-    stage(ks, g.kstride, k + head, k0, kBK, T, tok, D, g.qstride, vec);
-    stage(vs, g.vstride, v + head, k0, kBK, T, tok, D, g.qstride, vec);
-    __syncthreads();
-
-    // scores: lane j against every row of the warp
-    float sc[kR][kKpl];
-#pragma unroll
-    for (int r = 0; r < kR; ++r)
-#pragma unroll
-      for (int j = 0; j < kKpl; ++j) sc[r][j] = 0.f;
-    for (int d = 0; d < g.qstride; d += 4) {
-      float kv[kKpl][4];
-#pragma unroll
-      for (int j = 0; j < kKpl; ++j) {
-        const float* kr = ks + (lane + 32 * j) * g.kstride + d;
-        kv[j][0] = kr[0]; kv[j][1] = kr[1]; kv[j][2] = kr[2]; kv[j][3] = kr[3];
+    if (vec) {
+      const int d4n = D / 4;
+      for (int i = threadIdx.x; i < kBK * d4n; i += kThreads) {
+        const int r = i / d4n, d = (i - r * d4n) * 4;
+        const bool live = k0 + r < T;
+        const size_t at = head + (size_t)(live ? k0 + r : 0) * tok + d;
+        cp_async16(ks + r * kStride + d, k + at, live);
+        cp_async16(vs + r * kStride + d, v + at, live);
       }
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(qs + (r0 + r) * g.qstride + d);
-#pragma unroll
-        for (int j = 0; j < kKpl; ++j) {
-          float a = sc[r][j];
-          a = fmaf(qv.x, kv[j][0], a);
-          a = fmaf(qv.y, kv[j][1], a);
-          a = fmaf(qv.z, kv[j][2], a);
-          a = fmaf(qv.w, kv[j][3], a);
-          sc[r][j] = a;
-        }
+    } else {
+      for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
+        const int r = i / D, d = i - r * D;
+        const bool live = k0 + r < T;
+        const size_t at = head + (size_t)(live ? k0 + r : 0) * tok + d;
+        cp_async4(ks + r * kStride + d, k + at, live);
+        cp_async4(vs + r * kStride + d, v + at, live);
       }
     }
+    cp_async_commit();
+  };
 
-    // online softmax update; p goes to the warp's rows of the p slab
-#pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      const int row = t0 + r0 + r;
-      float bmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kKpl; ++j) {
-        const int key = k0 + lane + 32 * j;
-        const bool seen = key < T && (!causal || key <= row);
-        sc[r][j] = seen ? sc[r][j] * scale : -INFINITY;
-        bmax = fmaxf(bmax, sc[r][j]);
-      }
-      const float new_m = fmaxf(m[r], warp_max(bmax));
-      const float safe_m = isinf(new_m) ? 0.f : new_m;
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kKpl; ++j) {
-        const float p = isinf(sc[r][j]) ? 0.f : expf(sc[r][j] - safe_m);
-        ps[(r0 + r) * kBK + lane + 32 * j] = p;
-        psum += p;
-      }
-      const float corr = isinf(m[r]) ? 0.f : expf(m[r] - safe_m);
-      l[r] = l[r] * corr + warp_sum(psum);
-      m[r] = new_m;
-#pragma unroll
-      for (int t = 0; t < kDpl; ++t) acc[r][t] *= corr;
-    }
-    __syncwarp();
-
-    // p · V over the tile's keys inside T (V rows past T are 0, so are p)
-    const int kn = min(kBK, T - k0);
-    for (int j = 0; j < kn; j += 4) {
-      float vv[4][kDpl];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int t = 0; t < kDpl; ++t) {
-          const int d = lane + 32 * t;
-          vv[i][t] = d < D ? vs[(j + i) * g.vstride + d] : 0.f;
-        }
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        const float4 p4 =
-            *reinterpret_cast<const float4*>(ps + (r0 + r) * kBK + j);
-#pragma unroll
-        for (int t = 0; t < kDpl; ++t) {
-          float a = acc[r][t];
-          a = fmaf(p4.x, vv[0][t], a);
-          a = fmaf(p4.y, vv[1][t], a);
-          a = fmaf(p4.z, vv[2][t], a);
-          a = fmaf(p4.w, vv[3][t], a);
-          acc[r][t] = a;
-        }
-      }
-    }
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_ktiles)
+      load_tile(s);
+    else
+      cp_async_commit();
   }
 
+  // The warp's 16 query rows as A fragments, split once: TF32 high parts
+  // and remainders stay in registers for the whole key walk.
+  uint32_t qh[kDSteps][4], ql[kDSteps][4];
 #pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    const int row = t0 + r0 + r;
-    if (row < T) {
-      const float li = fmaxf(l[r], 1e-20f);
-      float* dst = out + head + (size_t)row * tok;
+  for (int ds = 0; ds < kDSteps; ++ds) {
+    const int d0 = ds * 8 + tq, d1 = d0 + 4;
+    const float* qa = q + head + (size_t)row_a * tok;
+    const float* qb = q + head + (size_t)row_b * tok;
+    split_tf32(row_a < T && d0 < D ? __ldg(qa + d0) : 0.f, qh[ds][0],
+               ql[ds][0]);
+    split_tf32(row_b < T && d0 < D ? __ldg(qb + d0) : 0.f, qh[ds][1],
+               ql[ds][1]);
+    split_tf32(row_a < T && d1 < D ? __ldg(qa + d1) : 0.f, qh[ds][2],
+               ql[ds][2]);
+    split_tf32(row_b < T && d1 < D ? __ldg(qb + d1) : 0.f, qh[ds][3],
+               ql[ds][3]);
+  }
+
+  // o[n] holds output columns 8n + 2t, 8n + 2t + 1 of rows g and g + 8;
+  // m in log2 units; l per lane until the end.
+  float o[kDSteps][4];
 #pragma unroll
-      for (int t = 0; t < kDpl; ++t) {
-        const int d = lane + 32 * t;
-        if (d < D) dst[d] = acc[r][t] / li;
-      }
+  for (int n = 0; n < kDSteps; ++n)
+    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const int last_row = r0 + 15;
+
+  for (int kt = 0; kt < n_ktiles; ++kt) {
+    cp_async_wait<kStages - 2>();                // tile kt has landed
+    __syncthreads();                             // ... for every thread, and
+    if (kt + kStages - 1 < n_ktiles)             // tile kt-1's stage is free
+      load_tile(kt + kStages - 1);
+    else
+      cp_async_commit();
+    const int k0 = kt * kBK;
+    float* ks = smem + (kt % kStages) * 2 * kTile;
+    float* vs = ks + kTile;
+
+    // Split the tile once for all warps: TF32 high parts in place, the
+    // remainders beside them.
+    for (int i = threadIdx.x; i < 2 * kBK * (kD / 4); i += kThreads) {
+      const int r = i / (kD / 4), c = (i - r * (kD / 4)) * 4;
+      float* x = ks + r * kStride + c;           // K rows, then V rows
+      float* y = lo_k + r * kStride + c;
+      float4 in = *reinterpret_cast<float4*>(x);
+      uint32_t h4[4], l4[4];
+      split_tf32(in.x, h4[0], l4[0]);
+      split_tf32(in.y, h4[1], l4[1]);
+      split_tf32(in.z, h4[2], l4[2]);
+      split_tf32(in.w, h4[3], l4[3]);
+      *reinterpret_cast<uint4*>(x) = make_uint4(h4[0], h4[1], h4[2], h4[3]);
+      *reinterpret_cast<uint4*>(y) = make_uint4(l4[0], l4[1], l4[2], l4[3]);
+    }
+    __syncthreads();
+    if (causal && k0 > last_row) continue;       // every key after our rows
+    const uint32_t* kh = reinterpret_cast<const uint32_t*>(ks);
+    const uint32_t* kl = reinterpret_cast<const uint32_t*>(lo_k);
+    const uint32_t* vh = reinterpret_cast<const uint32_t*>(vs);
+    const uint32_t* vl = reinterpret_cast<const uint32_t*>(lo_v);
+
+    // the tile's fragments, pre-split: Kᵀ (row g, column t), V (row 2t,
+    // column g)
+    auto k_frag = [&](int j, int ds, uint32_t& h0, uint32_t& h1,
+                      uint32_t& l0, uint32_t& l1) {
+      const int at = (8 * j + g) * kStride + 8 * ds + tq;
+      h0 = kh[at]; h1 = kh[at + 4]; l0 = kl[at]; l1 = kl[at + 4];
+    };
+    auto v_frag = [&](int j, int n, uint32_t& h0, uint32_t& h1,
+                      uint32_t& l0, uint32_t& l1) {
+      const int at = (8 * j + 2 * tq) * kStride + g + 8 * n;
+      h0 = vh[at]; h1 = vh[at + kStride]; l0 = vl[at]; l1 = vl[at + kStride];
+    };
+    auto seen = [&](int key, int r) {
+      key += k0;
+      return key < T && (!causal || key <= (r ? row_b : row_a));
+    };
+    // only tiles at T's end or across the causal diagonal mask keys
+    const bool edge = k0 + kBK > T || (causal && k0 + kBK - 1 > r0);
+    mxtt::attention_tile<kKSlices>(qh, ql, o, m, l, scale_log2, edge, k_frag,
+                                   v_frag, seen);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-20f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? row_b : row_a;
+    if (row >= T) continue;
+    float* dst = out + head + (size_t)row * tok;
+#pragma unroll
+    for (int n = 0; n < kDSteps; ++n) {
+      const int d = 8 * n + 2 * tq;
+      if (d < D) dst[d] = o[n][2 * r] / l[r];
+      if (d + 1 < D) dst[d + 1] = o[n][2 * r + 1] / l[r];
     }
   }
 }
 
-template <int kBQ, int kBK, int kDpl>
+template <int kBQ, int kBK, int kD>
 cudaError_t launch(const float* q, const float* k, const float* v, float* out,
                    int B, int T, int H, int D, int causal, float scale,
                    bool vec, int device, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<kBQ, kBK, kDpl>;
-  const size_t bytes = sizeof(float) * Geometry(D).floats(kBQ, kBK);
+  auto kernel = flash_attention_kernel<kBQ, kBK, kD>;
+  const size_t bytes = sizeof(float) * (kStages + 1) * 2 * kBK * (kD + 4);
   // the largest dynamic shared memory opted into so far, per device
   static int opted[kMaxDevices];
   if (bytes > 48 * 1024 && (int)bytes > opted[device]) {
@@ -287,8 +280,8 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out,
   const int n_qtiles = (T + kBQ - 1) / kBQ;
   const long long blocks = (long long)B * H * n_qtiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, kThreads, bytes, stream>>>(
-      q, k, v, out, B * H, T, H, D, causal, scale, n_qtiles, vec);
+  kernel<<<(unsigned)blocks, kBQ * 2, bytes, stream>>>(
+      q, k, v, out, B * H, T, H, D, causal, scale * kLog2e, n_qtiles, vec);
   return cudaGetLastError();
 }
 
@@ -298,13 +291,13 @@ cudaError_t launch_tile(const float* q, const float* k, const float* v,
                         float scale, bool vec, int device,
                         cudaStream_t stream) {
   if (D <= 32)
-    return launch<kBQ, kBK, 1>(q, k, v, out, B, T, H, D, causal, scale, vec,
-                               device, stream);
+    return launch<kBQ, kBK, 32>(q, k, v, out, B, T, H, D, causal, scale, vec,
+                                device, stream);
   if (D <= 64)
-    return launch<kBQ, kBK, 2>(q, k, v, out, B, T, H, D, causal, scale, vec,
+    return launch<kBQ, kBK, 64>(q, k, v, out, B, T, H, D, causal, scale, vec,
+                                device, stream);
+  return launch<kBQ, kBK, 128>(q, k, v, out, B, T, H, D, causal, scale, vec,
                                device, stream);
-  return launch<kBQ, kBK, 4>(q, k, v, out, B, T, H, D, causal, scale, vec,
-                             device, stream);
 }
 
 }  // namespace
@@ -326,8 +319,7 @@ extern "C" int mxtt_flash_attention(const void* q, const void* k,
   if (err != cudaSuccess) return err;
   if (current != device && (err = cudaSetDevice(device)) != cudaSuccess)
     return err;
-  const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+  const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -338,15 +330,10 @@ extern "C" int mxtt_flash_attention(const void* q, const void* k,
   if (block_q == BQ && block_k == BK)                                       \
     return launch_tile<BQ, BK>(qf, kf, vf, o, B, T, H, D, causal, scale,    \
                                vec, device, st);
-  FLASH_TILE(16, 32)
-  FLASH_TILE(16, 64)
-  FLASH_TILE(16, 128)
-  FLASH_TILE(32, 32)
-  FLASH_TILE(32, 64)
-  FLASH_TILE(32, 128)
   FLASH_TILE(64, 32)
   FLASH_TILE(64, 64)
-  FLASH_TILE(64, 128)
+  FLASH_TILE(128, 32)
+  FLASH_TILE(128, 64)
 #undef FLASH_TILE
   return cudaErrorInvalidValue;
 }

@@ -10,11 +10,13 @@ The counterpart of ``mxnet_tpu/ops/pallas_kernels.py``.  Each kernel has:
 * the plain PyTorch version beside it (``*_reference``), used on the CPU
   and by ``chip_smoke.py`` to check the kernel on the card;
 * a launch count (:data:`LAUNCHES`), raised by one where the wrapper
-  launches the kernel and nowhere else.
+  launches the kernel and nowhere else (once per call, also where a call
+  launches two CUDA kernels, as split-K ``paged_attention`` does).
 
-Sources live in ``mxnet_tpu_torch/csrc``.  Each is compiled on first use
-with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface under ``mxnet_tpu_torch/_build`` and loaded with ``ctypes``.
+Sources live in ``mxnet_tpu_torch/csrc`` (``*.cu``, and the ``*.cuh``
+headers they include).  Each ``.cu`` is compiled on first use with
+``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
+under ``mxnet_tpu_torch/_build`` and loaded with ``ctypes``.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import ctypes
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -33,7 +36,7 @@ from ..base import MXNetError, get_env
 from .nn import ACTIVATIONS
 
 __all__ = ["fused_fc_epilogue", "fused_fc_epilogue_reference", "requantize",
-           "paged_attention", "paged_attention_reference",
+           "paged_attention", "paged_attention_reference", "paged_partitions",
            "flash_attention", "flash_attention_reference", "FLASH_TILES",
            "correlation", "correlation_reference",
            "LAUNCHES", "reset_launches", "build", "nvcc_command", "SOURCES"]
@@ -91,12 +94,26 @@ def nvcc_command(source: str, output: str, nvcc: str = "nvcc") -> list:
             "-o", output, source]
 
 
-def _lib_path(name: str) -> str:
-    """The library's path carries a digest of its source and compile
-    line, so an edit to either always rebuilds."""
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _lib_path(name: str, csrc: str = _CSRC) -> str:
+    """The library's path carries a digest of its compile line, its
+    source and every header under ``csrc`` that the source includes
+    (directly or through another header), so an edit to any of them
+    always rebuilds."""
     h = hashlib.sha256(" ".join(nvcc_command("", "")).encode())
-    with open(os.path.join(_CSRC, SOURCES[name]), "rb") as f:
-        h.update(f.read())
+    todo, seen = [SOURCES[name]], set()
+    while todo:
+        rel = todo.pop(0)
+        if rel in seen:
+            continue
+        seen.add(rel)
+        with open(os.path.join(csrc, rel), "rb") as f:
+            text = f.read()
+        h.update(rel.encode() + b"\0" + text)
+        todo += [inc.decode() for inc in _INCLUDE.findall(text)
+                 if os.path.exists(os.path.join(csrc, inc.decode()))]
     return os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, h.hexdigest()[:16]))
 
 
@@ -158,8 +175,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                                          ctypes.c_float, i, p]
         lib.mxtt_fc_epilogue.restype = i
     elif name == "paged_attention":
-        lib.mxtt_paged_attention.argtypes = [p] * 7 + [i] * 8 + [
-            ctypes.c_float, i, p]
+        lib.mxtt_paged_attention.argtypes = [p] * 9 + [i] * 8 + [
+            ctypes.c_float, i, i, p]
         lib.mxtt_paged_attention.restype = i
     elif name == "flash_attention":
         lib.mxtt_flash_attention.argtypes = [p] * 4 + [i] * 5 + [
@@ -269,6 +286,28 @@ def fused_fc_epilogue(x: torch.Tensor, w: torch.Tensor,
 # paged_attention
 
 PAGED_MAX_HEAD_DIM = 128
+# logical keys per split-K partition (csrc/paged_attention.cu kPartKeys)
+PAGED_PARTITION_KEYS = 256
+
+
+# query rows per block of the kernel at C > 1 (csrc/paged_attention.cu kTileQ)
+PAGED_TILE_Q = 16
+
+
+def paged_partitions(c: int, cap: int) -> int:
+    """The split-K partitions a ``paged_attention`` call runs for C query
+    rows per slot over a page table of ``cap = B * bt`` keys.  With one
+    row tile per (slot, head) (C <= 16: decode and speculative verify)
+    the keys are cut into :data:`PAGED_PARTITION_KEYS`-key partitions
+    that blocks take in parallel, merged by a second kernel; with two or
+    more row tiles (chunked prefill) the tiles already spread the work
+    and one pass is faster (on an H100, at 16 slots x 12 heads, C = 32;
+    PERF.md).  Depends on shapes only,
+    never on lengths or page contents, so every layout of one logical
+    cache takes the same partitions."""
+    if int(c) > PAGED_TILE_Q:
+        return 1
+    return max(1, -(-int(cap) // PAGED_PARTITION_KEYS))
 
 
 def paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
@@ -316,8 +355,9 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     last C positions).  Returns (S, C, H, D) in q's dtype.
 
     CUDA tensors launch the hand-written kernel (csrc/paged_attention.cu,
-    float32 q and pools, int32 indices, D <= 128); CPU tensors take
-    :func:`paged_attention_reference`."""
+    float32 q and pools, int32 indices, D <= 128; split-K as
+    :func:`paged_partitions` says, one launch counted per call); CPU
+    tensors take :func:`paged_attention_reference`."""
     if q.dim() != 4 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape \
             or k_pool.shape[2:] != q.shape[2:]:
         raise MXNetError("paged_attention: need q (S, C, H, D) and pools "
@@ -357,19 +397,37 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if d > PAGED_MAX_HEAD_DIM:
         raise MXNetError("paged_attention: head dim %d > %d" % (
             d, PAGED_MAX_HEAD_DIM))
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    if k_pool.shape[0] == 0 or pages.shape[1] == 0:
+        raise MXNetError("paged_attention: empty pool or page table")
+    return _launch_paged(q, k_pool, v_pool, pages, lengths, q_pos, causal,
+                         paged_partitions(c, pages.shape[1] * k_pool.shape[1]))
+
+
+def _launch_paged(q, k_pool, v_pool, pages, lengths, q_pos, causal,
+                  n_part: int) -> torch.Tensor:
+    """The kernel on checked CUDA tensors with ``n_part`` partitions (1:
+    one pass writes the output; more: partials into scratch, then the
+    merge kernel), counted once."""
+    s_, c, h, d = q.shape
     n, bt = k_pool.shape[0], k_pool.shape[1]
     b = pages.shape[1]
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    if n == 0 or b == 0:
-        raise MXNetError("paged_attention: empty pool or page table")
+    part_ml = part_acc = None
+    if n_part > 1:
+        part_ml = torch.empty((s_ * c * h, n_part, 2), dtype=torch.float32,
+                              device=q.device)
+        part_acc = torch.empty((s_ * c * h, n_part, d), dtype=torch.float32,
+                               device=q.device)
     lib = _library("paged_attention")
     rc = lib.mxtt_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pages.data_ptr(),
-        lengths.data_ptr(), q_pos.data_ptr(), out.data_ptr(), s_, c, h, d, n,
-        bt, b, int(bool(causal)), 1.0 / math.sqrt(d), q.device.index or 0,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        lengths.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+        part_ml.data_ptr() if part_ml is not None else None,
+        part_acc.data_ptr() if part_acc is not None else None, s_, c, h, d,
+        n, bt, b, int(bool(causal)), 1.0 / math.sqrt(d), int(n_part),
+        q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream)
     _check(lib, "paged_attention", rc)
     _count("paged_attention")
     return out
@@ -378,13 +436,14 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
 # ---------------------------------------------------------------------------
 # flash_attention
 
-# the kernel's compiled tile instances (csrc/flash_attention.cu FLASH_TILE);
-# the largest, (64, 128) at D = 128, takes 197 KB of a block's 227 KB of
-# shared memory and stays within the 255 registers a thread may hold
-FLASH_BLOCK_Q = (16, 32, 64)
-FLASH_BLOCK_K = (32, 64, 128)
+# the kernel's compiled tile instances (csrc/flash_attention.cu FLASH_TILE),
+# each for D <= 32, <= 64 and <= 128: block_q rows, 16 per warp, and a ring
+# of two block_k-key stages of K and V plus the TF32 remainders of one,
+# 198 KB of shared memory at (block_k 64, D 128)
+FLASH_BLOCK_Q = (64, 128)
+FLASH_BLOCK_K = (32, 64)
 FLASH_TILES = tuple((bq, bk) for bq in FLASH_BLOCK_Q for bk in FLASH_BLOCK_K)
-FLASH_DEFAULT_TILE = (64, 64)
+FLASH_DEFAULT_TILE = (64, 32)       # the best tile at the search shape
 FLASH_MAX_HEAD_DIM = 128
 
 
@@ -399,11 +458,17 @@ def _searched_flash(t, d, causal, dtype, device):
     """The kernel search's persisted winner for this call's shape class
     on this device, or None.  Consulted only under
     ``MXNET_KERNEL_SEARCH=1`` and load-only (never a search on the call
-    path); see ``autotune.kernelsearch.best_config``."""
+    path); see ``autotune.kernelsearch.best_config``.  A winner that is no
+    longer a compiled tile (a store written for an older tile set) counts
+    as no winner; the next ``search_flash`` of its class overwrites it."""
     if not get_env("MXNET_KERNEL_SEARCH", False, bool):
         return None
     from ..autotune import kernelsearch as ks
-    return ks.best_config(ks.flash_class(t, d, causal, dtype), device=device)
+    win = ks.best_config(ks.flash_class(t, d, causal, dtype), device=device)
+    if win is None or (win.get("block_q"), win.get("block_k")) \
+            not in FLASH_TILES:
+        return None
+    return win
 
 
 def flash_tiles(t: int, d: int, causal: bool, dtype, device,

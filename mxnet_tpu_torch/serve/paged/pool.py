@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ...base import get_env
+from ...context import current_context
 from ..errors import ServeError
 
 __all__ = ["KVBlockPool"]
@@ -68,13 +69,15 @@ class KVBlockPool:
         Every slot statically owns its own full stripe (needs the
         dense-equivalent pool): the dense decode layout through the same
         page-table code path, the bitwise parity baseline.
-    device : torch.device or str
-        Where the K/V views live (default the CPU).
+    device : torch.device or str, optional
+        Where the K/V views live (default the current context's device,
+        ``gpu(0)`` unless a context scope says otherwise; raises
+        ``MXNetError`` when that card is not there).
     """
 
     def __init__(self, num_slots: int, max_blocks_per_slot: int,
                  num_blocks=None, block_tokens=None, dense: bool = False,
-                 device="cpu"):
+                 device=None):
         if block_tokens is None:
             block_tokens = get_env("MXNET_KVPOOL_BLOCK_TOKENS", 16, int)
         self.block_tokens = int(block_tokens)
@@ -97,7 +100,8 @@ class KVBlockPool:
                 "dense mode needs num_blocks >= num_slots * "
                 "max_blocks_per_slot (%d), got %d"
                 % (dense_blocks, self.num_blocks))
-        self.device = torch.device(device)
+        self.device = current_context().torch_device() if device is None \
+            else torch.device(device)
         self.sentinel = self.num_blocks
         self._lock = threading.Lock()
         self._views: Dict[str, _View] = {}

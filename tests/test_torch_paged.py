@@ -7,8 +7,10 @@
   tables, ragged lengths straddling blocks, sentinel entries, an empty
   slot, and C = 1 and C > 1.  Tolerance rtol 1e-5, atol 1e-6: both sides
   sum at most a few dozen float32 products per score in other orders.
-  The CUDA kernel is held to the same plain version on the card by
-  ``chip_smoke.py``.
+  The CUDA kernel's split-K arithmetic (partials per partition of
+  logical keys, merged in partition order) is modelled in torch and held
+  to the same reference at the partitions' edges.  The CUDA kernel is
+  held to the same plain version on the card by ``chip_smoke.py``.
 * the model: ``init_lm_params`` bitwise, ``lm_forward`` logits and one
   ``paged_step`` within rtol 1e-5, atol 1e-6.
 * the engine: the JAX engine's token streams on the mixed-length flood,
@@ -19,6 +21,7 @@
 import math
 import os
 import time
+import types
 
 import numpy as np
 import pytest
@@ -212,6 +215,156 @@ def test_kernel_source_targets_hopper():
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     assert ck._lib_path("paged_attention") != \
         ck._lib_path("fused_fc_epilogue")
+    # split-K with a merge kernel, a cp.async ring, P from shared memory
+    assert "constexpr int kPartKeys = %d;" % ck.PAGED_PARTITION_KEYS in text
+    assert "constexpr int kTileQ = %d;" % ck.PAGED_TILE_Q in text
+    assert "paged_attention_merge_kernel" in text
+    assert '#include "attention.cuh"' in text and "cp_async16(" in text
+    assert "mxtt::attention_tile<" in text           # flash's key-tile step
+    assert "constexpr int kStages = 2;" in text and "__ldg(k_pool" not in text
+    assert "__shfl_sync(kFull, sc[r]" not in text    # no shuffle per key
+
+
+def test_launch_counted_once_per_kernel_call(monkeypatch):
+    """The count rises where the kernel is launched, once per call, with
+    or without the split-K merge kernel behind it; the plain version on
+    CPU tensors counts nothing."""
+    calls = []
+
+    class Lib:
+        def mxtt_paged_attention(self, *args):
+            calls.append(args[-3])                 # n_part
+            return 0
+
+    monkeypatch.setattr(ck, "_library", lambda name: Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    args = _torch(*_edge_setup(16, 1, seed=5))
+    ck.reset_launches()
+    for n_part in (1, 3):
+        ck._launch_paged(*args, True, n_part)
+    assert calls == [1, 3] and ck.LAUNCHES["paged_attention"] == 2
+    ck.paged_attention(*args)
+    assert ck.LAUNCHES["paged_attention"] == 2
+
+
+def test_partitions_follow_shapes_only():
+    """Split-K while one row tile covers the window (decode, speculative
+    verify); one pass once the row tiles spread the work (prefill)."""
+    p = ck.PAGED_PARTITION_KEYS
+    assert ck.paged_partitions(1, 64 * 16) == -(-1024 // p)
+    for c in (1, 9, ck.PAGED_TILE_Q):
+        assert ck.paged_partitions(c, p) == 1
+        assert ck.paged_partitions(c, p + 1) == 2
+        assert ck.paged_partitions(c, 1) == 1
+    for c in (ck.PAGED_TILE_Q + 1, 32):
+        assert ck.paged_partitions(c, 64 * 16) == 1
+
+
+def _split_k_attention(q, k_pool, v_pool, pages, lengths, q_pos, causal,
+                       part_keys):
+    """The split-K kernel's arithmetic in torch: each slot's logical keys
+    (gathered through the clamped page table) cut into ``part_keys``-key
+    partitions; per partition the partial (m, l, acc) with masked keys at
+    -inf, scores and maxima in log2 units as the kernel keeps them; the
+    partials merged in partition order, l clamped at 1e-20 once at the
+    end."""
+    n, bt = k_pool.shape[0], k_pool.shape[1]
+    s_, c, h, d = q.shape
+    cap = pages.shape[1] * bt
+    safe = pages.long().clamp(0, n - 1)
+    kg = k_pool[safe].reshape(s_, cap, h, d)
+    vg = v_pool[safe].reshape(s_, cap, h, d)
+    sc = torch.einsum("schd,skhd->shck", q, kg) * (math.log2(math.e)
+                                                   / math.sqrt(d))
+    key = torch.arange(cap)
+    seen = (key[None, :] < lengths.long()[:, None])[:, None, None, :]
+    if causal:
+        seen = seen & (key[None, None, :] <= q_pos.long()[:, :, None])[:, None]
+    sc = torch.where(seen, sc, -math.inf)
+    parts = []
+    for lo in range(0, cap, part_keys):
+        blk = sc[..., lo:lo + part_keys]
+        m = blk.amax(-1, keepdim=True)
+        e = torch.where(torch.isinf(blk), 0.0,
+                        torch.exp2(blk - torch.where(torch.isinf(m), 0.0, m)))
+        parts.append((m, e.sum(-1, keepdim=True),
+                      torch.einsum("shck,skhd->shcd", e,
+                                   vg[:, lo:lo + part_keys])))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    safe_m = torch.where(torch.isinf(mx), 0.0, mx)
+    l = torch.zeros_like(mx)
+    acc = torch.zeros_like(parts[0][2])
+    for m, lp, ap in parts:                          # in partition order
+        f = torch.where(torch.isinf(m), 0.0, torch.exp2(m - safe_m))
+        l = l + lp * f
+        acc = acc + ap * f
+    return (acc / l.clamp_min(1e-20)).permute(0, 2, 1, 3)
+
+
+def _edge_setup(part, c, seed, bt=8, h=2, d=16):
+    """Slots at the partitions' edges: lengths of exactly P, P - 1 and
+    P + 1, a causal window straddling a boundary, an empty slot beside one
+    at the page table's full width; scattered blocks and a sentinel row of
+    large finite values past every length."""
+    rng = np.random.RandomState(seed)
+    max_b = -(-(3 * part) // bt)
+    cap = max_b * bt
+    lengths = np.array([part, part - 1, part + 1, 0, cap, part + c // 2 + 1,
+                        2 * part + 3], np.int32)
+    need = [-(-int(n) // bt) for n in lengths]
+    blocks = sum(need)
+    k_pool = rng.randn(blocks + 1, bt, h, d).astype(np.float32)
+    v_pool = rng.randn(blocks + 1, bt, h, d).astype(np.float32)
+    k_pool[blocks] = v_pool[blocks] = 1e4
+    pages = np.full((len(lengths), max_b), blocks, np.int32)
+    order = rng.permutation(blocks)
+    nxt = 0
+    for i, nb in enumerate(need):
+        pages[i, :nb] = order[nxt:nxt + nb]
+        nxt += nb
+    q = rng.randn(len(lengths), c, h, d).astype(np.float32)
+    q_pos = np.zeros((len(lengths), c), np.int32)
+    for i, n in enumerate(lengths):            # the engine's window rows
+        nv = min(c, int(n))
+        q_pos[i, :nv] = n - nv + np.arange(nv)
+    return q, k_pool, v_pool, pages, lengths, q_pos
+
+
+@pytest.mark.parametrize("part", [16, ck.PAGED_PARTITION_KEYS])
+@pytest.mark.parametrize("c,causal", [(1, True), (9, True), (32, True),
+                                      (9, False)])
+def test_split_k_matches_dense_reference_at_partition_edges(part, c, causal):
+    args = _edge_setup(part, c, seed=c + part)
+    want = np.asarray(_paged_attention_dense(*map(jnp.asarray, args),
+                                             causal=causal))
+    got = _split_k_attention(*_torch(*args), causal=causal, part_keys=part)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    assert np.all(got.numpy()[3] == 0)             # the empty slot
+    q_pos = args[5]
+    if c > 1:                                      # a window straddles P
+        assert q_pos[5, 0] < part <= q_pos[5, -1]
+    # the port's plain version agrees with the same reference
+    ref = ck.paged_attention(*_torch(*args), causal=causal)
+    np.testing.assert_allclose(ref.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("c", [1, 9, 32])
+def test_split_k_is_layout_invariant(c):
+    """Partitions cut logical keys, so the same logical cache laid out
+    in any order of blocks gives bitwise the same split-K output."""
+    q, k_pool, v_pool, pages, lengths, q_pos = _edge_setup(16, c, seed=3)
+    blocks = k_pool.shape[0] - 1                   # the sentinel stays last
+    perm = np.random.RandomState(c).permutation(blocks)
+    moved_k, moved_v = k_pool.copy(), v_pool.copy()
+    moved_k[perm], moved_v[perm] = k_pool[:blocks], v_pool[:blocks]
+    moved_pages = np.where(pages < blocks,
+                           perm[np.minimum(pages, blocks - 1)], pages)
+    outs = [_split_k_attention(*_torch(q, kp, vp, pg, lengths, q_pos),
+                               causal=True, part_keys=16)
+            for kp, vp, pg in ((k_pool, v_pool, pages),
+                               (moved_k, moved_v, moved_pages))]
+    assert torch.equal(outs[0], outs[1])
 
 
 # ---------------------------------------------------------------------------
@@ -385,7 +538,7 @@ def test_chunked_prefill_long_prompt(params):
 
 def test_pool_reserve_ensure_release_invariants():
     pool = KVBlockPool(num_slots=2, max_blocks_per_slot=4, num_blocks=6,
-                       block_tokens=8)
+                       block_tokens=8, device="cpu")
     assert pool.blocks_for(1) == 1 and pool.blocks_for(8) == 1
     assert pool.blocks_for(9) == 2 and pool.blocks_for(32) == 4
     assert pool.available_blocks() == 6 and pool.sentinel == 6
@@ -414,18 +567,19 @@ def test_pool_reserve_ensure_release_invariants():
 
 def test_pool_geometry_dense_mode_and_views(monkeypatch):
     with pytest.raises(ServeError):
-        KVBlockPool(2, 4, num_blocks=3, block_tokens=8)
+        KVBlockPool(2, 4, num_blocks=3, block_tokens=8, device="cpu")
     with pytest.raises(ServeError):
-        KVBlockPool(2, 4, num_blocks=6, block_tokens=8, dense=True)
+        KVBlockPool(2, 4, num_blocks=6, block_tokens=8, dense=True,
+                    device="cpu")
     with pytest.raises(ServeError):
-        KVBlockPool(2, 4, block_tokens=0)
-    dense = KVBlockPool(2, 4, block_tokens=8, dense=True)
+        KVBlockPool(2, 4, block_tokens=0, device="cpu")
+    dense = KVBlockPool(2, 4, block_tokens=8, dense=True, device="cpu")
     assert dense.num_blocks == 8
     assert np.array_equal(dense.page_table()[1], np.arange(4, 8))
     assert dense.reserve(0, 4) and dense.reserve(0, 4)
     dense.release(0)
     assert np.array_equal(dense.page_table()[0], np.arange(0, 4))
-    pool = KVBlockPool(2, 4, num_blocks=6, block_tokens=8)
+    pool = KVBlockPool(2, 4, num_blocks=6, block_tokens=8, device="cpu")
     pool.add_view("target", layers=2, heads=4, head_dim=8)
     with pytest.raises(ServeError):
         pool.add_view("target", 2, 4, 8)
@@ -435,8 +589,21 @@ def test_pool_geometry_dense_mode_and_views(monkeypatch):
     assert pool.device_bytes() == 2 * (2 * 7 * 8 * 4 * 8 * 4)
     monkeypatch.setenv("MXNET_KVPOOL_BLOCK_TOKENS", "4")
     monkeypatch.setenv("MXNET_KVPOOL_BLOCKS", "13")
-    pool = KVBlockPool(2, 4)
+    pool = KVBlockPool(2, 4, device="cpu")
     assert pool.block_tokens == 4 and pool.num_blocks == 13
+
+
+def test_pool_default_device_is_the_current_context():
+    """Like every entry point of the port, the pool defaults to the
+    current context (``gpu(0)``) and raises without a card; a context
+    scope picks the device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: gpu(0) is valid")
+    with pytest.raises(mt.MXNetError, match="no CUDA device"):
+        KVBlockPool(2, 4, num_blocks=6, block_tokens=8)
+    with mt.cpu():
+        pool = KVBlockPool(2, 4, num_blocks=6, block_tokens=8)
+    assert pool.device.type == "cpu"
 
 
 def test_pool_exhaustion_queues_never_drops(params):

@@ -155,7 +155,7 @@ def test_serve_engine_parity_with_jax(tmp_path):
 
 def test_port_imports_no_jax():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serve, "
-            "mxnet_tpu_torch.ops.cuda_kernels, chip_smoke\n"
+            "mxnet_tpu_torch.ops.cuda_kernels, chip_smoke, attention_ab\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')]\n"
@@ -171,6 +171,14 @@ def test_chip_smoke_fails_without_a_card():
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+def test_attention_ab_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, "attention_ab.py"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "paged_ms" not in proc.stdout
 
 
 def test_default_device_predictor_raises_without_card():
