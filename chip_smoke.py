@@ -54,7 +54,8 @@ Phases, in order; any failure exits nonzero:
    device at 8 x 384x512 image pairs: correlation launches equal to the
    forwards, output held against the port's CPU run of the same checkpoint,
    a profile of one forward;
-11. the ``kernels`` JSON line (all four kernels), then the
+11. integer max pooling with padding on the card, equal to the CPU run;
+12. the ``kernels`` JSON line (all four kernels), then the
    ``{"ok": true, ...}`` line.
 """
 import json
@@ -78,14 +79,17 @@ PEAK_TF32_FLOPS = 495e12
 FLASH_PEAK = "3xTF32: 3 TF32 products per float32 product at 495 TFLOP/s"
 
 # The redesigned kernels' times before their tensor-core, split-K designs:
-# quoted, not measured by this script.  attention_ab.py timed the earlier
+# quoted, not measured by this script.  kernel_ab.py timed the earlier
 # kernels with time_ms below on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md,
 # Findings): flash_attention at the search shape with its best tile, and
 # paged_attention at the time rows' cases, by C.  Printed in the time rows
 # beside the measured times, never in the kernels line.
 EARLIER_FLASH_MS = 0.3174
 EARLIER_PAGED_MS = {1: 0.1114, 9: 0.1529, 32: 0.1588}
-EARLIER_FROM = "quoted: PERF.md Findings (attention_ab.py), not this run"
+EARLIER_FROM = "quoted: PERF.md Findings (kernel_ab.py), not this run"
+# correlation before its register-blocked design, at FlowNetC's shape
+# (multiply), timed by chip_smoke.py the same way (PERF.md, Findings)
+EARLIER_CORR_MS = {"flownetc": 0.6855}
 
 REPLACES = {"fused_fc_epilogue": "mxnet_tpu/ops/pallas_kernels.py:347",
             "paged_attention": "mxnet_tpu/ops/pallas_kernels.py:262",
@@ -119,7 +123,7 @@ def ptxas_instances(log):
     out = []
     for name, (regs, spill) in found.items():
         base = re.search(r"([a-z][a-z_]*_kernel)I", name)
-        args = re.findall(r"Li(\d+)E", name)
+        args = re.findall(r"L[bi](\d+)E", name)
         out.append(("%s<%s>" % (base.group(1), ",".join(args)) if base
                     else name[:60], regs, spill))
     return out
@@ -588,7 +592,7 @@ PAGED_SPREAD = np.linspace(1, 1024, 16).round().astype(np.int32)
 
 def paged_time_case(torch, dev, c):
     """The case each ``kernel time paged_attention`` row times at C = c
-    (attention_ab.py times the same)."""
+    (kernel_ab.py times the same)."""
     return paged_case(torch, dev, 30 + c, PAGED_SPREAD, c, blocks=1100)
 
 
@@ -1305,21 +1309,26 @@ def corr_bound_ms(n, c, h, w, m, s2):
                                      else "operations")
 
 
+# The kernel checks: stride2 1, and stride2 2 at W % 4 == 0, take the
+# register-blocked instance, the others the general one
+CORR_CASES = [("flownetc", FLOWNETC), ("pwcnet", PWCNET),
+              ("ragged-m3s2", dict(n=3, c=5, h=7, w=45, m=3, s2=2)),
+              ("ragged-s2-w44", dict(n=2, c=19, h=13, w=44, m=5, s2=2)),
+              ("s2-not-dividing", dict(n=1, c=3, h=33, w=31, m=4, s2=3)),
+              ("m1", dict(n=2, c=16, h=9, w=70, m=1, s2=1)),
+              ("m0", dict(n=2, c=7, h=5, w=5, m=0, s2=1)),
+              ("d2-21-s1", dict(n=1, c=8, h=20, w=40, m=10, s2=1)),
+              ("c1-tall", dict(n=1, c=1, h=67, w=3, m=2, s2=1)),
+              # windows over 1024 floats a channel: the general instance's
+              # runtime stride, with 16-byte and with 4-byte staging
+              ("wide-window", dict(n=2, c=10, h=21, w=44, m=8, s2=8)),
+              ("wide-odd-w", dict(n=1, c=5, h=19, w=45, m=12, s2=4))]
+
+
 def correlation_kernel_phase(torch, ck):
     dev = torch.device("cuda", 0)
-    cases = [("flownetc", FLOWNETC), ("pwcnet", PWCNET),
-             ("ragged-m3s2", dict(n=3, c=5, h=7, w=45, m=3, s2=2)),
-             ("s2-not-dividing", dict(n=1, c=3, h=33, w=31, m=4, s2=3)),
-             ("m1", dict(n=2, c=16, h=9, w=70, m=1, s2=1)),
-             ("m0", dict(n=2, c=7, h=5, w=5, m=0, s2=1)),
-             ("d2-21-s1", dict(n=1, c=8, h=20, w=40, m=10, s2=1)),
-             ("c1-tall", dict(n=1, c=1, h=67, w=3, m=2, s2=1)),
-             # windows over 1024 floats a channel: the runtime-stride
-             # instance, with 16-byte and with 4-byte staging
-             ("wide-window", dict(n=2, c=10, h=21, w=44, m=8, s2=8)),
-             ("wide-odd-w", dict(n=1, c=5, h=19, w=45, m=12, s2=4))]
     main_err = 0.0
-    for seed, (name, g) in enumerate(cases):
+    for seed, (name, g) in enumerate(CORR_CASES):
         a, b = corr_inputs(torch, dev, 200 + seed, g["n"], g["c"], g["h"],
                            g["w"])
         for mult in (True, False):
@@ -1357,6 +1366,9 @@ def correlation_kernel_phase(torch, ck):
                        a, b, g["m"], g["s2"], mult), flush, iters=5),
                    "library_ms": None,
                    "bound_ms": bound, "bound_by": bound_by}
+            if mult and name in EARLIER_CORR_MS:
+                row.update(earlier_ms=EARLIER_CORR_MS[name],
+                           earlier_from=EARLIER_FROM)
             row["bound_share"] = row["bound_ms"] / row["ms"]
             print("kernel time correlation %s" % json.dumps(row))
             rows.append(row)
@@ -1510,6 +1522,30 @@ def flownetc_phase(torch, mt, ck, n=8, forwards=4, n_check=2, seed=0):
             "wall_ms": wall, "device_ms": device}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: integer max pooling with padding
+
+def int_pool_phase(torch):
+    """Pooling(max) pads integer inputs with the type's least value, as
+    the JAX package does; the card must give the CPU's answer, in the
+    input's dtype."""
+    from mxnet_tpu_torch.ops import get_op
+    from mxnet_tpu_torch.ops.registry import OpContext
+    op = get_op("Pooling")
+    p = op.parse_params({"kernel": (3, 3), "pad": (1, 1), "stride": (2, 2)})
+    x = torch.from_numpy(np.random.RandomState(5).randint(
+        -1000, 1000, (2, 3, 9, 8)).astype(np.int32))
+    ctx = OpContext(is_train=False)
+    want = op.forward(p, [x], [], ctx)[0]
+    got = op.forward(p, [x.cuda()], [], ctx)[0]
+    torch.cuda.synchronize()
+    print("int pooling check: int32 %s -> %s on %s, %s, equal to the CPU: %s"
+          % (tuple(x.shape), tuple(got.shape), got.device, got.dtype,
+             torch.equal(got.cpu(), want)))
+    if got.dtype != torch.int32 or not torch.equal(got.cpu(), want):
+        fail("int32 max pooling on the card differs from the CPU run")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1551,7 +1587,7 @@ def main():
         print("build %s: %d kernel instantiations, registers max %d, "
               "spill/stack bytes max %d" % (name, len(regs), max(regs or [0]),
                                             max(spills or [0])))
-        if name in ("flash_attention", "paged_attention"):
+        if name in ("flash_attention", "paged_attention", "correlation"):
             for inst, nreg, spill in ptxas_instances(log):
                 print("build %s:   %-40s registers %3d, spill bytes %d"
                       % (name, inst, nreg, spill))
@@ -1580,7 +1616,10 @@ def main():
     # phase 10: FlowNetC's correlation stage through Predictor
     flow = flownetc_phase(torch, mt, ck)
 
-    # phase 11: results
+    # phase 11: integer max pooling with padding, card against CPU
+    int_pool_phase(torch)
+
+    # phase 12: results
     kernels = [{
         "name": "fused_fc_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["fused_fc_epilogue"],

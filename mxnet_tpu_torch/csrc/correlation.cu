@@ -19,28 +19,38 @@
 // What bounds it.  Each output costs C multiply-adds (2·C flops) and each
 // input pixel is used by D2² outputs, so at FlowNetC's stage (N 8, C 256,
 // 48 x 64, D2² = 441) the work is 5.5 GFLOP over 94 MB: bound by float32
-// arithmetic, near 0.083 ms on an H100 SXM at 67 TFLOP/s.
+// arithmetic, near 0.083 ms on an H100 SXM at 67 TFLOP/s.  A shared-memory
+// word feeds at most 4 of the SM's 128 float32 lanes a clock, so a design
+// that reads one word per multiply-add runs at a quarter of that peak.
 //
-// Design.  A block is 8 warps over an 8 x 32 tile of output pixels (warp =
-// row, lane = column) and a group of kAcc = 32 consecutive displacements
-// (flattened i·D2 + j), one float32 accumulator per displacement in each
-// thread's registers.  It walks the channels in chunks of 8: for each chunk
-// it stages the a tile and the window of b that the group's displacements
-// reach (the tile widened by (D2 − 1)·s2 columns and by s2 rows for each
-// further displacement row the group spans) in shared memory, zero outside
-// the image and past C, with cp.async (16 bytes at a time when W % 4 == 0)
-// into two stages, so the next chunk's copies are in flight while the
-// current one is summed.  Each thread reads its 8 a values once, then for
-// each displacement one pointer (its offset fixed per block, held in a
-// register) and 8 b values at compile-time offsets from it: the channel
-// stride of a staged window is the constant kFastStride whenever the window
-// fits (FlowNetC's and PWC-Net's do), so a b read costs one shared load and
-// no address arithmetic.  Lanes read consecutive addresses: no bank
-// conflicts.  Sums run over the channels in order and divide by C at the
-// end, as _correlation_kernel does.  Each multiply-add still takes one
-// shared-memory read, so shared-memory bandwidth holds it near a quarter of
-// the float32 peak; blocking several pixels per thread over x, to reuse b
-// values across displacements in registers, is left to later work.
+// Design: the register-blocked instance (stride2 1, and stride2 2 at W %
+// 4 == 0).  A thread owns kP = 8 output pixels of one row that share a
+// column class mod s2 (x, x + s2, ..., x + 7·s2) and a run of J
+// consecutive dx of one displacement row i.  Those need only kP + J − 1
+// distinct b columns, so per channel a thread reads 8 a values and
+// kP + J − 1 b values from shared memory for 8·J multiply-adds: 26 words
+// for 88 at stride2 2 (J = 11), 24 for 72 at stride2 1 (J = 9), against
+// one word per multiply-add before.  It walks the b columns along the
+// diagonals q = p + j, one b value live at a time, so the accumulators
+// and the 8 a values fit 128 registers without spilling.  A block holds
+// the warps of ni consecutive displacement rows over an 8 x 32 tile, so
+// one staged a tile and b window serve ni·D2 displacements (FlowNetC: 14
+// warps over 7 rows, 3 displacement groups).  Registers bound the block:
+// ptxas splits an SM's registers over four partitions, so 14 warps get
+// 128 registers where 21 would get 80.  Channels go through a two-stage
+// cp.async ring (16 channels a stage at stride2 2), the a tile and the b
+// window zero outside the image and past C: 16-byte copies at stride2 2,
+// 4-byte at stride2 1.  Row strides in shared memory are padded so a
+// warp's lanes read distinct words in distinct banks (rb_thread, lane_stride).
+// Sums run over the channels in order and divide by C at the end, as
+// _correlation_kernel does.
+//
+// The general instance (the other shapes, and windows the register-blocked
+// one cannot stage) is the earlier design: a block of 8 warps over an 8 x 32
+// tile and kAcc = 32 flattened displacements, one accumulator each, one
+// shared-memory read per multiply-add, the b window's channel stride the
+// constant kFastStride when the window fits so every read is an
+// immediate offset from one pointer per displacement.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -56,6 +66,21 @@ constexpr int kChunk = 8;                        // channels per stage
 constexpr int kFastStride = 1024;                // b window floats per channel
 constexpr int kMaxSmem = 227 * 1024;             // a block's opt-in limit
 constexpr int kMaxDevices = 64;
+
+// The register-blocked instances: the same 8 x 32 tile, a warp's lanes 8
+// rows x kLanesX column groups, kP pixels a thread.  Per stride2: J dx a
+// thread, channels a stage, the most warps a block, blocks an SM.
+constexpr int kP = 8;
+constexpr int kLanesX = 4;
+constexpr int kS1J = 9;
+constexpr int kS1Chunk = 8;
+constexpr int kS1Warps = 5;
+constexpr int kS1MinBlocks = 3;
+constexpr int kS2J = 11;
+constexpr int kS2Chunk = 16;
+constexpr int kS2Warps = 14;
+constexpr int kS2MinBlocks = 1;
+static_assert(kP * kLanesX == kTW && kTH * kLanesX == 32, "lane layout");
 
 // 4- and 16-byte asynchronous copies global -> shared; `valid` false writes
 // zeros and reads nothing.
@@ -232,22 +257,278 @@ correlation_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+// Opt `kernel` into `bytes` of dynamic shared memory on `device`; `opted`
+// holds, per device, the most this kernel was opted into so far.
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, int* opted, int device, size_t bytes) {
+  if (bytes <= 48 * 1024 || (int)bytes <= opted[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) opted[device] = (int)bytes;
+  return err;
+}
+
 template <bool kMultiply, int kStride>
-cudaError_t launch(const float* a, const float* b, float* out, int C, int H,
-                   int W, int D2, int ng, int s2, int n_groups, bool vec,
-                   dim3 grid, size_t bytes, int device, cudaStream_t stream) {
+cudaError_t launch_general(const float* a, const float* b, float* out, int C,
+                           int H, int W, int D2, int ng, int s2, int n_groups,
+                           bool vec, dim3 grid, size_t bytes, int device,
+                           cudaStream_t stream) {
   auto kernel = correlation_kernel<kMultiply, kStride>;
-  // the largest dynamic shared memory opted into so far, per device
   static int opted[kMaxDevices];
-  if (bytes > 48 * 1024 && (int)bytes > opted[device]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-    opted[device] = (int)bytes;
-  }
+  const cudaError_t err = opt_in(kernel, opted, device, bytes);
+  if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, bytes, stream>>>(a, b, out, C, H, W, D2, ng, s2,
                                             n_groups, vec);
   return cudaGetLastError();
+}
+
+// Where thread (warp, lane) of a register-blocked block works: displacement
+// row i_first + il, dx j0 .. j0 + kJ − 1, tile row ty and pixels x0 + xoff +
+// p·kS2 (p < kP).  A warp covers `runs` dx runs of kJ (runs·kJ >= D2).
+//   stride2 1: warp = (il, run); lane = (ty, column group g): xoff = 8g.
+//   stride2 2: warp = (il, run pair, 16-column half h); lane = (ty, column
+//     parity, run of the pair): xoff = 16h + parity.  The pair's runs sit
+//     2·kJ ≡ 2 (mod 4) columns apart, so at a row stride ≡ 4 (mod 8), which
+//     16-byte copies need, the 32 lanes still read 32 banks.
+struct ThreadMap {
+  int il, j0, ty, xoff;
+};
+
+__host__ __device__ inline int rb_runs(int D2, int s2, int J) {
+  const int jg = (D2 + J - 1) / J;
+  return s2 == 1 ? jg : 2 * ((jg + 1) / 2);
+}
+
+__host__ __device__ inline ThreadMap rb_thread(int warp, int lane, int D2,
+                                               int s2, int J) {
+  const int runs = rb_runs(D2, s2, J);
+  ThreadMap t;
+  t.il = warp / runs;                            // runs warps a row
+  t.ty = lane / kLanesX;
+  if (s2 == 1) {
+    t.j0 = (warp % runs) * J;
+    t.xoff = (lane % kLanesX) * kP;
+  } else {
+    const int pairs = runs / 2, w = warp % runs;
+    t.j0 = (2 * (w % pairs) + (lane / 2) % 2) * J;
+    t.xoff = (w / pairs) * kP * 2 + lane % 2;
+  }
+  return t;
+}
+
+// Register-blocked instance, stride2 = kS2 (1 or 2), kP pixels x kJ dx a
+// thread (rb_thread).  Shared memory per channel: the a tile (kTH rows at
+// stride ra) then the b window (wrows x wcols at stride rb) from (y0 +
+// (i_first − ng)·kS2, wx0), wx0 the multiple of 4 at or left of x0 −
+// ng·kS2; channel stride ra·kTH + rb·wrows.  Copies move 16 bytes at
+// stride2 2 (the launcher takes this instance there only for W % 4 == 0
+// and 16-byte aligned inputs), 4 at stride2 1.
+template <bool kMultiply, int kS2, int kJ, int kChunkN, int kWarps,
+          int kMinBlocks>
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+correlation_rb_kernel(const float* __restrict__ a,
+                      const float* __restrict__ b, float* __restrict__ out,
+                      int C, int H, int W, int D2, int ng, int ni,
+                      int n_igroups, int ra, int rb, int wrows, int wcols) {
+  extern __shared__ __align__(16) float smem[];
+  const int n = blockIdx.z / n_igroups;
+  const int i_first = (blockIdx.z % n_igroups) * ni;
+  const int y0 = blockIdx.y * kTH, x0 = blockIdx.x * kTW;
+  const int wy0 = y0 + (i_first - ng) * kS2;
+  const int wx0 = (x0 - ng * kS2) & ~3;
+  const int shift = x0 - ng * kS2 - wx0;          // 0 .. 3
+  const int a_floats = kTH * ra;
+  const int ch_floats = a_floats + wrows * rb;
+  const int stage_floats = kChunkN * ch_floats;
+  const ThreadMap t = rb_thread(threadIdx.x / 32, threadIdx.x % 32, D2, kS2,
+                                kJ);
+
+  const size_t plane = (size_t)H * W;
+  const float* an = a + (size_t)n * C * plane;
+  const float* bn = b + (size_t)n * C * plane;
+
+  // Copy channels c0 .. c0 + kChunkN − 1 of the a tile and the b window
+  // into `buf` as one commit group, zero outside the image and past
+  // channel C (a zero a and b add nothing to either sum): 16 bytes a copy
+  // at stride2 2 (W % 4 == 0 puts an aligned group of 4 wholly inside or
+  // outside the image), 4 at stride2 1.  Each group's addresses are worked
+  // out once and walk the channels.
+  auto stage = [&](int c0, float* buf) {
+    constexpr int kWide = kS2 == 2 ? 4 : 1;
+    const int qa = kTW / kWide, qb = wcols / kWide;
+    const int per = kTH * qa + wrows * qb;
+    for (int e = threadIdx.x; e < per; e += blockDim.x) {
+      int dst, yy, xx;
+      const float* base;
+      if (e < kTH * qa) {
+        dst = (e / qa) * ra + (e % qa) * kWide;
+        yy = y0 + e / qa;
+        xx = x0 + (e % qa) * kWide;
+        base = an;
+      } else {
+        const int f = e - kTH * qa;
+        dst = a_floats + (f / qb) * rb + (f % qb) * kWide;
+        yy = wy0 + f / qb;
+        xx = wx0 + (f % qb) * kWide;
+        base = bn;
+      }
+      const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W;
+      const float* src =
+          base + (in ? (size_t)c0 * plane + (size_t)yy * W + xx : 0);
+      float* to = buf + dst;
+#pragma unroll
+      for (int ci = 0; ci < kChunkN; ++ci) {
+        const bool v = in && c0 + ci < C;
+        if (kWide == 4)
+          cp_async16(to, v ? src : base, v);
+        else
+          cp_async4(to, v ? src : base, v);
+        src += plane;
+        to += ch_floats;
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[kP][kJ];
+#pragma unroll
+  for (int p = 0; p < kP; ++p)
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) acc[p][j] = 0.f;
+  const int a_off = t.ty * ra + t.xoff;
+  const int b_off = a_floats + (t.ty + t.il * kS2) * rb + shift + t.xoff +
+                    t.j0 * kS2;
+
+  // two stages: chunk k + 1 is in flight while chunk k is summed
+  const int n_chunks = (C + kChunkN - 1) / kChunkN;
+  stage(0, smem);
+  for (int k = 0; k < n_chunks; ++k) {
+    const float* s = smem + (k & 1) * stage_floats;
+    if (k + 1 < n_chunks) {
+      stage((k + 1) * kChunkN, smem + ((k + 1) & 1) * stage_floats);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int ci = 0; ci < kChunkN; ++ci) {
+      const float* sa = s + ci * ch_floats + a_off;
+      const float* sb = s + ci * ch_floats + b_off;
+      float av[kP];
+#pragma unroll
+      for (int p = 0; p < kP; ++p) av[p] = sa[p * kS2];
+      // b column q serves pixel p and dx j0 + q − p: one b value live at
+      // a time, so accumulators and a take the registers
+#pragma unroll
+      for (int q = 0; q < kP + kJ - 1; ++q) {
+        const float bv = sb[q * kS2];
+#pragma unroll
+        for (int p = 0; p < kP; ++p) {
+          const int j = q - p;
+          if (j >= 0 && j < kJ)
+            acc[p][j] = kMultiply ? fmaf(av[p], bv, acc[p][j])
+                                  : acc[p][j] + fabsf(av[p] - bv);
+        }
+      }
+    }
+    __syncthreads();                             // buffer k & 1 free again
+  }
+
+  const int i = i_first + t.il, y = y0 + t.ty;
+  if (i < D2 && y < H) {
+    const float norm = (float)C;
+    float* o = out + ((size_t)n * D2 * D2 + (size_t)i * D2 + t.j0) * plane +
+               (size_t)y * W + x0 + t.xoff;
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      if (x0 + t.xoff + p * kS2 >= W) break;
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+        if (t.j0 + j < D2) o[(size_t)j * plane + p * kS2] = acc[p][j] / norm;
+    }
+  }
+}
+
+// The smallest row stride >= width (a multiple of 4 at stride2 2, for
+// 16-byte copies) at which the lanes of a warp that read distinct words
+// (a reads: b_reads false) read them in distinct banks.
+int lane_stride(int width, int s2, int J, bool b_reads) {
+  const int step = s2 == 2 ? 4 : 1;
+  const int first = (width + step - 1) / step * step;
+  for (int r = first; r < first + 64; r += step) {
+    int addr[32], distinct = 0;
+    unsigned banks = 0;
+    for (int lane = 0; lane < 32; ++lane) {
+      // one warp's lanes; the warp's own offsets are the same for all
+      const ThreadMap t = rb_thread(0, lane, 2 * J, s2, J);
+      addr[lane] = t.ty * r + t.xoff + (b_reads ? t.j0 * s2 : 0);
+      bool seen = false;
+      for (int k = 0; k < lane; ++k) seen = seen || addr[k] == addr[lane];
+      if (!seen) ++distinct;
+      banks |= 1u << (addr[lane] % 32);
+    }
+    if (__builtin_popcount(banks) == distinct) return r;
+  }
+  return first;
+}
+
+// The register-blocked launch's geometry: ni displacement rows a block,
+// n_igroups blocks over the D2 rows, the strides and window, threads and
+// shared bytes.  ok false when the stride2 has no instance or no ni fits
+// the shared memory.
+struct RbPlan {
+  bool ok;
+  int ni, n_igroups, ra, rb, wrows, wcols, threads;
+  size_t bytes;
+};
+
+template <bool kMultiply, int kS2>
+cudaError_t launch_rb(const float* a, const float* b, float* out, int C,
+                      int H, int W, int D2, int ng, const RbPlan& pl,
+                      dim3 grid, int device, cudaStream_t stream) {
+  constexpr int kJ = kS2 == 1 ? kS1J : kS2J;
+  constexpr int kChunkN = kS2 == 1 ? kS1Chunk : kS2Chunk;
+  constexpr int kWarps = kS2 == 1 ? kS1Warps : kS2Warps;
+  constexpr int kMinBlocks = kS2 == 1 ? kS1MinBlocks : kS2MinBlocks;
+  auto kernel = correlation_rb_kernel<kMultiply, kS2, kJ, kChunkN, kWarps,
+                                      kMinBlocks>;
+  static int opted[kMaxDevices];
+  const cudaError_t err = opt_in(kernel, opted, device, pl.bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, pl.threads, pl.bytes, stream>>>(
+      a, b, out, C, H, W, D2, ng, pl.ni, pl.n_igroups, pl.ra, pl.rb,
+      pl.wrows, pl.wcols);
+  return cudaGetLastError();
+}
+
+RbPlan rb_plan(int D2, int ng, int s2, bool vec) {
+  RbPlan pl{};
+  if (s2 != 1 && !(s2 == 2 && vec)) return pl;
+  const int J = s2 == 1 ? kS1J : kS2J;
+  const int warps = s2 == 1 ? kS1Warps : kS2Warps;
+  const int chunk = s2 == 1 ? kS1Chunk : kS2Chunk;
+  const int runs = rb_runs(D2, s2, J);
+  if (runs > warps) return pl;
+  const int shift = (-ng * s2) & 3;   // wx0's offset left of x0 − ng·s2
+  pl.ra = lane_stride(kTW, s2, J, false);
+  pl.wcols = (shift + kTW + (runs * J - 1) * s2 + 3) / 4 * 4;
+  pl.rb = lane_stride(pl.wcols, s2, J, true);
+  // the most rows a block can take, then rows spread evenly over blocks;
+  // fewer rows while the two stages overflow the shared memory
+  for (int cap = warps / runs; cap >= 1; --cap) {
+    pl.n_igroups = (D2 + cap - 1) / cap;
+    pl.ni = (D2 + pl.n_igroups - 1) / pl.n_igroups;
+    pl.wrows = kTH + (pl.ni - 1) * s2;
+    pl.bytes = 2 * sizeof(float) * chunk *
+               (size_t)(kTH * pl.ra + pl.wrows * pl.rb);
+    if (pl.bytes <= (size_t)kMaxSmem) {
+      pl.threads = 32 * pl.ni * runs;
+      pl.ok = true;
+      return pl;
+    }
+  }
+  return pl;
 }
 
 }  // namespace
@@ -264,36 +545,53 @@ extern "C" int mxtt_correlation(const void* a, const void* b, void* out,
       device < 0 || device >= kMaxDevices)
     return cudaErrorInvalidValue;
   const int ng = m / s2, D2 = 2 * ng + 1, DD = D2 * D2;
-  const int n_groups = (DD + kAcc - 1) / kAcc;
-  const long long gz = (long long)N * n_groups;
   const int gy = (H + kTH - 1) / kTH, gx = (W + kTW - 1) / kTW;
-  if (gz > 65535 || gy > 65535) return cudaErrorInvalidValue;
-  // the largest window of any group sets the stride and shared memory
+  const bool vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  const RbPlan pl = rb_plan(D2, ng, s2, vec);
+  // the general instance: the largest window of any group sets the
+  // stride and shared memory
+  const int n_groups = (DD + kAcc - 1) / kAcc;
   int window = 0;
-  for (int g = 0; g < n_groups; ++g) {
-    const Window w(g * kAcc, (g + 1) * kAcc <= DD ? kAcc : DD - g * kAcc, D2,
-                   s2);
-    window = window > w.rows * w.cols ? window : w.rows * w.cols;
+  if (!pl.ok) {
+    for (int g = 0; g < n_groups; ++g) {
+      const Window w(g * kAcc, (g + 1) * kAcc <= DD ? kAcc : DD - g * kAcc,
+                     D2, s2);
+      window = window > w.rows * w.cols ? window : w.rows * w.cols;
+    }
   }
   const bool fast = window <= kFastStride;
-  const size_t bytes = 2 * sizeof(float) * kChunk *
-                       (kThreads + (size_t)(fast ? kFastStride : window));
-  if (bytes > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  const size_t bytes =
+      pl.ok ? pl.bytes
+            : 2 * sizeof(float) * kChunk *
+                  (kThreads + (size_t)(fast ? kFastStride : window));
+  const long long gz = (long long)N * (pl.ok ? pl.n_igroups : n_groups);
+  if (gz > 65535 || gy > 65535 || bytes > (size_t)kMaxSmem)
+    return cudaErrorInvalidValue;
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
   if (err != cudaSuccess) return err;
   if (current != device && (err = cudaSetDevice(device)) != cudaSuccess)
     return err;
-  const bool vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(b) % 16 == 0;
   const dim3 grid(gx, gy, (unsigned)gz);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* af = static_cast<const float*>(a);
   const float* bf = static_cast<const float*>(b);
   float* o = static_cast<float*>(out);
-#define CORR_LAUNCH(MUL, STRIDE)                                            \
-  return launch<MUL, STRIDE>(af, bf, o, C, H, W, D2, ng, s2, n_groups, vec, \
-                             grid, bytes, device, st)
+  if (pl.ok) {
+#define CORR_RB(MUL, S) \
+  return launch_rb<MUL, S>(af, bf, o, C, H, W, D2, ng, pl, grid, device, st)
+    if (is_multiply) {
+      if (s2 == 1) CORR_RB(true, 1);
+      CORR_RB(true, 2);
+    }
+    if (s2 == 1) CORR_RB(false, 1);
+    CORR_RB(false, 2);
+#undef CORR_RB
+  }
+#define CORR_LAUNCH(MUL, STRIDE)                                         \
+  return launch_general<MUL, STRIDE>(af, bf, o, C, H, W, D2, ng, s2,     \
+                                     n_groups, vec, grid, bytes, device, st)
   if (is_multiply) {
     if (fast) CORR_LAUNCH(true, kFastStride);
     CORR_LAUNCH(true, 0);

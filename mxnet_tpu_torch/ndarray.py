@@ -36,14 +36,20 @@ _TORCH_DTYPES = {
 _DTYPE_NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
 
 
+# The reference runs with jax's 64-bit types off, so its arrays narrow
+# int64 to int32 and float64 to float32; the port's arrays do the same.
+_NARROWED = {torch.int64: torch.int32, torch.float64: torch.float32}
+
+
 def torch_dtype(dtype) -> torch.dtype:
-    """numpy dtype, dtype name or torch dtype -> torch dtype."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
-    if name not in _TORCH_DTYPES:
-        raise MXNetError("unsupported dtype %r" % (dtype,))
-    return _TORCH_DTYPES[name]
+    """numpy dtype, dtype name or torch dtype -> the torch dtype an
+    NDArray holds it in (64-bit types narrowed to 32 bits)."""
+    if not isinstance(dtype, torch.dtype):
+        name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+        if name not in _TORCH_DTYPES:
+            raise MXNetError("unsupported dtype %r" % (dtype,))
+        dtype = _TORCH_DTYPES[name]
+    return _NARROWED.get(dtype, dtype)
 
 
 def numpy_dtype(dtype: torch.dtype) -> np.dtype:

@@ -156,10 +156,17 @@ class PoolingOp(OpDef):
             kernel, stride, pad = tuple(p.kernel), tuple(p.stride), \
                 tuple(p.pad)
         if p.pool_type == "max":
+            floating = x.dtype.is_floating_point
             if pad != (0, 0):
                 x = F.pad(x, (pad[1], pad[1], pad[0], pad[0]),
-                          value=float("-inf"))
-            return [F.max_pool2d(x, kernel, stride)]
+                          value=float("-inf") if floating
+                          else torch.iinfo(x.dtype).min)
+            if floating:
+                return [F.max_pool2d(x, kernel, stride)]
+            # max_pool2d has no integer kernel on CUDA: windows as views
+            win = x.unfold(2, kernel[0], stride[0]).unfold(3, kernel[1],
+                                                           stride[1])
+            return [win.amax(dim=(-2, -1))]
         if pad != (0, 0):
             x = F.pad(x, (pad[1], pad[1], pad[0], pad[0]))
         out = F.avg_pool2d(x, kernel, stride)

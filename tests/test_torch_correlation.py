@@ -11,6 +11,7 @@ JAX package lowers with lax.  The CUDA kernel itself is held to the same
 plain version on the card by ``chip_smoke.py``.
 """
 import os
+import re
 
 import numpy as np
 import pytest
@@ -29,7 +30,7 @@ from mxnet_tpu_torch.ops import cuda_kernels as ck
 from mxnet_tpu_torch.ops import get_op as port_get_op
 from mxnet_tpu_torch.ops.registry import OpContext as PortOpContext
 
-from chip_smoke import flownetc_symbol
+from chip_smoke import CORR_CASES, FLOWNETC, PWCNET, flownetc_symbol
 
 
 def _numpy_correlation(an, bn, m, stride2, is_mult):
@@ -315,3 +316,240 @@ def test_flownetc_predictor_default_device_is_the_card(tmp_path):
     with pytest.raises(MXNetError):
         mt.Predictor(sym.tojson(), {}, {"img1": (1, 3, 32, 48),
                                         "img2": (1, 3, 32, 48)})
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's decomposition, mirrored on the CPU
+#
+# csrc/correlation.cu's host code picks an instance and its geometry; the
+# register-blocked instance's blocks, warps and lanes each own a fixed
+# slice of the output.  The mirror below reads the kernel's constants
+# from the source text, plans launches as ``rb_plan``/``lane_stride`` do,
+# and replays every thread of the register-blocked instance with torch:
+# the staged a tile and b window (zero outside the image and past C), the
+# values each thread reads from them, and the outputs it stores.
+
+def _cu_constants():
+    with open(os.path.join(ck._CSRC, ck.SOURCES["correlation"])) as f:
+        text = f.read()
+    found = dict((k, int(eval(v))) for k, v in re.findall(
+        r"^constexpr int (k\w+) = ([0-9 *]+);", text, re.M))
+    for key in ("kTH", "kTW", "kAcc", "kChunk", "kFastStride", "kMaxSmem",
+                "kP", "kLanesX", "kS1J", "kS1Chunk", "kS1Warps", "kS2J",
+                "kS2Chunk", "kS2Warps"):
+        assert key in found, key
+    return found
+
+
+K = _cu_constants()
+
+
+def _runs(d2, s2, j):
+    jg = -(-d2 // j)
+    return jg if s2 == 1 else 2 * (-(-jg // 2))
+
+
+def _thread(warp, lane, d2, s2, j):
+    """(il, j0, ty, xoff) of a thread, as rb_thread places it."""
+    runs, ty = _runs(d2, s2, j), lane // K["kLanesX"]
+    if s2 == 1:
+        return warp // runs, (warp % runs) * j, ty, \
+            (lane % K["kLanesX"]) * K["kP"]
+    pairs, w = runs // 2, warp % runs
+    return warp // runs, (2 * (w % pairs) + (lane // 2) % 2) * j, ty, \
+        (w // pairs) * K["kP"] * 2 + lane % 2
+
+
+def _lane_stride(width, s2, j, b_reads):
+    step = 4 if s2 == 2 else 1
+    first = -(-width // step) * step
+    for r in range(first, first + 64, step):
+        addrs = set()
+        for lane in range(32):
+            il, j0, ty, xoff = _thread(0, lane, 2 * j, s2, j)
+            addrs.add(ty * r + xoff + (j0 * s2 if b_reads else 0))
+        if len({x % 32 for x in addrs}) == len(addrs):
+            return r
+    return first
+
+
+def _rb_plan(d2, ng, s2, w=None):
+    """The register-blocked geometry, or None where the general instance
+    runs (stride2 above 2, or stride2 2 at a width W % 4 != 0, where
+    16-byte copies cannot run)."""
+    if s2 not in (1, 2) or (s2 == 2 and w is not None and w % 4):
+        return None
+    j = K["kS%dJ" % s2]
+    warps, chunk = K["kS%dWarps" % s2], K["kS%dChunk" % s2]
+    runs = _runs(d2, s2, j)
+    if runs > warps:
+        return None
+    shift = (-ng * s2) % 4
+    ra = _lane_stride(K["kTW"], s2, j, False)
+    wcols = -(-(shift + K["kTW"] + (runs * j - 1) * s2) // 4) * 4
+    rb = _lane_stride(wcols, s2, j, True)
+    for cap in range(warps // runs, 0, -1):
+        n_igroups = -(-d2 // cap)
+        ni = -(-d2 // n_igroups)
+        wrows = K["kTH"] + (ni - 1) * s2
+        nbytes = 2 * 4 * chunk * (K["kTH"] * ra + wrows * rb)
+        if nbytes <= K["kMaxSmem"]:
+            return dict(j=j, runs=runs, ni=ni, n_igroups=n_igroups, ra=ra,
+                        rb=rb, wrows=wrows, wcols=wcols,
+                        threads=32 * ni * runs, bytes=nbytes, chunk=chunk)
+    return None
+
+
+def _launch_plan(n, c, h, w, m, s2):
+    """(instance, grid, threads, shared bytes) as mxtt_correlation
+    launches them."""
+    ng, d2 = ck.correlation_geometry(m, s2)
+    gx, gy = -(-w // K["kTW"]), -(-h // K["kTH"])
+    pl = _rb_plan(d2, ng, s2, w)
+    if pl is not None:
+        return "rb", (gx, gy, n * pl["n_igroups"]), pl["threads"], \
+            pl["bytes"]
+    dd, acc = d2 * d2, K["kAcc"]
+    n_groups = -(-dd // acc)
+    window = 0
+    for g in range(n_groups):
+        d0, nd = g * acc, min(acc, dd - g * acc)
+        rows = K["kTH"] + ((d0 + nd - 1) // d2 - d0 // d2) * s2
+        cols = (K["kTW"] + (d2 - 1) * s2 + 6) // 4 * 4
+        window = max(window, rows * cols)
+    stride = K["kFastStride"] if window <= K["kFastStride"] else window
+    threads = K["kTH"] * K["kTW"]
+    return "general", (gx, gy, n * n_groups), threads, \
+        2 * 4 * K["kChunk"] * (threads + stride)
+
+
+def _emulate_rb(a, b, m, s2, is_multiply):
+    """Every thread of the register-blocked instance, replayed: returns the
+    output and how many times each element was stored."""
+    n, c, h, w = a.shape
+    ng, d2 = ck.correlation_geometry(m, s2)
+    pl = _rb_plan(d2, ng, s2)
+    th, tw, p_n, j_n = K["kTH"], K["kTW"], K["kP"], pl["j"]
+    c_pad = -(-c // pl["chunk"]) * pl["chunk"]      # zero past C
+    out = torch.full((n, d2 * d2, h, w), float("nan"))
+    stores = torch.zeros((n, d2 * d2, h, w), dtype=torch.int32)
+
+    def staged(img, y0, x0, rows, cols):
+        """rows x cols of img from (y0, x0), zero outside the image."""
+        win = torch.zeros((c_pad, rows, cols))
+        ys, xs = max(y0, 0), max(x0, 0)
+        ye, xe = min(y0 + rows, h), min(x0 + cols, w)
+        if ys < ye and xs < xe:
+            win[:c, ys - y0:ye - y0, xs - x0:xe - x0] = img[:, ys:ye, xs:xe]
+        return win
+
+    p = torch.arange(p_n)
+    jj = torch.arange(j_n)
+    for bz in range(n * pl["n_igroups"]):
+        nn, i_first = bz // pl["n_igroups"], (bz % pl["n_igroups"]) * pl["ni"]
+        for by in range(-(-h // th)):
+            for bx in range(-(-w // tw)):
+                y0, x0 = by * th, bx * tw
+                wx0 = (x0 - ng * s2) // 4 * 4     # 16-byte aligned origin
+                shift = x0 - ng * s2 - wx0
+                at = staged(a[nn], y0, x0, th, tw)
+                bw = staged(b[nn], y0 + (i_first - ng) * s2, wx0,
+                            pl["wrows"], pl["wcols"])
+                for warp in range(pl["threads"] // 32):
+                    il, j0, ty, xoff = (torch.tensor(v) for v in zip(*[
+                        _thread(warp, lane, d2, s2, j_n)
+                        for lane in range(32)]))
+                    # a[ty, xoff + p s2]; b[ty + il s2, shift + xoff +
+                    # (j0 + p + j) s2]
+                    av = at[:, ty[:, None], xoff[:, None] + p * s2]
+                    bq = bw[:, (ty + il * s2)[:, None, None],
+                            shift + xoff[:, None, None] +
+                            (j0[:, None, None] + p[:, None] + jj) * s2]
+                    acc = torch.zeros((32, p_n, j_n))
+                    for ci in range(c_pad):               # channel order
+                        prod = av[ci][:, :, None] * bq[ci] if is_multiply \
+                            else (av[ci][:, :, None] - bq[ci]).abs()
+                        acc = acc + prod
+                    for lane in range(32):
+                        i, y = i_first + int(il[lane]), y0 + int(ty[lane])
+                        for pp in range(p_n):
+                            x = x0 + int(xoff[lane]) + pp * s2
+                            for j in range(j_n):
+                                jd = int(j0[lane]) + j
+                                if i < d2 and y < h and x < w and jd < d2:
+                                    out[nn, i * d2 + jd, y, x] = \
+                                        acc[lane, pp, j] / c
+                                    stores[nn, i * d2 + jd, y, x] += 1
+    return out, stores
+
+
+# (id, N, C, H, W, m, stride2): FlowNetC's geometry at narrow C, PWC-Net's,
+# ragged edges with s2 not dividing m, m = 0, a tall one-channel map, and
+# a wide window (31 x 31 displacements)
+RB_CASES = [("flownetc-narrow", 1, 3, 16, 40, 20, 2),
+            ("pwcnet-narrow", 1, 3, 12, 40, 4, 1),
+            ("ragged-m3s2", 2, 5, 7, 44, 3, 2),
+            ("m0", 1, 2, 5, 5, 0, 1),
+            ("c1-tall", 1, 1, 67, 3, 2, 1),
+            ("wide-window-s2", 1, 2, 10, 36, 30, 2)]
+
+
+@pytest.mark.parametrize("is_mult", [True, False])
+@pytest.mark.parametrize("case", RB_CASES, ids=[c[0] for c in RB_CASES])
+def test_register_blocked_decomposition_matches_reference(case, is_mult):
+    _id, n, c, h, w, m, s2 = case
+    rng = np.random.RandomState(len(_id) + 10 * is_mult)
+    an = rng.rand(n, c, h, w).astype(np.float32)
+    bn = rng.rand(n, c, h, w).astype(np.float32)
+    got, stores = _emulate_rb(torch.from_numpy(an), torch.from_numpy(bn),
+                              m, s2, is_mult)
+    assert int(stores.min()) == int(stores.max()) == 1   # each output once
+    ref = ck.correlation_reference(torch.from_numpy(an), torch.from_numpy(bn),
+                                   m, s2, is_mult)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=1e-5)
+    want = pallas_corr(jnp.asarray(an), jnp.asarray(bn), m, s2, is_mult,
+                       interpret=True)
+    if want is not None:                     # the TPU kernel's D2^2 <= 169
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-5)
+    else:
+        np.testing.assert_allclose(
+            got.numpy(), _numpy_correlation(an, bn, m, s2, is_mult),
+            rtol=0, atol=1e-5)
+
+
+def test_flownetc_instance_blocks_registers_and_groups():
+    ng, d2 = ck.correlation_geometry(FLOWNETC["m"], FLOWNETC["s2"])
+    pl = _rb_plan(d2, ng, FLOWNETC["s2"])
+    assert K["kP"] >= 4 and pl["j"] >= 4
+    assert pl["n_igroups"] <= 3 and pl["threads"] <= 1024
+    # shared words read per multiply-add, a thread and a channel
+    assert (K["kP"] + K["kP"] + pl["j"] - 1) / (K["kP"] * pl["j"]) < 0.4
+    ng, d2 = ck.correlation_geometry(PWCNET["m"], PWCNET["s2"])
+    pw = _rb_plan(d2, ng, PWCNET["s2"])
+    assert pw["n_igroups"] <= 2 and pw["j"] * pw["runs"] >= 9
+
+
+@pytest.mark.parametrize("s2", [1, 2])
+def test_lane_strides_hit_distinct_banks(s2):
+    j = K["kS%dJ" % s2]
+    for width in (32, 40, 58, 74, 100):
+        for b_reads in (False, True):
+            r = _lane_stride(width, s2, j, b_reads)
+            assert width <= r < width + 8 and r % (4 if s2 == 2 else 1) == 0
+            addrs = set()
+            for lane in range(32):
+                il, j0, ty, xoff = _thread(0, lane, 2 * j, s2, j)
+                addrs.add(ty * r + xoff + (j0 * s2 if b_reads else 0))
+            assert len({x % 32 for x in addrs}) == len(addrs)
+
+
+@pytest.mark.parametrize("name,g", CORR_CASES, ids=[c[0] for c in CORR_CASES])
+def test_launch_plans_fit_the_card(name, g):
+    inst, grid, threads, nbytes = _launch_plan(g["n"], g["c"], g["h"],
+                                               g["w"], g["m"], g["s2"])
+    assert inst == ("rb" if g["s2"] == 1 or g["s2"] == 2 and g["w"] % 4 == 0
+                    else "general")
+    assert nbytes <= 227 * 1024 == K["kMaxSmem"]
+    assert max(grid[1:]) <= 65535 and grid[0] < 2 ** 31
+    assert 32 <= threads <= 1024 and threads % 32 == 0

@@ -6,7 +6,7 @@ inference and outputs.  Tolerances: float32 ops whose sums run in other
 orders (matmul, convolution, pooling sums, softmax) agree to 1e-5
 relative and absolute on O(1) values; pure elementwise and selection ops
 (relu, max pooling, flatten, dropout at inference) agree to 1e-6; int8
-codes are compared for equality on integer-valued inputs.
+codes and integer max pooling are compared for equality.
 """
 import zlib
 
@@ -73,6 +73,13 @@ CASES = [
     ("pool-max-pad", "Pooling", {"kernel": (3, 3), "stride": (2, 2),
                                  "pad": (1, 1)},
      lambda r: [_u(r, (2, 3, 9, 8))], 1e-6),
+    # integer max pooling pads with the type's least value, as the
+    # reference does (-inf has no int32 form)
+    ("pool-max-pad-int32", "Pooling", {"kernel": (3, 3), "pad": (1, 1)},
+     lambda r: [r.randint(-50, 50, (1, 2, 4, 4)).astype(np.int32)], 0.0),
+    ("pool-max-global-int32", "Pooling", {"kernel": (1, 1),
+                                          "global_pool": True},
+     lambda r: [r.randint(-50, 50, (2, 3, 5, 6)).astype(np.int32)], 0.0),
     ("pool-avg-pad", "Pooling", {"kernel": (3, 3), "pool_type": "avg",
                                  "pad": (1, 1)},
      lambda r: [_u(r, (2, 3, 7, 7))], 1e-5),

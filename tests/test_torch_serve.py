@@ -155,7 +155,7 @@ def test_serve_engine_parity_with_jax(tmp_path):
 
 def test_port_imports_no_jax():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serve, "
-            "mxnet_tpu_torch.ops.cuda_kernels, chip_smoke, attention_ab\n"
+            "mxnet_tpu_torch.ops.cuda_kernels, chip_smoke, kernel_ab\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')]\n"
@@ -176,7 +176,7 @@ def test_chip_smoke_fails_without_a_card():
 def test_attention_ab_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    proc = subprocess.run([sys.executable, "attention_ab.py"], cwd=ROOT,
+    proc = subprocess.run([sys.executable, "kernel_ab.py"], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and "paged_ms" not in proc.stdout
 

@@ -101,6 +101,85 @@ def test_params_file_port_to_jax(tmp_path):
     assert _same(mx.nd.load(fname)[0].asnumpy(), arrays["w32"])
 
 
+# The reference runs with jax's 64-bit types off: its arrays narrow int64
+# to int32 and float64 to float32, and the port's do the same.
+NARROW_CASES = [("int64", np.int64, np.int32),
+                ("float64", np.float64, np.float32)]
+
+
+@pytest.mark.parametrize("name,wide,narrow", NARROW_CASES,
+                         ids=[c[0] for c in NARROW_CASES])
+def test_64bit_arrays_narrow_as_in_the_reference(name, wide, narrow):
+    src = (np.arange(-6, 6) * 3).reshape(3, 4).astype(wide)
+    for make in (lambda pkg, **kw: pkg.nd.array(src, dtype=wide, **kw),
+                 lambda pkg, **kw: pkg.nd.zeros((3, 4), dtype=wide, **kw),
+                 lambda pkg, **kw: pkg.nd.empty((3, 4), dtype=wide, **kw)):
+        want = make(mx)
+        got = make(mt, ctx=mt.cpu())
+        assert want.dtype == got.dtype == np.dtype(narrow)
+        assert got.asnumpy().dtype == want.asnumpy().dtype
+    np.testing.assert_array_equal(mt.nd.array(src, ctx=mt.cpu(),
+                                              dtype=wide).asnumpy(),
+                                  np.asarray(mx.nd.array(src, dtype=wide)
+                                             .asnumpy()))
+    t = mt.nd.array(torch.from_numpy(src), ctx=mt.cpu(), dtype=wide)
+    assert t._get().dtype == mt.nd.torch_dtype(narrow)
+
+
+def _write_mxtpu001(fname, names, arrays):
+    """An NDArray file (ndarray.py's MXTPU001 layout) holding the arrays
+    in their own numpy dtypes, as a writer with 64-bit types on makes."""
+    import io
+    import pickle
+    import struct
+    blob = io.BytesIO()
+    np.savez(blob, *arrays)
+    meta = pickle.dumps({"names": names,
+                         "dtypes": [a.dtype.name for a in arrays]})
+    with open(fname, "wb") as f:
+        f.write(b"MXTPU001" + struct.pack("<Q", len(meta)) + meta +
+                blob.getvalue())
+
+
+def test_64bit_file_loads_narrowed_as_in_the_reference(tmp_path):
+    rng = np.random.RandomState(11)
+    arrays = [rng.randint(-2 ** 30, 2 ** 30, (4, 5)).astype(np.int64),
+              rng.randn(3, 2).astype(np.float64),
+              rng.randn(2).astype(np.float32)]
+    fname = str(tmp_path / "wide.params")
+    _write_mxtpu001(fname, ["ids", "w64", "w32"], arrays)
+    want = mx.nd.load(fname)
+    got = mt.nd.load(fname, ctx=mt.cpu())
+    assert list(got) == list(want) == ["ids", "w64", "w32"]
+    for k in want:
+        w, g = want[k].asnumpy(), got[k].asnumpy()
+        assert g.dtype == w.dtype, k
+        np.testing.assert_array_equal(g, w)
+    assert got["ids"].dtype == np.int32 and got["w64"].dtype == np.float32
+    with open(fname, "rb") as f:
+        blob = f.read()
+    assert mt.nd.loads(blob, ctx=mt.cpu())["ids"].dtype == np.int32
+
+
+def test_fully_connected_on_float64_gives_float32_in_both(tmp_path):
+    rng = np.random.RandomState(12)
+    feed = {"data": rng.randn(3, 10), "fc_weight": rng.randn(4, 10) * 0.3,
+            "fc_bias": rng.randn(4)}
+    types = {k: np.float64 for k in feed}
+    outs = []
+    for pkg, ctx in ((mx, mx.cpu()), (mt, mt.cpu())):
+        sym = pkg.sym.FullyConnected(pkg.sym.Variable("data"),
+                                     num_hidden=4, name="fc")
+        ex = sym.simple_bind(ctx, grad_req="null", type_dict=types,
+                             data=(3, 10))
+        for k, v in feed.items():
+            ex.arg_dict[k][:] = pkg.nd.array(v, ctx=ctx, dtype=np.float64)
+        outs.append(ex.forward(is_train=False)[0].asnumpy())
+    want, got = outs
+    assert want.dtype == got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
 def test_checkpoint_pair_both_directions(tmp_path):
     sym_j = mx.models.get_mlp()
     shapes = sym_j.infer_shape(data=(2, 784))[0]
