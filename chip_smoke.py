@@ -11,20 +11,36 @@ Phases, in order; any failure exits nonzero:
    with nvcc for sm_90a;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes and at ragged ones, with the tolerance each
-   case states; kernel, plain version and one library call timed;
+   case states; kernel, plain version and one library call timed; then
+   the int8 route (``torch._int_mm``, with im2col for convolutions)
+   bitwise against its float64 plain version at VGG-16's conv1_1, conv5_3
+   and fc6 and at codes near +127 whose sums pass 2^24, and timed against
+   float32 ``F.conv2d``/``addmm`` at every VGG-16 layer shape;
 4. serve VGG-16 at full width (224x224x3, 1000 classes, 138 M float32
    parameters from a numpy seed): checkpoint pair -> ServeEngine with the
-   fused serving pipeline on the default device -> 32 requests from 4
-   client threads, each answer held against an unfused Predictor, the
-   kernels' launch counts read around exactly this run;
-5. paged_attention against its plain version at the LLM path's shapes
+   fused serving pipeline on the default device -> 32 requests (uint8
+   images normalized on the host) from 4 client threads, each answer held
+   against an unfused Predictor, the kernels' launch counts read around
+   exactly this run;
+5. the same checkpoint and images on the uint8 wire through three more
+   engines, each 32 requests from 4 threads with requests/s, p50/p99, the
+   launch and int8-route counts read around the run and a profile of a
+   bucket-8 forward: ``quantize="int8"`` calibrated on the card over 16
+   images (13 + 2 fused int8 nodes, out_scale on 9, 0 fc kernel
+   launches; the int8 outputs of two samples bitwise equal to the CPU's
+   run of the same table), ``quantize={"calib": table, "skip":
+   ("fc6",)}`` (one fc kernel launch a batch, its int8 codes against
+   requantize() of its float output and against the plain version), and
+   ``quantize="float16"`` (finite answers); top-1 agreement with phase 4
+   printed, not gated;
+6. paged_attention against its plain version at the LLM path's shapes
    (16 slots, 12 heads of 64, 16-token blocks, C = 1, 9, 32, contexts
    over 1..1024, scattered page tables), at ragged ones, at the edges
    of the split-K partitions and in decode at D 128, 32 and 10; bitwise
    layout invariance and two calls bitwise equal at C = 1, 9, 32 (and at
    C = 1 for D 128, 32, 10); kernel (split-K and one pass), plain version
    and gather + SDPA timed;
-6. serve an LM at GPT-2-small geometry (vocab 50257, dim 768, 12 heads,
+7. serve an LM at GPT-2-small geometry (vocab 50257, dim 768, 12 heads,
    12 layers, context 1024; 124 M float32 parameters from a numpy seed)
    through PagedDecodeEngine on the default device: 32 mixed-length
    streams from 4 client threads through the paged engine, the
@@ -32,11 +48,11 @@ Phases, in order; any failure exits nonzero:
    streams held equal; teacher-forced logits of the kernel against the
    plain version; launch counts read around each engine run; a profile
    of one chunk-width step and one decode step;
-7. flash_attention against its plain version at the kernel search's shape
+8. flash_attention against its plain version at the kernel search's shape
    (B 4, T 1024, H 12, D 64; GPT-2 small's attention geometry), causal and
    not, at ragged T and D in {10, 16, 32, 64, 128}, and for every compiled
    tile instance at D in {16, 32, 64, 128}; bitwise repeatability;
-8. the kernel search path: ``mx.autotune.kernelsearch.search_flash(4, 1024,
+9. the kernel search path: ``mx.autotune.kernelsearch.search_flash(4, 1024,
    12, 64, causal=True)`` into a fresh store (every candidate gated, the
    shortlist measured, the winner persisted), a second identical search (a
    store hit: zero gate, featurize and measure calls, zero launches), then
@@ -44,19 +60,19 @@ Phases, in order; any failure exits nonzero:
    bitwise equal to the explicit-tile call; the launch count read around
    this path; kernel, plain version and F.scaled_dot_product_attention
    timed, and every tile;
-9. correlation against its plain version at FlowNetC's stage (N 8, C 256,
+10. correlation against its plain version at FlowNetC's stage (N 8, C 256,
    48x64, max displacement 20, stride2 2: 441 displacements), PWC-Net's
    cost volume (N 8, C 64, 56x128, 4, 1) and ragged shapes, both
    is_multiply; kernel and plain version timed;
-10. FlowNetC's correlation stage (Siamese conv tower sharing its weights,
+11. FlowNetC's correlation stage (Siamese conv tower sharing its weights,
    correlation, conv_redir, concat, conv3_1; 2.1 M float32 parameters from a
    numpy seed) as a checkpoint pair through ``Predictor`` on the default
    device at 8 x 384x512 image pairs: correlation launches equal to the
    forwards, output held against the port's CPU run of the same checkpoint,
    a profile of one forward;
-11. integer max pooling with padding on the card, equal to the CPU run;
-12. the ``kernels`` JSON line (all four kernels), then the
-   ``{"ok": true, ...}`` line.
+12. integer max pooling with padding on the card, equal to the CPU run;
+13. the engines' requests/s and p50/p99, the ``kernels`` JSON line (all
+   four kernels), then the ``{"ok": true, ...}`` line.
 """
 import json
 import math
@@ -90,6 +106,10 @@ EARLIER_FROM = "quoted: PERF.md Findings (kernel_ab.py), not this run"
 # correlation before its register-blocked design, at FlowNetC's shape
 # (multiply), timed by chip_smoke.py the same way (PERF.md, Findings)
 EARLIER_CORR_MS = {"flownetc": 0.6855}
+
+# the uint8 wire of the int8 and float16 VGG-16 engines (ImageNet's mean
+# and spread of 8-bit pixels, roughly): x = (u8 - 117) / 58 in the graph
+U8_WIRE = {"mean": 117.0, "scale": 1 / 58.0, "hwc": True}
 
 REPLACES = {"fused_fc_epilogue": "mxnet_tpu/ops/pallas_kernels.py:347",
             "paged_attention": "mxnet_tpu/ops/pallas_kernels.py:262",
@@ -229,21 +249,23 @@ def kernel_phase(torch, ck):
 
     # int8 requantize: small integer x and W make every float32 sum exact,
     # and out_scale 2 puts odd sums on .5 ties; the codes must be equal
-    # (divide, round half to even, clamp)
-    for act in ("none", "relu"):
+    # (multiply by the float32 reciprocal, round half to even, clamp),
+    # also at scales whose reciprocal is inexact (0.7, 3)
+    for act, scale in (("none", 2.0), ("relu", 2.0), ("none", 0.7),
+                       ("relu", 3.0)):
         gi = torch.Generator(device=dev).manual_seed(7)
         x = torch.randint(-3, 4, (8, 512), generator=gi, device=dev).float()
         w = torch.randint(-2, 3, (64, 512), generator=gi, device=dev).float()
         b = torch.randint(-5, 6, (64,), generator=gi, device=dev).float()
-        q = ck.fused_fc_epilogue(x, w, b, act, out_scale=2.0)
-        qr = ck.fused_fc_epilogue_reference(x, w, b, act, out_scale=2.0)
+        q = ck.fused_fc_epilogue(x, w, b, act, out_scale=scale)
+        qr = ck.fused_fc_epilogue_reference(x, w, b, act, out_scale=scale)
         torch.cuda.synchronize()
         sums = torch.matmul(x.double(), w.double().t()) + b.double()
-        ties = int((sums.remainder(2.0) == 1.0).sum().item())
+        ties = int((sums.remainder(scale) == scale / 2).sum().item())
         same = bool(torch.equal(q, qr)) and q.dtype == torch.int8
-        print("kernel check int8-%-11s codes equal=%s (%d of %d sums on a "
-              ".5 tie, %d codes clamped)" % (
-                  act, same, ties, q.numel(),
+        print("kernel check int8-%-4s scale %-4g codes equal=%s (%d of %d "
+              "sums on a .5 tie, %d codes clamped)" % (
+                  act, scale, same, ties, q.numel(),
                   int((qr.abs() == 127).sum().item())))
         if not same:
             fail("int8 %s: codes differ at %d places" % (
@@ -297,7 +319,16 @@ def xavier_params(sym, shapes, seed):
     return params
 
 
-def serve_phase(torch, mt, ck, image=224, classes=1000, n_requests=32,
+def wire_to_nchw(u8):
+    """A uint8 HWC wire image normalized on the host as the u8 wire
+    prologue normalizes it in the graph: float32 (x - mean) * scale, then
+    CHW."""
+    x = (u8.astype(np.float32) - np.float32(U8_WIRE["mean"])) * \
+        np.float32(U8_WIRE["scale"])
+    return np.ascontiguousarray(x.transpose(2, 0, 1))
+
+
+def serve_phase(torch, mt, ck, tmp, image=224, classes=1000, n_requests=32,
                 n_threads=4, seed=0):
     sym = mt.models.get_vgg(num_classes=classes)
     shapes = {"data": (1, 3, image, image), "softmax_label": (1,)}
@@ -306,20 +337,23 @@ def serve_phase(torch, mt, ck, image=224, classes=1000, n_requests=32,
     n_params = sum(v.size for v in params.values())
     print("serve: VGG-16 %dx%dx3, %d classes, %d parameters made in %.1f s"
           % (image, image, classes, n_params, time.perf_counter() - t0))
+    # requests are uint8 HWC images; this float32 engine gets them
+    # normalized on the host, the int8/float16 engines of the next phase
+    # get the same images on the uint8 wire
     rng = np.random.default_rng(seed + 1)
-    items = [rng.random((3, image, image), dtype=np.float32)
-             for _ in range(n_requests)]
-    with tempfile.TemporaryDirectory() as tmp:
-        prefix = os.path.join(tmp, "vgg16")
-        t0 = time.perf_counter()
-        mt.model.save_checkpoint(
-            prefix, 0, sym,
-            {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in params.items()}, {})
-        print("serve: checkpoint pair written in %.1f s"
-              % (time.perf_counter() - t0))
-        t0 = time.perf_counter()
-        engine = mt.serve.ServeEngine.from_checkpoint(
-            prefix, 0, shapes, fuse=True)
+    wire = [rng.integers(0, 256, (image, image, 3), dtype=np.uint8)
+            for _ in range(n_requests)]
+    items = [wire_to_nchw(u) for u in wire]
+    prefix = os.path.join(tmp, "vgg16")
+    t0 = time.perf_counter()
+    mt.model.save_checkpoint(
+        prefix, 0, sym,
+        {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in params.items()}, {})
+    print("serve: checkpoint pair written in %.1f s"
+          % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    engine = mt.serve.ServeEngine.from_checkpoint(prefix, 0, shapes,
+                                                  fuse=True)
     try:
         print("serve: engine built and warmed (buckets %s) in %.1f s"
               % (engine.buckets, time.perf_counter() - t0))
@@ -401,13 +435,17 @@ def serve_phase(torch, mt, ck, image=224, classes=1000, n_requests=32,
     profile_forward(torch, engine._predictor,
                     {"data": (8, 3, image, image), "softmax_label": (8,)},
                     np.stack(items[:8]))
-    return {"launches": launches, "batches": batches}
+    return {"launches": launches, "batches": batches, "prefix": prefix,
+            "answers": answers, "wire": wire, "rps": n_requests / wall,
+            "p50": report["latency_p50_ms"], "p99": report["latency_p99_ms"]}
 
 
-def device_profile(torch, step, reps=3):
+def device_profile(torch, step, reps=3, by_op=None):
     """Wall time of step() (synchronized, no profiler) and its device time
     by kernel from torch.profiler, per step: (wall_ms, device_ms, rows of
-    (ms, kernel name, launches))."""
+    (ms, kernel name, launches)).  A dict ``by_op`` is filled with the
+    device time per step of each top-level host op (the kernels it
+    launched, its nested ops' included)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step()
@@ -431,6 +469,11 @@ def device_profile(torch, step, reps=3):
         if t > 0:
             rows.append((t / 1e3 / reps, e.key, e.count // reps))
     rows.sort(reverse=True)
+    if by_op is not None:
+        for e in prof.events():
+            if e.device_type == DeviceType.CPU and e.cpu_parent is None:
+                by_op[e.name] = by_op.get(e.name, 0.0) + \
+                    e.device_time_total / 1e3 / reps
     return wall, sum(t for t, _, _ in rows), rows
 
 
@@ -453,26 +496,68 @@ def conv_group(name):
             "elementwise" if "elementwise" in name else "other")
 
 
-def profile_forward(torch, predictor, shapes, data, reps=3):
-    """Where one bucket-8 forward of the fused serving graph spends its
-    time: wall per forward (synchronized), device time by kernel from
+# top-level host ops of a serving forward -> what their kernels do: the
+# int8 route's im2col is a strided view copied by reshape, after
+# F.pad and a channels-last contiguous copy
+OP_GROUPS = {"aten::_int_mm": "int8 gemm",
+             "aten::reshape": "im2col+pad", "aten::contiguous": "im2col+pad",
+             "aten::pad": "im2col+pad", "aten::constant_pad_nd": "im2col+pad",
+             "aten::to": "dtype conversions",
+             "aten::_to_copy": "dtype conversions",
+             "aten::addcmul": "epilogue", "aten::mul": "epilogue",
+             "aten::add": "epilogue", "aten::sub": "epilogue",
+             "aten::relu": "epilogue", "aten::round": "epilogue",
+             "aten::clamp": "epilogue", "aten::full_like": "epilogue",
+             "aten::max_pool2d": "pooling", "aten::softmax": "other",
+             "aten::conv2d": "convolution", "aten::matmul": "matmul",
+             "aten::addmm": "matmul", "aten::linear": "matmul"}
+
+
+def int8_group(name):
+    """Kernel groups of an int8 forward: cuBLASLt's int8 GEMMs behind
+    torch._int_mm, the copies of the im2col route (patches, padding,
+    layouts), then the float groups."""
+    if "fc_epilogue" in name:
+        return "fc_epilogue"
+    if any(s in name for s in ("s8", "i8", "int8", "imma", "igemm")) and \
+            any(s in name for s in ("gemm", "xmma", "cutlass", "kernel")):
+        return "int8 gemm"
+    if "copy" in name or "pad" in name or "fill" in name:
+        return "copies"
+    return conv_group(name)
+
+
+def profile_forward(torch, predictor, shapes, data, reps=3,
+                    label="bucket-8 forward", classify=None):
+    """Where one bucket-8 forward of a serving graph spends its time:
+    wall per forward (synchronized), device time by kernel from
     torch.profiler, and the device's busy share of the wall time."""
     predictor.reshape(shapes)
     predictor.set_input("data", data)
-    wall, device, rows = device_profile(torch, predictor.forward, reps)
-    print("profile: bucket-8 forward %.3f ms wall (no profiler); device "
-          "time %.3f ms per forward, busy share %.3f"
-          % (wall, device, device / wall if wall else 0.0))
-    for t, key, _ in rows[:10]:
-        print("profile:   %8.3f ms  %5.1f%%  %s"
-              % (t, 100.0 * t / device if device else 0.0, key[:90]))
-    groups = print_groups(rows, device, lambda name: (
-        "fc_epilogue" if "fc_epilogue" in name else conv_group(name)))
+    by_op = {}
+    wall, device, rows = device_profile(torch, predictor.forward, reps,
+                                        by_op)
+    print("profile: %s %.3f ms wall (no profiler); device time %.3f ms per "
+          "forward, busy share %.3f"
+          % (label, wall, device, device / wall if wall else 0.0))
+    for t, key, n in rows[:12]:
+        print("profile:   %8.3f ms  %5.1f%%  x%-3d %s"
+              % (t, 100.0 * t / device if device else 0.0, n, key[:90]))
+    groups = print_groups(rows, device, classify or (lambda name: (
+        "fc_epilogue" if "fc_epilogue" in name else conv_group(name))))
+    ops = {}
+    for name, t in by_op.items():
+        group = OP_GROUPS.get(name, "other")
+        ops[group] = ops.get(group, 0.0) + t
+    print("profile: by host op: %s" % ", ".join(
+        "%s %.3f ms" % kv for kv in sorted(ops.items(), key=lambda kv: -kv[1])
+        if kv[1] > 0))
     gflop = conv_gflop(predictor.symbol, shapes)
     conv_ms = groups.get("convolution", 0.0)
-    print("profile: convolutions %.1f GFLOP per forward, %.1f TFLOP/s over "
-          "their device time (float32 peak 67)"
-          % (gflop, gflop / conv_ms if conv_ms else 0.0))
+    if conv_ms:
+        print("profile: convolutions %.1f GFLOP per forward, %.1f TFLOP/s "
+              "over their device time (peaks: float32 67, float16 dense "
+              "989)" % (gflop, gflop / conv_ms))
 
 
 def conv_gflop(symbol, shapes):
@@ -490,7 +575,460 @@ def conv_gflop(symbol, shapes):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: paged_attention against its plain version
+# phase 3 (continued), int8 route: torch._int_mm (and im2col) against its float64 plain version
+
+# VGG-16's convolutions at 224x224: (name, C, H=W, O)
+VGG_CONVS = [("conv1_1", 3, 224, 64), ("conv1_2", 64, 224, 64),
+             ("conv2_1", 64, 112, 128), ("conv2_2", 128, 112, 128),
+             ("conv3_1", 128, 56, 256), ("conv3_2", 256, 56, 256),
+             ("conv3_3", 256, 56, 256), ("conv4_1", 256, 28, 512),
+             ("conv4_2", 512, 28, 512), ("conv4_3", 512, 28, 512),
+             ("conv5_1", 512, 14, 512), ("conv5_2", 512, 14, 512),
+             ("conv5_3", 512, 14, 512)]
+VGG_FCS = [("fc6", 25088, 4096), ("fc7", 4096, 4096)]
+
+
+def int8_route_phase(torch, i8, batch=8):
+    """The int8 route (ops/int8.py) on the card, bitwise against its
+    float64 plain version: VGG-16's conv1_1 (K 27, padded to 32) and
+    conv5_3 (K 4608) at bucket 8, fc6 at M 1 and 8, and an adversarial
+    case of codes near +127 whose sums pass 2^24, where float32 sums
+    are not exact.  Then the route against float32 F.conv2d / addmm (TF32
+    off) at every VGG-16 layer shape, bucket 8."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(77)
+
+    def codes(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+
+    conv_args = ((1, 1), (1, 1), (1, 1))
+    cases = []
+    for name, c, hw, o in (VGG_CONVS[0], VGG_CONVS[-1]):
+        cases.append(("conv", name, codes((batch, c, hw, hw)),
+                      codes((o, c, 3, 3))))
+    for m in (1, batch):
+        cases.append(("fc", "fc6-M%d" % m, codes((m, 25088)),
+                      codes((4096, 25088))))
+    # adversarial: 80 % of the codes are +127, the rest random, so the
+    # sums reach 5e7 > 2^24 with odd low bits
+    near = []
+    for shape in ((batch, 512, 14, 14), (512, 512, 3, 3)):
+        t = torch.full(shape, 127, dtype=torch.int8, device=dev)
+        mask = torch.rand(shape, generator=gen, device=dev) < 0.2
+        t[mask] = codes(shape)[mask]
+        near.append(t)
+    cases.append(("conv", "all-127-past-2^24", near[0], near[1]))
+    for kind, name, x, w in cases:
+        i8.reset_route_calls()
+        got = i8.int8_conv2d(x, w, *conv_args) if kind == "conv" else \
+            i8.int8_matmul(x, w)
+        calls = dict(i8.ROUTE_CALLS)
+        want = i8.int8_conv2d_reference(x, w, *conv_args) if kind == "conv" \
+            else i8.int8_matmul_reference(x, w)
+        torch.cuda.synchronize()
+        same = got.dtype == torch.int32 and bool(torch.equal(got, want))
+        peak = int(want.abs().max().item())
+        extra = ""
+        if name.startswith("all-127"):
+            f32 = torch.nn.functional.conv2d(x.float(), w.float(), padding=1)
+            extra = ", float32 F.conv2d differs at %d of %d outputs" % (
+                int((f32.double() != want.double()).sum().item()),
+                want.numel())
+            if peak <= 2 ** 24:
+                fail("int8 route: the adversarial case stays below 2^24")
+        print("int8 route check %-18s %s x %s: equal to float64=%s, "
+              "max |sum| %d (2^24 = %d), route calls %s%s"
+              % (name, tuple(x.shape), tuple(w.shape), same, peak, 2 ** 24,
+                 calls, extra))
+        if not same:
+            fail("int8 route %s differs from its float64 plain version at "
+                 "%d places" % (name, int((got != want).sum().item())))
+        if calls["int_mm"] < 1:
+            fail("int8 route %s did not call torch._int_mm" % name)
+    del cases, near
+
+    flush = torch.zeros(256 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    rows = []
+    for name, c, hw, o in VGG_CONVS:
+        x, w = codes((batch, c, hw, hw)), codes((o, c, 3, 3))
+        xf, wf = x.float(), w.float()
+        rows.append({
+            "layer": name, "M": batch * hw * hw, "K": 9 * c, "N": o,
+            "route_ms": time_ms(torch, lambda: i8.int8_conv2d(
+                x, w, *conv_args), flush),
+            "float32_ms": time_ms(torch, lambda: torch.nn.functional.conv2d(
+                xf, wf, padding=1), flush)})
+    for name, k, n in VGG_FCS:
+        x, w = codes((batch, k)), codes((n, k))
+        xf, wf = x.float(), w.float()
+        bias = torch.zeros(n, device=dev)
+        rows.append({
+            "layer": name, "M": batch, "K": k, "N": n,
+            "route_ms": time_ms(torch, lambda: i8.int8_matmul(x, w), flush),
+            "float32_ms": time_ms(torch, lambda: torch.addmm(
+                bias, xf, wf.t()), flush)})
+    del flush
+    for r in rows:
+        print("int8 route time %s" % json.dumps(r))
+    total = {k: sum(r[k] for r in rows) for k in ("route_ms", "float32_ms")}
+    print("int8 route time: all 13 convolutions and fc6 + fc7 at bucket 8: "
+          "route %.3f ms, float32 %.3f ms" % (total["route_ms"],
+                                              total["float32_ms"]))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 5: int8 and float16 VGG-16 serving (quantize, then fuse)
+
+def serve_burst(engine, items, n_threads=4):
+    """items from n_threads client threads; -> (answers, wall seconds)."""
+    answers = [None] * len(items)
+    errors = []
+
+    def client(idx):
+        try:
+            futs = [(i, engine.submit(items[i]))
+                    for i in range(idx, len(items), n_threads)]
+            for i, f in futs:
+                answers[i] = f.result(timeout=300)
+        except Exception as e:              # reported below, fails the run
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail("client errors: %s" % errors)
+    return answers, wall
+
+
+def graph_census(symbol):
+    """(op counts, {weight name: out_scale} of the fused matmul/conv
+    nodes with an int8 epilogue, the fused nodes)."""
+    nodes = json.loads(symbol.tojson())["nodes"]
+    ops = {}
+    for n in nodes:
+        if n["op"] != "null":
+            ops[n["op"]] = ops.get(n["op"], 0) + 1
+    fused = [n for n in nodes if n["op"].startswith("_fused_") and
+             n["op"] != "_fused_elemwise"]
+    scaled = {nodes[n["inputs"][1][0]]["name"]: float(n["param"]["out_scale"])
+              for n in fused if "out_scale" in n["param"]}
+    return ops, scaled, fused
+
+
+def run_internals(mt, symbol, params, data, ctx):
+    """Bind the internals of ``symbol`` on ``ctx`` (every param at its
+    dtype, uint8 data), forward ``data``; -> {output name: CPU tensor}."""
+    internals = symbol.get_internals()
+    td = {k: np.dtype(v.dtype) for k, v in params.items()}
+    td["data"] = np.uint8
+    ex = internals.simple_bind(ctx, grad_req="null", type_dict=td,
+                               data=data.shape,
+                               softmax_label=(data.shape[0],))
+    ex.copy_params_from(params, {}, allow_extra_params=True)
+    ex.arg_dict["data"][:] = data
+    outs = ex.forward(is_train=False)
+    return {name: o._get().cpu() for name, o in
+            zip(internals.list_outputs(), outs)}
+
+
+def report_engine(name, engine, n, wall, batches, launches, routes, smi):
+    rep = engine.stats.report()
+    print("quant %s: %d requests in %.3f s = %.2f req/s; latency p50 %.3f "
+          "ms p99 %.3f ms; %d batches, bucket hits %s; launches %s; int8 "
+          "route calls %s; card %s"
+          % (name, n, wall, n / wall, rep["latency_p50_ms"],
+             rep["latency_p99_ms"], batches, rep["bucket_hits"], launches,
+             routes, smi))
+    return {"rps": n / wall, "p50": rep["latency_p50_ms"],
+            "p99": rep["latency_p99_ms"], "batches": batches,
+            "launches": launches, "routes": routes}
+
+
+def top1_agreement(answers, f32_answers):
+    agree = sum(int(np.argmax(a) == np.argmax(r))
+                for a, r in zip(answers, f32_answers))
+    err = max(float(np.abs(a - r).max()) for a, r in zip(answers,
+                                                         f32_answers))
+    return agree, err
+
+
+def quantized_serve_phase(torch, mt, ck, i8, served, tmp, smi, image=224,
+                          n_threads=4, n_fp16=32, seed=0):
+    """Phase 5: the same VGG-16 checkpoint through three more engines on
+    the uint8 wire: int8 (every conv and fc6/fc7), int8 with fc6 left
+    float (its fused fc kernel then emits the int8 codes fc7 reads), and
+    float16.  The int8 engines share one calibration table, computed by
+    the first on the card and saved."""
+    prefix, wire = served["prefix"], served["wire"]
+    n = len(wire)
+    shapes = {"data": (1, image, image, 3), "softmax_label": (1,)}
+    rng = np.random.default_rng(seed + 2)
+    calib = np.stack([rng.integers(0, 256, (image, image, 3),
+                                   dtype=np.uint8) for _ in range(16)])
+    results = {}
+
+    # (a) int8-default
+    t0 = time.perf_counter()
+    engine = mt.serve.ServeEngine.from_checkpoint(
+        prefix, 0, shapes, quantize="int8", calib_data=calib,
+        u8_wire=U8_WIRE, fuse=True)
+    try:
+        qpass = [p for p in engine.pipeline.passes
+                 if p.name == "quantize"][0]
+        table = qpass.calib
+        table_path = os.path.join(tmp, "vgg16-calib.json")
+        table.save(table_path)
+        print("quant int8-default: engine built, calibrated on the card "
+              "(%d tensors, %d batches of %d) and warmed in %.1f s; table "
+              "saved (digest %s)" % (len(table), table.num_batches,
+                                     engine.max_batch_size,
+                                     time.perf_counter() - t0,
+                                     table.digest()[:16]))
+        ops, scaled, _fused = graph_census(engine._predictor.symbol)
+        print("quant int8-default: serving graph ops %s" % json.dumps(ops))
+        print("quant int8-default: int8 epilogues (out_scale) on %s"
+              % sorted(k[:-len("_weight")] for k in scaled))
+        want_scaled = ["conv1_1", "conv2_1", "conv3_1", "conv3_2", "conv4_1",
+                       "conv4_2", "conv5_1", "conv5_2", "fc6"]
+        if ops.get("_fused_quantized_Convolution") != 13 or \
+                ops.get("_fused_quantized_FullyConnected") != 2 or \
+                ops.get("FullyConnected") != 1:
+            fail("int8-default graph: want 13 + 2 fused int8 nodes and fc8 "
+                 "float, got %s" % ops)
+        if sorted(k[:-len("_weight")] for k in scaled) != want_scaled:
+            fail("int8-default graph: out_scale on %s, want %s"
+                 % (sorted(scaled), want_scaled))
+        before = engine.stats.report()["batches"]
+        ck.reset_launches()
+        i8.reset_route_calls()
+        answers, wall = serve_burst(engine, wire, n_threads)
+        launches, routes = dict(ck.LAUNCHES), dict(i8.ROUTE_CALLS)
+        batches = engine.stats.report()["batches"] - before
+        results["int8-default"] = report_engine(
+            "int8-default", engine, n, wall, batches, launches, routes, smi)
+        if launches["fused_fc_epilogue"] != 0:
+            fail("int8-default launched fused_fc_epilogue %d times: no fc "
+                 "layer there is float with an int8 epilogue"
+                 % launches["fused_fc_epilogue"])
+        if routes != {"int_mm": 15 * batches, "im2col": 13 * batches}:
+            fail("int8-default: route calls %s for %d batches, want 15 "
+                 "_int_mm and 13 im2col a batch" % (routes, batches))
+        print("quant int8-default: route calls per batch: %d _int_mm (13 "
+              "conv + 2 fc), %d im2col; fused_fc_epilogue 0 (fc8 is float "
+              "FullyConnected, and no float fc layer feeds an int8 one)"
+              % (routes["int_mm"] // batches, routes["im2col"] // batches))
+        for a in answers:
+            if a is None or a.shape != (1000,) or not np.all(np.isfinite(a)):
+                fail("int8-default answer malformed: %r" % (a,))
+        agree, err = top1_agreement(answers, served["answers"])
+        print("quant int8-default: top-1 equal to the float32 engine's on "
+              "%d/%d (not gated: random weights), max abs softmax diff %.3g"
+              % (agree, n, err))
+
+        # codes: two samples at batch 1, card against CPU, one table
+        cpu_pipe = mt.passes.build_serving_pipeline(
+            quantize={"calib": mt.passes.CalibrationTable.load(table_path),
+                      "ops": ("FullyConnected", "Convolution")},
+            u8_wire=U8_WIRE, fuse=True, ctx=mt.cpu())
+        sym_json, params = mt.predictor.load_checkpoint_pair(prefix, 0)
+        t0 = time.perf_counter()
+        cpu_sym, cpu_params = cpu_pipe.run(mt.sym.load_json(sym_json),
+                                           params)
+        card_sym = engine._predictor.symbol
+        a_doc, b_doc = (json.loads(s.tojson()) for s in (card_sym, cpu_sym))
+        a_doc["attrs"].pop("__passes__")
+        b_doc["attrs"].pop("__passes__")
+        if a_doc != b_doc:
+            fail("int8-default: the CPU pipeline's graph differs from the "
+                 "card's")
+        card_params = dict(engine._predictor._arg_params)
+        int8_nodes = [nm + "_output" for nm, nd in
+                      ((x["name"], x) for x in a_doc["nodes"])
+                      if nd["op"].startswith("_fused_quantized")]
+        n_int8 = n_float = 0
+        float_diff = 0.0
+        for i in range(2):
+            x = wire[i][None]
+            got = run_internals(mt, card_sym, card_params, x, mt.gpu(0))
+            want = run_internals(mt, cpu_sym, cpu_params, x, mt.cpu())
+            for name in int8_nodes:
+                g, w_ = got[name], want[name]
+                if g.dtype == torch.int8:
+                    n_int8 += 1
+                    if not torch.equal(g, w_):
+                        fail("int8-default sample %d: %s codes differ from "
+                             "the CPU run at %d places" % (
+                                 i, name, int((g != w_).sum().item())))
+                else:
+                    n_float += 1
+                    float_diff = max(float_diff, float(
+                        (g.double() - w_.double()).abs().max().item()))
+            g, w_ = got["softmax_output"].numpy(), \
+                want["softmax_output"].numpy()
+            if not np.allclose(g, w_, rtol=1e-3, atol=1e-6) or \
+                    not np.allclose(answers[i], w_[0], rtol=1e-3, atol=1e-6):
+                fail("int8-default sample %d: softmax differs from the CPU "
+                     "run (max abs %.3g, served %.3g)" % (
+                         i, np.abs(g - w_).max(),
+                         np.abs(answers[i] - w_[0]).max()))
+        print("quant int8-default check: 2 samples at batch 1, card against "
+              "CPU with one table: %d int8 outputs of _fused_quantized_* "
+              "nodes bitwise equal; %d float outputs max abs diff %.3g; "
+              "softmax and served answers within rtol 1e-3 atol 1e-6 "
+              "(%.1f s)" % (n_int8, n_float, float_diff,
+                            time.perf_counter() - t0))
+        del cpu_params, got, want
+        profile_forward(
+            torch, engine._predictor,
+            {"data": (8, image, image, 3), "softmax_label": (8,)},
+            np.stack(wire[:8]), label="int8-default bucket-8 forward",
+            classify=int8_group)
+    finally:
+        engine.close()
+
+    # (b) int8-skip-fc6: fc6 float, its fused fc kernel emits fc7's codes
+    t0 = time.perf_counter()
+    engine = mt.serve.ServeEngine.from_checkpoint(
+        prefix, 0, shapes, u8_wire=U8_WIRE, fuse=True,
+        quantize={"calib": mt.passes.CalibrationTable.load(table_path),
+                  "skip": ("fc6",)})
+    try:
+        print("quant int8-skip-fc6: engine built and warmed in %.1f s"
+              % (time.perf_counter() - t0))
+        ops, scaled, fused = graph_census(engine._predictor.symbol)
+        print("quant int8-skip-fc6: serving graph ops %s" % json.dumps(ops))
+        fc_nodes = [f for f in fused if f["op"] == "_fused_FullyConnected"]
+        if len(fc_nodes) != 1 or "out_scale" not in fc_nodes[0]["param"]:
+            fail("int8-skip-fc6 graph: want one _fused_FullyConnected with "
+                 "out_scale, got %s" % [f["param"] for f in fc_nodes])
+        before = engine.stats.report()["batches"]
+        ck.reset_launches()
+        i8.reset_route_calls()
+        answers, wall = serve_burst(engine, wire, n_threads)
+        launches, routes = dict(ck.LAUNCHES), dict(i8.ROUTE_CALLS)
+        batches = engine.stats.report()["batches"] - before
+        results["int8-skip-fc6"] = report_engine(
+            "int8-skip-fc6", engine, n, wall, batches, launches, routes, smi)
+        if launches["fused_fc_epilogue"] != batches:
+            fail("int8-skip-fc6: fused_fc_epilogue launched %d times for %d "
+                 "batches, want 1 per batch" % (launches["fused_fc_epilogue"],
+                                                batches))
+        agree, err = top1_agreement(answers, served["answers"])
+        print("quant int8-skip-fc6: top-1 equal to the float32 engine's on "
+              "%d/%d (not gated), max abs softmax diff %.3g"
+              % (agree, n, err))
+        fc6_int8_check(torch, mt, ck, engine, fc_nodes[0],
+                       np.stack(wire[:8]))
+        profile_forward(
+            torch, engine._predictor,
+            {"data": (8, image, image, 3), "softmax_label": (8,)},
+            np.stack(wire[:8]), label="int8-skip-fc6 bucket-8 forward",
+            classify=int8_group)
+    finally:
+        engine.close()
+
+    # (c) float16
+    t0 = time.perf_counter()
+    engine = mt.serve.ServeEngine.from_checkpoint(
+        prefix, 0, shapes, quantize="float16", u8_wire=U8_WIRE, fuse=True)
+    try:
+        ops, _scaled, _fused = graph_census(engine._predictor.symbol)
+        print("quant float16: engine built and warmed in %.1f s; serving "
+              "graph ops %s" % (time.perf_counter() - t0, json.dumps(ops)))
+        before = engine.stats.report()["batches"]
+        ck.reset_launches()
+        i8.reset_route_calls()
+        answers, wall = serve_burst(engine, wire[:n_fp16], n_threads)
+        launches, routes = dict(ck.LAUNCHES), dict(i8.ROUTE_CALLS)
+        batches = engine.stats.report()["batches"] - before
+        results["float16"] = report_engine(
+            "float16", engine, n_fp16, wall, batches, launches, routes, smi)
+        bad = [i for i, a in enumerate(answers)
+               if a is None or a.shape != (1000,) or
+               not np.all(np.isfinite(a))]
+        if bad:
+            fail("float16: answers %s are not finite" % bad)
+        agree, err = top1_agreement(answers, served["answers"])
+        print("quant float16: all %d answers finite; top-1 equal to the "
+              "float32 engine's on %d/%d, max abs softmax diff %.3g"
+              % (n_fp16, agree, n_fp16, err))
+        profile_forward(
+            torch, engine._predictor,
+            {"data": (8, image, image, 3), "softmax_label": (8,)},
+            np.stack(wire[:8]), label="float16 bucket-8 forward")
+    finally:
+        engine.close()
+    return results
+
+
+def fc6_int8_check(torch, mt, ck, engine, node, data8):
+    """fc6's int8 epilogue on the path: the codes of the fused fc kernel
+    at bucket 8 against requantize() of its own float output (bitwise:
+    the same sums, then the same multiply and rounding) and against the
+    plain version (float32 sums in cuBLAS's order: a code may move by one
+    only where the value sits within the float tolerance of a rounding
+    tie).  Then the int8 epilogue's time beside the float one."""
+    sym = engine._predictor.symbol
+    nodes = json.loads(sym.tojson())["nodes"]
+    src = nodes[node["inputs"][0][0]]
+    in_name = src["name"] + ("_output" if src["op"] != "null" else "")
+    params = dict(engine._predictor._arg_params)
+    outs = run_internals(mt, sym, params, data8, mt.gpu(0))
+    dev = torch.device("cuda", 0)
+    x = outs[in_name].to(dev).reshape(data8.shape[0], -1).contiguous()
+    codes = outs[node["name"] + "_output"].to(dev)
+    w = params["fc6_weight"]._get().to(dev)
+    b = params["fc6_bias"]._get().to(dev)
+    s = float(node["param"]["out_scale"])
+    again = ck.fused_fc_epilogue(x, w, b, "relu", s)
+    y = ck.fused_fc_epilogue(x, w, b, "relu")
+    plain = ck.fused_fc_epilogue_reference(x, w, b, "relu", s)
+    y_plain = ck.fused_fc_epilogue_reference(x, w, b, "relu")
+    torch.cuda.synchronize()
+    if not (torch.equal(again, codes) and
+            torch.equal(ck.requantize(y, s), codes)):
+        fail("fc6 int8 epilogue: the kernel's codes differ from "
+             "requantize() of its float output")
+    diff = (codes.int() - plain.int()).abs()
+    # float tolerance of phase 3: 1e-4 * max(1, max|plain|), in code units
+    tol = 1e-4 * max(1.0, float(y_plain.abs().max().item())) * \
+        ck.reciprocal_f32(s)
+    frac = (y_plain.double() * ck.reciprocal_f32(s)).remainder(1.0)
+    near_tie = (frac - 0.5).abs() <= tol
+    moved = diff > 0
+    print("quant int8-skip-fc6 check: fc6 at M=%d K=%d N=%d, out_scale %.6g:"
+          " kernel codes equal requantize(kernel float output) bitwise; "
+          "against the plain version %d of %d codes equal, %d differ by 1 "
+          "(each within %.3g code units of a tie), max |d| %d"
+          % (x.shape[0], x.shape[1], w.shape[0], s,
+             int((~moved).sum().item()), codes.numel(),
+             int(moved.sum().item()), tol, int(diff.max().item())))
+    if int(diff.max().item()) > 1 or bool((moved & ~near_tie).any()):
+        fail("fc6 int8 epilogue: codes differ from the plain version away "
+             "from a rounding tie")
+    flush = torch.zeros(256 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    row = {"shape": "fc6", "M": x.shape[0], "K": x.shape[1], "N": w.shape[0],
+           "float_ms": time_ms(torch, lambda: ck.fused_fc_epilogue(
+               x, w, b, "relu"), flush),
+           "int8_ms": time_ms(torch, lambda: ck.fused_fc_epilogue(
+               x, w, b, "relu", s), flush),
+           "plain_int8_ms": time_ms(torch, lambda: ck.fused_fc_epilogue_reference(
+               x, w, b, "relu", s), flush),
+           "bound_int8_ms": fc_bound_ms(x, w, b, codes)}
+    del flush
+    print("kernel time fc6 int8 epilogue: %s" % json.dumps(row))
+
+
+# ---------------------------------------------------------------------------
+# phase 6: paged_attention against its plain version
 
 def engine_positions(np_lengths, c):
     """q_pos as the engine builds it: each slot's last min(c, length)
@@ -750,7 +1288,7 @@ def paged_kernel_phase(torch, ck):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: serve an LM at GPT-2-small geometry through PagedDecodeEngine
+# phase 7: serve an LM at GPT-2-small geometry through PagedDecodeEngine
 
 # GPT-2 small's published geometry (openai-community/gpt2 config.json:
 # n_embd 768, n_head 12, n_layer 12, n_positions 1024, vocab_size 50257);
@@ -1066,7 +1604,7 @@ def llm_phase(torch, ck):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: flash_attention against its plain version
+# phase 8: flash_attention against its plain version
 
 # the kernel search's shape: GPT-2 small's attention geometry
 # (openai-community/gpt2 config.json: n_head 12, n_embd 768 -> D 64,
@@ -1153,7 +1691,7 @@ def flash_kernel_phase(torch, ck):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the kernel search at GPT-2-small attention geometry
+# phase 9: the kernel search at GPT-2-small attention geometry
 
 def flash_search_phase(torch, mt, ck, trials=2):
     """search_flash into a fresh store, a second identical search (a store
@@ -1274,7 +1812,7 @@ def flash_search_phase(torch, mt, ck, trials=2):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: correlation against its plain version
+# phase 10: correlation against its plain version
 
 # FlowNetC's correlation stage (Dosovitskiy et al., FlowNet, ICCV 2015, sec.
 # 3 and Fig. 2; the released FlowNetC prototxt): 384x512 images through
@@ -1378,7 +1916,7 @@ def correlation_kernel_phase(torch, ck):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: FlowNetC's correlation stage through Predictor
+# phase 11: FlowNetC's correlation stage through Predictor
 
 FLOWNETC_IMAGE = (384, 512)
 # Tolerance of the served output against the same graph run by the port on
@@ -1523,7 +2061,7 @@ def flownetc_phase(torch, mt, ck, n=8, forwards=4, n_check=2, seed=0):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: integer max pooling with padding
+# phase 12: integer max pooling with padding
 
 def int_pool_phase(torch):
     """Pooling(max) pads integer inputs with the type's least value, as
@@ -1556,6 +2094,7 @@ def main():
     try:
         import mxnet_tpu_torch as mt
         from mxnet_tpu_torch.ops import cuda_kernels as ck
+        from mxnet_tpu_torch.ops import int8 as i8
     except ImportError as e:
         print("chip_smoke: cannot import mxnet_tpu_torch (%s); run it from "
               "the root of a checkout" % e, file=sys.stderr)
@@ -1592,39 +2131,50 @@ def main():
                 print("build %s:   %-40s registers %3d, spill bytes %d"
                       % (name, inst, nreg, spill))
 
-    # phase 3: kernels against their plain versions
+    # phase 3: kernels against their plain versions, and the int8 route
     fc = kernel_phase(torch, ck)
+    int8_route_phase(torch, i8)
 
-    # phase 4: the VGG-16 serving path
-    served = serve_phase(torch, mt, ck)
+    with tempfile.TemporaryDirectory() as tmp:
+        # phase 4: the VGG-16 serving path
+        served = serve_phase(torch, mt, ck, tmp)
 
-    # phase 5: paged_attention against its plain version
+        # phase 5: int8 and float16 VGG-16 serving on the uint8 wire
+        quant = quantized_serve_phase(torch, mt, ck, i8, served, tmp, smi)
+
+    # phase 6: paged_attention against its plain version
     paged = paged_kernel_phase(torch, ck)
 
-    # phase 6: the LLM serving path
+    # phase 7: the LLM serving path
     llm = llm_phase(torch, ck)
 
-    # phase 7: flash_attention against its plain version
+    # phase 8: flash_attention against its plain version
     flash = flash_kernel_phase(torch, ck)
 
-    # phase 8: the kernel search path
+    # phase 9: the kernel search path
     search = flash_search_phase(torch, mt, ck)
 
-    # phase 9: correlation against its plain version
+    # phase 10: correlation against its plain version
     corr = correlation_kernel_phase(torch, ck)
 
-    # phase 10: FlowNetC's correlation stage through Predictor
+    # phase 11: FlowNetC's correlation stage through Predictor
     flow = flownetc_phase(torch, mt, ck)
 
-    # phase 11: integer max pooling with padding, card against CPU
+    # phase 12: integer max pooling with padding, card against CPU
     int_pool_phase(torch)
 
-    # phase 12: results
+    # phase 13: results
+    engines = {"float32": served, **quant}
+    print("serve engines (VGG-16 224x224, 32 uint8 requests from 4 "
+          "threads, buckets 1..8; card %s): %s" % (smi, json.dumps(
+              {k: {m: v[m] for m in ("rps", "p50", "p99")}
+               for k, v in engines.items()})))
     kernels = [{
         "name": "fused_fc_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["fused_fc_epilogue"],
         "replaces": REPLACES["fused_fc_epilogue"],
-        "launches": served["launches"]["fused_fc_epilogue"],
+        "launches": served["launches"]["fused_fc_epilogue"]
+        + quant["int8-skip-fc6"]["launches"]["fused_fc_epilogue"],
         "max_abs_err": fc["max_abs_err"],
         "ms": fc["ms"], "plain_ms": fc["plain_ms"],
         "bound_ms": fc["bound_ms"], "bound_by": "bytes",
@@ -1663,7 +2213,10 @@ def main():
     if missing:
         fail("kernels not held against their plain versions: %s" % missing)
     print("kernel times: fused_fc_epilogue is one bucket-8 batch's fc6 + "
-          "fc7 launches; paged_attention is one C=1 plus one C=32 launch "
+          "fc7 launches (float32 out), its launches those of the float32 "
+          "VGG-16 run (2 a batch) plus the int8-skip-fc6 run (fc6 with the "
+          "int8 epilogue, 1 a batch; the int8-default run launches it 0 "
+          "times); paged_attention is one C=1 plus one C=32 launch "
           "at 16 slots x 12 heads x 64, contexts 1..1024; its launches "
           "are those of the paged, dense-stripe and speculative LM runs; "
           "flash_attention is one causal launch at B=4 T=1024 H=12 D=64 "

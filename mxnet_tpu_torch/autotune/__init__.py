@@ -11,9 +11,10 @@ flash-attention kernel's compiled tiles (:mod:`.kernelsearch`)::
 
 What waits: ``tune_superstep`` and ``tune_fit_joint`` for training
 (ROADMAP.md, queue 1 item 2), ``tune_serve_pipeline`` and
-``tune_serve_joint`` for the serving options (item 6), the fc and paged
-kernel searches for tile parameters in those kernels (item 11), and the
-profiler's autotune report (item 12).
+``tune_serve_joint`` over the serving options (item 11; the options
+themselves are in ``passes``), the fc and paged kernel searches for tile
+parameters in those kernels (item 11), and the profiler's autotune
+report (item 12).
 """
 from __future__ import annotations
 

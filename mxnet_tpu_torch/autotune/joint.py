@@ -18,7 +18,8 @@ shortlist (counterpart of ``mxnet_tpu/autotune/joint.py``).
    store.
 
 ``tune_fit_joint`` waits for training (ROADMAP.md, queue 1 item 2) and
-``tune_serve_joint`` for the quantize passes (item 6).
+``tune_serve_joint`` for item 11 (the quantize passes it searches over
+are in ``passes``).
 """
 from __future__ import annotations
 

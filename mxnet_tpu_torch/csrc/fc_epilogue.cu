@@ -1,7 +1,11 @@
 // Fully connected layer with its epilogue in one kernel:
 //
 //     out = act(x · Wᵀ + b)                      in x's dtype, or
-//     out = clamp(rint(act(x · Wᵀ + b) / s), ±127)   as int8 when s is given
+//     out = clamp(rint(act(x · Wᵀ + b) * r), ±127)   as int8 when r is given
+//
+// r is the float32 reciprocal of the requantize scale s, computed by the
+// wrapper: the reference's XLA rewrites y / s as y * (1/s), so the codes
+// follow that product.
 //
 // x (M, K), W (N, K), b (N,) or none; x and W in float32, float16 or
 // bfloat16, converted to float32 on load and summed in float32.  act is
@@ -109,7 +113,7 @@ template <typename TX, typename TW, typename TO>
 __global__ void __launch_bounds__(kWarps * 32)
 fc_epilogue_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
                    const float* __restrict__ bias, TO* __restrict__ out,
-                   int M, int N, int K, int act, float out_scale,
+                   int M, int N, int K, int act, float inv_scale,
                    bool vec_x, bool vec_w) {
   __shared__ __align__(16) float xs[2][kTileM][kTileK];
   const int warp = threadIdx.x >> 5;
@@ -221,9 +225,9 @@ fc_epilogue_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
   v = activate(v, act);
   TO* dst = out + (size_t)(m0 + my_r) * N + n;
   if constexpr (std::is_same<TO, int8_t>::value) {
-    // Divide (not multiply by the reciprocal) and round half to even, as
-    // the reference's jnp.round(y / out_scale) does.
-    const float q = fminf(fmaxf(rintf(v / out_scale), -127.f), 127.f);
+    // Multiply by the reciprocal and round half to even, as the
+    // reference's jnp.round(y / out_scale) computes after XLA's rewrite.
+    const float q = fminf(fmaxf(rintf(v * inv_scale), -127.f), 127.f);
     *dst = static_cast<int8_t>(q);
   } else {
     store(dst, v);
@@ -238,12 +242,12 @@ bool aligned4(const void* p, int K) {
 
 template <typename TX, typename TW, typename TO>
 cudaError_t launch(const void* x, const void* w, const float* bias, void* out,
-                   int M, int N, int K, int act, float out_scale,
+                   int M, int N, int K, int act, float inv_scale,
                    cudaStream_t stream) {
   const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
   fc_epilogue_kernel<TX, TW, TO><<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const TX*>(x), static_cast<const TW*>(w), bias,
-      static_cast<TO*>(out), M, N, K, act, out_scale, aligned4<TX>(x, K),
+      static_cast<TO*>(out), M, N, K, act, inv_scale, aligned4<TX>(x, K),
       aligned4<TW>(w, K));
   return cudaGetLastError();
 }
@@ -251,25 +255,25 @@ cudaError_t launch(const void* x, const void* w, const float* bias, void* out,
 template <typename TX, typename TW>
 cudaError_t launch_out(const void* x, const void* w, const float* bias,
                        void* out, int M, int N, int K, int act, int quantize,
-                       float out_scale, cudaStream_t stream) {
+                       float inv_scale, cudaStream_t stream) {
   if (quantize)
-    return launch<TX, TW, int8_t>(x, w, bias, out, M, N, K, act, out_scale,
+    return launch<TX, TW, int8_t>(x, w, bias, out, M, N, K, act, inv_scale,
                                   stream);
-  return launch<TX, TW, TX>(x, w, bias, out, M, N, K, act, out_scale, stream);
+  return launch<TX, TW, TX>(x, w, bias, out, M, N, K, act, inv_scale, stream);
 }
 
 template <typename TX>
 cudaError_t launch_w(int w_dtype, const void* x, const void* w,
                      const float* bias, void* out, int M, int N, int K,
-                     int act, int quantize, float out_scale,
+                     int act, int quantize, float inv_scale,
                      cudaStream_t stream) {
   switch (w_dtype) {
     case 0: return launch_out<TX, float>(x, w, bias, out, M, N, K, act,
-                                         quantize, out_scale, stream);
+                                         quantize, inv_scale, stream);
     case 1: return launch_out<TX, __half>(x, w, bias, out, M, N, K, act,
-                                          quantize, out_scale, stream);
+                                          quantize, inv_scale, stream);
     case 2: return launch_out<TX, __nv_bfloat16>(x, w, bias, out, M, N, K,
-                                                 act, quantize, out_scale,
+                                                 act, quantize, inv_scale,
                                                  stream);
     default: return cudaErrorInvalidValue;
   }
@@ -284,7 +288,7 @@ cudaError_t launch_w(int w_dtype, const void* x, const void* w,
 extern "C" int mxtt_fc_epilogue(const void* x, const void* w, const void* bias,
                                 void* out, int M, int N, int K, int x_dtype,
                                 int w_dtype, int act, int quantize,
-                                float out_scale, int device, void* stream) {
+                                float inv_scale, int device, void* stream) {
   if (M <= 0 || N <= 0 || K < 0 || act < kNone || act > kSoftrelu)
     return cudaErrorInvalidValue;
   int current = -1;
@@ -296,11 +300,11 @@ extern "C" int mxtt_fc_epilogue(const void* x, const void* w, const void* bias,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (x_dtype) {
     case 0: return launch_w<float>(w_dtype, x, w, b, out, M, N, K, act,
-                                   quantize, out_scale, s);
+                                   quantize, inv_scale, s);
     case 1: return launch_w<__half>(w_dtype, x, w, b, out, M, N, K, act,
-                                    quantize, out_scale, s);
+                                    quantize, inv_scale, s);
     case 2: return launch_w<__nv_bfloat16>(w_dtype, x, w, b, out, M, N, K,
-                                           act, quantize, out_scale, s);
+                                           act, quantize, inv_scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -30,12 +30,14 @@ import subprocess
 import threading
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from ..base import MXNetError, get_env
 from .nn import ACTIVATIONS
 
 __all__ = ["fused_fc_epilogue", "fused_fc_epilogue_reference", "requantize",
+           "reciprocal_f32",
            "paged_attention", "paged_attention_reference", "paged_partitions",
            "flash_attention", "flash_attention_reference", "FLASH_TILES",
            "correlation", "correlation_reference",
@@ -201,13 +203,22 @@ _FLOAT_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 INT8_QMAX = 127
 
 
+def reciprocal_f32(scale: float) -> float:
+    """``1 / scale`` as XLA folds it: both rounded to float32."""
+    return float(np.float32(1.0) / np.float32(scale))
+
+
 def requantize(y: torch.Tensor, out_scale: float) -> torch.Tensor:
-    """float -> int8 codes ``clamp(round_half_even(y / out_scale), ±127)``,
-    dividing elementwise as the reference does (a tensor-by-scalar
-    division may multiply by the reciprocal instead)."""
+    """float -> int8 codes ``clamp(round_half_even(y / out_scale), ±127)``
+    as the reference computes them: XLA rewrites the division by the
+    constant scale into a multiplication by its float32 reciprocal
+    (:func:`reciprocal_f32`), which rounds differently at some ties, so
+    the port multiplies by the same reciprocal."""
     if not float(out_scale) > 0:
         raise MXNetError("out_scale must be > 0, got %r" % (out_scale,))
-    q = torch.round(torch.div(y, torch.full_like(y, float(out_scale))))
+    # a float32 tensor times a Python float multiplies by the float32
+    # value of that float, which reciprocal_f32 already is
+    q = torch.round(y.to(torch.float32) * reciprocal_f32(out_scale))
     return torch.clamp(q, -INT8_QMAX, INT8_QMAX).to(torch.int8)
 
 
@@ -217,7 +228,8 @@ def fused_fc_epilogue_reference(x: torch.Tensor, w: torch.Tensor,
                                 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_fc_epilogue`: the same
     arithmetic (float32 products and sums, the same activation formulas,
-    division by ``out_scale`` and round-half-to-even) in library calls."""
+    multiplication by the float32 reciprocal of ``out_scale`` and
+    round-half-to-even) in library calls."""
     acc = torch.matmul(x.float(), w.float().t())
     if b is not None:
         acc = acc + b.float()
@@ -232,7 +244,8 @@ def fused_fc_epilogue(x: torch.Tensor, w: torch.Tensor,
                       out_scale: Optional[float] = None) -> torch.Tensor:
     """``act(x · wᵀ + b)`` for x (M, K), w (N, K), b (N,) or None, summed
     in float32; the result is (M, N) in x's dtype, or int8 codes
-    ``clamp(rint(y / out_scale), ±127)`` when ``out_scale`` is set.
+    ``clamp(rint(y * reciprocal_f32(out_scale)), ±127)`` when
+    ``out_scale`` is set (see :func:`requantize`).
 
     CUDA tensors launch the hand-written kernel (csrc/fc_epilogue.cu);
     CPU tensors take :func:`fused_fc_epilogue_reference`."""
@@ -275,7 +288,7 @@ def fused_fc_epilogue(x: torch.Tensor, w: torch.Tensor,
         x.data_ptr(), w.data_ptr(), b32.data_ptr() if b32 is not None else None,
         out.data_ptr(), m, n, k, _FLOAT_CODES[x.dtype], _FLOAT_CODES[w.dtype],
         ACT_CODES[act_type], int(out_scale is not None),
-        float(out_scale) if out_scale is not None else 1.0,
+        reciprocal_f32(out_scale) if out_scale is not None else 1.0,
         x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
     _check(lib, "fused_fc_epilogue", rc)
     _count("fused_fc_epilogue")

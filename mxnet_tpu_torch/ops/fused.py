@@ -7,12 +7,14 @@ The counterpart of ``mxnet_tpu/ops/fused.py`` for the f32 family:
   kernel ``cuda_kernels.fused_fc_epilogue`` (the plain version for CPU
   tensors);
 * ``_fused_Convolution`` — Convolution + bias + Activation (+ requantize);
+* ``_fused_quantized_FullyConnected`` / ``_fused_quantized_Convolution``
+  — the int8 products of ``ops/quantized.py`` (summed exactly in int32)
+  with dequantize + bias + Activation (+ requantize) fused in;
 * ``_fused_elemwise`` — a chain of single-input elementwise ops carried
   as a serialized step list.
 
 Parameter schemas equal the JAX package's, so fused graphs serialize to
-the same JSON.  The int8 family (``_fused_quantized_*``) comes with the
-quantization slice.
+the same JSON.
 """
 from __future__ import annotations
 
@@ -24,6 +26,9 @@ import torch
 from ..base import MXNetError
 from . import cuda_kernels
 from .nn import ACTIVATIONS, _CONV_PARAMS, conv2d, conv_infer_shape
+from .quantized import (_QCONV_PARAMS, _QFC_PARAMS, _QuantizedBase,
+                        fc_infer_shape, quantized_conv,
+                        quantized_conv_infer_shape, quantized_fc)
 from .registry import OpDef, Param, register_op
 
 __all__ = ["ACT_FNS", "ELEMWISE_STEP_OPS", "apply_act", "apply_steps",
@@ -109,6 +114,47 @@ class FusedConvolutionOp(OpDef):
     def forward(self, p, inputs, aux, ctx):
         out = conv2d(p, inputs)
         return [_requantize(apply_act(out, p.act_type), p.out_scale)]
+
+
+class _FusedQuantizedBase(_QuantizedBase):
+    """int8 data+weight, f32 wscale (+f32 bias): ``ops/quantized.py``'s
+    convention with the activation/requantize epilogues fused in, in the
+    reference's order and rounding: dequantize plus bias rounded once
+    (``quantized.dequantize_int32``), activation, requantize."""
+
+    def infer_type(self, p, in_types):
+        ins, _out, aux = super().infer_type(p, in_types)
+        out = np.dtype(np.int8) if p.out_scale is not None \
+            else np.dtype(np.float32)
+        return ins, [out], aux
+
+
+@register_op("_fused_quantized_FullyConnected",
+             hint="fused_quantized_fullyconnected")
+class FusedQuantizedFullyConnectedOp(_FusedQuantizedBase):
+    """int8 GEMM (int32 sums) + dequant + bias + act (+ requant)."""
+    params = list(_QFC_PARAMS) + _EPILOGUE_PARAMS
+
+    def infer_shape(self, p, in_shapes):
+        return fc_infer_shape(p, in_shapes)
+
+    def forward(self, p, inputs, aux, ctx):
+        out = apply_act(quantized_fc(p, inputs), p.act_type)
+        return [_requantize(out, p.out_scale)]
+
+
+@register_op("_fused_quantized_Convolution",
+             hint="fused_quantized_convolution")
+class FusedQuantizedConvolutionOp(_FusedQuantizedBase):
+    """int8 NCHW conv (int32 sums) + dequant + bias + act (+ requant)."""
+    params = list(_QCONV_PARAMS) + _EPILOGUE_PARAMS
+
+    def infer_shape(self, p, in_shapes):
+        return quantized_conv_infer_shape(p, in_shapes)
+
+    def forward(self, p, inputs, aux, ctx):
+        out = apply_act(quantized_conv(p, inputs), p.act_type)
+        return [_requantize(out, p.out_scale)]
 
 
 # step name -> (needs_scalar, fn(x, scalar?)): the single-input, shape- and

@@ -2,26 +2,43 @@
 (counterpart of ``mxnet_tpu.passes``).
 
 * ``FoldConstantsPass``, ``CSEPass``, ``DeadNodeEliminationPass``
+* ``U8WirePass`` (the in-graph uint8 cast/normalize prologue)
+* ``QuantizePass`` (calibrated int8, float16 fallback) with
+  ``calibrate``/``calibrate_arrays`` and ``CalibrationTable``
 * ``MoEServeParityPass``
-* ``FuseEpiloguePass`` (matmul/conv + Activation -> one ``_fused_*`` op)
-  and ``ElementwiseFusePass``
+* ``FuseEpiloguePass`` (matmul/conv + Activation (+ ``_contrib_quantize``)
+  -> one ``_fused_*`` op) and ``ElementwiseFusePass``
 
 with a round-trip + attr-preservation verifier after every pass and the
-pipeline fingerprint stamped into the result (``__passes__``).
+pipeline fingerprint stamped into the result (``__passes__``).  The
+serving flow ``ServeEngine(quantize=...)`` runs::
+
+    table = passes.calibrate(sym, data_iter, num_batches=10,
+                             arg_params=arg, aux_params=aux)
+    pipe = passes.default_inference_pipeline(
+        quantize=passes.QuantizePass(calib=table), fuse=True)
+    qsym, qparams = pipe.run(sym, {**arg, **aux})
 """
 from .pipeline import Pass, PassError, PassPipeline
 from .verify import check_attrs_preserved, diff_attrs, verify_roundtrip
 from .graph_passes import (CSEPass, DeadNodeEliminationPass,
-                           FoldConstantsPass, rebuild)
+                           FoldConstantsPass, U8WirePass, rebuild,
+                           tensor_name)
+from .calibrate import CalibrationTable, calibrate, calibrate_arrays
 from .moe import MoEServeParityPass
 from .fuse import ElementwiseFusePass, FuseEpiloguePass, fusion_passes
-from .quantize import build_serving_pipeline, default_inference_pipeline
+from .quantize import (QuantizePass, build_serving_pipeline,
+                       default_fallback_dtype, default_inference_pipeline,
+                       default_quantize_ops, quantize_model)
 
 __all__ = [
     "Pass", "PassError", "PassPipeline",
     "check_attrs_preserved", "diff_attrs", "verify_roundtrip",
     "CSEPass", "DeadNodeEliminationPass", "FoldConstantsPass",
-    "rebuild", "MoEServeParityPass",
+    "U8WirePass", "rebuild", "tensor_name",
     "ElementwiseFusePass", "FuseEpiloguePass", "fusion_passes",
-    "build_serving_pipeline", "default_inference_pipeline",
+    "MoEServeParityPass",
+    "CalibrationTable", "calibrate", "calibrate_arrays",
+    "QuantizePass", "build_serving_pipeline", "default_fallback_dtype",
+    "default_inference_pipeline", "default_quantize_ops", "quantize_model",
 ]

@@ -7,8 +7,8 @@ producer's params plus ``act_type``; a downstream ``_contrib_quantize``
 would be absorbed as ``out_scale``.  A producer is fused only when the
 epilogue is its sole consumer and it is not itself a graph output; the
 fused node takes the epilogue node's name, so ``list_outputs()`` is
-unchanged.  The int8 producers (``_quantized_*``) come with the
-quantization slice.
+unchanged.  The int8 producers (``_quantized_*``) fuse the same way into
+``_fused_quantized_*``.
 
 **ElementwiseFusePass** collapses maximal chains of single-input
 elementwise ops into one ``_fused_elemwise`` node carrying the serialized
@@ -30,8 +30,14 @@ __all__ = ["FuseEpiloguePass", "ElementwiseFusePass", "fusion_passes"]
 
 # producer op -> fused op, per family
 _FUSABLE = {
-    "FullyConnected": {"FullyConnected": "_fused_FullyConnected"},
-    "Convolution": {"Convolution": "_fused_Convolution"},
+    "FullyConnected": {
+        "FullyConnected": "_fused_FullyConnected",
+        "_quantized_FullyConnected": "_fused_quantized_FullyConnected",
+    },
+    "Convolution": {
+        "Convolution": "_fused_Convolution",
+        "_quantized_Convolution": "_fused_quantized_Convolution",
+    },
 }
 
 

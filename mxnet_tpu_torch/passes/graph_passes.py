@@ -1,6 +1,6 @@
-"""Structural passes: constant folding, CSE and dead-node elimination
-(counterpart of ``mxnet_tpu/passes/graph_passes.py``; the uint8 wire
-prologue comes with the serving-options slice).
+"""Structural passes: constant folding, CSE, dead-node elimination and
+the uint8 wire prologue (counterpart of
+``mxnet_tpu/passes/graph_passes.py``).
 
 All of them are built on one primitive — ``rebuild(sym, transform)`` — a
 single topo walk that clones the reachable graph while a hook substitutes
@@ -17,10 +17,20 @@ import numpy as np
 from ..base import _AttrDict
 from ..ops import get_op
 from ..symbol import Symbol, _Node, _topo
-from .pipeline import Pass, _as_np
+from .pipeline import Pass, PassError, _as_np
 
-__all__ = ["rebuild", "FoldConstantsPass", "CSEPass",
-           "DeadNodeEliminationPass"]
+__all__ = ["rebuild", "tensor_name", "FoldConstantsPass", "CSEPass",
+           "DeadNodeEliminationPass", "U8WirePass"]
+
+
+def tensor_name(node: _Node, idx: int) -> str:
+    """The name of one node output: the formula ``Symbol.list_outputs``
+    uses, so calibration tables (keyed by
+    ``get_internals().list_outputs()``) and the quantize pass agree."""
+    if node.is_variable:
+        return node.name
+    names = node.op.list_outputs(node.params)
+    return "%s_%s" % (node.name, names[idx])
 
 
 def rebuild(sym: Symbol,
@@ -277,4 +287,80 @@ class DeadNodeEliminationPass(Pass):
 
         out = rebuild(sym, transform)
         self.summary = {"rewrites": removed, "removed_nodes": removed_names}
+        return out, params
+
+
+# -- uint8 wire prologue -----------------------------------------------------
+
+class U8WirePass(Pass):
+    """Move the cast/normalize prologue into the graph so the wire stays
+    uint8.
+
+    The data variable is retyped to uint8 (the ``__dtype__`` attr, and
+    ``type_overrides`` in the summary, which the Predictor binds) and,
+    for images, laid out HWC; the graph itself casts to float32,
+    subtracts ``mean``, multiplies by ``scale`` and, with ``hwc=True``,
+    transposes to NCHW before the first real op.  A request ships
+    H*W*C bytes instead of four times that.  ``hwc=False`` keeps the
+    layout (MLP inputs)."""
+
+    name = "u8_wire"
+
+    def __init__(self, data_name: str = "data", mean: float = 0.0,
+                 scale: float = 1.0, hwc: bool = True):
+        super().__init__()
+        self.data_name = data_name
+        self.mean = float(mean)
+        self.scale = float(scale)
+        self.hwc = hwc
+
+    def config(self) -> str:
+        return "data=%s;mean=%r;scale=%r;hwc=%s" % (
+            self.data_name, self.mean, self.scale, self.hwc)
+
+    def apply(self, sym, params):
+        if self.data_name not in sym.list_arguments():
+            raise PassError("u8_wire: input %r is not an argument of the "
+                            "graph (has %s)"
+                            % (self.data_name, sym.list_arguments()))
+        built: Dict[str, Tuple[_Node, int]] = {}
+
+        def prologue(var: _Node) -> Tuple[_Node, int]:
+            # one prologue per data variable name
+            if var.name in built:
+                return built[var.name]
+            attrs = dict(var.attrs)
+            attrs["__dtype__"] = "uint8"
+            u8var = _Node(None, var.name, attrs=attrs)
+            cur: Tuple[_Node, int] = (
+                _make_node("Cast", "%s_u8cast" % var.name,
+                           {"dtype": "float32"}, [(u8var, 0)]), 0)
+            if self.mean != 0.0:
+                cur = (_make_node("_minus_scalar", "%s_u8mean" % var.name,
+                                  {"scalar": self.mean}, [cur]), 0)
+            if self.scale != 1.0:
+                cur = (_make_node("_mul_scalar", "%s_u8scale" % var.name,
+                                  {"scalar": self.scale}, [cur]), 0)
+            if self.hwc:
+                cur = (_make_node("transpose", "%s_u8nchw" % var.name,
+                                  {"axes": (0, 3, 1, 2)}, [cur]), 0)
+            built[var.name] = cur
+            return cur
+
+        def transform(node, new_inputs):
+            if node.is_variable:
+                return None
+            rewired = [prologue(i) if i.is_variable
+                       and i.name == self.data_name else i_new
+                       for (i, _x), i_new in zip(node.inputs, new_inputs)]
+            if rewired == new_inputs:
+                return None
+            new = _Node(node.op, node.name, _AttrDict(node.params),
+                        dict(node.attrs), rewired, node.is_aux)
+            return [(new, i) for i in range(node.num_outputs())]
+
+        out = rebuild(sym, transform)
+        self.summary = {"rewrites": len(built),
+                        "type_overrides": {self.data_name: "uint8"},
+                        "prologue_inputs": sorted(built)}
         return out, params

@@ -7,7 +7,9 @@ A ``Pass`` rewrites ``(Symbol, params) -> (Symbol, params)``; a
 stamps its fingerprint, a digest of the pass list and each pass's
 config, into the result's graph attrs as ``__passes__``.  The digest is
 computed exactly as the JAX package computes it, so both packages stamp
-the same value on the same pipeline.
+the same value on the same pipeline.  A pass that retypes an input (the
+uint8 wire) names it in its summary's ``type_overrides``; the pipeline
+gathers them for the Predictor to bind.
 """
 from __future__ import annotations
 
@@ -70,6 +72,7 @@ class PassPipeline:
         self.name = name
         self.verify = verify
         self._validate_order()
+        self.type_overrides: Dict[str, Any] = {}
 
     def _validate_order(self) -> None:
         violations = []
@@ -94,6 +97,7 @@ class PassPipeline:
             Tuple[Symbol, Optional[Dict]]:
         """Apply every pass in order; the input symbol is never mutated."""
         from .verify import check_attrs_preserved, verify_roundtrip
+        self.type_overrides = {}
         out_sym, out_params = sym, params
         for p in self.passes:
             p.summary = {}
@@ -107,6 +111,7 @@ class PassPipeline:
             if self.verify:
                 verify_roundtrip(new_sym, label="after pass %r" % p.name)
                 check_attrs_preserved(out_sym, new_sym, pass_name=p.name)
+            self.type_overrides.update(p.summary.get("type_overrides") or {})
             out_sym, out_params = new_sym, new_params
         if out_sym is sym:          # every pass was an identity
             out_sym = sym.__copy__()

@@ -100,6 +100,9 @@ class Predictor:
         if pipeline is not None:
             self.symbol, params = pipeline.run(self.symbol, params)
             params = dict(params)
+            # a pass that retypes an input (the u8 wire) publishes it
+            # here; the caller's type_dict entries still win below
+            type_dict = dict(pipeline.type_overrides, **(type_dict or {}))
         self._arg_names = frozenset(self.symbol.list_arguments())
         self._aux_names = frozenset(self.symbol.list_auxiliary_states())
         self._arg_params = {k: _as_nd(v) for k, v in params.items()
@@ -180,6 +183,13 @@ class Predictor:
     def get_output(self, index: int) -> np.ndarray:
         return self._exec.outputs[index].asnumpy()
 
+    def get_output_shape(self, index: int) -> Tuple[int, ...]:
+        """The shape of output ``index``: of the last forward, else as
+        inferred for the bound input shapes."""
+        if self._exec._outputs_nd is not None:
+            return tuple(self._exec.outputs[index].shape)
+        return tuple(self.symbol.infer_shape(**self._input_shapes)[1][index])
+
     def reshape(self, input_shapes: Dict[str, Tuple[int, ...]]
                 ) -> "Predictor":
         """New input shapes, shared weights; a seen shape set reuses its
@@ -196,6 +206,17 @@ class Predictor:
             return self._exec
         finally:
             self._exec, self._input_shapes = keep_exec, keep_shapes
+
+    def precompile(self, shape_sets) -> int:
+        """Bind every shape set and run one forward of each (zeros in),
+        so buffers, library handles and the kernels' builds are ready
+        before the first real input.  The port has no compile cache yet
+        (ROADMAP.md, queue 1 item 11): nothing persists across processes.
+        Returns the number of shape sets warmed."""
+        shape_sets = list(shape_sets)
+        for shapes in shape_sets:
+            self.ensure_bound(dict(shapes)).forward(is_train=False)
+        return len(shape_sets)
 
     def predict(self, data) -> np.ndarray:
         """One-shot: set the first input, forward, output 0."""

@@ -150,6 +150,11 @@ class MicroBatcher:
             self._cv.notify()
         return req.future
 
+    def queue_depth(self) -> int:
+        """Requests waiting in the queue now."""
+        with self._cv:
+            return len(self._q)
+
     # -- dispatcher thread -------------------------------------------------
     def _gather(self) -> Optional[List[_Request]]:
         """Assemble one batch honoring the flush rules; None on

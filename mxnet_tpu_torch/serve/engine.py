@@ -10,15 +10,23 @@ batch and starts the device-to-host copy into pinned memory; the
 completion thread waits for that copy while the next batch runs.
 
 ``reload(...)`` swaps weights under the lock the dispatcher holds while
-running a batch, so each batch runs entirely under one weights version.
+running a batch, so each batch runs entirely under one weights version;
+with a quantizing pipeline, fresh float32 weights are re-quantized.
 
 It runs on ``gpu(dev_id)`` unless ``dev_type="cpu"`` is asked for.
-``fuse=True`` builds the serving pass pipeline (fold, CSE, DCE, MoE
-parity, epilogue and elementwise fusion); ``fuse=None`` (the default)
-serves the graph as loaded, as the JAX package does.
+``quantize=``, ``u8_wire=`` or ``fuse=`` build the serving pass pipeline
+(u8 wire, fold, CSE, DCE, quantize, MoE parity, epilogue and elementwise
+fusion; fusion is on unless ``fuse=False``); with none of them the
+graph is served as loaded, as the JAX package does::
+
+    eng = ServeEngine.from_checkpoint(
+        "vgg16", 0, {"data": (1, 224, 224, 3), "softmax_label": (1,)},
+        quantize="int8", calib_data=sample_u8_images,
+        u8_wire={"mean": 117.0, "scale": 1 / 58.0, "hwc": True})
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -26,13 +34,14 @@ import numpy as np
 import torch
 
 from ..base import get_env
+from ..context import Context
 from ..passes.quantize import build_serving_pipeline, not_ported
 from ..predictor import Predictor, load_checkpoint_pair
 from .batcher import MicroBatcher
 from .errors import ServeError, ServeRequestError
 from .stats import ServeStats
 
-__all__ = ["ServeEngine", "default_buckets"]
+__all__ = ["ServeEngine", "default_buckets", "exec_device_bytes"]
 
 
 def default_buckets(max_batch_size: int) -> Tuple[int, ...]:
@@ -61,9 +70,17 @@ class ServeEngine:
     ``MXNET_SERVE_MAX_DELAY_MS`` (2), ``MXNET_SERVE_QUEUE_DEPTH`` (4x max
     batch) and ``MXNET_SERVE_DEADLINE_MS`` (1000; 0 disables).
 
-    ``mesh``, ``param_specs``, ``quantize``, ``calib_data``, ``u8_wire``,
-    ``autotune`` and ``embed_dedup`` are not in the port yet and raise
-    ``NotImplementedError`` when given.
+    ``quantize=`` takes ``"int8"`` (with ``calib_data``: a sample of
+    requests in wire format, item-stacked; the engine calibrates on it
+    at the largest bucket's shapes, on its own device), ``"float16"``/
+    ``"bfloat16"`` (a pure precision rewrite), or a dict of QuantizePass
+    kwargs (``{"calib": table, "skip": ("fc6",)}``).  ``u8_wire=`` (True
+    or ``{"mean":, "scale":, "hwc":}``) moves the cast/normalize prologue
+    into the graph and retypes the data input to uint8.  ``pipeline=``
+    overrides with a pre-built PassPipeline.
+
+    ``mesh``, ``param_specs``, ``autotune`` and ``embed_dedup`` are not
+    in the port yet and raise ``NotImplementedError`` when given.
     """
 
     def __init__(self, symbol, params: Dict,
@@ -83,9 +100,6 @@ class ServeEngine:
                  embed_dedup=None):
         for option, value in (("ServeEngine(mesh=)", mesh),
                               ("ServeEngine(param_specs=)", param_specs),
-                              ("ServeEngine(quantize=)", quantize),
-                              ("ServeEngine(calib_data=)", calib_data),
-                              ("ServeEngine(u8_wire=)", u8_wire),
                               ("ServeEngine(autotune=)", autotune),
                               ("ServeEngine(embed_dedup=)", embed_dedup)):
             if value is not None and value is not False:
@@ -123,16 +137,24 @@ class ServeEngine:
         self._output_index = int(output_index)
         self.name = name
         self.weights_version = 0
-        # serializes batch execution against weight swaps
-        self._swap_lock = threading.Lock()
+        # serializes batch execution against weight swaps; an RLock so
+        # reload() and pause() nest on one thread.  _pause_owner guards
+        # close() inside pause(), which would wait on this lock forever
+        self._swap_lock = threading.RLock()
+        self._pause_owner: Optional[int] = None
         # RLock: a future's done-callback may close() again inline on the
         # closing thread
         self._close_lock = threading.RLock()
         self._shapes_by_bucket = {b: {k: (b,) + v[1:]
                                       for k, v in self._shapes_tpl.items()}
                                   for b in self._buckets}
-        if pipeline is None and fuse:
-            pipeline = build_serving_pipeline(fuse=fuse, name=name)
+        if pipeline is None and (quantize or u8_wire or fuse):
+            pipeline = build_serving_pipeline(
+                quantize=quantize, calib_data=calib_data,
+                calib_shapes=self._shapes_by_bucket[self.max_batch_size],
+                data_name=data_name, u8_wire=u8_wire,
+                fuse=True if fuse is None else fuse, name=name,
+                ctx=Context(dev_type, dev_id))
         self.pipeline = pipeline
         self._predictor = Predictor(
             sym_json, params, self._shapes_by_bucket[self.max_batch_size],
@@ -251,6 +273,14 @@ class ServeEngine:
         its output row."""
         return self._batcher.submit(data, deadline_ms=deadline_ms)
 
+    def submit_many(self, items, deadline_ms: Optional[float] = None):
+        """One future per item."""
+        return [self.submit(x, deadline_ms=deadline_ms) for x in items]
+
+    def predict(self, data, timeout: Optional[float] = None) -> np.ndarray:
+        """Blocking one-shot: submit, then wait for the result."""
+        return self.submit(data).result(timeout=timeout)
+
     # -- hot weight reload -------------------------------------------------
     def reload(self, arg_params: Dict,
                aux_params: Optional[Dict] = None) -> int:
@@ -262,15 +292,57 @@ class ServeEngine:
         self.stats.on_reload()
         return version
 
+    def reload_from_checkpoint(self, prefix: str, epoch: int) -> int:
+        """Hot-swap to a checkpoint pair's params (the symbol must match
+        the serving graph: only weights move)."""
+        _sym_json, params = load_checkpoint_pair(prefix, epoch)
+        return self.reload(params)
+
+    @contextlib.contextmanager
+    def pause(self):
+        """Hold batch execution between batches (the weights-swap lock):
+        queued requests wait, admissions keep their overload rules.
+        reload() and nested pause() work inside; close() inside raises
+        instead of hanging, and a close() from another thread waits for
+        the pause to end."""
+        with self._swap_lock:
+            prev = self._pause_owner
+            self._pause_owner = threading.get_ident()
+            try:
+                yield
+            finally:
+                self._pause_owner = prev
+
     # -- introspection -----------------------------------------------------
     @property
     def buckets(self) -> Tuple[int, ...]:
         return self._buckets
 
+    def pending_requests(self) -> int:
+        """Requests waiting in the bounded queue (``queue_depth`` is the
+        configured bound)."""
+        return self._batcher.queue_depth()
+
+    def outstanding(self) -> int:
+        """Admitted requests not yet resolved (queued or in flight)."""
+        return self.stats.outstanding()
+
+    def device_bytes(self) -> int:
+        """Bytes of the persistent buffers the bucket executors bind:
+        parameters (shared, counted once) and per-bucket inputs.
+        Transient forward outputs are not counted."""
+        return exec_device_bytes(self._predictor._exec_cache.values())
+
     # -- lifecycle ---------------------------------------------------------
     def close(self, drain: bool = True) -> None:
         """Stop admissions, drain (or fail) queued requests, join the
-        worker threads.  Thread-safe and idempotent."""
+        worker threads.  Thread-safe and idempotent; raises inside
+        pause() on the pausing thread (the dispatcher needs the lock)."""
+        if self._pause_owner == threading.get_ident():
+            raise ServeError(
+                "close() inside pause() would deadlock: the dispatcher "
+                "needs the paused lock to finish its in-flight batch; exit "
+                "pause() first (or close from another thread)")
         if self._batcher.is_worker_thread():
             self._batcher.request_close(drain=drain)
             return
@@ -285,3 +357,21 @@ class ServeEngine:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def exec_device_bytes(execs) -> int:
+    """Distinct bytes bound by an iterable of executors (argument and
+    aux buffers), each buffer counted once however many executors share
+    it; transient forward outputs are excluded."""
+    seen = set()
+    total = 0
+    for ex in execs:
+        for d in (ex.arg_dict, ex.aux_dict):
+            for arr in d.values():
+                t = arr._get()
+                key = (t.device, t.untyped_storage().data_ptr())
+                if key in seen:
+                    continue
+                seen.add(key)
+                total += t.numel() * t.element_size()
+    return total

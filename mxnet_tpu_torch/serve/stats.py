@@ -110,6 +110,11 @@ class ServeStats:
         return max(0, self._submitted - self._completed - self._failed
                    - self._expired - self._cancelled)
 
+    def outstanding(self) -> int:
+        """Admitted requests not yet resolved (queued or in flight)."""
+        with self._lock:
+            return self._outstanding_locked()
+
     # -- reading -----------------------------------------------------------
     def report(self) -> Dict:
         with self._lock:

@@ -4,7 +4,8 @@ Full-depth VGG-16 through both packages' fused Predictors, a narrow
 VGG-shaped checkpoint pair written by the JAX package and served by both
 ServeEngines, and the port's rules: it imports no JAX, it runs on the
 card by default and raises without one, and the serving options it does
-not carry yet raise instead of being ignored.
+not carry yet raise instead of being ignored (the int8, float16 and
+uint8-wire options are held in ``test_torch_quantize.py``).
 
 Tolerance for float32 model outputs: both packages compute in float32
 with sums in different orders (XLA against PyTorch's CPU kernels); the
@@ -191,14 +192,12 @@ def test_default_device_predictor_raises_without_card():
         mt.serve.ServeEngine(sym, {}, {"data": (1, 784)})
 
 
-@pytest.mark.parametrize("option", ["mesh", "param_specs", "quantize",
-                                    "calib_data", "u8_wire", "autotune",
+@pytest.mark.parametrize("option", ["mesh", "param_specs", "autotune",
                                     "embed_dedup"])
 def test_unported_serve_options_raise(option):
     sym = mt.models.get_mlp()
-    value = {"quantize": "int8", "mesh": "tp=2", "param_specs": {"a": 1},
-             "calib_data": np.zeros((1, 784)), "u8_wire": True,
-             "autotune": True, "embed_dedup": True}[option]
+    value = {"mesh": "tp=2", "param_specs": {"a": 1}, "autotune": True,
+             "embed_dedup": True}[option]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mt.serve.ServeEngine(sym, {}, {"data": (1, 784)}, dev_type="cpu",
                              **{option: value})
