@@ -71,7 +71,20 @@ Phases, in order; any failure exits nonzero:
    forwards, output held against the port's CPU run of the same checkpoint,
    a profile of one forward;
 12. integer max pooling with padding on the card, equal to the CPU run;
-13. the engines' requests/s and p50/p99, the ``kernels`` JSON line (all
+13. training through ``Module`` on the card, the fused train step (forward,
+   backward, SGD with momentum, BatchNorm's aux updates) captured as one
+   CUDA graph: LeNet through ``Module.fit`` for 10 steps from one
+   checkpoint (3 eager warm-up steps, 1 capture, 7 replays) held against
+   the port's CPU run and the card's classic path; ResNet-50 at 224 with
+   1000 classes, batch 128, 25.6 M float32 parameters from a seed: 3
+   warm-up steps, 1 capture, 20 replays across an lr-scheduler change
+   (no recapture), the last replay against the same step run eagerly
+   from the same state, the 23 steps against the classic path's; the
+   step's img/s with batches on the card, its wall and device time, busy
+   share and device time by kernel group and by part of the step, peak
+   memory, the loss, and ``Module.fit``'s img/s over an ``NDArrayIter``;
+   0 launches of the four hand kernels on the train path;
+14. the engines' requests/s and p50/p99, the ``kernels`` JSON line (all
    four kernels), then the ``{"ok": true, ...}`` line.
 """
 import json
@@ -2084,6 +2097,427 @@ def int_pool_phase(torch):
         fail("int32 max pooling on the card differs from the CPU run")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training through Module on the card, the fused step captured
+
+# SGD at bench.py's settings.  TF32 is off for matmul and cuDNN (phase 1),
+# so every product in training is float32.
+TRAIN_OPT = {"learning_rate": 0.05, "momentum": 0.9}
+LENET_BATCH, LENET_STEPS = 64, 10
+# LeNet, card against the port's CPU run of the same 10 steps: cuDNN's
+# convolution algorithms (FFT or Winograd are allowed for the 5x5
+# kernels) and the CPU's sum in other orders, ~1e-6 relative a layer,
+# and momentum carries each step's difference on; fused against classic
+# on the card: the same kernels, but cuDNN's weight gradients may use
+# atomics and the classic updater folds lr * wd in float64
+LENET_CPU_RTOL, LENET_CPU_ATOL = 1e-3, 1e-4
+LENET_PATH_RTOL, LENET_PATH_ATOL = 1e-4, 1e-5
+RESNET_BATCH, RESNET_WARMUP, RESNET_REPLAYS = 128, 3, 20
+RESNET_LR_STEP = 12            # the scheduler halves lr after 12 updates
+# one replay against the same step run eagerly from the same state: the
+# same kernels on the same inputs, apart from cuDNN's atomics
+REPLAY_RTOL, REPLAY_ATOL = 1e-4, 1e-6
+# 23 captured steps against 23 eager classic steps: with cuDNN
+# deterministic the same arithmetic (equal up to DET_RTOL, atol 0); in
+# cuDNN's default mode its weight gradients use atomics, the relus after
+# BatchNorm gate the last-bit differences apart, and a second classic run
+# drifts from the first by a relative L2 of the same order as the
+# captured run does: the captured steps may drift from the classic ones
+# at most DRIFT_RATIO times as far as the classic path from itself
+DET_RTOL, DRIFT_RATIO = 1e-6, 2.0
+
+
+def host_params(mod):
+    arg, aux = mod.get_params()
+    return ({k: v.asnumpy() for k, v in arg.items()},
+            {k: v.asnumpy() for k, v in aux.items()})
+
+
+def worst_rel(got, want, atol):
+    """The smallest rtol at which every tensor of ``got`` is allclose to
+    ``want``'s with this atol: max over elements of (|g - w| - atol) /
+    |w|."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        for k in w:
+            excess = np.abs(g[k] - w[k]) - atol
+            worst = max(worst, float(np.max(excess / np.maximum(
+                np.abs(w[k]), 1e-30))))
+    return worst
+
+
+def params_close(got, want, rtol, atol):
+    return all(np.allclose(g[k], w[k], rtol=rtol, atol=atol)
+               for g, w in zip(got, want) for k in w)
+
+
+def rel_l2(got, want):
+    """Relative L2 distance over every tensor of the params and aux."""
+    num = sum(float(((g[k] - w[k]) ** 2).sum())
+              for g, w in zip(got, want) for k in w)
+    den = sum(float((w[k] ** 2).sum()) for w in want for k in w)
+    return math.sqrt(num / den)
+
+
+class fused_train_env:
+    """MXNET_FUSED_TRAIN set for one module's life (0: the classic path)."""
+
+    def __init__(self, on):
+        self.on = on
+
+    def __enter__(self):
+        self.old = os.environ.get("MXNET_FUSED_TRAIN")
+        os.environ["MXNET_FUSED_TRAIN"] = "1" if self.on else "0"
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop("MXNET_FUSED_TRAIN", None)
+        else:
+            os.environ["MXNET_FUSED_TRAIN"] = self.old
+
+
+def lenet_train(torch, mt, tmp, smi):
+    """(a) LeNet: 10 steps through Module.fit from one checkpoint on the
+    card (fused: 3 eager warm-up steps, then one capture and 7 replays),
+    on the CPU, and on the card's classic path."""
+    b, n = LENET_BATCH, LENET_STEPS
+    sym = mt.models.get_lenet()
+    shapes = {"data": (b, 1, 28, 28), "softmax_label": (b,)}
+    prefix = os.path.join(tmp, "lenet")
+    mt.model.save_checkpoint(
+        prefix, 0, sym, {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in
+                         xavier_params(sym, shapes, 7).items()}, {})
+    rng = np.random.default_rng(8)
+    x = rng.random((b * n, 1, 28, 28), dtype=np.float32)
+    y = rng.integers(0, 10, b * n).astype(np.float32)
+
+    def run(ctx, fused):
+        with fused_train_env(fused):
+            s, arg, aux = mt.model.load_checkpoint(prefix, 0, ctx=mt.cpu())
+            mod = mt.mod.Module(s, context=ctx)
+            accs = []
+            mod.fit(mt.io.NDArrayIter(x, y, batch_size=b), num_epoch=1,
+                    optimizer="sgd", optimizer_params=dict(TRAIN_OPT),
+                    arg_params=arg, aux_params=aux, eval_metric="acc",
+                    batch_end_callback=lambda p: accs.append(
+                        p.eval_metric.get()[1]))
+        stats = mod._fused.stats.report() if mod._fused is not None \
+            else None
+        return host_params(mod), accs, stats
+
+    card, card_acc, stats = run(mt.gpu(0), True)
+    cpu, cpu_acc, _ = run(mt.cpu(), True)
+    classic, classic_acc, classic_stats = run(mt.gpu(0), False)
+    want = {"captures": 1, "replays": n - RESNET_WARMUP,
+            "eager_steps": RESNET_WARMUP}
+    print("train: lenet %d steps of batch %d on %s: fused step %s; accuracy "
+          "card %s cpu %s classic %s" % (n, b, smi, stats, card_acc[-1],
+                                         cpu_acc[-1], classic_acc[-1]))
+    cpu_err = worst_rel(card, cpu, LENET_CPU_ATOL)
+    path_err = worst_rel(card, classic, LENET_PATH_ATOL)
+    print("train: lenet card vs cpu: smallest rtol at atol %g: %.3g (gate "
+          "%g); fused vs classic on the card: %.3g at atol %g (gate %g)"
+          % (LENET_CPU_ATOL, cpu_err, LENET_CPU_RTOL, path_err,
+             LENET_PATH_ATOL, LENET_PATH_RTOL))
+    if stats != want or classic_stats is not None:
+        fail("lenet fused step counts %s (want %s), classic module fused: "
+             "%s" % (stats, want, classic_stats))
+    if not params_close(card, cpu, LENET_CPU_RTOL, LENET_CPU_ATOL):
+        fail("lenet params on the card differ from the CPU run")
+    if not params_close(card, classic, LENET_PATH_RTOL, LENET_PATH_ATOL):
+        fail("lenet fused params differ from the classic path's")
+    if card_acc != cpu_acc or card_acc != classic_acc:
+        fail("lenet accuracy differs: card %s cpu %s classic %s"
+             % (card_acc, cpu_acc, classic_acc))
+    return {"cpu_rtol": cpu_err, "path_rtol": path_err, "stats": stats}
+
+
+def clone_state(torch, state):
+    def c(v):
+        if v is None:
+            return None
+        if isinstance(v, (tuple, list)):
+            return tuple(c(e) for e in v)
+        return v.detach().clone()
+    return {k: ({n: c(t) for n, t in v.items()} if isinstance(v, dict)
+                else c(v)) for k, v in state.items()}
+
+
+def restore_state(torch, state, snap):
+    def r(dst, src):
+        if dst is None:
+            return
+        if isinstance(dst, (tuple, list)):
+            for d, s in zip(dst, src):
+                r(d, s)
+            return
+        dst.copy_(src)
+    with torch.no_grad():
+        for k, v in state.items():
+            if isinstance(v, dict):
+                for n, t in v.items():
+                    r(t, snap[k][n])
+            else:
+                r(v, snap[k])
+
+
+def state_params(state):
+    """Host copies of the fused step's params and aux states."""
+    def host(t):
+        return t.detach().cpu().numpy().copy()
+    return ({n: host(t) for n, t in
+             list(state["params"].items()) + list(state["fixed"].items())},
+            {n: host(t) for n, t in state["aux"].items()})
+
+
+def train_group(name):
+    """Kernel groups of a training step."""
+    if "wgrad" in name:
+        return "conv bwd weight"
+    if "dgrad" in name:
+        return "conv bwd data"
+    if "batch_norm" in name or "bn_fw" in name or "bn_bw" in name or \
+            "batchnorm" in name:
+        return "batchnorm"
+    if conv_group(name) == "convolution":
+        return "conv fwd"
+    if "pool" in name:
+        return "pooling"
+    if "gemm" in name or "cublas" in name:
+        return "matmul"
+    if "reduce" in name:
+        return "reduction"
+    if "elementwise" in name or "vectorized" in name:
+        return "elementwise"
+    return "other"
+
+
+def resnet_train(torch, mt, smi):
+    """(b) ResNet-50 at 224 with 1000 classes, batch 128, on numpy-seeded
+    data pre-staged on the card as bench.py stages it: 3 eager warm-up
+    steps, one capture, 20 replays with an lr change between them; the
+    last replay against the same step run eagerly from the same state;
+    the step's img/s and profile; the 23 steps against the classic
+    path's; Module.fit's img/s over an NDArrayIter."""
+    b = RESNET_BATCH
+    gpu = mt.gpu(0)
+    sym = mt.models.get_resnet50(1000)
+    t0 = time.perf_counter()
+    init = mt.mod.Module(sym, context=mt.cpu())
+    init.bind([("data", (1, 3, 224, 224))], [("softmax_label", (1,))])
+    mt.random.seed(0)
+    init.init_params(mt.init.Xavier(factor_type="in", magnitude=2.34))
+    arg0, aux0 = init.get_params()
+    del init
+    n_params = sum(v.size for v in arg0.values())
+    rng = np.random.default_rng(9)
+    host_batches = [(rng.random((b, 3, 224, 224), dtype=np.float32),
+                     rng.integers(0, 1000, b).astype(np.float32))
+                    for _ in range(4)]
+    staged = [mt.io.DataBatch(data=[mt.nd.array(xb, ctx=gpu)],
+                              label=[mt.nd.array(yb, ctx=gpu)])
+              for xb, yb in host_batches]
+    print("train: resnet50 %d parameters (Xavier in, 2.34), %d aux, 4 "
+          "batches of %dx3x224x224 staged on the card in %.1f s"
+          % (n_params, len(aux0), b, time.perf_counter() - t0))
+    steps = RESNET_WARMUP + RESNET_REPLAYS
+
+    def module(fused):
+        with fused_train_env(fused):
+            mod = mt.mod.Module(sym, context=gpu)
+            mod.bind([("data", (b, 3, 224, 224))], [("softmax_label", (b,))])
+            mod.init_params(arg_params=arg0, aux_params=aux0)
+            sched = mt.lr_scheduler.MultiFactorScheduler([RESNET_LR_STEP],
+                                                         0.5)
+            mod.init_optimizer(optimizer="sgd", optimizer_params=dict(
+                TRAIN_OPT, lr_scheduler=sched))
+        if (mod._fused is not None) != fused:
+            fail("MXNET_FUSED_TRAIN=%d: fused step %s"
+                 % (fused, mod._fused is not None))
+        return mod
+
+    def one_step(mod, batch):
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+
+    def loss_of(mod, batch):
+        p = mod.get_outputs()[0]._get()
+        lab = batch.label[0]._get().long()
+        return float(-torch.log(p[torch.arange(b, device=p.device), lab]
+                                + 1e-12).mean())
+
+    def trained(fused):
+        """A module on the card after the 23 steps; -> (its host params,
+        its losses)."""
+        mod = module(fused)
+        losses = []
+        for i in range(steps):
+            one_step(mod, staged[i % len(staged)])
+            losses.append(loss_of(mod, staged[i % len(staged)]))
+        out = host_params(mod), losses
+        del mod
+        torch.cuda.empty_cache()
+        return out
+
+    # the captured steps, cuDNN in its default (nondeterministic) mode
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mod = module(True)
+    fused = mod._fused
+    losses, lrs = [], []
+    for i in range(steps):
+        batch = staged[i % len(staged)]
+        if i == steps - 1:
+            snap = clone_state(torch, fused.state)
+        one_step(mod, batch)
+        losses.append(loss_of(mod, batch))
+        lrs.append(float(fused.state["lr"]))
+    stats = fused.stats.report()
+    peak = torch.cuda.max_memory_allocated()
+    replayed = clone_state(torch, fused.state)
+    got = state_params(fused.state)
+    # the last replay against the same step run eagerly from its state
+    restore_state(torch, fused.state, snap)
+    fused._body(fused.make_batch(staged[(steps - 1) % len(staged)]))
+    eager = state_params(fused.state)
+    restore_state(torch, fused.state, replayed)
+    del snap, replayed
+    replay_err = worst_rel(got, eager, REPLAY_ATOL)
+    print("train: resnet50 %d steps of batch %d: %s; lr %s -> %s (after "
+          "update %d); loss %.4f -> %.4f; peak memory %.2f GiB"
+          % (steps, b, stats, lrs[0], lrs[-1], RESNET_LR_STEP, losses[0],
+             losses[-1], peak / 2**30))
+    print("train: resnet50 last replay vs the same step eager from the "
+          "same state: smallest rtol at atol %g: %.3g (gate %g)"
+          % (REPLAY_ATOL, replay_err, REPLAY_RTOL))
+    counts = {"captures": 1, "replays": RESNET_REPLAYS,
+              "eager_steps": RESNET_WARMUP}
+    if stats != counts:
+        fail("resnet50 fused step counts %s, want %s (one capture across "
+             "the lr change)" % (stats, counts))
+    if lrs[-1] != 0.5 * lrs[0]:
+        fail("resnet50 lr did not change: %s" % lrs)
+    if not all(math.isfinite(v) for v in losses):
+        fail("resnet50 loss not finite: %s" % losses)
+    if not params_close(got, eager, REPLAY_RTOL, REPLAY_ATOL):
+        fail("resnet50 replay differs from the eager step")
+
+    # the step alone, the batch on the card (bench.py's measure)
+    iters = 20
+    one_step(mod, staged[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        one_step(mod, staged[0])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / iters
+    wall, device, rows = device_profile(
+        torch, lambda: one_step(mod, staged[0]), reps=3)
+    print("train: resnet50 step (one replay, batch on the card): %.3f ms "
+          "wall = %.1f img/s; profile: %.3f ms wall, device %.3f ms, busy "
+          "share %.3f; captures %d (no recapture)"
+          % (step_s * 1e3, b / step_s, wall, device,
+             device / wall if wall else 0.0, fused.stats.captures))
+    for t, key, n in rows[:10]:
+        print("profile:   %8.3f ms  %5.1f%%  x%-3d %s"
+              % (t, 100.0 * t / device if device else 0.0, n, key[:90]))
+    groups = print_groups(rows, device, train_group, width=16)
+    # the same body run eagerly, by part: the profiler's ranges of the
+    # parts are rows of their own, left out of the kernels' sum
+    by_op = {}
+    _, _, erows = device_profile(
+        torch, lambda: fused._body(fused.make_batch(staged[0])), reps=2,
+        by_op=by_op)
+    edevice = sum(t for t, key, _ in erows if not key.startswith("fused:"))
+    parts = {"forward": by_op.get("fused:forward", 0.0),
+             "backward": sum(t for k, t in by_op.items()
+                             if k.startswith("autograd::engine")),
+             "update": by_op.get("fused:update", 0.0)}
+    parts["other"] = max(0.0, edevice - sum(parts.values()))
+    print("train: resnet50 eager step (the same body, not captured), "
+          "device %.3f ms by part: %s"
+          % (edevice, ", ".join("%s %.3f ms" % kv for kv in parts.items())))
+    if fused.stats.captures != 1:
+        fail("resnet50 recaptured: %s" % fused.stats.report())
+    del mod, fused
+    torch.cuda.empty_cache()
+
+    # the captured steps against the classic path's eager steps.  With
+    # cuDNN deterministic (set for this check only) they are the same
+    # arithmetic; in the default mode cuDNN's weight gradients use
+    # atomics, relus after BatchNorm amplify the last bits, and the
+    # classic path drifts from itself as far
+    torch.backends.cudnn.deterministic = True
+    try:
+        (det_f, _), (det_c, _) = trained(True), trained(False)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    det_err = worst_rel(det_f, det_c, 0.0)
+    (c1, closses), (c2, _) = trained(False), trained(False)
+    drift, self_drift = rel_l2(got, c1), rel_l2(c2, c1)
+    print("train: resnet50 captured vs classic eager, %d steps: cuDNN "
+          "deterministic: smallest rtol at atol 0: %.3g (gate %g); default "
+          "cuDNN: relative L2 %.3g, against the classic path's own "
+          "run-to-run %.3g (gate %g x); loss classic %.4f -> %.4f"
+          % (steps, det_err, DET_RTOL, drift, self_drift, DRIFT_RATIO,
+             closses[0], closses[-1]))
+    if not params_close(det_f, det_c, DET_RTOL, 0.0):
+        fail("resnet50 captured steps differ from the classic eager steps "
+             "under deterministic cuDNN")
+    if drift > DRIFT_RATIO * self_drift:
+        fail("resnet50 captured steps drift from the classic eager steps "
+             "further than the classic path from itself")
+
+    # Module.fit over an NDArrayIter: host batches copied in each step;
+    # the second epoch timed, between the ends of its first and last batch
+    n_fit = 8
+    rng = np.random.default_rng(10)
+    xs = rng.random((b * n_fit, 3, 224, 224), dtype=np.float32)
+    ys = rng.integers(0, 1000, b * n_fit).astype(np.float32)
+    marks = []
+
+    def mark(p):
+        if p.epoch == 1 and p.nbatch in (0, n_fit - 1):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+    fmod = mt.mod.Module(sym, context=gpu)
+    fmod.fit(mt.io.NDArrayIter(xs, ys, batch_size=b), num_epoch=2,
+             optimizer="sgd", optimizer_params=dict(TRAIN_OPT),
+             arg_params=arg0, aux_params=aux0, eval_metric="acc",
+             batch_end_callback=mark)
+    fit_stats = fmod._fused.stats.report()
+    fit_rate = b * (n_fit - 1) / (marks[1] - marks[0])
+    print("train: resnet50 Module.fit over an NDArrayIter (host batches): "
+          "%.1f img/s over epoch 2's last %d batches; fused step %s"
+          % (fit_rate, n_fit - 1, fit_stats))
+    if fit_stats["captures"] != 1 or \
+            fit_stats["replays"] != 2 * n_fit - RESNET_WARMUP:
+        fail("resnet50 fit made %s" % fit_stats)
+    del fmod, xs
+    torch.cuda.empty_cache()
+    return {"img_s": b / step_s, "fit_img_s": fit_rate, "wall": wall,
+            "device": device, "groups": groups, "parts": parts,
+            "stats": stats, "peak_gib": peak / 2**30, "drift": drift,
+            "self_drift": self_drift, "replay_rtol": replay_err,
+            "det_rtol": det_err}
+
+
+def train_phase(torch, mt, ck, smi):
+    print("train: TF32 allow_tf32 matmul=%s cudnn=%s (float32 products "
+          "throughout); card %s" % (torch.backends.cuda.matmul.allow_tf32,
+                                    torch.backends.cudnn.allow_tf32, smi))
+    ck.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        lenet = lenet_train(torch, mt, tmp, smi)
+    resnet = resnet_train(torch, mt, smi)
+    launches = dict(ck.LAUNCHES)
+    print("train: hand-kernel launches on the train path: %s" % launches)
+    if any(launches.values()):
+        fail("the train path launched hand kernels: %s" % launches)
+    return {"lenet": lenet, "resnet": resnet, "launches": launches}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2163,7 +2597,10 @@ def main():
     # phase 12: integer max pooling with padding, card against CPU
     int_pool_phase(torch)
 
-    # phase 13: results
+    # phase 13: training through Module, the fused step as a CUDA graph
+    train = train_phase(torch, mt, ck, smi)
+
+    # phase 14: results
     engines = {"float32": served, **quant}
     print("serve engines (VGG-16 224x224, 32 uint8 requests from 4 "
           "threads, buckets 1..8; card %s): %s" % (smi, json.dumps(

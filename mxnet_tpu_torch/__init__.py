@@ -2,7 +2,9 @@
 
 The same user surface as the JAX package, on one NVIDIA H100:
 ``import mxnet_tpu_torch as mx``, then ``mx.nd``, ``mx.sym``,
-``mx.predictor``, ``mx.serve``, ``mx.autotune``.  Plain tensor code is
+``mx.predictor``, ``mx.serve``, ``mx.autotune``, and for training
+``mx.mod``, ``mx.optimizer``, ``mx.init``, ``mx.metric``, ``mx.io``,
+``mx.lr_scheduler``, ``mx.callback`` and ``mx.random``.  Plain tensor code is
 PyTorch; the package's TPU kernels are hand-written Hopper kernels
 (``ops/cuda_kernels.py``, sources in ``csrc/``).  Entry points run on
 ``gpu(0)`` unless the caller asks for ``cpu()``.
@@ -30,9 +32,23 @@ from . import models
 from . import convert
 from . import parallel
 from . import autotune
+from . import random
+from . import random as rnd
+from . import initializer
+from . import initializer as init
+from . import optimizer
+from . import optimizer as opt
+from . import lr_scheduler
+from . import metric
+from . import io
+from . import callback
+from . import module
+from . import module as mod
 
 __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "current_context", "nd", "ndarray", "sym", "symbol", "ops",
            "AttrScope", "NameManager", "executor", "model", "predictor",
            "Predictor", "create_predictor", "passes", "serve", "models",
-           "convert", "parallel", "autotune"]
+           "convert", "parallel", "autotune", "random", "rnd",
+           "initializer", "init", "optimizer", "opt", "lr_scheduler",
+           "metric", "io", "callback", "module", "mod"]

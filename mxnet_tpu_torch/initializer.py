@@ -1,0 +1,220 @@
+"""Weight initializers (counterpart of ``mxnet_tpu/initializer.py``).
+
+The reference's name dispatch, unchanged: upsampling*, *bias, *gamma,
+*beta, *weight, *moving_mean, *moving_var and *moving_avg get their rules,
+everything else goes through the subclass hook.  The deterministic
+initializers give exactly the reference's values; the random ones draw
+from ``mx.random`` (the array's device generator) at the reference's
+scale, and Orthogonal from numpy's global stream, as the reference does.
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict
+
+import numpy as np
+
+from .base import MXNetError
+from .ndarray import NDArray
+from . import random as _random
+
+__all__ = ["Initializer", "Uniform", "Normal", "Orthogonal", "Xavier",
+           "MSRAPrelu", "Load", "Mixed", "One", "Zero"]
+
+
+class Initializer:
+    """Base initializer (reference initializer.py:14-84)."""
+
+    def __call__(self, name: str, arr: NDArray):
+        if not isinstance(name, str):
+            raise TypeError("name must be string")
+        if not isinstance(arr, NDArray):
+            raise TypeError("arr must be NDArray")
+        if name.startswith("upsampling"):
+            self._init_bilinear(name, arr)
+        elif name.endswith("bias"):
+            self._init_bias(name, arr)
+        elif name.endswith("gamma"):
+            self._init_gamma(name, arr)
+        elif name.endswith("beta"):
+            self._init_beta(name, arr)
+        elif name.endswith("weight"):
+            self._init_weight(name, arr)
+        elif name.endswith("moving_mean"):
+            self._init_zero(name, arr)
+        elif name.endswith("moving_var"):
+            self._init_one(name, arr)
+        elif name.endswith("moving_avg"):
+            self._init_zero(name, arr)
+        else:
+            self._init_default(name, arr)
+
+    def _init_bilinear(self, _, arr: NDArray):
+        weight = np.zeros(arr.shape, dtype=np.float32).reshape(-1)
+        shape = arr.shape
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        for i in range(np.prod(shape)):
+            x = i % shape[3]
+            y = (i // shape[3]) % shape[2]
+            weight[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        arr[:] = weight.reshape(shape)
+
+    def _init_zero(self, _, arr):
+        arr[:] = 0.0
+
+    def _init_one(self, _, arr):
+        arr[:] = 1.0
+
+    def _init_bias(self, _, arr):
+        arr[:] = 0.0
+
+    def _init_gamma(self, _, arr):
+        arr[:] = 1.0
+
+    def _init_beta(self, _, arr):
+        arr[:] = 0.0
+
+    def _init_weight(self, name, arr):
+        raise NotImplementedError("Must override it")
+
+    def _init_default(self, name, _):
+        raise ValueError("Unknown initialization pattern for %s" % name)
+
+
+class Uniform(Initializer):
+    """U(-scale, scale) (reference initializer.py:87)."""
+
+    def __init__(self, scale=0.07):
+        self.scale = scale
+
+    def _init_weight(self, _, arr):
+        _random.uniform(-self.scale, self.scale, out=arr)
+
+
+class Normal(Initializer):
+    """N(0, sigma) (reference initializer.py:99)."""
+
+    def __init__(self, sigma=0.01):
+        self.sigma = sigma
+
+    def _init_weight(self, _, arr):
+        _random.normal(0, self.sigma, out=arr)
+
+
+class Orthogonal(Initializer):
+    """Orthogonal init (reference initializer.py:111, Saxe et al / Exact
+    solutions to the nonlinear dynamics of learning)."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = np.random.uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = np.random.normal(0.0, 1.0, (nout, nin))
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        res = u if u.shape == tmp.shape else v
+        arr[:] = (self.scale * res).reshape(arr.shape).astype(np.float32)
+
+
+class Xavier(Initializer):
+    """Xavier/Glorot (reference initializer.py:143)."""
+
+    def __init__(self, rnd_type="uniform", factor_type="avg", magnitude=3):
+        self.rnd_type = rnd_type
+        self.factor_type = factor_type
+        self.magnitude = float(magnitude)
+
+    def _init_weight(self, _, arr):
+        shape = arr.shape
+        hw_scale = 1.0
+        if len(shape) > 2:
+            hw_scale = np.prod(shape[2:])
+        fan_in, fan_out = shape[1] * hw_scale, shape[0] * hw_scale
+        factor = 1.0
+        if self.factor_type == "avg":
+            factor = (fan_in + fan_out) / 2.0
+        elif self.factor_type == "in":
+            factor = fan_in
+        elif self.factor_type == "out":
+            factor = fan_out
+        else:
+            raise ValueError("Incorrect factor type")
+        scale = np.sqrt(self.magnitude / factor)
+        if self.rnd_type == "uniform":
+            _random.uniform(-scale, scale, out=arr)
+        elif self.rnd_type == "gaussian":
+            _random.normal(0, scale, out=arr)
+        else:
+            raise ValueError("Unknown random type")
+
+
+class MSRAPrelu(Xavier):
+    """MSRA (He) init for PReLU nets (reference initializer.py:186)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        magnitude = 2.0 / (1 + slope ** 2)
+        super().__init__("gaussian", factor_type, magnitude)
+
+
+class Load:
+    """Initialize from existing param dict (reference initializer.py:199)."""
+
+    def __init__(self, param: Dict[str, NDArray], default_init=None, verbose=False):
+        self.param = {}
+        for name, arr in param.items():
+            if name.startswith("arg:") or name.startswith("aux:"):
+                self.param[name[4:]] = arr
+            else:
+                self.param[name] = arr
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            if tuple(arr.shape) != tuple(self.param[name].shape):
+                raise MXNetError("Parameter %s cannot be initialized from "
+                                 "loading. Shape mismatch, target %s vs loaded %s"
+                                 % (name, arr.shape, self.param[name].shape))
+            arr[:] = self.param[name]
+        else:
+            if self.default_init is None:
+                raise MXNetError("Cannot Initialize parameter %s" % name)
+            self.default_init(name, arr)
+
+
+class Mixed:
+    """Pattern-routed initializer mix (reference initializer.py:235)."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise MXNetError("patterns and initializers must have same length")
+        self.map = list(zip([re.compile(p) for p in patterns], initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr)
+                return
+        raise ValueError("Parameter name %s did not match any pattern" % name)
+
+
+class One(Initializer):
+    def _init_weight(self, _, arr):
+        arr[:] = 1.0
+
+    def _init_default(self, _, arr):
+        arr[:] = 1.0
+
+
+class Zero(Initializer):
+    def _init_weight(self, _, arr):
+        arr[:] = 0.0
+
+    def _init_default(self, _, arr):
+        arr[:] = 0.0

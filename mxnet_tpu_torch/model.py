@@ -1,11 +1,13 @@
 """The legacy checkpoint pair (counterpart of ``save_checkpoint`` /
 ``load_checkpoint`` in ``mxnet_tpu/model.py``): ``prefix-symbol.json``
 plus ``prefix-%04d.params`` with ``arg:``/``aux:`` key prefixes, in the
-formats both packages read and write."""
+formats both packages read and write; and ``BatchEndParam``, what the
+fit loop hands its batch-end callbacks."""
 from __future__ import annotations
 
 import glob
 import os
+from collections import namedtuple
 from typing import Dict, Optional, Tuple
 
 from .base import MXNetError
@@ -13,7 +15,10 @@ from .context import Context
 from .ndarray import NDArray, load as nd_load, save as nd_save
 from .symbol import Symbol, load_json as sym_load_json
 
-__all__ = ["save_checkpoint", "load_checkpoint"]
+__all__ = ["save_checkpoint", "load_checkpoint", "BatchEndParam"]
+
+BatchEndParam = namedtuple("BatchEndParams",
+                           ["epoch", "nbatch", "eval_metric", "locals"])
 
 
 def save_checkpoint(prefix: str, epoch: int, symbol: Symbol,

@@ -1,6 +1,9 @@
 """Model zoo: the networks the port carries so far, built on its symbol
 API exactly as the JAX package builds them."""
 from .mlp import get_mlp
+from .lenet import get_lenet
+from .resnet import get_resnet, get_resnet50, get_resnet_cifar
 from .vgg import get_vgg
 
-__all__ = ["get_mlp", "get_vgg"]
+__all__ = ["get_mlp", "get_lenet", "get_resnet", "get_resnet50",
+           "get_resnet_cifar", "get_vgg"]

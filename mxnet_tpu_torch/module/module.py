@@ -1,0 +1,414 @@
+"""Module: the intermediate-level API over one symbol on one device
+(counterpart of ``mxnet_tpu/module/module.py``).
+
+Two paths, as in the reference:
+
+* **fused** (the default when the configuration allows it, ``_fusable``):
+  ``forward(is_train=True)`` stores the batch in the fused step's static
+  buffers, ``backward()`` does nothing, and ``update()`` runs the whole
+  batch body, one CUDA graph replay on the card (``module/fused.py``).
+  An eval forward runs on the live params.  Explicit head gradients or a
+  change to the optimizer values the step baked in leave the fused path
+  for the classic one (``_disable_fused``), with the params, the
+  optimizer state and the step count carried over;
+* **classic**: the executor group's forward and backward, then the
+  updater per parameter, as the reference's kvstore-less local path.
+
+``MXNET_FUSED_TRAIN=0`` keeps the module on the classic path (the
+fused-against-classic parity check).  The params the module hands out
+(``get_params``) are host arrays.
+"""
+from __future__ import annotations
+
+import logging
+
+from ..base import MXNetError, get_env
+from ..context import Context, cpu, current_context
+from ..initializer import Uniform
+from ..ndarray import NDArray, zeros as nd_zeros
+from .. import optimizer as opt_mod
+from .base_module import BaseModule
+from .executor_group import DataParallelExecutorGroup
+from .fused import FusedTrainStep
+
+__all__ = ["Module"]
+
+
+def _check_kvstore(kvstore, num_device):
+    """The reference's ``_create_kvstore`` on one device: "local",
+    "device" or None select no kvstore and the updater runs the update.
+    The dist stores wait for scale-out (ROADMAP.md, queue 1 item 10), a
+    KVStore object for kvstore's local modes (item 2)."""
+    if kvstore is None or (isinstance(kvstore, str) and num_device == 1
+                           and "dist" not in kvstore):
+        return
+    item = 10 if isinstance(kvstore, str) and "dist" in kvstore else 2
+    raise NotImplementedError(
+        "kvstore %r is not in the port yet; on one device pass "
+        "kvstore='local' or None (ROADMAP.md, queue 1 item %d)"
+        % (kvstore, item))
+
+
+class Module(BaseModule):
+    """Module over a Symbol (reference module.py:18)."""
+
+    def __init__(self, symbol, data_names=("data",),
+                 label_names=("softmax_label",), logger=logging,
+                 context=None, work_load_list=None, fixed_param_names=None):
+        super().__init__(logger=logger)
+        if context is None:
+            context = [current_context()]
+        if isinstance(context, Context):
+            context = [context]
+        self._context = context
+        if work_load_list is None:
+            work_load_list = [1] * len(self._context)
+        assert len(work_load_list) == len(self._context)
+        self._work_load_list = work_load_list
+        self._symbol = symbol
+        data_names = list(data_names) if data_names else []
+        label_names = list(label_names) if label_names else []
+        arg_names = symbol.list_arguments()
+        input_names = data_names + label_names
+        self._param_names = [x for x in arg_names if x not in input_names]
+        self._fixed_param_names = list(fixed_param_names) \
+            if fixed_param_names else []
+        self._aux_names = symbol.list_auxiliary_states()
+        self._data_names = data_names
+        self._label_names = label_names
+        self._output_names = symbol.list_outputs()
+        self._arg_params = None
+        self._aux_params = None
+        self._params_dirty = False
+        self._optimizer = None
+        self._updater = None
+        self._exec_group = None
+        self._data_shapes = None
+        self._label_shapes = None
+        self._grad_req = "write"
+        # the fused step and its per-batch artifacts: the batch stored by
+        # a train forward, the last step's outputs (copies, made lazily),
+        # and the number of fused steps taken
+        self._fused = None
+        self._fused_hsig = None
+        self._fused_pending = None
+        self._fused_outputs = None
+        self._fused_copies = None
+        self._fused_t = 0
+
+    # -- properties ------------------------------------------------------------
+    @property
+    def data_names(self):
+        return self._data_names
+
+    @property
+    def output_names(self):
+        return self._output_names
+
+    @property
+    def data_shapes(self):
+        assert self.binded
+        return self._data_shapes
+
+    @property
+    def label_shapes(self):
+        assert self.binded
+        return self._label_shapes
+
+    @property
+    def output_shapes(self):
+        assert self.binded
+        shapes = dict(self._data_shapes)
+        shapes.update(dict(self._label_shapes or []))
+        _, out_shapes, _ = self._symbol.infer_shape(**shapes)
+        return list(zip(self._output_names, [tuple(s) for s in out_shapes]))
+
+    # -- params ------------------------------------------------------------------
+    def get_params(self):
+        assert self.binded and self.params_initialized
+        if self._params_dirty:
+            self._sync_params_from_devices()
+        return (self._arg_params, self._aux_params)
+
+    def init_params(self, initializer=Uniform(0.01), arg_params=None,
+                    aux_params=None, allow_missing=False, force_init=False):
+        """Initialize the host params (``initializer`` by name, or copies
+        of ``arg_params``/``aux_params``) and write them to the device."""
+        if self.params_initialized and not force_init:
+            return
+        assert self.binded, "call bind before initializing the parameters"
+        if self._arg_params is None:
+            self._arg_params = {
+                name: nd_zeros(blk[0].shape, ctx=cpu(), dtype=blk[0].dtype)
+                for name, blk in zip(self._param_names,
+                                     self._exec_group.param_arrays)}
+        if self._aux_params is None:
+            self._aux_params = {
+                name: nd_zeros(blk[0].shape, ctx=cpu(), dtype=blk[0].dtype)
+                for name, blk in zip(self._aux_names,
+                                     self._exec_group.aux_arrays)}
+
+        def _impl(name, arr, cache):
+            if cache is not None:
+                if name in cache:
+                    if cache[name] is not arr:
+                        cache[name].copyto(arr)
+                else:
+                    if not allow_missing:
+                        raise RuntimeError("%s is not presented" % name)
+                    if initializer is not None:
+                        initializer(name, arr)
+            else:
+                initializer(name, arr)
+
+        for name, arr in self._arg_params.items():
+            _impl(name, arr, arg_params)
+        for name, arr in self._aux_params.items():
+            _impl(name, arr, aux_params)
+        self.params_initialized = True
+        self._params_dirty = False
+        self._exec_group.set_params(self._arg_params, self._aux_params)
+        if self._fused is not None:
+            self._fused_init_state()
+
+    def _sync_params_from_devices(self):
+        if self._fused is not None:
+            self._fused.read_params(self._arg_params, self._aux_params)
+            self._exec_group.set_params(self._arg_params, self._aux_params)
+        else:
+            self._exec_group.get_params(self._arg_params, self._aux_params)
+        self._params_dirty = False
+
+    # -- bind ---------------------------------------------------------------------
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
+        if shared_module is not None:
+            raise NotImplementedError(
+                "bind(shared_module=...) belongs to the bucketing module, "
+                "which is not in the port yet (ROADMAP.md, queue 1 item 2)")
+        if force_rebind:
+            self.binded = False
+            self._exec_group = None
+        if self.binded:
+            self.logger.warning("Already binded, ignoring bind()")
+            return
+        self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
+        self.binded = True
+        if not for_training:
+            assert not inputs_need_grad
+        self._data_shapes = [tuple(x) for x in data_shapes]
+        self._label_shapes = [tuple(x) for x in label_shapes] \
+            if label_shapes else None
+        self._grad_req = grad_req
+        self._exec_group = DataParallelExecutorGroup(
+            self._symbol, self._context, self._work_load_list,
+            self._data_shapes, self._label_shapes, self._param_names,
+            for_training, inputs_need_grad, None, logger=self.logger,
+            fixed_param_names=self._fixed_param_names, grad_req=grad_req)
+        if self.params_initialized:
+            self._exec_group.set_params(self._arg_params, self._aux_params)
+
+    # -- optimizer -----------------------------------------------------------------
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=None, force_init=False):
+        """reference module.py:271-335, on one device: no kvstore, the
+        updater (or the fused step) runs the update."""
+        assert self.binded and self.params_initialized
+        if optimizer_params is None:
+            optimizer_params = (("learning_rate", 0.01),)
+        if self.optimizer_initialized and not force_init:
+            self.logger.warning("optimizer already initialized, "
+                                "ignoring...")
+            return
+        if self._params_dirty:
+            self._sync_params_from_devices()
+        _check_kvstore(kvstore, len(self._context))
+        if isinstance(optimizer, str):
+            idx2name = dict(enumerate(self._param_names))
+            optimizer_params = dict(optimizer_params)
+            if "rescale_grad" not in optimizer_params:
+                optimizer_params["rescale_grad"] = \
+                    1.0 / self._exec_group.batch_size
+            optimizer = opt_mod.create(optimizer, sym=self.symbol,
+                                       param_idx2name=idx2name,
+                                       **optimizer_params)
+        elif not isinstance(optimizer, opt_mod.Optimizer):
+            raise MXNetError("optimizer must be a name or an Optimizer")
+        self._optimizer = optimizer
+        self._updater = opt_mod.get_updater(optimizer)
+        self.optimizer_initialized = True
+        self._setup_fused()
+
+    def _fusable(self):
+        """Whether the batch body can run as the fused step with the
+        reference's semantics; anything else takes the classic path."""
+        if not get_env("MXNET_FUSED_TRAIN", True, bool):
+            return False
+        if not self.for_training or self.inputs_need_grad:
+            return False
+        if self._grad_req != "write":
+            return False
+        if self._optimizer.fused_update_fn() is None:
+            return False
+        return True
+
+    def _setup_fused(self):
+        self._fused = None
+        self._fused_pending = None
+        self._fused_outputs = None
+        self._fused_copies = None
+        if not self._fusable():
+            return
+        self._fused = FusedTrainStep(
+            self._symbol, self._context[0], self._data_names,
+            self._label_names, self._param_names, self._fixed_param_names,
+            self._optimizer)
+        self._fused_hsig = self._fused.hparam_signature()
+        self._fused_init_state()
+
+    def _fused_init_state(self):
+        self._fused.init_state(self._arg_params, self._aux_params)
+        self._fused_t = 0
+        self._fused_pending = None
+        self._fused_outputs = None
+        self._fused_copies = None
+
+    def _disable_fused(self, reason, replay_backward=True):
+        """Leave the fused path mid-training with consistent state: the
+        live params back into the host dicts and the executor group, the
+        optimizer state to the classic updater, the step count to the
+        optimizer's per-index counts, and a pending batch replayed
+        through the executor group."""
+        if self._fused is None:
+            return
+        fused, pend = self._fused, self._fused_pending
+        fused.read_params(self._arg_params, self._aux_params)
+        self._exec_group.set_params(self._arg_params, self._aux_params)
+        self._params_dirty = False
+        if self._fused_t:
+            counts = self._optimizer._index_update_count
+            for i in range(len(self._param_names)):
+                counts.setdefault(i, self._fused_t)
+
+        def _to_nd(x):
+            if x is None:
+                return None
+            if isinstance(x, (tuple, list)):
+                return tuple(_to_nd(e) for e in x)
+            return NDArray(x.detach().clone())
+        for i, n in enumerate(self._param_names):
+            if n in fused.state["opt"]:
+                self._updater.states[i] = _to_nd(fused.state["opt"][n])
+        self._fused = None
+        self._fused_pending = None
+        self._fused_outputs = None
+        self._fused_copies = None
+        if pend is not None:
+            from ..io import DataBatch
+            eg = self._exec_group
+            batch = DataBatch(data=[NDArray(pend[n]) for n in eg.data_names],
+                              label=[NDArray(pend[n])
+                                     for n in eg.label_names])
+            eg.forward(batch, True)
+            if replay_backward:
+                eg.backward()
+        self.logger.info("fused train step disabled: %s", reason)
+
+    # -- computation ------------------------------------------------------------
+    def forward(self, data_batch, is_train=None):
+        assert self.binded and self.params_initialized
+        if is_train is None:
+            is_train = self.for_training
+        if self._fused is not None:
+            if is_train:
+                # deferred: update() runs the whole batch body
+                self._fused_pending = self._fused.make_batch(data_batch)
+                self._fused_outputs = None
+                self._fused_copies = None
+                return
+            dev = self._fused.device
+            batch = {n: a._get().to(dev) for n, a in
+                     zip(self._data_names, data_batch.data)}
+            batch.update({n: a._get().to(dev) for n, a in
+                          zip(self._label_names, data_batch.label or [])})
+            missing = [n for n in self._data_names + self._label_names
+                       if n not in batch]
+            for n in missing:
+                shape = dict(self._data_shapes + (self._label_shapes or []))
+                batch[n] = nd_zeros(shape[n], ctx=self._context[0])._get()
+            self._fused_outputs = self._fused.forward_only(batch, False)
+            self._fused_copies = None
+            return
+        self._exec_group.forward(data_batch, is_train)
+
+    def backward(self, out_grads=None):
+        assert self.binded and self.params_initialized
+        if self._fused is not None and self._fused_pending is not None:
+            if out_grads is None:
+                return
+            self._disable_fused("explicit head gradients",
+                                replay_backward=False)
+        self._exec_group.backward(out_grads=out_grads)
+
+    def update(self):
+        """reference module.py:377-394."""
+        assert self.binded and self.params_initialized and \
+            self.optimizer_initialized
+        self._params_dirty = True
+        if self._fused is not None and self._fused_pending is not None:
+            if self._fused.hparam_signature() != self._fused_hsig:
+                self._disable_fused("optimizer hyperparameters changed")
+                self._params_dirty = True
+            else:
+                self._fused_t += 1
+                self._optimizer.num_update = max(self._optimizer.num_update,
+                                                 self._fused_t)
+                self._fused_outputs = self._fused.step(self._fused_pending)
+                self._fused_copies = None
+                self._fused_pending = None
+                return
+        for i, (weights, grads) in enumerate(zip(
+                self._exec_group.param_arrays,
+                self._exec_group.grad_arrays)):
+            if grads[0] is None:
+                continue
+            self._updater(i, grads[0], weights[0])
+
+    def get_outputs(self, merge_multi_context=True):
+        """The last forward's outputs.  On the fused path these are copies
+        of the step's buffers (a later replay overwrites those); outputs
+        asked for between a train forward and update() come from a
+        train-mode forward of the pending batch that commits nothing."""
+        assert self.binded and self.params_initialized
+        if self._fused is not None and (self._fused_outputs is not None
+                                        or self._fused_pending is not None):
+            if self._fused_copies is None:
+                if self._fused_outputs is None:
+                    self._fused_outputs = self._fused.forward_only(
+                        self._fused_pending, True)
+                self._fused_copies = [NDArray(o.clone())
+                                      for o in self._fused_outputs]
+            if merge_multi_context:
+                return list(self._fused_copies)
+            return [[o] for o in self._fused_copies]
+        return self._exec_group.get_outputs(
+            merge_multi_context=merge_multi_context)
+
+    def get_input_grads(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized and \
+            self.inputs_need_grad
+        return self._exec_group.get_input_grads(
+            merge_multi_context=merge_multi_context)
+
+    def update_metric(self, eval_metric, labels):
+        if self._fused is not None and (self._fused_outputs is not None
+                                        or self._fused_pending is not None):
+            eval_metric.update(labels, self.get_outputs())
+            return
+        self._exec_group.update_metric(eval_metric, labels)
+
+    def install_monitor(self, mon):
+        raise NotImplementedError("monitor.py is not in the port yet "
+                                  "(ROADMAP.md, queue 1 item 2)")

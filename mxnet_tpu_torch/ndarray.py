@@ -24,8 +24,8 @@ import torch
 from .base import MXNetError, atomic_local_write, numeric_types
 from .context import Context, context_of, current_context
 
-__all__ = ["NDArray", "array", "zeros", "empty", "save", "load", "loads",
-           "torch_dtype", "numpy_dtype"]
+__all__ = ["NDArray", "array", "zeros", "empty", "concatenate", "save",
+           "load", "loads", "torch_dtype", "numpy_dtype"]
 
 _TORCH_DTYPES = {
     "float32": torch.float32, "float16": torch.float16,
@@ -121,6 +121,33 @@ class NDArray:
     def asnumpy(self) -> np.ndarray:
         return _tensor_to_numpy(self._data)
 
+    def __getitem__(self, key):
+        """``arr[i]`` or ``arr[start:stop]`` along the first axis: a view
+        that shares this array's buffer, as the reference's slice does."""
+        if isinstance(key, slice) and key.step not in (None, 1):
+            raise MXNetError("NDArray slices take no step; got %r" % (key,))
+        if not isinstance(key, (slice, int, np.integer)):
+            raise MXNetError("NDArray in the port supports arr[i] and "
+                             "arr[start:stop]; got key %r" % (key,))
+        return NDArray(self._data[key])
+
+    def copy(self) -> "NDArray":
+        """A new array with a copy of the data, on the same device."""
+        return NDArray(self._data.detach().clone())
+
+    def copyto(self, other) -> "NDArray":
+        """Copy into ``other``: an NDArray (written in place, cast to its
+        dtype) or a Context (a new array there)."""
+        if isinstance(other, NDArray):
+            if other is self:
+                return other
+            other[:] = self
+            return other
+        if isinstance(other, Context):
+            return NDArray(self._data.detach().to(
+                other.torch_device(), copy=True))
+        raise TypeError("copyto does not support type %s" % type(other))
+
     def __setitem__(self, key, value):
         """``arr[:] = value``: write in place, casting to this array's
         dtype and device (the buffer itself never changes)."""
@@ -182,6 +209,11 @@ def array(source_array, ctx: Optional[Context] = None,
         return NDArray(t)
     t = _tensor_from_numpy(np.asarray(source_array))
     return NDArray(t.to(device=device, dtype=torch_dtype(dtype)))
+
+
+def concatenate(arrays, axis: int = 0) -> NDArray:
+    """Join arrays of one device along ``axis`` into a new array."""
+    return NDArray(torch.cat([a._get() for a in arrays], dim=axis))
 
 
 # ---------------------------------------------------------------------------

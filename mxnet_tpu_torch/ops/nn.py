@@ -1,10 +1,13 @@
 """Neural-network layer ops (counterpart of ``mxnet_tpu/ops/nn.py``).
 
-Forward only, and only the layers VGG-16, the MLP and FlowNetC's
-correlation stage use.  Convolution goes to ``torch.nn.functional.conv2d``
-and the plain matrix product to ``torch.matmul``, as the JAX package left
-both to XLA.  Layouts are the reference's: NCHW data, OIHW convolution
-weights, (N, K) FC weights.
+The layers VGG-16, the MLP, LeNet, ResNet and FlowNetC's correlation
+stage use.  Convolution goes to ``torch.nn.functional.conv2d``, the
+plain matrix product to ``torch.matmul`` and BatchNorm's normalization to
+``F.batch_norm``, as the JAX package left them to XLA.  Layouts are the
+reference's: NCHW data, OIHW convolution weights, (N, K) FC weights.
+
+Gradients come from autograd, except SoftmaxOutput's, which is the
+reference's injected loss gradient (an ``autograd.Function``).
 """
 from __future__ import annotations
 
@@ -175,24 +178,165 @@ class PoolingOp(OpDef):
         return [out]
 
 
+@register_op("BatchNorm", hint="batchnorm")
+class BatchNormOp(OpDef):
+    """reference batch_norm-inl.h (eps 1e-3, momentum 0.9, fix_gamma).
+
+    The statistics are float32 and the variance is the biased one,
+    mean((x - mu)^2), for the normalization and for the moving average
+    alike: ``F.batch_norm`` normalizes with batch statistics but is never
+    handed the aux tensors, whose own update would use the unbiased
+    variance.  A train forward returns the new moving states
+    ``m * old + (1 - m) * stat``."""
+    params = [Param("eps", float, default=1e-3),
+              Param("momentum", float, default=0.9),
+              Param("fix_gamma", bool, default=True),
+              Param("use_global_stats", bool, default=False)]
+
+    def list_arguments(self, p):
+        return ["data", "gamma", "beta"]
+
+    def list_auxiliary_states(self, p):
+        return ["moving_mean", "moving_var"]
+
+    def infer_shape(self, p, in_shapes):
+        d = in_shapes[0]
+        if d is None:
+            return in_shapes, [None], []
+        c = (d[1],) if len(d) > 1 else (d[0],)
+        return [d, c, c], [d], [c, c]
+
+    def forward(self, p, inputs, aux, ctx):
+        x, gamma, beta = inputs
+        moving_mean, moving_var = aux
+        xf = x.float()
+        # fix_gamma: ones in gamma's place, so gamma's gradient is 0
+        weight = None if p.fix_gamma else gamma.float()
+        if ctx.is_train and not p.use_global_stats:
+            y = F.batch_norm(xf, None, None, weight, beta.float(),
+                             training=True, eps=p.eps)
+            axes = [0] + list(range(2, x.dim()))
+            with torch.no_grad():
+                var, mean = torch.var_mean(xf, dim=axes, unbiased=False)
+                m = p.momentum
+                new_mean = (m * moving_mean.float() + (1 - m) * mean)
+                new_var = (m * moving_var.float() + (1 - m) * var)
+            return [y.to(x.dtype)], [new_mean.to(moving_mean.dtype),
+                                     new_var.to(moving_var.dtype)]
+        y = F.batch_norm(xf, moving_mean.float(), moving_var.float(),
+                         weight, beta.float(), training=False, eps=p.eps)
+        return [y.to(x.dtype)]
+
+
+@register_op("CuDNNBatchNorm", hint="cudnnbatchnorm")
+class CuDNNBatchNormOp(BatchNormOp):
+    """reference cudnn_batch_norm-inl.h: the same semantics, an alias."""
+
+
 @register_op("Dropout", hint="dropout")
 class DropoutOp(OpDef):
-    """The identity at inference; training comes with the training slice."""
+    """The identity at inference; in training each element is kept with
+    probability 1 - p and scaled by 1 / (1 - p) (reference dropout-inl.h),
+    the mask drawn from the op context's generator."""
     params = [Param("p", float, default=0.5)]
     needs_rng = True
 
     def forward(self, p, inputs, aux, ctx):
-        if ctx.is_train and p.p > 0.0:
-            raise NotImplementedError(
-                "Dropout in training mode is not in the port yet "
-                "(ROADMAP.md, queue 1 item 2: training)")
-        return [inputs[0]]
+        x = inputs[0]
+        if not ctx.is_train or p.p <= 0.0:
+            return [x]
+        keep = 1.0 - p.p
+        mask = torch.rand(x.shape, generator=ctx.generator,
+                          device=x.device) < keep
+        return [torch.where(mask, x / keep, torch.zeros_like(x))]
+
+
+def _softmax_output(p, data):
+    """Softmax over the flattened non-batch axes (over axis 1 per
+    position with ``multi_output``)."""
+    n = data.shape[0]
+    if p.multi_output:
+        d3 = data.reshape(n, data.shape[1], -1)
+        return torch.softmax(d3, dim=1).reshape(data.shape)
+    return torch.softmax(data.reshape(n, -1), dim=1).reshape(data.shape)
+
+
+def _onehot(lab, k, dtype, axis):
+    """one_hot of integer labels along ``axis``; labels outside [0, k)
+    (ignore_label) give a zero row, as ``jax.nn.one_hot`` does."""
+    classes = torch.arange(k, device=lab.device)
+    shape = [1] * (lab.dim() + 1)
+    shape[axis] = k
+    return (lab.unsqueeze(axis) == classes.reshape(shape)).to(dtype)
+
+
+def softmax_output_grad(p, out, label):
+    """The reference's injected gradient (softmax_output-inl.h:96-195,
+    ``mxnet_tpu/ops/nn.py`` ``_softmax_output_forward``):
+    (softmax - onehot) * grad_scale, with ignore masking and the
+    null/batch/valid normalization; a label of the output's shape takes
+    the ``out - label`` branch."""
+    if out.shape == label.shape:
+        return (out - label) * p.grad_scale
+    n = out.shape[0]
+    if p.multi_output:
+        k = out.shape[1]
+        o3 = out.reshape(n, k, -1)
+        lab = label.reshape(n, -1).to(torch.int32)
+        grad = o3 - _onehot(lab, k, out.dtype, 1)
+        if p.use_ignore:
+            grad = grad * (label.reshape(n, 1, -1)
+                           != p.ignore_label).to(grad.dtype)
+        rest = o3.shape[2]
+        if p.normalization == "batch":
+            grad = grad * (p.grad_scale / (float(n) * rest))
+        elif p.normalization == "valid":
+            valid = torch.clamp_min((label != p.ignore_label).sum(), 1)
+            grad = grad * (p.grad_scale / valid.to(grad.dtype))
+        else:
+            grad = grad * (p.grad_scale / rest)
+        return grad.reshape(out.shape)
+    o2 = out.reshape(n, -1)
+    lab = label.reshape(-1).to(torch.int32)
+    grad = o2 - _onehot(lab, o2.shape[1], out.dtype, 1)
+    if p.use_ignore:
+        grad = grad * (label.reshape(-1, 1) != p.ignore_label).to(grad.dtype)
+    if p.normalization == "batch":
+        grad = grad * (p.grad_scale / n)
+    elif p.normalization == "valid":
+        valid = torch.clamp_min((label != p.ignore_label).sum(), 1)
+        grad = grad * (p.grad_scale / valid.to(grad.dtype))
+    else:
+        grad = grad * p.grad_scale
+    return grad.reshape(out.shape)
+
+
+class _SoftmaxOutputFn(torch.autograd.Function):
+    """Softmax forward; the backward ignores the head gradient and
+    injects :func:`softmax_output_grad` (the reference's custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, data, label, p):
+        out = _softmax_output(p, data)
+        ctx.save_for_backward(out, label)
+        ctx.p = p
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        out, label = ctx.saved_tensors
+        grad = softmax_output_grad(ctx.p, out, label)
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] \
+            else None
+        return grad, dlabel, None
 
 
 @register_op("SoftmaxOutput", hint="softmaxoutput")
 class SoftmaxOutputOp(OpDef):
-    """Inference forward: softmax over the flattened non-batch axes
-    (over axis 1 per position with ``multi_output``)."""
+    """reference softmax_output-inl.h: softmax forward; in training its
+    gradient is (softmax - onehot(label)) * grad_scale whatever the head
+    gradient."""
+    head_grad_optional = True
     params = [Param("grad_scale", float, default=1.0),
               Param("ignore_label", float, default=-1.0),
               Param("multi_output", bool, default=False),
@@ -217,20 +361,19 @@ class SoftmaxOutputOp(OpDef):
         return [d, lshape], [d], []
 
     def forward(self, p, inputs, aux, ctx):
-        data = inputs[0]
-        n = data.shape[0]
-        if p.multi_output:
-            d3 = data.reshape(n, data.shape[1], -1)
-            return [torch.softmax(d3, dim=1).reshape(data.shape)]
-        return [torch.softmax(data.reshape(n, -1), dim=1).reshape(data.shape)]
+        data, label = inputs
+        if torch.is_grad_enabled() and data.requires_grad:
+            return [_SoftmaxOutputFn.apply(data, label, p)]
+        return [_softmax_output(p, data)]
 
 
 @register_op("LeakyReLU", hint="leakyrelu")
 class LeakyReLUOp(OpDef):
     """Leaky, exponential and parametric rectifiers (reference
     leaky_relu-inl.h).  rrelu at inference uses the mean slope
-    (lower + upper) / 2; rrelu in training draws a slope per element and
-    raises until training is ported."""
+    (lower + upper) / 2; in training it draws a slope per element from
+    U(lower, upper) with the op context's generator (no gradient flows
+    to the slopes)."""
     params = [Param("act_type", str, default="leaky",
                     enum=["leaky", "prelu", "rrelu", "elu"]),
               Param("slope", float, default=0.25),
@@ -261,8 +404,9 @@ class LeakyReLUOp(OpDef):
             return [torch.where(x > 0, x, gamma * x)]
         if p.act_type == "rrelu":
             if ctx.is_train:
-                raise NotImplementedError(
-                    "LeakyReLU(act_type='rrelu') in training mode is not in "
-                    "the port yet (ROADMAP.md, queue 1 item 2: training)")
+                slope = torch.empty(x.shape, dtype=x.dtype,
+                                    device=x.device).uniform_(
+                    p.lower_bound, p.upper_bound, generator=ctx.generator)
+                return [torch.where(x > 0, x, slope * x)]
             return [F.leaky_relu(x, (p.lower_bound + p.upper_bound) / 2.0)]
         raise MXNetError("unknown act_type %s" % p.act_type)

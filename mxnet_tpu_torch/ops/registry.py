@@ -5,6 +5,12 @@ parameter schemas with dmlc-style string parsing, shape and type rules,
 argument names) is kept identical to the JAX package's, so a graph
 serializes to the same symbol JSON in both packages.  ``forward`` takes
 and returns ``torch.Tensor``s.
+
+Gradients come from autograd through each op's torch body; an op whose
+reference defines its own gradient (the loss layers) wraps its body in a
+``torch.autograd.Function``.  A train-mode forward of an op with
+auxiliary states returns ``(outputs, new_aux)``, as the reference does;
+the executor commits the new states.
 """
 from __future__ import annotations
 
@@ -80,10 +86,14 @@ class Param:
 
 
 class OpContext:
-    """Per-call execution context handed to forward."""
+    """Per-call execution context handed to forward: the train flag and
+    the ``torch.Generator`` the ops that draw (``needs_rng``: Dropout,
+    rrelu) take their numbers from.  The reference hands a jax PRNG key
+    here instead."""
 
-    def __init__(self, is_train: bool = False):
+    def __init__(self, is_train: bool = False, generator=None):
         self.is_train = is_train
+        self.generator = generator
 
 
 class OpDef:
@@ -95,6 +105,9 @@ class OpDef:
     params: List[Param] = []
     hint: Optional[str] = None
     needs_rng: bool = False
+    # the op's backward ignores the incoming gradient (loss layers): an
+    # omitted head gradient for its output is not an error
+    head_grad_optional: bool = False
     # an op that takes a variable number of inputs (Concat) names the
     # parameter that counts them; the symbol constructor fills it in
     variable_args: Optional[str] = None
@@ -149,7 +162,8 @@ class OpDef:
 
     # -- execution ----------------------------------------------------------
     def forward(self, p, inputs: List[Any], aux: List[Any], ctx: OpContext):
-        """Return the list of output tensors."""
+        """Return the list of output tensors, or ``(outputs, new_aux)``
+        for a train-mode forward that updates auxiliary states."""
         raise NotImplementedError(self.name)
 
 

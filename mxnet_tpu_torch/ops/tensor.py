@@ -1,7 +1,8 @@
 """Tensor ops (counterpart of ``mxnet_tpu/ops/tensor.py``): the
-shaping ops the port's models use, and the uint8 wire prologue's
-``Cast``, ``transpose``, ``_minus_scalar`` and ``_mul_scalar``.  The rest
-of the elementwise and scalar family comes with the training slice."""
+shaping ops the port's models use, ResNet's ``ElementWiseSum``, and the
+uint8 wire prologue's ``Cast``, ``transpose``, ``_minus_scalar`` and
+``_mul_scalar``.  The rest of the elementwise and scalar family waits
+(ROADMAP.md, queue 1 item 2)."""
 from __future__ import annotations
 
 import numpy as np
@@ -46,6 +47,27 @@ class ConcatOp(OpDef):
 
     def forward(self, p, inputs, aux, ctx):
         return [torch.cat(list(inputs), dim=p.dim)]
+
+
+@register_op("ElementWiseSum", hint="esum")
+class ElementWiseSumOp(OpDef):
+    """Sum of ``num_args`` inputs of one shape (reference
+    elementwise_sum-inl.h), added left to right."""
+    params = [Param("num_args", int, required=True)]
+    variable_args = "num_args"
+
+    def list_arguments(self, p):
+        return ["arg%d" % i for i in range(p.num_args)]
+
+    def infer_shape(self, p, in_shapes):
+        d = next((s for s in in_shapes if s is not None), None)
+        return [d] * len(in_shapes), [d], []
+
+    def forward(self, p, inputs, aux, ctx):
+        out = inputs[0]
+        for x in inputs[1:]:
+            out = out + x
+        return [out]
 
 
 @register_op("transpose", hint="transpose")

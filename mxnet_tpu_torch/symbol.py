@@ -153,6 +153,12 @@ class Symbol:
                     out.append("%s_%s" % (n.name, aux))
         return out
 
+    def attr_dict(self) -> Dict[str, Dict[str, str]]:
+        """{node name: its attributes} for every node that has some (the
+        optimizer reads ``lr_mult``/``wd_mult`` from here)."""
+        return {node.name: dict(node.attrs) for node in _topo(self._heads)
+                if node.attrs}
+
     def get_internals(self) -> "Symbol":
         heads = []
         for node in _topo(self._heads):
@@ -283,6 +289,12 @@ class Symbol:
         from .executor import simple_bind as _sb
         return _sb(self, ctx, grad_req=grad_req, type_dict=type_dict,
                    shared_exec=shared_exec, **kwargs)
+
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None):
+        from .executor import bind as _bind
+        return _bind(self, ctx, args, args_grad=args_grad,
+                     grad_req=grad_req, aux_states=aux_states)
 
 
 def Variable(name: str, attr=None, shape=None, lr_mult=None, wd_mult=None,

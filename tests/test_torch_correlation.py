@@ -216,10 +216,16 @@ def test_leaky_relu_matches_jax(name, params):
 
 
 def test_rrelu_in_training_raises_until_training_is_ported():
+    """Training is ported: rrelu in training mode draws one slope per
+    element from U(lower_bound, upper_bound) with the context's generator
+    (tests/test_torch_grad.py checks the draws' moments)."""
     op = port_get_op("LeakyReLU")
     p = op.parse_params({"act_type": "rrelu"})
-    with pytest.raises(NotImplementedError):
-        op.forward(p, [torch.zeros(2, 3)], [], PortOpContext(is_train=True))
+    gen = torch.Generator().manual_seed(0)
+    out = op.forward(p, [-torch.ones(2, 3)], [],
+                     PortOpContext(is_train=True, generator=gen))[0]
+    slopes = -out
+    assert ((slopes >= p.lower_bound) & (slopes < p.upper_bound)).all()
 
 
 @pytest.mark.parametrize("dim,n_in", [(1, 2), (0, 3), (3, 2)])
