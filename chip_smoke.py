@@ -84,7 +84,21 @@ Phases, in order; any failure exits nonzero:
    share and device time by kernel group and by part of the step, peak
    memory, the loss, and ``Module.fit``'s img/s over an ``NDArrayIter``;
    0 launches of the four hand kernels on the train path;
-14. the engines' requests/s and p50/p99, the ``kernels`` JSON line (all
+14. the PTB LSTM (``lstm_unroll``: 2 layers of 200, vocab 10,000, 32
+   steps, Xavier from a seed, SGD lr 0.1 with momentum 0.9, ids from a
+   seed) trained on the card: through ``Module`` at batch 2048, 3 eager
+   warm-up steps, 1 capture, 20 replays, the last replay against the same
+   step eager from the same state, the 23 steps bitwise against the
+   classic path's under deterministic algorithms, tokens/s, profile and
+   peak memory; the same step at 2x1024 batch 512 and at batch 32;
+   ``lstm_unroll_scan`` (the ``RNN`` op) against the unrolled form from
+   one checkpoint (output 1e-4, gradients 1e-3 relative) and its captured
+   step's tokens/s; ``BucketingModule.fit`` over buckets 10/20/30/40 at
+   batch 32 (wd 1e-5, 2 epochs of 16 seeded batches) on the card and the
+   CPU: 4 bucket modules on one parameter storage, the card's params
+   against the CPU's (rtol 1e-3, atol 1e-4), tokens/s and the busy share
+   of a classic step; 0 launches of the four hand kernels on these paths;
+15. the engines' requests/s and p50/p99, the ``kernels`` JSON line (all
    four kernels), then the ``{"ok": true, ...}`` line.
 """
 import json
@@ -2518,7 +2532,429 @@ def train_phase(torch, mt, ck, smi):
     return {"lenet": lenet, "resnet": resnet, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the PTB LSTM trained on the card
+
+# bench_lstm.py's model and example/rnn/lstm_bucketing.py's settings: 2
+# layers of 200, a 200-wide embedding, PTB's 10,000-word vocabulary, 32
+# steps, SGD lr 0.1 with momentum 0.9.  The PTB text is not in the
+# repository: token ids come from a numpy seed, staged as float32 as
+# bench_lstm.py stages them, the labels the next ids.
+LSTM_LAYERS, LSTM_HIDDEN, LSTM_VOCAB, LSTM_SEQ = 2, 200, 10000, 32
+LSTM_OPT = {"learning_rate": 0.1, "momentum": 0.9}
+LSTM_BATCH = 2048                # bench.py's headline leg
+# bench.py's two other legs: (name, hidden = embed, batch)
+LSTM_LEGS = [("h1024-b512", 1024, 512), ("h200-b32", 200, 32)]
+LSTM_REPLAYS = 20
+# lstm_unroll_scan (the RNN op) against lstm_unroll from one checkpoint:
+# tests/test_rnn_op.py's relative differences, output and gradients
+SCAN_OUT_TOL, SCAN_GRAD_TOL = 1e-4, 1e-3
+# example/rnn/lstm_bucketing.py: buckets, batch 32, weight decay 1e-5
+BUCKETS = (10, 20, 30, 40)
+BUCKET_BATCH, BUCKET_BATCHES, BUCKET_EPOCHS = 32, 16, 2
+BUCKET_OPT = dict(LSTM_OPT, wd=1e-5)
+
+
+def lstm_states(batch, hidden, order=sorted):
+    """The init-state inputs, bench_lstm.py's sorted order by default."""
+    names = order(["l%d_init_c" % i for i in range(LSTM_LAYERS)]
+                  + ["l%d_init_h" % i for i in range(LSTM_LAYERS)])
+    return [(n, (batch, hidden)) for n in names]
+
+
+def lstm_params(mt, hidden, seed):
+    """Xavier (sqrt(6 / fan_in)) host params of lstm_unroll at this width
+    from a numpy seed; both forms and every bucket share their names."""
+    sym = mt.models.lstm_unroll(LSTM_LAYERS, LSTM_SEQ, LSTM_VOCAB, hidden,
+                                hidden, LSTM_VOCAB)
+    shapes = dict([("data", (1, LSTM_SEQ)), ("softmax_label", (1, LSTM_SEQ))]
+                  + lstm_states(1, hidden))
+    return {k: mt.nd.array(v, ctx=mt.cpu())
+            for k, v in xavier_params(sym, shapes, seed).items()}
+
+
+def lstm_module(mt, model_fn, hidden, batch, arg0, fused, ctx=None):
+    sym = model_fn(LSTM_LAYERS, LSTM_SEQ, LSTM_VOCAB, hidden, hidden,
+                  LSTM_VOCAB)
+    states = lstm_states(batch, hidden)
+    with fused_train_env(fused):
+        mod = mt.mod.Module(sym, data_names=["data"] + [n for n, _ in states],
+                            label_names=["softmax_label"],
+                            context=ctx or mt.gpu(0))
+        mod.bind([("data", (batch, LSTM_SEQ))] + states,
+                 [("softmax_label", (batch, LSTM_SEQ))])
+        mod.init_params(arg_params=arg0, aux_params={})
+        mod.init_optimizer(optimizer="sgd", optimizer_params=dict(LSTM_OPT))
+    if (mod._fused is not None) != fused:
+        fail("MXNET_FUSED_TRAIN=%d: LSTM fused step %s"
+             % (fused, mod._fused is not None))
+    return mod
+
+
+def token_batch(mt, rng, ctx, batch, seq, hidden, states_order=sorted):
+    """Ids from ``rng`` as float32 data and next-id labels, zero states."""
+    ids = rng.integers(0, LSTM_VOCAB, (batch, seq + 1))
+    states = lstm_states(batch, hidden, states_order)
+    return mt.io.DataBatch(
+        data=[mt.nd.array(ids[:, :-1].astype(np.float32), ctx=ctx)]
+        + [mt.nd.zeros(sh, ctx=ctx) for _, sh in states],
+        label=[mt.nd.array(ids[:, 1:].astype(np.float32), ctx=ctx)],
+        bucket_key=seq,
+        provide_data=[("data", (batch, seq))] + states,
+        provide_label=[("softmax_label", (batch, seq))])
+
+
+def train_step(mod, batch):
+    mod.forward(batch, is_train=True)
+    mod.backward()
+    mod.update()
+
+
+def lstm_loss(torch, mod, batch):
+    """Mean next-token cross-entropy of the last step's outputs (time-major
+    rows, as the labels are flattened)."""
+    p = mod.get_outputs()[0]._get()
+    lab = batch.label[0]._get().t().reshape(-1).long()
+    return float(-torch.log(p[torch.arange(p.shape[0], device=p.device),
+                              lab] + 1e-12).mean())
+
+
+def lstm_group(name):
+    """Kernel groups of an LSTM training step."""
+    if "gemm" in name or "cublas" in name or "cutlass" in name or \
+            "xmma" in name:
+        return "matmul"
+    if "softmax" in name:
+        return "softmax"
+    if any(s in name for s in ("index", "sort", "scatter", "gather")):
+        return "embedding/index"
+    if "catarray" in name or "copy" in name or "memcpy" in name or \
+            "memset" in name:
+        return "copy/concat"
+    if "reduce" in name:
+        return "reduction"
+    if "elementwise" in name or "vectorized" in name:
+        return "elementwise"
+    return "other"
+
+
+def lstm_rate(torch, name, mod, batch, tokens, smi, iters=LSTM_REPLAYS):
+    """tokens/s of one train step (batch on the card), its profile and
+    kernel groups; -> dict."""
+    train_step(mod, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        train_step(mod, batch)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / iters
+    wall, device, rows = device_profile(torch, lambda: train_step(mod, batch),
+                                        reps=3)
+    print("lstm: %s step: %.3f ms wall = %.0f tokens/s; profile: %.3f ms "
+          "wall, device %.3f ms, busy share %.3f (card %s)"
+          % (name, step_s * 1e3, tokens / step_s, wall, device,
+             device / wall if wall else 0.0, smi))
+    for t, key, n in rows[:6]:
+        print("profile:   %8.3f ms  %5.1f%%  x%-4d %s"
+              % (t, 100.0 * t / device if device else 0.0, n, key[:90]))
+    groups = print_groups(rows, device, lstm_group, width=16)
+    return {"tokens_s": tokens / step_s, "step_ms": step_s * 1e3,
+            "wall": wall, "device": device, "groups": groups}
+
+
+def lstm_headline(torch, mt, arg0, smi):
+    """(a) lstm_unroll through Module at batch 2048: 3 eager warm-up
+    steps, 1 capture, 20 replays; the last replay against the same step
+    eager from the same state; the 23 steps bitwise against the classic
+    path's with deterministic algorithms; tokens/s and profile."""
+    b, gpu = LSTM_BATCH, mt.gpu(0)
+    rng = np.random.default_rng(21)
+    staged = [token_batch(mt, rng, gpu, b, LSTM_SEQ, LSTM_HIDDEN) for _ in range(2)]
+    steps = RESNET_WARMUP + LSTM_REPLAYS
+    build = mt.models.lstm_unroll
+
+    def trained(fused):
+        mod = lstm_module(mt, build, LSTM_HIDDEN, b, arg0, fused)
+        for i in range(steps):
+            train_step(mod, staged[i % 2])
+        out = host_params(mod)
+        del mod
+        torch.cuda.empty_cache()
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mod = lstm_module(mt, build, LSTM_HIDDEN, b, arg0, True)
+    fused = mod._fused
+    losses = []
+    for i in range(steps):
+        if i == steps - 1:
+            snap = clone_state(torch, fused.state)
+        train_step(mod, staged[i % 2])
+        if i in (0, steps - 1):
+            losses.append(lstm_loss(torch, mod, staged[i % 2]))
+    stats = fused.stats.report()
+    peak = torch.cuda.max_memory_allocated()
+    replayed = clone_state(torch, fused.state)
+    got = state_params(fused.state)
+    restore_state(torch, fused.state, snap)
+    fused._body(fused.make_batch(staged[(steps - 1) % 2]))
+    eager = state_params(fused.state)
+    restore_state(torch, fused.state, replayed)
+    del snap, replayed
+    replay_err = worst_rel(got, eager, REPLAY_ATOL)
+    print("lstm: %dx%d batch %d seq %d vocab %d, %d steps: %s; loss %.4f -> "
+          "%.4f; peak memory %.2f GiB (card %s)"
+          % (LSTM_LAYERS, LSTM_HIDDEN, b, LSTM_SEQ, LSTM_VOCAB, steps, stats,
+             losses[0], losses[-1], peak / 2**30, smi))
+    print("lstm: last replay vs the same step eager from the same state: "
+          "smallest rtol at atol %g: %.3g (gate %g)"
+          % (REPLAY_ATOL, replay_err, REPLAY_RTOL))
+    if stats != {"captures": 1, "replays": LSTM_REPLAYS,
+                 "eager_steps": RESNET_WARMUP}:
+        fail("lstm fused step counts %s" % stats)
+    if not all(math.isfinite(v) for v in losses):
+        fail("lstm loss not finite: %s" % losses)
+    if not params_close(got, eager, REPLAY_RTOL, REPLAY_ATOL):
+        fail("lstm replay differs from the eager step")
+    rate = lstm_rate(torch, "headline b%d" % b, mod, staged[0],
+                     b * LSTM_SEQ, smi)
+    if fused.stats.captures != 1:
+        fail("lstm recaptured: %s" % fused.stats.report())
+    del mod, fused, got, eager
+    torch.cuda.empty_cache()
+
+    # the captured steps against the classic path's eager steps, both
+    # with deterministic algorithms (Embedding's weight gradient is an
+    # index_put_ with accumulation, sorted; cuBLAS keeps one workspace)
+    torch.use_deterministic_algorithms(True)
+    try:
+        det_f, det_c = trained(True), trained(False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    det_err = worst_rel(det_f, det_c, 0.0)
+    bitwise = all(np.array_equal(g[k], w[k])
+                  for g, w in zip(det_f, det_c) for k in w)
+    print("lstm: %d captured steps vs %d classic eager steps, deterministic "
+          "algorithms: bitwise equal %s (smallest rtol at atol 0: %.3g)"
+          % (steps, steps, bitwise, det_err))
+    if not bitwise:
+        fail("lstm captured steps differ from the classic eager steps under "
+             "deterministic algorithms")
+    return {"rate": rate, "stats": stats, "peak_gib": peak / 2**30,
+            "losses": losses, "replay_rtol": replay_err, "bitwise": bitwise}
+
+
+def lstm_leg(torch, mt, name, hidden, batch, smi, seed):
+    """bench.py's other legs: the same step at another width or batch."""
+    arg = lstm_params(mt, hidden, seed)
+    rng = np.random.default_rng(seed + 1)
+    staged = token_batch(mt, rng, mt.gpu(0), batch, LSTM_SEQ, hidden)
+    mod = lstm_module(mt, mt.models.lstm_unroll, hidden, batch, arg, True)
+    for _ in range(RESNET_WARMUP + 1):
+        train_step(mod, staged)
+    rate = lstm_rate(torch, name, mod, staged, batch * LSTM_SEQ, smi)
+    loss = lstm_loss(torch, mod, staged)
+    stats = mod._fused.stats.report()
+    print("lstm: %s fused step %s, loss %.4f" % (name, stats, loss))
+    if stats["captures"] != 1 or not math.isfinite(loss):
+        fail("lstm %s: %s, loss %s" % (name, stats, loss))
+    del mod
+    torch.cuda.empty_cache()
+    return rate
+
+
+def scan_phase(torch, mt, arg0, smi):
+    """(b) lstm_unroll_scan (the RNN op) against lstm_unroll from one
+    checkpoint at batch 2048 (output and gradients), then its captured
+    step's tokens/s."""
+    b, gpu = LSTM_BATCH, mt.gpu(0)
+    batch = token_batch(mt, np.random.default_rng(23), gpu, b, LSTM_SEQ,
+                        LSTM_HIDDEN)
+    shapes = dict([("data", (b, LSTM_SEQ)), ("softmax_label", (b, LSTM_SEQ))]
+                  + lstm_states(b, LSTM_HIDDEN))
+    res = []
+    for build in (mt.models.lstm_unroll, mt.models.lstm_unroll_scan):
+        sym = build(LSTM_LAYERS, LSTM_SEQ, LSTM_VOCAB, LSTM_HIDDEN,
+                    LSTM_HIDDEN, LSTM_VOCAB)
+        exe = sym.simple_bind(gpu, grad_req="write", **shapes)
+        exe.copy_params_from(arg0)
+        exe.arg_dict["data"][:] = batch.data[0]
+        exe.arg_dict["softmax_label"][:] = batch.label[0]
+        exe.forward(is_train=True)
+        exe.backward()
+        res.append((exe.outputs[0]._get(),
+                    {n: exe.grad_dict[n]._get().clone() for n in arg0}))
+        del exe
+
+    def reldiff(a, b_):
+        return float((a.double() - b_.double()).abs().sum()
+                     / (a.double().abs().sum() + 1e-12))
+    out_rel = reldiff(res[0][0], res[1][0])
+    grad_rel = {n: reldiff(res[0][1][n], res[1][1][n]) for n in arg0}
+    worst = max(grad_rel, key=grad_rel.get)
+    print("lstm scan: RNN-op form vs unrolled, batch %d, one checkpoint: "
+          "output relative difference %.3g (gate %g), gradients worst %.3g "
+          "at %s (gate %g)" % (b, out_rel, SCAN_OUT_TOL, grad_rel[worst],
+                               worst, SCAN_GRAD_TOL))
+    del res
+    torch.cuda.empty_cache()
+    if out_rel >= SCAN_OUT_TOL or grad_rel[worst] >= SCAN_GRAD_TOL:
+        fail("lstm_unroll_scan differs from lstm_unroll")
+    mod = lstm_module(mt, mt.models.lstm_unroll_scan, LSTM_HIDDEN, b, arg0, True)
+    for _ in range(RESNET_WARMUP + 1):
+        train_step(mod, batch)
+    rate = lstm_rate(torch, "scan b%d" % b, mod, batch, b * LSTM_SEQ, smi)
+    stats = mod._fused.stats.report()
+    loss = lstm_loss(torch, mod, batch)
+    print("lstm scan: fused step %s, loss %.4f" % (stats, loss))
+    if stats["captures"] != 1 or not math.isfinite(loss):
+        fail("lstm scan step: %s, loss %s" % (stats, loss))
+    del mod
+    torch.cuda.empty_cache()
+    return {"out_rel": out_rel, "grad_rel": grad_rel[worst], "rate": rate}
+
+
+class BucketBatches:
+    """A seeded plan of batches over the buckets with the surface of
+    example/rnn/bucket_io.py's BucketSentenceIter (host arrays; the init
+    states in the example's order)."""
+
+    def __init__(self, mt, seed):
+        rng = np.random.default_rng(seed)
+        keys = rng.permutation(np.repeat(BUCKETS, BUCKET_BATCHES
+                                         // len(BUCKETS)))
+        self.batches = [token_batch(mt, rng, mt.cpu(), BUCKET_BATCH, int(k),
+                                    LSTM_HIDDEN, states_order=list)
+                        for k in keys]
+        self.batch_size = BUCKET_BATCH
+        self.default_bucket_key = max(BUCKETS)
+        self.provide_data = [("data", (BUCKET_BATCH, max(BUCKETS)))] + \
+            lstm_states(BUCKET_BATCH, LSTM_HIDDEN, list)
+        self.provide_label = [("softmax_label",
+                               (BUCKET_BATCH, max(BUCKETS)))]
+        self.tokens = sum(BUCKET_BATCH * b.bucket_key for b in self.batches)
+        self._pos = 0
+
+    def reset(self):
+        self._pos = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._pos == len(self.batches):
+            raise StopIteration
+        self._pos += 1
+        return self.batches[self._pos - 1]
+
+
+def bucketing_phase(torch, mt, arg0, smi):
+    """(c) BucketingModule.fit at lstm_bucketing.py's settings: 2 epochs
+    over 16 seeded batches across buckets 10/20/30/40 on the card and on
+    the CPU; 4 bucket modules sharing one parameter storage; the card's
+    params against the CPU's; tokens/s and busy share of the classic
+    eager step."""
+    it = BucketBatches(mt, 31)
+    names = [n for n, _ in lstm_states(BUCKET_BATCH, LSTM_HIDDEN, list)]
+
+    def sym_gen(seq_len):
+        sym = mt.models.lstm_unroll(LSTM_LAYERS, seq_len, LSTM_VOCAB,
+                                    LSTM_HIDDEN, LSTM_HIDDEN, LSTM_VOCAB)
+        return sym, tuple(["data"] + names), ("softmax_label",)
+
+    def fit(ctx, marks=None):
+        def mark(p):
+            if marks is not None and p.epoch == BUCKET_EPOCHS - 1:
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+        mod = mt.mod.BucketingModule(sym_gen, default_bucket_key=max(BUCKETS),
+                                     context=ctx)
+        it.reset()
+        mod.fit(it, num_epoch=BUCKET_EPOCHS, eval_metric="ce",
+                optimizer="sgd", optimizer_params=dict(BUCKET_OPT),
+                arg_params=arg0, aux_params={}, batch_end_callback=mark)
+        return mod
+
+    marks = []
+    t0 = time.perf_counter()
+    card = fit(mt.gpu(0), marks)
+    card_s = time.perf_counter() - t0
+    card_params = host_params(card)
+    t0 = time.perf_counter()
+    cpu_params = host_params(fit(mt.cpu()))
+    cpu_s = time.perf_counter() - t0
+    mods = card._buckets
+    shared = all(len({m._exec_group.execs[0].arg_dict[n]._get().data_ptr()
+                      for m in mods.values()}) == 1
+                 for n in mods[max(BUCKETS)]._param_names)
+    fused_off = all(m._fused is None for m in mods.values())
+    tokens = it.tokens - BUCKET_BATCH * it.batches[0].bucket_key
+    rate = tokens / (marks[-1] - marks[0])
+    err = worst_rel(card_params, cpu_params, LENET_CPU_ATOL)
+    print("lstm bucketing: %d epochs x %d batches, buckets %s at batch %d: "
+          "fit %.1f s on the card, %.1f s on the CPU; %d bucket modules, one "
+          "parameter storage %s, all classic %s; card vs cpu smallest rtol at "
+          "atol %g: %.3g (gate %g)"
+          % (BUCKET_EPOCHS, len(it.batches), BUCKETS, BUCKET_BATCH, card_s,
+             cpu_s, len(mods), shared, fused_off, LENET_CPU_ATOL, err,
+             LENET_CPU_RTOL))
+    if sorted(mods) != sorted(BUCKETS) or not shared or not fused_off:
+        fail("bucketing: buckets %s, shared storage %s, classic %s"
+             % (sorted(mods), shared, fused_off))
+    if not params_close(card_params, cpu_params, LENET_CPU_RTOL,
+                        LENET_CPU_ATOL):
+        fail("bucketing params on the card differ from the CPU run")
+    # one classic step of the longest bucket, as fit runs it (the batch
+    # copied in, the cross-entropy on the host)
+    b40 = next(b for b in it.batches if b.bucket_key == max(BUCKETS))
+    metric = mt.metric.create("ce")
+
+    def step():
+        card.forward(b40, is_train=True)
+        card.backward()
+        card.update()
+        card.update_metric(metric, b40.label)
+    wall, device, rows = device_profile(torch, step, reps=3)
+    print("lstm bucketing: fit %.0f tokens/s over epoch %d's last %d "
+          "batches; a bucket-%d step %.3f ms wall, device %.3f ms, busy "
+          "share %.3f (card %s)"
+          % (rate, BUCKET_EPOCHS, len(it.batches) - 1, max(BUCKETS), wall,
+             device, device / wall if wall else 0.0, smi))
+    groups = print_groups(rows, device, lstm_group, width=16)
+    del card
+    torch.cuda.empty_cache()
+    return {"tokens_s": rate, "wall": wall, "device": device,
+            "groups": groups, "rtol": err}
+
+
+def lstm_phase(torch, mt, ck, smi):
+    print("lstm: TF32 allow_tf32 matmul=%s cudnn=%s (float32 products "
+          "throughout); card %s" % (torch.backends.cuda.matmul.allow_tf32,
+                                    torch.backends.cudnn.allow_tf32, smi))
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    arg0 = lstm_params(mt, LSTM_HIDDEN, 20)
+    print("lstm: %d parameters (Xavier, seed 20)"
+          % sum(v.size for v in arg0.values()))
+    head = lstm_headline(torch, mt, arg0, smi)
+    legs = {name: lstm_leg(torch, mt, name, hidden, batch, smi, 40 + i)
+            for i, (name, hidden, batch) in enumerate(LSTM_LEGS)}
+    scan = scan_phase(torch, mt, arg0, smi)
+    bucket = bucketing_phase(torch, mt, arg0, smi)
+    launches = dict(ck.LAUNCHES)
+    print("lstm: hand-kernel launches on the LSTM paths: %s; phase %.1f s"
+          % (launches, time.perf_counter() - t0))
+    if any(launches.values()):
+        fail("the LSTM paths launched hand kernels: %s" % launches)
+    return {"headline": head, "legs": legs, "scan": scan,
+            "bucketing": bucket, "launches": launches}
+
+
 def main():
+    # cuBLAS under deterministic algorithms (phase 14) needs a fixed
+    # workspace, chosen before the process's first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2600,7 +3036,15 @@ def main():
     # phase 13: training through Module, the fused step as a CUDA graph
     train = train_phase(torch, mt, ck, smi)
 
-    # phase 14: results
+    # phase 14: the PTB LSTM through Module and BucketingModule
+    lstm = lstm_phase(torch, mt, ck, smi)
+    print("lstm result (card %s): %s" % (smi, json.dumps({
+        "h200-b2048": round(lstm["headline"]["rate"]["tokens_s"], 1),
+        **{k: round(v["tokens_s"], 1) for k, v in lstm["legs"].items()},
+        "scan-h200-b2048": round(lstm["scan"]["rate"]["tokens_s"], 1),
+        "bucketing-fit": round(lstm["bucketing"]["tokens_s"], 1)})))
+
+    # phase 15: results
     engines = {"float32": served, **quant}
     print("serve engines (VGG-16 224x224, 32 uint8 requests from 4 "
           "threads, buckets 1..8; card %s): %s" % (smi, json.dumps(

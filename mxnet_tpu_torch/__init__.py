@@ -18,6 +18,8 @@ from .context import Context, cpu, cpu_pinned, current_context, gpu
 from . import ndarray
 from . import ndarray as nd
 from . import ops
+from .ops import nd_bridge as _nd_bridge
+_nd_bridge.register_all()   # every aux-free op as mx.nd.<op>
 from . import symbol
 from . import symbol as sym
 from .attribute import AttrScope

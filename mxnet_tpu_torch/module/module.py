@@ -14,6 +14,13 @@ Two paths, as in the reference:
 * **classic**: the executor group's forward and backward, then the
   updater per parameter, as the reference's kvstore-less local path.
 
+A module bound with ``shared_module=`` (a bucket of ``BucketingModule``)
+shares the parent's executor arrays (one set of parameter and gradient
+tensors for every bucket) and, once the parent has one, borrows its
+optimizer and updater (one set of optimizer states); lending the
+executor group or borrowing the optimizer keeps a module on the classic
+path, as in the reference (``mxnet_tpu/module/module.py:292-322``).
+
 ``MXNET_FUSED_TRAIN=0`` keeps the module on the classic path (the
 fused-against-classic parity check).  The params the module hands out
 (``get_params``) are host arrays.
@@ -95,6 +102,10 @@ class Module(BaseModule):
         self._fused_outputs = None
         self._fused_copies = None
         self._fused_t = 0
+        # bucketing: this module's executor arrays are shared by a
+        # sibling bound on it, or its optimizer is a sibling's
+        self._lent_exec_group = False
+        self._borrowed_optimizer = False
 
     # -- properties ------------------------------------------------------------
     @property
@@ -183,13 +194,10 @@ class Module(BaseModule):
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write"):
-        if shared_module is not None:
-            raise NotImplementedError(
-                "bind(shared_module=...) belongs to the bucketing module, "
-                "which is not in the port yet (ROADMAP.md, queue 1 item 2)")
         if force_rebind:
             self.binded = False
             self._exec_group = None
+            self._lent_exec_group = False
         if self.binded:
             self.logger.warning("Already binded, ignoring bind()")
             return
@@ -202,13 +210,31 @@ class Module(BaseModule):
         self._label_shapes = [tuple(x) for x in label_shapes] \
             if label_shapes else None
         self._grad_req = grad_req
+        shared_group = None
+        if shared_module is not None:
+            assert isinstance(shared_module, Module) and \
+                shared_module.binded and shared_module.params_initialized
+            # the parent's executor arrays become the one copy every
+            # sibling trains; a fused state of its own would drift from
+            # them, and the flag keeps a later init_optimizer off the
+            # fused path too
+            shared_module._lent_exec_group = True
+            shared_module._disable_fused("executor shared with %r"
+                                         % getattr(self._symbol, "name", ""))
+            shared_group = shared_module._exec_group
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._work_load_list,
             self._data_shapes, self._label_shapes, self._param_names,
-            for_training, inputs_need_grad, None, logger=self.logger,
+            for_training, inputs_need_grad, shared_group, logger=self.logger,
             fixed_param_names=self._fixed_param_names, grad_req=grad_req)
-        if self.params_initialized:
+        if shared_module is not None:
+            self.params_initialized = True
+            self._arg_params = shared_module._arg_params
+            self._aux_params = shared_module._aux_params
+        elif self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
+        if shared_module is not None and shared_module.optimizer_initialized:
+            self.borrow_optimizer(shared_module)
 
     # -- optimizer -----------------------------------------------------------------
     def init_optimizer(self, kvstore="local", optimizer="sgd",
@@ -250,9 +276,25 @@ class Module(BaseModule):
             return False
         if self._grad_req != "write":
             return False
+        # bucketing: the fused state is private, and siblings would train
+        # on stale shared arrays or optimizer states
+        if self._borrowed_optimizer or self._lent_exec_group:
+            return False
+        if self._exec_group.shared_group is not None:
+            return False
         if self._optimizer.fused_update_fn() is None:
             return False
         return True
+
+    def borrow_optimizer(self, shared_module):
+        """Train with ``shared_module``'s optimizer and updater (one set of
+        optimizer states for every bucket), on the classic path."""
+        assert shared_module.optimizer_initialized
+        self._disable_fused("optimizer borrowed")
+        self._optimizer = shared_module._optimizer
+        self._updater = shared_module._updater
+        self.optimizer_initialized = True
+        self._borrowed_optimizer = True
 
     def _setup_fused(self):
         self._fused = None
@@ -411,4 +453,4 @@ class Module(BaseModule):
 
     def install_monitor(self, mon):
         raise NotImplementedError("monitor.py is not in the port yet "
-                                  "(ROADMAP.md, queue 1 item 2)")
+                                  "(ROADMAP.md, queue 1 item 2(g))")

@@ -1,10 +1,14 @@
 """NDArray over a ``torch.Tensor``, and the ``MXTPU001`` NDArray file.
 
-The counterpart of ``mxnet_tpu/ndarray.py`` for the slice the port
-carries: creation (``array``/``zeros``/``empty``), the host copy
+The counterpart of ``mxnet_tpu/ndarray.py``: creation (``array``/
+``zeros``/``ones``/``full``/``arange``/``empty``), the host copy
 (``asnumpy``), whole-array writes (``arr[:] = value``, in place, so a
-buffer shared by several executors stays shared), and ``save``/
-``load``/``loads`` in the file format both packages read and write:
+buffer shared by several executors stays shared), arithmetic with
+arrays and scalars (the in-place forms write into the buffer), the
+reference's registered functions (``dot``, ``sum``, ``onehot_encode``
+...; ``ops/nd_bridge.py`` adds an imperative form of every aux-free
+op), and ``save``/``load``/``loads`` in the file format both packages
+read and write:
 
     b"MXTPU001" | <Q meta length | pickle({"names", "dtypes"}) | npz
 
@@ -14,9 +18,11 @@ bfloat16 entries are stored as their uint16 bits with the dtype tag
 from __future__ import annotations
 
 import io as _io
+import operator
 import pickle
 import struct
-from typing import List, Optional
+import sys
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -24,8 +30,12 @@ import torch
 from .base import MXNetError, atomic_local_write, numeric_types
 from .context import Context, context_of, current_context
 
-__all__ = ["NDArray", "array", "zeros", "empty", "concatenate", "save",
-           "load", "loads", "torch_dtype", "numpy_dtype"]
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "arange", "empty",
+           "concatenate", "concat", "onehot_encode", "clip", "dot",
+           "batch_dot", "transpose", "sum", "max", "min", "norm",
+           "argmax_channel", "choose_element_0index", "waitall", "save",
+           "load", "loads", "torch_dtype", "numpy_dtype",
+           "register_ndarray_fn", "list_functions"]
 
 _TORCH_DTYPES = {
     "float32": torch.float32, "float16": torch.float16,
@@ -170,6 +180,80 @@ class NDArray:
             src = src.reshape(self.shape)
         self._data.copy_(src)
 
+    # -- arithmetic (reference ndarray.py:320-333) ----------------------------
+    def _binary(self, other, fn, reverse=False) -> "NDArray":
+        a = self._data
+        if isinstance(other, NDArray):
+            b = other._data
+        elif isinstance(other, numeric_types):
+            # a numpy scalar as the python number it holds: torch takes
+            # a python number as a scalar of the array's type, as jnp
+            # takes a weak-typed one
+            b = other.item() if isinstance(other, np.generic) else other
+        else:
+            raise TypeError("type %s not supported" % str(type(other)))
+        return NDArray(fn(b, a) if reverse else fn(a, b))
+
+    def _inplace(self, other, fn) -> "NDArray":
+        """``self op= other``, written into this array's buffer in its
+        dtype (a shared buffer stays shared), as the reference's write."""
+        self[:] = self._binary(other, fn)
+        return self
+
+    def __add__(self, other):
+        return self._binary(other, operator.add)
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binary(other, operator.sub)
+
+    def __rsub__(self, other):
+        return self._binary(other, operator.sub, reverse=True)
+
+    def __mul__(self, other):
+        return self._binary(other, operator.mul)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binary(other, operator.truediv)
+
+    def __rtruediv__(self, other):
+        return self._binary(other, operator.truediv, reverse=True)
+
+    __div__ = __truediv__
+    __rdiv__ = __rtruediv__
+
+    def __pow__(self, other):
+        return self._binary(other, operator.pow)
+
+    def __rpow__(self, other):
+        return self._binary(other, operator.pow, reverse=True)
+
+    def __mod__(self, other):
+        return self._binary(other, operator.mod)
+
+    def __neg__(self):
+        return NDArray(-self._data)
+
+    def __iadd__(self, other):
+        return self._inplace(other, operator.add)
+
+    def __isub__(self, other):
+        return self._inplace(other, operator.sub)
+
+    def __imul__(self, other):
+        return self._inplace(other, operator.mul)
+
+    def __itruediv__(self, other):
+        return self._inplace(other, operator.truediv)
+
+    __idiv__ = __itruediv__
+
+    def __len__(self):
+        return self.shape[0]
+
     def __repr__(self):
         return "<NDArray %s @%s>" % ("x".join(map(str, self.shape)),
                                      self.context)
@@ -211,9 +295,145 @@ def array(source_array, ctx: Optional[Context] = None,
     return NDArray(t.to(device=device, dtype=torch_dtype(dtype)))
 
 
-def concatenate(arrays, axis: int = 0) -> NDArray:
+def ones(shape, ctx: Optional[Context] = None, dtype=np.float32) -> NDArray:
+    return NDArray(torch.ones(_shape(shape), dtype=torch_dtype(dtype),
+                              device=_device(ctx)))
+
+
+def full(shape, val, ctx: Optional[Context] = None,
+         dtype=np.float32) -> NDArray:
+    return NDArray(torch.full(_shape(shape), val, dtype=torch_dtype(dtype),
+                              device=_device(ctx)))
+
+
+def arange(start, stop=None, step=1.0, ctx: Optional[Context] = None,
+           dtype=np.float32) -> NDArray:
+    """[start, stop) in steps of ``step``; ``arange(n)`` is [0, n)."""
+    if stop is None:
+        start, stop = 0, start
+    return NDArray(torch.arange(start, stop, step, dtype=torch_dtype(dtype),
+                                device=_device(ctx)))
+
+
+def concatenate(arrays, axis: int = 0, always_copy: bool = True) -> NDArray:
     """Join arrays of one device along ``axis`` into a new array."""
+    if not arrays:
+        raise MXNetError("need at least one array")
+    if len(arrays) == 1 and not always_copy:
+        return arrays[0]
     return NDArray(torch.cat([a._get() for a in arrays], dim=axis))
+
+
+def concat(*arrays, **kwargs) -> NDArray:
+    return concatenate(list(arrays), axis=kwargs.get("dim", 1))
+
+
+def onehot_encode(indices: NDArray, out: NDArray) -> NDArray:
+    """out[i, indices[i]] = 1 and 0 elsewhere, written into ``out``; an
+    index outside [0, k) gives a row of zeros, as ``jax.nn.one_hot``."""
+    k = out.shape[1]
+    idx = indices._get().to(torch.int64)
+    classes = torch.arange(k, device=idx.device)
+    out[:] = (idx[:, None] == classes[None, :])
+    return out
+
+
+def clip(arr: NDArray, a_min, a_max) -> NDArray:
+    return NDArray(torch.clamp(arr._get(), a_min, a_max))
+
+
+def dot(lhs: NDArray, rhs: NDArray) -> NDArray:
+    return NDArray(torch.matmul(lhs._get(), rhs._get()))
+
+
+def batch_dot(lhs: NDArray, rhs: NDArray) -> NDArray:
+    return NDArray(torch.matmul(lhs._get(), rhs._get()))
+
+
+def transpose(arr: NDArray, axes=None) -> NDArray:
+    x = arr._get()
+    axes = tuple(axes) if axes else tuple(reversed(range(x.dim())))
+    return NDArray(x.permute(*axes).contiguous())
+
+
+def _reduction(fn, arr: NDArray, axis, keepdims) -> NDArray:
+    """The reference's reductions: over every axis a (1,) array, unless
+    ``keepdims``; ``axis`` an int or a tuple."""
+    x = arr._get()
+    if axis is None:
+        dims = tuple(range(x.dim()))
+        return NDArray(fn(x, dim=dims, keepdim=True) if keepdims
+                       else fn(x, dim=dims).reshape(-1))
+    return NDArray(fn(x, dim=axis, keepdim=keepdims))
+
+
+def sum(arr: NDArray, axis=None, keepdims=False) -> NDArray:  # noqa: A001
+    return _reduction(torch.sum, arr, axis, keepdims)
+
+
+def max(arr: NDArray, axis=None, keepdims=False) -> NDArray:  # noqa: A001
+    return _reduction(torch.amax, arr, axis, keepdims)
+
+
+def min(arr: NDArray, axis=None, keepdims=False) -> NDArray:  # noqa: A001
+    return _reduction(torch.amin, arr, axis, keepdims)
+
+
+def norm(arr: NDArray) -> NDArray:
+    return NDArray(torch.sqrt(torch.sum(torch.square(arr._get())))
+                   .reshape(1))
+
+
+def argmax_channel(arr: NDArray) -> NDArray:
+    x = arr._get()
+    return NDArray(torch.argmax(x, dim=1).to(x.dtype))
+
+
+def choose_element_0index(lhs: NDArray, rhs: NDArray) -> NDArray:
+    """out[i] = lhs[i, rhs[i]]."""
+    a = lhs._get()
+    idx = rhs._get().to(torch.int64)
+    return NDArray(a[torch.arange(a.shape[0], device=a.device), idx])
+
+
+def waitall() -> None:
+    """Wait for the work queued on every card (MXNDArrayWaitAll)."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the registry of NDArray functions (reference NDArrayFunctionReg): the
+# functions above and, from ``ops/nd_bridge.py``, every aux-free op
+
+_NDARRAY_FUNCS: Dict[str, Any] = {}
+
+
+def register_ndarray_fn(name: str, fn):
+    """Expose ``fn`` as ``nd.<name>`` (and without leading underscores,
+    unless that name is taken)."""
+    _NDARRAY_FUNCS[name] = fn
+    mod = sys.modules[__name__]
+    public = name.lstrip("_")
+    if not hasattr(mod, public):
+        setattr(mod, public, fn)
+    setattr(mod, name, fn)
+    return fn
+
+
+def list_functions() -> List[str]:
+    return sorted(_NDARRAY_FUNCS)
+
+
+for _name, _fn in [("_plus", operator.add), ("_minus", operator.sub),
+                   ("_mul", operator.mul), ("_div", operator.truediv),
+                   ("clip", clip), ("dot", dot), ("batch_dot", batch_dot),
+                   ("onehot_encode", onehot_encode), ("sum", sum),
+                   ("max", max), ("min", min), ("norm", norm),
+                   ("argmax_channel", argmax_channel),
+                   ("choose_element_0index", choose_element_0index),
+                   ("transpose", transpose)]:
+    register_ndarray_fn(_name, _fn)
 
 
 # ---------------------------------------------------------------------------

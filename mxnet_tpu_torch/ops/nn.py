@@ -6,8 +6,11 @@ plain matrix product to ``torch.matmul`` and BatchNorm's normalization to
 ``F.batch_norm``, as the JAX package left them to XLA.  Layouts are the
 reference's: NCHW data, OIHW convolution weights, (N, K) FC weights.
 
-Gradients come from autograd, except SoftmaxOutput's, which is the
-reference's injected loss gradient (an ``autograd.Function``).
+Gradients come from autograd, except the output and loss layers'
+(``SoftmaxOutput``/``Softmax``, the three regression outputs,
+``MakeLoss``, ``SVMOutput``), whose backward ignores the head gradient
+and injects the reference's own (``inject``, one ``autograd.Function``
+in place of the reference's ``custom_vjp``s).
 """
 from __future__ import annotations
 
@@ -311,24 +314,35 @@ def softmax_output_grad(p, out, label):
     return grad.reshape(out.shape)
 
 
-class _SoftmaxOutputFn(torch.autograd.Function):
-    """Softmax forward; the backward ignores the head gradient and
-    injects :func:`softmax_output_grad` (the reference's custom_vjp)."""
+class _InjectedGrad(torch.autograd.Function):
+    """``out = fwd(data)``; the backward ignores the head gradient and
+    returns ``grad(out, label)`` for data and zeros for the label (the
+    reference's custom_vjp of a loss layer).  Only ``out`` and the label
+    are kept for backward."""
 
     @staticmethod
-    def forward(ctx, data, label, p):
-        out = _softmax_output(p, data)
+    def forward(ctx, data, label, fwd, grad):
+        out = fwd(data)
         ctx.save_for_backward(out, label)
-        ctx.p = p
+        ctx.grad = grad
         return out
 
     @staticmethod
-    def backward(ctx, grad_out):
+    def backward(ctx, g):
         out, label = ctx.saved_tensors
-        grad = softmax_output_grad(ctx.p, out, label)
         dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] \
             else None
-        return grad, dlabel, None
+        return ctx.grad(out, label), dlabel, None, None
+
+
+def inject(data, label, fwd, grad):
+    """``fwd(data)``, with ``grad(out, label)`` as its gradient when
+    autograd records; ``label`` may be None (MakeLoss)."""
+    if torch.is_grad_enabled() and data.requires_grad:
+        if label is None:
+            label = data.new_zeros(())
+        return _InjectedGrad.apply(data, label, fwd, grad)
+    return fwd(data)
 
 
 @register_op("SoftmaxOutput", hint="softmaxoutput")
@@ -361,10 +375,9 @@ class SoftmaxOutputOp(OpDef):
         return [d, lshape], [d], []
 
     def forward(self, p, inputs, aux, ctx):
-        data, label = inputs
-        if torch.is_grad_enabled() and data.requires_grad:
-            return [_SoftmaxOutputFn.apply(data, label, p)]
-        return [_softmax_output(p, data)]
+        return [inject(inputs[0], inputs[1],
+                       lambda d: _softmax_output(p, d),
+                       lambda out, lab: softmax_output_grad(p, out, lab))]
 
 
 @register_op("LeakyReLU", hint="leakyrelu")
@@ -410,3 +423,147 @@ class LeakyReLUOp(OpDef):
                 return [torch.where(x > 0, x, slope * x)]
             return [F.leaky_relu(x, (p.lower_bound + p.upper_bound) / 2.0)]
         raise MXNetError("unknown act_type %s" % p.act_type)
+
+
+@register_op("Softmax", hint="softmax")
+class SoftmaxOp(SoftmaxOutputOp):
+    """Deprecated alias of SoftmaxOutput (reference softmax_output.cc)."""
+
+
+@register_op("SoftmaxActivation", hint="softmaxactivation")
+class SoftmaxActivationOp(OpDef):
+    """reference softmax_activation-inl.h: softmax over the flattened
+    non-batch axes (``instance``) or over axis 1 (``channel``); its
+    gradient is autograd's."""
+    params = [Param("mode", str, default="instance",
+                    enum=["instance", "channel"])]
+
+    def forward(self, p, inputs, aux, ctx):
+        x = inputs[0]
+        if p.mode == "channel":
+            return [torch.softmax(x, dim=1)]
+        return [torch.softmax(x.reshape(x.shape[0], -1),
+                              dim=1).reshape(x.shape)]
+
+
+def _regression_grad(kind, scale):
+    """reference regression_output-inl.h backward: (out - label), or its
+    sign for MAE, times grad_scale / the label's per-row size."""
+    def grad(out, label):
+        num_output = int(np.prod(label.shape[1:])) if label.dim() > 1 else 1
+        lab = label.reshape(out.shape).to(out.dtype)
+        g = torch.sign(out - lab) if kind == "mae" else out - lab
+        return g * (scale / num_output)
+    return grad
+
+
+class _RegressionBase(OpDef):
+    head_grad_optional = True
+    params = [Param("grad_scale", float, default=1.0)]
+    kind = "linear"
+
+    def list_arguments(self, p):
+        return ["data", "label"]
+
+    def infer_shape(self, p, in_shapes):
+        d = in_shapes[0]
+        if d is None:
+            return in_shapes, [None], []
+        lab = in_shapes[1] if len(in_shapes) > 1 else None
+        if lab is not None and int(np.prod(lab)) == int(np.prod(d)):
+            # any label layout with the output's element count ((N, 1)
+            # or (N,)): the backward reshapes it to the output's
+            lshape = lab
+        elif len(d) == 2 and d[1] == 1:
+            lshape = (d[0],)
+        else:
+            lshape = d
+        return [d, lshape], [d], []
+
+    def forward(self, p, inputs, aux, ctx):
+        if self.kind == "logistic":
+            def fwd(x):
+                return sigmoid(x.reshape(x.shape[0], -1)).reshape(x.shape)
+        else:
+            def fwd(x):
+                return x
+        return [inject(inputs[0], inputs[1], fwd,
+                       _regression_grad(self.kind, p.grad_scale))]
+
+
+@register_op("LinearRegressionOutput", hint="linearregressionoutput")
+class LinearRegressionOutputOp(_RegressionBase):
+    """Identity forward; gradient (out - label) * scale."""
+    kind = "linear"
+
+
+@register_op("LogisticRegressionOutput", hint="logisticregressionoutput")
+class LogisticRegressionOutputOp(_RegressionBase):
+    """Sigmoid forward; gradient (out - label) * scale."""
+    kind = "logistic"
+
+
+@register_op("MAERegressionOutput", hint="maeregressionoutput")
+class MAERegressionOutputOp(_RegressionBase):
+    """Identity forward; gradient sign(out - label) * scale."""
+    kind = "mae"
+
+
+@register_op("MakeLoss", hint="makeloss")
+class MakeLossOp(OpDef):
+    """reference make_loss-inl.h: identity forward; the backward injects
+    grad_scale whatever the head gradient, divided by the batch size
+    (``batch``) or by the count of elements above ``valid_thresh``
+    (``valid``, at least 1)."""
+    head_grad_optional = True
+    params = [Param("grad_scale", float, default=1.0),
+              Param("normalization", str, default="null",
+                    enum=["null", "batch", "valid"]),
+              Param("valid_thresh", float, default=0.0)]
+
+    def forward(self, p, inputs, aux, ctx):
+        def grad(x, _label):
+            if p.normalization == "valid":
+                valid = torch.clamp_min((x > p.valid_thresh).sum(), 1)
+                return torch.full_like(x, p.grad_scale) / valid.to(x.dtype)
+            scale = p.grad_scale
+            if p.normalization == "batch":
+                scale = scale / x.shape[0]
+            return torch.full_like(x, scale)
+        return [inject(inputs[0], None, lambda x: x, grad)]
+
+
+@register_op("SVMOutput", hint="svmoutput")
+class SVMOutputOp(OpDef):
+    """reference svm_output-inl.h: identity forward; the hinge-loss
+    gradient (L2-SVM, or L1 with ``use_linear``) in the backward."""
+    head_grad_optional = True
+    params = [Param("margin", float, default=1.0),
+              Param("regularization_coefficient", float, default=1.0),
+              Param("use_linear", bool, default=False)]
+
+    def list_arguments(self, p):
+        return ["data", "label"]
+
+    def infer_shape(self, p, in_shapes):
+        d = in_shapes[0]
+        if d is None:
+            return in_shapes, [None], []
+        return [d, (d[0],)], [d], []
+
+    def forward(self, p, inputs, aux, ctx):
+        def grad(data, label):
+            k = data.shape[1]
+            lab = label.to(torch.int32)
+            onehot = _onehot(lab, k, data.dtype, 1)
+            score_true = torch.gather(data, 1, lab.long()[:, None])
+            coef = p.regularization_coefficient
+            if p.use_linear:
+                viol = (data - score_true + p.margin > 0).to(data.dtype)
+                return coef * (viol * (1 - onehot) - onehot * torch.sum(
+                    viol * (1 - onehot), dim=1, keepdim=True))
+            m = torch.clamp_min(data - score_true + p.margin, 0.0) \
+                * (1 - onehot)
+            return 2 * coef * (m - onehot * torch.sum(m, dim=1,
+                                                       keepdim=True))
+        return [inject(inputs[0], inputs[1], lambda x: x, grad)]

@@ -21,7 +21,8 @@ import numpy as np
 
 from ..base import MXNetError, _AttrDict
 
-__all__ = ["Param", "OpDef", "register_op", "get_op", "list_ops", "OpContext"]
+__all__ = ["Param", "OpDef", "register_op", "register_simple_op", "get_op",
+           "list_ops", "OpContext"]
 
 _OP_REGISTRY: Dict[str, "OpDef"] = {}
 
@@ -177,6 +178,52 @@ def register_op(name: str, hint: Optional[str] = None):
         _OP_REGISTRY[name] = op
         return cls
     return deco
+
+
+def register_simple_op(name: str, fn, nin: int = 1, infer_shape=None,
+                       hint: Optional[str] = None, needs_rng: bool = False,
+                       params: Optional[List[Param]] = None) -> OpDef:
+    """Register a function-backed op (the reference's ``register_simple_op``,
+    its SimpleOp path): ``fn(p, *inputs)`` -> one tensor, or
+    ``fn(p, *inputs, generator=...)`` for an op that draws.  Arguments are
+    ``data`` (one input), ``lhs``/``rhs`` (two) or ``arg0..`` (none or
+    more); without ``infer_shape`` every input and the output share the
+    first known input's shape."""
+
+    class _SimpleOp(OpDef):
+        pass
+
+    _SimpleOp.params = params or []
+    _SimpleOp.needs_rng = needs_rng
+    op = _SimpleOp(name)
+    op.hint = hint or name.lstrip("_").lower()
+
+    def list_arguments(p, _n=nin):
+        if _n == 1:
+            return ["data"]
+        if _n == 2:
+            return ["lhs", "rhs"]
+        return ["arg%d" % i for i in range(_n)]
+    op.list_arguments = list_arguments
+
+    if infer_shape is not None:
+        op.infer_shape = infer_shape
+    else:
+        def _default_is(p, in_shapes, _n=nin):
+            if _n == 2:
+                d = in_shapes[0] if in_shapes[0] is not None \
+                    else in_shapes[1]
+                return [d, d], [d], []
+            return in_shapes, [in_shapes[0]], []
+        op.infer_shape = _default_is
+
+    def forward(p, inputs, aux, ctx):
+        if needs_rng:
+            return [fn(p, *inputs, generator=ctx.generator)]
+        return [fn(p, *inputs)]
+    op.forward = forward
+    _OP_REGISTRY[name] = op
+    return op
 
 
 def get_op(name: str) -> OpDef:

@@ -121,6 +121,70 @@ class Symbol:
 
     copy = __copy__
 
+    # -- arithmetic (reference symbol.py operator overloads) -----------------
+    def _binop(self, other, opname, scalar_opname):
+        if isinstance(other, Symbol):
+            return _create(opname, [self, other])
+        if isinstance(other, (int, float, np.generic)):
+            return _create(scalar_opname, [self], scalar=float(other))
+        raise TypeError("unsupported operand type %s" % type(other))
+
+    def _rscalar(self, other, opname):
+        if isinstance(other, (int, float, np.generic)):
+            return _create(opname, [self], scalar=float(other))
+        raise TypeError("unsupported operand type %s" % type(other))
+
+    def __add__(self, other):
+        return self._binop(other, "_plus", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binop(other, "_minus", "_minus_scalar")
+
+    def __rsub__(self, other):
+        return self._rscalar(other, "_rminus_scalar")
+
+    def __mul__(self, other):
+        return self._binop(other, "_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __div__(self, other):
+        return self._binop(other, "_div", "_div_scalar")
+
+    __truediv__ = __div__
+
+    def __rdiv__(self, other):
+        return self._rscalar(other, "_rdiv_scalar")
+
+    __rtruediv__ = __rdiv__
+
+    def __pow__(self, other):
+        return self._binop(other, "_power", "_power_scalar")
+
+    def __neg__(self):
+        return self.__mul__(-1.0)
+
+    # -- output heads --------------------------------------------------------
+    def __getitem__(self, index) -> "Symbol":
+        """One output head, by position or by ``list_outputs()`` name."""
+        if isinstance(index, str):
+            names = self.list_outputs()
+            if index not in names:
+                raise MXNetError("cannot find output %r in %s"
+                                 % (index, names))
+            index = names.index(index)
+        if not isinstance(index, int):
+            raise TypeError("index must be int or str")
+        return Symbol([self._heads[index]], graph_attrs=self._graph_attrs)
+
+    def __len__(self):
+        return len(self._heads)
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self._heads)))
+
     # -- introspection ------------------------------------------------------
     @property
     def name(self) -> Optional[str]:
@@ -170,6 +234,14 @@ class Symbol:
     def infer_shape(self, *args, **kwargs):
         """-> (arg_shapes, out_shapes, aux_shapes), or three Nones when
         the given shapes do not determine every one."""
+        return self._infer_shape_impl(False, *args, **kwargs)
+
+    def infer_shape_partial(self, *args, **kwargs):
+        """As :meth:`infer_shape`, with None for each shape the given ones
+        do not determine, and no error where two rules disagree."""
+        return self._infer_shape_impl(True, *args, **kwargs)
+
+    def _infer_shape_impl(self, partial, *args, **kwargs):
         arg_names = self.list_arguments()
         known: Dict[str, Tuple[int, ...]] = {}
         for name, shape in zip(arg_names, args):
@@ -204,7 +276,7 @@ class Symbol:
                     node_out_shapes[(id(inp), x)] = tuple(s)
                     if inp.is_variable:
                         var_shapes[inp.name] = tuple(s)
-                elif tuple(prev) != tuple(s):
+                elif tuple(prev) != tuple(s) and not partial:
                     raise MXNetError("shape inconsistency at %s: %s vs %s"
                                      % (node.name, prev, s))
             for i, s in enumerate(out_s):
@@ -219,7 +291,7 @@ class Symbol:
         out_shapes = [node_out_shapes.get((id(n), i)) for (n, i) in self._heads]
         aux_shapes = [aux_shapes_map.get(n)
                       for n in self.list_auxiliary_states()]
-        if any(s is None for s in arg_shapes + out_shapes):
+        if not partial and any(s is None for s in arg_shapes + out_shapes):
             return None, None, None
         return arg_shapes, out_shapes, aux_shapes
 
