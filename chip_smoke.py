@@ -98,7 +98,25 @@ Phases, in order; any failure exits nonzero:
    CPU: 4 bucket modules on one parameter storage, the card's params
    against the CPU's (rtol 1e-3, atol 1e-4), tokens/s and the busy share
    of a classic step; 0 launches of the four hand kernels on these paths;
-15. the engines' requests/s and p50/p99, the ``kernels`` JSON line (all
+15. the image zoo trained on the card (TF32 off), each network held to
+   the port's CPU run of one numpy-seeded checkpoint: DCGAN's adversarial
+   loop (example/gan/dcgan.py) at ngf = ndf = 64, code 100, batch 128,
+   Adam lr 2e-4 beta1 0.5, 20 iterations, the first 2 against the CPU
+   run from the card's state (gradients within relative L2 1e-2, params
+   after Adam's first step apart only where the gradient is noise);
+   Fast R-CNN with the VGG-16 trunk to conv4_3 on 2 images of 600x800
+   and 128 ROIs, 5 classic steps, the first step's gradients against the
+   CPU (relative L2 1e-2), ROIPooling at that shape against the CPU with
+   its time and peak memory; AlexNet at 224 (batch 128) and Inception-v3 at
+   299 (batch 32) through the fused step, 3 warm-up steps, 1 capture, 10
+   replays, the last replay against the same step eager, an eval
+   forward against the CPU; FCN-32s at 1x3x512x512 with 21 classes, 3
+   classic steps, an eval forward against the CPU; SpatialTransformer,
+   L2Normalization and IdentityAttachKLSparseReg against the CPU; a
+   Monitor on a LeNet Module (stat names equal the CPU run's, no capture
+   while installed); rates, busy shares, kernel groups and peak memory;
+   0 launches of the four hand kernels on these paths;
+16. the engines' requests/s and p50/p99, the ``kernels`` JSON line (all
    four kernels), then the ``{"ok": true, ...}`` line.
 """
 import json
@@ -2951,6 +2969,853 @@ def lstm_phase(torch, mt, ck, smi):
             "bucketing": bucket, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the image zoo trained on the card
+#
+# DCGAN's adversarial loop (example/gan/dcgan.py:186-227) at the
+# published width (Radford et al. 2015, section 4): ngf = ndf = 64, a
+# 100-wide code, 64x64x3 images, batch 128, Normal(0.02) weights, Adam
+# with lr 2e-4 and beta1 0.5.  Images and codes come from a numpy seed.
+DCGAN = dict(ngf=64, ndf=64, code=100, batch=128)
+DCGAN_OPT = {"learning_rate": 2e-4, "beta1": 0.5, "wd": 0.0}
+DCGAN_ITERS, DCGAN_CHECKED = 20, 2
+# card against the port's CPU run, teacher-forced: each of the first 2
+# iterations runs on the CPU from the card's state before it, and G's pass
+# runs through the card's D after D's step (Adam's first steps move each
+# element by about lr * sign(g), so an element whose gradient sits at
+# float noise may land 2 lr apart, and a D that differs there would
+# carry that into G's gradient).  D's outputs within 1e-3 of their
+# largest value.  Gradients of both nets: per tensor, a relative L2
+# difference within 1e-2: cuDNN and the CPU sum the convolutions in other
+# orders (~1e-6 relative), and a relu (G) or leaky relu (D) after
+# BatchNorm whose input lies within that noise of 0 takes the other side
+# on one of the two (G's BatchNorms make 15 M outputs an iteration at
+# batch 128), which moves that channel's gradients through BatchNorm's
+# backward (measured on an H100 80GB HBM3 at 700 W: up to 2.7e-3
+# relative L2, 9e-3 of a tensor's largest value, at iteration 2).
+# Params after the first step: the elements that land more than lr/100
+# apart are at most DCGAN_FLIP_SHARE of all, and each has a gradient
+# below 1e-2 of its tensor's largest: Adam's sign, not the arithmetic.
+# After the second step Adam's ratio m/sqrt(v) is sensitive wherever the
+# two gradients nearly cancel, so those params are reported, not gated
+# (its gradients are)
+DCGAN_GRAD_REL, DCGAN_OUT_REL = 1e-2, 1e-3
+DCGAN_FLIP_SHARE = 1e-2
+
+
+def dcgan_params(mx, ngf, ndf, code, seed):
+    """Normal(0.02) weights for the generator and the discriminator from a
+    numpy seed, BatchNorm gamma 1 and beta 0, moving mean 0 and variance
+    1 (the reference initializer's rules for those names)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for sym, shapes in ((mx.models.make_generator(ngf=ngf, code_dim=code),
+                         {"rand": (1, code, 1, 1)}),
+                        (mx.models.make_discriminator(ndf=ndf),
+                         {"data": (1, 3, 64, 64), "label": (1,)})):
+        arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+        arg = {}
+        for name, shape in zip(sym.list_arguments(), arg_shapes):
+            if name in shapes:
+                continue
+            arg[name] = np.ones(shape, np.float32) if name.endswith(
+                "_gamma") else np.zeros(shape, np.float32) if \
+                name.endswith("_beta") else rng.normal(
+                    0.0, 0.02, shape).astype(np.float32)
+        aux = {name: (np.ones if name.endswith("_var") else np.zeros)(
+            shape, np.float32) for name, shape in
+            zip(sym.list_auxiliary_states(), aux_shapes)}
+        out.append((arg, aux))
+    return out
+
+
+def dcgan_modules(mx, ctx, ngf, ndf, code, batch, params):
+    """The generator and discriminator modules of example/gan/dcgan.py,
+    bound on ``ctx`` from host params; works with either package."""
+    def nd(d):
+        return {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in d.items()}
+    (garg, gaux), (darg, daux) = params
+    mod_g = mx.mod.Module(mx.models.make_generator(ngf=ngf, code_dim=code),
+                          data_names=("rand",), label_names=None,
+                          context=ctx)
+    mod_g.bind(data_shapes=[("rand", (batch, code, 1, 1))],
+               label_shapes=None, for_training=True)
+    mod_g.init_params(arg_params=nd(garg), aux_params=nd(gaux))
+    mod_g.init_optimizer(optimizer="adam", optimizer_params=dict(DCGAN_OPT))
+    mod_d = mx.mod.Module(mx.models.make_discriminator(ndf=ndf),
+                          data_names=("data",), label_names=("label",),
+                          context=ctx)
+    mod_d.bind(data_shapes=[("data", (batch, 3, 64, 64))],
+               label_shapes=[("label", (batch,))], for_training=True,
+               inputs_need_grad=True)
+    mod_d.init_params(arg_params=nd(darg), aux_params=nd(daux))
+    mod_d.init_optimizer(optimizer="adam", optimizer_params=dict(DCGAN_OPT))
+    return mod_g, mod_d
+
+
+def dcgan_iteration(mx, mod_g, mod_d, rand, real, label, grads=None,
+                    after_d_update=None):
+    """One iteration of example/gan/dcgan.py's loop: D on fake keeps its
+    gradients, D on real adds its own and steps, then G steps through
+    D's input gradients.  A dict ``grads`` gets host copies of D's summed
+    gradients and G's gradients before their updates;
+    ``after_d_update()`` runs between D's step and G's pass.  -> D's
+    outputs on fake, on real, and on fake after D's step, as numpy."""
+    batch = mx.io.DataBatch
+    mod_g.forward(batch(data=[rand], label=None), is_train=True)
+    out_g = mod_g.get_outputs()
+    label[:] = 0
+    mod_d.forward(batch(data=out_g, label=[label]), is_train=True)
+    mod_d.backward()
+    fake = mod_d.get_outputs()[0].asnumpy()
+    grad_d = [[g.copy() for g in gs] for gs in mod_d._exec_group.grad_arrays]
+    label[:] = 1
+    mod_d.forward(batch(data=[real], label=[label]), is_train=True)
+    mod_d.backward()
+    real_out = mod_d.get_outputs()[0].asnumpy()
+    for gs_r, gs_f in zip(mod_d._exec_group.grad_arrays, grad_d):
+        for gr, gf in zip(gs_r, gs_f):
+            if gr is not None:
+                gr[:] = gr + gf
+    if grads is not None:
+        for n, gs in zip(mod_d._param_names, mod_d._exec_group.grad_arrays):
+            grads["d:" + n] = gs[0].asnumpy()
+    mod_d.update()
+    if after_d_update is not None:
+        after_d_update()
+    label[:] = 1
+    mod_d.forward(batch(data=out_g, label=[label]), is_train=True)
+    mod_d.backward()
+    fooled = mod_d.get_outputs()[0].asnumpy()
+    mod_g.backward(mod_d.get_input_grads())
+    if grads is not None:
+        for n, gs in zip(mod_g._param_names, mod_g._exec_group.grad_arrays):
+            grads["g:" + n] = gs[0].asnumpy()
+    mod_g.update()
+    return fake, real_out, fooled
+
+
+def dcgan_data(code, batch, iters, seed):
+    """Codes N(0, 1) and images in [-1, 1] (the generator's tanh range)
+    from a numpy seed, one pair an iteration."""
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal((batch, code, 1, 1), dtype=np.float32),
+             (rng.random((batch, 3, 64, 64), dtype=np.float32) * 2 - 1))
+            for _ in range(iters)]
+
+
+def gan_entropy(fake, real, fooled):
+    """Binary cross-entropies of the iteration: D's loss on fake (label
+    0) and real (label 1), G's loss (fake judged with label 1)."""
+    def bce(p, y):
+        p = np.clip(p.reshape(-1), 1e-12, 1 - 1e-12)
+        return float(-(y * np.log(p) + (1 - y) * np.log(1 - p)).mean())
+    return bce(fake, 0.0) + bce(real, 1.0), bce(fooled, 1.0)
+
+
+def both_params(mod_g, mod_d):
+    return ({"g:" + k: v for k, v in host_params(mod_g)[0].items()},
+            {"d:" + k: v for k, v in host_params(mod_d)[0].items()})
+
+
+def max_rel_diff(got, want):
+    """max |got - want| over max |want| (0 when both are all zero)."""
+    scale = float(np.abs(want).max())
+    diff = float(np.abs(got - want).max())
+    return diff / scale if scale else (0.0 if diff == 0 else math.inf)
+
+
+def rel_l2_diff(got, want):
+    """||got - want|| over ||want|| (0 when both are all zero)."""
+    scale = float(np.linalg.norm(want))
+    diff = float(np.linalg.norm(got - want))
+    return diff / scale if scale else (0.0 if diff == 0 else math.inf)
+
+
+def gan_group(name):
+    """Kernel groups of a DCGAN iteration: cuDNN runs a transposed
+    convolution's forward as a data-gradient (dgrad) kernel and its data
+    gradient as a forward (fprop) kernel."""
+    group = train_group(name)
+    return {"conv bwd data": "dgrad (deconv fwd, conv bwd data)",
+            "conv fwd": "fprop (conv fwd, deconv bwd data)"}.get(group, group)
+
+
+def adam_apart(after, want, grads, lr):
+    """Elements of ``after`` more than lr/100 from ``want``: (their share,
+    the largest |grad| / max |grad| of its tensor among them)."""
+    moved, total, worst = 0, 0, 0.0
+    for k in want:
+        apart = np.abs(after[k] - want[k]) > lr / 100
+        moved += int(apart.sum())
+        total += apart.size
+        scale = float(np.abs(grads[k]).max())
+        if apart.any() and scale:
+            worst = max(worst, float(np.abs(grads[k][apart]).max()) / scale)
+    return moved / float(total), worst
+
+
+def dcgan_phase(torch, mt, smi):
+    """(a) DCGAN's adversarial loop at the published width on the card,
+    20 iterations; the first 2 against the port's CPU run, teacher-forced
+    from the card's state."""
+    c, b = DCGAN, DCGAN["batch"]
+    lr = DCGAN_OPT["learning_rate"]
+    params = dcgan_params(mt, c["ngf"], c["ndf"], c["code"], seed=50)
+    data = dcgan_data(c["code"], b, DCGAN_ITERS, seed=51)
+    n_g = sum(v.size for v in params[0][0].values())
+    n_d = sum(v.size for v in params[1][0].values())
+
+    def setup(ctx):
+        mod_g, mod_d = dcgan_modules(mt, ctx, c["ngf"], c["ndf"], c["code"],
+                                     b, params)
+        return mod_g, mod_d, mt.nd.zeros((b,), ctx=ctx)
+
+    def feed(ctx, i):
+        return (mt.nd.array(data[i][0], ctx=ctx),
+                mt.nd.array(data[i][1], ctx=ctx))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gpu = mt.gpu(0)
+    mod_g, mod_d, label = setup(gpu)
+    feeds = [feed(gpu, i) for i in range(DCGAN_ITERS)]
+    card, losses, marks = [], [], []
+    for i in range(DCGAN_ITERS):
+        rec = {}
+        if i < DCGAN_CHECKED:
+            rec["before"] = (host_params(mod_g), host_params(mod_d))
+            rec["grads"] = {}
+
+            def keep_d(rec=rec):
+                rec["d_after"] = host_params(mod_d)
+        out = dcgan_iteration(mt, mod_g, mod_d, feeds[i][0], feeds[i][1],
+                              label, rec.get("grads"),
+                              keep_d if i < DCGAN_CHECKED else None)
+        marks.append(time.perf_counter())
+        losses.append(gan_entropy(*out))
+        if i < DCGAN_CHECKED:
+            rec["g_after"] = host_params(mod_g)
+            rec["out"] = out
+            card.append(rec)
+    peak = torch.cuda.max_memory_allocated()
+    # iterations 4..20: each ends in D's outputs read on the host
+    rate = (DCGAN_ITERS - 3) / (marks[-1] - marks[2])
+    wall, device, rows = device_profile(
+        torch, lambda: dcgan_iteration(mt, mod_g, mod_d, feeds[0][0],
+                                       feeds[0][1], label), reps=3)
+    print("zoo: dcgan ngf=ndf=%d, code %d, 64x64x3, batch %d: G %d and D %d "
+          "parameters (Normal(0.02), seed 50), Adam lr %g beta1 %g; %d "
+          "iterations: %.2f it/s (%.1f img/s) over iterations 4..%d; "
+          "losses D %.4f -> %.4f, G %.4f -> %.4f; peak memory %.2f GiB; "
+          "card %s" % (c["ngf"], c["code"], b, n_g, n_d, lr,
+                       DCGAN_OPT["beta1"], DCGAN_ITERS, rate, rate * b,
+                       DCGAN_ITERS, losses[0][0], losses[-1][0],
+                       losses[0][1], losses[-1][1], peak / 2**30, smi))
+    print("zoo: dcgan iteration profile: %.3f ms wall, device %.3f ms, busy "
+          "share %.3f; G fused step %s, D fused step %s (the classic path: "
+          "G takes D's input gradients, D keeps its own)"
+          % (wall, device, device / wall if wall else 0.0,
+             mod_g._fused is not None, mod_d._fused is not None))
+    groups = print_groups(rows, device, gan_group, width=34)
+    for t, key, n in rows[:6]:
+        print("profile:   %8.3f ms  %5.1f%%  x%-3d %s"
+              % (t, 100.0 * t / device if device else 0.0, n, key[:90]))
+    del mod_g, mod_d, feeds
+    torch.cuda.empty_cache()
+
+    # the port's CPU run of each checked iteration from the card's state
+    t0 = time.perf_counter()
+    cpu = mt.cpu()
+    mod_g, mod_d, label = setup(cpu)
+    checks = []
+    for i, rec in enumerate(card):
+        if i:
+            for mod, (arg, aux) in zip((mod_g, mod_d), rec["before"]):
+                mod.set_params({k: mt.nd.array(v, ctx=cpu)
+                                for k, v in arg.items()},
+                               {k: mt.nd.array(v, ctx=cpu)
+                                for k, v in aux.items()})
+        grads, mine = {}, {}
+
+        def force_d(rec=rec, mine=mine):
+            mine["d_after"] = host_params(mod_d)
+            mod_d.set_params({k: mt.nd.array(v, ctx=cpu)
+                              for k, v in rec["d_after"][0].items()},
+                             {k: mt.nd.array(v, ctx=cpu)
+                              for k, v in rec["d_after"][1].items()})
+        out = dcgan_iteration(mt, mod_g, mod_d, *feed(cpu, i), label, grads,
+                              force_d)
+        worst = max(((rel_l2_diff(rec["grads"][k], grads[k]), k)
+                     for k in grads), key=lambda kv: kv[0])
+        peak_err = max(max_rel_diff(rec["grads"][k], grads[k])
+                       for k in grads)
+        o_err = max(max_rel_diff(g, w) for g, w in zip(rec["out"], out))
+        d_share, d_grad = adam_apart(rec["d_after"][0],
+                                     mine["d_after"][0],
+                                     {k[2:]: v for k, v in grads.items()
+                                      if k.startswith("d:")}, lr)
+        g_share, g_grad = adam_apart(host_params(mod_g)[0],
+                                     rec["g_after"][0],
+                                     {k[2:]: v for k, v in grads.items()
+                                      if k.startswith("g:")}, lr)
+        checks.append((i + 1, worst, peak_err, o_err, d_share, d_grad,
+                       g_share, g_grad))
+    cpu_s = time.perf_counter() - t0
+    for it, worst, peak_err, o_err, d_share, d_grad, g_share, g_grad in \
+            checks:
+        print("zoo: dcgan iteration %d card vs cpu (teacher-forced, %.1f s "
+              "on the CPU): gradients' largest relative L2 difference %.3g "
+              "(%s; gate %g), largest max|diff|/max|cpu| %.3g; D's outputs "
+              "%.3g (gate %g); params more than lr/100 apart after the "
+              "step: D %.3g, G %.3g of elements (gate %g after step 1), "
+              "their largest |grad|/max|grad| D %.3g, G %.3g (gate 1e-2 "
+              "after step 1)"
+              % (it, cpu_s, worst[0], worst[1], DCGAN_GRAD_REL, peak_err,
+                 o_err, DCGAN_OUT_REL, d_share, g_share, DCGAN_FLIP_SHARE,
+                 d_grad, g_grad))
+        if worst[0] > DCGAN_GRAD_REL or o_err > DCGAN_OUT_REL:
+            fail("dcgan iteration %d on the card differs from the CPU run"
+                 % it)
+        if it == 1 and (max(d_share, g_share) > DCGAN_FLIP_SHARE
+                        or max(d_grad, g_grad) > 1e-2):
+            fail("dcgan params after iteration %d differ from the CPU run "
+                 "beyond Adam's sign at noise-level gradients" % it)
+    if not all(math.isfinite(v) for pair in losses for v in pair):
+        fail("dcgan losses not finite: %s" % losses)
+    return {"it_s": rate, "img_s": rate * b, "wall": wall, "device": device,
+            "groups": groups, "peak_gib": peak / 2**30, "checks": checks,
+            "losses": losses[-1]}
+
+
+# Fast R-CNN at the repo's full trunk (VGG-16 conv1_1..conv4_3, stride 8):
+# Fast R-CNN's scale 600 (600x800 images), 2 images and 128 ROIs a batch,
+# 64 an image; SGD lr 1e-3, momentum 0.9, wd 5e-4 (Girshick 2015, 2.3).
+RCNN = dict(images=2, height=600, width=800, rois=128, classes=21)
+RCNN_OPT = {"learning_rate": 1e-3, "momentum": 0.9, "wd": 5e-4}
+RCNN_STEPS = 5
+# card against the CPU: the first step's gradients, per tensor a relative
+# L2 difference within 1e-2: cuDNN and the CPU sum the convolutions in
+# other orders (~1e-6 relative), and the trunk's ten relus and three max
+# pools at 600x800 route a gradient the other way wherever a
+# pre-activation or a near-tie lies within that noise (measured on an
+# H100 80GB HBM3 at 700 W: conv1_1_weight 2.9e-3, the head behind
+# ROIPooling 1.4e-6).  ROIPooling's output equal and its data gradient
+# within rtol 1e-5, atol 1e-6 (its float32 sums of tie shares run in
+# another order)
+RCNN_GRAD_REL = 1e-2
+
+
+def rcnn_batch(rng, c):
+    n, r, k = c["images"], c["rois"], c["classes"]
+    data = rng.standard_normal((n, 3, c["height"], c["width"]),
+                               dtype=np.float32)
+    x1 = rng.uniform(0, c["width"] - 32, r)
+    y1 = rng.uniform(0, c["height"] - 32, r)
+    w = rng.uniform(16, c["width"] / 2, r)
+    h = rng.uniform(16, c["height"] / 2, r)
+    rois = np.stack([np.repeat(np.arange(n), r // n), x1, y1,
+                     np.minimum(x1 + w, c["width"] - 1),
+                     np.minimum(y1 + h, c["height"] - 1)],
+                    1).astype(np.float32)
+    label = rng.integers(0, k, r).astype(np.float32)
+    target = (rng.standard_normal((r, 4 * k)) * 0.1).astype(np.float32)
+    weight = np.zeros((r, 4 * k), np.float32)
+    for i, lab in enumerate(label.astype(int)):
+        if lab > 0:
+            weight[i, 4 * lab:4 * lab + 4] = 1.0
+    return [data, rois], [label, target, weight]
+
+
+def roi_pool_check(torch, mt, rois, smi, seed=60):
+    """ROIPooling at the Fast R-CNN path's shape (2 x 512 x 75 x 100 conv4_3
+    features, 128 ROIs, 7x7 bins): card against CPU, timed, and its peak
+    memory against the JAX formulation's mask."""
+    from mxnet_tpu_torch.ops.special import _ROIPool
+    c = RCNN
+    shape = (c["images"], 512, c["height"] // 8, c["width"] // 8)
+    rng = np.random.default_rng(seed)
+    feat = np.maximum(rng.standard_normal(shape, dtype=np.float32), 0)
+    head = rng.standard_normal((c["rois"], 512, 7, 7), dtype=np.float32)
+
+    def run(dev):
+        x = torch.from_numpy(feat).to(dev).requires_grad_(True)
+        out = _ROIPool.apply(x, torch.from_numpy(rois).to(dev), (7, 7),
+                             0.125)
+        out.backward(torch.from_numpy(head).to(dev))
+        return out.detach().cpu().numpy(), x.grad.cpu().numpy()
+    dev = torch.device("cuda", 0)
+    run(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got, got_g = run(dev)
+    peak = torch.cuda.max_memory_allocated() - base
+    want, want_g = run(torch.device("cpu"))
+    x = torch.from_numpy(feat).to(dev).requires_grad_(True)
+    r = torch.from_numpy(rois).to(dev)
+    g = torch.from_numpy(head).to(dev)
+    fwd = time_ms(torch, lambda: _ROIPool.apply(x.detach(), r, (7, 7), 0.125),
+                  torch.empty(64 * 2**20, dtype=torch.float32, device=dev),
+                  iters=10)
+
+    def fwd_bwd():
+        out = _ROIPool.apply(x, r, (7, 7), 0.125)
+        torch.autograd.grad(out, x, g)
+    both = time_ms(torch, fwd_bwd, torch.empty(64 * 2**20,
+                                               dtype=torch.float32,
+                                               device=dev), iters=10)
+    mask = c["rois"] * 512 * 49 * shape[2] * shape[3] * 4
+    ok = np.array_equal(got, want) and np.allclose(got_g, want_g, rtol=1e-5,
+                                                   atol=1e-6)
+    print("zoo: rcnn ROIPooling at %s, %d ROIs, 7x7: card == cpu forward "
+          "%s, data gradient max|diff| %.3g (rtol 1e-5, atol 1e-6); forward "
+          "%.3f ms, forward+backward %.3f ms; peak memory of the op %.1f MiB "
+          "(the JAX formulation's mask alone: %.1f GiB, not built); card %s"
+          % (shape, c["rois"], np.array_equal(got, want),
+             float(np.abs(got_g - want_g).max()), fwd, both, peak / 2**20,
+             mask / 2**30, smi))
+    if not ok:
+        fail("ROIPooling on the card differs from the CPU run")
+    return {"fwd_ms": fwd, "fwd_bwd_ms": both, "peak_mib": peak / 2**20,
+            "mask_gib": mask / 2**30}
+
+
+def rcnn_phase(torch, mt, smi):
+    """(b) Fast R-CNN with the full trunk: 5 classic steps through Module
+    on the card, the first step's gradients against the CPU's, and
+    ROIPooling at the path's shape."""
+    c = RCNN
+    sym = mt.models.get_fast_rcnn(num_classes=c["classes"],
+                                  pooled_size=(7, 7), spatial_scale=0.125,
+                                  small=False)
+    data_names, label_names = ["data", "rois"], \
+        ["label", "bbox_target", "bbox_weight"]
+    rng = np.random.default_rng(61)
+    batches = [rcnn_batch(rng, c) for _ in range(RCNN_STEPS)]
+    shapes = dict(zip(data_names + label_names,
+                      [a.shape for a in batches[0][0] + batches[0][1]]))
+    params = xavier_params(sym, shapes, 62)
+
+    def module(ctx):
+        with fused_train_env(False):
+            mod = mt.mod.Module(sym, data_names=data_names,
+                                label_names=label_names, context=ctx)
+            mod.bind([(n, shapes[n]) for n in data_names],
+                     [(n, shapes[n]) for n in label_names])
+            mod.init_params(arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                                        for k, v in params.items()})
+            mod.init_optimizer(optimizer="sgd",
+                               optimizer_params=dict(RCNN_OPT))
+        return mod
+
+    def feed(ctx, b):
+        return mt.io.DataBatch(data=[mt.nd.array(a, ctx=ctx) for a in b[0]],
+                               label=[mt.nd.array(a, ctx=ctx) for a in b[1]])
+
+    def grads_of(mod):
+        return {n: g[0].asnumpy() for n, g in
+                zip(mod._param_names, mod._exec_group.grad_arrays)}
+
+    gpu = mt.gpu(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mod = module(gpu)
+    staged = [feed(gpu, b) for b in batches]
+    losses, times, first = [], [], None
+    for i, batch in enumerate(staged):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        if i == 0:
+            first = grads_of(mod)
+        mod.update()
+        cls, box = [o.asnumpy() for o in mod.get_outputs()]
+        times.append(time.perf_counter() - t0)
+        lab = batches[i][1][0].astype(int)
+        losses.append((float(-np.log(cls[np.arange(len(lab)), lab]
+                                     + 1e-12).mean()),
+                       float(box.sum() / c["images"])))
+    peak = torch.cuda.max_memory_allocated()
+    wall, device, rows = device_profile(
+        torch, lambda: (mod.forward_backward(staged[0]), mod.update()),
+        reps=2)
+    n_params = sum(v.size for v in params.values())
+    step_ms = 1e3 * float(np.median(times[1:]))
+    print("zoo: rcnn Fast R-CNN (VGG-16 trunk to conv4_3, stride 8), %d "
+          "parameters, %d images of 3x%dx%d, %d ROIs, %d classes: %d classic "
+          "steps, median step %.1f ms (%.2f img/s); loss cls %.4f -> %.4f, "
+          "bbox %.4f -> %.4f; peak memory %.2f GiB; profile %.3f ms wall, "
+          "device %.3f ms, busy share %.3f"
+          % (n_params, c["images"], c["height"], c["width"], c["rois"],
+             c["classes"], RCNN_STEPS, step_ms, c["images"] * 1e3 / step_ms,
+             losses[0][0], losses[-1][0], losses[0][1], losses[-1][1],
+             peak / 2**30, wall, device, device / wall if wall else 0.0))
+    groups = print_groups(rows, device, train_group, width=16)
+    for t, key, n in rows[:8]:
+        print("profile:   %8.3f ms  %5.1f%%  x%-3d %s"
+              % (t, 100.0 * t / device if device else 0.0, n, key[:90]))
+    del mod, staged
+    torch.cuda.empty_cache()
+    pool = roi_pool_check(torch, mt, batches[0][0][1], smi)
+    t0 = time.perf_counter()
+    cmod = module(mt.cpu())
+    cmod.forward_backward(feed(mt.cpu(), batches[0]))
+    want = grads_of(cmod)
+    cpu_s = time.perf_counter() - t0
+    del cmod
+    l2 = {k: rel_l2_diff(first[k], want[k]) for k in want}
+    worst = max(l2.items(), key=lambda kv: kv[1])
+    print("zoo: rcnn first step's gradients, card vs cpu (%.1f s on the "
+          "CPU): largest relative L2 difference %.3g (%s; gate %g), largest "
+          "max|diff|/max|cpu| %.3g; by tensor: %s"
+          % (cpu_s, worst[1], worst[0], RCNN_GRAD_REL,
+             max(max_rel_diff(first[k], want[k]) for k in want),
+             ", ".join("%s %.2g" % kv for kv in l2.items())))
+    if worst[1] > RCNN_GRAD_REL:
+        fail("Fast R-CNN gradients on the card differ from the CPU's")
+    if not all(math.isfinite(v) for pair in losses for v in pair):
+        fail("Fast R-CNN losses not finite: %s" % losses)
+    return {"step_ms": step_ms, "peak_gib": peak / 2**30, "wall": wall,
+            "device": device, "groups": groups, "grad_rel": worst[1],
+            "roi_pool": pool, "params": n_params}
+
+
+# AlexNet at 224 (batch 128) and Inception-v3 at 299 (batch 32), 1000
+# classes, through Module's fused step (SGD lr 0.01, momentum 0.9): 3
+# warm-up steps, 1 capture, 10 replays; the last replay against the same step run eagerly from the
+# same state and generator state (Dropout draws the same masks); an eval
+# forward of 4 images of the checkpoint against the CPU within rtol
+# 1e-4, atol 1e-6 (probabilities of 1000 classes)
+CAPTURED = [("alexnet", "get_alexnet", 224, 128),
+            ("inception-v3", "get_inception_v3", 299, 32)]
+CAPTURED_REPLAYS = 10
+CAPTURED_OPT = {"learning_rate": 0.01, "momentum": 0.9}   # AlexNet's
+EVAL_RTOL, EVAL_ATOL = 1e-4, 1e-6
+
+
+def captured_net(torch, mt, smi, name, builder, image, batch, seed):
+    gpu = mt.gpu(0)
+    sym = getattr(mt.models, builder)(num_classes=1000)
+    shapes = {"data": (batch, 3, image, image), "softmax_label": (batch,)}
+    arg0 = {k: mt.nd.array(v, ctx=mt.cpu())
+            for k, v in xavier_params(sym, shapes, seed).items()}
+    _, _, aux_shapes = sym.infer_shape(**shapes)
+    aux0 = {k: mt.nd.array((np.ones if k.endswith("_var") else np.zeros)(
+        sh, np.float32), ctx=mt.cpu())
+        for k, sh in zip(sym.list_auxiliary_states(), aux_shapes)}
+    n_params = sum(v.size for v in arg0.values())
+    rng = np.random.default_rng(seed + 1)
+    host = [(rng.random((batch, 3, image, image), dtype=np.float32),
+             rng.integers(0, 1000, batch).astype(np.float32))
+            for _ in range(4)]
+    staged = [mt.io.DataBatch(data=[mt.nd.array(x, ctx=gpu)],
+                              label=[mt.nd.array(y, ctx=gpu)])
+              for x, y in host]
+
+    def one_step(mod, b):
+        mod.forward(b, is_train=True)
+        mod.backward()
+        mod.update()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mod = mt.mod.Module(sym, context=gpu)
+    mod.bind([("data", shapes["data"])], [("softmax_label", (batch,))])
+    mod.init_params(arg_params=arg0, aux_params=aux0)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(CAPTURED_OPT))
+    fused = mod._fused
+    gen = mt.random.generator(gpu)
+    steps = RESNET_WARMUP + CAPTURED_REPLAYS
+    losses = []
+    for i in range(steps):
+        if i == steps - 1:
+            snap, rng_state = clone_state(torch, fused.state), gen.get_state()
+        one_step(mod, staged[i % 4])
+        p = mod.get_outputs()[0].asnumpy()
+        lab = host[i % 4][1].astype(int)
+        losses.append(float(-np.log(p[np.arange(batch), lab] + 1e-12)
+                            .mean()))
+    stats = fused.stats.report()
+    peak = torch.cuda.max_memory_allocated()
+    got = state_params(fused.state)
+    replayed = clone_state(torch, fused.state)
+    restore_state(torch, fused.state, snap)
+    after_state = gen.get_state()
+    gen.set_state(rng_state)
+    fused._body(fused.make_batch(staged[(steps - 1) % 4]))
+    gen.set_state(after_state)
+    eager = state_params(fused.state)
+    restore_state(torch, fused.state, replayed)
+    del snap, replayed
+    replay_err = worst_rel(got, eager, REPLAY_ATOL)
+    iters = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        one_step(mod, staged[0])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / iters
+    wall, device, rows = device_profile(torch, lambda: one_step(
+        mod, staged[0]), reps=3)
+    print("zoo: %s %d parameters, batch %d at %dx%d, 1000 classes: %s; "
+          "step %.3f ms = %.1f img/s; profile %.3f ms wall, device %.3f ms, "
+          "busy share %.3f; loss %.4f -> %.4f; peak memory %.2f GiB; last "
+          "replay vs the same step eager: smallest rtol at atol %g: %.3g "
+          "(gate %g); card %s"
+          % (name, n_params, batch, image, image, stats, step_s * 1e3,
+             batch / step_s, wall, device, device / wall if wall else 0.0,
+             losses[0], losses[-1], peak / 2**30, REPLAY_ATOL, replay_err,
+             REPLAY_RTOL, smi))
+    groups = print_groups(rows, device, train_group, width=16)
+    del mod, fused, staged
+    torch.cuda.empty_cache()
+    # an eval forward of the checkpoint, card against CPU
+    outs = []
+    for ctx in (gpu, mt.cpu()):
+        emod = mt.mod.Module(sym, context=ctx)
+        emod.bind([("data", (4, 3, image, image))],
+                  [("softmax_label", (4,))], for_training=False)
+        emod.init_params(arg_params=arg0, aux_params=aux0)
+        emod.forward(mt.io.DataBatch(data=[mt.nd.array(host[0][0][:4],
+                                                       ctx=ctx)],
+                                     label=None), is_train=False)
+        outs.append(emod.get_outputs()[0].asnumpy())
+        del emod
+    eval_err = worst_rel([{"p": outs[0]}], [{"p": outs[1]}], EVAL_ATOL)
+    print("zoo: %s eval forward of the checkpoint, 4 images, card vs cpu: "
+          "smallest rtol at atol %g: %.3g (gate %g)"
+          % (name, EVAL_ATOL, eval_err, EVAL_RTOL))
+    if stats != {"captures": 1, "replays": CAPTURED_REPLAYS,
+                 "eager_steps": RESNET_WARMUP}:
+        fail("%s fused step counts %s" % (name, stats))
+    if replay_err > REPLAY_RTOL:
+        fail("%s replay differs from the eager step" % name)
+    if eval_err > EVAL_RTOL:
+        fail("%s eval forward on the card differs from the CPU's" % name)
+    if not all(math.isfinite(v) for v in losses):
+        fail("%s loss not finite: %s" % (name, losses))
+    return {"img_s": batch / step_s, "wall": wall, "device": device,
+            "groups": groups, "peak_gib": peak / 2**30, "stats": stats,
+            "replay_rtol": replay_err, "eval_rtol": eval_err,
+            "params": n_params}
+
+
+def bilinear_kernel(channels, scale):
+    """The FCN upsampling weight (C, 1, k, k), k = 2 scale - scale % 2: the
+    bilinear filter of tests/test_operator.py's UpSampling case."""
+    k = 2 * scale - scale % 2
+    f = int(np.ceil(k / 2.0))
+    c = (2 * f - 1 - f % 2) / (2.0 * f)
+    i = np.arange(k)
+    w1 = 1 - np.abs(i / f - c)
+    return np.tile((w1[:, None] * w1[None, :]).astype(np.float32),
+                   (channels, 1, 1, 1))
+
+
+FCN = dict(image=512, classes=21, steps=3)
+FCN_OPT = {"learning_rate": 1e-4, "momentum": 0.9}
+
+
+def fcn_phase(torch, mt, smi):
+    """(e) FCN-32s at 1x3x512x512, 21 classes: 3 classic steps on the
+    card, an eval forward against the CPU's."""
+    c = FCN
+    sym = mt.models.get_fcn32s(num_classes=c["classes"])
+    shapes = {"data": (1, 3, c["image"], c["image"]),
+              "softmax_label": (1, c["image"], c["image"])}
+    params = xavier_params(sym, shapes, 70)
+    params["upsample32_weight"] = bilinear_kernel(c["classes"], 32)
+    arg = {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in params.items()}
+    rng = np.random.default_rng(71)
+    x = rng.standard_normal(shapes["data"], dtype=np.float32)
+    y = rng.integers(0, c["classes"], shapes["softmax_label"]) \
+        .astype(np.float32)
+    y[:, :32] = 255.0              # ignored pixels, as VOC's borders
+    gpu = mt.gpu(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with fused_train_env(False):
+        mod = mt.mod.Module(sym, context=gpu)
+        mod.bind([("data", shapes["data"])],
+                 [("softmax_label", shapes["softmax_label"])])
+        mod.init_params(arg_params=arg)
+        mod.init_optimizer(optimizer="sgd", optimizer_params=dict(FCN_OPT))
+    batch = mt.io.DataBatch(data=[mt.nd.array(x, ctx=gpu)],
+                            label=[mt.nd.array(y, ctx=gpu)])
+    losses, times = [], []
+    keep = y[0] != 255
+    for _ in range(c["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        p = mod.get_outputs()[0].asnumpy()[0]
+        times.append(time.perf_counter() - t0)
+        lab = y[0].astype(int)
+        pix = np.take_along_axis(p, np.where(keep, lab, 0)[None], 0)[0]
+        losses.append(float(-np.log(pix[keep] + 1e-12).mean()))
+    peak = torch.cuda.max_memory_allocated()
+    wall, device, rows = device_profile(
+        torch, lambda: (mod.forward_backward(batch), mod.update()), reps=2)
+    n_params = sum(v.size for v in params.values())
+    print("zoo: fcn32s %d parameters, 1x3x%dx%d, %d classes (255 ignored): "
+          "%d classic steps, step %.1f ms; loss %.4f -> %.4f; peak memory "
+          "%.2f GiB; profile %.3f ms wall, device %.3f ms, busy share %.3f"
+          % (n_params, c["image"], c["image"], c["classes"], c["steps"],
+             1e3 * float(np.median(times[1:])), losses[0], losses[-1],
+             peak / 2**30, wall, device, device / wall if wall else 0.0))
+    groups = print_groups(rows, device, train_group, width=16)
+    del mod, batch
+    torch.cuda.empty_cache()
+    outs = []
+    for ctx in (gpu, mt.cpu()):
+        emod = mt.mod.Module(sym, context=ctx)
+        emod.bind([("data", shapes["data"])],
+                  [("softmax_label", shapes["softmax_label"])],
+                  for_training=False)
+        emod.init_params(arg_params=arg)
+        emod.forward(mt.io.DataBatch(data=[mt.nd.array(x, ctx=ctx)],
+                                     label=None), is_train=False)
+        outs.append(emod.get_outputs()[0].asnumpy())
+        del emod
+    eval_err = worst_rel([{"p": outs[0]}], [{"p": outs[1]}], EVAL_ATOL)
+    print("zoo: fcn32s eval forward, card vs cpu: smallest rtol at atol %g: "
+          "%.3g (gate %g)" % (EVAL_ATOL, eval_err, EVAL_RTOL))
+    if eval_err > EVAL_RTOL:
+        fail("FCN-32s eval forward on the card differs from the CPU's")
+    if not all(math.isfinite(v) for v in losses):
+        fail("FCN-32s loss not finite: %s" % losses)
+    return {"step_ms": 1e3 * float(np.median(times[1:])),
+            "peak_gib": peak / 2**30, "wall": wall, "device": device,
+            "groups": groups, "eval_rtol": eval_err, "params": n_params}
+
+
+def op_on(mt, ctx, build, values, head, aux=None):
+    """One op's train forward and backward through Executor on ``ctx``;
+    -> (outputs, grads, aux) as numpy."""
+    sym = build(mt.sym)
+    exe = sym.simple_bind(ctx, grad_req="write",
+                          **{n: v.shape for n, v in values.items()})
+    for n, v in values.items():
+        exe.arg_dict[n][:] = v
+    for n, v in (aux or {}).items():
+        exe.aux_dict[n][:] = v
+    outs = [o.asnumpy() for o in exe.forward(is_train=True)]
+    exe.backward([mt.nd.array(head, ctx=ctx)])
+    return outs, {n: g.asnumpy() for n, g in exe.grad_dict.items()}, \
+        {n: a.asnumpy() for n, a in exe.aux_dict.items()}
+
+
+def image_op_checks(mt):
+    """SpatialTransformer, L2Normalization and IdentityAttachKLSparseReg
+    on the card against the CPU: outputs, every gradient and aux within
+    1e-5 of each tensor's largest value."""
+    rng = np.random.default_rng(80)
+
+    def op(name, inputs, **kw):
+        return lambda s: getattr(s, name)(*[s.Variable(n) for n in inputs],
+                                          name="op", **kw)
+    loc = np.tile(np.array([0.9, 0.1, 0.05, -0.1, 0.8, 0.02], np.float32),
+                  (8, 1)) + rng.normal(0, 0.05, (8, 6)).astype(np.float32)
+    cases = [
+        ("SpatialTransformer", op("SpatialTransformer", ("data", "loc"),
+                                  target_shape=(32, 48)),
+         {"data": rng.standard_normal((8, 16, 40, 56), dtype=np.float32),
+          "loc": loc}, (8, 16, 32, 48), None),
+        ("L2Normalization", op("L2Normalization", ("data",)),
+         {"data": rng.standard_normal((64, 256, 7, 7), dtype=np.float32)},
+         (64, 256, 7, 7), None),
+        ("IdentityAttachKLSparseReg",
+         op("IdentityAttachKLSparseReg", ("data",), sparseness_target=0.1,
+            penalty=0.01),
+         {"data": rng.random((128, 1024), dtype=np.float32)}, (128, 1024),
+         {"op_moving_avg": np.array([0.3], np.float32)}),
+    ]
+    worst = {}
+    for name, build, values, out_shape, aux in cases:
+        head = rng.standard_normal(out_shape, dtype=np.float32)
+        got = op_on(mt, mt.gpu(0), build, values, head, aux)
+        want = op_on(mt, mt.cpu(), build, values, head, aux)
+        errs = [max_rel_diff(g, w) for g, w in zip(got[0], want[0])]
+        errs += [max_rel_diff(got[1][k], want[1][k]) for k in want[1]]
+        errs += [max_rel_diff(got[2][k], want[2][k]) for k in want[2]]
+        worst[name] = max(errs)
+        print("zoo: op %s on the card vs cpu: outputs, gradients (%s) and "
+              "aux: worst max|diff|/max|cpu| %.3g (gate 1e-5)"
+              % (name, ", ".join(sorted(want[1])), worst[name]))
+        if worst[name] > 1e-5:
+            fail("%s on the card differs from the CPU" % name)
+    return worst
+
+
+def monitor_check(torch, mt, smi):
+    """A Monitor on a LeNet Module on the card: its stat names equal the
+    CPU run's, the values within 1e-3, and no fused step (0 captures)
+    while it is installed."""
+    b = 64
+    sym = mt.models.get_lenet()
+    shapes = {"data": (b, 1, 28, 28), "softmax_label": (b,)}
+    arg = {k: mt.nd.array(v, ctx=mt.cpu())
+           for k, v in xavier_params(sym, shapes, 90).items()}
+    rng = np.random.default_rng(91)
+    x = rng.random((2 * b, 1, 28, 28), dtype=np.float32)
+    y = rng.integers(0, 10, 2 * b).astype(np.float32)
+    rows = {}
+    for where, ctx in (("card", mt.gpu(0)), ("cpu", mt.cpu())):
+        mod = mt.mod.Module(sym, context=ctx)
+        mod.bind([("data", shapes["data"])], [("softmax_label", (b,))])
+        mod.init_params(arg_params=arg)
+        mod.init_optimizer(optimizer="sgd", optimizer_params=dict(TRAIN_OPT))
+        mon = mt.Monitor(1)
+        mod.install_monitor(mon)
+        res = []
+        for i in range(2):
+            mon.tic()
+            mod.forward_backward(mt.io.DataBatch(
+                data=[mt.nd.array(x[i * b:(i + 1) * b], ctx=ctx)],
+                label=[mt.nd.array(y[i * b:(i + 1) * b], ctx=ctx)]))
+            mod.update()
+            res.extend(mon.toc())
+        rows[where] = (res, mod._fused)
+    card, fused = rows["card"]
+    cpu, _ = rows["cpu"]
+    names_equal = [(n, k) for n, k, _ in card] == [(n, k) for n, k, _ in cpu]
+    err = max(abs(float(a) - float(b_)) / max(abs(float(b_)), 1e-12)
+              for (_, _, a), (_, _, b_) in zip(card, cpu))
+    print("zoo: monitor on LeNet (card %s): %d stats over 2 batches, names "
+          "and order equal the CPU run's: %s (%s ... %s); values within "
+          "%.3g relative (gate 1e-3); fused step while installed: %s "
+          "(captures 0)" % (smi, len(card), names_equal, card[0][1],
+                            card[-1][1], err, fused))
+    if not names_equal or err > 1e-3 or fused is not None:
+        fail("monitor on the card differs from the CPU run")
+    return {"stats": len(card), "rel": err}
+
+
+def zoo_phase(torch, mt, ck, smi):
+    print("zoo: TF32 allow_tf32 matmul=%s cudnn=%s (float32 products "
+          "throughout); card %s" % (torch.backends.cuda.matmul.allow_tf32,
+                                    torch.backends.cudnn.allow_tf32, smi))
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    out = {"dcgan": dcgan_phase(torch, mt, smi),
+           "rcnn": rcnn_phase(torch, mt, smi)}
+    for i, (name, builder, image, batch) in enumerate(CAPTURED):
+        out[name] = captured_net(torch, mt, smi, name, builder, image, batch,
+                                 100 + 10 * i)
+    out["fcn32s"] = fcn_phase(torch, mt, smi)
+    out["ops"] = image_op_checks(mt)
+    out["monitor"] = monitor_check(torch, mt, smi)
+    launches = dict(ck.LAUNCHES)
+    print("zoo: hand-kernel launches on the zoo paths: %s; phase %.1f s"
+          % (launches, time.perf_counter() - t0))
+    if any(launches.values()):
+        fail("the zoo paths launched hand kernels: %s" % launches)
+    out["launches"] = launches
+    return out
+
+
 def main():
     # cuBLAS under deterministic algorithms (phase 14) needs a fixed
     # workspace, chosen before the process's first cuBLAS call
@@ -3044,7 +3909,17 @@ def main():
         "scan-h200-b2048": round(lstm["scan"]["rate"]["tokens_s"], 1),
         "bucketing-fit": round(lstm["bucketing"]["tokens_s"], 1)})))
 
-    # phase 15: results
+    # phase 15: the image zoo trained on the card
+    zoo = zoo_phase(torch, mt, ck, smi)
+    print("zoo result (card %s): %s" % (smi, json.dumps({
+        "dcgan-it_s": round(zoo["dcgan"]["it_s"], 3),
+        "rcnn-step_ms": round(zoo["rcnn"]["step_ms"], 1),
+        "rcnn-roi_pool_ms": round(zoo["rcnn"]["roi_pool"]["fwd_bwd_ms"], 3),
+        "alexnet-img_s": round(zoo["alexnet"]["img_s"], 1),
+        "inception-v3-img_s": round(zoo["inception-v3"]["img_s"], 1),
+        "fcn32s-step_ms": round(zoo["fcn32s"]["step_ms"], 1)})))
+
+    # phase 16: results
     engines = {"float32": served, **quant}
     print("serve engines (VGG-16 224x224, 32 uint8 requests from 4 "
           "threads, buckets 1..8; card %s): %s" % (smi, json.dumps(

@@ -4,8 +4,8 @@ The same user surface as the JAX package, on one NVIDIA H100:
 ``import mxnet_tpu_torch as mx``, then ``mx.nd``, ``mx.sym``,
 ``mx.predictor``, ``mx.serve``, ``mx.autotune``, and for training
 ``mx.mod``, ``mx.optimizer``, ``mx.init``, ``mx.metric``, ``mx.io``,
-``mx.lr_scheduler``, ``mx.callback`` and ``mx.random``.  Plain tensor code is
-PyTorch; the package's TPU kernels are hand-written Hopper kernels
+``mx.lr_scheduler``, ``mx.callback``, ``mx.random`` and ``mx.Monitor``.
+Plain tensor code is PyTorch; the package's TPU kernels are hand-written Hopper kernels
 (``ops/cuda_kernels.py``, sources in ``csrc/``).  Entry points run on
 ``gpu(0)`` unless the caller asks for ``cpu()``.
 
@@ -46,6 +46,8 @@ from . import io
 from . import callback
 from . import module
 from . import module as mod
+from . import monitor
+from .monitor import Monitor
 
 __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "current_context", "nd", "ndarray", "sym", "symbol", "ops",
@@ -53,4 +55,5 @@ __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "Predictor", "create_predictor", "passes", "serve", "models",
            "convert", "parallel", "autotune", "random", "rnd",
            "initializer", "init", "optimizer", "opt", "lr_scheduler",
-           "metric", "io", "callback", "module", "mod"]
+           "metric", "io", "callback", "module", "mod", "monitor",
+           "Monitor"]

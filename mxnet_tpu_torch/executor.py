@@ -8,7 +8,10 @@ op forward per node, each op launching its PyTorch calls or hand-written
 kernels on the current stream; backward is ``torch.autograd.grad`` over
 the arguments whose ``grad_req`` is not ``"null"``, through the graph the
 train forward recorded.  An eval forward drops each intermediate tensor
-once its last consumer has run.
+once its last consumer has run.  A monitor callback
+(``set_monitor_callback``) sees every node's outputs as they are made,
+under the reference's names (``<node>_output``, or ``<node>_<output>``
+for a node with several).
 """
 from __future__ import annotations
 
@@ -66,6 +69,7 @@ class _GraphProgram:
                 self.uses[key] = self.uses.get(key, 0) + 1
         for (n, i) in symbol._heads:
             self.uses[(id(n), i)] = self.uses.get((id(n), i), 0) + 1
+        self.monitor = None
 
     def eval(self, args: Dict[str, torch.Tensor],
              aux: Dict[str, torch.Tensor], opctx: Optional[OpContext] = None):
@@ -92,6 +96,12 @@ class _GraphProgram:
                 new_aux.update(zip(aux_names, aux_out))
             for i, o in enumerate(outs):
                 vals[(id(node), i)] = o
+            if self.monitor is not None:
+                out_names = node.op.list_outputs(node.params)
+                for i, o in enumerate(outs):
+                    self.monitor("%s_%s" % (node.name, out_names[i])
+                                 if len(outs) > 1
+                                 else "%s_output" % node.name, o.detach())
             for (i, x) in node.inputs:
                 key = (id(i), x)
                 left[key] -= 1
@@ -223,6 +233,11 @@ class Executor:
                 else:
                     tgt.copy_(g)
         self._recorded = None
+
+    def set_monitor_callback(self, callback):
+        """Call ``callback(name, NDArray)`` on every node output of each
+        later forward (reference symbolic.h:386-390)."""
+        self._prog.monitor = lambda name, t: callback(name, NDArray(t))
 
     def reshape(self, **new_shapes) -> "Executor":
         """A new executor for new input shapes; arrays whose shape is

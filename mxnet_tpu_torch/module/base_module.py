@@ -2,11 +2,12 @@
 (counterpart of ``mxnet_tpu/module/base_module.py``).
 
 ``fit`` keeps the reference's signature and its per-batch order
-(forward_backward, update, update_metric, the batch-end callbacks), then
-the epoch-end callbacks and the validation score.  The reference's
-superstep, device prefetch, checkpoint manager, mesh and autotune
-arguments wait for their slices (ROADMAP.md, queue 1 items 2, 7, 9, 10,
-11) and raise when given.
+(the monitor's tic, forward_backward, update, update_metric, the
+monitor's toc, the batch-end callbacks), then the epoch-end callbacks
+and the validation score.  The reference's superstep, device prefetch,
+checkpoint manager, mesh, autotune and work-load-list arguments wait for
+their slices (ROADMAP.md, queue 1 items 2, 7, 9, 10, 11) and raise when
+given.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ _NOT_PORTED = {
     "checkpoint_every": "queue 1 item 7", "resume": "queue 1 item 7",
     "superstep": "queue 1 item 2", "mesh": "queue 1 item 10",
     "sharding": "queue 1 item 10", "autotune": "queue 1 item 11",
-    "monitor": "queue 1 item 2", "work_load_list": "queue 1 item 2"}
+    "work_load_list": "queue 1 item 2"}
 
 
 def _fire_callbacks(callbacks, param):
@@ -138,7 +139,7 @@ class BaseModule:
                  "checkpoint_every": checkpoint_every, "resume": resume,
                  "superstep": None if superstep in (None, 1) else superstep,
                  "mesh": mesh, "sharding": sharding, "autotune": autotune,
-                 "monitor": monitor, "work_load_list": work_load_list}
+                 "work_load_list": work_load_list}
         for name, value in given.items():
             if value not in (None, False):
                 raise NotImplementedError(
@@ -150,6 +151,8 @@ class BaseModule:
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -164,9 +167,13 @@ class BaseModule:
             tic = time.perf_counter()
             eval_metric.reset()
             for nbatch, data_batch in enumerate(train_data):
+                if monitor is not None:
+                    monitor.tic()
                 self.forward_backward(data_batch)
                 self.update()
                 self.update_metric(eval_metric, data_batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 loc = dict(locals())
                 loc.setdefault("self", self)
                 _fire_callbacks(batch_end_callback,
@@ -295,4 +302,7 @@ class BaseModule:
 
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=None, force_init=False):
+        raise NotImplementedError()
+
+    def install_monitor(self, mon):
         raise NotImplementedError()

@@ -219,5 +219,8 @@ class BucketingModule(BaseModule):
         self._curr_module.update_metric(eval_metric, labels)
 
     def install_monitor(self, mon):
-        raise NotImplementedError("monitor.py is not in the port yet "
-                                  "(ROADMAP.md, queue 1 item 2(g))")
+        """Install ``mon`` on every bucket bound so far (the reference's
+        rule: a bucket bound later has none)."""
+        assert self.binded
+        for mod in self._buckets.values():
+            mod.install_monitor(mon)

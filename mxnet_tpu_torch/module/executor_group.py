@@ -105,10 +105,17 @@ class DataParallelExecutorGroup:
             self.contexts[0], grad_req=grad_req, type_dict=self.input_types,
             shared_exec=shared_exec, **shapes)]
         exe = self.execs[0]
-        self.data_arrays = [[(self.slices[0], exe.arg_dict[name])]
-                            for name in self.data_names]
-        self.label_arrays = [[(self.slices[0], exe.arg_dict[name])]
-                             for name in self.label_names]
+
+        def target(name):
+            # an input whose leading dim is not the batch size (Fast
+            # R-CNN's rois and roi-level labels) is copied whole, as the
+            # reference's executor group copies it
+            shape = shapes[name]
+            if shape and shape[0] == self.batch_size:
+                return [(self.slices[0], exe.arg_dict[name])]
+            return [(slice(0, shape[0] if shape else 1), exe.arg_dict[name])]
+        self.data_arrays = [target(name) for name in self.data_names]
+        self.label_arrays = [target(name) for name in self.label_names]
         self.param_arrays = [[exe.arg_dict[name]]
                              for name in self.param_names]
         self.grad_arrays = [[exe.grad_dict.get(name)]
@@ -161,3 +168,7 @@ class DataParallelExecutorGroup:
 
     def update_metric(self, eval_metric, labels):
         eval_metric.update(labels, self.execs[0].outputs)
+
+    def install_monitor(self, mon):
+        for exe in self.execs:
+            mon.install(exe)

@@ -14,6 +14,7 @@ Two paths, as in the reference:
 * **classic**: the executor group's forward and backward, then the
   updater per parameter, as the reference's kvstore-less local path.
 
+A monitor (``install_monitor``) keeps a module on the classic path.
 A module bound with ``shared_module=`` (a bucket of ``BucketingModule``)
 shares the parent's executor arrays (one set of parameter and gradient
 tensors for every bucket) and, once the parent has one, borrows its
@@ -106,6 +107,7 @@ class Module(BaseModule):
         # sibling bound on it, or its optimizer is a sibling's
         self._lent_exec_group = False
         self._borrowed_optimizer = False
+        self._monitor_installed = False
 
     # -- properties ------------------------------------------------------------
     @property
@@ -275,6 +277,9 @@ class Module(BaseModule):
         if not self.for_training or self.inputs_need_grad:
             return False
         if self._grad_req != "write":
+            return False
+        # a monitor reads every node's outputs: the classic path's walk
+        if self._monitor_installed:
             return False
         # bucketing: the fused state is private, and siblings would train
         # on stale shared arrays or optimizer states
@@ -452,5 +457,9 @@ class Module(BaseModule):
         self._exec_group.update_metric(eval_metric, labels)
 
     def install_monitor(self, mon):
-        raise NotImplementedError("monitor.py is not in the port yet "
-                                  "(ROADMAP.md, queue 1 item 2(g))")
+        """Install ``mon`` on the executors; the module leaves the fused
+        step for the classic path, as the reference does."""
+        assert self.binded
+        self._monitor_installed = True
+        self._disable_fused("monitor installed")
+        self._exec_group.install_monitor(mon)

@@ -131,6 +131,11 @@ class NDArray:
     def asnumpy(self) -> np.ndarray:
         return _tensor_to_numpy(self._data)
 
+    def asscalar(self):
+        if self.size != 1:
+            raise MXNetError("The current array is not a scalar")
+        return self.asnumpy().reshape(-1)[0]
+
     def __getitem__(self, key):
         """``arr[i]`` or ``arr[start:stop]`` along the first axis: a view
         that shares this array's buffer, as the reference's slice does."""

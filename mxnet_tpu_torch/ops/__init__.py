@@ -10,7 +10,7 @@ from . import nn      # noqa: F401  (the layers, the output and loss ops)
 from . import rnn     # noqa: F401  (RNN)
 from . import quantized  # noqa: F401  (the int8 serving ops)
 from . import fused   # noqa: F401  (the epilogue-fused serving ops)
-from . import special  # noqa: F401  (Correlation)
+from . import special  # noqa: F401  (ROIPooling, SpatialTransformer, Correlation)
 
 __all__ = ["OpDef", "OpContext", "Param", "register_op", "register_simple_op",
            "get_op", "list_ops"]

@@ -1,16 +1,19 @@
 """Neural-network layer ops (counterpart of ``mxnet_tpu/ops/nn.py``).
 
-The layers VGG-16, the MLP, LeNet, ResNet and FlowNetC's correlation
-stage use.  Convolution goes to ``torch.nn.functional.conv2d``, the
-plain matrix product to ``torch.matmul`` and BatchNorm's normalization to
-``F.batch_norm``, as the JAX package left them to XLA.  Layouts are the
+Every layer of the reference's ``ops/nn.py``.  Convolution goes to
+``torch.nn.functional.conv2d``, Deconvolution and bilinear UpSampling to
+``F.conv_transpose2d``, the plain matrix product to ``torch.matmul`` and
+BatchNorm's normalization to ``F.batch_norm``, as the JAX package left
+them to XLA.  Layouts are the
 reference's: NCHW data, OIHW convolution weights, (N, K) FC weights.
 
 Gradients come from autograd, except the output and loss layers'
 (``SoftmaxOutput``/``Softmax``, the three regression outputs,
 ``MakeLoss``, ``SVMOutput``), whose backward ignores the head gradient
 and injects the reference's own (``inject``, one ``autograd.Function``
-in place of the reference's ``custom_vjp``s).
+in place of the reference's ``custom_vjp``s), and
+``IdentityAttachKLSparseReg``, which adds its KL penalty to the head
+gradient.
 """
 from __future__ import annotations
 
@@ -131,6 +134,69 @@ class ConvolutionOp(OpDef):
         return [conv2d(p, inputs)]
 
 
+@register_op("Deconvolution", hint="deconvolution")
+class DeconvolutionOp(OpDef):
+    """reference deconvolution-inl.h: the transposed convolution,
+    out = s·(x-1) + k - 2p + adj.  The weight is (in_c, num_filter/g, kh,
+    kw), PyTorch's transposed-conv layout, so ``F.conv_transpose2d``
+    takes it as is.  As in the JAX package, ``target_shape`` is read by
+    ``infer_shape`` only; the forward's size always follows the formula."""
+    params = [Param("kernel", "shape", required=True),
+              Param("stride", "shape", default=(1, 1)),
+              Param("pad", "shape", default=(0, 0)),
+              Param("adj", "shape", default=(0, 0)),
+              Param("target_shape", "shape", default=(0, 0)),
+              Param("num_filter", int, required=True),
+              Param("num_group", int, default=1),
+              Param("workspace", int, default=512),
+              Param("no_bias", bool, default=True)]
+
+    def list_arguments(self, p):
+        return ["data", "weight"] if p.no_bias else ["data", "weight", "bias"]
+
+    def _out_hw(self, p, d):
+        if p.target_shape and (p.target_shape[0] != 0
+                               or p.target_shape[1] != 0):
+            return tuple(p.target_shape)
+        return deconv_out_hw(p, d)
+
+    def infer_shape(self, p, in_shapes):
+        d = in_shapes[0]
+        if d is None:
+            return in_shapes, [None], []
+        kh, kw = p.kernel
+        wshape = (d[1], p.num_filter // p.num_group, kh, kw)
+        oh, ow = self._out_hw(p, d)
+        shapes = [d, wshape] + ([] if p.no_bias else [(p.num_filter,)])
+        return shapes, [(d[0], p.num_filter, oh, ow)], []
+
+    def forward(self, p, inputs, aux, ctx):
+        x, w = inputs[0], inputs[1]
+        bias = None if p.no_bias else inputs[2]
+        if all(a < s for a, s in zip(p.adj, p.stride)):
+            return [F.conv_transpose2d(x, w, bias, stride=tuple(p.stride),
+                                       padding=tuple(p.pad),
+                                       output_padding=tuple(p.adj),
+                                       groups=p.num_group)]
+        # PyTorch takes output_padding below the stride only; the lax
+        # lowering takes any adj.  Output row o is row o + pad of the
+        # uncropped transposed convolution, zero beyond its extent
+        full = F.conv_transpose2d(x, w, None, stride=tuple(p.stride),
+                                  groups=p.num_group)
+        oh, ow = deconv_out_hw(p, x.shape)
+        (ph, pw), (fh, fw) = p.pad, full.shape[2:]
+        out = F.pad(full, (-pw, ow - (fw - pw), -ph, oh - (fh - ph)))
+        if bias is not None:
+            out = out + bias[None, :, None, None]
+        return [out]
+
+
+def deconv_out_hw(p, d):
+    kh, kw = p.kernel
+    return (p.stride[0] * (d[2] - 1) + kh - 2 * p.pad[0] + p.adj[0],
+            p.stride[1] * (d[3] - 1) + kw - 2 * p.pad[1] + p.adj[1])
+
+
 @register_op("Pooling", hint="pooling")
 class PoolingOp(OpDef):
     """max/avg/sum pooling, floor output convention; padding counts as
@@ -213,8 +279,11 @@ class BatchNormOp(OpDef):
         x, gamma, beta = inputs
         moving_mean, moving_var = aux
         xf = x.float()
-        # fix_gamma: ones in gamma's place, so gamma's gradient is 0
-        weight = None if p.fix_gamma else gamma.float()
+        # fix_gamma: a constant ones weight in gamma's place, so gamma's
+        # gradient is 0 (not None: PyTorch's CUDA batch_norm backward
+        # raises without a weight when its input takes a gradient)
+        weight = torch.ones_like(beta, dtype=torch.float32) \
+            if p.fix_gamma else gamma.float()
         if ctx.is_train and not p.use_global_stats:
             y = F.batch_norm(xf, None, None, weight, beta.float(),
                              training=True, eps=p.eps)
@@ -252,6 +321,152 @@ class DropoutOp(OpDef):
         mask = torch.rand(x.shape, generator=ctx.generator,
                           device=x.device) < keep
         return [torch.where(mask, x / keep, torch.zeros_like(x))]
+
+
+@register_op("LRN", hint="lrn")
+class LRNOp(OpDef):
+    """reference lrn-inl.h: x · (knorm + alpha/nsize · Σ x²)^(-beta), the
+    sum over a window of nsize channels padded (nsize//2,
+    nsize-1-nsize//2) with zeros."""
+    params = [Param("alpha", float, default=1e-4),
+              Param("beta", float, default=0.75),
+              Param("knorm", float, default=2.0),
+              Param("nsize", int, required=True)]
+
+    def forward(self, p, inputs, aux, ctx):
+        x = inputs[0]
+        c, half = x.shape[1], p.nsize // 2
+        sq = F.pad(x * x, (0, 0, 0, 0, half, p.nsize - 1 - half))
+        summed = sq[:, 0:c]
+        for i in range(1, p.nsize):
+            summed = summed + sq[:, i:i + c]
+        return [x * torch.pow(p.knorm + (p.alpha / p.nsize) * summed,
+                              -p.beta)]
+
+
+@register_op("L2Normalization", hint="l2normalization")
+class L2NormalizationOp(OpDef):
+    """reference l2_normalization-inl.h: each instance divided by
+    sqrt(Σ x² + eps) over its flattened non-batch axes."""
+    params = [Param("eps", float, default=1e-10)]
+
+    def forward(self, p, inputs, aux, ctx):
+        x = inputs[0]
+        flat = x.reshape(x.shape[0], -1)
+        norm = torch.sqrt((flat * flat).sum(dim=1, keepdim=True) + p.eps)
+        return [(flat / norm).reshape(x.shape)]
+
+
+@register_op("UpSampling", hint="upsampling")
+class UpSamplingOp(OpDef):
+    """reference upsampling-inl.h.  Nearest: every input repeated
+    ``scale`` times along H and W (each input by the same scale, as the
+    JAX package does), then concatenated or summed.  Bilinear: the
+    depthwise transposed convolution with the (C, 1, k, k) weight, k =
+    2·scale - scale % 2, pad = ceil((scale - 1) / 2)."""
+    params = [Param("scale", int, required=True),
+              Param("num_filter", int, default=0),
+              Param("sample_type", str, required=True,
+                    enum=["nearest", "bilinear"]),
+              Param("multi_input_mode", str, default="concat",
+                    enum=["concat", "sum"]),
+              Param("num_args", int, default=1),
+              Param("workspace", int, default=512)]
+    variable_args = "num_args"
+
+    def list_arguments(self, p):
+        if p.sample_type == "bilinear":
+            return ["data", "weight"]
+        if p.num_args == 1:
+            return ["data"]
+        return ["arg%d" % i for i in range(p.num_args)]
+
+    def infer_shape(self, p, in_shapes):
+        d = in_shapes[0]
+        if d is None:
+            return in_shapes, [None], []
+        oh, ow = d[2] * p.scale, d[3] * p.scale
+        if p.sample_type == "bilinear":
+            k = 2 * p.scale - p.scale % 2
+            return [d, (d[1], 1, k, k)], [(d[0], d[1], oh, ow)], []
+        if p.num_args == 1:
+            return [d], [(d[0], d[1], oh, ow)], []
+        c = int(np.sum([s[1] for s in in_shapes])) \
+            if p.multi_input_mode == "concat" else d[1]
+        return in_shapes, [(d[0], c, oh, ow)], []
+
+    def forward(self, p, inputs, aux, ctx):
+        s = p.scale
+        if p.sample_type == "bilinear":
+            x, w = inputs
+            pad = int(np.ceil((s - 1) / 2.0))
+            return [F.conv_transpose2d(x, w, None, stride=(s, s),
+                                       padding=(pad, pad), groups=x.shape[1])]
+
+        def up_nearest(x):
+            n, c, h, w = x.shape
+            return x[:, :, :, None, :, None].expand(
+                n, c, h, s, w, s).reshape(n, c, h * s, w * s)
+        ups = [up_nearest(x) for x in inputs]
+        if len(ups) == 1:
+            return [ups[0]]
+        if p.multi_input_mode == "sum":
+            out = ups[0]
+            for u in ups[1:]:
+                out = out + u
+            return [out]
+        return [torch.cat(ups, dim=1)]
+
+
+class _KLSparseReg(torch.autograd.Function):
+    """Identity forward; the backward adds penalty·(-t/ρ + (1-t)/(1-ρ))
+    to every element, ρ the mean of this forward's whole input clipped to
+    [1e-6, 1 - 1e-6] (the JAX package's rule: the batch's mean, not the
+    moving average C++ MXNet reads)."""
+
+    @staticmethod
+    def forward(ctx, x, rho, target, penalty):
+        ctx.save_for_backward(rho)
+        ctx.target, ctx.penalty = target, penalty
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        rho, = ctx.saved_tensors
+        rho = torch.clamp(rho, 1e-6, 1 - 1e-6)
+        t = ctx.target
+        return g + ctx.penalty * (-t / rho + (1 - t) / (1 - rho)), None, \
+            None, None
+
+
+@register_op("IdentityAttachKLSparseReg",
+             hint="identityattachklsparsereg")
+class IdentityAttachKLSparseRegOp(OpDef):
+    """reference identity_attach_KL_sparse_reg-inl.h: identity forward
+    with the KL sparsity penalty added to the gradient; a train forward
+    returns the new ``moving_avg`` = momentum · old + (1 - momentum) · ρ."""
+    params = [Param("sparseness_target", float, default=0.1),
+              Param("penalty", float, default=0.001),
+              Param("momentum", float, default=0.9)]
+
+    def list_auxiliary_states(self, p):
+        return ["moving_avg"]
+
+    def infer_shape(self, p, in_shapes):
+        d = in_shapes[0]
+        if d is None:
+            return in_shapes, [None], []
+        return [d], [d], [(1,)]
+
+    def forward(self, p, inputs, aux, ctx):
+        x = inputs[0]
+        if not ctx.is_train:
+            return [x]
+        rho = x.detach().mean()
+        y = _KLSparseReg.apply(x, rho, p.sparseness_target, p.penalty) \
+            if torch.is_grad_enabled() and x.requires_grad else x
+        new_avg = p.momentum * aux[0] + (1 - p.momentum) * rho
+        return [y], [new_avg]
 
 
 def _softmax_output(p, data):

@@ -289,8 +289,13 @@ def test_bucketing_unported_options_raise():
     mod.bind(it.provide_data, it.provide_label)
     with pytest.raises(NotImplementedError, match="item 11"):
         mod.precompile({})
-    with pytest.raises(NotImplementedError, match=r"item 2\(g\)"):
-        mod.install_monitor(None)
+    # install_monitor is ported: it installs on every bucket bound so far
+    mon = tmx.Monitor(1)
+    mod.install_monitor(mon)
+    assert mon.exes == [m._exec_group.execs[0]
+                        for m in mod._buckets.values()]
+    assert all(m._monitor_installed and m._fused is None
+               for m in mod._buckets.values())
     assert tmx.mod.BucketingModule is mod.__class__
     assert torch.is_tensor(mod._curr_module._exec_group.execs[0]
                            .arg_dict["embed_weight"]._get())
