@@ -116,9 +116,32 @@ Phases, in order; any failure exits nonzero:
    Monitor on a LeNet Module (stat names equal the CPU run's, no capture
    while installed); rates, busy shares, kernel groups and peak memory;
    0 launches of the four hand kernels on these paths;
-16. the engines' requests/s and p50/p99, the ``kernels`` JSON line (all
-   four kernels), then the ``{"ok": true, ...}`` line.
+16. the engines' requests/s and p50/p99;
+17. serving operations: (a) a ``DecodeEngine`` built without a context
+   (so on the card) over one decode step of the PTB LSTM (``lstm_cell``,
+   2 layers of 200, embed 200, vocab 10,000; 4,653,200 parameters from
+   a numpy seed; state ``l{0,1}_{c,h}``), 16 slots, 32 streams of 1..32
+   prompt tokens and 64 new ones from 4 threads, every stream held
+   against the port's CPU DecodeEngine on the same checkpoint under
+   phase 7's top-2 margin rule, tokens/s and a step's wall and device
+   time, then a hot reload mid-flood (each stream one version's from end
+   to end); (b) a ``ServeRouter`` over 2 ``PagedDecodeEngine`` replicas
+   at phase 7's geometry and checkpoint: phase 7's 32 prompts from 4
+   threads, streams equal to phase 7's under the same rule, then a
+   second flood with ``rolling_restart()`` in the middle (0 dropped, 0
+   errors), paged_attention's launches equal to 12 x the replicas'
+   target forwards around each flood, tokens/s beside phase 7's; (c) a
+   ``ModelMultiplexer`` of phase 4's fused VGG-16 ``ServeEngine``, (a)'s
+   LSTM and (b)'s LM under a byte budget from their ``device_bytes()``
+   that cannot hold VGG-16 and the LM together: 7 interleaved waves
+   force swap-ins and LRU evictions, every answer held against that
+   model's standalone answer, ``torch.cuda.memory_allocated()`` falling
+   by at least each evicted engine's ``device_bytes()`` (1 MiB
+   tolerance), the launches of both kernels on the path counted;
+   then the ``kernels`` JSON line (all four kernels), then the ``{"ok":
+   true, ...}`` line.
 """
+import gc
 import json
 import math
 import os
@@ -1645,7 +1668,10 @@ def llm_phase(torch, ck):
     for c in (LM_CHUNK, 1):
         profile_step(torch, pdev, cfg, windows[c])
     return {"launches": sum(r["launches"]["paged_attention"]
-                            for r in runs.values())}
+                            for r in runs.values()),
+            "cfg": cfg, "params": params, "prompts": prompts,
+            "streams": runs["paged"]["streams"],
+            "tokens_s": gen / runs["paged"]["wall"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3816,6 +3842,538 @@ def zoo_phase(torch, mt, ck, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: serving operations: the dense DecodeEngine at the PTB LSTM's
+# width, a ServeRouter over two paged LM replicas, a ModelMultiplexer of
+# three models on one card
+
+DEC_SLOTS, DEC_STREAMS, DEC_MAX_NEW, DEC_THREADS = 16, 32, 64, 4
+DEC_PROMPT_MAX = 32
+DEC_STATES = ("l0_c", "l0_h", "l1_c", "l1_h")
+# an evicted engine's bytes must leave torch.cuda.memory_allocated():
+# its device_bytes() less 1 MiB for the allocator's 512-byte rounding of
+# the blocks it counts and any block the factory allocates first
+MUX_MEM_TOL = 1 << 20
+
+
+def lstm_step_symbol(mt):
+    """One decode step of bench_lstm.py's model from models/lstm.py's
+    ``lstm_cell``: token ids -> the 200-wide embedding -> 2 LSTM layers
+    of 200 -> logits over the 10,000 words; outputs the logits and the
+    next value of each layer's c and h.  Argument names are
+    ``lstm_unroll``'s, so its checkpoint serves this step."""
+    from mxnet_tpu_torch.models.lstm import LSTMParam, LSTMState, lstm_cell
+    sym = mt.sym
+    x = sym.Embedding(data=sym.Variable("data"), input_dim=LSTM_VOCAB,
+                      weight=sym.Variable("embed_weight"),
+                      output_dim=LSTM_HIDDEN, name="embed")
+    nexts = []
+    for i in range(LSTM_LAYERS):
+        param = LSTMParam(*[sym.Variable("l%d_%s" % (i, n)) for n in (
+            "i2h_weight", "i2h_bias", "h2h_weight", "h2h_bias")])
+        state = LSTMState(c=sym.Variable("l%d_c" % i),
+                          h=sym.Variable("l%d_h" % i))
+        nxt = lstm_cell(LSTM_HIDDEN, x, state, param, 0, i)
+        nexts += [nxt.c, nxt.h]
+        x = nxt.h
+    logits = sym.FullyConnected(data=x, num_hidden=LSTM_VOCAB,
+                                weight=sym.Variable("cls_weight"),
+                                bias=sym.Variable("cls_bias"), name="pred")
+    return sym.Group([logits] + nexts)
+
+
+def lstm_decode_engine(mt, sym, params, **kw):
+    return mt.serve.DecodeEngine(
+        sym, params, state_shapes={n: (LSTM_HIDDEN,) for n in DEC_STATES},
+        state_outputs={n: i + 1 for i, n in enumerate(DEC_STATES)},
+        num_slots=DEC_SLOTS, max_new_tokens=DEC_MAX_NEW, **kw)
+
+
+def flood(submit, n, n_threads, wave=None, started=None, timeout=900):
+    """``n`` requests from ``n_threads`` client threads, ``submit(i)`` ->
+    Future.  Each thread submits its share ``wave`` at a time (all at
+    once by default) and waits for them; ``started`` is set once every
+    thread has requests in flight.  -> (answers, wall, errors)."""
+    answers = [None] * n
+    errors = []
+    in_flight = threading.Barrier(n_threads + 1) if started else None
+
+    def client(idx):
+        try:
+            mine = list(range(idx, n, n_threads))
+            step = wave or len(mine)
+            for k in range(0, len(mine), step):
+                futs = [(i, submit(i)) for i in mine[k:k + step]]
+                if k == 0 and in_flight is not None:
+                    in_flight.wait(timeout)
+                for i, f in futs:
+                    answers[i] = f.result(timeout=timeout)
+        except Exception as e:              # reported below, fails the run
+            errors.append(repr(e))
+            if in_flight is not None:
+                in_flight.abort()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(n_threads)]
+    for t in threads:
+        t.start()
+    if in_flight is not None:
+        try:
+            in_flight.wait(timeout)
+        except threading.BrokenBarrierError:
+            pass
+        started()
+    for t in threads:
+        t.join(timeout=timeout)
+    if any(t.is_alive() for t in threads):
+        errors.append("a client thread outlived %d s" % timeout)
+    return answers, time.perf_counter() - t0, errors
+
+
+def first_difference(a, b):
+    """Index of the first token where streams a and b differ, or None."""
+    a, b = np.asarray(a), np.asarray(b)
+    n = min(len(a), len(b))
+    diff = np.nonzero(a[:n] != b[:n])[0]
+    if len(diff):
+        return int(diff[0])
+    return None if len(a) == len(b) else n
+
+
+def lstm_margin(mt, sym, params, prompt, stream, j):
+    """Replay prompt + stream[:j] teacher-forced through the step on the
+    CPU (one slot, states carried) and return the top-2 margin of the
+    logits that choose token j, with phase 7's logits tolerance there."""
+    states = {n: (1, LSTM_HIDDEN) for n in DEC_STATES}
+    pred = mt.Predictor(sym.tojson(), params, dict(data=(1,), **states),
+                        dev_type="cpu", type_dict={"data": np.int32})
+    seq = list(prompt) + [int(t) for t in stream[:j]]
+    for tok in seq:
+        pred.set_input("data", np.asarray([tok], np.int32))
+        pred.forward()
+        for k, n in enumerate(DEC_STATES):
+            pred.set_input(n, pred.get_output(k + 1))
+    logits = np.sort(pred.get_output(0)[0])
+    return (float(logits[-1] - logits[-2]),
+            LOGIT_TOL_REL * max(1.0, float(np.abs(logits).max())))
+
+
+def same_under_margin(label, got, want, margin_of):
+    """Streams equal, or first apart where the reference's top-2 margin
+    is within the logits tolerance (phase 7's rule).  -> True for a tie
+    flip, False when equal; fails the run otherwise."""
+    if got is None or got.dtype != np.int32:
+        fail("%s: malformed stream %r" % (label, got))
+    j = first_difference(got, want)
+    if j is None:
+        return False
+    if j >= min(len(got), len(want)):
+        fail("%s: stream lengths %d and %d" % (label, len(got), len(want)))
+    margin, tol = margin_of(j)
+    print("serving ops: %s differs at token %d (got %d, want %d); top-2 "
+          "margin there %.3g, tol %.3g" % (label, j, got[j], want[j],
+                                           margin, tol))
+    if not margin < tol:
+        fail("%s differs at token %d where the top-2 margin %.3g exceeds "
+             "tol %.3g" % (label, j, margin, tol))
+    return True
+
+
+def cuda_device_ms(torch, fn):
+    """Device time of the CUDA kernels fn() launches, from any thread,
+    summed by torch.profiler; -> (fn's result, device ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0))
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return out, total / 1e3
+
+
+def decode_ops_phase(torch, mt, smi):
+    """(a) DecodeEngine at the PTB LSTM's width, 32 streams from 4
+    threads, held against the port's CPU DecodeEngine on the same
+    checkpoint; a hot reload mid-flood."""
+    sym = lstm_step_symbol(mt)
+    versions = [lstm_params(mt, LSTM_HIDDEN, seed) for seed in (20, 21)]
+    n_params = sum(v.size for v in versions[0].values())
+    if n_params != 4653200:
+        fail("LSTM decode step has %d parameters, want 4653200" % n_params)
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, LSTM_VOCAB, size=int(rng.integers(
+        1, DEC_PROMPT_MAX + 1))) for _ in range(DEC_STREAMS)]
+    print("decode: PTB LSTM step (2x200, embed 200, vocab 10000, %d "
+          "parameters), %d slots, %d streams of %d..%d prompt tokens and "
+          "%d new tokens from %d threads" % (
+              n_params, DEC_SLOTS, DEC_STREAMS, min(map(len, prompts)),
+              max(map(len, prompts)), DEC_MAX_NEW, DEC_THREADS))
+    cpu = []
+    for v, params in enumerate(versions):
+        eng = lstm_decode_engine(mt, sym, params, dev_type="cpu",
+                                 name="lstm-cpu-v%d" % v)
+        try:
+            got, _, errors = flood(lambda i: eng.submit(prompts[i]),
+                                   DEC_STREAMS, DEC_THREADS)
+        finally:
+            eng.close()
+        if errors:
+            fail("CPU decode errors: %s" % errors)
+        cpu.append(got)
+    margin = {v: (lambda i, s, v=v: (lambda j: lstm_margin(
+        mt, sym, versions[v], prompts[i], s, j))) for v in (0, 1)}
+
+    t0 = time.perf_counter()
+    eng = lstm_decode_engine(mt, sym, versions[0], name="lstm-decode")
+    built = time.perf_counter() - t0
+    try:
+        if eng.device.type != "cuda":
+            fail("DecodeEngine built without a context runs on %s"
+                 % eng.device)
+        steps0 = eng.stats.report()["steps"]
+        streams, wall, errors = flood(lambda i: eng.submit(prompts[i]),
+                                      DEC_STREAMS, DEC_THREADS)
+        if errors:
+            fail("decode client errors: %s" % errors)
+        steps = eng.stats.report()["steps"] - steps0
+        ties = sum(same_under_margin("decode stream %d" % i, s, cpu[0][i],
+                                     margin[0](i, s))
+                   for i, s in enumerate(streams))
+        tokens = sum(len(s) for s in streams)
+        print("decode: built+warmed %.2f s; %d streams, %d tokens in %.3f s "
+              "= %.1f tokens/s; %d steps, %.3f ms a step (wall); all "
+              "streams equal the CPU engine's (%d after a logit tie)"
+              % (built, DEC_STREAMS, tokens, wall, tokens / wall, steps,
+                 1e3 * wall / steps, ties))
+        # device time of a step: the kernels of a second flood, summed
+        steps0 = eng.stats.report()["steps"]
+        (_, pwall, _), device = cuda_device_ms(torch, lambda: flood(
+            lambda i: eng.submit(prompts[i]), DEC_STREAMS, DEC_THREADS))
+        psteps = eng.stats.report()["steps"] - steps0
+        step_wall = 1e3 * wall / steps
+        step_device = device / psteps if device > 0 else None
+        if step_device is None:
+            print("decode: a step %.3f ms of wall; device time not "
+                  "measured (the profiler saw no kernels of the decode "
+                  "thread); card %s" % (step_wall, smi))
+        else:
+            print("decode: a step %.3f ms of wall, %.3f ms of device time, "
+                  "busy share %.3f (card %s)" % (
+                      step_wall, step_device, step_device / step_wall, smi))
+        # the hot reload mid-flood: each stream one version's, end to end
+        reloads = []
+        got2, wall2, errors = flood(
+            lambda i: eng.submit(prompts[i]), DEC_STREAMS, DEC_THREADS,
+            wave=2, started=lambda: reloads.append(
+                eng.reload(versions[1], timeout=600)))
+        if errors or reloads != [1]:
+            fail("decode reload flood: errors %s, versions %s"
+                 % (errors, reloads))
+        counts = [0, 0]
+        for i, s in enumerate(got2):
+            v = 0 if first_difference(s, cpu[0][i]) is None else \
+                1 if first_difference(s, cpu[1][i]) is None else None
+            if v is None:       # a tie flip under one of the versions
+                j0 = first_difference(s, cpu[0][i])
+                j1 = first_difference(s, cpu[1][i])
+                v = 0 if j0 > j1 else 1
+                same_under_margin("reload stream %d (v%d)" % (i, v), s,
+                                  cpu[v][i], margin[v](i, s))
+            counts[v] += 1
+        print("decode: hot reload mid-flood: %d streams under the old "
+              "weights, %d under the new, none mixed; %.3f s"
+              % (counts[0], counts[1], wall2))
+        dev_bytes = eng.device_bytes()
+    finally:
+        eng.close()
+    return {"sym": sym, "params": versions[0], "prompts": prompts,
+            "streams": streams, "tokens_s": tokens / wall,
+            "step_wall_ms": step_wall, "step_device_ms": step_device,
+            "device_bytes": dev_bytes}
+
+
+def paged_replica(mt, params, cfg, name):
+    """Phase 7's paged engine configuration."""
+    return mt.serve.PagedDecodeEngine(
+        params, cfg, num_slots=LM_SLOTS, block_tokens=LM_BLOCK_TOKENS,
+        num_blocks=LM_POOL_BLOCKS, chunk_tokens=LM_CHUNK,
+        max_new_tokens=LM_MAX_NEW, name=name)
+
+
+def router_ops_phase(torch, mt, ck, llm, smi):
+    """(b) ServeRouter over 2 PagedDecodeEngine replicas at phase 7's
+    geometry and checkpoint: phase 7's 32 prompts from 4 threads, then a
+    second flood with rolling_restart() in the middle."""
+    from mxnet_tpu_torch.convert import convert_lm_params
+    cfg, params, prompts, want = (llm["cfg"], llm["params"],
+                                  llm["prompts"], llm["streams"])
+    dev = torch.device("cuda", 0)
+    pdev = convert_lm_params(params, dev)
+    counts = []                     # every replica's forward counts
+
+    def factory(i):
+        eng = paged_replica(mt, params, cfg, "router-rep%d" % i)
+        counts.append(eng.forward_counts)
+        return eng
+
+    def check(label, streams):
+        ties = sum(same_under_margin(
+            "%s stream %d" % (label, i), s, want[i],
+            lambda j, i=i, s=s: top2_margin(torch, pdev, cfg, prompts[i],
+                                            want[i], j, dev))
+            for i, s in enumerate(streams))
+        return ties
+
+    def around(run):
+        before = [c["target"] for c in counts]
+        ck.reset_launches()
+        out = run()
+        launches = ck.LAUNCHES["paged_attention"]
+        steps = sum(c["target"] for c in counts) - sum(before)
+        if launches < 1 or launches != cfg.layers * steps:
+            fail("router: paged_attention launched %d times for %d target "
+                 "forwards of %d layers" % (launches, steps, cfg.layers))
+        return out, launches, steps
+
+    t0 = time.perf_counter()
+    router = mt.serve.ServeRouter(factory, replicas=2, name="llm-router")
+    try:
+        print("router: 2 paged replicas (phase 7's engine and checkpoint) "
+              "built in %.2f s, %d device bytes each"
+              % (time.perf_counter() - t0, router.replica(0).device_bytes()))
+        lm_bytes = router.replica(0).device_bytes()
+        submit = lambda i: router.submit(prompts[i],       # noqa: E731
+                                         max_new_tokens=LM_MAX_NEW)
+        (streams, wall, errors), l1, s1 = around(
+            lambda: flood(submit, LM_STREAMS, LM_THREADS))
+        if errors:
+            fail("router client errors: %s" % errors)
+        ties = check("router", streams)
+        tokens = sum(len(s) for s in streams)
+        per = [row["dispatched"] for row in
+               router.stats.report()["per_replica"].values()]
+        print("router: %d streams, %d tokens in %.3f s = %.1f tokens/s "
+              "(phase 7's single engine %.1f tokens/s); dispatched %s; "
+              "paged_attention launches %d = %d layers x %d target "
+              "forwards; streams equal phase 7's (%d after a logit tie); "
+              "card %s" % (LM_STREAMS, tokens, wall, tokens / wall,
+                           llm["tokens_s"], per, l1, cfg.layers, s1, ties,
+                           smi))
+        restarted = []
+        (streams2, wall2, errors), l2, s2 = around(lambda: flood(
+            submit, LM_STREAMS, LM_THREADS, wave=2,
+            started=lambda: restarted.append(router.rolling_restart(
+                timeout=600))))
+        rep = router.stats.report()
+        rows = rep["per_replica"].values()
+        dropped = sum(r["engine"]["dropped_streams"] for r in rows)
+        if errors or restarted != [None] or rep["failed"] or dropped \
+                or any(s is None for s in streams2) \
+                or [r["restarts"] for r in rows] != [1, 1]:
+            fail("router rolling restart: errors %s, failed %d, dropped "
+                 "%d, restarts %s" % (errors, rep["failed"], dropped,
+                                      [r["restarts"] for r in rows]))
+        ties2 = check("router restart", streams2)
+        print("router: rolling_restart mid-flood: %d streams in %.3f s, 0 "
+              "dropped, 0 errors, restarts %s, %d retried; paged_attention "
+              "launches %d = %d layers x %d target forwards (warm-ups of "
+              "the rebuilt replicas included); streams equal phase 7's (%d "
+              "after a logit tie)" % (LM_STREAMS, wall2,
+                                      [r["restarts"] for r in rows],
+                                      rep["retried"], l2, cfg.layers, s2,
+                                      ties2))
+    finally:
+        router.close()
+    del router, counts
+    torch.cuda.empty_cache()
+    return {"launches": l1 + l2, "tokens_s": tokens / wall,
+            "lm_bytes": lm_bytes, "pdev": pdev}
+
+
+def mux_ops_phase(torch, mt, ck, served, dec, llm, router, prefix, smi):
+    """(c) ModelMultiplexer of VGG-16 (phase 4's fused ServeEngine), the
+    LSTM DecodeEngine of (a) and the GPT-2-small PagedDecodeEngine of
+    (b) on one card, under a byte budget that cannot hold VGG-16 and the
+    LM together."""
+    cfg, prompts, lm_want = llm["cfg"], llm["prompts"], llm["streams"]
+    dev = torch.device("cuda", 0)
+    vgg_shapes = {"data": (1, 3, 224, 224), "softmax_label": (1,)}
+    probe = mt.serve.ServeEngine.from_checkpoint(
+        prefix, 0, vgg_shapes, fuse=True, warmup=False, name="vgg-probe")
+    vgg_bytes = probe.device_bytes()
+    probe.close()
+    del probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    sizes = {"vgg16": vgg_bytes, "lstm": dec["device_bytes"],
+             "lm": router["lm_bytes"]}
+    budget = max(sizes["vgg16"], sizes["lm"]) + sizes["lstm"]
+    if budget >= sizes["vgg16"] + sizes["lm"]:
+        fail("mux budget %d would hold VGG-16 and the LM together" % budget)
+    swaps = []                              # (model, build wall s, mem)
+    live_bytes = {}                         # model -> its engine's bytes
+    lm_counts = []                          # the LM engines' forward counts
+
+    def timed(name, make):
+        def factory():
+            # the multiplexer has closed this swap-in's victims already
+            mem = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            eng = make()
+            swaps.append((name, time.perf_counter() - t0, mem))
+            live_bytes[name] = eng.device_bytes()
+            if name == "lm":
+                lm_counts.append(eng.forward_counts)
+            return eng
+        return factory
+
+    # the hints are the measured sizes, so a swap-in evicts before it
+    # builds and the live set never holds VGG-16 and the LM together
+    mux = mt.serve.ModelMultiplexer(budget_bytes=budget, name="card-mux")
+    mux.add_model("vgg16", timed("vgg16", lambda: (
+        mt.serve.ServeEngine.from_checkpoint(prefix, 0, vgg_shapes,
+                                             fuse=True, name="mux-vgg16"))),
+        bytes_hint=sizes["vgg16"])
+    mux.add_model("lstm", timed("lstm", lambda: lstm_decode_engine(
+        mt, dec["sym"], dec["params"], name="mux-lstm")),
+        bytes_hint=sizes["lstm"])
+    mux.add_model("lm", timed("lm", lambda: paged_replica(
+        mt, llm["params"], cfg, "mux-lm")), bytes_hint=sizes["lm"])
+    vgg_warm_launches = 2 * len(mt.serve.default_buckets(8))
+    items = [wire_to_nchw(u) for u in served["wire"]]
+    lstm_margin_of = {}
+    checks = {"vgg16": 0, "lstm": 0, "lm": 0}
+    launches = {"fused_fc_epilogue": 0, "paged_attention": 0}
+
+    def wave(model, idx):
+        kw = {} if model == "vgg16" else {"max_new_tokens": DEC_MAX_NEW
+                                          if model == "lstm" else LM_MAX_NEW}
+        src = {"vgg16": items, "lstm": dec["prompts"], "lm": prompts}[model]
+        live0 = set(mux.live_models())
+        bytes0 = {m: live_bytes[m] for m in live0}
+        mem0 = torch.cuda.memory_allocated()
+        n_swaps = len(swaps)
+        steps0 = sum(c["target"] for c in lm_counts)
+        batches0 = sum(r["batches"] for k, r in mt.profiler.serve_report()
+                       .items() if k.startswith("mux-vgg16#"))
+        ck.reset_launches()
+        got, wall, errors = flood(lambda i: mux.submit(model, src[idx[i]],
+                                                       **kw),
+                                  len(idx), 4)
+        got_launches = dict(ck.LAUNCHES)
+        if errors:
+            fail("mux %s wave errors: %s" % (model, errors))
+        evicted = sorted(live0 - set(mux.live_models()))
+        if evicted:
+            if len(swaps) != n_swaps + 1:
+                fail("mux: %s evicted without a swap-in" % evicted)
+            freed = mem0 - swaps[-1][2]
+            need = sum(bytes0[m] for m in evicted)
+            print("mux: swap-in of %s evicted %s: memory_allocated fell by "
+                  "%d bytes before the build, their device_bytes() %d (tol "
+                  "%d)" % (model, evicted, freed, need, MUX_MEM_TOL))
+            if freed < need - MUX_MEM_TOL:
+                fail("mux: evicting %s freed %d bytes, want >= %d"
+                     % (evicted, freed, need - MUX_MEM_TOL))
+        for k in launches:
+            launches[k] += got_launches[k]
+        swapped = len(swaps) - n_swaps
+        if model == "vgg16":
+            batches = sum(r["batches"] for k, r in mt.profiler.serve_report()
+                          .items() if k.startswith("mux-vgg16#")) - batches0
+            # 2 a batch, and a swap-in's warm-up runs every bucket once
+            want = 2 * batches + vgg_warm_launches * swapped
+            if got_launches["fused_fc_epilogue"] != want:
+                fail("mux vgg16: fused_fc_epilogue launched %d times for %d "
+                     "batches and %d swap-ins, want %d" % (
+                         got_launches["fused_fc_epilogue"], batches,
+                         swapped, want))
+            for i, a in zip(idx, got):
+                r = served["answers"][i]
+                if not np.allclose(a, r, rtol=1e-3, atol=1e-6):
+                    fail("mux vgg16 answer %d differs from phase 4's: max "
+                         "abs err %.3g" % (i, np.abs(a - r).max()))
+        elif model == "lstm":
+            for i, s in zip(idx, got):
+                same_under_margin("mux lstm stream %d" % i, s,
+                                  dec["streams"][i], lambda j, i=i, s=s:
+                                  lstm_margin(mt, dec["sym"], dec["params"],
+                                              dec["prompts"][i], s, j))
+        else:
+            steps = sum(c["target"] for c in lm_counts) - steps0
+            paged = got_launches["paged_attention"]
+            if paged < 1 or paged != cfg.layers * steps:
+                fail("mux lm: paged_attention launched %d times for %d "
+                     "target forwards" % (paged, steps))
+            for i, s in zip(idx, got):
+                same_under_margin("mux lm stream %d" % i, s, lm_want[i],
+                                  lambda j, i=i: top2_margin(
+                                      torch, router["pdev"], cfg, prompts[i],
+                                      lm_want[i], j, dev))
+        checks[model] += len(idx)
+        print("mux: %-6s %2d requests in %.3f s; live %s; launches %s"
+              % (model, len(idx), wall, sorted(mux.live_models()),
+                 {k: v for k, v in got_launches.items() if v}))
+
+    plan = [("vgg16", range(0, 8)), ("lstm", range(0, 8)),
+            ("lm", range(0, 8)), ("lstm", range(8, 16)),
+            ("vgg16", range(8, 16)), ("lm", range(8, 16)),
+            ("vgg16", range(16, 24))]
+    try:
+        print("mux: device_bytes vgg16 %d, lstm %d, lm %d; budget %d "
+              "(VGG-16 and the LM cannot both be live)" % (
+                  sizes["vgg16"], sizes["lstm"], sizes["lm"], budget))
+        for model, idx in plan:
+            wave(model, list(idx))
+        for model in list(mux.live_models()):
+            mem0 = torch.cuda.memory_allocated()
+            nbytes = live_bytes[model]
+            if not mux.evict(model):
+                fail("mux: could not evict idle %s" % model)
+            freed = mem0 - torch.cuda.memory_allocated()
+            print("mux: evict(%s): memory_allocated fell by %d bytes, its "
+                  "device_bytes() %d" % (model, freed, nbytes))
+            if freed < nbytes - MUX_MEM_TOL:
+                fail("mux: evict(%s) freed %d bytes, want >= %d"
+                     % (model, freed, nbytes - MUX_MEM_TOL))
+        rep = mux.stats.report()
+    finally:
+        mux.close()
+    print("mux: %d swap-ins, %d evictions, %d rejected; swap-in wall %s; "
+          "answers checked %s; card %s" % (
+              rep["swap_ins"], rep["evictions"], rep["rejected"],
+              ["%s %.2f s" % (m, w) for m, w, _ in swaps], checks, smi))
+    if rep["evictions"] < 2 or rep["swap_ins"] != len(swaps):
+        fail("mux: %d swap-ins, %d evictions" % (rep["swap_ins"],
+                                                 rep["evictions"]))
+    return {"launches": launches, "swap_ins": rep["swap_ins"],
+            "evictions": rep["evictions"]}
+
+
+def serving_ops_phase(torch, mt, ck, served, llm, prefix, smi):
+    t0 = time.perf_counter()
+    dec = decode_ops_phase(torch, mt, smi)
+    router = router_ops_phase(torch, mt, ck, llm, smi)
+    mux = mux_ops_phase(torch, mt, ck, served, dec, llm, router, prefix,
+                        smi)
+    print("serving ops result (card %s): %s; phase %.1f s" % (smi, json.dumps({
+        "decode-lstm-tokens_s": round(dec["tokens_s"], 1),
+        "decode-step_wall_ms": round(dec["step_wall_ms"], 3),
+        "decode-step_device_ms": None if dec["step_device_ms"] is None
+        else round(dec["step_device_ms"], 3),
+        "router-tokens_s": round(router["tokens_s"], 1),
+        "single-engine-tokens_s": round(llm["tokens_s"], 1),
+        "mux-swap_ins": mux["swap_ins"],
+        "mux-evictions": mux["evictions"]}), time.perf_counter() - t0))
+    return {"paged_launches": router["launches"]
+            + mux["launches"]["paged_attention"],
+            "fc_launches": mux["launches"]["fused_fc_epilogue"]}
+
+
 def main():
     # cuBLAS under deterministic algorithms (phase 14) needs a fixed
     # workspace, chosen before the process's first cuBLAS call
@@ -3870,12 +4428,15 @@ def main():
     fc = kernel_phase(torch, ck)
     int8_route_phase(torch, i8)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        # phase 4: the VGG-16 serving path
-        served = serve_phase(torch, mt, ck, tmp)
+    # the checkpoints of phases 4 and 5, kept for phase 17's multiplexer
+    tmpdir = tempfile.TemporaryDirectory()
+    tmp = tmpdir.name
 
-        # phase 5: int8 and float16 VGG-16 serving on the uint8 wire
-        quant = quantized_serve_phase(torch, mt, ck, i8, served, tmp, smi)
+    # phase 4: the VGG-16 serving path
+    served = serve_phase(torch, mt, ck, tmp)
+
+    # phase 5: int8 and float16 VGG-16 serving on the uint8 wire
+    quant = quantized_serve_phase(torch, mt, ck, i8, served, tmp, smi)
 
     # phase 6: paged_attention against its plain version
     paged = paged_kernel_phase(torch, ck)
@@ -3925,12 +4486,19 @@ def main():
           "threads, buckets 1..8; card %s): %s" % (smi, json.dumps(
               {k: {m: v[m] for m in ("rps", "p50", "p99")}
                for k, v in engines.items()})))
+
+    # phase 17: serving operations: DecodeEngine, ServeRouter,
+    # ModelMultiplexer
+    ops = serving_ops_phase(torch, mt, ck, served, llm, served["prefix"],
+                            smi)
+    tmpdir.cleanup()
     kernels = [{
         "name": "fused_fc_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["fused_fc_epilogue"],
         "replaces": REPLACES["fused_fc_epilogue"],
         "launches": served["launches"]["fused_fc_epilogue"]
-        + quant["int8-skip-fc6"]["launches"]["fused_fc_epilogue"],
+        + quant["int8-skip-fc6"]["launches"]["fused_fc_epilogue"]
+        + ops["fc_launches"],
         "max_abs_err": fc["max_abs_err"],
         "ms": fc["ms"], "plain_ms": fc["plain_ms"],
         "bound_ms": fc["bound_ms"], "bound_by": "bytes",
@@ -3939,7 +4507,7 @@ def main():
         "name": "paged_attention", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["paged_attention"],
         "replaces": REPLACES["paged_attention"],
-        "launches": llm["launches"],
+        "launches": llm["launches"] + ops["paged_launches"],
         "max_abs_err": paged["max_abs_err"],
         "ms": paged["ms"], "plain_ms": paged["plain_ms"],
         "bound_ms": paged["bound_ms"], "bound_by": paged["bound_by"],
@@ -3972,9 +4540,12 @@ def main():
           "fc7 launches (float32 out), its launches those of the float32 "
           "VGG-16 run (2 a batch) plus the int8-skip-fc6 run (fc6 with the "
           "int8 epilogue, 1 a batch; the int8-default run launches it 0 "
-          "times); paged_attention is one C=1 plus one C=32 launch "
-          "at 16 slots x 12 heads x 64, contexts 1..1024; its launches "
-          "are those of the paged, dense-stripe and speculative LM runs; "
+          "times) plus the multiplexer's VGG-16 waves (2 a batch and 8 a "
+          "swap-in's warm-up); paged_attention is one C=1 plus one C=32 "
+          "launch at 16 slots x 12 heads x 64, contexts 1..1024; its "
+          "launches are those of the paged, dense-stripe and speculative "
+          "LM runs, the router's two floods and the multiplexer's LM "
+          "waves; "
           "flash_attention is one causal launch at B=4 T=1024 H=12 D=64 "
           "with the searched tile, its launches those of the search, the "
           "store hit and the call-time use, its bound at the tensor cores' "

@@ -4,7 +4,8 @@ The same user surface as the JAX package, on one NVIDIA H100:
 ``import mxnet_tpu_torch as mx``, then ``mx.nd``, ``mx.sym``,
 ``mx.predictor``, ``mx.serve``, ``mx.autotune``, and for training
 ``mx.mod``, ``mx.optimizer``, ``mx.init``, ``mx.metric``, ``mx.io``,
-``mx.lr_scheduler``, ``mx.callback``, ``mx.random`` and ``mx.Monitor``.
+``mx.lr_scheduler``, ``mx.callback``, ``mx.random`` and ``mx.Monitor``;
+``mx.engine``, ``mx.faults`` and ``mx.profiler``'s serve report.
 Plain tensor code is PyTorch; the package's TPU kernels are hand-written Hopper kernels
 (``ops/cuda_kernels.py``, sources in ``csrc/``).  Entry points run on
 ``gpu(0)`` unless the caller asks for ``cpu()``.
@@ -15,16 +16,20 @@ The port goes slice by slice (ROADMAP.md).  This package imports
 from . import base
 from .base import MXNetError
 from .context import Context, cpu, cpu_pinned, current_context, gpu
+from . import engine
 from . import ndarray
 from . import ndarray as nd
+from .ndarray import NDArray
 from . import ops
 from .ops import nd_bridge as _nd_bridge
 _nd_bridge.register_all()   # every aux-free op as mx.nd.<op>
 from . import symbol
 from . import symbol as sym
+from .symbol import Symbol
 from .attribute import AttrScope
-from .name import NameManager
+from .name import NameManager, Prefix
 from . import executor
+from .executor import Executor
 from . import model
 from . import predictor
 from .predictor import Predictor, create_predictor
@@ -40,6 +45,7 @@ from . import initializer
 from . import initializer as init
 from . import optimizer
 from . import optimizer as opt
+from .optimizer import Optimizer
 from . import lr_scheduler
 from . import metric
 from . import io
@@ -48,10 +54,19 @@ from . import module
 from . import module as mod
 from . import monitor
 from .monitor import Monitor
+from . import profiler
+from . import faults
+from . import libinfo
+from . import misc
+from . import symbol_doc
+
+__version__ = libinfo.__version__
 
 __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
-           "current_context", "nd", "ndarray", "sym", "symbol", "ops",
-           "AttrScope", "NameManager", "executor", "model", "predictor",
+           "current_context", "engine", "nd", "ndarray", "NDArray", "sym",
+           "symbol", "Symbol", "ops", "AttrScope", "NameManager", "Prefix",
+           "executor", "Executor", "Optimizer", "profiler", "faults",
+           "libinfo", "misc", "symbol_doc", "model", "predictor",
            "Predictor", "create_predictor", "passes", "serve", "models",
            "convert", "parallel", "autotune", "random", "rnd",
            "initializer", "init", "optimizer", "opt", "lr_scheduler",

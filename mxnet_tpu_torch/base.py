@@ -1,8 +1,9 @@
 """Base types and helpers for mxnet_tpu_torch.
 
 The PyTorch counterpart of ``mxnet_tpu/base.py``: the error type, the
-environment accessor and the attribute bag that op parameters live in.
-Locks are plain ``threading`` locks.
+environment accessor, local paths with an optional ``file://`` scheme,
+and the attribute bag that op parameters live in.  Locks and conditions
+are plain ``threading`` ones.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ from typing import Any, Callable
 import numpy as np
 
 __all__ = ["MXNetError", "numeric_types", "get_env", "atomic_local_write",
-           "make_lock"]
+           "make_lock", "make_condition", "is_local_path", "local_path",
+           "open_stream"]
 
 
 class MXNetError(Exception):
@@ -44,11 +46,44 @@ def make_lock(name: str) -> threading.Lock:
     return threading.Lock()
 
 
+def make_condition(name: str) -> threading.Condition:
+    """A ``threading.Condition`` (``name`` as in :func:`make_lock`)."""
+    return threading.Condition()
+
+
+def is_local_path(fname: str) -> bool:
+    """Whether ``fname`` names the local filesystem: a bare path or a
+    ``file://`` URI."""
+    return "://" not in fname or fname.startswith("file://")
+
+
+def local_path(fname: str) -> str:
+    """Strip an optional ``file://`` scheme off a local path."""
+    return fname[len("file://"):] if fname.startswith("file://") else fname
+
+
+def open_stream(fname: str, mode: str = "r"):
+    """Open a local path or a ``file://`` URI.  Other schemes (s3://,
+    hdfs:// ...) need a protocol handler the port does not carry, and
+    raise naming the scheme rather than writing a bogus local file."""
+    if not is_local_path(fname):
+        raise MXNetError(
+            "URI %r: no protocol handler for %r in this build; copy the "
+            "file locally" % (fname, fname.split("://", 1)[0]))
+    return open(local_path(fname), mode)
+
+
 @contextlib.contextmanager
 def atomic_local_write(fname: str, mode: str = "wb"):
-    """Crash-safe publish of a local file: write a temp name in the same
-    directory, flush + fsync, then ``os.replace`` onto ``fname``.  The
-    published name is either absent or complete, never truncated."""
+    """Crash-safe publish of a local file (a path or a ``file://`` URI):
+    write a temp name in the same directory, flush + fsync, then
+    ``os.replace`` onto the name.  The published name is either absent
+    or complete, never truncated."""
+    if not is_local_path(fname):
+        raise MXNetError("atomic_local_write needs a local path, got %r "
+                         "(the %r protocol has no handler in this build)"
+                         % (fname, fname.split("://", 1)[0]))
+    fname = local_path(fname)
     tmp = "%s.tmp-%d" % (fname, os.getpid())
     f = open(tmp, mode)
     try:

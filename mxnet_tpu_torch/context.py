@@ -14,7 +14,12 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "cpu_pinned", "current_context"]
+__all__ = ["Context", "cpu", "gpu", "cpu_pinned", "current_context",
+           "used_cuda_devices"]
+
+# the CUDA device ids a Context has resolved to: the devices
+# ``engine.wait_for_all`` synchronizes
+_USED_CUDA = set()
 
 
 class Context:
@@ -75,6 +80,7 @@ class Context:
         if self.device_id >= torch.cuda.device_count():
             raise MXNetError("%s requested but only %d CUDA device(s) exist"
                              % (self, torch.cuda.device_count()))
+        _USED_CUDA.add(self.device_id)
         return torch.device("cuda", self.device_id)
 
 
@@ -94,6 +100,11 @@ def current_context() -> Context:
     """The context of the innermost with-scope, else ``gpu(0)``."""
     cur = getattr(Context._default_ctx, "value", None)
     return cur if cur is not None else gpu(0)
+
+
+def used_cuda_devices():
+    """The CUDA device ids the port has placed work on, sorted."""
+    return sorted(_USED_CUDA)
 
 
 def context_of(device: torch.device) -> Context:

@@ -22,6 +22,7 @@ import torch
 
 from .base import MXNetError
 from .context import Context
+from .engine import _ENGINE
 from .ndarray import NDArray, zeros as nd_zeros
 from .ops.registry import OpContext
 from . import random as _random
@@ -96,6 +97,8 @@ class _GraphProgram:
                 new_aux.update(zip(aux_names, aux_out))
             for i, o in enumerate(outs):
                 vals[(id(node), i)] = o
+            if _ENGINE._naive:
+                _ENGINE.track(outs)
             if self.monitor is not None:
                 out_names = node.op.list_outputs(node.params)
                 for i, o in enumerate(outs):
@@ -277,6 +280,26 @@ class Executor:
             elif not allow_extra_params:
                 raise MXNetError("Found name %r not in executor aux states"
                                  % name)
+
+    def debug_str(self) -> str:
+        """The execution plan: every node in order with its context, and
+        the bytes the bound arguments and aux states hold (reference
+        graph_executor.cc:955-988)."""
+        lines = ["Symbol Outputs:",
+                 "\t" + ", ".join(self._symbol.list_outputs())]
+        for node in self._prog.topo:
+            if node.is_variable:
+                lines.append("Variable:%s ctx=%s" % (node.name, self._ctx))
+            else:
+                lines.append("Op:%s Name=%s ctx=%s"
+                             % (node.op.name, node.name, self._ctx))
+                for (i, x) in node.inputs:
+                    lines.append("\targ[%d]=%s" % (x, i.name))
+        total = sum(arr.size * arr.dtype.itemsize for arr in
+                    list(self.arg_dict.values())
+                    + list(self.aux_dict.values()))
+        lines.append("Total %.1f MB allocated (args+aux)" % (total / 2**20))
+        return "\n".join(lines)
 
 
 def _grad_req_dict(grad_req, arg_names) -> Dict[str, str]:

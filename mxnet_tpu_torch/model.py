@@ -10,7 +10,7 @@ import os
 from collections import namedtuple
 from typing import Dict, Optional, Tuple
 
-from .base import MXNetError
+from .base import MXNetError, local_path, open_stream
 from .context import Context
 from .ndarray import NDArray, load as nd_load, save as nd_save
 from .symbol import Symbol, load_json as sym_load_json
@@ -40,12 +40,12 @@ def load_checkpoint(prefix: str, epoch: int, ctx: Optional[Context] = None
     sym_file = "%s-symbol.json" % prefix
     param_file = "%s-%04d.params" % (prefix, epoch)
     for fname, kind in ((sym_file, "symbol"), (param_file, "params")):
-        if not os.path.exists(fname):
+        if not os.path.exists(local_path(fname)):
             have = sorted(glob.glob("%s-*.params" % prefix))
             raise MXNetError(
                 "checkpoint %s file missing: %r (existing param files for "
                 "this prefix: %s)" % (kind, fname, have or "none"))
-    with open(sym_file) as f:
+    with open_stream(sym_file) as f:
         symbol = sym_load_json(f.read())
     arg_params: Dict[str, NDArray] = {}
     aux_params: Dict[str, NDArray] = {}

@@ -59,7 +59,17 @@ class DataParallelExecutorGroup:
                  workload, data_shapes, label_shapes, param_names,
                  for_training, inputs_need_grad, shared_group=None,
                  input_types=None, logger=logging, fixed_param_names=None,
-                 grad_req="write"):
+                 grad_req="write", no_slice_names=None):
+        self.no_slice = frozenset(no_slice_names or ())
+        self.batch_size = data_shapes[0][1][0]
+        if len(contexts) > 1 and any(
+                not self._batch_major(name, s)
+                for name, s in list(data_shapes) + list(label_shapes or [])):
+            raise MXNetError(
+                "inputs whose leading dim is not the batch size (or that "
+                "bind() marked no-slice) cannot be split across devices "
+                "(they are replicated whole); bind on a single context or "
+                "restructure the input")
         if len(contexts) != 1:
             raise NotImplementedError(
                 "the port's Module runs on one context; several devices "
@@ -80,6 +90,12 @@ class DataParallelExecutorGroup:
         self.grad_req = grad_req
         self.execs: List = []
         self.bind_exec(data_shapes, label_shapes, shared_group)
+
+    def _batch_major(self, name, shape) -> bool:
+        """Whether input ``name`` is sliced along the batch: its leading
+        dim is the batch size and bind() did not mark it no-slice."""
+        return (name not in self.no_slice and len(shape) >= 1
+                and shape[0] == self.batch_size)
 
     def bind_exec(self, data_shapes, label_shapes, shared_group=None):
         self.batch_size = data_shapes[0][1][0]
@@ -108,10 +124,11 @@ class DataParallelExecutorGroup:
 
         def target(name):
             # an input whose leading dim is not the batch size (Fast
-            # R-CNN's rois and roi-level labels) is copied whole, as the
-            # reference's executor group copies it
+            # R-CNN's rois and roi-level labels), or that bind() marked
+            # no-slice, is copied whole, as the reference's executor
+            # group copies it
             shape = shapes[name]
-            if shape and shape[0] == self.batch_size:
+            if self._batch_major(name, shape):
                 return [(self.slices[0], exe.arg_dict[name])]
             return [(slice(0, shape[0] if shape else 1), exe.arg_dict[name])]
         self.data_arrays = [target(name) for name in self.data_names]

@@ -94,6 +94,7 @@ class Module(BaseModule):
         self._data_shapes = None
         self._label_shapes = None
         self._grad_req = "write"
+        self._no_slice_names = ()
         # the fused step and its per-batch artifacts: the batch stored by
         # a train forward, the last step's outputs (copies, made lazily),
         # and the number of fused steps taken
@@ -195,7 +196,11 @@ class Module(BaseModule):
     # -- bind ---------------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
-             grad_req="write"):
+             grad_req="write", no_slice_names=None):
+        """``no_slice_names``: input/label names that must not be sliced
+        along the batch even when their leading dim equals the batch
+        size (Fast R-CNN's rois when num_rois == batch_size); they are
+        copied whole."""
         if force_rebind:
             self.binded = False
             self._exec_group = None
@@ -203,6 +208,16 @@ class Module(BaseModule):
         if self.binded:
             self.logger.warning("Already binded, ignoring bind()")
             return
+        if no_slice_names:
+            # a typo would silently re-enable the slicing the caller
+            # asked to prevent: check before any state changes
+            known = {n for n, _ in data_shapes}
+            known |= {n for n, _ in (label_shapes or [])}
+            unknown = sorted(set(no_slice_names) - known)
+            if unknown:
+                raise MXNetError("no_slice_names %s match no bound data/"
+                                 "label input (have: %s)"
+                                 % (unknown, sorted(known)))
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self.binded = True
@@ -212,6 +227,7 @@ class Module(BaseModule):
         self._label_shapes = [tuple(x) for x in label_shapes] \
             if label_shapes else None
         self._grad_req = grad_req
+        self._no_slice_names = tuple(no_slice_names or ())
         shared_group = None
         if shared_module is not None:
             assert isinstance(shared_module, Module) and \
@@ -228,7 +244,8 @@ class Module(BaseModule):
             self._symbol, self._context, self._work_load_list,
             self._data_shapes, self._label_shapes, self._param_names,
             for_training, inputs_need_grad, shared_group, logger=self.logger,
-            fixed_param_names=self._fixed_param_names, grad_req=grad_req)
+            fixed_param_names=self._fixed_param_names, grad_req=grad_req,
+            no_slice_names=self._no_slice_names)
         if shared_module is not None:
             self.params_initialized = True
             self._arg_params = shared_module._arg_params
@@ -237,6 +254,31 @@ class Module(BaseModule):
             self._exec_group.set_params(self._arg_params, self._aux_params)
         if shared_module is not None and shared_module.optimizer_initialized:
             self.borrow_optimizer(shared_module)
+
+    def reshape(self, data_shapes, label_shapes=None):
+        """Re-bind to new input shapes (a different batch size), keeping
+        the trained parameters, the optimizer state, ``grad_req`` and the
+        no-slice marks (reference module.py reshape).  The fused step
+        keys its captures by batch shape and carries over."""
+        assert self.binded
+        if self.params_initialized and self._params_dirty:
+            # the updated params live only on the device: pull them back
+            # before the old executor group goes, or training reverts
+            self._sync_params_from_devices()
+        self._fused_pending = None
+        self._fused_outputs = None
+        self._fused_copies = None
+        self._data_shapes = [tuple(x) for x in data_shapes]
+        self._label_shapes = [tuple(x) for x in label_shapes] \
+            if label_shapes else None
+        self._exec_group = DataParallelExecutorGroup(
+            self._symbol, self._context, self._work_load_list,
+            self._data_shapes, self._label_shapes, self._param_names,
+            self.for_training, self.inputs_need_grad, None,
+            logger=self.logger, fixed_param_names=self._fixed_param_names,
+            grad_req=self._grad_req, no_slice_names=self._no_slice_names)
+        if self.params_initialized:
+            self._exec_group.set_params(self._arg_params, self._aux_params)
 
     # -- optimizer -----------------------------------------------------------------
     def init_optimizer(self, kvstore="local", optimizer="sgd",

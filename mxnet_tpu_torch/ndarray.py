@@ -2,8 +2,10 @@
 
 The counterpart of ``mxnet_tpu/ndarray.py``: creation (``array``/
 ``zeros``/``ones``/``full``/``arange``/``empty``), the host copy
-(``asnumpy``), whole-array writes (``arr[:] = value``, in place, so a
-buffer shared by several executors stays shared), arithmetic with
+(``asnumpy``), views that write through (``arr[i]``, ``arr[a:b]``,
+``reshape``: tensor views of one buffer), writes in place (``arr[key] =
+value`` for an int, a basic slice or a tuple of them, so a buffer shared
+by several executors stays shared), arithmetic with
 arrays and scalars (the in-place forms write into the buffer), the
 reference's registered functions (``dot``, ``sum``, ``onehot_encode``
 ...; ``ops/nd_bridge.py`` adds an imperative form of every aux-free
@@ -27,8 +29,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from .base import MXNetError, atomic_local_write, numeric_types
+from .base import MXNetError, atomic_local_write, numeric_types, open_stream
 from .context import Context, context_of, current_context
+from . import engine as _engine
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "arange", "empty",
            "concatenate", "concat", "onehot_encode", "clip", "dot",
@@ -103,10 +106,11 @@ def _as_tensor(value, dtype: torch.dtype, device: torch.device):
 class NDArray:
     """A tensor with the reference's NDArray surface."""
 
-    __slots__ = ("_data",)
+    __slots__ = ("_data", "writable")
 
-    def __init__(self, data: torch.Tensor):
+    def __init__(self, data: torch.Tensor, writable: bool = True):
         self._data = data
+        self.writable = writable
 
     def _get(self) -> torch.Tensor:
         """The underlying ``torch.Tensor``."""
@@ -121,12 +125,36 @@ class NDArray:
         return int(self._data.numel())
 
     @property
+    def ndim(self) -> int:
+        return self._data.dim()
+
+    @property
     def dtype(self) -> np.dtype:
         return numpy_dtype(self._data.dtype)
 
     @property
     def context(self) -> Context:
         return context_of(self._data.device)
+
+    ctx = context
+
+    @property
+    def T(self) -> "NDArray":
+        """A new array with the axes reversed."""
+        return NDArray(self._data.permute(
+            *reversed(range(self._data.dim()))).contiguous())
+
+    @property
+    def handle(self) -> torch.Tensor:
+        """The underlying tensor (the reference exposed a C handle)."""
+        return self._data
+
+    def wait_to_read(self) -> None:
+        """Wait until the work queued on this array's stream is done."""
+        if self._data.is_cuda:
+            torch.cuda.current_stream(self._data.device).synchronize()
+
+    wait_to_write = wait_to_read
 
     def asnumpy(self) -> np.ndarray:
         return _tensor_to_numpy(self._data)
@@ -136,15 +164,71 @@ class NDArray:
             raise MXNetError("The current array is not a scalar")
         return self.asnumpy().reshape(-1)[0]
 
+    def astype(self, dtype) -> "NDArray":
+        """A new array of ``dtype`` (64-bit types narrowed)."""
+        return NDArray(self._data.to(torch_dtype(dtype), copy=True))
+
+    def as_in_context(self, context: Context) -> "NDArray":
+        """This array if it lives on ``context``, else a copy there."""
+        if self.context == context:
+            return self
+        return self.copyto(context)
+
+    def reshape(self, new_shape) -> "NDArray":
+        """A view of the same buffer in ``new_shape``: writes go through
+        to this array, as the reference's reshape view."""
+        new_shape = tuple(int(x) for x in new_shape)
+        if int(np.prod(new_shape)) != self.size:
+            raise MXNetError("reshape size mismatch %s -> %s"
+                             % (self.shape, new_shape))
+        try:
+            view = self._data.view(new_shape)
+        except RuntimeError as e:
+            raise MXNetError("reshape of a strided view %s -> %s: copy it "
+                             "first" % (self.shape, new_shape)) from e
+        return NDArray(view, writable=self.writable)
+
+    def broadcast_to(self, shape) -> "NDArray":
+        """A new array broadcast to ``shape`` (same ndim, each dim equal
+        or 1, the reference's rule)."""
+        shape = tuple(int(x) for x in shape)
+        cur = self.shape
+        if len(cur) != len(shape):
+            raise MXNetError("Broadcasting needs same ndim: %s vs %s"
+                             % (cur, shape))
+        for c, s in zip(cur, shape):
+            if c != s and c != 1:
+                raise MXNetError("cannot broadcast %s to %s" % (cur, shape))
+        return NDArray(self._data.expand(shape).contiguous())
+
+    def _check_key(self, key):
+        """An int in [0, n) or a basic slice within [0, n] (no step, no
+        negative bounds, as the reference's views) per axis, or a tuple
+        of them."""
+        keys = key if isinstance(key, tuple) else (key,)
+        if len(keys) > self._data.dim():
+            raise MXNetError("too many indices %r for shape %s"
+                             % (key, self.shape))
+        for k, n in zip(keys, self._data.shape):
+            if isinstance(k, slice):
+                start = 0 if k.start is None else k.start
+                stop = n if k.stop is None else k.stop
+                if k.step not in (None, 1) or not 0 <= start <= stop <= n:
+                    raise MXNetError("invalid slice %r for shape %s"
+                                     % (key, self.shape))
+            elif isinstance(k, (int, np.integer)):
+                if not 0 <= k < n:
+                    raise MXNetError("index %d out of range for shape %s"
+                                     % (k, self.shape))
+            else:
+                raise MXNetError("NDArray takes int, basic-slice or tuple "
+                                 "keys; got %r" % (key,))
+
     def __getitem__(self, key):
-        """``arr[i]`` or ``arr[start:stop]`` along the first axis: a view
+        """``arr[i]``, ``arr[start:stop]`` or a tuple of them: a view
         that shares this array's buffer, as the reference's slice does."""
-        if isinstance(key, slice) and key.step not in (None, 1):
-            raise MXNetError("NDArray slices take no step; got %r" % (key,))
-        if not isinstance(key, (slice, int, np.integer)):
-            raise MXNetError("NDArray in the port supports arr[i] and "
-                             "arr[start:stop]; got key %r" % (key,))
-        return NDArray(self._data[key])
+        self._check_key(key)
+        return NDArray(self._data[key], writable=self.writable)
 
     def copy(self) -> "NDArray":
         """A new array with a copy of the data, on the same device."""
@@ -164,26 +248,27 @@ class NDArray:
         raise TypeError("copyto does not support type %s" % type(other))
 
     def __setitem__(self, key, value):
-        """``arr[:] = value``: write in place, casting to this array's
-        dtype and device (the buffer itself never changes)."""
-        if not (isinstance(key, slice) and key.start is None
-                and key.stop is None and key.step is None):
-            raise MXNetError("NDArray in the port supports only arr[:] = "
-                             "value writes; got key %r" % (key,))
+        """``arr[key] = value``: write in place through ``key`` (an int,
+        a basic slice or a tuple of them), casting to this array's dtype
+        and device (the buffer itself never changes)."""
+        if not self.writable:
+            raise MXNetError("trying to write to a read-only NDArray")
+        self._check_key(key)
+        target = self._data[key]
         if isinstance(value, numeric_types):
-            self._data.fill_(value)
+            target.fill_(value)
             return
         if not isinstance(value, (NDArray, torch.Tensor, np.ndarray,
                                   np.generic, list, tuple)):
             raise TypeError("type %s not supported" % str(type(value)))
-        src = _as_tensor(value, self._data.dtype, self._data.device)
-        if tuple(src.shape) != self.shape:
-            if src.numel() != self.size:
+        src = _as_tensor(value, target.dtype, target.device)
+        if tuple(src.shape) != tuple(target.shape):
+            if src.numel() != target.numel():
                 raise MXNetError("shape mismatch: cannot assign %s to "
                                  "NDArray of shape %s"
-                                 % (tuple(src.shape), self.shape))
-            src = src.reshape(self.shape)
-        self._data.copy_(src)
+                                 % (tuple(src.shape), tuple(target.shape)))
+            src = src.reshape(target.shape)
+        target.copy_(src)
 
     # -- arithmetic (reference ndarray.py:320-333) ----------------------------
     def _binary(self, other, fn, reverse=False) -> "NDArray":
@@ -197,7 +282,7 @@ class NDArray:
             b = other.item() if isinstance(other, np.generic) else other
         else:
             raise TypeError("type %s not supported" % str(type(other)))
-        return NDArray(fn(b, a) if reverse else fn(a, b))
+        return NDArray(_engine.track(fn(b, a) if reverse else fn(a, b)))
 
     def _inplace(self, other, fn) -> "NDArray":
         """``self op= other``, written into this array's buffer in its
@@ -240,7 +325,7 @@ class NDArray:
         return self._binary(other, operator.mod)
 
     def __neg__(self):
-        return NDArray(-self._data)
+        return NDArray(_engine.track(-self._data))
 
     def __iadd__(self, other):
         return self._inplace(other, operator.add)
@@ -402,9 +487,9 @@ def choose_element_0index(lhs: NDArray, rhs: NDArray) -> NDArray:
 
 
 def waitall() -> None:
-    """Wait for the work queued on every card (MXNDArrayWaitAll)."""
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+    """Wait for the work queued on every card the port has used
+    (MXNDArrayWaitAll)."""
+    _engine.wait_for_all()
 
 
 # ---------------------------------------------------------------------------
@@ -490,7 +575,7 @@ def save(fname: str, data) -> None:
 def load(fname: str, ctx: Optional[Context] = None):
     """Load NDArrays saved by :func:`save` (either package's) onto
     ``ctx`` (default: the current context)."""
-    with open(fname, "rb") as f:
+    with open_stream(fname, "rb") as f:
         return loads(f.read(), name=fname, ctx=ctx)
 
 

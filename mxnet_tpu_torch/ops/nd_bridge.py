@@ -10,6 +10,7 @@ from __future__ import annotations
 from ..base import MXNetError
 from ..context import current_context
 from .. import ndarray as nd_mod
+from ..engine import track as _track
 from .. import random as _random
 from .registry import OpContext, get_op, list_ops
 
@@ -34,7 +35,7 @@ def _make_nd_fn(op_name: str):
                          OpContext(is_train=False, generator=gen))
         if isinstance(res, tuple):
             res = res[0]
-        outs = [nd_mod.NDArray(o) for o in res]
+        outs = [nd_mod.NDArray(o) for o in _track(res)]
         if out is not None:
             outs[0].copyto(out)
             return out

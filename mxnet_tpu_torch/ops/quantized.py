@@ -21,7 +21,7 @@ import torch
 
 from ..base import MXNetError
 from .cuda_kernels import requantize
-from .int8 import int8_conv2d, int8_matmul
+from .int8 import int8_conv2d, int8_matmul, int8_matmul_reference
 from .nn import conv_infer_shape
 from .registry import OpDef, Param, register_op
 
@@ -146,17 +146,35 @@ def quantized_conv_infer_shape(p, in_shapes):
     return shapes[:2] + [(p.num_filter,)] + shapes[2:], out, aux
 
 
+def _codes(t: torch.Tensor) -> torch.Tensor:
+    """An operand that is not int8 (a quantized graph bound by
+    ``simple_bind`` holds the int8 codes in float32 arrays) as int32,
+    truncated toward zero: what XLA's ``dot_general`` with
+    ``preferred_element_type=int32`` does to it in the JAX package
+    (``mxnet_tpu/ops/quantized.py:127-134``)."""
+    return t if t.dtype == torch.int8 else t.to(torch.int32)
+
+
+def _int8_pair(x: torch.Tensor, w: torch.Tensor) -> bool:
+    return x.dtype == torch.int8 and w.dtype == torch.int8
+
+
 def quantized_fc(p, inputs) -> torch.Tensor:
-    """int8 GEMM summed in int32, dequantized, plus bias: float32 out."""
+    """int8 GEMM summed in int32, dequantized, plus bias: float32 out.
+    Operands bound in another dtype take the exact float64 product of
+    their int32 values (exact while every sum stays below 2^53)."""
     x = inputs[0].reshape(inputs[0].shape[0], -1)
-    acc = int8_matmul(x, inputs[1])
+    w = inputs[1]
+    acc = int8_matmul(x, w) if _int8_pair(x, w) else \
+        int8_matmul_reference(_codes(x), _codes(w))
     return dequantize_int32(acc, p.scale_data, inputs[2],
                             None if p.no_bias else inputs[3])
 
 
 def quantized_conv(p, inputs) -> torch.Tensor:
     """int8 NCHW convolution summed in int32, dequantized per filter,
-    plus bias: float32 out."""
+    plus bias: float32 out.  Both operands must be int8: the JAX
+    package's ``lax.conv_general_dilated`` refuses mixed dtypes too."""
     acc = int8_conv2d(inputs[0], inputs[1], p.stride, p.pad, p.dilate,
                       p.num_group)
     return dequantize_int32(acc, p.scale_data, inputs[2],

@@ -19,7 +19,7 @@ serving flow ``ServeEngine(quantize=...)`` runs::
         quantize=passes.QuantizePass(calib=table), fuse=True)
     qsym, qparams = pipe.run(sym, {**arg, **aux})
 """
-from .pipeline import Pass, PassError, PassPipeline
+from .pipeline import Pass, PassError, PassPipeline, PassStats
 from .verify import check_attrs_preserved, diff_attrs, verify_roundtrip
 from .graph_passes import (CSEPass, DeadNodeEliminationPass,
                            FoldConstantsPass, U8WirePass, rebuild,
@@ -32,7 +32,7 @@ from .quantize import (QuantizePass, build_serving_pipeline,
                        default_quantize_ops, quantize_model)
 
 __all__ = [
-    "Pass", "PassError", "PassPipeline",
+    "Pass", "PassError", "PassPipeline", "PassStats",
     "check_attrs_preserved", "diff_attrs", "verify_roundtrip",
     "CSEPass", "DeadNodeEliminationPass", "FoldConstantsPass",
     "U8WirePass", "rebuild", "tensor_name",

@@ -19,18 +19,30 @@ prefill, speculative decode):
     tokens = eng.submit(prompt_ids).result(timeout=60)
     eng.close()
 
-The dense ``DecodeEngine``, multiplexing and routing come with later
-slices.
+Stateful decode (an RNN step with per-slot state on the card),
+several models on one card, and replicas behind a router:
+
+    dec = DecodeEngine(step_sym, params, state_shapes={"h": (200,)})
+    mux = ModelMultiplexer(budget_bytes=8 << 30)
+    mux.add_model("lm", lambda: PagedDecodeEngine(params, cfg))
+    router = ServeRouter(lambda i: PagedDecodeEngine(params, cfg),
+                         replicas=2)
+    router.rolling_restart()
 """
 from .batcher import MicroBatcher
+from .decode import DecodeEngine
 from .engine import ServeEngine, default_buckets
 from .errors import (ServeClosedError, ServeDeadlineError, ServeError,
-                     ServeOverloadError, ServeRequestError)
+                     ServeOverloadError, ServeRequestError,
+                     ServeUnavailableError)
+from .mux import ModelMultiplexer, MuxStats
 from .paged import KVBlockPool, LMConfig, PagedDecodeEngine, init_lm_params
+from .router import RouterStats, ServeRouter
 from .stats import DecodeStats, PagedStats, ServeStats
 
 __all__ = ["ServeEngine", "MicroBatcher", "ServeStats", "default_buckets",
            "ServeError", "ServeOverloadError", "ServeDeadlineError",
-           "ServeRequestError", "ServeClosedError", "PagedDecodeEngine",
-           "KVBlockPool", "LMConfig", "init_lm_params", "DecodeStats",
-           "PagedStats"]
+           "ServeRequestError", "ServeClosedError", "ServeUnavailableError",
+           "DecodeEngine", "DecodeStats", "ModelMultiplexer", "MuxStats",
+           "ServeRouter", "RouterStats", "PagedDecodeEngine",
+           "KVBlockPool", "LMConfig", "init_lm_params", "PagedStats"]

@@ -35,6 +35,7 @@ import torch
 
 from ..base import get_env
 from ..context import Context
+from ..faults import point as _fault_point
 from ..passes.quantize import build_serving_pipeline, not_ported
 from ..predictor import Predictor, load_checkpoint_pair
 from .batcher import MicroBatcher
@@ -161,6 +162,8 @@ class ServeEngine:
             dev_type, dev_id, type_dict=type_dict, pipeline=pipeline)
         self._data_dtype = self._predictor._exec.arg_dict[data_name].dtype
         self.stats = ServeStats(name, self.max_batch_size)
+        from .. import profiler
+        profiler.register_serve_stats(self.stats)
         self._bind_grid()
         self._batcher = MicroBatcher(
             self._run_batch, self._finish,
@@ -231,6 +234,10 @@ class ServeEngine:
     def _run_batch(self, reqs) -> Tuple:
         n = len(reqs)
         bucket = self._pick_bucket(n)
+        # replica-failure seam: an injected `error` fails this batch
+        # (every future gets the exception, what a broken replica looks
+        # like to the router), a `crash` kills the process
+        _fault_point("serve.dispatch", n=n, bucket=bucket)
         data = np.stack([r.data for r in reqs])
         if bucket > n:
             pad = np.zeros((bucket - n,) + self.item_shape, self._data_dtype)

@@ -16,13 +16,18 @@ callers can route on type instead of parsing messages:
   waited in the queue; delivered through the future.
 * :class:`ServeClosedError` — the engine is shut down (or was closed
   without draining while this request was queued).
+* :class:`ServeUnavailableError` — the router has no live replica to
+  dispatch to (every replica is draining, down, or being restarted).
+  Distinct from overload: capacity is not full, it is *absent* — a
+  frontend maps it to 503, not 429.
 """
 from __future__ import annotations
 
 from ..base import MXNetError
 
 __all__ = ["ServeError", "ServeOverloadError", "ServeDeadlineError",
-           "ServeRequestError", "ServeClosedError"]
+           "ServeRequestError", "ServeClosedError",
+           "ServeUnavailableError"]
 
 
 class ServeError(MXNetError):
@@ -44,3 +49,6 @@ class ServeRequestError(ServeError):
 class ServeClosedError(ServeError):
     """Engine closed: no new requests accepted / queued request dropped."""
 
+
+class ServeUnavailableError(ServeError):
+    """Router has no live replica (all draining/down/restarting)."""

@@ -37,9 +37,10 @@ and its (S, C) int32 argmax tokens back: one host sync per step.
 Knobs: ``MXNET_KVPOOL_BLOCKS``, ``MXNET_KVPOOL_BLOCK_TOKENS``,
 ``MXNET_PAGED_CHUNK``, ``MXNET_SPEC_DECODE_K``, ``MXNET_SERVE_SLOTS``,
 ``MXNET_SERVE_DECODE_QUEUE``, ``MXNET_SERVE_MAX_TOKENS``.  There is no
-knob that turns the kernel off.  Trace spans, fault points, the compile
-cache and the profiler registry are not in the port yet (ROADMAP queue 1
-items 11 and 12).
+knob that turns the kernel off.  Each step passes the ``paged.step``
+fault point, and the engine's stats are a row of
+``mx.profiler.serve_report()``.  Trace spans and the compile cache are
+not in the port yet (ROADMAP queue 1 items 11 and 12).
 """
 from __future__ import annotations
 
@@ -55,9 +56,10 @@ import torch
 from ...base import get_env
 from ...context import Context, current_context
 from ...convert import convert_lm_params
+from ...faults import point as _fault_point
 from ...ops import cuda_kernels as ck
 from ..batcher import _IDLE_POLL_S, _set_exception, _set_result
-from ..decode import _DecodeRequest, _trace_end
+from ..decode import _DecodeRequest, _trace_end, validate_prompt
 from ..errors import (ServeClosedError, ServeDeadlineError, ServeError,
                       ServeOverloadError, ServeRequestError)
 from ..stats import PagedStats
@@ -259,6 +261,8 @@ class PagedDecodeEngine:
 
         self.stats = PagedStats(name, self.num_slots,
                                 self._pool.num_blocks)
+        from ... import profiler
+        profiler.register_serve_stats(self.stats)
 
         self._spec = None
         if self.spec_k:
@@ -303,6 +307,7 @@ class PagedDecodeEngine:
                           *self._to_device(tokens, positions, n_valid,
                                            lengths),
                           cfg=self.cfg, use_kernel=self._use_kernel)
+        self._pool.set_view("target", kv_k, kv_v)
         self.forward_counts["target"] += 1
         return toks.cpu().numpy()       # the step's ONE host sync
 
@@ -336,20 +341,7 @@ class PagedDecodeEngine:
         array of newly generated tokens (prompt not echoed).  Raises
         ServeRequestError / ServeOverloadError / ServeClosedError
         immediately, in this thread."""
-        arr = np.asarray(prompt)
-        if arr.ndim == 0:
-            arr = arr.reshape(1)
-        if arr.ndim != 1 or arr.size < 1:
-            raise ServeRequestError(
-                "prompt must be a non-empty 1-D token-id sequence, got "
-                "shape %s" % (tuple(arr.shape),))
-        if arr.dtype.kind not in "iu":
-            if arr.dtype.kind == "f" and np.all(arr == np.floor(arr)):
-                arr = arr.astype(np.int64)
-            else:
-                raise ServeRequestError(
-                    "prompt dtype %s is not integral token ids"
-                    % arr.dtype)
+        arr = validate_prompt(prompt)
         if int(arr.min()) < 0 or int(arr.max()) >= self.cfg.vocab:
             raise ServeRequestError(
                 "prompt token ids must be in [0, %d)" % self.cfg.vocab)
@@ -366,7 +358,7 @@ class PagedDecodeEngine:
         dl = self.deadline_ms if deadline_ms is None else \
             (float(deadline_ms) or None)
         now = time.perf_counter()
-        req = _DecodeRequest(arr.astype(np.int64), mn, eos, Future(), now,
+        req = _DecodeRequest(arr, mn, eos, Future(), now,
                              now + dl / 1000.0 if dl else None)
         with self._cv:
             if self._closed:
@@ -568,6 +560,9 @@ class PagedDecodeEngine:
     def _step(self) -> None:
         active = [(i, sl) for i, sl in enumerate(self._slots)
                   if sl is not None]
+        # same seam as decode.step: `delay` stretches a step, `error`
+        # kills the loop (the replica-crash shape)
+        _fault_point("paged.step", active=len(active))
         if any(sl.prefilling() for _, sl in active):
             emitted = self._mixed_step(active)
         elif self._spec is not None and \

@@ -139,6 +139,22 @@ class KVBlockPool:
         v = self._views[name]
         return v.kv_k, v.kv_v
 
+    def set_view(self, name: str, kv_k: torch.Tensor,
+                 kv_v: torch.Tensor) -> None:
+        """Publish a step's (kv_k, kv_v) as the view's tensors.  The
+        port's steps append in place, so they hand back the view's own
+        tensors; any others must match their shape, dtype and device."""
+        v = self._views[name]
+        for new, old in ((kv_k, v.kv_k), (kv_v, v.kv_v)):
+            if (new.shape, new.dtype, new.device) != \
+                    (old.shape, old.dtype, old.device):
+                raise ServeError(
+                    "set_view(%r): %s %s on %s does not match the view's "
+                    "%s %s on %s" % (name, tuple(new.shape), new.dtype,
+                                     new.device, tuple(old.shape),
+                                     old.dtype, old.device))
+        v.kv_k, v.kv_v = kv_k, kv_v
+
     def device_bytes(self) -> int:
         return sum(int(v.kv_k.numel() * v.kv_k.element_size()
                        + v.kv_v.numel() * v.kv_v.element_size())

@@ -49,6 +49,7 @@ class SpecDecoder:
                           *engine._to_device(tokens, positions, n_valid,
                                              lengths),
                           cfg=self.cfg, use_kernel=engine.use_kernel)
+        engine.pool.set_view("draft", kv_k, kv_v)
         engine.forward_counts["draft"] += 1
         return toks.cpu().numpy()
 

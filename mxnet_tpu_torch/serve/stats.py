@@ -10,7 +10,9 @@ steps and tokens emitted and admission counters; :class:`PagedStats`
 (paged LLM serving) adds prefill tokens, speculative-decode
 proposed/accepted counters, KV-block-pool gauges (used / reserved /
 total, and the peak), an inter-token latency window, and
-``dropped_streams``, which exact block reservation holds at 0.
+``dropped_streams``, which exact block reservation holds at 0.  Each
+is a row of ``mx.profiler.serve_report()`` (``report_str`` for the
+table).
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ class ServeStats:
         self._lock = threading.Lock()
         self._submitted = 0
         self._completed = 0
+        self._captured = 0
         self._overloaded = 0
         self._expired = 0
         self._cancelled = 0
@@ -110,6 +113,14 @@ class ServeStats:
         return max(0, self._submitted - self._completed - self._failed
                    - self._expired - self._cancelled)
 
+    def on_captured(self) -> None:
+        """A completed request was offered to a router's capture hook and
+        kept: not a terminal outcome (the request already completed), so
+        it stays out of the outstanding balance; captured / completed is
+        the sampled rate."""
+        with self._lock:
+            self._captured += 1
+
     def outstanding(self) -> int:
         """Admitted requests not yet resolved (queued or in flight)."""
         with self._lock:
@@ -131,6 +142,9 @@ class ServeStats:
                 "cancelled": self._cancelled,
                 "failed": self._failed,
                 "reloads": self._reloads,
+                "captured": self._captured,
+                "capture_rate": round(self._captured / self._completed, 4)
+                if self._completed else 0.0,
                 "batches": self._batches,
                 "batch_occupancy": round(
                     self._batch_items
@@ -147,6 +161,28 @@ class ServeStats:
         out["latency_p99_ms"] = round(_percentile(lat, 99), 3)
         return out
 
+    def report_str(self) -> str:
+        r = self.report()
+        buckets = ", ".join("%d:%d" % (b, n)
+                            for b, n in r["bucket_hits"].items()) or "-"
+        return ("serve engine %r\n"
+                "  requests: %d submitted / %d completed "
+                "(%d overloaded, %d expired, %d cancelled, %d failed), "
+                "%d reloads\n"
+                "  latency ms: p50 %.2f  p95 %.2f  p99 %.2f\n"
+                "  batches: %d, occupancy %.2f of max %d, "
+                "pad waste %.1f%%\n"
+                "  bucket hits: %s\n"
+                "  queue depth: %d now / %d high-water" % (
+                    self.name, r["submitted"], r["completed"],
+                    r["overloaded"], r["expired"], r["cancelled"],
+                    r["failed"], r["reloads"],
+                    r["latency_p50_ms"], r["latency_p95_ms"],
+                    r["latency_p99_ms"], r["batches"], r["batch_occupancy"],
+                    self.max_batch_size, 100.0 * r["pad_waste_frac"],
+                    buckets, r["queue_depth"], r["queue_depth_max"]))
+
+
 
 class DecodeStats:
     """Counters for one continuous-batching decode engine: stream
@@ -161,6 +197,7 @@ class DecodeStats:
         self._submitted = 0
         self._admitted = 0
         self._completed = 0
+        self._captured = 0
         self._failed = 0
         self._expired = 0
         self._cancelled = 0
@@ -226,6 +263,14 @@ class DecodeStats:
         return max(0, self._submitted - self._completed - self._failed
                    - self._expired - self._cancelled)
 
+    def on_captured(self) -> None:
+        """A completed stream was offered to a router's capture hook and
+        kept: not a terminal outcome (the request already completed), so
+        it stays out of the outstanding balance; captured / completed is
+        the sampled rate."""
+        with self._lock:
+            self._captured += 1
+
     def outstanding(self) -> int:
         with self._lock:
             return self._outstanding_locked()
@@ -246,6 +291,9 @@ class DecodeStats:
                 "cancelled": self._cancelled,
                 "failed": self._failed,
                 "reloads": self._reloads,
+                "captured": self._captured,
+                "capture_rate": round(self._captured / self._completed, 4)
+                if self._completed else 0.0,
                 "steps": self._steps,
                 "tokens_out": self._tokens_out,
                 "slot_occupancy": round(
@@ -258,6 +306,25 @@ class DecodeStats:
         out["latency_p95_ms"] = round(_percentile(lat, 95), 3)
         out["latency_p99_ms"] = round(_percentile(lat, 99), 3)
         return out
+
+    def report_str(self) -> str:
+        r = self.report()
+        return ("decode engine %r\n"
+                "  streams: %d submitted / %d admitted / %d completed "
+                "(%d overloaded, %d expired, %d cancelled, %d failed), "
+                "%d reloads\n"
+                "  latency ms: p50 %.2f  p95 %.2f  p99 %.2f\n"
+                "  steps: %d, %d tokens out, slot occupancy %.2f of %d "
+                "slots\n"
+                "  queue depth: %d now / %d high-water" % (
+                    self.name, r["submitted"], r["admitted"],
+                    r["completed"], r["overloaded"], r["expired"],
+                    r["cancelled"], r["failed"], r["reloads"],
+                    r["latency_p50_ms"], r["latency_p95_ms"],
+                    r["latency_p99_ms"], r["steps"], r["tokens_out"],
+                    r["slot_occupancy"], self.num_slots,
+                    r["queue_depth"], r["queue_depth_max"]))
+
 
 
 class PagedStats(DecodeStats):
@@ -333,3 +400,31 @@ class PagedStats(DecodeStats):
         out["inter_token_p50_ms"] = round(_percentile(it, 50), 3)
         out["inter_token_p99_ms"] = round(_percentile(it, 99), 3)
         return out
+
+    def report_str(self) -> str:
+        r = self.report()
+        return ("paged decode engine %r\n"
+                "  streams: %d submitted / %d admitted / %d completed "
+                "(%d overloaded, %d expired, %d cancelled, %d failed, "
+                "%d dropped)\n"
+                "  latency ms: p50 %.2f  p99 %.2f; inter-token p50 %.2f "
+                "p99 %.2f\n"
+                "  steps: %d, %d tokens out, %d prefill tokens, slot "
+                "occupancy %.2f of %d\n"
+                "  spec decode: %d rounds, %d proposed, %d accepted "
+                "(rate %.2f)\n"
+                "  kv pool: %d used / %d reserved / %d blocks "
+                "(util %.2f)\n"
+                "  queue depth: %d now / %d high-water" % (
+                    self.name, r["submitted"], r["admitted"],
+                    r["completed"], r["overloaded"], r["expired"],
+                    r["cancelled"], r["failed"], r["dropped_streams"],
+                    r["latency_p50_ms"], r["latency_p99_ms"],
+                    r["inter_token_p50_ms"], r["inter_token_p99_ms"],
+                    r["steps"], r["tokens_out"], r["prefill_tokens"],
+                    r["slot_occupancy"], self.num_slots,
+                    r["spec_rounds"], r["spec_proposed"],
+                    r["spec_accepted"], r["spec_accept_rate"],
+                    r["kv_blocks_used"], r["kv_blocks_reserved"],
+                    r["kv_blocks"], r["kv_utilization"],
+                    r["queue_depth"], r["queue_depth_max"]))

@@ -17,7 +17,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from .attribute import AttrScope
-from .base import MXNetError, _AttrDict, atomic_local_write
+from .base import MXNetError, _AttrDict, atomic_local_write, open_stream
 from .name import NameManager
 from .ops import OpDef, get_op, list_ops
 
@@ -217,6 +217,25 @@ class Symbol:
                     out.append("%s_%s" % (n.name, aux))
         return out
 
+    def attr(self, key: str) -> Optional[str]:
+        """The attribute ``key`` of this (single-output) symbol's node."""
+        if len(self._heads) == 1:
+            return self._heads[0][0].attrs.get(key)
+        return None
+
+    def list_attr(self, recursive=False) -> Dict[str, str]:
+        """This node's attributes; ``recursive`` gives every node's, keyed
+        ``<node>_<attr>``."""
+        if recursive:
+            ret = {}
+            for node in _topo(self._heads):
+                for k, v in node.attrs.items():
+                    ret["%s_%s" % (node.name, k)] = v
+            return ret
+        return dict(self._heads[0][0].attrs) if len(self._heads) == 1 else {}
+
+    attr_dict_flat = list_attr
+
     def attr_dict(self) -> Dict[str, Dict[str, str]]:
         """{node name: its attributes} for every node that has some (the
         optimizer reads ``lr_mult``/``wd_mult`` from here)."""
@@ -350,6 +369,20 @@ class Symbol:
         with atomic_local_write(fname, "w") as f:
             f.write(self.tojson())
 
+    def debug_str(self) -> str:
+        """The graph, one line per node in topological order (the
+        reference's text format)."""
+        lines = []
+        for node in _topo(self._heads):
+            if node.is_variable:
+                lines.append("Variable:%s" % node.name)
+            else:
+                lines.append("--------------------")
+                lines.append("Op:%s, Name=%s" % (node.op.name, node.name))
+                for (i, x) in node.inputs:
+                    lines.append("arg[%d]=%s(%d)" % (x, i.name, x))
+        return "\n".join(lines)
+
     def __repr__(self):
         if len(self._heads) == 1:
             return "<Symbol %s>" % self.name
@@ -367,6 +400,16 @@ class Symbol:
         from .executor import bind as _bind
         return _bind(self, ctx, args, args_grad=args_grad,
                      grad_req=grad_req, aux_states=aux_states)
+
+    def grad(self, wrt):
+        raise MXNetError("symbol.grad is deprecated; use bind + backward")
+
+    def eval(self, ctx=None, **kwargs):
+        """Bind the arrays in ``kwargs`` on ``ctx`` (default ``cpu()``, as
+        the reference) and run one forward; -> the outputs."""
+        from .context import cpu
+        ex = self.bind(ctx if ctx is not None else cpu(), kwargs)
+        return ex.forward()
 
 
 def Variable(name: str, attr=None, shape=None, lr_mult=None, wd_mult=None,
@@ -401,7 +444,7 @@ def Group(symbols: Sequence[Symbol]) -> Symbol:
 
 
 def load(fname: str) -> Symbol:
-    with open(fname) as f:
+    with open_stream(fname) as f:
         return load_json(f.read())
 
 
