@@ -138,6 +138,35 @@ Phases, in order; any failure exits nonzero:
    model's standalone answer, ``torch.cuda.memory_allocated()`` falling
    by at least each evicted engine's ``device_bytes()`` (1 MiB
    tolerance), the launches of both kernels on the path counted;
+18. the rest of training on the card, TF32 off: (a) the superstep at
+   bench_lstm.py:118's leg (PTB LSTM 2x200, vocab 10,000, batch 32, 32
+   steps, SGD lr 0.1 momentum 0.9, cross-entropy over the time-major
+   rows, Xavier from a seed): ``fit(superstep=8)`` against K=1 over 2
+   epochs of 16 seeded batches under deterministic algorithms, params,
+   momentum and the metric bitwise; tokens/s of the second epoch, metric
+   drains per step, graph captures and replays, busy share of a
+   superstep and of a K=1 step; (b) ``FeedForward.fit`` against
+   ``Module.fit`` at ResNet-50 (batch 128, SGD lr 0.05 momentum 0.9, 2
+   epochs of 4 host batches, cuDNN deterministic), both on the fused
+   step: params bitwise, img/s of the second epoch, ``predict``'s argmax
+   equal to ``Module.predict``'s; (c) ``Module(context=[gpu(0),
+   gpu(0)])`` with kvstore ``device`` and ``local`` (2 classic steps;
+   ``local`` auto-selects ``local_update_cpu``) and ``work_load_list=[1,
+   3]`` (one step), each within relative L2 1e-5 of a plain write-out of
+   v0.7's data parallelism (two ``simple_bind`` executors, gradients
+   summed in context order, the same updater where the store updates),
+   img/s beside one context's classic step; (d) ``fit(checkpoint=,
+   checkpoint_every=2)`` over 6 batches with ``do_checkpoint(module=)``
+   at the epoch end, a fresh module resumed from step 4: params, aux and
+   momentum bitwise to the uninterrupted run; bytes per save, pinned
+   host bytes, the train thread's stall and the writer's commit wall;
+   one SIGTERM round of a LeNet fit in a child process on the card; (e)
+   ``ServeEngine.from_checkpoint_dir`` on (d)'s directory bitwise to a
+   ``Predictor`` on the legacy pair of the same step, then
+   ``reload_from_checkpoint_dir`` mid-flood with 0 dropped and 0 errors;
+   (f) the model-parallel LSTM (``ctx_groups``) bound with every group
+   on gpu(0), outputs and gradients bitwise to the ungrouped bind; 0
+   hand-kernel launches on (a)-(d);
    then the ``kernels`` JSON line (all four kernels), then the ``{"ok":
    true, ...}`` line.
 """
@@ -4374,6 +4403,625 @@ def serving_ops_phase(torch, mt, ck, served, llm, prefix, smi):
             "fc_launches": mux["launches"]["fused_fc_epilogue"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the rest of training on the card
+#
+# (a) the superstep at bench_lstm.py:118's leg (PTB LSTM 2x200, vocab
+# 10,000, batch 32, 32 steps, SGD with momentum, cross-entropy); (b)
+# FeedForward.fit against Module.fit at ResNet-50, batch 128; (c) two
+# contexts on the one card ([gpu(0), gpu(0)]) against a plain write-out
+# of v0.7's data parallelism; (d) checkpoint and resume; (e) serving
+# from the checkpoint directory; (f) group2ctx.
+SUPER_K, SUPER_BATCH, SUPER_BATCHES = 8, 32, 16
+FF_BATCHES = 4
+FF_OPT = {"learning_rate": 0.05, "momentum": 0.9}
+MULTI_REL_L2 = 1e-5            # (c): relative L2 to the write-out
+CKPT_EVERY, CKPT_BATCHES, CKPT_RESUME_AT = 2, 6, 4
+SERVE_FLOOD, SERVE_THREADS = 48, 4
+
+
+def batch_iter(mt, batches, provide_data, provide_label):
+    """A DataIter over a fixed list of DataBatch."""
+    class BatchList(mt.io.DataIter):
+        def __init__(self):
+            super().__init__()
+            self.batch_size = provide_data[0][1][0]
+            self.provide_data = provide_data
+            self.provide_label = provide_label
+            self.pos = 0
+
+        def reset(self):
+            self.pos = 0
+
+        def next(self):
+            if self.pos >= len(batches):
+                raise StopIteration
+            self.pos += 1
+            return batches[self.pos - 1]
+    return BatchList()
+
+
+def time_major_ce(mt):
+    """Cross-entropy over the LSTM's time-major rows (the graph transposes
+    its (batch, seq) labels; so does this metric), host and device
+    forms."""
+    class TimeMajorCE(mt.metric.CrossEntropy):
+        def _score(self, label, pred):
+            return super()._score(label.T, pred)
+
+        def _device_score(self, label, pred):
+            return super()._device_score(label.t(), pred)
+    return TimeMajorCE()
+
+
+def opt_leaves(torch, state):
+    out = {}
+    for n, v in state["opt"].items():
+        for i, t in enumerate(v if isinstance(v, (tuple, list)) else [v]):
+            if t is not None:
+                out["%s/%d" % (n, i)] = t.detach().cpu().numpy()
+    return out
+
+
+def bitwise(a, b):
+    return sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k])
+                                          for k in a)
+
+
+def superstep_leg(torch, mt, smi):
+    """(a) fit(superstep=8) against K=1 over 2 epochs of 16 seeded
+    batches: params, momentum and the metric bitwise; tokens/s of the
+    second epoch, metric drains per step, captures and replays, busy
+    share of one superstep and of one K=1 step."""
+    arg0 = lstm_params(mt, LSTM_HIDDEN, 30)
+    rng = np.random.default_rng(31)
+    batches = [token_batch(mt, rng, mt.cpu(), SUPER_BATCH, LSTM_SEQ,
+                           LSTM_HIDDEN) for _ in range(SUPER_BATCHES)]
+    states = lstm_states(SUPER_BATCH, LSTM_HIDDEN)
+    pd = [("data", (SUPER_BATCH, LSTM_SEQ))] + states
+    pl = [("softmax_label", (SUPER_BATCH, LSTM_SEQ))]
+    sym = mt.models.lstm_unroll(LSTM_LAYERS, LSTM_SEQ, LSTM_VOCAB,
+                                LSTM_HIDDEN, LSTM_HIDDEN, LSTM_VOCAB)
+    tokens = SUPER_BATCHES * SUPER_BATCH * LSTM_SEQ
+
+    def run(k):
+        mt.random.seed(5)
+        mod = mt.mod.Module(sym, data_names=["data"] + [n for n, _ in
+                                                        states],
+                            label_names=["softmax_label"], context=mt.gpu(0))
+        metric = time_major_ce(mt)
+        marks, values = [], []
+
+        def epoch_end(epoch, s, a, x):
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), mt.metric.host_syncs()))
+            values.append(metric.get())
+        t0 = time.perf_counter()
+        mod.fit(batch_iter(mt, batches, pd, pl), num_epoch=2,
+                eval_metric=metric, optimizer="sgd",
+                optimizer_params=dict(LSTM_OPT), arg_params=arg0,
+                aux_params={}, superstep=k, epoch_end_callback=epoch_end)
+        wall = time.perf_counter() - t0
+        (ta, sa), (tb, sb) = marks
+        return {"mod": mod, "metric": metric, "values": values,
+                "tokens_s": tokens / (tb - ta), "fit_s": wall,
+                "drains_per_step": (sb - sa) / SUPER_BATCHES}
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        one, sup = run(1), run(SUPER_K)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    p1 = host_params(one["mod"])[0]
+    pk = host_params(sup["mod"])[0]
+    same_params = bitwise(p1, pk)
+    same_mom = bitwise(opt_leaves(torch, one["mod"]._fused.state),
+                       opt_leaves(torch, sup["mod"]._fused.state))
+    same_metric = one["values"] == sup["values"]
+    stats = sup["mod"]._superstep_stats.report()
+    graphs = sup["mod"]._fused.stats.report()
+    metric_graphs = sum(1 for e in sup["mod"]._fused._metric_graphs.values()
+                        if e[0] is not None)
+    print("superstep: PTB LSTM 2x%d vocab %d, batch %d x %d steps, SGD lr "
+          "%g momentum %g, %d batches x 2 epochs; K=%d against K=1: params "
+          "bitwise %s, momentum bitwise %s, metric %s vs %s equal %s "
+          "(gate: all bitwise)" % (
+              LSTM_HIDDEN, LSTM_VOCAB, SUPER_BATCH, LSTM_SEQ,
+              LSTM_OPT["learning_rate"], LSTM_OPT["momentum"], SUPER_BATCHES,
+              SUPER_K, same_params, same_mom, sup["values"], one["values"],
+              same_metric))
+    if not (same_params and same_mom and same_metric):
+        fail("superstep K=%d differs from K=1" % SUPER_K)
+    if stats["supersteps"] != 2 * SUPER_BATCHES // SUPER_K:
+        fail("superstep ran %d supersteps, want %d"
+             % (stats["supersteps"], 2 * SUPER_BATCHES // SUPER_K))
+    mod, metric = sup["mod"], sup["metric"]
+    group = batches[:SUPER_K]
+    wall_k, dev_k, _ = device_profile(
+        torch, lambda: mod.superstep_train(group, metric), reps=3)
+
+    def k1_step():
+        one["mod"].forward_backward(batches[0])
+        one["mod"].update()
+        one["mod"].update_metric(one["metric"], batches[0].label)
+    wall_1, dev_1, _ = device_profile(torch, k1_step, reps=3)
+    print("superstep: tokens/s (2nd epoch) K=1 %.1f, K=%d %.1f (x%.3f); "
+          "metric drains per step K=1 %.4f, K=%d %.4f; step graph %s, "
+          "metric graphs captured %d; superstep counters %s; busy share "
+          "K=1 step %.3f (wall %.3f ms, device %.3f ms), K=%d superstep "
+          "%.3f (wall %.3f ms, device %.3f ms); card %s" % (
+              one["tokens_s"], SUPER_K, sup["tokens_s"],
+              sup["tokens_s"] / one["tokens_s"], one["drains_per_step"],
+              SUPER_K, sup["drains_per_step"], graphs, metric_graphs,
+              json.dumps(stats), dev_1 / wall_1, wall_1, dev_1, SUPER_K,
+              dev_k / wall_k, wall_k, dev_k, smi))
+    out = {"tokens_s_k1": one["tokens_s"], "tokens_s_k": sup["tokens_s"],
+           "drains_k1": one["drains_per_step"],
+           "drains_k": sup["drains_per_step"], "graphs": graphs,
+           "busy_k1": dev_1 / wall_1, "busy_k": dev_k / wall_k,
+           "wall_k1_ms": wall_1, "wall_k_ms": wall_k}
+    del one, sup, mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def resnet_setup(mt, n_batches, seed):
+    """ResNet-50's symbol, Xavier host params from a seed and
+    ``n_batches`` host batches of 128."""
+    sym = mt.models.get_resnet50(1000)
+    init = mt.mod.Module(sym, context=mt.cpu())
+    init.bind([("data", (1, 3, 224, 224))], [("softmax_label", (1,))])
+    mt.random.seed(seed)
+    init.init_params(mt.init.Xavier(factor_type="in", magnitude=2.34))
+    arg0, aux0 = init.get_params()
+    arg0 = {k: v.copy() for k, v in arg0.items()}
+    aux0 = {k: v.copy() for k, v in aux0.items()}
+    rng = np.random.default_rng(seed + 1)
+    b = RESNET_BATCH
+    batches = [mt.io.DataBatch(
+        data=[mt.nd.array(rng.random((b, 3, 224, 224), dtype=np.float32),
+                          ctx=mt.cpu())],
+        label=[mt.nd.array(rng.integers(0, 1000, b).astype(np.float32),
+                           ctx=mt.cpu())], pad=0)
+        for _ in range(n_batches)]
+    pd = [("data", (b, 3, 224, 224))]
+    pl = [("softmax_label", (b,))]
+    return sym, arg0, aux0, batches, pd, pl
+
+
+def feedforward_leg(torch, mt, smi, res):
+    """(b) FeedForward.fit against Module.fit, 2 epochs of 4 host batches
+    on the fused step under deterministic cuDNN: params bitwise; img/s of
+    the second epoch; predict's argmax against Module.predict's."""
+    sym, arg0, aux0, batches, pd, pl = res
+    b = RESNET_BATCH
+
+    def timer(last_nbatch):
+        marks = []
+
+        def cb(param):
+            if param.nbatch == last_nbatch:
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+        return marks, cb
+
+    marks_ff, cb_ff = timer(FF_BATCHES)       # FeedForward counts from 1
+    ff = mt.model.FeedForward(sym, ctx=mt.gpu(0), num_epoch=2,
+                              arg_params=arg0, aux_params=aux0, **FF_OPT)
+    ff.fit(batch_iter(mt, batches, pd, pl), batch_end_callback=cb_ff)
+    ff_fused = ff._module._fused.stats.report()
+    ffp = {k: v.asnumpy() for k, v in ff.arg_params.items()}
+    ffa = {k: v.asnumpy() for k, v in ff.aux_params.items()}
+    ff._module = None
+    torch.cuda.empty_cache()
+    marks_m, cb_m = timer(FF_BATCHES - 1)     # fit counts from 0
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    mod.fit(batch_iter(mt, batches, pd, pl), num_epoch=2,
+            optimizer_params=dict(FF_OPT), arg_params=arg0, aux_params=aux0,
+            batch_end_callback=cb_m)
+    mp, ma = host_params(mod)
+    same = bitwise(ffp, mp) and bitwise(ffa, ma)
+    ff_img_s = FF_BATCHES * b / (marks_ff[1] - marks_ff[0])
+    mod_img_s = FF_BATCHES * b / (marks_m[1] - marks_m[0])
+    x0 = batches[0].data[0].asnumpy()
+    y0 = batches[0].label[0].asnumpy()
+    ff_pred = ff.predict(mt.io.NDArrayIter(x0, y0, batch_size=b))
+    mod_pred = mod.predict(mt.io.NDArrayIter(x0, y0, batch_size=b)).asnumpy()
+    same_argmax = np.array_equal(ff_pred.argmax(1), mod_pred.argmax(1))
+    print("feedforward: ResNet-50 batch %d, SGD lr %g momentum %g, TF32 "
+          "off, cuDNN deterministic, 2 epochs of %d host batches: "
+          "FeedForward.fit fused step %s, Module.fit fused step %s; params "
+          "and aux bitwise %s (gate); img/s (2nd epoch) FeedForward.fit "
+          "%.1f, Module.fit %.1f; predict argmax equal to Module.predict's "
+          "%s (gate), max |diff| %.3g; card %s" % (
+              b, FF_OPT["learning_rate"], FF_OPT["momentum"], FF_BATCHES,
+              ff_fused, mod._fused.stats.report(), same, ff_img_s, mod_img_s,
+              same_argmax, float(np.abs(ff_pred - mod_pred).max()), smi))
+    if not same:
+        fail("FeedForward.fit differs from Module.fit")
+    if not same_argmax:
+        fail("FeedForward.predict's argmax differs from Module.predict's")
+    del mod, ff
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ff_img_s": ff_img_s, "mod_img_s": mod_img_s}
+
+
+def v07_write_out(torch, mt, sym, arg0, aux0, batches, fractions, steps,
+                  update_ctx):
+    """v0.7's data parallelism written out: one simple_bind executor per
+    share of the batch on gpu(0), the gradients summed in context order,
+    moved to ``update_ctx`` and updated there by the optimizer's updater,
+    the weights copied back to every executor; -> host (args, aux
+    averaged over the executors)."""
+    b = RESNET_BATCH
+    names = [n for n in sym.list_arguments()
+             if n not in ("data", "softmax_label")]
+    slices = mt.executor_manager._split_input_slice(b, fractions)
+    req = {n: ("write" if n in names else "null")
+           for n in sym.list_arguments()}
+    execs = [sym.simple_bind(mt.gpu(0), grad_req=req,
+                             data=(s.stop - s.start, 3, 224, 224),
+                             softmax_label=(s.stop - s.start,))
+             for s in slices]
+    for e in execs:
+        e.copy_params_from(arg0, aux0)
+    opt = mt.optimizer.create("sgd", rescale_grad=1.0 / b,
+                              param_idx2name=dict(enumerate(names)),
+                              sym=sym, **FF_OPT)
+    updater = mt.optimizer.get_updater(opt)
+    master = {n: arg0[n].copyto(update_ctx) for n in names}
+    for i in range(steps):
+        bt = batches[i % len(batches)]
+        for e, s in zip(execs, slices):
+            e.arg_dict["data"][:] = bt.data[0][s.start:s.stop]
+            e.arg_dict["softmax_label"][:] = bt.label[0][s.start:s.stop]
+            e.forward(is_train=True)
+            e.backward()
+        for idx, n in enumerate(names):
+            g = execs[0].grad_dict[n]._get()
+            for e in execs[1:]:
+                g = g + e.grad_dict[n]._get()
+            g = mt.nd.NDArray(g.to(update_ctx.torch_device()))
+            updater(idx, g, master[n])
+            for e in execs:
+                master[n].copyto(e.arg_dict[n])
+    args = {n: master[n].asnumpy() for n in names}
+    aux = {n: np.mean([e.aux_dict[n].asnumpy() for e in execs], axis=0,
+                      dtype=np.float32) for n in sym.list_auxiliary_states()}
+    del execs
+    torch.cuda.empty_cache()
+    return args, aux
+
+
+def multi_context_leg(torch, mt, smi, res):
+    """(c) Module(context=[gpu(0), gpu(0)]) with kvstore 'device' and
+    'local' (2 classic steps each) and work_load_list [1, 3] (one step),
+    each against the plain write-out; img/s beside one context's classic
+    step."""
+    sym, arg0, aux0, batches, pd, pl = res
+    b = RESNET_BATCH
+
+    def module(ctx, kv, wl=None, steps=2):
+        mod = mt.mod.Module(sym, context=ctx, work_load_list=wl)
+        mod.bind(pd, pl)
+        mod.init_params(arg_params=arg0, aux_params=aux0)
+        mod.init_optimizer(kvstore=kv, optimizer="sgd",
+                           optimizer_params=dict(FF_OPT))
+        for i in range(steps):
+            train_step(mod, batches[i % len(batches)])
+        return mod
+
+    results = {}
+    for name, kv, wl, steps, update_ctx in (
+            ("device", "device", None, 2, mt.gpu(0)),
+            ("local", "local", None, 2, mt.cpu()),
+            ("device-wl-1-3", "device", [1, 3], 1, mt.gpu(0))):
+        mod = module([mt.gpu(0), mt.gpu(0)], kv, wl, steps)
+        if mod._fused is not None or len(mod._exec_group.execs) != 2:
+            fail("two contexts on one card did not take the classic path")
+        got = host_params(mod)
+        kv_type = mod._kvstore.type
+        del mod
+        torch.cuda.empty_cache()
+        want = v07_write_out(torch, mt, sym, arg0, aux0, batches,
+                             wl or [1, 1], steps, update_ctx)
+        err = rel_l2(got, want)
+        results[name] = {"rel_l2": err, "kvstore": kv_type}
+        print("multi-context: ResNet-50 batch %d on [gpu(0), gpu(0)], "
+              "kvstore %r (store type %s), work_load_list %s, %d classic "
+              "steps: relative L2 to the v0.7 write-out %.3g (gate %g)"
+              % (b, kv, kv_type, wl or [1, 1], steps, err, MULTI_REL_L2))
+        if err > MULTI_REL_L2:
+            fail("two contexts (kvstore %s) differ from the write-out" % kv)
+    # img/s: two contexts (kvstore device) against one context's classic
+    rates = {}
+    for name, ctx in (("1ctx", [mt.gpu(0)]), ("2ctx", [mt.gpu(0),
+                                                       mt.gpu(0)])):
+        with fused_train_env(False):
+            mod = module(ctx, "device", steps=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(3):
+            train_step(mod, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        rates[name] = 3 * b / (time.perf_counter() - t0)
+        del mod
+        torch.cuda.empty_cache()
+    print("multi-context: classic step img/s one context %.1f, two "
+          "contexts (kvstore device) %.1f; kvstore 'local' auto-selected "
+          "%s (largest parameter %d elements); card %s" % (
+              rates["1ctx"], rates["2ctx"], results["local"]["kvstore"],
+              max(v.size for v in arg0.values()), smi))
+    results["rates"] = rates
+    gc.collect()
+    return results
+
+
+_SIGTERM_CHILD = r"""
+import sys, time
+sys.path.insert(0, sys.argv[3])
+import numpy as np
+import mxnet_tpu_torch as mx
+store, ready = sys.argv[1], sys.argv[2]
+rng = np.random.default_rng(0)
+it = mx.io.NDArrayIter(rng.random((640, 1, 28, 28), dtype=np.float32),
+                       rng.integers(0, 10, 640).astype(np.float32),
+                       batch_size=64)
+mod = mx.mod.Module(mx.models.get_lenet(), context=mx.gpu(0))
+mgr = mx.checkpoint.CheckpointManager(store, keep_last_n=None)
+mgr.install_preemption_handler()
+
+def on_batch(param):
+    if param.nbatch == 1:
+        open(ready, "w").write("ok")
+    time.sleep(0.05)
+
+mod.fit(it, num_epoch=10000, optimizer_params={"learning_rate": 0.05},
+        checkpoint=mgr, batch_end_callback=on_batch)
+print("LATEST", mgr.latest_step())
+sys.exit(7 if mgr.latest_step() is not None else 8)
+"""
+
+
+def sigterm_round(root, tmp):
+    """A LeNet fit in a child process on the card, SIGTERM after its
+    second batch: it snapshots at the next batch boundary and exits 7."""
+    import signal
+    store = os.path.join(tmp, "sigterm-store")
+    ready = os.path.join(tmp, "sigterm-ready")
+    script = os.path.join(tmp, "sigterm_child.py")
+    with open(script, "w") as f:
+        f.write(_SIGTERM_CHILD)
+    proc = subprocess.Popen([sys.executable, script, store, ready, root],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        deadline = time.time() + 180
+        while not os.path.exists(ready):
+            if proc.poll() is not None or time.time() > deadline:
+                fail("SIGTERM child never reached batch 1: %s"
+                     % proc.communicate()[1][-2000:])
+            time.sleep(0.2)
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    return proc.returncode, out.strip(), store
+
+
+def checkpoint_leg(torch, mt, smi, res, root, tmp):
+    """(d) fit(checkpoint=, checkpoint_every=2) over 6 batches (with
+    do_checkpoint(module=) at the epoch end), then a fresh module resumed
+    from step 4: params and momentum bitwise against the uninterrupted
+    run; bytes per save, the train thread's stall, the writer's commit
+    wall, the pinned bytes; a SIGTERM round in a child process."""
+    import shutil
+    sym, arg0, aux0, batches, pd, pl = res
+    full = os.path.join(tmp, "ckpt-full")
+    prefix = os.path.join(tmp, "resnet")
+    marks = []
+
+    def cb(param):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    mgr = mt.checkpoint.CheckpointManager(full, keep_last_n=None,
+                                          name="resnet50-full")
+    mod.fit(batch_iter(mt, batches[:CKPT_BATCHES], pd, pl), num_epoch=1,
+            optimizer_params=dict(FF_OPT), arg_params=arg0,
+            aux_params=aux0, checkpoint=mgr, checkpoint_every=CKPT_EVERY,
+            batch_end_callback=cb,
+            epoch_end_callback=mt.callback.do_checkpoint(prefix,
+                                                         module=mod))
+    stats = dict(mgr.stats._c)
+    mgr.close()
+    steps = mt.checkpoint.all_steps(full)
+    ref_p, ref_a = host_params(mod)
+    ref_m = opt_leaves(torch, mod._fused.state)
+    # batch-end marks: [k] follows batch k (steps 1-3 eager warm-up, 4
+    # the capture, 5 and 6 replays); the save at step 4 runs between
+    # marks[3] and marks[4] with step 5's replay, step 6's replay alone
+    # between marks[4] and marks[5]
+    with_save = marks[4] - marks[3]
+    plain = marks[5] - marks[4]
+    del mod
+    torch.cuda.empty_cache()
+    resume_dir = os.path.join(tmp, "ckpt-resume")
+    shutil.copytree(full, resume_dir)
+    for s in steps:
+        if s > CKPT_RESUME_AT:
+            shutil.rmtree(os.path.join(resume_dir,
+                                       mt.checkpoint.step_dir_name(s)))
+    mod2 = mt.mod.Module(sym, context=mt.gpu(0))
+    seen = []
+    with mt.checkpoint.CheckpointManager(resume_dir,
+                                         keep_last_n=None) as mgr2:
+        mod2.fit(batch_iter(mt, batches[:CKPT_BATCHES], pd, pl),
+                 num_epoch=1, optimizer_params=dict(FF_OPT),
+                 checkpoint=mgr2, resume=True,
+                 batch_end_callback=lambda p: seen.append(p.nbatch))
+    got_p, got_a = host_params(mod2)
+    same = bitwise(ref_p, got_p) and bitwise(ref_a, got_a) and \
+        bitwise(ref_m, opt_leaves(torch, mod2._fused.state))
+    n_params = sum(v.size for v in arg0.values())
+    print("checkpoint: ResNet-50 (%d params + momentum) fit over %d "
+          "batches with checkpoint_every=%d: committed steps %s; resumed "
+          "from step %d on batch %s: params, aux and momentum bitwise to "
+          "the uninterrupted run %s (gate)" % (
+              n_params, CKPT_BATCHES, CKPT_EVERY, steps, CKPT_RESUME_AT,
+              seen[:1], same))
+    if not same or seen[:1] != [CKPT_RESUME_AT]:
+        fail("checkpoint resume differs from the uninterrupted run")
+    print("checkpoint: bytes per save %d, pinned host bytes %d, train-"
+          "thread time of save() %.6f s (last), synchronized step with a "
+          "save %.6f s - without %.6f s = stall %.6f s, writer's commit "
+          "wall %.6f s (last; %.1f MB/s); card %s" % (
+              stats["last_bytes"], stats["last_pinned_bytes"],
+              stats["last_overhead_s"], with_save, plain, with_save - plain,
+              stats["last_save_s"], stats["last_bytes_per_s"] / 1e6, smi))
+    rc, out, store = sigterm_round(os.path.dirname(os.path.abspath(
+        __file__)), tmp)
+    latest = mt.checkpoint.latest_step(store)
+    print("checkpoint: SIGTERM round (LeNet on the card in a child "
+          "process): exit code %s (want 7), %r, newest committed step %s"
+          % (rc, out, latest))
+    if rc != 7 or latest is None:
+        fail("the SIGTERM round did not snapshot and exit")
+    del mod2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"full": full, "prefix": prefix, "stats": stats,
+            "stall_s": with_save - plain, "sym": sym,
+            "epoch_steps": CKPT_BATCHES}
+
+
+def serve_dir_leg(torch, mt, ck, smi, ckpt, batches):
+    """(e) ServeEngine.from_checkpoint_dir on (d)'s directory, answers
+    bitwise to a Predictor on the legacy pair do_checkpoint(module=)
+    wrote at the same step; reload_from_checkpoint_dir mid-flood."""
+    sym, full, prefix = ckpt["sym"], ckpt["full"], ckpt["prefix"]
+    x = batches[0].data[0].asnumpy()[:8]
+    ck.reset_launches()
+    eng = mt.serve.ServeEngine.from_checkpoint_dir(
+        full, sym, {"data": (1, 3, 224, 224)})
+    pred = mt.Predictor(prefix + "-symbol.json", prefix + "-0001.params",
+                        {"data": (1, 3, 224, 224)})
+    try:
+        same = True
+        for i in range(len(x)):
+            got = eng.predict(x[i])
+            pred.set_input("data", x[i:i + 1])
+            pred.forward()
+            same = same and np.array_equal(got, pred.get_output(0)[0])
+        print("serve-dir: ServeEngine.from_checkpoint_dir(step %d) against "
+              "Predictor on %s-0001.params, %d single requests: bitwise %s "
+              "(gate)" % (mt.checkpoint.latest_step(full),
+                          os.path.basename(prefix), len(x), same))
+        if not same:
+            fail("ServeEngine.from_checkpoint_dir differs from Predictor")
+        versions = []
+        answers, wall, errors = flood(
+            lambda i: eng.submit(x[i % len(x)]), SERVE_FLOOD, SERVE_THREADS,
+            wave=4, started=lambda: versions.append(
+                eng.reload_from_checkpoint_dir(full, step=CKPT_RESUME_AT)))
+        rep = eng.stats.report()
+    finally:
+        eng.close()
+    dropped = rep["submitted"] - rep["completed"]
+    launches = dict(ck.LAUNCHES)
+    print("serve-dir: reload_from_checkpoint_dir(step %d) mid-flood of %d "
+          "requests from %d threads: weights version %s, %d completed, %d "
+          "dropped, %d failed, %d errors, %.1f req/s; hand-kernel launches "
+          "%s; card %s" % (CKPT_RESUME_AT, SERVE_FLOOD, SERVE_THREADS,
+                           versions, rep["completed"], dropped,
+                           rep["failed"], len(errors), SERVE_FLOOD / wall,
+                           launches, smi))
+    if errors or dropped or rep["failed"] or versions != [1] or \
+            any(a is None for a in answers):
+        fail("reload mid-flood dropped or failed requests: %s" % errors)
+    return {"launches": launches}
+
+
+def group2ctx_leg(torch, mt, smi):
+    """(f) the model-parallel LSTM (lstm_unroll with ctx_groups) bound
+    with every group on gpu(0): outputs and gradients bitwise to the
+    ungrouped bind, under deterministic algorithms."""
+    net = mt.models.lstm_unroll(LSTM_LAYERS, LSTM_SEQ, LSTM_VOCAB,
+                                LSTM_HIDDEN, LSTM_HIDDEN, LSTM_VOCAB,
+                                ctx_groups=["g0", "g1"])
+    b = SUPER_BATCH
+    shapes = dict([("data", (b, LSTM_SEQ)), ("softmax_label", (b, LSTM_SEQ))]
+                  + lstm_states(b, LSTM_HIDDEN))
+    params = lstm_params(mt, LSTM_HIDDEN, 50)
+    rng = np.random.default_rng(51)
+    ids = rng.integers(0, LSTM_VOCAB, (b, LSTM_SEQ + 1)).astype(np.float32)
+    outs = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for group2ctx in ({"g0": mt.gpu(0), "g1": mt.gpu(0)}, None):
+            ex = net.simple_bind(mt.gpu(0), group2ctx=group2ctx, **shapes)
+            ex.copy_params_from(params, {}, allow_extra_params=True)
+            ex.arg_dict["data"][:] = ids[:, :-1]
+            ex.arg_dict["softmax_label"][:] = ids[:, 1:]
+            ex.forward(is_train=True)
+            ex.backward()
+            outs.append([ex.outputs[0].asnumpy()]
+                        + [ex.grad_dict[n].asnumpy()
+                           for n in sorted(params)])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(np.array_equal(a, c) for a, c in zip(*outs))
+    print("group2ctx: lstm_unroll with ctx_groups g0/g1 both on gpu(0), "
+          "batch %d: outputs and %d gradients bitwise to the ungrouped "
+          "bind %s (gate); card %s" % (b, len(params), same, smi))
+    if not same:
+        fail("group2ctx bind differs from the ungrouped bind")
+
+
+def rest_of_training_phase(torch, mt, ck, smi):
+    print("phase 18: the rest of training; TF32 matmul=%s cudnn=%s; card "
+          "%s" % (torch.backends.cuda.matmul.allow_tf32,
+                  torch.backends.cudnn.allow_tf32, smi))
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmpdir = tempfile.TemporaryDirectory()
+    ck.reset_launches()
+    sup = superstep_leg(torch, mt, smi)
+    res = resnet_setup(mt, max(FF_BATCHES, CKPT_BATCHES), 60)
+    torch.backends.cudnn.deterministic = True
+    try:
+        ff = feedforward_leg(torch, mt, smi, res)
+        multi = multi_context_leg(torch, mt, smi, res)
+        ckpt = checkpoint_leg(torch, mt, smi, res, root, tmpdir.name)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    launches = dict(ck.LAUNCHES)
+    print("phase 18: hand-kernel launches on (a)-(d): %s" % launches)
+    if any(launches.values()):
+        fail("the training paths launched hand kernels: %s" % launches)
+    served = serve_dir_leg(torch, mt, ck, smi, ckpt, res[3])
+    group2ctx_leg(torch, mt, smi)
+    tmpdir.cleanup()
+    print("rest of training result (card %s): %s; phase %.1f s" % (
+        smi, json.dumps({
+            "superstep-tokens_s-k1": sup["tokens_s_k1"],
+            "superstep-tokens_s-k%d" % SUPER_K: sup["tokens_s_k"],
+            "feedforward-img_s": ff["ff_img_s"],
+            "module-fit-img_s": ff["mod_img_s"],
+            "two-ctx-img_s": multi["rates"]["2ctx"],
+            "one-ctx-classic-img_s": multi["rates"]["1ctx"],
+            "ckpt-bytes": ckpt["stats"]["last_bytes"],
+            "ckpt-stall_s": ckpt["stall_s"],
+            "ckpt-commit_s": ckpt["stats"]["last_save_s"]}),
+        time.perf_counter() - t0))
+    return {"superstep": sup, "feedforward": ff, "multi": multi,
+            "checkpoint": ckpt, "serve": served}
+
+
 def main():
     # cuBLAS under deterministic algorithms (phase 14) needs a fixed
     # workspace, chosen before the process's first cuBLAS call
@@ -4492,13 +5140,18 @@ def main():
     ops = serving_ops_phase(torch, mt, ck, served, llm, served["prefix"],
                             smi)
     tmpdir.cleanup()
+
+    # phase 18: the rest of training: superstep, FeedForward, several
+    # contexts, checkpoints, serving from a checkpoint directory, group2ctx
+    rest = rest_of_training_phase(torch, mt, ck, smi)
     kernels = [{
         "name": "fused_fc_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["fused_fc_epilogue"],
         "replaces": REPLACES["fused_fc_epilogue"],
         "launches": served["launches"]["fused_fc_epilogue"]
         + quant["int8-skip-fc6"]["launches"]["fused_fc_epilogue"]
-        + ops["fc_launches"],
+        + ops["fc_launches"]
+        + rest["serve"]["launches"]["fused_fc_epilogue"],
         "max_abs_err": fc["max_abs_err"],
         "ms": fc["ms"], "plain_ms": fc["plain_ms"],
         "bound_ms": fc["bound_ms"], "bound_by": "bytes",

@@ -4,8 +4,10 @@ The same user surface as the JAX package, on one NVIDIA H100:
 ``import mxnet_tpu_torch as mx``, then ``mx.nd``, ``mx.sym``,
 ``mx.predictor``, ``mx.serve``, ``mx.autotune``, and for training
 ``mx.mod``, ``mx.optimizer``, ``mx.init``, ``mx.metric``, ``mx.io``,
-``mx.lr_scheduler``, ``mx.callback``, ``mx.random`` and ``mx.Monitor``;
-``mx.engine``, ``mx.faults`` and ``mx.profiler``'s serve report.
+``mx.lr_scheduler``, ``mx.callback``, ``mx.random``, ``mx.Monitor``,
+``mx.kv`` (``mx.create_kvstore``), ``mx.model.FeedForward`` and
+``mx.checkpoint``; ``mx.engine``, ``mx.faults`` and ``mx.profiler``'s
+serve, superstep and checkpoint reports.
 Plain tensor code is PyTorch; the package's TPU kernels are hand-written Hopper kernels
 (``ops/cuda_kernels.py``, sources in ``csrc/``).  Entry points run on
 ``gpu(0)`` unless the caller asks for ``cpu()``.
@@ -30,7 +32,12 @@ from .attribute import AttrScope
 from .name import NameManager, Prefix
 from . import executor
 from .executor import Executor
+from . import kvstore
+from . import kvstore as kv
+from .kvstore import create as create_kvstore
+from . import executor_manager
 from . import model
+from .model import FeedForward
 from . import predictor
 from .predictor import Predictor, create_predictor
 from . import passes
@@ -56,6 +63,7 @@ from . import monitor
 from .monitor import Monitor
 from . import profiler
 from . import faults
+from . import checkpoint
 from . import libinfo
 from . import misc
 from . import symbol_doc
@@ -71,4 +79,5 @@ __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "convert", "parallel", "autotune", "random", "rnd",
            "initializer", "init", "optimizer", "opt", "lr_scheduler",
            "metric", "io", "callback", "module", "mod", "monitor",
-           "Monitor"]
+           "Monitor", "kvstore", "kv", "create_kvstore", "executor_manager",
+           "FeedForward", "checkpoint"]

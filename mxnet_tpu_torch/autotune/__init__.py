@@ -9,12 +9,12 @@ flash-attention kernel's compiled tiles (:mod:`.kernelsearch`)::
     mx.autotune.kernelsearch.search_flash(4, 1024, 12, 64, causal=True)
     MXNET_KERNEL_SEARCH=1   # flash_attention then loads the winner
 
-What waits: ``tune_superstep`` and ``tune_fit_joint`` for the fused
-superstep (ROADMAP.md, queue 1 item 2), ``tune_serve_pipeline`` and
-``tune_serve_joint`` over the serving options (item 11; the options
-themselves are in ``passes``), the fc and paged kernel searches for tile
-parameters in those kernels (item 11), and the profiler's autotune
-report (item 12).
+What waits (ROADMAP.md, queue 1 item 11): ``tune_superstep`` and
+``tune_fit_joint`` over the superstep's K (``fit(superstep=)``),
+``tune_serve_pipeline`` and ``tune_serve_joint`` over the serving
+options (the options themselves are in ``passes``), the fc and paged
+kernel searches for tile parameters in those kernels, and the
+profiler's autotune report (item 12).
 """
 from __future__ import annotations
 

@@ -17,8 +17,8 @@ shortlist (counterpart of ``mxnet_tpu/autotune/joint.py``).
    failures with ``"parity": False`` -- then refit the model from the
    store.
 
-``tune_fit_joint`` waits for the superstep (ROADMAP.md, queue 1 item 2) and
-``tune_serve_joint`` for item 11 (the quantize passes it searches over
+``tune_fit_joint`` (over ``fit(superstep=)``'s K) and ``tune_serve_joint``
+wait for ROADMAP.md queue 1 item 11 (the quantize passes it searches over
 are in ``passes``).
 """
 from __future__ import annotations

@@ -15,8 +15,8 @@ from typing import Any, Callable
 import numpy as np
 
 __all__ = ["MXNetError", "numeric_types", "get_env", "atomic_local_write",
-           "make_lock", "make_condition", "is_local_path", "local_path",
-           "open_stream"]
+           "make_lock", "make_rlock", "make_condition", "is_local_path",
+           "local_path", "open_stream", "fsync_dir"]
 
 
 class MXNetError(Exception):
@@ -46,6 +46,11 @@ def make_lock(name: str) -> threading.Lock:
     return threading.Lock()
 
 
+def make_rlock(name: str) -> threading.RLock:
+    """A ``threading.RLock`` (``name`` as in :func:`make_lock`)."""
+    return threading.RLock()
+
+
 def make_condition(name: str) -> threading.Condition:
     """A ``threading.Condition`` (``name`` as in :func:`make_lock`)."""
     return threading.Condition()
@@ -71,6 +76,23 @@ def open_stream(fname: str, mode: str = "r"):
             "URI %r: no protocol handler for %r in this build; copy the "
             "file locally" % (fname, fname.split("://", 1)[0]))
     return open(local_path(fname), mode)
+
+
+def fsync_dir(path: str) -> None:
+    """fsync a directory so a rename or create inside it is durable
+    before success is reported (the checkpoint commit protocol,
+    ``checkpoint/layout.py``, depends on this order).  A filesystem that
+    cannot fsync a directory fd makes this a no-op."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
 
 
 @contextlib.contextmanager

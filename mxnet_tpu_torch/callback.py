@@ -9,20 +9,27 @@ __all__ = ["Speedometer", "do_checkpoint", "log_train_metric", "ProgressBar"]
 
 
 def do_checkpoint(prefix, module=None):
-    """Epoch-end checkpoint callback (reference callback.py:10): writes
+    """Epoch-end checkpoint callback (reference callback.py:11-30): writes
     the ``prefix-symbol.json`` + ``prefix-NNNN.params`` pair, each file
-    published atomically.  The reference's ``module=`` form, which also
-    commits the optimizer state, waits for the checkpoint subsystem
-    (ROADMAP.md, queue 1 item 7) and raises."""
-    if module is not None:
-        raise NotImplementedError(
-            "do_checkpoint(module=...) saves optimizer state, which waits "
-            "for the checkpoint subsystem (ROADMAP.md, queue 1 item 7); "
-            "call do_checkpoint(prefix)")
+    published atomically.  With the training ``module``, the full train
+    state (optimizer slots, schedule position, random state) is also
+    committed as step NNNN under ``prefix-ckpt/``, restorable with
+    ``mx.checkpoint.restore_module`` or
+    ``fit(checkpoint=..., resume=True)``."""
+    manager = [None]
 
     def _callback(iter_no, sym, arg, aux):
         from .model import save_checkpoint
         save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+        if module is not None and module.optimizer_initialized:
+            from .checkpoint import CheckpointManager, save_module
+            if manager[0] is None:
+                manager[0] = CheckpointManager(prefix + "-ckpt",
+                                               keep_last_n=None,
+                                               async_save=False)
+            save_module(manager[0], module, iter_no + 1,
+                        meta={"epoch": iter_no + 1, "nbatch": 0},
+                        blocking=True)
     return _callback
 
 

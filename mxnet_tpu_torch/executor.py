@@ -12,6 +12,13 @@ once its last consumer has run.  A monitor callback
 (``set_monitor_callback``) sees every node's outputs as they are made,
 under the reference's names (``<node>_output``, or ``<node>_<output>``
 for a node with several).
+
+``group2ctx`` (``bind``/``simple_bind``) places model-parallel graphs:
+the arrays of a variable whose ``ctx_group`` attribute names a group
+land on that group's context, and each op runs on its group's device,
+its inputs moved there first (reference executor.py:144-167,
+graph_executor.cc AssignContext).  Distinct ``cpu(i)`` contexts share
+the host, and every group on ``gpu(0)`` shares the card.
 """
 from __future__ import annotations
 
@@ -60,8 +67,10 @@ class _GraphProgram:
     """The graph as a node list in topological order, with the number
     of consumers of each node output."""
 
-    def __init__(self, symbol: Symbol):
+    def __init__(self, symbol: Symbol, node_device=None):
         self.symbol = symbol
+        # {id(node): torch.device} of the nodes group2ctx placed
+        self.node_device = node_device or {}
         self.topo = _topo(symbol._heads)
         self.uses: Dict[tuple, int] = {}
         for node in self.topo:
@@ -90,8 +99,13 @@ class _GraphProgram:
                 continue
             ins = [vals[(id(i), x)] for (i, x) in node.inputs]
             aux_names = _node_aux_names(node)
-            outs = node.op.forward(node.params, ins,
-                                   [aux[a] for a in aux_names], opctx)
+            aux_in = [aux[a] for a in aux_names]
+            dev = self.node_device.get(id(node))
+            if dev is not None:
+                ins = [t if t.device == dev else t.to(dev) for t in ins]
+                aux_in = [t if t.device == dev else t.to(dev)
+                          for t in aux_in]
+            outs = node.op.forward(node.params, ins, aux_in, opctx)
             if isinstance(outs, tuple):
                 outs, aux_out = outs
                 new_aux.update(zip(aux_names, aux_out))
@@ -121,14 +135,21 @@ class Executor:
                  arg_dict: Dict[str, NDArray],
                  grad_dict: Dict[str, Optional[NDArray]],
                  grad_req: Dict[str, str],
-                 aux_dict: Dict[str, NDArray]):
+                 aux_dict: Dict[str, NDArray],
+                 group2ctx: Optional[Dict[str, Context]] = None):
         self._symbol = symbol
         self._ctx = ctx
         self.arg_dict = arg_dict
         self.grad_dict = grad_dict
         self.aux_dict = aux_dict
         self._grad_req = grad_req
-        self._prog = _GraphProgram(symbol)
+        self._group2ctx = dict(group2ctx or {})
+        node_device = {}
+        for node in _topo(symbol._heads):
+            grp = node.attrs.get("ctx_group")
+            if grp and grp in self._group2ctx:
+                node_device[id(node)] = self._group2ctx[grp].torch_device()
+        self._prog = _GraphProgram(symbol, node_device)
         self._outputs_nd: Optional[List[NDArray]] = None
         # (leaf tensors of the graded arguments, recorded outputs) of the
         # last train forward, consumed by backward()
@@ -262,7 +283,7 @@ class Executor:
         new_aux = {n: share(self.aux_dict[n], sh) for n, sh in
                    zip(self._symbol.list_auxiliary_states(), aux_shapes)}
         return Executor(self._symbol, self._ctx, new_args, new_grads,
-                        self._grad_req, new_aux)
+                        self._grad_req, new_aux, group2ctx=self._group2ctx)
 
     def copy_params_from(self, arg_params: Dict[str, NDArray],
                          aux_params: Optional[Dict[str, NDArray]] = None,
@@ -317,10 +338,14 @@ def _grad_req_dict(grad_req, arg_names) -> Dict[str, str]:
 
 
 def bind(symbol: Symbol, ctx: Context, args, args_grad=None,
-         grad_req="write", aux_states=None) -> Executor:
+         grad_req="write", aux_states=None, group2ctx=None,
+         shared_exec=None) -> Executor:
     """Bind given arrays (reference symbol.py bind): ``args``/``args_grad``
     /``aux_states`` as lists in ``list_arguments()`` order or dicts; an
-    argument without a gradient array gets grad_req ``"null"``."""
+    argument without a gradient array gets grad_req ``"null"``.
+    ``group2ctx`` maps ``ctx_group`` names to the contexts their ops run
+    on; ``shared_exec`` is accepted for the reference's signature (the
+    given arrays are bound as they are)."""
     arg_names = symbol.list_arguments()
     aux_names = symbol.list_auxiliary_states()
     if isinstance(args, (list, tuple)):
@@ -354,16 +379,18 @@ def bind(symbol: Symbol, ctx: Context, args, args_grad=None,
         aux_dict = dict(zip(aux_names, aux_states))
     else:
         aux_dict = dict(aux_states)
-    return Executor(symbol, ctx, arg_dict, grad_dict, req, aux_dict)
+    return Executor(symbol, ctx, arg_dict, grad_dict, req, aux_dict,
+                    group2ctx=group2ctx)
 
 
 def simple_bind(symbol: Symbol, ctx: Context, grad_req="write",
                 type_dict=None, shared_exec: Optional[Executor] = None,
-                **kwargs) -> Executor:
+                group2ctx=None, **kwargs) -> Executor:
     """Infer shapes, allocate the arrays (and the gradient arrays of every
-    argument whose grad_req is not ``"null"``) on ``ctx`` and bind.
-    Arrays of ``shared_exec`` with the same name and shape are shared (one
-    set of parameter buffers for every input shape)."""
+    argument whose grad_req is not ``"null"``) on ``ctx`` (on its group's
+    context for a variable with a ``ctx_group`` in ``group2ctx``) and
+    bind.  Arrays of ``shared_exec`` with the same name and shape are
+    shared (one set of parameter buffers for every input shape)."""
     arg_shapes, _, aux_shapes = symbol.infer_shape(**kwargs)
     if arg_shapes is None:
         raise MXNetError("simple_bind cannot infer all shapes from %s"
@@ -372,11 +399,15 @@ def simple_bind(symbol: Symbol, ctx: Context, grad_req="write",
     arg_names = symbol.list_arguments()
     req = _grad_req_dict(grad_req, arg_names)
 
+    attrs = symbol.attr_dict() if group2ctx else {}
+
     def _alloc(name, shape, pool, dtype):
         if shared_exec is not None and pool.get(name) is not None and \
                 pool[name].shape == tuple(shape):
             return pool[name]
-        return nd_zeros(shape, ctx=ctx, dtype=dtype)
+        grp = attrs.get(name, {}).get("ctx_group")
+        return nd_zeros(shape, ctx=group2ctx.get(grp, ctx) if grp else ctx,
+                        dtype=dtype)
 
     arg_dict = {name: _alloc(name, sh, shared_exec.arg_dict if shared_exec
                              else {}, type_dict.get(name, np.float32))
@@ -389,4 +420,5 @@ def simple_bind(symbol: Symbol, ctx: Context, grad_req="write",
                              else {}, np.float32)
                 for name, sh in zip(symbol.list_auxiliary_states(),
                                     aux_shapes)}
-    return Executor(symbol, ctx, arg_dict, grad_dict, req, aux_dict)
+    return Executor(symbol, ctx, arg_dict, grad_dict, req, aux_dict,
+                    group2ctx=group2ctx)

@@ -25,6 +25,20 @@ On a CPU context the same step function runs eagerly, every step.
 ``stats`` counts captures, replays and eager steps, the port's
 counterpart of the reference's compile guard: a steady fit makes one
 capture per (shapes, dtypes) and one replay per batch.
+
+**superstep** (reference ``build_superstep``, ``fused.py:810-862``): K
+batches staged on the device once as a megabatch (``make_megabatch``),
+then K replays of the step's graph, each after device-to-device copies
+into its static inputs and a write of that position's learning rate;
+the metric's device reducer runs between replays as a second small
+captured graph over the step's static labels and outputs, into static
+accumulators the host drains once per K.  K replays of the one step are
+the K sequential steps, so the superstep equals them bit for bit.
+
+**speculation** (``snapshot_state``/``restore_state``): outputs asked
+for between a train forward and ``update()`` run the pending step early;
+the module keeps a device copy of the state from before it, to put back
+if the step is discarded.
 """
 from __future__ import annotations
 
@@ -34,12 +48,14 @@ import torch
 from torch.profiler import record_function
 
 from ..base import MXNetError
+from ..checkpoint.snapshot import map_structure
 from ..executor import _GraphProgram
 from ..ndarray import NDArray
 from ..ops.registry import OpContext
 from .. import random as _random
 
-__all__ = ["FusedTrainStep", "GraphStats"]
+__all__ = ["FusedTrainStep", "GraphStats", "flatten_tensors",
+           "unflatten_tensors"]
 
 # eager steps of a batch shape before its capture: the side-stream
 # warm-up CUDA graph capture needs (cuBLAS/cuDNN handles, workspaces)
@@ -59,6 +75,24 @@ class GraphStats:
     def report(self) -> Dict[str, int]:
         return {"captures": self.captures, "replays": self.replays,
                 "eager_steps": self.eager_steps}
+
+
+def flatten_tensors(tree) -> List[torch.Tensor]:
+    """The tensors of a nested tuple/list tree, in order."""
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in flatten_tensors(x)]
+    return [tree]
+
+
+def unflatten_tensors(tree, flat):
+    """``flat`` in the structure of ``tree`` (see flatten_tensors)."""
+    it = iter(flat)
+
+    def build(node):
+        if isinstance(node, (tuple, list)):
+            return tuple(build(x) for x in node)
+        return next(it)
+    return build(tree)
 
 
 class _Captured:
@@ -101,6 +135,9 @@ class FusedTrainStep:
         self._warm: Dict[tuple, int] = {}
         self._side = None
         self._lr_host = None
+        # the metric reducer's captured update per (batch key, reducer
+        # signature): (graph or None while warming, static accumulators)
+        self._metric_graphs: Dict[tuple, list] = {}
 
     @property
     def captured(self) -> bool:
@@ -127,6 +164,7 @@ class FusedTrainStep:
         self._buffers.clear()
         self._graphs.clear()
         self._warm.clear()
+        self._metric_graphs.clear()
         self._lr_host = None
 
     def hparam_signature(self):
@@ -169,7 +207,7 @@ class FusedTrainStep:
             bufs[n].copy_(t, non_blocking=True)
         return bufs
 
-    # -- the step --------------------------------------------------------------
+    # -- the step -------------------------------------------------------------
     def _body(self, batch: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
         """The batch body, in place on the state; -> outputs.  Its three
         parts are profiler ranges (``fused:forward``, ``fused:backward``,
@@ -208,10 +246,13 @@ class FusedTrainStep:
                 st["aux"][k].copy_(v)
         return [o.detach() for o in outs]
 
-    def step(self, batch: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
-        """Advance one batch (``batch`` from :meth:`make_batch`); -> the
-        outputs (on the card: the graph's static buffers)."""
-        lr = float(self.optimizer.base_lr())
+    def step(self, batch: Dict[str, torch.Tensor],
+             lr: float = None) -> List[torch.Tensor]:
+        """Advance one batch (``batch`` from :meth:`make_batch`) at ``lr``
+        (default: the optimizer's current one); -> the outputs (on the
+        card: the graph's static buffers)."""
+        if lr is None:
+            lr = float(self.optimizer.base_lr())
         if lr != self._lr_host:
             self.state["lr"].fill_(lr)
             self._lr_host = lr
@@ -244,11 +285,136 @@ class FusedTrainStep:
         self.stats.replays += 1
         return cap.outputs
 
+    # -- superstep ------------------------------------------------------------
+    def make_megabatch(self, batches):
+        """Stage K DataBatch on the device at once: ``{name: (K, B, ...)
+        tensor}``, stacked on the host and sent in one copy per input
+        (through pinned memory on the card).  -> (K, megabatch)."""
+        k = len(batches)
+        out = {}
+        for names, field in ((self.data_names, "data"),
+                             (self.label_names, "label")):
+            for i, name in enumerate(names):
+                col = []
+                for b in batches:
+                    arrs = getattr(b, field) or []
+                    if i >= len(arrs) or arrs[i] is None:
+                        raise MXNetError("superstep training needs input %r"
+                                         % name)
+                    a = arrs[i]
+                    col.append(a._get() if isinstance(a, NDArray)
+                               else torch.as_tensor(a))
+                host = torch.stack([c.detach().cpu() for c in col])
+                if self.device.type == "cuda":
+                    host = host.pin_memory()
+                out[name] = host.to(self.device, non_blocking=True)
+        return k, out
+
+    def superstep(self, k: int, mega: Dict[str, torch.Tensor], lrs,
+                  reducer=None, acc_tree=None):
+        """Run K steps over the staged megabatch: per position, copy its
+        slice into the step's static inputs, replay the step at that
+        position's lr, and run the metric reducer on the step's labels
+        and outputs.  ``acc_tree`` is the reducer's starting accumulator;
+        -> the static accumulator tensors after the K steps (on the
+        device; the caller drains them)."""
+        acc_key = None
+        for i in range(k):
+            src = {n: t[i] for n, t in mega.items()}
+            key = self._key(src)
+            bufs = self._buffers.get(key)
+            if bufs is None:
+                bufs = {n: torch.empty(t.shape, dtype=t.dtype,
+                                       device=self.device)
+                        for n, t in src.items()}
+                self._buffers[key] = bufs
+            for n, t in src.items():
+                bufs[n].copy_(t)
+            outs = self.step(bufs, lr=lrs[i])
+            if reducer is None:
+                continue
+            if acc_key is None:
+                acc_key = (key, reducer.signature)
+                entry = self._metric_graphs.get(acc_key)
+                flat0 = flatten_tensors(acc_tree)
+                if entry is None:
+                    entry = [None, [t.clone() for t in flat0], 0]
+                    self._metric_graphs[acc_key] = entry
+                else:
+                    for b, t in zip(entry[1], flat0):
+                        b.copy_(t)
+            self._reduce(key, entry, reducer, acc_tree, bufs, outs)
+        return None if acc_key is None else entry[1]
+
+    def _reduce(self, key, entry, reducer, acc_tree, bufs, outs):
+        """acc <- reducer.update(acc, labels, outs) in place on the
+        static accumulators: eagerly on the host, and on the card while
+        the step is not captured yet; then one eager warm-up on a side
+        stream, then a captured graph replayed after each step."""
+        labels = [bufs[n] for n in self.label_names]
+
+        def body():
+            new = reducer.update(unflatten_tensors(acc_tree, entry[1]),
+                                 labels, list(outs))
+            for b, v in zip(entry[1], flatten_tensors(new)):
+                b.copy_(v)
+        if not self.captured or key not in self._graphs:
+            body()
+            return
+        if entry[0] is not None:
+            entry[0].replay()
+            return
+        if entry[2] == 0:
+            main = torch.cuda.current_stream(self.device)
+            self._side.wait_stream(main)
+            with torch.cuda.stream(self._side):
+                body()
+            main.wait_stream(self._side)
+            entry[2] = 1
+            return
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            body()
+        entry[0] = graph
+        graph.replay()
+
+    # -- speculation ----------------------------------------------------------
+    def snapshot_state(self):
+        """A device copy of the train state (params, fixed, aux, optimizer
+        slots, the step count), enqueued on the current stream; the host
+        generator's state rides along."""
+        with torch.no_grad():
+            snap = {g: map_structure(lambda t: t.detach().clone(),
+                                     self.state[g])
+                    for g in ("params", "fixed", "aux", "opt", "t")}
+        if self.device.type != "cuda":
+            snap["rng"] = _random.generator(self.device).get_state()
+        return snap
+
+    def restore_state(self, snap) -> None:
+        """Write a :meth:`snapshot_state` copy back into the live state
+        buffers (which the captured graphs read)."""
+        def put(group_live, group_snap):
+            if isinstance(group_live, dict):
+                for n in group_live:
+                    put(group_live[n], group_snap[n])
+            elif isinstance(group_live, (tuple, list)):
+                for a, b in zip(group_live, group_snap):
+                    put(a, b)
+            elif group_live is not None:
+                group_live.detach().copy_(group_snap)
+        with torch.no_grad():
+            for g in ("params", "fixed", "aux", "opt", "t"):
+                put(self.state[g], snap[g])
+        if "rng" in snap:
+            _random.generator(self.device).set_state(snap["rng"])
+
     def forward_only(self, batch: Dict[str, torch.Tensor],
-                     is_train: bool = False) -> List[torch.Tensor]:
-        """A forward on the live params that changes no state (eval, or
-        a train-mode forward whose aux updates are dropped)."""
-        st = self.state
+                     is_train: bool = False, state=None) -> List[torch.Tensor]:
+        """A forward on the live params (or those of ``state``, a
+        :meth:`snapshot_state` copy) that changes no state (eval, or a
+        train-mode forward whose aux updates are dropped)."""
+        st = self.state if state is None else state
         args = dict(st["params"])
         args.update(st["fixed"])
         args.update(batch)
@@ -259,8 +425,10 @@ class FusedTrainStep:
         return outs
 
     def read_params(self, arg_params: Dict[str, NDArray],
-                    aux_params: Dict[str, NDArray]) -> None:
-        """Copy the live state into the given dicts' arrays."""
+                    aux_params: Dict[str, NDArray], state=None) -> None:
+        """Copy the live state (or ``state``, a :meth:`snapshot_state`
+        copy) into the given dicts' arrays."""
+        st = self.state if state is None else state
         with torch.no_grad():
             for group, names, out in (("params", self.train_names,
                                        arg_params),
@@ -268,4 +436,4 @@ class FusedTrainStep:
                                        arg_params),
                                       ("aux", self.aux_names, aux_params)):
                 for n in names:
-                    out[n][:] = self.state[group][n].detach()
+                    out[n][:] = st[group][n].detach()

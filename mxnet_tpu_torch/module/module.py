@@ -1,5 +1,5 @@
-"""Module: the intermediate-level API over one symbol on one device
-(counterpart of ``mxnet_tpu/module/module.py``).
+"""Module: the intermediate-level API over one symbol (counterpart of
+``mxnet_tpu/module/module.py``).
 
 Two paths, as in the reference:
 
@@ -10,17 +10,29 @@ Two paths, as in the reference:
   An eval forward runs on the live params.  Explicit head gradients or a
   change to the optimizer values the step baked in leave the fused path
   for the classic one (``_disable_fused``), with the params, the
-  optimizer state and the step count carried over;
-* **classic**: the executor group's forward and backward, then the
-  updater per parameter, as the reference's kvstore-less local path.
+  optimizer state and the step count carried over.  Several distinct
+  devices of one type run the fused step on the first of them over the
+  whole batch (the mesh form of the reference waits for ROADMAP.md
+  queue 1 item 10);
+* **classic**: one executor per context over its slice of the batch
+  (``work_load_list``), then the gradients summed through the kvstore
+  and the updater per parameter and device, or the kvstore's own update
+  (``model._update_params`` / ``_update_params_on_kvstore``).
 
-A monitor (``install_monitor``) keeps a module on the classic path.
-A module bound with ``shared_module=`` (a bucket of ``BucketingModule``)
-shares the parent's executor arrays (one set of parameter and gradient
-tensors for every bucket) and, once the parent has one, borrows its
-optimizer and updater (one set of optimizer states); lending the
-executor group or borrowing the optimizer keeps a module on the classic
-path, as in the reference (``mxnet_tpu/module/module.py:292-322``).
+``superstep_train`` runs K batches as K replays of the captured step
+with the metric reduced on the device and drained once (``fit``'s
+``superstep=``).  Outputs asked for between a train forward and
+``update()`` run the pending step early (``_fused_commit_early``); a new
+forward puts the state from before it back (``_discard_speculation``).
+
+A monitor (``install_monitor``), duplicate contexts (``[gpu(0),
+gpu(0)]``, how several devices run on one card), mixed device types and
+``ctx_group`` attributes keep a module on the classic path.  A module
+bound with ``shared_module=`` (a bucket of ``BucketingModule``) shares
+the parent's executor arrays and, once the parent has one, borrows its
+optimizer and updater; lending the executor group or borrowing the
+optimizer keeps a module on the classic path, as in the reference
+(``mxnet_tpu/module/module.py:292-322``).
 
 ``MXNET_FUSED_TRAIN=0`` keeps the module on the classic path (the
 fused-against-classic parity check).  The params the module hands out
@@ -29,32 +41,23 @@ fused-against-classic parity check).  The params the module hands out
 from __future__ import annotations
 
 import logging
+import time
+
+import torch
 
 from ..base import MXNetError, get_env
 from ..context import Context, cpu, current_context
 from ..initializer import Uniform
 from ..ndarray import NDArray, zeros as nd_zeros
+from .. import metric as metric_mod
 from .. import optimizer as opt_mod
+from ..model import (_create_kvstore, _initialize_kvstore, _param_idx2name,
+                     _update_params, _update_params_on_kvstore)
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
-from .fused import FusedTrainStep
+from .fused import FusedTrainStep, unflatten_tensors
 
 __all__ = ["Module"]
-
-
-def _check_kvstore(kvstore, num_device):
-    """The reference's ``_create_kvstore`` on one device: "local",
-    "device" or None select no kvstore and the updater runs the update.
-    The dist stores wait for scale-out (ROADMAP.md, queue 1 item 10), a
-    KVStore object for kvstore's local modes (item 2)."""
-    if kvstore is None or (isinstance(kvstore, str) and num_device == 1
-                           and "dist" not in kvstore):
-        return
-    item = 10 if isinstance(kvstore, str) and "dist" in kvstore else 2
-    raise NotImplementedError(
-        "kvstore %r is not in the port yet; on one device pass "
-        "kvstore='local' or None (ROADMAP.md, queue 1 item %d)"
-        % (kvstore, item))
 
 
 class Module(BaseModule):
@@ -89,6 +92,8 @@ class Module(BaseModule):
         self._aux_params = None
         self._params_dirty = False
         self._optimizer = None
+        self._kvstore = None
+        self._update_on_kvstore = False
         self._updater = None
         self._exec_group = None
         self._data_shapes = None
@@ -104,13 +109,20 @@ class Module(BaseModule):
         self._fused_outputs = None
         self._fused_copies = None
         self._fused_t = 0
+        # speculation: (device copy of the state before the early step,
+        # that step's outputs), and the optimizer count to roll back to
+        self._fused_next = None
+        self._fused_prev_num_update = 0
+        # superstep counters (profiler.SuperstepStats), made on first use
+        self._superstep_stats = None
+        self._superstep_runs = 0
         # bucketing: this module's executor arrays are shared by a
         # sibling bound on it, or its optimizer is a sibling's
         self._lent_exec_group = False
         self._borrowed_optimizer = False
         self._monitor_installed = False
 
-    # -- properties ------------------------------------------------------------
+    # -- properties -----------------------------------------------------------
     @property
     def data_names(self):
         return self._data_names
@@ -137,7 +149,7 @@ class Module(BaseModule):
         _, out_shapes, _ = self._symbol.infer_shape(**shapes)
         return list(zip(self._output_names, [tuple(s) for s in out_shapes]))
 
-    # -- params ------------------------------------------------------------------
+    # -- params ---------------------------------------------------------------
     def get_params(self):
         assert self.binded and self.params_initialized
         if self._params_dirty:
@@ -183,17 +195,23 @@ class Module(BaseModule):
         self._params_dirty = False
         self._exec_group.set_params(self._arg_params, self._aux_params)
         if self._fused is not None:
+            # host params changed: an early step of the old state never
+            # commits, and its optimizer count rolls back
+            self._discard_speculation()
             self._fused_init_state()
 
     def _sync_params_from_devices(self):
         if self._fused is not None:
-            self._fused.read_params(self._arg_params, self._aux_params)
+            # a pending speculation has not committed: its copy holds the
+            # params of record
+            self._fused.read_params(self._arg_params, self._aux_params,
+                                    state=self._spec_state())
             self._exec_group.set_params(self._arg_params, self._aux_params)
         else:
             self._exec_group.get_params(self._arg_params, self._aux_params)
         self._params_dirty = False
 
-    # -- bind ---------------------------------------------------------------------
+    # -- bind -----------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write", no_slice_names=None):
@@ -265,6 +283,7 @@ class Module(BaseModule):
             # the updated params live only on the device: pull them back
             # before the old executor group goes, or training reverts
             self._sync_params_from_devices()
+        self._discard_speculation()
         self._fused_pending = None
         self._fused_outputs = None
         self._fused_copies = None
@@ -280,11 +299,12 @@ class Module(BaseModule):
         if self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
 
-    # -- optimizer -----------------------------------------------------------------
+    # -- optimizer ------------------------------------------------------------
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=None, force_init=False):
-        """reference module.py:271-335, on one device: no kvstore, the
-        updater (or the fused step) runs the update."""
+        """reference module.py:358-409: the kvstore by ``_create_kvstore``
+        (none on one device), seeded with the params; then the store
+        runs the optimizer, or the updater does."""
         assert self.binded and self.params_initialized
         if optimizer_params is None:
             optimizer_params = (("learning_rate", 0.01),)
@@ -294,9 +314,11 @@ class Module(BaseModule):
             return
         if self._params_dirty:
             self._sync_params_from_devices()
-        _check_kvstore(kvstore, len(self._context))
+        kvstore, update_on_kvstore = _create_kvstore(
+            kvstore, len(self._context), self._arg_params)
         if isinstance(optimizer, str):
-            idx2name = dict(enumerate(self._param_names))
+            idx2name = _param_idx2name(self._param_names, len(self._context),
+                                       update_on_kvstore)
             optimizer_params = dict(optimizer_params)
             if "rescale_grad" not in optimizer_params:
                 optimizer_params["rescale_grad"] = \
@@ -307,13 +329,26 @@ class Module(BaseModule):
         elif not isinstance(optimizer, opt_mod.Optimizer):
             raise MXNetError("optimizer must be a name or an Optimizer")
         self._optimizer = optimizer
-        self._updater = opt_mod.get_updater(optimizer)
+        self._kvstore = kvstore
+        self._update_on_kvstore = update_on_kvstore
+        self._updater = None
+        if kvstore:
+            _initialize_kvstore(kvstore=kvstore,
+                                param_arrays=self._exec_group.param_arrays,
+                                arg_params=self._arg_params,
+                                param_names=self._param_names,
+                                update_on_kvstore=update_on_kvstore)
+        if update_on_kvstore:
+            kvstore.set_optimizer(self._optimizer)
+        else:
+            self._updater = opt_mod.get_updater(optimizer)
         self.optimizer_initialized = True
         self._setup_fused()
 
     def _fusable(self):
         """Whether the batch body can run as the fused step with the
-        reference's semantics; anything else takes the classic path."""
+        reference's semantics (reference module.py:411-446); anything
+        else takes the classic path."""
         if not get_env("MXNET_FUSED_TRAIN", True, bool):
             return False
         if not self.for_training or self.inputs_need_grad:
@@ -331,6 +366,14 @@ class Module(BaseModule):
             return False
         if self._optimizer.fused_update_fn() is None:
             return False
+        # ctx_group placement runs node by node across devices
+        if any("ctx_group" in a for a in self._symbol.attr_dict().values()):
+            return False
+        cs = self._context
+        if len({(c.device_type, c.device_id) for c in cs}) != len(cs):
+            return False
+        if len({c.device_type for c in cs}) != 1:
+            return False
         return True
 
     def borrow_optimizer(self, shared_module):
@@ -339,11 +382,18 @@ class Module(BaseModule):
         assert shared_module.optimizer_initialized
         self._disable_fused("optimizer borrowed")
         self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
         self._updater = shared_module._updater
         self.optimizer_initialized = True
         self._borrowed_optimizer = True
 
     def _setup_fused(self):
+        if self._fused is not None and self._params_dirty:
+            # never drop a live fused state that holds the only copy of
+            # the trained params
+            self._sync_params_from_devices()
+        self._fused_next = None
         self._fused = None
         self._fused_pending = None
         self._fused_outputs = None
@@ -358,6 +408,7 @@ class Module(BaseModule):
         self._fused_init_state()
 
     def _fused_init_state(self):
+        self._fused_next = None
         self._fused.init_state(self._arg_params, self._aux_params)
         self._fused_t = 0
         self._fused_pending = None
@@ -373,23 +424,48 @@ class Module(BaseModule):
         if self._fused is None:
             return
         fused, pend = self._fused, self._fused_pending
+        if self._fused_next is not None:
+            # the early step of the pending batch has not committed: its
+            # batch replays classically below (the optimizer count it
+            # advanced stands, as in the reference)
+            fused.restore_state(self._fused_next[0])
+            self._fused_next = None
         fused.read_params(self._arg_params, self._aux_params)
         self._exec_group.set_params(self._arg_params, self._aux_params)
         self._params_dirty = False
+        if self._update_on_kvstore and self._kvstore is not None:
+            # the store still holds the weights from init time
+            _initialize_kvstore(kvstore=self._kvstore,
+                                param_arrays=self._exec_group.param_arrays,
+                                arg_params=self._arg_params,
+                                param_names=self._param_names,
+                                update_on_kvstore=True)
+        num_dev = len(self._context)
         if self._fused_t:
             counts = self._optimizer._index_update_count
-            for i in range(len(self._param_names)):
+            for i in range(len(self._param_names) * num_dev):
                 counts.setdefault(i, self._fused_t)
 
-        def _to_nd(x):
+        def _to_nd(x, like):
             if x is None:
                 return None
             if isinstance(x, (tuple, list)):
-                return tuple(_to_nd(e) for e in x)
-            return NDArray(x.detach().clone())
+                return tuple(_to_nd(e, like) for e in x)
+            return NDArray(x.detach().to(like._get().device, copy=True))
+        updater = self._updater
+        if updater is None and self._kvstore is not None:
+            updater = self._kvstore._updater
         for i, n in enumerate(self._param_names):
-            if n in fused.state["opt"]:
-                self._updater.states[i] = _to_nd(fused.state["opt"][n])
+            if n not in fused.state["opt"]:
+                continue
+            st = fused.state["opt"][n]
+            if self._update_on_kvstore:
+                updater.states[i] = _to_nd(st, self._kvstore._store[i])
+            else:
+                # one copy per device replica, on its device
+                for dev in range(num_dev):
+                    updater.states[i * num_dev + dev] = _to_nd(
+                        st, self._exec_group.param_arrays[i][dev])
         self._fused = None
         self._fused_pending = None
         self._fused_outputs = None
@@ -405,14 +481,138 @@ class Module(BaseModule):
                 eg.backward()
         self.logger.info("fused train step disabled: %s", reason)
 
-    # -- computation ------------------------------------------------------------
+    # -- speculation ----------------------------------------------------------
+    def _spec_state(self):
+        """The state of record while a speculation is pending (its copy
+        from before the early step), else None (the live state)."""
+        return self._fused_next[0] if self._fused_next is not None else None
+
+    def _discard_speculation(self):
+        """Drop an early step that was never committed: put the state
+        from before it back and roll the optimizer's step count back
+        (reference module.py:765-775).  ``_disable_fused``, whose batch
+        still commits classically, keeps the advanced count."""
+        if self._fused_next is None:
+            return
+        self._fused.restore_state(self._fused_next[0])
+        self._optimizer.num_update = self._fused_prev_num_update
+        self._fused_next = None
+
+    def _fused_commit_early(self):
+        """Run the pending batch's step now (reference module.py:777-796):
+        the state from before it is copied aside on the step's stream
+        first (about 205 MB at ResNet-50 with momentum), the outputs are
+        copied out, and ``update()`` only installs them; a new forward
+        puts the copy back."""
+        self._fused_prev_num_update = self._optimizer.num_update
+        self._optimizer.num_update = max(self._optimizer.num_update,
+                                         self._fused_t + 1)
+        before = self._fused.snapshot_state()
+        outs = self._fused.step(self._fused_pending)
+        copies = [NDArray(o.clone()) for o in outs]
+        self._fused_next = (before, copies)
+        self._fused_outputs = outs
+        self._fused_copies = copies
+
+    # -- superstep ------------------------------------------------------------
+    def _superstep_blockers(self, eval_metric, k, monitor=None,
+                            batch_end_callback=None, checkpoint_every=None):
+        """Why superstep K must fall back to one step at a time, or None
+        (reference module.py:813-838)."""
+        if self._fused is None or not self.optimizer_initialized:
+            return "fused train step not engaged"
+        if monitor is not None or self._monitor_installed:
+            return "monitor attached (needs per-step host visibility)"
+        if eval_metric is not None and \
+                getattr(eval_metric, "device_reducer", lambda: None)() is None:
+            return "metric %r has no device form" % getattr(
+                eval_metric, "name", eval_metric)
+        if checkpoint_every and checkpoint_every % k != 0:
+            return ("checkpoint_every=%d is not a multiple of K=%d"
+                    % (checkpoint_every, k))
+        cbs = batch_end_callback if isinstance(batch_end_callback, list) \
+            else ([batch_end_callback] if batch_end_callback else [])
+        for cb in cbs:
+            if getattr(cb, "inspects_outputs", False):
+                return "batch-end callback %r inspects per-step outputs" % cb
+        return None
+
+    def superstep_train(self, batches, eval_metric=None):
+        """Advance K training batches (a list of K DataBatch) as K replays
+        of the captured step, the metric reduced on the device and
+        drained once (reference module.py:840-946).  -> True when the
+        superstep ran; False when the caller must run these batches one
+        at a time (the fused path is gone, or the optimizer values the
+        step baked in changed)."""
+        assert self.binded and self.params_initialized and \
+            self.optimizer_initialized
+        if self._fused is None:
+            return False
+        if self._fused_pending is not None:
+            raise MXNetError(
+                "superstep_train with an uncommitted forward pending; "
+                "call update() to commit it first")
+        if self._fused.hparam_signature() != self._fused_hsig:
+            return False
+        reducer = eval_metric.device_reducer() if eval_metric is not None \
+            else None
+        if eval_metric is not None and reducer is None:
+            return False
+        if self._superstep_stats is None:
+            from .. import profiler as _prof
+            self._superstep_stats = _prof.SuperstepStats()
+            _prof.register_superstep_stats(self._superstep_stats)
+        t0 = time.perf_counter()
+        k, mega = self._fused.make_megabatch(batches)
+        h2d_s = time.perf_counter() - t0
+        # the step counters and the scheduler advance before the steps
+        # run; they roll back if the dispatch fails
+        prev_t = self._fused_t
+        prev_num_update = self._optimizer.num_update
+        sched = getattr(self._optimizer, "lr_scheduler", None)
+        sched_state = sched.state_dict() if sched is not None else None
+        try:
+            lrs = []
+            for _ in range(k):
+                self._fused_t += 1
+                self._optimizer.num_update = max(
+                    self._optimizer.num_update, self._fused_t)
+                lrs.append(float(self._optimizer.base_lr()))
+            acc0 = reducer.init(self._fused.device) \
+                if reducer is not None else None
+            self._fused_outputs = None
+            self._fused_copies = None
+            t1 = time.perf_counter()
+            acc = self._fused.superstep(k, mega, lrs, reducer, acc0)
+            dispatch_s = time.perf_counter() - t1
+        except Exception:
+            self._fused_t = prev_t
+            self._optimizer.num_update = prev_num_update
+            if sched is not None:
+                sched.load_state_dict(sched_state)
+            raise
+        self._params_dirty = True
+        self._superstep_runs += 1
+        wait_s = 0.0
+        if reducer is not None:
+            t2 = time.perf_counter()
+            host = torch.stack(acc).cpu().tolist()
+            metric_mod.note_host_sync()
+            wait_s = time.perf_counter() - t2
+            reducer.absorb(unflatten_tensors(acc0, host))
+        self._superstep_stats.add(k, h2d_s, dispatch_s, wait_s)
+        return True
+
+    # -- computation ----------------------------------------------------------
     def forward(self, data_batch, is_train=None):
         assert self.binded and self.params_initialized
         if is_train is None:
             is_train = self.for_training
         if self._fused is not None:
             if is_train:
-                # deferred: update() runs the whole batch body
+                # deferred: update() runs the whole batch body; an early
+                # step of the previous batch never committed
+                self._discard_speculation()
                 self._fused_pending = self._fused.make_batch(data_batch)
                 self._fused_outputs = None
                 self._fused_copies = None
@@ -427,7 +627,8 @@ class Module(BaseModule):
             for n in missing:
                 shape = dict(self._data_shapes + (self._label_shapes or []))
                 batch[n] = nd_zeros(shape[n], ctx=self._context[0])._get()
-            self._fused_outputs = self._fused.forward_only(batch, False)
+            self._fused_outputs = self._fused.forward_only(
+                batch, False, state=self._spec_state())
             self._fused_copies = None
             return
         self._exec_group.forward(data_batch, is_train)
@@ -442,7 +643,7 @@ class Module(BaseModule):
         self._exec_group.backward(out_grads=out_grads)
 
     def update(self):
-        """reference module.py:377-394."""
+        """reference module.py:977-1033."""
         assert self.binded and self.params_initialized and \
             self.optimizer_initialized
         self._params_dirty = True
@@ -454,31 +655,51 @@ class Module(BaseModule):
                 self._fused_t += 1
                 self._optimizer.num_update = max(self._optimizer.num_update,
                                                  self._fused_t)
-                self._fused_outputs = self._fused.step(self._fused_pending)
-                self._fused_copies = None
+                if self._fused_next is not None:
+                    # the step ran when its outputs were read: install
+                    # its outputs (an eval forward since may have
+                    # replaced the current ones)
+                    self._fused_copies = self._fused_next[1]
+                    self._fused_outputs = [c._get()
+                                           for c in self._fused_copies]
+                    self._fused_next = None
+                else:
+                    self._fused_outputs = self._fused.step(
+                        self._fused_pending)
+                    self._fused_copies = None
                 self._fused_pending = None
                 return
-        for i, (weights, grads) in enumerate(zip(
-                self._exec_group.param_arrays,
-                self._exec_group.grad_arrays)):
-            if grads[0] is None:
-                continue
-            self._updater(i, grads[0], weights[0])
+        if self._update_on_kvstore:
+            _update_params_on_kvstore(self._exec_group.param_arrays,
+                                      self._exec_group.grad_arrays,
+                                      self._kvstore)
+        else:
+            _update_params(self._exec_group.param_arrays,
+                           self._exec_group.grad_arrays,
+                           updater=self._updater,
+                           num_device=len(self._context),
+                           kvstore=self._kvstore)
 
     def get_outputs(self, merge_multi_context=True):
         """The last forward's outputs.  On the fused path these are copies
         of the step's buffers (a later replay overwrites those); outputs
-        asked for between a train forward and update() come from a
-        train-mode forward of the pending batch that commits nothing."""
+        asked for between a train forward and update() run the pending
+        step early (``_fused_commit_early``), or, when the optimizer
+        values the step baked in changed since, a train-mode forward of
+        the pending batch that commits nothing."""
         assert self.binded and self.params_initialized
         if self._fused is not None and (self._fused_outputs is not None
                                         or self._fused_pending is not None):
             if self._fused_copies is None:
                 if self._fused_outputs is None:
-                    self._fused_outputs = self._fused.forward_only(
-                        self._fused_pending, True)
-                self._fused_copies = [NDArray(o.clone())
-                                      for o in self._fused_outputs]
+                    if self._fused.hparam_signature() == self._fused_hsig:
+                        self._fused_commit_early()
+                    else:
+                        self._fused_outputs = self._fused.forward_only(
+                            self._fused_pending, True)
+                if self._fused_copies is None:
+                    self._fused_copies = [NDArray(o.clone())
+                                          for o in self._fused_outputs]
             if merge_multi_context:
                 return list(self._fused_copies)
             return [[o] for o in self._fused_copies]

@@ -106,11 +106,16 @@ def _as_tensor(value, dtype: torch.dtype, device: torch.device):
 class NDArray:
     """A tensor with the reference's NDArray surface."""
 
-    __slots__ = ("_data", "writable")
+    __slots__ = ("_data", "writable", "_ctx")
 
-    def __init__(self, data: torch.Tensor, writable: bool = True):
+    def __init__(self, data: torch.Tensor, writable: bool = True,
+                 ctx: Optional[Context] = None):
         self._data = data
         self.writable = writable
+        # a host context other than cpu(0): the reference's fake devices
+        # (several cpu(i) stand for several cards on one host)
+        self._ctx = ctx if ctx is not None and ctx.device_typeid == 1 \
+            and ctx.device_id != 0 else None
 
     def _get(self) -> torch.Tensor:
         """The underlying ``torch.Tensor``."""
@@ -134,6 +139,8 @@ class NDArray:
 
     @property
     def context(self) -> Context:
+        if self._ctx is not None:
+            return self._ctx
         return context_of(self._data.device)
 
     ctx = context
@@ -228,11 +235,12 @@ class NDArray:
         """``arr[i]``, ``arr[start:stop]`` or a tuple of them: a view
         that shares this array's buffer, as the reference's slice does."""
         self._check_key(key)
-        return NDArray(self._data[key], writable=self.writable)
+        return NDArray(self._data[key], writable=self.writable,
+                       ctx=self._ctx)
 
     def copy(self) -> "NDArray":
         """A new array with a copy of the data, on the same device."""
-        return NDArray(self._data.detach().clone())
+        return NDArray(self._data.detach().clone(), ctx=self._ctx)
 
     def copyto(self, other) -> "NDArray":
         """Copy into ``other``: an NDArray (written in place, cast to its
@@ -244,7 +252,7 @@ class NDArray:
             return other
         if isinstance(other, Context):
             return NDArray(self._data.detach().to(
-                other.torch_device(), copy=True))
+                other.torch_device(), copy=True), ctx=other)
         raise TypeError("copyto does not support type %s" % type(other))
 
     def __setitem__(self, key, value):
@@ -362,12 +370,12 @@ def _device(ctx: Optional[Context]) -> torch.device:
 
 def empty(shape, ctx: Optional[Context] = None, dtype=np.float32) -> NDArray:
     return NDArray(torch.empty(_shape(shape), dtype=torch_dtype(dtype),
-                               device=_device(ctx)))
+                               device=_device(ctx)), ctx=ctx)
 
 
 def zeros(shape, ctx: Optional[Context] = None, dtype=np.float32) -> NDArray:
     return NDArray(torch.zeros(_shape(shape), dtype=torch_dtype(dtype),
-                               device=_device(ctx)))
+                               device=_device(ctx)), ctx=ctx)
 
 
 def array(source_array, ctx: Optional[Context] = None,
@@ -380,9 +388,9 @@ def array(source_array, ctx: Optional[Context] = None,
     if isinstance(source_array, torch.Tensor):
         t = source_array.detach().to(device=device, dtype=torch_dtype(dtype),
                                      copy=True)
-        return NDArray(t)
+        return NDArray(t, ctx=ctx)
     t = _tensor_from_numpy(np.asarray(source_array))
-    return NDArray(t.to(device=device, dtype=torch_dtype(dtype)))
+    return NDArray(t.to(device=device, dtype=torch_dtype(dtype)), ctx=ctx)
 
 
 def ones(shape, ctx: Optional[Context] = None, dtype=np.float32) -> NDArray:

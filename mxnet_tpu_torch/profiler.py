@@ -1,5 +1,5 @@
-"""Profiler registries (counterpart of ``mxnet_tpu/profiler.py``): for
-now the serving one.
+"""Profiler registries (counterpart of ``mxnet_tpu/profiler.py``): the
+serving, superstep and checkpoint ones.
 
 Every serving component registers its stats object here on
 construction, weakly (a dropped engine disappears from the report with
@@ -11,6 +11,11 @@ bucket hits), ``decode`` (DecodeEngine: slot occupancy, steps, tokens),
 inter-token latency), ``mux`` (ModelMultiplexer) and ``router``
 (ServeRouter, with a rollup of its replicas).
 
+Every ``Module`` that runs ``fit(superstep=K)`` registers a
+:class:`SuperstepStats` (:func:`superstep_report`), and every
+``CheckpointManager`` its ``CheckpointStats``
+(:func:`checkpoint_report`).
+
 The trace timeline, ``scope`` and the other report families wait for
 ROADMAP.md queue 1 item 12.
 """
@@ -19,7 +24,10 @@ from __future__ import annotations
 import threading
 import weakref
 
-__all__ = ["register_serve_stats", "serve_report", "serve_report_str"]
+__all__ = ["register_serve_stats", "serve_report", "serve_report_str",
+           "SuperstepStats", "register_superstep_stats", "superstep_report",
+           "superstep_report_str", "register_checkpoint_stats",
+           "checkpoint_report", "checkpoint_report_str"]
 
 # register() runs on constructing threads while readers iterate: every
 # reader snapshot-copies under this lock first
@@ -77,3 +85,100 @@ def serve_report() -> dict:
 def serve_report_str() -> str:
     """Human-readable per-component serving table."""
     return _serve_registry.report_str()
+
+
+# -- superstep (Module.superstep_train) ---------------------------------------
+# The host side of every superstep split three ways:
+#   h2d_stage_s      stacking the megabatch and issuing its copy
+#   step_dispatch_s  enqueueing the K replays (and the metric's)
+#   device_wait_s    the one drain of the metric's accumulators, which
+#                    waits out the device work still queued
+_superstep_registry = _Registry("superstep", "(no live superstep loops)")
+
+
+class SuperstepStats:
+    """Counters of the K-steps-per-drain training loop: cumulative
+    totals, and ``window()`` deltas for a measurement window."""
+
+    def __init__(self, name: str = "superstep"):
+        self.name = name
+        self.supersteps = 0
+        self.steps = 0
+        self.h2d_stage_s = 0.0
+        self.step_dispatch_s = 0.0
+        self.device_wait_s = 0.0
+        self._window_base = self._totals()
+
+    def _totals(self) -> dict:
+        return {"supersteps": self.supersteps, "steps": self.steps,
+                "h2d_stage_s": self.h2d_stage_s,
+                "step_dispatch_s": self.step_dispatch_s,
+                "device_wait_s": self.device_wait_s}
+
+    def add(self, steps: int, h2d_s: float, dispatch_s: float,
+            wait_s: float) -> None:
+        self.supersteps += 1
+        self.steps += int(steps)
+        self.h2d_stage_s += h2d_s
+        self.step_dispatch_s += dispatch_s
+        self.device_wait_s += wait_s
+
+    def window(self) -> dict:
+        """Counters accumulated since the previous window() call."""
+        now = self._totals()
+        delta = {k: now[k] - self._window_base[k] for k in now}
+        self._window_base = now
+        return delta
+
+    def report(self) -> dict:
+        out = self._totals()
+        if self.steps:
+            out["host_s_per_step"] = (
+                self.h2d_stage_s + self.step_dispatch_s
+                + self.device_wait_s) / self.steps
+        return out
+
+    def report_str(self) -> str:
+        r = self.report()
+        lines = ["%s: %d supersteps / %d steps" % (self.name,
+                                                   r["supersteps"],
+                                                   r["steps"])]
+        for key in ("h2d_stage_s", "step_dispatch_s", "device_wait_s"):
+            lines.append("  %-16s %10.4f" % (key, r[key]))
+        if "host_s_per_step" in r:
+            lines.append("  %-16s %10.6f" % ("host_s/step",
+                                             r["host_s_per_step"]))
+        return "\n".join(lines)
+
+
+def register_superstep_stats(superstep_stats) -> None:
+    """Called by Module.superstep_train on its first superstep."""
+    _superstep_registry.register(superstep_stats)
+
+
+def superstep_report() -> dict:
+    """{key: counters} for every live superstep-training module."""
+    return _superstep_registry.report()
+
+
+def superstep_report_str() -> str:
+    return _superstep_registry.report_str()
+
+
+# -- checkpoint (mxnet_tpu_torch.checkpoint) ----------------------------------
+_ckpt_registry = _Registry("checkpoint", "(no live checkpoint managers)")
+
+
+def register_checkpoint_stats(ckpt_stats) -> None:
+    """Called by checkpoint.CheckpointManager on construction."""
+    _ckpt_registry.register(ckpt_stats)
+
+
+def checkpoint_report() -> dict:
+    """{manager key: counters} for every live CheckpointManager: save
+    and restore wall time, bytes, and the train thread's stall."""
+    return _ckpt_registry.report()
+
+
+def checkpoint_report_str() -> str:
+    return _ckpt_registry.report_str()

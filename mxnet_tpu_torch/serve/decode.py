@@ -290,9 +290,14 @@ class DecodeEngine:
 
     @classmethod
     def from_checkpoint_dir(cls, directory: str, symbol,
-                            step: Optional[int] = None, **kwargs):
-        raise not_ported("DecodeEngine.from_checkpoint_dir (item 7: "
-                         "checkpoint/)")
+                            step: Optional[int] = None, **kwargs
+                            ) -> "DecodeEngine":
+        """Serve a ``mx.checkpoint`` store: the newest committed step (or
+        ``step``), params and aux.  The store holds arrays, not the
+        graph: pass the decode-step symbol."""
+        from .engine import load_checkpoint_dir_params
+        params, _meta = load_checkpoint_dir_params(directory, step)
+        return cls(symbol, params, **kwargs)
 
     # -- device helpers (decode thread) ------------------------------------
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
@@ -421,8 +426,9 @@ class DecodeEngine:
     def reload_from_checkpoint_dir(self, directory: str,
                                    step: Optional[int] = None,
                                    timeout: Optional[float] = None) -> int:
-        raise not_ported("DecodeEngine.reload_from_checkpoint_dir (item 7: "
-                         "checkpoint/)")
+        from .engine import load_checkpoint_dir_params
+        params, _meta = load_checkpoint_dir_params(directory, step)
+        return self.reload(params, timeout=timeout)
 
     # -- decode loop (one owner thread) ------------------------------------
     def _claim_locked(self) -> Optional[List[_DecodeRequest]]:

@@ -182,6 +182,19 @@ class ServeEngine:
         sym_json, params = load_checkpoint_pair(prefix, epoch)
         return cls(sym_json, params, input_shapes, **kwargs)
 
+    @classmethod
+    def from_checkpoint_dir(cls, directory: str, symbol,
+                            input_shapes: Dict[str, Tuple[int, ...]],
+                            step: Optional[int] = None,
+                            **kwargs) -> "ServeEngine":
+        """Serve a ``mx.checkpoint`` store (the train state that
+        ``CheckpointManager`` / ``Module.fit(checkpoint=...)`` saved): the
+        newest committed step (or ``step``), params and aux, the
+        optimizer state left behind.  The store holds arrays, not the
+        graph: pass ``symbol``."""
+        params, _meta = load_checkpoint_dir_params(directory, step)
+        return cls(symbol, params, input_shapes, **kwargs)
+
     # -- bucket grid -------------------------------------------------------
     def _grid_fail(self, bucket, phase, exc):
         raise ServeError(
@@ -305,6 +318,13 @@ class ServeEngine:
         _sym_json, params = load_checkpoint_pair(prefix, epoch)
         return self.reload(params)
 
+    def reload_from_checkpoint_dir(self, directory: str,
+                                   step: Optional[int] = None) -> int:
+        """Hot-swap to a ``mx.checkpoint`` step (default: the newest
+        committed)."""
+        params, _meta = load_checkpoint_dir_params(directory, step)
+        return self.reload(params)
+
     @contextlib.contextmanager
     def pause(self):
         """Hold batch execution between batches (the weights-swap lock):
@@ -382,3 +402,26 @@ def exec_device_bytes(execs) -> int:
                 seen.add(key)
                 total += t.numel() * t.element_size()
     return total
+
+
+def load_checkpoint_dir_params(directory: str,
+                               step: Optional[int] = None) -> Tuple[Dict,
+                                                                    Dict]:
+    """Serving weights out of a ``mx.checkpoint`` store: params, fixed
+    params and aux (the optimizer slots and random state stay behind).
+    -> (params dict, meta)."""
+    from ..base import MXNetError
+    from ..checkpoint import CheckpointManager
+    with CheckpointManager(directory, async_save=False,
+                           name="serve-restore") as mgr:
+        tree, meta = mgr.restore(step=step)
+    if not isinstance(tree, dict) or "params" not in tree:
+        raise MXNetError(
+            "checkpoint under %r is not a module train state (expected a "
+            "{'params', ...} tree, got %s); serve needs a state saved by "
+            "save_module / Module.fit(checkpoint=...)"
+            % (directory, type(tree).__name__))
+    params: Dict = {}
+    for group in ("params", "fixed", "aux"):
+        params.update(tree.get(group) or {})
+    return params, meta

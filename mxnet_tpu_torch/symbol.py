@@ -390,16 +390,17 @@ class Symbol:
 
     # -- binding -------------------------------------------------------------
     def simple_bind(self, ctx, grad_req="write", type_dict=None,
-                    shared_exec=None, **kwargs):
+                    group2ctx=None, shared_exec=None, **kwargs):
         from .executor import simple_bind as _sb
         return _sb(self, ctx, grad_req=grad_req, type_dict=type_dict,
-                   shared_exec=shared_exec, **kwargs)
+                   shared_exec=shared_exec, group2ctx=group2ctx, **kwargs)
 
     def bind(self, ctx, args, args_grad=None, grad_req="write",
-             aux_states=None):
+             aux_states=None, group2ctx=None, shared_exec=None):
         from .executor import bind as _bind
         return _bind(self, ctx, args, args_grad=args_grad,
-                     grad_req=grad_req, aux_states=aux_states)
+                     grad_req=grad_req, aux_states=aux_states,
+                     group2ctx=group2ctx, shared_exec=shared_exec)
 
     def grad(self, wrt):
         raise MXNetError("symbol.grad is deprecated; use bind + backward")

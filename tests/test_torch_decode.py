@@ -306,7 +306,7 @@ def test_symbol_contract_and_unported_options(model):
             _jax_engine(params, **kw)
     with pytest.raises(NotImplementedError, match="item 8"):
         _engine(params, moe_hits_state="h")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(mt.MXNetError, match="no committed checkpoint"):
         DecodeEngine.from_checkpoint_dir("/nonexistent", _decode_net(mt),
                                          state_shapes={"h": (HID,)})
 

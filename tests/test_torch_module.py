@@ -271,8 +271,11 @@ def test_checkpoints_cross_between_packages(tmp_path):
     mod, (arg, aux), _ = _fit(tmx, prefix, x, y, batch)
     port_prefix = str(tmp_path / "port")
     mod.save_checkpoint(port_prefix, 2, save_optimizer_states=False)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        mod.save_checkpoint(port_prefix, 2)
+    assert tmx.checkpoint.latest_step(port_prefix + "-ckpt") is None
+    # with the optimizer state: the pair and the train state as step 2,
+    # which the reference's discovery finds
+    mod.save_checkpoint(port_prefix, 2)
+    assert jmx.checkpoint.latest_step(port_prefix + "-ckpt") == 2
     sym, jarg, jaux = jmx.model.load_checkpoint(port_prefix, 2)
     assert sym.tojson() == mod.symbol.tojson()
     for k, v in arg.items():
@@ -392,10 +395,9 @@ def test_outputs_before_update_commit_nothing_and_eval_uses_live_params():
 def test_fit_rejects_unported_options():
     mod = tmx.mod.Module(tmx.models.get_mlp(), context=tmx.cpu())
     it = tmx.io.NDArrayIter(np.zeros((4, 784)), np.zeros(4), batch_size=4)
-    for kw, item in (({"superstep": 4}, "item 2"),
-                     ({"checkpoint": "x"}, "item 7"),
-                     ({"prefetch_to_device": True}, "item 9"),
-                     ({"mesh": "dp=2"}, "item 10")):
+    for kw, item in (({"prefetch_to_device": True}, "item 9"),
+                     ({"mesh": "dp=2"}, "item 10"),
+                     ({"autotune": True}, "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             mod.fit(it, num_epoch=1, **kw)
     with pytest.raises(NotImplementedError, match="item 10"):
@@ -417,8 +419,15 @@ def test_callbacks_and_epoch_checkpoints(tmp_path, caplog):
     sym, arg, _ = tmx.model.load_checkpoint(prefix, 2, ctx=tmx.cpu())
     for k, v in mod.get_params()[0].items():
         np.testing.assert_array_equal(arg[k].asnumpy(), v.asnumpy())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tmx.callback.do_checkpoint(prefix, module=mod)
+    # with the module: the train state too, as step 3 under prefix-ckpt
+    tmx.callback.do_checkpoint(prefix, module=mod)(2, mod.symbol, *
+                                                   mod.get_params())
+    tree, meta = tmx.checkpoint.CheckpointManager(
+        prefix + "-ckpt", async_save=False).restore()
+    assert meta["step"] == 3 and meta["epoch"] == 3
+    np.testing.assert_array_equal(
+        np.asarray(tree["params"]["fc1_weight"]),
+        mod.get_params()[0]["fc1_weight"].asnumpy())
 
 
 def test_fused_step_counts_and_graph_stats_on_cpu():
