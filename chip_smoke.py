@@ -88,9 +88,14 @@ Phases, in order; any failure exits nonzero:
    steps, Xavier from a seed, SGD lr 0.1 with momentum 0.9, ids from a
    seed) trained on the card: through ``Module`` at batch 2048, 3 eager
    warm-up steps, 1 capture, 20 replays, the last replay against the same
-   step eager from the same state, the 23 steps bitwise against the
-   classic path's under deterministic algorithms, tokens/s, profile and
-   peak memory; the same step at 2x1024 batch 512 and at batch 32;
+   step eager from the same state, the 23 steps (with the embedding's
+   dense update, ``MXNET_EMBED_SPARSE=0``, as the classic path's) bitwise
+   against the classic path's under deterministic algorithms, 5 steps
+   with the default lazy table update against 5 classic steps at
+   momentum 0 (where the two updates agree), tokens/s, profile and peak
+   memory, the same with the table dense, ``embed_report()`` sampling
+   the ids staged on the card without a host sync; the same step at
+   2x1024 batch 512 and at batch 32;
    ``lstm_unroll_scan`` (the ``RNN`` op) against the unrolled form from
    one checkpoint (output 1e-4, gradients 1e-3 relative) and its captured
    step's tokens/s; ``BucketingModule.fit`` over buckets 10/20/30/40 at
@@ -167,6 +172,43 @@ Phases, in order; any failure exits nonzero:
    (f) the model-parallel LSTM (``ctx_groups``) bound with every group
    on gpu(0), outputs and gradients bitwise to the ungrouped bind; 0
    hand-kernel launches on (a)-(d);
+19. routed MoE and the sparse embedding engine, TF32 off: (a)
+   Switch-Base-8's MoE FFN (d_model 768, d_ff 3072, 8 ReLU experts,
+   top-1, capacity factor 1.25; 37,787,138 parameters from a seed) ->
+   FC(2) -> SoftmaxOutput with the aux loss, 8,192 tokens a batch
+   (capacity 1,280), SGD lr 0.1 momentum 0.9 through the captured fused
+   step under deterministic algorithms: ``route`` on the card against
+   the CPU on the same logits (slots, counts, hits equal), the last
+   replay bitwise against the same step eager, each parameter's change
+   over the first 2 steps against the port's CPU run's (relative L2,
+   and a router frozen on the card failing that gate), the aux loss's
+   router gradient against the CPU's, step times against
+   bench_moe.py's FLOP-matched dense block (FC 24,576 -> relu -> FC
+   768) in interleaved windows, ``moe_report()``'s imbalance; (b)
+   routed decode: tok -> Embedding(32128, 768) -> the same block
+   (capacity pinned to 0 by ``MoEServeParityPass``) -> FC(32128),
+   87,166,336 parameters, ``DecodeEngine`` with 16 slots and
+   ``moe_hits_state``: one stream alone (the routed count equals k x
+   slots x steps), then 32 streams of 1..29 prompt tokens and 64 new
+   ones from 4 threads held against the port's CPU engine under phase
+   7's top-2 margin rule, tokens/s and a step's wall and device time;
+   (c) bench_embed.py's step leg (200,000 x 32 table, 512 x 8 ids a
+   batch from 410 hot ids, unique cap 512, tower 64 -> 2, SGD lr 0.1
+   momentum 0.9) and the same with a 4,000,000 x 64 table, each sparse
+   (the default) and with ``MXNET_EMBED_SPARSE=0``, captured: rows and
+   momentum no batch names bitwise unchanged, the last replay bitwise
+   against the same step eager, one capture each, the 200k table's
+   first 4 steps against the CPU, step times in interleaved windows,
+   peak memory, ``embed_report()``'s dedup ratio; (d) bench_embed.py's
+   serve leg (10,000 x 32, 16 ids a request, tower 64 -> 8) through
+   ``ServeEngine(embed_dedup=True)``, 8 threads x 25 requests: every
+   answer against the tower in numpy (padded ids reading zero rows),
+   the unpadded ones against a serial batch-1 ``Predictor`` too,
+   ``fused_fc_epilogue`` once
+   a batch, 0 dropped, requests/s and p50/p99; (e) kvstore
+   ``device_embed`` with a 200,000 x 64 sparse key: ``row_sparse_pull``
+   and two lazy pushes against the CPU store; 0 hand-kernel launches
+   on (a), (b), (c) and (e);
    then the ``kernels`` JSON line (all four kernels), then the ``{"ok":
    true, ...}`` line.
 """
@@ -2263,6 +2305,26 @@ class fused_train_env:
             os.environ["MXNET_FUSED_TRAIN"] = self.old
 
 
+class env_set:
+    """An environment variable set for one block (None: unset)."""
+
+    def __init__(self, name, value):
+        self.name, self.value = name, value
+
+    def __enter__(self):
+        self.old = os.environ.get(self.name)
+        if self.value is None:
+            os.environ.pop(self.name, None)
+        else:
+            os.environ[self.name] = self.value
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop(self.name, None)
+        else:
+            os.environ[self.name] = self.old
+
+
 def lenet_train(torch, mt, tmp, smi):
     """(a) LeNet: 10 steps through Module.fit from one checkpoint on the
     card (fused: 3 eager warm-up steps, then one capture and 7 replays),
@@ -2646,7 +2708,8 @@ def lstm_params(mt, hidden, seed):
             for k, v in xavier_params(sym, shapes, seed).items()}
 
 
-def lstm_module(mt, model_fn, hidden, batch, arg0, fused, ctx=None):
+def lstm_module(mt, model_fn, hidden, batch, arg0, fused, ctx=None,
+                opt=LSTM_OPT):
     sym = model_fn(LSTM_LAYERS, LSTM_SEQ, LSTM_VOCAB, hidden, hidden,
                   LSTM_VOCAB)
     states = lstm_states(batch, hidden)
@@ -2657,7 +2720,7 @@ def lstm_module(mt, model_fn, hidden, batch, arg0, fused, ctx=None):
         mod.bind([("data", (batch, LSTM_SEQ))] + states,
                  [("softmax_label", (batch, LSTM_SEQ))])
         mod.init_params(arg_params=arg0, aux_params={})
-        mod.init_optimizer(optimizer="sgd", optimizer_params=dict(LSTM_OPT))
+        mod.init_optimizer(optimizer="sgd", optimizer_params=dict(opt))
     if (mod._fused is not None) != fused:
         fail("MXNET_FUSED_TRAIN=%d: LSTM fused step %s"
              % (fused, mod._fused is not None))
@@ -2739,15 +2802,17 @@ def lstm_headline(torch, mt, arg0, smi):
     """(a) lstm_unroll through Module at batch 2048: 3 eager warm-up
     steps, 1 capture, 20 replays; the last replay against the same step
     eager from the same state; the 23 steps bitwise against the classic
-    path's with deterministic algorithms; tokens/s and profile."""
+    path's with deterministic algorithms; tokens/s and profile, and the
+    same with the table trained densely (MXNET_EMBED_SPARSE=0); the lazy
+    update against the classic path's dense one at momentum 0."""
     b, gpu = LSTM_BATCH, mt.gpu(0)
     rng = np.random.default_rng(21)
     staged = [token_batch(mt, rng, gpu, b, LSTM_SEQ, LSTM_HIDDEN) for _ in range(2)]
     steps = RESNET_WARMUP + LSTM_REPLAYS
     build = mt.models.lstm_unroll
 
-    def trained(fused):
-        mod = lstm_module(mt, build, LSTM_HIDDEN, b, arg0, fused)
+    def trained(fused, opt=LSTM_OPT, steps=steps):
+        mod = lstm_module(mt, build, LSTM_HIDDEN, b, arg0, fused, opt=opt)
         for i in range(steps):
             train_step(mod, staged[i % 2])
         out = host_params(mod)
@@ -2794,28 +2859,76 @@ def lstm_headline(torch, mt, arg0, smi):
                      b * LSTM_SEQ, smi)
     if fused.stats.captures != 1:
         fail("lstm recaptured: %s" % fused.stats.report())
+    # the ids staged on the card reach embed_report() through a
+    # non-blocking copy, read a batch later
+    sampled = sum(d["lookups"] for d in
+                  fused.embed_stats.report()["tables"].values())
+    print("lstm: embed_report sampled %d of %d batches staged on the card, "
+          "dedup ratio %.3f" % (sampled, fused._embed_stats_n,
+                                fused.embed_stats.dedup_ratio()))
+    if not sampled:
+        fail("lstm: no batch staged on the card reached embed_report")
     del mod, fused, got, eager
+    torch.cuda.empty_cache()
+    with env_set("MXNET_EMBED_SPARSE", "0"):
+        mod = lstm_module(mt, build, LSTM_HIDDEN, b, arg0, True)
+    for i in range(RESNET_WARMUP + 1):
+        train_step(mod, staged[i % 2])
+    dense_rate = lstm_rate(torch, "headline b%d, table dense "
+                           "(MXNET_EMBED_SPARSE=0)" % b, mod, staged[0],
+                           b * LSTM_SEQ, smi)
+    del mod
     torch.cuda.empty_cache()
 
     # the captured steps against the classic path's eager steps, both
     # with deterministic algorithms (Embedding's weight gradient is an
-    # index_put_ with accumulation, sorted; cuBLAS keeps one workspace)
+    # index_put_ with accumulation, sorted; cuBLAS keeps one workspace).
+    # The classic path trains the embedding densely; the fused step's
+    # default is the lazy row update (phase 19), which leaves the rows a
+    # batch misses where they are: both dense here
     torch.use_deterministic_algorithms(True)
     try:
-        det_f, det_c = trained(True), trained(False)
+        with env_set("MXNET_EMBED_SPARSE", "0"):
+            det_f = trained(True)
+        det_c = trained(False)
     finally:
         torch.use_deterministic_algorithms(False)
     det_err = worst_rel(det_f, det_c, 0.0)
     bitwise = all(np.array_equal(g[k], w[k])
                   for g, w in zip(det_f, det_c) for k in w)
-    print("lstm: %d captured steps vs %d classic eager steps, deterministic "
-          "algorithms: bitwise equal %s (smallest rtol at atol 0: %.3g)"
+    print("lstm: %d captured steps (MXNET_EMBED_SPARSE=0) vs %d classic "
+          "eager steps, deterministic algorithms: bitwise equal %s "
+          "(smallest rtol at atol 0: %.3g)"
           % (steps, steps, bitwise, det_err))
     if not bitwise:
         fail("lstm captured steps differ from the classic eager steps under "
              "deterministic algorithms")
-    return {"rate": rate, "stats": stats, "peak_gib": peak / 2**30,
-            "losses": losses, "replay_rtol": replay_err, "bitwise": bitwise}
+    # the default lazy update against the classic path's dense one where
+    # the two agree: momentum 0 and no weight decay leave an untouched
+    # row where it is in both (captured: 3 eager steps, the capture, a
+    # replay)
+    zero = dict(LSTM_OPT, momentum=0.0)
+    torch.use_deterministic_algorithms(True)
+    try:
+        lazy_f = trained(True, zero, RESNET_WARMUP + 2)
+        dense_c = trained(False, zero, RESNET_WARMUP + 2)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    lazy_err = worst_rel(lazy_f, dense_c, REPLAY_ATOL)
+    lazy_bitwise = all(np.array_equal(g[k], w[k])
+                       for g, w in zip(lazy_f, dense_c) for k in w)
+    print("lstm: %d captured steps with the lazy table update (the default) "
+          "vs %d classic steps, momentum 0: bitwise %s, smallest rtol at "
+          "atol %g: %.3g (gate %g)" % (
+              RESNET_WARMUP + 2, RESNET_WARMUP + 2, lazy_bitwise,
+              REPLAY_ATOL, lazy_err, REPLAY_RTOL))
+    if not params_close(lazy_f, dense_c, REPLAY_RTOL, REPLAY_ATOL):
+        fail("lstm lazy table update departs from the classic dense one at "
+             "momentum 0")
+    return {"rate": rate, "dense_rate": dense_rate, "stats": stats,
+            "peak_gib": peak / 2**30, "losses": losses,
+            "replay_rtol": replay_err, "bitwise": bitwise,
+            "lazy_rtol": lazy_err}
 
 
 def lstm_leg(torch, mt, name, hidden, batch, smi, seed):
@@ -5022,6 +5135,844 @@ def rest_of_training_phase(torch, mt, ck, smi):
             "checkpoint": ckpt, "serve": served}
 
 
+# -- phase 19: routed MoE and the sparse embedding engine --------------------
+# (a), (b): Switch-Base-8 (Fedus et al. 2021, Switch Transformer): d_model
+# 768, d_ff 3072, ReLU experts, top-1 routing over 8 experts, capacity
+# factor 1.25; the batch cut from Switch's 65,536 tokens to 8,192
+# (C = ceil(1.25 * 8192 / 8) = 1,280); the decode vocab is T5's 32,128
+SW_D, SW_H, SW_E, SW_K, SW_CF = 768, 3072, 8, 1, 1.25
+SW_TOKENS = 8192
+SW_VOCAB = 32128
+SW_OPT = {"learning_rate": 0.1, "momentum": 0.9}
+MOE_REPLAYS = 8
+MOE_WINDOWS, MOE_WINDOW_STEPS = 3, 5
+MOE_CPU_STEPS = 2
+# (a) card against the CPU after MOE_CPU_STEPS steps from one
+# checkpoint: for each parameter, the relative L2 of its change (cuBLAS
+# and the CPU sum the gate's and the experts' products in other orders;
+# an expert pre-activation within rounding of 0 lands on the other side
+# of the relu, which puts the first expert layer at ~3e-4 where the
+# other leaves sit at 1e-5 or below; a token that a router logit tie
+# sends to another expert moves ~1/30 of that expert's gradient and
+# fails it, as does a router that does not train, at 1.0)
+MOE_LEAF_L2 = 1e-3
+# (a) the router gate's gradient from the aux loss alone, card against
+# CPU: relative L2 (float32 sums over 8,192 tokens in other orders)
+MOE_AUX_GRAD_L2 = 1e-5
+# route on the card against route on the CPU, the same logits: slots,
+# counts and hits equal (tokens after a top-2 gate gap below this count
+# as ties, phase 7's rule), combine weights and aux within rtol
+ROUTE_TIE, ROUTE_RTOL = 1e-6, 1e-5
+MOE_DEC_SLOTS, MOE_DEC_STREAMS, MOE_DEC_NEW, MOE_DEC_PROMPT = 16, 32, 64, 29
+MOE_DEC_THREADS = 4
+MOE_STATS_EVERY = 16
+# (c): bench_embed.py's step leg (200,000 x 32, 512 x 8 ids a batch drawn
+# from 410 hot ids, unique cap 512, tower 64 -> 2), and the same with a
+# 4,000,000 x 64 table (1.02 GB, far past the 50 MB L2)
+EMB_TABLES = [("200k x 32", 200_000, 32), ("4M x 64", 4_000_000, 64)]
+EMB_B, EMB_L, EMB_HOT, EMB_CAP, EMB_HIDDEN = 512, 8, 410, 512, 64
+EMB_OPT = {"learning_rate": 0.1, "momentum": 0.9}
+EMB_BATCHES = 4
+EMB_STEPS = RESNET_WARMUP + 8              # warm-up, then 8 replays
+EMB_WINDOWS, EMB_WINDOW_STEPS = 3, 10
+# (c) card against the CPU after EMB_BATCHES steps (200k x 32): float32
+# gradient sums in other orders, carried on by momentum
+EMB_CPU_RTOL, EMB_CPU_ATOL = 1e-4, 1e-5
+# (d): bench_embed.py's serve leg
+REC_VOCAB, REC_DIM, REC_L, REC_HIDDEN, REC_CLASSES = 10_000, 32, 16, 64, 8
+REC_THREADS, REC_REQS = 8, 25
+# (d) engine answers (softmax probabilities) against a serial batch-1
+# Predictor: fused_fc_epilogue against cuBLAS's addmm for rfc1
+REC_RTOL, REC_ATOL = 1e-4, 1e-6
+# (e) device_embed on the card against the store on the CPU
+KV_VOCAB, KV_DIM, KV_IDS = 200_000, 64, 4096
+KV_RTOL, KV_ATOL = 1e-5, 1e-6
+
+
+def switch_block(mt):
+    return mt.moe.MoEFeedForward(mt.sym.Variable("data"), num_hidden=SW_H,
+                                 num_experts=SW_E, k=SW_K,
+                                 capacity_factor=SW_CF, name="moe")
+
+
+def switch_symbol(mt):
+    net = mt.sym.FullyConnected(switch_block(mt), num_hidden=2, name="head")
+    return mt.moe.with_aux_loss(mt.sym.SoftmaxOutput(net, name="softmax"))
+
+
+def dense_matched_symbol(mt):
+    """bench_moe.py:52-63's FLOP-matched dense block: FC(E*H) -> relu ->
+    FC(D), then the same head."""
+    net = mt.sym.FullyConnected(mt.sym.Variable("data"),
+                                num_hidden=SW_E * SW_H, name="d1")
+    net = mt.sym.Activation(net, act_type="relu")
+    net = mt.sym.FullyConnected(net, num_hidden=SW_D, name="d2")
+    net = mt.sym.FullyConnected(net, num_hidden=2, name="head")
+    return mt.sym.SoftmaxOutput(net, name="softmax")
+
+
+def fan_in_params(sym, shapes, seed, scale=1.0):
+    """U(-s, s) with s = scale * sqrt(6 / fan_in), fan_in the reduced
+    axis of each product (the last axis of a 2-D weight, axis 1 of a
+    stacked (E, in, out) expert weight); biases U(-0.01, 0.01)."""
+    rng = np.random.default_rng(seed)
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    params = {}
+    for name, shape in zip(sym.list_arguments(), arg_shapes):
+        if name in shapes:
+            continue
+        if name.endswith("bias"):
+            s = 0.01
+        else:
+            fan = shape[1] if len(shape) == 3 else shape[-1]
+            s = scale * math.sqrt(6.0 / fan)
+        params[name] = (rng.random(shape, dtype=np.float32) * 2 - 1) * \
+            np.float32(s)
+    return params
+
+
+def nd_batches(mt, xs, ys, ctx):
+    return [mt.io.DataBatch(data=[mt.nd.array(x, ctx=ctx)],
+                            label=[mt.nd.array(y, ctx=ctx)])
+            for x, y in zip(xs, ys)]
+
+
+def plain_module(mt, sym, ctx, data_shape, arg0, opt, data_name="data",
+                 fixed=None):
+    mod = mt.mod.Module(sym, data_names=(data_name,), context=ctx,
+                        fixed_param_names=fixed)
+    mod.bind([(data_name, data_shape)], [("softmax_label",
+                                          (data_shape[0],))])
+    mod.init_params(arg_params={k: v if isinstance(v, mt.nd.NDArray)
+                                else mt.nd.array(v, ctx=mt.cpu())
+                                for k, v in arg0.items()}, aux_params={})
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(opt))
+    if mod._fused is None:
+        fail("%s: the module took the classic path" % sym.list_outputs())
+    return mod
+
+
+def replay_vs_eager(torch, fused, steps, batches, step_fn):
+    """Run ``steps`` steps (batch i % len), the last from a snapshot;
+    -> (host params after the last replay, the same step eager from the
+    snapshot, both bitwise equal, host opt leaves of each)."""
+    for i in range(steps):
+        if i == steps - 1:
+            snap = clone_state(torch, fused.state)
+        step_fn(batches[i % len(batches)])
+    replayed = clone_state(torch, fused.state)
+    got, got_opt = state_params(fused.state), opt_leaves(torch, fused.state)
+    restore_state(torch, fused.state, snap)
+    fused._body(fused.make_batch(batches[(steps - 1) % len(batches)]))
+    eager, eager_opt = state_params(fused.state), \
+        opt_leaves(torch, fused.state)
+    restore_state(torch, fused.state, replayed)
+    del snap, replayed
+    same = bitwise(got[0], eager[0]) and bitwise(got_opt, eager_opt)
+    return got, eager, same
+
+
+def route_check(torch, mt, cap, seed=42):
+    """route() on the card against route() on the CPU for one set of
+    (T, E) logits."""
+    route = mt.moe.route
+    logits = np.random.default_rng(seed).standard_normal(
+        (SW_TOKENS, SW_E)).astype(np.float32)
+    cpu = route(torch.as_tensor(logits), SW_K, cap)
+    card = route(torch.as_tensor(logits).cuda(), SW_K, cap)
+    torch.cuda.synchronize()
+    gates = np.sort(torch.softmax(torch.as_tensor(logits), -1).numpy(), -1)
+    gap = gates[:, -1] - gates[:, -2]
+    slot_c, slot_g = cpu.slot.numpy(), card.slot.cpu().numpy()
+    diff = np.nonzero((slot_c != slot_g).any(axis=1))[0]
+    same = {f: np.array_equal(getattr(cpu, f).numpy(),
+                              getattr(card, f).cpu().numpy())
+            for f in ("slot", "counts", "hits", "dropped")}
+    keep = np.ones(SW_TOKENS, bool)
+    keep[diff] = False
+    w_c, w_g = cpu.weight.numpy()[keep], card.weight.cpu().numpy()[keep]
+    w_err = float(np.max(np.abs(w_c - w_g) / np.maximum(np.abs(w_c),
+                                                        1e-30)))
+    a_err = abs(float(cpu.aux) - float(card.aux)) / abs(float(cpu.aux))
+    print("moe: route on the card vs the CPU, %d x %d logits, k %d, "
+          "capacity %d: %s; combine weights worst relative %.3g, aux %.3g "
+          "(gate %g); dropped %d; tokens apart %d" % (
+              SW_TOKENS, SW_E, SW_K, cap, same, w_err, a_err, ROUTE_RTOL,
+              int(cpu.dropped), len(diff)))
+    if len(diff) and gap[diff[0]] >= ROUTE_TIE:
+        fail("route on the card differs from the CPU at token %d, top-2 "
+             "gate gap %.3g (tie below %g)" % (diff[0], gap[diff[0]],
+                                               ROUTE_TIE))
+    if not len(diff) and not all(same.values()):
+        fail("route's counts or hits differ on the card: %s" % same)
+    if w_err > ROUTE_RTOL or a_err > ROUTE_RTOL:
+        fail("route's weights or aux differ on the card")
+    return {"same": all(same.values()), "apart": len(diff)}
+
+
+def aux_gate_grad(mt, ctx, x, wg):
+    """The router gate's gradient from the aux loss alone: MakeLoss over
+    the Switch block's aux head, one forward and backward on ``ctx``."""
+    loss = mt.sym.MakeLoss(mt.moe.aux_loss_symbols(switch_block(mt))[0])
+    grad = mt.nd.zeros(wg.shape, ctx=ctx)
+    ex = loss.bind(ctx, {"data": mt.nd.array(x, ctx=ctx),
+                         "moe_gate_weight": mt.nd.array(wg, ctx=ctx)},
+                   args_grad={"moe_gate_weight": grad},
+                   grad_req={"data": "null", "moe_gate_weight": "write"})
+    ex.forward(is_train=True)
+    ex.backward()
+    return grad.asnumpy()
+
+
+def leaf_change_l2(got, want, start):
+    """Per parameter: the relative L2 of ``got``'s change from ``start``
+    against ``want``'s, ||got - want|| / ||want - start|| in float64."""
+    out = {}
+    for k, s in start.items():
+        num = float(np.linalg.norm((got[k].astype(np.float64)
+                                    - want[k]).ravel()))
+        den = float(np.linalg.norm((want[k].astype(np.float64)
+                                    - s).ravel()))
+        out[k] = num / den if den else (0.0 if num == 0.0 else math.inf)
+    return out
+
+
+def moe_train_leg(torch, mt, smi):
+    """(a) Switch-Base-8's MoE FFN trained through the captured fused
+    step under deterministic algorithms: route card vs CPU, the last
+    replay bitwise against the same step eager, each parameter's change
+    over the first steps against the CPU's (and a frozen router failing
+    that gate), the aux loss's router gradient against the CPU's, step
+    times against the FLOP-matched dense block in interleaved windows,
+    moe_report()'s imbalance."""
+    t, d, h, e = SW_TOKENS, SW_D, SW_H, SW_E
+    gpu = mt.gpu(0)
+    sym = switch_symbol(mt)
+    shapes = {"data": (t, d), "softmax_label": (t,)}
+    arg0 = fan_in_params(sym, shapes, 40)
+    n_params = sum(v.size for v in arg0.values())
+    cap = mt.moe.resolve_capacity(SW_CF, t, e, SW_K)
+    flops = 2 * 2 * e * cap * d * h
+    print("moe: Switch-Base-8 FFN (d_model %d, d_ff %d, %d experts, top-%d, "
+          "cf %g): %d parameters, %d tokens a batch, capacity %d; expert "
+          "products %.1f GFLOP a forward (dense block %.1f)" % (
+              d, h, e, SW_K, SW_CF, n_params, t, cap, flops / 1e9,
+              2 * 2 * t * d * e * h / 1e9))
+    if n_params != 37787138:
+        fail("Switch-Base-8 block has %d parameters, want 37787138"
+             % n_params)
+    route = route_check(torch, mt, cap)
+    rng = np.random.default_rng(41)
+    xs = [rng.standard_normal((t, d), dtype=np.float32) for _ in range(2)]
+    ys = [(x[:, :16].sum(axis=1) > 0).astype(np.float32) for x in xs]
+    staged = nd_batches(mt, xs, ys, gpu)
+    steps = RESNET_WARMUP + MOE_REPLAYS
+    was_det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        mod = plain_module(mt, sym, gpu, (t, d), arg0, SW_OPT)
+        fused = mod._fused
+        early = []
+
+        def step(b):
+            train_step(mod, b)
+            if len(early) < MOE_CPU_STEPS:
+                early.append(state_params(fused.state)[0])
+        got, eager, same = replay_vs_eager(torch, fused, steps, staged,
+                                           step)
+        # a planted fault: the router frozen (as if its gradient were
+        # zero), the same steps
+        frozen = plain_module(mt, sym, gpu, (t, d), arg0, SW_OPT,
+                              fixed=["moe_gate_weight"])
+        for i in range(MOE_CPU_STEPS):
+            train_step(frozen, staged[i % 2])
+        planted = state_params(frozen._fused.state)[0]
+        del frozen
+    finally:
+        torch.use_deterministic_algorithms(was_det)
+    stats = fused.stats.report()
+    outs = [o.asnumpy() for o in mod.get_outputs()]
+    aux_v = float(outs[1].reshape(-1)[0])
+    print("moe: %d steps of the fused step under deterministic algorithms: "
+          "%s; last replay vs the same step eager: bitwise %s; aux loss "
+          "%.4f, outputs finite %s" % (steps, stats, same, aux_v,
+                                       all(np.isfinite(o).all()
+                                           for o in outs)))
+    want = {"captures": 1, "replays": MOE_REPLAYS,
+            "eager_steps": RESNET_WARMUP}
+    if stats != want or not same:
+        fail("moe fused step: %s (want %s), replay bitwise %s"
+             % (stats, want, same))
+    if not all(np.isfinite(o).all() for o in outs):
+        fail("moe outputs not finite")
+    # each parameter's change over the first steps against the port's
+    # CPU run of the same checkpoint
+    cpu_mod = plain_module(mt, sym, mt.cpu(), (t, d), arg0, SW_OPT)
+    host = nd_batches(mt, xs, ys, mt.cpu())
+    for i in range(MOE_CPU_STEPS):
+        train_step(cpu_mod, host[i % 2])
+    cpu_p = state_params(cpu_mod._fused.state)[0]
+    leaves = leaf_change_l2(early[-1], cpu_p, arg0)
+    worst = max(leaves, key=leaves.get)
+    planted_l2 = leaf_change_l2(planted, cpu_p, arg0)["moe_gate_weight"]
+    print("moe: card vs CPU after %d steps from one checkpoint: relative L2 "
+          "of each parameter's change %s, worst %s %.3g (gate %g); the "
+          "router frozen on the card (a planted fault): moe_gate_weight "
+          "%.3g" % (MOE_CPU_STEPS, {k: float("%.3g" % v)
+                                    for k, v in leaves.items()},
+                    worst, leaves[worst], MOE_LEAF_L2, planted_l2))
+    if not leaves[worst] < MOE_LEAF_L2:
+        fail("moe trajectory on the card departs from the CPU's at %s"
+             % worst)
+    if not planted_l2 > MOE_LEAF_L2:
+        fail("the per-parameter gate passes a frozen router")
+    # the router's gradient from the aux loss alone, card against CPU
+    # (the aux term is ~1e-5 of the router's change in a step: no
+    # trajectory gate sees it)
+    g_card = aux_gate_grad(mt, gpu, xs[0], arg0["moe_gate_weight"])
+    g_cpu = aux_gate_grad(mt, mt.cpu(), xs[0], arg0["moe_gate_weight"])
+    aux_l2 = rel_l2([{"g": g_card}], [{"g": g_cpu}])
+    print("moe: the aux loss's gradient of moe_gate_weight, card vs CPU: "
+          "relative L2 %.3g (gate %g), norm %.4g" % (
+              aux_l2, MOE_AUX_GRAD_L2, float(np.linalg.norm(g_cpu))))
+    if not aux_l2 < MOE_AUX_GRAD_L2:
+        fail("the aux loss's router gradient on the card departs from the "
+             "CPU's")
+    del cpu_mod, host, early, got, eager, planted
+    # routed vs FLOP-matched dense, interleaved windows
+    dsym = dense_matched_symbol(mt)
+    dmod = plain_module(mt, dsym, gpu, (t, d), fan_in_params(
+        dsym, shapes, 43), SW_OPT)
+    for _ in range(RESNET_WARMUP + 1):
+        train_step(dmod, staged[0])
+    times = {"moe": [], "dense": []}
+    for _ in range(MOE_WINDOWS):
+        for name, m in (("moe", mod), ("dense", dmod)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(MOE_WINDOW_STEPS):
+                train_step(m, staged[i % 2])
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3
+                               / MOE_WINDOW_STEPS)
+    moe_ms, dense_ms = min(times["moe"]), min(times["dense"])
+    if fused.stats.captures != 1:
+        fail("moe recaptured: %s" % fused.stats.report())
+    wall, dev, rows = device_profile(
+        torch, lambda: train_step(mod, staged[0]), reps=3)
+    busy = dev / wall
+    print("moe: a step profiled: %.3f ms wall, %.3f ms device, busy "
+          "share %.3f" % (wall, dev, busy))
+    for tm, key, n in rows[:5]:
+        print("profile:   %8.3f ms  %5.1f%%  x%-4d %s"
+              % (tm, 100.0 * tm / dev if dev else 0.0, n, key[:90]))
+    # the trained router's traffic on a batch, into moe_report()
+    with torch.no_grad():
+        wg = fused.state["params"]["moe_gate_weight"]
+        x = staged[0].data[0]._get()
+        plan = mt.moe.route(x @ wg.t(), SW_K, cap)
+        fused.moe_stats.note_counts("moe_dispatch", plan.counts.cpu().numpy(),
+                                    float(plan.dropped))
+    rep = fused.moe_stats.report()["blocks"]["moe_dispatch"]
+    print("moe: step %.3f ms (%.0f tokens/s) against the dense block's "
+          "%.3f ms (%.0f tokens/s): x%.3f; windows moe %s dense %s; "
+          "moe_report: imbalance %.3f, dropped %.4f of %d token-choices, "
+          "hits %s; card %s" % (
+              moe_ms, t / moe_ms * 1e3, dense_ms, t / dense_ms * 1e3,
+              dense_ms / moe_ms, [round(v, 3) for v in times["moe"]],
+              [round(v, 3) for v in times["dense"]], rep["imbalance"],
+              rep["drop_frac"], t * SW_K, rep["hits"], smi))
+    del mod, dmod, fused, staged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"moe_ms": moe_ms, "dense_ms": dense_ms, "stats": stats,
+            "imbalance": rep["imbalance"], "drop_frac": rep["drop_frac"],
+            "leaf_l2": leaves, "aux_grad_l2": aux_l2, "route": route,
+            "busy": busy, "params": n_params}
+
+
+def switch_decode_symbol(mt):
+    tok = mt.sym.Variable("data")
+    hits = mt.sym.Variable("moe_hits")
+    emb = mt.sym.Flatten(mt.sym.Embedding(tok, input_dim=SW_VOCAB,
+                                          output_dim=SW_D, name="emb"))
+    net = mt.moe.MoEFeedForward(emb, num_hidden=SW_H, num_experts=SW_E,
+                                k=SW_K, capacity_factor=SW_CF, name="dmoe")
+    logits = mt.sym.FullyConnected(net, num_hidden=SW_VOCAB, name="out")
+    return mt.sym.Group([logits, hits + mt.moe.hit_symbols(logits)[0]])
+
+
+def moe_decode_engine(mt, sym, params, **kw):
+    return mt.serve.DecodeEngine(
+        sym, params, state_shapes={"moe_hits": (SW_E,)},
+        num_slots=MOE_DEC_SLOTS, max_new_tokens=MOE_DEC_NEW,
+        pipeline=mt.passes.default_inference_pipeline(),
+        moe_hits_state="moe_hits", moe_stats_every=MOE_STATS_EVERY, **kw)
+
+
+def moe_stats_caught_up(eng, steps, timeout=60):
+    """Wait until the engine sampled its hits at step ``steps`` (the last
+    stream resolves inside the step, before the step's sample)."""
+    deadline = time.monotonic() + timeout
+    want = steps // MOE_STATS_EVERY
+    while time.monotonic() < deadline:
+        blk = eng.moe_stats.report()["blocks"].get("moe_hits")
+        if blk is not None and blk["steps"] >= want:
+            return blk
+        time.sleep(0.005)
+    fail("the decode engine sampled its hits %s times, want %d"
+         % (eng.moe_stats.report(), want))
+
+
+def moe_decode_leg(torch, mt, smi):
+    """(b) routed decode at Switch-Base-8 widths through DecodeEngine
+    with moe_hits_state: 32 streams held against the port's CPU engine,
+    the routed count against the tokens processed, tokens/s."""
+    e, streams = SW_E, MOE_DEC_STREAMS
+    sym = switch_decode_symbol(mt)
+    params = fan_in_params(sym, {"data": (MOE_DEC_SLOTS,),
+                                 "moe_hits": (MOE_DEC_SLOTS, e)}, 44,
+                           scale=2.0)
+    params["emb_weight"] = np.random.default_rng(45).standard_normal(
+        (SW_VOCAB, SW_D), dtype=np.float32)
+    n_params = sum(v.size for v in params.values())
+    if n_params != 87166336:
+        fail("the routed decode model has %d parameters, want 87166336"
+             % n_params)
+    rng = np.random.default_rng(46)
+    prompts = [rng.integers(0, SW_VOCAB, size=int(rng.integers(
+        1, MOE_DEC_PROMPT + 1))) for _ in range(streams)]
+    print("moe decode: tok -> Embedding(%d, %d) -> Switch-Base-8 FFN (cf "
+          "%g, pinned to 0 by MoEServeParityPass) -> FC(%d): %d parameters; "
+          "%d slots, %d streams of %d..%d prompt tokens and %d new ones "
+          "from %d threads" % (SW_VOCAB, SW_D, SW_CF, SW_VOCAB, n_params,
+                               MOE_DEC_SLOTS, streams,
+                               min(map(len, prompts)),
+                               max(map(len, prompts)), MOE_DEC_NEW,
+                               MOE_DEC_THREADS))
+    cpu_eng = moe_decode_engine(mt, sym, params, dev_type="cpu",
+                                name="moe-decode-cpu")
+    try:
+        want, _, errors = flood(lambda i: cpu_eng.submit(prompts[i]),
+                                streams, MOE_DEC_THREADS)
+    finally:
+        cpu_eng.close()
+    if errors:
+        fail("CPU routed decode errors: %s" % errors)
+    pred = mt.Predictor(sym.tojson(), params, {"data": (1,),
+                                               "moe_hits": (1, e)},
+                        dev_type="cpu", type_dict={"data": np.int32},
+                        pipeline=mt.passes.default_inference_pipeline())
+
+    def margin_of(i, s):
+        def at(j):
+            # the step is stateless but for the hits: token j's logits
+            # depend on the token fed at that step only
+            seq = list(prompts[i]) + [int(x) for x in s[:j]]
+            pred.set_input("data", np.asarray([seq[-1]], np.int32))
+            pred.forward()
+            lg = np.sort(pred.get_output(0)[0])
+            return (float(lg[-1] - lg[-2]),
+                    LOGIT_TOL_REL * max(1.0, float(np.abs(lg).max())))
+        return at
+
+    t0 = time.perf_counter()
+    eng = moe_decode_engine(mt, sym, params, name="moe-decode")
+    built = time.perf_counter() - t0
+    try:
+        if eng.device.type != "cuda":
+            fail("DecodeEngine built without a context runs on %s"
+                 % eng.device)
+        # one stream alone: every step routes k choices for every slot
+        s0 = eng.stats.report()["steps"]
+        eng.generate(prompts[0][:1], timeout=600,
+                     max_new_tokens=MOE_DEC_NEW)
+        probe_steps = eng.stats.report()["steps"] - s0
+        blk = moe_stats_caught_up(eng, probe_steps)
+        routed_want = SW_K * MOE_DEC_SLOTS * probe_steps
+        print("moe decode: one stream alone, %d steps: moe_report routed "
+              "%d, want k x slots x steps = %d; dropped %d" % (
+                  probe_steps, blk["routed"], routed_want, blk["dropped"]))
+        if blk["routed"] != routed_want or blk["dropped"] != 0:
+            fail("the routed count differs from the tokens processed")
+        s0 = eng.stats.report()["steps"]
+        got, wall, errors = flood(lambda i: eng.submit(prompts[i]),
+                                  streams, MOE_DEC_THREADS)
+        if errors:
+            fail("routed decode errors: %s" % errors)
+        steps = eng.stats.report()["steps"] - s0
+        ties = sum(same_under_margin("moe decode stream %d" % i, s, want[i],
+                                     margin_of(i, s))
+                   for i, s in enumerate(got))
+        tokens = sum(len(s) for s in got)
+        rep = eng.moe_stats.report()["blocks"]["moe_hits"]
+        print("moe decode: built+warmed %.2f s; %d streams, %d tokens in "
+              "%.3f s = %.1f tokens/s; %d steps, %.3f ms a step (wall); all "
+              "streams equal the CPU engine's (%d after a logit tie); hits "
+              "imbalance %.3f" % (built, streams, tokens, wall, tokens / wall,
+                                  steps, 1e3 * wall / steps, ties,
+                                  rep["imbalance"]))
+        step_wall = 1e3 * wall / steps
+        s0 = eng.stats.report()["steps"]
+        _, device = cuda_device_ms(torch, lambda: flood(
+            lambda i: eng.submit(prompts[i]), streams, MOE_DEC_THREADS))
+        psteps = eng.stats.report()["steps"] - s0
+        step_device = device / psteps if device > 0 else None
+        if step_device is None:
+            print("moe decode: a step %.3f ms of wall; device time not "
+                  "measured; card %s" % (step_wall, smi))
+        else:
+            print("moe decode: a step %.3f ms of wall, %.3f ms of device "
+                  "time, busy share %.3f (card %s)" % (
+                      step_wall, step_device, step_device / step_wall, smi))
+    finally:
+        eng.close()
+    return {"tokens_s": tokens / wall, "step_wall_ms": step_wall,
+            "step_device_ms": step_device, "params": n_params, "ties": ties}
+
+
+def hot_ids(rng, n, hot, vocab):
+    pool = rng.choice(vocab, hot, replace=False)
+    return pool[rng.integers(0, hot, n)].astype(np.int32)
+
+
+def rec_symbol(mt, vocab, dim, hidden, classes, unique_cap=None):
+    """bench_embed.py's rec model: ids -> Embedding -> Flatten -> rfc1 +
+    relu -> rfc2 -> SoftmaxOutput."""
+    attr = {"__embed_unique__": str(unique_cap)} if unique_cap else None
+    w = mt.sym.Variable("embed_weight", attr=attr)
+    net = mt.sym.Embedding(mt.sym.Variable("ids"), weight=w,
+                           input_dim=vocab, output_dim=dim, name="embed")
+    net = mt.sym.Flatten(net)
+    net = mt.sym.FullyConnected(net, num_hidden=hidden, name="rfc1")
+    net = mt.sym.Activation(net, act_type="relu")
+    net = mt.sym.FullyConnected(net, num_hidden=classes, name="rfc2")
+    return mt.sym.SoftmaxOutput(net, name="softmax")
+
+
+def embed_table_leg(torch, mt, smi, label, vocab, dim, cpu_check):
+    """(c) one table: the fused step sparse (the default) and with
+    MXNET_EMBED_SPARSE=0, captured; untouched rows and momentum bitwise,
+    the last replay bitwise against the same step eager, one capture,
+    step times in interleaved windows, peak memory, the dedup ratio."""
+    gpu = mt.gpu(0)
+    dev = gpu.torch_device()
+    sym = rec_symbol(mt, vocab, dim, EMB_HIDDEN, 2, unique_cap=EMB_CAP)
+    rng = np.random.default_rng(50)
+    X = hot_ids(rng, EMB_BATCHES * EMB_B * EMB_L, EMB_HOT, vocab).reshape(
+        EMB_BATCHES * EMB_B, EMB_L).astype(np.float32)
+    y = (X.sum(axis=1) % 2).astype(np.float32)
+    host = nd_batches(mt, np.split(X, EMB_BATCHES), np.split(y, EMB_BATCHES),
+                      mt.cpu())
+    tower = fan_in_params(rec_symbol(mt, 16, dim, EMB_HIDDEN, 2),
+                          {"ids": (EMB_B, EMB_L), "softmax_label": (EMB_B,)},
+                          51)
+    tower.pop("embed_weight")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(52)
+    table = (torch.rand((vocab, dim), generator=gen, device=dev) * 2 - 1) \
+        * 0.05
+    table_nd = mt.nd.NDArray(table)
+    arg0 = dict(tower, embed_weight=table_nd)
+    res = {}
+    mods = {}
+    for sparse in (True, False):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with env_set("MXNET_EMBED_SPARSE", "1" if sparse else "0"):
+            mod = plain_module(mt, sym, gpu, (EMB_B, EMB_L), arg0, EMB_OPT,
+                               data_name="ids")
+        fused = mod._fused
+        if bool(fused.sparse_embeds) != sparse:
+            fail("MXNET_EMBED_SPARSE=%d: sparse tables %s"
+                 % (sparse, fused.sparse_embeds))
+        early, peak = [], [0]
+
+        def step(b):
+            train_step(mod, b)
+            if sparse and len(early) < EMB_BATCHES:
+                early.append(state_params(fused.state)[0])
+            if fused.stats.eager_steps == RESNET_WARMUP \
+                    and not fused.stats.captures:
+                # the module's peak over its eager steps, above what was
+                # there before it: what it holds (the bound executor's
+                # arrays, the fused state) and what a step allocates (a
+                # replay allocates nothing the allocator sees: its pool
+                # was taken at capture)
+                torch.cuda.synchronize()
+                peak[0] = torch.cuda.max_memory_allocated() - base
+        got, _eager, same = replay_vs_eager(torch, fused, EMB_STEPS, host,
+                                            step)
+        stats = fused.stats.report()
+        peak = peak[0]
+        want = {"captures": 1, "replays": EMB_STEPS - RESNET_WARMUP,
+                "eager_steps": RESNET_WARMUP}
+        if stats != want or not same:
+            fail("embed %s sparse=%s: fused step %s (want %s), replay "
+                 "bitwise %s" % (label, sparse, stats, want, same))
+        res[sparse] = {"stats": stats, "peak": peak, "same": same}
+        if sparse:
+            named = torch.zeros(vocab, dtype=torch.bool, device=dev)
+            named[torch.as_tensor(np.unique(X.astype(np.int64)),
+                                  device=dev)] = True
+            w = fused.state["params"]["embed_weight"]
+            mom = fused.state["opt"]["embed_weight"]
+            frozen = bool(torch.equal(w[~named], table[~named])) and \
+                bool((mom[~named] == 0).all())
+            moved = not torch.equal(w[named], table[named])
+            res[sparse]["frozen"] = frozen
+            ratio = fused.embed_stats.dedup_ratio()
+            res[sparse]["dedup_ratio"] = ratio
+            print("embed %s: sparse: %d of %d rows named; untouched rows "
+                  "and momentum bitwise %s, named rows moved %s; dedup "
+                  "ratio %.3f (embed_report)" % (
+                      label, int(named.sum()), vocab, frozen, moved, ratio))
+            if not (frozen and moved):
+                fail("embed %s: the lazy update touched rows no batch "
+                     "names (or none moved)" % label)
+            if cpu_check:
+                cpu_mod = plain_module(mt, sym, mt.cpu(), (EMB_B, EMB_L),
+                                       dict(tower, embed_weight=table.cpu()
+                                            .numpy()), EMB_OPT,
+                                       data_name="ids")
+                for b in host:
+                    train_step(cpu_mod, b)
+                cpu_p = state_params(cpu_mod._fused.state)[0]
+                err = worst_rel([early[-1]], [cpu_p], EMB_CPU_ATOL)
+                print("embed %s: card vs CPU after %d sparse steps: "
+                      "smallest rtol at atol %g: %.3g (gate %g)" % (
+                          label, EMB_BATCHES, EMB_CPU_ATOL, err,
+                          EMB_CPU_RTOL))
+                if not params_close([early[-1]], [cpu_p], EMB_CPU_RTOL,
+                                    EMB_CPU_ATOL):
+                    fail("embed %s: the card's sparse steps depart from "
+                         "the CPU's" % label)
+                res[sparse]["cpu_rtol"] = err
+                del cpu_mod
+        mods[sparse] = mod
+        del early, got
+    times = {True: [], False: []}
+    for _ in range(EMB_WINDOWS):
+        for sparse in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(EMB_WINDOW_STEPS):
+                train_step(mods[sparse], host[i % EMB_BATCHES])
+            torch.cuda.synchronize()
+            times[sparse].append((time.perf_counter() - t0) * 1e3
+                                 / EMB_WINDOW_STEPS)
+    for sparse in (True, False):
+        res[sparse]["step_ms"] = min(times[sparse])
+        if mods[sparse]._fused.stats.captures != 1:
+            fail("embed %s recaptured" % label)
+    print("embed %s: step sparse %.3f ms, dense (MXNET_EMBED_SPARSE=0) "
+          "%.3f ms: x%.3f; windows sparse %s dense %s; peak memory over "
+          "the eager steps above the memory before the module, sparse "
+          "%.3f GiB, dense %.3f GiB; one capture each; card %s" % (
+              label, res[True]["step_ms"], res[False]["step_ms"],
+              res[False]["step_ms"] / res[True]["step_ms"],
+              [round(v, 4) for v in times[True]],
+              [round(v, 4) for v in times[False]], res[True]["peak"] / 2**30,
+              res[False]["peak"] / 2**30, smi))
+    del mods, table, table_nd, arg0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def rec_reference(params, ids):
+    """The rec tower in float64 with numpy, a padded (out-of-range) id
+    reading a zero row as ``_sparse_embedding`` does; -> probabilities."""
+    table = params["embed_weight"].astype(np.float64)
+    ok = (ids >= 0) & (ids < table.shape[0])
+    x = np.where(ok[..., None], table[np.where(ok, ids, 0)], 0.0)
+    x = x.reshape(ids.shape[0], -1)
+    h = np.maximum(x @ params["rfc1_weight"].T.astype(np.float64)
+                   + params["rfc1_bias"], 0.0)
+    o = h @ params["rfc2_weight"].T.astype(np.float64) + params["rfc2_bias"]
+    o = np.exp(o - o.max(axis=1, keepdims=True))
+    return o / o.sum(axis=1, keepdims=True)
+
+
+def rec_serve_leg(torch, mt, ck, smi):
+    """(d) bench_embed.py's serve leg through ServeEngine(embed_dedup=
+    True): every answer against the tower in numpy (padded ids reading
+    zero rows), the unpadded ones against a serial batch-1 Predictor too,
+    fused_fc_epilogue launched once a batch, 0 dropped, requests/s,
+    p50/p99."""
+    rng = np.random.default_rng(60)
+    net = rec_symbol(mt, REC_VOCAB, REC_DIM, REC_HIDDEN, REC_CLASSES)
+    params = {
+        "embed_weight": (rng.standard_normal((REC_VOCAB, REC_DIM)) * 0.1
+                         ).astype(np.float32),
+        "rfc1_weight": (rng.standard_normal((REC_HIDDEN, REC_L * REC_DIM))
+                        * 0.05).astype(np.float32),
+        "rfc1_bias": np.zeros(REC_HIDDEN, np.float32),
+        "rfc2_weight": (rng.standard_normal((REC_CLASSES, REC_HIDDEN))
+                        * 0.1).astype(np.float32),
+        "rfc2_bias": np.zeros(REC_CLASSES, np.float32)}
+    n = REC_THREADS * REC_REQS
+    reqs = hot_ids(rng, n * REC_L, EMB_HOT, REC_VOCAB).reshape(n, REC_L)
+    reqs[::7, -3:] = -1                     # padded id lists
+    padded = (reqs < 0).any(axis=1)
+    tdict = {"ids": np.int32}
+    eng = mt.serve.ServeEngine(net, dict(params),
+                               {"ids": (REC_THREADS, REC_L),
+                                "softmax_label": (REC_THREADS,)},
+                               type_dict=dict(tdict), embed_dedup=True,
+                               max_delay_ms=2.0, deadline_ms=30000.0,
+                               name="rec-serve")
+    try:
+        eng.predict(reqs[0], timeout=600)          # warm
+        # the serial batch-1 Predictor reads NaN at a padded id (the
+        # plain Embedding's lookup), so it answers the unpadded ones
+        pred = mt.Predictor(net.tojson(), dict(params),
+                            {"ids": (1, REC_L), "softmax_label": (1,)},
+                            type_dict=dict(tdict))
+        serial = {}
+        for i in np.nonzero(~padded)[0]:
+            pred.set_input("ids", reqs[i:i + 1])
+            pred.forward()
+            serial[i] = np.array(pred.get_output(0)[0])
+        ck.reset_launches()
+        b0 = eng.stats.report()["batches"]
+        got, wall, errors = flood(lambda i: eng.submit(reqs[i]), n,
+                                  REC_THREADS, wave=1)
+        rep = eng.stats.report()
+        batches = rep["batches"] - b0
+        launches = ck.LAUNCHES.get("fused_fc_epilogue", 0)
+    finally:
+        eng.close()
+    if errors:
+        fail("rec serving errors: %s" % errors)
+    ref = rec_reference(params, reqs)
+
+    def rtol_at_atol(a, b):
+        return float(np.max((np.abs(a - b) - REC_ATOL)
+                            / np.maximum(np.abs(b), 1e-30)))
+    worst = {"padded": 0.0, "unpadded": 0.0, "serial": 0.0}
+    for i in range(n):
+        kind = "padded" if padded[i] else "unpadded"
+        worst[kind] = max(worst[kind], rtol_at_atol(got[i], ref[i]))
+        if not np.allclose(got[i], ref[i], rtol=REC_RTOL, atol=REC_ATOL):
+            fail("rec serving: %s answer %d differs from the tower in "
+                 "numpy" % (kind, i))
+        if i in serial:
+            worst["serial"] = max(worst["serial"],
+                                  rtol_at_atol(got[i], serial[i]))
+            if not np.allclose(got[i], serial[i], rtol=REC_RTOL,
+                               atol=REC_ATOL):
+                fail("rec serving: answer %d differs from serial predict"
+                     % i)
+    dropped = rep["overloaded"] + rep["expired"] + rep["failed"] + \
+        rep["cancelled"]
+    passes = [p.name for p in eng.pipeline.passes]
+    print("rec serve: %d x %d table, %d ids a request, tower %d -> %d, "
+          "ServeEngine(embed_dedup=True) passes %s; %d requests (%d padded) "
+          "from %d threads in %.3f s = %.1f requests/s, p50 %.3f ms, p99 "
+          "%.3f ms; %d batches, fused_fc_epilogue launches %d (want one a "
+          "batch); dropped %d; smallest rtol at atol %g (gate %g): padded "
+          "answers vs the tower in numpy with zero rows %.3g, unpadded "
+          "%.3g, unpadded vs a serial batch-1 Predictor %.3g; card %s" % (
+              REC_VOCAB, REC_DIM, REC_L, REC_HIDDEN, REC_CLASSES, passes, n,
+              int(padded.sum()), REC_THREADS, wall, n / wall,
+              rep["latency_p50_ms"], rep["latency_p99_ms"], batches,
+              launches, dropped, REC_ATOL, REC_RTOL, worst["padded"],
+              worst["unpadded"], worst["serial"], smi))
+    if "sparse_embed" not in passes or "fuse_epilogue" not in passes:
+        fail("rec serving pipeline lacks a pass: %s" % passes)
+    if launches != batches:
+        fail("fused_fc_epilogue launched %d times for %d batches"
+             % (launches, batches))
+    if dropped:
+        fail("rec serving dropped %d requests" % dropped)
+    return {"rps": n / wall, "p50": rep["latency_p50_ms"],
+            "p99": rep["latency_p99_ms"], "launches": launches,
+            "batches": batches}
+
+
+def kv_embed_leg(torch, mt, smi):
+    """(e) kvstore device_embed with a sparse key: row_sparse_pull, then
+    pushes through the optimizer's lazy update, against the CPU store."""
+    rng = np.random.default_rng(70)
+    W = (rng.standard_normal((KV_VOCAB, KV_DIM)) * 0.05).astype(np.float32)
+    ids = hot_ids(rng, KV_IDS, EMB_HOT, KV_VOCAB)
+    ids[::11] = -1
+    grads = [rng.standard_normal((KV_IDS, KV_DIM)).astype(np.float32)
+             for _ in range(2)]
+    out = {}
+    for name, c in (("card", mt.gpu(0)), ("cpu", mt.cpu())):
+        kv = mt.kv.create("device_embed", ctx=c)
+        kv.init("emb", mt.nd.array(W, ctx=mt.cpu()), sparse=True)
+        pulled = mt.nd.zeros((KV_IDS, KV_DIM), ctx=mt.cpu())
+        kv.row_sparse_pull("emb", out=pulled, row_ids=ids)
+        kv.set_optimizer(mt.optimizer.SGD(learning_rate=0.1, momentum=0.9))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for g in grads:
+            kv.push("emb", (ids, g))
+        torch.cuda.synchronize()
+        push_ms = (time.perf_counter() - t0) * 1e3 / len(grads)
+        full = kv.table("emb").as_numpy()
+        out[name] = (pulled.asnumpy(), full, push_ms,
+                     kv.table("emb").device)
+    (p_g, f_g, ms_g, dev_g), (p_c, f_c, _, _) = out["card"], out["cpu"]
+    named = np.unique(ids[ids >= 0])
+    untouched = np.setdiff1d(np.arange(KV_VOCAB), named)
+    pull_same = np.array_equal(p_g, p_c)
+    close = np.allclose(f_g, f_c, rtol=KV_RTOL, atol=KV_ATOL)
+    frozen = np.array_equal(f_g[untouched], W[untouched])
+    print("kv device_embed: %d x %d sparse key on %s; row_sparse_pull of "
+          "%d ids (pads included) equal to the CPU store's %s; 2 pushes "
+          "with SGD momentum 0.9 (lazy rows) %.3f ms each; table against "
+          "the CPU store allclose rtol %g atol %g: %s; untouched rows "
+          "bitwise %s; card %s" % (KV_VOCAB, KV_DIM, dev_g, KV_IDS,
+                                   pull_same, ms_g, KV_RTOL, KV_ATOL, close,
+                                   frozen, smi))
+    if dev_g.type != "cuda":
+        fail("device_embed on gpu(0) keeps its table on %s" % dev_g)
+    if not (pull_same and close and frozen):
+        fail("device_embed on the card differs from the CPU store")
+    return {"push_ms": ms_g}
+
+
+def moe_embed_phase(torch, mt, ck, smi):
+    """Phase 19: (a) MoE training, (b) routed decode, (c) sparse
+    embedding training, (d) rec serving, (e) kvstore device_embed."""
+    print("phase 19: routed MoE and the sparse embedding engine; TF32 "
+          "matmul=%s cudnn=%s; card %s" % (
+              torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32, smi))
+    t0 = time.perf_counter()
+    ck.reset_launches()
+    moe = moe_train_leg(torch, mt, smi)
+    dec = moe_decode_leg(torch, mt, smi)
+    emb = {label: embed_table_leg(torch, mt, smi, label, vocab, dim,
+                                  cpu_check=i == 0)
+           for i, (label, vocab, dim) in enumerate(EMB_TABLES)}
+    kv = kv_embed_leg(torch, mt, smi)
+    launches = dict(ck.LAUNCHES)
+    print("phase 19: hand-kernel launches on (a), (b), (c), (e): %s"
+          % launches)
+    if any(launches.values()):
+        fail("the MoE and embedding paths launched hand kernels: %s"
+             % launches)
+    rec = rec_serve_leg(torch, mt, ck, smi)
+    print("moe and embed result (card %s): %s; phase %.1f s" % (
+        smi, json.dumps({
+            "moe-step_ms": moe["moe_ms"], "dense-step_ms": moe["dense_ms"],
+            "moe-imbalance": moe["imbalance"],
+            "moe-decode-tokens_s": dec["tokens_s"],
+            **{"embed-%s-sparse-step_ms" % k: v[True]["step_ms"]
+               for k, v in emb.items()},
+            **{"embed-%s-dense-step_ms" % k: v[False]["step_ms"]
+               for k, v in emb.items()},
+            "rec-serve-rps": rec["rps"], "rec-serve-p99_ms": rec["p99"],
+            "kv-push_ms": kv["push_ms"]}), time.perf_counter() - t0))
+    return {"moe": moe, "decode": dec, "embed": emb, "rec": rec, "kv": kv}
+
+
 def main():
     # cuBLAS under deterministic algorithms (phase 14) needs a fixed
     # workspace, chosen before the process's first cuBLAS call
@@ -5114,6 +6065,8 @@ def main():
     lstm = lstm_phase(torch, mt, ck, smi)
     print("lstm result (card %s): %s" % (smi, json.dumps({
         "h200-b2048": round(lstm["headline"]["rate"]["tokens_s"], 1),
+        "h200-b2048-dense-table": round(
+            lstm["headline"]["dense_rate"]["tokens_s"], 1),
         **{k: round(v["tokens_s"], 1) for k, v in lstm["legs"].items()},
         "scan-h200-b2048": round(lstm["scan"]["rate"]["tokens_s"], 1),
         "bucketing-fit": round(lstm["bucketing"]["tokens_s"], 1)})))
@@ -5144,6 +6097,9 @@ def main():
     # phase 18: the rest of training: superstep, FeedForward, several
     # contexts, checkpoints, serving from a checkpoint directory, group2ctx
     rest = rest_of_training_phase(torch, mt, ck, smi)
+
+    # phase 19: routed MoE and the sparse embedding engine
+    sparse = moe_embed_phase(torch, mt, ck, smi)
     kernels = [{
         "name": "fused_fc_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["fused_fc_epilogue"],
@@ -5151,7 +6107,8 @@ def main():
         "launches": served["launches"]["fused_fc_epilogue"]
         + quant["int8-skip-fc6"]["launches"]["fused_fc_epilogue"]
         + ops["fc_launches"]
-        + rest["serve"]["launches"]["fused_fc_epilogue"],
+        + rest["serve"]["launches"]["fused_fc_epilogue"]
+        + sparse["rec"]["launches"],
         "max_abs_err": fc["max_abs_err"],
         "ms": fc["ms"], "plain_ms": fc["plain_ms"],
         "bound_ms": fc["bound_ms"], "bound_by": "bytes",
@@ -5194,7 +6151,8 @@ def main():
           "VGG-16 run (2 a batch) plus the int8-skip-fc6 run (fc6 with the "
           "int8 epilogue, 1 a batch; the int8-default run launches it 0 "
           "times) plus the multiplexer's VGG-16 waves (2 a batch and 8 a "
-          "swap-in's warm-up); paged_attention is one C=1 plus one C=32 "
+          "swap-in's warm-up) plus phase 19's rec serving (rfc1, 1 a "
+          "batch); paged_attention is one C=1 plus one C=32 "
           "launch at 16 slots x 12 heads x 64, contexts 1..1024; its "
           "launches are those of the paged, dense-stripe and speculative "
           "LM runs, the router's two floods and the multiplexer's LM "

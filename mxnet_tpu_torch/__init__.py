@@ -6,8 +6,9 @@ The same user surface as the JAX package, on one NVIDIA H100:
 ``mx.mod``, ``mx.optimizer``, ``mx.init``, ``mx.metric``, ``mx.io``,
 ``mx.lr_scheduler``, ``mx.callback``, ``mx.random``, ``mx.Monitor``,
 ``mx.kv`` (``mx.create_kvstore``), ``mx.model.FeedForward`` and
-``mx.checkpoint``; ``mx.engine``, ``mx.faults`` and ``mx.profiler``'s
-serve, superstep and checkpoint reports.
+``mx.checkpoint``; routed Mixture-of-Experts (``mx.moe``) and the sparse
+embedding engine (``mx.embed``); ``mx.engine``, ``mx.faults`` and
+``mx.profiler``'s serve, superstep, checkpoint, embed and moe reports.
 Plain tensor code is PyTorch; the package's TPU kernels are hand-written Hopper kernels
 (``ops/cuda_kernels.py``, sources in ``csrc/``).  Entry points run on
 ``gpu(0)`` unless the caller asks for ``cpu()``.
@@ -64,6 +65,8 @@ from .monitor import Monitor
 from . import profiler
 from . import faults
 from . import checkpoint
+from . import moe
+from . import embed
 from . import libinfo
 from . import misc
 from . import symbol_doc
@@ -80,4 +83,4 @@ __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "initializer", "init", "optimizer", "opt", "lr_scheduler",
            "metric", "io", "callback", "module", "mod", "monitor",
            "Monitor", "kvstore", "kv", "create_kvstore", "executor_manager",
-           "FeedForward", "checkpoint"]
+           "FeedForward", "checkpoint", "moe", "embed"]

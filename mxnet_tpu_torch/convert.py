@@ -4,7 +4,11 @@ Both packages keep convolution weights as OIHW and fully connected
 weights as (N, K), so a parameter crosses over as a typed copy: same
 name, shape, dtype and values, now a tensor on the chosen device.  The
 paged-serving LM blob (``serve.paged.model``) is a flat dict of float32
-arrays in both packages, with the same names and layouts.
+arrays in both packages, with the same names and layouts.  A MoE block's
+stacked expert tensors ((E, D, H) and (E, H, O), with (E, H) and (E, O)
+biases) cross as any other parameter.  An ``EmbeddingTable``'s state
+(``{"rows", "slots", "t"}``) and a ``device_embed`` store's
+(``{key: that}``) cross with :func:`convert_embed_state`.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ import torch
 from .context import Context
 from .ndarray import NDArray, array
 
-__all__ = ["convert_params", "convert_lm_params"]
+__all__ = ["convert_params", "convert_lm_params", "convert_embed_state"]
 
 
 def convert_params(params: Mapping[str, np.ndarray],
@@ -54,3 +58,27 @@ def convert_lm_params(params: Mapping[str, np.ndarray], device
                                    device=device, dtype=torch.float32,
                                    copy=True)
             for k, v in params.items()}
+
+
+def convert_embed_state(tree, ctx: Optional[Context] = None):
+    """The JAX package's ``EmbeddingTable.state()`` or
+    ``KVStoreDeviceEmbed.save_state()`` tree (arrays, anything
+    ``np.asarray`` takes, nested in dicts, tuples and lists, with None
+    leaves) as the same tree of tensors on ``ctx`` (default: the current
+    context), which ``EmbeddingTable.restore`` and
+    ``KVStoreDeviceEmbed.load_state`` take.  The port's own state goes the
+    other way as is: its leaves are tensors ``np.asarray`` reads once on
+    the host (``.cpu()``)."""
+    from .context import current_context
+    device = (ctx if ctx is not None else current_context()).torch_device()
+
+    def conv(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return tuple(conv(v) for v in x)
+        a = np.asarray(x)
+        return torch.as_tensor(a.copy()).to(device)
+    return conv(tree)

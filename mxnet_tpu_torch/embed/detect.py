@@ -1,0 +1,93 @@
+"""Graph-side detection of sparse-updatable embedding tables
+(counterpart of ``mxnet_tpu/embed/detect.py``).
+
+The fused train step asks: which ``Embedding`` layers in this symbol can
+have their table trained through the deduped sparse path instead of the
+dense take-VJP (a full ``(vocab, dim)`` scatter-add plus a full-table
+optimizer sweep every step)?  Eligibility is structural:
+
+* the ids input is a bound DATA variable consumed by this Embedding
+  node ONLY (the step substitutes the deduped inverse indices for the
+  raw ids — any other consumer would see the wrong values);
+* the weight is a TRAINED parameter consumed by this Embedding node
+  ONLY (a shared/tied table also feeding a projection needs the dense
+  gradient);
+* ``MXNET_EMBED_SPARSE`` is on (default; 0 restores the dense path
+  everywhere).
+
+The per-table unique cap (the traced dedup output size) comes from the
+weight variable's ``__embed_unique__`` attribute, then the
+``MXNET_EMBED_UNIQUE_CAP`` env knob, else 0 = the safe worst case
+(every id in the batch distinct).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+__all__ = ["SparseEmbedSpec", "find_sparse_embeds"]
+
+
+class SparseEmbedSpec:
+    """One sparse-eligible table: where its ids come from and its traced
+    dedup geometry."""
+
+    __slots__ = ("ids_name", "vocab", "dim", "cap")
+
+    def __init__(self, ids_name: str, vocab: int, dim: int,
+                 cap: Optional[int]):
+        self.ids_name = ids_name
+        self.vocab = int(vocab)
+        self.dim = int(dim)
+        self.cap = int(cap) if cap else None
+
+    def describe(self):
+        return (self.ids_name, self.vocab, self.dim, self.cap)
+
+    def __repr__(self):
+        return "SparseEmbedSpec(ids=%r, vocab=%d, dim=%d, cap=%r)" % (
+            self.ids_name, self.vocab, self.dim, self.cap)
+
+
+def find_sparse_embeds(symbol, data_names: Sequence[str],
+                       train_names: Sequence[str]
+                       ) -> Dict[str, SparseEmbedSpec]:
+    """``{weight_name: SparseEmbedSpec}`` for every eligible Embedding
+    in ``symbol`` (see module docstring for the rules)."""
+    from ..base import get_env
+    from ..symbol import _topo
+    if not get_env("MXNET_EMBED_SPARSE", True, bool):
+        return {}
+    data = set(data_names)
+    train = set(train_names)
+    nodes = _topo(symbol._heads)
+    consumers: Dict[int, list] = {}
+    for node in nodes:
+        if node.is_variable:
+            continue
+        for (src, _i) in node.inputs:
+            if src.is_variable:
+                consumers.setdefault(id(src), []).append(node)
+    out: Dict[str, SparseEmbedSpec] = {}
+    for node in nodes:
+        if node.is_variable or \
+                getattr(node.op, "name", "") != "Embedding":
+            continue
+        if len(node.inputs) < 2:
+            continue
+        ids_src = node.inputs[0][0]
+        w_src = node.inputs[1][0]
+        if not (ids_src.is_variable and w_src.is_variable):
+            continue
+        if ids_src.name not in data or w_src.name not in train:
+            continue
+        if [c is node for c in consumers.get(id(w_src), [])] != [True]:
+            continue          # tied/shared table: dense gradient needed
+        if [c is node for c in consumers.get(id(ids_src), [])] != [True]:
+            continue          # ids also feed another op: cannot substitute
+        cap = w_src.attrs.get("__embed_unique__")
+        if cap is None:
+            cap = get_env("MXNET_EMBED_UNIQUE_CAP", 0, int)
+        out[w_src.name] = SparseEmbedSpec(
+            ids_src.name, node.params.input_dim, node.params.output_dim,
+            int(cap))
+    return out

@@ -10,8 +10,9 @@ the card.  ``_merge`` adds the pushed values in list order onto
 package's bit for bit on one device.  ``push`` passes the fault point
 ``kvstore.push``.
 
-The dist modes wait for scale-out (ROADMAP.md, queue 1 item 10) and
-``device_embed`` for the sparse embedding store (item 8); both raise.
+``device_embed`` is the sparse embedding store
+(``embed.KVStoreDeviceEmbed``).  The dist modes wait for scale-out
+(ROADMAP.md, queue 1 item 10) and raise.
 """
 from __future__ import annotations
 
@@ -134,15 +135,15 @@ class KVStore:
         """One process: nothing to wait for."""
 
 
-def create(name: str = "local") -> KVStore:
-    """Create a KVStore (reference kvstore.py:341-373)."""
+def create(name: str = "local", **kwargs):
+    """Create a KVStore (reference kvstore.py:341-373); ``device_embed``
+    takes the ``KVStoreDeviceEmbed`` keywords (``ctx=``)."""
     if not isinstance(name, str):
         raise TypeError("name must be a string")
     name_l = name.lower()
     if name_l == "device_embed":
-        raise NotImplementedError(
-            "kvstore 'device_embed' (sparse embedding tables) is not in "
-            "the port yet (ROADMAP.md, queue 1 item 8)")
+        from .embed.kvstore import KVStoreDeviceEmbed
+        return KVStoreDeviceEmbed("device_embed", **kwargs)
     if name_l.startswith("dist"):
         raise NotImplementedError(
             "kvstore %r is not in the port yet (ROADMAP.md, queue 1 item "

@@ -39,6 +39,25 @@ the K sequential steps, so the superstep equals them bit for bit.
 for between a train forward and ``update()`` run the pending step early;
 the module keeps a device copy of the state from before it, to put back
 if the step is discarded.
+
+**sparse embeddings** (reference ``fused.py:174-199, 641-706``): an
+``Embedding`` whose ids are a data input and whose table feeds nothing
+else trains with the deduped lazy row update (``embed/``;
+``MXNET_EMBED_SPARSE=0`` keeps it dense).  The step dedups the batch's
+ids at a fixed shape, gathers each unique row once (out-of-range ids
+read zero), and hands the Embedding op ``(rows, inv)`` in place of
+``(table, ids)``: ``rows[inv]`` is ``table[ids]`` bit for bit, and the
+gradient lands on the unique rows only.  The optimizer then updates
+those rows and their slots in place; untouched rows keep both bit for
+bit.  Such a table is stored with one scratch row past its vocab (the
+state's parameter and slots are views of the first ``vocab`` rows), so
+the sentinel rows of the dedup write there and never onto a real row.
+The ids are sampled into ``embed_stats`` every
+``MXNET_EMBED_STATS_EVERY`` batches, host ids before their copy and ids
+already on the card through a non-blocking copy read a batch later: the
+sample adds no host sync.  A graph with
+``_moe_dispatch`` nodes registers ``moe_stats`` (``moe_report()``); its
+routing rides the step unchanged.
 """
 from __future__ import annotations
 
@@ -47,8 +66,11 @@ from typing import Dict, List, Sequence
 import torch
 from torch.profiler import record_function
 
-from ..base import MXNetError
+from ..base import MXNetError, get_env
 from ..checkpoint.snapshot import map_structure
+from ..embed.sparse import (_mask_oov_rows, dedup_ids, map_slots,
+                            resolve_cap, slot_leaves_row_shaped,
+                            sparse_apply_rows)
 from ..executor import _GraphProgram
 from ..ndarray import NDArray
 from ..ops.registry import OpContext
@@ -127,6 +149,35 @@ class FusedTrainStep:
         self._wd = {n: optimizer._name_wd(n) for n in self.train_names}
         self._rescale = optimizer.rescale_grad
         self._clip = optimizer.clip_gradient
+        # tables trained with the lazy row update: row-shaped optimizer
+        # state only (SGD, NAG, AdaGrad, Adam); any other keeps its table
+        # dense
+        from ..embed.detect import find_sparse_embeds
+        self.sparse_embeds = {
+            n: sp for n, sp in find_sparse_embeds(
+                symbol, self.data_names, self.train_names).items()
+            if slot_leaves_row_shaped(self._opt_init, sp.vocab, sp.dim)}
+        # name -> (table storage with its scratch row, its slots)
+        self._sparse_store = {}
+        self.embed_stats = None
+        if self.sparse_embeds:
+            from ..embed.stats import EmbedStats
+            from .. import profiler
+            self.embed_stats = EmbedStats("fused")
+            profiler.register_embed_stats(self.embed_stats)
+        self._embed_stats_every = max(
+            1, get_env("MXNET_EMBED_STATS_EVERY", 1, int))
+        self._embed_stats_n = 0
+        # name -> (pinned host ids, the event of their copy)
+        self._ids_in_flight = {}
+        from ..moe.detect import find_moe_blocks
+        self.moe_blocks = find_moe_blocks(symbol)
+        self.moe_stats = None
+        if self.moe_blocks:
+            from ..moe.stats import MoeStats
+            from .. import profiler
+            self.moe_stats = MoeStats("fused")
+            profiler.register_moe_stats(self.moe_stats)
         self._prog = _GraphProgram(symbol)
         self.stats = GraphStats()
         self.state = None
@@ -151,14 +202,27 @@ class FusedTrainStep:
         captured graph, which read the old state."""
         def put(v):
             return v._get().detach().to(self.device, copy=True)
-        params = {n: put(arg_params[n]).requires_grad_(True)
-                  for n in self.train_names}
+        params, opt = {}, {}
+        self._sparse_store = {}
+        for n in self.train_names:
+            w = put(arg_params[n])
+            if n not in self.sparse_embeds:
+                params[n] = w.requires_grad_(True)
+                opt[n] = self._opt_init(w.detach())
+                continue
+            vocab = w.shape[0]
+            store = torch.zeros((vocab + 1,) + tuple(w.shape[1:]),
+                                dtype=w.dtype, device=self.device)
+            store[:vocab] = w
+            slots = self._opt_init(store)
+            self._sparse_store[n] = (store, slots)
+            params[n] = store[:vocab]
+            opt[n] = map_slots(lambda t, _v=vocab: t[:_v], slots)
         self.state = {
             "params": params,
             "fixed": {n: put(arg_params[n]) for n in self.fixed_names},
             "aux": {n: put(aux_params[n]) for n in self.aux_names},
-            "opt": {n: self._opt_init(w.detach())
-                    for n, w in params.items()},
+            "opt": opt,
             "t": torch.zeros((), dtype=torch.float32, device=self.device),
             "lr": torch.zeros((), dtype=torch.float32, device=self.device)}
         self._buffers.clear()
@@ -196,6 +260,7 @@ class FusedTrainStep:
                    if n not in src]
         if missing:
             raise MXNetError("the batch lacks inputs %s" % missing)
+        self._note_ids(src)
         key = self._key(src)
         bufs = self._buffers.get(key)
         if bufs is None:
@@ -207,14 +272,80 @@ class FusedTrainStep:
             bufs[n].copy_(t, non_blocking=True)
         return bufs
 
+    def _note_ids(self, src: Dict[str, torch.Tensor]) -> None:
+        """Sample a batch's ids of every sparse table into
+        ``embed_stats`` (every ``MXNET_EMBED_STATS_EVERY`` batches).  Host
+        ids are read before their copy to the device; ids already on the
+        card go to pinned host memory without blocking and are read at a
+        later batch, once their copy has landed (a sample is skipped
+        while the last one is in flight)."""
+        if self.embed_stats is None:
+            return
+        self._note_landed_ids()
+        self._embed_stats_n += 1
+        if self._embed_stats_n % self._embed_stats_every:
+            return
+        for n, sp in self.sparse_embeds.items():
+            ids = src.get(sp.ids_name)
+            if ids is None:
+                continue
+            if ids.device.type == "cpu":
+                self._note_host_ids(n, ids.detach().numpy())
+            elif n not in self._ids_in_flight:
+                host = torch.empty(ids.shape, dtype=ids.dtype,
+                                   pin_memory=True)
+                host.copy_(ids.detach(), non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(ids.device))
+                self._ids_in_flight[n] = (host, done)
+
+    def _note_landed_ids(self) -> None:
+        for n, (host, done) in list(self._ids_in_flight.items()):
+            if done.query():
+                del self._ids_in_flight[n]
+                self._note_host_ids(n, host.numpy())
+
+    def _note_host_ids(self, n: str, host) -> None:
+        sp = self.sparse_embeds[n]
+        self.embed_stats.note_ids(n, host)
+        self.embed_stats.note_update(n, resolve_cap(sp.cap, host.size,
+                                                    sp.vocab))
+
     # -- the step -------------------------------------------------------------
+    def _sparse_prologue(self, args: Dict[str, torch.Tensor]):
+        """Put each sparse table's ``(rows, inv)`` in ``args`` in place of
+        ``(table, ids)``; -> {name: (uniq, rows)}, the rows being the
+        autograd leaves of the tables."""
+        ctx = {}
+        for n, sp in self.sparse_embeds.items():
+            ids = args[sp.ids_name]
+            flat = ids.reshape(-1)
+            cap = resolve_cap(sp.cap, flat.numel(), sp.vocab)
+            uniq, inv = dedup_ids(flat, cap, sp.vocab)
+            store = self._sparse_store[n][0]
+            rows = _mask_oov_rows(store[uniq.long()], uniq, sp.vocab)
+            rows.requires_grad_(True)
+            args[n] = rows
+            args[sp.ids_name] = inv.reshape(ids.shape)
+            ctx[n] = (uniq, rows)
+        return ctx
+
+    def _grad(self, g, like):
+        if g is None:
+            g = torch.zeros_like(like)
+        if self._rescale != 1.0:
+            g = g * self._rescale
+        if self._clip is not None:
+            g = torch.clamp(g, -self._clip, self._clip)
+        return g
+
     def _body(self, batch: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
         """The batch body, in place on the state; -> outputs.  Its three
         parts are profiler ranges (``fused:forward``, ``fused:backward``,
         ``fused:update``) for a profile of an eager step."""
         st = self.state
         params = st["params"]
-        names = list(params)
+        names = [n for n in params if n not in self.sparse_embeds]
         st["t"].add_(1.0)
         args = dict(params)
         args.update(st["fixed"])
@@ -223,25 +354,29 @@ class FusedTrainStep:
                           generator=_random.generator(self.device))
         with torch.enable_grad():
             with record_function("fused:forward"):
+                sparse = self._sparse_prologue(args)
                 outs, new_aux = self._prog.eval(args, st["aux"], opctx)
             heads = [o for o in outs if o.requires_grad]
+            leaves = [params[n] for n in names] \
+                + [rows for _uniq, rows in sparse.values()]
             with record_function("fused:backward"):
                 grads = torch.autograd.grad(
-                    heads, [params[n] for n in names],
+                    heads, leaves,
                     grad_outputs=[torch.ones_like(o) for o in heads],
-                    allow_unused=True) if heads else [None] * len(names)
+                    allow_unused=True) if heads else [None] * len(leaves)
         with torch.no_grad(), record_function("fused:update"):
             for n, g in zip(names, grads):
                 w = params[n]
-                if g is None:
-                    g = torch.zeros_like(w)
-                if self._rescale != 1.0:
-                    g = g * self._rescale
-                if self._clip is not None:
-                    g = torch.clamp(g, -self._clip, self._clip)
-                self._opt_update(w, g, st["opt"][n],
+                self._opt_update(w, self._grad(g, w), st["opt"][n],
                                  st["lr"] * self._lr_mult[n], self._wd[n],
                                  st["t"])
+            for (n, (uniq, rows)), g in zip(sparse.items(),
+                                            grads[len(names):]):
+                store, slots = self._sparse_store[n]
+                sparse_apply_rows(store, slots, uniq, self._grad(g, rows),
+                                  self._opt_update,
+                                  st["lr"] * self._lr_mult[n], self._wd[n],
+                                  st["t"])
             for k, v in new_aux.items():
                 st["aux"][k].copy_(v)
         return [o.detach() for o in outs]
@@ -292,6 +427,11 @@ class FusedTrainStep:
         (through pinned memory on the card).  -> (K, megabatch)."""
         k = len(batches)
         out = {}
+        for b in batches:
+            self._note_ids({n: a._get() if isinstance(a, NDArray)
+                            else torch.as_tensor(a)
+                            for n, a in zip(self.data_names, b.data or [])
+                            if a is not None})
         for names, field in ((self.data_names, "data"),
                              (self.label_names, "label")):
             for i, name in enumerate(names):

@@ -7,8 +7,7 @@ Names, parameter schemas and shape rules are the reference's.  Gradients
 come from autograd, except where the reference's differ from PyTorch's:
 ``abs`` at 0 (JAX gives 1, ``torch.abs`` 0) and ``_maximum_scalar``/
 ``_minimum_scalar`` at a tie (JAX splits the gradient, ``clamp`` does
-not).  The reference's deduped ``_sparse_embedding`` waits for
-``embed/`` (ROADMAP.md, queue 1 item 8).
+not).  ``_sparse_embedding`` is the deduped lookup of ``embed/sparse.py``.
 """
 from __future__ import annotations
 
@@ -637,6 +636,36 @@ class EmbeddingOp(OpDef):
 
     def forward(self, p, inputs, aux, ctx):
         return [embedding(inputs[0], inputs[1])]
+
+
+@register_op("_sparse_embedding", hint="sparse_embedding")
+class SparseEmbeddingOp(OpDef):
+    """Deduped embedding lookup (``embed.sparse.dedup_lookup``): each
+    distinct id's row gathered once, ``unique_cap`` distinct real ids a
+    batch (0: the safe worst case).  The same output as ``Embedding`` for
+    in-range ids; ids outside ``[0, input_dim)`` read zero vectors (the
+    padded id batch).  ``passes.SparseEmbedPass`` rewrites Embedding to
+    this op on a serving graph."""
+    params = [Param("input_dim", int, required=True),
+              Param("output_dim", int, required=True),
+              Param("unique_cap", int, default=0)]
+
+    def list_arguments(self, p):
+        return ["data", "weight"]
+
+    def infer_shape(self, p, in_shapes):
+        d = in_shapes[0]
+        w = (p.input_dim, p.output_dim)
+        if d is None:
+            return [None, w], [None], []
+        return [d, w], [tuple(d) + (p.output_dim,)], []
+
+    def forward(self, p, inputs, aux, ctx):
+        from ..embed.sparse import dedup_lookup
+        data, weight = inputs
+        out, _uniq, _inv = dedup_lookup(weight, data.detach(),
+                                        cap=p.unique_cap)
+        return [out]
 
 
 @register_op("Crop", hint="crop")

@@ -5,7 +5,7 @@
 * ``U8WirePass`` (the in-graph uint8 cast/normalize prologue)
 * ``QuantizePass`` (calibrated int8, float16 fallback) with
   ``calibrate``/``calibrate_arrays`` and ``CalibrationTable``
-* ``MoEServeParityPass``
+* ``MoEServeParityPass`` and ``SparseEmbedPass``
 * ``FuseEpiloguePass`` (matmul/conv + Activation (+ ``_contrib_quantize``)
   -> one ``_fused_*`` op) and ``ElementwiseFusePass``
 
@@ -25,7 +25,8 @@ from .graph_passes import (CSEPass, DeadNodeEliminationPass,
                            FoldConstantsPass, U8WirePass, rebuild,
                            tensor_name)
 from .calibrate import CalibrationTable, calibrate, calibrate_arrays
-from .moe import MoEServeParityPass
+from .moe import MoEServeParityPass, default_moe_exact
+from .embed import SparseEmbedPass, default_embed_dedup
 from .fuse import ElementwiseFusePass, FuseEpiloguePass, fusion_passes
 from .quantize import (QuantizePass, build_serving_pipeline,
                        default_fallback_dtype, default_inference_pipeline,
@@ -37,7 +38,8 @@ __all__ = [
     "CSEPass", "DeadNodeEliminationPass", "FoldConstantsPass",
     "U8WirePass", "rebuild", "tensor_name",
     "ElementwiseFusePass", "FuseEpiloguePass", "fusion_passes",
-    "MoEServeParityPass",
+    "MoEServeParityPass", "default_moe_exact",
+    "SparseEmbedPass", "default_embed_dedup",
     "CalibrationTable", "calibrate", "calibrate_arrays",
     "QuantizePass", "build_serving_pipeline", "default_fallback_dtype",
     "default_inference_pipeline", "default_quantize_ops", "quantize_model",

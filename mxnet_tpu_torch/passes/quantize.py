@@ -392,21 +392,30 @@ def default_inference_pipeline(quantize: Optional[QuantizePass] = None,
                                u8_wire: Optional[U8WirePass] = None,
                                fuse=None, name: str = "inference",
                                verify: bool = True,
-                               embed_dedup=None) -> PassPipeline:
+                               embed_dedup=None,
+                               moe_exact=None) -> PassPipeline:
     """The serving pipeline: [u8 wire] -> fold -> cse -> dce ->
-    [quantize] -> [moe parity] -> [fuse].  The u8 prologue must exist
-    before calibration sees the graph; fusion runs last so the int8
-    epilogues exist to fuse.  ``fuse``: falsy = off (the default here),
-    True or a dict of FuseEpiloguePass kwargs plus ``elemwise``."""
-    if embed_dedup:
-        raise not_ported("embed_dedup= (item 8: Embedding and "
-                         "_sparse_embedding)")
+    [quantize] -> [moe parity] -> [fuse] -> [sparse embed].  The u8
+    prologue must exist before calibration sees the graph; fusion runs
+    after quantize so the int8 epilogues exist to fuse.  ``fuse``: falsy
+    = off (the default here), True or a dict of FuseEpiloguePass kwargs
+    plus ``elemwise``.  ``moe_exact``: None = the
+    ``MXNET_MOE_SERVE_EXACT`` default (on).  ``embed_dedup``: True or a
+    unique cap (int) appends ``SparseEmbedPass``."""
+    from .embed import SparseEmbedPass
+    from .moe import default_moe_exact
     passes: List[Pass] = [] if u8_wire is None else [u8_wire]
     passes += [FoldConstantsPass(), CSEPass(), DeadNodeEliminationPass()]
     if quantize is not None:
         passes.append(quantize)
-    passes.append(MoEServeParityPass())
+    if moe_exact is None:
+        moe_exact = default_moe_exact()
+    if moe_exact:
+        passes.append(MoEServeParityPass())
     passes += fusion_passes(fuse)
+    if embed_dedup:
+        passes.append(SparseEmbedPass(
+            None if embed_dedup is True else int(embed_dedup)))
     return PassPipeline(passes, name=name, verify=verify)
 
 
@@ -422,7 +431,12 @@ def build_serving_pipeline(quantize=None, calib_data=None, calib_shapes=None,
     ``calib=`` table in the dict.  ``u8_wire``: falsy = off; True or a
     dict with ``mean``/``scale``/``hwc``.  ``fuse``: on unless False.
     ``ctx``: where calibration runs and what the quantize defaults
-    follow (default: the current context, the card).  ``embed_dedup`` is not in the port yet."""
+    follow (default: the current context, the card).  ``embed_dedup``:
+    None = the ``MXNET_EMBED_DEDUP`` default (off); True or an int (the
+    unique cap) rewrites Embedding lookups to ``_sparse_embedding``."""
+    from .embed import default_embed_dedup
+    if embed_dedup is None:
+        embed_dedup = default_embed_dedup()
     u8_pass = None
     if u8_wire:
         kw = dict(u8_wire) if isinstance(u8_wire, dict) else {}

@@ -12,9 +12,13 @@ inter-token latency), ``mux`` (ModelMultiplexer) and ``router``
 (ServeRouter, with a rollup of its replicas).
 
 Every ``Module`` that runs ``fit(superstep=K)`` registers a
-:class:`SuperstepStats` (:func:`superstep_report`), and every
+:class:`SuperstepStats` (:func:`superstep_report`), every
 ``CheckpointManager`` its ``CheckpointStats``
-(:func:`checkpoint_report`).
+(:func:`checkpoint_report`), every embedding consumer (a fused step with
+sparse tables, an ``EmbeddingTable``) its ``EmbedStats``
+(:func:`embed_report`) and every MoE consumer (a fused step routing
+through ``_moe_dispatch``, a ``DecodeEngine`` sampling its hits state)
+its ``MoeStats`` (:func:`moe_report`).
 
 The trace timeline, ``scope`` and the other report families wait for
 ROADMAP.md queue 1 item 12.
@@ -27,7 +31,9 @@ import weakref
 __all__ = ["register_serve_stats", "serve_report", "serve_report_str",
            "SuperstepStats", "register_superstep_stats", "superstep_report",
            "superstep_report_str", "register_checkpoint_stats",
-           "checkpoint_report", "checkpoint_report_str"]
+           "checkpoint_report", "checkpoint_report_str",
+           "register_embed_stats", "embed_report", "embed_report_str",
+           "register_moe_stats", "moe_report", "moe_report_str"]
 
 # register() runs on constructing threads while readers iterate: every
 # reader snapshot-copies under this lock first
@@ -182,3 +188,41 @@ def checkpoint_report() -> dict:
 
 def checkpoint_report_str() -> str:
     return _ckpt_registry.report_str()
+
+
+# -- embedding (mxnet_tpu_torch.embed) ----------------------------------------
+_embed_registry = _Registry("embed", "(no live embedding tables)")
+
+
+def register_embed_stats(embed_stats) -> None:
+    """Called by embed.EmbeddingTable / FusedTrainStep on construction."""
+    _embed_registry.register(embed_stats)
+
+
+def embed_report() -> dict:
+    """{consumer key: per-table counters} for every live embedding
+    consumer: lookups, ids, unique ids, the dedup ratio, updates."""
+    return _embed_registry.report()
+
+
+def embed_report_str() -> str:
+    return _embed_registry.report_str()
+
+
+# -- MoE (mxnet_tpu_torch.moe) ------------------------------------------------
+_moe_registry = _Registry("moe", "(no live MoE blocks)")
+
+
+def register_moe_stats(moe_stats) -> None:
+    """Called by FusedTrainStep / DecodeEngine on construction."""
+    _moe_registry.register(moe_stats)
+
+
+def moe_report() -> dict:
+    """{consumer key: per-block routing counters} for every live MoE
+    consumer: expert hits, routed, dropped, imbalance."""
+    return _moe_registry.report()
+
+
+def moe_report_str() -> str:
+    return _moe_registry.report_str()

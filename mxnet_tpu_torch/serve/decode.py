@@ -57,7 +57,6 @@ import torch
 
 from ..base import get_env, make_condition, open_stream
 from ..faults import point as _fault_point
-from ..passes.quantize import not_ported
 from ..predictor import Predictor, load_checkpoint_pair
 from ..symbol import load_json as _sym_load_json
 from .batcher import _IDLE_POLL_S, _set_exception, _set_result
@@ -148,6 +147,10 @@ class DecodeEngine:
         ``f(logits: np.ndarray (S, V)) -> (S,) ints`` replacing the
         device argmax (greedy decode).
     dev_type / dev_id : where the engine runs (default ``gpu(0)``).
+    moe_hits_state / moe_stats_every : a routed decode graph's per-slot
+        expert-hit state (``moe.hit_symbols`` added onto it), sampled
+        into ``mx.profiler.moe_report()`` every N steps
+        (``MXNET_MOE_STATS_EVERY``, 16).
     """
 
     def __init__(self, symbol, params: Dict, *,
@@ -166,9 +169,6 @@ class DecodeEngine:
                  pipeline=None,
                  moe_hits_state: Optional[str] = None,
                  moe_stats_every: Optional[int] = None):
-        if moe_hits_state is not None:
-            raise not_ported("DecodeEngine(moe_hits_state=) (item 8: "
-                             "moe/)")
         if num_slots is None:
             num_slots = get_env("MXNET_SERVE_SLOTS", 8, int)
         self.num_slots = int(num_slots)
@@ -256,6 +256,24 @@ class DecodeEngine:
         self.stats = DecodeStats(name, S)
         from .. import profiler
         profiler.register_serve_stats(self.stats)
+
+        # a routed decode graph accumulates its per-slot (S, E) expert
+        # hits as one more slot state; naming it samples it into
+        # moe_report() every moe_stats_every steps, on the decode thread
+        self.moe_stats = None
+        self._moe_hits_state = moe_hits_state
+        if moe_hits_state is not None:
+            if moe_hits_state not in self._state_shapes:
+                raise ServeError(
+                    "moe_hits_state %r is not a declared state (states: "
+                    "%s)" % (moe_hits_state, sorted(self._state_shapes)))
+            from ..moe.stats import MoeStats
+            self.moe_stats = MoeStats("serve:%s" % name)
+            profiler.register_moe_stats(self.moe_stats)
+        if moe_stats_every is None:
+            moe_stats_every = get_env("MXNET_MOE_STATS_EVERY", 16, int)
+        self._moe_stats_every = max(1, int(moe_stats_every))
+        self._moe_stats_n = 0
 
         # queue / slots / reload barrier: the decode thread owns the
         # slots and every device buffer; the condition guards the
@@ -508,6 +526,13 @@ class DecodeEngine:
         self.stats.on_step(n_active, emitted)
         if done_lat:
             self.stats.on_complete(done_lat)
+        if self.moe_stats is not None:
+            self._moe_stats_n += 1
+            if self._moe_stats_n % self._moe_stats_every == 0:
+                hits = self._exec.arg_dict[self._moe_hits_state]._get()
+                self.moe_stats.set_hits(
+                    self._moe_hits_state,
+                    hits.sum(dim=0).double().cpu().numpy())
 
     def _apply_reloads(self, pending) -> None:
         for arg_params, aux_params, ev, holder in pending:

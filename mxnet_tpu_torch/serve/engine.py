@@ -36,6 +36,7 @@ import torch
 from ..base import get_env
 from ..context import Context
 from ..faults import point as _fault_point
+from ..passes.embed import default_embed_dedup
 from ..passes.quantize import build_serving_pipeline, not_ported
 from ..predictor import Predictor, load_checkpoint_pair
 from .batcher import MicroBatcher
@@ -80,8 +81,12 @@ class ServeEngine:
     into the graph and retypes the data input to uint8.  ``pipeline=``
     overrides with a pre-built PassPipeline.
 
-    ``mesh``, ``param_specs``, ``autotune`` and ``embed_dedup`` are not
-    in the port yet and raise ``NotImplementedError`` when given.
+    ``embed_dedup=`` (True, or an int unique cap; None reads
+    ``MXNET_EMBED_DEDUP``) rewrites Embedding lookups to the deduped
+    ``_sparse_embedding``, under which padded ids read zero vectors.
+
+    ``mesh``, ``param_specs`` and ``autotune`` are not in the port yet
+    and raise ``NotImplementedError`` when given.
     """
 
     def __init__(self, symbol, params: Dict,
@@ -101,8 +106,7 @@ class ServeEngine:
                  embed_dedup=None):
         for option, value in (("ServeEngine(mesh=)", mesh),
                               ("ServeEngine(param_specs=)", param_specs),
-                              ("ServeEngine(autotune=)", autotune),
-                              ("ServeEngine(embed_dedup=)", embed_dedup)):
+                              ("ServeEngine(autotune=)", autotune)):
             if value is not None and value is not False:
                 raise not_ported(option)
         if not input_shapes:
@@ -149,13 +153,17 @@ class ServeEngine:
         self._shapes_by_bucket = {b: {k: (b,) + v[1:]
                                       for k, v in self._shapes_tpl.items()}
                                   for b in self._buckets}
-        if pipeline is None and (quantize or u8_wire or fuse):
+        if embed_dedup is None and pipeline is None:
+            # the env default alone builds a pipeline too
+            embed_dedup = default_embed_dedup() or None
+        if pipeline is None and (quantize or u8_wire or fuse
+                                 or embed_dedup):
             pipeline = build_serving_pipeline(
                 quantize=quantize, calib_data=calib_data,
                 calib_shapes=self._shapes_by_bucket[self.max_batch_size],
                 data_name=data_name, u8_wire=u8_wire,
                 fuse=True if fuse is None else fuse, name=name,
-                ctx=Context(dev_type, dev_id))
+                ctx=Context(dev_type, dev_id), embed_dedup=embed_dedup)
         self.pipeline = pipeline
         self._predictor = Predictor(
             sym_json, params, self._shapes_by_bucket[self.max_batch_size],

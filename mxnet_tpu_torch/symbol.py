@@ -413,6 +413,23 @@ class Symbol:
         return ex.forward()
 
 
+def id_valued_inputs(symbol: "Symbol") -> set:
+    """Variable names whose float values are integer ids (the ids of an
+    ``Embedding``): a path that casts inputs to a lower precision must
+    leave them alone, or ids past 256 would round to other rows
+    (reference ``symbol.py:86-97``).  The port's fused step casts no
+    compute dtype; this is the same surface."""
+    ids = set()
+    for node in _topo(symbol._heads):
+        if node.is_variable or node.op is None:
+            continue
+        if getattr(node.op, "name", "") == "Embedding" and node.inputs:
+            src = node.inputs[0][0]
+            if src.is_variable:
+                ids.add(src.name)
+    return ids
+
+
 def Variable(name: str, attr=None, shape=None, lr_mult=None, wd_mult=None,
              dtype=None, init=None) -> Symbol:
     """Create a symbolic variable."""

@@ -13,12 +13,10 @@ parameters after the 8 steps: float32 sums run in other orders in XLA
 and in PyTorch's CPU kernels, and momentum carries each step's last-bit
 differences on.
 
-The JAX package's fused step trains an ``Embedding`` table whose ids are
-a data input through its deduped sparse path (``mxnet_tpu/embed/``),
-which updates only the rows a batch touches, momentum and weight decay
-included; the port has no such path yet (ROADMAP.md, queue 1 item 8)
-and trains the table densely, as the reference does with
-``MXNET_EMBED_SPARSE=0``.  The reference runs here with that setting.
+Both packages' fused steps train an ``Embedding`` table whose ids are a
+data input through the deduped lazy row update (``embed/``), which
+updates only the rows a batch touches, momentum and weight decay
+included; both run here under that default.
 """
 import numpy as np
 import pytest
@@ -39,11 +37,6 @@ GRU_STATE_NAMES = ["l%d_init_h" % i for i in range(L)]
 
 def _states(model_fn):
     return GRU_STATE_NAMES if model_fn == "gru_unroll" else STATE_NAMES
-
-
-@pytest.fixture(autouse=True)
-def _dense_embedding_updates(monkeypatch):
-    monkeypatch.setenv("MXNET_EMBED_SPARSE", "0")
 
 
 def _models(pkg):

@@ -304,8 +304,8 @@ def test_symbol_contract_and_unported_options(model):
             _engine(params, **kw)
         with pytest.raises(mx.serve.ServeError, match=match):
             _jax_engine(params, **kw)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _engine(params, moe_hits_state="h")
+    with pytest.raises(ServeError, match="not a declared state"):
+        _engine(params, moe_hits_state="nope")
     with pytest.raises(mt.MXNetError, match="no committed checkpoint"):
         DecodeEngine.from_checkpoint_dir("/nonexistent", _decode_net(mt),
                                          state_shapes={"h": (HID,)})

@@ -440,7 +440,7 @@ def test_port_registers_every_reference_image_op():
     new = ["Deconvolution", "UpSampling", "LRN", "L2Normalization",
            "IdentityAttachKLSparseReg", "ROIPooling", "SpatialTransformer"]
     assert set(new) <= set(list_ops()) <= set(jax_ops())
-    assert len(list_ops()) == 112
+    assert len(list_ops()) == 116
     import mxnet_tpu.ops.registry as jreg
     for name in new:
         jop, top = jreg.get_op(name), get_op(name)

@@ -124,8 +124,8 @@ def test_type_rank_and_workers():
         tmx.kv.create("nope")
     with pytest.raises(NotImplementedError, match="item 10"):
         tmx.kv.create("dist_sync")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tmx.kv.create("device_embed")
+    assert tmx.kv.create("device_embed", ctx=tmx.cpu()).type == \
+        "device_embed"
     kv = tmx.kv.create("local")
     with pytest.raises(tmx.MXNetError, match="not been initialized"):
         kv.push(9, tmx.nd.zeros(SHAPE, ctx=tmx.cpu()))

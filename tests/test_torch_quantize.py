@@ -690,8 +690,8 @@ def test_serving_pipeline_factory_rules():
         mt.passes.build_serving_pipeline(quantize="int8", ctx=mt.cpu())
     with pytest.raises(mt.MXNetError, match="int8|float16|bfloat16"):
         mt.passes.build_serving_pipeline(quantize="int4", ctx=mt.cpu())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.passes.build_serving_pipeline(embed_dedup=True)
+    assert mt.passes.build_serving_pipeline(
+        embed_dedup=True, ctx=mt.cpu()).passes[-1].name == "sparse_embed"
     # float16 mode takes no calibration, and calib_data is not forwarded
     with_cd = mt.passes.build_serving_pipeline(
         quantize="float16", calib_data=np.zeros((8, 16), np.float32),

@@ -192,12 +192,11 @@ def test_default_device_predictor_raises_without_card():
         mt.serve.ServeEngine(sym, {}, {"data": (1, 784)})
 
 
-@pytest.mark.parametrize("option", ["mesh", "param_specs", "autotune",
-                                    "embed_dedup"])
+@pytest.mark.parametrize("option", ["mesh", "param_specs", "autotune"])
 def test_unported_serve_options_raise(option):
     sym = mt.models.get_mlp()
-    value = {"mesh": "tp=2", "param_specs": {"a": 1}, "autotune": True,
-             "embed_dedup": True}[option]
+    value = {"mesh": "tp=2", "param_specs": {"a": 1},
+             "autotune": True}[option]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mt.serve.ServeEngine(sym, {}, {"data": (1, 784)}, dev_type="cpu",
                              **{option: value})

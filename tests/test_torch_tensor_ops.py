@@ -262,15 +262,14 @@ def test_loss_layer_injects_the_reference_gradient(case):
 
 
 def test_every_tensor_op_of_the_reference_is_registered():
-    """Every op of ``mxnet_tpu/ops/tensor.py`` but ``_sparse_embedding``
-    (queue 1 item 8), the output and loss layers, and RNN."""
+    """Every op of ``mxnet_tpu/ops/tensor.py`` (``_sparse_embedding``
+    included), the output and loss layers, and RNN."""
     def module_of(op):
         fn = getattr(op, "_fn", None)
         return (fn if fn is not None else type(op)).__module__
     names = {n for n, op in jmx.ops.registry._OP_REGISTRY.items()
              if module_of(op) == "mxnet_tpu.ops.tensor"}
     assert len(names) == 79 and "_sparse_embedding" in names
-    names -= {"_sparse_embedding"}
     names |= {"SoftmaxActivation", "Softmax", "LinearRegressionOutput",
               "LogisticRegressionOutput", "MAERegressionOutput", "MakeLoss",
               "SVMOutput", "RNN"}
