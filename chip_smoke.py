@@ -209,6 +209,36 @@ Phases, in order; any failure exits nonzero:
    ``device_embed`` with a 200,000 x 64 sparse key: ``row_sparse_pull``
    and two lazy pushes against the CPU store; 0 hand-kernel launches
    on (a), (b), (c) and (e);
+20. the input pipeline (``feed/``, ``recordio``), its data written at run
+   time: (a) ResNet-50 trained from 1,280 raw CHW uint8 records at
+   3x256x256 (im2rec --resize 256's envelope, 252 MB, a numpy seed,
+   written by the port's ``recordio`` into a temporary directory) through
+   ``feed.record_pipeline(batch 128, 3x224x224, resize 256, random crop
+   and mirror, ImageNet's mean, device_augment=True)`` and
+   ``Module.fit(prefetch_to_device=True)``, 3 epochs of 10 batches: the
+   first batch's augmented input, read back from the card, bitwise
+   ``augment_batch_host`` of the same uint8 batch with the same draws;
+   one capture for the uint8 shape and a replay per batch after the
+   warm-up; img/s of epoch 2 against phase 13's ``fit``, the busy share
+   of epoch 3 (its kernels and copies over its own wall),
+   ``feed_report()``'s stalls per stage, host-to-device bytes per batch;
+   then speculation on the same wire: outputs read before ``update()``
+   run a step early, a new forward discards it, and the step run again
+   (an eager one and a replay) leaves the augmented inputs, params and
+   momentum bitwise a straight run's; (b) a mid-epoch resume through the feed cursor with
+   4 reader processes (forked with the card's context up) under
+   deterministic cuDNN: saved at step 4, a fresh module trains the
+   uninterrupted run's remaining labels and ends on its params bitwise;
+   the reader's decode rate and feed headroom (feed img/s / train img/s);
+   (c) phase 18's superstep leg through ``fit(prefetch_to_device=True)``:
+   K=8 over prefetch-staged megabatches bitwise K=1, tokens/s and busy
+   shares beside phase 18's, then epochs of 64 batches: K=1, K=8 staging
+   inside each superstep and K=8 staged before each drain; (d) bench_embed.py's step leg (200,000 x
+   32) from ids with ~10 % of rows padded with ``PAD_ID`` through
+   ``feed.ids_pipeline`` + ``fit(prefetch_to_device=True)``: bitwise the
+   same fit over an ``NDArrayIter``, the last row and unnamed rows
+   untouched; 0 hand-kernel launches on (a)-(d); the ``feed result``
+   line;
    then the ``kernels`` JSON line (all four kernels), then the ``{"ok":
    true, ...}`` line.
 """
@@ -5973,6 +6003,611 @@ def moe_embed_phase(torch, mt, ck, smi):
     return {"moe": moe, "decode": dec, "embed": emb, "rec": rec, "kv": kv}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the input pipeline on the card
+#
+# (a) ResNet-50 from a .rec through Module.fit: 1,280 raw CHW-packed
+# uint8 records at 3x256x256 (im2rec --resize 256's envelope), written
+# at run time from a numpy seed by the port's recordio (252 MB in a
+# temporary directory); record_pipeline(batch 128, 3x224x224, resize
+# 256, random crop and mirror, ImageNet's mean, device_augment=True) ->
+# fit(prefetch_to_device=True) with phase 13's optimizer, 3 epochs of 10
+# batches (the second timed, the third profiled); (b) a mid-epoch resume
+# through the feed cursor, under deterministic cuDNN as phase 18's resume
+# leg, with 4 reader processes forked after the card's context is up;
+# (c) phase 18's superstep leg (PTB LSTM, batch 32, K=8) with megabatch
+# prefetch; (d) bench_embed.py's step leg from padded ids through
+# ids_pipeline.
+FEED_RECORDS, FEED_SIDE, FEED_CROP = 1280, 256, 224
+FEED_MEAN = (123.68, 116.78, 103.94)       # ImageNet's RGB mean
+FEED_EPOCHS = 3
+FEED_RESUME_EVERY, FEED_PROCS = 4, 4
+IDS_BATCHES, IDS_EPOCHS, IDS_PAD_SHARE = 4, 3, 0.1
+SUPER_REPEAT = 4                           # (c)'s longer epochs
+SPEC_STEPS, SPEC_AT = 6, (1, 4)            # speculation: steps, where
+
+
+class ProfileWindow:
+    """torch.profiler (device activity) over a window opened and closed
+    from callbacks, and the wall of that same window (both ends
+    synchronized): the device ms of its kernels, of its copies (memcpy/
+    memset, which on the feed's copy stream overlap the kernels), and its
+    busy share: the union of the intervals in which the card ran either,
+    over the window's wall.  Every busy share of phase 20 that comes from
+    a window is this one, copies included."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.prof = None
+
+    def start(self):
+        from torch.profiler import ProfilerActivity, profile
+        self.torch.cuda.synchronize()
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        self.t0 = time.perf_counter()
+
+    def stop(self):
+        from torch.autograd import DeviceType
+        self.torch.cuda.synchronize()
+        self.wall = (time.perf_counter() - self.t0) * 1e3
+        self.prof.__exit__(None, None, None)
+        self.device, self.copies, spans = 0.0, 0.0, []
+        for e in self.prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            spans.append((e.time_range.start, e.time_range.end))
+            t = e.time_range.elapsed_us() / 1e3
+            if e.name.lower().startswith(("memcpy", "memset")):
+                self.copies += t
+            else:
+                self.device += t
+        busy, end = 0.0, None
+        for a, b in sorted(spans):
+            if end is None or a > end:
+                busy += b - a
+                end = b
+            elif b > end:
+                busy += b - end
+                end = b
+        self.busy = busy / 1e3 / self.wall
+        self.prof = None
+        return self.device
+
+
+def write_feed_rec(mt, path, n=FEED_RECORDS, side=FEED_SIDE, seed=70):
+    """``n`` raw CHW-packed uint8 records of 3 x side x side, labels in
+    [0, 1000), from a numpy seed; -> the labels."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 1000, n)
+    w = mt.recordio.MXRecordIO(path, "w")
+    for i in range(n):
+        img = rng.integers(0, 256, (3, side, side), dtype=np.uint8)
+        w.write(mt.recordio.pack(mt.recordio.IRHeader(
+            0, float(labels[i]), i, 0), img.tobytes()))
+    w.close()
+    return labels
+
+
+def resnet_feed(mt, rec, **kw):
+    args = dict(batch_size=RESNET_BATCH,
+                data_shape=(3, FEED_CROP, FEED_CROP), resize=FEED_SIDE,
+                rand_crop=True, rand_mirror=True, mean_rgb=FEED_MEAN,
+                device_augment=True, max_epochs=FEED_EPOCHS)
+    args.update(kw)
+    return mt.feed.record_pipeline(rec, **args)
+
+
+def feed_stalls(report):
+    """{pipeline/stage: (stall_in_s, stall_out_s)} of a feed_report()."""
+    return {"%s/%s" % (key.split("#")[0], stage): (
+        round(row["stall_in_s"], 3), round(row["stall_out_s"], 3))
+        for key, stages in report.items() for stage, row in stages.items()}
+
+
+def feed_resnet_leg(torch, mt, smi, rec, res, fit13_img_s):
+    """(a) ResNet-50 trained from the .rec through fit(prefetch_to_device
+    =True) on the uint8 wire; the gates: the first batch's augmented
+    input (read back from the card) bitwise augment_batch_host of the
+    same uint8 batch with the same draws, one capture and a replay for
+    every batch after the warm-up."""
+    sym, arg0, aux0 = res
+    gpu = mt.gpu(0)
+    it = resnet_feed(mt, rec)
+    spec = it.augment_spec
+    mod = mt.mod.Module(sym, context=gpu)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params=arg0, aux_params=aux0)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(TRAIN_OPT))
+    fused = mod._fused
+    fused.augment_probe = []
+    n = FEED_RECORDS // RESNET_BATCH
+    marks, probe, window, report = [], [], ProfileWindow(torch), {}
+
+    def cb(p):
+        if p.epoch == 0 and p.nbatch == 0:
+            probe.append(fused.augment_probe[0])
+            fused.augment_probe = None
+        if p.epoch == 1 and p.nbatch in (0, n - 1):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        if p.epoch == 2 and p.nbatch == 0:
+            window.start()
+        if p.epoch == 2 and p.nbatch == n - 1:
+            window.stop()
+            report.update(mt.profiler.feed_report())
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=FEED_EPOCHS, optimizer="sgd",
+            optimizer_params=dict(TRAIN_OPT), eval_metric="acc",
+            batch_end_callback=cb, prefetch_to_device=True)
+    fit_s = time.perf_counter() - t0
+    stats = fused.stats.report()
+    x, draws, out = probe[0]
+    want = mt.feed.augment_batch_host(x.cpu().numpy(),
+                                      tuple(d.cpu() for d in draws), spec,
+                                      True)
+    got = out.detach().cpu().numpy()
+    first = np.frombuffer(open(rec, "rb").read(8 + 24 + 3 * FEED_SIDE ** 2)
+                          [8 + 24:], np.uint8).reshape(
+                              3, FEED_SIDE, FEED_SIDE).transpose(1, 2, 0)
+    same_input = bool(np.array_equal(x[0].cpu().numpy(), first))
+    same_aug = bool(np.array_equal(got, want))
+    flips = int(draws[2].sum())
+    h2d = it.pipeline.stats.report()["h2d"]
+    # the data's bytes: the batch's less its float32 labels
+    bytes_per_batch = h2d["bytes"] * RESNET_BATCH // h2d["items"] \
+        - RESNET_BATCH * 4
+    f32_bytes = RESNET_BATCH * 3 * FEED_CROP ** 2 * 4
+    img_s = RESNET_BATCH * (n - 1) / (marks[1] - marks[0])
+    wall = (marks[1] - marks[0]) * 1e3
+    print("feed: resnet50 from %d raw 3x%dx%d records through "
+          "record_pipeline(device_augment=True) + fit(prefetch_to_device="
+          "True), %d epochs of %d batches in %.1f s: fused step %s; first "
+          "batch's uint8 input equal to record 0 %s, augmented input read "
+          "back from the card bitwise augment_batch_host with the same "
+          "draws %s (gate; %d of %d flipped, crops dy %d..%d)"
+          % (FEED_RECORDS, FEED_SIDE, FEED_SIDE, FEED_EPOCHS, n, fit_s,
+             stats, same_input, same_aug, flips, RESNET_BATCH,
+             int(draws[0].min()), int(draws[0].max())))
+    print("feed: resnet50 fit from the .rec %.1f img/s (epoch 2's last %d "
+          "batches, %.3f ms) against phase 13's fit over host float32 "
+          "batches %.1f img/s (x%.3f); the same batches of epoch 3 under "
+          "the profiler: %.3f ms of wall, kernels %.3f ms and copies %.3f "
+          "ms of device time, busy share %.3f (the card's busy union over "
+          "that wall); host-to-device data bytes per batch %d uint8 (the "
+          "256x256 envelope) against %d float32 (x%.3f); card %s"
+          % (img_s, n - 1, wall, fit13_img_s, img_s / fit13_img_s,
+             window.wall, window.device, window.copies, window.busy,
+             bytes_per_batch, f32_bytes, f32_bytes / bytes_per_batch, smi))
+    stalls = feed_stalls(report)
+    print("feed: feed_report() stall_in/stall_out s per stage at the end "
+          "of epoch 3: %s" % json.dumps(stalls))
+    want_stats = {"captures": 1, "replays": FEED_EPOCHS * n - RESNET_WARMUP,
+                  "eager_steps": RESNET_WARMUP}
+    if not (same_input and same_aug):
+        fail("the augmented batch on the card differs from "
+             "augment_batch_host")
+    if stats != want_stats:
+        fail("resnet50 from the feed: fused step %s, want %s"
+             % (stats, want_stats))
+    it.close()
+    del mod, fused, probe, x, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"img_s": img_s, "busy": window.busy, "wall_ms": wall,
+            "device_ms": window.device, "bytes": bytes_per_batch,
+            "f32_bytes": f32_bytes, "stalls": stalls, "stats": stats}
+
+
+def feed_speculation_leg(torch, mt, smi, rec, res):
+    """(a) continued: speculation on the uint8 wire.  SPEC_STEPS of (a)'s
+    batches through forward/update under deterministic cuDNN, once
+    straight and once with, at the steps SPEC_AT (an eager warm-up step
+    and a replay), the outputs read before update() (the step runs
+    early), then a new forward of the same batch (the early step is
+    discarded and the state from before it put back, the generator's
+    included) and the step again.  The gate: the eager steps' augmented
+    inputs and the params, aux and momentum after the last step bitwise
+    the straight run's, so the step run again drew the discarded step's
+    numbers."""
+    sym, arg0, aux0 = res
+    it = resnet_feed(mt, rec, max_epochs=1)
+    spec, shapes = it.augment_spec, (it.provide_data, it.provide_label)
+    batches = [it.next() for _ in range(SPEC_STEPS)]
+    it.close()
+
+    def run(speculate):
+        mt.random.seed(9)
+        mod = mt.mod.Module(sym, context=mt.gpu(0))
+        mod.bind(*shapes)
+        mod.init_params(arg_params=arg0, aux_params=aux0)
+        mod.init_optimizer(optimizer="sgd", optimizer_params=dict(TRAIN_OPT))
+        mod.apply_augment_spec(spec)
+        fused = mod._fused
+        fused.augment_probe = []
+        early, steps = 0, []
+
+        def probed(i):
+            # the step index of each augmented input an eager step probed
+            steps.extend([i] * (len(fused.augment_probe) - len(steps)))
+        for i, b in enumerate(batches):
+            mod.forward(b, is_train=True)
+            if speculate and i in SPEC_AT:
+                mod.get_outputs()                 # the step runs early
+                early += mod._fused_next is not None
+                probed(i)
+                mod.forward(b, is_train=True)     # ... and is discarded
+            mod.update()
+            probed(i)
+        torch.cuda.synchronize()
+        out = {"params": host_params(mod), "opt": opt_leaves(torch,
+                                                             fused.state),
+               "probe": [(i, o.cpu().numpy()) for i, (_, _, o) in
+                         zip(steps, fused.augment_probe)],
+               "stats": fused.stats.report(), "early": early}
+        del mod, fused
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        want, got = run(False), run(True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    # each eager step's augmented input against the straight run's of
+    # that step; an early step of the warm-up is probed twice (the
+    # discarded run and the run again), and the two warm-up runs it takes
+    # bring the capture a step forward
+    want_probe = dict(want["probe"])
+    twice = [i for i in SPEC_AT
+             if [j for j, _ in got["probe"]].count(i) == 2]
+    same_probe = bool(twice) and all(
+        i in want_probe and np.array_equal(o, want_probe[i])
+        for i, o in got["probe"])
+    same = bitwise(want["params"][0], got["params"][0]) and bitwise(
+        want["params"][1], got["params"][1]) and bitwise(want["opt"],
+                                                         got["opt"])
+    print("feed: speculation on the uint8 wire, resnet50 batch %d, %d "
+          "steps: %d early steps (outputs read before update at steps %s) "
+          "discarded by a new forward and run again; fused step %s against "
+          "the straight run's %s; the augmented inputs of eager steps %s "
+          "(steps %s probed twice) bitwise the straight run's %s "
+          "and params, aux and momentum bitwise %s (gates; cuDNN "
+          "deterministic); card %s"
+          % (RESNET_BATCH, SPEC_STEPS, got["early"], list(SPEC_AT),
+             got["stats"], want["stats"], [i for i, _ in got["probe"]],
+             twice, same_probe,
+             same, smi))
+    if got["early"] != len(SPEC_AT):
+        fail("speculation: %d early steps ran, want %d"
+             % (got["early"], len(SPEC_AT)))
+    if not (same_probe and same):
+        fail("a discarded early step drew other numbers when run again")
+    return {"early": got["early"], "stats": got["stats"]}
+
+
+def feed_resume_leg(torch, mt, smi, rec, res, train_img_s):
+    """(b) fit over the 4-process reader, saving every 4 batches; a fresh
+    module and pipeline resumed from step 4 train the remaining batches
+    with their labels and end on params bitwise the uninterrupted run's.
+    Then the same reader drained alone: feed img/s and headroom."""
+    import shutil
+    sym, arg0, aux0 = res
+    n = FEED_RECORDS // RESNET_BATCH
+    tmp = tempfile.mkdtemp()
+    full, part = os.path.join(tmp, "full"), os.path.join(tmp, "part")
+
+    def run(store, resume):
+        it = resnet_feed(mt, rec, reader_procs=FEED_PROCS, max_epochs=1)
+        mod = mt.mod.Module(sym, context=mt.gpu(0))
+        seen = []
+        with mt.checkpoint.CheckpointManager(store, keep_last_n=None) as mgr:
+            mod.fit(it, num_epoch=1, optimizer="sgd",
+                    optimizer_params=dict(TRAIN_OPT), arg_params=arg0,
+                    aux_params=aux0, checkpoint=mgr,
+                    checkpoint_every=FEED_RESUME_EVERY, resume=resume,
+                    prefetch_to_device=True,
+                    batch_end_callback=lambda p: seen.append(
+                        p.locals["data_batch"].label[0].asnumpy()))
+        report = it.pipeline.stats.report()
+        it.close()
+        out = host_params(mod), opt_leaves(torch, mod._fused.state)
+        del mod
+        gc.collect()
+        torch.cuda.empty_cache()
+        return seen, out, report
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        want_seen, (want_p, want_m), report = run(full, False)
+        shutil.copytree(full, part)
+        for s in mt.checkpoint.all_steps(part):
+            if s > FEED_RESUME_EVERY:
+                shutil.rmtree(os.path.join(part,
+                                           mt.checkpoint.step_dir_name(s)))
+        with mt.checkpoint.CheckpointManager(part) as mgr:
+            cursor = mgr.restore(step=FEED_RESUME_EVERY)[1].get("feed")
+        got_seen, (got_p, got_m), _ = run(part, True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    same_labels = len(got_seen) == n - FEED_RESUME_EVERY and all(
+        np.array_equal(a, b) for a, b in zip(got_seen,
+                                             want_seen[FEED_RESUME_EVERY:]))
+    same = bitwise(want_p[0], got_p[0]) and bitwise(want_p[1], got_p[1]) \
+        and bitwise(want_m, got_m)
+    reader = report["reader"]
+    workers = reader.get("workers", {})
+    decode_img_s = sum(w["items"] / w["busy_s"] for w in workers.values()
+                       if w["busy_s"] > 0)
+    inner = cursor.get("inner", {})
+    print("feed: resume: %d reader processes, saved at step %d with cursor "
+          "batch %s (inner: epoch %s, batch %s, samples %s, reader workers "
+          "%s); the resumed run trained %d batches with the uninterrupted "
+          "run's labels %s and ends on its params, aux and momentum bitwise "
+          "%s (gate; cuDNN deterministic)"
+          % (FEED_PROCS, FEED_RESUME_EVERY, cursor.get("batch"),
+             inner.get("epoch"), inner.get("batch"), inner.get("samples"),
+             json.dumps(inner.get("reader", {}).get("workers")),
+             len(got_seen), same_labels, same))
+    if not (same_labels and same):
+        fail("the resume through the feed cursor differs from the "
+             "uninterrupted run")
+    # the same reader drained onto the card alone: what the feed can give
+    it = resnet_feed(mt, rec, reader_procs=FEED_PROCS, max_epochs=2)
+    for _ in it:
+        pass                      # epoch 1: workers up, caches warm
+    it.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = 0
+    for b in it:
+        got += b.data[0].shape[0]
+    torch.cuda.synchronize()
+    feed_img_s = got / (time.perf_counter() - t0)
+    it.close()
+    shutil.rmtree(tmp)
+    print("feed: %d reader processes: decode %.1f img/s summed over the "
+          "workers (items / busy s: %s), the pipeline drained onto the card "
+          "alone %.1f img/s, feed headroom %.3f (feed img/s / (a)'s train "
+          "img/s %.1f; bench_io.py's definition); restarts %d; card %s"
+          % (FEED_PROCS, decode_img_s, {k: (w["items"], w["busy_s"])
+                                        for k, w in workers.items()},
+             feed_img_s, feed_img_s / train_img_s, train_img_s,
+             reader.get("restarts", 0), smi))
+    return {"decode_img_s": decode_img_s, "feed_img_s": feed_img_s,
+            "headroom": feed_img_s / train_img_s}
+
+
+def feed_superstep_leg(torch, mt, smi, sup18):
+    """(c) phase 18's superstep leg through fit(prefetch_to_device=True):
+    K=8 from prefetch-staged megabatches against K=1, params and momentum
+    bitwise; tokens/s of epoch 2, the busy share of epoch 3 (a
+    ProfileWindow), one superstep over a staged megabatch
+    (device_profile, as phase 18 measures its own); then
+    epochs of 64 batches, K=1 and K=8 staged inside each superstep or
+    before each drain."""
+    arg0 = lstm_params(mt, LSTM_HIDDEN, 30)
+    rng = np.random.default_rng(31)
+    batches = [token_batch(mt, rng, mt.cpu(), SUPER_BATCH, LSTM_SEQ,
+                           LSTM_HIDDEN) for _ in range(SUPER_BATCHES)]
+    states = lstm_states(SUPER_BATCH, LSTM_HIDDEN)
+    pd = [("data", (SUPER_BATCH, LSTM_SEQ))] + states
+    pl = [("softmax_label", (SUPER_BATCH, LSTM_SEQ))]
+    sym = mt.models.lstm_unroll(LSTM_LAYERS, LSTM_SEQ, LSTM_VOCAB,
+                                LSTM_HIDDEN, LSTM_HIDDEN, LSTM_VOCAB)
+    tokens = SUPER_BATCHES * SUPER_BATCH * LSTM_SEQ
+
+    def run(k, prefetch, repeat=1, profiled=True):
+        """3 epochs of the batches ``repeat`` times over: epoch 2 timed,
+        epoch 3 profiled (the profiler's processing of a 64-batch epoch,
+        ~100,000 LSTM kernels, takes tens of seconds: the longer epochs
+        are timed only)."""
+        mt.random.seed(5)
+        mod = mt.mod.Module(sym, data_names=["data"] + [n for n, _ in
+                                                        states],
+                            label_names=["softmax_label"], context=mt.gpu(0))
+        metric = time_major_ce(mt)
+        marks, window = [], ProfileWindow(torch)
+
+        def epoch_end(epoch, s, a, x):
+            if epoch == 2 and profiled:
+                window.stop()
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if epoch == 1 and profiled:
+                window.start()
+        mod.fit(batch_iter(mt, batches * repeat, pd, pl), num_epoch=3,
+                eval_metric=metric, optimizer="sgd",
+                optimizer_params=dict(LSTM_OPT), arg_params=arg0,
+                aux_params={}, superstep=k, prefetch_to_device=prefetch,
+                epoch_end_callback=epoch_end)
+        return {"mod": mod, "metric": metric,
+                "tokens_s": tokens * repeat / (marks[1] - marks[0]),
+                "busy": window.busy if profiled else None,
+                "walls": ((marks[1] - marks[0]) * 1e3,
+                          window.wall if profiled else None)}
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        one, sup = run(1, False), run(SUPER_K, True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = bitwise(host_params(one["mod"])[0], host_params(sup["mod"])[0]) \
+        and bitwise(opt_leaves(torch, one["mod"]._fused.state),
+                    opt_leaves(torch, sup["mod"]._fused.state))
+    # the same with epochs of 4 x 16 batches: 8 supersteps an epoch, so
+    # the staging of all but the epoch's first megabatch can overlap
+    longer = {(k, pf): run(k, pf, repeat=SUPER_REPEAT, profiled=False)
+              for k, pf in ((1, False), (SUPER_K, False), (SUPER_K, True))}
+    mod, metric = sup["mod"], sup["metric"]
+    stats = mod._superstep_stats.report()
+    staged = mod.prefetch_to_device(batch_iter(mt, batches, pd, pl),
+                                    megabatch=SUPER_K).next()
+    wall_k, dev_k, _ = device_profile(
+        torch, lambda: mod.superstep_train(staged, metric), reps=3)
+    print("feed: superstep K=%d from megabatches staged by fit(prefetch_to_"
+          "device=True) against K=1, 3 epochs of %d batches: params and "
+          "momentum bitwise %s (gate); superstep counters %s"
+          % (SUPER_K, SUPER_BATCHES, same, json.dumps(stats)))
+    print("feed: superstep tokens/s (epoch 2) K=1 %.1f, K=%d with prefetch "
+          "%.1f (x%.3f); phase 18 in this run: K=1 %.1f, K=%d %.1f; busy "
+          "share of epoch 3 (the card's busy union over its wall, copies "
+          "included) K=1 %.3f, K=%d with prefetch %.3f (epoch 3's wall under "
+          "the profiler %.3f and %.3f ms against epoch 2's %.3f and %.3f "
+          "ms: the profiler's cost on the host); one superstep over "
+          "a staged megabatch (device_profile: kernels and copies over the "
+          "unprofiled wall) %.3f ms wall, %.3f ms device, busy %.3f (phase "
+          "18's, staging its host batches inside, the same definition: "
+          "%.3f); card %s"
+          % (one["tokens_s"], SUPER_K, sup["tokens_s"],
+             sup["tokens_s"] / one["tokens_s"], sup18["tokens_s_k1"],
+             SUPER_K, sup18["tokens_s_k"], one["busy"], SUPER_K,
+             sup["busy"], one["walls"][1], sup["walls"][1],
+             one["walls"][0], sup["walls"][0], wall_k, dev_k,
+             dev_k / wall_k, sup18["busy_k"],
+             smi))
+    print("feed: superstep over epochs of %d batches (the 16 repeated): "
+          "tokens/s (epoch 2) K=1 %.1f, K=%d staging inside the superstep "
+          "%.1f, K=%d with prefetch (staged before each drain) %.1f (x%.3f "
+          "of the former, x%.3f of K=1); card %s"
+          % (SUPER_BATCHES * SUPER_REPEAT, longer[1, False]["tokens_s"],
+             SUPER_K, longer[SUPER_K, False]["tokens_s"], SUPER_K,
+             longer[SUPER_K, True]["tokens_s"],
+             longer[SUPER_K, True]["tokens_s"]
+             / longer[SUPER_K, False]["tokens_s"],
+             longer[SUPER_K, True]["tokens_s"] / longer[1, False]["tokens_s"],
+             smi))
+    if not same:
+        fail("superstep K=%d over prefetched megabatches differs from K=1"
+             % SUPER_K)
+    out = {"tokens_s_k1": one["tokens_s"], "tokens_s_k": sup["tokens_s"],
+           "busy_k1": one["busy"], "busy_k": sup["busy"],
+           "busy_one_superstep": dev_k / wall_k,
+           "long_tokens_s": {"k1": longer[1, False]["tokens_s"],
+                             "k_inside": longer[SUPER_K, False]["tokens_s"],
+                             "k_prefetch": longer[SUPER_K, True]["tokens_s"]}}
+    del one, sup, mod, staged, longer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def feed_ids_leg(torch, mt, smi):
+    """(d) bench_embed.py's step leg from padded ids: ids_pipeline +
+    fit(prefetch_to_device=True) against the same batches from an
+    NDArrayIter, params bitwise; the table's last row and every row no
+    batch names bitwise unchanged."""
+    vocab, dim = EMB_TABLES[0][1], EMB_TABLES[0][2]
+    gpu = mt.gpu(0)
+    dev = gpu.torch_device()
+    rng = np.random.default_rng(80)
+    n = IDS_BATCHES * EMB_B
+    ids = hot_ids(rng, n * EMB_L, EMB_HOT, vocab - 1).reshape(n, EMB_L)
+    short = np.flatnonzero(rng.random(n) < IDS_PAD_SHARE)
+    for r, keep in zip(short, rng.integers(1, EMB_L, len(short))):
+        ids[r, keep:] = mt.feed.PAD_ID
+    y = (np.where(ids >= 0, ids, 0).sum(axis=1) % 2).astype(np.float32)
+    tmp = tempfile.mkdtemp()
+    path = os.path.join(tmp, "ids.rec")
+    mt.feed.write_ids_record(path, [(y[r], ids[r][ids[r] >= 0])
+                                    for r in range(n)])
+    sym = rec_symbol(mt, vocab, dim, EMB_HIDDEN, 2, unique_cap=EMB_CAP)
+    tower = fan_in_params(rec_symbol(mt, 16, dim, EMB_HIDDEN, 2),
+                          {"ids": (EMB_B, EMB_L), "softmax_label": (EMB_B,)},
+                          81)
+    tower.pop("embed_weight")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(82)
+    table = (torch.rand((vocab, dim), generator=gen, device=dev) * 2 - 1) \
+        * 0.05
+    res = {}
+    for tag in ("feed", "host"):
+        if tag == "feed":
+            it = mt.feed.ids_pipeline(path, batch_size=EMB_B, max_len=EMB_L,
+                                      max_epochs=IDS_EPOCHS, data_name="ids")
+        else:
+            it = mt.io.NDArrayIter({"ids": ids}, y, batch_size=EMB_B)
+        mod = mt.mod.Module(sym, data_names=("ids",), context=gpu)
+        marks = []
+
+        def cb(p):
+            if p.epoch == IDS_EPOCHS - 1 and p.nbatch in (0, IDS_BATCHES - 1):
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+        mod.fit(it, num_epoch=IDS_EPOCHS, optimizer="sgd",
+                optimizer_params=dict(EMB_OPT), prefetch_to_device=tag ==
+                "feed", arg_params=dict({k: mt.nd.array(v, ctx=mt.cpu())
+                                         for k, v in tower.items()},
+                                        embed_weight=mt.nd.NDArray(table)),
+                batch_end_callback=cb)
+        if tag == "feed":
+            it.close()
+        res[tag] = {"params": host_params(mod)[0],
+                    "stats": mod._fused.stats.report(),
+                    "step_ms": (marks[1] - marks[0]) * 1e3
+                    / (IDS_BATCHES - 1),
+                    "sparse": bool(mod._fused.sparse_embeds)}
+        del mod
+        gc.collect()
+    named = np.zeros(vocab, bool)
+    named[np.unique(ids[ids >= 0])] = True
+    w = res["feed"]["params"]["embed_weight"]
+    t0 = table.cpu().numpy()
+    frozen = bool(np.array_equal(w[~named], t0[~named]))
+    last = bool(np.array_equal(w[vocab - 1], t0[vocab - 1]))
+    same = bitwise(res["feed"]["params"], res["host"]["params"])
+    print("feed: ids %d x %d, %d batches of %d x %d from %d hot ids, %d "
+          "rows padded with PAD_ID (%d ids), through ids_pipeline + "
+          "fit(prefetch_to_device=True) against an NDArrayIter: params "
+          "bitwise %s, the last row bitwise %s and %d unnamed rows bitwise "
+          "%s (gates); lazy update %s; fused step %s; fit's wall a batch "
+          "(epoch %d) %.3f ms from the feed, %.3f ms from the NDArrayIter; "
+          "card %s"
+          % (vocab, dim, IDS_BATCHES, EMB_B, EMB_L, EMB_HOT, len(short),
+             int((ids < 0).sum()), same, last, int((~named).sum()), frozen,
+             res["feed"]["sparse"], res["feed"]["stats"], IDS_EPOCHS,
+             res["feed"]["step_ms"], res["host"]["step_ms"], smi))
+    import shutil
+    shutil.rmtree(tmp)
+    if not (same and last and frozen and res["feed"]["sparse"]):
+        fail("padded ids through the feed differ from the host batches "
+             "(or touched rows no batch names)")
+    del table
+    torch.cuda.empty_cache()
+    return {"step_ms": res["feed"]["step_ms"],
+            "host_step_ms": res["host"]["step_ms"]}
+
+
+def feed_phase(torch, mt, ck, smi, fit13_img_s, sup18):
+    print("phase 20: the input pipeline; TF32 matmul=%s cudnn=%s; card %s"
+          % (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32, smi))
+    t0 = time.perf_counter()
+    ck.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = os.path.join(tmp, "imagenet-raw256.rec")
+        t1 = time.perf_counter()
+        write_feed_rec(mt, rec)
+        print("feed: wrote %d records (%d bytes) with the port's recordio "
+              "in %.1f s" % (FEED_RECORDS, os.path.getsize(rec),
+                             time.perf_counter() - t1))
+        sym, arg0, aux0, _, _, _ = resnet_setup(mt, 0, 70)
+        res = (sym, arg0, aux0)
+        a = feed_resnet_leg(torch, mt, smi, rec, res, fit13_img_s)
+        a["speculation"] = feed_speculation_leg(torch, mt, smi, rec, res)
+        b = feed_resume_leg(torch, mt, smi, rec, res, a["img_s"])
+    c = feed_superstep_leg(torch, mt, smi, sup18)
+    d = feed_ids_leg(torch, mt, smi)
+    launches = dict(ck.LAUNCHES)
+    print("phase 20: hand-kernel launches on (a)-(d): %s; phase %.1f s"
+          % (launches, time.perf_counter() - t0))
+    if any(launches.values()):
+        fail("the input pipeline's paths launched hand kernels: %s"
+             % launches)
+    return {"resnet": a, "resume": b, "superstep": c, "ids": d}
+
+
 def main():
     # cuBLAS under deterministic algorithms (phase 14) needs a fixed
     # workspace, chosen before the process's first cuBLAS call
@@ -6002,7 +6637,6 @@ def main():
     print("allow_tf32: matmul=%s cudnn=%s" % (
         torch.backends.cuda.matmul.allow_tf32,
         torch.backends.cudnn.allow_tf32))
-
     # phase 2: build
     t0 = time.perf_counter()
     logs = ck.build()
@@ -6100,6 +6734,32 @@ def main():
 
     # phase 19: routed MoE and the sparse embedding engine
     sparse = moe_embed_phase(torch, mt, ck, smi)
+
+    # phase 20: the input pipeline: .rec -> feed -> fit on the card
+    fed = feed_phase(torch, mt, ck, smi, train["resnet"]["fit_img_s"],
+                     rest["superstep"])
+    print("feed result (card %s): %s" % (smi, json.dumps({
+        "resnet50-rec-fit-img_s": round(fed["resnet"]["img_s"], 1),
+        "resnet50-host-fit-img_s": round(train["resnet"]["fit_img_s"], 1),
+        "resnet50-rec-fit-busy": round(fed["resnet"]["busy"], 3),
+        "h2d-bytes-u8": fed["resnet"]["bytes"],
+        "h2d-bytes-f32": fed["resnet"]["f32_bytes"],
+        "reader4-feed-img_s": round(fed["resume"]["feed_img_s"], 1),
+        "reader4-decode-img_s": round(fed["resume"]["decode_img_s"], 1),
+        "feed-headroom": round(fed["resume"]["headroom"], 3),
+        "superstep-prefetch-tokens_s-k1": round(
+            fed["superstep"]["tokens_s_k1"], 1),
+        "superstep-prefetch-tokens_s-k%d" % SUPER_K: round(
+            fed["superstep"]["tokens_s_k"], 1),
+        "superstep-prefetch-busy-k%d" % SUPER_K: round(
+            fed["superstep"]["busy_k"], 3),
+        "superstep-64-tokens_s-k1": round(
+            fed["superstep"]["long_tokens_s"]["k1"], 1),
+        "superstep-64-tokens_s-k%d" % SUPER_K: round(
+            fed["superstep"]["long_tokens_s"]["k_inside"], 1),
+        "superstep-64-prefetch-tokens_s-k%d" % SUPER_K: round(
+            fed["superstep"]["long_tokens_s"]["k_prefetch"], 1),
+        "ids-step_ms": round(fed["ids"]["step_ms"], 3)})))
     kernels = [{
         "name": "fused_fc_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["fused_fc_epilogue"],

@@ -6,9 +6,11 @@ The same user surface as the JAX package, on one NVIDIA H100:
 ``mx.mod``, ``mx.optimizer``, ``mx.init``, ``mx.metric``, ``mx.io``,
 ``mx.lr_scheduler``, ``mx.callback``, ``mx.random``, ``mx.Monitor``,
 ``mx.kv`` (``mx.create_kvstore``), ``mx.model.FeedForward`` and
-``mx.checkpoint``; routed Mixture-of-Experts (``mx.moe``) and the sparse
-embedding engine (``mx.embed``); ``mx.engine``, ``mx.faults`` and
-``mx.profiler``'s serve, superstep, checkpoint, embed and moe reports.
+``mx.checkpoint``; the input pipeline (``mx.recordio``, ``mx.feed``
+and the record iterators of ``mx.io``); routed Mixture-of-Experts
+(``mx.moe``) and the sparse embedding engine (``mx.embed``);
+``mx.engine``, ``mx.faults`` and ``mx.profiler``'s serve, superstep,
+checkpoint, embed, moe and feed reports.
 Plain tensor code is PyTorch; the package's TPU kernels are hand-written Hopper kernels
 (``ops/cuda_kernels.py``, sources in ``csrc/``).  Entry points run on
 ``gpu(0)`` unless the caller asks for ``cpu()``.
@@ -57,6 +59,8 @@ from .optimizer import Optimizer
 from . import lr_scheduler
 from . import metric
 from . import io
+from . import recordio
+from . import feed
 from . import callback
 from . import module
 from . import module as mod
@@ -83,4 +87,4 @@ __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "initializer", "init", "optimizer", "opt", "lr_scheduler",
            "metric", "io", "callback", "module", "mod", "monitor",
            "Monitor", "kvstore", "kv", "create_kvstore", "executor_manager",
-           "FeedForward", "checkpoint", "moe", "embed"]
+           "FeedForward", "checkpoint", "moe", "embed", "recordio", "feed"]

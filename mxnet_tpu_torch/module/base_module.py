@@ -6,11 +6,17 @@ monitor's tic, forward_backward, update, update_metric, the monitor's
 toc, the batch-end callbacks), then the epoch-end callbacks and the
 validation score.  ``superstep=K`` (or ``MXNET_SUPERSTEP``) trains K
 batches per ``superstep_train``, falling back to K=1 with the
-reference's logged reasons; ``checkpoint=``/``checkpoint_every=``/
-``resume=`` save the full train state through ``mx.checkpoint`` and
-resume from the newest committed step by skipping the batches already
-trained.  The device prefetcher, the mesh and autotune wait for their
-slices (ROADMAP.md, queue 1 items 9, 10, 11) and raise when given.
+reference's logged reasons; ``prefetch_to_device=`` stages batches (or
+K-batch megabatches) on the device ahead of their step through
+``feed.device_feed``; a feed whose iterator carries an ``augment_spec``
+(uint8 batches of ``record_pipeline(device_augment=True)``) installs its
+prologue on the fused step.  ``checkpoint=``/``checkpoint_every=``/
+``resume=`` save the full train state through ``mx.checkpoint``, with
+the iterator's feed cursor (``state()``) in ``meta["feed"]``, and resume
+from the newest committed step at the exact next batch: through the
+iterator's ``restore()`` when it has one, else by skipping the batches
+already trained.  The mesh and autotune wait for their slices
+(ROADMAP.md, queue 1 items 10, 11) and raise when given.
 """
 from __future__ import annotations
 
@@ -24,9 +30,8 @@ from ..initializer import Uniform
 
 __all__ = ["BaseModule"]
 
-_NOT_PORTED = {
-    "prefetch_to_device": "queue 1 item 9", "mesh": "queue 1 item 10",
-    "sharding": "queue 1 item 10", "autotune": "queue 1 item 11"}
+_NOT_PORTED = {"mesh": "queue 1 item 10", "sharding": "queue 1 item 10",
+               "autotune": "queue 1 item 11"}
 
 
 def _fire_callbacks(callbacks, param):
@@ -54,10 +59,27 @@ class BaseModule:
         self.forward(data_batch, is_train=True)
         self.backward()
 
+    def _wire_eval_augment(self, eval_data):
+        """A device-augment pipeline (uint8 wire, feed.AugmentSpec on the
+        iterator) used for score/predict installs its prologue on the
+        fused step -- or fails with the actionable message -- before its
+        batches reach the step (reference base_module.py:57-85)."""
+        spec = getattr(eval_data, "augment_spec", None)
+        if spec is None:
+            return
+        applier = getattr(self, "apply_augment_spec", None)
+        if applier is None or not applier(spec):
+            raise MXNetError(
+                "eval_data ships uint8 device-augment batches but this "
+                "module has no fused step to run the on-device "
+                "prologue; rebuild the pipeline with "
+                "device_augment=False (or MXNET_FEED_DEVICE_AUGMENT=0)")
+
     def score(self, eval_data, eval_metric, num_batch=None,
               batch_end_callback=None, reset=True, epoch=0):
         """Evaluate ``eval_metric`` over ``eval_data``; -> [(name, value)]."""
         assert self.binded and self.params_initialized
+        self._wire_eval_augment(eval_data)
         if reset:
             eval_data.reset()
         if not isinstance(eval_metric, metric_mod.EvalMetric):
@@ -77,6 +99,7 @@ class BaseModule:
 
     def iter_predict(self, eval_data, num_batch=None, reset=True):
         assert self.binded and self.params_initialized
+        self._wire_eval_augment(eval_data)
         if reset:
             eval_data.reset()
         for nbatch, eval_batch in enumerate(eval_data):
@@ -93,6 +116,7 @@ class BaseModule:
         """Outputs over ``eval_data``, the pad rows of the last batch cut
         (reference base_module.py predict)."""
         assert self.binded and self.params_initialized
+        self._wire_eval_augment(eval_data)
         if reset:
             eval_data.reset()
         output_list = []
@@ -136,15 +160,23 @@ class BaseModule:
         at the K-th), the epoch-end callbacks with the current params,
         and the validation score on ``eval_data``.
 
+        ``prefetch_to_device``: wrap ``train_data`` with the feed's
+        device prefetcher (``Module.prefetch_to_device``), so batch N+1's
+        copy to the device is issued while batch N trains; an int sets
+        the lookahead depth (True = 2).  With ``superstep=K`` it stages
+        whole megabatches.
+
         ``checkpoint``: a ``mx.checkpoint.CheckpointManager`` or a
         directory; saves every ``checkpoint_every`` batches and at every
-        epoch end.  ``resume=True`` restores the newest committed step
-        and skips the batches it had trained.  A SIGTERM caught by the
-        manager's ``install_preemption_handler`` snapshots at the next
-        batch boundary and returns.  ``work_load_list`` is the
+        epoch end, with ``train_data.state()`` (a feed cursor) in
+        ``meta["feed"]`` when the iterator has one.  ``resume=True``
+        restores the newest committed step and continues from the exact
+        next batch: ``train_data.restore(meta["feed"])`` when both exist,
+        else by skipping the batches it had trained.  A SIGTERM caught
+        by the manager's ``install_preemption_handler`` snapshots at the
+        next batch boundary and returns.  ``work_load_list`` is the
         constructor's (the reference's fit ignores it too)."""
-        given = {"prefetch_to_device": prefetch_to_device, "mesh": mesh,
-                 "sharding": sharding, "autotune": autotune}
+        given = {"mesh": mesh, "sharding": sharding, "autotune": autotune}
         for name, value in given.items():
             if value not in (None, False):
                 raise NotImplementedError(
@@ -163,6 +195,34 @@ class BaseModule:
                          force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        # compact-feed pipelines (record_pipeline(device_augment=True))
+        # ship uint8 HWC batches and carry the spec the fused step runs
+        # at its head (reference base_module.py:160-188)
+        aug_spec = getattr(train_data, "augment_spec", None)
+        eval_spec = getattr(eval_data, "augment_spec", None) \
+            if eval_data is not None else None
+        if aug_spec is not None and eval_spec is not None and \
+                aug_spec.signature() != eval_spec.signature():
+            # one step carries ONE prologue; two specs would silently
+            # augment eval with the train parameters
+            raise MXNetError(
+                "train_data and eval_data carry different device-augment "
+                "specs (%r vs %r); build both pipelines with the same "
+                "augmentation parameters" % (aug_spec, eval_spec))
+        aug_spec = aug_spec or eval_spec
+        applier = getattr(self, "apply_augment_spec", None)
+        if aug_spec is not None:
+            if applier is None or not applier(aug_spec):
+                raise MXNetError(
+                    "the training/eval feed ships uint8 device-augment "
+                    "batches but this module has no fused train step to "
+                    "run the on-device prologue; rebuild the pipeline "
+                    "with device_augment=False (or MXNET_FEED_DEVICE_"
+                    "AUGMENT=0) for the host-augmented f32 path")
+        elif callable(applier):
+            # a spec left by an earlier fit on this module would key this
+            # float32 feed's graphs apart and block the classic fallback
+            applier(None)
         if checkpoint is None and resume:
             raise MXNetError(
                 "fit(resume=True) needs checkpoint=<manager or directory>; "
@@ -186,7 +246,7 @@ class BaseModule:
                            epoch_end_callback, batch_end_callback,
                            eval_batch_end_callback, begin_epoch, num_epoch,
                            validation_metric, monitor, ckpt_mgr, resume,
-                           superstep)
+                           superstep, prefetch_to_device)
         finally:
             if owns_mgr:
                 ckpt_mgr.close()
@@ -194,7 +254,8 @@ class BaseModule:
     def _fit_loop(self, train_data, eval_data, eval_metric,
                   epoch_end_callback, batch_end_callback,
                   eval_batch_end_callback, begin_epoch, num_epoch,
-                  validation_metric, monitor, ckpt_mgr, resume, superstep):
+                  validation_metric, monitor, ckpt_mgr, resume, superstep,
+                  prefetch_to_device=False):
         if validation_metric is None:
             validation_metric = eval_metric
         if not isinstance(eval_metric, metric_mod.EvalMetric):
@@ -217,6 +278,14 @@ class BaseModule:
                 self.logger.info("superstep disabled (K=%d -> 1): %s",
                                  k_super, blocker)
                 use_super = False
+        if prefetch_to_device and hasattr(self, "prefetch_to_device"):
+            # after init_optimizer, so batches land on the fused step's
+            # device; under a superstep the prefetcher stages megabatches
+            depth = 2 if prefetch_to_device is True \
+                else max(1, int(prefetch_to_device))
+            train_data = self.prefetch_to_device(
+                train_data, depth=depth, megabatch=k_super if use_super
+                else 1)
 
         global_step = 0
         start_epoch, start_batch = begin_epoch, 0
@@ -227,15 +296,26 @@ class BaseModule:
                 global_step = int(meta.get("global_step", 0))
                 start_epoch = int(meta.get("epoch", begin_epoch))
                 start_batch = int(meta.get("nbatch", 0))
-                # no feed cursor in the port's iterators: skip the
-                # batches the checkpoint had trained
-                skipped = 0
-                while skipped < start_batch:
-                    try:
-                        train_data.next()
-                    except StopIteration:
-                        break
-                    skipped += 1
+                restore = getattr(train_data, "restore", None)
+                feed_state = meta.get("feed")
+                if feed_state is not None and callable(restore):
+                    restore(feed_state)
+                elif start_batch and callable(restore):
+                    # a cursor-less checkpoint resumed into a feed wrapper
+                    # (prefetch added after the save): its restore()
+                    # skips UNDERLYING batches, where next() would pop
+                    # whole megabatches
+                    restore({"batch": start_batch})
+                else:
+                    # a plain DataIter: skip the batches the checkpoint
+                    # had trained (counting those a megabatch carries)
+                    skipped = 0
+                    while skipped < start_batch:
+                        try:
+                            b = train_data.next()
+                        except StopIteration:
+                            break
+                        skipped += getattr(b, "megabatch", 1)
                 self.logger.info(
                     "resumed from checkpoint step %d: epoch %d, batch %d",
                     global_step, start_epoch, start_batch)
@@ -243,9 +323,12 @@ class BaseModule:
 
         def ckpt_save(epoch_, nbatch_, blocking=False):
             from ..checkpoint import save_module
-            save_module(ckpt_mgr, self, global_step,
-                        meta={"global_step": global_step, "epoch": epoch_,
-                              "nbatch": nbatch_}, blocking=blocking)
+            meta = {"global_step": global_step, "epoch": epoch_,
+                    "nbatch": nbatch_}
+            if callable(getattr(train_data, "state", None)):
+                meta["feed"] = train_data.state()
+            save_module(ckpt_mgr, self, global_step, meta=meta,
+                        blocking=blocking)
             last_saved_step[0] = global_step
 
         for epoch in range(start_epoch, num_epoch):
@@ -304,28 +387,59 @@ class BaseModule:
                                ckpt_from=ckpt_from)
 
             if use_super:
+                # K batches, or one prefetch-staged megabatch, per
+                # superstep (reference base_module.py:555-610); a
+                # prefetcher stages the next megabatch before each drain
                 data_iter = iter(train_data)
+                stage = getattr(train_data, "stage_ahead", None)
+                ahead = {"before_drain": stage} if callable(stage) else {}
                 while not preempted:
-                    group = []
-                    while len(group) < k_super:
+                    mega, pulled = None, []
+                    while len(pulled) < k_super:
                         try:
-                            group.append(next(data_iter))
+                            b = next(data_iter)
                         except StopIteration:
                             break
-                    if not group:
+                        if getattr(b, "megabatch", 0) > 1:
+                            mega = b
+                            break
+                        pulled.append(b)
+                    if mega is None and not pulled:
                         break
-                    if len(group) == k_super and \
-                            self.superstep_train(group, eval_metric):
-                        fire_batch_end(nbatch + k_super - 1,
-                                       {"group": group})
-                        if advance(k_super):
+                    if pulled and (mega is not None
+                                   or len(pulled) < k_super):
+                        # plain batches that cannot form a full K (the
+                        # epoch tail, or stragglers ahead of a megabatch):
+                        # one at a time, never dropped; the feed cursor
+                        # already counts them all, so saves wait for the
+                        # group's end
+                        start_step = global_step
+                        for i, b in enumerate(pulled):
+                            last = i == len(pulled) - 1
+                            if train_one(b, allow_ckpt=last,
+                                         ckpt_from=(start_step if last
+                                                    else None)):
+                                return
+                        pulled = []
+                    group = mega if mega is not None else pulled
+                    if not group:
+                        continue
+                    count = mega.megabatch if mega is not None \
+                        else len(pulled)
+                    if self.superstep_train(group, eval_metric,
+                                            **ahead):
+                        fire_batch_end(nbatch + count - 1, {"group": group})
+                        if advance(count):
                             return
                         continue
-                    # a partial tail, or a superstep refused: one batch
-                    # at a time, saves deferred to the group's end
+                    # a superstep refused: one batch at a time (an
+                    # unstacked megabatch was counted whole by the feed
+                    # cursor), saves deferred to the group's end
+                    singles = mega.unstack() if mega is not None \
+                        else pulled
                     start_step = global_step
-                    for i, b in enumerate(group):
-                        last = i == len(group) - 1
+                    for i, b in enumerate(singles):
+                        last = i == len(singles) - 1
                         if train_one(b, allow_ckpt=last,
                                      ckpt_from=start_step if last else None):
                             return

@@ -58,6 +58,18 @@ already on the card through a non-blocking copy read a batch later: the
 sample adds no host sync.  A graph with
 ``_moe_dispatch`` nodes registers ``moe_stats`` (``moe_report()``); its
 routing rides the step unchanged.
+
+**device augmentation** (reference ``fused.py:247-315``): with a
+``feed.AugmentSpec`` installed (``set_device_augment``), a 4-D uint8
+first data input (the compact HWC wire of
+``record_pipeline(device_augment=True)``) is cropped, flipped, cast and
+normalized at the head of the step (``feed.augment.augment_batch``),
+inside its graph; its draws come from the device's generator, which
+speculation's snapshot and the checkpoints save.  A float32 batch (a
+host-augmented eval iterator) passes through, and the batch key holds the
+dtype, so each wire format has its own graph.  Batches already staged on
+the step's device (``batched_sharding()``, the feed's prefetcher) are
+copied device to device into the static buffers.
 """
 from __future__ import annotations
 
@@ -189,10 +201,60 @@ class FusedTrainStep:
         # the metric reducer's captured update per (batch key, reducer
         # signature): (graph or None while warming, static accumulators)
         self._metric_graphs: Dict[tuple, list] = {}
+        # feed.AugmentSpec of the uint8 wire, or None
+        self.device_augment = None
+        # a list to append (uint8 input, draws, augmented batch) of each
+        # eager step to, or None (a check's probe)
+        self.augment_probe = None
 
     @property
     def captured(self) -> bool:
         return self.device.type == "cuda"
+
+    def batched_sharding(self) -> torch.device:
+        """Where input pipelines stage batches (feed.device_feed,
+        DevicePutStage): the step's device.  ``make_batch`` copies them
+        device to device into its static buffers."""
+        return self.device
+
+    def megabatched_sharding(self) -> torch.device:
+        """Where a K-step megabatch is staged: the step's device."""
+        return self.device
+
+    # -- on-device augmentation ---------------------------------------------
+    def set_device_augment(self, spec) -> None:
+        """Install (or clear) the augmentation prologue.  A real change
+        drops the captured graphs (the prologue is part of them); a
+        no-op set (the same spec, or None over None) keeps them."""
+        def sig(s):
+            return s.signature() if s is not None else None
+        if sig(spec) == sig(self.device_augment):
+            return
+        self.device_augment = spec
+        self._graphs.clear()
+        self._warm.clear()
+        self._metric_graphs.clear()
+
+    def _maybe_augment(self, batch: Dict[str, torch.Tensor], train: bool):
+        """The prologue: applies ONLY when the first data input is a 4-D
+        uint8 tensor (the compact HWC wire) -- a float32 batch from a
+        host-augmented eval iterator passes through untouched."""
+        spec = self.device_augment
+        if spec is None or not self.data_names:
+            return batch
+        name = self.data_names[0]
+        x = batch.get(name)
+        if x is None or x.dtype != torch.uint8 or x.dim() != 4:
+            return batch
+        from ..feed.augment import augment_batch
+        out = dict(batch)
+        draws = []
+        out[name] = augment_batch(x, _random.generator(self.device), spec,
+                                  train, out_draws=draws)
+        if self.augment_probe is not None and not (
+                x.is_cuda and torch.cuda.is_current_stream_capturing()):
+            self.augment_probe.append((x.clone(), draws[0], out[name]))
+        return out
 
     # -- state ---------------------------------------------------------------
     def init_state(self, arg_params: Dict[str, NDArray],
@@ -349,7 +411,7 @@ class FusedTrainStep:
         st["t"].add_(1.0)
         args = dict(params)
         args.update(st["fixed"])
-        args.update(batch)
+        args.update(self._maybe_augment(batch, True))
         opctx = OpContext(is_train=True,
                           generator=_random.generator(self.device))
         with torch.enable_grad():
@@ -422,9 +484,28 @@ class FusedTrainStep:
 
     # -- superstep ------------------------------------------------------------
     def make_megabatch(self, batches):
-        """Stage K DataBatch on the device at once: ``{name: (K, B, ...)
-        tensor}``, stacked on the host and sent in one copy per input
-        (through pinned memory on the card).  -> (K, megabatch)."""
+        """Stage K batches on the device at once: ``{name: (K, B, ...)
+        tensor}``.  ``batches`` is a list of K DataBatch, stacked on the
+        host and sent in one copy per input (through pinned memory on the
+        card), or a pre-staged ``feed.MegaBatch`` whose stacked arrays
+        already on the device are used as they are.  -> (K, megabatch)."""
+        from ..feed.staging import stack_batch_arrays
+        if hasattr(batches, "megabatch"):
+            k = int(batches.megabatch)
+            out = {}
+            for names, arrs in ((self.data_names, batches.data or []),
+                                (self.label_names, batches.label or [])):
+                for i, name in enumerate(names):
+                    if i >= len(arrs) or arrs[i] is None:
+                        raise MXNetError("superstep training needs input %r"
+                                         % name)
+                    a = arrs[i]
+                    t = a._get() if isinstance(a, NDArray) \
+                        else torch.as_tensor(a)
+                    out[name] = t.to(self.device)
+            for i in range(k):
+                self._note_ids({n: t[i] for n, t in out.items()})
+            return k, out
         k = len(batches)
         out = {}
         for b in batches:
@@ -441,13 +522,8 @@ class FusedTrainStep:
                     if i >= len(arrs) or arrs[i] is None:
                         raise MXNetError("superstep training needs input %r"
                                          % name)
-                    a = arrs[i]
-                    col.append(a._get() if isinstance(a, NDArray)
-                               else torch.as_tensor(a))
-                host = torch.stack([c.detach().cpu() for c in col])
-                if self.device.type == "cuda":
-                    host = host.pin_memory()
-                out[name] = host.to(self.device, non_blocking=True)
+                    col.append(arrs[i])
+                out[name] = stack_batch_arrays(col, self.device)
         return k, out
 
     def superstep(self, k: int, mega: Dict[str, torch.Tensor], lrs,
@@ -521,14 +597,15 @@ class FusedTrainStep:
     # -- speculation ----------------------------------------------------------
     def snapshot_state(self):
         """A device copy of the train state (params, fixed, aux, optimizer
-        slots, the step count), enqueued on the current stream; the host
-        generator's state rides along."""
+        slots, the step count), enqueued on the current stream; the
+        device generator's state rides along."""
         with torch.no_grad():
             snap = {g: map_structure(lambda t: t.detach().clone(),
                                      self.state[g])
                     for g in ("params", "fixed", "aux", "opt", "t")}
-        if self.device.type != "cuda":
-            snap["rng"] = _random.generator(self.device).get_state()
+        # the generator's state (on the card its seed and offset, kept on
+        # the host): a discarded step drawn again draws the same numbers
+        snap["rng"] = _random.generator(self.device).get_state()
         return snap
 
     def restore_state(self, snap) -> None:
@@ -557,7 +634,7 @@ class FusedTrainStep:
         st = self.state if state is None else state
         args = dict(st["params"])
         args.update(st["fixed"])
-        args.update(batch)
+        args.update(self._maybe_augment(batch, is_train))
         opctx = OpContext(is_train=is_train,
                           generator=_random.generator(self.device))
         with torch.no_grad():

@@ -19,11 +19,15 @@ Two paths, as in the reference:
   and the updater per parameter and device, or the kvstore's own update
   (``model._update_params`` / ``_update_params_on_kvstore``).
 
-``superstep_train`` runs K batches as K replays of the captured step
-with the metric reduced on the device and drained once (``fit``'s
-``superstep=``).  Outputs asked for between a train forward and
-``update()`` run the pending step early (``_fused_commit_early``); a new
-forward puts the state from before it back (``_discard_speculation``).
+``superstep_train`` runs K batches (a list, or a ``feed.MegaBatch``
+staged by ``prefetch_to_device(megabatch=K)``) as K replays of the
+captured step with the metric reduced on the device and drained once
+(``fit``'s ``superstep=``).  ``apply_augment_spec`` installs a uint8
+feed's augmentation prologue on the fused step; the classic path cannot
+take that wire, so leaving the fused path with one installed raises.
+Outputs asked for between a train forward and ``update()`` run the
+pending step early (``_fused_commit_early``); a new forward puts the
+state from before it back (``_discard_speculation``).
 
 A monitor (``install_monitor``), duplicate contexts (``[gpu(0),
 gpu(0)]``, how several devices run on one card), mixed device types and
@@ -415,6 +419,32 @@ class Module(BaseModule):
         self._fused_outputs = None
         self._fused_copies = None
 
+    def apply_augment_spec(self, spec):
+        """Install a feed pipeline's on-device augmentation spec
+        (``feed.AugmentSpec``, carried by ``record_pipeline(device_augment=
+        True)`` iterators; None clears it) on the fused train step
+        (reference module.py:542-560).  -> False when the fused path is
+        not engaged: the classic path binds float32 CHW inputs and cannot
+        take the uint8 HWC wire, so the caller must rebuild the pipeline
+        host-side."""
+        if self._fused is None or not self.optimizer_initialized:
+            return False
+        self._fused.set_device_augment(spec)
+        return True
+
+    def prefetch_to_device(self, data_iter, depth=2, megabatch=1):
+        """Wrap ``data_iter`` so each batch's copy to the device is issued
+        ``depth`` steps ahead of its use (``feed.device_feed``), onto the
+        fused step's device, whose ``make_batch`` then copies it device
+        to device.  ``megabatch=K`` stages K-batch megabatches (stacked
+        leading axis, the superstep's input) instead, so the next
+        megabatch's copy overlaps the current superstep.  Call after
+        init_optimizer; fit(prefetch_to_device=True) does this
+        (reference module.py:797-810)."""
+        from .. import feed as _feed
+        return _feed.device_feed(data_iter, module=self, depth=depth,
+                                 megabatch=megabatch)
+
     def _disable_fused(self, reason, replay_backward=True):
         """Leave the fused path mid-training with consistent state: the
         live params back into the host dicts and the executor group, the
@@ -423,6 +453,14 @@ class Module(BaseModule):
         through the executor group."""
         if self._fused is None:
             return
+        if self._fused.device_augment is not None:
+            # the classic path binds float32 CHW inputs; a uint8 HWC feed
+            # has no host fallback: fail with the cause
+            raise MXNetError(
+                "cannot leave the fused train step (%s): on-device "
+                "augmentation is active and the classic path cannot "
+                "consume the uint8 feed; rebuild the pipeline with "
+                "device_augment=False to use the fallback" % reason)
         fused, pend = self._fused, self._fused_pending
         if self._fused_next is not None:
             # the early step of the pending batch has not committed: its
@@ -537,10 +575,13 @@ class Module(BaseModule):
                 return "batch-end callback %r inspects per-step outputs" % cb
         return None
 
-    def superstep_train(self, batches, eval_metric=None):
-        """Advance K training batches (a list of K DataBatch) as K replays
-        of the captured step, the metric reduced on the device and
-        drained once (reference module.py:840-946).  -> True when the
+    def superstep_train(self, batches, eval_metric=None, before_drain=None):
+        """Advance K training batches (a list of K DataBatch, or a
+        pre-staged ``feed.MegaBatch``, K taken from it) as K replays of
+        the captured step, the metric reduced on the device and drained
+        once (reference module.py:840-946).  ``before_drain`` (no
+        arguments) runs once the K steps are queued and before the
+        drain waits for them: ``fit`` stages the next megabatch there.  -> True when the
         superstep ran; False when the caller must run these batches one
         at a time (the fused path is gone, or the optimizer values the
         step baked in changed)."""
@@ -593,6 +634,8 @@ class Module(BaseModule):
             raise
         self._params_dirty = True
         self._superstep_runs += 1
+        if before_drain is not None:
+            before_drain()
         wait_s = 0.0
         if reducer is not None:
             t2 = time.perf_counter()

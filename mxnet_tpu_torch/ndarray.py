@@ -36,7 +36,8 @@ from . import engine as _engine
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "arange", "empty",
            "concatenate", "concat", "onehot_encode", "clip", "dot",
            "batch_dot", "transpose", "sum", "max", "min", "norm",
-           "argmax_channel", "choose_element_0index", "waitall", "save",
+           "argmax_channel", "choose_element_0index", "imdecode", "waitall",
+           "save",
            "load", "loads", "torch_dtype", "numpy_dtype",
            "register_ndarray_fn", "list_functions"]
 
@@ -492,6 +493,15 @@ def choose_element_0index(lhs: NDArray, rhs: NDArray) -> NDArray:
     a = lhs._get()
     idx = rhs._get().to(torch.int64)
     return NDArray(a[torch.arange(a.shape[0], device=a.device), idx])
+
+
+def imdecode(str_img, clip_rect=(0, 0, 0, 0), out=None, index=0,
+             channels=3, mean=None):
+    """Decode an image (reference plugin/opencv): raises, as the
+    reference's build without the opencv plugin does.  Decode JPEG/PNG
+    records with ``io.ImageRecordIter`` or ``feed.record_pipeline``."""
+    raise MXNetError("imdecode requires the opencv plugin; not available "
+                     "in this build")
 
 
 def waitall() -> None:

@@ -18,7 +18,10 @@ Every ``Module`` that runs ``fit(superstep=K)`` registers a
 sparse tables, an ``EmbeddingTable``) its ``EmbedStats``
 (:func:`embed_report`) and every MoE consumer (a fused step routing
 through ``_moe_dispatch``, a ``DecodeEngine`` sampling its hits state)
-its ``MoeStats`` (:func:`moe_report`).
+its ``MoeStats`` (:func:`moe_report`).  Every feed pipeline
+(``feed.Pipeline``, ``feed.DevicePrefetchIter``) registers its
+``PipelineStats`` (:func:`feed_report`), with the per-worker counters
+that ``feed.ParallelReader``'s processes publish through shared memory.
 
 The trace timeline, ``scope`` and the other report families wait for
 ROADMAP.md queue 1 item 12.
@@ -33,7 +36,8 @@ __all__ = ["register_serve_stats", "serve_report", "serve_report_str",
            "superstep_report_str", "register_checkpoint_stats",
            "checkpoint_report", "checkpoint_report_str",
            "register_embed_stats", "embed_report", "embed_report_str",
-           "register_moe_stats", "moe_report", "moe_report_str"]
+           "register_moe_stats", "moe_report", "moe_report_str",
+           "register_feed_stats", "feed_report", "feed_report_str"]
 
 # register() runs on constructing threads while readers iterate: every
 # reader snapshot-copies under this lock first
@@ -91,6 +95,33 @@ def serve_report() -> dict:
 def serve_report_str() -> str:
     """Human-readable per-component serving table."""
     return _serve_registry.report_str()
+
+
+# -- feed pipelines (mxnet_tpu_torch.feed) -------------------------------------
+# Every stage of every live pipeline: items/s, busy time, producer and
+# consumer stall time, queue depth; a multi-process reader stage merges
+# its workers' counters (items/s, busy time, restarts, liveness) into
+# each snapshot, so the report covers the whole reader process tree.
+_feed_registry = _Registry("feed", "(no live feed pipelines)")
+
+
+def register_feed_stats(pipeline_stats) -> None:
+    """Called by feed.Pipeline / feed.DevicePrefetchIter on construction."""
+    _feed_registry.register(pipeline_stats)
+
+
+def feed_report() -> dict:
+    """{pipeline key: {stage name: counters}} for every live pipeline."""
+    return _feed_registry.report()
+
+
+def feed_report_str() -> str:
+    """Human-readable per-stage table for every live feed pipeline."""
+    out = _feed_registry.report_str()
+    if len(_superstep_registry):
+        out += ("\n\n(superstep dispatch/wait/stage split: see "
+                "mx.profiler.superstep_report_str())")
+    return out
 
 
 # -- superstep (Module.superstep_train) ---------------------------------------
