@@ -239,8 +239,27 @@ Phases, in order; any failure exits nonzero:
    same fit over an ``NDArrayIter``, the last row and unnamed rows
    untouched; 0 hand-kernel launches on (a)-(d); the ``feed result``
    line;
-   then the ``kernels`` JSON line (all four kernels), then the ``{"ok":
-   true, ...}`` line.
+21. scale-out (``dist/``, ``parallel/``, the dist kvstores): (a) a mesh
+   of one rank (NCCL, world 1): ``Module.fit(mesh=make_mesh("dp=1"))``
+   and ``DPTrainStep`` on ResNet-50 at batch 128 (bench.py's SGD) over 4
+   seeded batches under deterministic cuDNN, bitwise to ``fit`` without
+   a mesh, one capture holding the step's collectives, the captured
+   steps' img/s and busy share beside phase 13's; (b)-(d) two ranks
+   sharing gpu(0) (gloo by the backend rule, started with the
+   launcher's envs): ``fit(kvstore="dist_sync")`` and ``fit(mesh=dp=2)``
+   on the same batches, bitwise to each other, each against (a) under
+   the one-ulp nudge's drift (first step and after 4), img/s and the
+   collectives' share of a step; ring and Ulysses attention at sp=2,
+   H 12, D 64, B 1, T 16,384, causal and not, each rank's shard against
+   the flash kernel over the whole sequence, the gradient at T 2,048
+   against ``attention_reference``'s; ``GPipeTrainStep`` at pp=2 over two
+   768 -> 3072 -> 768 tanh stages, 8 microbatches of 8 x 1,024 tokens,
+   against the stages in sequence; (e) ``dist_async`` through
+   ``tools/launch.py -n 2 -s 1``: the nightly MLP on the card to 0.90,
+   one init/push/pull round of ResNet-50's parameters; the ``scale-out
+   result`` line;
+   then the whole script's wall, the ``kernels`` JSON line (all four
+   kernels), then the ``{"ok": true, ...}`` line.
 """
 import gc
 import json
@@ -6608,7 +6627,613 @@ def feed_phase(torch, mt, ck, smi, fit13_img_s, sup18):
     return {"resnet": a, "resume": b, "superstep": c, "ids": d}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: scale-out on the card (ROADMAP queue 1 item 10's first part)
+#
+# (a) one rank, an NCCL world of 1 on gpu(0): Module.fit(mesh=
+# make_mesh("dp=1")) and DPTrainStep on ResNet-50 at batch 128 (bench.py's
+# SGD, lr 0.05, momentum 0.9) over SCALE_STEPS seeded batches, against
+# Module.fit without a mesh (phase 13's fused step) on the same batches
+# under deterministic cuDNN; the captured step's NCCL all-reduce profiled
+# in a replay.  (b)-(d) two ranks sharing gpu(0) (gloo by the backend
+# rule: NCCL refuses two ranks on one card), started as tools/launch.py's
+# workers are (dist.spawn: the launcher's envs): (b) Module.fit(kvstore=
+# "dist_sync") (64 rows a rank) and fit(mesh=make_mesh("dp=2")) (each
+# rank fed the 128-row batch) on the same batches against (a)'s one-rank
+# run; (c) ring and Ulysses attention at sp=2 at GPT-2-small's attention
+# geometry (H 12, D 64, float32), B 1, T 16,384, causal and not, each
+# rank's output shard against the flash kernel over the whole sequence,
+# and the gradient at T 2,048 against attention_reference's autograd;
+# (d) GPipeTrainStep at pp=2 over two GPT-2-small MLP stages (768 ->
+# 3072 -> 768, tanh), M = 8 microbatches of 8 x 1,024 tokens, outputs and
+# gradients against the two stages run in sequence on one rank.  (e)
+# dist_async through tools/launch.py -n 2 -s 1: the nightly MLP on the
+# card through the parameter server, then one init/push/pull round of
+# ResNet-50's 25.5 M parameters.
+
+SCALE_STEPS = 4
+# (b): 2 ranks of 64 rows against 1 rank of 128 differ in arithmetic
+# only: cuDNN picks algorithms per batch size, BatchNorm's global
+# statistics and the gradients are summed from two halves, and cuDNN's
+# default weight gradients use atomics.  The relus and max-pool ties
+# after BatchNorm carry such noise on, and ResNet-50 at init with lr
+# 0.05 amplifies it from the first step: after 4 steps the data nudged
+# by one ulp (np.nextafter, the JAX package's own drift rule for
+# BatchNorm nets, tests/test_torch_zoo.py) moves the params as far as
+# the 4 steps' update itself, so the 4-step params and moving
+# statistics are printed as readings, not held to a gate.  The gates
+# are (b)'s first step: its update (params after one step less the
+# initial ones) and its moving statistics' change against (a)'s first
+# step, relative L2, each at most SCALE_RATIO times the one-ulp nudge's
+# first-step difference; the two ranks' params and moving statistics
+# equal after 4 steps; and the two routes of (b) over the same rows,
+# dist_sync (each rank fed its 64 rows) and fit(mesh=dp=2) (each rank
+# fed the 128 and keeping its 64), under deterministic cuDNN, bitwise.
+# What planted faults read against these gates is in PERF.md.
+SCALE_RATIO = 10.0
+RING_T, RING_GRAD_T, ATTN_H, ATTN_D = 16384, 2048, 12, 64
+# the gradient through ring/Ulysses against attention_reference's, both
+# float32 einsums: relative to the largest gradient element
+ATTN_GRAD_RTOL = 1e-4
+PIPE_M, PIPE_ROWS, PIPE_WIDTH, PIPE_HIDDEN = 8, 8 * 1024, 768, 3072
+# pipeline against the sequence of stages: the same float32 products,
+# cuBLAS may tile 8,192-row and 65,536-row GEMMs differently; relative to
+# the largest element
+PIPE_RTOL = 1e-4
+ASYNC_ACC = 0.90      # tests/nightly/dist_async_mlp.py's bound
+
+
+def first_step_l2(got, want, init):
+    """Relative L2 of one step's change: (got - init) against (want -
+    init), over every tensor of the dicts."""
+    return rel_l2([{k: got[k] - init[k] for k in init}],
+                  [{k: want[k] - init[k] for k in init}])
+
+
+def fit_readings(ranks, name, one, one_first, init):
+    """(b)'s route ``name`` against (a)'s one-rank run: the first step's
+    update and moving-statistics change (relative L2, and the three
+    tensors of the update furthest off), the params and moving
+    statistics after the last step, and whether the two ranks agree."""
+    r0 = ranks[0][name]
+    first = [first_step_l2(r0["first"][i], one_first[i], init[i])
+             for i in (0, 1)]
+    worst = sorted((first_step_l2({k: r0["first"][0][k]},
+                                  {k: one_first[0][k]}, {k: init[0][k]}), k)
+                   for k in init[0]
+                   if np.any(one_first[0][k] != init[0][k]))[-3:]
+    steps = [rel_l2([r0["params"][i]], [one[i]]) for i in (0, 1)]
+    same = ranks[0][name]["digest"] == ranks[1][name]["digest"]
+    return {"first": first, "worst": worst, "steps": steps, "same": same}
+
+
+def param_digest(params):
+    return {k: float(np.abs(v.astype(np.float64)).sum())
+            for d in params for k, v in d.items()}
+
+
+def scaleout_one_rank(torch, mt, ck, smi, res, r13):
+    """(a): -> the 4-step params of fit(mesh=dp=1) (host arg, aux)."""
+    from mxnet_tpu_torch.dist import boot
+    from mxnet_tpu_torch.module.fused import WARMUP_STEPS
+    from mxnet_tpu_torch.parallel import collectives as C
+    sym, arg0, aux0, batches, pd, pl = res
+    b = RESNET_BATCH
+    mesh = mt.parallel.make_mesh("dp=1")
+    mesh.axis("dp")
+    print("scaleout: (a) %s" % boot.describe())
+    if boot.backend() != "nccl":
+        fail("one rank with a card of its own must take NCCL")
+    ck.reset_launches()
+    torch.backends.cudnn.deterministic = True
+    try:
+        first = []
+
+        def fit(m, feed=batches):
+            mod = mt.mod.Module(sym, context=mt.gpu(0))
+            mod.fit(batch_iter(mt, feed, pd, pl), num_epoch=1,
+                    optimizer_params=dict(TRAIN_OPT), arg_params=arg0,
+                    aux_params=aux0, mesh=m, batch_end_callback=lambda p:
+                    first.append(host_params(mod)) if p.nbatch == 0
+                    else None)
+            return mod
+        nudged = [mt.io.DataBatch(
+            data=[mt.nd.array(np.nextafter(bt.data[0].asnumpy(),
+                                           np.float32(np.inf)),
+                              ctx=mt.cpu())],
+            label=bt.label, pad=0) for bt in batches]
+        mn = fit(None, nudged)
+        pn = host_params(mn)
+        pn_first = first[-1]
+        del mn
+        m13 = fit(None)
+        p13 = host_params(m13)
+        nudge = [rel_l2([pn[i]], [p13[i]]) for i in (0, 1)]
+        C.reset_stats()
+        m21 = fit(mesh)
+        p21_first = first[-1]
+        init = ({k: v.asnumpy() for k, v in arg0.items()},
+                {k: v.asnumpy() for k, v in aux0.items()})
+        nudge_first = [first_step_l2(pn_first[i], p21_first[i], init[i])
+                       for i in (0, 1)]
+        coll = dict(C.STATS)
+        stats = m21._fused.stats.report()
+        p21 = host_params(m21)
+        same = bitwise(p13[0], p21[0]) and bitwise(p13[1], p21[1])
+        step = mt.parallel.DPTrainStep(
+            sym, mesh, learning_rate=TRAIN_OPT["learning_rate"],
+            momentum=TRAIN_OPT["momentum"], weight_decay=0.0,
+            ctx=mt.gpu(0))
+        state = step.init({k: v.asnumpy() for k, v in arg0.items()},
+                          {k: v.asnumpy() for k, v in aux0.items()})
+        for bt in batches:
+            state, outs = step(state, step.shard_batch(
+                {"data": bt.data[0].asnumpy(),
+                 "softmax_label": bt.label[0].asnumpy()}))
+        pdp = (step.params_numpy(state),
+               {k: v.cpu().numpy() for k, v in state["aux"].items()})
+        dp_same = bitwise(pdp[0], p13[0]) and bitwise(pdp[1], p13[1])
+        dp_err = worst_rel(pdp, p13, 0.0)
+        del state, step, outs
+        # the captured steps: a replay of each, profiled
+        rates = {}
+        for name, mod in (("fit", m13), ("fit-mesh-dp1", m21)):
+            bufs = mod._fused.make_batch(batches[0])
+            wall, device, rows = device_profile(
+                torch, lambda: mod._fused.step(bufs), reps=5)
+            nccl = [(t, k, n) for t, k, n in rows if "nccl" in k.lower()]
+            rates[name] = {"img_s": b / (wall / 1e3), "wall": wall,
+                           "device": device, "busy": device / wall,
+                           "nccl_ms": sum(t for t, _, _ in nccl),
+                           "nccl_launches": sum(n for _, _, n in nccl)}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    launches = dict(ck.LAUNCHES)
+    print("scaleout: (a) ResNet-50 batch %d, %d steps, cuDNN deterministic: "
+          "fit(mesh=dp=1) fused step %s; collectives issued while Python "
+          "ran the step (3 eager steps and the capture) %d, %d bytes; "
+          "params and aux bitwise to fit without a mesh (phase 13's fused "
+          "step) %s (gate); DPTrainStep (eager) bitwise %s, smallest rtol "
+          "at atol 0 %.3g (gate %g, phase 13's deterministic rule); the "
+          "data nudged by one ulp moves the first step's update and "
+          "moving-statistics change by %.3g, %.3g and the %d steps' params "
+          "and moving statistics by %.3g, %.3g (relative L2); card %s"
+          % (b, SCALE_STEPS, stats, coll["calls"], coll["bytes"], same,
+             dp_same, dp_err, DET_RTOL, nudge_first[0], nudge_first[1],
+             SCALE_STEPS, nudge[0], nudge[1], smi))
+    for name, r in rates.items():
+        print("scaleout: (a) %-12s captured step (cuDNN deterministic) "
+              "%.3f ms wall = %.1f img/s, device %.3f ms, busy %.3f, NCCL "
+              "kernels in a replay %d (%.3f ms; an in-place all-reduce over "
+              "one rank launches none)" % (
+                  name, r["wall"], r["img_s"], r["device"], r["busy"],
+                  r["nccl_launches"], r["nccl_ms"]))
+    if r13 is not None:
+        print("scaleout: (a) phase 13 in this run: step %.1f img/s, busy "
+              "%.3f, fit %.1f img/s; card %s" % (
+                  r13["img_s"], r13["device"] / r13["wall"],
+                  r13["fit_img_s"], smi))
+    print("scaleout: (a) hand-kernel launches: %s" % launches)
+    if not same:
+        fail("fit(mesh=dp=1) differs from fit without a mesh")
+    if stats != {"captures": 1, "replays": SCALE_STEPS - WARMUP_STEPS,
+                 "eager_steps": WARMUP_STEPS}:
+        fail("fit(mesh=dp=1) made %s" % stats)
+    # the capture ran the step's Python once: its gradient all-reduce and
+    # output all-gather went into the graph as they went into each eager
+    # step; the replays run no Python
+    if coll["calls"] != 2 * (WARMUP_STEPS + 1):
+        fail("the mesh step issued %d collectives in %d eager steps and "
+             "the capture" % (coll["calls"], WARMUP_STEPS))
+    if not dp_same and dp_err > DET_RTOL:
+        fail("DPTrainStep differs from the fused step")
+    if any(launches.values()):
+        fail("the scale-out path launched hand kernels: %s" % launches)
+    del m13, m21
+    gc.collect()
+    torch.cuda.empty_cache()
+    return p21, rates, nudge, p21_first, nudge_first
+
+
+def scaleout_fits(seed):
+    """(b) on one of two ranks sharing gpu(0): fit(kvstore="dist_sync")
+    and fit(mesh=dp=2) on ResNet-50 under deterministic cuDNN; -> their
+    results by name."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.dist import boot
+    from mxnet_tpu_torch.parallel import collectives as C
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    rank = boot.rank()
+    out = {}
+    sym, arg0, aux0, batches, pd, pl = resnet_setup(mt, SCALE_STEPS, seed)
+    half = RESNET_BATCH // 2
+    local = [mt.io.DataBatch(
+        data=[mt.nd.array(bt.data[0].asnumpy()[rank * half:(rank + 1)
+                                               * half], ctx=mt.cpu())],
+        label=[mt.nd.array(bt.label[0].asnumpy()[rank * half:(rank + 1)
+                                                 * half], ctx=mt.cpu())],
+        pad=0) for bt in batches]
+    lpd = [("data", (half, 3, 224, 224))]
+    lpl = [("softmax_label", (half,))]
+    first = []
+    for name, kv, mesh, feed, d, l in (
+            ("dist_sync", "dist_sync", None, local, lpd, lpl),
+            ("mesh-dp2", "local", mt.parallel.make_mesh("dp=2"), batches,
+             pd, pl)):
+        marks = []
+
+        def mark(param):
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), C.STATS["seconds"]))
+            if param.nbatch == 0:
+                first.append(host_params(mod))
+                torch.cuda.synchronize()
+                marks[-1] = (time.perf_counter(), C.STATS["seconds"])
+        mod = mt.mod.Module(sym, context=mt.gpu(0))
+        mod.fit(batch_iter(mt, feed, d, l), num_epoch=1, kvstore=kv,
+                mesh=mesh, optimizer_params=dict(TRAIN_OPT),
+                arg_params=arg0, aux_params=aux0, batch_end_callback=mark)
+        params = host_params(mod)
+        wall = marks[-1][0] - marks[0][0]
+        out[name] = {
+            "params": params if rank == 0 else None,
+            "first": first[-1] if rank == 0 else None,
+            "digest": param_digest(params),
+            "stats": mod._fused.stats.report(),
+            "rescale": mod._optimizer.rescale_grad,
+            "img_s": RESNET_BATCH * (len(marks) - 1) / wall,
+            "coll_share": (marks[-1][1] - marks[0][1]) / wall,
+            "step_ms": 1e3 * wall / (len(marks) - 1)}
+        del mod
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def scaleout_rank(seed):
+    """(b)-(d) on one of two ranks sharing gpu(0); -> results."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.dist import boot
+    from mxnet_tpu_torch.parallel import collectives as C
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"boot": boot.describe(), "backend": boot.backend()}
+    dev = torch.device("cuda", 0)
+    out.update(scaleout_fits(seed))
+    # (c)
+    mesh = mt.parallel.make_mesh("sp=2")
+    ax = mesh.axis("sp")
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    q, k, v = (torch.randn((1, RING_T, ATTN_H, ATTN_D), generator=gen,
+                           device=dev) for _ in range(3))
+    tl = RING_T // 2
+    sl = slice(ax.index * tl, (ax.index + 1) * tl)
+    for impl in ("ring", "ulysses"):
+        fn = mt.parallel.ring_attention if impl == "ring" \
+            else mt.parallel.ulysses_attention
+        for causal in (False, True):
+            with torch.no_grad():
+                fn(q[:, sl], k[:, sl], v[:, sl], ax, causal=causal)
+                C.barrier(ax)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                o = fn(q[:, sl], k[:, sl], v[:, sl], ax, causal=causal)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                ref = ck.flash_attention(q, k, v, causal=causal)[:, sl]
+                err = float((o - ref).abs().max())
+                finite = bool(torch.isfinite(o).all())
+            out["attn", impl, causal] = {"ms": ms, "err": err,
+                                         "finite": finite}
+            del o, ref
+            torch.cuda.empty_cache()
+    del q, k, v
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    q, k, v, w = (torch.randn((1, RING_GRAD_T, ATTN_H, ATTN_D),
+                              generator=gen, device=dev) for _ in range(4))
+    tl = RING_GRAD_T // 2
+    sl = slice(ax.index * tl, (ax.index + 1) * tl)
+    full = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    (mt.parallel.attention_reference(*full, causal=True) * w).sum() \
+        .backward()
+    for impl in ("ring", "ulysses"):
+        fn = mt.parallel.ring_attention if impl == "ring" \
+            else mt.parallel.ulysses_attention
+        leaves = [x[:, sl].clone().requires_grad_(True) for x in (q, k, v)]
+        (fn(*leaves, ax, causal=True) * w[:, sl]).sum().backward()
+        out["grad", impl] = max(
+            float((x.grad - f.grad[:, sl]).abs().max())
+            / float(f.grad[:, sl].abs().max())
+            for x, f in zip(leaves, full))
+    del q, k, v, w, full, leaves
+    torch.cuda.empty_cache()
+    # (d)
+    rng = np.random.default_rng(seed + 7)
+    S, Wd, Hd = 2, PIPE_WIDTH, PIPE_HIDDEN
+    stages = {
+        "w1": (rng.standard_normal((S, Wd, Hd)) / math.sqrt(Wd))
+        .astype(np.float32),
+        "b1": (rng.standard_normal((S, Hd)) * 0.1).astype(np.float32),
+        "w2": (rng.standard_normal((S, Hd, Wd)) / math.sqrt(Hd))
+        .astype(np.float32),
+        "b2": (rng.standard_normal((S, Wd)) * 0.1).astype(np.float32)}
+    tail = {"w": (rng.standard_normal((Wd, 1)) / math.sqrt(Wd))
+            .astype(np.float32)}
+    X = rng.standard_normal((PIPE_M * PIPE_ROWS, Wd)).astype(np.float32)
+    y = rng.standard_normal(PIPE_M * PIPE_ROWS).astype(np.float32)
+
+    def stage_fn(p, x):
+        return torch.tanh(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+
+    def loss_fn(t, h, lab):
+        return ((h @ t["w"])[:, 0] - lab).pow(2).mean()
+    pmesh = mt.parallel.make_mesh("pp=2")
+    step = mt.parallel.GPipeTrainStep(stage_fn, loss_fn, pmesh,
+                                      num_micro=PIPE_M, learning_rate=0.01,
+                                      ctx=mt.gpu(0))
+    st = step.init(stages, tail)
+    step.loss_and_grads(st, X, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = step.loss_and_grads(st, X, y)
+    torch.cuda.synchronize()
+    pipe_ms = 1e3 * (time.perf_counter() - t0)
+    with torch.no_grad():
+        gst = {kk: torch.as_tensor(vv, device=dev)
+               for kk, vv in stages.items()}
+        xd = torch.as_tensor(X, device=dev)
+        outs = mt.parallel.pipeline_apply(
+            stage_fn, pmesh, gst,
+            xd.reshape(PIPE_M, PIPE_ROWS, Wd)).reshape(-1, Wd)
+    seq = {kk: vv.clone().requires_grad_(True) for kk, vv in gst.items()}
+    tw = torch.as_tensor(tail["w"], device=dev).requires_grad_(True)
+    h = xd
+    for s in range(S):
+        h = stage_fn({kk: vv[s] for kk, vv in seq.items()}, h)
+    ref_loss = loss_fn({"w": tw}, h, torch.as_tensor(y, device=dev))
+    ref_loss.backward()
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+    r = ax.index
+    out["pipe"] = {
+        "ms": pipe_ms,
+        "out": rel(outs, h.detach()),
+        "loss": abs(float(loss) - float(ref_loss)) / abs(float(ref_loss)),
+        "grads": max([rel(grads["stages"][kk], seq[kk].grad[r])
+                      for kk in seq] + [rel(grads["tail"]["w"], tw.grad)])}
+    return out
+
+
+def async_worker(out_dir):
+    """(e), one worker of tools/launch.py -n 2 -s 1: the nightly MLP on
+    the card through the parameter server, then one init/push/pull
+    round of ResNet-50's parameters; writes its numbers to out_dir."""
+    import torch
+    import mxnet_tpu_torch as mt
+    kv = mt.kv.create("dist_async")
+    rank, nworker = kv.rank, kv.num_workers
+    centers = np.random.RandomState(1234).randn(4, 10) * 3
+
+    def blobs(n, seed):
+        r = np.random.RandomState(seed)
+        ys = r.randint(4, size=n)
+        return ((centers[ys] + r.randn(n, 10) * 0.5).astype(np.float32),
+                ys.astype(np.float32))
+    X, y = blobs(800, 0)
+    shard = len(X) // nworker
+    it = mt.io.NDArrayIter(X[rank * shard:(rank + 1) * shard],
+                           y[rank * shard:(rank + 1) * shard],
+                           batch_size=50, shuffle=True)
+    net = mt.sym.FullyConnected(mt.sym.Variable("data"), num_hidden=32,
+                                name="fc1")
+    net = mt.sym.Activation(net, act_type="relu")
+    net = mt.sym.FullyConnected(net, num_hidden=4, name="fc2")
+    net = mt.sym.SoftmaxOutput(net, name="softmax")
+    mod = mt.mod.Module(net, context=mt.gpu(0))
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=6, kvstore=kv,
+            optimizer_params={"learning_rate": 0.3})
+    fit_s = time.perf_counter() - t0
+    Xv, yv = blobs(400, 99)
+    acc = mod.score(mt.io.NDArrayIter(Xv, yv, batch_size=50), "acc")[0][1]
+    sym = mt.models.get_resnet50(1000)
+    shapes, _, _ = sym.infer_shape(data=(1, 3, 224, 224),
+                                   softmax_label=(1,))
+    names = [n for n in sym.list_arguments()
+             if n not in ("data", "softmax_label")]
+    shape_of = dict(zip(sym.list_arguments(), shapes))
+    vals = [mt.nd.ones(shape_of[n], ctx=mt.gpu(0)) for n in names]
+    keys = [1000 + i for i in range(len(names))]
+    n_params = sum(v.size for v in vals)
+    kv.barrier()
+    t0 = time.perf_counter()
+    kv.init(keys, vals)
+    t_init = time.perf_counter() - t0
+    kv.barrier()
+    t0 = time.perf_counter()
+    kv.push(keys, vals)
+    outs = [mt.nd.zeros(shape_of[n], ctx=mt.gpu(0)) for n in names]
+    kv.pull(keys, out=outs)
+    torch.cuda.synchronize()
+    t_round = time.perf_counter() - t0
+    finite = all(np.isfinite(o.asnumpy()).all() for o in outs)
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump({"rank": rank, "acc": float(acc), "fit_s": fit_s,
+                   "params": int(n_params), "keys": len(keys),
+                   "init_ms": 1e3 * t_init, "round_ms": 1e3 * t_round,
+                   "bytes": 4 * int(n_params), "finite": bool(finite),
+                   "fused": mod._fused is not None}, f)
+    kv.barrier()
+    kv.close()
+
+
+def free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def scaleout_phase(torch, mt, ck, smi, r13=None):
+    print("phase 21: scale-out on the card; TF32 matmul=%s cudnn=%s; card "
+          "%s" % (torch.backends.cuda.matmul.allow_tf32,
+                  torch.backends.cudnn.allow_tf32, smi))
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    res = resnet_setup(mt, SCALE_STEPS, 21)
+    one, rates, nudge, one_first, nudge_first = scaleout_one_rank(
+        torch, mt, ck, smi, res, r13)
+    init = ({k: v.asnumpy() for k, v in res[1].items()},
+            {k: v.asnumpy() for k, v in res[2].items()})
+    update = [rel_l2([init[i]], [one[i]]) for i in (0, 1)]
+    del res
+    gc.collect()
+    # (b)-(d): two ranks on gpu(0)
+    from mxnet_tpu_torch.dist.spawn import run_ranks
+    t0 = time.perf_counter()
+    ranks = run_ranks(os.path.join(root, "chip_smoke.py") + ":scaleout_rank",
+                      2, args=(21,), timeout=420)
+    print("scaleout: (b)-(d) two ranks on gpu(0) in %.1f s; %s; %s" % (
+        time.perf_counter() - t0, ranks[0]["boot"], ranks[1]["boot"]))
+    if any(r["backend"] != "gloo" for r in ranks):
+        fail("two ranks sharing one card must take gloo")
+    for name in ("dist_sync", "mesh-dp2"):
+        r0 = ranks[0][name]
+        rd = fit_readings(ranks, name, one, one_first, init)
+        d_first, err, same = rd["first"], rd["steps"], rd["same"]
+        print("scaleout: (b) %-9s ResNet-50 batch %d (%d a rank), fused "
+              "step %s, rescale_grad %.6g, cuDNN deterministic: the first "
+              "step's update and moving-statistics change against (a)'s, "
+              "relative L2 %.3g, %.3g (gates %.3g, %.3g: %g x the one-ulp "
+              "nudge's; largest tensors %s); ranks' params and moving "
+              "statistics equal after %d steps %s (gate); reading, not a "
+              "gate: after %d steps, params %.3g, moving statistics %.3g "
+              "(the one-ulp nudge's %.3g, %.3g; the 4 steps' update itself "
+              "%.3g, %.3g); %.1f img/s, %.1f ms a step, collectives "
+              "(host-staged, gloo) %.3f of the step; card %s" % (
+                  name, RESNET_BATCH, RESNET_BATCH // 2, r0["stats"],
+                  r0["rescale"], d_first[0], d_first[1],
+                  SCALE_RATIO * nudge_first[0], SCALE_RATIO * nudge_first[1],
+                  SCALE_RATIO, ["%s %.3g" % (k, v) for v, k in rd["worst"]],
+                  SCALE_STEPS, same, SCALE_STEPS, err[0], err[1], nudge[0],
+                  nudge[1], update[0], update[1], r0["img_s"],
+                  r0["step_ms"], r0["coll_share"], smi))
+        if d_first[0] > SCALE_RATIO * nudge_first[0] or \
+                d_first[1] > SCALE_RATIO * nudge_first[1]:
+            fail("(b) %s: the first step differs from one rank's: %s"
+                 % (name, d_first))
+        if not same:
+            fail("(b) %s: the two ranks' params or moving statistics "
+                 "differ" % name)
+        if r0["stats"]["captures"] or not r0["stats"]["eager_steps"]:
+            fail("(b) %s on gloo must run eagerly: %s" % (name, r0["stats"]))
+    routes = bitwise(ranks[0]["dist_sync"]["params"][0],
+                     ranks[0]["mesh-dp2"]["params"][0]) and \
+        bitwise(ranks[0]["dist_sync"]["params"][1],
+                ranks[0]["mesh-dp2"]["params"][1])
+    print("scaleout: (b) dist_sync and fit(mesh=dp=2) over the same rows, "
+          "cuDNN deterministic: params and moving statistics bitwise %s "
+          "(gate)" % routes)
+    if not routes:
+        fail("(b) dist_sync and fit(mesh=dp=2) differ")
+    for impl in ("ring", "ulysses"):
+        for causal in (False, True):
+            c = [r["attn", impl, causal] for r in ranks]
+            err = max(x["err"] for x in c)
+            print("scaleout: (c) %-7s causal=%d B=1 T=%d H=%d D=%d at sp=2: "
+                  "each rank's shard against flash_attention over the whole "
+                  "sequence max_abs_err %.3g (tol %g), %.1f ms a call "
+                  "(ranks %s); card %s" % (
+                      impl, causal, RING_T, ATTN_H, ATTN_D, err, FLASH_ATOL,
+                      max(x["ms"] for x in c),
+                      ["%.1f" % x["ms"] for x in c], smi))
+            if err > FLASH_ATOL or not all(x["finite"] for x in c):
+                fail("(c) %s causal=%d: %.3g" % (impl, causal, err))
+    for impl in ("ring", "ulysses"):
+        err = max(r["grad", impl] for r in ranks)
+        print("scaleout: (c) %-7s gradient at T=%d causal: q, k, v against "
+              "attention_reference's autograd, max abs error / largest "
+              "element %.3g (tol %g)" % (impl, RING_GRAD_T, err,
+                                         ATTN_GRAD_RTOL))
+        if err > ATTN_GRAD_RTOL:
+            fail("(c) %s gradient %.3g" % (impl, err))
+    p = [r["pipe"] for r in ranks]
+    worst = max(max(x["out"], x["loss"], x["grads"]) for x in p)
+    print("scaleout: (d) GPipeTrainStep pp=2, stages 768 -> 3072 -> 768 "
+          "tanh, M=%d microbatches of %d tokens: outputs %.3g, loss %.3g, "
+          "gradients %.3g against the stages in sequence on one rank "
+          "(relative to the largest element; tol %g); forward + backward "
+          "%.1f ms (ranks %s); card %s" % (
+              PIPE_M, PIPE_ROWS, max(x["out"] for x in p),
+              max(x["loss"] for x in p), max(x["grads"] for x in p),
+              PIPE_RTOL, max(x["ms"] for x in p),
+              ["%.1f" % x["ms"] for x in p], smi))
+    if worst > PIPE_RTOL:
+        fail("(d) pipeline differs from the sequence of stages: %.3g"
+             % worst)
+    # (e) dist_async: scheduler, 1 server, 2 workers on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = ("%s -c \"import sys; sys.path.insert(0, %r); import "
+               "mxnet_tpu_torch; from mxnet_tpu_torch.dist.spawn import "
+               "load_target; load_target(%r)(%r)\"" % (
+                   sys.executable, root,
+                   os.path.join(root, "chip_smoke.py") + ":async_worker",
+                   tmp))
+        env = dict(os.environ, PYTHONPATH=root)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(root, "tools", "launch.py"),
+             "-n", "2", "-s", "1", "--port", str(free_port()), cmd],
+            env=env, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail("(e) dist_async job exited %d: %s %s" % (
+                proc.returncode, proc.stdout[-2000:], proc.stderr[-3000:]))
+        ws = []
+        for r in range(2):
+            with open(os.path.join(tmp, "rank%d.json" % r)) as f:
+                ws.append(json.load(f))
+    print("scaleout: (e) dist_async, scheduler + 1 server + 2 workers on "
+          "the card (tools/launch.py -n 2 -s 1, %.1f s): nightly MLP "
+          "accuracy %s (gate %.2f), fit %s s, fused step %s; ResNet-50's "
+          "%d parameters as %d keys: init %.1f ms (rank 0 sends), one push "
+          "+ pull round %s ms a worker, %d bytes each way, finite %s; card "
+          "%s" % (wall, [round(w["acc"], 4) for w in ws], ASYNC_ACC,
+                  [round(w["fit_s"], 2) for w in ws],
+                  [w["fused"] for w in ws], ws[0]["params"], ws[0]["keys"],
+                  ws[0]["init_ms"], [round(w["round_ms"], 1) for w in ws],
+                  ws[0]["bytes"], all(w["finite"] for w in ws), smi))
+    if min(w["acc"] for w in ws) < ASYNC_ACC or \
+            not all(w["finite"] for w in ws):
+        fail("(e) dist_async: %s" % ws)
+    from mxnet_tpu_torch.dist import boot
+    boot.shutdown()
+    took = time.perf_counter() - t_phase
+    print("phase 21: %.1f s" % took)
+    return {"rates": rates, "b": {n: {k: ranks[0][n][k] for k in
+                                      ("img_s", "step_ms", "coll_share")}
+                                  for n in ("dist_sync", "mesh-dp2")},
+            "attn_ms": {"%s-%s" % (i, "causal" if c else "full"):
+                        max(r["attn", i, c]["ms"] for r in ranks)
+                        for i in ("ring", "ulysses") for c in (False, True)},
+            "pipe_ms": max(x["ms"] for x in p),
+            "async": {"init_ms": ws[0]["init_ms"],
+                      "round_ms": max(w["round_ms"] for w in ws),
+                      "bytes": ws[0]["bytes"]},
+            "seconds": took}
+
+
 def main():
+    t_script = time.perf_counter()
     # cuBLAS under deterministic algorithms (phase 14) needs a fixed
     # workspace, chosen before the process's first cuBLAS call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -6760,6 +7385,25 @@ def main():
         "superstep-64-prefetch-tokens_s-k%d" % SUPER_K: round(
             fed["superstep"]["long_tokens_s"]["k_prefetch"], 1),
         "ids-step_ms": round(fed["ids"]["step_ms"], 3)})))
+
+    # phase 21: scale-out: a mesh of one rank (NCCL), two ranks sharing
+    # the card (gloo), the parameter server
+    scale = scaleout_phase(torch, mt, ck, smi, train["resnet"])
+    print("scale-out result (card %s): %s" % (smi, json.dumps({
+        "fit-mesh-dp1-img_s": round(scale["rates"]["fit-mesh-dp1"]["img_s"],
+                                    1),
+        "fit-img_s": round(scale["rates"]["fit"]["img_s"], 1),
+        "fit-mesh-dp1-busy": round(scale["rates"]["fit-mesh-dp1"]["busy"],
+                                   3),
+        "dist_sync-2ranks-img_s": round(scale["b"]["dist_sync"]["img_s"], 1),
+        "mesh-dp2-2ranks-img_s": round(scale["b"]["mesh-dp2"]["img_s"], 1),
+        "dist_sync-collective-share": round(
+            scale["b"]["dist_sync"]["coll_share"], 3),
+        **{"sp2-%s-ms" % k: round(v, 1)
+           for k, v in scale["attn_ms"].items()},
+        "gpipe-pp2-ms": round(scale["pipe_ms"], 1),
+        "async-round-ms": round(scale["async"]["round_ms"], 1),
+        "async-round-bytes": scale["async"]["bytes"]})))
     kernels = [{
         "name": "fused_fc_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["fused_fc_epilogue"],
@@ -6826,6 +7470,8 @@ def main():
           "multiply), its launches those of the FlowNetC forwards; no "
           "single PyTorch call computes the correlation, so its "
           "library_ms is null")
+    print("chip_smoke: the whole script took %.1f s" % (
+        time.perf_counter() - t_script))
     print(json.dumps({"kernels": kernels}))
     print("card: %s" % smi)
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,7 @@ The port goes slice by slice (ROADMAP.md).  This package imports
 ``torch`` and never ``jax`` or ``mxnet_tpu``.
 """
 from . import base
+from . import _distributed_boot  # joins the launcher's process group
 from .base import MXNetError
 from .context import Context, cpu, cpu_pinned, current_context, gpu
 from . import engine
@@ -71,11 +72,17 @@ from . import faults
 from . import checkpoint
 from . import moe
 from . import embed
+from . import dist
 from . import libinfo
 from . import misc
 from . import symbol_doc
 
 __version__ = libinfo.__version__
+
+# a scheduler or server role (tools/launch.py -s N) runs the
+# parameter-server loop here and exits (reference __init__ imports
+# kvstore_server last for the same reason)
+from . import kvstore_server  # noqa: E402,F401
 
 __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "current_context", "engine", "nd", "ndarray", "NDArray", "sym",
@@ -87,4 +94,5 @@ __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "initializer", "init", "optimizer", "opt", "lr_scheduler",
            "metric", "io", "callback", "module", "mod", "monitor",
            "Monitor", "kvstore", "kv", "create_kvstore", "executor_manager",
-           "FeedForward", "checkpoint", "moe", "embed", "recordio", "feed"]
+           "FeedForward", "checkpoint", "moe", "embed", "recordio", "feed",
+           "dist"]

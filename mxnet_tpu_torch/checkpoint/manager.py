@@ -20,8 +20,9 @@ keep-every-K) runs after every commit, and a new manager sweeps the
 ``.tmp-*`` wreckage of crashed writers.  ``install_preemption_handler``
 arms SIGTERM for snapshot-then-exit (``Module.fit`` polls ``preempted``
 each batch).  One process writes every shard: the multi-process
-protocol waits for scale-out (ROADMAP.md, queue 1 item 10), and the
-trace spans the reference emits here wait for ``trace/`` (item 12).
+protocol (each rank its own shards) is ROADMAP.md queue 1 item 10b,
+and the trace spans the reference emits here wait for ``trace/`` (item
+12).
 """
 from __future__ import annotations
 

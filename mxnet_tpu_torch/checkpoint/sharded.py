@@ -10,8 +10,8 @@ Each leaf is written as ``.npy`` shard files plus an entry of
 ``index.json`` (shape, dtype tag, and each shard's file and index
 range).  The port's tensors live on one device, so it writes one shard a
 leaf; it reads the JAX package's multi-shard leaves by assembling them
-on the host.  Several processes writing one step wait for scale-out
-(ROADMAP.md, queue 1 item 10).  bfloat16 rides as uint16 bits with a
+on the host.  Several processes writing one step are ROADMAP.md queue 1
+item 10b.  bfloat16 rides as uint16 bits with a
 ``"bfloat16"`` dtype tag (reference sharded.py:99-121): the port views
 the tensor's bits as int16 through numpy and reads them back with
 ``.view(torch.bfloat16)``, so neither direction needs ``ml_dtypes``.

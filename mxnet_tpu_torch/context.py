@@ -3,7 +3,9 @@
 The counterpart of ``mxnet_tpu/context.py``.  ``gpu(i)`` is
 ``torch.device("cuda", i)`` and is the default context: entry points run
 on the card unless the caller asks for ``cpu()``.  Asking for a card that
-is not there raises; nothing quietly runs on the CPU instead.
+is not there raises; nothing quietly runs on the CPU instead.  Under an
+NCCL group of several ranks ``gpu(0)`` is this rank's own card
+(``dist.boot.rank_card``).
 """
 from __future__ import annotations
 
@@ -70,7 +72,8 @@ class Context:
 
     def torch_device(self) -> torch.device:
         """The ``torch.device`` of this context.  ``gpu(i)`` raises when
-        the process sees no CUDA device ``i``."""
+        the process sees no CUDA device ``i``; under an NCCL group of
+        several ranks it is this rank's card (``dist.boot.rank_card``)."""
         if self.device_type in ("cpu", "cpu_pinned"):
             return torch.device("cpu")
         if not torch.cuda.is_available():
@@ -80,8 +83,10 @@ class Context:
         if self.device_id >= torch.cuda.device_count():
             raise MXNetError("%s requested but only %d CUDA device(s) exist"
                              % (self, torch.cuda.device_count()))
-        _USED_CUDA.add(self.device_id)
-        return torch.device("cuda", self.device_id)
+        from .dist.boot import rank_card
+        idx = rank_card(self.device_id)
+        _USED_CUDA.add(idx)
+        return torch.device("cuda", idx)
 
 
 def cpu(device_id: int = 0) -> Context:

@@ -15,8 +15,9 @@ prologue on the fused step.  ``checkpoint=``/``checkpoint_every=``/
 the iterator's feed cursor (``state()``) in ``meta["feed"]``, and resume
 from the newest committed step at the exact next batch: through the
 iterator's ``restore()`` when it has one, else by skipping the batches
-already trained.  The mesh and autotune wait for their slices
-(ROADMAP.md, queue 1 items 10, 11) and raise when given.
+already trained.  ``mesh=`` trains over a mesh's ``dp`` axis
+(``Module.set_mesh``); ``sharding=`` and ``autotune=`` wait for their
+slices (ROADMAP.md, queue 1 items 10b, 11) and raise when given.
 """
 from __future__ import annotations
 
@@ -30,8 +31,7 @@ from ..initializer import Uniform
 
 __all__ = ["BaseModule"]
 
-_NOT_PORTED = {"mesh": "queue 1 item 10", "sharding": "queue 1 item 10",
-               "autotune": "queue 1 item 11"}
+_NOT_PORTED = {"sharding": "queue 1 item 10b", "autotune": "queue 1 item 11"}
 
 
 def _fire_callbacks(callbacks, param):
@@ -176,12 +176,19 @@ class BaseModule:
         by the manager's ``install_preemption_handler`` snapshots at the
         next batch boundary and returns.  ``work_load_list`` is the
         constructor's (the reference's fit ignores it too)."""
-        given = {"mesh": mesh, "sharding": sharding, "autotune": autotune}
+        given = {"sharding": sharding, "autotune": autotune}
         for name, value in given.items():
             if value not in (None, False):
                 raise NotImplementedError(
                     "fit(%s=...) is not in the port yet (ROADMAP.md, %s)"
                     % (name, _NOT_PORTED[name]))
+        if mesh is not None:
+            setter = getattr(self, "set_mesh", None)
+            if setter is None:
+                raise MXNetError(
+                    "fit(mesh=...) needs a module with multichip support "
+                    "(Module); %s has no set_mesh" % type(self).__name__)
+            setter(mesh)
         assert num_epoch is not None, "please specify number of epochs"
         if optimizer_params is None:
             optimizer_params = (("learning_rate", 0.01),)

@@ -70,6 +70,28 @@ host-augmented eval iterator) passes through, and the batch key holds the
 dtype, so each wire format has its own graph.  Batches already staged on
 the step's device (``batched_sharding()``, the feed's prefetcher) are
 copied device to device into the static buffers.
+
+**data parallel over a dp axis** (reference ``fused.py:74-133, 236-246,
+310-364``): with a named mesh (``mesh=``, its ``dp`` axis) every rank
+is fed the GLOBAL batch and ``make_batch`` keeps this rank's rows; with
+``global_dp`` (a ``dist_sync`` kvstore, the implicit ``dp`` axis over
+every rank) each rank feeds its own batch.  The ops see the global
+batch (``OpContext.dp``: BatchNorm's statistics, the loss layers'
+normalizations), the gradients are summed over ``dp`` inside the step
+(one coalesced all-reduce), and under a named mesh the outputs come back
+all-gathered.  ``MXNET_SHARD_WEIGHT_UPDATE=1`` reduce-scatters the
+gradients of params whose leading dim the dp size divides, updates this
+rank's rows and their optimizer slots only, and all-gathers the rows.
+The params are broadcast from the axis's rank 0 at ``init_state``.
+Under an NCCL group of several ranks the step runs on this rank's card
+(``dist.boot.rank_card``: the default ``gpu(0)`` names it).  On an NCCL
+group the collectives are issued inside the captured graph
+(``scaleout_check.py nccl`` holds this on four cards).  On a gloo group
+(ranks sharing a card) they are host-staged and cannot be captured, so
+the step runs eagerly on the card (``eager_steps``).
+Under dp > 1 embedding tables train dense (the row-sharded table is
+ROADMAP.md queue 1 item 10b) and ``_moe_dispatch`` blocks raise (the
+expert axis is item 10b).
 """
 from __future__ import annotations
 
@@ -143,8 +165,27 @@ class FusedTrainStep:
 
     def __init__(self, symbol, context, data_names: Sequence[str],
                  label_names: Sequence[str], param_names: Sequence[str],
-                 fixed_param_names: Sequence[str], optimizer):
+                 fixed_param_names: Sequence[str], optimizer,
+                 mesh=None, global_dp: bool = False):
+        # the dp axis: a named mesh's, or every rank's under dist_sync
+        self.axis = None
+        self.slice_batch = False
+        if mesh is not None:
+            if "dp" not in mesh.axis_names:
+                raise MXNetError(
+                    "mesh %s has no 'dp' axis; the batch shards over "
+                    "'dp' — use dp=1 for one rank" % (dict(mesh.shape),))
+            self.axis = mesh.axis("dp")
+            self.slice_batch = not global_dp
+        elif global_dp:
+            from ..parallel.mesh import make_mesh
+            self.axis = make_mesh([("dp", -1)]).axis("dp")
+        dp = self.axis.size if self.axis is not None else 1
+        # resolved once the group is up: this rank's card under NCCL
         self.device = context.torch_device()
+        self.shard_update = self.axis is not None and dp > 1 and get_env(
+            "MXNET_SHARD_WEIGHT_UPDATE", False, bool)
+        self._rows = {}
         self.data_names = tuple(data_names)
         self.label_names = tuple(label_names)
         fixed = set(fixed_param_names or ())
@@ -168,7 +209,8 @@ class FusedTrainStep:
         self.sparse_embeds = {
             n: sp for n, sp in find_sparse_embeds(
                 symbol, self.data_names, self.train_names).items()
-            if slot_leaves_row_shaped(self._opt_init, sp.vocab, sp.dim)}
+            if slot_leaves_row_shaped(self._opt_init, sp.vocab, sp.dim)
+            and dp == 1}
         # name -> (table storage with its scratch row, its slots)
         self._sparse_store = {}
         self.embed_stats = None
@@ -184,6 +226,10 @@ class FusedTrainStep:
         self._ids_in_flight = {}
         from ..moe.detect import find_moe_blocks
         self.moe_blocks = find_moe_blocks(symbol)
+        if self.moe_blocks and dp > 1:
+            raise NotImplementedError(
+                "routed MoE over a dp axis of %d: the expert axis is not in "
+                "the port yet (ROADMAP.md, queue 1 item 10b)" % dp)
         self.moe_stats = None
         if self.moe_blocks:
             from ..moe.stats import MoeStats
@@ -209,7 +255,27 @@ class FusedTrainStep:
 
     @property
     def captured(self) -> bool:
+        """Whether steps are captured CUDA graphs: on the card, unless
+        the dp axis's collectives are host-staged (a gloo group)."""
+        if self.axis is not None and self.axis.staged:
+            return False
         return self.device.type == "cuda"
+
+    def _local_rows(self, t: torch.Tensor, dim: int,
+                    batch: int) -> torch.Tensor:
+        """This rank's rows of a global-batch input under a named mesh
+        (inputs whose ``dim`` is not the batch pass whole)."""
+        if not self.slice_batch or t.dim() <= dim or t.shape[dim] != batch:
+            return t
+        if batch % self.axis.size:
+            raise MXNetError("batch %d is not divisible by the mesh's dp "
+                             "axis (%d)" % (batch, self.axis.size))
+        b = batch // self.axis.size
+        return t.narrow(dim, self.axis.index * b, b)
+
+    def _batch_of(self, src: Dict[str, torch.Tensor], dim: int) -> int:
+        return int(src[self.data_names[0]].shape[dim]) \
+            if self.data_names and self.data_names[0] in src else 0
 
     def batched_sharding(self) -> torch.device:
         """Where input pipelines stage batches (feed.device_feed,
@@ -263,14 +329,25 @@ class FusedTrainStep:
         params are autograd leaves, updated in place); drops every
         captured graph, which read the old state."""
         def put(v):
-            return v._get().detach().to(self.device, copy=True)
+            t = v._get().detach().to(self.device, copy=True)
+            if self.axis is not None and self.axis.size > 1:
+                # rank 0's values win on every rank of the axis
+                from ..parallel.collectives import broadcast_
+                broadcast_(t, self.axis)
+            return t
+        from ..parallel.collectives import shard_rows
         params, opt = {}, {}
         self._sparse_store = {}
+        self._rows = {}
         for n in self.train_names:
             w = put(arg_params[n])
             if n not in self.sparse_embeds:
                 params[n] = w.requires_grad_(True)
-                opt[n] = self._opt_init(w.detach())
+                rows = self._rows[n] = shard_rows(
+                    self.axis, tuple(w.shape), self.shard_update) \
+                    if self.axis is not None else None
+                opt[n] = self._opt_init(w.detach() if rows is None
+                                        else w.detach()[rows[0]:rows[1]])
                 continue
             vocab = w.shape[0]
             store = torch.zeros((vocab + 1,) + tuple(w.shape[1:]),
@@ -322,6 +399,9 @@ class FusedTrainStep:
                    if n not in src]
         if missing:
             raise MXNetError("the batch lacks inputs %s" % missing)
+        if self.slice_batch:
+            b = self._batch_of(src, 0)
+            src = {n: self._local_rows(t, 0, b) for n, t in src.items()}
         self._note_ids(src)
         key = self._key(src)
         bufs = self._buffers.get(key)
@@ -413,7 +493,8 @@ class FusedTrainStep:
         args.update(st["fixed"])
         args.update(self._maybe_augment(batch, True))
         opctx = OpContext(is_train=True,
-                          generator=_random.generator(self.device))
+                          generator=_random.generator(self.device),
+                          dp=self.axis)
         with torch.enable_grad():
             with record_function("fused:forward"):
                 sparse = self._sparse_prologue(args)
@@ -427,11 +508,14 @@ class FusedTrainStep:
                     grad_outputs=[torch.ones_like(o) for o in heads],
                     allow_unused=True) if heads else [None] * len(leaves)
         with torch.no_grad(), record_function("fused:update"):
-            for n, g in zip(names, grads):
-                w = params[n]
-                self._opt_update(w, self._grad(g, w), st["opt"][n],
-                                 st["lr"] * self._lr_mult[n], self._wd[n],
-                                 st["t"])
+            if self.axis is not None:
+                self._dp_update(names, grads)
+            else:
+                for n, g in zip(names, grads):
+                    w = params[n]
+                    self._opt_update(w, self._grad(g, w), st["opt"][n],
+                                     st["lr"] * self._lr_mult[n],
+                                     self._wd[n], st["t"])
             for (n, (uniq, rows)), g in zip(sparse.items(),
                                             grads[len(names):]):
                 store, slots = self._sparse_store[n]
@@ -441,7 +525,30 @@ class FusedTrainStep:
                                   st["t"])
             for k, v in new_aux.items():
                 st["aux"][k].copy_(v)
-        return [o.detach() for o in outs]
+        outs = [o.detach() for o in outs]
+        if self.slice_batch:
+            from ..parallel.data_parallel import gather_outputs
+            outs = gather_outputs(outs, self.axis,
+                                  self._batch_of(batch, 0))
+        return outs
+
+    def _dp_update(self, names, grads) -> None:
+        """The gradients summed over the dp axis (or reduce-scattered
+        under the sharded update), then the optimizer on each param or
+        on this rank's rows of it."""
+        from ..parallel.collectives import dp_update
+        st = self.state
+        params = [st["params"][n] for n in names]
+        gs = [torch.zeros_like(p) if g is None else g
+              for p, g in zip(params, grads)]
+
+        def update(i, w, g):
+            n = names[i]
+            self._opt_update(w, self._grad(g, w), st["opt"][n],
+                             st["lr"] * self._lr_mult[n], self._wd[n],
+                             st["t"])
+        dp_update(self.axis, [p.detach() for p in params], gs,
+                  [self._rows.get(n) for n in names], update)
 
     def step(self, batch: Dict[str, torch.Tensor],
              lr: float = None) -> List[torch.Tensor]:
@@ -503,6 +610,7 @@ class FusedTrainStep:
                     t = a._get() if isinstance(a, NDArray) \
                         else torch.as_tensor(a)
                     out[name] = t.to(self.device)
+            out = self._local_mega(out)
             for i in range(k):
                 self._note_ids({n: t[i] for n, t in out.items()})
             return k, out
@@ -524,7 +632,14 @@ class FusedTrainStep:
                                          % name)
                     col.append(arrs[i])
                 out[name] = stack_batch_arrays(col, self.device)
-        return k, out
+        return k, self._local_mega(out)
+
+    def _local_mega(self, mega: Dict[str, torch.Tensor]):
+        """This rank's rows (dim 1) of a megabatch under a named mesh."""
+        if not self.slice_batch:
+            return mega
+        b = self._batch_of(mega, 1)
+        return {n: self._local_rows(t, 1, b) for n, t in mega.items()}
 
     def superstep(self, k: int, mega: Dict[str, torch.Tensor], lrs,
                   reducer=None, acc_tree=None):
@@ -567,9 +682,13 @@ class FusedTrainStep:
         static accumulators: eagerly on the host, and on the card while
         the step is not captured yet; then one eager warm-up on a side
         stream, then a captured graph replayed after each step."""
-        labels = [bufs[n] for n in self.label_names]
-
         def body():
+            labels = [bufs[n] for n in self.label_names]
+            if self.slice_batch:
+                # the outputs are the global batch's: so are the labels
+                from ..parallel.data_parallel import gather_outputs
+                labels = gather_outputs(labels, self.axis,
+                                        self._batch_of(bufs, 0))
             new = reducer.update(unflatten_tensors(acc_tree, entry[1]),
                                  labels, list(outs))
             for b, v in zip(entry[1], flatten_tensors(new)):

@@ -11,9 +11,13 @@ Two paths, as in the reference:
   change to the optimizer values the step baked in leave the fused path
   for the classic one (``_disable_fused``), with the params, the
   optimizer state and the step count carried over.  Several distinct
-  devices of one type run the fused step on the first of them over the
-  whole batch (the mesh form of the reference waits for ROADMAP.md
-  queue 1 item 10);
+  devices of one type in one process run the fused step on the first of
+  them over the whole batch.  Over several processes, one rank per
+  device: ``set_mesh``/``fit(mesh=)`` (every rank fed the global batch,
+  keeping its rows) and a ``dist_sync`` kvstore (each rank its own
+  batch, ``rescale_grad`` = 1 / (batch * num_workers)) run the fused
+  step over the ``dp`` axis, gradients summed inside it; a module over a
+  mesh never leaves the fused path;
 * **classic**: one executor per context over its slice of the batch
   (``work_load_list``), then the gradients summed through the kvstore
   and the updater per parameter and device, or the kvstore's own update
@@ -108,6 +112,7 @@ class Module(BaseModule):
         # a train forward, the last step's outputs (copies, made lazily),
         # and the number of fused steps taken
         self._fused = None
+        self._mesh = None
         self._fused_hsig = None
         self._fused_pending = None
         self._fused_outputs = None
@@ -216,13 +221,38 @@ class Module(BaseModule):
         self._params_dirty = False
 
     # -- bind -----------------------------------------------------------------
+    # -- mesh -----------------------------------------------------------------
+    def set_mesh(self, mesh, sharding=None):
+        """Train over a mesh's ``dp`` axis (reference module.py:198):
+        ``mesh`` is a ``parallel.Mesh``, an axes list, the ``"dp=2"``
+        string form, or None to clear.  Every rank is fed the global
+        batch and keeps its rows.  ``sharding`` (per-param specs, tensor
+        parallelism) is ROADMAP.md queue 1 item 10b.  Call before
+        ``init_optimizer`` (fit does); afterwards the fused step is
+        rebuilt over the new mesh from the live params."""
+        from ..parallel.mesh import Mesh, make_mesh
+        if sharding:
+            raise NotImplementedError(
+                "sharding= is not in the port yet (ROADMAP.md, queue 1 "
+                "item 10b); the port replicates params over the mesh")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            mesh = make_mesh(mesh)
+        if mesh == self._mesh:
+            return
+        self._mesh = mesh
+        if self.optimizer_initialized:
+            self._setup_fused()
+
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
-             grad_req="write", no_slice_names=None):
+             grad_req="write", no_slice_names=None, mesh=None,
+             sharding=None):
         """``no_slice_names``: input/label names that must not be sliced
         along the batch even when their leading dim equals the batch
         size (Fast R-CNN's rois when num_rois == batch_size); they are
-        copied whole."""
+        copied whole.  ``mesh``/``sharding``: see ``set_mesh``."""
+        if mesh is not None or sharding is not None:
+            self.set_mesh(mesh, sharding)
         if force_rebind:
             self.binded = False
             self._exec_group = None
@@ -321,12 +351,15 @@ class Module(BaseModule):
         kvstore, update_on_kvstore = _create_kvstore(
             kvstore, len(self._context), self._arg_params)
         if isinstance(optimizer, str):
+            batch_size = self._exec_group.batch_size
+            if kvstore and kvstore.type == "dist_sync":
+                # each rank feeds its own batch: the mean is over all
+                batch_size *= kvstore.num_workers
             idx2name = _param_idx2name(self._param_names, len(self._context),
                                        update_on_kvstore)
             optimizer_params = dict(optimizer_params)
             if "rescale_grad" not in optimizer_params:
-                optimizer_params["rescale_grad"] = \
-                    1.0 / self._exec_group.batch_size
+                optimizer_params["rescale_grad"] = 1.0 / batch_size
             optimizer = opt_mod.create(optimizer, sym=self.symbol,
                                        param_idx2name=idx2name,
                                        **optimizer_params)
@@ -370,6 +403,12 @@ class Module(BaseModule):
             return False
         if self._optimizer.fused_update_fn() is None:
             return False
+        kv = self._kvstore
+        if kv is not None and "dist" in kv.type and \
+                "dist_sync" not in kv.type:
+            # dist_async is a host-side service with stale weights: only
+            # the synchronous family fuses
+            return False
         # ctx_group placement runs node by node across devices
         if any("ctx_group" in a for a in self._symbol.attr_dict().values()):
             return False
@@ -402,12 +441,34 @@ class Module(BaseModule):
         self._fused_pending = None
         self._fused_outputs = None
         self._fused_copies = None
+        mesh = self._mesh
+        if mesh is None and (get_env("MXNET_MESH", "") or "").strip():
+            from ..parallel.mesh import mesh_from_env
+            mesh = mesh_from_env()
         if not self._fusable():
+            if mesh is not None:
+                # a mesh asked for never degrades to one rank's loop
+                raise MXNetError(
+                    "Module mesh training needs the fused train step, "
+                    "which this configuration disables (monitor / "
+                    "grad_req != 'write' / borrowed optimizer / shared "
+                    "executors / optimizer without a fused form / "
+                    "MXNET_FUSED_TRAIN=0); remove the blocker or drop "
+                    "mesh=")
             return
+        global_dp = self._kvstore is not None and \
+            "dist_sync" in self._kvstore.type
+        if mesh is not None and "dp" in mesh.axis_names and not global_dp:
+            bs, dp = self._exec_group.batch_size, int(mesh.shape["dp"])
+            if bs % dp:
+                raise MXNetError(
+                    "bound batch size %d is not divisible by the mesh's "
+                    "dp axis (%d); pick a batch the devices can slice "
+                    "evenly" % (bs, dp))
         self._fused = FusedTrainStep(
             self._symbol, self._context[0], self._data_names,
             self._label_names, self._param_names, self._fixed_param_names,
-            self._optimizer)
+            self._optimizer, mesh=mesh, global_dp=global_dp)
         self._fused_hsig = self._fused.hparam_signature()
         self._fused_init_state()
 
@@ -453,6 +514,13 @@ class Module(BaseModule):
         through the executor group."""
         if self._fused is None:
             return
+        if self._fused.axis is not None and (
+                self._fused.axis.size > 1 or self._mesh is not None):
+            # the classic path runs one rank's executors: it cannot take
+            # over a step summed over the dp axis
+            raise MXNetError(
+                "cannot leave the fused train step (%s) over the dp axis "
+                "of %d rank(s)" % (reason, self._fused.axis.size))
         if self._fused.device_augment is not None:
             # the classic path binds float32 CHW inputs; a uint8 HWC feed
             # has no host fallback: fail with the cause

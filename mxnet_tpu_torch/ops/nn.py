@@ -247,6 +247,53 @@ class PoolingOp(OpDef):
         return [out]
 
 
+class _DPBatchNorm(torch.autograd.Function):
+    """Training BatchNorm over the global batch of a data-parallel axis:
+    the per-channel count and sum, then the sum of squared deviations,
+    are summed over the axis in float32 (two passes, as ``var_mean``),
+    and the backward sums the two per-channel gradient sums the same
+    way.  The gradients of gamma and beta stay this rank's own sums; the
+    step sums every parameter gradient over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, axis):
+        from ..parallel.collectives import all_reduce_
+        red = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        count = x.numel() // x.shape[1]
+        s = torch.cat([x.sum(dim=red),
+                       torch.full((1,), float(count), dtype=x.dtype,
+                                  device=x.device)])
+        all_reduce_(s, axis)
+        n = s[-1]
+        mean = s[:-1] / n
+        xc = x - mean.view(shape)
+        ss = (xc * xc).sum(dim=red)
+        all_reduce_(ss, axis)
+        var = ss / n
+        invstd = torch.rsqrt(var + eps)
+        xhat = xc * invstd.view(shape)
+        y = xhat * weight.view(shape) + bias.view(shape)
+        ctx.save_for_backward(xhat, invstd, weight, n)
+        ctx.axis = axis
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        from ..parallel.collectives import all_reduce_
+        xhat, invstd, weight, n = ctx.saved_tensors
+        red = [0] + list(range(2, gy.dim()))
+        shape = [1, -1] + [1] * (gy.dim() - 2)
+        sum_dy = gy.sum(dim=red)
+        sum_dy_xhat = (gy * xhat).sum(dim=red)
+        c = sum_dy.shape[0]
+        t = all_reduce_(torch.cat([sum_dy, sum_dy_xhat]), ctx.axis)
+        dx = (weight * invstd).view(shape) * (
+            gy - (t[:c] / n).view(shape) - xhat * (t[c:] / n).view(shape))
+        return dx, sum_dy_xhat, sum_dy, None, None
+
+
 @register_op("BatchNorm", hint="batchnorm")
 class BatchNormOp(OpDef):
     """reference batch_norm-inl.h (eps 1e-3, momentum 0.9, fix_gamma).
@@ -256,7 +303,9 @@ class BatchNormOp(OpDef):
     alike: ``F.batch_norm`` normalizes with batch statistics but is never
     handed the aux tensors, whose own update would use the unbiased
     variance.  A train forward returns the new moving states
-    ``m * old + (1 - m) * stat``."""
+    ``m * old + (1 - m) * stat``.  Under a data-parallel axis
+    (``ctx.dp``) the statistics are those of the global batch
+    (``_DPBatchNorm``), as GSPMD gives the JAX package's op."""
     params = [Param("eps", float, default=1e-3),
               Param("momentum", float, default=0.9),
               Param("fix_gamma", bool, default=True),
@@ -284,6 +333,15 @@ class BatchNormOp(OpDef):
         # raises without a weight when its input takes a gradient)
         weight = torch.ones_like(beta, dtype=torch.float32) \
             if p.fix_gamma else gamma.float()
+        if ctx.is_train and not p.use_global_stats and ctx.dp is not None:
+            y, mean, var = _DPBatchNorm.apply(xf, weight, beta.float(),
+                                              p.eps, ctx.dp)
+            with torch.no_grad():
+                m = p.momentum
+                new_mean = (m * moving_mean.float() + (1 - m) * mean)
+                new_var = (m * moving_var.float() + (1 - m) * var)
+            return [y.to(x.dtype)], [new_mean.to(moving_mean.dtype),
+                                     new_var.to(moving_var.dtype)]
         if ctx.is_train and not p.use_global_stats:
             y = F.batch_norm(xf, None, None, weight, beta.float(),
                              training=True, eps=p.eps)
@@ -463,6 +521,9 @@ class IdentityAttachKLSparseRegOp(OpDef):
         if not ctx.is_train:
             return [x]
         rho = x.detach().mean()
+        if ctx.dp is not None:
+            from ..parallel.collectives import all_reduce_
+            rho = all_reduce_(rho.clone(), ctx.dp) / ctx.dp.size
         y = _KLSparseReg.apply(x, rho, p.sparseness_target, p.penalty) \
             if torch.is_grad_enabled() and x.requires_grad else x
         new_avg = p.momentum * aux[0] + (1 - p.momentum) * rho
@@ -488,12 +549,24 @@ def _onehot(lab, k, dtype, axis):
     return (lab.unsqueeze(axis) == classes.reshape(shape)).to(dtype)
 
 
-def softmax_output_grad(p, out, label):
+def _dp_count(count, dp):
+    """A count over this rank's batch -> over the global batch of the
+    data-parallel axis ``dp`` (None: one device)."""
+    if dp is None:
+        return count
+    if isinstance(count, torch.Tensor):
+        from ..parallel.collectives import all_reduce_
+        return all_reduce_(count.clone(), dp)
+    return count * dp.size
+
+
+def softmax_output_grad(p, out, label, dp=None):
     """The reference's injected gradient (softmax_output-inl.h:96-195,
     ``mxnet_tpu/ops/nn.py`` ``_softmax_output_forward``):
     (softmax - onehot) * grad_scale, with ignore masking and the
     null/batch/valid normalization; a label of the output's shape takes
-    the ``out - label`` branch."""
+    the ``out - label`` branch.  Under a data-parallel axis ``dp`` the
+    batch and valid counts are the global batch's."""
     if out.shape == label.shape:
         return (out - label) * p.grad_scale
     n = out.shape[0]
@@ -507,9 +580,10 @@ def softmax_output_grad(p, out, label):
                            != p.ignore_label).to(grad.dtype)
         rest = o3.shape[2]
         if p.normalization == "batch":
-            grad = grad * (p.grad_scale / (float(n) * rest))
+            grad = grad * (p.grad_scale / (float(_dp_count(n, dp)) * rest))
         elif p.normalization == "valid":
-            valid = torch.clamp_min((label != p.ignore_label).sum(), 1)
+            valid = torch.clamp_min(
+                _dp_count((label != p.ignore_label).sum(), dp), 1)
             grad = grad * (p.grad_scale / valid.to(grad.dtype))
         else:
             grad = grad * (p.grad_scale / rest)
@@ -520,9 +594,10 @@ def softmax_output_grad(p, out, label):
     if p.use_ignore:
         grad = grad * (label.reshape(-1, 1) != p.ignore_label).to(grad.dtype)
     if p.normalization == "batch":
-        grad = grad * (p.grad_scale / n)
+        grad = grad * (p.grad_scale / _dp_count(n, dp))
     elif p.normalization == "valid":
-        valid = torch.clamp_min((label != p.ignore_label).sum(), 1)
+        valid = torch.clamp_min(
+            _dp_count((label != p.ignore_label).sum(), dp), 1)
         grad = grad * (p.grad_scale / valid.to(grad.dtype))
     else:
         grad = grad * p.grad_scale
@@ -592,7 +667,8 @@ class SoftmaxOutputOp(OpDef):
     def forward(self, p, inputs, aux, ctx):
         return [inject(inputs[0], inputs[1],
                        lambda d: _softmax_output(p, d),
-                       lambda out, lab: softmax_output_grad(p, out, lab))]
+                       lambda out, lab: softmax_output_grad(p, out, lab,
+                                                            ctx.dp))]
 
 
 @register_op("LeakyReLU", hint="leakyrelu")
@@ -739,11 +815,12 @@ class MakeLossOp(OpDef):
     def forward(self, p, inputs, aux, ctx):
         def grad(x, _label):
             if p.normalization == "valid":
-                valid = torch.clamp_min((x > p.valid_thresh).sum(), 1)
+                valid = torch.clamp_min(
+                    _dp_count((x > p.valid_thresh).sum(), ctx.dp), 1)
                 return torch.full_like(x, p.grad_scale) / valid.to(x.dtype)
             scale = p.grad_scale
             if p.normalization == "batch":
-                scale = scale / x.shape[0]
+                scale = scale / _dp_count(x.shape[0], ctx.dp)
             return torch.full_like(x, scale)
         return [inject(inputs[0], None, lambda x: x, grad)]
 

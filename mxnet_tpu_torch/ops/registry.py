@@ -90,11 +90,16 @@ class OpContext:
     """Per-call execution context handed to forward: the train flag and
     the ``torch.Generator`` the ops that draw (``needs_rng``: Dropout,
     rrelu) take their numbers from.  The reference hands a jax PRNG key
-    here instead."""
+    here instead.  ``dp`` is the data-parallel ``collectives.Axis`` a
+    step runs under (None on one device): the ops that reduce over the
+    batch axis (BatchNorm's statistics, the ``batch``/``valid``
+    normalizations of the loss layers) reduce over it too, as GSPMD
+    makes the JAX package's ops see the global batch."""
 
-    def __init__(self, is_train: bool = False, generator=None):
+    def __init__(self, is_train: bool = False, generator=None, dp=None):
         self.is_train = is_train
         self.generator = generator
+        self.dp = dp if dp is not None and dp.size > 1 else None
 
 
 class OpDef:

@@ -122,8 +122,14 @@ def test_type_rank_and_workers():
     assert tmx.create_kvstore is tmx.kvstore.create
     with pytest.raises(tmx.MXNetError, match="unknown kvstore"):
         tmx.kv.create("nope")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmx.kv.create("dist_sync")
+    # one process: the dist store over a world-1 group (reference
+    # test_dist_sync_tpu_single_process); the group goes with the test
+    from mxnet_tpu_torch.dist import boot
+    try:
+        kv = tmx.kv.create("dist_sync")
+        assert (kv.type, kv.rank, kv.num_workers) == ("dist_sync", 0, 1)
+    finally:
+        boot.shutdown()
     assert tmx.kv.create("device_embed", ctx=tmx.cpu()).type == \
         "device_embed"
     kv = tmx.kv.create("local")

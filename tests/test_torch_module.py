@@ -395,13 +395,15 @@ def test_outputs_before_update_commit_nothing_and_eval_uses_live_params():
 def test_fit_rejects_unported_options():
     mod = tmx.mod.Module(tmx.models.get_mlp(), context=tmx.cpu())
     it = tmx.io.NDArrayIter(np.zeros((4, 784)), np.zeros(4), batch_size=4)
-    for kw, item in (({"mesh": "dp=2"}, "item 10"),
+    for kw, item in (({"mesh": "dp=1",
+                       "sharding": {"fc1_weight": "None,tp"}}, "item 10b"),
                      ({"autotune": True}, "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             mod.fit(it, num_epoch=1, **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # a mesh wider than the process group (one process here) is refused
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         tmx.mod.Module(tmx.models.get_mlp(), context=tmx.cpu()).fit(
-            it, num_epoch=1, kvstore="dist_sync")
+            it, num_epoch=1, mesh="dp=2")
 
 
 def test_callbacks_and_epoch_checkpoints(tmp_path, caplog):
