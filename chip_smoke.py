@@ -7232,6 +7232,526 @@ def scaleout_phase(torch, mt, ck, smi, r13=None):
             "seconds": took}
 
 
+# -- phase 22: model state sharded over a mesh
+#
+# Two ranks sharing gpu(0) (gloo, as phase 21 (b)-(d)), one spawn:
+# (a) VGG-16 (configuration D of Simonyan & Zisserman 2014) at 224 x 224,
+# batch 32, trained by fit(mesh="dp=1,tp=2") with fc6 cut on its output
+# features (column-parallel: each rank (2048, 25088) of the 411 MB weight)
+# and fc7 on its inputs (row-parallel: partial sums, one all-reduce),
+# against the same fit in one process (the main one).  (d) That run saves
+# after its first step, each rank its own shards; the step is restored
+# into one process (the main one), onto dp=2 and into a fresh tp=2 run,
+# each bitwise.  (c) PR 13's Switch-Base-8 block (phase 19's sizes) over
+# dp=1 x ep=2, each rank 4 experts, against one process; and the global
+# routing of 8,192 tokens cut over dp=2 against routing them in one call.
+# (b) ServeEngine(mesh="tp=2", param_specs=...), fused, float32, over
+# 32 requests on buckets (1, 8) against a one-device engine; the fc
+# kernel runs on each rank's shard (fc6's (2048, 25088) with the whole
+# epilogue, fc7's (4096, 2048) partial product), counted and checked
+# there; a reload keeps the layout and the answers.
+TP_BATCH, TP_STEPS = 32, 4
+TP_MESH = "dp=1,tp=2"
+TP_SPECS = {"fc6_weight": ("tp", None), "fc6_bias": ("tp",),
+            "fc7_weight": (None, "tp")}
+TP_SERVE_N, TP_SERVE_BUCKETS, TP_SERVE_THREADS = 32, (1, 8), 4
+EP_MESH = "dp=1,ep=2"
+
+
+def tp_specs(mt, specs=TP_SPECS):
+    P = mt.parallel.PartitionSpec
+    return {k: P(*v) for k, v in specs.items()}
+
+
+def vgg_setup(mt, seed, batch=TP_BATCH, steps=TP_STEPS):
+    """VGG-16's symbol, Xavier params and ``steps`` batches (host arrays)
+    and the first batch nudged by one ulp."""
+    sym = mt.models.get_vgg(num_classes=1000)
+    shapes = {"data": (batch, 3, 224, 224), "softmax_label": (batch,)}
+    arg0 = xavier_params(sym, shapes, seed)
+    rng = np.random.default_rng(seed + 1)
+    xs = [rng.standard_normal(shapes["data"], dtype=np.float32)
+          for _ in range(steps)]
+    ys = [rng.integers(0, 1000, batch).astype(np.float32)
+          for _ in range(steps)]
+    nudged = np.nextafter(xs[0], np.float32(np.inf))
+    return sym, arg0, xs, ys, nudged
+
+
+def vgg_batches(mt, xs, ys):
+    b = [mt.io.DataBatch(data=[mt.nd.array(x, ctx=mt.cpu())],
+                         label=[mt.nd.array(y, ctx=mt.cpu())], pad=0)
+         for x, y in zip(xs, ys)]
+    return batch_iter(mt, b, [("data", xs[0].shape)],
+                      [("softmax_label", ys[0].shape)])
+
+
+def sha_of(arrays):
+    import hashlib
+    return {k: hashlib.sha1(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for k, v in arrays.items()}
+
+
+def opt_host(torch, mod):
+    """The momentum of every parameter, gathered whole (a collective
+    under a mesh: every rank calls it)."""
+    st = mod._fused.gathered_state()["opt"]
+    return {k: v.detach().cpu().numpy() for k, v in st.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def timed_fit(torch, mt, mod, it, **kw):
+    """fit with a synchronized mark after each batch; -> (host params
+    after the first batch, ms of each later step)."""
+    marks, first = [], []
+    sync = torch.cuda.synchronize if torch.cuda.is_available() \
+        else (lambda: None)
+
+    def mark(param):
+        sync()
+        marks.append(time.perf_counter())
+        if param.nbatch == 0 and not first:
+            first.append(host_params(mod))
+            sync()
+            marks[-1] = time.perf_counter()
+    mod.fit(it, batch_end_callback=mark, optimizer_params=dict(TRAIN_OPT),
+            **kw)
+    return first[0] if first else None, \
+        [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+
+
+def switch_ep_symbol(mt):
+    net = mt.moe.MoEFeedForward(mt.sym.Variable("data"), num_hidden=SW_H,
+                                num_experts=SW_E, k=SW_K,
+                                capacity_factor=SW_CF, name="moe",
+                                expert_axis="ep")
+    net = mt.sym.FullyConnected(net, num_hidden=2, name="head")
+    return mt.moe.with_aux_loss(mt.sym.SoftmaxOutput(net, name="softmax"))
+
+
+def switch_setup(mt, seed, tokens=SW_TOKENS):
+    sym = switch_ep_symbol(mt)
+    arg0 = fan_in_params(sym, {"data": (tokens, SW_D),
+                               "softmax_label": (tokens,)}, seed)
+    rng = np.random.default_rng(seed + 1)
+    x = rng.standard_normal((tokens, SW_D), dtype=np.float32)
+    y = (x[:, 0] > 0).astype(np.float32)
+    return sym, arg0, x, y
+
+
+def switch_fit(torch, mt, sym, arg0, x, y, mesh=None, steps=1, ctx=None,
+               first=None):
+    """``steps`` fused steps of the Switch block on one batch; -> the
+    module and its host params after them (after the first into the
+    list ``first``)."""
+    mod = mt.mod.Module(sym, context=ctx or mt.gpu(0))
+    it = batch_iter(mt, [mt.io.DataBatch(
+        data=[mt.nd.array(x, ctx=mt.cpu())],
+        label=[mt.nd.array(y, ctx=mt.cpu())], pad=0)] * steps,
+        [("data", x.shape)], [("softmax_label", y.shape)])
+    mod.fit(it, num_epoch=1, mesh=mesh, optimizer_params=dict(SW_OPT),
+            batch_end_callback=None if first is None else
+            lambda p: first.append(host_params(mod)[0])
+            if p.nbatch == 0 else None,
+            eval_metric=mt.metric.CompositeEvalMetric(
+                [mt.metric.OutputSlice("acc", 0, 1),
+                 mt.metric.OutputMean(1, name="moe_aux")]),
+            arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                        for k, v in arg0.items()})
+    return mod, host_params(mod)[0]
+
+
+def sharded_rank(tmp, seed, logits):
+    """(a)-(d) on one of two ranks sharing gpu(0); -> results."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.dist import boot
+    from mxnet_tpu_torch.parallel import collectives as C
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    rank = boot.rank()
+    out = {"backend": boot.backend()}
+    dev = torch.device("cuda", 0)
+    torch.zeros(1, device=dev)          # the context, before its counters
+    # (a) with (d)'s save after the first step
+    sym, arg0, xs, ys, _ = vgg_setup(mt, seed)
+    C.reset_stats()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mt.random.seed(seed)
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    ckdir = os.path.join(tmp, "tp-ck")
+    t0 = time.perf_counter()
+    timed_fit(torch, mt, mod, vgg_batches(mt, xs[:1], ys[:1]), num_epoch=1,
+              mesh=TP_MESH, sharding=tp_specs(mt), checkpoint=ckdir,
+              arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                          for k, v in arg0.items()})
+    save_s = time.perf_counter() - t0
+    stats_first = {k: dict(v) for k, v in C.STATS["by_op"].items()}
+    _, step_ms = timed_fit(torch, mt, mod, vgg_batches(mt, xs[1:], ys[1:]),
+                           begin_epoch=1, num_epoch=2)
+    st = mod._fused.state
+    out["a"] = {
+        "shapes": {k: tuple(st["params"][k].shape)
+                   for k in ("fc6_weight", "fc6_bias", "fc7_weight",
+                             "fc8_weight")},
+        "mom_shape": tuple(st["opt"]["fc6_weight"].shape),
+        "stats_first": stats_first,
+        "stats": {k: dict(v) for k, v in C.STATS["by_op"].items()},
+        "calls": C.STATS["calls"], "bytes": C.STATS["bytes"],
+        "coll_s": C.STATS["seconds"],
+        "step_ms": step_ms, "first_s": save_s,
+        "fused": mod._fused.stats.report(),
+        "peak": torch.cuda.max_memory_allocated(dev),
+        "digest": sha_of(host_params(mod)[0])}
+    del mod, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d): the first step's save restored into a fresh tp=2 run, then
+    # onto dp=2
+    for name, mesh, specs in (("tp2", TP_MESH, tp_specs(mt)),
+                              ("dp2", "dp=2", None)):
+        mod = mt.mod.Module(sym, context=mt.gpu(0))
+        mod.set_mesh(mesh, sharding=specs)
+        it = vgg_batches(mt, xs[:1], ys[:1])
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                                    for k, v in arg0.items()})
+        mod.init_optimizer(optimizer_params=dict(TRAIN_OPT))
+        t0 = time.perf_counter()
+        with mt.checkpoint.CheckpointManager(ckdir, keep_last_n=None) as m:
+            mt.checkpoint.restore_module(m, mod)
+        torch.cuda.synchronize()
+        out["d", name] = {
+            "s": time.perf_counter() - t0, "t": mod._fused_t,
+            "params": sha_of(host_params(mod)[0]),
+            "opt": sha_of(opt_host(torch, mod)),
+            "fc6": tuple(mod._fused.state["params"]["fc6_weight"].shape)}
+        del mod
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["d", "files"] = sorted(os.listdir(os.path.join(
+        ckdir, mt.checkpoint.step_dir_name(
+            mt.checkpoint.latest_step(ckdir)))))
+    del arg0, xs, ys
+    gc.collect()
+    # (c)
+    ssym, sarg, sx, sy = switch_setup(mt, seed + 2)
+    mod, first = switch_fit(torch, mt, ssym, sarg, sx, sy, EP_MESH)
+    out["c"] = {"experts": tuple(
+        mod._fused.state["params"]["moe_experts_i2h_weight"].shape),
+        "first": first if rank == 0 else None,
+        "digest": sha_of(first)}
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    ax = mt.parallel.make_mesh("dp=2").axis("dp")
+    n = logits.shape[0] // 2
+    cap = mt.moe.resolve_capacity(SW_CF, logits.shape[0], SW_E, SW_K)
+    plan = mt.moe.route(torch.as_tensor(
+        logits[ax.index * n:(ax.index + 1) * n], device=dev), SW_K, cap,
+        dp=ax)
+    out["c"]["slot"] = C.all_gather(plan.slot, ax).cpu().numpy()
+    out["c"]["dropped"] = float(plan.dropped)
+    out["c"]["counts"] = plan.counts.cpu().numpy()
+    # (b)
+    prefix = os.path.join(tmp, "vgg-serve")
+    items = tp_serve_items(seed)
+    ck.reset_launches()
+    answers = [None] * len(items)
+    t0 = time.perf_counter()
+    with mt.serve.ServeEngine.from_checkpoint(
+            prefix, 0, {"data": (1, 3, 224, 224), "softmax_label": (1,)},
+            batch_buckets=TP_SERVE_BUCKETS, fuse=True, mesh="tp=2",
+            param_specs=tp_specs(mt), name="serve-tp2") as eng:
+        build_s = time.perf_counter() - t0
+        ex = eng._predictor._exec
+        fused_ops = [nd["op"] for nd in json.loads(
+            eng._predictor.symbol.tojson())["nodes"]]
+        shard = {k: tuple(ex.arg_dict[k].shape)
+                 for k in ("fc6_weight", "fc6_bias", "fc7_weight")}
+        wall = 0.0
+        if rank == 0:
+            errors = []
+
+            def client(idx):
+                try:
+                    futs = [(i, eng.submit(items[i])) for i in
+                            range(idx, len(items), TP_SERVE_THREADS)]
+                    for i, f in futs:
+                        answers[i] = f.result(timeout=300)
+                except Exception as e:      # reported below
+                    errors.append(repr(e))
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(TP_SERVE_THREADS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            if errors:
+                fail("(b) client errors: %s" % errors)
+        version = eng.reload_from_checkpoint(prefix, 0)
+        shard2 = tuple(ex.arg_dict["fc6_weight"].shape)
+        again = [eng.predict(x) for x in items[:8]] if rank == 0 else None
+        report = eng.stats.report() if rank == 0 else None
+        w6 = ex.arg_dict["fc6_weight"]._get()
+        b6 = ex.arg_dict["fc6_bias"]._get()
+    launches = dict(ck.LAUNCHES)
+    # the kernel on this rank's fc6 shard against its plain version (after
+    # the count was read: these launches are not the path's)
+    gen = torch.Generator(device=dev).manual_seed(seed + rank)
+    x6 = torch.randn((8, w6.shape[1]), generator=gen, device=dev)
+    y = ck.fused_fc_epilogue(x6, w6, b6, "relu")
+    ref = ck.fused_fc_epilogue_reference(x6, w6, b6, "relu")
+    torch.cuda.synchronize()
+    out["b"] = {"answers": answers if rank == 0 else None,
+                "again": again, "version": version, "shard": shard,
+                "shard_after_reload": shard2, "launches": launches,
+                "fused_ops": fused_ops.count("_fused_FullyConnected"),
+                "report": report, "wall": wall, "build_s": build_s,
+                "kernel_err": float((y - ref).abs().max()),
+                "kernel_tol": 1e-4 * max(1.0, float(ref.abs().max()))}
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def tp_serve_items(seed):
+    rng = np.random.default_rng(seed + 3)
+    return [wire_to_nchw(rng.integers(0, 256, (224, 224, 3), dtype=np.uint8))
+            for _ in range(TP_SERVE_N)]
+
+
+def sharded_phase(torch, mt, ck, smi):
+    print("phase 22: model state sharded over a mesh; TF32 matmul=%s "
+          "cudnn=%s; card %s" % (torch.backends.cuda.matmul.allow_tf32,
+                                 torch.backends.cudnn.allow_tf32, smi))
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    seed = 22
+    dev = torch.device("cuda", 0)
+    torch.zeros(1, device=dev)
+    tmpdir = tempfile.TemporaryDirectory()
+    tmp = tmpdir.name
+    torch.backends.cudnn.deterministic = True
+    # (a)'s one-process run: the first step clean and nudged, then the
+    # other steps; the peak memory of its process from here
+    sym, arg0, xs, ys, nudged = vgg_setup(mt, seed)
+    init = {k: v for k, v in arg0.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    mt.random.seed(seed)
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    one_first, one_ms = timed_fit(
+        torch, mt, mod, vgg_batches(mt, xs, ys), num_epoch=1,
+        arg_params={k: mt.nd.array(v, ctx=mt.cpu()) for k, v in arg0.items()})
+    one_peak = torch.cuda.max_memory_allocated(dev) - base
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    mt.random.seed(seed)
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    nudge_first, _ = timed_fit(
+        torch, mt, mod, vgg_batches(mt, [nudged], ys[:1]), num_epoch=1,
+        arg_params={k: mt.nd.array(v, ctx=mt.cpu()) for k, v in arg0.items()})
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    nudge_l2 = first_step_l2(nudge_first[0], one_first[0], init)
+    # (c)'s one-process run and routing in one call
+    ssym, sarg, sx, sy = switch_setup(mt, seed + 2)
+    _, s_first = switch_fit(torch, mt, ssym, sarg, sx, sy)
+    _, s_nudge = switch_fit(torch, mt, ssym, sarg,
+                            np.nextafter(sx, np.float32(np.inf)), sy)
+    s_nudge_l2 = first_step_l2(s_nudge, s_first, sarg)
+    logits = (sx @ sarg["moe_gate_weight"].T).astype(np.float32)
+    cap = mt.moe.resolve_capacity(SW_CF, SW_TOKENS, SW_E, SW_K)
+    plan = mt.moe.route(torch.as_tensor(logits, device=dev), SW_K, cap)
+    one_slot = plan.slot.cpu().numpy()
+    one_dropped = float(plan.dropped)
+    del plan
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b)'s checkpoint pair and one-device engine
+    prefix = os.path.join(tmp, "vgg-serve")
+    mt.model.save_checkpoint(prefix, 0, sym, {
+        k: mt.nd.array(v, ctx=mt.cpu()) for k, v in arg0.items()}, {})
+    items = tp_serve_items(seed)
+    with mt.serve.ServeEngine.from_checkpoint(
+            prefix, 0, {"data": (1, 3, 224, 224), "softmax_label": (1,)},
+            batch_buckets=TP_SERVE_BUCKETS, fuse=True,
+            name="serve-one") as eng:
+        t0 = time.perf_counter()
+        refs = [f.result(timeout=300) for f in eng.submit_many(items)]
+        one_wall = time.perf_counter() - t0
+    torch.backends.cudnn.deterministic = False
+    # the two ranks
+    from mxnet_tpu_torch.dist.spawn import run_ranks
+    t0 = time.perf_counter()
+    ranks = run_ranks(os.path.join(root, "chip_smoke.py") + ":sharded_rank",
+                      2, args=(tmp, seed, logits), timeout=600)
+    spawn_s = time.perf_counter() - t0
+    if any(r["backend"] != "gloo" for r in ranks):
+        fail("two ranks sharing one card must take gloo")
+    a = [r["a"] for r in ranks]
+    # (a): the first step from the checkpoint (d) wrote after it
+    with mt.checkpoint.CheckpointManager(os.path.join(tmp, "tp-ck"),
+                                         keep_last_n=None) as m:
+        tree, meta = m.restore()
+    tp_first = {k: np.asarray(v) for k, v in tree["params"].items()}
+    first_l2 = first_step_l2(tp_first, one_first[0], init)
+    worst = sorted((first_step_l2({k: tp_first[k]}, {k: one_first[0][k]},
+                                  {k: init[k]}), k) for k in init
+                   if np.any(one_first[0][k] != init[k]))[-3:]
+    same = a[0]["digest"] == a[1]["digest"]
+    print("phase 22: two ranks on gpu(0) in %.1f s (backend %s)" % (
+        spawn_s, ranks[0]["backend"]))
+    print("sharded: (a) VGG-16 224x224 batch %d, fit(mesh=%r, sharding=%s) "
+          "on two ranks: live shards %s, fc6 momentum %s; fused step %s; "
+          "the first step's update against one process's, relative L2 "
+          "%.3g (gate %.3g: %g x the one-ulp nudge's %.3g; largest tensors "
+          "%s); the ranks' params equal after %d steps %s (gate); steps "
+          "%s ms (one process %s ms); collectives %d calls, %d bytes, %.3f "
+          "s host; card %s" % (
+              TP_BATCH, TP_MESH, TP_SPECS, a[0]["shapes"], a[0]["mom_shape"],
+              a[0]["fused"], first_l2, SCALE_RATIO * nudge_l2, SCALE_RATIO,
+              nudge_l2, ["%s %.3g" % (k, v) for v, k in worst], TP_STEPS,
+              same, ["%.1f" % v for v in a[0]["step_ms"]],
+              ["%.1f" % v for v in one_ms[1:]], a[0]["calls"], a[0]["bytes"],
+              a[0]["coll_s"], smi))
+    print("sharded: (a) redistributions per op, first step: %s; all %d "
+          "steps: %s" % (json.dumps(a[0]["stats_first"]), TP_STEPS,
+                         json.dumps(a[0]["stats"])))
+    print("sharded: (a) peak memory allocated: ranks %s MB, one process %.1f "
+          "MB (its growth from this phase's start); card %s" % (
+              ["%.1f" % (r["peak"] / 2 ** 20) for r in a],
+              one_peak / 2 ** 20, smi))
+    if a[0]["shapes"]["fc6_weight"] != (2048, 25088) or \
+            a[0]["shapes"]["fc7_weight"] != (4096, 2048) or \
+            a[0]["mom_shape"] != (2048, 25088):
+        fail("(a) the ranks do not hold their shards: %s" % a[0]["shapes"])
+    if first_l2 > SCALE_RATIO * nudge_l2:
+        fail("(a) the first step differs from one process's: %.3g > %.3g"
+             % (first_l2, SCALE_RATIO * nudge_l2))
+    if not same:
+        fail("(a) the ranks' params differ")
+    # (d)
+    files = ranks[0]["d", "files"]
+    split = {p: sum(1 for f in files if f.endswith(".npy")
+                    and f.split(".")[-3] == p) for p in ("p0", "p1")}
+    want = sha_of(tp_first)
+    want_opt = sha_of({k: np.asarray(v) for k, v in tree["opt"].items()
+                       if not isinstance(v, (tuple, list))})
+    mt.random.seed(seed)
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    it = vgg_batches(mt, xs[:1], ys[:1])
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                                for k, v in arg0.items()})
+    mod.init_optimizer(optimizer_params=dict(TRAIN_OPT))
+    t0 = time.perf_counter()
+    with mt.checkpoint.CheckpointManager(os.path.join(tmp, "tp-ck"),
+                                         keep_last_n=None) as m:
+        mt.checkpoint.restore_module(m, mod)
+    one_restore_s = time.perf_counter() - t0
+    one_ok = sha_of(host_params(mod)[0]) == want and \
+        sha_of(opt_host(torch, mod)) == want_opt
+    del mod, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    d_ok = {n: all(r["d", n]["params"] == want and r["d", n]["opt"] == want_opt
+                   and r["d", n]["t"] == 1 for r in ranks)
+            for n in ("tp2", "dp2")}
+    print("sharded: (d) the save after the first step: process_count %s, "
+          "%d files, p0 %d / p1 %d shard files (fc6 and fc7 and their "
+          "momentum cut, the rest written once by p0); %.1f s for the "
+          "first step with its save; restored bitwise (params and "
+          "momentum) into one process %s (%.1f s), onto dp=2 %s (%.1f s, "
+          "fc6 %s), into a fresh tp=2 run %s (%.1f s, fc6 %s); card %s" % (
+              meta.get("process_count", 2), len(files), split["p0"],
+              split["p1"], a[0]["first_s"], one_ok, one_restore_s,
+              d_ok["dp2"], ranks[0]["d", "dp2"]["s"],
+              ranks[0]["d", "dp2"]["fc6"], d_ok["tp2"],
+              ranks[0]["d", "tp2"]["s"], ranks[0]["d", "tp2"]["fc6"], smi))
+    if not (one_ok and d_ok["tp2"] and d_ok["dp2"]) or not split["p1"]:
+        fail("(d) a restore is not bitwise, or p1 wrote nothing: %s %s %s"
+             % (one_ok, d_ok, split))
+    # (c)
+    c = [r["c"] for r in ranks]
+    s_l2 = first_step_l2(c[0]["first"], s_first, sarg)
+    slots_ok = all(np.array_equal(r["slot"], one_slot) and
+                   r["dropped"] == one_dropped for r in c)
+    print("sharded: (c) Switch-Base-8 block (d_model %d, d_ff %d, %d "
+          "experts, top-%d, capacity factor %g, %d tokens) at %s: each rank "
+          "holds experts %s; the first step's update against one "
+          "process's, relative L2 %.3g (gate %.3g: %g x the nudge's %.3g); "
+          "ranks equal %s; routing %d tokens cut over dp=2 against one call "
+          "on the card: slots and drops (%d) bitwise %s; card %s" % (
+              SW_D, SW_H, SW_E, SW_K, SW_CF, SW_TOKENS, EP_MESH,
+              c[0]["experts"], s_l2, SCALE_RATIO * s_nudge_l2, SCALE_RATIO,
+              s_nudge_l2, c[0]["digest"] == c[1]["digest"], SW_TOKENS,
+              int(one_dropped), slots_ok, smi))
+    if c[0]["experts"] != (SW_E // 2, SW_D, SW_H) or \
+            s_l2 > SCALE_RATIO * s_nudge_l2 or \
+            c[0]["digest"] != c[1]["digest"] or not slots_ok:
+        fail("(c) expert parallelism: experts %s, first step %.3g, slots %s"
+             % (c[0]["experts"], s_l2, slots_ok))
+    # (b)
+    b = [r["b"] for r in ranks]
+    answers, again, report = b[0]["answers"], b[0]["again"], b[0]["report"]
+    worst_b = 0.0
+    for i, (got, ref) in enumerate(zip(answers, refs)):
+        tol = 1e-4 * max(1.0, float(np.abs(ref).max()))
+        err = float(np.abs(got - ref).max()) if got is not None else 1e30
+        if got is None or not np.all(np.isfinite(got)) or err > tol:
+            fail("(b) answer %d against the one-device engine: %.3g" % (i, err))
+        worst_b = max(worst_b, err)
+    for i, (got, ref) in enumerate(zip(again, answers[:8])):
+        if float(np.abs(got - ref).max()) > 1e-4 * max(
+                1.0, float(np.abs(ref).max())):
+            fail("(b) answer %d after the reload differs" % i)
+    served = report["batches"] + len(TP_SERVE_BUCKETS)
+    fc_launches = [r["launches"]["fused_fc_epilogue"] for r in b]
+    print("sharded: (b) ServeEngine(mesh='tp=2', param_specs=%s), fused "
+          "(%d _fused_FullyConnected), buckets %s: each rank holds %s; %d "
+          "requests in %.3f s (%.2f req/s; one device %.3f s), latency p50 "
+          "%.3f ms p99 %.3f ms, %d batches; every answer within 1e-4 x "
+          "max(1, max|y|) of the one-device engine (max abs err %.3g); "
+          "reload to version %d keeps the shards %s and the answers; "
+          "fused_fc_epilogue launched %s times on the ranks (2 a batch "
+          "over %d batches incl. %d warm-up: fc6's column shard with its "
+          "epilogue, fc7's row shard's partial product); on each rank's "
+          "fc6 shard (8 x 25088 x 2048) against its plain version "
+          "max_abs_err %s (tol %s); card %s" % (
+              TP_SPECS, b[0]["fused_ops"], TP_SERVE_BUCKETS, b[0]["shard"],
+              TP_SERVE_N, b[0]["wall"], TP_SERVE_N / b[0]["wall"], one_wall,
+              report["latency_p50_ms"], report["latency_p99_ms"],
+              report["batches"], worst_b, b[0]["version"],
+              [r["shard_after_reload"] for r in b], fc_launches, served,
+              len(TP_SERVE_BUCKETS),
+              ["%.3g" % r["kernel_err"] for r in b],
+              ["%.3g" % r["kernel_tol"] for r in b], smi))
+    if b[0]["shard"]["fc6_weight"] != (2048, 25088) or \
+            any(r["shard_after_reload"] != (2048, 25088) for r in b):
+        fail("(b) the engine's fc6 is not cut: %s" % b[0]["shard"])
+    if any(n != 2 * served for n in fc_launches):
+        fail("(b) fused_fc_epilogue launched %s times, want 2 x %d on each "
+             "rank" % (fc_launches, served))
+    if any(r["kernel_err"] > r["kernel_tol"] for r in b):
+        fail("(b) the fc kernel on a shard disagrees with its plain version")
+    tmpdir.cleanup()
+    took = time.perf_counter() - t_phase
+    print("phase 22: %.1f s" % took)
+    return {"fc_launches": sum(fc_launches), "step_ms": a[0]["step_ms"],
+            "one_ms": one_ms[1:], "peak": [r["peak"] for r in a],
+            "one_peak": one_peak, "serve_rps": TP_SERVE_N / b[0]["wall"],
+            "seconds": took}
+
+
 def main():
     t_script = time.perf_counter()
     # cuBLAS under deterministic algorithms (phase 14) needs a fixed
@@ -7404,6 +7924,16 @@ def main():
         "gpipe-pp2-ms": round(scale["pipe_ms"], 1),
         "async-round-ms": round(scale["async"]["round_ms"], 1),
         "async-round-bytes": scale["async"]["bytes"]})))
+
+    # phase 22: model state sharded over a mesh: tp training and serving,
+    # expert parallelism, multi-process checkpoints
+    shard = sharded_phase(torch, mt, ck, smi)
+    print("sharded result (card %s): %s" % (smi, json.dumps({
+        "vgg16-tp2-step_ms": [round(v, 1) for v in shard["step_ms"]],
+        "vgg16-one-step_ms": [round(v, 1) for v in shard["one_ms"]],
+        "vgg16-tp2-peak_mb": [round(v / 2 ** 20, 1) for v in shard["peak"]],
+        "vgg16-one-peak_mb": round(shard["one_peak"] / 2 ** 20, 1),
+        "serve-tp2-rps": round(shard["serve_rps"], 2)})))
     kernels = [{
         "name": "fused_fc_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["fused_fc_epilogue"],
@@ -7412,7 +7942,7 @@ def main():
         + quant["int8-skip-fc6"]["launches"]["fused_fc_epilogue"]
         + ops["fc_launches"]
         + rest["serve"]["launches"]["fused_fc_epilogue"]
-        + sparse["rec"]["launches"],
+        + sparse["rec"]["launches"] + shard["fc_launches"],
         "max_abs_err": fc["max_abs_err"],
         "ms": fc["ms"], "plain_ms": fc["plain_ms"],
         "bound_ms": fc["bound_ms"], "bound_by": "bytes",
@@ -7456,7 +7986,9 @@ def main():
           "int8 epilogue, 1 a batch; the int8-default run launches it 0 "
           "times) plus the multiplexer's VGG-16 waves (2 a batch and 8 a "
           "swap-in's warm-up) plus phase 19's rec serving (rfc1, 1 a "
-          "batch); paged_attention is one C=1 plus one C=32 "
+          "batch) plus phase 22's tp=2 serving on both ranks (fc6's and "
+          "fc7's shards, 2 a batch a rank); paged_attention is one C=1 "
+          "plus one C=32 "
           "launch at 16 slots x 12 heads x 64, contexts 1..1024; its "
           "launches are those of the paged, dense-stripe and speculative "
           "LM runs, the router's two floods and the multiplexer's LM "

@@ -19,10 +19,20 @@ in the dtype of a ``like`` template's tensors.  Retention (keep-last-N,
 keep-every-K) runs after every commit, and a new manager sweeps the
 ``.tmp-*`` wreckage of crashed writers.  ``install_preemption_handler``
 arms SIGTERM for snapshot-then-exit (``Module.fit`` polls ``preempted``
-each batch).  One process writes every shard: the multi-process
-protocol (each rank its own shards) is ROADMAP.md queue 1 item 10b,
-and the trace spans the reference emits here wait for ``trace/`` (item
-12).
+each batch).  The trace spans the reference emits here wait for
+``trace/`` (item 12).
+
+Several processes (a group of world > 1, reference manager.py:99-102,
+244-283): every rank calls ``save`` with its part of the state (its
+shards as ``sharded.ShardedLeaf``s; a plain leaf is replicated and rank
+0 writes it).  Rank 0 makes one shared temporary directory, each rank
+writes the files of the shards it owns and its own index
+(``index.p<rank>.json``), rank 0 merges the indexes into ``index.json``
+(``process_count`` = the world) and commits with the one-process
+protocol, a barrier between each stage.  The barriers are collectives
+of the process group the training thread uses, so these saves run on
+the calling thread (``async_save`` applies to one process).  Discovery,
+retention and the sweep of stale temporary directories are rank 0's.
 """
 from __future__ import annotations
 
@@ -33,11 +43,13 @@ import sys
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..base import MXNetError, make_lock
 from . import layout
-from .sharded import flatten_state, read_leaf, write_leaf
+from .sharded import (ShardedLeaf, flatten_state, merge_indexes, read_leaf,
+                      write_leaf)
 from .snapshot import AsyncWriter, snapshot_tree
 
 __all__ = ["CheckpointManager", "CheckpointStats"]
@@ -102,6 +114,25 @@ def _write_json(path: str, obj) -> None:
         os.fsync(f.fileno())
 
 
+def _processes():
+    """(this process's rank, the world) of the process group; (0, 1)
+    when none is up."""
+    from ..dist import boot
+    return boot.rank(), boot.world_size()
+
+
+def _barrier() -> None:
+    """Every rank of the process group (a host all-reduce)."""
+    from ..parallel.mesh import make_mesh
+    from ..parallel.collectives import barrier
+    barrier(make_mesh([("world", -1)]).axis("world"))
+
+
+def _shape(x):
+    return tuple(int(d) for d in np.shape(x)) \
+        if not isinstance(x, torch.Tensor) else tuple(x.shape)
+
+
 class CheckpointManager:
     """Async, crash-safe checkpoint store rooted at one directory (see
     the module docstring)."""
@@ -126,9 +157,11 @@ class CheckpointManager:
         self._closed = False
         self.preempted = False
         self._prev_handlers: Dict[int, Any] = {}
+        self._proc, self._nproc = _processes()
         # no save can be in flight for this root before its manager
         # exists: the wreckage of a crashed writer goes
-        layout.clean_stale_tmp(self.directory)
+        if self._proc == 0:
+            layout.clean_stale_tmp(self.directory)
 
     # -- discovery ------------------------------------------------------------
     def latest_step(self) -> Optional[int]:
@@ -161,7 +194,11 @@ class CheckpointManager:
         meta = dict(meta or {})
         meta.setdefault("step", step)
         self.stats.add(saves_started=1, last_pinned_bytes=snap.pinned_bytes)
-        if self._writer is None or blocking:
+        if self._nproc > 1:
+            if self._writer is not None:
+                self._writer.wait()
+            self._write_state_multiprocess(step, snap, meta)
+        elif self._writer is None or blocking:
             if self._writer is not None:
                 self._writer.wait()     # commits stay ordered by step
             self._write_state(step, snap, meta)
@@ -200,6 +237,62 @@ class CheckpointManager:
                  "spec": spec, "leaves": entries}
         _write_json(os.path.join(tmp, layout.INDEX_FILE), index)
         _write_json(os.path.join(tmp, layout.META_FILE), meta)
+
+    def _write_state_multiprocess(self, step: int, snap, meta: Dict) -> None:
+        """The several-process protocol (see the module docstring)."""
+        import shutil
+        proc, nproc = self._proc, self._nproc
+        t0 = time.perf_counter()
+        tmp = os.path.join(self.directory,
+                           layout.step_dir_name(step) + ".tmp-shared")
+        try:
+            if proc == 0:
+                os.makedirs(self.directory, exist_ok=True)
+                shutil.rmtree(tmp, ignore_errors=True)
+                os.makedirs(tmp)
+            _barrier()
+            tree = snap.ready()
+            leaves, spec = flatten_state(tree)
+            if proc != 0:
+                # a plain leaf is replicated: rank 0 writes it
+                leaves = {k: v if isinstance(v, ShardedLeaf)
+                          else ShardedLeaf(v, _shape(v),
+                                           [[0, d] for d in _shape(v)],
+                                           writes=False)
+                          for k, v in leaves.items()}
+            entries = {leaf_id: write_leaf(tmp, leaf_id, arr,
+                                           process_index=proc)
+                       for leaf_id, arr in leaves.items()}
+            _write_json(os.path.join(tmp, "index.p%d.json" % proc),
+                        {"format": _FORMAT, "step": step,
+                         "process_count": nproc, "spec": spec,
+                         "leaves": entries})
+            _barrier()
+            if proc == 0:
+                per_proc = []
+                for p in range(nproc):
+                    with open(os.path.join(tmp, "index.p%d.json" % p)) as f:
+                        per_proc.append(json.load(f)["leaves"])
+                _write_json(os.path.join(tmp, layout.INDEX_FILE),
+                            {"format": _FORMAT, "step": step,
+                             "process_count": nproc, "spec": spec,
+                             "leaves": merge_indexes(per_proc)})
+                _write_json(os.path.join(tmp, layout.META_FILE), meta)
+                layout.commit_step(self.directory, step, tmp)
+            _barrier()
+        except BaseException:
+            self.stats.add(save_failures=1)
+            if proc == 0:
+                layout.abort_step(tmp)
+            raise
+        dt = max(time.perf_counter() - t0, 1e-9)
+        nbytes = self._dir_bytes(step)
+        self.stats.add(saves_committed=1, last_step=step,
+                       save_s=dt, last_save_s=dt, bytes=nbytes,
+                       last_bytes=nbytes, last_bytes_per_s=nbytes / dt)
+        if proc == 0:
+            layout.apply_retention(self.directory, self.keep_last_n,
+                                   self.keep_every_k)
 
     def _dir_bytes(self, step: int) -> int:
         d = os.path.join(self.directory, layout.step_dir_name(step))
@@ -259,6 +352,10 @@ class CheckpointManager:
                     for v, t in zip(spec["items"], tpl)]
             return tuple(vals) if kind == "tuple" else vals
         entry = entries[spec["id"]]
+        if isinstance(like, ShardedLeaf):
+            t = like.local
+            return read_leaf(d, entry, target_dtype=t.dtype,
+                             index=like.index).to(t.device)
         if isinstance(like, torch.Tensor):
             return read_leaf(d, entry, target_dtype=like.dtype).to(
                 like.device)

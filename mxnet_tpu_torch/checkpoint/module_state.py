@@ -23,6 +23,13 @@ Everything the next step depends on:
 
 The tree is ``{"params", "fixed", "aux", "opt", "rng"}`` (plus the port's
 ``rng_state``), every scalar in ``meta``.
+
+Sharded state (a fused step over a mesh with specs, or the sharded
+weight update): a capture for a checkpoint carries each cut leaf as
+this rank's ``sharded.ShardedLeaf`` (its index in the whole, and
+whether this rank writes it); ``gather=True`` (a re-mesh) gathers every
+leaf whole instead.  A restore cuts whole values to the live layout,
+and ``restore_module`` asks the store for this rank's slices only.
 """
 from __future__ import annotations
 
@@ -83,9 +90,29 @@ def _rng_leaves(module) -> Dict[str, Any]:
     return {"rng": key, "rng_state": gen.get_state()}
 
 
-def capture_train_state(module, extra_meta: Optional[Dict] = None
-                        ) -> Tuple[Dict, Dict]:
-    """-> (tree, meta): the module's complete train state."""
+def _shard_leaves(fused, tree: Dict) -> Dict:
+    """The cut leaves of a fused state tree as ``ShardedLeaf``s."""
+    from ..parallel.mesh import shard_index, writes_shard
+    from .sharded import ShardedLeaf
+    from .snapshot import map_structure
+
+    def wrap(g, n, t):
+        if not fused._is_cut(g, n, t):
+            return t
+        cuts = fused.leaf_cuts(g, n)
+        shape = fused._global[n]
+        return ShardedLeaf(t, shape, shard_index(shape, cuts, fused.mesh),
+                           writes_shard(cuts, fused.mesh))
+    return {g: {n: map_structure(lambda t, _g=g, _n=n: wrap(_g, _n, t), v)
+                for n, v in tree[g].items()} for g in tree}
+
+
+def capture_train_state(module, extra_meta: Optional[Dict] = None,
+                        gather: bool = False) -> Tuple[Dict, Dict]:
+    """-> (tree, meta): the module's complete train state.  A sharded
+    fused state's cut leaves come as this rank's ``ShardedLeaf``s, or
+    gathered whole with ``gather=True`` (a collective: every rank
+    calls it)."""
     assert module.binded and module.params_initialized, \
         "capture_train_state needs a bound, initialized module"
     opt = getattr(module, "_optimizer", None)
@@ -100,9 +127,15 @@ def capture_train_state(module, extra_meta: Optional[Dict] = None
     fused = getattr(module, "_fused", None)
     if fused is not None and fused.state is not None:
         st = module._spec_state() or fused.state
-        tree = {"params": {n: t.detach() for n, t in st["params"].items()},
-                "fixed": dict(st["fixed"]), "aux": dict(st["aux"]),
-                "opt": dict(st["opt"])}
+        if gather and fused.sharded:
+            tree = fused.gathered_state(st)
+        else:
+            tree = {"params": {n: t.detach()
+                               for n, t in st["params"].items()},
+                    "fixed": dict(st["fixed"]), "aux": dict(st["aux"]),
+                    "opt": dict(st["opt"])}
+            if fused.sharded:
+                tree = _shard_leaves(fused, tree)
         meta["state_path"] = "fused"
         meta["t"] = int(module._fused_t)
     else:
@@ -180,6 +213,15 @@ def _restore_rng(module, tree: Dict, meta: Dict) -> None:
     gen.manual_seed(seed)
 
 
+def _local(fused, group: str, name: str, value):
+    """``value`` (a leaf or a slot tuple) cut to the live layout."""
+    if not fused.sharded or value is None:
+        return value
+    if isinstance(value, (tuple, list)):
+        return type(value)(_local(fused, group, name, v) for v in value)
+    return fused.shard_of(group, name, _to_tensor(value))
+
+
 def _restore_fused(module, tree: Dict, meta: Dict) -> None:
     fused = module._fused
     module._discard_speculation()
@@ -192,7 +234,7 @@ def _restore_fused(module, tree: Dict, meta: Dict) -> None:
                     raise MXNetError(
                         "checkpoint is missing %s %r; cannot resume "
                         "bitwise-consistently" % (group, n))
-                _copy_into(live, val, n)
+                _copy_into(live, _local(fused, group, n, val), n)
         saved_opt = tree.get("opt") or {}
         for n, live in st["opt"].items():
             if live is None:
@@ -203,7 +245,7 @@ def _restore_fused(module, tree: Dict, meta: Dict) -> None:
                     "would silently reset its slots (save with the same "
                     "optimizer, or restore params only via load_params)"
                     % n)
-            _copy_into(live, saved_opt[n], n)
+            _copy_into(live, _local(fused, "opt", n, saved_opt[n]), n)
         t = int(meta.get("t", meta.get("num_update", 0)))
         st["t"].fill_(float(t))
     module._fused_t = t
@@ -296,6 +338,9 @@ def restore_module(manager, module, step: Optional[int] = None
     fused = getattr(module, "_fused", None)
     if fused is not None and module.optimizer_initialized:
         like = {g: fused.state[g] for g in ("params", "fixed", "aux", "opt")}
+        if fused.sharded:
+            # each rank reads the slices of its shards only
+            like = _shard_leaves(fused, like)
     tree, meta = manager.restore(step=step, like=like)
     restore_train_state(module, tree, meta)
     _LOG.info("restored train state from step %d under %r", step,

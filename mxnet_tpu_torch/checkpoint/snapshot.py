@@ -63,10 +63,16 @@ def snapshot_tree(tree) -> HostSnapshot:
     memory, then one event after them all; host tensors and arrays are
     copied so that later writes by the caller cannot race the writer."""
     from ..ndarray import NDArray
+    from .sharded import ShardedLeaf
     pinned = [0]
     used_cuda = []
 
     def snap(x):
+        if isinstance(x, ShardedLeaf):
+            # a shard another rank writes: its dtype only
+            local = snap(x.local) if x.writes else \
+                x.local.new_empty(0, device="cpu")
+            return ShardedLeaf(local, x.shape, x.index, x.writes)
         if isinstance(x, NDArray):
             x = x._get()
         if isinstance(x, torch.Tensor):

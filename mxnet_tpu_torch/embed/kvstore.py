@@ -59,7 +59,7 @@ class KVStoreDeviceEmbed:
         if mesh is not None or spec is not None:
             raise NotImplementedError(
                 "kvstore 'device_embed' with mesh=/spec=: row sharding is "
-                "not in the port yet (ROADMAP.md, queue 1 item 10b)")
+                "not in the port yet (ROADMAP.md, queue 1 item 10c)")
         from ..kvstore import KVStore
         self._dense = KVStore("device")
         self._type = kv_type

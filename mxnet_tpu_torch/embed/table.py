@@ -15,7 +15,7 @@ The rows live in a ``(vocab + 1, dim)`` storage whose last row is
 scratch for the sentinel writes (see ``embed/sparse.py``); ``rows`` is
 the view of the first ``vocab``.  The optimizer slots are made for the
 storage, so they carry the scratch row too.  Row sharding over a mesh
-(``mesh=``/``spec=``) is ROADMAP queue 1 item 10b.
+(``mesh=``/``spec=``) is ROADMAP queue 1 item 10c.
 """
 from __future__ import annotations
 
@@ -64,7 +64,7 @@ class EmbeddingTable:
         if mesh is not None or spec is not None:
             raise NotImplementedError(
                 "EmbeddingTable(mesh=, spec=): row sharding is not in the "
-                "port yet (ROADMAP.md, queue 1 item 10b)")
+                "port yet (ROADMAP.md, queue 1 item 10c)")
         if vocab < 1 or dim < 1:
             raise MXNetError("EmbeddingTable needs vocab, dim >= 1 "
                              "(got %d, %d)" % (vocab, dim))

@@ -13,6 +13,12 @@ once its last consumer has run.  A monitor callback
 under the reference's names (``<node>_output``, or ``<node>_<output>``
 for a node with several).
 
+``set_mesh`` places an inference executor on a mesh (reference
+executor.py:200-245): each argument or aux state with a spec is held as
+this rank's shard, the forward walks the graph over layouts, and inputs
+given a ``dp`` spec on dim 0 run this rank's rows, their outputs
+gathered back.  Every rank of the mesh runs the same forwards.
+
 ``group2ctx`` (``bind``/``simple_bind``) places model-parallel graphs:
 the arrays of a variable whose ``ctx_group`` attribute names a group
 land on that group's context, and each op runs on its group's device,
@@ -82,12 +88,25 @@ class _GraphProgram:
         self.monitor = None
 
     def eval(self, args: Dict[str, torch.Tensor],
-             aux: Dict[str, torch.Tensor], opctx: Optional[OpContext] = None):
+             aux: Dict[str, torch.Tensor], opctx: Optional[OpContext] = None,
+             shards: Optional[Dict[str, list]] = None):
         """Run every node; -> (outputs, new_aux) where ``new_aux`` holds
         the states a train forward updated (BatchNorm's moving
-        statistics), by name."""
+        statistics), by name.
+
+        ``shards`` (with ``opctx.mesh``): ``{name: (dim, axis) cuts}`` of
+        the arguments and aux states held as this rank's shard
+        (``parallel.mesh.spec_pairs``).  The walk then carries a layout
+        per value and calls each op's ``forward_layout``; the outputs
+        come back replicated.  A parameter cut once over an axis other
+        than ``dp`` enters as a shard; one cut over ``dp`` or more than
+        once is gathered where it enters (``collectives.gather_param``
+        over ``dp``); an aux state is gathered before its op and its new
+        value sliced back."""
         opctx = opctx if opctx is not None else OpContext(is_train=False)
+        sharded = bool(shards) and opctx.mesh is not None
         vals: Dict[tuple, torch.Tensor] = {}
+        lays: Dict[tuple, object] = {}
         new_aux: Dict[str, torch.Tensor] = {}
         left = dict(self.uses)
         for node in self.topo:
@@ -95,7 +114,12 @@ class _GraphProgram:
                 if node.name not in args:
                     raise MXNetError("executor missing argument %r"
                                      % node.name)
-                vals[(id(node), 0)] = args[node.name]
+                t = args[node.name]
+                if sharded and shards.get(node.name):
+                    t, lay = _enter_sharded(node.name, t, shards[node.name],
+                                            opctx)
+                    lays[(id(node), 0)] = lay
+                vals[(id(node), 0)] = t
                 continue
             ins = [vals[(id(i), x)] for (i, x) in node.inputs]
             aux_names = _node_aux_names(node)
@@ -105,12 +129,30 @@ class _GraphProgram:
                 ins = [t if t.device == dev else t.to(dev) for t in ins]
                 aux_in = [t if t.device == dev else t.to(dev)
                           for t in aux_in]
-            outs = node.op.forward(node.params, ins, aux_in, opctx)
+            out_lays = None
+            if sharded:
+                from .parallel.mesh import gather_tensor
+                cut = [shards.get(a) for a in aux_names]
+                aux_in = [gather_tensor(t.detach(), c, opctx.mesh) if c
+                          else t for t, c in zip(aux_in, cut)]
+                outs, out_lays = node.op.forward_layout(
+                    node.params, ins,
+                    [lays.get((id(i), x)) for (i, x) in node.inputs],
+                    aux_in, opctx)
+            else:
+                outs = node.op.forward(node.params, ins, aux_in, opctx)
             if isinstance(outs, tuple):
                 outs, aux_out = outs
+                if sharded:
+                    from .parallel.mesh import shard_tensor
+                    aux_out = [shard_tensor(t, shards.get(a), opctx.mesh)
+                               if shards.get(a) else t
+                               for a, t in zip(aux_names, aux_out)]
                 new_aux.update(zip(aux_names, aux_out))
             for i, o in enumerate(outs):
                 vals[(id(node), i)] = o
+                if out_lays is not None and out_lays[i] is not None:
+                    lays[(id(node), i)] = out_lays[i]
             if _ENGINE._naive:
                 _ENGINE.track(outs)
             if self.monitor is not None:
@@ -124,7 +166,27 @@ class _GraphProgram:
                 left[key] -= 1
                 if left[key] == 0:
                     del vals[key]
-        return [vals[(id(n), i)] for (n, i) in self.symbol._heads], new_aux
+                    lays.pop(key, None)
+        heads = [vals[(id(n), i)] for (n, i) in self.symbol._heads]
+        if sharded:
+            from .ops.registry import to_replicated
+            heads = [to_replicated(t, lays.get((id(n), i)), opctx, "output")
+                     for t, (n, i) in zip(heads, self.symbol._heads)]
+        return heads, new_aux
+
+
+def _enter_sharded(name: str, t: torch.Tensor, pairs, opctx: OpContext):
+    """A sharded argument as the walk takes it: -> (tensor, layout)."""
+    from .parallel import collectives as C
+    from .parallel.mesh import Layout
+    if len(pairs) == 1 and pairs[0][1] != "dp":
+        return t, Layout.shard(*pairs[0])
+    for d, a in reversed(list(pairs)):
+        ax = opctx.axis(a)
+        C.note_redistribution("param:" + name, "all_gather")
+        t = C.gather_param(t, ax, d) if a == "dp" \
+            else C.all_gather(t, ax, d)
+    return t, None
 
 
 class Executor:
@@ -162,6 +224,63 @@ class Executor:
         self._grad_names = [n for n in symbol.list_arguments()
                             if grad_req.get(n, "null") != "null"
                             and grad_dict.get(n) is not None]
+        # set_mesh: the mesh, {name: cuts} of the sharded arrays, and the
+        # dp axis of the batch inputs cut over it
+        self._mesh = None
+        self._cuts: Dict[str, list] = {}
+        self._batch_dp = None
+        self._batch_inputs: List[str] = []
+
+    # -- mesh placement -------------------------------------------------------
+    def set_mesh(self, mesh, param_specs=None, input_specs=None) -> None:
+        """Place the bound arrays on ``mesh`` (a ``parallel.Mesh``, an axes
+        list or ``"tp=2"``): each argument or aux state in
+        ``param_specs`` is cut to this rank's shard, in place of the whole
+        (an array another executor already cut, a shared parameter, stays
+        as it is); an input whose ``input_specs`` entry cuts dim 0 over
+        ``dp`` feeds this rank's rows.  Inference-only."""
+        from .parallel.mesh import (Mesh, make_mesh, normalize_spec,
+                                    shard_tensor, spec_pairs, validate_spec)
+        if self._grad_names:
+            raise MXNetError(
+                "Executor.set_mesh is inference-only (grad_req='null'); "
+                "multichip training goes through Module.fit(mesh=...)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            mesh = make_mesh(mesh)
+        specs = {n: normalize_spec(sp) for n, sp in
+                 (param_specs or {}).items()}
+        inputs = {n: normalize_spec(sp) for n, sp in
+                  (input_specs or {}).items()}
+        known = set(self.arg_dict) | set(self.aux_dict)
+        unknown = sorted((set(specs) | set(inputs)) - known)
+        if unknown:
+            raise MXNetError(
+                "set_mesh specs name no bound array: %s (have: %s)"
+                % (unknown, sorted(known)))
+        self._mesh = mesh
+        self._cuts = {}
+        self._batch_dp = None
+        self._batch_inputs = []
+        for n, sp in inputs.items():
+            validate_spec(n, sp, mesh, shape=self.arg_dict[n].shape)
+            if tuple(sp)[:1] == ("dp",) and int(mesh.shape["dp"]) > 1:
+                self._batch_dp = mesh.axis("dp")
+                self._batch_inputs.append(n)
+        arrays = dict(self.arg_dict)
+        arrays.update(self.aux_dict)
+        for n, sp in specs.items():
+            nd = arrays[n]
+            cuts = spec_pairs(sp, nd.ndim)
+            if not cuts:
+                continue
+            self._cuts[n] = cuts
+            if nd._shard is not None and nd._shard[0] == mesh \
+                    and nd._shard[1] == cuts:
+                continue
+            validate_spec(n, sp, mesh, shape=nd.shape)
+            whole = tuple(nd.shape)
+            nd._data = shard_tensor(nd._get(), cuts, mesh)
+            nd._shard = (mesh, cuts, whole)
 
     @property
     def outputs(self) -> List[NDArray]:
@@ -175,7 +294,9 @@ class Executor:
 
     def _opctx(self, is_train: bool) -> OpContext:
         return OpContext(is_train=is_train,
-                         generator=_random.generator(self._ctx))
+                         generator=_random.generator(self._ctx),
+                         dp=self._batch_dp,
+                         mesh=self._mesh if self._cuts else None)
 
     def forward(self, is_train: bool = False, **kwargs) -> List[NDArray]:
         """Run the graph; keyword arguments are written into the bound
@@ -190,7 +311,9 @@ class Executor:
         self._recorded = None
         if not is_train:
             with torch.inference_mode():
-                outs, _ = self._prog.eval(args, aux, self._opctx(False))
+                outs = self._mesh_forward(args, aux) \
+                    if self._mesh is not None else \
+                    self._prog.eval(args, aux, self._opctx(False))[0]
             self._outputs_nd = [NDArray(o) for o in outs]
             return self._outputs_nd
         leaves = {n: args[n].detach().requires_grad_(True)
@@ -205,6 +328,23 @@ class Executor:
             self._recorded = (leaves, outs)
         self._outputs_nd = [NDArray(o.detach()) for o in outs]
         return self._outputs_nd
+
+    def _mesh_forward(self, args, aux):
+        """An inference forward under ``set_mesh``: the batch inputs cut
+        over ``dp`` run this rank's rows, and outputs of that many rows
+        come back gathered."""
+        ax = self._batch_dp
+        local = None
+        if ax is not None:
+            local = args[self._batch_inputs[0]].shape[0] // ax.size
+            for n in self._batch_inputs:
+                args[n] = args[n].narrow(0, ax.index * local, local)
+        outs, _ = self._prog.eval(args, aux, self._opctx(False),
+                                  shards=self._cuts)
+        if local is not None:
+            from .parallel.data_parallel import gather_outputs
+            outs = gather_outputs(outs, ax, local)
+        return outs
 
     def backward(self, out_grads=None) -> None:
         """Fill the gradient arrays, honouring grad_req write/add/null
@@ -288,16 +428,19 @@ class Executor:
     def copy_params_from(self, arg_params: Dict[str, NDArray],
                          aux_params: Optional[Dict[str, NDArray]] = None,
                          allow_extra_params: bool = False):
-        """Write parameter values into the bound arrays, in place."""
+        """Write parameter values into the bound arrays, in place (a
+        sharded array takes this rank's shard of the whole value)."""
         for name, arr in arg_params.items():
             if name in self.arg_dict:
-                self.arg_dict[name][:] = arr
+                self.arg_dict[name][:] = _local_value(self.arg_dict[name],
+                                                      arr)
             elif not allow_extra_params:
                 raise MXNetError("Found name %r not in executor arguments"
                                  % name)
         for name, arr in (aux_params or {}).items():
             if name in self.aux_dict:
-                self.aux_dict[name][:] = arr
+                self.aux_dict[name][:] = _local_value(self.aux_dict[name],
+                                                      arr)
             elif not allow_extra_params:
                 raise MXNetError("Found name %r not in executor aux states"
                                  % name)
@@ -321,6 +464,20 @@ class Executor:
                     + list(self.aux_dict.values()))
         lines.append("Total %.1f MB allocated (args+aux)" % (total / 2**20))
         return "\n".join(lines)
+
+
+def _local_value(nd: NDArray, value):
+    """``value`` for the array ``nd``: this rank's shard of it when ``nd``
+    is a shard (``set_mesh``) and ``value`` the whole."""
+    if nd._shard is None:
+        return value
+    mesh, cuts, whole = nd._shard
+    t = value._get() if isinstance(value, NDArray) \
+        else torch.as_tensor(np.asarray(value))
+    if tuple(t.shape) != tuple(whole):
+        return value
+    from .parallel.mesh import shard_tensor
+    return shard_tensor(t, cuts, mesh)
 
 
 def _grad_req_dict(grad_req, arg_names) -> Dict[str, str]:
@@ -402,9 +559,11 @@ def simple_bind(symbol: Symbol, ctx: Context, grad_req="write",
     attrs = symbol.attr_dict() if group2ctx else {}
 
     def _alloc(name, shape, pool, dtype):
-        if shared_exec is not None and pool.get(name) is not None and \
-                pool[name].shape == tuple(shape):
-            return pool[name]
+        got = pool.get(name) if shared_exec is not None else None
+        # a shared array a mesh placement cut is shared by its whole shape
+        if got is not None and tuple(shape) in (
+                got.shape, got._shard and tuple(got._shard[2])):
+            return got
         grp = attrs.get(name, {}).get("ctx_group")
         return nd_zeros(shape, ctx=group2ctx.get(grp, ctx) if grp else ctx,
                         dtype=dtype)

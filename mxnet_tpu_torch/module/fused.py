@@ -90,8 +90,24 @@ group the collectives are issued inside the captured graph
 (ranks sharing a card) they are host-staged and cannot be captured, so
 the step runs eagerly on the card (``eager_steps``).
 Under dp > 1 embedding tables train dense (the row-sharded table is
-ROADMAP.md queue 1 item 10b) and ``_moe_dispatch`` blocks raise (the
-expert axis is item 10b).
+ROADMAP.md queue 1 item 10c).  A ``_moe_dispatch`` block routes the
+global batch (``moe.router.route(dp=)``).
+
+**sharded state** (reference ``fused.py:141-160, 338-440``): with a
+named mesh, ``sharding=`` merged over the graph's ``__sharding__``
+attributes (the map wins) gives per-parameter specs.  Each rank holds
+its shard of such a parameter, and of its aux state, at rest; the
+optimizer slots take the shard's shape.  The graph walk runs over
+layouts (``executor._GraphProgram.eval(shards=)``), so the values are
+the single-device values up to the summing order.  A shard's local
+gradient is its shard's, summed over ``dp``; a parameter cut over
+``dp`` itself comes out of its gather already summed (``"summed"`` in
+``dp_update``).  ``MXNET_SHARD_WEIGHT_UPDATE`` cuts dim 0 of a slot over
+``dp`` where the spec leaves dim 0 uncut and spends no ``dp``.
+``read_params`` gathers the whole values (a collective: every rank
+calls it), ``gathered_state``/``shard_of`` move a train state between
+layouts, and ``leaf_cuts`` names each leaf's cuts for the multi-process
+checkpoint.
 """
 from __future__ import annotations
 
@@ -166,10 +182,12 @@ class FusedTrainStep:
     def __init__(self, symbol, context, data_names: Sequence[str],
                  label_names: Sequence[str], param_names: Sequence[str],
                  fixed_param_names: Sequence[str], optimizer,
-                 mesh=None, global_dp: bool = False):
+                 mesh=None, global_dp: bool = False, sharding=None):
         # the dp axis: a named mesh's, or every rank's under dist_sync
         self.axis = None
         self.slice_batch = False
+        self.mesh = mesh
+        self.param_specs = {}
         if mesh is not None:
             if "dp" not in mesh.axis_names:
                 raise MXNetError(
@@ -177,9 +195,19 @@ class FusedTrainStep:
                     "'dp' — use dp=1 for one rank" % (dict(mesh.shape),))
             self.axis = mesh.axis("dp")
             self.slice_batch = not global_dp
+            self.param_specs = merged_specs(
+                symbol, sharding, mesh,
+                set(param_names) | set(symbol.list_auxiliary_states()))
+        elif sharding:
+            raise MXNetError("sharding= needs a named mesh (mesh=): specs "
+                             "are PartitionSpecs over its axes")
         elif global_dp:
             from ..parallel.mesh import make_mesh
             self.axis = make_mesh([("dp", -1)]).axis("dp")
+        # name -> its (dim, axis) cuts and its whole shape, set by
+        # init_state
+        self._cuts: Dict[str, list] = {}
+        self._global: Dict[str, tuple] = {}
         dp = self.axis.size if self.axis is not None else 1
         # resolved once the group is up: this rank's card under NCCL
         self.device = context.torch_device()
@@ -210,7 +238,7 @@ class FusedTrainStep:
             n: sp for n, sp in find_sparse_embeds(
                 symbol, self.data_names, self.train_names).items()
             if slot_leaves_row_shaped(self._opt_init, sp.vocab, sp.dim)
-            and dp == 1}
+            and dp == 1 and n not in self.param_specs}
         # name -> (table storage with its scratch row, its slots)
         self._sparse_store = {}
         self.embed_stats = None
@@ -226,10 +254,6 @@ class FusedTrainStep:
         self._ids_in_flight = {}
         from ..moe.detect import find_moe_blocks
         self.moe_blocks = find_moe_blocks(symbol)
-        if self.moe_blocks and dp > 1:
-            raise NotImplementedError(
-                "routed MoE over a dp axis of %d: the expert axis is not in "
-                "the port yet (ROADMAP.md, queue 1 item 10b)" % dp)
         self.moe_stats = None
         if self.moe_blocks:
             from ..moe.stats import MoeStats
@@ -323,30 +347,63 @@ class FusedTrainStep:
         return out
 
     # -- state ---------------------------------------------------------------
+    @property
+    def sharded(self) -> bool:
+        """Whether any state lives cut across ranks (specs, or the
+        sharded weight update's slots)."""
+        return bool(self.param_specs) or any(
+            isinstance(r, tuple) for r in self._rows.values())
+
+    def _walk_mesh(self):
+        return self.mesh if self.param_specs else None
+
     def init_state(self, arg_params: Dict[str, NDArray],
                    aux_params: Dict[str, NDArray]) -> None:
         """Copy the params onto the device as the persistent state (the
-        params are autograd leaves, updated in place); drops every
-        captured graph, which read the old state."""
-        def put(v):
-            t = v._get().detach().to(self.device, copy=True)
-            if self.axis is not None and self.axis.size > 1:
-                # rank 0's values win on every rank of the axis
-                from ..parallel.collectives import broadcast_
-                broadcast_(t, self.axis)
-            return t
+        params are autograd leaves, updated in place; a parameter with a
+        spec as this rank's shard); drops every captured graph, which
+        read the old state."""
+        from ..parallel.mesh import spec_pairs, shard_tensor, validate_spec
+
+        # rank 0's values win on every rank
+        axes = [self.mesh.axis(a) for a in self.mesh.axis_names] \
+            if self.mesh is not None else \
+            [self.axis] if self.axis is not None else []
+
+        def put(v, n):
+            t = _broadcast_mesh(v._get().detach().to(self.device, copy=True),
+                                axes)
+            spec = self.param_specs.get(n)
+            if spec is None:
+                return t
+            validate_spec(n, spec, self.mesh, shape=tuple(t.shape))
+            self._cuts[n] = spec_pairs(spec, t.dim())
+            self._global[n] = tuple(t.shape)
+            return shard_tensor(t, self._cuts[n], self.mesh)
         from ..parallel.collectives import shard_rows
+        from ..parallel.mesh import spec_axes
         params, opt = {}, {}
         self._sparse_store = {}
         self._rows = {}
+        self._cuts = {}
+        self._global = {n: tuple(v.shape) for n, v in arg_params.items()}
+        self._global.update((n, tuple(v.shape))
+                            for n, v in aux_params.items())
         for n in self.train_names:
-            w = put(arg_params[n])
+            w = put(arg_params[n], n)
             if n not in self.sparse_embeds:
                 params[n] = w.requires_grad_(True)
-                rows = self._rows[n] = shard_rows(
-                    self.axis, tuple(w.shape), self.shard_update) \
-                    if self.axis is not None else None
-                opt[n] = self._opt_init(w.detach() if rows is None
+                spec = tuple(self.param_specs.get(n) or ())
+                if "dp" in spec_axes(spec):
+                    rows = "summed"
+                elif self.axis is None or (spec and spec[0] is not None):
+                    rows = None
+                else:
+                    rows = shard_rows(self.axis, tuple(w.shape),
+                                      self.shard_update)
+                self._rows[n] = rows
+                opt[n] = self._opt_init(w.detach()
+                                        if not isinstance(rows, tuple)
                                         else w.detach()[rows[0]:rows[1]])
                 continue
             vocab = w.shape[0]
@@ -359,8 +416,8 @@ class FusedTrainStep:
             opt[n] = map_slots(lambda t, _v=vocab: t[:_v], slots)
         self.state = {
             "params": params,
-            "fixed": {n: put(arg_params[n]) for n in self.fixed_names},
-            "aux": {n: put(aux_params[n]) for n in self.aux_names},
+            "fixed": {n: put(arg_params[n], n) for n in self.fixed_names},
+            "aux": {n: put(aux_params[n], n) for n in self.aux_names},
             "opt": opt,
             "t": torch.zeros((), dtype=torch.float32, device=self.device),
             "lr": torch.zeros((), dtype=torch.float32, device=self.device)}
@@ -494,11 +551,12 @@ class FusedTrainStep:
         args.update(self._maybe_augment(batch, True))
         opctx = OpContext(is_train=True,
                           generator=_random.generator(self.device),
-                          dp=self.axis)
+                          dp=self.axis, mesh=self._walk_mesh())
         with torch.enable_grad():
             with record_function("fused:forward"):
                 sparse = self._sparse_prologue(args)
-                outs, new_aux = self._prog.eval(args, st["aux"], opctx)
+                outs, new_aux = self._prog.eval(args, st["aux"], opctx,
+                                                shards=self._cuts)
             heads = [o for o in outs if o.requires_grad]
             leaves = [params[n] for n in names] \
                 + [rows for _uniq, rows in sparse.values()]
@@ -755,15 +813,19 @@ class FusedTrainStep:
         args.update(st["fixed"])
         args.update(self._maybe_augment(batch, is_train))
         opctx = OpContext(is_train=is_train,
-                          generator=_random.generator(self.device))
+                          generator=_random.generator(self.device),
+                          mesh=self._walk_mesh())
         with torch.no_grad():
-            outs, _ = self._prog.eval(args, st["aux"], opctx)
+            outs, _ = self._prog.eval(args, st["aux"], opctx,
+                                      shards=self._cuts)
         return outs
 
     def read_params(self, arg_params: Dict[str, NDArray],
                     aux_params: Dict[str, NDArray], state=None) -> None:
         """Copy the live state (or ``state``, a :meth:`snapshot_state`
-        copy) into the given dicts' arrays."""
+        copy) into the given dicts' arrays, sharded values gathered
+        whole (a collective under a mesh: every rank calls it)."""
+        from ..parallel.mesh import gather_tensor
         st = self.state if state is None else state
         with torch.no_grad():
             for group, names, out in (("params", self.train_names,
@@ -772,4 +834,83 @@ class FusedTrainStep:
                                        arg_params),
                                       ("aux", self.aux_names, aux_params)):
                 for n in names:
-                    out[n][:] = st[group][n].detach()
+                    t = st[group][n].detach()
+                    if self._cuts.get(n):
+                        t = gather_tensor(t, self._cuts[n], self.mesh)
+                    out[n][:] = t
+
+    # -- layouts of the train state -------------------------------------------
+    def leaf_cuts(self, group: str, name: str) -> list:
+        """The (dim, axis) cuts of a state leaf: a parameter's or aux
+        state's spec; an optimizer slot's adds the sharded update's dim-0
+        cut over ``dp``."""
+        cuts = list(self._cuts.get(name) or ())
+        if group == "opt" and isinstance(self._rows.get(name), tuple):
+            cuts.append((0, "dp"))
+        return cuts
+
+    def gathered_state(self, state=None):
+        """``{"params", "fixed", "aux", "opt"}`` of the live state (or
+        ``state``) with every sharded leaf gathered whole."""
+        from ..parallel.mesh import gather_tensor
+        st = self.state if state is None else state
+
+        def whole(g, n, t):
+            t = t.detach()
+            return gather_tensor(t, self.leaf_cuts(g, n), self.mesh) \
+                if self._is_cut(g, n, t) else t
+        with torch.no_grad():
+            return {g: {n: map_structure(
+                lambda t, _g=g, _n=n: whole(_g, _n, t), v)
+                for n, v in st[g].items()}
+                for g in ("params", "fixed", "aux", "opt")}
+
+    def shard_of(self, group: str, name: str, value):
+        """This rank's shard of a whole leaf ``value`` (as it is when
+        the leaf is not cut, or ``value`` already has the shard's
+        shape)."""
+        from ..parallel.mesh import shard_tensor
+        cuts = self.leaf_cuts(group, name)
+        if not cuts or value is None or \
+                tuple(value.shape) != self._global.get(name):
+            return value
+        return shard_tensor(value, cuts, self.mesh)
+
+    def _is_cut(self, group: str, name: str, t) -> bool:
+        """Whether leaf ``t`` is cut: a value of the parameter's shard
+        shape (an optimizer's scalar slot is not)."""
+        from ..parallel.mesh import local_shape
+        cuts = self.leaf_cuts(group, name)
+        return bool(cuts) and name in self._global and tuple(t.shape) == \
+            local_shape(self._global[name], cuts, self.mesh)
+
+
+def merged_specs(symbol, sharding, mesh, known) -> Dict:
+    """The spec map of a named mesh: ``__sharding__`` symbol attributes
+    with ``sharding`` over them, each normalized and checked against the
+    mesh's axes (reference fused.py:141-160)."""
+    from ..parallel.mesh import normalize_spec, sharding_attrs, validate_spec
+    specs = sharding_attrs(symbol)
+    specs.update(sharding or {})
+    unknown = sorted(set(specs) - set(known))
+    if unknown:
+        raise MXNetError(
+            "sharding specs name no bound parameter: %s (params: %s)"
+            % (unknown, sorted(known)))
+    out = {}
+    for n, sp in specs.items():
+        sp = normalize_spec(sp)
+        validate_spec(n, sp, mesh)
+        if any(e is not None for e in sp):
+            out[n] = sp
+    return out
+
+
+def _broadcast_mesh(t: torch.Tensor, axes) -> torch.Tensor:
+    """``t`` with the value of the rank at index 0 of every axis in
+    ``axes`` (the broadcast init: rank 0's values win)."""
+    from ..parallel.collectives import broadcast_
+    for ax in axes:
+        if ax.size > 1:
+            broadcast_(t, ax)
+    return t

@@ -16,8 +16,9 @@ Two paths, as in the reference:
   device: ``set_mesh``/``fit(mesh=)`` (every rank fed the global batch,
   keeping its rows) and a ``dist_sync`` kvstore (each rank its own
   batch, ``rescale_grad`` = 1 / (batch * num_workers)) run the fused
-  step over the ``dp`` axis, gradients summed inside it; a module over a
-  mesh never leaves the fused path;
+  step over the ``dp`` axis, gradients summed inside it, and
+  ``sharding=`` holds each parameter with a spec as this rank's shard;
+  a module over a mesh never leaves the fused path;
 * **classic**: one executor per context over its slice of the batch
   (``work_load_list``), then the gradients summed through the kvstore
   and the updater per parameter and device, or the kvstore's own update
@@ -113,6 +114,7 @@ class Module(BaseModule):
         # and the number of fused steps taken
         self._fused = None
         self._mesh = None
+        self._sharding = None
         self._fused_hsig = None
         self._fused_pending = None
         self._fused_outputs = None
@@ -223,25 +225,41 @@ class Module(BaseModule):
     # -- bind -----------------------------------------------------------------
     # -- mesh -----------------------------------------------------------------
     def set_mesh(self, mesh, sharding=None):
-        """Train over a mesh's ``dp`` axis (reference module.py:198):
-        ``mesh`` is a ``parallel.Mesh``, an axes list, the ``"dp=2"``
-        string form, or None to clear.  Every rank is fed the global
-        batch and keeps its rows.  ``sharding`` (per-param specs, tensor
-        parallelism) is ROADMAP.md queue 1 item 10b.  Call before
-        ``init_optimizer`` (fit does); afterwards the fused step is
-        rebuilt over the new mesh from the live params."""
+        """Train over a mesh (reference module.py:198-248): ``mesh`` is a
+        ``parallel.Mesh``, an axes list, the ``"dp=2,tp=2"`` string form,
+        or None to clear.  Every rank is fed the global batch and keeps
+        its rows of ``dp``.  ``sharding``: ``{param name: PartitionSpec}``
+        merged over the graph's ``__sharding__`` attributes; each rank
+        holds its shard of those parameters (``"auto"``, the shard search,
+        is ROADMAP.md queue 1 item 10c).  Call before ``init_optimizer``
+        (fit does); afterwards the whole train state (params, optimizer
+        slots, the step count, the random state) is carried onto the new
+        layout: gathered whole and cut again."""
         from ..parallel.mesh import Mesh, make_mesh
-        if sharding:
+        if isinstance(sharding, str):
             raise NotImplementedError(
-                "sharding= is not in the port yet (ROADMAP.md, queue 1 "
-                "item 10b); the port replicates params over the mesh")
+                "sharding=%r: the shard search waits for the compile "
+                "cache (ROADMAP.md, queue 1 item 10c, after item 11); pass "
+                "a {name: PartitionSpec} map" % (sharding,))
         if mesh is not None and not isinstance(mesh, Mesh):
             mesh = make_mesh(mesh)
-        if mesh == self._mesh:
+        specs = dict(sharding) if sharding else None
+        if mesh == self._mesh and specs == self._sharding:
             return
+        carried = None
+        if self.optimizer_initialized and self._fused is not None and \
+                self._fused.state is not None:
+            # a re-mesh mid-training keeps the train state: dropping it
+            # would zero every optimizer slot and the step count
+            from ..checkpoint.module_state import capture_train_state
+            carried = capture_train_state(self, gather=True)
         self._mesh = mesh
+        self._sharding = specs
         if self.optimizer_initialized:
             self._setup_fused()
+            if carried is not None and self._fused is not None:
+                from ..checkpoint.module_state import restore_train_state
+                restore_train_state(self, *carried)
 
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
@@ -468,7 +486,8 @@ class Module(BaseModule):
         self._fused = FusedTrainStep(
             self._symbol, self._context[0], self._data_names,
             self._label_names, self._param_names, self._fixed_param_names,
-            self._optimizer, mesh=mesh, global_dp=global_dp)
+            self._optimizer, mesh=mesh, global_dp=global_dp,
+            sharding=self._sharding if mesh is not None else None)
         self._fused_hsig = self._fused.hparam_signature()
         self._fused_init_state()
 

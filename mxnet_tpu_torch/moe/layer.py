@@ -6,8 +6,9 @@ One call builds gate -> ``_moe_dispatch`` -> ``_moe_expert_ffn`` ->
 the dispatch node until ``with_aux_loss`` groups ``MakeLoss`` heads onto
 the net.  ``expert_axis=`` stamps the reference's ``__sharding__`` attrs
 on the stacked expert tensors, so the symbol JSON is the same in both
-packages; the port runs them on one device (the expert axis is ROADMAP
-queue 1 item 10b; over a dp axis the fused step refuses the blocks).
+packages; under a named mesh with that axis (``fit(mesh="dp=2,ep=2")``)
+each rank holds its experts, and the routing is the global batch's
+(``router.route(dp=)``).
 """
 from __future__ import annotations
 

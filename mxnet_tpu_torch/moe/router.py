@@ -61,10 +61,19 @@ def top_k(gates: torch.Tensor, k: int):
 
 
 def route(logits: torch.Tensor, k: int, capacity: int,
-          renormalize: bool = False) -> RoutingPlan:
+          renormalize: bool = False, dp=None) -> RoutingPlan:
     """Route ``(T, E)`` gate logits into capacity buckets with GShard's
     priority: every first choice, in token order, claims capacity before
-    any second choice (a cumsum over the ``(k*T, E)`` one-hot)."""
+    any second choice (a cumsum over the ``(k*T, E)`` one-hot).
+
+    ``dp`` (a ``collectives.Axis``): the tokens are this rank's rows of a
+    batch cut over ``dp``, and the plan is the global batch's, as the
+    JAX package routes it under GSPMD: ``capacity`` is the global one,
+    each choice's position counts the earlier choices of every rank and
+    this choice on the ranks before this one (one all-gather of the
+    ``(k, E)`` counts), and ``counts``, ``assigned``, ``dropped`` and
+    ``aux`` are the global batch's.  ``slot`` and ``hits`` are this
+    rank's tokens'."""
     T, E = logits.shape
     k = int(k)
     capacity = int(capacity)
@@ -75,6 +84,8 @@ def route(logits: torch.Tensor, k: int, capacity: int,
                                       min=1e-9)
     experts = torch.arange(E, device=logits.device)
     onehot = (expert_k.unsqueeze(-1) == experts).to(torch.int32)  # (T,k,E)
+    if dp is not None:
+        return _route_global(gates, gate_k, expert_k, onehot, capacity, dp)
     flat = onehot.transpose(0, 1).reshape(k * T, E)
     # the running count down the k*T rows, as a scan along the last axis
     # of the (E, k*T) transpose: the card's scan over an outer axis of
@@ -94,6 +105,34 @@ def route(logits: torch.Tensor, k: int, capacity: int,
     # router scores 1.0
     me = gates.mean(dim=0)
     ce = assigned / float(max(1, T * k))
+    aux = (me * ce).sum() * float(E)
+    return RoutingPlan(slot=slot, weight=weight, counts=counts.detach(),
+                       assigned=assigned.detach(), hits=hits.detach(),
+                       aux=aux, dropped=dropped.detach())
+
+
+def _route_global(gates, gate_k, expert_k, onehot, capacity: int, dp):
+    """``route`` over a batch cut over ``dp`` (see ``route``)."""
+    from ..parallel import collectives as C
+    T, k, E = onehot.shape
+    mine = onehot.sum(dim=0)                                   # (k, E)
+    every = C._gather_raw(mine.unsqueeze(0), dp, 0)            # (dp, k, E)
+    total = every.sum(dim=0)                                   # (k, E)
+    offset = (torch.cumsum(total, dim=0) - total) \
+        + every[:dp.index].sum(dim=0)
+    running = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
+    pos = ((running + offset.to(torch.int32)) * onehot).sum(dim=-1)
+    over = pos >= capacity                                     # (T, k)
+    slot = torch.where(over, torch.full_like(pos, E * capacity),
+                       expert_k * capacity + pos).to(torch.int32)
+    weight = torch.where(over, torch.zeros_like(gate_k), gate_k)
+    assigned = total.sum(dim=0).float()                        # (E,)
+    counts = torch.clamp(assigned, max=float(capacity))
+    hits = (onehot.float() * (~over).unsqueeze(-1).float()).sum(dim=1)
+    dropped = torch.clamp(assigned - float(capacity), min=0.0).sum()
+    n = T * dp.size
+    me = C.all_reduce(gates.sum(dim=0), dp) / float(n)
+    ce = assigned / float(max(1, n * k))
     aux = (me * ce).sum() * float(E)
     return RoutingPlan(slot=slot, weight=weight, counts=counts.detach(),
                        assigned=assigned.detach(), hits=hits.detach(),

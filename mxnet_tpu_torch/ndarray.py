@@ -107,11 +107,14 @@ def _as_tensor(value, dtype: torch.dtype, device: torch.device):
 class NDArray:
     """A tensor with the reference's NDArray surface."""
 
-    __slots__ = ("_data", "writable", "_ctx")
+    # _shard: (mesh, cuts, whole shape) of an array an executor placed
+    # on a mesh as this rank's shard (Executor.set_mesh), else None
+    __slots__ = ("_data", "writable", "_ctx", "_shard")
 
     def __init__(self, data: torch.Tensor, writable: bool = True,
                  ctx: Optional[Context] = None):
         self._data = data
+        self._shard = None
         self.writable = writable
         # a host context other than cpu(0): the reference's fake devices
         # (several cpu(i) stand for several cards on one host)

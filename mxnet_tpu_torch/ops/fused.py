@@ -25,11 +25,12 @@ import torch
 
 from ..base import MXNetError
 from . import cuda_kernels
-from .nn import ACTIVATIONS, _CONV_PARAMS, conv2d, conv_infer_shape
+from .nn import (ACTIVATIONS, _CONV_PARAMS, conv2d, conv_forward_layout,
+                 conv_infer_shape, fc_input, fc_mode, fc_reduce)
 from .quantized import (_QCONV_PARAMS, _QFC_PARAMS, _QuantizedBase,
                         fc_infer_shape, quantized_conv,
                         quantized_conv_infer_shape, quantized_fc)
-from .registry import OpDef, Param, register_op
+from .registry import OpDef, Param, register_op, to_replicated, to_shard
 
 __all__ = ["ACT_FNS", "ELEMWISE_STEP_OPS", "apply_act", "apply_steps",
            "parse_steps", "format_steps"]
@@ -96,6 +97,31 @@ class FusedFullyConnectedOp(OpDef):
         return [cuda_kernels.fused_fc_epilogue(x, inputs[1], b, p.act_type,
                                                p.out_scale)]
 
+    def forward_layout(self, p, inputs, layouts, aux, ctx):
+        """Column-parallel: the kernel on this rank's (N/n, K) weight
+        shard and bias slice, the whole epilogue in it; the output is cut
+        on its features.  Row-parallel: the kernel makes the partial
+        product (no bias, no activation), the partials are summed over
+        the axis, then bias, activation and the int8 requantize, so int8
+        codes come from the sum, never from a partial."""
+        from ..parallel.mesh import Layout
+        mode = fc_mode(layouts)
+        if mode is None:
+            return super().forward_layout(p, inputs, layouts, aux, ctx)
+        x, axis = fc_input(self.name, mode, inputs, layouts, ctx)
+        x = x.contiguous()
+        if mode == "column":
+            b = None if p.no_bias else to_shard(inputs[2], layouts[2], 0,
+                                                axis, ctx, self.name)
+            return [cuda_kernels.fused_fc_epilogue(
+                x, inputs[1], b, p.act_type, p.out_scale)], \
+                [Layout.shard(1, axis)]
+        out = fc_reduce(self.name, cuda_kernels.fused_fc_epilogue(
+            x, inputs[1], None, "none"), axis, ctx)
+        if not p.no_bias:
+            out = out + to_replicated(inputs[2], layouts[2], ctx, self.name)
+        return [_requantize(apply_act(out, p.act_type), p.out_scale)], None
+
 
 @register_op("_fused_Convolution", hint="fused_convolution")
 class FusedConvolutionOp(OpDef):
@@ -114,6 +140,12 @@ class FusedConvolutionOp(OpDef):
     def forward(self, p, inputs, aux, ctx):
         out = conv2d(p, inputs)
         return [_requantize(apply_act(out, p.act_type), p.out_scale)]
+
+    def forward_layout(self, p, inputs, layouts, aux, ctx):
+        return conv_forward_layout(
+            self, p, inputs, layouts, aux, ctx,
+            lambda p_, ins: _requantize(apply_act(conv2d(p_, ins),
+                                                  p_.act_type), p_.out_scale))
 
 
 class _FusedQuantizedBase(_QuantizedBase):
@@ -228,6 +260,8 @@ class FusedElemwiseOp(OpDef):
     params = [Param("steps", str, required=True,
                     doc="';'-joined step list, each 'op' or 'op:scalar' "
                         "(see ops.fused.ELEMWISE_STEP_OPS)")]
+
+    keeps_layout = "any"
 
     def forward(self, p, inputs, aux, ctx):
         return [apply_steps(inputs[0], p.steps)]

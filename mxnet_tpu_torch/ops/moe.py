@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
-from .registry import OpDef, Param, register_op
+from .registry import OpDef, Param, register_op, to_shard
 
 _ACTS = ["relu", "tanh", "sigmoid", "softrelu", "identity"]
 
@@ -76,8 +76,11 @@ class MoEDispatchOp(OpDef):
         from ..moe.dispatch import dispatch
         from ..moe.router import route
         x, logits = inputs
-        C = self._cap(p, x.shape[0])
-        plan = route(logits, p.k, C, renormalize=p.renormalize)
+        # under a dp axis the tokens are this rank's rows: the routing is
+        # the global batch's, its capacity from the global token count
+        dp = getattr(ctx, "dp", None)
+        C = self._cap(p, x.shape[0] * (dp.size if dp is not None else 1))
+        plan = route(logits, p.k, C, renormalize=p.renormalize, dp=dp)
         buf = dispatch(x, plan.slot, p.num_experts, C)
         return [buf, plan.weight, plan.slot, plan.aux.reshape(1),
                 plan.counts, plan.hits]
@@ -113,6 +116,23 @@ class MoEExpertFFNOp(OpDef):
         else:
             shapes = [d, (E, D, H), (E, H), (E, H, O), (E, O)]
         return shapes, [(E, C, O)], []
+
+    def forward_layout(self, p, inputs, layouts, aux, ctx):
+        """Experts cut on dim 0 over an axis (``expert_axis``): the
+        dispatched buffer is brought to the same cut (a narrow of the
+        buffer every rank of the axis holds: the tokens are replicated
+        over it), each rank runs its experts, and the output stays cut
+        on the experts (the combine's default rule gathers it).  Each
+        rank's buffer holds its own tokens' rows at the global capacity;
+        the rows of other ranks' tokens are zero and read by no
+        combine."""
+        from ..parallel.mesh import Layout
+        w = layouts[1]
+        if w is None or w.partial or w.dim != 0:
+            return super().forward_layout(p, inputs, layouts, aux, ctx)
+        ins = [to_shard(t, lay, 0, w.axis, ctx, self.name)
+               for t, lay in zip(inputs, layouts)]
+        return self.forward(p, ins, aux, ctx), [Layout.shard(0, w.axis)]
 
     def forward(self, p, inputs, aux, ctx):
         act = _act(p.act_type)

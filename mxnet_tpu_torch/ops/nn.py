@@ -17,12 +17,15 @@ gradient.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
-from .registry import OpDef, Param, register_op
+from .registry import (OpDef, Param, enter_parallel, register_op, to_replicated,
+                       to_shard)
 
 
 def _conv_out(x, k, s, p, d=1):
@@ -52,6 +55,7 @@ ACTIVATIONS = {
 class ActivationOp(OpDef):
     params = [Param("act_type", str, required=True,
                     enum=["relu", "sigmoid", "tanh", "softrelu"])]
+    keeps_layout = "any"
 
     def forward(self, p, inputs, aux, ctx):
         fn = ACTIVATIONS.get(p.act_type)
@@ -85,6 +89,78 @@ class FullyConnectedOp(OpDef):
         if not p.no_bias:
             out = out + inputs[2]
         return [out]
+
+    def forward_layout(self, p, inputs, layouts, aux, ctx):
+        from ..parallel.mesh import Layout
+        mode = fc_mode(layouts)
+        if mode is None:
+            return super().forward_layout(p, inputs, layouts, aux, ctx)
+        x, axis = fc_input(self.name, mode, inputs, layouts, ctx)
+        out = torch.matmul(x, inputs[1].t())
+        if mode == "column":
+            if not p.no_bias:
+                out = out + to_shard(inputs[2], layouts[2], 0, axis, ctx,
+                                     self.name)
+            return [out], [Layout.shard(1, axis)]
+        if p.no_bias:
+            # the partial sums go on as they are: the consumer's entry
+            # sums them
+            return [out], [Layout.sum_of(axis)]
+        out = fc_reduce(self.name, out, axis, ctx)
+        return [out + to_replicated(inputs[2], layouts[2], ctx,
+                                    self.name)], None
+
+
+def fc_mode(layouts) -> Optional[str]:
+    """The tensor-parallel form of a FullyConnected from its weight's
+    layout: ``"column"`` (weight (N, K) cut on dim 0: each rank makes its
+    slice of the features), ``"row"`` (cut on dim 1: each rank sums its
+    slice of the inputs, a partial sum), or None (the default rule)."""
+    w = layouts[1]
+    if w is None or w.partial or w.dim not in (0, 1):
+        return None
+    return "column" if w.dim == 0 else "row"
+
+
+def fc_input(op: str, mode: str, inputs, layouts, ctx):
+    """-> (the 2-D input this rank multiplies, the weight's axis).  A
+    column-parallel product takes the whole input (its gradient summed
+    over the axis); a row-parallel one its slice of the flattened
+    features (a shard of dim 1 already is one)."""
+    from ..parallel.mesh import Layout
+    axis = layouts[1].axis
+    x, lay = inputs[0], layouts[0]
+    if mode == "column":
+        x = enter_parallel(x, lay, axis, ctx, op)
+        return x.reshape(x.shape[0], -1), axis
+    if lay == Layout.shard(1, axis):
+        return x.reshape(x.shape[0], -1), axis
+    x = to_replicated(x, lay, ctx, op)
+    x = to_shard(x.reshape(x.shape[0], -1), None, 1, axis, ctx, op)
+    return x, axis
+
+
+def fc_reduce(op: str, part, axis: str, ctx):
+    """The sum over ``axis`` of a row-parallel product's partial sums."""
+    from ..parallel import collectives as C
+    C.note_redistribution(op, "all_reduce")
+    return C.all_reduce(part, ctx.axis(axis))
+
+
+def conv_forward_layout(op, p, inputs, layouts, aux, ctx, forward):
+    """Convolution with its output channels cut (weight (O, C, kh, kw) on
+    dim 0, one group): the whole input, this rank's filters and bias
+    slice; the output is cut on dim 1.  ``forward(p, inputs)`` -> the
+    output tensor.  Otherwise the default rule."""
+    from ..parallel.mesh import Layout
+    w = layouts[1]
+    if w is None or w.partial or w.dim != 0 or p.num_group != 1:
+        return OpDef.forward_layout(op, p, inputs, layouts, aux, ctx)
+    ins = [enter_parallel(inputs[0], layouts[0], w.axis, ctx, op.name),
+           inputs[1]]
+    if not p.no_bias:
+        ins.append(to_shard(inputs[2], layouts[2], 0, w.axis, ctx, op.name))
+    return [forward(p, ins)], [Layout.shard(1, w.axis)]
 
 
 _CONV_PARAMS = [Param("kernel", "shape", required=True),
@@ -132,6 +208,10 @@ class ConvolutionOp(OpDef):
 
     def forward(self, p, inputs, aux, ctx):
         return [conv2d(p, inputs)]
+
+    def forward_layout(self, p, inputs, layouts, aux, ctx):
+        return conv_forward_layout(self, p, inputs, layouts, aux, ctx,
+                                   conv2d)
 
 
 @register_op("Deconvolution", hint="deconvolution")
@@ -201,6 +281,8 @@ def deconv_out_hw(p, d):
 class PoolingOp(OpDef):
     """max/avg/sum pooling, floor output convention; padding counts as
     -inf for max and as zeros for avg (divided by the full window)."""
+    # each channel pools alone
+    keeps_layout = (1,)
     params = [Param("kernel", "shape", required=True),
               Param("pool_type", str, default="max",
                     enum=["max", "avg", "sum"]),
@@ -379,6 +461,22 @@ class DropoutOp(OpDef):
         mask = torch.rand(x.shape, generator=ctx.generator,
                           device=x.device) < keep
         return [torch.where(mask, x / keep, torch.zeros_like(x))]
+
+    def forward_layout(self, p, inputs, layouts, aux, ctx):
+        """On a shard: the whole value's mask is drawn (the same numbers
+        on every rank, as on one device) and this rank's slice kept."""
+        lay, x = layouts[0], inputs[0]
+        if lay is None or lay.partial or not ctx.is_train or p.p <= 0.0:
+            return super().forward_layout(p, inputs, layouts, aux, ctx)
+        ax = ctx.axis(lay.axis)
+        shape = list(x.shape)
+        n = shape[lay.dim]
+        shape[lay.dim] *= ax.size
+        keep = 1.0 - p.p
+        mask = torch.rand(shape, generator=ctx.generator,
+                          device=x.device).narrow(lay.dim, ax.index * n, n) \
+            < keep
+        return [torch.where(mask, x / keep, torch.zeros_like(x))], [lay]
 
 
 @register_op("LRN", hint="lrn")

@@ -11,6 +11,19 @@ reference defines its own gradient (the loss layers) wraps its body in a
 ``torch.autograd.Function``.  A train-mode forward of an op with
 auxiliary states returns ``(outputs, new_aux)``, as the reference does;
 the executor commits the new states.
+
+Sharded state (tensor parallelism): under a mesh the graph walk hands
+each op its inputs' layouts (``parallel.mesh.Layout``; None is
+replicated) and calls ``forward_layout``, which returns the outputs and
+their layouts.  The default rule brings every input to replicated at
+the op's entry (``to_replicated``: an all-gather for a shard, an
+all-reduce for a partial sum) and runs ``forward``, so an op without a
+rule of its own computes what it computes on one device.  An op with
+``keeps_layout`` (the unary elementwise ops: any dim; Pooling: the
+channel dim) runs on the shard it is given.  The rules of
+FullyConnected, ``_fused_FullyConnected``, Convolution, Dropout,
+Flatten, Reshape and ``_moe_expert_ffn`` live with the ops.  Every
+redistribution is counted per op in ``parallel.collectives.STATS``.
 """
 from __future__ import annotations
 
@@ -18,11 +31,13 @@ import ast
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..base import MXNetError, _AttrDict
 
 __all__ = ["Param", "OpDef", "register_op", "register_simple_op", "get_op",
-           "list_ops", "OpContext"]
+           "list_ops", "OpContext", "to_replicated", "to_shard",
+           "enter_parallel"]
 
 _OP_REGISTRY: Dict[str, "OpDef"] = {}
 
@@ -96,10 +111,55 @@ class OpContext:
     normalizations of the loss layers) reduce over it too, as GSPMD
     makes the JAX package's ops see the global batch."""
 
-    def __init__(self, is_train: bool = False, generator=None, dp=None):
+    def __init__(self, is_train: bool = False, generator=None, dp=None,
+                 mesh=None):
         self.is_train = is_train
         self.generator = generator
         self.dp = dp if dp is not None and dp.size > 1 else None
+        # the mesh of a sharded walk (None: every value is replicated)
+        self.mesh = mesh
+
+    def axis(self, name: str):
+        """This rank's ``collectives.Axis`` of the walk's mesh."""
+        return self.mesh.axis(name)
+
+
+def to_replicated(x, lay, ctx: OpContext, op: str):
+    """``x`` of layout ``lay`` made whole on every rank: an all-gather of
+    a shard, an all-reduce of a partial sum, counted against ``op``."""
+    if lay is None:
+        return x
+    from ..parallel import collectives as C
+    ax = ctx.axis(lay.axis)
+    if lay.partial:
+        C.note_redistribution(op, "all_reduce")
+        return C.all_reduce(x, ax)
+    C.note_redistribution(op, "all_gather")
+    return C.all_gather(x.contiguous(), ax, lay.dim)
+
+
+def to_shard(x, lay, dim: int, axis: str, ctx: OpContext, op: str):
+    """``x`` of layout ``lay`` brought to ``Layout.shard(dim, axis)``:
+    as it is when it already is, else made whole and narrowed."""
+    from ..parallel import collectives as C
+    from ..parallel.mesh import Layout
+    if lay == Layout.shard(dim, axis):
+        return x
+    x = to_replicated(x, lay, ctx, op)
+    C.note_redistribution(op, "narrow")
+    return C.narrow(x, ctx.axis(axis), dim)
+
+
+def enter_parallel(x, lay, axis: str, ctx: OpContext, op: str):
+    """A replicated ``x`` as the input of per-rank work over ``axis``
+    whose input gradients are summands (``collectives.enter_parallel``:
+    the backward sums them)."""
+    from ..parallel import collectives as C
+    x = to_replicated(x, lay, ctx, op)
+    if not torch.is_grad_enabled() or not x.requires_grad:
+        return x
+    C.note_redistribution(op, "all_reduce_backward")
+    return C.enter_parallel(x, ctx.axis(axis))
 
 
 class OpDef:
@@ -117,6 +177,9 @@ class OpDef:
     # an op that takes a variable number of inputs (Concat) names the
     # parameter that counts them; the symbol constructor fills it in
     variable_args: Optional[str] = None
+    # the input shard dims a one-input op computes on as they are
+    # ("any", or a tuple of dims); None: the default layout rule
+    keeps_layout = None
 
     def __init__(self, name: str):
         self.name = name
@@ -171,6 +234,23 @@ class OpDef:
         """Return the list of output tensors, or ``(outputs, new_aux)``
         for a train-mode forward that updates auxiliary states."""
         raise NotImplementedError(self.name)
+
+    def forward_layout(self, p, inputs: List[Any], layouts: List[Any],
+                       aux: List[Any], ctx: OpContext):
+        """The forward under a mesh: -> ``(forward's result, output
+        layouts or None for all replicated)``.  Default: every input made
+        replicated first, unless the op keeps the one shard it is
+        given."""
+        keep = self.keeps_layout
+        if keep is not None and len(inputs) == 1 and layouts[0] is not None \
+                and not layouts[0].partial \
+                and (keep == "any" or layouts[0].dim in keep):
+            res = self.forward(p, inputs, aux, ctx)
+            outs = res[0] if isinstance(res, tuple) else res
+            return res, [layouts[0]] * len(outs)
+        ins = [to_replicated(x, lay, ctx, self.name)
+               for x, lay in zip(inputs, layouts)]
+        return self.forward(p, ins, aux, ctx), None
 
 
 def register_op(name: str, hint: Optional[str] = None):

@@ -86,7 +86,7 @@ _SCALAR = [
 for _name, _fn in _SCALAR:
     register_simple_op(
         _name, (lambda f: lambda p, a: f(a, scalar_of(p)))(_fn), nin=1,
-        params=[Param("scalar", float, required=True)])
+        params=[Param("scalar", float, required=True)]).keeps_layout = "any"
 
 
 # ---------------------------------------------------------------------------
@@ -100,7 +100,8 @@ _UNARY = [("abs", abs_), ("ceil", torch.ceil), ("cos", torch.cos),
           ("square", torch.square)]
 for _name, _fn in _UNARY:
     for _n in (_name, "_" + _name):
-        register_simple_op(_n, (lambda f: lambda p, a: f(a))(_fn), nin=1)
+        register_simple_op(_n, (lambda f: lambda p, a: f(a))(_fn),
+                           nin=1).keeps_layout = "any"
 
 
 # ---------------------------------------------------------------------------
@@ -462,10 +463,27 @@ class ReshapeOp(OpDef):
     def forward(self, p, inputs, aux, ctx):
         return [inputs[0].reshape(self._target(p, tuple(inputs[0].shape)))]
 
+    def forward_layout(self, p, inputs, layouts, aux, ctx):
+        """A shard on dim d stays one when the target keeps every dim up
+        to d: each rank reshapes its slice to the target with dim d cut."""
+        lay = layouts[0]
+        if lay is not None and not lay.partial:
+            n = ctx.axis(lay.axis).size
+            shape = list(inputs[0].shape)
+            shape[lay.dim] *= n
+            out = list(self._target(p, tuple(shape)))
+            d = lay.dim
+            if len(out) > d and out[:d + 1] == shape[:d + 1]:
+                out[d] //= n
+                return [inputs[0].reshape(out)], [lay]
+        return super().forward_layout(p, inputs, layouts, aux, ctx)
+
 
 @register_op("Flatten", hint="flatten")
 class FlattenOp(OpDef):
     """(N, ...) -> (N, prod)."""
+    # a shard of dim 1 is a contiguous block of the flattened features
+    keeps_layout = (1,)
 
     def infer_shape(self, p, in_shapes):
         d = in_shapes[0]

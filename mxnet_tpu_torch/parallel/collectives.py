@@ -25,7 +25,18 @@ gradient of ``all_reduce`` passes through unchanged and that of
 
 ``STATS`` counts calls, bytes and the host seconds spent inside them
 (the blocking time on a gloo group; on NCCL the calls are asynchronous
-and the seconds read only the launch).
+and the seconds read only the launch), and under ``"by_op"`` the
+redistributions the sharded graph walk makes at each op's entry, per
+op name and kind (``note_redistribution``).
+
+Tensor parallelism adds three boundaries between a replicated value and
+work that differs by rank, each with the backward that makes every
+rank's gradient of the replicated value the whole gradient:
+``narrow`` (this rank's slice; backward all-gathers the slices'
+gradients), ``enter_parallel`` (the identity; backward sums over the
+axis: the input of a column-parallel product) and ``gather_param`` (a
+parameter cut over an axis whose ranks see different data; backward
+reduce-scatters, so the shard's gradient is summed over that axis).
 """
 from __future__ import annotations
 
@@ -37,13 +48,20 @@ import torch
 __all__ = ["Axis", "all_reduce", "all_reduce_", "all_gather",
            "reduce_scatter", "all_to_all", "ring_shift", "broadcast_",
            "barrier", "all_reduce_coalesced_", "shard_rows", "dp_update",
-           "STATS", "reset_stats"]
+           "narrow", "enter_parallel", "gather_param",
+           "note_redistribution", "STATS", "reset_stats"]
 
-STATS = {"calls": 0, "bytes": 0, "seconds": 0.0}
+STATS = {"calls": 0, "bytes": 0, "seconds": 0.0, "by_op": {}}
 
 
 def reset_stats() -> None:
-    STATS.update(calls=0, bytes=0, seconds=0.0)
+    STATS.update(calls=0, bytes=0, seconds=0.0, by_op={})
+
+
+def note_redistribution(op: str, kind: str) -> None:
+    """Count one redistribution of kind ``kind`` at op ``op``'s entry."""
+    per = STATS["by_op"].setdefault(op, {})
+    per[kind] = per.get(kind, 0) + 1
 
 
 class Axis:
@@ -156,6 +174,62 @@ class _AllGather(torch.autograd.Function):
 def all_gather(x: torch.Tensor, axis: Axis, dim: int = 0) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in axis order."""
     return _AllGather.apply(x, axis, dim)
+
+
+class _Narrow(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        n = x.shape[dim] // axis.size
+        return x.narrow(dim, axis.index * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_raw(g, ctx.axis, ctx.dim), None, None
+
+
+def narrow(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """This rank's slice of the replicated ``x`` along ``dim``; the
+    backward all-gathers the slices' gradients (each rank computed its
+    slice's)."""
+    return _Narrow.apply(x, axis, dim)
+
+
+class _EnterParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.axis), None
+
+
+def enter_parallel(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The identity on a replicated input of per-rank work whose
+    gradients are summands (a column-parallel product's input): the
+    backward sums them over the axis."""
+    return _EnterParallel.apply(x, axis)
+
+
+class _GatherParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return _gather_raw(x.detach(), axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.axis, ctx.dim), None, None
+
+
+def gather_param(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """The whole of a parameter cut over an axis whose ranks compute on
+    different data (``dp``): all-gathered forward, the gradient
+    reduce-scattered back, so each rank's shard gets the sum over the
+    axis."""
+    return _GatherParam.apply(x, axis, dim)
 
 
 def reduce_scatter(x: torch.Tensor, axis: Axis, dim: int = 0) -> torch.Tensor:
@@ -291,13 +365,17 @@ def dp_update(axis: Axis, params, grads, rows, update) -> None:
     param; a param with ``rows[i] = (lo, hi)`` has its gradient
     reduce-scattered, ``update(i, p[lo:hi], g_rows)`` updates this
     rank's rows, and the rows are all-gathered back (the sharded weight
-    update, ``MXNET_SHARD_WEIGHT_UPDATE``)."""
+    update, ``MXNET_SHARD_WEIGHT_UPDATE``).  ``rows[i] = "summed"``: the
+    gradient is already the sum over the axis (a parameter cut over it,
+    ``gather_param``), and the update runs on it as it is."""
     whole = [i for i, r in enumerate(rows) if r is None]
     all_reduce_coalesced_([grads[i] for i in whole], axis)
     for i in whole:
         update(i, params[i], grads[i])
     for i, r in enumerate(rows):
-        if r is None:
+        if r == "summed":
+            update(i, params[i], grads[i])
+        if r is None or r == "summed":
             continue
         lo, hi = r
         g = reduce_scatter(grads[i], axis, dim=0)

@@ -21,8 +21,12 @@ loss in the backward (``torch.utils.checkpoint``).
 whose leading dim the dp size divides, updates this rank's rows and
 their momentum only, and all-gathers the rows back.
 
-``param_specs`` over any axis other than ``dp`` (tensor parallelism) is
-ROADMAP.md queue 1 item 10b and raises.
+``param_specs`` (``{name: PartitionSpec}`` over the mesh's axes, tensor
+parallelism): each rank holds its shard of such a parameter and of its
+momentum, the graph walk runs over layouts (``executor._GraphProgram.
+eval(shards=)``), and a shard's gradient is summed over ``dp`` (a
+parameter cut over ``dp`` itself gets its sum from its gather's
+backward).  ``params_numpy`` gathers the whole values.
 """
 from __future__ import annotations
 
@@ -37,7 +41,8 @@ from ..executor import _GraphProgram
 from ..ops.registry import OpContext
 from .. import random as _random
 from . import collectives as C
-from .mesh import spec_axes
+from .mesh import (gather_tensor, normalize_spec, shard_tensor, spec_axes,
+                   spec_pairs, validate_spec)
 
 __all__ = ["DPTrainStep", "cast_compute"]
 
@@ -61,18 +66,6 @@ def _dtype(d):
             "float32": torch.float32}[name]
 
 
-def refuse_param_specs(param_specs, axis: str = "dp") -> None:
-    """Param specs that name a mesh axis are tensor parallelism:
-    ROADMAP.md queue 1 item 10b."""
-    for name, spec in (param_specs or {}).items():
-        if spec_axes(tuple(spec) if spec is not None else ()):
-            raise NotImplementedError(
-                "param spec %r for %r shards a parameter over the mesh: "
-                "tensor parallelism is not in the port yet (ROADMAP.md, "
-                "queue 1 item 10b); the port replicates params over %r"
-                % (tuple(spec), name, axis))
-
-
 def gather_outputs(outs, axis, local_batch):
     """Outputs with the local batch as leading dim, all-gathered over
     the axis (the global batch's outputs); others as they are."""
@@ -92,7 +85,6 @@ class DPTrainStep:
                  remat=False, ctx=None):
         if "dp" not in mesh.axis_names:
             raise MXNetError("mesh %s has no 'dp' axis" % (dict(mesh.shape),))
-        refuse_param_specs(param_specs)
         self.symbol = symbol
         self.mesh = mesh
         self.ctx = ctx if ctx is not None else gpu(0)
@@ -103,7 +95,14 @@ class DPTrainStep:
         self.momentum = momentum
         self.wd = weight_decay
         self.rescale = rescale_grad
-        self.param_specs = param_specs or {}
+        self.param_specs = {}
+        for n, sp in (param_specs or {}).items():
+            sp = normalize_spec(sp)
+            validate_spec(n, sp, mesh)
+            if any(e is not None for e in sp):
+                self.param_specs[n] = sp
+        # name -> its (dim, axis) cuts, set by init
+        self._cuts = {}
         self.compute_dtype = _dtype(compute_dtype)
         from ..symbol import id_valued_inputs
         self._no_cast = set(self.label_names) | id_valued_inputs(symbol)
@@ -121,20 +120,35 @@ class DPTrainStep:
     def init(self, arg_params, aux_params):
         """The state on this rank's device: params (autograd leaves),
         aux, and momentum (this rank's rows under the sharded update)."""
-        def put(v):
-            return torch.as_tensor(np.asarray(v)).to(self.device, copy=True)
-        params = {k: put(v).requires_grad_(True)
+        self._cuts = {}
+
+        def put(v, k):
+            t = torch.as_tensor(np.asarray(v)).to(self.device, copy=True)
+            spec = self.param_specs.get(k)
+            if spec is None:
+                return t
+            validate_spec(k, spec, self.mesh, shape=tuple(t.shape))
+            self._cuts[k] = spec_pairs(spec, t.dim())
+            return shard_tensor(t, self._cuts[k], self.mesh)
+        params = {k: put(v, k).requires_grad_(True)
                   for k, v in arg_params.items() if k in self.param_names}
-        aux = {k: put(v) for k, v in aux_params.items()}
-        self._rows = {k: C.shard_rows(self.axis, tuple(p.shape),
-                                      self.shard_update)
-                      for k, p in params.items()}
+        aux = {k: put(v, k) for k, v in aux_params.items()}
+        self._rows = {}
+        for k, p in params.items():
+            spec = tuple(self.param_specs.get(k) or ())
+            if "dp" in spec_axes(spec):
+                self._rows[k] = "summed"
+            elif spec and spec[0] is not None:
+                self._rows[k] = None
+            else:
+                self._rows[k] = C.shard_rows(self.axis, tuple(p.shape),
+                                             self.shard_update)
         mom = None
         if self.momentum:
             mom = {}
             for k, p in params.items():
                 r = self._rows[k]
-                mom[k] = torch.zeros_like(p.detach() if r is None
+                mom[k] = torch.zeros_like(p.detach() if not isinstance(r, tuple)
                                           else p.detach()[r[0]:r[1]])
         return {"params": params, "aux": aux, "mom": mom}
 
@@ -166,14 +180,16 @@ class DPTrainStep:
             else 1.0 / (local * self.axis.size)
         opctx = OpContext(is_train=True,
                           generator=_random.generator(self.device),
-                          dp=self.axis)
+                          dp=self.axis,
+                          mesh=self.mesh if self._cuts else None)
         cdt = self.compute_dtype
 
         def loss(*leaves):
             args = dict(zip(names, leaves))
             args.update(batch)
             args = cast_compute(args, cdt, self._no_cast)
-            outs, new_aux = self._prog.eval(args, aux, opctx)
+            outs, new_aux = self._prog.eval(args, aux, opctx,
+                                            shards=self._cuts)
             return tuple(outs), new_aux
 
         leaves = [params[n] for n in names]
@@ -211,6 +227,8 @@ class DPTrainStep:
         return state, outs
 
     def params_numpy(self, state) -> Dict[str, np.ndarray]:
-        """The params of ``state`` as host arrays."""
-        return {k: v.detach().cpu().numpy() for k, v in
-                state["params"].items()}
+        """The params of ``state`` as host arrays, shards gathered whole
+        (a collective under param_specs: every rank calls it)."""
+        return {k: gather_tensor(v.detach(), self._cuts.get(k) or [],
+                                 self.mesh).cpu().numpy()
+                for k, v in state["params"].items()}

@@ -13,6 +13,16 @@ requires.  Two equal meshes share their groups.
 ``PartitionSpec`` and ``NamedSharding`` are the port's own small types
 (the JAX package's are jax's); the spec helpers and their error
 messages match the JAX package's.
+
+Sharded state: a parameter with a spec is held on each rank as its
+local shard only.  ``spec_pairs`` lists a spec's ``(dim, axis)`` cuts in
+order (a tuple entry cuts its dim row-major over its axes);
+``shard_tensor`` slices a global tensor to this rank's shard,
+``gather_tensor`` is its inverse (a gather over each cut's axis), and
+``shard_index`` gives the shard's global index ranges (the checkpoint's
+shard index).  ``Layout`` is what the graph walk carries per value:
+replicated (``None``), sharded on ``(dim, axis)``, or a partial sum over
+an axis.
 """
 from __future__ import annotations
 
@@ -24,7 +34,9 @@ import numpy as np
 __all__ = ["make_mesh", "parse_mesh_spec", "mesh_from_env",
            "normalize_spec", "mesh_axes", "spec_axes", "validate_spec",
            "sharding_attrs", "dp_sharding", "replicated",
-           "PartitionSpec", "NamedSharding", "Mesh"]
+           "PartitionSpec", "NamedSharding", "Mesh", "Layout",
+           "spec_pairs", "shard_tensor", "gather_tensor", "shard_index",
+           "local_shape", "writes_shard"]
 
 # (axis names, ranks) -> {axis name: {line of ranks: group}}
 _GROUPS = {}
@@ -291,3 +303,113 @@ def dp_sharding(mesh: Mesh, axis: str = "dp") -> NamedSharding:
 
 def replicated(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, PartitionSpec())
+
+
+# -- sharded state --------------------------------------------------------------
+
+class Layout:
+    """A value's layout in the graph walk: ``Layout.shard(dim, axis)``
+    (each rank holds its slice of ``dim``) or ``Layout.partial(axis)``
+    (each rank holds a summand; the value is their sum).  Replicated is
+    ``None``."""
+
+    __slots__ = ("partial", "dim", "axis")
+
+    def __init__(self, partial: bool, dim, axis: str):
+        self.partial = bool(partial)
+        self.dim = dim
+        self.axis = axis
+
+    @classmethod
+    def shard(cls, dim: int, axis: str) -> "Layout":
+        return cls(False, int(dim), axis)
+
+    @classmethod
+    def sum_of(cls, axis: str) -> "Layout":
+        return cls(True, None, axis)
+
+    def __eq__(self, other):
+        return isinstance(other, Layout) and (self.partial, self.dim,
+                                              self.axis) == (
+            other.partial, other.dim, other.axis)
+
+    def __hash__(self):
+        return hash((self.partial, self.dim, self.axis))
+
+    def __repr__(self):
+        return ("Layout.sum_of(%r)" % self.axis if self.partial
+                else "Layout.shard(%d, %r)" % (self.dim, self.axis))
+
+
+def spec_pairs(spec, ndim: int) -> List[Tuple[int, str]]:
+    """The ``(dim, axis)`` cuts of a spec over an ``ndim``-D array, in
+    order (a tuple entry: its axes in turn, row-major)."""
+    out = []
+    for i, entry in enumerate(tuple(spec or ())[:ndim]):
+        for a in (entry if isinstance(entry, (tuple, list)) else (entry,)):
+            if a is not None:
+                out.append((i, a))
+    return out
+
+
+def _cut(mesh, pairs, shape):
+    """-> [(dim, axis, start, size)] of this rank's cuts, each relative
+    to the slice the cuts before it left."""
+    shape = list(shape)
+    out = []
+    for d, a in pairs:
+        ax = mesh.axis(a)
+        if shape[d] % ax.size:
+            raise ValueError("dim %d (%d) is not divisible by axis %r (%d)"
+                             % (d, shape[d], a, ax.size))
+        n = shape[d] // ax.size
+        out.append((d, ax, ax.index * n, n))
+        shape[d] = n
+    return out
+
+
+def local_shape(shape, pairs, mesh) -> Tuple[int, ...]:
+    """The shard's shape of a global ``shape`` under ``pairs``."""
+    shape = list(shape)
+    for d, a in pairs:
+        shape[d] //= int(mesh.shape[a])
+    return tuple(shape)
+
+
+def shard_tensor(t, pairs, mesh):
+    """This rank's shard of the global tensor ``t`` (a contiguous copy
+    when cut, ``t`` itself when ``pairs`` is empty)."""
+    if not pairs:
+        return t
+    for d, _ax, start, n in _cut(mesh, pairs, t.shape):
+        t = t.narrow(d, start, n)
+    return t.contiguous().clone()
+
+
+def gather_tensor(t, pairs, mesh):
+    """The global tensor from every rank's shard ``t`` (a collective over
+    each cut's axis, the last cut first)."""
+    from .collectives import _gather_raw
+    for d, a in reversed(list(pairs)):
+        t = _gather_raw(t, mesh.axis(a), d)
+    return t
+
+
+def shard_index(shape, pairs, mesh) -> List[List[int]]:
+    """``[[start, stop], ...]`` per dim of this rank's shard in the
+    global array of ``shape``."""
+    lo = [0] * len(shape)
+    size = list(shape)
+    for d, _ax, start, n in _cut(mesh, pairs, shape):
+        lo[d] += start
+        size[d] = n
+    return [[int(a), int(a + n)] for a, n in zip(lo, size)]
+
+
+def writes_shard(pairs, mesh) -> bool:
+    """Whether this rank writes its shard of a leaf cut by ``pairs``:
+    one rank per distinct shard, the one at index 0 of every mesh axis
+    the leaf is replicated over."""
+    cut = {a for _d, a in pairs}
+    return all(mesh.axis(a).index == 0 for a in mesh.axis_names
+               if a not in cut)

@@ -85,8 +85,28 @@ class ServeEngine:
     ``MXNET_EMBED_DEDUP``) rewrites Embedding lookups to the deduped
     ``_sparse_embedding``, under which padded ids read zero vectors.
 
-    ``mesh``, ``param_specs`` and ``autotune`` are not in the port yet
-    and raise ``NotImplementedError`` when given.
+    ``mesh`` / ``param_specs`` (reference engine.py:87-96, 150-212,
+    279-363): a named mesh (``parallel.make_mesh``, an axes list or
+    ``"tp=2"``) and per-parameter PartitionSpecs.  Every bucket's
+    executor is placed on the mesh (``Executor.set_mesh``): each rank
+    holds its shards of the weights, a padded batch is cut over ``dp``
+    when ``dp`` divides the bucket and replicated otherwise, and a
+    reload lands each weight back in its shard.  ``param_specs`` without
+    ``mesh`` raises.
+
+    A recorded difference from the JAX package, whose engine is one
+    process driving every device: in the port every rank of the mesh
+    constructs the engine with the same arguments (``tools/launch.py``
+    starts the same script on each).  The mesh's first rank is the
+    front: ``submit``, ``predict`` and the batcher.  Each other rank
+    runs a follower thread that receives every batch from the front (the
+    bucket and the padded batch, by broadcast), runs the same forward
+    and drops its output; ``submit``/``predict`` raise there.  A reload
+    is called on every rank too, and each rank applies it when the front
+    does; a follower's ``close()`` returns once the front has closed.
+
+    ``autotune`` is not in the port yet and raises
+    ``NotImplementedError`` when given.
     """
 
     def __init__(self, symbol, params: Dict,
@@ -104,11 +124,11 @@ class ServeEngine:
                  quantize=None, calib_data=None, u8_wire=None,
                  fuse=None, pipeline=None, autotune=None,
                  embed_dedup=None):
-        for option, value in (("ServeEngine(mesh=)", mesh),
-                              ("ServeEngine(param_specs=)", param_specs),
-                              ("ServeEngine(autotune=)", autotune)):
-            if value is not None and value is not False:
-                raise not_ported(option)
+        if autotune is not None and autotune is not False:
+            raise not_ported("ServeEngine(autotune=)")
+        if param_specs and mesh is None:
+            raise ServeError("param_specs without mesh=: specs are "
+                             "PartitionSpecs over a named mesh")
         if not input_shapes:
             raise ServeError("input_shapes must name at least one input")
         sym_json = symbol.tojson() if hasattr(symbol, "tojson") else symbol
@@ -172,7 +192,21 @@ class ServeEngine:
         self.stats = ServeStats(name, self.max_batch_size)
         from .. import profiler
         profiler.register_serve_stats(self.stats)
+        self._mesh = None
+        self._param_specs = dict(param_specs or {})
+        self._channel = None
+        self._follower = None
+        self._closed = False
+        if mesh is not None:
+            from ..parallel.mesh import Mesh, make_mesh
+            self._mesh = mesh if isinstance(mesh, Mesh) else make_mesh(mesh)
         self._bind_grid()
+        if self._mesh is not None and self._mesh.size > 1:
+            self._channel = _Channel(self._mesh)
+            if not self._channel.front:
+                self._batcher = None
+                self._follower = _Follower(self)
+                return
         self._batcher = MicroBatcher(
             self._run_batch, self._finish,
             max_batch_size=self.max_batch_size,
@@ -180,7 +214,6 @@ class ServeEngine:
             default_deadline_ms=self.deadline_ms, validate=self._validate,
             stats=self.stats, name=name,
             on_start=self._warmup if warmup else None)
-        self._closed = False
 
     @classmethod
     def from_checkpoint(cls, prefix: str, epoch: int,
@@ -212,12 +245,28 @@ class ServeEngine:
                phase, type(exc).__name__, exc)) from exc
 
     def _bind_grid(self) -> None:
-        """Bind every bucket's executor; they share the parameters."""
+        """Bind every bucket's executor (they share the parameters) and,
+        with a mesh, place each on it."""
         for b in self._buckets:
             try:
-                self._predictor.ensure_bound(self._shapes_by_bucket[b])
+                ex = self._predictor.ensure_bound(self._shapes_by_bucket[b])
             except Exception as e:
                 self._grid_fail(b, "bind", e)
+            if self._mesh is not None:
+                try:
+                    ex.set_mesh(self._mesh, param_specs=self._param_specs,
+                                input_specs=self._input_specs(b))
+                except Exception as e:
+                    self._grid_fail(b, "mesh placement", e)
+
+    def _input_specs(self, bucket: int) -> Dict:
+        """The bucket's inputs cut over ``dp`` on the batch dim when the
+        mesh has a ``dp`` that divides the bucket, else replicated."""
+        from ..parallel.mesh import PartitionSpec as P
+        dp = int(dict(self._mesh.shape).get("dp", 1))
+        return {name: P("dp") if dp > 1 and shape and shape[0] % dp == 0
+                else P()
+                for name, shape in self._shapes_by_bucket[bucket].items()}
 
     def _warmup(self) -> None:
         """Run every bucket once through the batch path, on the
@@ -267,15 +316,22 @@ class ServeEngine:
         self.stats.on_batch(n, bucket)
         return handoff
 
+    def _forward(self, data: np.ndarray) -> torch.Tensor:
+        """One padded batch through its bucket's executor (under the swap
+        lock); -> the served output."""
+        p = self._predictor
+        p.reshape(self._shapes_by_bucket[data.shape[0]])
+        p.set_input(self.data_name, data)
+        p.forward()
+        return p._exec.outputs[self._output_index]._get()
+
     def _execute(self, data: np.ndarray, n: int) -> Tuple:
         """Run one padded batch; start the copy of its first ``n`` output
         rows to the host and return without waiting for it."""
         with self._swap_lock:
-            p = self._predictor
-            p.reshape(self._shapes_by_bucket[data.shape[0]])
-            p.set_input(self.data_name, data)
-            p.forward()
-            out = p._exec.outputs[self._output_index]._get()
+            if self._channel is not None:
+                self._channel.send_batch(data)
+            out = self._forward(data)
         done = None
         if out.is_cuda:
             # copy into pinned memory; the completion thread waits on the
@@ -299,6 +355,11 @@ class ServeEngine:
     def submit(self, data, deadline_ms: Optional[float] = None):
         """Enqueue one item (shape ``item_shape``); returns a Future of
         its output row."""
+        if self._follower is not None:
+            raise ServeError(
+                "ServeEngine %r: rank %d follows the mesh's front (rank %d), "
+                "which takes every request" % (
+                    self.name, self._channel.rank, self._channel.root))
         return self._batcher.submit(data, deadline_ms=deadline_ms)
 
     def submit_many(self, items, deadline_ms: Optional[float] = None):
@@ -312,8 +373,14 @@ class ServeEngine:
     # -- hot weight reload -------------------------------------------------
     def reload(self, arg_params: Dict,
                aux_params: Optional[Dict] = None) -> int:
-        """Swap weights between batches; returns the new version."""
+        """Swap weights between batches; returns the new version.  Under
+        a mesh every rank calls it; a follower's weights change when the
+        front's do."""
+        if self._follower is not None:
+            return self._follower.reload(arg_params, aux_params)
         with self._swap_lock:
+            if self._channel is not None:
+                self._channel.send(_RELOAD)
             self._predictor.set_params(arg_params, aux_params)
             self.weights_version += 1
             version = self.weights_version
@@ -355,8 +422,8 @@ class ServeEngine:
 
     def pending_requests(self) -> int:
         """Requests waiting in the bounded queue (``queue_depth`` is the
-        configured bound)."""
-        return self._batcher.queue_depth()
+        configured bound); 0 on a follower."""
+        return self._batcher.queue_depth() if self._batcher else 0
 
     def outstanding(self) -> int:
         """Admitted requests not yet resolved (queued or in flight)."""
@@ -378,6 +445,11 @@ class ServeEngine:
                 "close() inside pause() would deadlock: the dispatcher "
                 "needs the paused lock to finish its in-flight batch; exit "
                 "pause() first (or close from another thread)")
+        if self._follower is not None:
+            with self._close_lock:
+                self._closed = True
+                self._follower.join()
+            return
         if self._batcher.is_worker_thread():
             self._batcher.request_close(drain=drain)
             return
@@ -386,12 +458,107 @@ class ServeEngine:
                 return
             self._closed = True
             self._batcher.close(drain=drain)
+            if self._channel is not None:
+                with self._swap_lock:
+                    self._channel.send(_CLOSE)
 
     def __enter__(self):
         return self
 
     def __exit__(self, *exc):
         self.close()
+
+
+_BATCH, _RELOAD, _CLOSE = 1, 2, 3
+
+
+class _Channel:
+    """The front's messages to the other ranks of a mesh: a header of two
+    int64s (kind, bucket) and, for a batch, the padded batch, each a
+    broadcast from the front over a gloo group of the mesh's ranks made
+    for this engine (every rank makes it, in the same order, at
+    construction)."""
+
+    def __init__(self, mesh):
+        import torch.distributed as dist
+        from ..dist import boot
+        ranks = [int(r) for r in mesh.devices.ravel()]
+        self.root = ranks[0]
+        self.rank = boot.rank()
+        self.front = self.rank == self.root
+        self.group = dist.new_group(ranks, backend="gloo")
+
+    def send(self, kind: int, bucket: int = 0) -> None:
+        import torch.distributed as dist
+        dist.broadcast(torch.tensor([kind, bucket], dtype=torch.int64),
+                       self.root, group=self.group)
+
+    def send_batch(self, data: np.ndarray) -> None:
+        import torch.distributed as dist
+        self.send(_BATCH, data.shape[0])
+        dist.broadcast(torch.from_numpy(np.ascontiguousarray(data)),
+                       self.root, group=self.group)
+
+    def recv(self, item_shape, dtype):
+        """-> (kind, the batch for a batch message, else None)."""
+        import torch.distributed as dist
+        head = torch.zeros(2, dtype=torch.int64)
+        dist.broadcast(head, self.root, group=self.group)
+        kind, bucket = int(head[0]), int(head[1])
+        if kind != _BATCH:
+            return kind, None
+        data = torch.from_numpy(np.zeros((bucket,) + tuple(item_shape),
+                                         dtype=dtype))
+        dist.broadcast(data, self.root, group=self.group)
+        return kind, data.numpy()
+
+
+class _Follower:
+    """A follower rank's loop: every batch the front runs, run here too,
+    until the front closes."""
+
+    def __init__(self, engine: "ServeEngine"):
+        import queue
+        self.engine = engine
+        self.reloads = queue.Queue()
+        self.applied = queue.Queue()
+        self.error: Optional[BaseException] = None
+        self.thread = threading.Thread(target=self._loop, daemon=True,
+                                       name="serve-follower-%s" % engine.name)
+        self.thread.start()
+
+    def _loop(self) -> None:
+        eng = self.engine
+        try:
+            while True:
+                kind, data = eng._channel.recv(eng.item_shape,
+                                               eng._data_dtype)
+                if kind == _CLOSE:
+                    return
+                with eng._swap_lock:
+                    if kind == _BATCH:
+                        eng._forward(data)
+                    else:
+                        args = self.reloads.get()
+                        eng._predictor.set_params(*args)
+                        eng.weights_version += 1
+                        self.applied.put(eng.weights_version)
+        except BaseException as e:    # noqa: BLE001 re-raised in join()
+            self.error = e
+            self.applied.put(None)
+
+    def reload(self, arg_params, aux_params) -> int:
+        self.reloads.put((arg_params, aux_params))
+        version = self.applied.get()
+        if version is None:
+            raise ServeError("follower failed: %r" % (self.error,))
+        return version
+
+    def join(self) -> None:
+        self.thread.join()
+        if self.error is not None:
+            raise ServeError("follower failed: %r" % (self.error,)) \
+                from self.error
 
 
 def exec_device_bytes(execs) -> int:

@@ -20,7 +20,13 @@ chip_smoke.py, on ResNet-50 at a global batch of 128 (chip_smoke's
         context ``gpu(0)``, which must resolve to its own card.  Each
         route must capture its step once, collectives inside; a replay's
         NCCL kernels are counted and timed; dist_sync and the mesh agree
-        bitwise; each route's first step against one rank's.
+        bitwise; each route's first step against one rank's.  Then
+        chip_smoke's phase 22 (a) and (c) over NCCL, four ranks:
+        VGG-16 at dp=2 x tp=2 (32 rows a dp rank, fc6 column- and fc7
+        row-parallel) and the Switch-Base-8 block at dp=2 x ep=2 (4,096
+        tokens a dp rank), each captured once, its first step against
+        one rank's global step under the nudge gate, the ranks' params
+        equal.
 
     --cpu   the same control flow on the CPU over gloo, with a small
             BatchNorm net at batch 16: a dry run, gates printed only.
@@ -189,6 +195,102 @@ def rank_fits(cpu, routes, fault="none", profile=False):
     return out
 
 
+SHARDED_STEPS = 5
+
+
+def sharded_nets(mt, cpu):
+    """(a)'s and (c)'s setups at their global batches: chip_smoke's
+    VGG-16 and Switch-Base-8 block on the card; on the CPU an MLP with
+    VGG's fc6/fc7/fc8 names and a small routed block."""
+    if not cpu:
+        vgg = cs.vgg_setup(mt, 22, batch=2 * cs.TP_BATCH,
+                           steps=SHARDED_STEPS)
+        return vgg[:4], cs.switch_setup(mt, 24, tokens=cs.SW_TOKENS)
+    S = mt.sym
+    net = S.Variable("data")
+    for name, n in (("fc6", 32), ("fc7", 32)):
+        net = S.Activation(S.FullyConnected(net, num_hidden=n, name=name),
+                           act_type="relu")
+    net = S.SoftmaxOutput(S.FullyConnected(net, num_hidden=10, name="fc8"),
+                          name="softmax")
+    shapes = {"data": (16, 12), "softmax_label": (16,)}
+    rng = np.random.default_rng(22)
+    xs = [rng.standard_normal((16, 12), dtype=np.float32)
+          for _ in range(SHARDED_STEPS)]
+    ys = [rng.integers(0, 10, 16).astype(np.float32)
+          for _ in range(SHARDED_STEPS)]
+    moe = mt.moe.MoEFeedForward(S.Variable("data"), num_hidden=16,
+                                num_experts=4, k=1, capacity_factor=1.25,
+                                name="moe", expert_axis="ep")
+    moe = mt.moe.with_aux_loss(S.SoftmaxOutput(
+        S.FullyConnected(moe, num_hidden=2, name="head"), name="softmax"))
+    sarg = cs.fan_in_params(moe, {"data": (64, 8), "softmax_label": (64,)},
+                            24)
+    sx = rng.standard_normal((64, 8), dtype=np.float32)
+    return (net, cs.xavier_params(net, shapes, 22), xs, ys), \
+        (moe, sarg, sx, (sx[:, 0] > 0).astype(np.float32))
+
+
+def sharded_reference(cpu, tmp):
+    """One rank's first steps of (a) and (c), clean and nudged, written
+    to ``tmp`` for the ranks; -> the nudges' first-step drifts."""
+    import torch
+    import mxnet_tpu_torch as mt
+    deterministic(torch)
+    (sym, arg0, xs, ys), (ssym, sarg, sx, sy) = sharded_nets(mt, cpu)
+    ctx = mt.cpu() if cpu else mt.gpu(0)
+    firsts = []
+    for x0 in (xs[0], np.nextafter(xs[0], np.float32(np.inf))):
+        mt.random.seed(22)
+        mod = mt.mod.Module(sym, context=ctx)
+        firsts.append(cs.timed_fit(torch, mt, mod, cs.vgg_batches(
+            mt, [x0], ys[:1]), num_epoch=1, arg_params={
+                k: mt.nd.array(v, ctx=mt.cpu())
+                for k, v in arg0.items()})[0][0])
+        del mod
+    sfirsts = [cs.switch_fit(torch, mt, ssym, sarg, x0, sy, ctx=ctx)[1]
+               for x0 in (sx, np.nextafter(sx, np.float32(np.inf)))]
+    np.savez(os.path.join(tmp, "vgg.npz"), **firsts[0])
+    np.savez(os.path.join(tmp, "switch.npz"), **sfirsts[0])
+    return (cs.first_step_l2(firsts[1], firsts[0], arg0),
+            cs.first_step_l2(sfirsts[1], sfirsts[0], sarg))
+
+
+def sharded_fits(cpu, tmp):
+    """(a) and (c) on one of four ranks; -> readings."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.dist import boot
+    deterministic(torch)
+    (sym, arg0, xs, ys), (ssym, sarg, sx, sy) = sharded_nets(mt, cpu)
+    ctx = mt.cpu() if cpu else mt.gpu(0)
+    out = {"backend": boot.backend()}
+    mt.random.seed(22)
+    mod = mt.mod.Module(sym, context=ctx)
+    first, ms = cs.timed_fit(torch, mt, mod, cs.vgg_batches(mt, xs, ys),
+                             num_epoch=1, mesh="dp=2,tp=2",
+                             sharding=cs.tp_specs(mt),
+                             arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                                         for k, v in arg0.items()})
+    ref = dict(np.load(os.path.join(tmp, "vgg.npz")))
+    out["a"] = {"first": cs.first_step_l2(first[0], ref, arg0),
+                "digest": cs.sha_of(cs.host_params(mod)[0]),
+                "stats": mod._fused.stats.report(), "step_ms": ms,
+                "fc6": tuple(mod._fused.state["params"]["fc6_weight"].shape),
+                "device": str(mod._fused.device)}
+    del mod
+    sfirst = []
+    mod, _ = cs.switch_fit(torch, mt, ssym, sarg, sx, sy, mesh="dp=2,ep=2",
+                           steps=SHARDED_STEPS, ctx=ctx, first=sfirst)
+    ref = dict(np.load(os.path.join(tmp, "switch.npz")))
+    out["c"] = {"first": cs.first_step_l2(sfirst[0], ref, sarg),
+                "digest": cs.sha_of(cs.host_params(mod)[0]),
+                "stats": mod._fused.stats.report(),
+                "experts": tuple(mod._fused.state["params"][
+                    "moe_experts_i2h_weight"].shape)}
+    return out
+
+
 def readings(ranks, name, ref):
     rd = cs.fit_readings(ranks, name, ref["one"], ref["one_first"],
                          ref["init"])
@@ -301,6 +403,32 @@ def main():
               "mesh params bitwise %s (reading)" % (routes_same, shard_same))
         if not routes_same:
             bad.append("routes")
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            nudge = sharded_reference(a.cpu, tmp)
+            ranks = run_ranks(os.path.join(ROOT, "scaleout_check.py")
+                              + ":sharded_fits", W, args=(a.cpu, tmp),
+                              timeout=900)
+        for leg, what in (("a", "VGG-16 dp=2 x tp=2"),
+                          ("c", "Switch-Base-8 dp=2 x ep=2")):
+            rs = [r[leg] for r in ranks]
+            gate = cs.SCALE_RATIO * nudge[leg == "c"]
+            same = all(r["digest"] == rs[0]["digest"] for r in rs)
+            captured = all(r["stats"] == {
+                "captures": 1, "replays": SHARDED_STEPS - WARMUP_STEPS,
+                "eager_steps": WARMUP_STEPS} for r in rs)
+            print("nccl sharded %s: backend %s, step %s; the first step "
+                  "against one rank's, relative L2 %s (gate %.3g); ranks "
+                  "agree %s; %s; card %s" % (
+                      what, ranks[0]["backend"], rs[0]["stats"],
+                      ["%.3g" % r["first"] for r in rs], gate, same,
+                      "fc6 %s, steps %s ms" % (rs[0]["fc6"], [
+                          "%.1f" % x for x in rs[0]["step_ms"]])
+                      if leg == "a" else "experts %s" % (rs[0]["experts"],),
+                      smi))
+            if any(r["first"] > gate for r in rs) or not same or \
+                    (not a.cpu and not captured):
+                bad.append("sharded " + leg)
     print("scaleout_check: %.1f s; %s" % (
         time.perf_counter() - t0,
         "failed: %s" % bad if bad else "every gate held"))

@@ -672,3 +672,54 @@ def test_checkpoint_resume_training(tmp_path):
     preds = ff2.predict(eval_it)
     acc = (preds.argmax(axis=1) == y[:preds.shape[0]]).mean()
     assert acc > 0.9, acc
+
+
+# -- several processes (rank processes) ---------------------------------------------
+
+MULTICHIP = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "test_torch_multichip.py")
+
+
+def test_multiprocess_directory_crosses_packages(tmp_path):
+    """Four gloo ranks (dp=2 x tp=2, fc1_weight cut on dim 1, the sharded
+    update) save one epoch, each rank its own shards: the index records
+    four processes, the JAX package's reader assembles every param
+    bitwise, and two ranks of another layout (tp=2, fc1_weight cut on
+    dim 0) restore it reading their slices.  The reverse: the JAX
+    package's save on its dp=2 x tp=2 mesh restores into the same two
+    ranks bitwise."""
+    import json
+    import jax
+    from jax.sharding import PartitionSpec
+    from mxnet_tpu_torch.dist.spawn import load_target, run_ranks
+    store = str(tmp_path / "port")
+    saved = run_ranks(MULTICHIP + ":ckpt_save_rank", 4, args=(store,),
+                      timeout=120)
+    step = ck.latest_step(store)
+    d = os.path.join(store, ck.step_dir_name(step))
+    with open(os.path.join(d, "index.json")) as f:
+        assert json.load(f)["process_count"] == 4
+    writers = {n.split(".")[-3] for n in os.listdir(d) if n.endswith(".npy")}
+    assert writers == {"p0", "p1", "p2", "p3"}
+    tree, _ = jmx.checkpoint.CheckpointManager(store).restore()
+    for k, v in saved[0].items():
+        np.testing.assert_array_equal(np.asarray(tree["params"][k]), v)
+    for got, shape, t in run_ranks(MULTICHIP + ":ckpt_restore_rank", 2,
+                                   args=(store,), timeout=120):
+        assert shape == (4, 6) and t == 4
+        for k, v in saved[0].items():
+            np.testing.assert_array_equal(got[k], v)
+    # the JAX package writes, the port's ranks read
+    fit = load_target(MULTICHIP + ":fit")
+    jstore = str(tmp_path / "jax")
+    mesh = jmx.parallel.make_mesh([("dp", 2), ("tp", 2)],
+                                  devices=jax.devices()[:4])
+    fit(jmx, PartitionSpec, mesh, {"fc1_weight": (None, "tp")},
+        num_epoch=1, checkpoint=jstore)
+    jtree, _ = jmx.checkpoint.CheckpointManager(jstore).restore()
+    for got, shape, t in run_ranks(MULTICHIP + ":ckpt_restore_rank", 2,
+                                   args=(jstore,), timeout=120):
+        assert shape == (4, 6) and t == 4
+        for k in got:
+            np.testing.assert_array_equal(got[k],
+                                          np.asarray(jtree["params"][k]))

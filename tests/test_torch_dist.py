@@ -3,7 +3,7 @@
 ``kvstore_server.py``) against the JAX package's, on the CPU.
 
 * The boot: the backend rule on the CPU, a world-1 group on first use
-  of a mesh, the names of ROADMAP.md queue 1 item 10b raising.
+  of a mesh, the names of ROADMAP.md queue 1 item 10c raising.
 * ``dist_sync``: the kvstore arithmetic of the reference's
   ``test_dist_sync_arithmetic_single_process`` / nightly
   ``dist_sync_kvstore.py`` at 2 and 4 ranks (exact), and
@@ -155,7 +155,7 @@ def test_world1_group_on_first_use_of_a_mesh(world1):
                                   "search_sharding",
                                   "fleet_multichip_report"])
 def test_later_dist_names_raise(name):
-    with pytest.raises(NotImplementedError, match="item 10b"):
+    with pytest.raises(NotImplementedError, match="item 10c"):
         getattr(tmx.dist, name)
 
 

@@ -395,8 +395,7 @@ def test_outputs_before_update_commit_nothing_and_eval_uses_live_params():
 def test_fit_rejects_unported_options():
     mod = tmx.mod.Module(tmx.models.get_mlp(), context=tmx.cpu())
     it = tmx.io.NDArrayIter(np.zeros((4, 784)), np.zeros(4), batch_size=4)
-    for kw, item in (({"mesh": "dp=1",
-                       "sharding": {"fc1_weight": "None,tp"}}, "item 10b"),
+    for kw, item in (({"mesh": "dp=1", "sharding": "auto"}, "item 10c"),
                      ({"autotune": True}, "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             mod.fit(it, num_epoch=1, **kw)

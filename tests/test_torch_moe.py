@@ -23,6 +23,7 @@ through both packages:
   ``moe_report()``.
 """
 import importlib
+import os
 import json
 import time
 
@@ -490,3 +491,45 @@ def test_moe_checkpoint_pair_crosses_packages(tmp_path):
     for i in range(2):
         np.testing.assert_allclose(got.get_output(i), want.get_output(i),
                                    rtol=1e-5, atol=1e-6)
+
+
+# -- expert parallelism over dp x ep (rank processes) -----------------------------
+
+MULTICHIP = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "test_torch_multichip.py")
+
+
+@pytest.mark.parametrize("cf", [0.0, 0.5])
+def test_dp_ep_mesh_matches_single_device_and_shards(cf):
+    """``test_moe.py``'s dp=2 x ep=2 case on four gloo ranks: each rank
+    holds 2 of the 4 experts at rest, the params after 8 steps are
+    within rtol 1e-4 / atol 1e-5 of the JAX package's dp=2 x ep=2 run
+    and of its one-device run; the global routing of a batch cut over
+    dp=4 gives the JAX package's slots, counts and drops exactly, and
+    its aux loss within rtol 1e-6."""
+    import jax
+    import jax.numpy as jnp
+    from mxnet_tpu_torch.dist.spawn import run_ranks
+    from mxnet_tpu.moe.router import resolve_capacity as jcap
+    spawn = importlib.import_module("mxnet_tpu_torch.dist.spawn")
+    mc = spawn.load_target(MULTICHIP + ":moe_fit").__globals__
+    ranks = run_ranks(MULTICHIP + ":moe_rank", 4, args=(4, cf),
+                      timeout=180)
+    _, one = mc["moe_fit"](jmx, cf)
+    mesh = jmx.parallel.make_mesh([("dp", 2), ("ep", 2)],
+                                  devices=jax.devices()[:4])
+    _, want = mc["moe_fit"](jmx, cf, mesh, "ep")
+    logits = mc["route_logits"]()
+    plan = jrouter.route(jnp.asarray(logits), K,
+                         jcap(cf, logits.shape[0], E, K))
+    for rank in ranks:
+        assert rank["experts"] == (2, 6, HID)
+        for ref in (want, one):
+            for k in ref:
+                np.testing.assert_allclose(rank["params"][k], ref[k],
+                                           rtol=RTOL, atol=ATOL, err_msg=k)
+        np.testing.assert_array_equal(rank["slot"], np.asarray(plan.slot))
+        np.testing.assert_array_equal(rank["counts"],
+                                      np.asarray(plan.counts))
+        assert rank["dropped"] == float(plan.dropped)
+        np.testing.assert_allclose(rank["aux"], float(plan.aux), rtol=1e-6)

@@ -220,17 +220,19 @@ def run_fit(mx, mesh, arg, aux, X, y, ctx, **kw):
 # -- the port's side, on each rank -------------------------------------------
 
 def _dp_port(sym_fn, params_fn, batches_fn, W, shard=False, remat=False,
-             compute_dtype=None):
+             compute_dtype=None, mesh=None, param_specs=None):
     if shard:
         os.environ["MXNET_SHARD_WEIGHT_UPDATE"] = "1"
     try:
         rng = np.random.RandomState(3)
         p = params_fn(rng)
         arg, aux = p if isinstance(p, tuple) else (p, {})
-        step = tpar.DPTrainStep(sym_fn(tmx), tpar.make_mesh([("dp", W)]),
+        step = tpar.DPTrainStep(sym_fn(tmx),
+                                tpar.make_mesh(mesh or [("dp", W)]),
                                 learning_rate=0.5, momentum=0.9,
                                 weight_decay=1e-3, ctx=tmx.cpu(),
-                                remat=remat, compute_dtype=compute_dtype)
+                                remat=remat, compute_dtype=compute_dtype,
+                                param_specs=param_specs)
     finally:
         os.environ.pop("MXNET_SHARD_WEIGHT_UPDATE", None)
     state = step.init(arg, aux)
@@ -262,6 +264,9 @@ def rank_suite(W):
         out["dp_kl"] = _dp_port(kl_sym, kl_params, mlp_batches, W)
         out["dp_bn_shard"] = _dp_port(bn_sym, bn_params, bn_batches, W,
                                       shard=True)
+        out["dp_tp"] = _dp_port(mlp_sym, mlp_params, mlp_batches, W,
+                                mesh=[("dp", W // 2), ("tp", 2)],
+                                param_specs={"fc1_weight": TP("tp", None)})
         params, micros = pipe_inputs(W)
         out["pipe"] = tpar.pipeline_apply(
             stage_fn_torch, tpar.make_mesh([("pp", W)]),
@@ -336,19 +341,26 @@ def port(request, port2, port4):
 _JAX_CACHE = {}
 
 
-def _dp_jax(sym_fn, params_fn, batches_fn, dp, compute_dtype=None):
-    key = (sym_fn.__name__, batches_fn.__name__, dp, compute_dtype)
+def _dp_jax(sym_fn, params_fn, batches_fn, dp, compute_dtype=None,
+            tp=None):
+    key = (sym_fn.__name__, batches_fn.__name__, dp, compute_dtype, tp)
     if key in _JAX_CACHE:
         return _JAX_CACHE[key]
     jax, jnp, jmx, jpar = _jax()
     rng = np.random.RandomState(3)
     p = params_fn(rng)
     arg, aux = p if isinstance(p, tuple) else (p, {})
-    mesh = jpar.make_mesh([("dp", dp)], devices=jax.devices()[:dp])
+    axes = [("dp", dp)] + ([("tp", tp)] if tp else [])
+    n = dp * (tp or 1)
+    mesh = jpar.make_mesh(axes, devices=jax.devices()[:n])
+    specs = None
+    if tp:
+        from jax.sharding import PartitionSpec
+        specs = {"fc1_weight": PartitionSpec("tp", None)}
     step = jpar.DPTrainStep(sym_fn(jmx), mesh, learning_rate=0.5,
                             momentum=0.9, weight_decay=1e-3,
                             compute_dtype=compute_dtype and
-                            getattr(jnp, compute_dtype))
+                            getattr(jnp, compute_dtype), param_specs=specs)
     state = step.init(arg, aux)
     key0 = jax.random.PRNGKey(0)
     outs = None
@@ -572,9 +584,28 @@ def test_dp_remat_equals_plain(port):
         _close(rank["dp_mlp_remat"][0], rank["dp_mlp"][0], 1e-6, "remat")
 
 
+@pytest.mark.parametrize("port", [2, 4], indirect=True)
+def test_dp_train_step_param_specs_tp(port):
+    """``test_parallel.py``'s dp x tp case at dp = W/2 x tp = 2 with
+    fc1_weight cut on its rows: params within 1e-4 of the JAX package's
+    step on the same mesh and of its one-device step; the outputs are
+    the global batch's."""
+    W = len(port)
+    want, _ = _dp_jax(mlp_sym, mlp_params, mlp_batches, W // 2, tp=2)
+    one, _ = _dp_jax(mlp_sym, mlp_params, mlp_batches, 1)
+    for rank in port:
+        got, outs = rank["dp_tp"]
+        _close(got, want, 1e-4, "dp x tp")
+        _close(got, one, 1e-4, "dp x tp vs one device")
+        assert outs.shape == (16, 2)
+
+
 def test_dp_param_specs_over_other_axes_refused():
+    """A spec over an axis the mesh lacks raises the JAX package's
+    message (tensor parallelism over a mesh that has the axis trains:
+    ``test_dp_train_step_param_specs_tp``)."""
     mesh = tpar.make_mesh([("dp", 1)])
-    with pytest.raises(NotImplementedError, match="item 10b"):
+    with pytest.raises(TError, match="not in mesh"):
         tpar.DPTrainStep(mlp_sym(tmx), mesh, ctx=tmx.cpu(),
                          param_specs={"fc1_weight": TP("tp", None)})
 

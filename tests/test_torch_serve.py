@@ -194,10 +194,16 @@ def test_default_device_predictor_raises_without_card():
 
 @pytest.mark.parametrize("option", ["mesh", "param_specs", "autotune"])
 def test_unported_serve_options_raise(option):
+    """``autotune`` is not ported; ``mesh`` and ``param_specs`` are
+    (``tests/test_torch_multichip.py``) and refuse what the JAX package
+    refuses: a mesh wider than the process group, specs without a
+    mesh."""
     sym = mt.models.get_mlp()
-    value = {"mesh": "tp=2", "param_specs": {"a": 1},
-             "autotune": True}[option]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    value, error, match = {
+        "mesh": ("tp=2", ValueError, "needs 2 devices, have 1"),
+        "param_specs": ({"a": 1}, mt.serve.ServeError, "without mesh"),
+        "autotune": (True, NotImplementedError, "ROADMAP")}[option]
+    with pytest.raises(error, match=match):
         mt.serve.ServeEngine(sym, {}, {"data": (1, 784)}, dev_type="cpu",
                              **{option: value})
 
