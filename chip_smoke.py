@@ -258,6 +258,31 @@ Phases, in order; any failure exits nonzero:
    ``tools/launch.py -n 2 -s 1``: the nightly MLP on the card to 0.90,
    one init/push/pull round of ResNet-50's parameters; the ``scale-out
    result`` line;
+22. model state sharded over a mesh (``sharded:`` lines): VGG-16 at
+   dp=1 x tp=2 on two ranks of gpu(0), the save restored three ways,
+   Switch-Base-8 at dp=1 x ep=2, the tp=2 ``ServeEngine``; the
+   ``sharded result`` line;
+23. the rest of scale-out: (a) data parallelism's two repairs on two
+   gloo ranks of gpu(0): an MLP with Dropout at dp=2 against one process
+   with the same seed (one mask over the global batch), and
+   tests/test_embed.py's rec model at dp=2 on the lazy row update
+   against one process's lazy fit (its rtol 2e-5, atol 1e-6); (b)
+   bench_embed.py's rec tower with a 4,000,000 x 64 table row-sharded at
+   dp=2 (each rank 2,000,000 rows and their momentum), 4 fused steps
+   against one process's, the untouched rows bitwise, the ranks' save
+   restored into one process bitwise; (c) a ``FleetSupervisor`` of two
+   ranks on the tower at 200,000 x 32 (a commit every step), with a
+   ``dist.host`` crash on rank 1: the final params bitwise the
+   fault-free fleet's, ``recovery_s``; (d) a ``ServeRouter`` over two
+   ``RpcReplica``s, each a child process serving the fused float32
+   VGG-16 on gpu(0) (each child holds ``fused_fc_epilogue`` against its
+   plain version on fc6 and counts its launches): 32 requests, a
+   SIGKILL of one child mid-flood, a draining restart of the other, 0
+   dropped, every answer against the in-process engine's; (e)
+   ResNet-50 from a .rec over ``fit(mesh="dp=2",
+   prefetch_to_device=True)``: each rank copies half the global batch's
+   bytes, bitwise the run whose ``make_batch`` cuts the global batch;
+   the ``scale-out rest result`` line;
    then the whole script's wall, the ``kernels`` JSON line (all four
    kernels), then the ``{"ok": true, ...}`` line.
 """
@@ -7752,6 +7777,635 @@ def sharded_phase(torch, mt, ck, smi):
             "seconds": took}
 
 
+# -- phase 23: data parallelism's repairs, row-sharded tables, the fleet,
+# replicas in other processes, a rank's rows staged ------------------------
+
+P23_SEED = 230
+P23_MLP_IN, P23_MLP_HID, P23_MLP_BATCH = 32, 64, 16
+P23_DROP_ATOL = 1e-5                 # float32 sums of 8 rows + 8 against 16
+P23_REC_VOCAB, P23_REC_DIM = 48, 8   # tests/test_embed.py's rec model
+P23_REC_RTOL, P23_REC_ATOL = 2e-5, 1e-6    # its own tolerance (:335)
+P23_REC_OPT = {"learning_rate": 0.5, "momentum": 0.9}
+ROWS_VOCAB, ROWS_DIM, ROWS_BATCHES = 4_000_000, 64, 4
+FLEET_VOCAB, FLEET_DIM, FLEET_BATCHES, FLEET_EPOCHS = 200_000, 32, 4, 2
+FLEET_CHAOS = "points=dist.host@rank1,kinds=crash,after=5,max=1,attempts=0"
+RPC_KEY = "chip-smoke-rpc"
+RPC_REQUESTS = 32
+ROUTER_KEYS = ("retried", "downs", "drains", "probes", "reinstated")
+# a SIGKILL'd replica's requests wait this long for their admission ack
+# before the router retries them (the reference's default is 30 s)
+RPC_TIMEOUT_S = "5"
+RPC_SHAPES = {"data": (1, 3, 224, 224), "softmax_label": (1,)}
+P23_FEED_RECORDS, P23_FEED_BATCH = 256, 64
+
+
+def p23_dropout_fit(mt, mesh=None):
+    """An MLP with Dropout(0.5) between its FCs, 2 epochs of 4 batches
+    of 16 on gpu(0) from a seed; -> host params."""
+    net = mt.sym.FullyConnected(mt.sym.Variable("data"),
+                                num_hidden=P23_MLP_HID, name="fc1")
+    net = mt.sym.Dropout(mt.sym.Activation(net, act_type="relu"), p=0.5)
+    net = mt.sym.SoftmaxOutput(mt.sym.FullyConnected(
+        net, num_hidden=2, name="fc2"), name="softmax")
+    arg0 = fan_in_params(net, {"data": (P23_MLP_BATCH, P23_MLP_IN),
+                               "softmax_label": (P23_MLP_BATCH,)}, P23_SEED)
+    rng = np.random.default_rng(P23_SEED + 1)
+    X = rng.standard_normal((64, P23_MLP_IN)).astype(np.float32)
+    y = (X.sum(axis=1) > 0).astype(np.float32)
+    mt.random.seed(P23_SEED + 2)
+    mod = mt.mod.Module(net, context=mt.gpu(0))
+    mod.fit(mt.io.NDArrayIter(X, y, batch_size=P23_MLP_BATCH), num_epoch=2,
+            optimizer_params=dict(EMB_OPT), mesh=mesh,
+            arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                        for k, v in arg0.items()})
+    return host_params(mod)[0]
+
+
+def p23_rec_fit(mt, mesh=None, sparse=True):
+    """tests/test_embed.py's rec model (vocab 48, dim 8, batch 16, 3
+    epochs, lr 0.5, momentum 0.9) on gpu(0); -> (host params, the fused
+    step's sparse tables)."""
+    sym = rec_symbol(mt, P23_REC_VOCAB, P23_REC_DIM, 16, 2)
+    arg0 = fan_in_params(sym, {"ids": (16, 4), "softmax_label": (16,)},
+                         P23_SEED + 3)
+    rng = np.random.default_rng(P23_SEED + 4)
+    arg0["embed_weight"] = (rng.standard_normal(
+        (P23_REC_VOCAB, P23_REC_DIM)) * 0.5).astype(np.float32)
+    X = rng.integers(0, P23_REC_VOCAB, (64, 4)).astype(np.float32)
+    y = (X.sum(axis=1) % 2).astype(np.float32)
+    with env_set("MXNET_EMBED_SPARSE", "1" if sparse else "0"):
+        mod = mt.mod.Module(sym, data_names=("ids",), context=mt.gpu(0))
+        mod.fit(mt.io.NDArrayIter(X, y, batch_size=16, data_name="ids"),
+                num_epoch=3, optimizer_params=dict(P23_REC_OPT), mesh=mesh,
+                arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                            for k, v in arg0.items()})
+    return host_params(mod)[0], sorted(mod._fused.sparse_embeds)
+
+
+def p23_rows_setup(torch, mt, vocab, dim, batches, seed):
+    """bench_embed.py's rec tower (ids -> Embedding -> rfc1 + relu ->
+    rfc2) over a vocab x dim table made on the card from a seed, and
+    ``batches`` batches of 512 x 8 ids from 410 hot ids."""
+    sym = rec_symbol(mt, vocab, dim, EMB_HIDDEN, 2, unique_cap=EMB_CAP)
+    rng = np.random.default_rng(seed)
+    X = hot_ids(rng, batches * EMB_B * EMB_L, EMB_HOT, vocab).reshape(
+        batches * EMB_B, EMB_L).astype(np.float32)
+    y = (X.sum(axis=1) % 2).astype(np.float32)
+    tower = fan_in_params(rec_symbol(mt, 16, dim, EMB_HIDDEN, 2),
+                          {"ids": (EMB_B, EMB_L), "softmax_label": (EMB_B,)},
+                          seed + 1)
+    tower.pop("embed_weight")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    table = (torch.rand((vocab, dim), generator=gen, device="cuda") * 2
+             - 1) * 0.05
+    return sym, X, y, tower, table
+
+
+def p23_rows_fit(torch, mt, mesh=None, sharding=None, checkpoint=None,
+                 resume=False):
+    """(b): the 4M x 64 tower, one epoch of 4 fused steps; -> the rows
+    the batches name, the tower, a digest of every param, whether every
+    other row kept its value, and the bytes of this rank's table and
+    slots."""
+    sym, X, y, tower, table = p23_rows_setup(
+        torch, mt, ROWS_VOCAB, ROWS_DIM, ROWS_BATCHES, P23_SEED + 10)
+    arg0 = {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in tower.items()}
+    arg0["embed_weight"] = mt.nd.NDArray(table)
+    mod = mt.mod.Module(sym, data_names=("ids",), context=mt.gpu(0))
+    t0 = time.perf_counter()
+    mod.fit(mt.io.NDArrayIter(X, y, batch_size=EMB_B, data_name="ids"),
+            num_epoch=1, optimizer_params=dict(EMB_OPT), mesh=mesh,
+            sharding=sharding, arg_params=arg0, checkpoint=checkpoint,
+            resume=resume)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fused = mod._fused
+    mine = fused.state["params"]["embed_weight"]
+    slots = [t for t in flatten_leaves(fused.state["opt"]["embed_weight"])]
+    params = host_params(mod)[0]
+    named = np.unique(X.astype(np.int64))
+    keep = np.ones(ROWS_VOCAB, bool)
+    keep[named] = False
+    w = params["embed_weight"]
+    untouched = bool(np.array_equal(w[keep], table.cpu().numpy()[keep]))
+    out = {"named": w[named], "tower": {k: v for k, v in params.items()
+                                        if k != "embed_weight"},
+           "digest": sha_of(params), "untouched": untouched,
+           "sparse": sorted(fused.sparse_embeds),
+           "rows": tuple(mine.shape),
+           "table_bytes": mine.numel() * mine.element_size(),
+           "slot_bytes": sum(t.numel() * t.element_size() for t in slots),
+           "wall_s": wall, "fused": fused.stats.report()}
+    del mod, fused, mine, slots, params, w, table
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def flatten_leaves(tree):
+    if tree is None:
+        return []
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in flatten_leaves(x)]
+    return [tree]
+
+
+def p23_feed_fit(torch, mt, rec, prefetch):
+    """(e): ResNet-50 at batch 64 from ``rec`` (uint8 wire, cropped and
+    mirrored on the card) over dp=2, one epoch of 4 steps; -> (digest of
+    the params, bytes the prefetcher copied to the card, rows it staged,
+    batches)."""
+    sym, arg0, aux0, _b, _pd, _pl = resnet_setup(mt, 0, P23_SEED + 20)
+    it = resnet_feed(mt, rec, batch_size=P23_FEED_BATCH, max_epochs=1,
+                     to_device=False)
+    seen = []
+    mt.random.seed(P23_SEED + 21)
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    wrap = mod.prefetch_to_device
+
+    def keep(*a, **kw):
+        seen.append(wrap(*a, **kw))
+        return seen[-1]
+    mod.prefetch_to_device = keep
+    try:
+        mod.fit(it, num_epoch=1, optimizer_params={"learning_rate": 0.05,
+                                                   "momentum": 0.9},
+                mesh="dp=2", prefetch_to_device=prefetch,
+                arg_params=arg0, aux_params=aux0)
+    finally:
+        it.close()
+    h2d = seen[0].stats.report()["h2d"] if seen else {}
+    out = (sha_of(host_params(mod)[0]), h2d.get("bytes", 0),
+           h2d.get("items", 0), mod._fused.stats.report())
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p23_rank(tmp, rec):
+    """(a), (b) and (e) on one of two gloo ranks sharing gpu(0)."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.dist import boot
+    from mxnet_tpu_torch.parallel import PartitionSpec
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.zeros(1, device="cuda")
+    out = {"backend": boot.backend(), "rank": boot.rank()}
+    out["dropout"] = p23_dropout_fit(mt, "dp=2")
+    out["rec"] = p23_rec_fit(mt, "dp=2")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out["rows"] = p23_rows_fit(
+        torch, mt, "dp=2", {"embed_weight": PartitionSpec("dp", None)},
+        checkpoint=os.path.join(tmp, "rows-ck"))
+    out["rows"]["peak"] = torch.cuda.max_memory_allocated() - base
+    torch.backends.cudnn.deterministic = True
+    out["feed_cut"] = p23_feed_fit(torch, mt, rec, True)
+    out["feed_whole"] = p23_feed_fit(torch, mt, rec, False)
+    return out
+
+
+def fleet_worker(ckpt):
+    """One rank of phase 23 (c): the 200k x 32 tower row-sharded over
+    ``dp=-1`` on gpu(0), a checkpoint every step, ``resume=True``; writes
+    the digest of its final params, then leaves after a barrier."""
+    import hashlib
+    import torch
+    import mxnet_tpu_torch as mt          # joins the fleet's group
+    from mxnet_tpu_torch.dist import boot
+    from mxnet_tpu_torch.parallel import PartitionSpec, collectives, \
+        make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sym, X, y, tower, table = p23_rows_setup(
+        torch, mt, FLEET_VOCAB, FLEET_DIM, FLEET_BATCHES, P23_SEED + 30)
+    arg0 = {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in tower.items()}
+    arg0["embed_weight"] = mt.nd.NDArray(table)
+    mesh = make_mesh([("dp", -1)])
+    mt.random.seed(P23_SEED + 31)
+    mod = mt.mod.Module(sym, data_names=("ids",), context=mt.gpu(0))
+    mod.fit(mt.io.NDArrayIter(X, y, batch_size=EMB_B, data_name="ids"),
+            num_epoch=FLEET_EPOCHS, optimizer_params=dict(EMB_OPT),
+            mesh=mesh, sharding={"embed_weight": PartitionSpec("dp", None)},
+            arg_params=arg0, checkpoint=ckpt, checkpoint_every=1,
+            resume=True)
+    params = host_params(mod)[0]
+    h = hashlib.sha256()
+    for n in sorted(params):
+        h.update(n.encode())
+        h.update(np.ascontiguousarray(params[n]).tobytes())
+    with open(os.path.join(ckpt, "final_rank%d.txt" % boot.rank()),
+              "w") as f:
+        f.write("%s %d" % (h.hexdigest(),
+                           mod._fused.state["params"]["embed_weight"]
+                           .shape[0]))
+    collectives.barrier(mesh.axis("dp"))
+    boot.shutdown()
+
+
+def fleet_run(mt, root, ckpt, faults=None):
+    """A FleetSupervisor of two fleet_worker ranks; -> (report, finals)."""
+    os.makedirs(ckpt, exist_ok=True)
+    env = {"PYTHONPATH": root}
+    if faults:
+        env["MXNET_FAULTS"] = faults
+    sup = mt.dist.FleetSupervisor(
+        [sys.executable, os.path.join(root, "chip_smoke.py"),
+         "--fleet-worker", ckpt], nworkers=2, checkpoint_dir=ckpt,
+        timeout_s=300, env=env,
+        backoff=mt.faults.Backoff(base_s=0.1, jitter=0.0))
+    t0 = time.perf_counter()
+    rc = sup.run()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail("fleet %s ended with rc %s" % (ckpt, rc))
+    kinds = sorted({v["kind"] for v in mt.profiler.faults_report().values()})
+    finals = {}
+    for r in range(2):
+        with open(os.path.join(ckpt, "final_rank%d.txt" % r)) as f:
+            digest, rows = f.read().split()
+        finals[r] = (digest, int(rows))
+    return dict(sup.stats.report(), report_kinds=kinds), finals, wall
+
+
+def rpc_child(prefix, count_path):
+    """A cross-process replica of phase 23 (d): the fused float32 VGG-16
+    ServeEngine on gpu(0) behind serve_engine.  It holds
+    fused_fc_epilogue against its plain version on fc6, then counts its
+    launches from 0, writing the count to ``count_path`` at each launch,
+    and the engine's batches there when closed over the wire."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.dist.rpc import serve_engine
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ck.build()
+    eng = mt.serve.ServeEngine.from_checkpoint(prefix, 0, RPC_SHAPES,
+                                               fuse=True, name="rpc-vgg")
+    saved = mt.nd.load("%s-0000.params" % prefix)
+    w = saved["arg:fc6_weight"]._get().to("cuda")
+    b = saved["arg:fc6_bias"]._get().to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(P23_SEED + 40)
+    x = torch.rand((8, w.shape[1]), generator=gen, device="cuda") * 2 - 1
+    got = ck.fused_fc_epilogue(x, w, b, "relu")
+    want = ck.fused_fc_epilogue_reference(x, w, b, "relu")
+    err = (got - want).abs().max().item()
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    print("rpc child %d: fc6 kernel check (8 x %d x %d, relu) max_abs_err "
+          "%.3g tol %.3g" % (os.getpid(), w.shape[1], w.shape[0], err, tol),
+          flush=True)
+    if not err <= tol:
+        print("rpc child: fc6 check failed", flush=True)
+        sys.exit(3)
+    del saved, w, b, x, got, want
+    count = ck._count
+
+    def write(text):
+        with open(count_path + ".tmp", "w") as f:
+            f.write(text)
+        os.replace(count_path + ".tmp", count_path)
+
+    def counted(name):
+        count(name)
+        write("%d" % ck.LAUNCHES["fused_fc_epilogue"])
+    ck.reset_launches()
+    ck._count = counted
+    warm = eng.stats.report()["batches"]       # the buckets' warm-ups
+    server = serve_engine(eng)
+    print("RPC_READY %d" % server.port, flush=True)
+    server.join()
+    write("%d %d" % (ck.LAUNCHES["fused_fc_epilogue"],
+                     eng.stats.report()["batches"] - warm))
+
+
+def rpc_spawn(root, prefix, count_path, log_path):
+    env = dict(os.environ, MXNET_DIST_RPC_AUTHKEY=RPC_KEY, PYTHONPATH=root)
+    log = open(log_path, "w")
+    proc = subprocess.Popen([sys.executable,
+                             os.path.join(root, "chip_smoke.py"),
+                             "--rpc-child", prefix, count_path],
+                            stdout=log, stderr=subprocess.STDOUT, env=env)
+    log.close()
+    return proc
+
+
+def rpc_ready(proc, log_path, timeout=300):
+    """-> the child's port once it prints RPC_READY (fails if it dies)."""
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        with open(log_path) as f:
+            text = f.read()
+        for line in text.splitlines():
+            if line.startswith("RPC_READY"):
+                return int(line.split()[1]), text
+        if proc.poll() is not None:
+            fail("rpc child exited with %s:\n%s" % (proc.returncode,
+                                                     text[-3000:]))
+        time.sleep(0.2)
+    fail("rpc child not ready in %d s" % timeout)
+
+
+def rpc_flood(router, items, n_threads=4, during=None, after=8):
+    """``items`` through ``router`` from client threads; ``during()``
+    runs once ``after`` answers are in.  -> (answers, errors, wall)."""
+    answers = [None] * len(items)
+    errors = []
+    done = threading.Semaphore(0)
+
+    def client(idx):
+        for i in range(idx, len(items), n_threads):
+            try:
+                answers[i] = router.submit(items[i]).result(timeout=300)
+            except Exception as e:          # a dropped request
+                errors.append(repr(e))
+            done.release()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(n_threads)]
+    for t in threads:
+        t.start()
+    if during is not None:
+        for _ in range(after):
+            done.acquire(timeout=300)
+        during()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        fail("rpc flood: client threads still waiting")
+    return answers, errors, time.perf_counter() - t0
+
+
+def router_line(router):
+    rep = router.stats.report()
+    out = {k: rep[k] for k in ROUTER_KEYS}
+    out["dispatched"] = [row["dispatched"]
+                         for _i, row in sorted(rep["per_replica"].items())]
+    return out
+
+
+def rpc_phase(torch, mt, root, tmp, procs, smi):
+    """(d): a ServeRouter over two RpcReplicas of the fused VGG-16."""
+    from mxnet_tpu_torch.dist.rpc import RpcReplica
+    prefix = os.path.join(tmp, "vgg16")
+    ports = [rpc_ready(p, os.path.join(tmp, "rpc%d.log" % i))
+             for i, p in enumerate(procs)]
+    for i, (_port, text) in enumerate(ports):
+        for line in text.splitlines():
+            if "fc6 kernel check" in line:
+                print("rpc: child %d: %s" % (i, line.split(": ", 1)[1]))
+    rng = np.random.default_rng(P23_SEED + 41)
+    items = [wire_to_nchw(rng.integers(0, 256, (224, 224, 3),
+                                       dtype=np.uint8))
+             for _ in range(RPC_REQUESTS)]
+    with mt.serve.ServeEngine.from_checkpoint(prefix, 0, RPC_SHAPES,
+                                              fuse=True,
+                                              name="rpc-ref") as eng:
+        refs, _ = serve_burst(eng, items)
+
+    def connect(i):
+        return RpcReplica(("127.0.0.1", ports[i][0]),
+                          authkey=RPC_KEY.encode())
+    router = mt.serve.ServeRouter(lambda i: connect(i), replicas=2,
+                                  name="rpc-vgg", unhealthy_after=2,
+                                  probe_after_s=0)
+    worst, dropped = 0.0, 0
+    walls = {}
+    try:
+        def check(label, answers, errors):
+            nonlocal worst, dropped
+            dropped += len(errors)
+            for i, (a, r) in enumerate(zip(answers, refs)):
+                if a is None:
+                    continue
+                if a.shape != r.shape or not np.allclose(a, r, rtol=1e-3,
+                                                         atol=1e-6):
+                    fail("rpc %s: answer %d differs from the in-process "
+                         "engine's (max abs err %.3g)"
+                         % (label, i, np.abs(a - r).max()))
+                worst = max(worst, float(np.abs(a - r).max()))
+            print("rpc %s: %d answered, %d dropped %s; replicas %s; "
+                  "router %s" % (label, sum(a is not None for a in answers),
+                                 len(errors), errors[:2],
+                                 router.replica_states(),
+                                 router_line(router)))
+        answers, errors, walls["flood"] = rpc_flood(router, items)
+        check("flood", answers, errors)
+
+        def kill():
+            t0 = time.perf_counter()
+            procs[0].kill()
+            procs[0].wait(timeout=120)
+            walls["sigkill_to_exit"] = time.perf_counter() - t0
+        answers, errors, walls["kill"] = rpc_flood(router, items,
+                                                   during=kill)
+        check("SIGKILL of child 0 mid-flood", answers, errors)
+        if router.replica_states()[0] != "down":
+            fail("rpc: the killed replica is %s, want down"
+                 % router.replica_states()[0])
+        router.restart(0, factory=lambda i: connect(2), timeout=300)
+
+        def drain():
+            router.restart(1, factory=lambda i: connect(3), timeout=300)
+        answers, errors, walls["restart"] = rpc_flood(router, items,
+                                                      during=drain)
+        check("draining restart of replica 1 mid-flood", answers, errors)
+        if router.replica_states() != ["live", "live"]:
+            fail("rpc: replicas %s after the restarts"
+                 % router.replica_states())
+        stats = router_line(router)
+    finally:
+        router.close()
+    for p in procs:
+        try:
+            p.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+    counts = []
+    for i in range(len(procs)):
+        with open(os.path.join(tmp, "rpc%d.count" % i)) as f:
+            counts.append([int(v) for v in f.read().split()])
+    launches = sum(c[0] for c in counts)
+    for i, c in enumerate(counts):
+        if i != 0 and (len(c) != 2 or c[0] != 2 * c[1]):
+            fail("rpc child %d: %s fused_fc_epilogue launches and batches, "
+                 "want 2 a batch" % (i, c))
+    if dropped:
+        fail("rpc: %d requests dropped" % dropped)
+    print("rpc: 3 floods of %d requests, 0 dropped, answers within %.3g of "
+          "the in-process engine's (rtol 1e-3, atol 1e-6); walls %s s "
+          "(MXNET_DIST_RPC_TIMEOUT_S=%s); "
+          "router %s; fused_fc_epilogue launches in the children %s "
+          "(launches, batches; child 0 SIGKILL'd: its last count) = %d; "
+          "card %s" % (RPC_REQUESTS, worst,
+                       {k: round(v, 3) for k, v in walls.items()},
+                       RPC_TIMEOUT_S,
+                       stats,
+                       counts, launches, smi))
+    return {"launches": launches, "walls": walls, "worst": worst}
+
+
+def p23_phase(torch, mt, ck, smi):
+    print("phase 23: data parallelism's repairs, row-sharded tables, the "
+          "fleet, replicas in other processes, a rank's rows staged; TF32 "
+          "matmul=%s cudnn=%s; card %s" % (
+              torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32, smi))
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmpdir = tempfile.TemporaryDirectory()
+    tmp = tmpdir.name
+    # (d)'s replicas start first: they build while the ranks run
+    sym = mt.models.get_vgg(num_classes=1000)
+    mt.model.save_checkpoint(
+        os.path.join(tmp, "vgg16"), 0, sym,
+        {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in xavier_params(
+            sym, RPC_SHAPES, 0).items()}, {})
+    procs = [rpc_spawn(root, os.path.join(tmp, "vgg16"),
+                       os.path.join(tmp, "rpc%d.count" % i),
+                       os.path.join(tmp, "rpc%d.log" % i)) for i in range(4)]
+    try:
+        out = p23_body(torch, mt, ck, smi, root, tmp, procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        tmpdir.cleanup()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print("phase 23: %.1f s" % out["wall_s"])
+    return out
+
+
+def p23_body(torch, mt, ck, smi, root, tmp, procs):
+    rec = os.path.join(tmp, "feed.rec")
+    write_feed_rec(mt, rec, n=P23_FEED_RECORDS)
+    # the one-process runs on this process's card
+    one_drop = p23_dropout_fit(mt)
+    one_rec, one_sparse = p23_rec_fit(mt)
+    dense_rec, _ = p23_rec_fit(mt, sparse=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    one_rows = p23_rows_fit(torch, mt)
+    one_rows["peak"] = torch.cuda.max_memory_allocated() - base
+    from mxnet_tpu_torch.dist.spawn import run_ranks
+    t0 = time.perf_counter()
+    ranks = run_ranks(os.path.join(root, "chip_smoke.py") + ":p23_rank", 2,
+                      args=(tmp, rec), timeout=900)
+    ranks_s = time.perf_counter() - t0
+    if any(r["backend"] != "gloo" for r in ranks):
+        fail("two ranks sharing one card must take gloo")
+    # (a) the repairs
+    drop_err = max(float(np.abs(r["dropout"][k] - one_drop[k]).max())
+                   for r in ranks for k in one_drop)
+    print("repairs (a): Dropout at dp=2 against one process with the same "
+          "seed: max abs diff %.3g (gate %g)" % (drop_err, P23_DROP_ATOL))
+    if not drop_err <= P23_DROP_ATOL:
+        fail("Dropout over dp=2 draws another mask than one device")
+    rec_worst = worst_rel([r["rec"][0] for r in ranks], [one_rec, one_rec],
+                          P23_REC_ATOL)
+    dense_gap = max(float(np.abs(dense_rec[k] - one_rec[k]).max())
+                    for k in one_rec)
+    print("repairs (a): the rec model at dp=2 trains %s lazily, within "
+          "rtol %.3g at atol %g of one process's lazy fit (gate rtol %g); "
+          "the dense update (MXNET_EMBED_SPARSE=0, what dp=2 trained "
+          "before) is %.3g away" % (ranks[0]["rec"][1], rec_worst,
+                                    P23_REC_ATOL, P23_REC_RTOL, dense_gap))
+    if not all(r["rec"][1] == ["embed_weight"] for r in ranks) or \
+            one_sparse != ["embed_weight"] or \
+            not params_close([r["rec"][0] for r in ranks],
+                             [one_rec, one_rec], P23_REC_RTOL, P23_REC_ATOL):
+        fail("the rec model over dp=2 is not one device's lazy fit")
+    # (b) the row-sharded 4M x 64 table
+    rows = [r["rows"] for r in ranks]
+    for r in rows:
+        if r["sparse"] != ["embed_weight"] or \
+                r["rows"] != (ROWS_VOCAB // 2, ROWS_DIM) or \
+                not r["untouched"]:
+            fail("row-sharded table: %s" % {k: r[k] for k in (
+                "sparse", "rows", "untouched")})
+    rows_worst = worst_rel(
+        [dict(r["tower"], named=r["named"]) for r in rows],
+        [dict(one_rows["tower"], named=one_rows["named"])] * 2,
+        P23_REC_ATOL)
+    if not params_close([dict(r["tower"], named=r["named"]) for r in rows],
+                        [dict(one_rows["tower"], named=one_rows["named"])]
+                        * 2, P23_REC_RTOL, P23_REC_ATOL):
+        fail("row-sharded 4M x 64 steps depart from one process's")
+    if rows[0]["digest"] != rows[1]["digest"]:
+        fail("the two ranks gathered different params")
+    # the ranks' save restored into one process, bitwise
+    restored = p23_rows_fit(torch, mt, checkpoint=os.path.join(
+        tmp, "rows-ck"), resume=True)
+    if restored["digest"] != rows[0]["digest"]:
+        fail("the row-sharded save restored into one process is not "
+             "bitwise the ranks' state")
+    print("rows (b): 4M x 64 row-sharded at dp=2: each rank holds %s rows, "
+          "%d table bytes + %d slot bytes (one process %d + %d); %d steps "
+          "within rtol %.3g at atol %g of one process's (gate rtol %g), "
+          "untouched rows bitwise; fused %s; the save restored into one "
+          "process bitwise; peak memory above the memory before the leg %.1f "
+          "MB a rank against %.1f MB; fit wall "
+          "%.2f s a rank against %.2f s; card %s" % (
+              rows[0]["rows"], rows[0]["table_bytes"], rows[0]["slot_bytes"],
+              one_rows["table_bytes"], one_rows["slot_bytes"], ROWS_BATCHES,
+              rows_worst, P23_REC_ATOL, P23_REC_RTOL, rows[0]["fused"],
+              max(r["peak"] for r in rows) / 2 ** 20,
+              one_rows["peak"] / 2 ** 20, max(r["wall_s"] for r in rows),
+              one_rows["wall_s"], smi))
+    # (e) a rank's rows staged
+    cut, whole = [r["feed_cut"] for r in ranks], [r["feed_whole"]
+                                                  for r in ranks]
+    global_bytes = P23_FEED_BATCH * FEED_SIDE * FEED_SIDE * 3 + \
+        P23_FEED_BATCH * 4
+    batches = P23_FEED_RECORDS // P23_FEED_BATCH
+    for c, w in zip(cut, whole):
+        if c[0] != w[0]:
+            fail("a rank's rows staged by the feed change the trajectory")
+        if c[1] * 2 != global_bytes * batches or \
+                c[2] * 2 != P23_FEED_RECORDS:
+            fail("feed (e): a rank staged %d bytes and %d rows, want half "
+                 "of %d bytes and %d rows" % (c[1], c[2],
+                                              global_bytes * batches,
+                                              P23_FEED_RECORDS))
+    print("feed (e): ResNet-50 from a .rec at batch %d over dp=2: each rank "
+          "copied %d bytes a batch to the card (the global batch's %d), "
+          "%d rows of %d; trajectory bitwise the one of make_batch cutting "
+          "the global batch; fused %s" % (
+              P23_FEED_BATCH, cut[0][1] // batches, global_bytes,
+              cut[0][2], P23_FEED_RECORDS, cut[0][3]))
+    print("ranks (a, b, e): %.1f s" % ranks_s)
+    # (c) the fleet
+    ok, ok_finals, ok_wall = fleet_run(mt, root, os.path.join(tmp, "ok"))
+    chaos, finals, chaos_wall = fleet_run(mt, root, os.path.join(
+        tmp, "chaos"), faults=FLEET_CHAOS)
+    if ok["restarts"] != 0 or chaos["restarts"] < 1 or \
+            chaos["lost_hosts"] < 1:
+        fail("fleet: fault-free %s, chaos %s" % (ok, chaos))
+    if not (finals[0][0] == finals[1][0] == ok_finals[0][0]
+            == ok_finals[1][0]):
+        fail("fleet: the recovered run is not bitwise the fault-free one: "
+             "%s vs %s" % (finals, ok_finals))
+    print("fleet (c): 200k x 32 tower row-sharded (%d rows a rank) over 2 "
+          "ranks, %d steps, a commit every step; %s on rank 1: %d restart, "
+          "%d lost host, recovery_s %.3f, final params bitwise the "
+          "fault-free run's; walls %.1f s fault-free, %.1f s with the "
+          "crash; faults_report kinds %s" % (
+              finals[0][1], FLEET_BATCHES * FLEET_EPOCHS, FLEET_CHAOS,
+              chaos["restarts"], chaos["lost_hosts"], chaos["recovery_s"],
+              ok_wall, chaos_wall, chaos["report_kinds"]))
+    # (d) replicas in other processes
+    with env_set("MXNET_DIST_RPC_TIMEOUT_S", RPC_TIMEOUT_S):
+        rpc = rpc_phase(torch, mt, root, tmp, procs, smi)
+    return {"rpc": rpc, "fleet": chaos, "rows": rows, "one_rows": one_rows,
+            "feed": cut, "drop_err": drop_err, "rec_worst": rec_worst}
+
+
 def main():
     t_script = time.perf_counter()
     # cuBLAS under deterministic algorithms (phase 14) needs a fixed
@@ -7782,6 +8436,15 @@ def main():
     print("allow_tf32: matmul=%s cudnn=%s" % (
         torch.backends.cuda.matmul.allow_tf32,
         torch.backends.cudnn.allow_tf32))
+    # each phase's wall, printed before the kernels line
+    walls = {}
+    last = [time.perf_counter()]
+
+    def mark(phase):
+        now = time.perf_counter()
+        walls[phase] = round(now - last[0], 1)
+        last[0] = now
+
     # phase 2: build
     t0 = time.perf_counter()
     logs = ck.build()
@@ -7805,6 +8468,7 @@ def main():
     # phase 3: kernels against their plain versions, and the int8 route
     fc = kernel_phase(torch, ck)
     int8_route_phase(torch, i8)
+    mark('2-3')
 
     # the checkpoints of phases 4 and 5, kept for phase 17's multiplexer
     tmpdir = tempfile.TemporaryDirectory()
@@ -7812,36 +8476,47 @@ def main():
 
     # phase 4: the VGG-16 serving path
     served = serve_phase(torch, mt, ck, tmp)
+    mark('4')
 
     # phase 5: int8 and float16 VGG-16 serving on the uint8 wire
     quant = quantized_serve_phase(torch, mt, ck, i8, served, tmp, smi)
+    mark('5')
 
     # phase 6: paged_attention against its plain version
     paged = paged_kernel_phase(torch, ck)
+    mark('6')
 
     # phase 7: the LLM serving path
     llm = llm_phase(torch, ck)
+    mark('7')
 
     # phase 8: flash_attention against its plain version
     flash = flash_kernel_phase(torch, ck)
+    mark('8')
 
     # phase 9: the kernel search path
     search = flash_search_phase(torch, mt, ck)
+    mark('9')
 
     # phase 10: correlation against its plain version
     corr = correlation_kernel_phase(torch, ck)
+    mark('10')
 
     # phase 11: FlowNetC's correlation stage through Predictor
     flow = flownetc_phase(torch, mt, ck)
+    mark('11')
 
     # phase 12: integer max pooling with padding, card against CPU
     int_pool_phase(torch)
+    mark('12')
 
     # phase 13: training through Module, the fused step as a CUDA graph
     train = train_phase(torch, mt, ck, smi)
+    mark('13')
 
     # phase 14: the PTB LSTM through Module and BucketingModule
     lstm = lstm_phase(torch, mt, ck, smi)
+    mark('14')
     print("lstm result (card %s): %s" % (smi, json.dumps({
         "h200-b2048": round(lstm["headline"]["rate"]["tokens_s"], 1),
         "h200-b2048-dense-table": round(
@@ -7852,6 +8527,7 @@ def main():
 
     # phase 15: the image zoo trained on the card
     zoo = zoo_phase(torch, mt, ck, smi)
+    mark('15')
     print("zoo result (card %s): %s" % (smi, json.dumps({
         "dcgan-it_s": round(zoo["dcgan"]["it_s"], 3),
         "rcnn-step_ms": round(zoo["rcnn"]["step_ms"], 1),
@@ -7872,17 +8548,21 @@ def main():
     ops = serving_ops_phase(torch, mt, ck, served, llm, served["prefix"],
                             smi)
     tmpdir.cleanup()
+    mark('17')
 
     # phase 18: the rest of training: superstep, FeedForward, several
     # contexts, checkpoints, serving from a checkpoint directory, group2ctx
     rest = rest_of_training_phase(torch, mt, ck, smi)
+    mark('18')
 
     # phase 19: routed MoE and the sparse embedding engine
     sparse = moe_embed_phase(torch, mt, ck, smi)
+    mark('19')
 
     # phase 20: the input pipeline: .rec -> feed -> fit on the card
     fed = feed_phase(torch, mt, ck, smi, train["resnet"]["fit_img_s"],
                      rest["superstep"])
+    mark('20')
     print("feed result (card %s): %s" % (smi, json.dumps({
         "resnet50-rec-fit-img_s": round(fed["resnet"]["img_s"], 1),
         "resnet50-host-fit-img_s": round(train["resnet"]["fit_img_s"], 1),
@@ -7909,6 +8589,7 @@ def main():
     # phase 21: scale-out: a mesh of one rank (NCCL), two ranks sharing
     # the card (gloo), the parameter server
     scale = scaleout_phase(torch, mt, ck, smi, train["resnet"])
+    mark('21')
     print("scale-out result (card %s): %s" % (smi, json.dumps({
         "fit-mesh-dp1-img_s": round(scale["rates"]["fit-mesh-dp1"]["img_s"],
                                     1),
@@ -7928,12 +8609,29 @@ def main():
     # phase 22: model state sharded over a mesh: tp training and serving,
     # expert parallelism, multi-process checkpoints
     shard = sharded_phase(torch, mt, ck, smi)
+    mark('22')
     print("sharded result (card %s): %s" % (smi, json.dumps({
         "vgg16-tp2-step_ms": [round(v, 1) for v in shard["step_ms"]],
         "vgg16-one-step_ms": [round(v, 1) for v in shard["one_ms"]],
         "vgg16-tp2-peak_mb": [round(v / 2 ** 20, 1) for v in shard["peak"]],
         "vgg16-one-peak_mb": round(shard["one_peak"] / 2 ** 20, 1),
         "serve-tp2-rps": round(shard["serve_rps"], 2)})))
+
+    # phase 23: data parallelism's repairs, row-sharded tables, the
+    # fleet, cross-process replicas, a rank's rows staged
+    p23 = p23_phase(torch, mt, ck, smi)
+    mark('23')
+    print("scale-out rest result (card %s): %s" % (smi, json.dumps({
+        "dropout-dp2-max_abs_diff": p23["drop_err"],
+        "rec-dp2-rtol": p23["rec_worst"],
+        "rows-4Mx64-dp2-table_bytes_a_rank": p23["rows"][0]["table_bytes"],
+        "rows-4Mx64-dp2-slot_bytes_a_rank": p23["rows"][0]["slot_bytes"],
+        "fleet-recovery_s": p23["fleet"]["recovery_s"],
+        "rpc-walls_s": {k: round(v, 3) for k, v in
+                        p23["rpc"]["walls"].items()},
+        "rpc-fc_launches": p23["rpc"]["launches"],
+        "feed-dp2-bytes_a_batch_a_rank": p23["feed"][0][1] // (
+            P23_FEED_RECORDS // P23_FEED_BATCH)})))
     kernels = [{
         "name": "fused_fc_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["fused_fc_epilogue"],
@@ -7942,7 +8640,8 @@ def main():
         + quant["int8-skip-fc6"]["launches"]["fused_fc_epilogue"]
         + ops["fc_launches"]
         + rest["serve"]["launches"]["fused_fc_epilogue"]
-        + sparse["rec"]["launches"] + shard["fc_launches"],
+        + sparse["rec"]["launches"] + shard["fc_launches"]
+        + p23["rpc"]["launches"],
         "max_abs_err": fc["max_abs_err"],
         "ms": fc["ms"], "plain_ms": fc["plain_ms"],
         "bound_ms": fc["bound_ms"], "bound_by": "bytes",
@@ -7987,7 +8686,9 @@ def main():
           "times) plus the multiplexer's VGG-16 waves (2 a batch and 8 a "
           "swap-in's warm-up) plus phase 19's rec serving (rfc1, 1 a "
           "batch) plus phase 22's tp=2 serving on both ranks (fc6's and "
-          "fc7's shards, 2 a batch a rank); paged_attention is one C=1 "
+          "fc7's shards, 2 a batch a rank) plus phase 23's RpcReplica "
+          "children (2 a batch, counted in each child); paged_attention "
+          "is one C=1 "
           "plus one C=32 "
           "launch at 16 slots x 12 heads x 64, contexts 1..1024; its "
           "launches are those of the paged, dense-stripe and speculative "
@@ -8002,6 +8703,7 @@ def main():
           "multiply), its launches those of the FlowNetC forwards; no "
           "single PyTorch call computes the correlation, so its "
           "library_ms is null")
+    print("phase walls (s): %s" % json.dumps(walls))
     print("chip_smoke: the whole script took %.1f s" % (
         time.perf_counter() - t_script))
     print(json.dumps({"kernels": kernels}))
@@ -8013,4 +8715,13 @@ def main():
 
 
 if __name__ == "__main__":
+    if "--fleet-worker" in sys.argv:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        fleet_worker(sys.argv[sys.argv.index("--fleet-worker") + 1])
+        sys.exit(0)
+    if "--rpc-child" in sys.argv:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        i = sys.argv.index("--rpc-child")
+        rpc_child(sys.argv[i + 1], sys.argv[i + 2])
+        sys.exit(0)
     sys.exit(main())

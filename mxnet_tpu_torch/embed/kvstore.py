@@ -16,6 +16,11 @@ tower and its tables.
 * ``push(key, (row_ids, values))``: with an optimizer the rows take the
   lazy deduped update, without one the values scatter-add into the
   table.
+
+``mesh=``/``spec=`` row-shard every table (``EmbeddingTable``'s
+``mesh``/``spec``, reference ``kvstore.py:61-71``): its pushes, pulls
+and row-sparse pulls are then collectives every rank of the axis calls,
+each with its own ids; the pushes are summed.
 """
 from __future__ import annotations
 
@@ -56,15 +61,13 @@ class KVStoreDeviceEmbed:
 
     def __init__(self, kv_type: str = "device_embed", mesh=None,
                  spec=None, ctx=None):
-        if mesh is not None or spec is not None:
-            raise NotImplementedError(
-                "kvstore 'device_embed' with mesh=/spec=: row sharding is "
-                "not in the port yet (ROADMAP.md, queue 1 item 10c)")
         from ..kvstore import KVStore
         self._dense = KVStore("device")
         self._type = kv_type
         self._tables = {}
         self._ctx = ctx
+        self._mesh = mesh
+        self._spec = spec
         self._optimizer = None
 
     @property
@@ -107,6 +110,7 @@ class KVStoreDeviceEmbed:
                     "sparse key %r needs a 2-D (vocab, dim) value, got "
                     "shape %s" % (k, tuple(arr.shape)))
             tab = EmbeddingTable(arr.shape[0], arr.shape[1],
+                                 mesh=self._mesh, spec=self._spec,
                                  dtype=arr.dtype, initializer=arr,
                                  name="kv:%s" % k, ctx=self._ctx)
             if self._optimizer is not None:

@@ -37,7 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["dedup_ids", "dedup_lookup", "naive_lookup",
+__all__ = ["dedup_ids", "dedup_lookup", "naive_lookup", "block_rows",
            "dedup_scatter_add", "naive_scatter_add", "sparse_apply_rows",
            "slot_leaves_row_shaped", "resolve_cap", "map_slots"]
 
@@ -73,6 +73,16 @@ def dedup_ids(flat_ids: torch.Tensor, cap: int,
                      device=ids.device)
     buf.scatter_(0, torch.clamp(seg, max=cap), srt)
     return buf[:cap], inv
+
+
+def block_rows(uniq: torch.Tensor, lo: int, size: int):
+    """Where the unique ids sit in a row-sharded table's block of
+    ``size`` rows from row ``lo``: -> (each id's row in the block's
+    storage, the owned mask).  Ids of other blocks, and the sentinel,
+    index the storage's scratch row ``size``."""
+    loc = uniq.long() - lo
+    own = (loc >= 0) & (loc < size)
+    return torch.where(own, loc, torch.full_like(loc, size)), own
 
 
 def _mask_oov_rows(rows: torch.Tensor, uniq: torch.Tensor,

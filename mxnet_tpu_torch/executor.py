@@ -89,7 +89,8 @@ class _GraphProgram:
 
     def eval(self, args: Dict[str, torch.Tensor],
              aux: Dict[str, torch.Tensor], opctx: Optional[OpContext] = None,
-             shards: Optional[Dict[str, list]] = None):
+             shards: Optional[Dict[str, list]] = None,
+             rows: Optional[Dict[str, int]] = None):
         """Run every node; -> (outputs, new_aux) where ``new_aux`` holds
         the states a train forward updated (BatchNorm's moving
         statistics), by name.
@@ -102,11 +103,23 @@ class _GraphProgram:
         than ``dp`` enters as a shard; one cut over ``dp`` or more than
         once is gathered where it enters (``collectives.gather_param``
         over ``dp``); an aux state is gathered before its op and its new
-        value sliced back."""
+        value sliced back.
+
+        ``rows`` (with ``opctx.dp``): ``{input name: batch dim}`` of the
+        inputs that hold this rank's rows of a batch cut over ``dp``.  The
+        walk carries ``Layout.shard(dim, "dp")`` for them and for every
+        value an op makes of them with the batch rows at a dim of the same
+        size (``OpDef.row_dim`` follows a moved dim), and hands the ops
+        their inputs' row layouts (``opctx.in_rows``): an op that draws
+        draws the global batch's numbers and keeps its rows.  No
+        collective is made for them."""
         opctx = opctx if opctx is not None else OpContext(is_train=False)
         sharded = bool(shards) and opctx.mesh is not None
         vals: Dict[tuple, torch.Tensor] = {}
         lays: Dict[tuple, object] = {}
+        rlays: Dict[tuple, object] = {}
+        if opctx.dp is None:
+            rows = None
         new_aux: Dict[str, torch.Tensor] = {}
         left = dict(self.uses)
         for node in self.topo:
@@ -119,6 +132,10 @@ class _GraphProgram:
                     t, lay = _enter_sharded(node.name, t, shards[node.name],
                                             opctx)
                     lays[(id(node), 0)] = lay
+                if rows and node.name in rows:
+                    from .parallel.mesh import Layout
+                    rlays[(id(node), 0)] = Layout.shard(rows[node.name],
+                                                        "dp")
                 vals[(id(node), 0)] = t
                 continue
             ins = [vals[(id(i), x)] for (i, x) in node.inputs]
@@ -130,6 +147,9 @@ class _GraphProgram:
                 aux_in = [t if t.device == dev else t.to(dev)
                           for t in aux_in]
             out_lays = None
+            in_rows = [rlays.get((id(i), x)) for (i, x) in node.inputs] \
+                if rows else []
+            opctx.in_rows = in_rows
             if sharded:
                 from .parallel.mesh import gather_tensor
                 cut = [shards.get(a) for a in aux_names]
@@ -149,10 +169,15 @@ class _GraphProgram:
                                if shards.get(a) else t
                                for a, t in zip(aux_names, aux_out)]
                 new_aux.update(zip(aux_names, aux_out))
+            opctx.in_rows = ()
             for i, o in enumerate(outs):
                 vals[(id(node), i)] = o
                 if out_lays is not None and out_lays[i] is not None:
                     lays[(id(node), i)] = out_lays[i]
+            if any(in_rows):
+                for i, lay in enumerate(_rows_out(node, ins, in_rows, outs)):
+                    if lay is not None:
+                        rlays[(id(node), i)] = lay
             if _ENGINE._naive:
                 _ENGINE.track(outs)
             if self.monitor is not None:
@@ -167,12 +192,30 @@ class _GraphProgram:
                 if left[key] == 0:
                     del vals[key]
                     lays.pop(key, None)
+                    rlays.pop(key, None)
         heads = [vals[(id(n), i)] for (n, i) in self.symbol._heads]
         if sharded:
             from .ops.registry import to_replicated
             heads = [to_replicated(t, lays.get((id(n), i)), opctx, "output")
                      for t, (n, i) in zip(heads, self.symbol._heads)]
         return heads, new_aux
+
+
+def _rows_out(node: _Node, ins, in_rows, outs) -> list:
+    """The row layouts of a node's outputs: the first input holding a
+    batch's rows names the dim; an output whose ``row_dim`` of it has the
+    same size holds the rows there."""
+    from .parallel.mesh import Layout
+    i = next(k for k, lay in enumerate(in_rows) if lay is not None)
+    d, n = in_rows[i].dim, ins[i].shape[in_rows[i].dim]
+    out = []
+    for o in outs:
+        od = node.op.row_dim(node.params, d, o.dim()) \
+            if isinstance(o, torch.Tensor) else None
+        out.append(Layout.shard(od, "dp")
+                   if od is not None and od < o.dim() and o.shape[od] == n
+                   else None)
+    return out
 
 
 def _enter_sharded(name: str, t: torch.Tensor, pairs, opctx: OpContext):

@@ -25,9 +25,10 @@ Kinds: ``crash`` (SIGKILL the process), ``torn`` (truncate the file the
 point's ``path`` ctx names to half, then raise), ``delay`` (sleep
 ``delay_ms``, then continue), ``error`` (raise :class:`InjectedFault`).
 
-The ``fault:`` trace instants and the profiler's faults report wait for
-the port's ``trace/`` and the rest of ``profiler.py`` (ROADMAP.md, queue
-1 item 12); :func:`stats` counts every injection meanwhile.
+:func:`stats` counts every injection; the first :func:`install`
+registers it as the ``plane`` row of ``mx.profiler.faults_report()``.
+The ``fault:`` trace instants wait for the port's ``trace/`` (ROADMAP.md,
+queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -95,10 +96,20 @@ class FaultStats:
 
 
 _STATS = FaultStats()
+_registered = False
 
 
 def stats() -> FaultStats:
     return _STATS
+
+
+def _register_stats() -> None:
+    global _registered
+    if _registered:
+        return
+    _registered = True
+    from .. import profiler
+    profiler.register_faults_stats(_STATS)
 
 
 class Rule:
@@ -369,6 +380,7 @@ def install(plan) -> FaultPlan:
     global _PLAN
     plan = parse_spec(plan)
     _PLAN = plan
+    _register_stats()
     return plan
 
 

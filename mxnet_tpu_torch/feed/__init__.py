@@ -41,8 +41,8 @@ from .augment import AugmentSpec, augment_batch, augment_batch_host, draw
 from .parallel import ParallelReader
 from .pipeline import (BoundedQueue, EndOfEpoch, EndOfStream, Pipeline,
                        QueueClosed, Stage, StageError)
-from .stages import (BatchStage, DevicePutStage, MapStage, SourceStage,
-                     StagedBatch, StagingStage, resolve_device)
+from .stages import (BatchStage, DevicePutStage, MapStage, RowShard,
+                     SourceStage, StagedBatch, StagingStage, resolve_device)
 from .staging import (DevicePrefetchIter, MegaBatch, device_feed,
                       stack_batch_arrays)
 from .sparse import (PAD_ID, ids_pipeline, make_ids_decode, pad_ids,
@@ -51,8 +51,8 @@ from .stats import PipelineStats, StageStats
 
 __all__ = ["Pipeline", "Stage", "BoundedQueue", "EndOfEpoch", "EndOfStream",
            "StageError", "QueueClosed", "SourceStage", "MapStage",
-           "BatchStage", "StagingStage", "DevicePutStage", "StageStats",
-           "PipelineStats", "DevicePrefetchIter", "MegaBatch", "device_feed",
+           "BatchStage", "StagingStage", "DevicePutStage", "RowShard",
+           "StageStats", "PipelineStats", "DevicePrefetchIter", "MegaBatch", "device_feed",
            "stack_batch_arrays", "FeedDataIter", "record_pipeline",
            "make_jpeg_decode", "make_u8_decode", "ParallelReader",
            "AugmentSpec", "augment_batch", "augment_batch_host", "draw",
@@ -134,8 +134,10 @@ class FeedDataIter:
             return NDArray(torch.from_numpy(np.array(a, copy=True)))
         if self.label_width == 1 and getattr(label, "ndim", 1) > 1:
             label = label.reshape(label.shape[0])
-        return DataBatch(data=[wrap(data)], label=[wrap(label)], pad=pad,
-                         index=None)
+        out = DataBatch(data=[wrap(data)], label=[wrap(label)], pad=pad,
+                        index=None)
+        out.rows_cut = getattr(item, "rows_cut", None)
+        return out
 
     def reset(self):
         if self._at_boundary:
@@ -327,9 +329,10 @@ def staging_stages(buffer_size: int, to_device: bool, device=None):
     ring = max(8, 2 * buffer_size + 2)
     if not to_device:
         return [StagingStage(ring_size=ring, pin=False)]
-    dev = device if callable(device) else resolve_device(device)
+    dev = device if callable(device) or isinstance(device, RowShard) \
+        else resolve_device(device)
     pin = torch.cuda.is_available() if callable(device) \
-        else dev.type == "cuda"
+        else resolve_device(dev).type == "cuda"
     return [StagingStage(ring_size=ring, pin=pin), DevicePutStage(dev)]
 
 

@@ -231,12 +231,64 @@ def _leaves(obj):
     return [obj] if hasattr(obj, "shape") and hasattr(obj, "dtype") else []
 
 
+class RowShard:
+    """Where a rank stages its part of a batch cut over a mesh's ``dp``
+    axis (``FusedTrainStep.batched_sharding()`` under a named mesh): the
+    step's ``device`` and the part, the ``index``-th of ``size`` equal
+    row blocks.  :meth:`cut` keeps those rows of every array whose dim 0
+    has the batch's size (the first array's) and passes the others
+    whole, the rule of the fused step's ``make_batch``; the batch it
+    stages says which arrays it cut (``rows_cut``), so ``make_batch``
+    does not cut them again.  A megabatch cuts each of its K batches
+    before stacking them: its K axis stays whole."""
+
+    __slots__ = ("device", "index", "size")
+
+    def __init__(self, device, index: int, size: int):
+        self.device = resolve_device(device)
+        self.index = int(index)
+        self.size = int(size)
+
+    def __repr__(self):
+        return "RowShard(%s, rows %d of %d)" % (self.device, self.index,
+                                                self.size)
+
+    def cut(self, arrays):
+        """-> (arrays with this rank's rows, a flag per array: cut)."""
+        from ..base import MXNetError
+        arrays = list(arrays)
+        if not arrays or len(arrays[0].shape) < 1:
+            return arrays, tuple(False for _ in arrays)
+        batch = int(arrays[0].shape[0])
+        if batch % self.size:
+            raise MXNetError("batch %d is not divisible by the mesh's dp "
+                             "axis (%d)" % (batch, self.size))
+        n = batch // self.size
+        out, flags = [], []
+        for a in arrays:
+            hit = len(a.shape) >= 1 and int(a.shape[0]) == batch
+            flags.append(hit)
+            if not hit:
+                out.append(a)
+            elif isinstance(a, torch.Tensor):
+                out.append(a.narrow(0, self.index * n, n))
+            elif hasattr(a, "_get"):
+                out.append(a._get().narrow(0, self.index * n, n))
+            else:
+                out.append(np.asarray(a)[self.index * n:(self.index + 1)
+                                         * n])
+        return out, tuple(flags)
+
+
 def resolve_device(device) -> torch.device:
-    """A Context, ``torch.device``, device string, or None (the current
-    context, read in the calling thread) -> a ``torch.device``."""
+    """A Context, ``torch.device``, :class:`RowShard`, device string, or
+    None (the current context, read in the calling thread) -> a
+    ``torch.device``."""
     from ..context import Context, current_context
     if device is None:
         device = current_context()
+    if isinstance(device, RowShard):
+        return device.device
     if isinstance(device, Context):
         return device.torch_device()
     return torch.device(device)
@@ -250,6 +302,8 @@ class StagedBatch(tuple):
 
     slot = None
     ready = None
+    # a flag per array: holds this rank's rows only (RowShard.cut)
+    rows_cut = None
 
 
 class _Slot:
@@ -385,14 +439,21 @@ class DevicePutStage(Stage):
 
     def __init__(self, device=None, name: str = "h2d"):
         super().__init__(name)
-        self._device = device if callable(device) \
-            else resolve_device(device)
+        self._device = device if callable(device) or \
+            isinstance(device, RowShard) else resolve_device(device)
         self._copies = CopyStream()
 
     def process(self, batch):
-        dev = resolve_device(self._device() if callable(self._device)
-                             else self._device)
+        target = self._device() if callable(self._device) \
+            else self._device
+        dev = resolve_device(target)
         slot = getattr(batch, "slot", None)
+        cut = None
+        if isinstance(target, RowShard):
+            # only this rank's rows cross to the card
+            leaves, cut = target.cut(_leaves(batch))
+            it = iter(leaves)
+            batch = _map_arrays(tuple(batch), lambda a: next(it))
         self.stats.add_bytes(sum(int(a.nbytes) for a in _leaves(batch)))
 
         def put(a):
@@ -405,6 +466,7 @@ class DevicePutStage(Stage):
             return a.to(dev, non_blocking=True)
         out, ev = self._copies.run(
             dev, lambda: StagedBatch(_map_arrays(tuple(batch), put)))
+        out.rows_cut = cut
         if ev is not None:
             out.ready = ev
             if slot is not None:

@@ -13,8 +13,12 @@ card's work.  Batches are staged onto the device the module's fused
 train step reads from (``FusedTrainStep.batched_sharding()``, its
 device), so ``make_batch`` copies them device to device into its static
 buffers with no second host-to-device transfer.  Batches already on that
-device (a feed pipeline with a DevicePutStage) pass through.  On the
-host the wrapper is plain lookahead.
+device (a feed pipeline with a DevicePutStage) pass through.  Under a
+named mesh the step's ``batched_sharding()`` is a
+:class:`~.stages.RowShard`, and only this rank's rows of each batch are
+copied (a megabatch's K batches each cut before stacking; the batch
+says which arrays were cut, and ``make_batch`` cuts them no more).  On
+the host the wrapper is plain lookahead.
 
 ``Module.fit(..., prefetch_to_device=True)`` wires this in automatically
 (base_module.py); :func:`device_feed` is the manual entry point.
@@ -27,7 +31,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from .stages import CopyStream, claim_tensors, resolve_device
+from .stages import CopyStream, RowShard, claim_tensors, resolve_device
 from .stats import PipelineStats
 
 __all__ = ["MegaBatch", "DevicePrefetchIter", "device_feed",
@@ -70,12 +74,15 @@ class MegaBatch:
     attribute (``Module.fit``'s superstep loop); ``unstack()`` recovers
     the K per-step DataBatches for the per-batch fallback path."""
 
-    def __init__(self, data, label, k, pad=0, index=None):
+    def __init__(self, data, label, k, pad=0, index=None, rows_cut=None):
         self.data = data
         self.label = label
         self.megabatch = int(k)
         self.pad = pad
         self.index = index
+        # a flag per array (data, then label): holds this rank's rows
+        # only (RowShard.cut of each batch)
+        self.rows_cut = rows_cut
 
     def unstack(self):
         from ..io import DataBatch
@@ -83,10 +90,13 @@ class MegaBatch:
 
         def row(arr, i):
             return NDArray(_tensor(arr)[i])
-        return [DataBatch(data=[row(a, i) for a in self.data],
-                          label=[row(a, i) for a in (self.label or [])],
-                          pad=self.pad, index=None)
-                for i in range(self.megabatch)]
+        out = [DataBatch(data=[row(a, i) for a in self.data],
+                         label=[row(a, i) for a in (self.label or [])],
+                         pad=self.pad, index=None)
+               for i in range(self.megabatch)]
+        for b in out:
+            b.rows_cut = self.rows_cut
+        return out
 
 
 class DevicePrefetchIter:
@@ -107,7 +117,8 @@ class DevicePrefetchIter:
         assert depth >= 1
         self._iter = data_iter
         self._module = module
-        self._device = resolve_device(sharding) \
+        self._device = (sharding if isinstance(sharding, RowShard)
+                        else resolve_device(sharding)) \
             if sharding is not None or module is None else None
         self._depth = depth
         # megabatch=K: assemble K host batches into ONE stacked (K, B,
@@ -234,7 +245,9 @@ class DevicePrefetchIter:
         self._fill()
 
     # -- staging ----------------------------------------------------------
-    def _resolve_device(self, mega: bool = False) -> torch.device:
+    def _resolve_device(self, mega: bool = False):
+        """The device to stage on, or a :class:`RowShard` naming it and
+        this rank's rows."""
         if self._device is not None:
             return self._device
         fused = getattr(self._module, "_fused", None)
@@ -279,6 +292,10 @@ class DevicePrefetchIter:
         dev = self._resolve_device()
         t0 = time.perf_counter()
         arrays = list(batch.data or []) + list(batch.label or [])
+        cut = None
+        if isinstance(dev, RowShard):
+            arrays, cut = dev.cut(arrays)
+            dev = dev.device
         host_bytes = sum(_tensor(a).nbytes for a in arrays
                          if _tensor(a).device != dev)
 
@@ -303,11 +320,12 @@ class DevicePrefetchIter:
         n = staged[0].shape[0] if nd else 0
         self._h2d.add_items(int(n), time.perf_counter() - t0)
         self._h2d.add_bytes(host_bytes)
-        return DataBatch(data=staged[:nd], label=staged[nd:], pad=batch.pad,
-                         index=batch.index,
-                         provide_data=getattr(batch, "provide_data", None),
-                         provide_label=getattr(batch, "provide_label",
-                                               None)), ev
+        out = DataBatch(data=staged[:nd], label=staged[nd:], pad=batch.pad,
+                        index=batch.index,
+                        provide_data=getattr(batch, "provide_data", None),
+                        provide_label=getattr(batch, "provide_label", None))
+        out.rows_cut = cut
+        return out, ev
 
     def _stage_mega(self, group):
         """Stack K host batches into one (K, B, ...) staged copy per
@@ -317,10 +335,16 @@ class DevicePrefetchIter:
         dev = self._resolve_device(mega=True)
         k = len(group)
         t0 = time.perf_counter()
-        cols = [[b.data[i] for b in group]
-                for i in range(len(group[0].data or []))]
-        lcols = [[b.label[i] for b in group]
-                 for i in range(len(group[0].label or []))]
+        nd = len(group[0].data or [])
+        per = [list(b.data or []) + list(b.label or []) for b in group]
+        cut = None
+        if isinstance(dev, RowShard):
+            cuts = [dev.cut(arrs) for arrs in per]
+            per, cut = [c[0] for c in cuts], cuts[0][1]
+            dev = dev.device
+        cols = [[arrs[i] for arrs in per] for i in range(nd)]
+        lcols = [[arrs[i] for arrs in per]
+                 for i in range(nd, len(per[0]))]
         host_bytes = sum(_tensor(a).nbytes for col in cols + lcols
                          for a in col if _tensor(a).device != dev)
 
@@ -334,7 +358,7 @@ class DevicePrefetchIter:
         n = data[0].shape[0] * data[0].shape[1] if data else 0
         self._h2d.add_items(int(n), time.perf_counter() - t0)
         self._h2d.add_bytes(host_bytes)
-        return MegaBatch(data=data, label=label, k=k), ev
+        return MegaBatch(data=data, label=label, k=k, rows_cut=cut), ev
 
 
 def device_feed(data_iter, module=None, sharding=None, depth: int = 2,

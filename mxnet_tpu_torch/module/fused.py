@@ -79,7 +79,13 @@ every rank) each rank feeds its own batch.  The ops see the global
 batch (``OpContext.dp``: BatchNorm's statistics, the loss layers'
 normalizations), the gradients are summed over ``dp`` inside the step
 (one coalesced all-reduce), and under a named mesh the outputs come back
-all-gathered.  ``MXNET_SHARD_WEIGHT_UPDATE=1`` reduce-scatters the
+all-gathered.  The inputs cut on the batch are handed to the graph walk
+as this rank's rows (``eval(rows=)``), so an op that draws (Dropout,
+rrelu, the RNN's inter-layer dropout) draws the global batch's numbers
+and keeps its rows: the ranks draw one device's mask.  Under a named
+mesh ``batched_sharding()`` is a ``feed.RowShard``: the feed stages only
+this rank's rows, and ``make_batch`` takes such a batch as it is.
+``MXNET_SHARD_WEIGHT_UPDATE=1`` reduce-scatters the
 gradients of params whose leading dim the dp size divides, updates this
 rank's rows and their optimizer slots only, and all-gathers the rows.
 The params are broadcast from the axis's rank 0 at ``init_state``.
@@ -89,9 +95,18 @@ group the collectives are issued inside the captured graph
 (``scaleout_check.py nccl`` holds this on four cards).  On a gloo group
 (ranks sharing a card) they are host-staged and cannot be captured, so
 the step runs eagerly on the card (``eager_steps``).
-Under dp > 1 embedding tables train dense (the row-sharded table is
-ROADMAP.md queue 1 item 10c).  A ``_moe_dispatch`` block routes the
-global batch (``moe.router.route(dp=)``).
+A sparse table keeps the lazy row update over ``dp`` (reference
+``fused.py:183-193``): the ranks' ids are all-gathered and the global
+batch deduped alike on every rank (the unique cap resolved against it,
+as on one device), each rank's gradients of the unique rows are summed
+over ``dp``, and every rank applies the same row update, so rows no
+rank's batch touched keep their weights and slots.  A table given the
+spec ``(axis, None)`` is row-sharded (reference ``table.py:79-146``):
+each rank stores its block of ``vocab / n`` rows, with a scratch row of
+its own, and its slots; the unique rows are gathered by their owners
+(zero elsewhere) and summed over the axis, and each owner updates its
+rows only.  A ``_moe_dispatch`` block routes the global batch
+(``moe.router.route(dp=)``).
 
 **sharded state** (reference ``fused.py:141-160, 338-440``): with a
 named mesh, ``sharding=`` merged over the graph's ``__sharding__``
@@ -118,8 +133,8 @@ from torch.profiler import record_function
 
 from ..base import MXNetError, get_env
 from ..checkpoint.snapshot import map_structure
-from ..embed.sparse import (_mask_oov_rows, dedup_ids, map_slots,
-                            resolve_cap, slot_leaves_row_shaped,
+from ..embed.sparse import (_mask_oov_rows, block_rows, dedup_ids,
+                            map_slots, resolve_cap, slot_leaves_row_shaped,
                             sparse_apply_rows)
 from ..executor import _GraphProgram
 from ..ndarray import NDArray
@@ -238,9 +253,20 @@ class FusedTrainStep:
             n: sp for n, sp in find_sparse_embeds(
                 symbol, self.data_names, self.train_names).items()
             if slot_leaves_row_shaped(self._opt_init, sp.vocab, sp.dim)
-            and dp == 1 and n not in self.param_specs}
+            and (n not in self.param_specs
+                 or row_axis(self.param_specs[n]) is not None)}
         # name -> (table storage with its scratch row, its slots)
         self._sparse_store = {}
+        # name -> (the axis owning its row blocks, first row of this
+        # rank's block, block size) of a row-sharded table
+        self._row_blocks = {}
+        # batch key -> names of the inputs holding this rank's rows (and
+        # those of the megabatch being stepped through)
+        self._row_names: Dict[tuple, tuple] = {}
+        self._mega_rows = ()
+        # whether the last batch came from the feed already cut to this
+        # rank's rows (its labels then are this rank's rows only)
+        self.fed_rows = False
         self.embed_stats = None
         if self.sparse_embeds:
             from ..embed.stats import EmbedStats
@@ -297,19 +323,57 @@ class FusedTrainStep:
         b = batch // self.axis.size
         return t.narrow(dim, self.axis.index * b, b)
 
+    def _cut_rows(self, src: Dict[str, torch.Tensor], dim: int,
+                  rows_cut) -> tuple:
+        """Cut ``src`` (in place) to this rank's rows along ``dim``; ->
+        the names of the inputs that hold them.  ``rows_cut``: the flags
+        of a batch the feed already cut (``feed.RowShard``), data then
+        labels.  Under ``dist_sync`` each rank's own batch is its rows:
+        the inputs whose ``dim`` has the first data input's size."""
+        if self.axis is None or self.axis.size < 2:
+            return ()
+        names = [n for n in self.data_names + self.label_names if n in src]
+        if rows_cut is not None:
+            return tuple(n for n, c in zip(names, rows_cut) if c)
+        b = self._batch_of(src, dim)
+        hit = tuple(n for n in names if src[n].dim() > dim
+                    and src[n].shape[dim] == b)
+        if self.slice_batch:
+            for n in hit:
+                src[n] = self._local_rows(src[n], dim, b)
+        return hit
+
+    def global_labels(self, labels):
+        """``labels`` of the last batch as the outputs are: the global
+        batch's (all-gathered over ``dp``, a collective every rank
+        calls) when the feed staged this rank's rows only."""
+        if not self.fed_rows:
+            return labels
+        from ..parallel.data_parallel import gather_outputs
+        ts = [a._get() if isinstance(a, NDArray) else torch.as_tensor(a)
+              for a in labels]
+        return [NDArray(t) for t in gather_outputs(
+            ts, self.axis, int(ts[0].shape[0]) if ts else 0)]
+
     def _batch_of(self, src: Dict[str, torch.Tensor], dim: int) -> int:
         return int(src[self.data_names[0]].shape[dim]) \
             if self.data_names and self.data_names[0] in src else 0
 
-    def batched_sharding(self) -> torch.device:
+    def batched_sharding(self):
         """Where input pipelines stage batches (feed.device_feed,
-        DevicePutStage): the step's device.  ``make_batch`` copies them
+        DevicePutStage): the step's device, or under a named mesh a
+        ``feed.RowShard`` naming it and this rank's rows of ``dp``, so
+        only those rows cross to the card.  ``make_batch`` copies them
         device to device into its static buffers."""
+        if self.slice_batch and self.axis.size > 1:
+            from ..feed.stages import RowShard
+            return RowShard(self.device, self.axis.index, self.axis.size)
         return self.device
 
-    def megabatched_sharding(self) -> torch.device:
-        """Where a K-step megabatch is staged: the step's device."""
-        return self.device
+    def megabatched_sharding(self):
+        """Where a K-step megabatch is staged: as
+        :meth:`batched_sharding` (each of the K batches cut alike)."""
+        return self.batched_sharding()
 
     # -- on-device augmentation ---------------------------------------------
     def set_device_augment(self, spec) -> None:
@@ -325,10 +389,14 @@ class FusedTrainStep:
         self._warm.clear()
         self._metric_graphs.clear()
 
-    def _maybe_augment(self, batch: Dict[str, torch.Tensor], train: bool):
+    def _maybe_augment(self, batch: Dict[str, torch.Tensor], train: bool,
+                       rows=()):
         """The prologue: applies ONLY when the first data input is a 4-D
         uint8 tensor (the compact HWC wire) -- a float32 batch from a
-        host-augmented eval iterator passes through untouched."""
+        host-augmented eval iterator passes through untouched.  On this
+        rank's rows of a batch cut over ``dp`` (``rows``) the global
+        batch's draws are made and this rank's kept, so the ranks crop
+        and flip as one device does."""
         spec = self.device_augment
         if spec is None or not self.data_names:
             return batch
@@ -336,11 +404,16 @@ class FusedTrainStep:
         x = batch.get(name)
         if x is None or x.dtype != torch.uint8 or x.dim() != 4:
             return batch
-        from ..feed.augment import augment_batch
+        from ..feed.augment import augment_batch, draw
         out = dict(batch)
         draws = []
-        out[name] = augment_batch(x, _random.generator(self.device), spec,
-                                  train, out_draws=draws)
+        rng = _random.generator(self.device)
+        if name in rows:
+            n, ax = x.shape[0], self.axis
+            rng = tuple(d.narrow(0, ax.index * n, n)
+                        for d in draw(n * ax.size, spec, train, rng,
+                                      x.device))
+        out[name] = augment_batch(x, rng, spec, train, out_draws=draws)
         if self.augment_probe is not None and not (
                 x.is_cuda and torch.cuda.is_current_stream_capturing()):
             self.augment_probe.append((x.clone(), draws[0], out[name]))
@@ -389,6 +462,7 @@ class FusedTrainStep:
         self._global = {n: tuple(v.shape) for n, v in arg_params.items()}
         self._global.update((n, tuple(v.shape))
                             for n, v in aux_params.items())
+        self._row_blocks = {}
         for n in self.train_names:
             w = put(arg_params[n], n)
             if n not in self.sparse_embeds:
@@ -406,7 +480,12 @@ class FusedTrainStep:
                                         if not isinstance(rows, tuple)
                                         else w.detach()[rows[0]:rows[1]])
                 continue
+            # the rows this rank stores: the whole table, or its block
+            # of a row-sharded one, and one scratch row
             vocab = w.shape[0]
+            if n in self._cuts:
+                ax = self.mesh.axis(self._cuts[n][0][1])
+                self._row_blocks[n] = (ax, ax.index * vocab, vocab)
             store = torch.zeros((vocab + 1,) + tuple(w.shape[1:]),
                                 dtype=w.dtype, device=self.device)
             store[:vocab] = w
@@ -456,11 +535,16 @@ class FusedTrainStep:
                    if n not in src]
         if missing:
             raise MXNetError("the batch lacks inputs %s" % missing)
-        if self.slice_batch:
-            b = self._batch_of(src, 0)
-            src = {n: self._local_rows(t, 0, b) for n, t in src.items()}
-        self._note_ids(src)
+        rows_cut = getattr(data_batch, "rows_cut", None)
+        self.fed_rows = rows_cut is not None
+        if rows_cut is None:
+            # the global batch's ids (one device's statistics)
+            self._note_ids(src)
+        rows = self._cut_rows(src, 0, rows_cut)
+        if rows_cut is not None:
+            self._note_ids(src)
         key = self._key(src)
+        self._row_names[key] = rows
         bufs = self._buffers.get(key)
         if bufs is None:
             bufs = {n: torch.empty(t.shape, dtype=t.dtype,
@@ -514,20 +598,49 @@ class FusedTrainStep:
     def _sparse_prologue(self, args: Dict[str, torch.Tensor]):
         """Put each sparse table's ``(rows, inv)`` in ``args`` in place of
         ``(table, ids)``; -> {name: (uniq, rows)}, the rows being the
-        autograd leaves of the tables."""
+        autograd leaves of the tables.  Over ``dp`` the dedup is the
+        global batch's (the ranks' ids all-gathered, deduped alike on
+        every rank) and ``inv`` this rank's part of it."""
+        from ..parallel.collectives import _gather_raw
         ctx = {}
+        dp = self.axis if self.axis is not None and self.axis.size > 1 \
+            else None
         for n, sp in self.sparse_embeds.items():
             ids = args[sp.ids_name]
-            flat = ids.reshape(-1)
-            cap = resolve_cap(sp.cap, flat.numel(), sp.vocab)
-            uniq, inv = dedup_ids(flat, cap, sp.vocab)
-            store = self._sparse_store[n][0]
-            rows = _mask_oov_rows(store[uniq.long()], uniq, sp.vocab)
+            flat = ids.reshape(-1).to(torch.int32)
+            every = _gather_raw(flat, dp, 0) if dp is not None else flat
+            cap = resolve_cap(sp.cap, every.numel(), sp.vocab)
+            uniq, inv = dedup_ids(every, cap, sp.vocab)
+            if dp is not None:
+                inv = inv.narrow(0, dp.index * flat.numel(), flat.numel())
+            rows = self._table_rows(n, sp, uniq)
             rows.requires_grad_(True)
             args[n] = rows
             args[sp.ids_name] = inv.reshape(ids.shape)
             ctx[n] = (uniq, rows)
         return ctx
+
+    def _owned(self, n: str, uniq: torch.Tensor):
+        """-> (index of each unique id in this rank's storage, owned
+        mask): a row-sharded table's non-owned (and sentinel) ids index
+        its scratch row; a whole table owns every real id."""
+        blk = self._row_blocks.get(n)
+        if blk is None:
+            return uniq.long(), None
+        return block_rows(uniq, blk[1], blk[2])
+
+    def _table_rows(self, n: str, sp, uniq: torch.Tensor) -> torch.Tensor:
+        """The unique rows of table ``n`` (out-of-range ids zero): from
+        this rank's storage, or a row-sharded table's owners' rows summed
+        over its axis (every other rank gives zeros)."""
+        from ..parallel.collectives import all_reduce_
+        store = self._sparse_store[n][0]
+        idx, own = self._owned(n, uniq)
+        rows = _mask_oov_rows(store[idx], uniq, sp.vocab)
+        if own is None:
+            return rows
+        rows = torch.where(own.unsqueeze(-1), rows, torch.zeros_like(rows))
+        return all_reduce_(rows, self._row_blocks[n][0])
 
     def _grad(self, g, like):
         if g is None:
@@ -546,9 +659,10 @@ class FusedTrainStep:
         params = st["params"]
         names = [n for n in params if n not in self.sparse_embeds]
         st["t"].add_(1.0)
+        cut = {k: 0 for k in self._row_names.get(self._key(batch), ())}
         args = dict(params)
         args.update(st["fixed"])
-        args.update(self._maybe_augment(batch, True))
+        args.update(self._maybe_augment(batch, True, cut))
         opctx = OpContext(is_train=True,
                           generator=_random.generator(self.device),
                           dp=self.axis, mesh=self._walk_mesh())
@@ -556,7 +670,8 @@ class FusedTrainStep:
             with record_function("fused:forward"):
                 sparse = self._sparse_prologue(args)
                 outs, new_aux = self._prog.eval(args, st["aux"], opctx,
-                                                shards=self._cuts)
+                                                shards=self._walk_cuts(),
+                                                rows=cut)
             heads = [o for o in outs if o.requires_grad]
             leaves = [params[n] for n in names] \
                 + [rows for _uniq, rows in sparse.values()]
@@ -577,7 +692,12 @@ class FusedTrainStep:
             for (n, (uniq, rows)), g in zip(sparse.items(),
                                             grads[len(names):]):
                 store, slots = self._sparse_store[n]
-                sparse_apply_rows(store, slots, uniq, self._grad(g, rows),
+                g = torch.zeros_like(rows) if g is None else g
+                if self.axis is not None and self.axis.size > 1:
+                    from ..parallel.collectives import all_reduce_
+                    all_reduce_(g, self.axis)
+                idx, _own = self._owned(n, uniq)
+                sparse_apply_rows(store, slots, idx, self._grad(g, rows),
                                   self._opt_update,
                                   st["lr"] * self._lr_mult[n], self._wd[n],
                                   st["t"])
@@ -589,6 +709,12 @@ class FusedTrainStep:
             outs = gather_outputs(outs, self.axis,
                                   self._batch_of(batch, 0))
         return outs
+
+    def _walk_cuts(self) -> Dict[str, list]:
+        """The cuts the graph walk enters: a sparse table's rows reach it
+        whole (the prologue's unique rows)."""
+        return {n: c for n, c in self._cuts.items()
+                if n not in self.sparse_embeds}
 
     def _dp_update(self, names, grads) -> None:
         """The gradients summed over the dp axis (or reduce-scattered
@@ -668,7 +794,7 @@ class FusedTrainStep:
                     t = a._get() if isinstance(a, NDArray) \
                         else torch.as_tensor(a)
                     out[name] = t.to(self.device)
-            out = self._local_mega(out)
+            out = self._local_mega(out, getattr(batches, "rows_cut", None))
             for i in range(k):
                 self._note_ids({n: t[i] for n, t in out.items()})
             return k, out
@@ -690,14 +816,15 @@ class FusedTrainStep:
                                          % name)
                     col.append(arrs[i])
                 out[name] = stack_batch_arrays(col, self.device)
-        return k, self._local_mega(out)
+        return k, self._local_mega(out, getattr(batches[0], "rows_cut",
+                                                None))
 
-    def _local_mega(self, mega: Dict[str, torch.Tensor]):
-        """This rank's rows (dim 1) of a megabatch under a named mesh."""
-        if not self.slice_batch:
-            return mega
-        b = self._batch_of(mega, 1)
-        return {n: self._local_rows(t, 1, b) for n, t in mega.items()}
+    def _local_mega(self, mega: Dict[str, torch.Tensor], rows_cut=None):
+        """This rank's rows (dim 1) of a megabatch under a named mesh
+        (``rows_cut``: the flags of one the feed already cut)."""
+        mega = dict(mega)
+        self._mega_rows = self._cut_rows(mega, 1, rows_cut)
+        return mega
 
     def superstep(self, k: int, mega: Dict[str, torch.Tensor], lrs,
                   reducer=None, acc_tree=None):
@@ -719,6 +846,7 @@ class FusedTrainStep:
                 self._buffers[key] = bufs
             for n, t in src.items():
                 bufs[n].copy_(t)
+            self._row_names[key] = self._mega_rows
             outs = self.step(bufs, lr=lrs[i])
             if reducer is None:
                 continue
@@ -883,6 +1011,14 @@ class FusedTrainStep:
         cuts = self.leaf_cuts(group, name)
         return bool(cuts) and name in self._global and tuple(t.shape) == \
             local_shape(self._global[name], cuts, self.mesh)
+
+
+def row_axis(spec):
+    """The axis of a table spec that cuts its rows only (``(axis,
+    None)``), else None."""
+    from ..parallel.mesh import spec_pairs
+    pairs = spec_pairs(spec, 2)
+    return pairs[0][1] if len(pairs) == 1 and pairs[0][0] == 0 else None
 
 
 def merged_specs(symbol, sharding, mesh, known) -> Dict:

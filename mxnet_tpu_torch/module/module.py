@@ -785,6 +785,16 @@ class Module(BaseModule):
                 self._fused_t += 1
                 self._optimizer.num_update = max(self._optimizer.num_update,
                                                  self._fused_t)
+                if self._fused.axis is not None:
+                    from ..dist import boot
+                    if boot.world_size() > 1:
+                        # the fleet's chaos seam (reference module.py:
+                        # 1040-1051): a rank dying mid-step, targeted per
+                        # rank (points=dist.host@rank1)
+                        from .. import faults
+                        faults.point("dist.host",
+                                     stage="rank%d" % boot.rank(),
+                                     step=self._fused_t)
                 if self._fused_next is not None:
                     # the step ran when its outputs were read: install
                     # its outputs (an eval forward since may have
@@ -845,7 +855,8 @@ class Module(BaseModule):
     def update_metric(self, eval_metric, labels):
         if self._fused is not None and (self._fused_outputs is not None
                                         or self._fused_pending is not None):
-            eval_metric.update(labels, self.get_outputs())
+            eval_metric.update(self._fused.global_labels(labels),
+                               self.get_outputs())
             return
         self._exec_group.update_metric(eval_metric, labels)
 

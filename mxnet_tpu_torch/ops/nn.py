@@ -453,14 +453,21 @@ class DropoutOp(OpDef):
     params = [Param("p", float, default=0.5)]
     needs_rng = True
 
+    def _drop(self, p, x, ctx, cuts):
+        keep = 1.0 - p.p
+        mask = ctx.draw(lambda s: torch.rand(s, generator=ctx.generator,
+                                             device=x.device),
+                        tuple(x.shape), cuts) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
     def forward(self, p, inputs, aux, ctx):
+        """On this rank's rows of a batch cut over ``dp`` the mask of the
+        global batch is drawn and this rank's rows kept, so the ranks
+        together draw one device's mask."""
         x = inputs[0]
         if not ctx.is_train or p.p <= 0.0:
             return [x]
-        keep = 1.0 - p.p
-        mask = torch.rand(x.shape, generator=ctx.generator,
-                          device=x.device) < keep
-        return [torch.where(mask, x / keep, torch.zeros_like(x))]
+        return [self._drop(p, x, ctx, ctx.row_cuts(0))]
 
     def forward_layout(self, p, inputs, layouts, aux, ctx):
         """On a shard: the whole value's mask is drawn (the same numbers
@@ -468,15 +475,8 @@ class DropoutOp(OpDef):
         lay, x = layouts[0], inputs[0]
         if lay is None or lay.partial or not ctx.is_train or p.p <= 0.0:
             return super().forward_layout(p, inputs, layouts, aux, ctx)
-        ax = ctx.axis(lay.axis)
-        shape = list(x.shape)
-        n = shape[lay.dim]
-        shape[lay.dim] *= ax.size
-        keep = 1.0 - p.p
-        mask = torch.rand(shape, generator=ctx.generator,
-                          device=x.device).narrow(lay.dim, ax.index * n, n) \
-            < keep
-        return [torch.where(mask, x / keep, torch.zeros_like(x))], [lay]
+        cuts = ctx.row_cuts(0) + [(lay.dim, ctx.axis(lay.axis))]
+        return [self._drop(p, x, ctx, cuts)], [lay]
 
 
 @register_op("LRN", hint="lrn")
@@ -806,9 +806,11 @@ class LeakyReLUOp(OpDef):
             return [torch.where(x > 0, x, gamma * x)]
         if p.act_type == "rrelu":
             if ctx.is_train:
-                slope = torch.empty(x.shape, dtype=x.dtype,
-                                    device=x.device).uniform_(
-                    p.lower_bound, p.upper_bound, generator=ctx.generator)
+                # one device's slopes over a batch cut over dp
+                slope = ctx.draw(lambda s: torch.empty(
+                    s, dtype=x.dtype, device=x.device).uniform_(
+                    p.lower_bound, p.upper_bound, generator=ctx.generator),
+                    tuple(x.shape), ctx.row_cuts(0))
                 return [torch.where(x > 0, x, slope * x)]
             return [F.leaky_relu(x, (p.lower_bound + p.upper_bound) / 2.0)]
         raise MXNetError("unknown act_type %s" % p.act_type)

@@ -24,6 +24,12 @@ channel dim) runs on the shard it is given.  The rules of
 FullyConnected, ``_fused_FullyConnected``, Convolution, Dropout,
 Flatten, Reshape and ``_moe_expert_ffn`` live with the ops.  Every
 redistribution is counted per op in ``parallel.collectives.STATS``.
+
+Data parallelism: the walk also hands each op which inputs hold this
+rank's rows of a batch cut over ``dp`` (``OpContext.in_rows``; an op's
+``row_dim`` says where its output keeps them).  An op that draws
+(``needs_rng``) draws through ``OpContext.draw``: the global batch's
+numbers, this rank's rows kept, so the ranks draw what one device does.
 """
 from __future__ import annotations
 
@@ -118,10 +124,35 @@ class OpContext:
         self.dp = dp if dp is not None and dp.size > 1 else None
         # the mesh of a sharded walk (None: every value is replicated)
         self.mesh = mesh
+        # per input of the op being run: Layout.shard(dim, "dp") when the
+        # value is this rank's rows of a batch cut over ``dp``, else None
+        # (set by the graph walk before each op)
+        self.in_rows = ()
 
     def axis(self, name: str):
         """This rank's ``collectives.Axis`` of the walk's mesh."""
         return self.mesh.axis(name)
+
+    def row_cuts(self, i: int = 0) -> List[Tuple[int, Any]]:
+        """``[(dim, dp Axis)]`` when input ``i`` holds this rank's rows of
+        a batch cut over ``dp``, else ``[]``."""
+        lay = self.in_rows[i] if i < len(self.in_rows) else None
+        return [] if lay is None or self.dp is None else [(lay.dim, self.dp)]
+
+    def draw(self, fn, shape, cuts=()):
+        """Random numbers for a value of local ``shape`` cut by ``cuts``
+        (``[(dim, Axis)]``), as one device draws them for the whole
+        value: ``fn(whole shape)`` draws the whole (the same numbers on
+        every rank, the generators being in one state) and this rank's
+        part is kept.  Without cuts, ``fn(shape)``."""
+        whole = list(shape)
+        for d, ax in cuts:
+            whole[d] *= ax.size
+        u = fn(tuple(whole))
+        for d, ax in cuts:
+            n = shape[d]
+            u = u.narrow(d, ax.index * n, n)
+        return u
 
 
 def to_replicated(x, lay, ctx: OpContext, op: str):
@@ -234,6 +265,12 @@ class OpDef:
         """Return the list of output tensors, or ``(outputs, new_aux)``
         for a train-mode forward that updates auxiliary states."""
         raise NotImplementedError(self.name)
+
+    def row_dim(self, p, dim: int, ndim: int) -> Optional[int]:
+        """The dim of an output that holds the batch rows ``dim`` of the
+        op's input (``ndim`` the output's rank): the same dim (checked
+        against the output's size by the walk), unless the op moves it."""
+        return dim if dim < ndim else None
 
     def forward_layout(self, p, inputs: List[Any], layouts: List[Any],
                        aux: List[Any], ctx: OpContext):

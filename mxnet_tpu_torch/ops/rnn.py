@@ -139,8 +139,12 @@ class RNNOp(OpDef):
             finals_c.append(c)
             layer_in = torch.stack(outs)
             if dropout and i < L - 1 and ctx.generator is not None:
-                keep = torch.rand(layer_in.shape, generator=ctx.generator,
-                                  device=layer_in.device) < 1.0 - p.p
+                # (T, B, H) holds the data's batch rows where the data
+                # does: one device's mask over a batch cut over dp
+                keep = ctx.draw(
+                    lambda s: torch.rand(s, generator=ctx.generator,
+                                         device=layer_in.device),
+                    tuple(layer_in.shape), ctx.row_cuts(0)) < 1.0 - p.p
                 layer_in = torch.where(keep, layer_in / (1.0 - p.p),
                                        torch.zeros_like(layer_in))
         outputs = [layer_in]

@@ -291,11 +291,13 @@ def _transpose_shape(p, in_shapes):
 
 # materialized, as jnp.transpose is: a permuted view would send the next
 # convolution down another algorithm than a dense input
-register_simple_op(
+_TRANSPOSE = register_simple_op(
     "transpose",
     lambda p, a: a.permute(*_transpose_axes(p, a.dim())).contiguous(),
     nin=1, infer_shape=_transpose_shape,
     params=[Param("axes", "shape", default=())])
+_TRANSPOSE.row_dim = lambda p, dim, ndim: list(
+    _transpose_axes(p, ndim)).index(dim)
 
 
 def _expand_dims_shape(p, in_shapes):
@@ -414,6 +416,8 @@ def _sample_normal(p, generator=None):
     return p.loc + p.scale * z
 
 
+# the samplers take no input: their value is cut over no axis, and every
+# rank draws one device's numbers of the given shape
 for _name, _fn, _params in [
         ("_sample_uniform", _sample_uniform,
          [Param("low", float, default=0.0), Param("high", float, default=1.0)]),
@@ -581,6 +585,9 @@ class SwapAxisOp(OpDef):
 
     def forward(self, p, inputs, aux, ctx):
         return [inputs[0].transpose(p.dim1, p.dim2).contiguous()]
+
+    def row_dim(self, p, dim, ndim):
+        return {p.dim1: p.dim2, p.dim2: p.dim1}.get(dim, dim)
 
 
 @register_op("BlockGrad", hint="blockgrad")

@@ -23,6 +23,11 @@ its ``MoeStats`` (:func:`moe_report`).  Every feed pipeline
 ``PipelineStats`` (:func:`feed_report`), with the per-worker counters
 that ``feed.ParallelReader``'s processes publish through shared memory.
 
+The fault plane's ``FaultStats`` (kind ``plane``), every
+``faults.Supervisor``'s ``SupervisorStats`` (kind ``supervisor``) and
+every ``dist.FleetSupervisor``'s ``FleetStats`` (kind ``fleet``) share
+one registry (:func:`faults_report`): what broke and how it recovered.
+
 The trace timeline, ``scope`` and the other report families wait for
 ROADMAP.md queue 1 item 12.
 """
@@ -37,7 +42,8 @@ __all__ = ["register_serve_stats", "serve_report", "serve_report_str",
            "checkpoint_report", "checkpoint_report_str",
            "register_embed_stats", "embed_report", "embed_report_str",
            "register_moe_stats", "moe_report", "moe_report_str",
-           "register_feed_stats", "feed_report", "feed_report_str"]
+           "register_feed_stats", "feed_report", "feed_report_str",
+           "register_faults_stats", "faults_report", "faults_report_str"]
 
 # register() runs on constructing threads while readers iterate: every
 # reader snapshot-copies under this lock first
@@ -257,3 +263,25 @@ def moe_report() -> dict:
 
 def moe_report_str() -> str:
     return _moe_registry.report_str()
+
+
+# -- fault injection and recovery (mxnet_tpu_torch.faults, dist.fleet) -------
+_faults_registry = _Registry("faults", "(no fault plane or supervisor)")
+
+
+def register_faults_stats(faults_stats) -> None:
+    """Called by ``faults.install`` (the plane's stats) and by
+    ``faults.Supervisor`` / ``dist.FleetSupervisor`` on construction."""
+    _faults_registry.register(faults_stats)
+
+
+def faults_report() -> dict:
+    """Per-component fault counters: the plane row (injections by kind
+    and point, the attempt) and one row per supervisor or fleet
+    (attempts, restarts, recovery_s, backoff waits)."""
+    return _faults_registry.report()
+
+
+def faults_report_str() -> str:
+    """The fault-injection and recovery table as text."""
+    return _faults_registry.report_str()

@@ -205,8 +205,12 @@ def test_slot_leaves_row_shaped_and_refusals():
     with pytest.raises(MXNetError, match="fused"):
         embed.EmbeddingTable(VOCAB, DIM, ctx=mx.cpu(),
                              optimizer=mx.optimizer.SGLD())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        embed.EmbeddingTable(VOCAB, DIM, mesh="dp=2", ctx=mx.cpu())
+    # a mesh of one rank holds the whole table; the port cuts rows only
+    one = embed.EmbeddingTable(VOCAB, DIM, mesh="dp=1", ctx=mx.cpu())
+    assert tuple(one.rows.shape) == (VOCAB, DIM)
+    with pytest.raises(MXNetError, match="rows over one mesh axis"):
+        embed.EmbeddingTable(VOCAB, DIM, mesh="dp=1", spec=(None, "dp"),
+                             ctx=mx.cpu())
 
 
 def test_table_lookup_combiners_accumulate_and_cap_guard(monkeypatch):
@@ -729,3 +733,193 @@ def test_fused_sparse_speculation_discard_and_commit():
     for k, v in plain.get_params()[0].items():
         np.testing.assert_array_equal(spec.get_params()[0][k].asnumpy(),
                                       v.asnumpy(), err_msg=k)
+
+
+# -- over a dp axis and row-sharded (ranks: test_torch_multichip.py) ---------
+#
+# The port's side runs in W gloo ranks (``dist.spawn.run_ranks`` with
+# ``test_torch_multichip.embed_rank``), each fed the global batch, W = 2
+# and 4; the JAX side is the package's one-device run, which its own
+# ``tests/test_embed.py:210-238, 328-337`` holds equal to its sharded one.
+
+MULTICHIP = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "test_torch_multichip.py")
+MESH_RTOL, MESH_ATOL = 2e-5, 1e-6          # tests/test_embed.py:335
+_JAX_MESH = {}
+
+
+@pytest.fixture(scope="module")
+def emb_dir(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("embed_mesh"))
+
+
+@pytest.fixture(scope="module")
+def emb2(emb_dir):
+    from mxnet_tpu_torch.dist.spawn import run_ranks
+    return run_ranks(MULTICHIP + ":embed_rank", 2, args=(2, emb_dir),
+                     timeout=120)
+
+
+@pytest.fixture(scope="module")
+def emb4(emb_dir):
+    from mxnet_tpu_torch.dist.spawn import run_ranks
+    return run_ranks(MULTICHIP + ":embed_rank", 4, args=(4, emb_dir),
+                     timeout=120)
+
+
+@pytest.fixture
+def emb(request, emb2, emb4):
+    return {2: emb2, 4: emb4}[request.param]
+
+
+def _mc():
+    from mxnet_tpu_torch.dist.spawn import load_target
+    return load_target(MULTICHIP + ":rec_fit").__globals__
+
+
+def _jax_rec_fit():
+    if "fit" not in _JAX_MESH:
+        _JAX_MESH["fit"] = _mc()["rec_fit"](jmx)[1]
+    return _JAX_MESH["fit"]
+
+
+def _mesh_close(got, want, what):
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=MESH_RTOL,
+                                   atol=MESH_ATOL, err_msg="%s %s"
+                                   % (what, k))
+
+
+@pytest.mark.parametrize("emb", [2, 4], indirect=True)
+def test_fused_sparse_over_dp_is_one_devices_lazy_fit(emb):
+    """The repair: fit(mesh="dp=W") keeps the table on the lazy row
+    update (the global batch's dedup, its row gradients summed over dp),
+    and every rank's params equal the JAX package's one-device lazy fit
+    at the reference's own tolerance.  The dense training the parent
+    gave over dp differed by 4.5e-3 in the table."""
+    want = _jax_rec_fit()
+    for rank in emb:
+        assert rank["dp_sparse"] == ["embed_weight"]
+        _mesh_close(rank["dp"], want, "dp")
+
+
+@pytest.mark.parametrize("emb", [2, 4], indirect=True)
+def test_fused_row_sharded_table_is_one_devices_fit(emb):
+    """sharding={"embed_weight": ("dp", None)}: each rank stores vocab/W
+    rows, still on the lazy update, and the fit equals one device's; at
+    W = 4 also on a dp=2 x tp=2 mesh (reference test_embed.py:328)."""
+    want = _jax_rec_fit()
+    W = len(emb)
+    for rank in emb:
+        assert rank["rows_sparse"] == ["embed_weight"]
+        assert rank["rows_shape"] == (48 // W, DIM)
+        _mesh_close(rank["rows"], want, "rows")
+        if W == 4:
+            _mesh_close(rank["rows_dptp"], want, "rows dp x tp")
+
+
+@pytest.mark.parametrize("emb", [2, 4], indirect=True)
+def test_row_sharded_save_restores_onto_other_mesh_and_one_process(emb):
+    """Each rank writes its rows; the step restores bitwise onto another
+    layout (dp=2 x tp=2 from dp=4, the replicated table from dp=2) and
+    into one process (reference test_embed.py:517)."""
+    saved = emb[0]["ck_saved"]
+    for rank in emb:
+        for k in saved:
+            np.testing.assert_array_equal(rank["ck_saved"][k], saved[k])
+            np.testing.assert_array_equal(rank["ck_other_mesh"][k],
+                                          saved[k], err_msg=k)
+    with mx.cpu():
+        _, one = _mc()["rec_fit"](mx, num_epoch=1,
+                                  checkpoint=emb[0]["ck_dir"], resume=True)
+    for k in saved:
+        np.testing.assert_array_equal(one[k], saved[k], err_msg=k)
+
+
+def _jax_table_run(W):
+    if ("table", W) in _JAX_MESH:
+        return _JAX_MESH[("table", W)]
+    table, ids, g = _mc()["table_inputs"](W)
+    sgd = dict(learning_rate=0.1, momentum=0.9)
+    t = jembed.EmbeddingTable(VOCAB, DIM, initializer=table,
+                              optimizer=jmx.optimizer.SGD(**sgd))
+    out = {"lookup": np.asarray(t.lookup(ids)),
+           "mean": np.asarray(t.lookup(ids, combiner="mean"))}
+    for k in range(2):
+        t.update(ids, g[k])
+    out["updated"], out["slots"] = t.as_numpy(), np.asarray(t.slots)
+    acc = jembed.EmbeddingTable(VOCAB, DIM, initializer=table)
+    acc.accumulate(ids, g[0])
+    out["accumulated"] = acc.as_numpy()
+    kv = jmx.kvstore.create("device_embed")
+    kv.init("table", jmx.nd.array(table), sparse=True)
+    kv.set_optimizer(jmx.optimizer.SGD(**sgd))
+    kv.push("table", (ids.reshape(-1), g[0].reshape(-1, DIM)))
+    pulled = jmx.nd.zeros((ids.size, DIM))
+    kv.row_sparse_pull("table", out=pulled, row_ids=ids.reshape(-1))
+    full = jmx.nd.zeros((VOCAB, DIM))
+    kv.pull("table", out=full)
+    out["kv"] = (pulled.asnumpy(), full.asnumpy())
+    _JAX_MESH[("table", W)] = out
+    return out
+
+
+@pytest.mark.parametrize("emb", [2, 4], indirect=True)
+def test_row_sharded_table_is_one_devices_table(emb):
+    """EmbeddingTable(mesh=, spec="dp"): each rank holds vocab/W rows and
+    passes its own ids; lookups (out-of-range ids included) equal one
+    device's over the ranks' ids concatenated, bitwise, and two momentum
+    updates and an accumulate equal it within the table tolerance; the
+    whole state restores onto a dp x tp mesh cut over tp."""
+    W = len(emb)
+    want = _jax_table_run(W)
+    np.testing.assert_array_equal(
+        np.concatenate([r["table"]["lookup"] for r in emb]), want["lookup"])
+    np.testing.assert_array_equal(
+        np.concatenate([r["table"]["mean"] for r in emb]), want["mean"])
+    for rank in emb:
+        t = rank["table"]
+        assert t["block"] == (VOCAB // W, DIM)
+        assert t["other_block"] == (VOCAB // 2, DIM)
+        for key in ("updated", "other", "accumulated"):
+            np.testing.assert_allclose(t[key], want[key] if key != "other"
+                                       else want["updated"], rtol=RTOL,
+                                       atol=RTOL, err_msg=key)
+        np.testing.assert_allclose(t["state"]["slots"], want["slots"],
+                                   rtol=RTOL, atol=RTOL)
+        assert t["state"]["t"] == 2
+
+
+@pytest.mark.parametrize("emb", [2, 4], indirect=True)
+def test_device_embed_with_mesh_is_one_devices_store(emb):
+    """kvstore.create("device_embed", mesh=, spec=): each rank pushes
+    and pulls its own ids; the pushes are summed as one device's store
+    applies the whole batch."""
+    W = len(emb)
+    jp, jf = _jax_table_run(W)["kv"]
+    np.testing.assert_array_equal(
+        np.concatenate([r["table"]["kv"][0] for r in emb]), jp)
+    for rank in emb:
+        pulled, full, block = rank["table"]["kv"]
+        assert block == (VOCAB // W, DIM)
+        np.testing.assert_allclose(full, jf, rtol=RTOL, atol=RTOL)
+
+
+@pytest.mark.parametrize("emb", [2, 4], indirect=True)
+def test_row_sharded_table_refusals_match_reference(emb):
+    """The reference's refusals (test_embed.py:242-248): a vocab the axis
+    does not divide, and spec= without mesh=."""
+    from jax.sharding import Mesh
+    import jax
+    for rank in emb:
+        ref = rank["table"]["refusals"]
+        assert "divisible" in ref["divisible"]
+        assert ref["no mesh"] == "EmbeddingTable spec= without mesh="
+    with pytest.raises(jmx.base.MXNetError, match="divisible"):
+        jembed.EmbeddingTable(VOCAB + 1, DIM, mesh=Mesh(
+            np.array(jax.devices()[:2]), ("dp",)), spec="dp")
+    with pytest.raises(jmx.base.MXNetError,
+                       match="EmbeddingTable spec= without mesh="):
+        jembed.EmbeddingTable(VOCAB, DIM, spec="dp")
+    with pytest.raises(MXNetError, match="EmbeddingTable spec= without"):
+        embed.EmbeddingTable(VOCAB, DIM, spec="dp", ctx=mx.cpu())

@@ -865,3 +865,92 @@ def test_ids_pipeline_fit_equals_host_batches(tmp_path):
     table = res["feed"]["embed_weight"]
     assert np.array_equal(table[unnamed], w0[unnamed])
     assert not np.array_equal(table[named], w0[named])
+
+
+# -- a rank stages only its rows under a mesh --------------------------------
+
+MULTICHIP = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "test_torch_multichip.py")
+
+
+@pytest.fixture(scope="module")
+def feed_ranks():
+    """test_torch_multichip.feed_rank on two gloo ranks (dp=2)."""
+    from mxnet_tpu_torch.dist.spawn import run_ranks
+    return run_ranks(MULTICHIP + ":feed_rank", 2, args=(2,), timeout=120)
+
+
+def _feed_fit(*a, **kw):
+    from mxnet_tpu_torch.dist.spawn import load_target
+    return load_target(MULTICHIP + ":_feed_fit")(*a, **kw)
+
+
+def _same(a, b, what):
+    for k in b:
+        np.testing.assert_array_equal(a[k], b[k], err_msg="%s %s"
+                                      % (what, k))
+
+
+def test_mesh_feed_stages_a_ranks_rows(feed_ranks):
+    """Under dp=2 the step's batched_sharding() is a RowShard: the h2d
+    stage copies half the global batch's bytes a rank, the prefetcher
+    stages half the rows (batches and megabatches), and make_batch takes
+    the cut batches as they are."""
+    _, whole_bytes, _ = _feed_fit(None, False, pipeline="stage")
+    _, _, one_rows = _feed_fit(None, True)
+    assert whole_bytes == 4 * (16 * 6 * 4 + 16 * 4)
+    for rank in feed_ranks:
+        assert rank["stage"][1] * 2 == whole_bytes
+        assert rank["prefetch"][2] * 2 == one_rows
+        assert rank["mega"][2] * 2 == one_rows
+
+
+def test_mesh_feed_trajectory_is_the_unsharded_feeds(feed_ranks):
+    """The trajectory is bitwise the one of the feed that hands every
+    rank the global batch: fit with and without prefetch_to_device, K=2
+    megabatches with and without, and batches cut by the h2d stage
+    against the same batches whole; both ranks hold one state."""
+    for rank in feed_ranks:
+        _same(rank["prefetch"][0], rank["plain"][0], "prefetch")
+        _same(rank["mega"][0], rank["mega_plain"][0], "megabatch")
+        _same(rank["stage"][0], rank["whole"][0], "h2d stage")
+    _same(feed_ranks[0]["prefetch"][0], feed_ranks[1]["prefetch"][0],
+          "ranks")
+
+
+def test_row_shard_cuts_the_batch_rows_only():
+    """RowShard.cut keeps a rank's rows of the arrays with the batch's
+    size and passes the others whole; an indivisible batch is refused
+    with make_batch's message."""
+    shard = feed.RowShard(mx.cpu(), 1, 2)
+    x, y, z = np.arange(24).reshape(8, 3), np.arange(8), np.arange(5)
+    (cx, cy, cz), flags = shard.cut([x, y, z])
+    assert flags == (True, True, False)
+    np.testing.assert_array_equal(cx, x[4:])
+    np.testing.assert_array_equal(cy, y[4:])
+    assert cz is z
+    assert feed.resolve_device(shard) == torch.device("cpu")
+    with pytest.raises(mx.base.MXNetError, match="not divisible"):
+        feed.RowShard(mx.cpu(), 0, 3).cut([x])
+
+
+def test_mesh_augmentation_draws_one_devices_crops(feed_ranks):
+    """The augmentation prologue on a batch cut over dp=2 draws the
+    global batch's crops and flips and keeps this rank's rows: the
+    ranks' draws are one device's, and so is the trajectory (1e-6)."""
+    one, want = _augment_one()
+    assert len(want) == 8
+    for r, rank in enumerate(feed_ranks):
+        params, draws = rank["augment"]
+        assert len(draws) == 8
+        for got, full in zip(draws, want):
+            for g, f in zip(got, full):
+                np.testing.assert_array_equal(g, f[r * 8:(r + 1) * 8])
+        for k in one:
+            np.testing.assert_allclose(params[k], one[k], rtol=0, atol=1e-6,
+                                       err_msg=k)
+
+
+def _augment_one():
+    from mxnet_tpu_torch.dist.spawn import load_target
+    return load_target(MULTICHIP + ":augment_fit")()

@@ -240,6 +240,8 @@ def rank_suite(W, tmp):
     out["nobias_stats"] = {k: dict(v) for k, v in C.STATS["by_op"].items()}
     out["dropout"] = dropout_fit(mesh, TP_SPECS)
     out["dropout_dp"] = dropout_fit(mesh)
+    if W == 2:
+        out["dropout_dp2"] = dropout_fit("dp=2")
     out["int8"] = int8_row(tmx.parallel.make_mesh("tp=%d" % W))
     C.reset_stats()
     mod, out["tp"] = _port_fit(mesh, TP_SPECS)
@@ -526,14 +528,16 @@ def test_row_parallel_without_bias_hands_on_a_partial_sum(port):
 def test_dropout_on_a_cut_value_draws_one_devices_mask(port):
     """Dropout between a column- and a row-parallel FC keeps the cut and
     draws the whole mask: the run equals the same mesh's run without
-    specs, and at dp=1 the port's one-rank run (1e-6; the row-parallel FC
-    sums its partial products in another order).  Over dp each rank
-    draws the mask of its own rows, as PR 15's data parallelism does."""
+    specs, and the port's one-rank run (1e-6; the row-parallel FC sums
+    its partial products in another order).  Over dp each rank draws its
+    rows of the global batch's mask, so dp=2 (with tp=2 or alone) equals
+    one device too."""
     one = dropout_fit()
     for rank in port:
         _close(rank["dropout"], rank["dropout_dp"], 1e-6, "dropout tp")
-        if len(port) == 2:
-            _close(rank["dropout"], one, 1e-6, "dropout tp vs one rank")
+        _close(rank["dropout"], one, 1e-6, "dropout vs one rank")
+        if "dropout_dp2" in rank:
+            _close(rank["dropout_dp2"], one, 1e-6, "dropout dp=2 vs one")
 
 
 @pytest.mark.parametrize("port", [2, 4], indirect=True)
@@ -762,3 +766,256 @@ def ckpt_restore_rank(store):
         return ({k: v.asnumpy() for k, v in mod.get_params()[0].items()},
                 tuple(mod._fused.state["params"]["fc1_weight"].shape),
                 mod._fused_t)
+
+
+# -- embeddings over dp (test_torch_embed.py holds these to the JAX package) --
+
+EMB_V, EMB_D = 48, 8
+EMB_OPT = {"learning_rate": 0.5, "momentum": 0.9}
+
+
+def rec_symbol(mx):
+    """``tests/test_embed.py``'s rec model: ids -> Embedding -> two FCs."""
+    ids = mx.sym.Variable("ids")
+    net = mx.sym.Embedding(ids, weight=mx.sym.Variable("embed_weight"),
+                           input_dim=EMB_V, output_dim=EMB_D, name="embed")
+    net = mx.sym.FullyConnected(mx.sym.Flatten(net), num_hidden=16,
+                                name="fc1")
+    net = mx.sym.Activation(net, act_type="relu")
+    return mx.sym.SoftmaxOutput(
+        mx.sym.FullyConnected(net, num_hidden=2, name="fc2"),
+        name="softmax")
+
+
+def rec_params():
+    rng = np.random.RandomState(4)
+    return {"embed_weight":
+            (rng.randn(EMB_V, EMB_D) * 0.5).astype(np.float32),
+            "fc1_weight": (rng.randn(16, 4 * EMB_D) * 0.3).astype(np.float32),
+            "fc1_bias": np.zeros(16, np.float32),
+            "fc2_weight": (rng.randn(2, 16) * 0.3).astype(np.float32),
+            "fc2_bias": np.zeros(2, np.float32)}
+
+
+def rec_ids(n=64):
+    return np.random.RandomState(0).randint(
+        0, EMB_V, size=(n, 4)).astype(np.int32).astype(np.float32)
+
+
+def rec_fit(mx, mesh=None, sharding=None, num_epoch=3, **kw):
+    """The rec model's fit from ``rec_params`` (batch 16, lr 0.5,
+    momentum 0.9), every rank fed the global batch; -> (module, host
+    params)."""
+    mx.random.seed(5)
+    X = rec_ids()
+    y = (np.abs(X).sum(axis=1) % 2).astype(np.float32)
+    it = mx.io.NDArrayIter(X, y, batch_size=16, data_name="ids")
+    ctx = mx.cpu(0)
+    mod = mx.mod.Module(rec_symbol(mx), data_names=("ids",), context=ctx)
+    mod.fit(it, num_epoch=num_epoch, optimizer_params=dict(EMB_OPT),
+            arg_params={k: mx.nd.array(v, ctx=ctx)
+                        for k, v in rec_params().items()},
+            mesh=mesh, sharding=sharding, **kw)
+    return mod, {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+def table_inputs(W):
+    """Global ids (out-of-range ones included), two steps' gradients and
+    the table's init, and this rank's rows of the ids; shared with the
+    JAX side."""
+    rng = np.random.RandomState(4)
+    table = rng.randn(EMB_V, EMB_D).astype(np.float32)
+    ids = rng.randint(0, EMB_V, size=(8, 4))
+    ids[0, 3], ids[5, 1], ids[6, 0] = -1, EMB_V, EMB_V + 9
+    g = rng.randn(2, 8, 4, EMB_D).astype(np.float32)
+    return table, ids, g
+
+
+def _table_rank(W):
+    from mxnet_tpu_torch import embed
+    from mxnet_tpu_torch.dist import boot
+    from mxnet_tpu_torch.parallel import make_mesh
+    table, ids, g = table_inputs(W)
+    r, n = boot.rank(), 8 // W
+    mine = slice(r * n, (r + 1) * n)
+    mesh = make_mesh("dp=%d" % W)
+
+    def sgd():
+        return tmx.optimizer.SGD(learning_rate=0.1, momentum=0.9)
+    out = {}
+    t = embed.EmbeddingTable(EMB_V, EMB_D, mesh=mesh, spec="dp",
+                             initializer=table, optimizer=sgd())
+    out["block"] = tuple(t.rows.shape)
+    out["lookup"] = t.lookup(ids[mine]).numpy()
+    out["mean"] = t.lookup(ids[mine], combiner="mean").numpy()
+    for k in range(2):
+        t.update(ids[mine], g[k][mine])
+    out["updated"] = t.as_numpy()
+    st = t.state()
+    out["state"] = {"rows": st["rows"], "slots": st["slots"],
+                    "t": int(st["t"])}
+    # onto another mesh: the rows cut over tp of a dp x tp mesh
+    other = embed.EmbeddingTable(
+        EMB_V, EMB_D, mesh=make_mesh("dp=%d,tp=2" % (W // 2)), spec="tp",
+        optimizer=sgd())
+    other.restore(st)
+    out["other_block"] = tuple(other.rows.shape)
+    out["other"] = other.as_numpy()
+    acc = embed.EmbeddingTable(EMB_V, EMB_D, mesh=mesh, initializer=table)
+    acc.accumulate(ids[mine], g[0][mine])
+    out["accumulated"] = acc.as_numpy()
+    kv = tmx.kvstore.create("device_embed", mesh=mesh, spec="dp")
+    kv.init("table", tmx.nd.array(table), sparse=True)
+    kv.set_optimizer(sgd())
+    kv.push("table", (ids[mine].reshape(-1), g[0][mine].reshape(-1, EMB_D)))
+    pulled = tmx.nd.zeros((n * 4, EMB_D))
+    kv.row_sparse_pull("table", out=pulled, row_ids=ids[mine].reshape(-1))
+    full = tmx.nd.zeros((EMB_V, EMB_D))
+    kv.pull("table", out=full)
+    out["kv"] = (pulled.asnumpy(), full.asnumpy(),
+                 tuple(kv.table("table").rows.shape))
+    refusals = {}
+    for what, kw in (("divisible", dict(vocab=EMB_V + 1, mesh=mesh,
+                                        spec="dp")),
+                     ("no mesh", dict(vocab=EMB_V, spec="dp"))):
+        try:
+            embed.EmbeddingTable(kw.pop("vocab"), EMB_D, **kw)
+        except TError as e:
+            refusals[what] = str(e)
+    out["refusals"] = refusals
+    return out
+
+
+def embed_rank(W, tmp):
+    """Every port-side embedding result at world size W."""
+    from mxnet_tpu_torch.parallel import PartitionSpec as P
+    rows = {"embed_weight": P("dp", None)}
+    out = {}
+    with tmx.cpu():
+        mod, out["dp"] = rec_fit(tmx, "dp=%d" % W)
+        out["dp_sparse"] = sorted(mod._fused.sparse_embeds)
+        mod, out["rows"] = rec_fit(tmx, "dp=%d" % W, rows)
+        out["rows_sparse"] = sorted(mod._fused.sparse_embeds)
+        out["rows_shape"] = tuple(
+            mod._fused.state["params"]["embed_weight"].shape)
+        if W == 4:
+            _, out["rows_dptp"] = rec_fit(tmx, "dp=2,tp=2", rows)
+        ck = os.path.join(tmp, "emb%d" % W)
+        _, out["ck_saved"] = rec_fit(tmx, "dp=%d" % W, rows, num_epoch=1,
+                                     checkpoint=ck)
+        # onto dp x tp (W = 4) or the replicated table (W = 2)
+        _, out["ck_other_mesh"] = rec_fit(
+            tmx, "dp=2,tp=2" if W == 4 else "dp=2",
+            rows if W == 4 else None, num_epoch=1, checkpoint=ck,
+            resume=True)
+        out["ck_dir"] = ck
+        out["table"] = _table_rank(W)
+    return out
+
+
+# -- the feed under a mesh (test_torch_feed.py holds these) -------------------
+
+def _feed_fit(mesh, prefetch, superstep=None, pipeline=None):
+    """The MLP from ``params0`` over ``mesh`` (None: one rank), fed the
+    global batch of 16 by ``fit`` over an ``NDArrayIter``, or one epoch
+    by hand (``pipeline``): each batch through a ``DevicePutStage`` onto
+    the step's ``batched_sharding()`` (``"stage"``) or as it comes
+    (``"whole"``); -> (host params, bytes (the stage) or rows (the
+    prefetcher) the feed staged, the prefetcher's batches)."""
+    seen = []
+    with tmx.cpu():
+        it = data(tmx)
+        mod = tmx.mod.Module(mlp(tmx), context=tmx.cpu(0))
+        wrap = mod.prefetch_to_device
+
+        def keep(*a, **kw):
+            seen.append(wrap(*a, **kw))
+            return seen[-1]
+        mod.prefetch_to_device = keep
+        if pipeline:
+            from mxnet_tpu_torch import feed
+            mod.bind(it.provide_data, it.provide_label)
+            mod.init_params(arg_params={
+                k: tmx.nd.array(v, ctx=tmx.cpu())
+                for k, v in params0().items()})
+            mod.set_mesh(mesh)
+            mod.init_optimizer(optimizer_params=dict(OPT))
+            stage = feed.DevicePutStage(
+                lambda: mod._fused.batched_sharding())
+            stage.stats = feed.PipelineStats("rows").stage("h2d")
+            staged = []
+            for b in it:
+                if pipeline == "whole":
+                    staged.append(b)
+                    continue
+                out = stage.process((b.data[0].asnumpy(),
+                                     b.label[0].asnumpy(), 0))
+                db = tmx.io.DataBatch([tmx.nd.NDArray(out[0])],
+                                      [tmx.nd.NDArray(out[1])], pad=0)
+                db.rows_cut = out.rows_cut
+                staged.append(db)
+            for db in staged:
+                mod.forward_backward(db)
+                mod.update()
+            nbytes = stage.stats.snapshot().get("bytes", 0)
+            return ({k: v.asnumpy() for k, v in
+                     mod.get_params()[0].items()}, nbytes, len(staged))
+        mod.fit(it, num_epoch=2, optimizer_params=dict(OPT), mesh=mesh,
+                prefetch_to_device=prefetch, superstep=superstep,
+                arg_params={k: tmx.nd.array(v, ctx=tmx.cpu())
+                            for k, v in params0().items()})
+        params = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    h2d = seen[0].stats.report()["h2d"] if seen else {}
+    return params, h2d.get("bytes", 0), h2d.get("items", 0)
+
+
+def feed_rank(W):
+    """Every port-side feed result at world size W (``dp=W``)."""
+    mesh = "dp=%d" % W
+    return {"plain": _feed_fit(mesh, False),
+            "prefetch": _feed_fit(mesh, True),
+            "mega_plain": _feed_fit(mesh, False, superstep=2),
+            "mega": _feed_fit(mesh, True, superstep=2),
+            "stage": _feed_fit(mesh, False, pipeline="stage"),
+            "whole": _feed_fit(mesh, False, pipeline="whole"),
+            "augment": augment_fit(mesh)}
+
+
+def augment_fit(mesh=None):
+    """Eight steps of a small net on uint8 HWC batches of 16 through the
+    fused step's augmentation prologue (random crop and mirror), every
+    rank fed the global batch; -> (host params, the draws of each step:
+    this rank's rows)."""
+    from mxnet_tpu_torch import feed
+    from mxnet_tpu_torch.io import DataBatch
+    spec = feed.AugmentSpec((3, 4, 4), (6, 6, 3), rand_crop=True,
+                            rand_mirror=True, mean_rgb=(120, 110, 100),
+                            scale=1 / 64.0)
+    rng = np.random.RandomState(2)
+    X = rng.randint(0, 256, (128, 6, 6, 3)).astype(np.uint8)
+    y = (X.reshape(128, -1).mean(axis=1) > 127.5).astype(np.float32)
+    net = tmx.sym.SoftmaxOutput(tmx.sym.FullyConnected(
+        tmx.sym.Flatten(tmx.sym.Variable("data")), num_hidden=2,
+        name="fc"), name="softmax")
+    w0 = {"fc_weight": (rng.randn(2, 48) * 0.1).astype(np.float32),
+          "fc_bias": np.zeros(2, np.float32)}
+    with tmx.cpu():
+        tmx.random.seed(9)
+        mod = tmx.mod.Module(net, context=tmx.cpu(0))
+        mod.set_mesh(mesh)
+        mod.bind([("data", (16, 3, 4, 4))], [("softmax_label", (16,))])
+        mod.init_params(arg_params={k: tmx.nd.array(v, ctx=tmx.cpu())
+                                    for k, v in w0.items()})
+        mod.init_optimizer(optimizer_params=dict(OPT))
+        mod._fused.set_device_augment(spec)
+        mod._fused.augment_probe = []
+        for i in range(0, 128, 16):
+            import torch
+            mod.forward_backward(DataBatch(
+                [tmx.nd.NDArray(torch.from_numpy(X[i:i + 16].copy()))],
+                [tmx.nd.NDArray(torch.from_numpy(y[i:i + 16].copy()))]))
+            mod.update()
+        draws = [tuple(t.numpy() for t in d)
+                 for _x, d, _o in mod._fused.augment_probe]
+        return ({k: v.asnumpy() for k, v in mod.get_params()[0].items()},
+                draws)
