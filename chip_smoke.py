@@ -283,6 +283,28 @@ Phases, in order; any failure exits nonzero:
    prefetch_to_device=True)``: each rank copies half the global batch's
    bytes, bitwise the run whose ``make_batch`` cuts the global batch;
    the ``scale-out rest result`` line;
+24. compile and tuning (``cold-start``, ``tuning``, ``resnet`` lines):
+   (a) three fresh processes serve a small MLP through the fused
+   ``fused_fc_epilogue`` over one ``MXNET_COMPILE_CACHE`` directory made
+   at run time: nvcc runs once in the first, zero times in the second,
+   and once in a third that meets a planted truncated entry (warned,
+   rebuilt, the same answers); each one's wall to its first answer and
+   the store's entries and bytes; (b) ``search_fc`` at VGG-16's fc6 and
+   fc7 at bucket 8 and ``search_paged`` at GPT-2 small's class (bt 16,
+   D 64, causal, 16 slots, C 1): every candidate's gate and time, the
+   winner against the default, a second search a store hit with zero
+   calls; under MXNET_KERNEL_SEARCH=1 the winners launch, phase 6's
+   layout gates and phase 7's paged == dense-stripe streams hold; (c)
+   ``tune_superstep`` and ``tune_fit_joint`` on phase 18's PTB LSTM at
+   batch 32 leave the train state bitwise, ``fit(autotune=True)`` and
+   ``("joint")`` load the winners, tokens/s against K=1; (d) ResNet-50
+   at batch 128 under deterministic cuDNN: the first step's wall with
+   and without ``prepare()``, 0 captures in the loop after it, the state
+   after it bitwise, the step time and peak memory with
+   ``MXNET_BACKWARD_DO_MIRROR=1`` against without (its first step within
+   relative L2 1e-5), and eight small modules prepared by eight threads
+   bitwise those prepared by one; the compile report; the ``compile and
+   tuning result`` line;
    then the whole script's wall, the ``kernels`` JSON line (all four
    kernels), then the ``{"ok": true, ...}`` line.
 """
@@ -1347,6 +1369,48 @@ def paged_time_case(torch, dev, c):
     return paged_case(torch, dev, 30 + c, PAGED_SPREAD, c, blocks=1100)
 
 
+def paged_layout_checks(torch, ck, dev, spread=PAGED_SPREAD):
+    """Bitwise layout invariance on the card: the same logical cache as
+    stripes and scattered gives identical floats; two calls give
+    identical floats.  At the path's shape for each C, and at C = 1 for
+    the decode kernel's other head-dim buckets.  Phase 6 runs it with the
+    default partitions, phase 24 with the searched winner loaded."""
+    layouts = [(c, spread, {}) for c in (1, 9, 32)] + [
+        (1, spread, dict(h=4, d=128)), (1, spread, dict(h=6, d=32)),
+        (1, np.minimum(spread, 512), dict(h=3, d=10, b=32))]
+    for c, lens, kw in layouts:
+        dense = paged_case(torch, dev, 21, lens, c, scatter=False, **kw)
+        nb = dense["k_pool"].shape[0] - 1          # the sentinel block last
+        perm = torch.randperm(nb, generator=torch.Generator().manual_seed(
+            c)).to(dev)
+        moved = dict(dense)
+        moved["k_pool"] = dense["k_pool"].clone()
+        moved["v_pool"] = dense["v_pool"].clone()
+        moved["k_pool"][perm] = dense["k_pool"][:nb]
+        moved["v_pool"][perm] = dense["v_pool"][:nb]
+        pages = dense["pages"].long()
+        moved["pages"] = torch.where(pages < nb,
+                                     perm[pages.clamp(max=nb - 1)],
+                                     pages).to(torch.int32).contiguous()
+        a = ck.paged_attention(*paged_args(dense))
+        b = ck.paged_attention(*paged_args(moved))
+        a2 = ck.paged_attention(*paged_args(dense))
+        torch.cuda.synchronize()
+        same = bool(torch.equal(a, b))
+        again = bool(torch.equal(a, a2))
+        d = dense["q"].shape[3]
+        print("kernel check paged layout-invariance C=%d D=%d: stripes and "
+              "scattered bitwise equal=%s; two calls bitwise equal=%s"
+              % (c, d, same, again))
+        if not same:
+            fail("paged_attention output depends on the page layout "
+                 "(C=%d D=%d, max diff %.3g)"
+                 % (c, d, (a - b).abs().max().item()))
+        if not again:
+            fail("paged_attention is not bitwise repeatable (C=%d D=%d)"
+                 % (c, d))
+
+
 def paged_kernel_phase(torch, ck):
     dev = torch.device("cuda", 0)
     # Tolerance: the kernel walks keys in chunks with an online softmax
@@ -1417,44 +1481,7 @@ def paged_kernel_phase(torch, ck):
         if main:
             main_err = max(main_err, err)
 
-    # bitwise layout invariance on the card: the same logical cache as
-    # stripes and scattered gives identical floats; two calls give
-    # identical floats.  At the path's shape for each C, and at C = 1 for
-    # the decode kernel's other head-dim buckets
-    layouts = [(c, spread, {}) for c in (1, 9, 32)] + [
-        (1, spread, dict(h=4, d=128)), (1, spread, dict(h=6, d=32)),
-        (1, np.minimum(spread, 512), dict(h=3, d=10, b=32))]
-    for c, lens, kw in layouts:
-        dense = paged_case(torch, dev, 21, lens, c, scatter=False, **kw)
-        nb = dense["k_pool"].shape[0] - 1          # the sentinel block last
-        perm = torch.randperm(nb, generator=torch.Generator().manual_seed(
-            c)).to(dev)
-        moved = dict(dense)
-        moved["k_pool"] = dense["k_pool"].clone()
-        moved["v_pool"] = dense["v_pool"].clone()
-        moved["k_pool"][perm] = dense["k_pool"][:nb]
-        moved["v_pool"][perm] = dense["v_pool"][:nb]
-        pages = dense["pages"].long()
-        moved["pages"] = torch.where(pages < nb,
-                                     perm[pages.clamp(max=nb - 1)],
-                                     pages).to(torch.int32).contiguous()
-        a = ck.paged_attention(*paged_args(dense))
-        b = ck.paged_attention(*paged_args(moved))
-        a2 = ck.paged_attention(*paged_args(dense))
-        torch.cuda.synchronize()
-        same = bool(torch.equal(a, b))
-        again = bool(torch.equal(a, a2))
-        d = dense["q"].shape[3]
-        print("kernel check paged layout-invariance C=%d D=%d: stripes and "
-              "scattered bitwise equal=%s; two calls bitwise equal=%s"
-              % (c, d, same, again))
-        if not same:
-            fail("paged_attention output depends on the page layout "
-                 "(C=%d D=%d, max diff %.3g)"
-                 % (c, d, (a - b).abs().max().item()))
-        if not again:
-            fail("paged_attention is not bitwise repeatable (C=%d D=%d)"
-                 % (c, d))
+    paged_layout_checks(torch, ck, dev)
 
     flush = torch.zeros(256 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
     rows = []
@@ -1974,7 +2001,8 @@ def flash_search_phase(torch, mt, ck, trials=2):
         fail("second search was not a store hit with zero gate, featurize "
              "and measure calls: %s, %d launches" % (second,
                                                      after2 - after1))
-    runs = (1 + trials) * ks.FLASH_MEASURE_REPS
+    # a measured candidate: one launch off the clock, then trials x reps
+    runs = 1 + trials * ks.FLASH_MEASURE_REPS
     want = first["calls"]["gate"] + first["calls"]["measure"] * runs
     if after1 != want:
         fail("search launched the kernel %d times, want %d gates + %d "
@@ -8406,6 +8434,630 @@ def p23_body(torch, mt, ck, smi, root, tmp, procs):
             "feed": cut, "drop_err": drop_err, "rec_worst": rec_worst}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: compile and tuning
+#
+# (a) cold start: three fresh processes serve a small MLP whose fc1 runs
+#     fused_fc_epilogue, over one MXNET_COMPILE_CACHE directory made here:
+#     the first builds the library (one nvcc), the second loads it (zero),
+#     the third meets a truncated entry planted in a copy of the store,
+#     warns, rebuilds and answers the same;
+# (b) search_fc at VGG-16's fc6 and fc7 at bucket 8 and search_paged at
+#     GPT-2 small's class (bt 16, D 64, causal; 16 slots, C 1), every
+#     candidate gated and measured, a second search a store hit, then the
+#     winners at call time under MXNET_KERNEL_SEARCH=1 with phase 6's
+#     layout gates and phase 7's paged == dense-stripe streams;
+# (c) fit(autotune=True) and ("joint") on phase 18's PTB LSTM at batch 32:
+#     the tuners leave the train state bitwise, the K chosen and the
+#     tokens/s of the winner and of K=1;
+# (d) ResNet-50 at batch 128: the first step's wall with and without
+#     prepare(), captures in the loop after prepare() (0), the state after
+#     prepare() bitwise, the step time and peak memory under
+#     MXNET_BACKWARD_DO_MIRROR=1 against without, its first step within
+#     P24_REMAT_REL_L2; eight small modules prepared by eight threads
+#     against one thread, bitwise.
+
+P24_MLP = (64, 256, 10)                 # the cold children's MLP widths
+P24_FC = {"fc6": (8, 25088, 4096), "fc7": (8, 4096, 4096)}
+P24_PAGED = dict(s=16, c=1, h=12, d=64, n_blocks=16 * 64 + 1, bt=16)
+P24_LM_STREAMS, P24_LM_NEW = 8, 16
+P24_RESNET_STEPS = 6
+# ResNet-50's first step with the forward rematerialized against without,
+# both under deterministic cuDNN: the same kernels on the same inputs
+P24_REMAT_REL_L2 = 1e-5
+P24_THREADS = 8
+
+
+def cold_child(store):
+    """``chip_smoke.py --cold-child``: serve a first answer from the MLP
+    through ServeEngine(fuse=True) on gpu(0) with the compile cache at
+    MXNET_COMPILE_CACHE; print one JSON line."""
+    t0 = time.perf_counter()
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    d_in, hid, out = P24_MLP
+    sym = mt.sym.Variable("data")
+    sym = mt.sym.FullyConnected(sym, num_hidden=hid, name="fc1")
+    sym = mt.sym.Activation(sym, act_type="relu", name="relu1")
+    sym = mt.sym.FullyConnected(sym, num_hidden=out, name="fc2")
+    sym = mt.sym.SoftmaxOutput(sym, name="softmax")
+    rng = np.random.RandomState(24)
+    params = {"fc1_weight": rng.randn(hid, d_in) * 0.1,
+              "fc1_bias": rng.randn(hid) * 0.1,
+              "fc2_weight": rng.randn(out, hid) * 0.1,
+              "fc2_bias": rng.randn(out) * 0.1}
+    params = {k: mt.nd.array(v.astype(np.float32), ctx=mt.cpu())
+              for k, v in params.items()}
+    x = rng.randn(d_in).astype(np.float32)
+    eng = mt.serve.ServeEngine(sym, params, {"data": (1, d_in),
+                                             "softmax_label": (1,)},
+                               batch_buckets=(1, 2), fuse=True)
+    try:
+        ans = eng.predict(x, timeout=300)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    finally:
+        eng.close()
+    rep = mt.profiler.compile_report()
+    print("COLD " + json.dumps({
+        "wall_s": wall, "nvcc_runs": ck.NVCC_RUNS,
+        "nvcc_s": ck.BUILD_WALLS.get("fused_fc_epilogue"),
+        "answer": [float(v) for v in np.asarray(ans).ravel()],
+        "fc_launches": ck.LAUNCHES["fused_fc_epilogue"],
+        "kernel": rep["per_program"].get("kernel:fused_fc_epilogue"),
+        "cache": rep.get("cache")}))
+
+
+def cold_run(root, store, label):
+    env = dict(os.environ, MXNET_COMPILE_CACHE=store, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, os.path.join(
+        root, "chip_smoke.py"), "--cold-child", store], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, t0, label
+
+
+def cold_wait(run):
+    proc, t0, label = run
+    out, err = proc.communicate(timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or "COLD " not in out:
+        fail("cold child %s exited %d: %s" % (label, proc.returncode,
+                                               err[-3000:]))
+    res = json.loads(out.split("COLD ", 1)[1].splitlines()[0])
+    res["process_s"] = wall
+    res["warned"] = "unreadable" in err
+    return res
+
+
+def cold_start(root, tmp, smi):
+    """(a): -> the three children's results."""
+    from mxnet_tpu_torch.compile_cache.store import CacheStore
+    store = os.path.join(tmp, "cc")
+    first = cold_wait(cold_run(root, store, "first"))
+    st = CacheStore(store, 2048)
+    entries, nbytes = st.entry_count(), st.disk_bytes()
+    # a copy of the store with the library's blob cut in half
+    import shutil
+    bad = os.path.join(tmp, "cc-truncated")
+    shutil.copytree(store, bad)
+    exes = [n for n in os.listdir(bad) if n.endswith(".exe")]
+    for n in exes:
+        path = os.path.join(bad, n)
+        with open(path, "r+b") as f:
+            f.truncate(os.path.getsize(path) // 2)
+    second, third = (cold_wait(r) for r in (
+        cold_run(root, store, "second"), cold_run(root, bad, "truncated")))
+    for label, r in (("first", first), ("second", second),
+                     ("truncated", third)):
+        print("cold-start (a) %-9s wall to first answer %.2f s (process "
+              "%.2f s), nvcc invocations %d (library %s), fc launches %d, "
+              "warned %s; store %s" % (
+                  label, r["wall_s"], r["process_s"], r["nvcc_runs"],
+                  "%.2f s nvcc" % r["nvcc_s"] if r["nvcc_s"] else
+                  "from the store", r["fc_launches"], r["warned"],
+                  json.dumps(r["cache"])))
+    print("cold-start (a): store after the first child: %d entries, %d "
+          "bytes (%d library blobs); card %s" % (entries, nbytes, len(exes),
+                                                  smi))
+    if first["nvcc_runs"] != 1 or second["nvcc_runs"] != 0:
+        fail("cold start: nvcc ran %d and %d times in the first and second "
+             "child, want 1 and 0" % (first["nvcc_runs"],
+                                      second["nvcc_runs"]))
+    if third["nvcc_runs"] != 1 or not third["warned"]:
+        fail("cold start: the truncated entry was not warned about and "
+             "rebuilt (nvcc %d, warned %s)" % (third["nvcc_runs"],
+                                               third["warned"]))
+    if not (first["answer"] == second["answer"] == third["answer"]) or \
+            min(r["fc_launches"] for r in (first, second, third)) < 1:
+        fail("cold start: answers differ or fc kernel not launched")
+    return {"children": [first, second, third], "entries": entries,
+            "bytes": nbytes,
+            "fc_launches": sum(r["fc_launches"]
+                               for r in (first, second, third))}
+
+
+def search_report(mt, label, cls):
+    r = mt.autotune.recent_stats()[-1].report()
+    for cfg, cost in r["trials"]:
+        print("tuning (b) %s candidate %-40s gate %s, %s" % (
+            label, json.dumps({k: v for k, v in sorted(cfg.items())
+                               if k not in ("_feat", "est_s", "parity",
+                                            "shortlisted")}),
+            "failed" if cfg.get("parity") is False else "passed",
+            "%.6f ms" % (cost * 1e3) if cost > 0 else "not measured"))
+    return r
+
+
+def searches(torch, mt, ck, smi):
+    """(b): -> the winners, their times and the call-time launches."""
+    ks = mt.autotune.kernelsearch
+    dev = torch.device("cuda", 0)
+    out = {"winners": {}, "launches": {}}
+    fails0 = ks.parity_fail_total()
+    for name, (m, k, n) in P24_FC.items():
+        t0 = time.perf_counter()
+        win = ks.search_fc(m, k, n, act_type="relu",
+                           shortlist=len(ck.FC_TILES))
+        wall = time.perf_counter() - t0
+        r = search_report(mt, name, None)
+        costs = {c["block_n"]: s for c, s in r["trials"] if s > 0}
+        win2 = ks.search_fc(m, k, n, act_type="relu",
+                            shortlist=len(ck.FC_TILES))
+        r2 = mt.autotune.recent_stats()[-1].report()
+        print("tuning (b) search_fc %s (M %d, K %d, N %d, relu, float32) in "
+              "%.2f s: winner %s at %.4f ms against the default tile %d at "
+              "%.4f ms; second search %s with calls %s; card %s" % (
+                  name, m, k, n, wall, win, costs[win["block_n"]] * 1e3,
+                  ck.FC_DEFAULT_TILE, costs[ck.FC_DEFAULT_TILE] * 1e3,
+                  r2["source"], r2["calls"], smi))
+        if r2["source"] != "cache" or any(r2["calls"].values()) or \
+                win2 != win or len(costs) != len(ck.FC_TILES):
+            fail("search_fc %s: second search not a store hit, or a "
+                 "candidate unmeasured: %s" % (name, r2))
+        out["winners"][name] = dict(win, ms=costs[win["block_n"]] * 1e3,
+                                    times_ms={b: c * 1e3 for b, c in
+                                              costs.items()})
+    p = P24_PAGED
+    t0 = time.perf_counter()
+    win = ks.search_paged(p["s"], p["c"], p["h"], p["d"],
+                          n_blocks=p["n_blocks"], bt=p["bt"], causal=True,
+                          shortlist=len(ck.PAGED_PART_KEYS))
+    wall = time.perf_counter() - t0
+    r = search_report(mt, "paged", None)
+    costs = {c["part_keys"]: s for c, s in r["trials"] if s > 0}
+    win2 = ks.search_paged(p["s"], p["c"], p["h"], p["d"],
+                           n_blocks=p["n_blocks"], bt=p["bt"], causal=True)
+    r2 = mt.autotune.recent_stats()[-1].report()
+    print("tuning (b) search_paged (S %d, C %d, H %d, D %d, bt %d, causal) "
+          "in %.2f s: winner %s at %.4f ms against the default %d keys at "
+          "%.4f ms; second search %s with calls %s" % (
+              p["s"], p["c"], p["h"], p["d"], p["bt"], wall, win,
+              costs[win["part_keys"]] * 1e3, ck.PAGED_PARTITION_KEYS,
+              costs[ck.PAGED_PARTITION_KEYS] * 1e3, r2["source"],
+              r2["calls"]))
+    if r2["source"] != "cache" or any(r2["calls"].values()) or \
+            win2 != win or len(costs) != len(ck.PAGED_PART_KEYS):
+        fail("search_paged: second search not a store hit, or a candidate "
+             "unmeasured: %s" % r2)
+    out["winners"]["paged"] = dict(win, ms=costs[win["part_keys"]] * 1e3,
+                                   times_ms=costs and {
+                                       pk: c * 1e3 for pk, c in
+                                       costs.items()})
+    if ks.parity_fail_total() != fails0:
+        fail("a candidate failed its gate")
+
+    out["tile_ms"] = tile_times(torch, ck, smi)
+    tm, pw = out["tile_ms"], win["part_keys"]
+    print("tuning (b) the winners at the kernel rows' clock (time_ms): fc6 "
+          "+ fc7 %.4f ms at fc6's block_n %d, %.4f at fc7's %d, %.4f at the "
+          "default %d; paged C=1 %.4f ms at part_keys %d against %.4f at "
+          "the default %d" % (
+              tm["fc"][out["winners"]["fc6"]["block_n"]],
+              out["winners"]["fc6"]["block_n"],
+              tm["fc"][out["winners"]["fc7"]["block_n"]],
+              out["winners"]["fc7"]["block_n"],
+              tm["fc"][ck.FC_DEFAULT_TILE], ck.FC_DEFAULT_TILE,
+              tm["paged"]["C1/%d" % pw], pw,
+              tm["paged"]["C1/%d" % ck.PAGED_PARTITION_KEYS],
+              ck.PAGED_PARTITION_KEYS))
+
+    # call time: the winners launch
+    os.environ["MXNET_KERNEL_SEARCH"] = "1"
+    ks._best_cache.clear()
+    ck.reset_launches()
+    gen = torch.Generator(device=dev).manual_seed(24)
+    for name, (m, k, n) in P24_FC.items():
+        x = torch.randn((m, k), generator=gen, device=dev)
+        w = torch.randn((n, k), generator=gen, device=dev) * 0.01
+        b = torch.randn((n,), generator=gen, device=dev)
+        tile = ck.fc_tile(x, w, "relu", False)
+        y = ck.fused_fc_epilogue(x, w, b, "relu")
+        y0 = ck.fused_fc_epilogue(x, w, b, "relu",
+                                  block_n=ck.FC_DEFAULT_TILE)
+        torch.cuda.synchronize()
+        print("tuning (b) %s at call time: block_n %d (winner %d), output "
+              "bitwise equal to the default tile's %s" % (
+                  name, tile, out["winners"][name]["block_n"],
+                  torch.equal(y, y0)))
+        if tile != out["winners"][name]["block_n"] or not torch.equal(y, y0):
+            fail("%s: the winner was not resolved or changed the output"
+                 % name)
+    cap = (p["n_blocks"] - 1) // p["s"] * p["bt"]
+    pk = ck.paged_part_keys(p["bt"], p["d"], True, torch.float32, cap, dev)
+    if pk != win["part_keys"]:
+        fail("paged: call time resolved %d, the winner is %d"
+             % (pk, win["part_keys"]))
+    print("tuning (b) paged at call time: part_keys %d (0: one pass); "
+          "phase 6's layout gates with the winner loaded:" % pk)
+    paged_layout_checks(torch, ck, dev)
+    lm_streams_with_winner(torch, ck)
+    out["launches"] = dict(ck.LAUNCHES)
+    print("tuning (b) launches under MXNET_KERNEL_SEARCH=1: %s"
+          % json.dumps(out["launches"]))
+    return out
+
+
+def tile_times(torch, ck, smi):
+    """Every candidate timed as phase 3 and phase 6 time the kernels
+    (``time_ms``: CUDA events, L2 flushed): fc6 + fc7 of one bucket-8
+    batch per block_n, and the C = 1 and C = 9 time cases per partition
+    length."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    flush = torch.zeros(256 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    fcs = []
+    for k in (25088, 4096):
+        x = (torch.rand((8, k), generator=gen, device=dev) * 2 - 1)
+        w = (torch.rand((4096, k), generator=gen, device=dev) * 2 - 1) / \
+            math.sqrt(k)
+        b = (torch.rand((4096,), generator=gen, device=dev) * 2 - 1) * 0.1
+        fcs.append((x, w, b))
+    out = {"fc": {}, "paged": {}}
+    for bn in ck.FC_TILES:
+        out["fc"][bn] = time_ms(torch, lambda: [ck.fused_fc_epilogue(
+            x, w, b, "relu", block_n=bn) for x, w, b in fcs], flush)
+    for c in (1, 9):
+        case = paged_time_case(torch, dev, c)
+        for pk in ck.PAGED_PART_KEYS:
+            out["paged"]["C%d/%d" % (c, pk)] = time_ms(
+                torch, lambda: ck.paged_attention(*paged_args(case),
+                                                  part_keys=pk), flush)
+        del case
+    del flush
+    print("tuning (b) kernel time fc6 + fc7 (bucket 8) by block_n, ms: %s; "
+          "paged_attention at phase 6's C=1 and C=9 cases by part_keys (0: "
+          "one pass), ms: %s; card %s" % (
+              json.dumps({str(k): round(v, 4) for k, v in
+                          out["fc"].items()}),
+              json.dumps({k: round(v, 4) for k, v in out["paged"].items()}),
+              smi))
+    return out
+
+
+def lm_streams_with_winner(torch, ck):
+    """Phase 7's gate, paged streams bitwise the dense-stripe streams, at
+    P24_LM_STREAMS streams of P24_LM_NEW tokens, one client submitting."""
+    from mxnet_tpu_torch.serve import (LMConfig, PagedDecodeEngine,
+                                       init_lm_params)
+    cfg = LMConfig(**LM_GEOMETRY)
+    params = init_lm_params(cfg, seed=0, scale=0.005)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, size=LM_PROMPT_LENS[i]).astype(
+        np.int64) for i in range(P24_LM_STREAMS)]
+    streams = {}
+    for label, kw in (("paged", dict(num_blocks=LM_POOL_BLOCKS)),
+                      ("dense", dict(paged=False))):
+        eng = PagedDecodeEngine(params, cfg, num_slots=LM_SLOTS,
+                                block_tokens=LM_BLOCK_TOKENS,
+                                max_new_tokens=P24_LM_NEW,
+                                chunk_tokens=LM_CHUNK, name="p24-" + label,
+                                **kw)
+        try:
+            futs = [eng.submit(pr, max_new_tokens=P24_LM_NEW)
+                    for pr in prompts]
+            streams[label] = [f.result(timeout=300) for f in futs]
+        finally:
+            eng.close()
+        del eng
+        torch.cuda.empty_cache()
+    same = all(np.array_equal(a, b) for a, b in zip(streams["paged"],
+                                                    streams["dense"]))
+    print("tuning (b) llm: %d paged streams of %d tokens equal the "
+          "dense-stripe streams bitwise %s" % (P24_LM_STREAMS, P24_LM_NEW,
+                                              same))
+    if not same:
+        fail("with the paged winner loaded the paged streams differ from "
+             "the dense-stripe streams")
+
+
+def state_digest(torch, fused):
+    """The train state as host arrays (params, fixed, aux, optimizer
+    slots, t) and the card generator's state."""
+    from mxnet_tpu_torch.module.fused import flatten_tensors
+    out = {}
+    for g in ("params", "fixed", "aux", "opt"):
+        for n, v in fused.state[g].items():
+            for i, t in enumerate(flatten_tensors(v)):
+                if isinstance(t, torch.Tensor):
+                    out["%s/%s/%d" % (g, n, i)] = t.detach().cpu().numpy()
+    out["t"] = fused.state["t"].cpu().numpy()
+    out["rng"] = torch.cuda.get_rng_state().numpy()
+    return out
+
+
+def fit_tuning(torch, mt, smi):
+    """(c): the tuners on the PTB LSTM at batch 32 leave the state
+    bitwise; fit(autotune=...) loads the winners; tokens/s of the winner
+    and of K=1."""
+    arg0 = lstm_params(mt, LSTM_HIDDEN, 30)
+    rng = np.random.default_rng(31)
+    batches = [token_batch(mt, rng, mt.cpu(), SUPER_BATCH, LSTM_SEQ,
+                           LSTM_HIDDEN) for _ in range(SUPER_BATCHES)]
+    states = lstm_states(SUPER_BATCH, LSTM_HIDDEN)
+    pd = [("data", (SUPER_BATCH, LSTM_SEQ))] + states
+    pl = [("softmax_label", (SUPER_BATCH, LSTM_SEQ))]
+    sym = mt.models.lstm_unroll(LSTM_LAYERS, LSTM_SEQ, LSTM_VOCAB,
+                                LSTM_HIDDEN, LSTM_HIDDEN, LSTM_VOCAB)
+    tokens = SUPER_BATCHES * SUPER_BATCH * LSTM_SEQ
+
+    def module():
+        mt.random.seed(5)
+        mod = mt.mod.Module(sym, data_names=["data"] + [n for n, _ in
+                                                        states],
+                            label_names=["softmax_label"], context=mt.gpu(0))
+        mod.bind(pd, pl)
+        mod.init_params(arg_params=arg0, aux_params={})
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params=dict(LSTM_OPT))
+        return mod
+
+    def fit(mod, **kw):
+        metric = time_major_ce(mt)
+        marks = []
+
+        def epoch_end(epoch, s, a, x):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        mod.fit(batch_iter(mt, batches, pd, pl), num_epoch=2,
+                eval_metric=metric, optimizer="sgd",
+                optimizer_params=dict(LSTM_OPT), epoch_end_callback=epoch_end,
+                **kw)
+        return tokens / (marks[1] - marks[0])
+
+    out = {}
+    for mode, tune in (("measure", mt.autotune.tune_superstep),
+                       ("joint", mt.autotune.tune_fit_joint)):
+        mod = module()
+        before = state_digest(torch, mod._fused)
+        t0 = time.perf_counter()
+        cfg = tune(mod, viable=lambda k, _m=mod: _m._superstep_blockers(
+            time_major_ce(mt), k))
+        wall = time.perf_counter() - t0
+        after = state_digest(torch, mod._fused)
+        same = bitwise(before, after)
+        r = mt.autotune.recent_stats()[-1].report()
+        k = cfg if isinstance(cfg, int) else cfg["superstep"]
+        print("tuning (c) %s: %s chose %s in %.2f s (%d measured); state "
+              "after tuning bitwise the state before %s" % (
+                  mode, r["tuner"], cfg, wall, r["calls"]["measure"]
+                  if mode == "joint" else len(r["trials"]), same))
+        for c, cost in r["trials"]:
+            if cost > 0:
+                print("tuning (c) %s   %-50s %.4f ms a step" % (
+                    mode, json.dumps({a: v for a, v in sorted(c.items())
+                                      if a not in ("_feat", "est_s")}),
+                    cost * 1e3))
+        if not same:
+            fail("tuning (%s) changed the train state" % mode)
+        del mod
+        mod = module()
+        rate = fit(mod, autotune=True if mode == "measure" else "joint")
+        r2 = mt.autotune.recent_stats()[-1].report()
+        if r2["source"] != "cache":
+            fail("fit(autotune=%s) did not load the stored winner" % mode)
+        out[mode] = {"k": k, "tokens_s": rate, "cfg": cfg,
+                     "remat": bool(mod._fused._remat)}
+        del mod
+    rate1 = fit(module(), superstep=1)
+    print("tuning (c) fit tokens/s (2nd epoch): autotune=True K=%d %.1f, "
+          "autotune=\"joint\" K=%d (remat %s) %.1f, K=1 %.1f; card %s" % (
+              out["measure"]["k"], out["measure"]["tokens_s"],
+              out["joint"]["k"], out["joint"]["remat"],
+              out["joint"]["tokens_s"], rate1, smi))
+    out["k1_tokens_s"] = rate1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def resnet_prepare_remat(torch, mt, smi):
+    """(d): -> walls, captures, step times and peaks."""
+    sym, arg0, aux0, batches, pd, pl = resnet_setup(mt, 2, 24)
+    staged = [mt.io.DataBatch(
+        data=[mt.nd.array(b.data[0].asnumpy(), ctx=mt.gpu(0))],
+        label=[mt.nd.array(b.label[0].asnumpy(), ctx=mt.gpu(0))])
+        for b in batches]
+
+    def module():
+        mod = mt.mod.Module(sym, context=mt.gpu(0))
+        mod.bind(pd, pl)
+        mod.init_params(arg_params=arg0, aux_params=aux0)
+        mod.init_optimizer(optimizer="sgd", optimizer_params=dict(TRAIN_OPT))
+        return mod
+
+    def step(mod, b):
+        mod.forward(b, is_train=True)
+        mod.update()
+
+    def run(remat=False, prepare=False):
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if remat:
+            os.environ["MXNET_BACKWARD_DO_MIRROR"] = "1"
+        try:
+            mod = module()
+        finally:
+            os.environ.pop("MXNET_BACKWARD_DO_MIRROR", None)
+        res = {"remat": bool(mod._fused._remat)}
+        if prepare:
+            before = state_digest(torch, mod._fused)
+            t0 = time.perf_counter()
+            mod.prepare()
+            torch.cuda.synchronize()
+            res["prepare_s"] = time.perf_counter() - t0
+            res["prepare_bitwise"] = bitwise(before,
+                                             state_digest(torch, mod._fused))
+        captures0 = mod._fused.stats.captures
+        t0 = time.perf_counter()
+        step(mod, staged[0])
+        torch.cuda.synchronize()
+        res["first_step_s"] = time.perf_counter() - t0
+        res["after_first"] = host_params(mod)
+        for i in range(1, P24_RESNET_STEPS):
+            step(mod, staged[i % 2])
+        torch.cuda.synchronize()
+        res["captures_in_loop"] = mod._fused.stats.captures - captures0
+        t0 = time.perf_counter()
+        for i in range(4):
+            step(mod, staged[i % 2])
+        torch.cuda.synchronize()
+        res["step_ms"] = (time.perf_counter() - t0) * 1e3 / 4
+        res["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        res["stats"] = mod._fused.stats.report()
+        del mod
+        return res
+
+    cudnn = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = run()
+        prepared = run(prepare=True)
+        remat = run(remat=True)
+    finally:
+        torch.backends.cudnn.deterministic = cudnn
+    d = rel_l2(remat["after_first"], plain["after_first"])
+    same_first = rel_l2(prepared["after_first"], plain["after_first"])
+    print("resnet (d) first step wall: without prepare() %.3f s (an eager "
+          "warm-up step), after prepare() %.3f s (a replay; prepare took "
+          "%.2f s and left the state bitwise %s); captures inside the loop "
+          "after prepare() %d; its first step against the plain run's: "
+          "relative L2 %.3g" % (
+              plain["first_step_s"], prepared["first_step_s"],
+              prepared["prepare_s"], prepared["prepare_bitwise"],
+              prepared["captures_in_loop"], same_first))
+    print("resnet (d) MXNET_BACKWARD_DO_MIRROR=1 (the whole loss under "
+          "torch.utils.checkpoint): step %.2f ms against %.2f ms, peak "
+          "memory allocated %.1f MB against %.1f MB (module, warm-up, "
+          "capture and %d steps, deterministic cuDNN); first step's params "
+          "and aux against the plain run's: relative L2 %.3g (gate %g); "
+          "graph stats %s; card %s" % (
+              remat["step_ms"], plain["step_ms"],
+              remat["peak_bytes"] / 2 ** 20, plain["peak_bytes"] / 2 ** 20,
+              P24_RESNET_STEPS + 4, d, P24_REMAT_REL_L2,
+              json.dumps(remat["stats"]), smi))
+    if prepared["captures_in_loop"] != 0 or not prepared["prepare_bitwise"]:
+        fail("prepare(): %d captures in the loop, state bitwise %s"
+             % (prepared["captures_in_loop"], prepared["prepare_bitwise"]))
+    if not remat["remat"] or not d <= P24_REMAT_REL_L2:
+        fail("remat: on %s, first step relative L2 %.3g > %g"
+             % (remat["remat"], d, P24_REMAT_REL_L2))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"plain": plain, "prepared": prepared, "remat": remat,
+            "remat_rel_l2": d}
+
+
+def threaded_prepares(torch, mt):
+    """(d'): eight small fused modules prepared by eight warm-up threads
+    (their captures serialized by the device's capture lock) against the
+    same prepared by one thread: two steps each, params bitwise."""
+    from mxnet_tpu_torch.compile_cache import parallel_warm
+    sym = mt.sym.Variable("data")
+    sym = mt.sym.FullyConnected(sym, num_hidden=256, name="fc1")
+    sym = mt.sym.Activation(sym, act_type="relu", name="relu1")
+    sym = mt.sym.FullyConnected(sym, num_hidden=10, name="fc2")
+    sym = mt.sym.SoftmaxOutput(sym, name="softmax")
+    rng = np.random.RandomState(8)
+    x = mt.nd.array(rng.randn(32, 64).astype(np.float32), ctx=mt.cpu())
+    y = mt.nd.array(rng.randint(0, 10, 32).astype(np.float32), ctx=mt.cpu())
+    batch = mt.io.DataBatch(data=[x], label=[y])
+
+    def modules(threads):
+        mods = []
+        for i in range(P24_THREADS):
+            mod = mt.mod.Module(sym, context=mt.gpu(0))
+            mod.bind([("data", (32, 64))], [("softmax_label", (32,))])
+            args = {"fc1_weight": rng_for(i).randn(256, 64) * 0.1,
+                    "fc1_bias": np.zeros(256), "fc2_weight":
+                    rng_for(i).randn(10, 256) * 0.1, "fc2_bias": np.zeros(10)}
+            mod.init_params(arg_params={
+                k: mt.nd.array(v.astype(np.float32), ctx=mt.cpu())
+                for k, v in args.items()}, aux_params={})
+            mod.init_optimizer(optimizer_params={"learning_rate": 0.1})
+            mods.append(mod)
+        t0 = time.perf_counter()
+        parallel_warm([("module %d" % i, m.prepare)
+                       for i, m in enumerate(mods)], threads=threads)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for m in mods:
+            for _ in range(2):
+                m.forward(batch, is_train=True)
+                m.update()
+        return [host_params(m) for m in mods], wall, \
+            sum(m._fused.stats.captures for m in mods)
+
+    def rng_for(i):
+        return np.random.RandomState(100 + i)
+    many, wall8, caps8 = modules(P24_THREADS)
+    one, wall1, caps1 = modules(1)
+    same = all(bitwise(a[0], b[0]) for a, b in zip(many, one))
+    print("resnet (d') %d small modules prepared by %d threads in %.2f s "
+          "(%d captures) against one thread in %.2f s (%d captures): params "
+          "after two steps each bitwise %s" % (
+              P24_THREADS, P24_THREADS, wall8, caps8, wall1, caps1, same))
+    if not same or caps8 != P24_THREADS or caps1 != P24_THREADS:
+        fail("threaded prepare differs from one thread's")
+
+
+def p24_phase(torch, mt, ck, smi, root):
+    """Phase 24; -> what main() reports."""
+    t_phase = time.perf_counter()
+    print("phase 24: compile and tuning (compile_cache, prepare, "
+          "rematerialization, autotune, the fc and paged searches)")
+    saved = {k: os.environ.get(k) for k in ("MXNET_AUTOTUNE_DIR",
+                                            "MXNET_KERNEL_SEARCH",
+                                            "MXNET_COMPILE_CACHE")}
+    tmpdir = tempfile.TemporaryDirectory()
+    try:
+        os.environ["MXNET_AUTOTUNE_DIR"] = os.path.join(tmpdir.name, "at")
+        os.environ.pop("MXNET_KERNEL_SEARCH", None)
+        out = {"cold": cold_start(root, tmpdir.name, smi)}
+        out["search"] = searches(torch, mt, ck, smi)
+        os.environ.pop("MXNET_KERNEL_SEARCH", None)
+        mt.autotune.kernelsearch._best_cache.clear()
+        out["fit"] = fit_tuning(torch, mt, smi)
+        out["resnet"] = resnet_prepare_remat(torch, mt, smi)
+        threaded_prepares(torch, mt)
+        print("compile report:\n%s" % mt.profiler.compile_report_str())
+    finally:
+        for key, val in saved.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+        mt.autotune.kernelsearch._best_cache.clear()
+        tmpdir.cleanup()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print("phase 24: %.1f s" % out["wall_s"])
+    return out
+
+
 def main():
     t_script = time.perf_counter()
     # cuBLAS under deterministic algorithms (phase 14) needs a fixed
@@ -8632,6 +9284,35 @@ def main():
         "rpc-fc_launches": p23["rpc"]["launches"],
         "feed-dp2-bytes_a_batch_a_rank": p23["feed"][0][1] // (
             P23_FEED_RECORDS // P23_FEED_BATCH)})))
+    # phase 24: compile and tuning: the compile cache's cold start, the fc
+    # and paged searches, fit(autotune=), prepare() and rematerialization
+    p24 = p24_phase(torch, mt, ck, smi, root)
+    mark('24')
+    print("compile and tuning result (card %s): %s" % (smi, json.dumps({
+        "cold-first-answer_s": [round(c["wall_s"], 3)
+                                for c in p24["cold"]["children"]],
+        "cold-nvcc_runs": [c["nvcc_runs"] for c in p24["cold"]["children"]],
+        "store-entries": p24["cold"]["entries"],
+        "store-bytes": p24["cold"]["bytes"],
+        "fc6-winner": p24["search"]["winners"]["fc6"]["block_n"],
+        "fc7-winner": p24["search"]["winners"]["fc7"]["block_n"],
+        "paged-winner-part_keys":
+            p24["search"]["winners"]["paged"]["part_keys"],
+        "lstm-autotune-K": p24["fit"]["measure"]["k"],
+        "lstm-joint-K": p24["fit"]["joint"]["k"],
+        "resnet50-first-step_s-plain":
+            round(p24["resnet"]["plain"]["first_step_s"], 3),
+        "resnet50-first-step_s-prepared":
+            round(p24["resnet"]["prepared"]["first_step_s"], 3),
+        "resnet50-step_ms-remat": round(p24["resnet"]["remat"]["step_ms"],
+                                        2),
+        "resnet50-step_ms-plain": round(p24["resnet"]["plain"]["step_ms"],
+                                        2),
+        "resnet50-peak_mb-remat": round(
+            p24["resnet"]["remat"]["peak_bytes"] / 2 ** 20, 1),
+        "resnet50-peak_mb-plain": round(
+            p24["resnet"]["plain"]["peak_bytes"] / 2 ** 20, 1),
+        "wall_s": round(p24["wall_s"], 1)})))
     kernels = [{
         "name": "fused_fc_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["fused_fc_epilogue"],
@@ -8641,7 +9322,8 @@ def main():
         + ops["fc_launches"]
         + rest["serve"]["launches"]["fused_fc_epilogue"]
         + sparse["rec"]["launches"] + shard["fc_launches"]
-        + p23["rpc"]["launches"],
+        + p23["rpc"]["launches"] + p24["cold"]["fc_launches"]
+        + p24["search"]["launches"]["fused_fc_epilogue"],
         "max_abs_err": fc["max_abs_err"],
         "ms": fc["ms"], "plain_ms": fc["plain_ms"],
         "bound_ms": fc["bound_ms"], "bound_by": "bytes",
@@ -8650,7 +9332,8 @@ def main():
         "name": "paged_attention", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["paged_attention"],
         "replaces": REPLACES["paged_attention"],
-        "launches": llm["launches"] + ops["paged_launches"],
+        "launches": llm["launches"] + ops["paged_launches"]
+        + p24["search"]["launches"]["paged_attention"],
         "max_abs_err": paged["max_abs_err"],
         "ms": paged["ms"], "plain_ms": paged["plain_ms"],
         "bound_ms": paged["bound_ms"], "bound_by": paged["bound_by"],
@@ -8687,13 +9370,16 @@ def main():
           "swap-in's warm-up) plus phase 19's rec serving (rfc1, 1 a "
           "batch) plus phase 22's tp=2 serving on both ranks (fc6's and "
           "fc7's shards, 2 a batch a rank) plus phase 23's RpcReplica "
-          "children (2 a batch, counted in each child); paged_attention "
+          "children (2 a batch, counted in each child) plus phase 24's "
+          "cold-start children (fc1, 1 a batch, counted in each child) and "
+          "its call-time winners at fc6 and fc7; paged_attention "
           "is one C=1 "
           "plus one C=32 "
           "launch at 16 slots x 12 heads x 64, contexts 1..1024; its "
           "launches are those of the paged, dense-stripe and speculative "
           "LM runs, the router's two floods and the multiplexer's LM "
-          "waves; "
+          "waves and phase 24's calls with the searched winner (layout "
+          "gates, paged and dense-stripe LM streams); "
           "flash_attention is one causal launch at B=4 T=1024 H=12 D=64 "
           "with the searched tile, its launches those of the search, the "
           "store hit and the call-time use, its bound at the tensor cores' "
@@ -8718,6 +9404,10 @@ if __name__ == "__main__":
     if "--fleet-worker" in sys.argv:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         fleet_worker(sys.argv[sys.argv.index("--fleet-worker") + 1])
+        sys.exit(0)
+    if "--cold-child" in sys.argv:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        cold_child(sys.argv[sys.argv.index("--cold-child") + 1])
         sys.exit(0)
     if "--rpc-child" in sys.argv:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))

@@ -50,6 +50,7 @@ from . import models
 from . import convert
 from . import parallel
 from . import autotune
+from . import compile_cache
 from . import random
 from . import random as rnd
 from . import initializer
@@ -90,7 +91,8 @@ __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "executor", "Executor", "Optimizer", "profiler", "faults",
            "libinfo", "misc", "symbol_doc", "model", "predictor",
            "Predictor", "create_predictor", "passes", "serve", "models",
-           "convert", "parallel", "autotune", "random", "rnd",
+           "convert", "parallel", "autotune", "compile_cache", "random",
+           "rnd",
            "initializer", "init", "optimizer", "opt", "lr_scheduler",
            "metric", "io", "callback", "module", "mod", "monitor",
            "Monitor", "kvstore", "kv", "create_kvstore", "executor_manager",

@@ -24,22 +24,31 @@
 // the whole game is streaming W from device memory once: 411 MB for fc6
 // (123 us at 3.35 TB/s), 67 MB for fc7 (20 us).
 //
-// Design.  A block is 4 warps and owns 16 output columns (4 rows of W per
-// warp) and 8 output rows.  It walks K in tiles of 256.  Its 8 rows of x
-// for a tile sit in shared memory as float32, double-buffered: while the
-// warps multiply tile t out of one buffer, every thread already holds its
-// share of tile t+1 in registers (x is small and mostly read from L2) and
-// stores it into the other buffer afterwards, so the x reads overlap the W
-// stream and a tile costs one barrier.  Each lane streams 4 consecutive K
-// elements of each of its warp's 4 W rows straight into registers, one
-// vector load per row, reading W along K where it is contiguous, and
-// multiplies them against all 8 staged x rows.  Each W element is used by
-// exactly one lane, so W skips shared memory and is loaded with the
-// streaming (evict-first) hint.  Sums stay in float32 registers; after the
-// K walk a warp shuffle reduces each lane's 32 partial sums, and each lane
-// applies bias, activation and the optional int8 requantize to one output
-// before a single store.  N = 4096 gives 256 blocks for 132 SMs.  Split-K,
-// TMA/cp.async pipelines and wgmma are left to later work.
+// Design.  A block is 4 warps and owns kRowsPerWarp rows of W per warp,
+// 4 * kRowsPerWarp output columns (block_n), and 8 output rows.  block_n
+// is a template parameter: 16 by default, and 8 and 32 besides for
+// float32 x and W (float32 or int8 out), the tiles the kernel search
+// chooses among; the other dtype pairs have the default tile only, which
+// keeps the library's build short.  A block walks K in tiles of 256.  Its
+// 8 rows of x for a tile sit in shared memory as float32, double-buffered:
+// while the warps multiply tile t out of one buffer, every thread already
+// holds its share of tile t+1 in registers (x is small and mostly read
+// from L2) and stores it into the other buffer afterwards, so the x reads
+// overlap the W stream and a tile costs one barrier.  Each lane streams 4
+// consecutive K elements of each of its warp's W rows straight into
+// registers, one vector load per row, reading W along K where it is
+// contiguous, and multiplies them against all 8 staged x rows.  Each W
+// element is used by exactly one lane, so W skips shared memory and is
+// loaded with the streaming (evict-first) hint.  Sums stay in float32
+// registers; after the K walk a warp shuffle reduces each lane's partial
+// sums, and the lanes apply bias, activation and the optional int8
+// requantize to the warp's outputs (8 * kRowsPerWarp of them, one or two
+// a lane, or one on half the lanes) before a single store each.  An
+// output's sum runs over K in the same order whatever block_n is (the
+// lane of a K element and the shuffle tree do not depend on it), so every
+// tile gives bitwise the same result.  N = 4096 gives 256 blocks for 132
+// SMs at the default tile.  Split-K, TMA/cp.async pipelines and wgmma are
+// left to later work.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -51,13 +60,11 @@
 namespace {
 
 constexpr int kWarps = 4;                          // warps per block
-constexpr int kRowsPerWarp = 4;                    // W rows per warp
-constexpr int kTileN = kWarps * kRowsPerWarp;      // output columns per block
+constexpr int kDefaultRows = 4;                    // W rows per warp, default
 constexpr int kTileM = 8;                          // output rows per block
 constexpr int kTileK = 256;                        // K elements per x tile
 constexpr int kVec = 4;                            // K elements per lane load
 constexpr int kStep = 32 * kVec;                   // K elements per warp load
-static_assert(kTileM * kRowsPerWarp == 32, "one output per lane");
 static_assert(kTileK % kStep == 0, "whole warp steps per tile");
 
 enum Act { kNone = 0, kRelu = 1, kSigmoid = 2, kTanh = 3, kSoftrelu = 4 };
@@ -109,12 +116,14 @@ __device__ __forceinline__ float activate(float v, int act) {
   }
 }
 
-template <typename TX, typename TW, typename TO>
+template <typename TX, typename TW, typename TO, int kRowsPerWarp>
 __global__ void __launch_bounds__(kWarps * 32)
 fc_epilogue_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
                    const float* __restrict__ bias, TO* __restrict__ out,
                    int M, int N, int K, int act, float inv_scale,
                    bool vec_x, bool vec_w) {
+  constexpr int kTileN = kWarps * kRowsPerWarp;    // output columns per block
+  constexpr int kOuts = kTileM * kRowsPerWarp;     // outputs per warp
   __shared__ __align__(16) float xs[2][kTileM][kTileK];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -209,28 +218,34 @@ fc_epilogue_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
       acc[r][j] = v;
     }
 
-  // Lane r * kRowsPerWarp + j finishes output (m0 + r, n0 + j).  The select
-  // loop keeps acc in registers (a dynamic index would spill it).
-  const int my_r = lane / kRowsPerWarp;
-  const int my_j = lane % kRowsPerWarp;
-  float v = 0.f;
+  // Lane l finishes outputs l, l + 32, ... of the warp: output o is
+  // (m0 + o / kRowsPerWarp, n0 + o % kRowsPerWarp).  The select loop keeps
+  // acc in registers (a dynamic index would spill it).
 #pragma unroll
-  for (int r = 0; r < kTileM; ++r)
+  for (int base = 0; base < kOuts; base += 32) {
+    const int o = base + lane;
+    if (o >= kOuts) break;
+    const int my_r = o / kRowsPerWarp;
+    const int my_j = o % kRowsPerWarp;
+    float v = 0.f;
 #pragma unroll
-    for (int j = 0; j < kRowsPerWarp; ++j)
-      if (r == my_r && j == my_j) v = acc[r][j];
-  const int n = n0 + my_j;
-  if (my_r >= rows || n >= N) return;
-  if (bias != nullptr) v += bias[n];
-  v = activate(v, act);
-  TO* dst = out + (size_t)(m0 + my_r) * N + n;
-  if constexpr (std::is_same<TO, int8_t>::value) {
-    // Multiply by the reciprocal and round half to even, as the
-    // reference's jnp.round(y / out_scale) computes after XLA's rewrite.
-    const float q = fminf(fmaxf(rintf(v * inv_scale), -127.f), 127.f);
-    *dst = static_cast<int8_t>(q);
-  } else {
-    store(dst, v);
+    for (int r = 0; r < kTileM; ++r)
+#pragma unroll
+      for (int j = 0; j < kRowsPerWarp; ++j)
+        if (r == my_r && j == my_j) v = acc[r][j];
+    const int n = n0 + my_j;
+    if (my_r >= rows || n >= N) continue;
+    if (bias != nullptr) v += bias[n];
+    v = activate(v, act);
+    TO* dst = out + (size_t)(m0 + my_r) * N + n;
+    if constexpr (std::is_same<TO, int8_t>::value) {
+      // Multiply by the reciprocal and round half to even, as the
+      // reference's jnp.round(y / out_scale) computes after XLA's rewrite.
+      const float q = fminf(fmaxf(rintf(v * inv_scale), -127.f), 127.f);
+      *dst = static_cast<int8_t>(q);
+    } else {
+      store(dst, v);
+    }
   }
 }
 
@@ -240,41 +255,66 @@ bool aligned4(const void* p, int K) {
          reinterpret_cast<uintptr_t>(p) % (kVec * sizeof(T)) == 0;
 }
 
-template <typename TX, typename TW, typename TO>
+template <typename TX, typename TW, typename TO, int kRowsPerWarp>
 cudaError_t launch(const void* x, const void* w, const float* bias, void* out,
                    int M, int N, int K, int act, float inv_scale,
                    cudaStream_t stream) {
+  constexpr int kTileN = kWarps * kRowsPerWarp;
   const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
-  fc_epilogue_kernel<TX, TW, TO><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TW*>(w), bias,
-      static_cast<TO*>(out), M, N, K, act, inv_scale, aligned4<TX>(x, K),
-      aligned4<TW>(w, K));
+  fc_epilogue_kernel<TX, TW, TO, kRowsPerWarp>
+      <<<grid, kWarps * 32, 0, stream>>>(
+          static_cast<const TX*>(x), static_cast<const TW*>(w), bias,
+          static_cast<TO*>(out), M, N, K, act, inv_scale, aligned4<TX>(x, K),
+          aligned4<TW>(w, K));
   return cudaGetLastError();
 }
 
+// block_n selects the instance: 8, 16 or 32 columns for float32 x and W,
+// 16 (the default) for every other dtype pair.
+template <typename TX, typename TW, typename TO>
+cudaError_t launch_tile(int block_n, const void* x, const void* w,
+                        const float* bias, void* out, int M, int N, int K,
+                        int act, float inv_scale, cudaStream_t stream) {
+  if (block_n == kWarps * kDefaultRows)
+    return launch<TX, TW, TO, kDefaultRows>(x, w, bias, out, M, N, K, act,
+                                            inv_scale, stream);
+  if constexpr (std::is_same<TX, float>::value &&
+                std::is_same<TW, float>::value) {
+    if (block_n == kWarps * 2)
+      return launch<TX, TW, TO, 2>(x, w, bias, out, M, N, K, act, inv_scale,
+                                   stream);
+    if (block_n == kWarps * 8)
+      return launch<TX, TW, TO, 8>(x, w, bias, out, M, N, K, act, inv_scale,
+                                   stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <typename TX, typename TW>
-cudaError_t launch_out(const void* x, const void* w, const float* bias,
-                       void* out, int M, int N, int K, int act, int quantize,
-                       float inv_scale, cudaStream_t stream) {
+cudaError_t launch_out(int block_n, const void* x, const void* w,
+                       const float* bias, void* out, int M, int N, int K,
+                       int act, int quantize, float inv_scale,
+                       cudaStream_t stream) {
   if (quantize)
-    return launch<TX, TW, int8_t>(x, w, bias, out, M, N, K, act, inv_scale,
-                                  stream);
-  return launch<TX, TW, TX>(x, w, bias, out, M, N, K, act, inv_scale, stream);
+    return launch_tile<TX, TW, int8_t>(block_n, x, w, bias, out, M, N, K, act,
+                                       inv_scale, stream);
+  return launch_tile<TX, TW, TX>(block_n, x, w, bias, out, M, N, K, act,
+                                 inv_scale, stream);
 }
 
 template <typename TX>
-cudaError_t launch_w(int w_dtype, const void* x, const void* w,
+cudaError_t launch_w(int w_dtype, int block_n, const void* x, const void* w,
                      const float* bias, void* out, int M, int N, int K,
                      int act, int quantize, float inv_scale,
                      cudaStream_t stream) {
   switch (w_dtype) {
-    case 0: return launch_out<TX, float>(x, w, bias, out, M, N, K, act,
-                                         quantize, inv_scale, stream);
-    case 1: return launch_out<TX, __half>(x, w, bias, out, M, N, K, act,
-                                          quantize, inv_scale, stream);
-    case 2: return launch_out<TX, __nv_bfloat16>(x, w, bias, out, M, N, K,
-                                                 act, quantize, inv_scale,
-                                                 stream);
+    case 0: return launch_out<TX, float>(block_n, x, w, bias, out, M, N, K,
+                                         act, quantize, inv_scale, stream);
+    case 1: return launch_out<TX, __half>(block_n, x, w, bias, out, M, N, K,
+                                          act, quantize, inv_scale, stream);
+    case 2: return launch_out<TX, __nv_bfloat16>(block_n, x, w, bias, out, M,
+                                                 N, K, act, quantize,
+                                                 inv_scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -282,13 +322,16 @@ cudaError_t launch_w(int w_dtype, const void* x, const void* w,
 }  // namespace
 
 // dtype codes: 0 float32, 1 float16, 2 bfloat16.  act codes as in Act.
-// The output is in x's dtype, or int8 when quantize is nonzero.  Returns a
-// cudaError_t: the launch's configuration error, if any.  Faults during the
-// run surface at the caller's next synchronisation.
+// The output is in x's dtype, or int8 when quantize is nonzero.  block_n:
+// output columns per block (8, 16 or 32 for float32 x and W; 16
+// otherwise).  Returns a cudaError_t: the launch's configuration error,
+// if any (cudaErrorInvalidValue for a tile with no instance).  Faults
+// during the run surface at the caller's next synchronisation.
 extern "C" int mxtt_fc_epilogue(const void* x, const void* w, const void* bias,
                                 void* out, int M, int N, int K, int x_dtype,
                                 int w_dtype, int act, int quantize,
-                                float inv_scale, int device, void* stream) {
+                                float inv_scale, int block_n, int device,
+                                void* stream) {
   if (M <= 0 || N <= 0 || K < 0 || act < kNone || act > kSoftrelu)
     return cudaErrorInvalidValue;
   int current = -1;
@@ -299,12 +342,12 @@ extern "C" int mxtt_fc_epilogue(const void* x, const void* w, const void* bias,
   const float* b = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (x_dtype) {
-    case 0: return launch_w<float>(w_dtype, x, w, b, out, M, N, K, act,
-                                   quantize, inv_scale, s);
-    case 1: return launch_w<__half>(w_dtype, x, w, b, out, M, N, K, act,
-                                    quantize, inv_scale, s);
-    case 2: return launch_w<__nv_bfloat16>(w_dtype, x, w, b, out, M, N, K,
-                                           act, quantize, inv_scale, s);
+    case 0: return launch_w<float>(w_dtype, block_n, x, w, b, out, M, N, K,
+                                   act, quantize, inv_scale, s);
+    case 1: return launch_w<__half>(w_dtype, block_n, x, w, b, out, M, N, K,
+                                    act, quantize, inv_scale, s);
+    case 2: return launch_w<__nv_bfloat16>(w_dtype, block_n, x, w, b, out, M,
+                                           N, K, act, quantize, inv_scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -24,9 +24,11 @@
 // stream the context at the memory's rate, many bytes must be in flight at
 // once on every SM.
 //
-// Design.  Split-K: each slot's keys are cut into partitions of kPartKeys
-// logical keys, and a block owns one (slot, head, partition, tile of query
-// rows: one row when C = 1, else up to 16).  With n_part > 1 the block
+// Design.  Split-K: each slot's keys are cut into partitions of part_keys
+// logical keys (a multiple of 32 the caller passes: 256 by default, 128,
+// 512 or 1024 as the kernel search chooses), and a block owns one (slot,
+// head, partition, tile of query rows: one row when C = 1, else up to
+// 16).  With n_part > 1 the block
 // writes its partial (m, l, acc) to scratch and paged_attention_merge_kernel
 // combines the partials of a row in partition order, clamping l at 1e-20
 // once at the end; a partition wholly past the slot's limit writes m = -inf,
@@ -74,7 +76,6 @@ using mxtt::split_tf32;
 constexpr int kTileQ = 16;                       // query rows per block, C > 1
 constexpr int kChunk = 32;                       // keys per chunk: one per lane
 constexpr int kStages = 2;                       // chunks in flight per warp
-constexpr int kPartKeys = 256;                   // keys per split-K partition
 constexpr int kMaxD = 128;                       // head dim limit
 constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
@@ -295,7 +296,8 @@ paged_attention_kernel(const float* __restrict__ q,
                        float* __restrict__ out, float* __restrict__ part_ml,
                        float* __restrict__ part_acc, int C, int H, int D,
                        int N, int bt, int B, int causal,
-                       float scale_log2, int n_part, bool vec) {
+                       float scale_log2, int n_part, int part_keys,
+                       bool vec) {
   constexpr int kWarps = warps_for(kDpl);
   constexpr int kThreads = kWarps * 32;
   extern __shared__ __align__(16) float smem[];
@@ -328,8 +330,8 @@ paged_attention_kernel(const float* __restrict__ q,
     limit = min(limit, last + 1);
   }
   limit = max(limit, 0);
-  const int lo = part * kPartKeys;
-  const int hi = n_part > 1 ? min(lo + kPartKeys, limit) : limit;
+  const int lo = part * part_keys;
+  const int hi = n_part > 1 ? min(lo + part_keys, limit) : limit;
   if (n_part > 1 && lo >= limit) {               // an empty partial
     if (threadIdx.x < rows) {
       const size_t rr = ((size_t)(s * C + c0 + threadIdx.x) * H + h) * n_part +
@@ -505,8 +507,8 @@ cudaError_t launch(const float* q, const float* k_pool, const float* v_pool,
                    const int* pages, const int* lengths, const int* q_pos,
                    float* out, float* part_ml, float* part_acc, int S, int C,
                    int H, int D, int N, int bt, int B, int causal,
-                   float scale, int n_part, bool vec, int device,
-                   cudaStream_t stream) {
+                   float scale, int n_part, int part_keys, bool vec,
+                   int device, cudaStream_t stream) {
   auto kernel = paged_attention_kernel<kRows, kDpl>;
   constexpr int kWarps = warps_for(kDpl);
   const size_t bytes = Geometry(D, kRows, 32 * kDpl).bytes(kRows, kWarps);
@@ -521,7 +523,7 @@ cudaError_t launch(const float* q, const float* k_pool, const float* v_pool,
   const dim3 grid(S * H, n_part, (C + kRows - 1) / kRows);
   kernel<<<grid, kWarps * 32, bytes, stream>>>(
       q, k_pool, v_pool, pages, lengths, q_pos, out, part_ml, part_acc, C, H,
-      D, N, bt, B, causal, scale * kLog2e, n_part, vec);
+      D, N, bt, B, causal, scale * kLog2e, n_part, part_keys, vec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_part == 1) return err;
   const long long n_rows = (long long)S * C * H;
@@ -537,19 +539,19 @@ cudaError_t launch_rows(int D, const float* q, const float* k_pool,
                         const int* lengths, const int* q_pos, float* out,
                         float* part_ml, float* part_acc, int S, int C, int H,
                         int N, int bt, int B, int causal, float scale,
-                        int n_part, bool vec, int device,
+                        int n_part, int part_keys, bool vec, int device,
                         cudaStream_t stream) {
   if (D <= 32)
     return launch<kRows, 1>(q, k_pool, v_pool, pages, lengths, q_pos, out,
                             part_ml, part_acc, S, C, H, D, N, bt, B, causal,
-                            scale, n_part, vec, device, stream);
+                            scale, n_part, part_keys, vec, device, stream);
   if (D <= 64)
     return launch<kRows, 2>(q, k_pool, v_pool, pages, lengths, q_pos, out,
                             part_ml, part_acc, S, C, H, D, N, bt, B, causal,
-                            scale, n_part, vec, device, stream);
+                            scale, n_part, part_keys, vec, device, stream);
   return launch<kRows, 4>(q, k_pool, v_pool, pages, lengths, q_pos, out,
                           part_ml, part_acc, S, C, H, D, N, bt, B, causal,
-                          scale, n_part, vec, device, stream);
+                          scale, n_part, part_keys, vec, device, stream);
 }
 
 }  // namespace
@@ -557,9 +559,9 @@ cudaError_t launch_rows(int D, const float* q, const float* k_pool,
 // q (S, C, H, D), k_pool / v_pool (N, bt, H, D), out (S, C, H, D): float32,
 // contiguous.  pages (S, B), lengths (S,), q_pos (S, C): int32, contiguous.
 // n_part: 1 (one block per row tile writes out) or ceil(B * bt /
-// kPartKeys), with scratch part_ml (S * C * H * n_part * 2) and part_acc
-// (S * C * H * n_part * D) float32.  Returns a cudaError_t: the launches'
-// configuration error, if any.  Faults during the run surface at the
+// part_keys), part_keys a positive multiple of 32, with scratch part_ml
+// (S * C * H * n_part * 2) and part_acc (S * C * H * n_part * D) float32.
+// Returns a cudaError_t: the launches' configuration error, if any.  Faults during the run surface at the
 // caller's next synchronisation.
 extern "C" int mxtt_paged_attention(const void* q, const void* k_pool,
                                     const void* v_pool, const void* pages,
@@ -567,13 +569,15 @@ extern "C" int mxtt_paged_attention(const void* q, const void* k_pool,
                                     void* out, void* part_ml, void* part_acc,
                                     int S, int C, int H, int D, int N, int bt,
                                     int B, int causal, float scale,
-                                    int n_part, int device, void* stream) {
+                                    int part_keys, int n_part, int device,
+                                    void* stream) {
   if (S <= 0 || C <= 0 || H <= 0 || D <= 0 || D > kMaxD || N <= 0 ||
       bt <= 0 || B <= 0 || (long long)S * H > 0x7fffffffLL ||
       (long long)S * C * H > 0x7fffffffLL || C > 65535 * kTileQ ||
       device < 0 || device >= kMaxDevices || n_part < 1 ||
       (n_part > 1 &&
-       ((long long)(n_part - 1) * kPartKeys >= (long long)B * bt ||
+       (part_keys <= 0 || part_keys % kChunk != 0 ||
+        (long long)(n_part - 1) * part_keys >= (long long)B * bt ||
         n_part > 65535 || !part_ml || !part_acc)))
     return cudaErrorInvalidValue;
   int current = -1;
@@ -596,10 +600,11 @@ extern "C" int mxtt_paged_attention(const void* q, const void* k_pool,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (C == 1)
     return launch_rows<1>(D, qf, kf, vf, pg, ln, qp, o, pm, pa, S, C, H, N,
-                          bt, B, causal, scale, n_part, vec, device, st);
+                          bt, B, causal, scale, n_part, part_keys, vec,
+                          device, st);
   return launch_rows<kTileQ>(D, qf, kf, vf, pg, ln, qp, o, pm, pa, S, C, H,
-                             N, bt, B, causal, scale, n_part, vec, device,
-                             st);
+                             N, bt, B, causal, scale, n_part, part_keys, vec,
+                             device, st);
 }
 
 extern "C" const char* mxtt_error_string(int code) {

@@ -22,9 +22,9 @@
     removal and draining restart hold across processes.
 
 The sharding search (``shardsearch``, ``search_sharding``,
-``resolve_auto``) waits for the compile cache (ROADMAP.md, queue 1 item
-10c, after item 11); the fleet report (``report``,
-``fleet_multichip_report*``) waits for the trace journals (item 12).
+``resolve_auto``) is ROADMAP.md queue 1 item 10c; the fleet report
+(``report``, ``fleet_multichip_report*``) waits for the trace journals
+(item 12).
 Their names raise.  The rest load lazily, as the reference's do.
 """
 from __future__ import annotations
@@ -46,9 +46,9 @@ _LAZY = {
 }
 
 _LATER = {
-    "search_sharding": "queue 1 item 10c, after item 11's compile cache",
-    "resolve_auto": "queue 1 item 10c, after item 11's compile cache",
-    "shardsearch": "queue 1 item 10c, after item 11's compile cache",
+    "search_sharding": "queue 1 item 10c",
+    "resolve_auto": "queue 1 item 10c",
+    "shardsearch": "queue 1 item 10c",
     "fleet_multichip_report": "queue 1 item 12, with trace/",
     "fleet_multichip_report_str": "queue 1 item 12, with trace/",
     "report": "queue 1 item 12, with trace/",

@@ -1,8 +1,8 @@
 """EmbeddingTable: a ``(vocab, dim)`` table as a device object
 (counterpart of ``mxnet_tpu/embed/table.py``).
 
-Three programs per table, plain functions on tensors (the compile cache
-is ROADMAP queue 1 item 11):
+Three programs per table, plain functions on tensors (eager PyTorch
+calls: nothing for the compile cache to build or keep):
 
 * ``lookup(ids)``        deduped gather (``embed/sparse.py``), optional
                          sum/mean pooling with padded ids masked

@@ -19,6 +19,27 @@ this rank's shard, the forward walks the graph over layouts, and inputs
 given a ``dp`` spec on dim 0 run this rank's rows, their outputs
 gathered back.  Every rank of the mesh runs the same forwards.
 
+**Mirroring** (reference executor.py:113-117): with
+``MXNET_BACKWARD_DO_MIRROR=1``, or on a node whose ``force_mirroring``
+attribute is ``"true"``, a node without aux state runs under
+``torch.utils.checkpoint`` (:func:`checkpointed`): its outputs keep no
+activations for backward, which recomputes them.  A draw inside such a
+region (Dropout's mask, a sampler's numbers) is recorded by the first
+run and replayed by the recompute, so the numbers are the same and the
+generator advances once: gradients and trajectories are bitwise those of
+a run without mirroring.  A node inside a region already checkpointed
+(the fused step's ``remat``) is not checkpointed again: the region's
+recompute covers it and the region's tape its draws.
+
+**Programs** (reference executor.py:320-395): an executor's program is
+its walk of the graph.  ``precompile(kinds)`` builds it ahead of the
+first forward without executing anything observable (no outputs handed
+out, no aux writes, no draw from the module's generators): one walk over
+the bound arrays whose outputs, gradients and aux updates are dropped,
+drawing from a private generator, so the kernels' libraries are built,
+cuBLAS/cuDNN handles and workspaces exist and the allocator holds the
+walk's blocks.  ``has_compiled`` and ``compile_report()`` see it.
+
 ``group2ctx`` (``bind``/``simple_bind``) places model-parallel graphs:
 the arrays of a variable whose ``ctx_group`` attribute names a group
 land on that group's context, and each op runs on its group's device,
@@ -28,12 +49,12 @@ the host, and every group on ``gpu(0)`` shares the card.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .base import MXNetError
+from .base import MXNetError, get_env
 from .context import Context
 from .engine import _ENGINE
 from .ndarray import NDArray, zeros as nd_zeros
@@ -41,7 +62,61 @@ from .ops.registry import OpContext
 from . import random as _random
 from .symbol import Symbol, _Node, _topo
 
-__all__ = ["Executor", "bind", "simple_bind"]
+__all__ = ["Executor", "bind", "simple_bind", "checkpointed"]
+
+
+class DrawTape:
+    """The draws of one checkpointed region: recorded by its first run,
+    replayed in order by its recompute."""
+
+    def __init__(self):
+        self.draws: List[torch.Tensor] = []
+        self.recorded = False
+        self._pos = 0
+
+    def record(self, u: torch.Tensor) -> None:
+        self.draws.append(u)
+
+    def replay(self) -> torch.Tensor:
+        u = self.draws[self._pos]
+        self._pos += 1
+        return u
+
+    def rewind(self) -> None:
+        self._pos = 0
+
+
+def checkpointed(fn, opctx: Optional[OpContext], *tensors):
+    """``fn(*tensors)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    backward recomputes the region instead of keeping its activations.
+    The port's generators are not the global ones
+    ``preserve_rng_state`` saves (the host's is a generator of its own),
+    and a captured step cannot set a generator's state, so the region's
+    draws (``OpContext.draw``) are recorded by the first run and replayed
+    by the recompute: the same mask, one advance of the generator.  Aux
+    states leave the region as values (BatchNorm returns its new moving
+    statistics), so the recompute writes none of them."""
+    from torch.utils.checkpoint import checkpoint
+    tape = DrawTape()
+
+    def run(*xs):
+        prev = opctx.tape if opctx is not None else None
+        if tape.recorded:
+            tape.rewind()
+        if opctx is not None:
+            opctx.tape = tape
+        try:
+            return fn(*xs)
+        finally:
+            if opctx is not None:
+                opctx.tape = prev
+            tape.recorded = True
+    return checkpoint(run, *tensors, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _mirrored(node: "_Node") -> bool:
+    return node.attrs.get("force_mirroring", "").lower() == "true"
 
 
 def _node_aux_names(node: _Node) -> List[str]:
@@ -73,8 +148,12 @@ class _GraphProgram:
     """The graph as a node list in topological order, with the number
     of consumers of each node output."""
 
-    def __init__(self, symbol: Symbol, node_device=None):
+    def __init__(self, symbol: Symbol, node_device=None,
+                 do_mirror: bool = False):
         self.symbol = symbol
+        # checkpoint every node without aux state (else only those with
+        # force_mirroring="true")
+        self.do_mirror = bool(do_mirror)
         # {id(node): torch.device} of the nodes group2ctx placed
         self.node_device = node_device or {}
         self.topo = _topo(symbol._heads)
@@ -159,6 +238,21 @@ class _GraphProgram:
                     node.params, ins,
                     [lays.get((id(i), x)) for (i, x) in node.inputs],
                     aux_in, opctx)
+            elif (self.do_mirror or _mirrored(node)) and not aux_names \
+                    and opctx.tape is None and torch.is_grad_enabled() \
+                    and any(isinstance(t, torch.Tensor) and t.requires_grad
+                            for t in ins):
+                # (inside a checkpointed region, tape set, the region's
+                # recompute already covers the node and its tape its draws)
+                def run(*xs, _node=node, _rows=in_rows):
+                    keep = opctx.in_rows
+                    opctx.in_rows = _rows
+                    try:
+                        return list(_node.op.forward(_node.params, list(xs),
+                                                     [], opctx))
+                    finally:
+                        opctx.in_rows = keep
+                outs = checkpointed(run, opctx, *ins)
             else:
                 outs = node.op.forward(node.params, ins, aux_in, opctx)
             if isinstance(outs, tuple):
@@ -254,7 +348,12 @@ class Executor:
             grp = node.attrs.get("ctx_group")
             if grp and grp in self._group2ctx:
                 node_device[id(node)] = self._group2ctx[grp].torch_device()
-        self._prog = _GraphProgram(symbol, node_device)
+        self._prog = _GraphProgram(
+            symbol, node_device,
+            do_mirror=get_env("MXNET_BACKWARD_DO_MIRROR", False, bool))
+        # program kind -> its CachedFunction (precompile, has_compiled)
+        self._programs: Dict[str, object] = {}
+        self._prog_desc: Optional[str] = None
         self._outputs_nd: Optional[List[NDArray]] = None
         # (leaf tensors of the graded arguments, recorded outputs) of the
         # last train forward, consumed by backward()
@@ -302,6 +401,8 @@ class Executor:
                 % (unknown, sorted(known)))
         self._mesh = mesh
         self._cuts = {}
+        self._prog_desc = None
+        self._programs = {}
         self._batch_dp = None
         self._batch_inputs = []
         for n, sp in inputs.items():
@@ -335,11 +436,107 @@ class Executor:
     def output_dict(self) -> Dict[str, NDArray]:
         return dict(zip(self._symbol.list_outputs(), self.outputs))
 
-    def _opctx(self, is_train: bool) -> OpContext:
+    def _opctx(self, is_train: bool, generator=None) -> OpContext:
         return OpContext(is_train=is_train,
-                         generator=_random.generator(self._ctx),
+                         generator=generator if generator is not None
+                         else _random.generator(self._ctx),
                          dp=self._batch_dp,
                          mesh=self._mesh if self._cuts else None)
+
+    # -- programs -------------------------------------------------------------
+    def _program_desc(self) -> str:
+        """Everything this executor's program depends on beyond its
+        inputs' shapes: the symbol graph, the bound dtypes, the gradient
+        requests, the device, mirroring and the mesh placement (the
+        description of its ``compile_report()`` entry)."""
+        if self._prog_desc is None:
+            import hashlib
+            h = hashlib.sha256()
+            h.update(self._symbol.tojson().encode())
+            for part in (sorted((n, str(a.dtype))
+                                for n, a in self.arg_dict.items()),
+                         sorted((n, str(a.dtype))
+                                for n, a in self.aux_dict.items()),
+                         sorted(self._grad_req.items()),
+                         sorted(self._grad_names), str(self._ctx),
+                         self._prog.do_mirror,
+                         sorted((n, c) for n, c in self._cuts.items())):
+                h.update(repr(part).encode())
+                h.update(b"\x00")
+            self._prog_desc = h.hexdigest()
+        return self._prog_desc
+
+    def _program(self, kind: str):
+        from .compile_cache import cached_program
+        prog = self._programs.get(kind)
+        if prog is None:
+            prog = self._programs[kind] = cached_program(
+                self._warm_walk, name="executor:%s" % kind,
+                fast_key=self._program_desc())
+        return prog
+
+    def default_program_kinds(self) -> Tuple[str, ...]:
+        """The program this executor's hot loop runs: the train forward
+        with its backward when bound for training, the eval forward
+        otherwise."""
+        if self._grad_names:
+            return ("fwdbwd_ones",)
+        return ("fwd_eval",)
+
+    def precompile(self, kinds: Optional[Sequence[str]] = None
+                   ) -> Tuple[str, ...]:
+        """Build the programs of ``kinds`` (default
+        :meth:`default_program_kinds`) without executing anything the
+        caller can see: no outputs handed out, no aux writes, no draw
+        from the module's generators (see the module docstring).  Safe in
+        a warm-up pool.  -> the kinds made ready."""
+        if kinds is None:
+            kinds = self.default_program_kinds()
+        done = []
+        for kind in kinds:
+            if kind == "fwdbwd":
+                raise MXNetError(
+                    "precompile cannot build the explicit-head-gradient "
+                    "program (head grads arrive at backward() time); "
+                    "precompile 'fwdbwd_ones' instead")
+            if kind not in ("fwd_eval", "fwd_train", "fwdbwd_ones"):
+                raise MXNetError("unknown program kind %r" % (kind,))
+            self._program(kind).warm(kind)
+            done.append(kind)
+        return tuple(done)
+
+    def has_compiled(self) -> bool:
+        """Whether any program has been built (precompiled) or run."""
+        return any(p.has_compiled for p in self._programs.values())
+
+    def _warm_walk(self, kind: str):
+        """One walk of ``kind`` whose outputs, gradients and aux updates
+        are dropped, drawing from a private generator; -> the forward
+        that runs the program."""
+        dev = self._ctx.torch_device()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        args = {k: v._get() for k, v in self.arg_dict.items()}
+        aux = {k: v._get() for k, v in self.aux_dict.items()}
+        if kind == "fwd_eval":
+            with torch.inference_mode():
+                if self._mesh is not None:
+                    self._mesh_forward(args, aux, generator=gen)
+                else:
+                    self._prog.eval(args, aux, self._opctx(False, gen))
+        else:
+            leaves = {n: args[n].detach().requires_grad_(True)
+                      for n in self._grad_names}
+            args.update(leaves)
+            with torch.enable_grad():
+                outs, _ = self._prog.eval(args, aux, self._opctx(True, gen))
+                heads = [o for o in outs if o.requires_grad]
+                if kind == "fwdbwd_ones" and heads and leaves:
+                    torch.autograd.grad(
+                        heads, list(leaves.values()),
+                        grad_outputs=[torch.ones_like(o) for o in heads],
+                        allow_unused=True)
+        return self.forward
 
     def forward(self, is_train: bool = False, **kwargs) -> List[NDArray]:
         """Run the graph; keyword arguments are written into the bound
@@ -352,6 +549,8 @@ class Executor:
         args = {k: v._get() for k, v in self.arg_dict.items()}
         aux = {k: v._get() for k, v in self.aux_dict.items()}
         self._recorded = None
+        self._program("fwd_eval" if not is_train else "fwdbwd_ones"
+                      if self._grad_names else "fwd_train").mark_called()
         if not is_train:
             with torch.inference_mode():
                 outs = self._mesh_forward(args, aux) \
@@ -372,7 +571,7 @@ class Executor:
         self._outputs_nd = [NDArray(o.detach()) for o in outs]
         return self._outputs_nd
 
-    def _mesh_forward(self, args, aux):
+    def _mesh_forward(self, args, aux, generator=None):
         """An inference forward under ``set_mesh``: the batch inputs cut
         over ``dp`` run this rank's rows, and outputs of that many rows
         come back gathered."""
@@ -382,7 +581,7 @@ class Executor:
             local = args[self._batch_inputs[0]].shape[0] // ax.size
             for n in self._batch_inputs:
                 args[n] = args[n].narrow(0, ax.index * local, local)
-        outs, _ = self._prog.eval(args, aux, self._opctx(False),
+        outs, _ = self._prog.eval(args, aux, self._opctx(False, generator),
                                   shards=self._cuts)
         if local is not None:
             from .parallel.data_parallel import gather_outputs

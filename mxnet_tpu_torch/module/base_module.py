@@ -17,8 +17,11 @@ from the newest committed step at the exact next batch: through the
 iterator's ``restore()`` when it has one, else by skipping the batches
 already trained.  ``mesh=`` trains over a mesh's ``dp`` axis and
 ``sharding=`` holds each parameter with a spec as its shard
-(``Module.set_mesh``); ``autotune=`` waits for its slice (ROADMAP.md,
-queue 1 item 11) and raises when given.
+(``Module.set_mesh``).  ``autotune=True`` (or ``MXNET_AUTOTUNE=1``)
+measures the superstep K when neither ``superstep=`` nor
+``MXNET_SUPERSTEP`` chose one; ``autotune="joint"`` searches K x remat
+(``autotune.tune_fit_joint``) and installs the winner
+(``apply_joint_config``).  Measuring never advances training.
 """
 from __future__ import annotations
 
@@ -31,8 +34,6 @@ from ..model import BatchEndParam
 from ..initializer import Uniform
 
 __all__ = ["BaseModule"]
-
-_NOT_PORTED = {"autotune": "queue 1 item 11"}
 
 
 def _fire_callbacks(callbacks, param):
@@ -176,13 +177,19 @@ class BaseModule:
         else by skipping the batches it had trained.  A SIGTERM caught
         by the manager's ``install_preemption_handler`` snapshots at the
         next batch boundary and returns.  ``work_load_list`` is the
-        constructor's (the reference's fit ignores it too)."""
-        given = {"autotune": autotune}
-        for name, value in given.items():
-            if value not in (None, False):
-                raise NotImplementedError(
-                    "fit(%s=...) is not in the port yet (ROADMAP.md, %s)"
-                    % (name, _NOT_PORTED[name]))
+        constructor's (the reference's fit ignores it too).
+
+        ``autotune``: True (or ``MXNET_AUTOTUNE=1`` with ``autotune=None``)
+        picks the superstep K by measuring candidate Ks on the real step
+        (``autotune.tune_superstep``) when neither ``superstep=`` nor
+        ``MXNET_SUPERSTEP`` chose; ``"joint"`` ranks superstep K x remat
+        with the cost model and measures a shortlist
+        (``autotune.tune_fit_joint``).  Every trial runs between a
+        snapshot of the train state and its restore, so training does not
+        advance; Ks a superstep blocker rules out are never measured.  The
+        winner persists under ``MXNET_AUTOTUNE_DIR`` and the next fit of
+        the same model loads it without measuring
+        (``mx.profiler.autotune_report()``)."""
         if mesh is not None or sharding is not None:
             setter = getattr(self, "set_mesh", None)
             if setter is None:
@@ -254,23 +261,62 @@ class BaseModule:
                            epoch_end_callback, batch_end_callback,
                            eval_batch_end_callback, begin_epoch, num_epoch,
                            validation_metric, monitor, ckpt_mgr, resume,
-                           superstep, prefetch_to_device)
+                           superstep, prefetch_to_device, autotune)
         finally:
             if owns_mgr:
                 ckpt_mgr.close()
+
+    def _autotune_superstep(self, autotune, eval_metric, monitor,
+                            batch_end_callback, ckpt_mgr) -> int:
+        """The superstep K ``fit(autotune=)`` picks (1 when tuning is
+        off or the module has no fused superstep), installing a joint
+        winner's remat (reference base_module.py:355-393)."""
+        from ..autotune import mode as _autotune_mode
+        amode = _autotune_mode(autotune)
+        if amode is None or not callable(
+                getattr(self, "superstep_train", None)) or \
+                getattr(self, "_fused", None) is None:
+            return 1
+
+        def viable(k):
+            return self._superstep_blockers(
+                eval_metric, k, monitor=monitor,
+                batch_end_callback=batch_end_callback,
+                checkpoint_every=(ckpt_mgr.save_every_steps
+                                  if ckpt_mgr is not None else None))
+        if amode == "joint" and callable(
+                getattr(self, "apply_joint_config", None)):
+            from ..autotune import tune_fit_joint
+            jcfg = tune_fit_joint(self, viable=viable)
+            self.apply_joint_config(jcfg)
+            self.logger.info("autotune(joint): superstep K=%d unroll=%d "
+                             "remat=%s", jcfg["superstep"], jcfg["unroll"],
+                             jcfg["remat"])
+            return int(jcfg["superstep"])
+        from ..autotune import tune_superstep
+        k = tune_superstep(self, viable=viable)
+        self.logger.info("autotune: superstep K=%d", k)
+        return k
 
     def _fit_loop(self, train_data, eval_data, eval_metric,
                   epoch_end_callback, batch_end_callback,
                   eval_batch_end_callback, begin_epoch, num_epoch,
                   validation_metric, monitor, ckpt_mgr, resume, superstep,
-                  prefetch_to_device=False):
+                  prefetch_to_device=False, autotune=None):
         if validation_metric is None:
             validation_metric = eval_metric
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
         k_env = get_env("MXNET_SUPERSTEP", None, int)
-        k_super = max(1, int(superstep) if superstep is not None
-                      else (k_env if k_env is not None else 1))
+        if superstep is not None:
+            k_super = int(superstep)
+        elif k_env is not None:
+            k_super = k_env
+        else:
+            k_super = self._autotune_superstep(
+                autotune, eval_metric, monitor, batch_end_callback,
+                ckpt_mgr)
+        k_super = max(1, k_super)
         use_super = k_super > 1 and callable(
             getattr(self, "superstep_train", None))
         if k_super > 1 and not use_super:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import logging
 
+from ..base import MXNetError
 from ..initializer import Uniform
 from .base_module import BaseModule
 from .module import Module
@@ -151,10 +152,8 @@ class BucketingModule(BaseModule):
         """Bind every listed bucket ahead of the training loop.
 
         ``bucket_shapes``: {bucket_key: (data_shapes, label_shapes)} or an
-        iterable of (bucket_key, data_shapes, label_shapes).  The
-        reference also drives a zero batch through each bucket there, to
-        compile its XLA program before the loop; the port's buckets run
-        eagerly and have nothing to compile, so binding is all."""
+        iterable of (bucket_key, data_shapes, label_shapes).  To build
+        each bucket's program as well, call :meth:`precompile`."""
         assert self.binded and self.params_initialized, \
             "call bind and init_params before prepare"
         if isinstance(bucket_shapes, dict):
@@ -167,9 +166,64 @@ class BucketingModule(BaseModule):
         self._curr_module = keep
 
     def precompile(self, bucket_shapes, threads=None):
-        raise NotImplementedError(
-            "BucketingModule.precompile waits for the compile cache "
-            "(ROADMAP.md, queue 1 item 11); prepare() binds every bucket")
+        """Bind every listed bucket, and every bound bucket that has not
+        built its program yet, then build each one's program through a
+        bounded pool (reference bucketing_module.py:252-292): a bucket on
+        the fused step warms and captures its step without advancing
+        training (``FusedTrainStep.prepare``; the captures of one device
+        run one at a time), every other bucket precompiles its executors
+        (``Executor.precompile``, which runs nothing the loop can see).
+
+        ``bucket_shapes``: {bucket_key: (data_shapes, label_shapes)} or an
+        iterable of (bucket_key, data_shapes, label_shapes).  ``threads``
+        bounds the pool (default: one a bucket up to the host's cores).
+        -> the labels of the buckets built."""
+        assert self.binded and self.params_initialized, \
+            "call bind and init_params before precompile"
+        if self.for_training and not self.optimizer_initialized:
+            raise MXNetError(
+                "precompile() on a training-bound bucketing module needs "
+                "init_optimizer first")
+        from ..compile_cache import parallel_warm
+        if isinstance(bucket_shapes, dict):
+            items = [(k, v[0], v[1]) for k, v in bucket_shapes.items()]
+        else:
+            items = [tuple(it) for it in bucket_shapes]
+        listed = {it[0] for it in items}
+        for key, mod in self._buckets.items():
+            if key not in listed and self._is_cold(mod):
+                items.append((key, mod._data_shapes, mod._label_shapes))
+        keep = self._curr_module
+        tasks = []
+        try:
+            for key, data_shapes, label_shapes in items:
+                self.switch_bucket(key, data_shapes, label_shapes)
+                mod = self._curr_module
+                if not self._is_cold(mod):
+                    continue
+                label = "bucket %r (data %s)" % (key, list(data_shapes))
+                if mod._fused is not None and self.for_training:
+                    from ..autotune import _zero_batch
+                    batch = mod._fused.make_batch(_zero_batch(mod),
+                                                  note_ids=False)
+                    tasks.append((label, lambda m=mod, b=batch:
+                                  m._fused.prepare(b)))
+                else:
+                    kinds = None if self.for_training else ("fwd_eval",)
+                    for ex in mod._exec_group.execs:
+                        tasks.append((label,
+                                      lambda e=ex, k=kinds: e.precompile(k)))
+        finally:
+            self._curr_module = keep
+        parallel_warm(tasks, threads=threads)
+        return [label for label, _ in tasks]
+
+    @staticmethod
+    def _is_cold(mod) -> bool:
+        """Whether a bucket's module has built no program yet."""
+        if mod._fused is not None:
+            return not mod._fused._graphs and not mod._fused.stats.eager_steps
+        return not any(ex.has_compiled() for ex in mod._exec_group.execs)
 
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=None, force_init=False):

@@ -35,6 +35,24 @@ captured graph over the step's static labels and outputs, into static
 accumulators the host drains once per K.  K replays of the one step are
 the K sequential steps, so the superstep equals them bit for bit.
 
+**rematerialization** (reference ``fused.py:220-224, 678-685``): with
+``remat`` (``MXNET_BACKWARD_DO_MIRROR=1``, or a joint-autotune winner
+through ``Module.apply_joint_config``) the whole loss -- the graph walk
+after the sparse prologue -- runs under ``torch.utils.checkpoint``
+(``executor.checkpointed``): the backward recomputes the forward, the
+draws of the first run are replayed (Dropout's mask is the same), and
+BatchNorm's new moving statistics leave the region as values, so the
+recompute writes them no second time.  The trajectory is bitwise that
+of a run without it.
+
+**programs** (reference ``fused.py:740-773``): each batch shape's
+capture goes through a ``compile_cache.cached_program`` (``fused:step``;
+the superstep's metric reducer graph, ``fused:metric``), so
+``compile_report()`` counts and times it (the eager warm-up included)
+and a capture for a new shape of a step that already captured one is a
+steady-state rebuild.  :meth:`prepare` warms and captures a batch shape
+ahead of the loop without advancing training.
+
 **speculation** (``snapshot_state``/``restore_state``): outputs asked
 for between a train forward and ``update()`` run the pending step early;
 the module keeps a device copy of the state from before it, to put back
@@ -136,7 +154,7 @@ from ..checkpoint.snapshot import map_structure
 from ..embed.sparse import (_mask_oov_rows, block_rows, dedup_ids,
                             map_slots, resolve_cap, slot_leaves_row_shaped,
                             sparse_apply_rows)
-from ..executor import _GraphProgram
+from ..executor import _GraphProgram, checkpointed
 from ..ndarray import NDArray
 from ..ops.registry import OpContext
 from .. import random as _random
@@ -197,7 +215,8 @@ class FusedTrainStep:
     def __init__(self, symbol, context, data_names: Sequence[str],
                  label_names: Sequence[str], param_names: Sequence[str],
                  fixed_param_names: Sequence[str], optimizer,
-                 mesh=None, global_dp: bool = False, sharding=None):
+                 mesh=None, global_dp: bool = False, sharding=None,
+                 remat: bool = False):
         # the dp axis: a named mesh's, or every rank's under dist_sync
         self.axis = None
         self.slice_batch = False
@@ -287,6 +306,13 @@ class FusedTrainStep:
             self.moe_stats = MoeStats("fused")
             profiler.register_moe_stats(self.moe_stats)
         self._prog = _GraphProgram(symbol)
+        # the whole loss under torch.utils.checkpoint (see the docstring)
+        self._remat = bool(remat)
+        self.global_dp = bool(global_dp)
+        # the captures' CachedFunctions, made on first use
+        self._step_prog = None
+        self._metric_prog = None
+        self._pending_reduce = None
         self.stats = GraphStats()
         self.state = None
         self._buffers: Dict[tuple, Dict[str, torch.Tensor]] = {}
@@ -385,9 +411,7 @@ class FusedTrainStep:
         if sig(spec) == sig(self.device_augment):
             return
         self.device_augment = spec
-        self._graphs.clear()
-        self._warm.clear()
-        self._metric_graphs.clear()
+        self.drop_graphs()
 
     def _maybe_augment(self, batch: Dict[str, torch.Tensor], train: bool,
                        rows=()):
@@ -501,10 +525,82 @@ class FusedTrainStep:
             "t": torch.zeros((), dtype=torch.float32, device=self.device),
             "lr": torch.zeros((), dtype=torch.float32, device=self.device)}
         self._buffers.clear()
+        self.drop_graphs()
+        self._lr_host = None
+
+    def drop_graphs(self) -> None:
+        """Forget every captured graph (they read the old state, or an
+        old prologue or remat setting): the next capture is a new
+        program, not a rebuild."""
         self._graphs.clear()
         self._warm.clear()
         self._metric_graphs.clear()
-        self._lr_host = None
+        self._step_prog = None
+        self._metric_prog = None
+
+    def set_remat(self, remat: bool) -> bool:
+        """Turn rematerialization on or off; a real change drops the
+        captured graphs (the checkpoint is part of them).  -> whether it
+        changed."""
+        if bool(remat) == self._remat:
+            return False
+        self._remat = bool(remat)
+        self.drop_graphs()
+        return True
+
+    def _program_desc(self, tag: str) -> str:
+        """The description of this step's programs (their
+        ``compile_report()`` fast key): the symbol graph plus everything
+        the capture closes over -- optimizer class and baked values,
+        per-name factors, remat, the augmentation prologue, the sharded
+        update, dp, the mesh and its specs, the sparse-embed and MoE
+        geometry, and the train/fixed/label split (reference
+        fused.py:740-773)."""
+        import hashlib
+        h = hashlib.sha256()
+        h.update(self._prog.symbol.tojson().encode())
+        mesh = self.mesh
+        for part in (tag, type(self.optimizer).__name__,
+                     repr(self.hparam_signature()),
+                     repr(sorted(self._lr_mult.items())),
+                     repr(sorted(self._wd.items())), str(self._remat),
+                     repr(self.device_augment.signature()
+                          if self.device_augment is not None else None),
+                     str(self.shard_update), str(self.global_dp),
+                     repr(None if mesh is None
+                          else tuple(mesh.shape.items())),
+                     repr(sorted((n, tuple(sp)) for n, sp in
+                                 self.param_specs.items())),
+                     repr(sorted((n, sp.describe())
+                                 for n, sp in self.sparse_embeds.items())),
+                     repr(sorted((n, sp.describe())
+                                 for n, sp in self.moe_blocks.items())),
+                     str(self.device), repr(self.train_names),
+                     repr(self.fixed_names), repr(self.label_names)):
+            h.update(str(part).encode())
+            h.update(b"\x00")
+        return "fused|%s" % h.hexdigest()
+
+    def _captures(self):
+        """The step's capture program (``fused:step``): one CUDA graph
+        per batch signature."""
+        if self._step_prog is None:
+            from ..compile_cache import cached_program
+            self._step_prog = cached_program(
+                self._capture_step, name="fused:step",
+                fast_key=self._program_desc("step"))
+        return self._step_prog
+
+    def _capture_step(self, batch):
+        from ..compile_cache import capture
+        graph, outs = capture(self.device, lambda: self._body(batch))
+        self.stats.captures += 1
+        return _Captured(graph, outs)
+
+    def _capture_metric(self, key, signature):
+        from ..compile_cache import capture
+        graph, _ = capture(self.device, self._pending_reduce)
+        return graph
 
     def hparam_signature(self):
         """The optimizer values baked into the step (everything except
@@ -522,9 +618,12 @@ class FusedTrainStep:
         return tuple(sorted((n, tuple(t.shape), t.dtype)
                             for n, t in batch.items()))
 
-    def make_batch(self, data_batch) -> Dict[str, torch.Tensor]:
+    def make_batch(self, data_batch,
+                   note_ids: bool = True) -> Dict[str, torch.Tensor]:
         """Copy one DataBatch into the step's static input buffers of its
-        shapes (allocated on first sight); -> {name: buffer}."""
+        shapes (allocated on first sight); -> {name: buffer}.
+        ``note_ids=False`` leaves the embedding statistics alone (a
+        warm-up's zero batch)."""
         src = {}
         for names, arrs in ((self.data_names, data_batch.data),
                             (self.label_names, data_batch.label or [])):
@@ -537,11 +636,11 @@ class FusedTrainStep:
             raise MXNetError("the batch lacks inputs %s" % missing)
         rows_cut = getattr(data_batch, "rows_cut", None)
         self.fed_rows = rows_cut is not None
-        if rows_cut is None:
+        if rows_cut is None and note_ids:
             # the global batch's ids (one device's statistics)
             self._note_ids(src)
         rows = self._cut_rows(src, 0, rows_cut)
-        if rows_cut is not None:
+        if rows_cut is not None and note_ids:
             self._note_ids(src)
         key = self._key(src)
         self._row_names[key] = rows
@@ -669,9 +768,15 @@ class FusedTrainStep:
         with torch.enable_grad():
             with record_function("fused:forward"):
                 sparse = self._sparse_prologue(args)
-                outs, new_aux = self._prog.eval(args, st["aux"], opctx,
-                                                shards=self._walk_cuts(),
-                                                rows=cut)
+
+                def walk():
+                    return self._prog.eval(args, st["aux"], opctx,
+                                           shards=self._walk_cuts(),
+                                           rows=cut)
+                if self._remat:
+                    outs, new_aux = checkpointed(walk, opctx)
+                else:
+                    outs, new_aux = walk()
             heads = [o for o in outs if o.requires_grad]
             leaves = [params[n] for n in names] \
                 + [rows for _uniq, rows in sparse.values()]
@@ -752,6 +857,9 @@ class FusedTrainStep:
         if cap is None:
             done = self._warm.get(key, 0)
             if done < WARMUP_STEPS:
+                import time
+                from ..compile_cache import get_stats
+                t0 = time.perf_counter()
                 if self._side is None:
                     self._side = torch.cuda.Stream(device=self.device)
                 main = torch.cuda.current_stream(self.device)
@@ -763,18 +871,42 @@ class FusedTrainStep:
                     o.record_stream(main)
                 self._warm[key] = done + 1
                 self.stats.eager_steps += 1
+                get_stats().note_build_time("fused:step",
+                                            time.perf_counter() - t0)
                 return outs
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                outs = self._body(batch)
-            self.stats.captures += 1
-            cap = self._graphs[key] = _Captured(graph, outs)
+            cap = self._graphs[key] = self._captures().compile_for(batch)
         cap.graph.replay()
         self.stats.replays += 1
         return cap.outputs
 
+    def prepare(self, batch: Dict[str, torch.Tensor]) -> str:
+        """Warm and capture the step of this batch's shapes (a
+        :meth:`make_batch` result) ahead of the loop without advancing
+        training: the train state (with the generator's) is copied aside,
+        the eager warm-up steps run, the copy is written back into the
+        same tensors (the addresses the graph reads do not change), and
+        the graph is captured, which runs nothing.  The first real step
+        then replays, and the trajectory is bitwise that of a run without
+        this call.  On the CPU (or a host-staged dp group) there is no
+        graph: one eager step checks the walk, and is undone the same
+        way.  -> ``"present"`` or ``"compiled"``."""
+        key = self._key(batch)
+        if key in self._graphs:
+            return "present"
+        n = WARMUP_STEPS - self._warm.get(key, 0) if self.captured else 1
+        if n > 0:
+            snap = self.snapshot_state()
+            try:
+                for _ in range(n):
+                    self.step(batch)
+            finally:
+                self.restore_state(snap)
+        if self.captured:
+            self._graphs[key] = self._captures().compile_for(batch)
+        return "compiled"
+
     # -- superstep ------------------------------------------------------------
-    def make_megabatch(self, batches):
+    def make_megabatch(self, batches, note_ids: bool = True):
         """Stage K batches on the device at once: ``{name: (K, B, ...)
         tensor}``.  ``batches`` is a list of K DataBatch, stacked on the
         host and sent in one copy per input (through pinned memory on the
@@ -795,12 +927,12 @@ class FusedTrainStep:
                         else torch.as_tensor(a)
                     out[name] = t.to(self.device)
             out = self._local_mega(out, getattr(batches, "rows_cut", None))
-            for i in range(k):
+            for i in range(k if note_ids else 0):
                 self._note_ids({n: t[i] for n, t in out.items()})
             return k, out
         k = len(batches)
         out = {}
-        for b in batches:
+        for b in (batches if note_ids else ()):
             self._note_ids({n: a._get() if isinstance(a, NDArray)
                             else torch.as_tensor(a)
                             for n, a in zip(self.data_names, b.data or [])
@@ -893,9 +1025,16 @@ class FusedTrainStep:
             main.wait_stream(self._side)
             entry[2] = 1
             return
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            body()
+        if self._metric_prog is None:
+            from ..compile_cache import cached_program
+            self._metric_prog = cached_program(
+                self._capture_metric, name="fused:metric",
+                fast_key=self._program_desc("metric"))
+        self._pending_reduce = body
+        try:
+            graph = self._metric_prog.compile_for(key, reducer.signature)
+        finally:
+            self._pending_reduce = None
         entry[0] = graph
         graph.replay()
 

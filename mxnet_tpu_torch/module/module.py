@@ -43,6 +43,13 @@ optimizer and updater; lending the executor group or borrowing the
 optimizer keeps a module on the classic path, as in the reference
 (``mxnet_tpu/module/module.py:292-322``).
 
+``prepare()`` builds the hot loop's programs ahead of the loop without
+advancing training (the fused step's warm-up and capture, or every
+executor's precompile); ``MXNET_BACKWARD_DO_MIRROR=1`` rematerializes
+the fused step's forward (``FusedTrainStep(remat=)``) and mirrors the
+classic executors' nodes; ``apply_joint_config`` installs a joint
+autotune winner.
+
 ``MXNET_FUSED_TRAIN=0`` keeps the module on the classic path (the
 fused-against-classic parity check).  The params the module hands out
 (``get_params``) are host arrays.
@@ -238,9 +245,9 @@ class Module(BaseModule):
         from ..parallel.mesh import Mesh, make_mesh
         if isinstance(sharding, str):
             raise NotImplementedError(
-                "sharding=%r: the shard search waits for the compile "
-                "cache (ROADMAP.md, queue 1 item 10c, after item 11); pass "
-                "a {name: PartitionSpec} map" % (sharding,))
+                "sharding=%r: the shard search is not in the port yet "
+                "(ROADMAP.md, queue 1 item 10c); pass a {name: "
+                "PartitionSpec} map" % (sharding,))
         if mesh is not None and not isinstance(mesh, Mesh):
             mesh = make_mesh(mesh)
         specs = dict(sharding) if sharding else None
@@ -487,7 +494,8 @@ class Module(BaseModule):
             self._symbol, self._context[0], self._data_names,
             self._label_names, self._param_names, self._fixed_param_names,
             self._optimizer, mesh=mesh, global_dp=global_dp,
-            sharding=self._sharding if mesh is not None else None)
+            sharding=self._sharding if mesh is not None else None,
+            remat=get_env("MXNET_BACKWARD_DO_MIRROR", False, bool))
         self._fused_hsig = self._fused.hparam_signature()
         self._fused_init_state()
 
@@ -511,6 +519,58 @@ class Module(BaseModule):
             return False
         self._fused.set_device_augment(spec)
         return True
+
+    def apply_joint_config(self, cfg):
+        """Install a joint-autotune winner (``autotune.tune_fit_joint``):
+        the rematerialization flag, which keeps the trajectory bitwise
+        (the recompute replays the forward's draws), so a winner stored
+        by another process is always safe to apply.  ``unroll`` has no
+        counterpart (a captured superstep has no scan; ROADMAP.md queue
+        3, "Recorded differences").  The superstep K itself goes back to
+        ``fit``, which owns the loop.  -> False when the fused step is
+        off."""
+        if self._fused is None:
+            return False
+        self._fused.set_remat(bool(cfg.get("remat", False)))
+        return True
+
+    def prepare(self, data_batch=None, threads=None):
+        """Build this module's hot-loop programs before the loop runs
+        them (reference module.py:718-765), without advancing training.
+
+        With the fused step engaged: the step of ``data_batch``'s shapes
+        (default: a zero batch of the bound shapes and dtypes, the uint8
+        wire under device augmentation) is warmed and captured by
+        ``FusedTrainStep.prepare``: the state is copied aside, the eager
+        warm-up steps run, the copy is written back into the same
+        tensors, and the graph is captured, so the first real step
+        replays and the trajectory is bitwise that of a run without this
+        call.  On the classic path every bound executor precompiles its
+        default program, in a pool when there are several (``threads``
+        bounds it).  With ``MXNET_COMPILE_CACHE`` the kernels' libraries
+        the programs need come from the store."""
+        assert self.binded and self.params_initialized
+        from ..compile_cache import parallel_warm
+        if self.for_training and not self.optimizer_initialized:
+            raise MXNetError(
+                "prepare() on a training-bound module needs "
+                "init_optimizer first")
+        if self._fused is not None and self.optimizer_initialized:
+            if self._fused_pending is not None:
+                raise MXNetError(
+                    "prepare() with an uncommitted forward pending; call "
+                    "update() first")
+            if data_batch is None:
+                from ..autotune import _zero_batch
+                data_batch = _zero_batch(self)
+            self._discard_speculation()
+            self._fused.prepare(self._fused.make_batch(data_batch,
+                                                       note_ids=False))
+            return
+        parallel_warm(
+            [("executor %d" % i, ex.precompile)
+             for i, ex in enumerate(self._exec_group.execs)],
+            threads=threads)
 
     def prefetch_to_device(self, data_iter, depth=2, megabatch=1):
         """Wrap ``data_iter`` so each batch's copy to the device is issued

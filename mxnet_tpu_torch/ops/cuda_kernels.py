@@ -16,7 +16,19 @@ The counterpart of ``mxnet_tpu/ops/pallas_kernels.py``.  Each kernel has:
 Sources live in ``mxnet_tpu_torch/csrc`` (``*.cu``, and the ``*.cuh``
 headers they include).  Each ``.cu`` is compiled on first use with
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
-under ``mxnet_tpu_torch/_build`` and loaded with ``ctypes``.
+under ``mxnet_tpu_torch/_build`` and loaded with ``ctypes``.  With
+``MXNET_COMPILE_CACHE=<dir>`` the libraries go to that persistent store
+instead (``compile_cache``): each ``nvcc`` output is published there
+under its digest and the environment fingerprint, and a later process
+loads it from there without running ``nvcc``; an entry that fails its
+digest is dropped and built again.
+
+Two kernels take a tile parameter the kernel search
+(``autotune.kernelsearch``) chooses among, each resolved at call time
+as flash's tile is: an explicit argument wins, then the searched winner
+under ``MXNET_KERNEL_SEARCH=1``, then the default.  ``fused_fc_epilogue``
+has ``block_n`` (:data:`FC_TILES`), ``paged_attention`` its split-K
+partition length (:data:`PAGED_PART_KEYS`, 0 for one pass).
 """
 from __future__ import annotations
 
@@ -26,8 +38,10 @@ import math
 import os
 import re
 import shutil
+import tempfile
 import subprocess
 import threading
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -37,11 +51,13 @@ from ..base import MXNetError, get_env
 from .nn import ACTIVATIONS
 
 __all__ = ["fused_fc_epilogue", "fused_fc_epilogue_reference", "requantize",
-           "reciprocal_f32",
+           "reciprocal_f32", "FC_TILES", "FC_DEFAULT_TILE",
            "paged_attention", "paged_attention_reference", "paged_partitions",
+           "PAGED_PART_KEYS", "PAGED_PARTITION_KEYS",
            "flash_attention", "flash_attention_reference", "FLASH_TILES",
            "correlation", "correlation_reference",
-           "LAUNCHES", "reset_launches", "build", "nvcc_command", "SOURCES"]
+           "LAUNCHES", "reset_launches", "build", "nvcc_command", "SOURCES",
+           "NVCC_RUNS", "BUILD_WALLS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -99,11 +115,10 @@ def nvcc_command(source: str, output: str, nvcc: str = "nvcc") -> list:
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 
-def _lib_path(name: str, csrc: str = _CSRC) -> str:
-    """The library's path carries a digest of its compile line, its
-    source and every header under ``csrc`` that the source includes
-    (directly or through another header), so an edit to any of them
-    always rebuilds."""
+def _lib_digest(name: str, csrc: str = _CSRC) -> str:
+    """sha256 of the library's compile line, its source and every header
+    under ``csrc`` that the source includes (directly or through another
+    header)."""
     h = hashlib.sha256(" ".join(nvcc_command("", "")).encode())
     todo, seen = [SOURCES[name]], set()
     while todo:
@@ -116,56 +131,162 @@ def _lib_path(name: str, csrc: str = _CSRC) -> str:
         h.update(rel.encode() + b"\0" + text)
         todo += [inc.decode() for inc in _INCLUDE.findall(text)
                  if os.path.exists(os.path.join(csrc, inc.decode()))]
-    return os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, h.hexdigest()[:16]))
+    return h.hexdigest()
+
+
+def _lib_path(name: str, csrc: str = _CSRC) -> str:
+    """The library's path carries its digest (:func:`_lib_digest`), so an
+    edit to its source, a header or the compile line always rebuilds."""
+    return os.path.join(BUILD_DIR, "lib%s_%s.so" % (
+        name, _lib_digest(name, csrc)[:16]))
+
+
+# nvcc invocations this process made, and each library's last nvcc wall
+# in seconds
+NVCC_RUNS = 0
+BUILD_WALLS: Dict[str, float] = {}
+# name -> the path a built or stored library is loaded from, and the
+# store key it came from (None: mxnet_tpu_torch/_build)
+_resolved: Dict[str, tuple] = {}
+
+
+def _store_keys(name: str, cache):
+    """-> (fast key, entry key) of a library in the compile cache: the
+    fast key indexes it by name and digest alone, the entry key adds the
+    environment fingerprint."""
+    from ..compile_cache.fingerprint import fast_key
+    digest = _lib_digest(name)
+    return fast_key("library:" + name, digest), cache.library_key(digest)
+
+
+def _find(name: str, cache):
+    """-> (path, store key) of a library that needs no nvcc run, or
+    None."""
+    if cache is None:
+        path = _lib_path(name)
+        return (path, None) if os.path.exists(path) else None
+    fkey, key = _store_keys(name, cache)
+    path = cache.load_fast(fkey, name)
+    if path is None:
+        path = cache.load_library(name, key)
+        if path is None:
+            return None
+        cache.store.save_index(fkey, key)
+    return path, key
 
 
 def build(names=None) -> Dict[str, str]:
     """Compile the named kernels (default: all) that are not built yet,
-    one ``nvcc`` per source, all started together.  Returns each built
+    one ``nvcc`` per source, all started together.  With a compile cache
+    (``MXNET_COMPILE_CACHE``) a library already in its store is taken
+    from there and each new one is published there.  Returns each built
     kernel's compiler output (``-Xptxas -v``: registers, shared memory,
     spills)."""
+    from ..compile_cache import get_cache
     names = list(SOURCES) if names is None else list(names)
     logs: Dict[str, str] = {}
+    cache = get_cache()
     with _build_lock:
-        todo = [n for n in names if not os.path.exists(_lib_path(n))]
+        todo = []
+        for n in names:
+            if n in _libs:
+                continue
+            found = _find(n, cache)
+            if found is not None:
+                _resolved[n] = found
+            else:
+                todo.append(n)
         if not todo:
             return logs
         nvcc = _nvcc()
         os.makedirs(BUILD_DIR, exist_ok=True)
-        procs = {}
-        for n in todo:
-            out = _lib_path(n)
-            tmp = "%s.tmp-%d" % (out, os.getpid())
-            cmd = nvcc_command(os.path.join(_CSRC, SOURCES[n]), tmp, nvcc)
-            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT, text=True),
-                        tmp, out)
-        failed = []
-        for n, (proc, tmp, out) in procs.items():
-            log, _ = proc.communicate()
-            logs[n] = log
-            if proc.returncode != 0:
-                failed.append("%s (nvcc exit %d):\n%s"
-                              % (n, proc.returncode, log))
-            else:
-                os.replace(tmp, out)
-        if failed:
-            raise MXNetError("kernel build failed: " + "\n".join(failed))
+        # with a cache nvcc writes into a directory of its own, removed
+        # once the libraries are in the store
+        outdir = None if cache is None else tempfile.mkdtemp(
+            prefix="mxtt-build-")
+        try:
+            _run_nvcc(todo, nvcc, cache, outdir, logs)
+        finally:
+            if outdir is not None:
+                shutil.rmtree(outdir, ignore_errors=True)
     return logs
+
+
+def _run_nvcc(todo, nvcc, cache, outdir, logs) -> None:
+    """One nvcc a library of ``todo``, all started together; each output
+    is published into the store when there is a cache (and loaded from
+    there), else kept in BUILD_DIR, as is one the store could not take."""
+    global NVCC_RUNS
+    from ..compile_cache import get_stats
+    procs = {}
+    t0 = time.perf_counter()
+    for n in todo:
+        out = _lib_path(n) if outdir is None else os.path.join(
+            outdir, "lib%s.so" % n)
+        tmp = "%s.tmp-%d" % (out, os.getpid())
+        cmd = nvcc_command(os.path.join(_CSRC, SOURCES[n]), tmp, nvcc)
+        NVCC_RUNS += 1
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, out)
+    failed = []
+    stats = get_stats()
+    for n, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        logs[n] = log
+        BUILD_WALLS[n] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append("%s (nvcc exit %d):\n%s"
+                          % (n, proc.returncode, log))
+            continue
+        os.replace(tmp, out)
+        stats.note_build("kernel:" + n, BUILD_WALLS[n])
+        key = None
+        if cache is not None:
+            fkey, key = _store_keys(n, cache)
+            if cache.store_library(n, key, out) > 0:
+                cache.store.save_index(fkey, key)
+                out = cache.store.blob_path(key)
+            else:
+                key = None
+                shutil.move(out, _lib_path(n))
+                out = _lib_path(n)
+        _resolved[n] = (out, key)
+    if failed:
+        raise MXNetError("kernel build failed: " + "\n".join(failed))
 
 
 def _library(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    build([name])
-    with _build_lock:
-        lib = _libs.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(_lib_path(name))
+    for attempt in (0, 1):
+        build([name])
+        with _build_lock:
+            lib = _libs.get(name)
+            if lib is not None:
+                return lib
+            path, key = _resolved.pop(name)
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError as e:
+                if key is None or attempt:
+                    raise MXNetError("cannot load the %s kernel library %s: "
+                                     "%s" % (name, path, e))
+                # a stored entry that passed its digest but will not load
+                # (evicted under us, or written by an incompatible
+                # toolchain): drop it and build it again
+                from ..compile_cache import get_cache
+                from ..compile_cache.store import warn_once
+                warn_once("library-load",
+                          "stored %s library %s would not load (%s); "
+                          "rebuilding" % (name, key[:12], e))
+                get_cache().drop(key)
+                continue
             _declare(name, lib)
             _libs[name] = lib
-    return lib
+            return lib
+    raise MXNetError("cannot load the %s kernel library" % name)
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
@@ -174,11 +295,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     lib.mxtt_error_string.restype = ctypes.c_char_p
     if name == "fused_fc_epilogue":
         lib.mxtt_fc_epilogue.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
-                                         ctypes.c_float, i, p]
+                                         ctypes.c_float, i, i, p]
         lib.mxtt_fc_epilogue.restype = i
     elif name == "paged_attention":
         lib.mxtt_paged_attention.argtypes = [p] * 9 + [i] * 8 + [
-            ctypes.c_float, i, i, p]
+            ctypes.c_float, i, i, i, p]
         lib.mxtt_paged_attention.restype = i
     elif name == "flash_attention":
         lib.mxtt_flash_attention.argtypes = [p] * 4 + [i] * 5 + [
@@ -239,13 +360,63 @@ def fused_fc_epilogue_reference(x: torch.Tensor, w: torch.Tensor,
         requantize(acc, out_scale)
 
 
+# the kernel's compiled column tiles (csrc/fc_epilogue.cu launch_tile):
+# 4 warps of 2, 4 or 8 W rows each, for float32 x and W (float32 or int8
+# out); every other dtype pair has the default tile only
+FC_TILES = (8, 16, 32)
+FC_DEFAULT_TILE = 16
+
+
+def fc_tiles_for(x_dtype, w_dtype) -> tuple:
+    """The compiled ``block_n`` instances for these operand dtypes."""
+    if x_dtype == torch.float32 and w_dtype == torch.float32:
+        return FC_TILES
+    return (FC_DEFAULT_TILE,)
+
+
+def _searched_fc(n, k, act_type, int8, dtype, device, tiles):
+    """The kernel search's persisted ``block_n`` for this call's shape
+    class on this device, or None; only under ``MXNET_KERNEL_SEARCH=1``
+    and load-only.  A winner that is not a compiled instance for the
+    call's dtypes counts as no winner."""
+    if not get_env("MXNET_KERNEL_SEARCH", False, bool):
+        return None
+    from ..autotune import kernelsearch as ks
+    win = ks.best_config(ks.fc_class(n, k, act_type, int8, dtype),
+                         device=device)
+    bn = None if win is None else win.get("block_n")
+    return int(bn) if bn in tiles else None
+
+
+def fc_tile(x: torch.Tensor, w: torch.Tensor, act_type: str, int8: bool,
+            block_n: Optional[int] = None) -> int:
+    """The ``block_n`` a call runs: an explicit argument wins, then the
+    searched winner under ``MXNET_KERNEL_SEARCH=1``, then
+    :data:`FC_DEFAULT_TILE`.  A tile that is not a compiled instance for
+    the operands' dtypes raises."""
+    tiles = fc_tiles_for(x.dtype, w.dtype)
+    if block_n is None:
+        block_n = _searched_fc(int(w.shape[0]), int(w.shape[1]), act_type,
+                               int8, x.dtype, x.device, tiles) \
+            or FC_DEFAULT_TILE
+    if int(block_n) not in tiles:
+        raise MXNetError("fused_fc_epilogue: block_n %r is not a compiled "
+                         "instance for %s x %s (have %s)"
+                         % (block_n, x.dtype, w.dtype, tiles))
+    return int(block_n)
+
+
 def fused_fc_epilogue(x: torch.Tensor, w: torch.Tensor,
                       b: Optional[torch.Tensor], act_type: str,
-                      out_scale: Optional[float] = None) -> torch.Tensor:
+                      out_scale: Optional[float] = None,
+                      block_n: Optional[int] = None) -> torch.Tensor:
     """``act(x · wᵀ + b)`` for x (M, K), w (N, K), b (N,) or None, summed
     in float32; the result is (M, N) in x's dtype, or int8 codes
     ``clamp(rint(y * reciprocal_f32(out_scale)), ±127)`` when
-    ``out_scale`` is set (see :func:`requantize`).
+    ``out_scale`` is set (see :func:`requantize`).  ``block_n``: the
+    output columns a block owns, as :func:`fc_tile` resolves it; every
+    tile sums each output in the same order, so the result does not
+    depend on it.
 
     CUDA tensors launch the hand-written kernel (csrc/fc_epilogue.cu);
     CPU tensors take :func:`fused_fc_epilogue_reference`."""
@@ -265,6 +436,8 @@ def fused_fc_epilogue(x: torch.Tensor, w: torch.Tensor,
                          % (tuple(b.shape), n))
     tensors = [x, w] + ([b] if b is not None else [])
     if all(t.device.type == "cpu" for t in tensors):
+        if block_n is not None:
+            fc_tile(x, w, act_type, out_scale is not None, block_n)
         return fused_fc_epilogue_reference(x, w, b, act_type, out_scale)
     if any(t.device != x.device for t in tensors) or x.device.type != "cuda":
         raise MXNetError("fused_fc_epilogue: inputs must all be on one CUDA "
@@ -278,6 +451,7 @@ def fused_fc_epilogue(x: torch.Tensor, w: torch.Tensor,
     if m > 65535 * 8 or n > 2 ** 31 - 1:
         raise MXNetError("fused_fc_epilogue: shape (%d, %d) exceeds the "
                          "kernel's grid" % (m, n))
+    tile = fc_tile(x, w, act_type, out_scale is not None, block_n)
     out = torch.empty((m, n), device=x.device,
                       dtype=torch.int8 if out_scale is not None else x.dtype)
     if m == 0 or n == 0:
@@ -288,7 +462,7 @@ def fused_fc_epilogue(x: torch.Tensor, w: torch.Tensor,
         x.data_ptr(), w.data_ptr(), b32.data_ptr() if b32 is not None else None,
         out.data_ptr(), m, n, k, _FLOAT_CODES[x.dtype], _FLOAT_CODES[w.dtype],
         ACT_CODES[act_type], int(out_scale is not None),
-        reciprocal_f32(out_scale) if out_scale is not None else 1.0,
+        reciprocal_f32(out_scale) if out_scale is not None else 1.0, tile,
         x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
     _check(lib, "fused_fc_epilogue", rc)
     _count("fused_fc_epilogue")
@@ -299,28 +473,66 @@ def fused_fc_epilogue(x: torch.Tensor, w: torch.Tensor,
 # paged_attention
 
 PAGED_MAX_HEAD_DIM = 128
-# logical keys per split-K partition (csrc/paged_attention.cu kPartKeys)
+# logical keys per split-K partition (csrc/paged_attention.cu part_keys):
+# the default, and the candidates the kernel search measures (0: one pass)
 PAGED_PARTITION_KEYS = 256
+PAGED_PART_KEYS = (128, 256, 512, 1024, 0)
 
 
 # query rows per block of the kernel at C > 1 (csrc/paged_attention.cu kTileQ)
 PAGED_TILE_Q = 16
 
 
-def paged_partitions(c: int, cap: int) -> int:
+def paged_partitions(c: int, cap: int, part_keys: Optional[int] = None) -> int:
     """The split-K partitions a ``paged_attention`` call runs for C query
     rows per slot over a page table of ``cap = B * bt`` keys.  With one
     row tile per (slot, head) (C <= 16: decode and speculative verify)
-    the keys are cut into :data:`PAGED_PARTITION_KEYS`-key partitions
-    that blocks take in parallel, merged by a second kernel; with two or
-    more row tiles (chunked prefill) the tiles already spread the work
-    and one pass is faster (on an H100, at 16 slots x 12 heads, C = 32;
-    PERF.md).  Depends on shapes only,
-    never on lengths or page contents, so every layout of one logical
-    cache takes the same partitions."""
-    if int(c) > PAGED_TILE_Q:
+    the keys are cut into ``part_keys``-key partitions (default
+    :data:`PAGED_PARTITION_KEYS`; 0 means one pass) that blocks take in
+    parallel, merged by a second kernel; with two or more row tiles
+    (chunked prefill) the tiles already spread the work and one pass is
+    faster (on an H100, at 16 slots x 12 heads, C = 32; PERF.md).
+    Depends on shapes and the partition length only, never on lengths or
+    page contents, so every layout of one logical cache takes the same
+    partitions."""
+    if part_keys is None:
+        part_keys = PAGED_PARTITION_KEYS
+    if int(c) > PAGED_TILE_Q or not part_keys:
         return 1
-    return max(1, -(-int(cap) // PAGED_PARTITION_KEYS))
+    return max(1, -(-int(cap) // int(part_keys)))
+
+
+def _searched_paged(bt, d, causal, dtype, cap, device):
+    """The kernel search's persisted partition length for this call's
+    class (``paged_cap_class``: the shapes and the page table's capacity
+    ``cap``) on this device, or None; only under
+    ``MXNET_KERNEL_SEARCH=1`` and load-only.  The class holds no C and no
+    length, so a decode and a verify call of one engine, and every layout
+    of one cache, take the same partitions.  A winner that is not one of
+    :data:`PAGED_PART_KEYS` counts as no winner."""
+    if not get_env("MXNET_KERNEL_SEARCH", False, bool):
+        return None
+    from ..autotune import kernelsearch as ks
+    win = ks.best_config(ks.paged_cap_class(bt, d, causal, dtype, cap),
+                         device=device)
+    pk = None if win is None else win.get("part_keys")
+    return int(pk) if pk in PAGED_PART_KEYS else None
+
+
+def paged_part_keys(bt: int, d: int, causal: bool, dtype, cap: int, device,
+                    part_keys: Optional[int] = None) -> int:
+    """The partition length a call runs: an explicit argument wins, then
+    the searched winner under ``MXNET_KERNEL_SEARCH=1``, then
+    :data:`PAGED_PARTITION_KEYS`; a value not in :data:`PAGED_PART_KEYS`
+    raises."""
+    if part_keys is None:
+        part_keys = _searched_paged(bt, d, causal, dtype, cap, device)
+        if part_keys is None:
+            part_keys = PAGED_PARTITION_KEYS
+    if int(part_keys) not in PAGED_PART_KEYS:
+        raise MXNetError("paged_attention: part_keys %r is not one of %s"
+                         % (part_keys, PAGED_PART_KEYS))
+    return int(part_keys)
 
 
 def paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
@@ -358,7 +570,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, pages: torch.Tensor,
                     lengths: torch.Tensor,
                     q_pos: Optional[torch.Tensor] = None,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True,
+                    part_keys: Optional[int] = None) -> torch.Tensor:
     """Attention through a paged KV cache.  q (S, C, H, D) is a window of
     C queries per slot; k_pool / v_pool (N, bt, H, D) are the block pools
     (a sentinel scratch block may sit at N - 1: page entries clamp to
@@ -369,7 +582,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
     CUDA tensors launch the hand-written kernel (csrc/paged_attention.cu,
     float32 q and pools, int32 indices, D <= 128; split-K as
-    :func:`paged_partitions` says, one launch counted per call); CPU
+    :func:`paged_partitions` says for the partition length
+    :func:`paged_part_keys` resolves, one launch counted per call); CPU
     tensors take :func:`paged_attention_reference`."""
     if q.dim() != 4 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape \
             or k_pool.shape[2:] != q.shape[2:]:
@@ -391,6 +605,10 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          % (tuple(q_pos.shape), s_, c))
     tensors = (q, k_pool, v_pool, pages, lengths, q_pos)
     if all(t.device.type == "cpu" for t in tensors):
+        if part_keys is not None:
+            paged_part_keys(k_pool.shape[1], d, causal, q.dtype,
+                            pages.shape[1] * k_pool.shape[1], q.device,
+                            part_keys)
         return paged_attention_reference(q, k_pool, v_pool, pages, lengths,
                                          q_pos, causal)
     if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
@@ -414,15 +632,20 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         return torch.empty_like(q)
     if k_pool.shape[0] == 0 or pages.shape[1] == 0:
         raise MXNetError("paged_attention: empty pool or page table")
+    pk = paged_part_keys(k_pool.shape[1], d, causal, q.dtype,
+                         pages.shape[1] * k_pool.shape[1], q.device,
+                         part_keys)
     return _launch_paged(q, k_pool, v_pool, pages, lengths, q_pos, causal,
-                         paged_partitions(c, pages.shape[1] * k_pool.shape[1]))
+                         paged_partitions(c, pages.shape[1] * k_pool.shape[1],
+                                          pk), pk or PAGED_PARTITION_KEYS)
 
 
 def _launch_paged(q, k_pool, v_pool, pages, lengths, q_pos, causal,
-                  n_part: int) -> torch.Tensor:
-    """The kernel on checked CUDA tensors with ``n_part`` partitions (1:
-    one pass writes the output; more: partials into scratch, then the
-    merge kernel), counted once."""
+                  n_part: int,
+                  part_keys: int = PAGED_PARTITION_KEYS) -> torch.Tensor:
+    """The kernel on checked CUDA tensors with ``n_part`` partitions of
+    ``part_keys`` keys (1: one pass writes the output; more: partials
+    into scratch, then the merge kernel), counted once."""
     s_, c, h, d = q.shape
     n, bt = k_pool.shape[0], k_pool.shape[1]
     b = pages.shape[1]
@@ -439,8 +662,9 @@ def _launch_paged(q, k_pool, v_pool, pages, lengths, q_pos, causal,
         lengths.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
         part_ml.data_ptr() if part_ml is not None else None,
         part_acc.data_ptr() if part_acc is not None else None, s_, c, h, d,
-        n, bt, b, int(bool(causal)), 1.0 / math.sqrt(d), int(n_part),
-        q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream)
+        n, bt, b, int(bool(causal)), 1.0 / math.sqrt(d), int(part_keys),
+        int(n_part), q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _check(lib, "paged_attention", rc)
     _count("paged_attention")
     return out

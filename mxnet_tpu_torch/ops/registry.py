@@ -121,6 +121,8 @@ class OpContext:
                  mesh=None):
         self.is_train = is_train
         self.generator = generator
+        # a DrawTape while a checkpointed region runs (executor.checkpointed)
+        self.tape = None
         self.dp = dp if dp is not None and dp.size > 1 else None
         # the mesh of a sharded walk (None: every value is replicated)
         self.mesh = mesh
@@ -144,7 +146,13 @@ class OpContext:
         (``[(dim, Axis)]``), as one device draws them for the whole
         value: ``fn(whole shape)`` draws the whole (the same numbers on
         every rank, the generators being in one state) and this rank's
-        part is kept.  Without cuts, ``fn(shape)``."""
+        part is kept.  Without cuts, ``fn(shape)``.  Inside a checkpointed
+        region (``tape`` set) the first run records each draw and the
+        recompute replays them, so the generator advances once and the
+        recompute sees the same numbers."""
+        tape = self.tape
+        if tape is not None and tape.recorded:
+            return tape.replay()
         whole = list(shape)
         for d, ax in cuts:
             whole[d] *= ax.size
@@ -152,6 +160,8 @@ class OpContext:
         for d, ax in cuts:
             n = shape[d]
             u = u.narrow(d, ax.index * n, n)
+        if tape is not None:
+            tape.record(u)
         return u
 
 
@@ -341,7 +351,9 @@ def register_simple_op(name: str, fn, nin: int = 1, infer_shape=None,
 
     def forward(p, inputs, aux, ctx):
         if needs_rng:
-            return [fn(p, *inputs, generator=ctx.generator)]
+            # through ctx.draw, so a checkpointed region's tape replays it
+            return [ctx.draw(lambda _s: fn(p, *inputs,
+                                          generator=ctx.generator), ())]
         return [fn(p, *inputs)]
     op.forward = forward
     _OP_REGISTRY[name] = op

@@ -16,7 +16,7 @@ results are the single-process results.
 ``compute_dtype`` (e.g. ``torch.bfloat16``) runs the forward and
 backward in that type over float32 master params and momentum; labels
 and embedding ids stay uncast.  ``remat=True`` recomputes the whole
-loss in the backward (``torch.utils.checkpoint``).
+loss in the backward (``executor.checkpointed``: its draws replayed).
 ``MXNET_SHARD_WEIGHT_UPDATE=1`` reduce-scatters the gradients of params
 whose leading dim the dp size divides, updates this rank's rows and
 their momentum only, and all-gathers the rows back.
@@ -37,7 +37,7 @@ import torch
 
 from ..base import MXNetError, get_env
 from ..context import gpu
-from ..executor import _GraphProgram
+from ..executor import _GraphProgram, checkpointed
 from ..ops.registry import OpContext
 from .. import random as _random
 from . import collectives as C
@@ -195,9 +195,7 @@ class DPTrainStep:
         leaves = [params[n] for n in names]
         with torch.enable_grad():
             if self._remat:
-                from torch.utils.checkpoint import checkpoint
-                outs, new_aux = checkpoint(loss, *leaves,
-                                           use_reentrant=False)
+                outs, new_aux = checkpointed(loss, opctx, *leaves)
             else:
                 outs, new_aux = loss(*leaves)
             heads = [o for o in outs if o.requires_grad]

@@ -207,16 +207,22 @@ class Predictor:
         finally:
             self._exec, self._input_shapes = keep_exec, keep_shapes
 
-    def precompile(self, shape_sets) -> int:
-        """Bind every shape set and run one forward of each (zeros in),
-        so buffers, library handles and the kernels' builds are ready
-        before the first real input.  The port has no compile cache yet
-        (ROADMAP.md, queue 1 item 11): nothing persists across processes.
-        Returns the number of shape sets warmed."""
-        shape_sets = list(shape_sets)
-        for shapes in shape_sets:
-            self.ensure_bound(dict(shapes)).forward(is_train=False)
-        return len(shape_sets)
+    def precompile(self, shape_sets, threads=None) -> int:
+        """Bind every shape set (one at a time: they share the weights)
+        and build each one's inference program through a bounded pool
+        (``compile_cache.parallel_warm``; ``threads`` bounds it):
+        ``Executor.precompile``, which hands out no outputs, so the
+        kernels' libraries (from the store under
+        ``MXNET_COMPILE_CACHE``), cuBLAS/cuDNN plans and allocator
+        blocks are ready before the first real input.  A failure names
+        its shape set (``WarmupError``).  Returns the number of shape
+        sets warmed."""
+        from .compile_cache import parallel_warm
+        execs = [(dict(s), self.ensure_bound(dict(s))) for s in shape_sets]
+        return len(parallel_warm(
+            [("shapes %s" % (sorted(s.items()),),
+              lambda e=ex: e.precompile(("fwd_eval",)))
+             for s, ex in execs], threads=threads))
 
     def predict(self, data) -> np.ndarray:
         """One-shot: set the first input, forward, output 0."""

@@ -28,6 +28,13 @@ The fault plane's ``FaultStats`` (kind ``plane``), every
 every ``dist.FleetSupervisor``'s ``FleetStats`` (kind ``fleet``) share
 one registry (:func:`faults_report`): what broke and how it recovered.
 
+Every tuning run (``autotune.Autotuner``, ``JointTuner``, the kernel
+searches) registers its ``AutotuneStats`` (:func:`autotune_report`; the
+autotune package keeps the last 64 alive), and :func:`compile_report`
+is a view over the process's one ``compile_cache.CompileStats`` (per
+program builds, hits, misses, bypasses and steady-state rebuilds) and
+the persistent store.
+
 The trace timeline, ``scope`` and the other report families wait for
 ROADMAP.md queue 1 item 12.
 """
@@ -43,7 +50,9 @@ __all__ = ["register_serve_stats", "serve_report", "serve_report_str",
            "register_embed_stats", "embed_report", "embed_report_str",
            "register_moe_stats", "moe_report", "moe_report_str",
            "register_feed_stats", "feed_report", "feed_report_str",
-           "register_faults_stats", "faults_report", "faults_report_str"]
+           "register_faults_stats", "faults_report", "faults_report_str",
+           "register_autotune_stats", "autotune_report",
+           "autotune_report_str", "compile_report", "compile_report_str"]
 
 # register() runs on constructing threads while readers iterate: every
 # reader snapshot-copies under this lock first
@@ -285,3 +294,40 @@ def faults_report() -> dict:
 def faults_report_str() -> str:
     """The fault-injection and recovery table as text."""
     return _faults_registry.report_str()
+
+
+# -- autotune runs (mxnet_tpu_torch.autotune) ---------------------------------
+_autotune_registry = _Registry("autotune", "(no autotune runs)")
+
+
+def register_autotune_stats(autotune_stats) -> None:
+    """Called by every tuner on construction."""
+    _autotune_registry.register(autotune_stats)
+
+
+def autotune_report() -> dict:
+    """{run key: record} per tuning run: the store key, whether the
+    config was measured or loaded, every candidate's cost, the winner."""
+    return _autotune_registry.report()
+
+
+def autotune_report_str() -> str:
+    """The candidate/cost table of each tuning run as text."""
+    return _autotune_registry.report_str()
+
+
+# -- builds (mxnet_tpu_torch.compile_cache) -----------------------------------
+# One CompileStats per process, owned by compile_cache; these are views.
+
+def compile_report() -> dict:
+    """Per-program build seconds, hits / misses / bypasses (with the
+    reason in-process programs are not stored), steady-state rebuilds,
+    and the store's directory, entries and bytes."""
+    from .compile_cache import get_cache, get_stats
+    return get_stats().report(cache=get_cache())
+
+
+def compile_report_str() -> str:
+    """The build table as text (see :func:`compile_report`)."""
+    from .compile_cache import get_cache, get_stats
+    return get_stats().report_str(cache=get_cache())

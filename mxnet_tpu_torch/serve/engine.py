@@ -37,7 +37,7 @@ from ..base import get_env
 from ..context import Context
 from ..faults import point as _fault_point
 from ..passes.embed import default_embed_dedup
-from ..passes.quantize import build_serving_pipeline, not_ported
+from ..passes.quantize import build_serving_pipeline
 from ..predictor import Predictor, load_checkpoint_pair
 from .batcher import MicroBatcher
 from .errors import ServeError, ServeRequestError
@@ -105,8 +105,17 @@ class ServeEngine:
     is called on every rank too, and each rank applies it when the front
     does; a follower's ``close()`` returns once the front has closed.
 
-    ``autotune`` is not in the port yet and raises
-    ``NotImplementedError`` when given.
+    ``autotune=True`` (or ``MXNET_AUTOTUNE=1``) picks fusion on or off
+    by measuring (``autotune.tune_serve_pipeline``); ``"joint"`` searches
+    fusion x bucket grid x quantize op set
+    (``autotune.tune_serve_joint``; an explicit ``batch_buckets`` pins
+    the grid).  An explicit ``pipeline=`` or ``fuse=`` wins over both.
+    The winner persists, and a fresh process loads it without measuring.
+
+    Warm-up (``warmup=True``, on the dispatcher thread as the engine
+    starts): each bucket runs once through the batch path, counted as
+    its program's build in ``compile_report()``; a failure names its
+    bucket.
     """
 
     def __init__(self, symbol, params: Dict,
@@ -124,14 +133,13 @@ class ServeEngine:
                  quantize=None, calib_data=None, u8_wire=None,
                  fuse=None, pipeline=None, autotune=None,
                  embed_dedup=None):
-        if autotune is not None and autotune is not False:
-            raise not_ported("ServeEngine(autotune=)")
         if param_specs and mesh is None:
             raise ServeError("param_specs without mesh=: specs are "
                              "PartitionSpecs over a named mesh")
         if not input_shapes:
             raise ServeError("input_shapes must name at least one input")
         sym_json = symbol.tojson() if hasattr(symbol, "tojson") else symbol
+        explicit_buckets = batch_buckets is not None
         if batch_buckets is None:
             batch_buckets = default_buckets(
                 get_env("MXNET_SERVE_MAX_BATCH", 8, int))
@@ -173,10 +181,37 @@ class ServeEngine:
         self._shapes_by_bucket = {b: {k: (b,) + v[1:]
                                       for k, v in self._shapes_tpl.items()}
                                   for b in self._buckets}
+        from ..autotune import mode as _autotune_mode
+        autotuned = False
+        amode = _autotune_mode(autotune) \
+            if pipeline is None and fuse is None else None
+        if amode == "joint":
+            from ..autotune import tune_serve_joint
+            fuse, win_buckets, quantize, pipeline = tune_serve_joint(
+                sym_json, params, self._shapes_tpl, self._buckets,
+                data_name=data_name, quantize=quantize,
+                calib_data=calib_data, u8_wire=u8_wire,
+                dev=(dev_type, dev_id), name=name,
+                explicit_buckets=explicit_buckets)
+            if win_buckets != self._buckets:
+                self._buckets = win_buckets
+                self.max_batch_size = self._buckets[-1]
+                self._shapes_by_bucket = {
+                    b: {k: (b,) + v[1:] for k, v in self._shapes_tpl.items()}
+                    for b in self._buckets}
+            autotuned = True
+        elif amode is not None:
+            from ..autotune import tune_serve_pipeline
+            fuse, pipeline = tune_serve_pipeline(
+                sym_json, params, self._shapes_by_bucket[self.max_batch_size],
+                data_name=data_name, quantize=quantize,
+                calib_data=calib_data, u8_wire=u8_wire,
+                dev=(dev_type, dev_id), name=name)
+            autotuned = True
         if embed_dedup is None and pipeline is None:
             # the env default alone builds a pipeline too
             embed_dedup = default_embed_dedup() or None
-        if pipeline is None and (quantize or u8_wire or fuse
+        if pipeline is None and (quantize or u8_wire or fuse or autotuned
                                  or embed_dedup):
             pipeline = build_serving_pipeline(
                 quantize=quantize, calib_data=calib_data,
@@ -269,14 +304,22 @@ class ServeEngine:
                 for name, shape in self._shapes_by_bucket[bucket].items()}
 
     def _warmup(self) -> None:
-        """Run every bucket once through the batch path, on the
-        dispatcher thread: allocator pools, the pinned output buffers,
-        the thread's cuDNN/cuBLAS handles and plans and the kernels'
-        libraries are all ready before the first request."""
+        """Run every bucket once through the batch path before the first
+        request, on the dispatcher thread (reference engine.py:366-400):
+        the kernels' libraries (from the store under
+        ``MXNET_COMPILE_CACHE``), allocator blocks, the thread's
+        cuBLAS/cuDNN handles and plans and the pinned output buffers are
+        all ready then.  That run is the bucket's program build in
+        ``compile_report()``.  One pass, on one thread: the reference's
+        pool of compiles has no counterpart here, since eager walks on
+        one device serialize on it and on the GIL.  A failure raises a
+        ServeError naming its bucket."""
         for b in self._buckets:
+            prog = self._predictor.ensure_bound(
+                self._shapes_by_bucket[b])._program("fwd_eval")
             try:
-                self._finish(self._execute(
-                    np.zeros((b,) + self.item_shape, self._data_dtype), b))
+                prog.first_run(lambda b=b: self._finish(self._execute(
+                    np.zeros((b,) + self.item_shape, self._data_dtype), b)))
             except Exception as e:
                 self._grid_fail(b, "first run", e)
 

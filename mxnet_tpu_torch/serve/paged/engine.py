@@ -39,8 +39,9 @@ Knobs: ``MXNET_KVPOOL_BLOCKS``, ``MXNET_KVPOOL_BLOCK_TOKENS``,
 ``MXNET_SERVE_DECODE_QUEUE``, ``MXNET_SERVE_MAX_TOKENS``.  There is no
 knob that turns the kernel off.  Each step passes the ``paged.step``
 fault point, and the engine's stats are a row of
-``mx.profiler.serve_report()``.  Trace spans and the compile cache are
-not in the port yet (ROADMAP queue 1 items 11 and 12).
+``mx.profiler.serve_report()``.  Trace spans are not in the port yet
+(ROADMAP queue 1 item 12); under ``MXNET_COMPILE_CACHE`` the kernel's
+library comes from the persistent store.
 """
 from __future__ import annotations
 

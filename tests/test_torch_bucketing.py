@@ -280,7 +280,8 @@ def test_bucketing_unported_options_raise():
                                   context=tmx.cpu())
     it = _BucketIter(tmx, _plan(n=1))
     mod.bind(it.provide_data, it.provide_label)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # precompile is ported: like the reference's it needs init_params
+    with pytest.raises(AssertionError, match="init_params"):
         mod.precompile({})
     # install_monitor is ported: it installs on every bucket bound so far
     mon = tmx.Monitor(1)

@@ -156,13 +156,12 @@ def test_world1_group_on_first_use_of_a_mesh(world1):
                                   "fleet_multichip_report"])
 def test_later_dist_names_raise(name):
     """The fleet and the serve seam load lazily, as the reference's names
-    do; the sharding search (after item 11's compile cache) and the
-    fleet report (with item 12's trace journals) still raise, naming
-    their item."""
+    do; the sharding search (item 10c) and the fleet report (with item
+    12's trace journals) still raise, naming their item."""
     if name in ("FleetSupervisor", "RpcReplica"):
         assert getattr(tmx.dist, name).__name__ == name
         return
-    item = "item 11" if name == "search_sharding" else "item 12"
+    item = "item 10c" if name == "search_sharding" else "item 12"
     with pytest.raises(NotImplementedError, match=item):
         getattr(tmx.dist, name)
 

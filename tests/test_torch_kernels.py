@@ -124,3 +124,64 @@ def test_build_targets_hopper_from_repo_source():
     cmd = ck.nvcc_command(src, "/dev/null")
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     assert ck._lib_path("fused_fc_epilogue").startswith(ck.BUILD_DIR)
+
+
+# -- the column tile the kernel search chooses among --------------------------
+
+def test_tile_is_a_compiled_instance_in_the_source():
+    """block_n is a template parameter with an instance per FC_TILES
+    entry for float32 operands, and an argument of the C interface."""
+    src = os.path.join(ck._CSRC, ck.SOURCES["fused_fc_epilogue"])
+    with open(src) as f:
+        text = f.read()
+    assert "template <typename TX, typename TW, typename TO, int " \
+        "kRowsPerWarp>" in text
+    assert "constexpr int kWarps = 4;" in text
+    assert "constexpr int kDefaultRows = %d;" % (ck.FC_DEFAULT_TILE // 4) \
+        in text
+    for bn in ck.FC_TILES:
+        if bn != ck.FC_DEFAULT_TILE:
+            assert "block_n == kWarps * %d" % (bn // 4) in text
+    assert "float inv_scale, int block_n, int device," in text
+    assert ck.FC_DEFAULT_TILE in ck.FC_TILES
+    assert ck.fc_tiles_for(torch.float32, torch.float32) == ck.FC_TILES
+    assert ck.fc_tiles_for(torch.float16, torch.float32) == \
+        (ck.FC_DEFAULT_TILE,)
+
+
+@pytest.mark.parametrize("name,fn", [("fused_fc_epilogue",
+                                      "mxtt_fc_epilogue"),
+                                     ("paged_attention",
+                                      "mxtt_paged_attention")])
+def test_ctypes_declaration_matches_c_interface(name, fn):
+    """The wrapper declares as many arguments as the C function takes."""
+    import re
+    with open(os.path.join(ck._CSRC, ck.SOURCES[name])) as f:
+        text = f.read()
+    sig = re.search(r'extern "C" int %s\(([^)]*)\)' % fn, text).group(1)
+    n_args = len([a for a in sig.split(",") if a.strip()])
+
+    class Fn:
+        argtypes = None
+        restype = None
+
+    class Lib:
+        mxtt_error_string = Fn()
+    setattr(Lib, fn, Fn())
+    lib = Lib()
+    ck._declare(name, lib)
+    assert len(getattr(lib, fn).argtypes) == n_args
+
+
+@pytest.mark.parametrize("block_n", list(ck.FC_TILES))
+def test_every_tile_gives_the_plain_version_on_host(block_n):
+    x, w, b = (torch.from_numpy(a) for a in _inputs(5, 40, 21, seed=3))
+    want = ck.fused_fc_epilogue(x, w, b, "relu")
+    got = ck.fused_fc_epilogue(x, w, b, "relu", block_n=block_n)
+    assert torch.equal(got, want)
+    q = ck.fused_fc_epilogue(x, w, b, "relu", out_scale=0.01,
+                             block_n=block_n)
+    assert torch.equal(q, ck.fused_fc_epilogue(x, w, b, "relu",
+                                               out_scale=0.01))
+    with pytest.raises(MXNetError, match="compiled instance"):
+        ck.fused_fc_epilogue(x, w, b, "relu", block_n=block_n + 1)

@@ -395,8 +395,7 @@ def test_outputs_before_update_commit_nothing_and_eval_uses_live_params():
 def test_fit_rejects_unported_options():
     mod = tmx.mod.Module(tmx.models.get_mlp(), context=tmx.cpu())
     it = tmx.io.NDArrayIter(np.zeros((4, 784)), np.zeros(4), batch_size=4)
-    for kw, item in (({"mesh": "dp=1", "sharding": "auto"}, "item 10c"),
-                     ({"autotune": True}, "item 11")):
+    for kw, item in (({"mesh": "dp=1", "sharding": "auto"}, "item 10c"),):
         with pytest.raises(NotImplementedError, match=item):
             mod.fit(it, num_epoch=1, **kw)
     # a mesh wider than the process group (one process here) is refused
@@ -457,7 +456,7 @@ def test_capture_failure_raises_and_runs_no_eager_step(monkeypatch):
     class FakeGraph:
         pass
 
-    def refuse(graph):
+    def refuse(graph, **kwargs):
         raise Refused("capture refused")
     monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph", refuse)

@@ -216,7 +216,9 @@ def test_kernel_source_targets_hopper():
     assert ck._lib_path("paged_attention") != \
         ck._lib_path("fused_fc_epilogue")
     # split-K with a merge kernel, a cp.async ring, P from shared memory
-    assert "constexpr int kPartKeys = %d;" % ck.PAGED_PARTITION_KEYS in text
+    # the partition length is an argument the wrapper passes (searched)
+    assert "int part_keys, int n_part" in text and \
+        ck.PAGED_PARTITION_KEYS in ck.PAGED_PART_KEYS
     assert "constexpr int kTileQ = %d;" % ck.PAGED_TILE_Q in text
     assert "paged_attention_merge_kernel" in text
     assert '#include "attention.cuh"' in text and "cp_async16(" in text

@@ -193,16 +193,25 @@ def test_default_device_predictor_raises_without_card():
 
 
 @pytest.mark.parametrize("option", ["mesh", "param_specs", "autotune"])
-def test_unported_serve_options_raise(option):
-    """``autotune`` is not ported; ``mesh`` and ``param_specs`` are
-    (``tests/test_torch_multichip.py``) and refuse what the JAX package
-    refuses: a mesh wider than the process group, specs without a
-    mesh."""
+def test_unported_serve_options_raise(option, tmp_path, monkeypatch):
+    """Every option is ported now: ``autotune`` builds the engine
+    (``tests/test_torch_autotune.py`` holds its answers); ``mesh`` and
+    ``param_specs`` (``tests/test_torch_multichip.py``) refuse what the
+    JAX package refuses: a mesh wider than the process group, specs
+    without a mesh."""
     sym = mt.models.get_mlp()
+    if option == "autotune":
+        monkeypatch.setenv("MXNET_AUTOTUNE_DIR", str(tmp_path))
+        eng = mt.serve.ServeEngine(sym, {}, {"data": (1, 784)},
+                                   dev_type="cpu", batch_buckets=(1, 2),
+                                   autotune=True)
+        eng.close()
+        assert mt.autotune.recent_stats()[-1].name == "serve:pipeline"
+        return
     value, error, match = {
         "mesh": ("tp=2", ValueError, "needs 2 devices, have 1"),
-        "param_specs": ({"a": 1}, mt.serve.ServeError, "without mesh"),
-        "autotune": (True, NotImplementedError, "ROADMAP")}[option]
+        "param_specs": ({"a": 1}, mt.serve.ServeError,
+                        "without mesh")}[option]
     with pytest.raises(error, match=match):
         mt.serve.ServeEngine(sym, {}, {"data": (1, 784)}, dev_type="cpu",
                              **{option: value})
