@@ -9058,6 +9058,559 @@ def p24_phase(torch, mt, ck, smi, root):
     return out
 
 
+# Phase 25: the trace runtime and the rest of mx.profiler on the card,
+# the shard search, one online round.
+# (a) phase 18's PTB LSTM fused step (batch 32): replays with tracing
+#     off, then on; the captures, steady rebuilds and synchronize calls
+#     the same, one fused:dispatch span a replay.
+# (b) phase 4's fused VGG-16 ServeEngine and phase 7's PagedDecodeEngine
+#     (GPT-2-small geometry), requests one at a time (so the batches and
+#     steps, and with them the launches, do not depend on timing),
+#     untraced then traced: each request's flow opens and closes once,
+#     one serve:paged_step span a step, the same launches.
+# (c) the device timeline: profiler_set_state("run") around a few paged
+#     steps and one VGG-16 batch; the Chrome trace names the hand kernels
+#     on the CUDA lanes.
+# (d) sharding="auto" for VGG-16 at dp=1 x tp=2 over two gloo ranks on
+#     the card, shortlist 2, 3 steps; the winner's first step against
+#     one process's (phase 22's gate, SCALE_RATIO x the one-ulp nudge);
+#     a second pair of ranks resolves from the store with no trial; the
+#     card's memory around the search.
+# (e) one online round: a ServeRouter over two fused VGG-16 replicas
+#     with CaptureWriter(sample=1.0), an OnlineTrainer epoch on the
+#     sealed shards, a gated promotion under 4 submitting threads.
+P25_REPLAYS = 200
+P25_SERVE_N = 32
+P25_LM_PROMPTS = (5, 17, 40, 3, 64, 9, 28, 12)
+P25_LM_NEW = 12
+P25_TP_BATCH = 8
+P25_ONLINE_N = 64
+P25_ONLINE_BATCH = 8
+P25_ONLINE_OPT = {"learning_rate": 0.001, "momentum": 0.9}
+P25_MEM_TOL = 0.05
+P25_SERVE_SHAPES = {"data": (1, 3, 224, 224), "softmax_label": (1,)}
+
+
+def p25_events(mt, tmp, name):
+    path = mt.profiler.dump_trace(os.path.join(tmp, name))
+    with open(path) as f:
+        doc = json.load(f)
+    return [e for e in doc["traceEvents"] if e.get("ph") != "M"]
+
+
+def p25_flows(evs, name):
+    """{async id: [begins, ends]} of one async span name."""
+    out = {}
+    for e in evs:
+        if e.get("name") == name and e["ph"] in ("b", "e"):
+            out.setdefault(e["id"], [0, 0])[e["ph"] == "e"] += 1
+    return out
+
+
+def p25_train(torch, mt, smi):
+    """(a)."""
+    from mxnet_tpu_torch.compile_cache import get_stats
+    arg0 = lstm_params(mt, LSTM_HIDDEN, 30)
+    mod = lstm_module(mt, mt.models.lstm_unroll, LSTM_HIDDEN, SUPER_BATCH,
+                      arg0, True)
+    rng = np.random.default_rng(31)
+    fused = mod._fused
+    bufs = fused.make_batch(token_batch(mt, rng, mt.cpu(), SUPER_BATCH,
+                                        LSTM_SEQ, LSTM_HIDDEN))
+    for _ in range(8):                      # warm-up and capture
+        fused.step(bufs)
+    torch.cuda.synchronize()
+    syncs = [0]
+    real_sync = torch.cuda.synchronize
+
+    def counted(*a, **kw):
+        syncs[0] += 1
+        return real_sync(*a, **kw)
+    out = {}
+    torch.cuda.synchronize = counted
+    try:
+        for label, on in (("off", False), ("on", True)):
+            mt.trace.reset()
+            mt.trace.set_enabled(on)
+            g0 = fused.stats.report()
+            r0 = get_stats().report()["totals"]["steady_rebuilds"]
+            real_sync()
+            s0 = syncs[0]
+            t0 = time.perf_counter()
+            for _ in range(P25_REPLAYS):
+                fused.step(bufs)
+            real_sync()
+            wall = time.perf_counter() - t0
+            g1 = fused.stats.report()
+            out[label] = {
+                "replays_s": P25_REPLAYS / wall, "syncs": syncs[0] - s0,
+                "graphs": {k: g1[k] - g0[k] for k in g1},
+                "rebuilds": get_stats().report()["totals"][
+                    "steady_rebuilds"] - r0,
+                "dispatch": len(mt.trace.span_events(
+                    names=("fused:dispatch",)))}
+    finally:
+        torch.cuda.synchronize = real_sync
+        mt.trace.set_enabled(True)
+    del mod, fused, bufs
+    gc.collect()
+    torch.cuda.empty_cache()
+    off, on = out["off"], out["on"]
+    ratio = on["replays_s"] / off["replays_s"]
+    print("p25 (a): PTB LSTM 2x%d batch %d, %d replays: tracing off %.1f "
+          "replays/s, on %.1f replays/s (ratio %.4f); synchronize calls "
+          "off %d on %d; graphs off %s on %s; steady rebuilds off %d on %d; "
+          "fused:dispatch spans off %d on %d; card %s" % (
+              LSTM_HIDDEN, SUPER_BATCH, P25_REPLAYS, off["replays_s"],
+              on["replays_s"], ratio, off["syncs"], on["syncs"],
+              off["graphs"], on["graphs"], off["rebuilds"], on["rebuilds"],
+              off["dispatch"], on["dispatch"], smi))
+    if off["graphs"] != on["graphs"] or on["graphs"]["replays"] != \
+            P25_REPLAYS or on["graphs"]["captures"]:
+        fail("(a) tracing changed the graphs: %s against %s"
+             % (on["graphs"], off["graphs"]))
+    if off["rebuilds"] != on["rebuilds"]:
+        fail("(a) tracing changed the steady rebuilds")
+    if on["syncs"] != off["syncs"]:
+        fail("(a) the traced run added %d synchronize calls"
+             % (on["syncs"] - off["syncs"]))
+    if on["dispatch"] != P25_REPLAYS or off["dispatch"]:
+        fail("(a) %d fused:dispatch spans for %d replays (untraced %d)"
+             % (on["dispatch"], P25_REPLAYS, off["dispatch"]))
+    return {"ratio": ratio, "off": off, "on": on}
+
+
+def p25_serve(torch, mt, ck, tmp, smi, sym, params):
+    """(b) and (c)."""
+    from mxnet_tpu_torch.serve import LMConfig, init_lm_params
+    cfg = LMConfig(**LM_GEOMETRY)
+    lm = init_lm_params(cfg, seed=0, scale=0.005)
+    rng = np.random.default_rng(25)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int64)
+               for n in P25_LM_PROMPTS]
+    items = [wire_to_nchw(rng.integers(0, 256, (224, 224, 3),
+                                       dtype=np.uint8))
+             for _ in range(P25_SERVE_N)]
+    eng = mt.serve.ServeEngine(sym, dict(params), P25_SERVE_SHAPES,
+                               fuse=True, batch_buckets=(1, 8),
+                               name="p25-vgg")
+    paged = paged_replica(mt, lm, cfg, "p25-paged")
+    runs = {}
+    try:
+        for label, on in (("untraced", False), ("traced", True)):
+            mt.trace.reset()
+            mt.trace.set_enabled(on)
+            steps0 = paged.stats.report()["steps"]
+            ck.reset_launches()
+            answers = [eng.submit(x).result(timeout=120) for x in items]
+            streams = [paged.submit(p, max_new_tokens=P25_LM_NEW).result(
+                timeout=300) for p in prompts]
+            launches = dict(ck.LAUNCHES)
+            steps = paged.stats.report()["steps"] - steps0
+            evs = p25_events(mt, tmp, "serve-%s.json" % label)
+            runs[label] = {"launches": launches, "steps": steps,
+                           "evs": evs, "answers": answers,
+                           "streams": [s.tolist() for s in streams]}
+        mt.trace.set_enabled(True)
+        # (c): the card's own timeline around a few paged steps and one
+        # VGG-16 batch of 8
+        mt.profiler.profiler_set_config(filename=os.path.join(tmp, "dev"))
+        torch.cuda.synchronize()
+        mt.profiler.profiler_set_state("run")
+        with mt.profiler.scope("p25:device-timeline"):
+            paged.submit(prompts[0], max_new_tokens=4).result(timeout=120)
+            futs = eng.submit_many(items[:8])
+            for f in futs:
+                f.result(timeout=120)
+            torch.cuda.synchronize()
+        mt.profiler.profiler_set_state("stop")
+    finally:
+        mt.trace.set_enabled(True)
+        eng.close()
+        paged.close()
+    del eng, paged, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    un, tr = runs["untraced"], runs["traced"]
+    req = p25_flows(tr["evs"], "serve:request")
+    dec = p25_flows(tr["evs"], "serve:decode_request")
+    step_spans = sum(1 for e in tr["evs"] if e["name"] == "serve:paged_step")
+    print("p25 (b): %d VGG-16 requests and %d GPT-2-small streams one at a "
+          "time; launches untraced %s traced %s; paged steps %d / %d, "
+          "serve:paged_step spans %d; serve:request flows %d, "
+          "serve:decode_request flows %d, %d events dumped; card %s" % (
+              P25_SERVE_N, len(prompts), un["launches"], tr["launches"],
+              un["steps"], tr["steps"], step_spans, len(req), len(dec),
+              len(tr["evs"]), smi))
+    for k in ("fused_fc_epilogue", "paged_attention"):
+        if tr["launches"].get(k) != un["launches"].get(k) or \
+                not tr["launches"].get(k):
+            fail("(b) %s launched %s times traced, %s untraced"
+                 % (k, tr["launches"].get(k), un["launches"].get(k)))
+    if un["evs"]:
+        fail("(b) the untraced run recorded %d events" % len(un["evs"]))
+    if len(req) != P25_SERVE_N or any(v != [1, 1] for v in req.values()):
+        fail("(b) serve:request flows not one begin and one end each: %s"
+             % req)
+    if len(dec) != len(prompts) or any(v != [1, 1] for v in dec.values()):
+        fail("(b) serve:decode_request flows not one begin and one end "
+             "each: %s" % dec)
+    if step_spans != tr["steps"]:
+        fail("(b) %d serve:paged_step spans for %d steps"
+             % (step_spans, tr["steps"]))
+    if un["streams"] != tr["streams"]:
+        fail("(b) the traced streams differ from the untraced")
+    for a, b in zip(un["answers"], tr["answers"]):
+        if not np.array_equal(a, b):
+            fail("(b) a traced answer differs from the untraced")
+    # (c)
+    path = os.path.join(tmp, "dev", "device.%d.trace.json" % os.getpid())
+    with open(path) as f:
+        dev_evs = json.load(f)["traceEvents"]
+    kern = {}
+    for e in dev_evs:
+        if e.get("ph") != "X" or e.get("cat") != "kernel":
+            continue
+        for key, sub in (("fused_fc_epilogue", "fc_epilogue_kernel"),
+                         ("paged_attention", "paged_attention_kernel")):
+            if sub in e.get("name", ""):
+                kern.setdefault(key, []).append(float(e["dur"]) / 1e3)
+    scope = [e for e in dev_evs if e.get("name") == "p25:device-timeline"]
+    print("p25 (c): device trace %s, %d events, %.1f MB; kernels on the "
+          "CUDA lanes: %s; scope events %d; card %s" % (
+              os.path.basename(path), len(dev_evs),
+              os.path.getsize(path) / 2 ** 20,
+              {k: {"launches": len(v), "ms_mean": round(float(np.mean(v)),
+                                                        4),
+                   "ms_max": round(max(v), 4)} for k, v in kern.items()},
+              len(scope), smi))
+    print("p25 (c): PERF.md section 6 times (quoted, not this run): "
+          "fused_fc_epilogue fc6 + fc7 at bucket 8 0.2672 ms, "
+          "paged_attention C=1 0.0405 ms")
+    for k in ("fused_fc_epilogue", "paged_attention"):
+        if not kern.get(k):
+            fail("(c) the device trace names no %s kernel" % k)
+    return {"launches": {k: un["launches"].get(k, 0)
+                         + tr["launches"].get(k, 0)
+                         for k in ("fused_fc_epilogue", "paged_attention")},
+            "device_launches": {k: len(v) for k, v in kern.items()},
+            "device_ms": {k: float(np.mean(v)) for k, v in kern.items()}}
+
+
+def p25_search_rank(store, seed, second):
+    """(d) on one of two ranks sharing gpu(0)."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.dist import boot
+    from mxnet_tpu_torch.dist import shardsearch as ss
+    os.environ["MXNET_AUTOTUNE_DIR"] = store
+    os.environ["MXNET_DIST_SHARDSEARCH_SHORTLIST"] = "2"
+    os.environ["MXNET_DIST_SHARDSEARCH_STEPS"] = "3"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda", 0)
+    # cuBLAS's and cuBLASLt's workspaces come from the caching allocator
+    # on their first use: make them before the reading the search is
+    # held to
+    a = torch.ones((64, 64), device=dev)
+    torch.addmm(a, a, a)
+    torch.nn.functional.linear(a, a, a[0])
+    torch.nn.functional.conv2d(torch.ones((1, 3, 8, 8), device=dev),
+                               torch.ones((4, 3, 3, 3), device=dev))
+    del a
+    torch.cuda.synchronize()
+    sym, arg0, xs, ys, _ = vgg_setup(mt, seed, batch=P25_TP_BATCH, steps=1)
+    mem = {}
+    real = ss.resolve_auto
+
+    def resolve(module, mesh):
+        gc.collect()
+        torch.cuda.synchronize()
+        mem["before"] = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        out = real(module, mesh)
+        gc.collect()
+        torch.cuda.synchronize()
+        mem["after"] = torch.cuda.memory_allocated(dev)
+        mem["s"] = time.perf_counter() - t0
+        return out
+    ss.resolve_auto = resolve
+    mt.random.seed(seed)
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    first = None
+    if second:
+        mod.bind([("data", xs[0].shape)], [("softmax_label", ys[0].shape)])
+        mod.init_params(arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                                    for k, v in arg0.items()})
+        mod.set_mesh(TP_MESH, sharding="auto")
+        mod.init_optimizer(optimizer_params=dict(TRAIN_OPT))
+    else:
+        first, _ = timed_fit(
+            torch, mt, mod, vgg_batches(mt, xs, ys), num_epoch=1,
+            mesh=TP_MESH, sharding="auto",
+            arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                        for k, v in arg0.items()})
+    return {"rank": boot.rank(), "backend": boot.backend(),
+            "specs": {k: list(v) for k, v in
+                      mod._fused.param_specs.items()},
+            "counts": dict(ss.COUNTS), "mem": mem,
+            "first": first[0] if first is not None and boot.rank() == 0
+            else None}
+
+
+def p25_search(torch, mt, tmp, smi, root):
+    """(d)."""
+    from mxnet_tpu_torch.dist.spawn import run_ranks
+    seed = 25
+    store = os.path.join(tmp, "autotune")
+    sym, arg0, xs, ys, nudged = vgg_setup(mt, seed, batch=P25_TP_BATCH,
+                                          steps=1)
+    torch.backends.cudnn.deterministic = True
+    try:
+        firsts = []
+        for x in (xs[0], nudged):
+            mt.random.seed(seed)
+            mod = mt.mod.Module(sym, context=mt.gpu(0))
+            first, _ = timed_fit(
+                torch, mt, mod, vgg_batches(mt, [x], ys), num_epoch=1,
+                arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                            for k, v in arg0.items()})
+            firsts.append(first[0])
+            del mod
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    nudge_l2 = first_step_l2(firsts[1], firsts[0], arg0)
+    target = os.path.join(root, "chip_smoke.py") + ":p25_search_rank"
+    t0 = time.perf_counter()
+    ranks = run_ranks(target, 2, args=(store, seed, False), timeout=600)
+    search_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = run_ranks(target, 2, args=(store, seed, True), timeout=600)
+    again_s = time.perf_counter() - t0
+    os.environ["MXNET_AUTOTUNE_DIR"] = store
+    try:
+        from mxnet_tpu_torch.autotune import store as st
+        docs = [st.load_config(k) for k in st.list_configs()
+                if k.startswith("shardsearch-")]
+    finally:
+        os.environ.pop("MXNET_AUTOTUNE_DIR", None)
+    if len(docs) != 1:
+        fail("(d) %d shard-search records in the store, want 1"
+             % len(docs))
+    log = docs[0]["log"]
+    winner = docs[0]["config"]["specs"]
+    first_l2 = first_step_l2(ranks[0]["first"], firsts[0], arg0)
+    for cfg, s in log:
+        print("p25 (d): candidate %-4s estimate %.4g s, measured %s; specs "
+              "on %d params" % (cfg["strategy"], cfg["est_s"],
+                                "%.4f s/step" % s if s >= 0
+                                else "(not shortlisted)",
+                                len(cfg["specs"])))
+    print("p25 (d): VGG-16 batch %d, %s over two ranks (%s): winner %s "
+          "(specs on %s); first step against one process's relative L2 "
+          "%.3g (gate %.3g = %g x the nudge's %.3g); search pair %.1f s "
+          "(resolve %s s), store pair %.1f s (resolve %s s), trials %s / "
+          "%s, eager feature steps %s; memory around the search %s MB; "
+          "card %s" % (
+              P25_TP_BATCH, TP_MESH, ranks[0]["backend"],
+              [c["strategy"] for c, _ in log
+               if c["specs"] == winner][0], sorted(winner), first_l2,
+              SCALE_RATIO * nudge_l2, SCALE_RATIO, nudge_l2, search_s,
+              [round(r["mem"]["s"], 1) for r in ranks], again_s,
+              [round(r["mem"]["s"], 2) for r in again],
+              [r["counts"]["trials"] for r in ranks],
+              [r["counts"]["trials"] for r in again],
+              [r["counts"]["feature_steps"] for r in ranks],
+              [(round(r["mem"]["before"] / 2 ** 20, 1),
+                round(r["mem"]["after"] / 2 ** 20, 1)) for r in ranks], smi))
+    if ranks[0]["specs"] != ranks[1]["specs"] or \
+            ranks[0]["specs"] != again[0]["specs"] or \
+            again[0]["specs"] != again[1]["specs"]:
+        fail("(d) the ranks installed different specs")
+    if first_l2 > SCALE_RATIO * nudge_l2:
+        fail("(d) the winner's first step differs from one process's: "
+             "%.3g > %.3g" % (first_l2, SCALE_RATIO * nudge_l2))
+    if any(r["counts"]["trials"] for r in again):
+        fail("(d) the store pair built trials: %s"
+             % [r["counts"] for r in again])
+    ncand = len(log)
+    for r in ranks:
+        if r["counts"] != {"trials": ncand + min(2, ncand),
+                           "feature_steps": ncand}:
+            fail("(d) rank %d: %s for %d candidates"
+                 % (r["rank"], r["counts"], ncand))
+        m0, m1 = r["mem"]["before"], r["mem"]["after"]
+        if abs(m1 - m0) > P25_MEM_TOL * max(m0, 1):
+            fail("(d) rank %d: the card's memory %d bytes before the "
+                 "search, %d after" % (r["rank"], m0, m1))
+    return {"winner": winner, "log": log, "first_l2": first_l2,
+            "gate": SCALE_RATIO * nudge_l2, "search_s": search_s,
+            "again_s": again_s}
+
+
+def p25_online(torch, mt, ck, tmp, smi, sym, params):
+    """(e)."""
+    capdir = os.path.join(tmp, "capture")
+    ckdir = os.path.join(tmp, "online-ck")
+    rng = np.random.default_rng(250)
+    items = [wire_to_nchw(rng.integers(0, 256, (224, 224, 3),
+                                       dtype=np.uint8))
+             for _ in range(P25_ONLINE_N)]
+    hold = np.stack(items[:8])
+    writer = mt.online.CaptureWriter(
+        capdir, sample=1.0, shard_items=16, fresh=True,
+        transform=lambda d, o: (d, np.argmax(o)))
+
+    def factory(i):
+        return mt.serve.ServeEngine(sym, dict(params), P25_SERVE_SHAPES,
+                                    fuse=True, batch_buckets=(1, 8),
+                                    name="p25-rep%d" % i)
+    t0 = time.perf_counter()
+    router = mt.serve.ServeRouter(factory, replicas=2, capture=writer,
+                                  name="p25-router")
+    built_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        _, _, errors = flood(lambda i: router.submit(items[i]),
+                             P25_ONLINE_N, 4)
+        if errors:
+            fail("(e) client errors: %s" % errors)
+        router.capture_sync(timeout=300)
+        writer.flush()
+        serve_s = time.perf_counter() - t0
+        shards = mt.online.sealed_shards(capdir)
+        cap = writer.report()
+        if cap["kept"] != P25_ONLINE_N or len(shards) != 4:
+            fail("(e) captured %s into %d shards" % (cap, len(shards)))
+        t0 = time.perf_counter()
+        trainer = mt.online.OnlineTrainer(
+            sym, capdir, ckdir, batch_size=P25_ONLINE_BATCH,
+            optimizer_params=dict(P25_ONLINE_OPT),
+            arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                        for k, v in params.items()},
+            checkpoint_every=P25_ONLINE_N // P25_ONLINE_BATCH,
+            context=mt.gpu(0))
+        rnd = trainer.round(num_epoch=1, shards=shards)
+        train_s = time.perf_counter() - t0
+        from mxnet_tpu_torch.serve.engine import load_checkpoint_dir_params
+        cand_params, _meta = load_checkpoint_dir_params(ckdir)
+        cand_params = {k: np.asarray(v) for k, v in cand_params.items()}
+        pred = mt.Predictor(sym.tojson(), cand_params,
+                            {"data": (8, 3, 224, 224),
+                             "softmax_label": (8,)})
+        cand_scores = pred.predict(hold)
+        live_scores = np.stack([router.submit(x).result(timeout=120)
+                                for x in hold])
+        labels = np.argmax(live_scores, axis=1)
+        gate = mt.online.PromotionGate(min_improve=-1.0, max_drift=1.0)
+        decision = gate.decide(live_scores, cand_scores, labels)
+        stop = threading.Event()
+        tally = {"done": 0, "dropped": 0}
+        lock = threading.Lock()
+
+        def traffic(k):
+            j = k
+            while not stop.is_set():
+                try:
+                    router.submit(items[j % P25_ONLINE_N]).result(
+                        timeout=120)
+                    key = "done"
+                except Exception:
+                    key = "dropped"
+                with lock:
+                    tally[key] += 1
+                j += 4
+        threads = [threading.Thread(target=traffic, args=(k,))
+                   for k in range(4)]
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        try:
+            record = gate.apply(decision, router, ckdir, timeout=300)
+        finally:
+            promote_s = time.perf_counter() - t0
+            stop.set()
+            for t in threads:
+                t.join(timeout=300)
+        ck.reset_launches()
+        after = np.stack([router.submit(x).result(timeout=120)
+                          for x in hold])
+        launches = dict(ck.LAUNCHES)
+        rep = router.stats.report()
+    finally:
+        router.close()
+    del router, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = float(np.abs(after - cand_scores).max())
+    print("p25 (e): router over two fused VGG-16 replicas built in %.1f s; "
+          "%d requests captured %s in %.1f s; OnlineTrainer round %s in "
+          "%.1f s; gate %s; promotion %s in %.1f s with %d requests "
+          "served and %d dropped by 4 threads; answers after it against a "
+          "fresh Predictor of the promoted step: max abs err %.3g; "
+          "launches after it %s; router %s; card %s" % (
+              built_s, P25_ONLINE_N, cap, serve_s, rnd, train_s,
+              {k: decision[k] for k in ("promote", "live_acc", "cand_acc",
+                                        "drift")},
+              record["action"], promote_s, tally["done"], tally["dropped"],
+              worst, launches,
+              {k: rep.get(k) for k in ("completed", "captured",
+                                       "capture_errors")}, smi))
+    if tally["dropped"] or record["action"] != "promote":
+        fail("(e) %d requests dropped through the promotion (record %s)"
+             % (tally["dropped"], record))
+    if not np.allclose(after, cand_scores, rtol=1e-3, atol=1e-6):
+        fail("(e) answers after the promotion differ from the promoted "
+             "checkpoint's: max abs err %.3g" % worst)
+    if launches.get("fused_fc_epilogue", 0) < 2:
+        fail("(e) the promoted replicas launched fused_fc_epilogue %s times"
+             % launches.get("fused_fc_epilogue"))
+    return {"launches": launches.get("fused_fc_epilogue", 0),
+            "served_during": tally["done"], "worst": worst}
+
+
+def p25_phase(torch, mt, ck, smi, root):
+    print("phase 25: trace/, the rest of mx.profiler, the shard search, "
+          "online/; TF32 matmul=%s cudnn=%s; card %s" % (
+              torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32, smi))
+    t_phase = time.perf_counter()
+    tmpdir = tempfile.TemporaryDirectory()
+    tmp = tmpdir.name
+    try:
+        walls = {}
+        t0 = time.perf_counter()
+        a = p25_train(torch, mt, smi)
+        walls["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sym = mt.models.get_vgg(num_classes=1000)
+        params = xavier_params(sym, P25_SERVE_SHAPES, 4)
+        b = p25_serve(torch, mt, ck, tmp, smi, sym, params)
+        walls["b+c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        d = p25_search(torch, mt, tmp, smi, root)
+        walls["d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        e = p25_online(torch, mt, ck, tmp, smi, sym, params)
+        walls["e"] = time.perf_counter() - t0
+    finally:
+        tmpdir.cleanup()
+        mt.trace.reset()
+    wall = time.perf_counter() - t_phase
+    print("p25: walls %s s, phase %.1f s; card %s" % (
+        {k: round(v, 1) for k, v in walls.items()}, wall, smi))
+    return {"a": a, "b": b, "d": d, "e": e, "wall_s": wall,
+            "launches": {
+                "fused_fc_epilogue": b["launches"]["fused_fc_epilogue"]
+                + b["device_launches"].get("fused_fc_epilogue", 0)
+                + e["launches"],
+                "paged_attention": b["launches"]["paged_attention"]
+                + b["device_launches"].get("paged_attention", 0)}}
+
+
 def main():
     t_script = time.perf_counter()
     # cuBLAS under deterministic algorithms (phase 14) needs a fixed
@@ -9313,6 +9866,22 @@ def main():
         "resnet50-peak_mb-plain": round(
             p24["resnet"]["plain"]["peak_bytes"] / 2 ** 20, 1),
         "wall_s": round(p24["wall_s"], 1)})))
+    # phase 25: trace/, the rest of mx.profiler, the shard search,
+    # online/
+    p25 = p25_phase(torch, mt, ck, smi, root)
+    mark('25')
+    print("trace, search and online result (card %s): %s" % (
+        smi, json.dumps({
+            "lstm-replays_s-untraced": round(p25["a"]["off"]["replays_s"],
+                                             1),
+            "lstm-replays_s-traced": round(p25["a"]["on"]["replays_s"], 1),
+            "lstm-traced-ratio": round(p25["a"]["ratio"], 4),
+            "device-trace-ms": {k: round(v, 4) for k, v in
+                                p25["b"]["device_ms"].items()},
+            "vgg16-tp2-winner": sorted(p25["d"]["winner"]),
+            "vgg16-tp2-first-step-rel_l2": p25["d"]["first_l2"],
+            "online-served-during-promotion": p25["e"]["served_during"],
+            "wall_s": round(p25["wall_s"], 1)})))
     kernels = [{
         "name": "fused_fc_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["fused_fc_epilogue"],
@@ -9323,7 +9892,8 @@ def main():
         + rest["serve"]["launches"]["fused_fc_epilogue"]
         + sparse["rec"]["launches"] + shard["fc_launches"]
         + p23["rpc"]["launches"] + p24["cold"]["fc_launches"]
-        + p24["search"]["launches"]["fused_fc_epilogue"],
+        + p24["search"]["launches"]["fused_fc_epilogue"]
+        + p25["launches"]["fused_fc_epilogue"],
         "max_abs_err": fc["max_abs_err"],
         "ms": fc["ms"], "plain_ms": fc["plain_ms"],
         "bound_ms": fc["bound_ms"], "bound_by": "bytes",
@@ -9333,7 +9903,8 @@ def main():
         "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["paged_attention"],
         "replaces": REPLACES["paged_attention"],
         "launches": llm["launches"] + ops["paged_launches"]
-        + p24["search"]["launches"]["paged_attention"],
+        + p24["search"]["launches"]["paged_attention"]
+        + p25["launches"]["paged_attention"],
         "max_abs_err": paged["max_abs_err"],
         "ms": paged["ms"], "plain_ms": paged["plain_ms"],
         "bound_ms": paged["bound_ms"], "bound_by": paged["bound_by"],
@@ -9372,14 +9943,17 @@ def main():
           "fc7's shards, 2 a batch a rank) plus phase 23's RpcReplica "
           "children (2 a batch, counted in each child) plus phase 24's "
           "cold-start children (fc1, 1 a batch, counted in each child) and "
-          "its call-time winners at fc6 and fc7; paged_attention "
+          "its call-time winners at fc6 and fc7 plus phase 25's "
+          "traced and untraced VGG-16 requests, its device-timeline batch "
+          "and the promoted replicas' answers; paged_attention "
           "is one C=1 "
           "plus one C=32 "
           "launch at 16 slots x 12 heads x 64, contexts 1..1024; its "
           "launches are those of the paged, dense-stripe and speculative "
           "LM runs, the router's two floods and the multiplexer's LM "
           "waves and phase 24's calls with the searched winner (layout "
-          "gates, paged and dense-stripe LM streams); "
+          "gates, paged and dense-stripe LM streams) and phase 25's "
+          "traced, untraced and device-timeline streams; "
           "flash_attention is one causal launch at B=4 T=1024 H=12 D=64 "
           "with the searched tile, its launches those of the search, the "
           "store hit and the call-time use, its bound at the tensor cores' "

@@ -9,8 +9,9 @@ The same user surface as the JAX package, on one NVIDIA H100:
 ``mx.checkpoint``; the input pipeline (``mx.recordio``, ``mx.feed``
 and the record iterators of ``mx.io``); routed Mixture-of-Experts
 (``mx.moe``) and the sparse embedding engine (``mx.embed``);
-``mx.engine``, ``mx.faults`` and ``mx.profiler``'s serve, superstep,
-checkpoint, embed, moe and feed reports.
+``mx.engine``, ``mx.faults``, ``mx.trace`` (the span timeline) and
+``mx.profiler`` (the device timeline and every subsystem's report);
+the online loop (``mx.online``).
 Plain tensor code is PyTorch; the package's TPU kernels are hand-written Hopper kernels
 (``ops/cuda_kernels.py``, sources in ``csrc/``).  Entry points run on
 ``gpu(0)`` unless the caller asks for ``cpu()``.
@@ -68,9 +69,11 @@ from . import module
 from . import module as mod
 from . import monitor
 from .monitor import Monitor
+from . import trace
 from . import profiler
 from . import faults
 from . import checkpoint
+from . import online
 from . import moe
 from . import embed
 from . import dist

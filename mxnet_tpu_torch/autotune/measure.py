@@ -2,11 +2,12 @@
 (counterpart of ``mxnet_tpu/autotune/measure.py``).
 
 :func:`measure_candidate` runs one candidate ``trials`` times and keeps the
-least time.  Each timed trial ends in ``torch.cuda.synchronize()`` once the
-process has touched the card, so a trial's time covers the device work it
-launched, not only its enqueue.  The clock is the ``perf_counter`` pair
-around the trial: the JAX package reads the same span back from its trace
-recorder, which the port does not have yet (ROADMAP.md, queue 1 item 12).
+least time.  Each trial is an ``autotune:candidate`` trace span, and its
+cost is read back from the recorder (``trace.span_events``), so the
+number the tuner decided on is the number the exported timeline shows.
+The span starts after a ``torch.cuda.synchronize()`` and ends after
+another once the process has touched the card, so it covers the device
+work the trial launched, not only its enqueue.
 
 Keys: :func:`tuning_key` digests the task, the shapes and the knob space
 with :func:`backend_descriptor` -- framework, device kind, device count --
@@ -20,6 +21,8 @@ import time
 from typing import Any, Callable, List, Optional
 
 import torch
+
+from .. import trace as _trace
 
 __all__ = ["backend_descriptor", "tuning_key", "measure_candidate",
            "timed_span", "wall_timer", "CANDIDATE_SPAN"]
@@ -67,15 +70,22 @@ def _synchronize() -> None:
 
 def timed_span(fn: Callable[[], Any], label: str = "", trial: int = 0,
                span: str = CANDIDATE_SPAN) -> float:
-    """Run ``fn`` once, synchronize the card when the process uses one,
-    and return the seconds it took.  ``label``, ``trial`` and ``span``
-    name the trace span the JAX package records; the port keeps them for
-    the same call sites and records no span yet."""
+    """Run ``fn`` once under a ``span`` trace span (``label``, ``trial``
+    as its attributes), the card synchronized before and inside the span
+    when the process uses one, and return its duration in seconds, read
+    back from the recorder.  Falls back to the same perf_counter pair
+    when tracing is off."""
     _synchronize()
-    t0 = time.perf_counter()
-    fn()
-    _synchronize()
-    return time.perf_counter() - t0
+    t0 = time.perf_counter_ns()
+    with _trace.span(span, cat="autotune", label=label, trial=trial):
+        fn()
+        _synchronize()
+    t1 = time.perf_counter_ns()
+    evs = _trace.span_events(names=(span,), since_ns=t0)
+    if evs:
+        # the newest matching span (ours started at or after t0)
+        return max(evs, key=lambda e: e["ts"])["dur"] / 1e6
+    return (t1 - t0) / 1e9
 
 
 def measure_candidate(fn: Callable[[], Any], label: str = "",

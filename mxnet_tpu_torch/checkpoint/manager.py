@@ -19,8 +19,9 @@ in the dtype of a ``like`` template's tensors.  Retention (keep-last-N,
 keep-every-K) runs after every commit, and a new manager sweeps the
 ``.tmp-*`` wreckage of crashed writers.  ``install_preemption_handler``
 arms SIGTERM for snapshot-then-exit (``Module.fit`` polls ``preempted``
-each batch).  The trace spans the reference emits here wait for
-``trace/`` (item 12).
+each batch).  Saves and restores are trace spans: ``ckpt:save(blocking)``
+or ``ckpt:snapshot_overhead`` on the train thread, ``ckpt:write_commit``
+on the writer's, ``ckpt:restore``.
 
 Several processes (a group of world > 1, reference manager.py:99-102,
 244-283): every rank calls ``save`` with its part of the state (its
@@ -46,6 +47,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace as _trace
 from ..base import MXNetError, make_lock
 from . import layout
 from .sharded import (ShardedLeaf, flatten_state, merge_indexes, read_leaf,
@@ -194,18 +196,21 @@ class CheckpointManager:
         meta = dict(meta or {})
         meta.setdefault("step", step)
         self.stats.add(saves_started=1, last_pinned_bytes=snap.pinned_bytes)
-        if self._nproc > 1:
-            if self._writer is not None:
-                self._writer.wait()
-            self._write_state_multiprocess(step, snap, meta)
-        elif self._writer is None or blocking:
+        if self._nproc > 1 or self._writer is None or blocking:
             if self._writer is not None:
                 self._writer.wait()     # commits stay ordered by step
-            self._write_state(step, snap, meta)
+            if self._nproc > 1:
+                self._write_state_multiprocess(step, snap, meta)
+            else:
+                self._write_state(step, snap, meta)
+            span = "ckpt:save(blocking)"
         else:
             self._writer.submit(lambda: self._write_state(step, snap, meta))
+            # the train-thread stall a save cost: snapshot + submit
+            span = "ckpt:snapshot_overhead"
         dt = time.perf_counter() - t0
         self.stats.add(last_overhead_s=dt, overhead_s=dt)
+        _trace.complete(span, t0, dt, cat="ckpt", step=step)
 
     def _write_state(self, step: int, snap, meta: Dict) -> None:
         t0 = time.perf_counter()
@@ -222,6 +227,8 @@ class CheckpointManager:
             self.stats.add(save_failures=1)
             raise
         dt = max(time.perf_counter() - t0, 1e-9)
+        # on the writer thread: its own lane in the dump
+        _trace.complete("ckpt:write_commit", t0, dt, cat="ckpt", step=step)
         nbytes = self._dir_bytes(step)
         self.stats.add(saves_committed=1, last_step=step,
                        save_s=dt, last_save_s=dt, bytes=nbytes,
@@ -286,6 +293,7 @@ class CheckpointManager:
                 layout.abort_step(tmp)
             raise
         dt = max(time.perf_counter() - t0, 1e-9)
+        _trace.complete("ckpt:write_commit", t0, dt, cat="ckpt", step=step)
         nbytes = self._dir_bytes(step)
         self.stats.add(saves_committed=1, last_step=step,
                        save_s=dt, last_save_s=dt, bytes=nbytes,
@@ -334,6 +342,7 @@ class CheckpointManager:
         tree = self._read_tree(d, index["spec"], index["leaves"], like)
         dt = time.perf_counter() - t0
         self.stats.add(restores=1, restore_s=dt, last_restore_s=dt)
+        _trace.complete("ckpt:restore", t0, dt, cat="ckpt", step=step)
         return tree, meta
 
     def _read_tree(self, d: str, spec, entries, like):

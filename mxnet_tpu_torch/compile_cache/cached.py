@@ -26,12 +26,20 @@ apart:
   description of what built it (the reference's trace-free key);
   ``compile_report()`` counts the distinct ones built under a name
   (``variants``).
+
+The trace spans are the reference's three (cat ``compile``, attribute
+``program``): ``compile:deserialize`` is a library's load from the
+store, ``compile:backend_compile`` an ``nvcc`` build
+(``ops/cuda_kernels.py``), and ``compile:trace_lower`` the build of an
+in-process program (a graph capture with its warm-up, or an eager
+program's first run).
 """
 from __future__ import annotations
 
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
+from .. import trace as _trace
 from ..base import get_env, make_lock
 from .fingerprint import environment_fingerprint, program_key
 from .stats import get_stats
@@ -72,7 +80,10 @@ class CompileCache:
         if res is None:
             stats.note_miss("kernel:" + name)
             return None
-        stats.note_hit("kernel:" + name, time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        stats.note_hit("kernel:" + name, dt)
+        _trace.complete("compile:deserialize", t0, dt, cat="compile",
+                        program="kernel:" + name)
         return self.store.blob_path(key)
 
     def load_fast(self, fkey: str, name: str) -> Optional[str]:
@@ -227,9 +238,11 @@ class CachedFunction:
             return thunk()
         t0 = time.perf_counter()
         out = thunk()
+        dt = time.perf_counter() - t0
         stats = get_stats()
-        stats.note_build(self.name, time.perf_counter() - t0,
-                         desc=self.fast_key)
+        stats.note_build(self.name, dt, desc=self.fast_key)
+        _trace.complete("compile:trace_lower", t0, dt, cat="compile",
+                        program=self.name)
         if get_cache() is not None:
             stats.note_bypass(self.name, IN_PROCESS_REASON)
         self._called = True
@@ -261,9 +274,12 @@ class CachedFunction:
             rebuild = self.has_compiled
             t0 = time.perf_counter()
             entry = self._build(*args)
+            dt = time.perf_counter() - t0
             stats = get_stats()
-            stats.note_build(self.name, time.perf_counter() - t0,
-                             rebuild=rebuild, desc=self.fast_key)
+            stats.note_build(self.name, dt, rebuild=rebuild,
+                             desc=self.fast_key)
+            _trace.complete("compile:trace_lower", t0, dt, cat="compile",
+                            program=self.name, retrace=rebuild)
             if get_cache() is not None:
                 stats.note_bypass(self.name, IN_PROCESS_REASON)
             self._entries[sig] = entry

@@ -21,11 +21,18 @@
     socket to an engine in another process, so ``ServeRouter``'s health
     removal and draining restart hold across processes.
 
-The sharding search (``shardsearch``, ``search_sharding``,
-``resolve_auto``) is ROADMAP.md queue 1 item 10c; the fleet report
-(``report``, ``fleet_multichip_report*``) waits for the trace journals
-(item 12).
-Their names raise.  The rest load lazily, as the reference's do.
+``shardsearch``
+    ``sharding="auto"``: enumerate per-parameter spec strategies over
+    the mesh's model axes, score them with the shared cost model over
+    one eager step's features, measure the shortlist, and persist the
+    winner per (model, topology) fingerprint in the autotune store
+    (``search_sharding``, ``resolve_auto``).
+
+``report``
+    ``fleet_multichip_report``: the per-host rollup of the ranks' trace
+    journals (``MXNET_TRACE_JOURNAL``).
+
+Everything but ``boot`` loads lazily, as the reference's do.
 """
 from __future__ import annotations
 
@@ -34,7 +41,9 @@ import importlib
 from . import boot  # noqa: F401
 
 __all__ = ["boot", "FleetSupervisor", "FleetStats", "RpcReplica", "fleet",
-           "rpc", "free_port"]
+           "rpc", "free_port", "shardsearch", "search_sharding",
+           "resolve_auto", "report", "fleet_multichip_report",
+           "fleet_multichip_report_str"]
 
 _LAZY = {
     "FleetSupervisor": ("fleet", "FleetSupervisor"),
@@ -43,15 +52,12 @@ _LAZY = {
     "RpcReplica": ("rpc", "RpcReplica"),
     "fleet": ("fleet", None),
     "rpc": ("rpc", None),
-}
-
-_LATER = {
-    "search_sharding": "queue 1 item 10c",
-    "resolve_auto": "queue 1 item 10c",
-    "shardsearch": "queue 1 item 10c",
-    "fleet_multichip_report": "queue 1 item 12, with trace/",
-    "fleet_multichip_report_str": "queue 1 item 12, with trace/",
-    "report": "queue 1 item 12, with trace/",
+    "shardsearch": ("shardsearch", None),
+    "search_sharding": ("shardsearch", "search_sharding"),
+    "resolve_auto": ("shardsearch", "resolve_auto"),
+    "report": ("report", None),
+    "fleet_multichip_report": ("report", "fleet_multichip_report"),
+    "fleet_multichip_report_str": ("report", "fleet_multichip_report_str"),
 }
 
 
@@ -62,9 +68,5 @@ def __getattr__(name):
         obj = mod if entry[1] is None else getattr(mod, entry[1])
         globals()[name] = obj
         return obj
-    if name in _LATER:
-        raise NotImplementedError(
-            "mxnet_tpu_torch.dist.%s is not in the port yet (ROADMAP.md, "
-            "%s)" % (name, _LATER[name]))
     raise AttributeError("module %r has no attribute %r"
                          % (__name__, name))

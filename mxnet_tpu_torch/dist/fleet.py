@@ -30,8 +30,8 @@ Two loss policies:
 
 ``recovery_s`` runs from the death to the new fleet committing a step
 past the pre-crash high water (training moving, not merely processes
-existing).  The ``fault:`` trace instants are no-ops until the port's
-``trace/`` (ROADMAP.md, queue 1 item 12).
+existing).  Each re-forming and recovery is a ``fault:`` trace
+instant.
 
 ::
 
@@ -49,9 +49,9 @@ import subprocess
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from .. import trace as _trace
 from ..base import MXNetError, get_env, make_lock
 from ..faults.retry import Backoff, RestartWindow
-from ..faults.supervisor import _trace_instant
 
 __all__ = ["FleetSupervisor", "FleetStats", "free_port"]
 
@@ -260,7 +260,7 @@ class FleetSupervisor:
                 if self._latest_step() > watch_from:
                     dt = now - died_t
                     self.stats.add(recovery_s=dt, last_recovery_s=dt)
-                    _trace_instant("fault:fleet_recovered", cat="faults",
+                    _trace.instant("fault:fleet_recovered", cat="faults",
                                    attempt=attempt,
                                    nworkers=self.nworkers,
                                    recovery_s=round(dt, 4))
@@ -323,7 +323,7 @@ class FleetSupervisor:
                         % (self.name, in_window, self.restart_window_s,
                            self.max_restarts, rc))
                 wait = self.backoff.next_wait()
-                _trace_instant("fault:fleet_restart", cat="faults",
+                _trace.instant("fault:fleet_restart", cat="faults",
                                attempt=attempt, rc=rc,
                                nworkers=self.nworkers,
                                wait_s=round(wait, 4))

@@ -31,14 +31,20 @@ the summed gradients of its rows.  ``as_numpy``, ``state`` and
 ``restore`` carry the whole table as numpy, so a table saved on one
 mesh restores onto another or into one process.  The collectives go
 through ``parallel/collectives.py`` (gloo's host staging or NCCL).
+
+``lookup`` is an ``embed:lookup`` trace span and ``update`` /
+``accumulate`` an ``embed:update`` one (host time; under a CUDA graph
+capture none is recorded).
 """
 from __future__ import annotations
 
+import time as _time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .. import trace as _trace
 from ..base import MXNetError, get_env
 from ..context import Context, current_context
 from ..ndarray import NDArray, torch_dtype
@@ -286,6 +292,12 @@ class EmbeddingTable:
                                      torch.zeros_like(rows)))
 
     # -- public surface -----------------------------------------------------
+    def _traced(self, name: str, t0: float) -> None:
+        if not (self.device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            _trace.complete(name, t0, _time.perf_counter() - t0,
+                            cat="embed")
+
     def lookup(self, ids, combiner: Optional[str] = None) -> torch.Tensor:
         """Deduped lookup ``ids (...,) -> (..., dim)``, or pooled over the
         last ids axis with ``combiner="sum"|"mean"`` (padded ids masked;
@@ -294,6 +306,12 @@ class EmbeddingTable:
         if combiner not in (None, "sum", "mean"):
             raise MXNetError("combiner must be None|'sum'|'mean', got %r"
                              % (combiner,))
+        t0 = _time.perf_counter()
+        out = self._lookup(ids, combiner)
+        self._traced("embed:lookup", t0)
+        return out
+
+    def _lookup(self, ids, combiner):
         shape = tuple(_host(ids).shape)
         with torch.no_grad():
             uniq, inv, _cap = self._dedup(ids, lookup=True)
@@ -328,6 +346,7 @@ class EmbeddingTable:
         if lr is None:
             lr = self.optimizer.base_lr()
         t_next = self._t + 1
+        t0 = _time.perf_counter()
         with torch.no_grad():
             uniq, inv, cap = self._dedup(ids)
             self.stats.note_update("%s_weight" % self.name, cap)
@@ -342,17 +361,20 @@ class EmbeddingTable:
                 torch.tensor(float(t_next), dtype=torch.float32,
                              device=self.device))
         self._t = t_next
+        self._traced("embed:update", t0)
         return self.rows
 
     def accumulate(self, ids, values):
         """Optimizer-free deduped scatter-add (row-sharded: every rank
         of the axis adds its own).  -> ``rows``."""
         v = self._values(values).reshape(-1, self.dim)
+        t0 = _time.perf_counter()
         with torch.no_grad():
             uniq, inv, cap = self._dedup(ids)
             vrows = self._sum(dedup_scatter_add(v, inv, cap))
             idx, _own = self._local(uniq)
             self._store.index_put_((idx,), vrows, accumulate=True)
+        self._traced("embed:update", t0)
         return self.rows
 
     def set_rows(self, value) -> None:

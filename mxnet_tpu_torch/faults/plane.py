@@ -27,8 +27,8 @@ point's ``path`` ctx names to half, then raise), ``delay`` (sleep
 
 :func:`stats` counts every injection; the first :func:`install`
 registers it as the ``plane`` row of ``mx.profiler.faults_report()``.
-The ``fault:`` trace instants wait for the port's ``trace/`` (ROADMAP.md,
-queue 1 item 12).
+Every injection is a ``fault:<point>`` trace instant, and every install
+a ``fault:install``.
 """
 from __future__ import annotations
 
@@ -40,6 +40,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
+from .. import trace as _trace
 from ..base import MXNetError, get_env, make_lock
 
 __all__ = ["InjectedFault", "Rule", "FaultPlan", "FaultStats", "point",
@@ -283,11 +284,16 @@ def point(name: str, **ctx) -> None:
 def _fire(name: str, kind: str, ctx: Dict, rule: Rule) -> None:
     attrs = {k: v for k, v in ctx.items()
              if isinstance(v, (int, float, str, bool))}
+    _trace.instant("fault:" + name, cat="faults", kind=kind, **attrs)
     _STATS.note(name, kind, rule.delay_s if kind == "delay" else 0.0)
     if kind == "delay":
         time.sleep(rule.delay_s)
         return
     if kind == "crash":
+        try:        # a killed reader worker's spans must still merge
+            _trace.flush_spill()
+        except Exception:
+            pass
         os.kill(os.getpid(), signal.SIGKILL)
         return      # pragma: no cover — unreachable
     if kind == "torn":
@@ -381,6 +387,8 @@ def install(plan) -> FaultPlan:
     plan = parse_spec(plan)
     _PLAN = plan
     _register_stats()
+    _trace.instant("fault:install", cat="faults", seed=plan.seed,
+                   rules=len(plan.rules), attempt=plan.attempt)
     return plan
 
 

@@ -6,8 +6,7 @@ with a deterministic jitter stream (seeded, so a chaos run replays the
 same waits) and an interruptible :meth:`Backoff.sleep` (the caller's
 ``should_stop`` is polled every few ms).  :class:`RestartWindow` is the
 companion budget: events counted over a sliding wall-clock window.
-The ``fault:retry`` trace instant waits for the port's ``trace/``
-(ROADMAP.md, queue 1 item 12).
+Each retry is a ``fault:retry`` trace instant.
 
 ::
 
@@ -154,4 +153,7 @@ def retry_call(fn: Callable, *args,
                 raise
             if on_retry is not None:
                 on_retry(attempt, e)
+            from .. import trace as _trace
+            _trace.instant("fault:retry", cat="faults", attempt=attempt,
+                           error=type(e).__name__)
             b.sleep(should_stop=should_stop)

@@ -29,8 +29,8 @@ Two launch modes:
 ``recovery_s`` is measured against the checkpoint store when
 ``checkpoint_dir`` is given: from the death to the restarted child
 committing a step past the pre-crash high water, i.e. training moving
-again, not merely a process existing.  The ``fault:`` trace instants
-are no-ops until the port's ``trace/`` (ROADMAP.md, queue 1 item 12).
+again, not merely a process existing.  Each restart and recovery is a
+``fault:`` trace instant.
 """
 from __future__ import annotations
 
@@ -41,17 +41,13 @@ import time
 import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
+from .. import trace as _trace
 from ..base import MXNetError, get_env, make_lock
 from .retry import Backoff, RestartWindow
 
 __all__ = ["Supervisor", "SupervisorStats"]
 
 _POLL_S = 0.05
-
-
-def _trace_instant(name: str, **fields) -> None:
-    """A ``fault:`` trace instant: a no-op until the port's ``trace/``
-    (ROADMAP.md, queue 1 item 12)."""
 
 
 class SupervisorStats:
@@ -224,7 +220,7 @@ class Supervisor:
                     if self._latest_step() > watch_from:
                         dt = now - died_t
                         self.stats.add(recovery_s=dt, last_recovery_s=dt)
-                        _trace_instant("fault:supervisor_recovered",
+                        _trace.instant("fault:supervisor_recovered",
                                        cat="faults", attempt=attempt,
                                        recovery_s=round(dt, 4))
                         recovered = True
@@ -308,7 +304,7 @@ class Supervisor:
                         % (self.name, in_window, self.restart_window_s,
                            self.max_restarts, rc))
                 wait = self.backoff.next_wait()
-                _trace_instant("fault:supervisor_restart", cat="faults",
+                _trace.instant("fault:supervisor_restart", cat="faults",
                                attempt=attempt, rc=rc,
                                wait_s=round(wait, 4))
                 attempt += 1

@@ -27,8 +27,9 @@ Three entry points, lowest to highest level::
     mod.fit(train_iter, prefetch_to_device=True, ...)
 
 ``print(mx.profiler.feed_report_str())`` then shows which stage starves
-the card.  The feed's trace spans wait for the trace timeline (ROADMAP.md
-queue 1 item 12).
+the card; ``mx.profiler.dump_trace`` shows each stage's busy spans
+(``feed:<stage>``, ``feed:h2d_stage``) and the reader workers' decode
+spans on lanes of their own.
 """
 from __future__ import annotations
 

@@ -37,14 +37,19 @@ order, provides the shuffling).
 The workers run numpy and file reads only -- no torch op, no CUDA call
 -- so forking a parent whose CUDA context (and OpenMP pool) is live is
 safe.  The shuffle is numpy's in both packages, so the delivered order
-equals the reference's for the same seed and workers.  The reference's
-per-worker decode spans (its trace spill files) wait for the trace
-timeline (ROADMAP.md queue 1 item 12).
+equals the reference's for the same seed and workers.  Each worker's
+decode spans (``feed:decode[w<i>]``) spill to a file of its own under a
+directory the parent registers with ``trace.add_spill_dir``, so every
+``dump_trace`` merges them under the worker's pid, a SIGKILL'd worker's
+included; the recorder in a forked child starts empty
+(``os.register_at_fork``) and touches no CUDA.
 """
 from __future__ import annotations
 
 import ctypes
 import multiprocessing as mp
+import os
+import tempfile
 import threading
 import time
 import traceback
@@ -53,6 +58,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import trace as _trace
 from ..base import MXNetError, get_env
 from ..faults import point as _fault_point
 from ..faults.retry import Backoff, RestartWindow
@@ -275,11 +281,21 @@ def _shard_stream(source, shard: int, nshards: int, offset: int):
 def _reader_worker(ring: _Ring, counters, stop, source, decode,
                    shard: int, nshards: int, start_epoch: int,
                    start_offset: int, max_epochs, label_width: int,
-                   seed: int):
+                   seed: int, spill_dir: Optional[str] = None):
     """Worker-process main: stream the shard, decode, publish.  Lives
     across epochs (epoch-end markers flow in-band through the ring);
     exceptions are forwarded as in-band error slots (fail loud — a
-    decode error is a data bug, not a crash to retry)."""
+    decode error is a data bug, not a crash to retry).  With a
+    ``spill_dir``, decode spans stream to a per-(worker, pid) JSONL
+    file the parent merges into its trace, flushed every few events, so
+    even a SIGKILL'd worker leaves its timeline behind."""
+    span_name = None
+    if spill_dir is not None and _trace.enabled():
+        # pid in the name: a restarted worker is a new process whose
+        # spans merge beside the dead one's
+        _trace.configure_spill(os.path.join(
+            spill_dir, "spans-w%d-pid%d.jsonl" % (shard, os.getpid())))
+        span_name = "feed:decode[w%d]" % shard
     try:
         epoch, offset = start_epoch, start_offset
         while max_epochs is None or epoch < max_epochs:
@@ -310,10 +326,14 @@ def _reader_worker(ring: _Ring, counters, stop, source, decode,
                 _fault_point("feed.worker_decode", shard=shard,
                              epoch=epoch, seq=seq)
                 counters[1] += dt
+                if span_name is not None:
+                    _trace.complete(span_name, t0, dt, cat="feed")
                 ring.put(_DATA, epoch, seq, lab, data, stop)
                 counters[0] += 1
                 seq += 1
             ring.put(_EPOCH_END, epoch, seq, stop=stop)
+            if span_name is not None:
+                _trace.flush_spill()
             epoch += 1
             offset = 0
             counters[2] = epoch
@@ -489,6 +509,19 @@ class ParallelReader(Stage):
         # save with a monotonically growing `delivered`; advancing one
         # persistent sim keeps each call O(delta) not O(delivered))
         self._cursim: Optional[tuple] = None
+        # per-worker span spill: each forked reader appends its decode
+        # spans to a file in this directory, which every dump_trace()
+        # merges, the spans of workers that died included.  Whether to
+        # spill is decided by each worker from the trace flag it
+        # inherits at fork.
+        self._spill_dir: Optional[str] = tempfile.mkdtemp(
+            prefix="mxtt-trace-%s-" % self.name)
+        _trace.add_spill_dir(self._spill_dir)
+        # the spans outlive the reader (a dump after close() merges
+        # them) but not the process
+        import atexit
+        import shutil
+        atexit.register(shutil.rmtree, self._spill_dir, True)
 
     # -- public surface ----------------------------------------------------
     def release(self) -> None:
@@ -632,10 +665,13 @@ class ParallelReader(Stage):
             args=(self._rings[w], self._counters[w], self._stop_evt,
                   self._source, self._decode, w, self._nworkers, epoch,
                   offset, self._max_epochs, self._label_width,
-                  self._seed),
+                  self._seed, self._spill_dir),
             name="feed-%s-p%d" % (self.name, w), daemon=True)
         proc.start()
         self._procs[w] = proc
+        if proc.pid:
+            _trace.label_process(proc.pid,
+                                 "feed-reader %s w%d" % (self.name, w))
 
     def _restart(self, w: int, epoch: int, offset: int) -> None:
         self.restarts[w] += 1
@@ -649,6 +685,8 @@ class ParallelReader(Stage):
                 % (w, self.name, in_window,
                    self._restart_windows[w].window_s, self._max_restarts))
         wait = self._backoffs[w].next_wait()
+        _trace.instant("feed:refork", cat="feed", worker=w,
+                       restart=in_window, wait_s=round(wait, 4))
         # interruptible: close() flips _stopping and this returns in
         # ~one poll tick, so a backing-off parent never blocks shutdown
         self._backoffs[w].sleep(wait,

@@ -26,6 +26,7 @@ import threading
 import time
 from typing import Any, List, Optional, Sequence
 
+from .. import trace as _trace
 from ..base import make_lock
 from .stats import PipelineStats, StageStats
 
@@ -188,6 +189,9 @@ class Stage:
             t0 = time.perf_counter()
             out = self.process(item)
             dt = time.perf_counter() - t0
+            # the stage's busy interval on the trace timeline (stalls
+            # show as the gaps between these spans)
+            _trace.complete("feed:%s" % self.name, t0, dt, cat="feed")
             if out is not None:
                 self.stats.add_items(self.count(out), dt)
                 self.out_q.put(out)

@@ -31,6 +31,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from .. import trace as _trace
 from .stages import CopyStream, RowShard, claim_tensors, resolve_device
 from .stats import PipelineStats
 
@@ -318,7 +319,9 @@ class DevicePrefetchIter:
             staged, ev = put_all(), None
         nd = len(batch.data or [])
         n = staged[0].shape[0] if nd else 0
-        self._h2d.add_items(int(n), time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self._h2d.add_items(int(n), dt)
+        _trace.complete("feed:h2d_stage", t0, dt, cat="feed", items=int(n))
         self._h2d.add_bytes(host_bytes)
         out = DataBatch(data=staged[:nd], label=staged[nd:], pad=batch.pad,
                         index=batch.index,
@@ -356,7 +359,10 @@ class DevicePrefetchIter:
         else:
             (data, label), ev = put_all(), None
         n = data[0].shape[0] * data[0].shape[1] if data else 0
-        self._h2d.add_items(int(n), time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self._h2d.add_items(int(n), dt)
+        _trace.complete("feed:h2d_stage_mega", t0, dt, cat="feed", k=k,
+                        items=int(n))
         self._h2d.add_bytes(host_bytes)
         return MegaBatch(data=data, label=label, k=k, rows_cut=cut), ev
 

@@ -28,6 +28,7 @@ from __future__ import annotations
 import logging
 import time
 
+from .. import trace as _trace
 from ..base import MXNetError, get_env
 from .. import metric as metric_mod
 from ..model import BatchEndParam
@@ -341,6 +342,10 @@ class BaseModule:
                 train_data, depth=depth, megabatch=k_super if use_super
                 else 1)
 
+        # each fit journals on its own: a later fit restarting from step
+        # 1 in the same process must not be muted by the previous run's
+        # high-water step
+        _trace.reset_journal()
         global_step = 0
         start_epoch, start_batch = begin_epoch, 0
         if ckpt_mgr is not None and resume:
@@ -409,6 +414,10 @@ class BaseModule:
                 prev_step = global_step if ckpt_from is None else ckpt_from
                 nbatch += count
                 global_step += count
+                # the run-metrics journal (MXNET_TRACE_JOURNAL): one
+                # unified_report line every N global steps
+                _trace.maybe_journal_step(global_step, epoch=epoch,
+                                          nbatch=nbatch)
                 if not allow_ckpt or ckpt_mgr is None:
                     return False
                 if ckpt_mgr.preempted:
@@ -505,8 +514,10 @@ class BaseModule:
                 return
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
-            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
-                             time.perf_counter() - tic)
+            toc = time.perf_counter()
+            self.logger.info("Epoch[%d] Time cost=%.3f", epoch, toc - tic)
+            _trace.complete("fit:epoch", tic, toc - tic, cat="train",
+                            epoch=epoch, batches=nbatch)
             if epoch_end_callback is not None:
                 arg_params_, aux_params_ = self.get_params()
                 for callback in (epoch_end_callback

@@ -149,6 +149,7 @@ from typing import Dict, List, Sequence
 import torch
 from torch.profiler import record_function
 
+from .. import trace as _trace
 from ..base import MXNetError, get_env
 from ..checkpoint.snapshot import map_structure
 from ..embed.sparse import (_mask_oov_rows, block_rows, dedup_ids,
@@ -328,6 +329,19 @@ class FusedTrainStep:
         # a list to append (uint8 input, draws, augmented batch) of each
         # eager step to, or None (a check's probe)
         self.augment_probe = None
+        # over a mesh of more than one rank: dispatch time every step,
+        # the step's device wall on a sampled subset (one drain every
+        # sample_every steps), and the step's cost and collective census
+        # (reference fused.py:256-268)
+        self.multichip_stats = None
+        if mesh is not None and mesh.size > 1:
+            from .. import profiler as _prof
+            from ..parallel.mesh import mesh_axes, spec_axes
+            self.multichip_stats = _prof.MultichipStats(
+                "fused", axes=mesh_axes(mesh),
+                spec_axes=sorted({a for sp in self.param_specs.values()
+                                  for a in spec_axes(sp)}))
+            _prof.register_multichip_stats(self.multichip_stats)
 
     @property
     def captured(self) -> bool:
@@ -843,12 +857,72 @@ class FusedTrainStep:
              lr: float = None) -> List[torch.Tensor]:
         """Advance one batch (``batch`` from :meth:`make_batch`) at ``lr``
         (default: the optimizer's current one); -> the outputs (on the
-        card: the graph's static buffers)."""
+        card: the graph's static buffers).
+
+        The spans (reference fused.py:879-926) stay on the host, around
+        the call: ``fused:first_step(compile)`` around a step that builds
+        the batch shape's program (the eager warm-ups and the capturing
+        step on the card, the first eager step on the CPU) and
+        ``fused:dispatch`` around every other (a replay on the card).
+        Over a mesh of more than one rank a sampled step also drains the
+        stream before and after (``fused:device_wait(sampled)``); with no
+        such mesh the step reads nothing back."""
         if lr is None:
             lr = float(self.optimizer.base_lr())
         if lr != self._lr_host:
             self.state["lr"].fill_(lr)
             self._lr_host = lr
+        stats = self.multichip_stats
+        if stats is None and not _trace.enabled():
+            return self._run(batch)
+        import time
+        key = self._key(batch)
+        build = key not in self._graphs if self.captured \
+            else self._warm.get(key, 0) == 0
+        sample = first = False
+        if stats is not None:
+            first = stats.steps == 0
+            sample = not first and stats.should_sample()
+            if sample:
+                # drain the queue first, or the sampled wait charges
+                # the steps still queued to this one
+                self._sync()
+            if first:
+                from ..parallel import collectives
+                census0 = (collectives.STATS["calls"],
+                           collectives.STATS["bytes"],
+                           {k: dict(v) for k, v in
+                            collectives.STATS["by_op"].items()})
+        t0 = time.perf_counter()
+        outs = self._run(batch)
+        dt = time.perf_counter() - t0
+        if not self.captured and build:
+            self._warm[key] = 1
+        _trace.complete("fused:first_step(compile)" if build
+                        else "fused:dispatch", t0, dt, cat="train")
+        if stats is not None:
+            if first:
+                stats.note_first(dt)
+                # the first step runs eagerly: what the collectives
+                # module counted in it is one step's census
+                stats.set_cost(stats.flops_per_step, stats.bytes_per_step,
+                               collectives=_census(census0))
+            else:
+                stats.add_step(dt)
+            if sample:
+                t1 = time.perf_counter()
+                self._sync()
+                wait = time.perf_counter() - t1
+                stats.add_wait(wait)
+                _trace.complete("fused:device_wait(sampled)", t1, wait,
+                                cat="train")
+        return outs
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _run(self, batch: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
         if not self.captured:
             self.stats.eager_steps += 1
             return self._body(batch)
@@ -1150,6 +1224,23 @@ class FusedTrainStep:
         cuts = self.leaf_cuts(group, name)
         return bool(cuts) and name in self._global and tuple(t.shape) == \
             local_shape(self._global[name], cuts, self.mesh)
+
+
+def _census(before) -> Dict:
+    """The collectives module's calls, bytes and redistributions since
+    ``before`` (its counters then)."""
+    from ..parallel import collectives
+    st = collectives.STATS
+    by_op = {}
+    for op, kinds in st["by_op"].items():
+        old = before[2].get(op, {})
+        delta = {k: n - old.get(k, 0) for k, n in kinds.items()
+                 if n - old.get(k, 0)}
+        if delta:
+            by_op[op] = delta
+    return {"total_count": st["calls"] - before[0],
+            "total_bytes": st["bytes"] - before[1],
+            "redistributions": by_op}
 
 
 def row_axis(spec):

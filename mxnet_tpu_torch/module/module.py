@@ -61,6 +61,7 @@ import time
 
 import torch
 
+from .. import trace as _trace
 from ..base import MXNetError, get_env
 from ..context import Context, cpu, current_context
 from ..initializer import Uniform
@@ -237,20 +238,28 @@ class Module(BaseModule):
         or None to clear.  Every rank is fed the global batch and keeps
         its rows of ``dp``.  ``sharding``: ``{param name: PartitionSpec}``
         merged over the graph's ``__sharding__`` attributes; each rank
-        holds its shard of those parameters (``"auto"``, the shard search,
-        is ROADMAP.md queue 1 item 10c).  Call before ``init_optimizer``
-        (fit does); afterwards the whole train state (params, optimizer
-        slots, the step count, the random state) is carried onto the new
-        layout: gathered whole and cut again."""
+        holds its shard of those parameters.  ``"auto"`` resolves the
+        map when the fused step is built, through the shard search
+        (``dist.shardsearch.resolve_auto``: a store hit, or a measured
+        search persisted per model and topology).  Call before
+        ``init_optimizer`` (fit does); afterwards the whole train state
+        (params, optimizer slots, the step count, the random state) is
+        carried onto the new layout: gathered whole and cut again."""
         from ..parallel.mesh import Mesh, make_mesh
-        if isinstance(sharding, str):
-            raise NotImplementedError(
-                "sharding=%r: the shard search is not in the port yet "
-                "(ROADMAP.md, queue 1 item 10c); pass a {name: "
-                "PartitionSpec} map" % (sharding,))
         if mesh is not None and not isinstance(mesh, Mesh):
             mesh = make_mesh(mesh)
-        specs = dict(sharding) if sharding else None
+        if isinstance(sharding, str):
+            if sharding.strip() != "auto":
+                raise MXNetError(
+                    "sharding=%r: pass a {name: PartitionSpec} map or "
+                    "\"auto\"" % (sharding,))
+            if mesh is None:
+                raise MXNetError(
+                    "sharding='auto' needs a mesh to search over; pass "
+                    "mesh= alongside it")
+            specs = "auto"
+        else:
+            specs = dict(sharding) if sharding else None
         if mesh == self._mesh and specs == self._sharding:
             return
         carried = None
@@ -490,11 +499,18 @@ class Module(BaseModule):
                     "bound batch size %d is not divisible by the mesh's "
                     "dp axis (%d); pick a batch the devices can slice "
                     "evenly" % (bs, dp))
+        specs = self._sharding if mesh is not None else None
+        if specs == "auto":
+            # the shard search: enumerate per-parameter spec candidates,
+            # score them, measure the shortlist, persist the winner per
+            # (model, topology) fingerprint; a store hit skips it all
+            from ..dist.shardsearch import resolve_auto
+            specs = resolve_auto(self, mesh)
         self._fused = FusedTrainStep(
             self._symbol, self._context[0], self._data_names,
             self._label_names, self._param_names, self._fixed_param_names,
             self._optimizer, mesh=mesh, global_dp=global_dp,
-            sharding=self._sharding if mesh is not None else None,
+            sharding=specs,
             remat=get_env("MXNET_BACKWARD_DO_MIRROR", False, bool))
         self._fused_hsig = self._fused.hparam_signature()
         self._fused_init_state()
@@ -753,6 +769,7 @@ class Module(BaseModule):
         t0 = time.perf_counter()
         k, mega = self._fused.make_megabatch(batches)
         h2d_s = time.perf_counter() - t0
+        _trace.complete("superstep:h2d_stage", t0, h2d_s, cat="train")
         # the step counters and the scheduler advance before the steps
         # run; they roll back if the dispatch fails
         prev_t = self._fused_t
@@ -773,6 +790,8 @@ class Module(BaseModule):
             t1 = time.perf_counter()
             acc = self._fused.superstep(k, mega, lrs, reducer, acc0)
             dispatch_s = time.perf_counter() - t1
+            _trace.complete("superstep:dispatch", t1, dispatch_s,
+                            cat="train", k=k)
         except Exception:
             self._fused_t = prev_t
             self._optimizer.num_update = prev_num_update
@@ -789,7 +808,11 @@ class Module(BaseModule):
             host = torch.stack(acc).cpu().tolist()
             metric_mod.note_host_sync()
             wait_s = time.perf_counter() - t2
+            _trace.complete("superstep:metric_drain", t2, wait_s,
+                            cat="train", k=k)
             reducer.absorb(unflatten_tensors(acc0, host))
+        # the K steps fed the multichip counters themselves (each is a
+        # fused step), so only the superstep counters are added here
         self._superstep_stats.add(k, h2d_s, dispatch_s, wait_s)
         return True
 

@@ -241,6 +241,9 @@ def _run_nvcc(todo, nvcc, cache, outdir, logs) -> None:
             continue
         os.replace(tmp, out)
         stats.note_build("kernel:" + n, BUILD_WALLS[n])
+        from .. import trace as _trace
+        _trace.complete("compile:backend_compile", t0, BUILD_WALLS[n],
+                        cat="compile", program="kernel:" + n)
         key = None
         if cache is not None:
             fkey, key = _store_keys(n, cache)

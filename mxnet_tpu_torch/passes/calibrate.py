@@ -152,6 +152,7 @@ def calibrate_arrays(sym: Symbol, feeds: Iterable[Dict[str, np.ndarray]], *,
     non-param arguments are zero-filled at their bound shape, as
     ServeEngine does for label inputs."""
     from ..context import current_context
+    from .. import trace as _trace
     if mode not in ("minmax", "percentile"):
         raise MXNetError("calibration mode must be minmax|percentile, "
                          "got %r" % (mode,))
@@ -163,20 +164,25 @@ def calibrate_arrays(sym: Symbol, feeds: Iterable[Dict[str, np.ndarray]], *,
     shapes = dict(default_shapes or {})
     for k, v in feeds[0].items():
         shapes[k] = tuple(np.asarray(v).shape)
-    exe = internals.simple_bind(ctx if ctx is not None else current_context(),
-                                grad_req="null", **shapes)
-    exe.copy_params_from(dict(arg_params), dict(aux_params or {}),
-                         allow_extra_params=True)
-    ranges: Dict[str, Tuple[float, float]] = {}
-    for feed in feeds:
-        for k, v in feed.items():
-            if k in exe.arg_dict:
-                exe.arg_dict[k][:] = np.asarray(v, dtype=exe.arg_dict[k].dtype)
-        outs = exe.forward(is_train=False)
-        for name, nd in zip(out_names, outs):
-            t = nd._get()
-            if not t.is_floating_point():
-                continue
-            _observe(ranges, name, t.float().cpu().numpy(), mode, percentile)
+    with _trace.span("passes:calibrate", cat="passes",
+                     batches=len(feeds), mode=mode):
+        exe = internals.simple_bind(
+            ctx if ctx is not None else current_context(),
+            grad_req="null", **shapes)
+        exe.copy_params_from(dict(arg_params), dict(aux_params or {}),
+                             allow_extra_params=True)
+        ranges: Dict[str, Tuple[float, float]] = {}
+        for feed in feeds:
+            for k, v in feed.items():
+                if k in exe.arg_dict:
+                    exe.arg_dict[k][:] = np.asarray(
+                        v, dtype=exe.arg_dict[k].dtype)
+            outs = exe.forward(is_train=False)
+            for name, nd in zip(out_names, outs):
+                t = nd._get()
+                if not t.is_floating_point():
+                    continue
+                _observe(ranges, name, t.float().cpu().numpy(), mode,
+                         percentile)
     return CalibrationTable(ranges, mode=mode, percentile=percentile,
                             num_batches=len(feeds))

@@ -21,6 +21,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from .. import trace as _trace
 from ..base import MXNetError
 from ..symbol import Symbol, _topo
 
@@ -133,6 +134,8 @@ class PassPipeline:
         self.verify = verify
         self._validate_order()
         self.stats = PassStats(name)
+        from .. import profiler
+        profiler.register_passes_stats(self.stats)
         # per run: [{"pass", "wall_s", "nodes_in", "nodes_out",
         #            "summary"}, ...]
         self.last_report: List[Dict[str, Any]] = []
@@ -187,30 +190,35 @@ class PassPipeline:
         self.last_report = []
         self.type_overrides = {}
         out_sym, out_params = sym, params
-        for p in self.passes:
-            nodes_in = len(_topo(out_sym._heads))
-            p.summary = {}
-            t0 = time.perf_counter()
-            try:
-                new_sym, new_params = p.apply(out_sym, out_params)
-            except PassError:
-                raise
-            except Exception as e:
-                raise PassError("pass %r failed: %s: %s"
-                                % (p.name, type(e).__name__, e)) from e
-            wall = time.perf_counter() - t0
-            if self.verify:
-                verify_roundtrip(new_sym, label="after pass %r" % p.name)
-                check_attrs_preserved(out_sym, new_sym, pass_name=p.name)
-            nodes_out = len(_topo(new_sym._heads))
-            rewrites = int(p.summary.get("rewrites",
-                                         abs(nodes_in - nodes_out)))
-            self.stats.on_pass(p.name, wall, nodes_in, nodes_out, rewrites)
-            self.last_report.append({
-                "pass": p.name, "wall_s": wall, "nodes_in": nodes_in,
-                "nodes_out": nodes_out, "summary": dict(p.summary)})
-            self.type_overrides.update(p.summary.get("type_overrides") or {})
-            out_sym, out_params = new_sym, new_params
+        with _trace.span("passes:pipeline", cat="passes", pipeline=self.name):
+            for p in self.passes:
+                nodes_in = len(_topo(out_sym._heads))
+                p.summary = {}
+                t0 = time.perf_counter()
+                with _trace.span("passes:%s" % p.name, cat="passes"):
+                    try:
+                        new_sym, new_params = p.apply(out_sym, out_params)
+                    except PassError:
+                        raise
+                    except Exception as e:
+                        raise PassError("pass %r failed: %s: %s"
+                                        % (p.name, type(e).__name__, e)) \
+                            from e
+                wall = time.perf_counter() - t0
+                if self.verify:
+                    verify_roundtrip(new_sym, label="after pass %r" % p.name)
+                    check_attrs_preserved(out_sym, new_sym, pass_name=p.name)
+                nodes_out = len(_topo(new_sym._heads))
+                rewrites = int(p.summary.get("rewrites",
+                                             abs(nodes_in - nodes_out)))
+                self.stats.on_pass(p.name, wall, nodes_in, nodes_out,
+                                   rewrites)
+                self.last_report.append({
+                    "pass": p.name, "wall_s": wall, "nodes_in": nodes_in,
+                    "nodes_out": nodes_out, "summary": dict(p.summary)})
+                self.type_overrides.update(
+                    p.summary.get("type_overrides") or {})
+                out_sym, out_params = new_sym, new_params
         fp = self.fingerprint()
         if out_sym is sym:          # every pass was an identity
             out_sym = sym.__copy__()

@@ -30,6 +30,7 @@ import time
 from concurrent.futures import Future, InvalidStateError
 from typing import Callable, List, Optional
 
+from .. import trace as _trace
 from .errors import (ServeClosedError, ServeDeadlineError, ServeError,
                      ServeOverloadError)
 
@@ -57,14 +58,25 @@ def _set_exception(fut: Future, exc: BaseException) -> bool:
         return False
 
 
-class _Request:
-    __slots__ = ("data", "future", "enqueue_t", "deadline_t")
+def _trace_end(req: "_Request", outcome: str) -> None:
+    """Close a request's async span on any terminal path (a begin with no
+    end renders as an unbounded bar in the dump)."""
+    if req.trace_id is not None and _trace.enabled():
+        _trace.async_end("serve:request", req.trace_id, cat="serve",
+                         outcome=outcome)
 
-    def __init__(self, data, future, enqueue_t, deadline_t):
+
+class _Request:
+    __slots__ = ("data", "future", "enqueue_t", "deadline_t", "trace_id")
+
+    def __init__(self, data, future, enqueue_t, deadline_t, trace_id=None):
         self.data = data
         self.future = future
         self.enqueue_t = enqueue_t
         self.deadline_t = deadline_t
+        # the async span's id across the three threads the request
+        # crosses: submit, dispatch, resolve
+        self.trace_id = trace_id
 
 
 class MicroBatcher:
@@ -133,14 +145,22 @@ class MicroBatcher:
             data = self._validate(data)
         dl = self._default_deadline_ms if deadline_ms is None else deadline_ms
         now = time.perf_counter()
-        req = _Request(data, Future(), now, now + dl / 1000.0 if dl else None)
+        traced = _trace.enabled()
+        req = _Request(data, Future(), now, now + dl / 1000.0 if dl else None,
+                       trace_id=_trace.next_async_id() if traced else None)
+        if traced:
+            # before the queue append: once the dispatcher sees the
+            # request it may record the end
+            _trace.async_begin("serve:request", req.trace_id, cat="serve")
         with self._cv:
             if self._closed:
+                _trace_end(req, "closed")
                 raise ServeClosedError(
                     "serve engine %r is closed" % self.name)
             if len(self._q) >= self._queue_depth:
                 if self._stats is not None:
                     self._stats.on_overload()
+                _trace_end(req, "overloaded")
                 raise ServeOverloadError(
                     "serve queue full (%d queued, depth %d): shed load or "
                     "retry with backoff" % (len(self._q), self._queue_depth))
@@ -220,9 +240,11 @@ class MicroBatcher:
             for r in batch:
                 if not r.future.set_running_or_notify_cancel():
                     cancelled += 1
+                    _trace_end(r, "cancelled")
                 elif r.deadline_t is not None and now > r.deadline_t:
                     if self._stats is not None:
                         self._stats.on_expired(1)
+                    _trace_end(r, "expired")
                     _set_exception(r.future, ServeDeadlineError(
                         "deadline exceeded: %.1f ms in queue against a "
                         "%.1f ms deadline"
@@ -234,6 +256,12 @@ class MicroBatcher:
                 self._stats.on_cancelled(cancelled)
             if not live:
                 continue
+            if _trace.enabled():
+                for r in live:
+                    if r.trace_id is not None:
+                        _trace.async_instant("serve:request", r.trace_id,
+                                             cat="serve", at="dispatch",
+                                             batch=len(live))
             try:
                 handoff = self._run_batch(live)
             except BaseException as e:     # engine bug: fail the batch,
@@ -260,9 +288,13 @@ class MicroBatcher:
                     % (len(results), len(live))))
                 continue
             now = time.perf_counter()
-            lat = [(now - r.enqueue_t) * 1e3
-                   for r, res in zip(live, results)
-                   if _set_result(r.future, res)]
+            lat = []
+            traced = _trace.enabled()
+            for r, res in zip(live, results):
+                if _set_result(r.future, res):
+                    lat.append((now - r.enqueue_t) * 1e3)
+                if traced:
+                    _trace_end(r, "resolved")
             if self._stats is not None:
                 self._stats.on_complete(lat)
 
@@ -273,6 +305,7 @@ class MicroBatcher:
             exc = ServeError("serve worker died: %r" % (exc,))
         for r in reqs:
             _set_exception(r.future, exc)
+            _trace_end(r, "failed")
 
     # -- lifecycle ---------------------------------------------------------
     def is_worker_thread(self) -> bool:
@@ -292,6 +325,7 @@ class MicroBatcher:
             self._cv.notify_all()
         failed = cancelled = 0
         for r in dropped:
+            _trace_end(r, "closed")
             if _set_exception(r.future, ServeClosedError(
                     "serve engine %r closed before this request was "
                     "dispatched" % self.name)):

@@ -40,9 +40,10 @@ each passes the ``decode.step`` fault point.
 
 It runs on ``gpu(dev_id)`` unless ``dev_type="cpu"`` is asked for.
 Knobs: ``MXNET_SERVE_SLOTS`` (8), ``MXNET_SERVE_DECODE_QUEUE`` (4x
-slots), ``MXNET_SERVE_MAX_TOKENS`` (128).  Trace spans wait for the
-port's ``trace/`` (ROADMAP.md, queue 1 item 12); ``_trace_end`` keeps
-their places.
+slots), ``MXNET_SERVE_MAX_TOKENS`` (128).  Each stream is one
+``serve:decode_request`` async span (begin at submit, an instant at
+admission, one end at whichever outcome closes it); each step is a
+``serve:decode_step`` span and a ``serve:decode_slots`` counter.
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace as _trace
 from ..base import get_env, make_condition, open_stream
 from ..faults import point as _fault_point
 from ..predictor import Predictor, load_checkpoint_pair
@@ -69,10 +71,11 @@ __all__ = ["DecodeEngine"]
 
 
 def _trace_end(req: "_DecodeRequest", outcome: str) -> None:
-    """Close a stream's trace span with its outcome.  A no-op until the
-    ``trace/`` subsystem is ported (ROADMAP queue 1 item 12); the calls
-    stay at the places the JAX package traces, so the port's engines gain
-    their spans without moving a line."""
+    """Close a stream's async span with its outcome (once: every
+    terminal path calls this exactly once)."""
+    if req.trace_id is not None and _trace.enabled():
+        _trace.async_end("serve:decode_request", req.trace_id, cat="serve",
+                         outcome=outcome)
 
 
 class _DecodeRequest:
@@ -380,8 +383,14 @@ class DecodeEngine:
         dl = self.deadline_ms if deadline_ms is None else \
             (float(deadline_ms) or None)
         now = time.perf_counter()
+        traced = _trace.enabled()
         req = _DecodeRequest(arr, mn, eos, Future(), now,
-                             now + dl / 1000.0 if dl else None)
+                             now + dl / 1000.0 if dl else None,
+                             trace_id=_trace.next_async_id() if traced
+                             else None)
+        if traced:
+            _trace.async_begin("serve:decode_request", req.trace_id,
+                               cat="serve", prompt_len=int(arr.size))
         with self._cv:
             if self._closed:
                 _trace_end(req, "closed")
@@ -483,6 +492,10 @@ class DecodeEngine:
             self._zero_state_row(slot_idx)
             self._slots[slot_idx] = _Slot(req)
             self._active += 1
+            if req.trace_id is not None and _trace.enabled():
+                _trace.async_instant("serve:decode_request", req.trace_id,
+                                     cat="serve", at="admit",
+                                     slot=slot_idx)
         self.stats.on_admitted(len(reqs))
 
     def _step(self) -> None:
@@ -497,7 +510,11 @@ class DecodeEngine:
         # stateful-decode seam: `delay` stretches a step, `error` kills
         # the decode loop (the replica-crash shape)
         _fault_point("decode.step", active=n_active)
-        sampled = self._forward(toks)
+        with _trace.span("serve:decode_step", cat="serve",
+                         active=n_active, slots=self.num_slots):
+            sampled = self._forward(toks)
+        _trace.counter("serve:decode_slots", cat="serve",
+                       active=n_active)
         emitted = 0
         done_lat: List[float] = []
         for i, slot in enumerate(slots):
@@ -530,9 +547,12 @@ class DecodeEngine:
             self._moe_stats_n += 1
             if self._moe_stats_n % self._moe_stats_every == 0:
                 hits = self._exec.arg_dict[self._moe_hits_state]._get()
-                self.moe_stats.set_hits(
-                    self._moe_hits_state,
-                    hits.sum(dim=0).double().cpu().numpy())
+                hits = hits.sum(dim=0).double().cpu().numpy()
+                self.moe_stats.set_hits(self._moe_hits_state, hits)
+                _trace.counter(
+                    "moe:expert_occupancy", cat="moe",
+                    **{"e%d" % i: float(hits[i])
+                       for i in range(hits.shape[0])})
 
     def _apply_reloads(self, pending) -> None:
         for arg_params, aux_params, ev, holder in pending:

@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import trace as _trace
 from ..base import get_env
 from ..context import Context
 from ..faults import point as _fault_point
@@ -351,11 +352,14 @@ class ServeEngine:
         # (every future gets the exception, what a broken replica looks
         # like to the router), a `crash` kills the process
         _fault_point("serve.dispatch", n=n, bucket=bucket)
-        data = np.stack([r.data for r in reqs])
-        if bucket > n:
-            pad = np.zeros((bucket - n,) + self.item_shape, self._data_dtype)
-            data = np.concatenate([data, pad], axis=0)
-        handoff = self._execute(data, n)
+        with _trace.span("serve:run_batch", cat="serve", n=n,
+                         bucket=bucket):
+            data = np.stack([r.data for r in reqs])
+            if bucket > n:
+                pad = np.zeros((bucket - n,) + self.item_shape,
+                               self._data_dtype)
+                data = np.concatenate([data, pad], axis=0)
+            handoff = self._execute(data, n)
         self.stats.on_batch(n, bucket)
         return handoff
 
@@ -389,10 +393,11 @@ class ServeEngine:
     def _finish(self, handoff) -> List[np.ndarray]:
         """Completion thread: wait for the copy, slice per request."""
         out, done, n = handoff
-        if done is not None:
-            done.synchronize()
-        host = out.numpy()
-        return [np.array(host[i]) for i in range(n)]
+        with _trace.span("serve:d2h_finish", cat="serve", n=n):
+            if done is not None:
+                done.synchronize()
+            host = out.numpy()
+            return [np.array(host[i]) for i in range(n)]
 
     # -- client API --------------------------------------------------------
     def submit(self, data, deadline_ms: Optional[float] = None):

@@ -39,6 +39,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from .. import trace as _trace
 from ..base import get_env, make_lock
 from .errors import ServeClosedError, ServeError, ServeOverloadError
 
@@ -246,6 +247,7 @@ class ModelMultiplexer:
         eng = victim.engine
         victim.engine = None
         self.stats.on_eviction()
+        _trace.instant("serve:mux_evict", cat="serve", model=victim.name)
         self._update_gauges_locked()
         return eng
 
@@ -334,7 +336,9 @@ class ModelMultiplexer:
                 # lock released: traffic to the other models keeps
                 # flowing while the victims drain
                 _close_all(to_close)
-            engine = entry.factory()
+            with _trace.span("serve:mux_swap_in", cat="serve",
+                             model=entry.name):
+                engine = entry.factory()
             for attr in ("submit", "close", "pending_requests",
                          "outstanding", "device_bytes", "stats"):
                 if not hasattr(engine, attr):

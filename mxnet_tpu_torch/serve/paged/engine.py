@@ -39,9 +39,11 @@ Knobs: ``MXNET_KVPOOL_BLOCKS``, ``MXNET_KVPOOL_BLOCK_TOKENS``,
 ``MXNET_SERVE_DECODE_QUEUE``, ``MXNET_SERVE_MAX_TOKENS``.  There is no
 knob that turns the kernel off.  Each step passes the ``paged.step``
 fault point, and the engine's stats are a row of
-``mx.profiler.serve_report()``.  Trace spans are not in the port yet
-(ROADMAP queue 1 item 12); under ``MXNET_COMPILE_CACHE`` the kernel's
-library comes from the persistent store.
+``mx.profiler.serve_report()``.  Each stream is one
+``serve:decode_request`` async span, each step a ``serve:paged_step``
+span and a ``serve:paged_kv_blocks`` counter.  Under
+``MXNET_COMPILE_CACHE`` the kernel's library comes from the persistent
+store.
 """
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ... import trace as _trace
 from ...base import get_env
 from ...context import Context, current_context
 from ...convert import convert_lm_params
@@ -359,8 +362,14 @@ class PagedDecodeEngine:
         dl = self.deadline_ms if deadline_ms is None else \
             (float(deadline_ms) or None)
         now = time.perf_counter()
+        traced = _trace.enabled()
         req = _DecodeRequest(arr, mn, eos, Future(), now,
-                             now + dl / 1000.0 if dl else None)
+                             now + dl / 1000.0 if dl else None,
+                             trace_id=_trace.next_async_id() if traced
+                             else None)
+        if traced:
+            _trace.async_begin("serve:decode_request", req.trace_id,
+                               cat="serve", prompt_len=int(arr.size))
         with self._cv:
             if self._closed:
                 _trace_end(req, "closed")
@@ -433,6 +442,10 @@ class PagedDecodeEngine:
                     "(slot %d)" % slot_idx)
             self._slots[slot_idx] = _PagedSlot(req)
             self._active += 1
+            if req.trace_id is not None and _trace.enabled():
+                _trace.async_instant("serve:decode_request", req.trace_id,
+                                     cat="serve", at="admit",
+                                     slot=slot_idx)
         self.stats.on_admitted(len(reqs))
 
     def _k_eff(self, sl: _PagedSlot) -> int:
@@ -563,17 +576,23 @@ class PagedDecodeEngine:
                   if sl is not None]
         # same seam as decode.step: `delay` stretches a step, `error`
         # kills the loop (the replica-crash shape)
-        _fault_point("paged.step", active=len(active))
-        if any(sl.prefilling() for _, sl in active):
-            emitted = self._mixed_step(active)
-        elif self._spec is not None and \
-                any(self._k_eff(sl) > 0 for _, sl in active):
-            emitted = self._spec_round(active)
-        else:
-            emitted = self._plain_step(active)
-        self.stats.on_step(len(active), emitted)
+        n_active = len(active)
+        _fault_point("paged.step", active=n_active)
+        with _trace.span("serve:paged_step", cat="serve",
+                         active=n_active, slots=self.num_slots):
+            if any(sl.prefilling() for _, sl in active):
+                emitted = self._mixed_step(active)
+            elif self._spec is not None and \
+                    any(self._k_eff(sl) > 0 for _, sl in active):
+                emitted = self._spec_round(active)
+            else:
+                emitted = self._plain_step(active)
+        self.stats.on_step(n_active, emitted)
         self.stats.set_pool(self._pool.used_blocks(),
                             self._pool.reserved_blocks())
+        _trace.counter("serve:paged_kv_blocks", cat="serve",
+                       used=self._pool.used_blocks(),
+                       reserved=self._pool.reserved_blocks())
 
     def _run(self, warmup: bool) -> None:
         """The decode thread: warm up, report readiness to the

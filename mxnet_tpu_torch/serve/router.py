@@ -36,9 +36,9 @@ The router
 
 ``capture=`` takes any object with ``offer(data, result)``: every
 successful request is queued for it and offered on the router's own
-drain thread (the JAX package's ``online/`` capture writer is one; the
-port's waits for ROADMAP.md queue 1 item 12).  Trace instants wait for
-the port's ``trace/`` (item 12).
+drain thread (``online.CaptureWriter`` is one).  The breaker's moves are
+trace instants (``serve:router_probe``, ``_probe_up``, ``_probe_fail``,
+``_down``, ``_drain``) and each restart a ``serve:router_restart`` span.
 """
 from __future__ import annotations
 
@@ -49,6 +49,7 @@ import time
 from concurrent.futures import Future
 from typing import Callable, Dict, List, Optional
 
+from .. import trace as _trace
 from ..base import get_env, make_condition
 from ..faults import InjectedFault
 from ..faults.retry import Backoff
@@ -265,6 +266,8 @@ class ServeRouter:
                     r.probe_gen += 1
                     r.probes += 1
                     self._probes += 1
+                    _trace.instant("serve:router_probe", cat="serve",
+                                   replica=r.index)
                     return r, True
         live = [r for r in self._replicas
                 if r.state == LIVE and r.index not in exclude]
@@ -293,9 +296,13 @@ class ServeRouter:
             rep.probe_at = None
             rep.reinstated += 1
             self._reinstated += 1
+            _trace.instant("serve:router_probe_up", cat="serve",
+                           replica=rep.index)
         elif ok is False:
             rep.probe_at = time.perf_counter() \
                 + rep.probe_backoff.next_wait()
+            _trace.instant("serve:router_probe_fail", cat="serve",
+                           replica=rep.index)
         else:
             rep.probe_at = time.perf_counter() + rep.probe_backoff.peek()
 
@@ -416,6 +423,8 @@ class ServeRouter:
             if self.probe_after_s > 0:
                 rep.probe_at = time.perf_counter() \
                     + rep.probe_backoff.next_wait()
+            _trace.instant("serve:router_down", cat="serve",
+                           replica=rep.index)
 
     def _retryable(self, exc: BaseException) -> bool:
         """Engine-side failures worth another replica: a closed or
@@ -570,6 +579,8 @@ class ServeRouter:
             if rep.state != DRAINING:   # idempotent: restart() after a
                 rep.state = DRAINING    # manual drain() just waits
                 self._drains += 1
+                _trace.instant("serve:router_drain", cat="serve",
+                               replica=index)
         deadline = (time.perf_counter() + timeout) if timeout else None
         with self._cv:
             while rep.outstanding > 0 or rep.engine.pending_requests() > 0:
@@ -595,16 +606,19 @@ class ServeRouter:
         rep = self._rep(index)
         self.drain(index, timeout=timeout)
         try:
-            if reload is not None:
-                rep.engine.reload(reload)
-            else:
-                old = rep.engine
-                build = factory if factory is not None else self._factory
-                # build BEFORE closing the old engine: a failed build
-                # must leave the old replica restorable
-                fresh = build(index)
-                rep.engine = fresh
-                old.close(drain=True)
+            with _trace.span("serve:router_restart", cat="serve",
+                             replica=index):
+                if reload is not None:
+                    rep.engine.reload(reload)
+                else:
+                    old = rep.engine
+                    build = factory if factory is not None \
+                        else self._factory
+                    # build BEFORE closing the old engine: a failed
+                    # build must leave the old replica restorable
+                    fresh = build(index)
+                    rep.engine = fresh
+                    old.close(drain=True)
         finally:
             with self._cv:
                 rep.failures = 0

@@ -155,15 +155,17 @@ def test_world1_group_on_first_use_of_a_mesh(world1):
                                   "search_sharding",
                                   "fleet_multichip_report"])
 def test_later_dist_names_raise(name):
-    """The fleet and the serve seam load lazily, as the reference's names
-    do; the sharding search (item 10c) and the fleet report (with item
-    12's trace journals) still raise, naming their item."""
-    if name in ("FleetSupervisor", "RpcReplica"):
-        assert getattr(tmx.dist, name).__name__ == name
-        return
-    item = "item 10c" if name == "search_sharding" else "item 12"
-    with pytest.raises(NotImplementedError, match=item):
-        getattr(tmx.dist, name)
+    """Every name of the reference's dist package loads lazily and works:
+    the fleet and the serve seam, the sharding search and the fleet
+    report (none raises any more)."""
+    obj = getattr(tmx.dist, name)
+    assert obj.__name__ == name
+    if name == "fleet_multichip_report":
+        assert obj([]) == {"hosts": {}, "fleet": {"hosts": 0,
+                                                  "reporting": 0}}
+    elif name == "search_sharding":
+        assert tmx.dist.resolve_auto.__module__ == \
+            "mxnet_tpu_torch.dist.shardsearch"
 
 
 def test_server_role_without_ps_env_exits_cleanly():

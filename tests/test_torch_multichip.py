@@ -570,10 +570,27 @@ def test_spec_refusals_match_reference(mesh, specs, match):
         _one_rank_fit(mesh, specs)
 
 
-def test_sharding_auto_names_item_10c():
-    with pytest.raises(NotImplementedError, match="10c"):
-        tmx.mod.Module(mlp(tmx), context=tmx.cpu()).set_mesh(
-            "dp=1", sharding="auto")
+def test_sharding_auto_names_item_10c(tmp_path, monkeypatch):
+    """``sharding="auto"`` on ``dp=1``: no model axis, so the shard
+    search's one candidate is ``dp``, nothing is sharded, the winner is
+    stored, and the fit equals the one with no specs."""
+    monkeypatch.setenv("MXNET_AUTOTUNE_DIR", str(tmp_path))
+    ctx = tmx.cpu(0)
+    with tmx.cpu():
+        mod = tmx.mod.Module(mlp(tmx), context=ctx)
+        mod.fit(data(tmx), num_epoch=1, optimizer_params=dict(OPT),
+                mesh="dp=1", sharding="auto",
+                arg_params={k: tmx.nd.array(v, ctx=ctx)
+                            for k, v in params0().items()})
+        _, want = fit(tmx, None, "dp=1", None, num_epoch=1)
+    assert mod._fused.param_specs == {}
+    got = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    from mxnet_tpu_torch.autotune import store
+    docs = [store.load_config(k) for k in store.list_configs()
+            if k.startswith("shardsearch-")]
+    assert [d["config"]["specs"] for d in docs] == [{}]
 
 
 def test_serve_param_specs_without_mesh_refused(tmp_path):

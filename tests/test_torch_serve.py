@@ -156,7 +156,9 @@ def test_serve_engine_parity_with_jax(tmp_path):
 
 def test_port_imports_no_jax():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serve, "
-            "mxnet_tpu_torch.ops.cuda_kernels, chip_smoke, kernel_ab\n"
+            "mxnet_tpu_torch.ops.cuda_kernels, mxnet_tpu_torch.trace, "
+            "mxnet_tpu_torch.online, mxnet_tpu_torch.dist.shardsearch, "
+            "mxnet_tpu_torch.dist.report, chip_smoke, kernel_ab\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')]\n"
