@@ -305,6 +305,30 @@ Phases, in order; any failure exits nonzero:
    relative L2 1e-5), and eight small modules prepared by eight threads
    bitwise those prepared by one; the compile report; the ``compile and
    tuning result`` line;
+25. trace/, the rest of mx.profiler, the shard search and online/
+   (``p25 (a)``..``(e)`` lines, PERF.md section 6 PR 19); the ``trace,
+   search and online result`` line;
+26. users' kernels, Python ops, WarpCTC and the torch bridge (``p26 (a)``
+   ..``(f)`` lines): (a) the original ``ndarray_softmax`` bodies (the
+   softmax over rows, ``y - onehot(l)``) compiled through ``mx.rtc.Rtc``
+   with nvcc and launched on gpu(0) at 100 x 10 and 37 x 1000 against
+   plain PyTorch (atol 1e-6), a second ``Rtc`` of the same source running
+   nvcc 0 times, a body with a syntax error raising with nvcc's log; (b)
+   example/numpy-ops' 784-128-64-10 MLP at batch 100 from one checkpoint,
+   20 steps through ``fit`` with a ``NumpyOp``, an ``NDArrayOp`` (its
+   kernels (a)'s), a ``CustomOp`` and a ``SoftmaxOutput`` head: the
+   Python-op runs eager (0 captures, 20 eager steps) and within atol 1e-5
+   of the captured ``SoftmaxOutput`` run; (c) a graph with a ``Custom``
+   node between fc1 and fc2 trained 5 steps, saved, served through
+   ``ServeEngine(fuse=True)``: 32 requests from 4 threads against an
+   unfused ``Predictor``, ``fused_fc_epilogue`` launched twice a batch;
+   (d) LSTM-OCR at example/warpctc/lstm_ocr.py's defaults (T 80, 30
+   features, 100 hidden, batch 32, 4 labels, 11 classes) through ``fit``:
+   captured, the first update against the port's CPU run, two runs under
+   deterministic algorithms bitwise equal, tokens/s; (e) ``mx.th`` on the
+   card; (f) a child with ``MXNET_LOCK_CHECK=1`` serving (c)'s graph from
+   4 threads, saving a checkpoint and dumping a trace: no lock-order
+   cycle; the ``user kernels and plugins result`` line;
    then the whole script's wall, the ``kernels`` JSON line (all four
    kernels), then the ``{"ok": true, ...}`` line.
 """
@@ -9611,6 +9635,688 @@ def p25_phase(torch, mt, ck, smi, root):
                 + b["device_launches"].get("paged_attention", 0)}}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: users' kernels, Python ops, WarpCTC and the torch bridge
+# (operator.py, rtc.py, plugins/; ROADMAP item 13), and the lock order
+
+# (a) the original ndarray_softmax kernels (example/numpy-ops), as CUDA
+# bodies for mx.rtc.Rtc: the softmax over each row (one block a row, a
+# shared-memory tree for the max and the sum; blockDim a power of two)
+# and its gradient y - onehot(l)
+RTC_SOFTMAX = r"""
+  __shared__ float red[1024];
+  const int n = x_dims[1];
+  const float* xr = x + blockIdx.x * n;
+  float* yr = y + blockIdx.x * n;
+  float m = -INFINITY;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) m = fmaxf(m, xr[j]);
+  red[threadIdx.x] = m;
+  __syncthreads();
+  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s)
+      red[threadIdx.x] = fmaxf(red[threadIdx.x], red[threadIdx.x + s]);
+    __syncthreads();
+  }
+  m = red[0];
+  __syncthreads();
+  float sum = 0.f;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    float e = expf(xr[j] - m);
+    yr[j] = e;
+    sum += e;
+  }
+  red[threadIdx.x] = sum;
+  __syncthreads();
+  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
+    __syncthreads();
+  }
+  for (int j = threadIdx.x; j < n; j += blockDim.x) yr[j] /= red[0];
+"""
+# rtc.pallas_call's form: a whole source with one __global__ function
+RTC_AXPY = r"""
+extern "C" __global__ void axpy(const float* a, float* o) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < 1000) o[i] = 2.f * a[i] + 1.f;
+}
+"""
+RTC_SOFTMAX_GRAD = r"""
+  const int n = y_dims[1];
+  const int lab = (int)l[blockIdx.x];
+  for (int j = threadIdx.x; j < n; j += blockDim.x)
+    dx[blockIdx.x * n + j] = y[blockIdx.x * n + j] - (j == lab ? 1.f : 0.f);
+"""
+# the card's expf and division against torch.softmax: a few float32 ulps
+P26_RTC_ATOL = 1e-6
+P26_RTC_SHAPES = ((100, 10, 32), (37, 1000, 256))   # rows, classes, block
+# (b) example/numpy-ops' MLP at batch 100, 20 steps from one checkpoint
+P26_BATCH, P26_STEPS = 100, 20
+P26_LR = {"learning_rate": 0.05, "momentum": 0.9}
+# the Python heads compute the softmax and its gradient on the host (or
+# in the user's kernels) and SoftmaxOutput on the card: ~1e-7 apart a
+# step, carried on by momentum over 20 steps
+P26_FIT_ATOL = 1e-5
+# (c) the Custom graph served: phase 4's tolerance
+P26_SERVE_RTOL, P26_SERVE_ATOL = 1e-3, 1e-6
+P26_REQUESTS, P26_THREADS = 32, 4
+# (d) LSTM-OCR at example/warpctc/lstm_ocr.py's defaults
+OCR_T, OCR_FEAT, OCR_HIDDEN, OCR_BATCH, OCR_LABELS, OCR_CLASSES = \
+    80, 30, 100, 32, 4, 11
+OCR_OPT = {"learning_rate": 0.001, "momentum": 0.9, "wd": 1e-5}
+# the first step's update, card against the port's CPU run: 80 LSTM steps
+# of float32 products in cuBLAS's and the CPU's orders, then the CTC
+# recursion's log-sum-exps (relative L2 of the update)
+OCR_FIRST_RTOL = 1e-4
+
+
+def p26_ops(mt):
+    """The example/numpy-ops heads in the port (NumpySoftmax,
+    NDArraySoftmax over (a)'s Rtc kernels, CustomSoftmax registered as
+    "p26_softmax") and a scaling Custom op ("p26_scale", factor=)."""
+    import torch
+
+    class NumpySoftmax(mt.operator.NumpyOp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]]
+
+        def forward(self, in_data, out_data):
+            x, y = in_data[0], out_data[0]
+            y[:] = np.exp(x - x.max(axis=1, keepdims=True))
+            y /= y.sum(axis=1, keepdims=True)
+
+        def backward(self, out_grad, in_data, out_data, in_grad):
+            lab = in_data[1].astype(int)
+            dx = in_grad[0]
+            dx[:] = out_data[0]
+            dx[np.arange(lab.shape[0]), lab] -= 1.0
+
+    class NDArraySoftmax(mt.operator.NDArrayOp):
+        """The original ndarray_softmax.py: its kernels are CUDA bodies
+        pushed through mx.rtc on the op's device."""
+
+        def __init__(self):
+            super().__init__(False)
+            self.fwd_kernel = self.bwd_kernel = None
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]]
+
+        def forward(self, in_data, out_data):
+            x, y = in_data[0], out_data[0]
+            xa = mt.nd.array(x)
+            if self.fwd_kernel is None:
+                self.fwd_kernel = mt.rtc.Rtc("softmax", [("x", xa)],
+                                             [("y", xa)], RTC_SOFTMAX)
+            yout = mt.nd.empty(y.shape)
+            self.fwd_kernel.push([xa], [yout], (x.shape[0], 1, 1),
+                                 (32, 1, 1))
+            y[:] = yout.asnumpy()
+
+        def backward(self, out_grad, in_data, out_data, in_grad):
+            label, y, dx = in_data[1], out_data[0], in_grad[0]
+            ya, la = mt.nd.array(y), mt.nd.array(label)
+            if self.bwd_kernel is None:
+                self.bwd_kernel = mt.rtc.Rtc(
+                    "softmax_grad", [("y", ya), ("l", la)], [("dx", ya)],
+                    RTC_SOFTMAX_GRAD)
+            dxout = mt.nd.empty(dx.shape)
+            self.bwd_kernel.push([ya, la], [dxout], (y.shape[0], 1, 1),
+                                 (32, 1, 1))
+            dx[:] = dxout.asnumpy()
+
+    class CustomSoftmaxOp(mt.operator.CustomOp):
+        """Softmax and its gradient on the op's own device (the port's
+        NDArrays on the card): no host round trip."""
+
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0]._get()
+            self.assign(out_data[0], req[0], torch.softmax(x, dim=1))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            y = out_data[0]._get().clone()
+            lab = in_data[1]._get().to(torch.int64)
+            y[torch.arange(lab.shape[0], device=y.device), lab] -= 1.0
+            self.assign(in_grad[0], req[0], y)
+
+    @mt.operator.register("p26_softmax")
+    class CustomSoftmaxProp(mt.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], [in_shape[0][0]]], [in_shape[0]], []
+
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            return CustomSoftmaxOp()
+
+    class ScaleOp(mt.operator.CustomOp):
+        def __init__(self, factor):
+            self.factor = factor
+
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0], in_data[0] * self.factor)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0], out_grad[0] * self.factor)
+
+    @mt.operator.register("p26_scale")
+    class ScaleProp(mt.operator.CustomOpProp):
+        def __init__(self, factor="1.0"):
+            super().__init__(need_top_grad=True)
+            self.factor = float(factor)
+
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            return ScaleOp(self.factor)
+
+    return NumpySoftmax, NDArraySoftmax
+
+
+def p26_mlp(mt, ops, head):
+    data = mt.sym.Variable("data")
+    net = mt.sym.FullyConnected(data, num_hidden=128, name="fc1")
+    net = mt.sym.Activation(net, act_type="relu", name="relu1")
+    net = mt.sym.FullyConnected(net, num_hidden=64, name="fc2")
+    net = mt.sym.Activation(net, act_type="relu", name="relu2")
+    net = mt.sym.FullyConnected(net, num_hidden=10, name="fc3")
+    label = mt.sym.Variable("softmax_label")
+    if head == "numpy":
+        return ops[0]()(data=net, label=label, name="softmax")
+    if head == "ndarray":
+        return ops[1]()(data=net, label=label, name="softmax")
+    if head == "custom":
+        return mt.sym.Custom(net, label, op_type="p26_softmax",
+                             name="softmax")
+    return mt.sym.SoftmaxOutput(net, name="softmax")
+
+
+def p26_custom_mid(mt):
+    """fc1(128)+relu -> Custom(p26_scale) -> fc2(64)+relu -> fc3(10) ->
+    SoftmaxOutput: a one-input Custom op a Predictor binds from the data
+    shape alone."""
+    data = mt.sym.Variable("data")
+    net = mt.sym.FullyConnected(data, num_hidden=128, name="fc1")
+    net = mt.sym.Activation(net, act_type="relu", name="relu1")
+    net = mt.sym.Custom(net, op_type="p26_scale", factor=0.5, name="scale")
+    net = mt.sym.FullyConnected(net, num_hidden=64, name="fc2")
+    net = mt.sym.Activation(net, act_type="relu", name="relu2")
+    net = mt.sym.FullyConnected(net, num_hidden=10, name="fc3")
+    return mt.sym.SoftmaxOutput(net, name="softmax")
+
+
+def p26_rtc(torch, mt, smi):
+    """(a): the ndarray_softmax kernels through Rtc on gpu(0)."""
+    from mxnet_tpu_torch import rtc
+    dev = torch.device("cuda", 0)
+    flush = torch.zeros(256 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(26)
+    out = {"cases": []}
+    runs0 = rtc.NVCC_RUNS
+    t_build = 0.0
+    for rows, cols, block in P26_RTC_SHAPES:
+        x = torch.from_numpy(rng.standard_normal((rows, cols),
+                                                 dtype=np.float32)).to(dev)
+        lab = torch.from_numpy(rng.integers(0, cols, rows).astype(
+            np.float32)).to(dev)
+        xa, la = mt.nd.NDArray(x), mt.nd.NDArray(lab)
+        y, dx = mt.nd.zeros((rows, cols)), mt.nd.zeros((rows, cols))
+        fwd = mt.rtc.Rtc("softmax", [("x", xa)], [("y", xa)], RTC_SOFTMAX)
+        bwd = mt.rtc.Rtc("softmax_grad", [("y", xa), ("l", la)],
+                         [("dx", xa)], RTC_SOFTMAX_GRAD)
+        t0 = time.perf_counter()
+        fwd.push([xa], [y], (rows, 1, 1), (block, 1, 1))
+        bwd.push([y, la], [dx], (rows, 1, 1), (block, 1, 1))
+        torch.cuda.synchronize()
+        t_build += time.perf_counter() - t0
+        want_y = torch.softmax(x, dim=1)
+        want_dx = want_y - torch.nn.functional.one_hot(
+            lab.to(torch.int64), cols).to(torch.float32)
+        err = max(float((y._get() - want_y).abs().max()),
+                  float((dx._get() - want_dx).abs().max()))
+        fwd_ms = time_ms(torch, lambda: fwd.push([xa], [y], (rows, 1, 1),
+                                                 (block, 1, 1)), flush)
+        bwd_ms = time_ms(torch, lambda: bwd.push([y, la], [dx],
+                                                 (rows, 1, 1), (block, 1, 1)),
+                         flush)
+        plain_ms = time_ms(torch, lambda: torch.softmax(x, dim=1), flush)
+        print("p26 (a): rtc softmax %dx%d block %d: max_abs_err %.3g (atol "
+              "%g), softmax %.4f ms, softmax_grad %.4f ms, torch.softmax "
+              "%.4f ms (card %s)" % (rows, cols, block, err, P26_RTC_ATOL,
+                                     fwd_ms, bwd_ms, plain_ms, smi))
+        if not err <= P26_RTC_ATOL:
+            fail("rtc softmax %dx%d: max_abs_err %g > %g"
+                 % (rows, cols, err, P26_RTC_ATOL))
+        out["cases"].append({"shape": [rows, cols], "err": err,
+                             "fwd_ms": fwd_ms, "bwd_ms": bwd_ms})
+    built = rtc.NVCC_RUNS - runs0
+    # the same sources again: built in this process, no nvcc
+    runs1 = rtc.NVCC_RUNS
+    rows, cols, block = P26_RTC_SHAPES[0]
+    xa = mt.nd.zeros((rows, cols))
+    again = mt.rtc.Rtc("softmax", [("x", xa)], [("y", xa)], RTC_SOFTMAX)
+    again.push([xa], [mt.nd.zeros((rows, cols))], (rows, 1, 1),
+               (block, 1, 1))
+    torch.cuda.synchronize()
+    rebuilt = rtc.NVCC_RUNS - runs1
+    print("p26 (a): %d nvcc runs built %d kernels in %.1f s (first pushes "
+          "included); a second Rtc of the same source ran nvcc %d times"
+          % (built, 2 * len(P26_RTC_SHAPES), t_build, rebuilt))
+    if built != 2 * len(P26_RTC_SHAPES) or rebuilt != 0:
+        fail("rtc builds: %d nvcc runs for %d sources, %d for a rebuilt "
+             "one" % (built, 2 * len(P26_RTC_SHAPES), rebuilt))
+    bad = mt.rtc.Rtc("broken", [("x", xa)], [("y", xa)],
+                     "  y[0] = x[0] +;  // a syntax error")
+    try:
+        bad.push([xa], [mt.nd.zeros((rows, cols))], (1, 1, 1), (1, 1, 1))
+    except mt.MXNetError as e:
+        msg = str(e)
+    else:
+        fail("a kernel body with a syntax error built and launched")
+    if "nvcc failed" not in msg or "error" not in msg.split("\n", 1)[1]:
+        fail("a failed build raised without nvcc's log: %r" % msg[:300])
+    print("p26 (a): a body with a syntax error raises with nvcc's log: %r"
+          % msg.split("\n", 2)[1][:160])
+    call = mt.rtc.pallas_call(RTC_AXPY, ((1000,), np.float32), grid=(4,),
+                              block=(256,))
+    a = torch.from_numpy(rng.standard_normal(1000, dtype=np.float32)).to(dev)
+    n0 = rtc.LAUNCHES.get("axpy", 0)
+    o = call(a)
+    torch.cuda.synchronize()
+    err = float((o - (2 * a + 1)).abs().max())
+    print("p26 (a): rtc.pallas_call axpy over 1000: max_abs_err %.3g, %d "
+          "launch counted" % (err, rtc.LAUNCHES["axpy"] - n0))
+    if not err <= P26_RTC_ATOL or rtc.LAUNCHES["axpy"] - n0 != 1:
+        fail("rtc.pallas_call: err %g, %d launches"
+             % (err, rtc.LAUNCHES["axpy"] - n0))
+    out["build_s"] = t_build
+    out["fwd_kernel"] = RTC_SOFTMAX
+    return out
+
+
+def p26_marks(torch):
+    """A batch_end_callback marking each step's end on a drained card,
+    and -> steps/s over the steps after the warm-up and the capture (the
+    fused step's steady state, eager or replayed)."""
+    from mxnet_tpu_torch.module.fused import WARMUP_STEPS
+    marks = []
+
+    def mark(_param):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    def rate():
+        tail = marks[WARMUP_STEPS:]
+        return (len(tail) - 1) / (tail[-1] - tail[0])
+    return mark, rate
+
+
+def p26_fit(torch, mt, ops, head, x, y, arg):
+    mod = mt.mod.Module(p26_mlp(mt, ops, head), context=mt.gpu(0))
+    it = mt.io.NDArrayIter(x, y, batch_size=P26_BATCH)
+    mark, rate = p26_marks(torch)
+    mod.fit(it, num_epoch=1, optimizer="sgd", arg_params=arg,
+            optimizer_params=dict(P26_LR), batch_end_callback=mark)
+    params = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    return params, mod._fused, rate()
+
+
+def p26_python_ops_fit(torch, mt, ops, smi):
+    """(b): four 20-step fits of the MLP from one checkpoint."""
+    from mxnet_tpu_torch.module.fused import WARMUP_STEPS
+    rng = np.random.default_rng(261)
+    n = P26_BATCH * P26_STEPS
+    x = rng.uniform(-1, 1, (n, 784)).astype(np.float32)
+    y = rng.integers(0, 10, n).astype(np.float32)
+    sym = p26_mlp(mt, ops, "softmax")
+    arg = {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in xavier_params(
+        sym, {"data": (P26_BATCH, 784), "softmax_label": (P26_BATCH,)},
+        262).items()}
+    runs = {}
+    for head in ("softmax", "numpy", "ndarray", "custom"):
+        params, fused, rate = p26_fit(torch, mt, ops, head, x, y, arg)
+        stats = fused.stats.report()
+        runs[head] = {"params": params, "stats": stats, "steps_s": rate,
+                      "reason": fused.capture_reason()}
+        print("p26 (b): %-8s head: %.1f steps/s (after the warm-up and "
+              "capture steps), graphs %s, capture "
+              "reason %r (card %s)" % (head, rate, stats,
+                                      fused.capture_reason(), smi))
+    want = {"captures": 1, "replays": P26_STEPS - WARMUP_STEPS,
+            "eager_steps": WARMUP_STEPS}
+    if runs["softmax"]["stats"] != want:
+        fail("SoftmaxOutput fit: graphs %s, want %s"
+             % (runs["softmax"]["stats"], want))
+    ref = runs["softmax"]["params"]
+    for head in ("numpy", "ndarray", "custom"):
+        got = runs[head]
+        if got["stats"] != {"captures": 0, "replays": 0,
+                            "eager_steps": P26_STEPS}:
+            fail("%s-head fit: graphs %s, want 0 captures and %d eager "
+                 "steps" % (head, got["stats"], P26_STEPS))
+        err = max(float(np.abs(got["params"][k] - ref[k]).max())
+                  for k in ref)
+        got["max_abs_diff"] = err
+        print("p26 (b): %-8s head params vs SoftmaxOutput's after %d steps: "
+              "max_abs_diff %.3g (atol %g)" % (head, P26_STEPS, err,
+                                               P26_FIT_ATOL))
+        if not err <= P26_FIT_ATOL:
+            fail("%s-head fit drifted %g from SoftmaxOutput's" % (head, err))
+    return runs
+
+
+def p26_serve(torch, mt, ck, ops, tmp, smi):
+    """(c): the Custom graph trained 5 steps, saved and served."""
+    rng = np.random.default_rng(263)
+    n = P26_BATCH * 5
+    x = rng.uniform(-1, 1, (n, 784)).astype(np.float32)
+    y = rng.integers(0, 10, n).astype(np.float32)
+    sym = p26_custom_mid(mt)
+    arg = {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in xavier_params(
+        sym, {"data": (P26_BATCH, 784), "softmax_label": (P26_BATCH,)},
+        264).items()}
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    mod.fit(mt.io.NDArrayIter(x, y, batch_size=P26_BATCH), num_epoch=1,
+            optimizer="sgd", arg_params=arg, optimizer_params=dict(P26_LR))
+    if mod._fused.stats.report()["captures"]:
+        fail("the Custom graph's fit captured a graph")
+    prefix = os.path.join(tmp, "p26-custom")
+    mod.save_checkpoint(prefix, 0)
+    shapes = {"data": (1, 784), "softmax_label": (1,)}
+    items = [rng.uniform(-1, 1, 784).astype(np.float32)
+             for _ in range(P26_REQUESTS)]
+    engine = mt.serve.ServeEngine.from_checkpoint(prefix, 0, shapes,
+                                                  fuse=True)
+    try:
+        ops_ = [nd["op"] for nd in json.loads(
+            engine._predictor.symbol.tojson())["nodes"]]
+        if ops_.count("Custom") != 1 or \
+                ops_.count("_fused_FullyConnected") != 2:
+            fail("served graph holds %d Custom and %d _fused_FullyConnected "
+                 "nodes, want 1 and 2" % (ops_.count("Custom"),
+                                          ops_.count("_fused_FullyConnected")))
+        batches0 = engine.stats.report()["batches"]
+        ck.reset_launches()
+        answers, wall = serve_burst(engine, items, P26_THREADS)
+        launches = ck.LAUNCHES["fused_fc_epilogue"]
+        batches = engine.stats.report()["batches"] - batches0
+    finally:
+        engine.close()
+    print("p26 (c): %d requests from %d threads in %.3f s = %.1f req/s, %d "
+          "batches, fused_fc_epilogue launched %d times (card %s)"
+          % (P26_REQUESTS, P26_THREADS, wall, P26_REQUESTS / wall, batches,
+             launches, smi))
+    if batches < 1 or launches != 2 * batches:
+        fail("fused_fc_epilogue launched %d times for %d batches, want 2 "
+             "a batch" % (launches, batches))
+    sym_json, params = mt.predictor.load_checkpoint_pair(prefix, 0)
+    ref = mt.Predictor(sym_json, params, {"data": (8, 784),
+                                          "softmax_label": (8,)})
+    refs = []
+    for i in range(0, P26_REQUESTS, 8):
+        refs.extend(ref.predict(np.stack(items[i:i + 8])))
+    worst = max(float(np.abs(a - r).max()) for a, r in zip(answers, refs))
+    for i, (a, r) in enumerate(zip(answers, refs)):
+        if a is None or a.shape != (10,) or not np.all(np.isfinite(a)) or \
+                not np.allclose(a, r, rtol=P26_SERVE_RTOL,
+                                atol=P26_SERVE_ATOL):
+            fail("served answer %d differs from the unfused Predictor's"
+                 % i)
+    print("p26 (c): answers vs an unfused Predictor: max_abs_diff %.3g "
+          "(rtol %g, atol %g)" % (worst, P26_SERVE_RTOL, P26_SERVE_ATOL))
+    return {"prefix": prefix, "launches": launches, "batches": batches,
+            "rps": P26_REQUESTS / wall}
+
+
+def p26_ocr_symbol(mt):
+    """example/warpctc/lstm.py's lstm_unroll in the port."""
+    from mxnet_tpu_torch.models.lstm import LSTMParam, LSTMState, lstm_cell
+    param = LSTMParam(i2h_weight=mt.sym.Variable("l0_i2h_weight"),
+                      i2h_bias=mt.sym.Variable("l0_i2h_bias"),
+                      h2h_weight=mt.sym.Variable("l0_h2h_weight"),
+                      h2h_bias=mt.sym.Variable("l0_h2h_bias"))
+    state = LSTMState(c=mt.sym.Variable("l0_init_c"),
+                      h=mt.sym.Variable("l0_init_h"))
+    frames = mt.sym.Reshape(mt.sym.Variable("data"),
+                            shape=(OCR_BATCH, OCR_T, OCR_FEAT))
+    steps = mt.sym.SliceChannel(frames, num_outputs=OCR_T, axis=1,
+                                squeeze_axis=True)
+    cls_w, cls_b = mt.sym.Variable("cls_weight"), mt.sym.Variable("cls_bias")
+    scores = []
+    for t in range(OCR_T):
+        state = lstm_cell(OCR_HIDDEN, indata=steps[t], prev_state=state,
+                          param=param, seqidx=t, layeridx=0)
+        scores.append(mt.sym.FullyConnected(
+            data=state.h, weight=cls_w, bias=cls_b, num_hidden=OCR_CLASSES,
+            name="t%d_cls" % t))
+    return mt.sym.WarpCTC(data=mt.sym.Concat(*scores, dim=0),
+                          label=mt.sym.Variable("label"),
+                          label_length=OCR_LABELS, input_length=OCR_T)
+
+
+def p26_ocr_fit(torch, mt, ctx, arg, data, label, steps):
+    mod = mt.mod.Module(p26_ocr_symbol(mt), context=ctx,
+                        data_names=["data", "l0_init_c", "l0_init_h"],
+                        label_names=["label"])
+    zeros = np.zeros((len(data), OCR_HIDDEN), np.float32)
+    it = mt.io.NDArrayIter({"data": data[:steps * OCR_BATCH],
+                            "l0_init_c": zeros[:steps * OCR_BATCH],
+                            "l0_init_h": zeros[:steps * OCR_BATCH]},
+                           {"label": label[:steps * OCR_BATCH]},
+                           batch_size=OCR_BATCH)
+    first = []
+    mark, rate = p26_marks(torch) if ctx.device_type == "gpu" \
+        else (lambda _p: None, None)
+
+    def on_batch(p):
+        if p.nbatch == 0 and not first:
+            first.append({k: v.asnumpy()
+                          for k, v in mod.get_params()[0].items()})
+        mark(p)
+    # example/warpctc/lstm_ocr.py's metric: CTC greedy decode, exact
+    # string accuracy, on the host
+    mod.fit(it, num_epoch=1, optimizer="sgd", arg_params=arg,
+            optimizer_params=dict(OCR_OPT), batch_end_callback=on_batch,
+            eval_metric=mt.metric.np(p26_ocr_accuracy))
+    last = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    return first[0], last, mod._fused.stats.report(), \
+        rate() if rate is not None else None
+
+
+def p26_ocr_accuracy(label, pred):
+    """example/warpctc/lstm_ocr.py's Accuracy: greedy CTC decode of each
+    sequence (collapse repeats, drop blanks) against its label."""
+    path = pred.reshape(OCR_T, -1, pred.shape[1]).argmax(axis=2)
+    hit = 0
+    for i in range(path.shape[1]):
+        dec, prev = [], 0
+        for c in path[:, i]:
+            if c != 0 and c != prev:
+                dec.append(int(c))
+            prev = c
+        hit += dec == [int(v) for v in label[i] if v != 0]
+    return hit / path.shape[1]
+
+
+def p26_warpctc(torch, mt, smi):
+    """(d): LSTM-OCR with WarpCTC through fit on the card."""
+    from mxnet_tpu_torch.module.fused import WARMUP_STEPS
+    rng = np.random.default_rng(265)
+    n = OCR_BATCH * P26_STEPS
+    data = rng.standard_normal((n, OCR_T * OCR_FEAT), dtype=np.float32)
+    label = np.zeros((n, OCR_LABELS), np.float32)
+    for i in range(n):
+        w = 3 + i % 2                                   # 3 or 4 digits
+        label[i, :w] = 1 + rng.integers(0, 10, w)
+    sym = p26_ocr_symbol(mt)
+    shapes = {"data": (OCR_BATCH, OCR_T * OCR_FEAT),
+              "l0_init_c": (OCR_BATCH, OCR_HIDDEN),
+              "l0_init_h": (OCR_BATCH, OCR_HIDDEN),
+              "label": (OCR_BATCH, OCR_LABELS)}
+    arg = {k: mt.nd.array(v, ctx=mt.cpu())
+           for k, v in xavier_params(sym, shapes, 266).items()}
+    first_cpu, _, _, _ = p26_ocr_fit(torch, mt, mt.cpu(), arg, data, label,
+                                     1)
+    runs = []
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(2):
+            runs.append(p26_ocr_fit(torch, mt, mt.gpu(0), arg, data, label,
+                                    P26_STEPS))
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    first, last, stats, steps_s = runs[0]
+    num = sum(float(((first[k] - first_cpu[k]) ** 2).sum()) for k in first)
+    den = sum(float(((first_cpu[k] - arg[k].asnumpy()) ** 2).sum())
+              for k in first)
+    rel = math.sqrt(num / den)
+    want = {"captures": 1, "replays": P26_STEPS - WARMUP_STEPS,
+            "eager_steps": WARMUP_STEPS}
+    bitwise = all(np.array_equal(last[k], runs[1][1][k]) for k in last)
+    finite = all(np.all(np.isfinite(v)) for v in last.values())
+    tokens_s = steps_s * OCR_BATCH * OCR_T
+    print("p26 (d): LSTM-OCR T %d feat %d hidden %d batch %d, %d labels, %d "
+          "classes: %d steps through fit, graphs %s, %.1f tokens/s (the "
+          "replays' steady state); first "
+          "update vs the port's CPU run: relative L2 %.3g (rtol %g); two "
+          "deterministic runs bitwise equal: %s (card %s)"
+          % (OCR_T, OCR_FEAT, OCR_HIDDEN, OCR_BATCH, OCR_LABELS, OCR_CLASSES,
+             P26_STEPS, stats, tokens_s, rel, OCR_FIRST_RTOL, bitwise, smi))
+    if stats != want:
+        fail("WarpCTC fit: graphs %s, want %s" % (stats, want))
+    if not rel <= OCR_FIRST_RTOL:
+        fail("WarpCTC first update differs from the CPU's: %g" % rel)
+    if not bitwise or not finite:
+        fail("WarpCTC fit: two deterministic runs differ, or non-finite")
+    return {"tokens_s": tokens_s, "first_rel_l2": rel, "stats": stats}
+
+
+def p26_torch_bridge(torch, mt, smi):
+    """(e): mx.th on the card."""
+    a = mt.nd.array(np.random.default_rng(267).standard_normal(
+        (64, 32), dtype=np.float32), ctx=mt.gpu(0))
+    t = mt.th.to_torch(a)
+    if t.data_ptr() != a._get().data_ptr() or not t.is_cuda:
+        fail("to_torch of a gpu(0) NDArray is not its tensor")
+    torch.manual_seed(268)
+    lin = torch.nn.Linear(32, 16)
+    g = mt.nd.array(np.ones((64, 16), np.float32), ctx=mt.gpu(0))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        lin_d = torch.nn.Linear(32, 16).to(dev)
+        lin_d.load_state_dict(lin.state_dict())
+        tm = mt.th.TorchModule(lin_d)
+        ctx = mt.gpu(0) if dev == "cuda" else mt.cpu()
+        y = tm.forward(a.as_in_context(ctx))
+        dx = tm.backward(g.as_in_context(ctx))[0]
+        res[dev] = (y.asnumpy(), dx.asnumpy(),
+                    lin_d.weight.grad.detach().cpu().numpy())
+    err = max(float(np.abs(c - h).max())
+              for c, h in zip(res["cuda"], res["cpu"]))
+    print("p26 (e): to_torch shares the gpu(0) NDArray's storage; "
+          "TorchModule(nn.Linear) forward and backward on the card vs the "
+          "CPU: max_abs_diff %.3g (atol 1e-5) (card %s)" % (err, smi))
+    if not err <= 1e-5:
+        fail("TorchModule on the card differs from the CPU by %g" % err)
+    return {"err": err}
+
+
+def p26_lock_child(prefix):
+    """(f)'s child, run with MXNET_LOCK_CHECK=1: (c)'s engine with 4
+    client threads, a checkpoint save and a trace dump; prints the lock
+    order report as JSON."""
+    import tempfile as _tf
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.analysis import lockcheck
+    p26_ops(mt)
+    mt.trace.set_enabled(True)
+    rng = np.random.default_rng(269)
+    items = [rng.uniform(-1, 1, 784).astype(np.float32)
+             for _ in range(P26_REQUESTS)]
+    engine = mt.serve.ServeEngine.from_checkpoint(
+        prefix, 0, {"data": (1, 784), "softmax_label": (1,)}, fuse=True)
+    try:
+        answers, _ = serve_burst(engine, items, P26_THREADS)
+    finally:
+        engine.close()
+    with _tf.TemporaryDirectory() as d:
+        mgr = mt.checkpoint.CheckpointManager(os.path.join(d, "ckpt"))
+        _s, arg, _a = mt.model.load_checkpoint(prefix, 0, ctx=mt.gpu(0))
+        mgr.save(1, {k: v._get() for k, v in arg.items()})
+        mgr.wait()
+        mgr.close()
+        mt.trace.dump_trace(os.path.join(d, "trace.json"))
+    rep = lockcheck.lock_order_report()
+    print(json.dumps({"enabled": rep["enabled"], "edges": rep["edges"],
+                      "cycles": rep["cycles"],
+                      "answers": sum(a is not None for a in answers)}))
+
+
+def p26_lock_order(prefix, smi):
+    """(f): the lock order of (c)'s engine in a child process."""
+    env = dict(os.environ, MXNET_LOCK_CHECK="1")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--p26-lock-child", prefix], env=env,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail("lock-order child failed (%d): %s" % (proc.returncode,
+                                                   proc.stderr[-2000:]))
+    rep = json.loads(proc.stdout.strip().splitlines()[-1])
+    print("p26 (f): MXNET_LOCK_CHECK=1 child (engine, 4 clients, %d "
+          "answers, a checkpoint save, a trace dump) in %.1f s: %d lock "
+          "order edges, %d cycles: %s (card %s)"
+          % (rep["answers"], time.perf_counter() - t0, len(rep["edges"]),
+             len(rep["cycles"]), rep["edges"], smi))
+    if not rep["enabled"] or rep["cycles"] or \
+            rep["answers"] != P26_REQUESTS:
+        fail("lock-order child: %s" % rep)
+    return rep
+
+
+def p26_phase(torch, mt, ck, smi):
+    print("phase 26: users' kernels (rtc), Python ops in fit and serving, "
+          "WarpCTC, the torch bridge, the lock order")
+    t0 = time.perf_counter()
+    walls = {}
+    ops = p26_ops(mt)
+    with tempfile.TemporaryDirectory() as tmp:
+        mark = time.perf_counter()
+        out = {"a": p26_rtc(torch, mt, smi)}
+        walls["a"] = time.perf_counter() - mark
+        mark = time.perf_counter()
+        out["b"] = p26_python_ops_fit(torch, mt, ops, smi)
+        walls["b"] = time.perf_counter() - mark
+        mark = time.perf_counter()
+        out["c"] = p26_serve(torch, mt, ck, ops, tmp, smi)
+        walls["c"] = time.perf_counter() - mark
+        mark = time.perf_counter()
+        out["d"] = p26_warpctc(torch, mt, smi)
+        walls["d"] = time.perf_counter() - mark
+        mark = time.perf_counter()
+        out["e"] = p26_torch_bridge(torch, mt, smi)
+        walls["e"] = time.perf_counter() - mark
+        mark = time.perf_counter()
+        out["f"] = p26_lock_order(out["c"]["prefix"], smi)
+        walls["f"] = time.perf_counter() - mark
+    out["wall_s"] = time.perf_counter() - t0
+    print("p26: walls %s s, phase %.1f s; card %s" % (
+        json.dumps({k: round(v, 1) for k, v in walls.items()}),
+        out["wall_s"], smi))
+    return out
+
+
 def main():
     t_script = time.perf_counter()
     # cuBLAS under deterministic algorithms (phase 14) needs a fixed
@@ -9882,6 +10588,21 @@ def main():
             "vgg16-tp2-first-step-rel_l2": p25["d"]["first_l2"],
             "online-served-during-promotion": p25["e"]["served_during"],
             "wall_s": round(p25["wall_s"], 1)})))
+    # phase 26: users' kernels, Python ops in fit and serving, WarpCTC,
+    # the torch bridge, the lock order
+    p26 = p26_phase(torch, mt, ck, smi)
+    mark('26')
+    print("user kernels and plugins result (card %s): %s" % (
+        smi, json.dumps({
+            "rtc-softmax-ms": {"%dx%d" % tuple(c["shape"]):
+                               [round(c["fwd_ms"], 4), round(c["bwd_ms"], 4)]
+                               for c in p26["a"]["cases"]},
+            "fit-steps_s": {k: round(v["steps_s"], 1)
+                            for k, v in p26["b"].items()},
+            "custom-serve-rps": round(p26["c"]["rps"], 1),
+            "lstm-ocr-warpctc-tokens_s": round(p26["d"]["tokens_s"], 1),
+            "lock-order-edges": len(p26["f"]["edges"]),
+            "wall_s": round(p26["wall_s"], 1)})))
     kernels = [{
         "name": "fused_fc_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["fused_fc_epilogue"],
@@ -9893,7 +10614,8 @@ def main():
         + sparse["rec"]["launches"] + shard["fc_launches"]
         + p23["rpc"]["launches"] + p24["cold"]["fc_launches"]
         + p24["search"]["launches"]["fused_fc_epilogue"]
-        + p25["launches"]["fused_fc_epilogue"],
+        + p25["launches"]["fused_fc_epilogue"]
+        + p26["c"]["launches"],
         "max_abs_err": fc["max_abs_err"],
         "ms": fc["ms"], "plain_ms": fc["plain_ms"],
         "bound_ms": fc["bound_ms"], "bound_by": "bytes",
@@ -9945,7 +10667,8 @@ def main():
           "cold-start children (fc1, 1 a batch, counted in each child) and "
           "its call-time winners at fc6 and fc7 plus phase 25's "
           "traced and untraced VGG-16 requests, its device-timeline batch "
-          "and the promoted replicas' answers; paged_attention "
+          "and the promoted replicas' answers plus phase 26's Custom graph "
+          "served (fc1 and fc2, 2 a batch); paged_attention "
           "is one C=1 "
           "plus one C=32 "
           "launch at 16 slots x 12 heads x 64, contexts 1..1024; its "
@@ -9982,6 +10705,10 @@ if __name__ == "__main__":
     if "--cold-child" in sys.argv:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         cold_child(sys.argv[sys.argv.index("--cold-child") + 1])
+        sys.exit(0)
+    if "--p26-lock-child" in sys.argv:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        p26_lock_child(sys.argv[sys.argv.index("--p26-lock-child") + 1])
         sys.exit(0)
     if "--rpc-child" in sys.argv:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))

@@ -11,7 +11,9 @@ and the record iterators of ``mx.io``); routed Mixture-of-Experts
 (``mx.moe``) and the sparse embedding engine (``mx.embed``);
 ``mx.engine``, ``mx.faults``, ``mx.trace`` (the span timeline) and
 ``mx.profiler`` (the device timeline and every subsystem's report);
-the online loop (``mx.online``).
+the online loop (``mx.online``); Python custom ops (``mx.operator``),
+users' CUDA kernels (``mx.rtc``), the plugins (``mx.plugins``, with
+``WarpCTC`` and the torch bridge ``mx.th``) and ``mx.viz``.
 Plain tensor code is PyTorch; the package's TPU kernels are hand-written Hopper kernels
 (``ops/cuda_kernels.py``, sources in ``csrc/``).  Entry points run on
 ``gpu(0)`` unless the caller asks for ``cpu()``.
@@ -80,6 +82,13 @@ from . import dist
 from . import libinfo
 from . import misc
 from . import symbol_doc
+from . import visualization
+from . import visualization as viz
+from . import operator
+from .operator import CustomOp, CustomOpProp, NumpyOp, NDArrayOp
+from . import rtc
+from . import plugins
+from .plugins import torch_bridge as th
 
 __version__ = libinfo.__version__
 
@@ -100,4 +109,5 @@ __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "metric", "io", "callback", "module", "mod", "monitor",
            "Monitor", "kvstore", "kv", "create_kvstore", "executor_manager",
            "FeedForward", "checkpoint", "moe", "embed", "recordio", "feed",
-           "dist"]
+           "dist", "visualization", "viz", "operator", "CustomOp",
+           "CustomOpProp", "NumpyOp", "NDArrayOp", "rtc", "plugins", "th"]

@@ -2,14 +2,14 @@
 
 The PyTorch counterpart of ``mxnet_tpu/base.py``: the error type, the
 environment accessor, local paths with an optional ``file://`` scheme,
-and the attribute bag that op parameters live in.  Locks and conditions
-are plain ``threading`` ones.
+the attribute bag that op parameters live in, and the named lock
+factories: plain ``threading`` primitives, or with ``MXNET_LOCK_CHECK=1``
+the lock-order recorder's (``analysis.lockcheck``).
 """
 from __future__ import annotations
 
 import contextlib
 import os
-import threading
 from typing import Any, Callable
 
 import numpy as np
@@ -28,6 +28,8 @@ numeric_types = (float, int, np.generic)
 
 def get_env(name: str, default: Any = None, typ: Callable = str) -> Any:
     """Typed environment read with a default (dmlc::GetEnv semantics)."""
+    # lint: allow(raw-env) — this IS the accessor every other read routes
+    # through; the rule exists to funnel reads here
     val = os.environ.get(name)
     if val is None:
         return default
@@ -39,21 +41,32 @@ def get_env(name: str, default: Any = None, typ: Callable = str) -> Any:
         return default
 
 
-def make_lock(name: str) -> threading.Lock:
-    """A ``threading.Lock``.  ``name`` is the lock's class, dotted
-    ``subsystem.role`` as in the JAX package, kept so that call sites read
-    the same; it is not recorded."""
-    return threading.Lock()
+def make_lock(name: str):
+    """Named ``threading.Lock`` for the lock-order recorder.
+
+    Every lock in mxnet_tpu_torch is created through this factory (or
+    :func:`make_rlock` / :func:`make_condition`).  ``name`` is the lock
+    CLASS, dotted ``subsystem.role`` as in the JAX package:
+    ``"serve.swap"`` names every engine's swap lock, not one instance.
+    With ``MXNET_LOCK_CHECK=1`` the returned lock records the
+    per-process acquisition graph and reports order cycles (potential
+    deadlocks) through ``mxnet_tpu_torch.analysis.lockcheck``; otherwise
+    it is a plain ``threading.Lock``."""
+    from .analysis.lockcheck import make_lock as _mk
+    return _mk(name)
 
 
-def make_rlock(name: str) -> threading.RLock:
-    """A ``threading.RLock`` (``name`` as in :func:`make_lock`)."""
-    return threading.RLock()
+def make_rlock(name: str):
+    """Named ``threading.RLock`` (see :func:`make_lock`)."""
+    from .analysis.lockcheck import make_rlock as _mk
+    return _mk(name)
 
 
-def make_condition(name: str) -> threading.Condition:
-    """A ``threading.Condition`` (``name`` as in :func:`make_lock`)."""
-    return threading.Condition()
+def make_condition(name: str):
+    """Named ``threading.Condition`` (see :func:`make_lock`); ``wait``
+    releases the name in the order model."""
+    from .analysis.lockcheck import make_condition as _mk
+    return _mk(name)
 
 
 def is_local_path(fname: str) -> bool:

@@ -48,6 +48,8 @@ def nvcc_version_line() -> str:
         return _nvcc_line
     from ..ops import cuda_kernels as ck
     try:
+        # lint: allow(raw-pallas-call) — asks nvcc for its version line
+        # (part of the fingerprint); it builds and loads nothing
         out = subprocess.run([ck._nvcc(), "--version"], capture_output=True,
                              text=True, timeout=60).stdout
         lines = [ln.strip() for ln in out.splitlines() if ln.strip()]
@@ -86,6 +88,9 @@ def environment_fingerprint(refresh: bool = False) -> str:
 def knob_fingerprint() -> str:
     """The ``MXNET_*`` knobs that steer program construction, raw values
     (unset and empty alike)."""
+    # lint: allow(raw-env) — hashes the raw env VALUE bytes into the
+    # compile key; get_env's typed defaults would fold unset into default
+    # and alias distinct configurations
     return ";".join("%s=%s" % (n, os.environ.get(n, ""))
                     for n in COMPILE_RELEVANT_ENV)
 

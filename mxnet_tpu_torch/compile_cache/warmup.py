@@ -51,7 +51,8 @@ def capture_lock(device) -> threading.Lock:
     ``torch.device``) holds."""
     idx = device.index if getattr(device, "index", None) is not None else 0
     with _capture_locks_lock:
-        return _capture_locks.setdefault(int(idx), threading.Lock())
+        return _capture_locks.setdefault(
+            int(idx), make_lock("compile_cache.capture"))
 
 
 def capture(device, body: Callable[[], object]):

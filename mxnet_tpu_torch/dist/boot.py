@@ -148,9 +148,11 @@ def ensure_from_env() -> bool:
     coord = get_env("MXNET_TPU_COORDINATOR")
     if coord is None:
         return False
-    # the rendezvous vars are a set: a missing peer var is a broken
-    # launcher and must KeyError loudly, not default
+    # lint: allow(raw-env) — rendezvous vars are a set: once the
+    # coordinator is present, a missing peer var is a broken launcher
+    # and must KeyError loudly, not default
     num = os.environ["MXNET_TPU_NUM_WORKERS"]
+    # lint: allow(raw-env) — same rendezvous set as above
     rank = os.environ["MXNET_TPU_WORKER_ID"]
     initialize(coord, int(num), int(rank))
     return True

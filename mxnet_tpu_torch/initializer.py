@@ -114,8 +114,12 @@ class Orthogonal(Initializer):
         nout = arr.shape[0]
         nin = int(np.prod(arr.shape[1:]))
         if self.rand_type == "uniform":
+            # lint: allow(unseeded-fork-rng) — init runs in the parent
+            # before readers fork; the global stream is the documented
+            # mx.random.seed surface for reproducible inits
             tmp = np.random.uniform(-1.0, 1.0, (nout, nin))
         else:
+            # lint: allow(unseeded-fork-rng) — same parent-only contract
             tmp = np.random.normal(0.0, 1.0, (nout, nin))
         u, _, v = np.linalg.svd(tmp, full_matrices=False)
         res = u if u.shape == tmp.shape else v

@@ -1,3 +1,7 @@
+# lint: allow-file(unseeded-fork-rng) — single-process iterators draw from
+# the mx.random.seed-seeded global stream on purpose, as the reference's do
+# (one numpy seed, one order in both packages); the forked readers
+# (feed/parallel.py) reseed per (seed, shard, epoch, seq) before drawing
 """Data iterators (counterpart of ``mxnet_tpu/io.py``).
 
 ``DataDesc``, ``DataBatch``, the ``DataIter`` protocol (with ``feed()``,

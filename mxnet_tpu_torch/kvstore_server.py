@@ -1,3 +1,6 @@
+# lint: allow-file(raw-env) — DMLC protocol vars: reference
+# kvstore_server semantics distinguish set-vs-unset and must KeyError
+# loudly on a broken launcher rendezvous, not fold into typed defaults
 """Server-role entry for distributed training (counterpart of
 ``mxnet_tpu/kvstore_server.py``).
 

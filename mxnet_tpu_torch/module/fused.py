@@ -112,7 +112,11 @@ Under an NCCL group of several ranks the step runs on this rank's card
 group the collectives are issued inside the captured graph
 (``scaleout_check.py nccl`` holds this on four cards).  On a gloo group
 (ranks sharing a card) they are host-staged and cannot be captured, so
-the step runs eagerly on the card (``eager_steps``).
+the step runs eagerly on the card (``eager_steps``).  So does a graph
+holding a Python op (``operator.py``'s ops carry ``host_op``): a capture
+would run its Python once, at capture.  Its steps keep the superstep,
+mesh and lazy-embedding behaviour, and ``compile_report()`` names the
+reason (``capture_reason``).
 A sparse table keeps the lazy row update over ``dp`` (reference
 ``fused.py:183-193``): the ranks' ids are all-gathered and the global
 batch deduped alike on every rank (the unique cap resolved against it,
@@ -144,7 +148,7 @@ checkpoint.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 from torch.profiler import record_function
@@ -307,6 +311,10 @@ class FusedTrainStep:
             self.moe_stats = MoeStats("fused")
             profiler.register_moe_stats(self.moe_stats)
         self._prog = _GraphProgram(symbol)
+        # nodes running the user's Python (operator.py): steps of such a
+        # graph run eagerly, on the card too
+        self.host_ops = [n.name for n in self._prog.topo
+                         if n.op is not None and n.op.host_op]
         # the whole loss under torch.utils.checkpoint (see the docstring)
         self._remat = bool(remat)
         self.global_dp = bool(global_dp)
@@ -346,10 +354,24 @@ class FusedTrainStep:
     @property
     def captured(self) -> bool:
         """Whether steps are captured CUDA graphs: on the card, unless
-        the dp axis's collectives are host-staged (a gloo group)."""
+        the dp axis's collectives are host-staged (a gloo group) or the
+        graph holds a Python op (``host_ops``: a capture would run its
+        Python once, at capture)."""
         if self.axis is not None and self.axis.staged:
             return False
+        if self.host_ops:
+            return False
         return self.device.type == "cuda"
+
+    def capture_reason(self) -> Optional[str]:
+        """Why steps on the card run eagerly, or None when they are
+        captured (or run on the CPU, where nothing is captured)."""
+        if self.device.type != "cuda" or self.captured:
+            return None
+        if self.host_ops:
+            return "python op %s runs on the host" % ", ".join(
+                self.host_ops)
+        return "collectives host-staged over a gloo group"
 
     def _local_rows(self, t: torch.Tensor, dim: int,
                     batch: int) -> torch.Tensor:
@@ -925,6 +947,10 @@ class FusedTrainStep:
     def _run(self, batch: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
         if not self.captured:
             self.stats.eager_steps += 1
+            if self.host_ops and self.device.type == "cuda":
+                from ..compile_cache import get_stats
+                get_stats().note_bypass("fused:step",
+                                        self.capture_reason())
             return self._body(batch)
         key = self._key(batch)
         cap = self._graphs.get(key)

@@ -40,14 +40,13 @@ import re
 import shutil
 import tempfile
 import subprocess
-import threading
 import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from ..base import MXNetError, get_env
+from ..base import MXNetError, get_env, make_lock
 from .nn import ACTIVATIONS
 
 __all__ = ["fused_fc_epilogue", "fused_fc_epilogue_reference", "requantize",
@@ -71,7 +70,7 @@ SOURCES = {"fused_fc_epilogue": "fc_epilogue.cu",
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
-_launch_lock = threading.Lock()
+_launch_lock = make_lock("kernels.launches")
 
 
 def reset_launches() -> None:
@@ -89,13 +88,13 @@ def _count(name: str) -> None:
 # build
 
 _libs: Dict[str, ctypes.CDLL] = {}
-_build_lock = threading.Lock()
+_build_lock = make_lock("kernels.build")
 
 
 def _nvcc() -> str:
     path = shutil.which("nvcc")
     if path is None:
-        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        home = get_env("CUDA_HOME", "/usr/local/cuda")
         path = os.path.join(home, "bin", "nvcc")
     if not os.path.exists(path):
         raise MXNetError("nvcc not found (looked on PATH and in $CUDA_HOME/"

@@ -250,6 +250,8 @@ def parse_steps(spec: str):
 def apply_steps(x, spec: str):
     for name, scalar in parse_steps(spec):
         needs_scalar, fn = ELEMWISE_STEP_OPS[name]
+        # lint: allow(decode-host-sync) — the steps of an elementwise
+        # chain, not a decode loop; ``scalar`` is a parsed host float
         x = fn(x, float(np.float32(scalar))) if needs_scalar else fn(x)
     return x
 

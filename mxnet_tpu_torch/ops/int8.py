@@ -28,20 +28,19 @@ so a run can show that its int8 layers went this way.
 """
 from __future__ import annotations
 
-import threading
 from typing import Dict, Sequence
 
 import torch
 import torch.nn.functional as F
 
-from ..base import MXNetError
+from ..base import MXNetError, make_lock
 
 __all__ = ["int8_matmul", "int8_matmul_reference", "int8_conv2d",
            "int8_conv2d_reference", "ROUTE_CALLS", "reset_route_calls"]
 
 # card-route library calls since the last reset_route_calls()
 ROUTE_CALLS: Dict[str, int] = {"int_mm": 0, "im2col": 0}
-_calls_lock = threading.Lock()
+_calls_lock = make_lock("int8.route_calls")
 
 # torch._int_mm on CUDA: more than 16 rows, K and N multiples of 8
 _MIN_ROWS = 17

@@ -221,6 +221,14 @@ class OpDef:
     # the input shard dims a one-input op computes on as they are
     # ("any", or a tuple of dims); None: the default layout rule
     keeps_layout = None
+    # an op forwarding arbitrary kwargs to a user plugin (Custom): unknown
+    # params are kept under p._extras as strings and written back into
+    # the symbol JSON after the schema's own
+    allow_extra_params: bool = False
+    # an op whose forward or backward runs the user's Python on the host
+    # (the operator.py ops): a CUDA graph would run it once, at capture,
+    # so the fused step runs a graph holding one eagerly
+    host_op: bool = False
 
     def __init__(self, name: str):
         self.name = name
@@ -229,11 +237,17 @@ class OpDef:
     def parse_params(self, kwargs: Dict[str, Any]) -> _AttrDict:
         p = _AttrDict()
         schema = {x.name: x for x in self.params}
+        extras = {}
         for k, v in kwargs.items():
             if k not in schema:
+                if self.allow_extra_params:
+                    extras[k] = str(v)
+                    continue
                 raise MXNetError("%s got unknown parameter %r (accepts: %s)"
                                  % (self.name, k, sorted(schema)))
             p[k] = schema[k].parse(v)
+        if self.allow_extra_params:
+            p["_extras"] = extras
         for x in self.params:
             if x.name not in p:
                 if x.required:
@@ -249,6 +263,8 @@ class OpDef:
             v = p.get(x.name)
             if v is not None:
                 out[x.name] = x.to_string(v)
+        if self.allow_extra_params:
+            out.update(p.get("_extras") or {})
         return out
 
     def list_arguments(self, p) -> List[str]:

@@ -208,7 +208,10 @@ class _ROIPool(torch.autograd.Function):
                                   (we - 1).clamp(0, w - 1))
         row = lvl * n + batch[:, None]
         acc = data.new_zeros(((table.levels + 1) * n, table.width, c, h))
+        # lint: allow(moe-raw-scatter) — ROIPooling's backward: the rows
+        # and columns are the sparse table's own, clamped into the input
         acc.index_put_((row, pa), torch.where(eql, s, 0.0), accumulate=True)
+        # lint: allow(moe-raw-scatter) — the same in-range table indices
         acc.index_put_((row, pb), torch.where(eqr, s, 0.0), accumulate=True)
         grad = table.push(acc.permute(0, 2, 3, 1).reshape(
             (table.levels + 1, n, c, h, table.width)))

@@ -17,12 +17,11 @@ raises with the corrected order.
 from __future__ import annotations
 
 import hashlib
-import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from .. import trace as _trace
-from ..base import MXNetError
+from ..base import MXNetError, make_lock
 from ..symbol import Symbol, _topo
 
 __all__ = ["Pass", "PassPipeline", "PassStats", "PassError"]
@@ -72,7 +71,7 @@ class PassStats:
 
     def __init__(self, name: str):
         self.name = name
-        self._lock = threading.Lock()
+        self._lock = make_lock("passes.pipeline")
         self._passes: Dict[str, Dict[str, float]] = {}
         self._order: List[str] = []
         self.runs = 0

@@ -64,8 +64,9 @@ from __future__ import annotations
 
 import contextlib
 import os
-import threading
 import weakref
+
+from .base import make_lock
 
 __all__ = ["profiler_set_config", "profiler_set_state", "scope",
            "dump_profile", "dump_trace", "state", "register_feed_stats",
@@ -90,7 +91,7 @@ _config = {"filename": "profile_output", "mode": "symbolic"}
 _state = "stop"
 # the running torch.profiler.profile between "run" and "stop"
 _prof = None
-_state_lock = threading.Lock()
+_state_lock = make_lock("profiler.state")
 
 
 def profiler_set_config(mode: str = "symbolic",
@@ -169,7 +170,7 @@ def scope(name: str):
 
 # register() runs on constructing threads while readers iterate: every
 # reader snapshot-copies under this lock first
-_registry_lock = threading.Lock()
+_registry_lock = make_lock("profiler.registry")
 
 
 class _Registry:

@@ -1,3 +1,6 @@
+# lint: allow-file(raw-env) — DMLC_* rendezvous vars are the
+# launcher-owned wire protocol (reference ps-lite semantics: set-vs-unset
+# matters, missing required vars must KeyError loudly)
 """Host-side parameter server for ``dist_async`` training (counterpart
 of ``mxnet_tpu/ps.py``).
 

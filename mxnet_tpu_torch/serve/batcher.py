@@ -31,6 +31,7 @@ from concurrent.futures import Future, InvalidStateError
 from typing import Callable, List, Optional
 
 from .. import trace as _trace
+from ..base import make_condition
 from .errors import (ServeClosedError, ServeDeadlineError, ServeError,
                      ServeOverloadError)
 
@@ -113,7 +114,7 @@ class MicroBatcher:
         self._stats = stats
         self.name = name
         self._q: collections.deque = collections.deque()
-        self._cv = threading.Condition()
+        self._cv = make_condition("serve.batcher")
         self._closed = False
         # depth-2 handoff: the dispatcher may run one batch ahead of the
         # completion thread (overlap), then backpressures

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .. import trace as _trace
-from ..base import get_env
+from ..base import get_env, make_rlock
 from ..context import Context
 from ..faults import point as _fault_point
 from ..passes.embed import default_embed_dedup
@@ -174,11 +174,11 @@ class ServeEngine:
         # serializes batch execution against weight swaps; an RLock so
         # reload() and pause() nest on one thread.  _pause_owner guards
         # close() inside pause(), which would wait on this lock forever
-        self._swap_lock = threading.RLock()
+        self._swap_lock = make_rlock("serve.engine_swap")
         self._pause_owner: Optional[int] = None
         # RLock: a future's done-callback may close() again inline on the
         # closing thread
-        self._close_lock = threading.RLock()
+        self._close_lock = make_rlock("serve.engine_close")
         self._shapes_by_bucket = {b: {k: (b,) + v[1:]
                                       for k, v in self._shapes_tpl.items()}
                                   for b in self._buckets}

@@ -57,7 +57,7 @@ import numpy as np
 import torch
 
 from ... import trace as _trace
-from ...base import get_env
+from ...base import get_env, make_condition
 from ...context import Context, current_context
 from ...convert import convert_lm_params
 from ...faults import point as _fault_point
@@ -273,7 +273,7 @@ class PagedDecodeEngine:
             from .spec import SpecDecoder
             self._spec = SpecDecoder(self, draft_params, draft_cfg)
 
-        self._cv = threading.Condition()
+        self._cv = make_condition("serve.paged")
         self._q: collections.deque = collections.deque()
         self._slots: List[Optional[_PagedSlot]] = [None] * self.num_slots
         self._active = 0

@@ -27,13 +27,12 @@ int32 array; the engine ships it with each step.
 """
 from __future__ import annotations
 
-import threading
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from ...base import get_env
+from ...base import get_env, make_lock
 from ...context import current_context
 from ..errors import ServeError
 
@@ -103,7 +102,7 @@ class KVBlockPool:
         self.device = current_context().torch_device() if device is None \
             else torch.device(device)
         self.sentinel = self.num_blocks
-        self._lock = threading.Lock()
+        self._lock = make_lock("serve.kvpool")
         self._views: Dict[str, _View] = {}
         self._pages = np.full((self.num_slots, self.max_blocks_per_slot),
                               self.sentinel, np.int32)

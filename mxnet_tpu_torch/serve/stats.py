@@ -18,8 +18,9 @@ from __future__ import annotations
 
 import collections
 import math
-import threading
 from typing import Dict, List
+
+from ..base import make_lock
 
 
 __all__ = ["ServeStats", "DecodeStats", "PagedStats"]
@@ -46,7 +47,7 @@ class ServeStats:
     def __init__(self, name: str, max_batch_size: int):
         self.name = name
         self.max_batch_size = int(max_batch_size)
-        self._lock = threading.Lock()
+        self._lock = make_lock("serve.stats")
         self._submitted = 0
         self._completed = 0
         self._captured = 0
@@ -193,7 +194,7 @@ class DecodeStats:
     def __init__(self, name: str, num_slots: int):
         self.name = name
         self.num_slots = int(num_slots)
-        self._lock = threading.Lock()
+        self._lock = make_lock("serve.stats")
         self._submitted = 0
         self._admitted = 0
         self._completed = 0

@@ -546,3 +546,14 @@ def _init_symbol_module():
 
 
 _init_symbol_module()
+
+
+def __getattr__(name):
+    """Ops registered after import (the plugins, ``NumpyOp``'s per-instance
+    ops) resolve lazily, as in the reference."""
+    from .ops.registry import _OP_REGISTRY
+    if name in _OP_REGISTRY:
+        fn = _make_atomic_symbol_function(name)
+        setattr(sys.modules[__name__], name, fn)
+        return fn
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

@@ -31,6 +31,8 @@ import mxnet_tpu.checkpoint  # noqa: F401
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import checkpoint as ck
 from mxnet_tpu_torch.checkpoint import layout
+from mxnet_tpu_torch.analysis.pytest_plugin import (  # noqa: E402,F401
+    _mxnet_analysis_guard)  # the port's leak guard and lock recorder
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 1e-4, 1e-5

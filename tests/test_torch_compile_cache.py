@@ -35,6 +35,8 @@ from mxnet_tpu_torch.compile_cache import fingerprint as fp
 from mxnet_tpu_torch.compile_cache.stats import _reset_stats
 from mxnet_tpu_torch.compile_cache.store import CacheStore, _reset_warnings
 from mxnet_tpu_torch.ops import cuda_kernels as ck
+from mxnet_tpu_torch.analysis.pytest_plugin import (  # noqa: E402,F401
+    _mxnet_analysis_guard)  # the port's leak guard and lock recorder
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -25,6 +25,8 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.serve import (DecodeEngine, ServeClosedError,
                                    ServeDeadlineError, ServeError,
                                    ServeOverloadError, ServeRequestError)
+from mxnet_tpu_torch.analysis.pytest_plugin import (  # noqa: E402,F401
+    _mxnet_analysis_guard)  # the port's leak guard and lock recorder
 
 VOCAB, EMB, HID = 17, 12, 16
 

@@ -40,6 +40,8 @@ import torch
 
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import ps as tps
+from mxnet_tpu_torch.analysis.pytest_plugin import (  # noqa: E402,F401
+    _mxnet_analysis_guard)  # the port's leak guard and lock recorder
 
 HERE = os.path.abspath(__file__)
 ROOT = os.path.dirname(os.path.dirname(HERE))

@@ -36,6 +36,8 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import checkpoint as ck
 from mxnet_tpu_torch import feed, recordio
 from mxnet_tpu_torch.feed.pipeline import BoundedQueue, QueueClosed
+from mxnet_tpu_torch.analysis.pytest_plugin import (  # noqa: E402,F401
+    _mxnet_analysis_guard)  # the port's leak guard and lock recorder
 
 RTOL, ATOL = 1e-4, 1e-5
 

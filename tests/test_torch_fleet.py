@@ -29,6 +29,8 @@ import time
 
 import numpy as np
 import pytest
+from mxnet_tpu_torch.analysis.pytest_plugin import (  # noqa: E402,F401
+    _mxnet_analysis_guard)  # the port's leak guard and lock recorder
 
 HERE = os.path.abspath(__file__)
 ROOT = os.path.dirname(os.path.dirname(HERE))

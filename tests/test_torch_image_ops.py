@@ -439,8 +439,14 @@ def test_port_registers_every_reference_image_op():
     from mxnet_tpu_torch.ops.registry import list_ops, get_op
     new = ["Deconvolution", "UpSampling", "LRN", "L2Normalization",
            "IdentityAttachKLSparseReg", "ROIPooling", "SpatialTransformer"]
-    assert set(new) <= set(list_ops()) <= set(jax_ops())
-    assert len(list_ops()) == 116
+
+    def registered(names):
+        # NumpyOp.get_symbol registers one _numpy_op_<id> op per instance
+        # in its process, in both packages; another test file in the same
+        # worker may have made some
+        return {n for n in names if not n.startswith("_numpy_op_")}
+    assert set(new) <= registered(list_ops()) <= registered(jax_ops())
+    assert len(registered(list_ops())) == 120
     import mxnet_tpu.ops.registry as jreg
     for name in new:
         jop, top = jreg.get_op(name), get_op(name)

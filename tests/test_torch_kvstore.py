@@ -13,6 +13,8 @@ import pytest
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
+from mxnet_tpu_torch.analysis.pytest_plugin import (  # noqa: E402,F401
+    _mxnet_analysis_guard)  # the port's leak guard and lock recorder
 
 SHAPE = (4, 4)
 KEYS = [5, 7, 11]

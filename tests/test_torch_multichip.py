@@ -23,6 +23,8 @@ import pytest
 
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.base import MXNetError as TError
+from mxnet_tpu_torch.analysis.pytest_plugin import (  # noqa: E402,F401
+    _mxnet_analysis_guard)  # the port's leak guard and lock recorder
 
 HERE = os.path.abspath(__file__)
 SUITE_TIMEOUT = 180

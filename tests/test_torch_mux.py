@@ -20,6 +20,8 @@ import mxnet_tpu as mx
 import mxnet_tpu.profiler
 import mxnet_tpu.serve
 import mxnet_tpu_torch as mt
+from mxnet_tpu_torch.analysis.pytest_plugin import (  # noqa: E402,F401
+    _mxnet_analysis_guard)  # the port's leak guard and lock recorder
 
 IN_DIM, CLASSES = 6, 3
 HIDDENS = {"a": 8, "b": 16, "c": 24}

@@ -27,6 +27,8 @@ from mxnet_tpu_torch.faults import Backoff, FaultPlan, InjectedFault, Rule
 from mxnet_tpu_torch.online import (CaptureWriter, OnlineTrainer,
                                     PromotionGate, UnsealedShardError,
                                     freshen_embed)
+from mxnet_tpu_torch.analysis.pytest_plugin import (  # noqa: E402,F401
+    _mxnet_analysis_guard)  # the port's leak guard and lock recorder
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -42,6 +42,8 @@ from mxnet_tpu_torch.serve import (KVBlockPool, LMConfig, PagedDecodeEngine,
                                    init_lm_params)
 from mxnet_tpu_torch.serve.paged import (causal_attend, lm_forward,
                                          paged_step, param_bytes)
+from mxnet_tpu_torch.analysis.pytest_plugin import (  # noqa: E402,F401
+    _mxnet_analysis_guard)  # the port's leak guard and lock recorder
 
 RTOL, ATOL = 1e-5, 1e-6
 CFG = LMConfig(vocab=64, dim=32, heads=4, layers=2, max_context=96)

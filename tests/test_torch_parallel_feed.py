@@ -33,6 +33,8 @@ import mxnet_tpu as jmx
 from mxnet_tpu import feed as jfeed
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import feed, recordio
+from mxnet_tpu_torch.analysis.pytest_plugin import (  # noqa: E402,F401
+    _mxnet_analysis_guard)  # the port's leak guard and lock recorder
 
 pytestmark = pytest.mark.skipif(
     "fork" not in mp.get_all_start_methods(),

@@ -27,6 +27,8 @@ import mxnet_tpu.passes
 import mxnet_tpu.predictor
 import mxnet_tpu.serve
 import mxnet_tpu_torch as mt
+from mxnet_tpu_torch.analysis.pytest_plugin import (  # noqa: E402,F401
+    _mxnet_analysis_guard)  # the port's leak guard and lock recorder
 
 RTOL, ATOL = 1e-5, 1e-7
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -158,10 +160,14 @@ def test_port_imports_no_jax():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serve, "
             "mxnet_tpu_torch.ops.cuda_kernels, mxnet_tpu_torch.trace, "
             "mxnet_tpu_torch.online, mxnet_tpu_torch.dist.shardsearch, "
-            "mxnet_tpu_torch.dist.report, chip_smoke, kernel_ab\n"
+            "mxnet_tpu_torch.dist.report, mxnet_tpu_torch.operator, "
+            "mxnet_tpu_torch.rtc, mxnet_tpu_torch.plugins, "
+            "mxnet_tpu_torch.visualization, mxnet_tpu_torch.analysis, "
+            "mxnet_tpu_torch.analysis.__main__, chip_smoke, kernel_ab\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
-            "m.startswith('mxnet_tpu.')]\n"
+            "m.startswith('mxnet_tpu.') or m == 'optax' or "
+            "m.startswith('optax.')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

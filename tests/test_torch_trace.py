@@ -24,6 +24,8 @@ import pytest
 
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import feed, recordio, trace
+from mxnet_tpu_torch.analysis.pytest_plugin import (  # noqa: E402,F401
+    _mxnet_analysis_guard)  # the port's leak guard and lock recorder
 
 IN_DIM = 6
 VALID_PH = {"X", "B", "E", "i", "I", "b", "n", "e", "s", "t", "f", "M",
