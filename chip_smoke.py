@@ -329,6 +329,30 @@ Phases, in order; any failure exits nonzero:
    card; (f) a child with ``MXNET_LOCK_CHECK=1`` serving (c)'s graph from
    4 threads, saving a checkpoint and dumping a trace: no lock-order
    cycle; the ``user kernels and plugins result`` line;
+27. the native layer (``p27 ...`` lines; its g++ builds start beside
+   phase 2's nvcc builds): the probe (``jpeglib.h``, ``Python.h``, a
+   shared ``libpython``, whether this interpreter links it, g++), whose
+   findings the phase then requires; (a) a seeded workload of host
+   closures on ``mx.engine`` over 4 vars holding ResNet-50 batches on
+   the card, bitwise the same closures run serially, closures/s, the
+   host cost of a push, ``NativeStorage``'s pool hits; (b) 1,024 records
+   from the port's ``NativeRecordWriter`` (JPEG where libjpeg was found,
+   else raw CHW at 256 x 256, and then a JPEG record must raise naming
+   libjpeg) through ``mx.io.ImageRecordIter`` at ResNet-50's settings (a
+   ``NativeImageRecordIter``, its 8-thread batches bitwise a 1-thread
+   run's, img/s alone) into ResNet-50's ``Module.fit`` (img/s, the
+   loader's share, finite loss, 0 kernel launches); (c) VGG-16's fused
+   serving graph at batch 8 through the predict-only library opened in
+   this process: 20 forwards bitwise the Python ``Predictor``'s,
+   ``fused_fc_epilogue`` twice a forward, the output on (2, 0), ms a
+   forward against ``Predictor``; (d) ``tests/data/capi_card_client.cc``
+   built against ``cpp-package/include`` and the C ABI library, training
+   the 784-128-64-10 MLP on Context(2, 0) through ``MXExecutor*`` and
+   ``MXOptimizerUpdate``: its first update against the port's Python
+   Executor, its accuracy gate, steps/s against the fused ``fit``; (e)
+   ``MXRtcCreate``/``MXRtcPush`` with phase 26's softmax on NDArrays
+   made through the ABI against ``torch.softmax``, one launch counted;
+   the ``native layer result`` line;
    then the whole script's wall, the ``kernels`` JSON line (all four
    kernels), then the ``{"ok": true, ...}`` line.
 """
@@ -10317,6 +10341,671 @@ def p26_phase(torch, mt, ck, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the native layer — the port's C++ engine and storage, its
+# native I/O into ResNet-50, the predict ABI in this process, the C ABI
+# from a C++ process, rtc through the ABI
+#
+# (a) a seeded dependency workload of host closures over 4 vars holding
+#     ResNet-50 batches on the card: every final tensor and every read's
+#     checksum bitwise those of the same closures run serially in push
+#     order; the per-push host overhead over P27_PUSHES trivial pushes;
+#     NativeStorage's pool hits for a block-size sequence (gated exactly)
+# (b) P27_RECORDS records written with the port's NativeRecordWriter (JPEG
+#     from tests/data/native_jpegs where libjpeg was found, else raw CHW
+#     at 256 x 256, the same geometry) -> mx.io.ImageRecordIter at
+#     ResNet-50's settings (a NativeImageRecordIter, gated) -> Module.fit;
+#     the 8-thread batches bitwise a 1-thread run's; 0 kernel launches
+# (c) VGG-16 through the fused serving pipeline, served by the port's
+#     predict-only library opened in this process: outputs bitwise the
+#     Python Predictor's, fused_fc_epilogue twice a forward
+# (d) tests/data/capi_card_client.cc against the port's C ABI library:
+#     the first update within P27_UPDATE_ATOL of the port's Python
+#     Executor from the same init, the client's accuracy gate
+# (e) MXRtcCreate/MXRtcPush with phase 26's softmax on gpu NDArrays made
+#     through the ABI, within P26_RTC_ATOL of torch.softmax, one launch
+#     counted
+
+P27_VARS, P27_OPS = 4, 96
+P27_PUSHES = 5000
+P27_BLOCKS = (77070336, 4 << 20, 1 << 20, 4 << 20)   # bytes, four rounds
+P27_RECORDS, P27_SIDE, P27_CROP, P27_THREADS = 1024, 256, 224, 8
+P27_FIT_EPOCHS = 2
+P27_VGG_BATCH, P27_FORWARDS = 8, 20
+P27_MLP_STEPS = 300
+# the ABI's device type for the card (1 would be the host)
+P27_DEV_TYPE = 2
+# the client's first update against the Python Executor's: the same
+# float32 ops on the same card (cuBLAS picks per shape, not per caller)
+P27_UPDATE_ATOL = 1e-6
+
+
+def p27_probe():
+    """What the card's machine offers the native layer; the phase then
+    requires every piece found here."""
+    import sysconfig
+    from mxnet_tpu_torch import native_build
+    inc = os.path.join(sysconfig.get_paths()["include"], "Python.h")
+    libdir = sysconfig.get_config_var("LIBDIR") or ""
+    so = os.path.join(libdir, "libpython%s.so"
+                      % sysconfig.get_config_var("LDVERSION"))
+    with open("/proc/self/maps") as f:
+        linked = "libpython" in f.read()
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True)
+    probe = {"jpeglib.h": native_build.have_jpeg(),
+             "Python.h": os.path.exists(inc),
+             "libpython": so if os.path.exists(so) else None,
+             "Py_ENABLE_SHARED": sysconfig.get_config_var("Py_ENABLE_SHARED"),
+             "interpreter_links_libpython": linked,
+             "g++": gxx.stdout.splitlines()[0] if gxx.returncode == 0
+             else None}
+    print("p27 probe: %s" % json.dumps(probe))
+    missing = [k for k in ("Python.h", "libpython", "g++") if not probe[k]]
+    if missing:
+        fail("the native layer needs %s on this machine" % missing)
+    return probe
+
+
+def p27_engine(torch, mt, smi):
+    """(a): host closures on the port's native engine against the same
+    closures run serially."""
+    from mxnet_tpu_torch import native_engine
+    dev = torch.device("cuda", 0)
+    shape = (RESNET_BATCH, 3, 224, 224)
+    rng = np.random.default_rng(27)
+    host = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            .pin_memory() for _ in range(P27_VARS)]
+    rs = np.random.RandomState(27)
+    plan = []
+    for _ in range(P27_OPS):
+        k = int(rs.randint(1, 3))
+        vs = [int(v) for v in rs.choice(P27_VARS, k, replace=False)]
+        if rs.rand() < 0.6:
+            plan.append(("w", vs, int(rs.randint(P27_VARS)),
+                         float(rs.uniform(0.1, 1.0))))
+        else:
+            plan.append(("r", vs, None, None))
+
+    def run(eng):
+        accs = [torch.zeros(shape, device=dev) for _ in range(P27_VARS)]
+        sums = [None] * len(plan)
+
+        def write(vs, src, coef):
+            x = host[src].to(dev, non_blocking=True)
+            for v in vs:
+                accs[v].mul_(0.5).add_(x, alpha=coef)
+
+        def read(i, vs):
+            sums[i] = torch.stack([accs[v].sum() for v in vs])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if eng is None:
+            for i, (kind, vs, src, coef) in enumerate(plan):
+                (write(vs, src, coef) if kind == "w" else read(i, vs))
+            torch.cuda.synchronize()
+        else:
+            for i, (kind, vs, src, coef) in enumerate(plan):
+                if kind == "w":
+                    eng.push(lambda vs=vs, src=src, coef=coef:
+                             write(vs, src, coef),
+                             mutable_vars=[vvars[v] for v in vs])
+                else:
+                    eng.push(lambda i=i, vs=vs: read(i, vs),
+                             const_vars=[vvars[v] for v in vs])
+            eng.wait_for_all()
+        return accs, sums, time.perf_counter() - t0
+
+    eng = mt.engine.engine()
+    vvars = [eng.new_var() for _ in range(P27_VARS)]
+    run(None)               # warm: the allocator's blocks, first copies
+    serial = run(None)
+    pushed = run(eng)
+    same = all(torch.equal(a, b) for a, b in zip(serial[0], pushed[0])) \
+        and all((a is None and b is None) or torch.equal(a, b)
+                for a, b in zip(serial[1], pushed[1]))
+    nw = sum(1 for p in plan if p[0] == "w")
+    out = {"closures_s": len(plan) / pushed[2],
+           "serial_closures_s": len(plan) / serial[2]}
+    print("p27 (a): %d closures (%d writes of a pinned %s float32 batch "
+          "into the var's card tensor, %d checksum reads) over %d vars: "
+          "engine %.1f closures/s (%.3f s), the same closures serially "
+          "%.1f/s; final tensors and checksums bitwise the serial run's %s "
+          "(gate); card %s"
+          % (len(plan), nw, "x".join(map(str, shape)), len(plan) - nw,
+             P27_VARS, out["closures_s"], pushed[2],
+             out["serial_closures_s"], same, smi))
+    if not same:
+        fail("closures on the native engine differ from the serial run")
+    del serial, pushed, host
+    # the host cost of a push: trivial closures on the same vars
+    t0 = time.perf_counter()
+    for i in range(P27_PUSHES):
+        eng.push(lambda: None, mutable_vars=[vvars[i % P27_VARS]])
+    push_s = time.perf_counter() - t0
+    eng.wait_for_all()
+    drain_s = time.perf_counter() - t0
+    for v in vvars:
+        eng.delete_var(v)
+    out["push_us"] = 1e6 * push_s / P27_PUSHES
+    st = native_engine.NativeStorage()
+    rounds = 4
+    for _ in range(rounds):
+        ptrs = [st.alloc(n) for n in P27_BLOCKS]
+        for p in ptrs:
+            st.free(p)
+    out["hits"], allocs = st.pool_hits, st.num_allocs
+    st.release_all()
+    want_hits = (rounds - 1) * len(P27_BLOCKS)
+    print("p27 (a): %d trivial pushes: %.2f us a push on the host (%.3f s "
+          "to drain); NativeStorage over %d rounds of blocks %s: %d pool "
+          "hits (want %d), %d allocations" % (
+              P27_PUSHES, out["push_us"], drain_s, rounds,
+              list(P27_BLOCKS), out["hits"], want_hits, allocs))
+    if out["hits"] != want_hits:
+        fail("NativeStorage pool hits %d, want %d" % (out["hits"],
+                                                      want_hits))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p27_write_rec(mt, path, jpeg):
+    """P27_RECORDS records with the port's NativeRecordWriter, labels in
+    [0, 1000) from a numpy seed: the committed JPEGs in turn, or raw CHW
+    uint8 at P27_SIDE x P27_SIDE with the (h, w) uint16 prefix the loader
+    crops from."""
+    rng = np.random.default_rng(271)
+    labels = rng.integers(0, 1000, P27_RECORDS)
+    w = mt.native_io.NativeRecordWriter(path)
+    if jpeg:
+        import glob
+        files = sorted(glob.glob(os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+            "native_jpegs", "*.jpg")))
+        blobs = [open(f, "rb").read() for f in files]
+        for i in range(P27_RECORDS):
+            w.write_image(float(labels[i]), i, blobs[i % len(blobs)])
+    else:
+        prefix = bytes([P27_SIDE & 255, P27_SIDE >> 8] * 2)
+        for i in range(P27_RECORDS):
+            img = rng.integers(0, 256, (3, P27_SIDE, P27_SIDE),
+                               dtype=np.uint8)
+            w.write_image(float(labels[i]), i, prefix + img.tobytes())
+    w.close()
+
+
+class TimedIter:
+    """A data iterator that adds the wall of each ``next()`` to
+    ``seconds`` (the loader's share of a fit)."""
+
+    def __init__(self, it):
+        self.it = it
+        self.seconds = 0.0
+        self.batch_size = it.batch_size
+        self.provide_data = it.provide_data
+        self.provide_label = it.provide_label
+
+    def reset(self):
+        self.it.reset()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self.next()
+
+    def next(self):
+        t0 = time.perf_counter()
+        try:
+            return self.it.next()
+        finally:
+            self.seconds += time.perf_counter() - t0
+
+
+def p27_io(torch, mt, ck, smi, tmp, jpeg):
+    """(b): the native loader into ResNet-50."""
+    rec = os.path.join(tmp, "p27.rec")
+    t0 = time.perf_counter()
+    p27_write_rec(mt, rec, jpeg)
+    print("p27 (b): %d %s records written by the port's NativeRecordWriter "
+          "(%d bytes) in %.1f s" % (
+              P27_RECORDS, "JPEG" if jpeg else "raw CHW 3x%dx%d" % (
+                  P27_SIDE, P27_SIDE), os.path.getsize(rec),
+              time.perf_counter() - t0))
+    if not mt.native_io.jpeg_available():
+        # this machine's I/O library has no JPEG path: a JPEG record
+        # raises naming libjpeg, never decodes into garbage
+        jrec = os.path.join(tmp, "p27-jpeg.rec")
+        w = mt.native_io.NativeRecordWriter(jrec)
+        w.write_image(1.0, 0, open(os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+            "native_jpegs", "img00.jpg"), "rb").read())
+        w.close()
+        try:
+            mt.native_io.NativeBatchLoader(jrec, 1, (3, 224, 224),
+                                           resize=256).next()
+        except RuntimeError as e:
+            msg = str(e)
+        else:
+            fail("a JPEG record decoded without libjpeg")
+        if "libjpeg" not in msg:
+            fail("the JPEG error does not name libjpeg: %r" % msg)
+        print("p27 (b): a JPEG record raises without libjpeg: %r" % msg)
+    kw = dict(path_imgrec=rec, data_shape=(3, P27_CROP, P27_CROP),
+              batch_size=RESNET_BATCH, resize=P27_SIDE, rand_crop=True,
+              rand_mirror=True, mean_r=FEED_MEAN[0], mean_g=FEED_MEAN[1],
+              mean_b=FEED_MEAN[2], seed=27)
+    it = mt.io.ImageRecordIter(preprocess_threads=P27_THREADS, **kw)
+    if type(it).__name__ != "NativeImageRecordIter":
+        fail("ImageRecordIter at ResNet-50's settings is %s, not the native "
+             "loader" % type(it).__name__)
+    t0 = time.perf_counter()
+    batches = list(it)
+    load_s = time.perf_counter() - t0
+    one = list(mt.io.ImageRecordIter(preprocess_threads=1, **kw))
+    same = len(one) == len(batches) == P27_RECORDS // RESNET_BATCH and all(
+        a.pad == b.pad and np.array_equal(a.data[0].asnumpy(),
+                                          b.data[0].asnumpy())
+        and np.array_equal(a.label[0].asnumpy(), b.label[0].asnumpy())
+        for a, b in zip(batches, one))
+    img_s = P27_RECORDS / load_s
+    print("p27 (b): ImageRecordIter(%s) -> %s: one epoch of %d batches of "
+          "%d alone %.1f img/s at %d threads; batches bitwise a 1-thread "
+          "run's %s (gate)" % (
+              ", ".join("%s=%s" % kv for kv in sorted(kw.items())
+                        if kv[0] != "path_imgrec"),
+              type(it).__name__, len(batches), RESNET_BATCH, img_s,
+              P27_THREADS, same))
+    if not same:
+        fail("the native loader's 8-thread batches differ from 1 thread's")
+    del batches, one
+    sym, arg0, aux0, _, _, _ = resnet_setup(mt, 0, 27)
+    timed = TimedIter(mt.io.ImageRecordIter(preprocess_threads=P27_THREADS,
+                                            **kw))
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    n = P27_RECORDS // RESNET_BATCH
+    marks, loads, losses = [], [], []
+
+    def cb(p):
+        if p.epoch == P27_FIT_EPOCHS - 1 and p.nbatch in (0, n - 1):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            loads.append(timed.seconds)
+        if p.nbatch == n - 1:
+            losses.append(float(p.eval_metric.get_name_value()[0][1]))
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    mod.fit(timed, num_epoch=P27_FIT_EPOCHS, arg_params=arg0,
+            aux_params=aux0, optimizer="sgd",
+            optimizer_params=dict(TRAIN_OPT), eval_metric="ce",
+            batch_end_callback=cb)
+    fit_s = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    stats = mod._fused.stats.report()
+    wall = marks[1] - marks[0]
+    fit_img_s = RESNET_BATCH * (n - 1) / wall
+    share = (loads[1] - loads[0]) / wall
+    print("p27 (b): ResNet-50 Module.fit from the native iterator, %d "
+          "epochs of %d batches in %.1f s: fused step %s; the last epoch's "
+          "last %d steps %.1f img/s, the loader's next() %.3f of that wall; "
+          "cross-entropy after each epoch %s; hand-kernel launches %s; "
+          "card %s" % (P27_FIT_EPOCHS, n, fit_s, stats, n - 1, fit_img_s,
+                       share, [round(x, 4) for x in losses], launches, smi))
+    if not all(math.isfinite(x) for x in losses):
+        fail("ResNet-50 from the native loader: loss %s" % losses)
+    if sum(launches.values()) != 0:
+        fail("hand kernels launched while training ResNet-50: %s"
+             % launches)
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loader_img_s": img_s, "fit_img_s": fit_img_s,
+            "loader_share": share, "loss": losses[-1], "jpeg": jpeg}
+
+
+def p27_abi(mt, name):
+    """The port's in-process ABI library ``name`` (no -lpython: its
+    Python symbols resolve from this interpreter), with MXGetLastError
+    typed, and a checker that raises with it."""
+    import ctypes
+    lib = mt.native_build.load(name)
+    lib.MXGetLastError.restype = ctypes.c_char_p
+
+    def ok(rc, what):
+        if rc != 0:
+            fail("%s through %s: %s" % (what, name,
+                                        lib.MXGetLastError().decode()))
+    return lib, ok
+
+
+def p27_predict(torch, mt, ck, smi, tmp):
+    """(c): VGG-16's fused serving graph through MXPred* in this
+    process against the Python Predictor with the same pipeline."""
+    import ctypes
+    sym = mt.models.get_vgg(num_classes=1000)
+    b = P27_VGG_BATCH
+    shapes = {"data": (b, 3, 224, 224), "softmax_label": (b,)}
+    params = xavier_params(sym, {"data": (1, 3, 224, 224),
+                                 "softmax_label": (1,)}, 27)
+    pipeline = mt.passes.build_serving_pipeline(fuse=True, ctx=mt.gpu(0))
+    fsym, fparams = pipeline.run(sym, {k: mt.nd.array(v, ctx=mt.cpu())
+                                       for k, v in params.items()})
+    nfused = [n["op"] for n in json.loads(fsym.tojson())["nodes"]].count(
+        "_fused_FullyConnected")
+    path = os.path.join(tmp, "vgg16-fused.params")
+    mt.nd.save(path, {"arg:" + k: v if isinstance(v, mt.nd.NDArray)
+                      else mt.nd.array(v, ctx=mt.cpu())
+                      for k, v in fparams.items()})
+    blob = open(path, "rb").read()
+    js = fsym.tojson().encode()
+    lib, ok = p27_abi(mt, "predict_inproc")
+    keys = (ctypes.c_char_p * 2)(b"data", b"softmax_label")
+    indptr = (ctypes.c_uint * 3)(0, 4, 5)
+    dims = (ctypes.c_uint * 5)(b, 3, 224, 224, b)
+    h = ctypes.c_void_p()
+    ok(lib.MXPredCreate(js, blob, len(blob), P27_DEV_TYPE, 0, 2, keys,
+                        indptr, dims, ctypes.byref(h)), "MXPredCreate")
+    sdata, sdim = ctypes.POINTER(ctypes.c_uint)(), ctypes.c_uint()
+    ok(lib.MXPredGetOutputShape(h, 0, ctypes.byref(sdata),
+                                ctypes.byref(sdim)), "MXPredGetOutputShape")
+    oshape = tuple(sdata[i] for i in range(sdim.value))
+    ref = mt.Predictor(sym.tojson(), params, shapes,
+                       {1: "cpu", 2: "gpu"}[P27_DEV_TYPE], 0,
+                       pipeline=pipeline)
+    rng = np.random.default_rng(272)
+    xs = [np.stack([wire_to_nchw(rng.integers(0, 256, (224, 224, 3),
+                                              dtype=np.uint8))
+                    for _ in range(b)]) for _ in range(P27_FORWARDS)]
+    fp = ctypes.POINTER(ctypes.c_float)
+
+    def abi_forward(x):
+        x = np.ascontiguousarray(x, np.float32)
+        ok(lib.MXPredSetInput(h, b"data", x.ctypes.data_as(fp), x.size),
+           "MXPredSetInput")
+        ok(lib.MXPredForward(h), "MXPredForward")
+        y = np.empty(oshape, np.float32)
+        ok(lib.MXPredGetOutput(h, 0, y.ctypes.data_as(fp), y.size),
+           "MXPredGetOutput")
+        return y
+
+    def py_forward(x):
+        ref.set_input("data", x)
+        ref.forward()
+        return np.asarray(ref.get_output(0))
+
+    abi_forward(xs[0])                      # warm: binds, cuDNN picks
+    py_forward(xs[0])
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    got = [abi_forward(x) for x in xs]
+    abi_s = time.perf_counter() - t0
+    abi_launches = ck.LAUNCHES["fused_fc_epilogue"]
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    want = [py_forward(x) for x in xs]
+    py_s = time.perf_counter() - t0
+    py_launches = ck.LAUNCHES["fused_fc_epilogue"]
+    same = all(np.array_equal(a, c) for a, c in zip(got, want))
+    finite = all(np.isfinite(a).all() for a in got)
+    worst = max(float(np.abs(a - c).max()) for a, c in zip(got, want))
+    # the bridge's predictor holds its outputs on the card: read their
+    # context through the full ABI (MXNDArrayGetContext)
+    from mxnet_tpu_torch import capi_bridge
+    capi, cok = p27_abi(mt, "capi_inproc")
+    pred = capi_bridge._get(h.value)
+    oh = capi_bridge._put(pred._exec.outputs[0])
+    dt, di = ctypes.c_int(), ctypes.c_int()
+    cok(capi.MXNDArrayGetContext(ctypes.c_void_p(oh), ctypes.byref(dt),
+                                 ctypes.byref(di)), "MXNDArrayGetContext")
+    capi_bridge.free_handle(oh)
+    ok(lib.MXPredFree(h), "MXPredFree")
+    print("p27 (c): VGG-16 %dx3x224x224 through the fused serving pipeline "
+          "(%d _fused_FullyConnected nodes), %d forwards through the "
+          "in-process predict library (MXPredCreate dev_type=%d): outputs %s "
+          "bitwise the Python Predictor's %s (gate; max abs diff %.3g), "
+          "finite %s; fused_fc_epilogue launches %d through the ABI and %d "
+          "through Python (want %d each); MXNDArrayGetContext of the "
+          "output (%d, %d); %.3f ms a forward through the ABI (%.1f MB in, "
+          "%d floats out) against %.3f ms through Predictor (x%.3f); card %s"
+          % (b, nfused, P27_FORWARDS, P27_DEV_TYPE, oshape, same, worst,
+             finite,
+             abi_launches, py_launches, 2 * P27_FORWARDS, dt.value, di.value,
+             1e3 * abi_s / P27_FORWARDS, xs[0].nbytes / 1e6,
+             int(np.prod(oshape)), 1e3 * py_s / P27_FORWARDS, abi_s / py_s,
+             smi))
+    if nfused != 2:
+        fail("the fused VGG-16 graph has %d fused FC nodes" % nfused)
+    if not (same and finite):
+        fail("the predict ABI's outputs differ from Predictor's (max abs "
+             "diff %g)" % worst)
+    if abi_launches != 2 * P27_FORWARDS or py_launches != 2 * P27_FORWARDS:
+        fail("fused_fc_epilogue launched %d / %d times in %d forwards"
+             % (abi_launches, py_launches, P27_FORWARDS))
+    if (dt.value, di.value) != (P27_DEV_TYPE, 0):
+        fail("the predictor's output context is (%d, %d), not the card"
+             % (dt.value, di.value))
+    del ref, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"abi_ms": 1e3 * abi_s / P27_FORWARDS,
+            "py_ms": 1e3 * py_s / P27_FORWARDS,
+            "launches": abi_launches + py_launches}
+
+
+def client_first_update(mt, out_dir, ctx):
+    """Replay the C++ client's first update (tests/data/capi_card_client.cc)
+    with the port's Python Executor on ``ctx``: the same init, the first
+    batch, forward/backward and the bridge's SGD (momentum 0.9,
+    rescale_grad 1/100, lr 0.1).  -> (max abs difference from the client's
+    step1.bin, the number of parameters)."""
+    batch, dim = 100, 784
+    raw = np.fromfile(os.path.join(out_dir, "data.bin"), np.float32)
+    n = raw.size // (dim + 1)
+    x, y = raw[:n * dim].reshape(n, dim), raw[n * dim:]
+    net = mt.sym.Variable("data")
+    for i, hid in enumerate((128, 64), 1):
+        net = mt.sym.Activation(mt.sym.FullyConnected(
+            net, num_hidden=hid, name="fc%d" % i), act_type="relu",
+            name="relu%d" % i)
+    net = mt.sym.SoftmaxOutput(mt.sym.FullyConnected(
+        net, num_hidden=10, name="fc3"), name="softmax")
+    exe = net.simple_bind(ctx, data=(batch, dim), softmax_label=(batch,))
+    names = net.list_arguments()
+    init = np.fromfile(os.path.join(out_dir, "init.bin"), np.float32)
+    want = np.fromfile(os.path.join(out_dir, "step1.bin"), np.float32)
+    off = 0
+    for nm in names:
+        if nm in ("data", "softmax_label"):
+            continue
+        a = exe.arg_dict[nm]
+        a[:] = init[off:off + a.size].reshape(a.shape)
+        off += a.size
+    exe.arg_dict["data"][:] = x[:batch]
+    exe.arg_dict["softmax_label"][:] = y[:batch]
+    exe.forward(is_train=True)
+    exe.backward()
+    opt = mt.optimizer.Optimizer.create_optimizer(
+        "sgd", momentum=0.9, rescale_grad=1.0 / batch)
+    opt.lr, opt.wd = 0.1, 0.0
+    got = []
+    for i, nm in enumerate(names):
+        if nm in ("data", "softmax_label"):
+            continue
+        w, g = exe.arg_dict[nm], exe.grad_dict[nm]
+        opt.update(i, w, g, opt.create_state(i, w))
+        got.append(w.asnumpy().ravel())
+    got = np.concatenate(got)
+    return float(np.abs(got - want).max()), int(got.size)
+
+
+def p27_client(torch, mt, smi, tmp, root):
+    """(d): the C ABI from a C++ process on the card."""
+    src = os.path.join(root, "tests", "data", "capi_card_client.cc")
+    lib = mt.native_build.path("capi")
+    binary = os.path.join(tmp, "capi_card_client")
+    t0 = time.perf_counter()
+    subprocess.run(["g++", "-O1", "-std=c++17", src, "-o", binary, lib,
+                    "-Wl,-rpath," + os.path.dirname(lib)], check=True)
+    build_s = time.perf_counter() - t0
+    out_dir = os.path.join(tmp, "client")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    res = subprocess.run([binary, out_dir, str(P27_DEV_TYPE),
+                          str(P27_MLP_STEPS)],
+                         env=mt.native_build.embed_env(),
+                         capture_output=True, text=True, timeout=600)
+    run_s = time.perf_counter() - t0
+    if res.returncode != 0 or "CAPI CARD CLIENT PASSED" not in res.stdout:
+        fail("the C++ client failed (exit %d): %s %s" % (
+            res.returncode, res.stdout[-1500:], res.stderr[-1500:]))
+    line = [ln for ln in res.stdout.splitlines()
+            if ln.startswith("CLIENT ")][0].split()
+    steps_s, acc = float(line[4]), float(line[6])
+    err, nparams = client_first_update(mt, out_dir, mt.gpu(0))
+    # the same MLP through the Python fused step (Module.fit), for scale
+    raw = np.fromfile(os.path.join(out_dir, "data.bin"), np.float32)
+    n = raw.size // 785
+    it = mt.io.NDArrayIter(raw[:n * 784].reshape(n, 784), raw[n * 784:],
+                           batch_size=100)
+    net = mt.sym.Variable("data")
+    for i, hid in enumerate((128, 64), 1):
+        net = mt.sym.Activation(mt.sym.FullyConnected(
+            net, num_hidden=hid, name="fc%d" % i), act_type="relu")
+    net = mt.sym.SoftmaxOutput(mt.sym.FullyConnected(
+        net, num_hidden=10, name="fc3"), name="softmax")
+    mod = mt.mod.Module(net, context=mt.gpu(0))
+    per_epoch = n // 100
+    epochs = P27_MLP_STEPS // per_epoch
+    marks = []
+
+    def mark(p):
+        if (p.epoch, p.nbatch) in ((0, 0), (epochs - 1, per_epoch - 1)):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+    mod.fit(it, num_epoch=epochs, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+            batch_end_callback=mark)
+    py_steps_s = (epochs * per_epoch - 1) / (marks[1] - marks[0])
+    print("p27 (d): tests/data/capi_card_client.cc built against "
+          "cpp-package/include and %s in %.1f s; %d steps of the "
+          "784-128-64-10 MLP at batch 100 on Context(2, 0) through "
+          "MXExecutor* and MXOptimizerUpdate: %.1f steps/s, training "
+          "accuracy %.4f (gate 0.9), the process %.1f s; the first update "
+          "against the port's Python Executor on gpu(0) from the same init: "
+          "max abs diff %.3g over %d parameters (gate %g); the same MLP "
+          "through Module.fit's fused step %.1f steps/s; card %s"
+          % (os.path.basename(lib), build_s, P27_MLP_STEPS, steps_s, acc,
+             run_s, err, nparams, P27_UPDATE_ATOL, py_steps_s, smi))
+    if not err <= P27_UPDATE_ATOL:
+        fail("the C++ client's first update differs from the Python "
+             "Executor's by %g" % err)
+    return {"steps_s": steps_s, "accuracy": acc, "first_update_err": err,
+            "py_steps_s": py_steps_s}
+
+
+def p27_rtc(torch, mt, smi):
+    """(e): phase 26's softmax through MXRtcCreate/MXRtcPush on gpu
+    NDArrays made through the ABI."""
+    import ctypes
+    from mxnet_tpu_torch import rtc
+    lib, ok = p27_abi(mt, "capi_inproc")
+    rows, cols, block = P26_RTC_SHAPES[1]
+    x = np.random.default_rng(273).standard_normal(
+        (rows, cols), dtype=np.float32)
+    shape = (ctypes.c_uint * 2)(rows, cols)
+    hx, hy = ctypes.c_void_p(), ctypes.c_void_p()
+    ok(lib.MXNDArrayCreate(shape, 2, P27_DEV_TYPE, 0, 0, ctypes.byref(hx)),
+       "MXNDArrayCreate")
+    ok(lib.MXNDArrayCreate(shape, 2, P27_DEV_TYPE, 0, 0, ctypes.byref(hy)),
+       "MXNDArrayCreate")
+    fp = ctypes.POINTER(ctypes.c_float)
+    ok(lib.MXNDArraySyncCopyFromCPU(hx, x.ctypes.data_as(fp), x.size),
+       "MXNDArraySyncCopyFromCPU")
+    names_in = (ctypes.c_char_p * 1)(b"x")
+    names_out = (ctypes.c_char_p * 1)(b"y")
+    ins = (ctypes.c_void_p * 1)(hx.value)
+    outs = (ctypes.c_void_p * 1)(hy.value)
+    hr = ctypes.c_void_p()
+    ok(lib.MXRtcCreate(b"softmax", 1, 1, names_in, names_out, ins, outs,
+                       RTC_SOFTMAX.encode(), ctypes.byref(hr)),
+       "MXRtcCreate")
+    n0 = rtc.LAUNCHES.get("softmax", 0)
+    ok(lib.MXRtcPush(hr, 1, 1, ins, outs, rows, 1, 1, block, 1, 1),
+       "MXRtcPush")
+    launched = rtc.LAUNCHES.get("softmax", 0) - n0
+    y = np.empty((rows, cols), np.float32)
+    ok(lib.MXNDArraySyncCopyToCPU(hy, y.ctypes.data_as(fp), y.size),
+       "MXNDArraySyncCopyToCPU")
+    dt, di = ctypes.c_int(), ctypes.c_int()
+    ok(lib.MXNDArrayGetContext(hy, ctypes.byref(dt), ctypes.byref(di)),
+       "MXNDArrayGetContext")
+    want = torch.softmax(torch.from_numpy(x).cuda(), dim=1).cpu().numpy()
+    err = float(np.abs(y - want).max())
+    for hnd in (hx, hy):
+        ok(lib.MXNDArrayFree(hnd), "MXNDArrayFree")
+    ok(lib.MXRtcFree(hr), "MXRtcFree")
+    print("p27 (e): MXRtcCreate/MXRtcPush with phase 26's softmax at %dx%d "
+          "block %d on NDArrays made through the ABI on (%d, %d): max_abs_err "
+          "%.3g against torch.softmax (atol %g), rtc.LAUNCHES counted %d "
+          "push; card %s" % (rows, cols, block, dt.value, di.value, err,
+                             P26_RTC_ATOL, launched, smi))
+    if not err <= P26_RTC_ATOL or launched != 1 or dt.value != P27_DEV_TYPE:
+        fail("rtc through the ABI: err %g, %d launches, device type %d"
+             % (err, launched, dt.value))
+    return {"err": err, "launches": launched}
+
+
+def p27_phase(torch, mt, ck, smi, root, native_build_thread):
+    print("phase 27: the native layer (the port's C++ engine, storage and "
+          "loader, the C ABI and predict libraries)")
+    t0 = time.perf_counter()
+    probe = p27_probe()
+    native_build_thread.join()
+    if native_build_thread.error is not None:
+        raise native_build_thread.error
+    nb = mt.native_build
+    print("p27 build: %d g++ runs in this process (%s), started with the "
+          "kernels' nvcc builds; walls %s s" % (
+              nb.GXX_RUNS, sorted(nb.OBJECTS),
+              json.dumps({k: round(v, 1) for k, v in
+                          nb.BUILD_WALLS.items()})))
+    walls = {}
+    out = {"probe": probe}
+    with tempfile.TemporaryDirectory() as tmp:
+        for leg, fn in (("a", lambda: p27_engine(torch, mt, smi)),
+                        ("b", lambda: p27_io(torch, mt, ck, smi, tmp,
+                                             probe["jpeglib.h"])),
+                        ("c", lambda: p27_predict(torch, mt, ck, smi, tmp)),
+                        ("d", lambda: p27_client(torch, mt, smi, tmp, root)),
+                        ("e", lambda: p27_rtc(torch, mt, smi))):
+            mark = time.perf_counter()
+            out[leg] = fn()
+            walls[leg] = time.perf_counter() - mark
+    out["wall_s"] = time.perf_counter() - t0
+    print("p27: walls %s s, phase %.1f s; card %s" % (
+        json.dumps({k: round(v, 1) for k, v in walls.items()}),
+        out["wall_s"], smi))
+    return out
+
+
+class NativeBuild(threading.Thread):
+    """The native objects' g++ builds, run beside the kernels' nvcc
+    builds; an error is kept for phase 27 to raise."""
+
+    def __init__(self, mt):
+        super().__init__(daemon=True)
+        self.mt = mt
+        self.error = None
+
+    def run(self):
+        try:
+            self.mt.native_build.build()
+        except Exception as e:          # raised by phase 27
+            self.error = e
+
+
 def main():
     t_script = time.perf_counter()
     # cuBLAS under deterministic algorithms (phase 14) needs a fixed
@@ -10356,7 +11045,9 @@ def main():
         walls[phase] = round(now - last[0], 1)
         last[0] = now
 
-    # phase 2: build
+    # phase 2: build (the native layer's g++ builds run beside nvcc's)
+    native = NativeBuild(mt)
+    native.start()
     t0 = time.perf_counter()
     logs = ck.build()
     print("build: %s in %.1f s" % (sorted(ck.SOURCES),
@@ -10603,6 +11294,27 @@ def main():
             "lstm-ocr-warpctc-tokens_s": round(p26["d"]["tokens_s"], 1),
             "lock-order-edges": len(p26["f"]["edges"]),
             "wall_s": round(p26["wall_s"], 1)})))
+    # phase 27: the native layer: the port's engine and storage, native
+    # I/O into ResNet-50, the predict ABI in this process, the C ABI from
+    # a C++ process, rtc through the ABI
+    p27 = p27_phase(torch, mt, ck, smi, root, native)
+    mark('27')
+    print("native layer result (card %s): %s" % (smi, json.dumps({
+        "engine-closures_s": round(p27["a"]["closures_s"], 1),
+        "engine-serial-closures_s": round(p27["a"]["serial_closures_s"], 1),
+        "engine-push_us": round(p27["a"]["push_us"], 2),
+        "storage-pool_hits": p27["a"]["hits"],
+        "loader-img_s": round(p27["b"]["loader_img_s"], 1),
+        "resnet50-native-fit-img_s": round(p27["b"]["fit_img_s"], 1),
+        "resnet50-loader-share": round(p27["b"]["loader_share"], 3),
+        "records": "jpeg" if p27["b"]["jpeg"] else "raw",
+        "vgg16-abi-forward_ms": round(p27["c"]["abi_ms"], 3),
+        "vgg16-predictor-forward_ms": round(p27["c"]["py_ms"], 3),
+        "mlp-abi-steps_s": round(p27["d"]["steps_s"], 1),
+        "mlp-fused-fit-steps_s": round(p27["d"]["py_steps_s"], 1),
+        "mlp-first-update-max-diff": p27["d"]["first_update_err"],
+        "rtc-abi-err": p27["e"]["err"],
+        "wall_s": round(p27["wall_s"], 1)})))
     kernels = [{
         "name": "fused_fc_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["fused_fc_epilogue"],
@@ -10615,7 +11327,7 @@ def main():
         + p23["rpc"]["launches"] + p24["cold"]["fc_launches"]
         + p24["search"]["launches"]["fused_fc_epilogue"]
         + p25["launches"]["fused_fc_epilogue"]
-        + p26["c"]["launches"],
+        + p26["c"]["launches"] + p27["c"]["launches"],
         "max_abs_err": fc["max_abs_err"],
         "ms": fc["ms"], "plain_ms": fc["plain_ms"],
         "bound_ms": fc["bound_ms"], "bound_by": "bytes",
@@ -10668,7 +11380,9 @@ def main():
           "its call-time winners at fc6 and fc7 plus phase 25's "
           "traced and untraced VGG-16 requests, its device-timeline batch "
           "and the promoted replicas' answers plus phase 26's Custom graph "
-          "served (fc1 and fc2, 2 a batch); paged_attention "
+          "served (fc1 and fc2, 2 a batch) plus phase 27's VGG-16 forwards "
+          "through the predict ABI and through Predictor (2 a forward); "
+          "paged_attention "
           "is one C=1 "
           "plus one C=32 "
           "launch at 16 slots x 12 heads x 64, contexts 1..1024; its "

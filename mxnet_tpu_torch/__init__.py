@@ -89,6 +89,7 @@ from .operator import CustomOp, CustomOpProp, NumpyOp, NDArrayOp
 from . import rtc
 from . import plugins
 from .plugins import torch_bridge as th
+from . import native_io
 
 __version__ = libinfo.__version__
 

@@ -35,7 +35,9 @@ raw-pallas-call    a raw kernel build or load outside
                    kernels live in one module, whose plain versions and
                    searches cover them (the rtc passthrough and the
                    compile cache's stored libraries carry inline
-                   suppressions)
+                   suppressions); the native layer's host libraries
+                   (no kernels) are built and loaded in its sibling
+                   ``native_build.py``
 raw-jit            ``torch.cuda.graph``, ``torch.cuda.CUDAGraph`` or
                    ``torch.compile`` outside ``compile_cache/``: captures
                    go through its lock and its counted builds
@@ -301,7 +303,8 @@ def _rule_raw_pallas_call(ctx: _Ctx) -> Iterable[Finding]:
     the plain version only on the CPU and are searched and checked
     against it.  A library loaded or built elsewhere is an unchecked,
     uncounted kernel."""
-    if ctx.rel.startswith("mxnet_tpu_torch/ops/cuda_kernels"):
+    if ctx.rel.startswith(("mxnet_tpu_torch/ops/cuda_kernels",
+                           "mxnet_tpu_torch/native_build")):
         return
     for node in ast.walk(ctx.tree):
         what = None

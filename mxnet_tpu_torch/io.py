@@ -17,12 +17,14 @@ or ``DataIter.feed()`` / ``fit(prefetch_to_device=True)`` stage them
 ahead.  ``shuffle`` draws its order from numpy's global stream, as the
 reference does, so one numpy seed gives one order in both packages.
 
-``ImageRecordIter`` is the reference's Python path (what it runs when
-its native loader is not built).  The native loader
-(``NativeImageRecordIter``, the reference's ``native_io.py`` over
-``src/data_loader.cc`` and libjpeg) waits for ROADMAP.md queue 1 item
-14.  Raw CHW-packed payloads (exactly ``prod(data_shape)`` bytes) decode
-without PIL; JPEG/PNG payloads need PIL and raise without it.
+``ImageRecordIter(...)`` returns the native loader
+(:class:`NativeImageRecordIter`, over :mod:`native_io` and the port's
+``csrc/native/data_loader.cc``) whenever its knobs allow it and the
+first record holds a 3-channel JPEG or a raw CHW payload, as the
+reference's does (``MXNET_NATIVE_IO=0`` turns that off); otherwise the
+Python path below.  There raw CHW-packed payloads (exactly
+``prod(data_shape)`` bytes) decode without PIL; JPEG/PNG payloads need
+PIL and raise without it.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from .ndarray import NDArray, array as _array
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
            "PrefetchingIter", "MNISTIter", "CSVIter", "ImageRecordIter",
+           "NativeImageRecordIter",
            "resize_shorter_edge", "crop_mirror_normalize",
            "decode_to_hwc_u8"]
 
@@ -555,17 +558,146 @@ class CSVIter(NDArrayIter):
                          last_batch_handle="pad" if round_batch else "discard")
 
 
-class ImageRecordIter(DataIter):
-    """Packed image RecordIO iterator (reference src/io/iter_image_recordio.cc,
-    the JAX package's Python path).
+class NativeImageRecordIter(DataIter):
+    """Native (C++) threaded RecordIO batch iterator — the fast path for
+    JPEG-packed and raw-CHW-packed .rec files (``csrc/native/
+    data_loader.cc``: mmapped record index, N decode threads off the GIL,
+    bounded double-buffer queue; reference iter_image_recordio.cc +
+    iter_prefetcher.h equivalent).  Batches are host NDArrays."""
 
-    Covers the full augmenter set (PIL decode -> resize/rotate/HSL ->
+    def __init__(self, path_imgrec, data_shape, batch_size, label_width=1,
+                 shuffle=False, mean_r=0, mean_g=0, mean_b=0, scale=1.0,
+                 rand_crop=False, rand_mirror=False, part_index=0,
+                 num_parts=1, preprocess_threads=4, seed=0, resize=0,
+                 **kwargs):
+        super().__init__()
+        from .native_io import NativeBatchLoader
+        mean = (mean_r, mean_g, mean_b) if (mean_r or mean_g or mean_b) \
+            else None
+        self._loader = NativeBatchLoader(
+            path_imgrec, batch_size, tuple(data_shape),
+            label_width=label_width, threads=preprocess_threads,
+            shuffle=shuffle, rand_crop=rand_crop, rand_mirror=rand_mirror,
+            mean_rgb=mean, scale=scale, part_index=part_index,
+            num_parts=num_parts, seed=seed, resize=resize)
+        self.batch_size = batch_size
+        self.data_shape = tuple(data_shape)
+        self.label_width = label_width
+        self._first = True
+
+    @property
+    def provide_data(self):
+        return [("data", (self.batch_size,) + self.data_shape)]
+
+    @property
+    def provide_label(self):
+        if self.label_width == 1:
+            return [("softmax_label", (self.batch_size,))]
+        return [("softmax_label", (self.batch_size, self.label_width))]
+
+    def reset(self):
+        if not self._first:
+            self._loader.reset()
+        self._first = False
+
+    def next(self):
+        self._first = False
+        out = self._loader.next()
+        if out is None:
+            raise StopIteration
+        data, label, pad = out
+        if self.label_width == 1:
+            label = label.reshape(-1)
+        return DataBatch(data=[nd_array(data)], label=[nd_array(label)],
+                         pad=pad, index=None)
+
+
+def _native_io_delegable(kwargs) -> bool:
+    """True when ImageRecordIter can hand the workload to the native C++
+    loader: every requested knob is implemented natively (JPEG/raw decode,
+    shorter-edge resize, crop/mirror/mean/scale, sharding, threads) AND the
+    records actually hold JPEG or raw-CHW payloads (sniffed from the first
+    record — PNG and other formats stay on the Python path)."""
+    from .base import get_env as _get_env
+    if not _get_env("MXNET_NATIVE_IO", True, bool):
+        return False
+    from .native_io import lib_available
+    if not lib_available():
+        return False
+    unsupported = ("mean_img", "max_rotate_angle", "max_random_contrast",
+                   "max_random_illumination", "random_h", "random_s",
+                   "random_l", "pad")
+    if any(kwargs.get(k) for k in unsupported):
+        return False
+    # round_batch=False asks for discard-last-partial semantics; the
+    # native loader always pads the final batch — stay on the Python path
+    # rather than deliver a padded batch the caller said not to want
+    if not kwargs.get("round_batch", True):
+        return False
+    path = kwargs.get("path_imgrec")
+    shape = kwargs.get("data_shape")
+    if not path or not shape:
+        return False
+    try:
+        from . import recordio as _recordio
+        rec = _recordio.MXRecordIO(path, "r")
+        try:
+            s = rec.read()
+        finally:
+            rec.close()
+        if s is None:
+            return False
+        _, payload = _recordio.unpack(s)
+        if payload[:3] == b"\xff\xd8\xff":     # JPEG
+            # the native JPEG path decodes to 3-channel RGB and strides
+            # by shape[0]; only 3-channel shapes delegate (data_loader.cc
+            # fails loud as defense in depth).  Raw-CHW payloads below
+            # handle any channel count natively.
+            return shape[0] == 3
+        want = int(np.prod(shape))
+        # raw-CHW: exact size, or the 2x-uint16 (src_h, src_w) prefix form
+        return len(payload) == want or (
+            len(payload) > want + 4 and
+            (payload[0] | (payload[1] << 8)) * (payload[2] | (payload[3] << 8))
+            * shape[0] + 4 == len(payload))
+    except Exception:
+        return False
+
+
+class ImageRecordIter(DataIter):
+    """Packed image RecordIO iterator (reference src/io/iter_image_recordio.cc).
+
+    Construction returns the native C++ path (:class:`NativeImageRecordIter`)
+    whenever the requested augmenter knobs are natively supported and the
+    records hold JPEG or raw CHW payloads — matching the reference, whose
+    ImageRecordIter IS the C++ pipeline.  A native library that fails to
+    build, or a file the native loader cannot open, raises; it does not
+    fall back.  Otherwise this Python implementation covers the full
+    augmenter set (PIL decode -> resize/rotate/HSL ->
     mean/scale -> crop/mirror -> batch) while streaming records through a
     lazy offset index in O(batch) memory; decode runs on a thread pool of
     ``preprocess_threads``.  Sharding via part_index/num_parts as in the
     reference.  A raw CHW-packed payload (``prod(data_shape)`` bytes)
     decodes without PIL; a JPEG/PNG payload needs PIL.
     """
+
+    def __new__(cls, *args, **kwargs):
+        if cls is ImageRecordIter:
+            # FULL positional order of __init__ — truncating this list
+            # would drop positionally-passed knobs on delegation
+            names = ("path_imgrec", "data_shape", "batch_size",
+                     "label_width", "shuffle", "mean_img", "mean_r",
+                     "mean_g", "mean_b", "scale", "rand_crop",
+                     "rand_mirror", "part_index", "num_parts",
+                     "round_batch", "preprocess_threads",
+                     "prefetch_buffer", "resize", "max_rotate_angle",
+                     "max_random_contrast", "max_random_illumination",
+                     "random_h", "random_s", "random_l", "pad")
+            merged = dict(zip(names, args))
+            merged.update(kwargs)
+            if _native_io_delegable(merged):
+                return NativeImageRecordIter(**merged)
+        return super().__new__(cls)
 
     def __init__(self, path_imgrec, data_shape, batch_size, label_width=1,
                  shuffle=False, mean_img=None, mean_r=0, mean_g=0, mean_b=0,

@@ -509,8 +509,13 @@ def test_libinfo_points_at_kernel_builds():
     else:
         with pytest.raises(RuntimeError, match="build"):
             mt.libinfo.find_lib_path()
+    # the JAX package's name for its native library finds the port's
+    # host and I/O libraries (built at first use)
+    from mxnet_tpu_torch import native_build as nb
+    assert mt.libinfo.find_lib_path("libmxtpu.so") == \
+        [nb.path("host"), nb.path("io")]
     with pytest.raises(RuntimeError, match="unknown"):
-        mt.libinfo.find_lib_path("libmxtpu.so")
+        mt.libinfo.find_lib_path("libnothing.so")
     assert os.path.dirname(ck._lib_path("paged_attention")) == \
         os.path.join(ROOT, "mxnet_tpu_torch", "_build")
 
