@@ -99,7 +99,7 @@ Phases, in order; any failure exits nonzero:
    ``lstm_unroll_scan`` (the ``RNN`` op) against the unrolled form from
    one checkpoint (output 1e-4, gradients 1e-3 relative) and its captured
    step's tokens/s; ``BucketingModule.fit`` over buckets 10/20/30/40 at
-   batch 32 (wd 1e-5, 2 epochs of 16 seeded batches) on the card and the
+   batch 32 (wd 1e-5, 2 epochs of 8 seeded batches) on the card and the
    CPU: 4 bucket modules on one parameter storage, the card's params
    against the CPU's (rtol 1e-3, atol 1e-4), tokens/s and the busy share
    of a classic step; 0 launches of the four hand kernels on these paths;
@@ -353,8 +353,24 @@ Phases, in order; any failure exits nonzero:
    ``MXRtcCreate``/``MXRtcPush`` with phase 26's softmax on NDArrays
    made through the ABI against ``torch.softmax``, one launch counted;
    the ``native layer result`` line;
+28. float16 and bfloat16 in ``paged_attention``, ``flash_attention`` and
+   ``correlation`` (``kernel check half``, ``flownetc``, ``search (c)``,
+   ``search (d)``, ``pool (d)`` lines): (a) each 16-bit instance at the
+   main paths' shapes and ragged ones bitwise the float32 instance on
+   the upcast inputs, rounded, and within one unit in the last place of
+   its plain version, mixed dtypes bitwise the float32 instance's output
+   cast; (b) FlowNetC's stage through ``Predictor`` bound in float16 and
+   ``simple_bind`` in bfloat16, the kernel once a forward in that dtype,
+   held on the captured inputs, the stage against phase 11's float32
+   output; (c) ``search_flash`` in float16 and bfloat16, each winner
+   under its dtype's class, a store hit, call-time resolution; (d)
+   ``search_paged`` in bfloat16 and ``paged_attention`` over
+   ``KVBlockPool.add_view(dtype=)`` views at the page table's capacity;
+   (e) each half instance timed beside the float32 instance, its plain
+   version and the library call; the ``half precision result`` line;
    then the whole script's wall, the ``kernels`` JSON line (all four
-   kernels), then the ``{"ok": true, ...}`` line.
+   kernels and their float16 and bfloat16 instances), then the
+   ``{"ok": true, ...}`` line.
 """
 import gc
 import json
@@ -370,12 +386,29 @@ import time
 import numpy as np
 
 # H100 SXM published peaks at 700 W (NVIDIA data sheet): HBM3 bandwidth,
-# float32 outside the tensor cores, and dense TF32 on the tensor cores
-# (flash_attention's products: 3 TF32 products per float32 product)
+# float32 outside the tensor cores, dense TF32 on the tensor cores
+# (flash_attention's products: 3 TF32 products per float32 product) and
+# dense float16/bfloat16 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 FLASH_PEAK = "3xTF32: 3 TF32 products per float32 product at 495 TFLOP/s"
+# dense float16/bfloat16 on the tensor cores (float32 accumulate)
+PEAK_HALF_FLOPS = 989e12
+HALF_FLASH_PEAK = ("q.k at 989 TFLOP/s (16-bit operands, exact), p.v 2xTF32 "
+                   "at 495 TFLOP/s (float32 p split in two, 16-bit v exact "
+                   "in TF32)")
+
+
+def half_attention_flops_ms(flops, q_size):
+    """Least time for attention's 4·D flops a (row, key) pair over 16-bit
+    K and V, half in q·k and half in p·v, on the tensor cores: q·k exact
+    in one product at the float16/bfloat16 rate when q is 16-bit too, else
+    2 TF32 products (a float32 q split in two, k exact in TF32); p·v 2 TF32
+    products (a float32 p split in two, v exact in TF32)."""
+    qk = flops / 2 / PEAK_HALF_FLOPS if q_size == 2 else \
+        2 * flops / 2 / PEAK_TF32_FLOPS
+    return 1e3 * (qk + 2 * flops / 2 / PEAK_TF32_FLOPS)
 
 # The redesigned kernels' times before their tensor-core, split-K designs:
 # quoted, not measured by this script.  kernel_ab.py timed the earlier
@@ -1363,8 +1396,9 @@ def paged_bound_ms(case, causal=True):
     """Least time for the work this case's data needs: each slot's
     visible keys' K and V read once (a key is visible to some row when
     it lies below the length and, causally, at or below that row's
-    position), q read, out written; 4·D flops per (row, visible key,
-    head)."""
+    position), q read, out written, each at its element size; 4·D flops
+    per (row, visible key, head), at float32's rate over float32 pools and
+    as half_attention_flops_ms says over 16-bit ones."""
     q = case["q"]
     s, c, h, d = q.shape
     lengths, q_pos = case["np_lengths"], case["np_q_pos"]
@@ -1374,11 +1408,13 @@ def paged_bound_ms(case, causal=True):
         seen = np.minimum(seen, q_pos + 1)
     seen = np.maximum(seen, 0)
     keys_read = seen.max(axis=1).sum()
-    nbytes = (2 * keys_read * h * d * 4 + 2 * q.numel() * 4
+    kv_size, q_size = case["k_pool"].element_size(), q.element_size()
+    nbytes = (2 * keys_read * h * d * kv_size + 2 * q.numel() * q_size
               + case["pages"].numel() * 4 + lengths.size * 4 + q_pos.size * 4)
     flops = 4.0 * h * d * float(seen.sum())
     by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
-    by_flops = 1e3 * flops / PEAK_F32_FLOPS
+    by_flops = 1e3 * flops / PEAK_F32_FLOPS if kv_size == 4 else \
+        half_attention_flops_ms(flops, q_size)
     return max(by_bytes, by_flops), ("bytes" if by_bytes >= by_flops
                                      else "operations")
 
@@ -1917,16 +1953,18 @@ def flash_inputs(torch, dev, seed, b, t, h, d):
             for _ in range(3)]
 
 
-def flash_bound_ms(b, t, h, d, causal):
-    """Least time for the work: q, k, v read once and out written once;
-    4·D flops (q·k and p·v) per (row, visible key) pair of every head, each
-    float32 product taken as 3 TF32 products on the tensor cores as the
-    kernel computes it (FLASH_PEAK)."""
+def flash_bound_ms(b, t, h, d, causal, esize=4):
+    """Least time for the work: q, k, v read once and out written once,
+    ``esize`` bytes an element; 4·D flops (q·k and p·v) per (row, visible
+    key) pair of every head, each float32 product taken as 3 TF32 products
+    on the tensor cores as the kernel computes it (FLASH_PEAK).  With
+    16-bit operands as half_attention_flops_ms says (HALF_FLASH_PEAK)."""
     pairs = t * (t + 1) / 2.0 if causal else float(t * t)
     flops = 4.0 * d * b * h * pairs
-    nbytes = 4 * b * t * h * d * 4
+    nbytes = esize * 4 * b * t * h * d
     by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
-    by_flops = 1e3 * 3 * flops / PEAK_TF32_FLOPS
+    by_flops = 1e3 * 3 * flops / PEAK_TF32_FLOPS if esize == 4 else \
+        half_attention_flops_ms(flops, esize)
     return max(by_bytes, by_flops), ("bytes" if by_bytes >= by_flops
                                      else "operations")
 
@@ -2127,14 +2165,18 @@ def corr_inputs(torch, dev, seed, n, c, h, w):
             for _ in range(2)]
 
 
-def corr_bound_ms(n, c, h, w, m, s2):
-    """Least time: a and b read once, the output written once; 2 flops
-    (multiply and add, or subtract and add) per channel of each output."""
+def corr_bound_ms(n, c, h, w, m, s2, esize=4, is_multiply=True):
+    """Least time: a and b read once, the output written once, ``esize``
+    bytes an element; 2 flops (multiply and add, or subtract and add) per
+    channel of each output, at float32's rate, or for 16-bit products
+    (multiply) at the tensor cores' float16/bfloat16 rate with a float32
+    accumulate."""
     d2 = 2 * (m // s2) + 1
-    nbytes = 4 * (2 * n * c * h * w + n * d2 * d2 * h * w)
+    nbytes = esize * (2 * n * c * h * w + n * d2 * d2 * h * w)
     flops = 2.0 * n * d2 * d2 * h * w * c
     by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
-    by_flops = 1e3 * flops / PEAK_F32_FLOPS
+    rate = PEAK_HALF_FLOPS if esize == 2 and is_multiply else PEAK_F32_FLOPS
+    by_flops = 1e3 * flops / rate
     return max(by_bytes, by_flops), ("bytes" if by_bytes >= by_flops
                                      else "operations")
 
@@ -2264,12 +2306,13 @@ def flownetc_symbol(sym, widths=(64, 128, 256), redir=32, out=256,
     return sym.LeakyReLU(data=x, act_type="leaky", slope=0.1, name="relu3_1")
 
 
-def flownetc_phase(torch, mt, ck, n=8, forwards=4, n_check=2, seed=0):
+def flownetc_inputs(mt, n, forwards, seed):
+    """FlowNetC's symbol, input shapes, float32 weights and ``forwards``
+    frame pairs, from numpy seeds: -> (sym, shapes, params, frames)."""
     sym = flownetc_symbol(mt.sym)
     hh, ww = FLOWNETC_IMAGE
     shapes = {"img1": (n, 3, hh, ww), "img2": (n, 3, hh, ww)}
     params = xavier_params(sym, shapes, seed)
-    n_params = sum(v.size for v in params.values())
     rng = np.random.default_rng(seed + 1)
     frames = []
     for _ in range(forwards):
@@ -2278,6 +2321,13 @@ def flownetc_phase(torch, mt, ck, n=8, forwards=4, n_check=2, seed=0):
         img2 = np.roll(img1, (8, 16), axis=(2, 3)) + np.float32(0.05) * \
             rng.standard_normal((n, 3, hh, ww), dtype=np.float32)
         frames.append((img1, img2.astype(np.float32)))
+    return sym, shapes, params, frames
+
+
+def flownetc_phase(torch, mt, ck, n=8, forwards=4, n_check=2, seed=0):
+    sym, shapes, params, frames = flownetc_inputs(mt, n, forwards, seed)
+    hh, ww = FLOWNETC_IMAGE
+    n_params = sum(v.size for v in params.values())
     with tempfile.TemporaryDirectory() as tmp:
         prefix = os.path.join(tmp, "flownetc")
         mt.model.save_checkpoint(
@@ -2349,7 +2399,7 @@ def flownetc_phase(torch, mt, ck, n=8, forwards=4, n_check=2, seed=0):
         "correlation" if "correlation" in name else
         "concat" if "cat" in name else conv_group(name)))
     return {"launches": launches["correlation"], "forwards": forwards,
-            "wall_ms": wall, "device_ms": device}
+            "wall_ms": wall, "device_ms": device, "out0": outs[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -2836,7 +2886,7 @@ LSTM_REPLAYS = 20
 SCAN_OUT_TOL, SCAN_GRAD_TOL = 1e-4, 1e-3
 # example/rnn/lstm_bucketing.py: buckets, batch 32, weight decay 1e-5
 BUCKETS = (10, 20, 30, 40)
-BUCKET_BATCH, BUCKET_BATCHES, BUCKET_EPOCHS = 32, 16, 2
+BUCKET_BATCH, BUCKET_BATCHES, BUCKET_EPOCHS = 32, 8, 2
 BUCKET_OPT = dict(LSTM_OPT, wd=1e-5)
 
 
@@ -3187,7 +3237,7 @@ class BucketBatches:
 
 def bucketing_phase(torch, mt, arg0, smi):
     """(c) BucketingModule.fit at lstm_bucketing.py's settings: 2 epochs
-    over 16 seeded batches across buckets 10/20/30/40 on the card and on
+    over 8 seeded batches across buckets 10/20/30/40 on the card and on
     the CPU; 4 bucket modules sharing one parameter storage; the card's
     params against the CPU's; tokens/s and busy share of the classic
     eager step."""
@@ -9120,7 +9170,7 @@ def p24_phase(torch, mt, ck, smi, root):
 #     steps and one VGG-16 batch; the Chrome trace names the hand kernels
 #     on the CUDA lanes.
 # (d) sharding="auto" for VGG-16 at dp=1 x tp=2 over two gloo ranks on
-#     the card, shortlist 2, 3 steps; the winner's first step against
+#     the card, shortlist 2, 2 steps; the winner's first step against
 #     one process's (phase 22's gate, SCALE_RATIO x the one-ulp nudge);
 #     a second pair of ranks resolves from the store with no trial; the
 #     card's memory around the search.
@@ -9353,7 +9403,7 @@ def p25_search_rank(store, seed, second):
     from mxnet_tpu_torch.dist import shardsearch as ss
     os.environ["MXNET_AUTOTUNE_DIR"] = store
     os.environ["MXNET_DIST_SHARDSEARCH_SHORTLIST"] = "2"
-    os.environ["MXNET_DIST_SHARDSEARCH_STEPS"] = "3"
+    os.environ["MXNET_DIST_SHARDSEARCH_STEPS"] = "2"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
@@ -10990,6 +11040,606 @@ def p27_phase(torch, mt, ck, smi, root, native_build_thread):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 28: float16 and bfloat16 in paged_attention, flash_attention and
+# correlation
+#
+# (a) each kernel's float16 and bfloat16 instances at the main paths'
+#     shapes and at ragged ones (T no multiple of the tile, an odd head dim
+#     or width, operands only 2-byte aligned, an empty slot), each held
+#     bitwise to the float32 instance on the same values upcast, then
+#     rounded to the dtype (the kernels convert on load and keep the
+#     float32 arithmetic), and to its plain version within one unit in the
+#     last place (ck.HALF_ULP, phase 3's 16-bit rule); a call with mixed
+#     float dtypes bitwise the float32 instance's output cast to q's dtype;
+# (b) FlowNetC's correlation stage (phase 11's geometry, weights and
+#     frames) through Predictor bound in float16 (type_dict) and through
+#     simple_bind in bfloat16 (the port's Predictor types its inputs with
+#     numpy, which has no bfloat16 without ml_dtypes): the correlation
+#     kernel once a forward in the stage's dtype, the Correlation node's
+#     inputs captured (a monitor callback) and the kernel held on them as
+#     in (a), the stage within FLOWNETC_HALF_RTOL of phase 11's float32
+#     stage;
+# (c) search_flash at the search shape in float16 and in bfloat16: each
+#     winner stored under its dtype's class, a second search a store hit
+#     with 0 launches, flash_attention on tensors of the dtype resolving
+#     the winner under MXNET_KERNEL_SEARCH=1;
+# (d) search_paged in bfloat16 at phase 24's shapes (GPT-2 small's
+#     heads), then paged_attention over bfloat16 and float16 views of a
+#     KVBlockPool (add_view(dtype=)) with every slot at the page table's
+#     capacity, causal and not, the bfloat16 calls resolving the winner;
+# (e) each half instance timed beside the float32 instance, its plain
+#     version and one library call in its dtype (gather + SDPA for paged,
+#     SDPA for flash, none for correlation), its bound at 2 bytes an
+#     element.
+
+HALF_NAMES = ("float16", "bfloat16")
+# FlowNetC's stage in a 16-bit dtype against the float32 stage, relative
+# L2: float16 keeps 11 significant bits (unit roundoff 2^-11), so the
+# rounded images, weights and activations of five convolutions and the
+# correlation leave the stage near 1e-3 apart: 5e-3 holds a right path,
+# while a wrong dtype path, channel order or displacement moves it by
+# O(1).  bfloat16 keeps 8 bits (2^-8, 8x float16's): 8 x 5e-3.
+FLOWNETC_HALF_RTOL = {"float16": 5e-3, "bfloat16": 4e-2}
+
+
+def odd_offset(torch, x):
+    """x's values in a contiguous tensor that starts one element past an
+    aligned one: 16-bit operands only 2-byte aligned."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def half_args(torch, args, dtype, odd=False):
+    """args with every float tensor cast to ``dtype`` (at an odd element
+    offset with ``odd``); other arguments as they are."""
+    out = []
+    for a in args:
+        if torch.is_tensor(a) and a.is_floating_point():
+            a = a.to(dtype)
+            if odd:
+                a = odd_offset(torch, a)
+        out.append(a)
+    return out
+
+
+def upcast(torch, args):
+    return [a.float() if torch.is_tensor(a) and a.is_floating_point() else a
+            for a in args]
+
+
+def hold_half(torch, ck, label, kernel, plain, args, dtype, zero_rows=None):
+    """kernel(*args) in a 16-bit dtype: bitwise the float32 instance on
+    the upcast arguments, rounded to ``dtype``; within HALF_ULP[dtype] *
+    max(1, max|plain|) of plain(*args); finite; ``zero_rows`` (a mask of
+    output rows) all zero.  -> max abs error against the plain version."""
+    half = kernel(*args)
+    want = kernel(*upcast(torch, args)).to(dtype)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    same = half.dtype == dtype and torch.equal(half, want)
+    err = (half.float() - ref.float()).abs().max().item()
+    tol = ck.HALF_ULP[dtype] * max(1.0, ref.float().abs().max().item())
+    finite = bool(torch.isfinite(half).all())
+    zeros = zero_rows is None or bool((half[zero_rows] == 0).all())
+    print("kernel check half %-30s %-14s %s bitwise the float32 instance="
+          "%s max_abs_err=%.3g tol=%.3g finite=%s empty-zero=%s"
+          % (label, dtype, tuple(half.shape), same, err, tol, finite, zeros))
+    if not (same and err <= tol and finite and zeros):
+        fail("half %s %s: bitwise %s, max_abs_err %.3g (tol %.3g), finite "
+             "%s, empty rows zero %s" % (label, dtype, same, err, tol,
+                                         finite, zeros))
+    return err
+
+
+def hold_mixed(torch, label, kernel, args):
+    """A call with mixed float dtypes: bitwise the float32 instance on the
+    upcast arguments, cast to the first operand's dtype."""
+    got = kernel(*args)
+    want = kernel(*upcast(torch, args)).to(args[0].dtype)
+    torch.cuda.synchronize()
+    same = got.dtype == args[0].dtype and torch.equal(got, want)
+    print("kernel check mixed %-29s %s -> %s bitwise the float32 instance "
+          "cast=%s" % (label, [str(a.dtype) for a in args[:3]
+                               if torch.is_tensor(a)
+                               and a.is_floating_point()], got.dtype, same))
+    if not same:
+        fail("mixed %s: not the float32 instance's output cast" % label)
+
+
+def p28_kernel_checks(torch, ck):
+    """(a): -> {kernel: {dtype name: max abs error at the main shapes}}."""
+    dev = torch.device("cuda", 0)
+    part = ck.PAGED_PARTITION_KEYS
+    edges = np.array([part, part - 1, part + 1, 0, 1024, part + 4,
+                      2 * part + 10, 3 * part + 16], np.int32)
+    paged_cases = [("main-C%d" % c, dict(seed=c, lengths=PAGED_SPREAD, c=c,
+                                         blocks=1100), True, False, True)
+                   for c in (1, 9, 32)]
+    paged_cases += [
+        ("part-edges-C9-full", dict(seed=49, lengths=edges, c=9), False,
+         False, False),
+        ("C1-D128", dict(seed=17, lengths=edges, c=1, h=4, d=128), True,
+         False, False),
+        ("odd-D9", dict(seed=16, lengths=[5, 77, 0, 33], c=4, h=3, d=9,
+                        bt=16, b=8), True, False, False),
+        ("2-byte-aligned-C1", dict(seed=19, lengths=edges, c=1), True, True,
+         False),
+        ("2-byte-aligned-C32", dict(seed=12, lengths=edges, c=32), True,
+         True, False)]
+    flash_cases = [("main-causal", FLASH_SHAPE, True, False, True),
+                   ("main-full", FLASH_SHAPE, False, False, True),
+                   ("ragged-T77", (2, 77, 3, 64), True, False, False),
+                   ("ragged-T77-full", (2, 77, 3, 64), False, False, False),
+                   ("odd-D9", (2, 100, 3, 9), True, False, False),
+                   ("D128", (1, 300, 2, 128), True, False, False),
+                   ("2-byte-aligned", (2, 129, 3, 64), True, True, False)]
+    corr_cases = [("flownetc", FLOWNETC, True, False, True),
+                  ("flownetc-abs", FLOWNETC, False, False, False),
+                  ("pwcnet", PWCNET, True, False, True),
+                  ("ragged-w45", dict(n=3, c=5, h=7, w=45, m=3, s2=2), True,
+                   False, False),
+                  ("s2-w44", dict(n=2, c=19, h=13, w=44, m=5, s2=2), True,
+                   False, False),
+                  ("2-byte-aligned-s2-w44", dict(n=2, c=19, h=13, w=44, m=5,
+                                                 s2=2), False, True, False),
+                  ("odd-c7-s1", dict(n=1, c=7, h=20, w=40, m=10, s2=1), True,
+                   True, False)]
+    main = {k: {n: 0.0 for n in HALF_NAMES}
+            for k in ("paged_attention", "flash_attention", "correlation")}
+    for name in HALF_NAMES:
+        dt = getattr(torch, name)
+        for label, kw, causal, odd, is_main in paged_cases:
+            case = paged_case(torch, dev, **kw)
+            args = half_args(torch, paged_args(case), dt, odd)
+            empty = torch.from_numpy(case["np_lengths"] == 0).to(dev)
+            err = hold_half(
+                torch, ck, "paged %s causal=%d" % (label, causal),
+                lambda *a: ck.paged_attention(*a, causal=causal),
+                lambda *a: ck.paged_attention_reference(*a, causal=causal),
+                args, dt, zero_rows=empty)
+            if is_main:
+                main["paged_attention"][name] = max(
+                    main["paged_attention"][name], err)
+        for seed, (label, shape, causal, odd, is_main) in enumerate(
+                flash_cases):
+            args = half_args(torch, flash_inputs(torch, dev, 500 + seed,
+                                                 *shape), dt, odd)
+            err = hold_half(
+                torch, ck, "flash %s %s causal=%d" % (label, shape, causal),
+                lambda *a: ck.flash_attention(*a, causal=causal),
+                lambda *a: ck.flash_attention_reference(*a, causal=causal),
+                args, dt)
+            if is_main:
+                main["flash_attention"][name] = max(
+                    main["flash_attention"][name], err)
+        for seed, (label, g, mult, odd, is_main) in enumerate(corr_cases):
+            args = half_args(torch, corr_inputs(
+                torch, dev, 600 + seed, g["n"], g["c"], g["h"], g["w"]), dt,
+                odd)
+            err = hold_half(
+                torch, ck, "corr %s m=%d s2=%d multiply=%d" % (
+                    label, g["m"], g["s2"], mult),
+                lambda *a: ck.correlation(*a, g["m"], g["s2"], mult),
+                lambda *a: ck.correlation_reference(*a, g["m"], g["s2"],
+                                                    mult),
+                args, dt)
+            if is_main:
+                main["correlation"][name] = max(main["correlation"][name],
+                                                err)
+    # mixed float dtypes: the float32 instance on the upcast operands
+    h16, b16 = torch.float16, torch.bfloat16
+    q, k, v = flash_inputs(torch, dev, 520, 2, 77, 3, 64)
+    hold_mixed(torch, "flash T77 causal",
+               lambda *a: ck.flash_attention(*a, causal=True),
+               [q.to(h16), k.to(b16), v])
+    # paged: q of another dtype than its 16-bit pools runs the instance
+    # that reads a float32 q over them; pools of two dtypes run float32's
+    for c in (1, 9):
+        case = paged_case(torch, dev, 46 + c, edges, c)
+        pq, pk, pv, pages, lengths, q_pos = paged_args(case)
+        for qt, kt, vt in ((b16, h16, h16), (torch.float32, b16, b16),
+                           (torch.float32, h16, h16), (h16, b16, b16),
+                           (torch.float32, b16, h16)):
+            hold_mixed(torch, "paged part-edges C%d" % c,
+                       lambda *a: ck.paged_attention(*a),
+                       [pq.to(qt), pk.to(kt), pv.to(vt), pages, lengths,
+                        q_pos])
+    a, b = corr_inputs(torch, dev, 620, 2, 19, 13, 44)
+    hold_mixed(torch, "corr m5 s2", lambda *x: ck.correlation(*x, 5, 2),
+               [a.to(h16), b])
+    return main
+
+
+def p28_flownetc(torch, mt, ck, smi, f32_out, n=8, forwards=2, seed=0):
+    """(b): -> {dtype name: {launches, rel_l2, wall_ms, err}}."""
+    sym, shapes, params, frames = flownetc_inputs(mt, n, 4, seed)
+    frames = frames[:forwards]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "flownetc")
+        mt.model.save_checkpoint(
+            prefix, 0, sym,
+            {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in params.items()}, {})
+        for name in HALF_NAMES:
+            dt = getattr(torch, name)
+            captured = {}
+
+            def monitor(node, arr):
+                if node in ("relu3a_output", "relu3b_output"):
+                    captured[node] = arr._get()
+            if name == "float16":
+                pred = mt.Predictor(
+                    prefix + "-symbol.json", prefix + "-0000.params",
+                    input_shapes=shapes,
+                    type_dict={a: np.float16 for a in sym.list_arguments()})
+                ex, route = pred._exec, "Predictor(type_dict=float16)"
+
+                def forward(img1, img2):
+                    pred.set_input("img1", img1)
+                    pred.set_input("img2", img2)
+                    pred.forward()
+                    return pred.get_output(0).astype(np.float32)
+            else:
+                _sym, args, aux = mt.model.load_checkpoint(prefix, 0,
+                                                           ctx=mt.cpu())
+                ex = sym.simple_bind(
+                    mt.gpu(0), grad_req="null",
+                    type_dict={a: name for a in sym.list_arguments()},
+                    **shapes)
+                ex.copy_params_from(args, aux, allow_extra_params=True)
+                route = "simple_bind(type_dict=bfloat16)"
+
+                def forward(img1, img2):
+                    ex.arg_dict["img1"][:] = img1
+                    ex.arg_dict["img2"][:] = img2
+                    o = ex.forward(is_train=False)[0]._get()
+                    return o.float().cpu().numpy()
+            ex.set_monitor_callback(monitor)
+            forward(*frames[0])               # cuDNN picks its algorithms
+            torch.cuda.synchronize()
+            ck.reset_launches()
+            t0 = time.perf_counter()
+            outs = [forward(*f) for f in frames]
+            wall = (time.perf_counter() - t0) * 1e3 / len(frames)
+            launches = dict(ck.LAUNCHES)
+            a, b = captured["relu3a_output"], captured["relu3b_output"]
+            if launches["correlation"] != len(frames) or any(
+                    v for k, v in launches.items() if k != "correlation") \
+                    or a.dtype != dt or b.dtype != dt:
+                fail("flownetc %s: correlation launched %d times for %d "
+                     "forwards (launches %s), its inputs %s %s"
+                     % (name, launches["correlation"], len(frames),
+                        launches, a.dtype, b.dtype))
+            rel = rel_l2_diff(outs[0], f32_out)
+            finite = all(np.all(np.isfinite(o)) for o in outs)
+            print("flownetc %s: %d forwards through %s on gpu(0), %.3f ms "
+                  "each; correlation launches %d in %s; output %s finite=%s; "
+                  "relative L2 to phase 11's float32 stage %.3g (tol %g)"
+                  % (name, len(frames), route, wall,
+                     launches["correlation"], a.dtype, outs[0].shape,
+                     finite, rel, FLOWNETC_HALF_RTOL[name]))
+            if not (finite and rel <= FLOWNETC_HALF_RTOL[name]) or \
+                    outs[0].shape != f32_out.shape:
+                fail("flownetc %s: relative L2 %.3g > %g, or not finite"
+                     % (name, rel, FLOWNETC_HALF_RTOL[name]))
+            err = hold_half(
+                torch, ck, "corr flownetc captured inputs",
+                lambda *x: ck.correlation(*x, FLOWNETC["m"], FLOWNETC["s2"]),
+                lambda *x: ck.correlation_reference(*x, FLOWNETC["m"],
+                                                    FLOWNETC["s2"]),
+                [a.contiguous(), b.contiguous()], dt)
+            out[name] = {"launches": launches["correlation"], "rel_l2": rel,
+                         "wall_ms": wall, "err": err, "route": route}
+            del ex
+    return out
+
+
+def p28_flash_search(torch, mt, ck, name, trials=2):
+    """(c) for one dtype: -> {winner, launches, wall_s}."""
+    ks = mt.autotune.kernelsearch
+    dev = torch.device("cuda", 0)
+    dt = getattr(torch, name)
+    b, t, h, d = FLASH_SHAPE
+    os.environ.pop("MXNET_KERNEL_SEARCH", None)
+    fails0 = ks.parity_fail_total()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    win = ks.search_flash(b, t, h, d, causal=True, dtype=dt, trials=trials)
+    wall = time.perf_counter() - t0
+    first = mt.autotune.recent_stats()[-1].report()
+    after1 = ck.LAUNCHES["flash_attention"]
+    win2 = ks.search_flash(b, t, h, d, causal=True, dtype=name,
+                           trials=trials)
+    second = mt.autotune.recent_stats()[-1].report()
+    after2 = ck.LAUNCHES["flash_attention"]
+    cls = ks.flash_class(t, d, True, dt)
+    stored = ks.best_config(cls, device=dev)
+    os.environ["MXNET_KERNEL_SEARCH"] = "1"
+    q, k, v = half_args(torch, flash_inputs(torch, dev, 42, *FLASH_SHAPE),
+                        dt)
+    tiles = ck.flash_tiles(t, d, True, q.dtype, dev)
+    via = ck.flash_attention(q, k, v, causal=True)
+    explicit = ck.flash_attention(q, k, v, causal=True,
+                                  block_q=win["block_q"],
+                                  block_k=win["block_k"])
+    torch.cuda.synchronize()
+    launches = ck.LAUNCHES["flash_attention"]
+    os.environ.pop("MXNET_KERNEL_SEARCH", None)
+    print("search (c) search_flash(%d, %d, %d, %d, causal=True, dtype=%s) "
+          "in %.3f s: winner %s, calls %s, %d launches; stored under %s; "
+          "second search %s, calls %s, %d launches; call-time tiles %s, "
+          "bitwise the explicit-tile call=%s"
+          % (b, t, h, d, name, wall, win, first["calls"], after1, cls,
+             second["source"], second["calls"], after2 - after1, tiles,
+             torch.equal(via, explicit)))
+    if ks.parity_fail_total() != fails0 or first["source"] != "measured" \
+            or cls[1] != name or stored != win:
+        fail("search_flash %s: a gate failed, nothing measured, or the "
+             "winner %s not stored under %s (%s)" % (name, win, cls,
+                                                    stored))
+    if win2 != win or second["source"] != "cache" \
+            or any(second["calls"].values()) or after2 != after1:
+        fail("search_flash %s: the second search was no store hit with 0 "
+             "launches: %s" % (name, second))
+    if tiles != (win["block_q"], win["block_k"]) or via.dtype != dt \
+            or not torch.equal(via, explicit):
+        fail("flash %s: call time resolved %s, the winner is %s"
+             % (name, tiles, win))
+    hold_half(torch, ck, "flash at the winner %dx%d" % tiles,
+              lambda *a: ck.flash_attention(*a, causal=True),
+              lambda *a: ck.flash_attention_reference(*a, causal=True),
+              [q, k, v], dt)
+    return {"winner": win, "launches": launches, "wall_s": wall}
+
+
+def p28_paged(torch, mt, ck, smi):
+    """(d): -> {winner, launches by dtype name, wall_s}."""
+    ks = mt.autotune.kernelsearch
+    dev = torch.device("cuda", 0)
+    p = P24_PAGED
+    bf16 = torch.bfloat16
+    os.environ.pop("MXNET_KERNEL_SEARCH", None)
+    fails0 = ks.parity_fail_total()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    win = ks.search_paged(p["s"], p["c"], p["h"], p["d"],
+                          n_blocks=p["n_blocks"], bt=p["bt"], causal=True,
+                          dtype=bf16, shortlist=len(ck.PAGED_PART_KEYS))
+    wall = time.perf_counter() - t0
+    first = mt.autotune.recent_stats()[-1].report()
+    win2 = ks.search_paged(p["s"], p["c"], p["h"], p["d"],
+                           n_blocks=p["n_blocks"], bt=p["bt"], causal=True,
+                           dtype="bfloat16")
+    second = mt.autotune.recent_stats()[-1].report()
+    searched = ck.LAUNCHES["paged_attention"]
+    cap = (p["n_blocks"] - 1) // p["s"] * p["bt"]
+    cls = ks.paged_cap_class(p["bt"], p["d"], True, bf16, cap)
+    os.environ["MXNET_KERNEL_SEARCH"] = "1"
+    pk = ck.paged_part_keys(p["bt"], p["d"], True, bf16, cap, dev)
+    print("search (d) search_paged(S %d, C %d, H %d, D %d, bt %d, causal, "
+          "dtype=bfloat16) in %.3f s: winner %s, calls %s, %d launches; "
+          "class %s; second search %s, calls %s; call-time part_keys %d"
+          % (p["s"], p["c"], p["h"], p["d"], p["bt"], wall, win,
+             first["calls"], searched, cls, second["source"],
+             second["calls"], pk))
+    if ks.parity_fail_total() != fails0 or first["source"] != "measured" \
+            or cls[1] != "bfloat16" or pk != win["part_keys"] \
+            or win2 != win or second["source"] != "cache" \
+            or any(second["calls"].values()):
+        fail("search_paged bfloat16: a gate failed, the second search was "
+             "no store hit, or call time resolved %d for the winner %s"
+             % (pk, win))
+    # pool views at the searched capacity: 16 slots x 64 blocks of 16
+    launches = {"bfloat16": searched}
+    slots, per_slot = p["s"], cap // p["bt"]
+    for name in ("bfloat16", "float16"):
+        dt = getattr(torch, name)
+        pool = mt.serve.KVBlockPool(slots, per_slot, block_tokens=p["bt"],
+                                    device=dev)
+        pool.add_view("lm", 1, p["h"], p["d"], dtype=dt)
+        for s in range(slots):
+            if not pool.reserve(s, per_slot):
+                fail("pool: slot %d could not reserve %d blocks"
+                     % (s, per_slot))
+            pool.ensure(s, per_slot * p["bt"])
+        kv_k, kv_v = pool.view("lm")
+        gen = torch.Generator(device=dev).manual_seed(28)
+        kv_k.copy_(torch.randn(kv_k.shape, generator=gen, device=dev))
+        kv_v.copy_(torch.randn(kv_v.shape, generator=gen, device=dev))
+        kv_k[:, pool.sentinel] = 1e4        # masked: past every length
+        kv_v[:, pool.sentinel] = 1e4
+        pages = torch.from_numpy(pool.page_table().copy()).to(dev)
+        lens = np.full(slots, per_slot * p["bt"], np.int32)
+        lengths = torch.from_numpy(lens).to(dev)
+        calls = []
+        for c in (1, 9):
+            q = torch.randn((slots, c, p["h"], p["d"]), generator=gen,
+                            device=dev).to(dt)
+            q_pos = torch.from_numpy(engine_positions(lens, c)).to(dev)
+            for causal in (True, False):
+                calls.append((c, causal, [q, kv_k[0], kv_v[0], pages,
+                                          lengths, q_pos]))
+        ck.reset_launches()
+        for c, causal, args in calls:       # the path, counted
+            ck.paged_attention(*args, causal=causal)
+        torch.cuda.synchronize()
+        path = ck.LAUNCHES["paged_attention"]
+        launches[name] = launches.get(name, 0) + path
+        for c, causal, args in calls:       # the checks
+            hold_half(torch, ck, "paged pool view C=%d causal=%d" % (
+                c, causal), lambda *a: ck.paged_attention(*a, causal=causal),
+                lambda *a: ck.paged_attention_reference(*a, causal=causal),
+                args, dt)
+        # a float32 q over the view: the pools are read as they are, so
+        # the call allocates its output and split-K scratch, not a copy
+        args = [calls[0][2][0].float()] + calls[0][2][1:]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        ck.paged_attention(*args)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated(dev) - base
+        hold_mixed(torch, "paged pool view float32 q C=1",
+                   lambda *a: ck.paged_attention(*a), args)
+        print("pool (d) KVBlockPool.add_view(dtype=%s): %d slots at %d keys "
+              "(the page table's capacity), %d bytes on %s; %d "
+              "paged_attention launches; a float32 q over it allocated %d "
+              "bytes (one pool %d)" % (
+                  name, slots, per_slot * p["bt"], pool.device_bytes(), smi,
+                  path, extra, kv_k[0].nbytes))
+        if extra >= kv_k[0].nbytes // 4:
+            fail("pool %s: a float32 q allocated %d bytes, a copy of the "
+                 "pools' %d" % (name, extra, kv_k[0].nbytes))
+        del pool, kv_k, kv_v, calls
+    os.environ.pop("MXNET_KERNEL_SEARCH", None)
+    return {"winner": win, "launches": launches, "wall_s": wall}
+
+
+def p28_times(torch, ck, flash_wins):
+    """(e): -> {kernel: {dtype name: row}}, each row with the half
+    instance's, the float32 instance's, the upcast path's (the operands
+    upcast to float32, the float32 instance, the output cast back), the
+    plain version's and the library call's times and the bound."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda", 0)
+    flush = torch.zeros(256 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    rows = {k: {} for k in ("paged_attention", "flash_attention",
+                            "correlation")}
+    cases = {c: paged_time_case(torch, dev, c) for c in (1, 32)}
+    for name in HALF_NAMES:
+        dt = getattr(torch, name)
+        row = dict(ms=0.0, f32_ms=0.0, upcast_ms=0.0, plain_ms=0.0,
+                   library_ms=0.0, bound_ms=0.0, by_bytes=0.0)
+        for c, case in cases.items():
+            half = dict(case)
+            half.update(q=case["q"].to(dt), k_pool=case["k_pool"].to(dt),
+                        v_pool=case["v_pool"].to(dt))
+            bound, by = paged_bound_ms(half)
+            row["ms"] += time_ms(torch, lambda: ck.paged_attention(
+                *paged_args(half)), flush)
+            row["f32_ms"] += time_ms(torch, lambda: ck.paged_attention(
+                *paged_args(case)), flush)
+            row["upcast_ms"] += time_ms(torch, lambda: ck.paged_attention(
+                *upcast(torch, paged_args(half))).to(dt), flush)
+            row["plain_ms"] += time_ms(
+                torch, lambda: ck.paged_attention_reference(
+                    *paged_args(half)), flush)
+            row["library_ms"] += time_ms(torch, sdpa_library(torch, half),
+                                         flush)
+            row["bound_ms"] += bound
+            row["by_bytes"] += bound if by == "bytes" else 0.0
+        row["bound_by"] = "bytes" if 2 * row.pop("by_bytes") >= \
+            row["bound_ms"] else "operations"
+        row["shape"] = "C=1 + C=32, S=16 H=12 D=64 bt=16 ctx=1..1024"
+        rows["paged_attention"][name] = row
+
+        b, t, h, d = FLASH_SHAPE
+        bq, bk = flash_wins[name]["block_q"], flash_wins[name]["block_k"]
+        q, k, v = flash_inputs(torch, dev, 42, *FLASH_SHAPE)
+        qh, kh, vh = q.to(dt), k.to(dt), v.to(dt)
+        bound, by = flash_bound_ms(b, t, h, d, True, esize=2)
+        rows["flash_attention"][name] = {
+            "shape": "B=%d T=%d H=%d D=%d causal tile=%dx%d" % (b, t, h, d,
+                                                                bq, bk),
+            "ms": time_ms(torch, lambda: ck.flash_attention(
+                qh, kh, vh, causal=True, block_q=bq, block_k=bk), flush),
+            "f32_ms": time_ms(torch, lambda: ck.flash_attention(
+                q, k, v, causal=True, block_q=bq, block_k=bk), flush),
+            "upcast_ms": time_ms(torch, lambda: ck.flash_attention(
+                qh.float(), kh.float(), vh.float(), causal=True, block_q=bq,
+                block_k=bk).to(dt), flush),
+            "plain_ms": time_ms(torch, lambda: ck.flash_attention_reference(
+                qh, kh, vh, causal=True), flush),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2),
+                is_causal=True), flush),
+            "bound_ms": bound, "bound_by": by, "bound_peak": HALF_FLASH_PEAK}
+
+        g = FLOWNETC
+        a, bb = corr_inputs(torch, dev, 300, g["n"], g["c"], g["h"], g["w"])
+        ah, bh = a.to(dt), bb.to(dt)
+        bound, by = corr_bound_ms(g["n"], g["c"], g["h"], g["w"], g["m"],
+                                  g["s2"], esize=2)
+        rows["correlation"][name] = {
+            "shape": "flownetc N=%d C=%d %dx%d m=%d s2=%d multiply=1" % (
+                g["n"], g["c"], g["h"], g["w"], g["m"], g["s2"]),
+            "ms": time_ms(torch, lambda: ck.correlation(
+                ah, bh, g["m"], g["s2"]), flush),
+            "f32_ms": time_ms(torch, lambda: ck.correlation(
+                a, bb, g["m"], g["s2"]), flush),
+            "upcast_ms": time_ms(torch, lambda: ck.correlation(
+                ah.float(), bh.float(), g["m"], g["s2"]).to(dt), flush),
+            "plain_ms": time_ms(torch, lambda: ck.correlation_reference(
+                ah, bh, g["m"], g["s2"]), flush, iters=5),
+            "library_ms": None, "bound_ms": bound, "bound_by": by}
+    del flush
+    for kernel, by_dt in rows.items():
+        for name, row in by_dt.items():
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            print("kernel time %s %s %s" % (kernel, name, json.dumps(row)))
+    return rows
+
+
+def p28_phase(torch, mt, ck, smi, f32_flow):
+    print("phase 28: float16 and bfloat16 in paged_attention, "
+          "flash_attention and correlation; card %s" % smi)
+    t0 = time.perf_counter()
+    out = {"main_err": p28_kernel_checks(torch, ck)}
+    out["flownetc"] = p28_flownetc(torch, mt, ck, smi, f32_flow)
+    saved = {k: os.environ.get(k) for k in ("MXNET_AUTOTUNE_DIR",
+                                            "MXNET_KERNEL_SEARCH")}
+    with tempfile.TemporaryDirectory() as store:
+        os.environ["MXNET_AUTOTUNE_DIR"] = store
+        try:
+            out["flash"] = {name: p28_flash_search(torch, mt, ck, name)
+                            for name in HALF_NAMES}
+            out["paged"] = p28_paged(torch, mt, ck, smi)
+        finally:
+            for key, val in saved.items():
+                if val is None:
+                    os.environ.pop(key, None)
+                else:
+                    os.environ[key] = val
+    out["times"] = p28_times(torch, ck, {n: out["flash"][n]["winner"]
+                                         for n in HALF_NAMES})
+    out["wall_s"] = time.perf_counter() - t0
+    print("phase 28: %.1f s" % out["wall_s"])
+    return out
+
+
+def half_kernel_entries(ck, p28):
+    """The kernels line's entries of the 16-bit instances: launches on
+    phase 28's paths ((b) FlowNetC, (c) the flash searches and their
+    call-time use, (d) the bfloat16 paged search and the pool views)."""
+    launches = {
+        "paged_attention": p28["paged"]["launches"],
+        "flash_attention": {n: p28["flash"][n]["launches"]
+                            for n in HALF_NAMES},
+        "correlation": {n: p28["flownetc"][n]["launches"]
+                        for n in HALF_NAMES}}
+    entries = []
+    for kernel in ("paged_attention", "flash_attention", "correlation"):
+        for name in HALF_NAMES:
+            row = p28["times"][kernel][name]
+            entry = {
+                "name": "%s[%s]" % (kernel, name), "route": "cuda",
+                "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES[kernel],
+                "replaces": REPLACES[kernel],
+                "launches": launches[kernel][name],
+                "max_abs_err": p28["main_err"][kernel][name],
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"], "f32_ms": row["f32_ms"],
+                "upcast_ms": row["upcast_ms"]}
+            if "bound_peak" in row:
+                entry["bound_peak"] = row["bound_peak"]
+            entries.append(entry)
+    return entries
+
+
 class NativeBuild(threading.Thread):
     """The native objects' g++ builds, run beside the kernels' nvcc
     builds; an error is kept for phase 27 to raise."""
@@ -11315,6 +11965,20 @@ def main():
         "mlp-first-update-max-diff": p27["d"]["first_update_err"],
         "rtc-abi-err": p27["e"]["err"],
         "wall_s": round(p27["wall_s"], 1)})))
+    # phase 28: float16 and bfloat16 in paged_attention, flash_attention
+    # and correlation: the kernels, FlowNetC, the searches, a pool's views
+    p28 = p28_phase(torch, mt, ck, smi, flow["out0"])
+    mark('28')
+    print("half precision result (card %s): %s" % (smi, json.dumps({
+        "flownetc-rel_l2": {n: p28["flownetc"][n]["rel_l2"]
+                            for n in HALF_NAMES},
+        "flownetc-forward_ms": {n: round(p28["flownetc"][n]["wall_ms"], 3)
+                                for n in HALF_NAMES},
+        "flash-winners": {n: p28["flash"][n]["winner"] for n in HALF_NAMES},
+        "paged-bfloat16-winner": p28["paged"]["winner"],
+        "ms": {k: {n: round(r["ms"], 4) for n, r in v.items()}
+               for k, v in p28["times"].items()},
+        "wall_s": round(p28["wall_s"], 1)})))
     kernels = [{
         "name": "fused_fc_epilogue", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES["fused_fc_epilogue"],
@@ -11362,11 +12026,14 @@ def main():
         "ms": corr["ms"], "plain_ms": corr["plain_ms"],
         "bound_ms": corr["bound_ms"], "bound_by": corr["bound_by"],
         "library_ms": None,
-    }]
+    }] + half_kernel_entries(ck, p28)
     missing = [k for k in ck.SOURCES
                if k not in [e["name"] for e in kernels]]
     if missing:
         fail("kernels not held against their plain versions: %s" % missing)
+    idle = [e["name"] for e in kernels if e["launches"] < 1]
+    if idle:
+        fail("kernels not launched on their paths: %s" % idle)
     print("kernel times: fused_fc_epilogue is one bucket-8 batch's fc6 + "
           "fc7 launches (float32 out), its launches those of the float32 "
           "VGG-16 run (2 a batch) plus the int8-skip-fc6 run (fc6 with the "
@@ -11399,7 +12066,16 @@ def main():
           "FlowNetC's stage (N=8 C=256 48x64, 441 displacements, "
           "multiply), its launches those of the FlowNetC forwards; no "
           "single PyTorch call computes the correlation, so its "
-          "library_ms is null")
+          "library_ms is null; the [float16] and [bfloat16] entries are "
+          "those instances at the same shapes (paged and flash with the "
+          "dtype's library call, flash with its dtype's searched tile; "
+          "f32_ms the float32 instance in the same phase, upcast_ms the "
+          "operands upcast, the float32 instance and the output cast "
+          "back; bounds at 2 "
+          "bytes an element), their launches those of phase 28's paths: "
+          "paged the bfloat16 search and the pool views, flash each "
+          "dtype's search, store hit and call-time use, correlation "
+          "FlowNetC's forwards in each dtype")
     print("phase walls (s): %s" % json.dumps(walls))
     print("chip_smoke: the whole script took %.1f s" % (
         time.perf_counter() - t_script))

@@ -10,8 +10,11 @@ shape class:
   compiled size that covers T, duplicates dropped (a tile wider than the
   sequence holds the same single tile of work);
 * **gate**: each candidate's kernel output on a seeded probe must lie
-  within atol 2e-5 of ``flash_attention_reference`` before it may be
-  ranked; a failure is logged (``"parity": False``), counted in
+  within atol 2e-5 of ``flash_attention_reference`` (float32; in float16
+  and bfloat16 within one unit in the last place,
+  ``cuda_kernels.HALF_ULP[dtype] * max(1, max|reference|)``, since both
+  round float32 results that differ by a few float32 ulps) before it may
+  be ranked; a failure is logged (``"parity": False``), counted in
   :func:`parity_fail_total` and can never win.  The JAX gate also asks for
   bitwise equality with a jnp replay of the kernel's blockwise op
   sequence; that part has no counterpart here, because a PyTorch replay
@@ -37,14 +40,18 @@ The same machinery searches the two other tunable kernels:
   dense gather; a "dense" winner would run the plain version on the card,
   which the port never does, so the port searches the kernel's own free
   parameter instead.  Its gate is atol 3e-5 against
-  ``paged_attention_reference``, the reference search's tolerance.  A
+  ``paged_attention_reference``, the reference search's tolerance (one
+  unit in the last place in float16 and bfloat16, as flash's).  A
   winner is stored for :func:`paged_cap_class`: the shape class and the
   page table's capacity, which the partition count follows.
 
 ``ops.cuda_kernels`` loads every winner at call time under
 ``MXNET_KERNEL_SEARCH=1``; a stored winner that names an instance that is
 not compiled counts as no winner.  The shape-class tuples equal the JAX
-package's.
+package's.  A search's ``dtype`` is a torch dtype, a numpy dtype or a
+dtype's name (``"float16"``, ``"bfloat16"``); probes are drawn in float32
+and cast with torch, so a bfloat16 search needs no numpy bfloat16
+(``ml_dtypes``).
 """
 from __future__ import annotations
 
@@ -103,11 +110,39 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _dtype_name(dtype) -> str:
-    """numpy's name for a numpy or torch dtype (``torch.float32`` ->
-    ``"float32"``), as the JAX package's classes spell it."""
+    """numpy's name for a torch or numpy dtype or a dtype's name
+    (``torch.float32`` -> ``"float32"``), as the JAX package's classes
+    spell it.  ``"bfloat16"`` and ``torch.bfloat16`` need no numpy
+    bfloat16."""
     if isinstance(dtype, torch.dtype):
         return str(dtype).split(".")[-1]
+    if isinstance(dtype, str) and dtype == "bfloat16":
+        return dtype
     return str(np.dtype(dtype))
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return getattr(torch, _dtype_name(dtype))
+
+
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=_torch_dtype(dtype)).element_size()
+
+
+def _probe(rng, shape, dtype, device) -> torch.Tensor:
+    """Standard normal values drawn in float32, cast to ``dtype``."""
+    return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+        device=device, dtype=_torch_dtype(dtype))
+
+
+def _gate_tol(atol: float, ref: torch.Tensor) -> float:
+    """A gate's tolerance: ``atol`` for float32 outputs, one unit in the
+    last place (``cuda_kernels.HALF_ULP``) for 16-bit ones."""
+    from ..ops import cuda_kernels as ck
+    if ref.dtype not in ck.HALF_ULP:
+        return atol
+    peak = ref.float().abs().max().item() if ref.numel() else 0.0
+    return ck.HALF_ULP[ref.dtype] * max(1.0, peak)
 
 
 # -- shape classes (what a winner generalizes over) --------------------------
@@ -231,7 +266,7 @@ def search_flash(b: int, t: int, h: int, d: int, causal: bool = False,
     device = (ctx if ctx is not None else gpu(0)).torch_device()
     cls = flash_class(t, d, causal, dtype)
     cands = flash_candidates(t)
-    itemsize = int(np.dtype(_dtype_name(dtype)).itemsize)
+    itemsize = _itemsize(dtype)
     key = _class_key(cls, device)
     tuner = JointTuner("kernelsearch:flash", key, persist=persist,
                        shortlist=shortlist, device=device)
@@ -242,8 +277,8 @@ def search_flash(b: int, t: int, h: int, d: int, causal: bool = False,
         # made on first use, so a store hit allocates nothing
         if not probe:
             rng = np.random.RandomState(0)
-            probe.extend(torch.from_numpy(rng.randn(b, t, h, d).astype(
-                _dtype_name(dtype))).to(device) for _ in range(3))
+            probe.extend(_probe(rng, (b, t, h, d), dtype, device)
+                         for _ in range(3))
             ref.append(ck.flash_attention_reference(*probe, causal=causal))
         return probe
 
@@ -253,7 +288,8 @@ def search_flash(b: int, t: int, h: int, d: int, causal: bool = False,
                                  block_k=cfg["block_k"])
         err = (got.float() - ref[0].float()).abs().max().item() \
             if got.numel() else 0.0
-        return got.shape == ref[0].shape and err <= FLASH_GATE_ATOL
+        return got.shape == ref[0].shape \
+            and err <= _gate_tol(FLASH_GATE_ATOL, ref[0])
 
     kv_bytes = 2 * t * d * itemsize                 # one head's K+V
 
@@ -290,7 +326,7 @@ def search_flash(b: int, t: int, h: int, d: int, causal: bool = False,
 def fc_candidates(dtype=np.float32) -> List[Config]:
     """The compiled column tiles for float32 (or ``dtype``) operands."""
     from ..ops import cuda_kernels as ck
-    td = getattr(torch, _dtype_name(dtype))
+    td = _torch_dtype(dtype)
     return [{"block_n": int(bn)} for bn in ck.fc_tiles_for(td, td)]
 
 
@@ -308,7 +344,7 @@ def search_fc(m: int, k: int, n: int, act_type: str = "relu",
     device = (ctx if ctx is not None else gpu(0)).torch_device()
     cls = fc_class(n, k, act_type, out_scale is not None, dtype)
     cands = fc_candidates(dtype)
-    itemsize = int(np.dtype(_dtype_name(dtype)).itemsize)
+    itemsize = _itemsize(dtype)
     key = _class_key(cls, device)
     tuner = JointTuner("kernelsearch:fc", key, persist=persist,
                        shortlist=shortlist, device=device)
@@ -318,11 +354,9 @@ def search_fc(m: int, k: int, n: int, act_type: str = "relu",
     def inputs():
         if not probe:
             rng = np.random.RandomState(0)
-            td = _dtype_name(dtype)
-            probe.extend([
-                torch.from_numpy(rng.randn(m, k).astype(td)).to(device),
-                torch.from_numpy(rng.randn(n, k).astype(td)).to(device),
-                torch.from_numpy(rng.randn(n).astype(np.float32)).to(device)])
+            probe.extend([_probe(rng, (m, k), dtype, device),
+                          _probe(rng, (n, k), dtype, device),
+                          _probe(rng, (n,), np.float32, device)])
             x, w, b = probe
             ref.append(ck.fused_fc_epilogue(x, w, b, act_type, out_scale,
                                             block_n=ck.FC_DEFAULT_TILE))
@@ -394,7 +428,7 @@ def search_paged(s: int, c: int, h: int, d: int, n_blocks: int = 8,
     nb = max(1, (n_blocks - 1) // max(1, s))
     cls = paged_cap_class(bt, d, causal, dtype, nb * bt)
     cands = paged_candidates()
-    itemsize = int(np.dtype(_dtype_name(dtype)).itemsize)
+    itemsize = _itemsize(dtype)
     key = _class_key(cls, device)
     tuner = JointTuner("kernelsearch:paged", key, persist=persist,
                        shortlist=shortlist, device=device)
@@ -404,19 +438,18 @@ def search_paged(s: int, c: int, h: int, d: int, n_blocks: int = 8,
     def inputs():
         if not probes:
             rng = np.random.RandomState(0)
-            td = _dtype_name(dtype)
-            k_pool = rng.randn(n_blocks, bt, h, d).astype(td)
-            v_pool = rng.randn(n_blocks, bt, h, d).astype(td)
-            q = rng.randn(s, c, h, d).astype(td)
+            k_pool = _probe(rng, (n_blocks, bt, h, d), dtype, device)
+            v_pool = _probe(rng, (n_blocks, bt, h, d), dtype, device)
+            q = _probe(rng, (s, c, h, d), dtype, device)
             pages = rng.permutation(n_blocks - 1)[:s * nb].reshape(
                 s, nb).astype(np.int32)
             spread = np.linspace(nb * bt, c, s).round().astype(np.int32)
             for lengths in (spread, spread[::-1]):
                 q_pos = lengths[:, None] - c \
                     + np.arange(c, dtype=np.int32)[None]
-                args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                        for a in (q, k_pool, v_pool, pages, lengths,
-                                  q_pos.astype(np.int32))]
+                args = [q, k_pool, v_pool] + [
+                    torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                    for a in (pages, lengths, q_pos.astype(np.int32))]
                 probes.append((args, ck.paged_attention_reference(
                     *args, causal=causal)))
         return probes
@@ -427,7 +460,8 @@ def search_paged(s: int, c: int, h: int, d: int, n_blocks: int = 8,
                                      part_keys=cfg["part_keys"])
             err = (got.float() - want.float()).abs().max().item() \
                 if got.numel() else 0.0
-            if got.shape != want.shape or not err <= PAGED_GATE_ATOL:
+            if got.shape != want.shape \
+                    or not err <= _gate_tol(PAGED_GATE_ATOL, want):
                 return False
         return True
 

@@ -6,7 +6,9 @@
 //
 // with ng = m / s2, D2 = 2·ng + 1, dy_i = (i − ng)·s2, dx_j = (j − ng)·s2 and
 // b read as 0 outside the image (the zero padding of width m).  a, b are
-// (N, C, H, W) float32; out is (N, D2², H, W) float32.
+// (N, C, H, W) and out (N, D2², H, W), all float32, all float16 or all
+// bfloat16: each element converted to float32 as it is loaded, sums in
+// float32, out rounded once to the operands' type (elem.cuh).
 //
 // Replaces the TPU kernel mxnet_tpu/ops/pallas_kernels.py:393
 // (_correlation_kernel, launched by correlation at line 417).  There one
@@ -51,10 +53,19 @@
 // shared-memory read per multiply-add, the b window's channel stride the
 // constant kFastStride when the window fits so every read is an
 // immediate offset from one pointer per displacement.
+//
+// The 16-bit instances fill the same float32 stages through registers
+// (elem.cuh's stage_f32: 8-byte loads of 4 elements where the float32
+// instance copies 16 bytes, with W % 4 == 0 and a and b 8-byte aligned;
+// else one element a load), so all that follows the loads is the float32
+// instance's code: a half instance's output is bitwise the float32
+// instance's on the upcast inputs, rounded.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -84,14 +95,14 @@ static_assert(kP * kLanesX == kTW && kTH * kLanesX == 32, "lane layout");
 
 // 4- and 16-byte asynchronous copies global -> shared; `valid` false writes
 // zeros and reads nothing.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+__device__ __forceinline__ void cp_async4(float* dst, const void* src,
                                           bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(src), "r"(valid ? 4 : 0));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(float* dst, const void* src,
                                            bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
@@ -125,10 +136,10 @@ struct Window {
 // a compile-time stride (kFastStride) turns every b read into a shared load
 // at an immediate offset from one pointer per displacement.  0: the
 // window's own size, for windows larger than kFastStride.
-template <bool kMultiply, int kStride>
+template <typename E, bool kMultiply, int kStride>
 __global__ void __launch_bounds__(kThreads)
-correlation_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                   float* __restrict__ out, int C, int H, int W, int D2,
+correlation_kernel(const E* __restrict__ a, const E* __restrict__ b,
+                   E* __restrict__ out, int C, int H, int W, int D2,
                    int ng, int s2, int n_groups, bool vec) {
   extern __shared__ __align__(16) float smem[];
   const int DD = D2 * D2;
@@ -156,15 +167,29 @@ correlation_kernel(const float* __restrict__ a, const float* __restrict__ b,
   for (int kk = 0; kk < kAcc; ++kk) acc[kk] = 0.f;
 
   const size_t plane = (size_t)H * W;
-  const float* an = a + (size_t)n * C * plane;
-  const float* bn = b + (size_t)n * C * plane;
+  const E* an = a + (size_t)n * C * plane;
+  const E* bn = b + (size_t)n * C * plane;
   const int stage_floats = kChunk * (kThreads + stride);
 
   // Copy channels c0 .. c0 + kChunk - 1 of the a tile and the b window into
-  // `buf` with cp.async as one commit group, zero outside the image and
-  // past channel C (a zero a and b add nothing to either sum): 16 bytes at
-  // a time when rows are 16-byte aligned (`vec`: W % 4 == 0, so an aligned
-  // group of 4 columns lies wholly inside or outside), else 4.
+  // `buf` with cp.async as one commit group (through registers for 16-bit
+  // operands), zero outside the image and past channel C (a zero a and b
+  // add nothing to either sum): 4 elements at a time when rows are aligned
+  // (`vec`: W % 4 == 0, so an aligned group of 4 columns lies wholly
+  // inside or outside), else 1.
+  auto copy = [&](float* dst, const E* src, bool in, bool wide) {
+    if constexpr (mxtt::is_f32<E>()) {
+      if (wide)
+        cp_async16(dst, src, in);
+      else
+        cp_async4(dst, src, in);
+    } else {
+      if (wide)
+        mxtt::stage_f32<4>(dst, src, in);
+      else
+        mxtt::stage_f32<1>(dst, src, in);
+    }
+  };
   auto stage = [&](int c0, float* buf) {
     float* as = buf;
     float* bs = buf + kChunk * kThreads;
@@ -174,9 +199,9 @@ correlation_kernel(const float* __restrict__ a, const float* __restrict__ b,
         const int ci = i / (kTH * kQ), p = i % (kTH * kQ);
         const int yy = y0 + p / kQ, xx = x0 + (p % kQ) * 4;
         const bool in = c0 + ci < C && yy < H && xx < W;
-        cp_async16(as + ci * kThreads + p * 4,
-                   in ? an + (size_t)(c0 + ci) * plane + (size_t)yy * W + xx
-                      : an, in);
+        copy(as + ci * kThreads + p * 4,
+             in ? an + (size_t)(c0 + ci) * plane + (size_t)yy * W + xx : an,
+             in, true);
       }
       const int q = win.cols / 4, per = win.rows * q;
       for (int i = threadIdx.x; i < kChunk * per; i += kThreads) {
@@ -184,20 +209,20 @@ correlation_kernel(const float* __restrict__ a, const float* __restrict__ b,
         const int r = p / q, col = (p % q) * 4;
         const int yy = wy0 + r, xx = wx0 + col;
         const bool in = c0 + ci < C && yy >= 0 && yy < H && xx >= 0 && xx < W;
-        cp_async16(bs + ci * stride + r * win.cols + col,
-                   in ? bn + (size_t)(c0 + ci) * plane + (size_t)yy * W + xx
-                      : bn, in);
+        copy(bs + ci * stride + r * win.cols + col,
+             in ? bn + (size_t)(c0 + ci) * plane + (size_t)yy * W + xx : bn,
+             in, true);
       }
     } else {
       for (int ci = 0; ci < kChunk; ++ci) {      // rows by warp, cols by lane
         const bool c_in = c0 + ci < C;
-        const float* ac = an + (size_t)(c_in ? c0 + ci : 0) * plane;
-        const float* bc = bn + (size_t)(c_in ? c0 + ci : 0) * plane;
+        const E* ac = an + (size_t)(c_in ? c0 + ci : 0) * plane;
+        const E* bc = bn + (size_t)(c_in ? c0 + ci : 0) * plane;
         {
           const int yy = y0 + ty, xx = x0 + tx;
           const bool in = c_in && yy < H && xx < W;
-          cp_async4(as + ci * kThreads + threadIdx.x,
-                    in ? ac + (size_t)yy * W + xx : ac, in);
+          copy(as + ci * kThreads + threadIdx.x,
+               in ? ac + (size_t)yy * W + xx : ac, in, false);
         }
         float* bsc = bs + ci * stride;
         for (int r = ty; r < win.rows; r += kTH) {
@@ -206,8 +231,8 @@ correlation_kernel(const float* __restrict__ a, const float* __restrict__ b,
           for (int col = tx; col < win.cols; col += kTW) {
             const int xx = wx0 + col;
             const bool in = row_in && xx >= 0 && xx < W;
-            cp_async4(bsc + r * win.cols + col,
-                      in ? bc + (size_t)yy * W + xx : bc, in);
+            copy(bsc + r * win.cols + col,
+                 in ? bc + (size_t)yy * W + xx : bc, in, false);
           }
         }
       }
@@ -250,10 +275,11 @@ correlation_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const int y = y0 + ty, x = x0 + tx;
   if (y < H && x < W) {
     const float norm = (float)C;
-    float* o = out + ((size_t)n * DD + d0) * plane + (size_t)y * W + x;
+    E* o = out + ((size_t)n * DD + d0) * plane + (size_t)y * W + x;
 #pragma unroll
     for (int kk = 0; kk < kAcc; ++kk)
-      if (kk < nd) o[(size_t)kk * plane] = acc[kk] / norm;
+      if (kk < nd)
+        o[(size_t)kk * plane] = mxtt::from_f32<E>(acc[kk] / norm);
   }
 }
 
@@ -268,12 +294,12 @@ cudaError_t opt_in(Kernel kernel, int* opted, int device, size_t bytes) {
   return err;
 }
 
-template <bool kMultiply, int kStride>
-cudaError_t launch_general(const float* a, const float* b, float* out, int C,
-                           int H, int W, int D2, int ng, int s2, int n_groups,
+template <typename E, bool kMultiply, int kStride>
+cudaError_t launch_general(const E* a, const E* b, E* out, int C, int H,
+                           int W, int D2, int ng, int s2, int n_groups,
                            bool vec, dim3 grid, size_t bytes, int device,
                            cudaStream_t stream) {
-  auto kernel = correlation_kernel<kMultiply, kStride>;
+  auto kernel = correlation_kernel<E, kMultiply, kStride>;
   static int opted[kMaxDevices];
   const cudaError_t err = opt_in(kernel, opted, device, bytes);
   if (err != cudaSuccess) return err;
@@ -320,14 +346,14 @@ __host__ __device__ inline ThreadMap rb_thread(int warp, int lane, int D2,
 // thread (rb_thread).  Shared memory per channel: the a tile (kTH rows at
 // stride ra) then the b window (wrows x wcols at stride rb) from (y0 +
 // (i_first − ng)·kS2, wx0), wx0 the multiple of 4 at or left of x0 −
-// ng·kS2; channel stride ra·kTH + rb·wrows.  Copies move 16 bytes at
+// ng·kS2; channel stride ra·kTH + rb·wrows.  Copies move 4 elements at
 // stride2 2 (the launcher takes this instance there only for W % 4 == 0
-// and 16-byte aligned inputs), 4 at stride2 1.
-template <bool kMultiply, int kS2, int kJ, int kChunkN, int kWarps,
-          int kMinBlocks>
+// and inputs aligned to 4 elements), 1 at stride2 1.
+template <typename E, bool kMultiply, int kS2, int kJ, int kChunkN,
+          int kWarps, int kMinBlocks>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
-correlation_rb_kernel(const float* __restrict__ a,
-                      const float* __restrict__ b, float* __restrict__ out,
+correlation_rb_kernel(const E* __restrict__ a, const E* __restrict__ b,
+                      E* __restrict__ out,
                       int C, int H, int W, int D2, int ng, int ni,
                       int n_igroups, int ra, int rb, int wrows, int wcols) {
   extern __shared__ __align__(16) float smem[];
@@ -344,22 +370,23 @@ correlation_rb_kernel(const float* __restrict__ a,
                                 kJ);
 
   const size_t plane = (size_t)H * W;
-  const float* an = a + (size_t)n * C * plane;
-  const float* bn = b + (size_t)n * C * plane;
+  const E* an = a + (size_t)n * C * plane;
+  const E* bn = b + (size_t)n * C * plane;
 
   // Copy channels c0 .. c0 + kChunkN − 1 of the a tile and the b window
-  // into `buf` as one commit group, zero outside the image and past
-  // channel C (a zero a and b add nothing to either sum): 16 bytes a copy
-  // at stride2 2 (W % 4 == 0 puts an aligned group of 4 wholly inside or
-  // outside the image), 4 at stride2 1.  Each group's addresses are worked
-  // out once and walk the channels.
+  // into `buf` as one commit group (through registers for 16-bit
+  // operands), zero outside the image and past channel C (a zero a and b
+  // add nothing to either sum): 4 elements a copy at stride2 2 (W % 4 == 0
+  // puts an aligned group of 4 wholly inside or outside the image), 1 at
+  // stride2 1.  Each group's addresses are worked out once and walk the
+  // channels.
   auto stage = [&](int c0, float* buf) {
     constexpr int kWide = kS2 == 2 ? 4 : 1;
     const int qa = kTW / kWide, qb = wcols / kWide;
     const int per = kTH * qa + wrows * qb;
     for (int e = threadIdx.x; e < per; e += blockDim.x) {
       int dst, yy, xx;
-      const float* base;
+      const E* base;
       if (e < kTH * qa) {
         dst = (e / qa) * ra + (e % qa) * kWide;
         yy = y0 + e / qa;
@@ -373,13 +400,15 @@ correlation_rb_kernel(const float* __restrict__ a,
         base = bn;
       }
       const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W;
-      const float* src =
+      const E* src =
           base + (in ? (size_t)c0 * plane + (size_t)yy * W + xx : 0);
       float* to = buf + dst;
 #pragma unroll
       for (int ci = 0; ci < kChunkN; ++ci) {
         const bool v = in && c0 + ci < C;
-        if (kWide == 4)
+        if constexpr (!mxtt::is_f32<E>())
+          mxtt::stage_f32<kWide>(to, v ? src : base, v);
+        else if (kWide == 4)
           cp_async16(to, v ? src : base, v);
         else
           cp_async4(to, v ? src : base, v);
@@ -438,14 +467,16 @@ correlation_rb_kernel(const float* __restrict__ a,
   const int i = i_first + t.il, y = y0 + t.ty;
   if (i < D2 && y < H) {
     const float norm = (float)C;
-    float* o = out + ((size_t)n * D2 * D2 + (size_t)i * D2 + t.j0) * plane +
-               (size_t)y * W + x0 + t.xoff;
+    E* o = out + ((size_t)n * D2 * D2 + (size_t)i * D2 + t.j0) * plane +
+           (size_t)y * W + x0 + t.xoff;
 #pragma unroll
     for (int p = 0; p < kP; ++p) {
       if (x0 + t.xoff + p * kS2 >= W) break;
 #pragma unroll
       for (int j = 0; j < kJ; ++j)
-        if (t.j0 + j < D2) o[(size_t)j * plane + p * kS2] = acc[p][j] / norm;
+        if (t.j0 + j < D2)
+          o[(size_t)j * plane + p * kS2] =
+              mxtt::from_f32<E>(acc[p][j] / norm);
     }
   }
 }
@@ -483,16 +514,16 @@ struct RbPlan {
   size_t bytes;
 };
 
-template <bool kMultiply, int kS2>
-cudaError_t launch_rb(const float* a, const float* b, float* out, int C,
-                      int H, int W, int D2, int ng, const RbPlan& pl,
-                      dim3 grid, int device, cudaStream_t stream) {
+template <typename E, bool kMultiply, int kS2>
+cudaError_t launch_rb(const E* a, const E* b, E* out, int C, int H, int W,
+                      int D2, int ng, const RbPlan& pl, dim3 grid,
+                      int device, cudaStream_t stream) {
   constexpr int kJ = kS2 == 1 ? kS1J : kS2J;
   constexpr int kChunkN = kS2 == 1 ? kS1Chunk : kS2Chunk;
   constexpr int kWarps = kS2 == 1 ? kS1Warps : kS2Warps;
   constexpr int kMinBlocks = kS2 == 1 ? kS1MinBlocks : kS2MinBlocks;
-  auto kernel = correlation_rb_kernel<kMultiply, kS2, kJ, kChunkN, kWarps,
-                                      kMinBlocks>;
+  auto kernel = correlation_rb_kernel<E, kMultiply, kS2, kJ, kChunkN,
+                                      kWarps, kMinBlocks>;
   static int opted[kMaxDevices];
   const cudaError_t err = opt_in(kernel, opted, device, pl.bytes);
   if (err != cudaSuccess) return err;
@@ -531,23 +562,63 @@ RbPlan rb_plan(int D2, int ng, int s2, bool vec) {
   return pl;
 }
 
+// The instance for element type E: the register-blocked one where the
+// plan found one, else the general one with a fixed or a runtime window
+// stride.
+template <typename E>
+cudaError_t launch_dtype(const void* a, const void* b, void* out, int C,
+                         int H, int W, int D2, int ng, int s2,
+                         int is_multiply, const RbPlan& pl, int n_groups,
+                         bool fast, bool vec, dim3 grid, size_t bytes,
+                         int device, cudaStream_t st) {
+  const E* ae = static_cast<const E*>(a);
+  const E* be = static_cast<const E*>(b);
+  E* o = static_cast<E*>(out);
+  if (pl.ok) {
+#define CORR_RB(MUL, S) \
+  return launch_rb<E, MUL, S>(ae, be, o, C, H, W, D2, ng, pl, grid, device, st)
+    if (is_multiply) {
+      if (s2 == 1) CORR_RB(true, 1);
+      CORR_RB(true, 2);
+    }
+    if (s2 == 1) CORR_RB(false, 1);
+    CORR_RB(false, 2);
+#undef CORR_RB
+  }
+#define CORR_LAUNCH(MUL, STRIDE)                                         \
+  return launch_general<E, MUL, STRIDE>(ae, be, o, C, H, W, D2, ng, s2,  \
+                                        n_groups, vec, grid, bytes,      \
+                                        device, st)
+  if (is_multiply) {
+    if (fast) CORR_LAUNCH(true, kFastStride);
+    CORR_LAUNCH(true, 0);
+  }
+  if (fast) CORR_LAUNCH(false, kFastStride);
+  CORR_LAUNCH(false, 0);
+#undef CORR_LAUNCH
+}
+
 }  // namespace
 
-// a, b (N, C, H, W), out (N, D2², H, W) with D2 = 2·(m / s2) + 1: float32,
-// contiguous.  Returns a cudaError_t: the launch's configuration error (or
+// a, b (N, C, H, W), out (N, D2², H, W) with D2 = 2·(m / s2) + 1:
+// contiguous, all of the type `dtype` names (0 float32, 1 float16, 2
+// bfloat16).  Returns a cudaError_t: the launch's configuration error (or
 // cudaErrorInvalidValue for a shape the grid or shared memory cannot hold),
 // if any.  Faults during the run surface at the caller's next
 // synchronisation.
 extern "C" int mxtt_correlation(const void* a, const void* b, void* out,
                                 int N, int C, int H, int W, int m, int s2,
-                                int is_multiply, int device, void* stream) {
+                                int is_multiply, int dtype, int device,
+                                void* stream) {
   if (N <= 0 || C <= 0 || H <= 0 || W <= 0 || m < 0 || s2 <= 0 ||
-      device < 0 || device >= kMaxDevices)
+      dtype < 0 || dtype > 2 || device < 0 || device >= kMaxDevices)
     return cudaErrorInvalidValue;
   const int ng = m / s2, D2 = 2 * ng + 1, DD = D2 * D2;
   const int gy = (H + kTH - 1) / kTH, gx = (W + kTW - 1) / kTW;
-  const bool vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  // copies of 4 elements: 16 bytes of float32, 8 of a 16-bit type
+  const int wide = dtype == 0 ? 16 : 8;
+  const bool vec = W % 4 == 0 && mxtt::aligned(a, wide) &&
+                   mxtt::aligned(b, wide);
   const RbPlan pl = rb_plan(D2, ng, s2, vec);
   // the general instance: the largest window of any group sets the
   // stride and shared memory
@@ -575,30 +646,16 @@ extern "C" int mxtt_correlation(const void* a, const void* b, void* out,
     return err;
   const dim3 grid(gx, gy, (unsigned)gz);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* af = static_cast<const float*>(a);
-  const float* bf = static_cast<const float*>(b);
-  float* o = static_cast<float*>(out);
-  if (pl.ok) {
-#define CORR_RB(MUL, S) \
-  return launch_rb<MUL, S>(af, bf, o, C, H, W, D2, ng, pl, grid, device, st)
-    if (is_multiply) {
-      if (s2 == 1) CORR_RB(true, 1);
-      CORR_RB(true, 2);
-    }
-    if (s2 == 1) CORR_RB(false, 1);
-    CORR_RB(false, 2);
-#undef CORR_RB
-  }
-#define CORR_LAUNCH(MUL, STRIDE)                                         \
-  return launch_general<MUL, STRIDE>(af, bf, o, C, H, W, D2, ng, s2,     \
-                                     n_groups, vec, grid, bytes, device, st)
-  if (is_multiply) {
-    if (fast) CORR_LAUNCH(true, kFastStride);
-    CORR_LAUNCH(true, 0);
-  }
-  if (fast) CORR_LAUNCH(false, kFastStride);
-  CORR_LAUNCH(false, 0);
-#undef CORR_LAUNCH
+  if (dtype == 1)
+    return launch_dtype<__half>(a, b, out, C, H, W, D2, ng, s2, is_multiply,
+                                pl, n_groups, fast, vec, grid, bytes, device,
+                                st);
+  if (dtype == 2)
+    return launch_dtype<__nv_bfloat16>(a, b, out, C, H, W, D2, ng, s2,
+                                       is_multiply, pl, n_groups, fast, vec,
+                                       grid, bytes, device, st);
+  return launch_dtype<float>(a, b, out, C, H, W, D2, ng, s2, is_multiply, pl,
+                             n_groups, fast, vec, grid, bytes, device, st);
 }
 
 extern "C" const char* mxtt_error_string(int code) {

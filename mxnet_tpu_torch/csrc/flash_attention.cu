@@ -2,9 +2,11 @@
 //
 //     out[b, i, h] = softmax(q[b, i, h] · K[b, :, h]ᵀ / √D) · V[b, :, h]
 //
-// for q, k, v, out in the (B, T, H, D) layout, float32.  With `causal`, row i
-// sees keys 0 .. i.  Softmax and sums are float32 with l clamped at 1e-20,
-// as _flash_kernel computes them.
+// for q, k, v, out in the (B, T, H, D) layout, all float32, all float16 or
+// all bfloat16.  With `causal`, row i sees keys 0 .. i.  Each element is
+// converted to float32 as it is loaded; softmax and sums are float32 with l
+// clamped at 1e-20, as _flash_kernel computes them; out is rounded once to
+// the operands' type (elem.cuh).
 //
 // Replaces the TPU kernel mxnet_tpu/ops/pallas_kernels.py:73 (_flash_kernel,
 // launched by flash_attention at line 121).  There the grid ran (batch·head,
@@ -51,16 +53,26 @@
 // in an order fixed by the tile, with no atomics, so a call is bitwise
 // repeatable.
 //
+// The 16-bit instances load K and V tiles through registers (elem.cuh's
+// stage_f32: 16-byte loads of 8 elements when D % 8 == 0 and K and V are
+// 16-byte aligned, else one element a load), convert them and store the
+// same float32 stages, so everything after the load is the float32
+// instance's code and a half instance's output is bitwise the float32
+// instance's on the upcast inputs, rounded.  Those loads complete before
+// the warp multiplies the tile in flight, where cp.async would overlap
+// them.
+//
 // Compiled tile instances (kBQ, kBK): kBQ in {64, 128}, kBK in {32, 64},
-// each for D <= 32, <= 64 and <= 128.  The largest, kBK 64 at D 128, holds
-// a two-stage ring and the remainders, 3 x 2 x 64 x 132 floats = 198 KB of
-// the 227 KB a block may use.
+// each for D <= 32, <= 64 and <= 128 and each element type.  The largest,
+// kBK 64 at D 128, holds a two-stage ring and the remainders, 3 x 2 x 64 x
+// 132 floats = 198 KB of the 227 KB a block may use.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "attention.cuh"
+#include "elem.cuh"
 
 namespace {
 
@@ -69,6 +81,7 @@ using mxtt::cp_async4;
 using mxtt::cp_async_commit;
 using mxtt::cp_async_wait;
 using mxtt::split_tf32;
+using mxtt::to_f32;
 
 constexpr int kStages = 2;                       // K/V ring depth
 constexpr int kMaxD = 128;                       // head dim limit
@@ -84,12 +97,12 @@ __host__ __device__ constexpr int min_blocks(int bq, int d) {
   return bq > 64 || d > 64 ? 1 : 3;
 }
 
-// kBQ query rows (16 per warp) and kBK keys per tile; head dims padded to kD.
-template <int kBQ, int kBK, int kD>
+// kBQ query rows (16 per warp) and kBK keys per tile; head dims padded to kD;
+// operands and out of type E.
+template <typename E, int kBQ, int kBK, int kD>
 __global__ void __launch_bounds__(kBQ * 2, min_blocks(kBQ, kD))
-flash_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ out,
+flash_attention_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                       const E* __restrict__ v, E* __restrict__ out,
                        int BH, int T, int H, int D, int causal,
                        float scale_log2, int n_qtiles, bool vec) {
   constexpr int kThreads = kBQ * 2;
@@ -127,12 +140,28 @@ flash_attention_kernel(const float* __restrict__ q,
       smem[r * kStride + D + (i - r * (kD - D))] = 0.f;
     }
 
-  // One key tile into its stage as one cp.async group; zeros past T.
+  // One key tile into its stage as one cp.async group (through registers
+  // for 16-bit operands); zeros past T.
   auto load_tile = [&](int kt) {
     float* ks = smem + (kt % kStages) * 2 * kTile;
     float* vs = ks + kTile;
     const int k0 = kt * kBK;
-    if (vec) {
+    if constexpr (!mxtt::is_f32<E>()) {
+      const int per = vec ? 8 : 1;               // elements a load
+      const int dn = D / per;
+      for (int i = threadIdx.x; i < kBK * dn; i += kThreads) {
+        const int r = i / dn, d = (i - r * dn) * per;
+        const bool live = k0 + r < T;
+        const size_t at = head + (size_t)(live ? k0 + r : 0) * tok + d;
+        if (vec) {
+          mxtt::stage_f32<8>(ks + r * kStride + d, k + at, live);
+          mxtt::stage_f32<8>(vs + r * kStride + d, v + at, live);
+        } else {
+          mxtt::stage_f32<1>(ks + r * kStride + d, k + at, live);
+          mxtt::stage_f32<1>(vs + r * kStride + d, v + at, live);
+        }
+      }
+    } else if (vec) {
       const int d4n = D / 4;
       for (int i = threadIdx.x; i < kBK * d4n; i += kThreads) {
         const int r = i / d4n, d = (i - r * d4n) * 4;
@@ -166,15 +195,15 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
   for (int ds = 0; ds < kDSteps; ++ds) {
     const int d0 = ds * 8 + tq, d1 = d0 + 4;
-    const float* qa = q + head + (size_t)row_a * tok;
-    const float* qb = q + head + (size_t)row_b * tok;
-    split_tf32(row_a < T && d0 < D ? __ldg(qa + d0) : 0.f, qh[ds][0],
+    const E* qa = q + head + (size_t)row_a * tok;
+    const E* qb = q + head + (size_t)row_b * tok;
+    split_tf32(row_a < T && d0 < D ? to_f32(qa[d0]) : 0.f, qh[ds][0],
                ql[ds][0]);
-    split_tf32(row_b < T && d0 < D ? __ldg(qb + d0) : 0.f, qh[ds][1],
+    split_tf32(row_b < T && d0 < D ? to_f32(qb[d0]) : 0.f, qh[ds][1],
                ql[ds][1]);
-    split_tf32(row_a < T && d1 < D ? __ldg(qa + d1) : 0.f, qh[ds][2],
+    split_tf32(row_a < T && d1 < D ? to_f32(qa[d1]) : 0.f, qh[ds][2],
                ql[ds][2]);
-    split_tf32(row_b < T && d1 < D ? __ldg(qb + d1) : 0.f, qh[ds][3],
+    split_tf32(row_b < T && d1 < D ? to_f32(qb[d1]) : 0.f, qh[ds][3],
                ql[ds][3]);
   }
 
@@ -253,21 +282,22 @@ flash_attention_kernel(const float* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int row = r ? row_b : row_a;
     if (row >= T) continue;
-    float* dst = out + head + (size_t)row * tok;
+    E* dst = out + head + (size_t)row * tok;
 #pragma unroll
     for (int n = 0; n < kDSteps; ++n) {
       const int d = 8 * n + 2 * tq;
-      if (d < D) dst[d] = o[n][2 * r] / l[r];
-      if (d + 1 < D) dst[d + 1] = o[n][2 * r + 1] / l[r];
+      if (d < D) dst[d] = mxtt::from_f32<E>(o[n][2 * r] / l[r]);
+      if (d + 1 < D)
+        dst[d + 1] = mxtt::from_f32<E>(o[n][2 * r + 1] / l[r]);
     }
   }
 }
 
-template <int kBQ, int kBK, int kD>
-cudaError_t launch(const float* q, const float* k, const float* v, float* out,
-                   int B, int T, int H, int D, int causal, float scale,
-                   bool vec, int device, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<kBQ, kBK, kD>;
+template <typename E, int kBQ, int kBK, int kD>
+cudaError_t launch(const E* q, const E* k, const E* v, E* out, int B,
+                   int T, int H, int D, int causal, float scale, bool vec,
+                   int device, cudaStream_t stream) {
+  auto kernel = flash_attention_kernel<E, kBQ, kBK, kD>;
   const size_t bytes = sizeof(float) * (kStages + 1) * 2 * kBK * (kD + 4);
   // the largest dynamic shared memory opted into so far, per device
   static int opted[kMaxDevices];
@@ -285,32 +315,58 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out,
   return cudaGetLastError();
 }
 
-template <int kBQ, int kBK>
-cudaError_t launch_tile(const float* q, const float* k, const float* v,
-                        float* out, int B, int T, int H, int D, int causal,
-                        float scale, bool vec, int device,
-                        cudaStream_t stream) {
+template <typename E, int kBQ, int kBK>
+cudaError_t launch_tile(const E* q, const E* k, const E* v, E* out, int B,
+                        int T, int H, int D, int causal, float scale,
+                        bool vec, int device, cudaStream_t stream) {
   if (D <= 32)
-    return launch<kBQ, kBK, 32>(q, k, v, out, B, T, H, D, causal, scale, vec,
-                                device, stream);
+    return launch<E, kBQ, kBK, 32>(q, k, v, out, B, T, H, D, causal, scale,
+                                   vec, device, stream);
   if (D <= 64)
-    return launch<kBQ, kBK, 64>(q, k, v, out, B, T, H, D, causal, scale, vec,
-                                device, stream);
-  return launch<kBQ, kBK, 128>(q, k, v, out, B, T, H, D, causal, scale, vec,
-                               device, stream);
+    return launch<E, kBQ, kBK, 64>(q, k, v, out, B, T, H, D, causal, scale,
+                                   vec, device, stream);
+  return launch<E, kBQ, kBK, 128>(q, k, v, out, B, T, H, D, causal, scale,
+                                  vec, device, stream);
+}
+
+// The instance for element type E and tile (block_q, block_k).  Whole
+// 16-byte loads of K and V need D a multiple of the elements in 16 bytes
+// and both tensors 16-byte aligned.
+template <typename E>
+cudaError_t launch_dtype(const void* q, const void* k, const void* v,
+                         void* out, int B, int T, int H, int D, int causal,
+                         float scale, int block_q, int block_k, int device,
+                         cudaStream_t st) {
+  const bool vec = D % (16 / (int)sizeof(E)) == 0 && mxtt::aligned(k, 16) &&
+                   mxtt::aligned(v, 16);
+  const E* qt = static_cast<const E*>(q);
+  const E* kt = static_cast<const E*>(k);
+  const E* vt = static_cast<const E*>(v);
+  E* o = static_cast<E*>(out);
+#define FLASH_TILE(BQ, BK)                                                  \
+  if (block_q == BQ && block_k == BK)                                       \
+    return launch_tile<E, BQ, BK>(qt, kt, vt, o, B, T, H, D, causal,        \
+                                  scale, vec, device, st);
+  FLASH_TILE(64, 32)
+  FLASH_TILE(64, 64)
+  FLASH_TILE(128, 32)
+  FLASH_TILE(128, 64)
+#undef FLASH_TILE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, k, v, out (B, T, H, D): float32, contiguous.  (block_q, block_k) must
-// be one of the compiled instances below.  Returns a cudaError_t: the
-// launch's configuration error, if any.  Faults during the run surface at
-// the caller's next synchronisation.
+// q, k, v, out (B, T, H, D): contiguous, all of the type `dtype` names (0
+// float32, 1 float16, 2 bfloat16).  (block_q, block_k) must be one of the
+// compiled instances (launch_dtype).  Returns a cudaError_t: the launch's
+// configuration error, if any.  Faults during the run surface at the
+// caller's next synchronisation.
 extern "C" int mxtt_flash_attention(const void* q, const void* k,
                                     const void* v, void* out, int B, int T,
                                     int H, int D, int causal, float scale,
-                                    int block_q, int block_k, int device,
-                                    void* stream) {
+                                    int block_q, int block_k, int dtype,
+                                    int device, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || D <= 0 || D > kMaxD ||
       (long long)B * H > 0x7fffffffLL || device < 0 || device >= kMaxDevices)
     return cudaErrorInvalidValue;
@@ -319,23 +375,17 @@ extern "C" int mxtt_flash_attention(const void* q, const void* k,
   if (err != cudaSuccess) return err;
   if (current != device && (err = cudaSetDevice(device)) != cudaSuccess)
     return err;
-  const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FLASH_TILE(BQ, BK)                                                  \
-  if (block_q == BQ && block_k == BK)                                       \
-    return launch_tile<BQ, BK>(qf, kf, vf, o, B, T, H, D, causal, scale,    \
-                               vec, device, st);
-  FLASH_TILE(64, 32)
-  FLASH_TILE(64, 64)
-  FLASH_TILE(128, 32)
-  FLASH_TILE(128, 64)
-#undef FLASH_TILE
-  return cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return launch_dtype<float>(q, k, v, out, B, T, H, D, causal,
+                                       scale, block_q, block_k, device, st);
+    case 1: return launch_dtype<__half>(q, k, v, out, B, T, H, D, causal,
+                                        scale, block_q, block_k, device, st);
+    case 2: return launch_dtype<__nv_bfloat16>(q, k, v, out, B, T, H, D,
+                                               causal, scale, block_q,
+                                               block_k, device, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* mxtt_error_string(int code) {

@@ -7,8 +7,11 @@
 // row k % bt of the pools k_pool / v_pool (N, bt, H, D).  Keys are masked
 // to k < lengths[s] and, when causal, to k <= q_pos[s, c].  Softmax and
 // sums are float32 with l clamped at 1e-20, so a row with no visible key
-// (an empty slot) returns 0.  q, pools and out are float32; pages,
-// lengths and q_pos int32.
+// (an empty slot) returns 0.  The pools are float32, float16 or bfloat16;
+// q and out are of the pools' type, or float32 over a 16-bit pool (a q of
+// another dtype, upcast by the caller, so the pools are never copied).
+// Each element is converted to float32 as it is loaded and out rounded
+// once to its type (elem.cuh); pages, lengths and q_pos int32.
 //
 // Replaces the TPU kernel mxnet_tpu/ops/pallas_kernels.py:220
 // (_paged_kernel, launched by paged_attention at line 262).  On the TPU the
@@ -55,7 +58,12 @@
 // position alone (no atomics, no split that depends on physical block
 // ids), so the same logical cache under any page table gives bitwise the
 // same output: the engine's dense-stripe and paged layouts emit identical
-// tokens.
+// tokens.  The 16-bit instances fill the same float32 stages through
+// registers (16-byte loads of 8 elements when D % 8 == 0 and the pools
+// are 16-byte aligned, else one element a load) and the query row or tile
+// is converted as it is read, so all that follows the loads is the float32
+// instance's code: a half instance's output is bitwise the float32
+// instance's on the upcast inputs, rounded.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -64,6 +72,7 @@
 #include <type_traits>
 
 #include "attention.cuh"
+#include "elem.cuh"
 
 namespace {
 
@@ -72,6 +81,7 @@ using mxtt::cp_async4;
 using mxtt::cp_async_commit;
 using mxtt::cp_async_wait;
 using mxtt::split_tf32;
+using mxtt::to_f32;
 
 constexpr int kTileQ = 16;                       // query rows per block, C > 1
 constexpr int kChunk = 32;                       // keys per chunk: one per lane
@@ -211,20 +221,23 @@ struct RowTile {
   float o[kDSteps][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-  // q_tile: the tile's first row; rows `row_stride` floats apart
-  __device__ void init(const float* q_tile, size_t row_stride, int rows,
-                       int D, int lane) {
+  // q_tile: the tile's first row; rows `row_stride` elements apart
+  template <typename E>
+  __device__ void init(const E* q_tile, size_t row_stride, int rows, int D,
+                       int lane) {
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int ds = 0; ds < kDSteps; ++ds) {
       const int d0 = 8 * ds + t, d1 = d0 + 4;
-      const float* qa = q_tile + (size_t)g * row_stride;
-      const float* qb = q_tile + (size_t)(g + 8) * row_stride;
-      split_tf32(g < rows && d0 < D ? qa[d0] : 0.f, qh[ds][0], ql[ds][0]);
-      split_tf32(g + 8 < rows && d0 < D ? qb[d0] : 0.f, qh[ds][1],
+      const E* qa = q_tile + (size_t)g * row_stride;
+      const E* qb = q_tile + (size_t)(g + 8) * row_stride;
+      split_tf32(g < rows && d0 < D ? to_f32(qa[d0]) : 0.f, qh[ds][0],
+                 ql[ds][0]);
+      split_tf32(g + 8 < rows && d0 < D ? to_f32(qb[d0]) : 0.f, qh[ds][1],
                  ql[ds][1]);
-      split_tf32(g < rows && d1 < D ? qa[d1] : 0.f, qh[ds][2], ql[ds][2]);
-      split_tf32(g + 8 < rows && d1 < D ? qb[d1] : 0.f, qh[ds][3],
+      split_tf32(g < rows && d1 < D ? to_f32(qa[d1]) : 0.f, qh[ds][2],
+                 ql[ds][2]);
+      split_tf32(g + 8 < rows && d1 < D ? to_f32(qb[d1]) : 0.f, qh[ds][3],
                  ql[ds][3]);
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[ds][e] = 0.f;
@@ -283,17 +296,19 @@ struct RowTile {
   }
 };
 
-// kRows: query rows per block (1 or kTileQ); kDpl: head dims per lane of
-// the warp merge (D <= 32 kDpl).
-template <int kRows, int kDpl>
+// Q: the element type of q and out; P: that of the pools (Q is P, or
+// float for a q of another dtype over a 16-bit pool); kRows: query rows
+// per block (1 or kTileQ); kDpl: head dims per lane of the warp merge (D
+// <= 32 kDpl).
+template <typename Q, typename P, int kRows, int kDpl>
 __global__ void __launch_bounds__(warps_for(kDpl) * 32)
-paged_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k_pool,
-                       const float* __restrict__ v_pool,
+paged_attention_kernel(const Q* __restrict__ q,
+                       const P* __restrict__ k_pool,
+                       const P* __restrict__ v_pool,
                        const int* __restrict__ pages,
                        const int* __restrict__ lengths,
                        const int* __restrict__ q_pos,
-                       float* __restrict__ out, float* __restrict__ part_ml,
+                       Q* __restrict__ out, float* __restrict__ part_ml,
                        float* __restrict__ part_acc, int C, int H, int D,
                        int N, int bt, int B, int causal,
                        float scale_log2, int n_part, int part_keys,
@@ -312,7 +327,7 @@ paged_attention_kernel(const float* __restrict__ q,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const size_t tok_stride = (size_t)H * D;       // one token's K in the pool
-  const float* q_tile = q + ((size_t)(s * C + c0) * H + h) * D;
+  const Q* q_tile = q + ((size_t)(s * C + c0) * H + h) * D;
   float* qs = smem;                              // one query row (C = 1)
   float* slab = smem + (kRows > 1 ? 0 : g.qstride) + warp * g.slab;
 
@@ -344,7 +359,7 @@ paged_attention_kernel(const float* __restrict__ q,
 
   if (kRows == 1)
     for (int d = threadIdx.x; d < g.qstride; d += kThreads)
-      qs[d] = d < D ? q_tile[d] : 0.f;
+      qs[d] = d < D ? to_f32(q_tile[d]) : 0.f;
   // Head dims D .. width-1 are never copied: zero them in every stage
   const int pad = g.width - D;
   for (int i = lane; i < kStages * 2 * kChunk * pad; i += 32) {
@@ -364,14 +379,31 @@ paged_attention_kernel(const float* __restrict__ q,
     const int blk = min(max(pages[(size_t)s * B + key / bt], 0), N - 1);
     return blk * bt + key % bt;
   };
-  // The warp's i-th chunk into its stage as one cp.async group; zeros for
-  // keys past the partition.
+  // The warp's i-th chunk into its stage as one cp.async group (through
+  // registers for 16-bit pools); zeros for keys past the partition.
   auto issue = [&](int i, int row_at) {
     if (i < mine) {
       float* ks = slab + (i % kStages) * g.stage;
       float* vs = ks + kChunk * g.kstride;
       const size_t hd = (size_t)h * D;
-      if (vec) {
+      if constexpr (!mxtt::is_f32<P>()) {
+        const int per = vec ? 8 : 1;             // elements a load
+        const int dn = D / per;
+        for (int x = lane; x < kChunk * dn; x += 32) {
+          const int j = x / dn, d = (x - j * dn) * per;
+          const int row = __shfl_sync(kFull, row_at, j);
+          const size_t at = (size_t)max(row, 0) * tok_stride + hd + d;
+          float* kd = ks + j * g.kstride + d;
+          float* vd = vs + j * g.kstride + d;
+          if (vec) {
+            mxtt::stage_f32<8>(kd, k_pool + at, row >= 0);
+            mxtt::stage_f32<8>(vd, v_pool + at, row >= 0);
+          } else {
+            mxtt::stage_f32<1>(kd, k_pool + at, row >= 0);
+            mxtt::stage_f32<1>(vd, v_pool + at, row >= 0);
+          }
+        }
+      } else if (vec) {
         const int d4n = D / 4;
         for (int x = lane; x < kChunk * d4n; x += 32) {
           const int j = x / d4n, d = (x - j * d4n) * 4;
@@ -459,7 +491,7 @@ paged_attention_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int t = 0; t < kDpl; ++t) {
         const int d = lane + 32 * t;
-        if (d < D) out[row * D + d] = a[t] / li;
+        if (d < D) out[row * D + d] = mxtt::from_f32<Q>(a[t] / li);
       }
     }
   }
@@ -467,11 +499,11 @@ paged_attention_kernel(const float* __restrict__ q,
 
 // One warp per output row (s, c, h): the row's n_part partials merged in
 // partition order, l clamped at 1e-20 once at the end.
-template <int kDpl>
+template <typename Q, int kDpl>
 __global__ void __launch_bounds__(128)
 paged_attention_merge_kernel(const float* __restrict__ part_ml,
                              const float* __restrict__ part_acc,
-                             float* __restrict__ out, int n_rows, int D,
+                             Q* __restrict__ out, int n_rows, int D,
                              int n_part) {
   const int row = blockIdx.x * 4 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -498,18 +530,18 @@ paged_attention_merge_kernel(const float* __restrict__ part_ml,
 #pragma unroll
   for (int t = 0; t < kDpl; ++t) {
     const int d = lane + 32 * t;
-    if (d < D) out[(size_t)row * D + d] = a[t] / li;
+    if (d < D) out[(size_t)row * D + d] = mxtt::from_f32<Q>(a[t] / li);
   }
 }
 
-template <int kRows, int kDpl>
-cudaError_t launch(const float* q, const float* k_pool, const float* v_pool,
+template <typename Q, typename P, int kRows, int kDpl>
+cudaError_t launch(const Q* q, const P* k_pool, const P* v_pool,
                    const int* pages, const int* lengths, const int* q_pos,
-                   float* out, float* part_ml, float* part_acc, int S, int C,
+                   Q* out, float* part_ml, float* part_acc, int S, int C,
                    int H, int D, int N, int bt, int B, int causal,
                    float scale, int n_part, int part_keys, bool vec,
                    int device, cudaStream_t stream) {
-  auto kernel = paged_attention_kernel<kRows, kDpl>;
+  auto kernel = paged_attention_kernel<Q, P, kRows, kDpl>;
   constexpr int kWarps = warps_for(kDpl);
   const size_t bytes = Geometry(D, kRows, 32 * kDpl).bytes(kRows, kWarps);
   // the largest dynamic shared memory opted into so far, per device
@@ -527,54 +559,85 @@ cudaError_t launch(const float* q, const float* k_pool, const float* v_pool,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_part == 1) return err;
   const long long n_rows = (long long)S * C * H;
-  paged_attention_merge_kernel<kDpl>
+  paged_attention_merge_kernel<Q, kDpl>
       <<<(unsigned)((n_rows + 3) / 4), 128, 0, stream>>>(
           part_ml, part_acc, out, (int)n_rows, D, n_part);
   return cudaGetLastError();
 }
 
-template <int kRows>
-cudaError_t launch_rows(int D, const float* q, const float* k_pool,
-                        const float* v_pool, const int* pages,
-                        const int* lengths, const int* q_pos, float* out,
+template <typename Q, typename P, int kRows>
+cudaError_t launch_rows(int D, const Q* q, const P* k_pool,
+                        const P* v_pool, const int* pages,
+                        const int* lengths, const int* q_pos, Q* out,
                         float* part_ml, float* part_acc, int S, int C, int H,
                         int N, int bt, int B, int causal, float scale,
                         int n_part, int part_keys, bool vec, int device,
                         cudaStream_t stream) {
   if (D <= 32)
-    return launch<kRows, 1>(q, k_pool, v_pool, pages, lengths, q_pos, out,
-                            part_ml, part_acc, S, C, H, D, N, bt, B, causal,
-                            scale, n_part, part_keys, vec, device, stream);
+    return launch<Q, P, kRows, 1>(q, k_pool, v_pool, pages, lengths, q_pos,
+                               out, part_ml, part_acc, S, C, H, D, N, bt, B,
+                               causal, scale, n_part, part_keys, vec, device,
+                               stream);
   if (D <= 64)
-    return launch<kRows, 2>(q, k_pool, v_pool, pages, lengths, q_pos, out,
-                            part_ml, part_acc, S, C, H, D, N, bt, B, causal,
-                            scale, n_part, part_keys, vec, device, stream);
-  return launch<kRows, 4>(q, k_pool, v_pool, pages, lengths, q_pos, out,
-                          part_ml, part_acc, S, C, H, D, N, bt, B, causal,
-                          scale, n_part, part_keys, vec, device, stream);
+    return launch<Q, P, kRows, 2>(q, k_pool, v_pool, pages, lengths, q_pos,
+                               out, part_ml, part_acc, S, C, H, D, N, bt, B,
+                               causal, scale, n_part, part_keys, vec, device,
+                               stream);
+  return launch<Q, P, kRows, 4>(q, k_pool, v_pool, pages, lengths, q_pos, out,
+                             part_ml, part_acc, S, C, H, D, N, bt, B, causal,
+                             scale, n_part, part_keys, vec, device, stream);
+}
+
+// The instance for q and out of type Q over pools of type P.  Whole
+// 16-byte loads of the pools need D a multiple of the elements in 16 bytes
+// and both pools 16-byte aligned.
+template <typename Q, typename P>
+cudaError_t launch_dtype(const void* q, const void* k_pool,
+                         const void* v_pool, const int* pg, const int* ln,
+                         const int* qp, void* out, float* pm, float* pa,
+                         int S, int C, int H, int D, int N, int bt, int B,
+                         int causal, float scale, int n_part, int part_keys,
+                         int device, cudaStream_t st) {
+  const bool vec = D % (16 / (int)sizeof(P)) == 0 &&
+                   mxtt::aligned(k_pool, 16) && mxtt::aligned(v_pool, 16);
+  const Q* qe = static_cast<const Q*>(q);
+  const P* ke = static_cast<const P*>(k_pool);
+  const P* ve = static_cast<const P*>(v_pool);
+  Q* o = static_cast<Q*>(out);
+  if (C == 1)
+    return launch_rows<Q, P, 1>(D, qe, ke, ve, pg, ln, qp, o, pm, pa, S, C, H,
+                             N, bt, B, causal, scale, n_part, part_keys, vec,
+                             device, st);
+  return launch_rows<Q, P, kTileQ>(D, qe, ke, ve, pg, ln, qp, o, pm, pa, S, C,
+                                H, N, bt, B, causal, scale, n_part,
+                                part_keys, vec, device, st);
 }
 
 }  // namespace
 
-// q (S, C, H, D), k_pool / v_pool (N, bt, H, D), out (S, C, H, D): float32,
-// contiguous.  pages (S, B), lengths (S,), q_pos (S, C): int32, contiguous.
-// n_part: 1 (one block per row tile writes out) or ceil(B * bt /
-// part_keys), part_keys a positive multiple of 32, with scratch part_ml
-// (S * C * H * n_part * 2) and part_acc (S * C * H * n_part * D) float32.
-// Returns a cudaError_t: the launches' configuration error, if any.  Faults during the run surface at the
-// caller's next synchronisation.
+// q (S, C, H, D), k_pool / v_pool (N, bt, H, D), out (S, C, H, D):
+// contiguous.  The pools of the type `dtype` names (0 float32, 1 float16,
+// 2 bfloat16), q and out of the type `q_dtype` names: `dtype`, or 0 (a q
+// of another dtype, upcast, over a 16-bit pool).  pages (S, B), lengths
+// (S,), q_pos (S, C): int32, contiguous.  n_part: 1 (one block per row
+// tile writes out) or ceil(B * bt / part_keys), part_keys a positive
+// multiple of 32, with scratch part_ml (S * C * H * n_part * 2) and
+// part_acc (S * C * H * n_part * D) float32.  Returns a cudaError_t: the
+// launches' configuration error, if any.  Faults during the run surface at
+// the caller's next synchronisation.
 extern "C" int mxtt_paged_attention(const void* q, const void* k_pool,
                                     const void* v_pool, const void* pages,
                                     const void* lengths, const void* q_pos,
                                     void* out, void* part_ml, void* part_acc,
                                     int S, int C, int H, int D, int N, int bt,
-                                    int B, int causal, float scale,
-                                    int part_keys, int n_part, int device,
-                                    void* stream) {
+                                    int B, int causal, float scale, int dtype,
+                                    int q_dtype, int part_keys, int n_part,
+                                    int device, void* stream) {
   if (S <= 0 || C <= 0 || H <= 0 || D <= 0 || D > kMaxD || N <= 0 ||
       bt <= 0 || B <= 0 || (long long)S * H > 0x7fffffffLL ||
       (long long)S * C * H > 0x7fffffffLL || C > 65535 * kTileQ ||
       device < 0 || device >= kMaxDevices || n_part < 1 ||
+      (q_dtype != dtype && q_dtype != 0) ||
       (n_part > 1 &&
        (part_keys <= 0 || part_keys % kChunk != 0 ||
         (long long)(n_part - 1) * part_keys >= (long long)B * bt ||
@@ -585,26 +648,26 @@ extern "C" int mxtt_paged_attention(const void* q, const void* k_pool,
   if (err != cudaSuccess) return err;
   if (current != device && (err = cudaSetDevice(device)) != cudaSuccess)
     return err;
-  const bool vec = D % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(k_pool) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(v_pool) % 16 == 0;
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k_pool);
-  const float* vf = static_cast<const float*>(v_pool);
   const int* pg = static_cast<const int*>(pages);
   const int* ln = static_cast<const int*>(lengths);
   const int* qp = static_cast<const int*>(q_pos);
-  float* o = static_cast<float*>(out);
   float* pm = static_cast<float*>(part_ml);
   float* pa = static_cast<float*>(part_acc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C == 1)
-    return launch_rows<1>(D, qf, kf, vf, pg, ln, qp, o, pm, pa, S, C, H, N,
-                          bt, B, causal, scale, n_part, part_keys, vec,
-                          device, st);
-  return launch_rows<kTileQ>(D, qf, kf, vf, pg, ln, qp, o, pm, pa, S, C, H,
-                             N, bt, B, causal, scale, n_part, part_keys, vec,
-                             device, st);
+  // the instance for q of the type of `qt` over pools of the type of `pt`
+  auto run = [&](auto qt, auto pt) {
+    return launch_dtype<decltype(qt), decltype(pt)>(
+        q, k_pool, v_pool, pg, ln, qp, out, pm, pa, S, C, H, D, N, bt, B,
+        causal, scale, n_part, part_keys, device, st);
+  };
+  switch (dtype) {
+    case 0: return run(float{}, float{});
+    case 1: return q_dtype ? run(__half{}, __half{}) : run(float{}, __half{});
+    case 2:
+      return q_dtype ? run(__nv_bfloat16{}, __nv_bfloat16{})
+                     : run(float{}, __nv_bfloat16{});
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* mxtt_error_string(int code) {

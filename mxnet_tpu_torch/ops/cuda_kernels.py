@@ -13,6 +13,17 @@ The counterpart of ``mxnet_tpu/ops/pallas_kernels.py``.  Each kernel has:
   launches the kernel and nowhere else (once per call, also where a call
   launches two CUDA kernels, as split-K ``paged_attention`` does).
 
+Every kernel takes float32, float16 and bfloat16 operands
+(:data:`KERNEL_DTYPES`), as the TPU kernels do: each element is converted
+to float32 when it is loaded, the arithmetic is float32, and the output
+is rounded once to the operands' dtype (``csrc/elem.cuh``).  The
+attention and correlation wrappers run the instance of their operands'
+dtype; operands of mixed float dtypes are upcast to float32 (exact) and
+run the float32 instance, the output cast to q's (or a's) dtype, which
+is the value the TPU kernels' load-time upcast gives.  ``paged_attention``
+upcasts only q over a 16-bit pool: its kernel reads a float32 q over
+pools of any of the three dtypes, so the pools are never copied.
+
 Sources live in ``mxnet_tpu_torch/csrc`` (``*.cu``, and the ``*.cuh``
 headers they include).  Each ``.cu`` is compiled on first use with
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
@@ -49,7 +60,8 @@ import torch
 from ..base import MXNetError, get_env, make_lock
 from .nn import ACTIVATIONS
 
-__all__ = ["fused_fc_epilogue", "fused_fc_epilogue_reference", "requantize",
+__all__ = ["KERNEL_DTYPES", "HALF_ULP",
+           "fused_fc_epilogue", "fused_fc_epilogue_reference", "requantize",
            "reciprocal_f32", "FC_TILES", "FC_DEFAULT_TILE",
            "paged_attention", "paged_attention_reference", "paged_partitions",
            "PAGED_PART_KEYS", "PAGED_PARTITION_KEYS",
@@ -105,10 +117,13 @@ def _nvcc() -> str:
 
 def nvcc_command(source: str, output: str, nvcc: str = "nvcc") -> list:
     """The compile line for one kernel source: Hopper (``sm_90a``) code,
-    a shared library with a plain C interface."""
+    a shared library with a plain C interface.  ``--split-compile``
+    optimizes a source's kernel instances (one a tile, head-dim bucket
+    and operand dtype) on 4 threads, so the libraries built at once
+    share the machine's cores instead of waiting on the largest."""
     return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", output, source]
+            "-O3", "--split-compile=4", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-o", output, source]
 
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
@@ -301,14 +316,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.mxtt_fc_epilogue.restype = i
     elif name == "paged_attention":
         lib.mxtt_paged_attention.argtypes = [p] * 9 + [i] * 8 + [
-            ctypes.c_float, i, i, i, p]
+            ctypes.c_float, i, i, i, i, i, p]
         lib.mxtt_paged_attention.restype = i
     elif name == "flash_attention":
         lib.mxtt_flash_attention.argtypes = [p] * 4 + [i] * 5 + [
-            ctypes.c_float, i, i, i, p]
+            ctypes.c_float, i, i, i, i, p]
         lib.mxtt_flash_attention.restype = i
     elif name == "correlation":
-        lib.mxtt_correlation.argtypes = [p] * 3 + [i] * 8 + [p]
+        lib.mxtt_correlation.argtypes = [p] * 3 + [i] * 9 + [p]
         lib.mxtt_correlation.restype = i
 
 
@@ -322,8 +337,33 @@ def _check(lib: ctypes.CDLL, name: str, rc: int) -> None:
 # fused_fc_epilogue
 
 ACT_CODES = {"none": 0, "relu": 1, "sigmoid": 2, "tanh": 3, "softrelu": 4}
+# the operand dtypes every kernel is compiled for, by the dtype code of
+# their C interfaces
 _FLOAT_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+KERNEL_DTYPES = tuple(_FLOAT_CODES)
+# one unit in the last place at magnitude 1: a 16-bit output, rounded once
+# from float32 sums that differ from the plain version's by a few float32
+# ulps, lies within HALF_ULP[dtype] * max(1, max|plain|) of it
+HALF_ULP = {torch.float16: 2.0 ** -10, torch.bfloat16: 2.0 ** -7}
 INT8_QMAX = 127
+
+
+def _float_operands(name: str, tensors):
+    """Check a kernel's float operands (``(tensor, what)`` pairs): each
+    of :data:`KERNEL_DTYPES` and contiguous.  -> (the tensors to launch
+    on, their dtype code): operands of one dtype as they are; mixed ones
+    upcast to float32, which is exact, for the float32 instance."""
+    for t, what in tensors:
+        if t.dtype not in _FLOAT_CODES:
+            raise MXNetError("%s: %s dtype %s, the kernel takes %s" % (
+                name, what, t.dtype,
+                " or ".join(str(d) for d in KERNEL_DTYPES)))
+        if not t.is_contiguous():
+            raise MXNetError("%s: %s must be contiguous" % (name, what))
+    ts = [t for t, _ in tensors]
+    if len({t.dtype for t in ts}) == 1:
+        return ts, _FLOAT_CODES[ts[0].dtype]
+    return [t.float() for t in ts], 0
 
 
 def reciprocal_f32(scale: float) -> float:
@@ -583,10 +623,13 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     last C positions).  Returns (S, C, H, D) in q's dtype.
 
     CUDA tensors launch the hand-written kernel (csrc/paged_attention.cu,
-    float32 q and pools, int32 indices, D <= 128; split-K as
-    :func:`paged_partitions` says for the partition length
-    :func:`paged_part_keys` resolves, one launch counted per call); CPU
-    tensors take :func:`paged_attention_reference`."""
+    q and pools in float32, float16 or bfloat16: a q of another dtype
+    than the pools is upcast to float32 and read over the pools as they
+    are, pools of two dtypes are both upcast to float32; int32 indices,
+    D <= 128; split-K as :func:`paged_partitions` says for the partition
+    length :func:`paged_part_keys` resolves under the pools' dtype, one
+    launch counted per call); CPU tensors take
+    :func:`paged_attention_reference`."""
     if q.dim() != 4 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape \
             or k_pool.shape[2:] != q.shape[2:]:
         raise MXNetError("paged_attention: need q (S, C, H, D) and pools "
@@ -616,15 +659,15 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
         raise MXNetError("paged_attention: inputs must all be on one CUDA "
                          "device, got %s" % [str(t.device) for t in tensors])
-    for t, what, dtype in ((q, "q", torch.float32),
-                           (k_pool, "k_pool", torch.float32),
-                           (v_pool, "v_pool", torch.float32),
-                           (pages, "pages", torch.int32),
-                           (lengths, "lengths", torch.int32),
-                           (q_pos, "q_pos", torch.int32)):
-        if t.dtype != dtype:
+    (qk,), _ = _float_operands("paged_attention", ((q, "q"),))
+    (kk, vk), _ = _float_operands(
+        "paged_attention", ((k_pool, "k_pool"), (v_pool, "v_pool")))
+    if qk.dtype != kk.dtype:           # q (small) upcast, never the pools
+        qk = qk.float()
+    for t, what in ((pages, "pages"), (lengths, "lengths"), (q_pos, "q_pos")):
+        if t.dtype != torch.int32:
             raise MXNetError("paged_attention: %s dtype %s, the kernel "
-                             "takes %s" % (what, t.dtype, dtype))
+                             "takes torch.int32" % (what, t.dtype))
         if not t.is_contiguous():
             raise MXNetError("paged_attention: %s must be contiguous" % what)
     if d > PAGED_MAX_HEAD_DIM:
@@ -634,20 +677,22 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         return torch.empty_like(q)
     if k_pool.shape[0] == 0 or pages.shape[1] == 0:
         raise MXNetError("paged_attention: empty pool or page table")
-    pk = paged_part_keys(k_pool.shape[1], d, causal, q.dtype,
+    pk = paged_part_keys(k_pool.shape[1], d, causal, kk.dtype,
                          pages.shape[1] * k_pool.shape[1], q.device,
                          part_keys)
-    return _launch_paged(q, k_pool, v_pool, pages, lengths, q_pos, causal,
-                         paged_partitions(c, pages.shape[1] * k_pool.shape[1],
-                                          pk), pk or PAGED_PARTITION_KEYS)
+    out = _launch_paged(qk, kk, vk, pages, lengths, q_pos, causal,
+                        paged_partitions(c, pages.shape[1] * k_pool.shape[1],
+                                         pk), pk or PAGED_PARTITION_KEYS)
+    return out.to(q.dtype)
 
 
 def _launch_paged(q, k_pool, v_pool, pages, lengths, q_pos, causal,
                   n_part: int,
                   part_keys: int = PAGED_PARTITION_KEYS) -> torch.Tensor:
-    """The kernel on checked CUDA tensors with ``n_part`` partitions of
-    ``part_keys`` keys (1: one pass writes the output; more: partials
-    into scratch, then the merge kernel), counted once."""
+    """The kernel on checked CUDA tensors, q of the pools' dtype or
+    float32, with ``n_part`` partitions of ``part_keys`` keys (1: one pass writes
+    the output; more: partials into scratch, then the merge kernel),
+    counted once."""
     s_, c, h, d = q.shape
     n, bt = k_pool.shape[0], k_pool.shape[1]
     b = pages.shape[1]
@@ -664,7 +709,8 @@ def _launch_paged(q, k_pool, v_pool, pages, lengths, q_pos, causal,
         lengths.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
         part_ml.data_ptr() if part_ml is not None else None,
         part_acc.data_ptr() if part_acc is not None else None, s_, c, h, d,
-        n, bt, b, int(bool(causal)), 1.0 / math.sqrt(d), int(part_keys),
+        n, bt, b, int(bool(causal)), 1.0 / math.sqrt(d),
+        _FLOAT_CODES[k_pool.dtype], _FLOAT_CODES[q.dtype], int(part_keys),
         int(n_part), q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     _check(lib, "paged_attention", rc)
@@ -750,7 +796,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     says.
 
     CUDA tensors launch the hand-written kernel (csrc/flash_attention.cu,
-    float32, contiguous, D <= 128); CPU tensors take
+    float32, float16 or bfloat16, mixed dtypes upcast to float32,
+    contiguous, D <= 128; the output in q's dtype); CPU tensors take
     :func:`flash_attention_reference`."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise MXNetError("flash_attention: need q, k, v of one shape (B, T, "
@@ -758,33 +805,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                     tuple(k.shape),
                                                     tuple(v.shape)))
     b, t, h, d = q.shape
-    bq, bk = flash_tiles(t, d, causal, q.dtype, q.device, block_q, block_k)
     tensors = (q, k, v)
     if all(x.device.type == "cpu" for x in tensors):
+        flash_tiles(t, d, causal, q.dtype, q.device, block_q, block_k)
         return flash_attention_reference(q, k, v, causal)
     if any(x.device != q.device for x in tensors) or q.device.type != "cuda":
         raise MXNetError("flash_attention: inputs must all be on one CUDA "
                          "device, got %s" % [str(x.device) for x in tensors])
-    for x, what in ((q, "q"), (k, "k"), (v, "v")):
-        if x.dtype != torch.float32:
-            raise MXNetError("flash_attention: %s dtype %s, the kernel takes "
-                             "torch.float32" % (what, x.dtype))
-        if not x.is_contiguous():
-            raise MXNetError("flash_attention: %s must be contiguous" % what)
+    (qk, kk, vk), code = _float_operands(
+        "flash_attention", ((q, "q"), (k, "k"), (v, "v")))
+    # the tile of the instance that runs: mixed dtypes run float32's
+    bq, bk = flash_tiles(t, d, causal, qk.dtype, q.device, block_q, block_k)
     if d > FLASH_MAX_HEAD_DIM:
         raise MXNetError("flash_attention: head dim %d > %d"
                          % (d, FLASH_MAX_HEAD_DIM))
-    out = torch.empty_like(q)
+    out = torch.empty_like(qk)
     if out.numel() == 0:
-        return out
+        return out.to(q.dtype)
     lib = _library("flash_attention")
     rc = lib.mxtt_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, h, d,
-        int(bool(causal)), 1.0 / math.sqrt(d), bq, bk, q.device.index or 0,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), out.data_ptr(), b, t, h,
+        d, int(bool(causal)), 1.0 / math.sqrt(d), bq, bk, code,
+        q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream)
     _check(lib, "flash_attention", rc)
     _count("flash_attention")
-    return out
+    return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -830,7 +875,8 @@ def correlation(a: torch.Tensor, b: torch.Tensor, max_displacement: int,
     zero outside the image; ``|a - b|`` when ``is_multiply`` is False.
 
     CUDA tensors launch the hand-written kernel (csrc/correlation.cu,
-    float32, contiguous, any D2); CPU tensors take
+    float32, float16 or bfloat16, mixed dtypes upcast to float32,
+    contiguous, any D2; the output in a's dtype); CPU tensors take
     :func:`correlation_reference`."""
     if a.dim() != 4 or b.shape != a.shape:
         raise MXNetError("correlation: need a and b of one shape (N, C, H, "
@@ -846,24 +892,19 @@ def correlation(a: torch.Tensor, b: torch.Tensor, max_displacement: int,
     if b.device != a.device or a.device.type != "cuda":
         raise MXNetError("correlation: inputs must both be on one CUDA "
                          "device, got %s and %s" % (a.device, b.device))
-    for x, what in ((a, "a"), (b, "b")):
-        if x.dtype != torch.float32:
-            raise MXNetError("correlation: %s dtype %s, the kernel takes "
-                             "torch.float32" % (what, x.dtype))
-        if not x.is_contiguous():
-            raise MXNetError("correlation: %s must be contiguous" % what)
+    (ak, bk), code = _float_operands("correlation", ((a, "a"), (b, "b")))
     n, c, h, w = a.shape
     _ng, d2 = correlation_geometry(max_displacement, stride2)
-    out = torch.empty((n, d2 * d2, h, w), dtype=a.dtype, device=a.device)
+    out = torch.empty((n, d2 * d2, h, w), dtype=ak.dtype, device=a.device)
     if out.numel() == 0:
-        return out
+        return out.to(a.dtype)
     if c == 0:
         raise MXNetError("correlation: zero channels")
     lib = _library("correlation")
     rc = lib.mxtt_correlation(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), n, c, h, w,
-        int(max_displacement), int(stride2), int(bool(is_multiply)),
+        ak.data_ptr(), bk.data_ptr(), out.data_ptr(), n, c, h, w,
+        int(max_displacement), int(stride2), int(bool(is_multiply)), code,
         a.device.index or 0, torch.cuda.current_stream(a.device).cuda_stream)
     _check(lib, "correlation", rc)
     _count("correlation")
-    return out
+    return out.to(a.dtype)
