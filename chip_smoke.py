@@ -356,14 +356,17 @@ Phases, in order; any failure exits nonzero:
 28. float16 and bfloat16 in ``paged_attention``, ``flash_attention`` and
    ``correlation`` (``kernel check half``, ``flownetc``, ``search (c)``,
    ``search (d)``, ``pool (d)`` lines): (a) each 16-bit instance at the
-   main paths' shapes and ragged ones bitwise the float32 instance on
-   the upcast inputs, rounded, and within one unit in the last place of
-   its plain version, mixed dtypes bitwise the float32 instance's output
-   cast; (b) FlowNetC's stage through ``Predictor`` bound in float16 and
-   ``simple_bind`` in bfloat16, the kernel once a forward in that dtype,
-   held on the captured inputs, the stage against phase 11's float32
-   output; (c) ``search_flash`` in float16 and bfloat16, each winner
-   under its dtype's class, a store hit, call-time resolution; (d)
+   main paths' shapes and ragged ones against the float32 instance on
+   the upcast inputs, rounded (correlation bitwise, flash and paged,
+   whose 16-bit products run on the tensor cores, within one unit in the
+   last place), within one unit in the last place of its plain version,
+   two calls bitwise equal, paged's page layouts bitwise equal, mixed
+   dtypes bitwise the float32 instance's output cast; (b) FlowNetC's
+   stage through ``Predictor`` bound in float16 and ``simple_bind`` in
+   bfloat16, the kernel once a forward in that dtype, held on the
+   captured inputs, the stage against phase 11's float32 output; (c)
+   ``search_flash`` in float16 and bfloat16, each winner under its
+   dtype's class, a store hit, call-time resolution; (d)
    ``search_paged`` in bfloat16 and ``paged_attention`` over
    ``KVBlockPool.add_view(dtype=)`` views at the page table's capacity;
    (e) each half instance timed beside the float32 instance, its plain
@@ -395,20 +398,21 @@ PEAK_TF32_FLOPS = 495e12
 FLASH_PEAK = "3xTF32: 3 TF32 products per float32 product at 495 TFLOP/s"
 # dense float16/bfloat16 on the tensor cores (float32 accumulate)
 PEAK_HALF_FLOPS = 989e12
-HALF_FLASH_PEAK = ("q.k at 989 TFLOP/s (16-bit operands, exact), p.v 2xTF32 "
-                   "at 495 TFLOP/s (float32 p split in two, 16-bit v exact "
-                   "in TF32)")
+HALF_FLASH_PEAK = ("q.k one 16-bit product (exact), p.v two (a float32 p "
+                   "split in two 16-bit parts), all at 989 TFLOP/s")
 
 
 def half_attention_flops_ms(flops, q_size):
     """Least time for attention's 4·D flops a (row, key) pair over 16-bit
-    K and V, half in q·k and half in p·v, on the tensor cores: q·k exact
-    in one product at the float16/bfloat16 rate when q is 16-bit too, else
-    2 TF32 products (a float32 q split in two, k exact in TF32); p·v 2 TF32
-    products (a float32 p split in two, v exact in TF32)."""
-    qk = flops / 2 / PEAK_HALF_FLOPS if q_size == 2 else \
-        2 * flops / 2 / PEAK_TF32_FLOPS
-    return 1e3 * (qk + 2 * flops / 2 / PEAK_TF32_FLOPS)
+    K and V, half in q·k and half in p·v, on the tensor cores, counted as
+    the products the function needs at its accuracy: with a 16-bit q, q·k
+    in one 16-bit product (exact) and p·v in two (a float32 p split into
+    two 16-bit parts), all at the float16/bfloat16 rate; with a float32
+    q, q·k in 2 TF32 products (q split in two, k exact in TF32) and p·v in
+    2 TF32 products (p split in two, v exact in TF32)."""
+    if q_size == 2:
+        return 1e3 * 1.5 * flops / PEAK_HALF_FLOPS
+    return 1e3 * 2 * flops / PEAK_TF32_FLOPS
 
 # The redesigned kernels' times before their tensor-core, split-K designs:
 # quoted, not measured by this script.  kernel_ab.py timed the earlier
@@ -419,6 +423,14 @@ def half_attention_flops_ms(flops, q_size):
 EARLIER_FLASH_MS = 0.3174
 EARLIER_PAGED_MS = {1: 0.1114, 9: 0.1529, 32: 0.1588}
 EARLIER_FROM = "quoted: PERF.md Findings (kernel_ab.py), not this run"
+# The 16-bit flash and paged instances before their m16n8k16, 16-bit-stage
+# design (float32 arithmetic over float32 stages filled through
+# registers), timed by phase 28 (e) on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md, Findings): flash at the search shape with its dtype's winner,
+# paged C=1 + C=32.  Quoted in the time rows, never in the kernels line.
+EARLIER_HALF_MS = {"flash_attention": {"float16": 0.1918, "bfloat16": 0.1920},
+                   "paged_attention": {"float16": 0.1905, "bfloat16": 0.1925}}
+EARLIER_HALF_FROM = "quoted: PERF.md Findings (phase 28 (e)), not this run"
 # correlation before its register-blocked design, at FlowNetC's shape
 # (multiply), timed by chip_smoke.py the same way (PERF.md, Findings)
 EARLIER_CORR_MS = {"flownetc": 0.6855}
@@ -1453,17 +1465,25 @@ def paged_time_case(torch, dev, c):
     return paged_case(torch, dev, 30 + c, PAGED_SPREAD, c, blocks=1100)
 
 
-def paged_layout_checks(torch, ck, dev, spread=PAGED_SPREAD):
+def paged_layout_checks(torch, ck, dev, spread=PAGED_SPREAD, dtype=None):
     """Bitwise layout invariance on the card: the same logical cache as
     stripes and scattered gives identical floats; two calls give
     identical floats.  At the path's shape for each C, and at C = 1 for
     the decode kernel's other head-dim buckets.  Phase 6 runs it with the
-    default partitions, phase 24 with the searched winner loaded."""
+    default partitions, phase 24 with the searched winner loaded, phase
+    28 with q and the pools in ``dtype`` (float16, bfloat16), where C > 1
+    also runs at D 128 and 32."""
     layouts = [(c, spread, {}) for c in (1, 9, 32)] + [
         (1, spread, dict(h=4, d=128)), (1, spread, dict(h=6, d=32)),
         (1, np.minimum(spread, 512), dict(h=3, d=10, b=32))]
+    if dtype is not None:
+        layouts += [(9, spread, dict(h=4, d=128)),
+                    (32, spread, dict(h=6, d=32))]
     for c, lens, kw in layouts:
         dense = paged_case(torch, dev, 21, lens, c, scatter=False, **kw)
+        if dtype is not None:
+            for key in ("q", "k_pool", "v_pool"):
+                dense[key] = dense[key].to(dtype)
         nb = dense["k_pool"].shape[0] - 1          # the sentinel block last
         perm = torch.randperm(nb, generator=torch.Generator().manual_seed(
             c)).to(dev)
@@ -1483,9 +1503,9 @@ def paged_layout_checks(torch, ck, dev, spread=PAGED_SPREAD):
         same = bool(torch.equal(a, b))
         again = bool(torch.equal(a, a2))
         d = dense["q"].shape[3]
-        print("kernel check paged layout-invariance C=%d D=%d: stripes and "
-              "scattered bitwise equal=%s; two calls bitwise equal=%s"
-              % (c, d, same, again))
+        print("kernel check paged layout-invariance C=%d D=%d %s: stripes "
+              "and scattered bitwise equal=%s; two calls bitwise equal=%s"
+              % (c, d, a.dtype, same, again))
         if not same:
             fail("paged_attention output depends on the page layout "
                  "(C=%d D=%d, max diff %.3g)"
@@ -9403,7 +9423,9 @@ def p25_search_rank(store, seed, second):
     from mxnet_tpu_torch.dist import shardsearch as ss
     os.environ["MXNET_AUTOTUNE_DIR"] = store
     os.environ["MXNET_DIST_SHARDSEARCH_SHORTLIST"] = "2"
-    os.environ["MXNET_DIST_SHARDSEARCH_STEPS"] = "2"
+    # one timed step a shortlisted candidate: the script's time limit
+    # (the two candidates' steps differ 2.6x on an H100)
+    os.environ["MXNET_DIST_SHARDSEARCH_STEPS"] = "1"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
@@ -11046,12 +11068,18 @@ def p27_phase(torch, mt, ck, smi, root, native_build_thread):
 #
 # (a) each kernel's float16 and bfloat16 instances at the main paths'
 #     shapes and at ragged ones (T no multiple of the tile, an odd head dim
-#     or width, operands only 2-byte aligned, an empty slot), each held
-#     bitwise to the float32 instance on the same values upcast, then
-#     rounded to the dtype (the kernels convert on load and keep the
-#     float32 arithmetic), and to its plain version within one unit in the
-#     last place (ck.HALF_ULP, phase 3's 16-bit rule); a call with mixed
-#     float dtypes bitwise the float32 instance's output cast to q's dtype;
+#     or width, every head-dim bucket, operands only 2-byte aligned, an
+#     empty slot), each held to the float32 instance on the same values
+#     upcast, then rounded to the dtype: correlation bitwise (it converts
+#     at the load and keeps the float32 arithmetic), flash and paged within
+#     one unit in the last place of it (their 16-bit products on the
+#     tensor cores sum in another order, and two float32 results a few
+#     ulps apart can round to neighbouring 16-bit values); each within one
+#     unit in the last place of its plain version (ck.HALF_ULP, phase 3's
+#     16-bit rule); two calls bitwise equal; paged's stripes and scattered
+#     pages bitwise equal in both dtypes; a call with mixed float dtypes,
+#     a float32 q over 16-bit pools among them, bitwise the float32
+#     instance's output cast to q's dtype;
 # (b) FlowNetC's correlation stage (phase 11's geometry, weights and
 #     frames) through Predictor bound in float16 (type_dict) and through
 #     simple_bind in bfloat16 (the port's Predictor types its inputs with
@@ -11071,7 +11099,8 @@ def p27_phase(torch, mt, ck, smi, root, native_build_thread):
 # (e) each half instance timed beside the float32 instance, its plain
 #     version and one library call in its dtype (gather + SDPA for paged,
 #     SDPA for flash, none for correlation), its bound at 2 bytes an
-#     element.
+#     element, and for flash and paged the earlier design's time, quoted
+#     (EARLIER_HALF_MS).
 
 HALF_NAMES = ("float16", "bfloat16")
 # FlowNetC's stage in a 16-bit dtype against the float32 stage, relative
@@ -11110,27 +11139,42 @@ def upcast(torch, args):
             for a in args]
 
 
-def hold_half(torch, ck, label, kernel, plain, args, dtype, zero_rows=None):
-    """kernel(*args) in a 16-bit dtype: bitwise the float32 instance on
-    the upcast arguments, rounded to ``dtype``; within HALF_ULP[dtype] *
-    max(1, max|plain|) of plain(*args); finite; ``zero_rows`` (a mask of
-    output rows) all zero.  -> max abs error against the plain version."""
+def hold_half(torch, ck, label, kernel, plain, args, dtype, zero_rows=None,
+              exact=True):
+    """kernel(*args) in a 16-bit dtype against the float32 instance on the
+    upcast arguments, rounded to ``dtype``: bitwise with ``exact`` (the
+    instance keeps the float32 arithmetic), else within HALF_ULP[dtype] *
+    max(1, max|that|) (the instance's own 16-bit products: two float32
+    results a few ulps apart can round to neighbouring 16-bit values);
+    within HALF_ULP[dtype] * max(1, max|plain|) of plain(*args); two calls
+    bitwise equal; finite; ``zero_rows`` (a mask of output rows) all zero.
+    -> max abs error against the plain version."""
     half = kernel(*args)
+    again = kernel(*args)
     want = kernel(*upcast(torch, args)).to(dtype)
     ref = plain(*args)
     torch.cuda.synchronize()
-    same = half.dtype == dtype and torch.equal(half, want)
+    f32_err = (half.float() - want.float()).abs().max().item()
+    f32_tol = 0.0 if exact else \
+        ck.HALF_ULP[dtype] * max(1.0, want.float().abs().max().item())
+    near = half.dtype == dtype and (torch.equal(half, want) if exact
+                                    else f32_err <= f32_tol)
+    repeat = torch.equal(half, again)
     err = (half.float() - ref.float()).abs().max().item()
     tol = ck.HALF_ULP[dtype] * max(1.0, ref.float().abs().max().item())
     finite = bool(torch.isfinite(half).all())
     zeros = zero_rows is None or bool((half[zero_rows] == 0).all())
-    print("kernel check half %-30s %-14s %s bitwise the float32 instance="
-          "%s max_abs_err=%.3g tol=%.3g finite=%s empty-zero=%s"
-          % (label, dtype, tuple(half.shape), same, err, tol, finite, zeros))
-    if not (same and err <= tol and finite and zeros):
-        fail("half %s %s: bitwise %s, max_abs_err %.3g (tol %.3g), finite "
-             "%s, empty rows zero %s" % (label, dtype, same, err, tol,
-                                         finite, zeros))
+    print("kernel check half %-30s %-14s %s float32 instance rounded: %s "
+          "err=%.3g tol=%.3g; max_abs_err=%.3g tol=%.3g repeat=%s finite=%s "
+          "empty-zero=%s" % (label, dtype, tuple(half.shape),
+                             "bitwise" if exact else "within",
+                             f32_err, f32_tol, err, tol, repeat, finite,
+                             zeros))
+    if not (near and repeat and err <= tol and finite and zeros):
+        fail("half %s %s: against the float32 instance %.3g (tol %.3g), "
+             "max_abs_err %.3g (tol %.3g), two calls equal %s, finite %s, "
+             "empty rows zero %s" % (label, dtype, f32_err, f32_tol, err,
+                                     tol, repeat, finite, zeros))
     return err
 
 
@@ -11165,6 +11209,10 @@ def p28_kernel_checks(torch, ck):
          False, False),
         ("odd-D9", dict(seed=16, lengths=[5, 77, 0, 33], c=4, h=3, d=9,
                         bt=16, b=8), True, False, False),
+        ("C9-D128", dict(seed=13, lengths=edges, c=9, h=4, d=128), True,
+         False, False),
+        ("C32-D32", dict(seed=14, lengths=edges, c=32, h=6, d=32), True,
+         False, False),
         ("2-byte-aligned-C1", dict(seed=19, lengths=edges, c=1), True, True,
          False),
         ("2-byte-aligned-C32", dict(seed=12, lengths=edges, c=32), True,
@@ -11174,6 +11222,7 @@ def p28_kernel_checks(torch, ck):
                    ("ragged-T77", (2, 77, 3, 64), True, False, False),
                    ("ragged-T77-full", (2, 77, 3, 64), False, False, False),
                    ("odd-D9", (2, 100, 3, 9), True, False, False),
+                   ("D32", (2, 200, 3, 32), True, False, False),
                    ("D128", (1, 300, 2, 128), True, False, False),
                    ("2-byte-aligned", (2, 129, 3, 64), True, True, False)]
     corr_cases = [("flownetc", FLOWNETC, True, False, True),
@@ -11199,7 +11248,7 @@ def p28_kernel_checks(torch, ck):
                 torch, ck, "paged %s causal=%d" % (label, causal),
                 lambda *a: ck.paged_attention(*a, causal=causal),
                 lambda *a: ck.paged_attention_reference(*a, causal=causal),
-                args, dt, zero_rows=empty)
+                args, dt, zero_rows=empty, exact=False)
             if is_main:
                 main["paged_attention"][name] = max(
                     main["paged_attention"][name], err)
@@ -11211,7 +11260,7 @@ def p28_kernel_checks(torch, ck):
                 torch, ck, "flash %s %s causal=%d" % (label, shape, causal),
                 lambda *a: ck.flash_attention(*a, causal=causal),
                 lambda *a: ck.flash_attention_reference(*a, causal=causal),
-                args, dt)
+                args, dt, exact=False)
             if is_main:
                 main["flash_attention"][name] = max(
                     main["flash_attention"][name], err)
@@ -11229,6 +11278,8 @@ def p28_kernel_checks(torch, ck):
             if is_main:
                 main["correlation"][name] = max(main["correlation"][name],
                                                 err)
+        # the same logical 16-bit cache as stripes and scattered
+        paged_layout_checks(torch, ck, dev, dtype=dt)
     # mixed float dtypes: the float32 instance on the upcast operands
     h16, b16 = torch.float16, torch.bfloat16
     q, k, v = flash_inputs(torch, dev, 520, 2, 77, 3, 64)
@@ -11391,7 +11442,7 @@ def p28_flash_search(torch, mt, ck, name, trials=2):
     hold_half(torch, ck, "flash at the winner %dx%d" % tiles,
               lambda *a: ck.flash_attention(*a, causal=True),
               lambda *a: ck.flash_attention_reference(*a, causal=True),
-              [q, k, v], dt)
+              [q, k, v], dt, exact=False)
     return {"winner": win, "launches": launches, "wall_s": wall}
 
 
@@ -11472,18 +11523,25 @@ def p28_paged(torch, mt, ck, smi):
             hold_half(torch, ck, "paged pool view C=%d causal=%d" % (
                 c, causal), lambda *a: ck.paged_attention(*a, causal=causal),
                 lambda *a: ck.paged_attention_reference(*a, causal=causal),
-                args, dt)
+                args, dt, exact=False)
         # a float32 q over the view: the pools are read as they are, so
-        # the call allocates its output and split-K scratch, not a copy
+        # the call allocates its output and split-K scratch, not a copy.
+        # Its partition length resolves under the pools' dtype (the
+        # bfloat16 winner) and the upcast call's under float32, so the
+        # bitwise check passes the view's to both: the arithmetic is held,
+        # not the two classes' winners
         args = [calls[0][2][0].float()] + calls[0][2][1:]
+        view_pk = ck.paged_part_keys(p["bt"], p["d"], True, dt, cap, dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
         ck.paged_attention(*args)
         torch.cuda.synchronize()
         extra = torch.cuda.max_memory_allocated(dev) - base
-        hold_mixed(torch, "paged pool view float32 q C=1",
-                   lambda *a: ck.paged_attention(*a), args)
+        hold_mixed(torch, "paged pool view float32 q C=1 part_keys=%d"
+                   % view_pk,
+                   lambda *a: ck.paged_attention(*a, part_keys=view_pk),
+                   args)
         print("pool (d) KVBlockPool.add_view(dtype=%s): %d slots at %d keys "
               "(the page table's capacity), %d bytes on %s; %d "
               "paged_attention launches; a float32 q over it allocated %d "
@@ -11534,6 +11592,8 @@ def p28_times(torch, ck, flash_wins):
         row["bound_by"] = "bytes" if 2 * row.pop("by_bytes") >= \
             row["bound_ms"] else "operations"
         row["shape"] = "C=1 + C=32, S=16 H=12 D=64 bt=16 ctx=1..1024"
+        row.update(earlier_ms=EARLIER_HALF_MS["paged_attention"][name],
+                   earlier_from=EARLIER_HALF_FROM)
         rows["paged_attention"][name] = row
 
         b, t, h, d = FLASH_SHAPE
@@ -11556,7 +11616,9 @@ def p28_times(torch, ck, flash_wins):
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2),
                 is_causal=True), flush),
-            "bound_ms": bound, "bound_by": by, "bound_peak": HALF_FLASH_PEAK}
+            "bound_ms": bound, "bound_by": by, "bound_peak": HALF_FLASH_PEAK,
+            "earlier_ms": EARLIER_HALF_MS["flash_attention"][name],
+            "earlier_from": EARLIER_HALF_FROM}
 
         g = FLOWNETC
         a, bb = corr_inputs(torch, dev, 300, g["n"], g["c"], g["h"], g["w"])

@@ -1,18 +1,20 @@
 // Operand element types of the attention and correlation kernels: float,
 // __half and __nv_bfloat16.  As in the TPU kernels
 // (mxnet_tpu/ops/pallas_kernels.py: `.astype(jnp.float32)` on every load,
-// `.astype(o_ref.dtype)` on the store), each element is converted to
-// float32 when it is loaded, all arithmetic is float32, and the output is
-// rounded once to the operands' type, to nearest even.  float16 and
-// bfloat16 convert to float32 exactly, so a half instance on half inputs
-// computes what the float32 instance computes on the same values upcast.
+// `.astype(o_ref.dtype)` on the store), the output is rounded once to the
+// operands' type, to nearest even, and float16 and bfloat16 convert to
+// float32 exactly.  Correlation's 16-bit instances convert each element to
+// float32 as it is loaded and keep the float32 arithmetic, so they compute
+// what the float32 instance computes on the same values upcast; the
+// attention kernels' 16-bit instances stage K and V in their own type and
+// convert them at the shared-memory read or multiply them there on the
+// tensor cores (attention.cuh).
 //
-// Loads.  The float32 instances copy global -> shared with cp.async.  The
-// 16-bit instances stage through registers instead: each thread loads
-// kN consecutive elements (16 bytes for kN = 8, 8 for kN = 4, or one),
-// converts them and stores kN float32s, so the shared-memory layout and
-// every read of it stay those of the float32 instance.  Dtype codes of the
-// C interfaces: 0 float32, 1 float16, 2 bfloat16 (as mxtt_fc_epilogue).
+// stage_f32 (correlation's 16-bit loads): each thread loads kN consecutive
+// elements (16 bytes for kN = 8, 8 for kN = 4, or one), converts them and
+// stores kN float32s, so the shared-memory layout and every read of it
+// stay those of the float32 instance.  Dtype codes of the C interfaces: 0
+// float32, 1 float16, 2 bfloat16 (as mxtt_fc_epilogue).
 
 #pragma once
 

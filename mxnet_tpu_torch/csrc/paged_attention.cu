@@ -10,8 +10,8 @@
 // (an empty slot) returns 0.  The pools are float32, float16 or bfloat16;
 // q and out are of the pools' type, or float32 over a 16-bit pool (a q of
 // another dtype, upcast by the caller, so the pools are never copied).
-// Each element is converted to float32 as it is loaded and out rounded
-// once to its type (elem.cuh); pages, lengths and q_pos int32.
+// out is rounded once to its type (elem.cuh); pages, lengths and q_pos
+// int32.
 //
 // Replaces the TPU kernel mxnet_tpu/ops/pallas_kernels.py:220
 // (_paged_kernel, launched by paged_attention at line 262).  On the TPU the
@@ -19,7 +19,7 @@
 // scratch from one grid step to the next; here the keys are cut into
 // partitions that blocks take in parallel, and a second kernel merges them.
 //
-// What bounds it.  Per key it reads 2·D floats (K and V) and does 4·D
+// What bounds it.  Per key it reads 2·D elements (K and V) and does 4·D
 // flops per query row: at C = 1 (decode) one flop per byte, at C = 32
 // (chunked prefill) 32.  The card balances float32 outside the tensor cores
 // against memory near 20 flop/byte, so decode is bound by the bytes of the
@@ -31,39 +31,44 @@
 // logical keys (a multiple of 32 the caller passes: 256 by default, 128,
 // 512 or 1024 as the kernel search chooses), and a block owns one (slot,
 // head, partition, tile of query rows: one row when C = 1, else up to
-// 16).  With n_part > 1 the block
-// writes its partial (m, l, acc) to scratch and paged_attention_merge_kernel
-// combines the partials of a row in partition order, clamping l at 1e-20
-// once at the end; a partition wholly past the slot's limit writes m = -inf,
-// l = 0 and returns.  With n_part == 1 (the caller's choice) the block
-// normalises and writes the output itself.  Inside a block, the partition's
-// 32-key chunks go to the block's W warps (four; two when D > 64, whose
-// rings would not fit four times) in logical order: warp w takes chunks w,
-// w+W, ...  Each warp streams its chunks through its own ring of kStages
-// shared-memory stages, filled by cp.async (16-byte copies when D % 4 == 0
-// and the pools are aligned), and looks up the physical rows of the next
-// chunk it will copy (page entries clamped to [0, N-1]) while it scores the
-// current one.  K and V rows are padded to an odd number of 16-byte units,
-// so lanes reading different keys hit distinct banks.  One query row (C =
-// 1, OneRow): lane j scores key j (the row read as float4 broadcasts), the
-// row's max takes a butterfly of shuffles and its sum stays per lane until
-// the end, p goes to the warp's p slab and is read back as float4
-// broadcasts while lane t accumulates head dims t, t+32, ... of p · V.  A
-// tile of 16 rows (C > 1, RowTile): Q·Kᵀ and P·V on the tensor cores in
-// 3xTF32, each chunk through attention.cuh's attention_tile, the key-tile
-// step flash_attention.cu takes.  Scores and maxima are in log2 units
-// throughout, as there.  The warps' (m, l, acc) are merged in warp order
-// through shared memory.  Partition bounds,
-// chunk-to-warp assignment and every sum's order depend on logical key
-// position alone (no atomics, no split that depends on physical block
+// 16).  With n_part > 1 the block writes its partial (m, l, acc) to
+// scratch and paged_attention_merge_kernel combines the partials of a row
+// in partition order, clamping l at 1e-20 once at the end; a partition
+// wholly past the slot's limit writes m = -inf, l = 0 and returns.  With
+// n_part == 1 (the caller's choice) the block normalises and writes the
+// output itself.  Inside a block, the partition's 32-key chunks go to the
+// block's W warps (four; two when D > 64, whose rings would not fit four
+// times) in logical order: warp w takes chunks w, w+W, ...  Each warp
+// streams its chunks through its own ring of shared-memory stages in the
+// pools' type (kStages over float32 pools, kHalfStages over 16-bit ones),
+// filled by cp.async 16-byte copies (4 floats or 8 16-bit elements, when D
+// is a multiple of them and the pools are 16-byte aligned; else 4-byte
+// copies of a float, or 16-bit elements through registers), and looks up
+// the physical rows of the next chunk it will copy (page entries clamped
+// to [0, N-1]) while it scores the current one.  K and V rows are padded to an odd number of 16-byte units, so
+// lanes reading different keys hit distinct banks.
+//
+// One query row (C = 1, OneRow): lane j scores key j, its K row read as
+// 16-byte vectors and converted to float32 at the read, against the query
+// row's float4 broadcasts; the row's max takes a butterfly of shuffles and
+// its sum stays per lane until the end; p goes to the warp's p slab and is
+// read back as float4 broadcasts while lane t accumulates head dims t,
+// t+32, ... of p · V.  This float32 arithmetic is every instance's, so a
+// 16-bit pool gives the float32 instance's output on the upcast pool,
+// rounded.  A tile of 16 rows (C > 1) runs on the tensor cores with the
+// key-tile step flash_attention.cu takes for its operands (attention.cuh):
+// a float32 q (RowTile, over any pool) in 3xTF32 through attention_tile,
+// each K and V element converted and split as it is read, so over a
+// 16-bit pool it is the float32 instance's arithmetic on the upcast pool;
+// a 16-bit q over pools of its type (RowTile16) through attention_tile_16,
+// q·k one 16-bit product and p·v two, K and V read through ldmatrix.
+// Scores and maxima are in log2 units throughout, as there.  The warps'
+// (m, l, acc) are merged in warp order through shared memory.  Partition
+// bounds, chunk-to-warp assignment and every sum's order depend on logical
+// key position alone (no atomics, no split that depends on physical block
 // ids), so the same logical cache under any page table gives bitwise the
 // same output: the engine's dense-stripe and paged layouts emit identical
-// tokens.  The 16-bit instances fill the same float32 stages through
-// registers (16-byte loads of 8 elements when D % 8 == 0 and the pools
-// are 16-byte aligned, else one element a load) and the query row or tile
-// is converted as it is read, so all that follows the loads is the float32
-// instance's code: a half instance's output is bitwise the float32
-// instance's on the upcast inputs, rounded.
+// tokens.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -86,6 +91,10 @@ using mxtt::to_f32;
 constexpr int kTileQ = 16;                       // query rows per block, C > 1
 constexpr int kChunk = 32;                       // keys per chunk: one per lane
 constexpr int kStages = 2;                       // chunks in flight per warp
+// ... over 16-bit pools: two stages of half float32's bytes, so three
+// 4-warp blocks fit an SM at D 64 where float32's ring fits one (four
+// stages, one block, ran C = 1 1.4x slower on an H100; PERF.md)
+constexpr int kHalfStages = 2;
 constexpr int kMaxD = 128;                       // head dim limit
 constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
@@ -110,20 +119,26 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Shared-memory geometry, in floats.  A stage row holds `width` head dims
-// (D rounded up to 4 for one query row; the MMA depth bucket kD for a
-// tile of 16 rows, whose fragments read all kD); K and V rows are padded
-// to an odd multiple of 4, so lanes reading different keys' float4s, and
-// the (g, t) MMA fragment reads, hit distinct banks.  Per warp: kStages
-// stages of one K and one V chunk, then, for one query row, a p slab.
+// Shared-memory geometry over pools of type P.  A stage row holds `width`
+// head dims (D rounded up to the kVec elements of a 16-byte copy for one
+// query row; the MMA depth bucket kD for a tile of 16 rows, whose
+// fragments read all kD); K and V rows are padded to an odd number of
+// 16-byte units, so lanes reading different keys' 16-byte vectors, the
+// (g, t) MMA fragment reads and ldmatrix's row reads hit distinct banks.
+// Per warp (`slab` floats): a ring of kRing stages of one K and one V
+// chunk (`stage` elements of P), then, for one query row, a p slab; the
+// query row (C = 1) is `qstride` floats.
+template <typename P>
 struct Geometry {
+  static constexpr int kVec = 16 / (int)sizeof(P);
+  static constexpr int kRing = mxtt::is_f32<P>() ? kStages : kHalfStages;
   int width, qstride, kstride, stage, slab;
   __host__ __device__ Geometry(int D, int rows, int kd) {
-    qstride = (D + 3) / 4 * 4;
+    qstride = (D + kVec - 1) / kVec * kVec;
     width = rows > 1 ? kd : qstride;
-    kstride = (width / 4) % 2 ? width : width + 4;
+    kstride = (width / kVec) % 2 ? width : width + kVec;
     stage = 2 * kChunk * kstride;
-    slab = kStages * stage + (rows > 1 ? 0 : kChunk);
+    slab = kRing * stage * (int)sizeof(P) / 4 + (rows > 1 ? 0 : kChunk);
   }
   __host__ __device__ size_t bytes(int rows, int warps) const {
     return sizeof(float) *
@@ -132,8 +147,12 @@ struct Geometry {
 };
 
 // One query row (C = 1): lane j scores key j of a chunk, the row read from
-// shared memory as float4 broadcasts; lane t accumulates head dims t,
-// t+32, ... of p · V, p read back from the warp's p slab as float4s.
+// shared memory as 16-byte vectors (4 floats, or 8 16-bit elements
+// converted as they are read) against the query row's float4 broadcasts;
+// lane t accumulates head dims t, t+32, ... of p · V, p read back from the
+// warp's p slab as float4s.  Every instance runs this float32 arithmetic
+// in one order, so a 16-bit pool's output is the float32 instance's on
+// the upcast pool.
 template <int kDpl>
 struct OneRow {
   float m = -INFINITY, l = 0.f;                  // l: this lane's share
@@ -144,19 +163,24 @@ struct OneRow {
     for (int t = 0; t < kDpl; ++t) acc[t] = 0.f;
   }
 
-  __device__ void chunk(const Geometry& g, const float* qs, const float* ks,
-                        const float* vs, float* ps, int k0, int hi,
+  template <typename P>
+  __device__ void chunk(const Geometry<P>& g, const float* qs, const P* ks,
+                        const P* vs, float* ps, int k0, int hi,
                         const int* pos_s, int causal, float scale_log2, int D,
                         int lane) {
-    const float* krow = ks + lane * g.kstride;
+    const P* krow = ks + lane * g.kstride;
     float sc = 0.f;
-    for (int d = 0; d < g.qstride; d += 4) {
-      const float4 kv = *reinterpret_cast<const float4*>(krow + d);
-      const float4 qv = *reinterpret_cast<const float4*>(qs + d);
-      sc = fmaf(qv.x, kv.x, sc);
-      sc = fmaf(qv.y, kv.y, sc);
-      sc = fmaf(qv.z, kv.z, sc);
-      sc = fmaf(qv.w, kv.w, sc);
+    for (int d = 0; d < g.qstride; d += Geometry<P>::kVec) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(krow + d);
+      const P* kv = reinterpret_cast<const P*>(&raw);
+#pragma unroll
+      for (int i = 0; i < Geometry<P>::kVec; i += 4) {
+        const float4 qv = *reinterpret_cast<const float4*>(qs + d + i);
+        sc = fmaf(qv.x, to_f32(kv[i]), sc);
+        sc = fmaf(qv.y, to_f32(kv[i + 1]), sc);
+        sc = fmaf(qv.z, to_f32(kv[i + 2]), sc);
+        sc = fmaf(qv.w, to_f32(kv[i + 3]), sc);
+      }
     }
     // online softmax update (pallas_kernels.py:241-259)
     const int key = k0 + lane;
@@ -180,12 +204,12 @@ struct OneRow {
       for (int t = 0; t < kDpl; ++t) {
         const int d = lane + 32 * t;
         if (d < D) {
-          const float* vc = vs + j * g.kstride + d;
+          const P* vc = vs + j * g.kstride + d;
           float a = acc[t];
-          a = fmaf(p4.x, vc[0], a);
-          a = fmaf(p4.y, vc[g.kstride], a);
-          a = fmaf(p4.z, vc[2 * g.kstride], a);
-          a = fmaf(p4.w, vc[3 * g.kstride], a);
+          a = fmaf(p4.x, to_f32(vc[0]), a);
+          a = fmaf(p4.y, to_f32(vc[g.kstride]), a);
+          a = fmaf(p4.z, to_f32(vc[2 * g.kstride]), a);
+          a = fmaf(p4.w, to_f32(vc[3 * g.kstride]), a);
           acc[t] = a;
         }
       }
@@ -207,71 +231,15 @@ struct OneRow {
   }
 };
 
-// A tile of 16 query rows (C > 1) on the tensor cores in 3xTF32, with the
-// key-tile step flash_attention.cu takes (attention.cuh's attention_tile):
-// the rows as m16n8k8 A fragments in registers, S = Q·Kᵀ over the chunk's
-// 32 keys, the online softmax on the accumulator fragments, P·V.  Each
-// chunk belongs to one warp, so each K and V element is split into its
-// TF32 parts once.
+// The running (m, l, o) of a tile of 16 query rows (C > 1) on the tensor
+// cores, o[n] holding output columns 8n + 2t and 8n + 2t + 1 of rows g and
+// g + 8, and its publication for the warp merge.
 template <int kDpl>
-struct RowTile {
+struct TileState {
   static constexpr int kD = 32 * kDpl;           // MMA depth bucket
   static constexpr int kDSteps = kD / 8;
-  uint32_t qh[kDSteps][4], ql[kDSteps][4];
   float o[kDSteps][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-  // q_tile: the tile's first row; rows `row_stride` elements apart
-  template <typename E>
-  __device__ void init(const E* q_tile, size_t row_stride, int rows, int D,
-                       int lane) {
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int ds = 0; ds < kDSteps; ++ds) {
-      const int d0 = 8 * ds + t, d1 = d0 + 4;
-      const E* qa = q_tile + (size_t)g * row_stride;
-      const E* qb = q_tile + (size_t)(g + 8) * row_stride;
-      split_tf32(g < rows && d0 < D ? to_f32(qa[d0]) : 0.f, qh[ds][0],
-                 ql[ds][0]);
-      split_tf32(g + 8 < rows && d0 < D ? to_f32(qb[d0]) : 0.f, qh[ds][1],
-                 ql[ds][1]);
-      split_tf32(g < rows && d1 < D ? to_f32(qa[d1]) : 0.f, qh[ds][2],
-                 ql[ds][2]);
-      split_tf32(g + 8 < rows && d1 < D ? to_f32(qb[d1]) : 0.f, qh[ds][3],
-                 ql[ds][3]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[ds][e] = 0.f;
-    }
-  }
-
-  // One 32-key chunk through attention.cuh's attention_tile, K and V split
-  // into their TF32 parts as they are read (V rows past the chunk's keys
-  // are 0, so are their p).
-  __device__ void chunk(const Geometry& geo, const float* ks,
-                        const float* vs, int k0, int hi, const int* pos_s,
-                        int causal, float scale_log2, int lane) {
-    const int g = lane >> 2, t = lane & 3;
-    const int stride = geo.kstride;
-    auto k_frag = [&](int j, int ds, uint32_t& h0, uint32_t& h1,
-                      uint32_t& l0, uint32_t& l1) {
-      const float* kr = ks + (8 * j + g) * stride + 8 * ds + t;
-      split_tf32(kr[0], h0, l0);
-      split_tf32(kr[4], h1, l1);
-    };
-    auto v_frag = [&](int j, int n, uint32_t& h0, uint32_t& h1,
-                      uint32_t& l0, uint32_t& l1) {
-      const float* vr = vs + (8 * j + 2 * t) * stride + g + 8 * n;
-      split_tf32(vr[0], h0, l0);
-      split_tf32(vr[stride], h1, l1);
-    };
-    const int pos[2] = {pos_s[g], pos_s[g + 8]};
-    auto seen = [&](int key, int r) {
-      key += k0;
-      return key < hi && (!causal || key <= pos[r]);
-    };
-    mxtt::attention_tile<kChunk / 8>(qh, ql, o, m, l, scale_log2, true,
-                                     k_frag, v_frag, seen);
-  }
 
   // (m, l, acc) of the tile's rows into the warp's slab, row-major
   __device__ void publish(float* slab, int rows, int D, int lane) {
@@ -293,6 +261,117 @@ struct RowTile {
         const int row = g + 8 * (e >> 1), d = 8 * n + 2 * t + (e & 1);
         if (row < rows && d < D) slab[2 * kTileQ + row * D + d] = o[n][e];
       }
+  }
+};
+
+// A float32 tile of 16 query rows in 3xTF32, with the key-tile step
+// flash_attention.cu takes for float32 (attention.cuh's attention_tile):
+// the rows as m16n8k8 A fragments in registers, S = Q·Kᵀ over the chunk's
+// 32 keys, the online softmax on the accumulator fragments, P·V.  Each
+// chunk belongs to one warp, so each K and V element is converted and
+// split into its TF32 parts as it is read, once.  Over a 16-bit pool the
+// stages hold 16-bit elements, converted exactly, so the arithmetic is
+// the float32 instance's on the upcast pool.
+template <int kDpl>
+struct RowTile : TileState<kDpl> {
+  static constexpr int kDSteps = 4 * kDpl;       // TileState's
+  uint32_t qh[kDSteps][4], ql[kDSteps][4];
+
+  // q_tile: the tile's first row; rows `row_stride` elements apart
+  __device__ void init(const float* q_tile, size_t row_stride, int rows,
+                       int D, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int ds = 0; ds < kDSteps; ++ds) {
+      const int d0 = 8 * ds + t, d1 = d0 + 4;
+      const float* qa = q_tile + (size_t)g * row_stride;
+      const float* qb = q_tile + (size_t)(g + 8) * row_stride;
+      split_tf32(g < rows && d0 < D ? qa[d0] : 0.f, qh[ds][0], ql[ds][0]);
+      split_tf32(g + 8 < rows && d0 < D ? qb[d0] : 0.f, qh[ds][1],
+                 ql[ds][1]);
+      split_tf32(g < rows && d1 < D ? qa[d1] : 0.f, qh[ds][2], ql[ds][2]);
+      split_tf32(g + 8 < rows && d1 < D ? qb[d1] : 0.f, qh[ds][3],
+                 ql[ds][3]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) this->o[ds][e] = 0.f;
+    }
+  }
+
+  // One 32-key chunk through attention.cuh's attention_tile (V rows past
+  // the chunk's keys are 0, so are their p).
+  template <typename P>
+  __device__ void chunk(const Geometry<P>& geo, const P* ks, const P* vs,
+                        int k0, int hi, const int* pos_s, int causal,
+                        float scale_log2, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    const int stride = geo.kstride;
+    auto k_frag = [&](int j, int ds, uint32_t& h0, uint32_t& h1,
+                      uint32_t& l0, uint32_t& l1) {
+      const P* kr = ks + (8 * j + g) * stride + 8 * ds + t;
+      split_tf32(to_f32(kr[0]), h0, l0);
+      split_tf32(to_f32(kr[4]), h1, l1);
+    };
+    auto v_frag = [&](int j, int n, uint32_t& h0, uint32_t& h1,
+                      uint32_t& l0, uint32_t& l1) {
+      const P* vr = vs + (8 * j + 2 * t) * stride + g + 8 * n;
+      split_tf32(to_f32(vr[0]), h0, l0);
+      split_tf32(to_f32(vr[stride]), h1, l1);
+    };
+    const int pos[2] = {pos_s[g], pos_s[g + 8]};
+    auto seen = [&](int key, int r) {
+      key += k0;
+      return key < hi && (!causal || key <= pos[r]);
+    };
+    mxtt::attention_tile<kChunk / 8>(qh, ql, this->o, this->m, this->l,
+                                     scale_log2, true, k_frag, v_frag, seen);
+  }
+};
+
+// A 16-bit tile of 16 query rows (q and pools of type E) with the key-tile
+// step flash_attention.cu takes for 16-bit operands (attention.cuh's
+// attention_tile_16): the rows as m16n8k16 A fragments of q's own values,
+// S = Q·Kᵀ in one 16-bit product, the online softmax, P·V in two, K and V
+// read from the 16-bit stages through ldmatrix.
+template <typename E, int kDpl>
+struct RowTile16 : TileState<kDpl> {
+  static constexpr int kD = 32 * kDpl;           // TileState's
+  uint32_t qa[kD / 16][4];
+
+  __device__ void init(const E* q_tile, size_t row_stride, int rows, int D,
+                       int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    const E zero = mxtt::from_f32<E>(0.f);
+    auto pair = [&](int row, int d) {
+      const E* r = q_tile + (size_t)row * row_stride;
+      return mxtt::pack16(row < rows && d < D ? r[d] : zero,
+                          row < rows && d + 1 < D ? r[d + 1] : zero);
+    };
+#pragma unroll
+    for (int ds = 0; ds < kD / 16; ++ds) {
+      const int d0 = 16 * ds + 2 * t, d1 = d0 + 8;
+      qa[ds][0] = pair(g, d0);
+      qa[ds][1] = pair(g + 8, d0);
+      qa[ds][2] = pair(g, d1);
+      qa[ds][3] = pair(g + 8, d1);
+    }
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) this->o[n][e] = 0.f;
+  }
+
+  __device__ void chunk(const Geometry<E>& geo, const E* ks, const E* vs,
+                        int k0, int hi, const int* pos_s, int causal,
+                        float scale_log2, int lane) {
+    const int g = lane >> 2;
+    const int pos[2] = {pos_s[g], pos_s[g + 8]};
+    auto seen = [&](int key, int r) {
+      key += k0;
+      return key < hi && (!causal || key <= pos[r]);
+    };
+    mxtt::attention_tile_16<E, kChunk / 8, kD>(qa, this->o, this->m, this->l,
+                                               scale_log2, true, ks, vs,
+                                               geo.kstride, seen);
   }
 };
 
@@ -318,7 +397,9 @@ paged_attention_kernel(const Q* __restrict__ q,
   extern __shared__ __align__(16) float smem[];
   __shared__ int pos_s[kTileQ];
 
-  const Geometry g(D, kRows, 32 * kDpl);
+  using Geo = Geometry<P>;
+  constexpr int kRing = Geo::kRing;
+  const Geo g(D, kRows, 32 * kDpl);
   const int s = blockIdx.x / H;
   const int h = blockIdx.x % H;
   const int part = blockIdx.y;
@@ -330,6 +411,7 @@ paged_attention_kernel(const Q* __restrict__ q,
   const Q* q_tile = q + ((size_t)(s * C + c0) * H + h) * D;
   float* qs = smem;                              // one query row (C = 1)
   float* slab = smem + (kRows > 1 ? 0 : g.qstride) + warp * g.slab;
+  P* const stages = reinterpret_cast<P*>(slab);  // the warp's ring
 
   // rows past the tile's end: no visible key when causal
   if (threadIdx.x < kTileQ)
@@ -362,9 +444,9 @@ paged_attention_kernel(const Q* __restrict__ q,
       qs[d] = d < D ? to_f32(q_tile[d]) : 0.f;
   // Head dims D .. width-1 are never copied: zero them in every stage
   const int pad = g.width - D;
-  for (int i = lane; i < kStages * 2 * kChunk * pad; i += 32) {
+  for (int i = lane; i < kRing * 2 * kChunk * pad; i += 32) {
     const int r = i / pad;                       // stage rows, K then V
-    slab[r * g.kstride + D + (i - r * pad)] = 0.f;
+    stages[r * g.kstride + D + (i - r * pad)] = mxtt::from_f32<P>(0.f);
   }
   __syncthreads();
 
@@ -379,34 +461,19 @@ paged_attention_kernel(const Q* __restrict__ q,
     const int blk = min(max(pages[(size_t)s * B + key / bt], 0), N - 1);
     return blk * bt + key % bt;
   };
-  // The warp's i-th chunk into its stage as one cp.async group (through
-  // registers for 16-bit pools); zeros for keys past the partition.
+  // The warp's i-th chunk into its stage as one cp.async group: 16-byte
+  // copies of 4 floats or 8 16-bit elements when `vec`, else 4-byte copies
+  // of a float, or a 16-bit element through registers; zeros for keys
+  // past the partition.
   auto issue = [&](int i, int row_at) {
     if (i < mine) {
-      float* ks = slab + (i % kStages) * g.stage;
-      float* vs = ks + kChunk * g.kstride;
+      P* ks = stages + (i % kRing) * g.stage;
+      P* vs = ks + kChunk * g.kstride;
       const size_t hd = (size_t)h * D;
-      if constexpr (!mxtt::is_f32<P>()) {
-        const int per = vec ? 8 : 1;             // elements a load
-        const int dn = D / per;
+      if (vec) {
+        const int dn = D / Geo::kVec;
         for (int x = lane; x < kChunk * dn; x += 32) {
-          const int j = x / dn, d = (x - j * dn) * per;
-          const int row = __shfl_sync(kFull, row_at, j);
-          const size_t at = (size_t)max(row, 0) * tok_stride + hd + d;
-          float* kd = ks + j * g.kstride + d;
-          float* vd = vs + j * g.kstride + d;
-          if (vec) {
-            mxtt::stage_f32<8>(kd, k_pool + at, row >= 0);
-            mxtt::stage_f32<8>(vd, v_pool + at, row >= 0);
-          } else {
-            mxtt::stage_f32<1>(kd, k_pool + at, row >= 0);
-            mxtt::stage_f32<1>(vd, v_pool + at, row >= 0);
-          }
-        }
-      } else if (vec) {
-        const int d4n = D / 4;
-        for (int x = lane; x < kChunk * d4n; x += 32) {
-          const int j = x / d4n, d = (x - j * d4n) * 4;
+          const int j = x / dn, d = (x - j * dn) * Geo::kVec;
           const int row = __shfl_sync(kFull, row_at, j);
           const size_t at = (size_t)max(row, 0) * tok_stride + hd + d;
           cp_async16(ks + j * g.kstride + d, k_pool + at, row >= 0);
@@ -417,37 +484,46 @@ paged_attention_kernel(const Q* __restrict__ q,
           const int j = x / D, d = x - j * D;
           const int row = __shfl_sync(kFull, row_at, j);
           const size_t at = (size_t)max(row, 0) * tok_stride + hd + d;
-          cp_async4(ks + j * g.kstride + d, k_pool + at, row >= 0);
-          cp_async4(vs + j * g.kstride + d, v_pool + at, row >= 0);
+          if constexpr (mxtt::is_f32<P>()) {
+            cp_async4(ks + j * g.kstride + d, k_pool + at, row >= 0);
+            cp_async4(vs + j * g.kstride + d, v_pool + at, row >= 0);
+          } else {
+            const P zero = mxtt::from_f32<P>(0.f);
+            ks[j * g.kstride + d] = row >= 0 ? k_pool[at] : zero;
+            vs[j * g.kstride + d] = row >= 0 ? v_pool[at] : zero;
+          }
         }
       }
     }
     cp_async_commit();
   };
 
+  // one query row; a float32 tile in 3xTF32; a 16-bit tile over its pools
+  using Tile = typename std::conditional<mxtt::is_f32<Q>(), RowTile<kDpl>,
+                                         RowTile16<P, kDpl>>::type;
   using Rows = typename std::conditional<kRows == 1, OneRow<kDpl>,
-                                         RowTile<kDpl>>::type;
+                                         Tile>::type;
   Rows rs;
   if constexpr (kRows == 1)
     rs.init();
   else
     rs.init(q_tile, tok_stride, rows, D, lane);
 
-  for (int i = 0; i < kStages; ++i) issue(i, lookup(i));
+  for (int i = 0; i < kRing; ++i) issue(i, lookup(i));
   for (int i = 0; i < mine; ++i) {
-    cp_async_wait<kStages - 1>();                // chunk i has landed
+    cp_async_wait<kRing - 1>();                  // chunk i has landed
     __syncwarp();
-    const int row_next = lookup(i + kStages);    // in flight while we score
-    const float* ks = slab + (i % kStages) * g.stage;
-    const float* vs = ks + kChunk * g.kstride;
+    const int row_next = lookup(i + kRing);      // in flight while we score
+    const P* ks = stages + (i % kRing) * g.stage;
+    const P* vs = ks + kChunk * g.kstride;
     const int k0 = lo + (warp + i * kWarps) * kChunk;
     if constexpr (kRows == 1)
-      rs.chunk(g, qs, ks, vs, slab + kStages * g.stage, k0, hi, pos_s,
+      rs.chunk(g, qs, ks, vs, slab + (g.slab - kChunk), k0, hi, pos_s,
                causal, scale_log2, D, lane);
     else
       rs.chunk(g, ks, vs, k0, hi, pos_s, causal, scale_log2, lane);
     __syncwarp();                                // stage and p slab free
-    issue(i + kStages, row_next);
+    issue(i + kRing, row_next);
   }
   cp_async_wait<0>();
 
@@ -543,7 +619,8 @@ cudaError_t launch(const Q* q, const P* k_pool, const P* v_pool,
                    int device, cudaStream_t stream) {
   auto kernel = paged_attention_kernel<Q, P, kRows, kDpl>;
   constexpr int kWarps = warps_for(kDpl);
-  const size_t bytes = Geometry(D, kRows, 32 * kDpl).bytes(kRows, kWarps);
+  const size_t bytes =
+      Geometry<P>(D, kRows, 32 * kDpl).bytes(kRows, kWarps);
   // the largest dynamic shared memory opted into so far, per device
   static int opted[kMaxDevices];
   if (bytes > 48 * 1024 && (int)bytes > opted[device]) {

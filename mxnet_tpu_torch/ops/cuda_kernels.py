@@ -14,9 +14,16 @@ The counterpart of ``mxnet_tpu/ops/pallas_kernels.py``.  Each kernel has:
   launches two CUDA kernels, as split-K ``paged_attention`` does).
 
 Every kernel takes float32, float16 and bfloat16 operands
-(:data:`KERNEL_DTYPES`), as the TPU kernels do: each element is converted
-to float32 when it is loaded, the arithmetic is float32, and the output
-is rounded once to the operands' dtype (``csrc/elem.cuh``).  The
+(:data:`KERNEL_DTYPES`), as the TPU kernels do, and rounds its output
+once to the operands' dtype (``csrc/elem.cuh``).  The TPU kernels
+convert each element to float32 as they load it; so does correlation,
+and so do paged_attention's one-row path and any float32 q.  A 16-bit
+q, k and v in flash_attention, and a 16-bit q over pools of its dtype
+in paged_attention's row tiles, are multiplied on the tensor cores as
+they are (``csrc/attention.cuh``: q·k in one 16-bit product, exact in
+float32; p·v in two, p split into two 16-bit parts; float32 sums): the
+output lies within one unit in its last place of the float32
+arithmetic's, rounded.  The
 attention and correlation wrappers run the instance of their operands'
 dtype; operands of mixed float dtypes are upcast to float32 (exact) and
 run the float32 instance, the output cast to q's (or a's) dtype, which
@@ -722,9 +729,10 @@ def _launch_paged(q, k_pool, v_pool, pages, lengths, q_pos, causal,
 # flash_attention
 
 # the kernel's compiled tile instances (csrc/flash_attention.cu FLASH_TILE),
-# each for D <= 32, <= 64 and <= 128: block_q rows, 16 per warp, and a ring
-# of two block_k-key stages of K and V plus the TF32 remainders of one,
-# 198 KB of shared memory at (block_k 64, D 128)
+# each for D <= 32, <= 64 and <= 128 and each dtype: block_q rows, 16 per
+# warp, and a ring of block_k-key stages of K and V: in float32 two plus
+# the TF32 remainders of one, 198 KB of shared memory at (block_k 64, D
+# 128); in float16 and bfloat16 three, 102 KB there
 FLASH_BLOCK_Q = (64, 128)
 FLASH_BLOCK_K = (32, 64)
 FLASH_TILES = tuple((bq, bk) for bq in FLASH_BLOCK_Q for bk in FLASH_BLOCK_K)

@@ -3,18 +3,25 @@ against the JAX package's, on the CPU.
 
 The JAX kernels take any float dtype: each operand is upcast to float32 as
 it is loaded, the arithmetic is float32, and the output is rounded once to
-q's (a's) dtype.  The port's CUDA kernels do the same (``csrc/elem.cuh``;
-``chip_smoke.py`` phase 28 holds each 16-bit instance on the card bitwise
-to the float32 instance on the upcast inputs).  Here, on CPU tensors, the
-port's wrappers take their plain versions; each is held, in float16 and
-bfloat16, to the JAX Pallas kernel run with ``interpret=True`` in the same
-dtype, within one unit in the dtype's last place at the outputs' scale,
-``HALF_ULP[dtype] * max(1, max|jax|)`` (2^-10 for float16, 2^-7 for
-bfloat16): both sides round float32 results that differ by a few float32
-ulps.  Also: operands of mixed float dtypes; the ``Correlation`` op bound
-in float16 through ``simple_bind(type_dict=)`` against the JAX op (its lax
+q's (a's) dtype.  The port's correlation kernel does the same
+(``csrc/elem.cuh``); its flash and paged kernels multiply 16-bit operands
+on the tensor cores (``csrc/attention.cuh``: q·k in one 16-bit product,
+p·v in two, p split into ``rn(p)`` and ``rn(p - rn(p))`` in v's dtype,
+float32 sums), which ``chip_smoke.py`` phase 28 holds on the card within
+one unit in the last place of the float32 instance's output.  Here, on
+CPU tensors, the port's wrappers take their plain versions; each is held,
+in float16 and bfloat16, to the JAX Pallas kernel run with
+``interpret=True`` in the same dtype, within one unit in the dtype's last
+place at the outputs' scale, ``HALF_ULP[dtype] * max(1, max|jax|)``
+(2^-10 for float16, 2^-7 for bfloat16): both sides round float32 results
+that differ by a few float32 ulps.  So is a plain-PyTorch emulation of the
+16-bit kernels' arithmetic (:func:`_emulate_16bit`), which shows that the
+one-ulp gate holds for the design and not only for the card's sums.
+Also: operands of mixed float dtypes; the ``Correlation`` op bound in
+float16 through ``simple_bind(type_dict=)`` against the JAX op (its lax
 lowering on the CPU); a bfloat16 ``KVBlockPool`` view; the wrappers'
-dtype checks and C interfaces; the kernel search without ``ml_dtypes``.
+dtype checks and C interfaces; the 16-bit kernels' sources; the kernel
+search without ``ml_dtypes``.
 """
 import os
 import re
@@ -154,6 +161,151 @@ def test_paged_over_a_half_pool_view(dt):
     jargs = [_to_jax(a) for a in args]
     want = pallas_paged(*jargs[:5], q_pos=jargs[5], interpret=True)
     _assert_ulp(got, want, tdt)
+
+
+# ---------------------------------------------------------------------------
+# the 16-bit flash and paged kernels' arithmetic, emulated
+
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _emulate_16bit(q, k, v, mask, tile, split):
+    """The 16-bit kernels' arithmetic in plain PyTorch.  q (..., R, D),
+    k and v (..., K, D) of one 16-bit dtype, taken exactly in float32;
+    mask (..., R, K) the keys each row sees.  S = q·kᵀ in float32 (each
+    product of two 16-bit values is exact) times scale·log2 e; keys walked
+    in tiles of ``tile`` with an online softmax in log2 units (the row's
+    running max, the isinf guards); with ``split`` each tile's float32 p
+    goes into P·V as two parts in v's dtype, ``rn(p)`` and ``rn(p -
+    rn(p))``, the small part first, as attention_tile_16 multiplies it
+    (without, p stays float32, as the paged kernel's one-row path keeps
+    it); l sums the float32 p, is clamped at 1e-20, and the output is
+    rounded once to v's dtype."""
+    dt = v.dtype
+    qf, kf, vf = q.float(), k.float(), v.float()
+    scale_log2 = np.float32(np.float32(1.0 / np.sqrt(q.shape[-1])) * LOG2E)
+    s = torch.where(mask, (qf @ kf.transpose(-1, -2)) * scale_log2,
+                    torch.tensor(-np.inf))
+    m = torch.full(s.shape[:-1], -np.inf)
+    l = torch.zeros(s.shape[:-1])
+    o = torch.zeros(s.shape[:-1] + (v.shape[-1],))
+    for k0 in range(0, s.shape[-1], tile):
+        st, vt = s[..., k0:k0 + tile], vf[..., k0:k0 + tile, :]
+        new_m = torch.maximum(m, st.amax(-1))
+        safe = torch.where(torch.isinf(new_m), 0.0, new_m)
+        corr = torch.where(torch.isinf(m), 0.0, torch.exp2(m - safe))
+        p = torch.where(torch.isinf(st), 0.0,
+                        torch.exp2(st - safe[..., None]))
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None]
+        if split:
+            hi = p.to(dt).float()
+            lo = (p - hi).to(dt).float()
+            o = o + lo @ vt
+            o = o + hi @ vt
+        else:
+            o = o + p @ vt
+        m = new_m
+    return (o / l.clamp_min(1e-20)[..., None]).to(dt)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t,block_k", [(64, 32), (77, 32), (77, 64)],
+                         ids=["T64", "ragged-T77", "ragged-T77-bk64"])
+def test_flash_16bit_arithmetic_within_one_ulp_of_pallas(dt, causal, t,
+                                                         block_k):
+    tdt, _ = DTYPES[dt]
+    q, k, v = (_randn((2, t, 2, 16), tdt, 20 + s) for s in range(3))
+    mask = torch.ones(t, t, dtype=torch.bool)
+    if causal:
+        mask = mask.tril()
+    got = _emulate_16bit(*(x.permute(0, 2, 1, 3) for x in (q, k, v)),
+                         mask, block_k, split=True).permute(0, 2, 1, 3)
+    want = pallas_flash(*(_to_jax(x) for x in (q, k, v)), causal=causal,
+                        block_q=32, block_k=32, interpret=True)
+    _assert_ulp(got, want, tdt)
+
+
+def _paged_wide(dtype, c, seed):
+    """Slots whose contexts straddle several 32-key chunks, an empty slot,
+    unassigned page entries at the sentinel block (large finite values
+    the lengths must mask), blocks out of order; bt 8, 10 blocks a slot."""
+    rng = np.random.RandomState(seed)
+    lengths = np.array([37, 70, 0, 80], np.int32)
+    s, max_b, bt, blocks, h, d = len(lengths), 10, 8, 30, 2, 16
+    pages = np.full((s, max_b), blocks, np.int32)
+    order = rng.permutation(blocks)
+    nxt = 0
+    for i, n in enumerate(lengths):
+        for b in range(-(-int(n) // bt)):
+            pages[i, b] = order[nxt]
+            nxt += 1
+    k_pool = _randn((blocks + 1, bt, h, d), dtype, seed + 1)
+    v_pool = _randn((blocks + 1, bt, h, d), dtype, seed + 2)
+    k_pool[blocks] = 1e3
+    v_pool[blocks] = 1e3
+    q = _randn((s, c, h, d), dtype, seed + 3)
+    q_pos = lengths[:, None] - c + np.arange(c, dtype=np.int32)[None]
+    return [q, k_pool, v_pool, torch.from_numpy(pages),
+            torch.from_numpy(lengths), torch.from_numpy(q_pos)]
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("c", [1, 32])
+def test_paged_16bit_arithmetic_within_one_ulp_of_pallas(dt, causal, c):
+    """The paged kernel's 16-bit arithmetic over the gathered context: two
+    16-bit parts of p at C = 32 (its tensor-core row tile), float32 p at
+    C = 1 (its one-row path), 32-key chunks."""
+    tdt, _ = DTYPES[dt]
+    args = _paged_wide(tdt, c, seed=30 + c)
+    q, k_pool, v_pool, pages, lengths, q_pos = args
+    n, bt = k_pool.shape[:2]
+    s_, _, h, d = q.shape
+    safe = pages.long().clamp(0, n - 1)
+    kg, vg = (p[safe].reshape(s_, -1, h, d).permute(0, 2, 1, 3)
+              for p in (k_pool, v_pool))
+    keys = torch.arange(kg.shape[2])
+    mask = (keys[None, :] < lengths.long()[:, None])[:, None, None, :]
+    if causal:
+        mask = mask & (keys[None, None, :]
+                       <= q_pos.long()[:, :, None])[:, None]
+    got = _emulate_16bit(q.permute(0, 2, 1, 3), kg, vg, mask, 32,
+                         split=c > 1).permute(0, 2, 1, 3)
+    jargs = [_to_jax(a) for a in args]
+    want = pallas_paged(*jargs[:5], q_pos=jargs[5], causal=causal,
+                        interpret=True)
+    _assert_ulp(got, want, tdt)
+    assert (got[2] == 0).all()                   # the empty slot
+
+
+def test_16bit_kernels_multiply_16bit_operands_from_16bit_stages():
+    """The 16-bit flash and paged paths: m16n8k16 products in float16 and
+    bfloat16 (one for q·k, two for p·v) on fragments read through ldmatrix
+    from stages in the operands' type, filled by cp.async; no staging
+    through float32 registers (elem.cuh's stage_f32, which correlation
+    still uses)."""
+    def read(name):
+        with open(os.path.join(ck._CSRC, name)) as f:
+            return f.read()
+    header = read("attention.cuh")
+    for e in ("f16.f16", "bf16.bf16"):
+        assert "mma.sync.aligned.m16n8k16.row.col.f32.%s.f32" % e in header
+    assert "ldmatrix.sync.aligned.m8n8.x4.shared.b16" in header
+    assert "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16" in header
+    step = header[header.index("void attention_tile_16("):]
+    assert step.count("mma_16<E>(o[") == 4         # p·v: two parts a tile
+    assert step.count("mma_16<E>(s[") == 2         # q·k: one product
+    assert "split16<E>(" in step and "split_tf32" not in step
+    flash, paged = read("flash_attention.cu"), read("paged_attention.cu")
+    for text, stage in ((flash, "E* ks = ring + "),
+                        (paged, "P* ks = stages + ")):
+        assert "mxtt::attention_tile_16<" in text
+        assert "stage_f32" not in text
+        assert stage in text and "cp_async16(ks + " in text
+        assert "constexpr int kHalfStages = " in text
+    assert "stage_f32<" in read("correlation.cu")
 
 
 # ---------------------------------------------------------------------------
