@@ -357,9 +357,10 @@ Phases, in order; any failure exits nonzero:
    ``correlation`` (``kernel check half``, ``flownetc``, ``search (c)``,
    ``search (d)``, ``pool (d)`` lines): (a) each 16-bit instance at the
    main paths' shapes and ragged ones against the float32 instance on
-   the upcast inputs, rounded (correlation bitwise, flash and paged,
-   whose 16-bit products run on the tensor cores, within one unit in the
-   last place), within one unit in the last place of its plain version,
+   the upcast inputs, rounded (correlation's ``|a - b|`` bitwise; flash,
+   paged and correlation's products, whose 16-bit products run on the
+   tensor cores, within one unit in the last place), within one unit in
+   the last place of its plain version,
    two calls bitwise equal, paged's page layouts bitwise equal, mixed
    dtypes bitwise the float32 instance's output cast; (b) FlowNetC's
    stage through ``Predictor`` bound in float16 and ``simple_bind`` in
@@ -370,7 +371,11 @@ Phases, in order; any failure exits nonzero:
    ``search_paged`` in bfloat16 and ``paged_attention`` over
    ``KVBlockPool.add_view(dtype=)`` views at the page table's capacity;
    (e) each half instance timed beside the float32 instance, its plain
-   version and the library call; the ``half precision result`` line;
+   version and the library call, correlation also at PWC-Net's shape,
+   and ``fused_fc_epilogue`` in float16 and bfloat16 at fc6 + fc7
+   (bucket 8) beside ``addmm`` + ``relu_`` in that dtype, with the
+   launches of phase 5's float16 serving; the ``half precision result``
+   line;
    then the whole script's wall, the ``kernels`` JSON line (all four
    kernels and their float16 and bfloat16 instances), then the
    ``{"ok": true, ...}`` line.
@@ -423,13 +428,15 @@ def half_attention_flops_ms(flops, q_size):
 EARLIER_FLASH_MS = 0.3174
 EARLIER_PAGED_MS = {1: 0.1114, 9: 0.1529, 32: 0.1588}
 EARLIER_FROM = "quoted: PERF.md Findings (kernel_ab.py), not this run"
-# The 16-bit flash and paged instances before their m16n8k16, 16-bit-stage
-# design (float32 arithmetic over float32 stages filled through
-# registers), timed by phase 28 (e) on an NVIDIA H100 80GB HBM3 at 700 W
-# (PERF.md, Findings): flash at the search shape with its dtype's winner,
-# paged C=1 + C=32.  Quoted in the time rows, never in the kernels line.
+# The 16-bit instances before their m16n8k16, 16-bit-stage designs
+# (float32 arithmetic over float32 stages filled through registers), timed
+# by phase 28 (e) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, Findings):
+# flash at the search shape with its dtype's winner, paged C=1 + C=32,
+# correlation at FlowNetC's shape (multiply).  Quoted in the time rows,
+# never in the kernels line.
 EARLIER_HALF_MS = {"flash_attention": {"float16": 0.1918, "bfloat16": 0.1920},
-                   "paged_attention": {"float16": 0.1905, "bfloat16": 0.1925}}
+                   "paged_attention": {"float16": 0.1905, "bfloat16": 0.1925},
+                   "correlation": {"float16": 0.4713, "bfloat16": 0.4731}}
 EARLIER_HALF_FROM = "quoted: PERF.md Findings (phase 28 (e)), not this run"
 # correlation before its register-blocked design, at FlowNetC's shape
 # (multiply), timed by chip_smoke.py the same way (PERF.md, Findings)
@@ -451,8 +458,9 @@ def fail(msg):
 
 def ptxas_instances(log):
     """[(kernel instance, registers, spill bytes)] from ``-Xptxas -v``
-    output: one entry per compiled entry function, named by its kernel
-    and template arguments."""
+    output: one entry per compiled entry function, named by its kernel,
+    its element type where that is the first template argument, and its
+    integer and bool template arguments."""
     found, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties "
@@ -469,9 +477,13 @@ def ptxas_instances(log):
         if m and cur:
             found[cur][0] = int(m.group(1))
     out = []
+    dtypes = {"f": "float", "6__half": "half", "13__nv_bfloat16": "bf16"}
     for name, (regs, spill) in found.items():
-        base = re.search(r"([a-z][a-z_]*_kernel)I", name)
+        base = re.search(r"([a-z][a-z_]*_kernel)I(f|6__half|13__nv_bfloat16)?",
+                         name)
         args = re.findall(r"L[bi](\d+)E", name)
+        if base and base.group(2):
+            args.insert(0, dtypes[base.group(2)])
         out.append(("%s<%s>" % (base.group(1), ",".join(args)) if base
                     else name[:60], regs, spill))
     return out
@@ -11070,11 +11082,12 @@ def p27_phase(torch, mt, ck, smi, root, native_build_thread):
 #     shapes and at ragged ones (T no multiple of the tile, an odd head dim
 #     or width, every head-dim bucket, operands only 2-byte aligned, an
 #     empty slot), each held to the float32 instance on the same values
-#     upcast, then rounded to the dtype: correlation bitwise (it converts
-#     at the load and keeps the float32 arithmetic), flash and paged within
-#     one unit in the last place of it (their 16-bit products on the
-#     tensor cores sum in another order, and two float32 results a few
-#     ulps apart can round to neighbouring 16-bit values); each within one
+#     upcast, then rounded to the dtype: correlation's |a - b| bitwise (it
+#     converts at the shared-memory read and keeps the float32
+#     arithmetic), flash, paged and correlation's products within one unit
+#     in the last place of it (their 16-bit products on the tensor cores
+#     sum in another order, and two float32 results a few ulps apart can
+#     round to neighbouring 16-bit values); each within one
 #     unit in the last place of its plain version (ck.HALF_ULP, phase 3's
 #     16-bit rule); two calls bitwise equal; paged's stripes and scattered
 #     pages bitwise equal in both dtypes; a call with mixed float dtypes,
@@ -11099,8 +11112,11 @@ def p27_phase(torch, mt, ck, smi, root, native_build_thread):
 # (e) each half instance timed beside the float32 instance, its plain
 #     version and one library call in its dtype (gather + SDPA for paged,
 #     SDPA for flash, none for correlation), its bound at 2 bytes an
-#     element, and for flash and paged the earlier design's time, quoted
-#     (EARLIER_HALF_MS).
+#     element, and the earlier design's time, quoted (EARLIER_HALF_MS);
+#     correlation also at PWC-Net's shape; fused_fc_epilogue's float16
+#     and bfloat16 instances at fc6 + fc7 (bucket 8) beside addmm + relu_
+#     in the dtype, with the launches that phase 5's float16 serving made
+#     (its Cast sandwich leaves FullyConnected unfused).
 
 HALF_NAMES = ("float16", "bfloat16")
 # FlowNetC's stage in a 16-bit dtype against the float32 stage, relative
@@ -11235,7 +11251,17 @@ def p28_kernel_checks(torch, ck):
                   ("2-byte-aligned-s2-w44", dict(n=2, c=19, h=13, w=44, m=5,
                                                  s2=2), False, True, False),
                   ("odd-c7-s1", dict(n=1, c=7, h=20, w=40, m=10, s2=1), True,
-                   True, False)]
+                   True, False),
+                  # the tensor-core instance with its window 3 columns off
+                  # its 16-byte copies; a width those copies cannot stage
+                  # and a window wider than its 8 n-tiles, both on the
+                  # SIMT instance
+                  ("shift3-s1", dict(n=2, c=40, h=11, w=64, m=5, s2=1), True,
+                   False, False),
+                  ("w70-s1", dict(n=1, c=9, h=6, w=70, m=2, s2=1), True,
+                   False, False),
+                  ("wide-m30-s2", dict(n=1, c=24, h=10, w=64, m=30, s2=2),
+                   True, False, False)]
     main = {k: {n: 0.0 for n in HALF_NAMES}
             for k in ("paged_attention", "flash_attention", "correlation")}
     for name in HALF_NAMES:
@@ -11264,6 +11290,10 @@ def p28_kernel_checks(torch, ck):
             if is_main:
                 main["flash_attention"][name] = max(
                     main["flash_attention"][name], err)
+        # correlation's products run on the tensor cores, 16 channels a
+        # step, so they are held within one ulp of the float32 instance,
+        # as flash and paged are; |a - b| keeps the float32 arithmetic
+        # after a 16-bit stage and stays bitwise
         for seed, (label, g, mult, odd, is_main) in enumerate(corr_cases):
             args = half_args(torch, corr_inputs(
                 torch, dev, 600 + seed, g["n"], g["c"], g["h"], g["w"]), dt,
@@ -11274,7 +11304,7 @@ def p28_kernel_checks(torch, ck):
                 lambda *a: ck.correlation(*a, g["m"], g["s2"], mult),
                 lambda *a: ck.correlation_reference(*a, g["m"], g["s2"],
                                                     mult),
-                args, dt)
+                args, dt, exact=not mult)
             if is_main:
                 main["correlation"][name] = max(main["correlation"][name],
                                                 err)
@@ -11381,7 +11411,7 @@ def p28_flownetc(torch, mt, ck, smi, f32_out, n=8, forwards=2, seed=0):
                 lambda *x: ck.correlation(*x, FLOWNETC["m"], FLOWNETC["s2"]),
                 lambda *x: ck.correlation_reference(*x, FLOWNETC["m"],
                                                     FLOWNETC["s2"]),
-                [a.contiguous(), b.contiguous()], dt)
+                [a.contiguous(), b.contiguous()], dt, exact=False)
             out[name] = {"launches": launches["correlation"], "rel_l2": rel,
                          "wall_ms": wall, "err": err, "route": route}
             del ex
@@ -11556,16 +11586,20 @@ def p28_paged(torch, mt, ck, smi):
     return {"winner": win, "launches": launches, "wall_s": wall}
 
 
-def p28_times(torch, ck, flash_wins):
+def p28_times(torch, ck, flash_wins, fp16_serving_fc=None):
     """(e): -> {kernel: {dtype name: row}}, each row with the half
     instance's, the float32 instance's, the upcast path's (the operands
-    upcast to float32, the float32 instance, the output cast back), the
-    plain version's and the library call's times and the bound."""
+    upcast to float32, the float32 instance, the output cast back; not
+    for fused_fc_epilogue), the plain version's and the library call's
+    times and the bound; ``correlation pwcnet`` at PWC-Net's shape;
+    ``fused_fc_epilogue`` with ``fp16_serving_fc``, the launches of phase
+    5's float16 serving."""
     import torch.nn.functional as F
     dev = torch.device("cuda", 0)
     flush = torch.zeros(256 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
     rows = {k: {} for k in ("paged_attention", "flash_attention",
-                            "correlation")}
+                            "correlation", "correlation pwcnet",
+                            "fused_fc_epilogue")}
     cases = {c: paged_time_case(torch, dev, c) for c in (1, 32)}
     for name in HALF_NAMES:
         dt = getattr(torch, name)
@@ -11620,23 +11654,62 @@ def p28_times(torch, ck, flash_wins):
             "earlier_ms": EARLIER_HALF_MS["flash_attention"][name],
             "earlier_from": EARLIER_HALF_FROM}
 
-        g = FLOWNETC
-        a, bb = corr_inputs(torch, dev, 300, g["n"], g["c"], g["h"], g["w"])
-        ah, bh = a.to(dt), bb.to(dt)
-        bound, by = corr_bound_ms(g["n"], g["c"], g["h"], g["w"], g["m"],
-                                  g["s2"], esize=2)
-        rows["correlation"][name] = {
-            "shape": "flownetc N=%d C=%d %dx%d m=%d s2=%d multiply=1" % (
-                g["n"], g["c"], g["h"], g["w"], g["m"], g["s2"]),
-            "ms": time_ms(torch, lambda: ck.correlation(
-                ah, bh, g["m"], g["s2"]), flush),
-            "f32_ms": time_ms(torch, lambda: ck.correlation(
-                a, bb, g["m"], g["s2"]), flush),
-            "upcast_ms": time_ms(torch, lambda: ck.correlation(
-                ah.float(), bh.float(), g["m"], g["s2"]).to(dt), flush),
-            "plain_ms": time_ms(torch, lambda: ck.correlation_reference(
-                ah, bh, g["m"], g["s2"]), flush, iters=5),
-            "library_ms": None, "bound_ms": bound, "bound_by": by}
+        for cname, g in (("flownetc", FLOWNETC), ("pwcnet", PWCNET)):
+            a, bb = corr_inputs(torch, dev, 300, g["n"], g["c"], g["h"],
+                                g["w"])
+            ah, bh = a.to(dt), bb.to(dt)
+            bound, by = corr_bound_ms(g["n"], g["c"], g["h"], g["w"],
+                                      g["m"], g["s2"], esize=2)
+            row = {
+                "shape": "%s N=%d C=%d %dx%d m=%d s2=%d multiply=1" % (
+                    cname, g["n"], g["c"], g["h"], g["w"], g["m"], g["s2"]),
+                "ms": time_ms(torch, lambda: ck.correlation(
+                    ah, bh, g["m"], g["s2"]), flush),
+                "f32_ms": time_ms(torch, lambda: ck.correlation(
+                    a, bb, g["m"], g["s2"]), flush),
+                "upcast_ms": time_ms(torch, lambda: ck.correlation(
+                    ah.float(), bh.float(), g["m"], g["s2"]).to(dt), flush),
+                "plain_ms": time_ms(
+                    torch, lambda: ck.correlation_reference(
+                        ah, bh, g["m"], g["s2"]), flush, iters=5),
+                "library_ms": None, "bound_ms": bound, "bound_by": by}
+            if cname == "flownetc":
+                row.update(earlier_ms=EARLIER_HALF_MS["correlation"][name],
+                           earlier_from=EARLIER_HALF_FROM)
+                rows["correlation"][name] = row
+            else:
+                rows["correlation pwcnet"][name] = row
+
+        # fused_fc_epilogue at VGG-16's fc6 + fc7, bucket 8, relu: x and W
+        # in the dtype, the bias float32 as the kernel reads it
+        row = dict(ms=0.0, f32_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                   bound_ms=0.0)
+        gen = torch.Generator(device=dev).manual_seed(1234)
+        for k in (25088, 4096):
+            x = torch.rand((8, k), generator=gen, device=dev) * 2 - 1
+            w = (torch.rand((4096, k), generator=gen, device=dev) * 2 - 1) \
+                / math.sqrt(k)
+            b = (torch.rand((4096,), generator=gen, device=dev) * 2 - 1) * 0.1
+            xh, wh, bh = x.to(dt), w.to(dt), b.to(dt)
+            out = ck.fused_fc_epilogue(xh, wh, b, "relu")
+            row["ms"] += time_ms(torch, lambda: ck.fused_fc_epilogue(
+                xh, wh, b, "relu"), flush)
+            row["f32_ms"] += time_ms(torch, lambda: ck.fused_fc_epilogue(
+                x, w, b, "relu"), flush)
+            row["plain_ms"] += time_ms(
+                torch, lambda: ck.fused_fc_epilogue_reference(
+                    xh, wh, b, "relu"), flush)
+            row["library_ms"] += time_ms(torch, lambda: torch.relu_(
+                torch.addmm(bh, xh, wh.t())), flush)
+            row["bound_ms"] += fc_bound_ms(xh, wh, b, out)
+            del x, w, xh, wh, out
+        row.update(shape="fc6 + fc7, M=8, relu", bound_by="bytes",
+                   library="addmm + relu_ in %s" % name,
+                   launches_on_paths=fp16_serving_fc if name == "float16"
+                   else 0,
+                   paths="phase 5's float16 VGG-16 serving" if
+                   name == "float16" else "none serves bfloat16")
+        rows["fused_fc_epilogue"][name] = row
     del flush
     for kernel, by_dt in rows.items():
         for name, row in by_dt.items():
@@ -11645,7 +11718,7 @@ def p28_times(torch, ck, flash_wins):
     return rows
 
 
-def p28_phase(torch, mt, ck, smi, f32_flow):
+def p28_phase(torch, mt, ck, smi, f32_flow, fp16_serving_fc=None):
     print("phase 28: float16 and bfloat16 in paged_attention, "
           "flash_attention and correlation; card %s" % smi)
     t0 = time.perf_counter()
@@ -11666,7 +11739,8 @@ def p28_phase(torch, mt, ck, smi, f32_flow):
                 else:
                     os.environ[key] = val
     out["times"] = p28_times(torch, ck, {n: out["flash"][n]["winner"]
-                                         for n in HALF_NAMES})
+                                         for n in HALF_NAMES},
+                             fp16_serving_fc)
     out["wall_s"] = time.perf_counter() - t0
     print("phase 28: %.1f s" % out["wall_s"])
     return out
@@ -12029,7 +12103,8 @@ def main():
         "wall_s": round(p27["wall_s"], 1)})))
     # phase 28: float16 and bfloat16 in paged_attention, flash_attention
     # and correlation: the kernels, FlowNetC, the searches, a pool's views
-    p28 = p28_phase(torch, mt, ck, smi, flow["out0"])
+    p28 = p28_phase(torch, mt, ck, smi, flow["out0"],
+                    quant["float16"]["launches"]["fused_fc_epilogue"])
     mark('28')
     print("half precision result (card %s): %s" % (smi, json.dumps({
         "flownetc-rel_l2": {n: p28["flownetc"][n]["rel_l2"]

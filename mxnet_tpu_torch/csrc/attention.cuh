@@ -2,7 +2,8 @@
 // tensor-core products (3xTF32 over float32 operands; one m16n8k16 product
 // over float16 or bfloat16 ones), and the FlashAttention-2 key-tile steps
 // built on them, shared by the attention kernels: attention_tile for
-// float32 q, attention_tile_16 for 16-bit q, K and V.
+// float32 q, attention_tile_16 for 16-bit q, K and V.  correlation.cu
+// takes the copies, ldmatrix and mma_16 from here too.
 //
 // A copy with `valid` false reads nothing and writes zeros (src-size 0), so
 // rows past a sequence's end land as zeros without a branch around the
@@ -25,6 +26,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 8 : 0));
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
@@ -82,7 +90,8 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
 // elements from shared memory: lane l gives the address of row l % 8 of
 // matrix l / 8 (8 elements, 16-byte aligned), and lane (g, t) receives
 // elements (g, 2t) and (g, 2t+1) of each, or with .trans (2t, g) and
-// (2t+1, g), in registers 0..3 by matrix.
+// (2t+1, g), in registers 0..3 by matrix.  ldmatrix_x2_trans loads two,
+// from the addresses of lanes 0..15.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
                                             const void* row) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
@@ -99,6 +108,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(s));
 }
 

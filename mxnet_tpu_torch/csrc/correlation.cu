@@ -7,8 +7,8 @@
 // with ng = m / s2, D2 = 2·ng + 1, dy_i = (i − ng)·s2, dx_j = (j − ng)·s2 and
 // b read as 0 outside the image (the zero padding of width m).  a, b are
 // (N, C, H, W) and out (N, D2², H, W), all float32, all float16 or all
-// bfloat16: each element converted to float32 as it is loaded, sums in
-// float32, out rounded once to the operands' type (elem.cuh).
+// bfloat16; sums in float32, out rounded once to the operands' type
+// (elem.cuh).
 //
 // Replaces the TPU kernel mxnet_tpu/ops/pallas_kernels.py:393
 // (_correlation_kernel, launched by correlation at line 417).  There one
@@ -18,14 +18,60 @@
 // is read with a bounds check, no padded copy exists, and the displacement
 // loop is data, not code, so any D2 runs (FlowNetC's 441 included).
 //
+// Which instance runs (mxtt_correlation):
+//   * float16 and bfloat16 with is_multiply: the tensor-core instance
+//     (correlation_tc_kernel) wherever 16-byte copies can stage a and b
+//     (W % 8 == 0, both 16-byte aligned) and a 16-pixel tile's window fits
+//     8 n-tiles, 16 + shift + 2·ng·s2 <= 64 columns (ng·s2 <= 24):
+//     FlowNetC's and PWC-Net's stages and every such window up to m 24;
+//   * everything else (float32; |a − b| in any dtype; 16-bit products at
+//     another W or alignment, or over a wider window): the register-blocked
+//     instance (stride2 1, and stride2 2 at W % 4 == 0 with a and b aligned
+//     to 4 elements), else the general one.
+
 // What bounds it.  Each output costs C multiply-adds (2·C flops) and each
 // input pixel is used by D2² outputs, so at FlowNetC's stage (N 8, C 256,
-// 48 x 64, D2² = 441) the work is 5.5 GFLOP over 94 MB: bound by float32
-// arithmetic, near 0.083 ms on an H100 SXM at 67 TFLOP/s.  A shared-memory
-// word feeds at most 4 of the SM's 128 float32 lanes a clock, so a design
-// that reads one word per multiply-add runs at a quarter of that peak.
+// 48 x 64, D2² = 441) the work is 5.5 GFLOP over 94 MB in float32: bound by
+// float32 arithmetic, near 0.083 ms on an H100 SXM at 67 TFLOP/s.  In
+// 16-bit the same work on the tensor cores takes 0.0056 ms at 989 TFLOP/s
+// and the bytes halve to 47 MB, 0.014 ms at 3.35 TB/s: bound by bytes.
 //
-// Design: the register-blocked instance (stride2 1, and stride2 2 at W %
+// The tensor-core instance.  Fix a sample n, an output row y and a
+// displacement row i: S = A_y · B_{y+dy_i}, A_y the (W x C) row of a and B
+// the (C x W) row of b, and out[n, i·D2 + j, y, x] = S[x, x + dx_j] / C, a
+// band of S.  A warp computes S for 16 pixels x (M) against the 8·kNT
+// window columns x' they reach (N), 16 channels a step (K), on mma.sync
+// m16n8k16 (attention.cuh's mma_16) over float32 accumulators.  Each
+// product of two 16-bit values is exact in float32; the tensor cores sum
+// 16 of them a step and the steps add in channel order, so the output lies
+// within one unit in the last place of the float32 instance's, rounded.
+// At FlowNetC's stage a tile of 16 x reaches 56 x' from a column 4 left
+// of a multiple of 8.
+//
+// A block owns kTcRows output rows at stride s2 (y, y + s2, ...), 64
+// columns (kTcMTiles m-tiles; one warp a row and m-tile) and ni consecutive
+// displacement rows.  Row r and displacement row i_first + il read b row
+// r + il of the block's window, so at FlowNetC's stage 4 rows and 3
+// displacement rows read 6 b rows.  A warp keeps its A fragment for its ni
+// displacement rows (ni·kNT·4 accumulators a thread, ni <= kNI = 24 / kNT,
+// which fits 128 registers without spilling).  Channels go through a
+// kTcStages ring of kTcChunk channels, a and b in their 16-bit type, by
+// 16-byte cp.async copies, zero outside the image and past C; a warp
+// copies whole (row, channel) lines, so each line's address is worked out
+// once (copies whose addresses took divisions, or that moved 8 bytes, made
+// the kernel 1.6x slower on an H100).  The window starts at the multiple of 8 at or left of the
+// first column the tile's band reaches (`shift` columns left of it), so
+// kNT = ceil((16 + shift + 2·ng·s2) / 8): 8 at FlowNetC's stage, where
+// 336 of a tile's 1,024 products are the band's.  Rows hold channels at a
+// stride of an odd number of 16-byte units, so ldmatrix.trans (channels
+// the slow dimension, as NCHW has them) reads each 8x8 matrix from 8
+// distinct bank groups.  The epilogue divides by C (a multiply by 1 / C
+// when C is a power of two, where that is exact) and rounds once to the
+// operands' type, writes a warp's S to shared memory (the stages' bytes),
+// and reads the band back so each half-warp stores 16 consecutive x of
+// one output row, 32 bytes.
+
+// The register-blocked instance (float32; stride2 1, and stride2 2 at W %
 // 4 == 0).  A thread owns kP = 8 output pixels of one row that share a
 // column class mod s2 (x, x + s2, ..., x + 7·s2) and a run of J
 // consecutive dx of one displacement row i.  Those need only kP + J − 1
@@ -54,17 +100,18 @@
 // constant kFastStride when the window fits so every read is an
 // immediate offset from one pointer per displacement.
 //
-// The 16-bit instances fill the same float32 stages through registers
-// (elem.cuh's stage_f32: 8-byte loads of 4 elements where the float32
-// instance copies 16 bytes, with W % 4 == 0 and a and b 8-byte aligned;
-// else one element a load), so all that follows the loads is the float32
-// instance's code: a half instance's output is bitwise the float32
-// instance's on the upcast inputs, rounded.
+// Both SIMT instances stage 16-bit operands in their own type: 8-byte
+// cp.async copies of 4 elements where the float32 instance copies 16 bytes,
+// one element (2 bytes) through a register where it copies 4, and each
+// value is converted to float32 as it is read from shared memory.  All
+// that follows is the float32 instance's code, so a 16-bit |a − b| output
+// is bitwise the float32 instance's on the upcast inputs, rounded.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention.cuh"
 #include "elem.cuh"
 
 namespace {
@@ -74,7 +121,7 @@ constexpr int kTW = 32;                          // tile columns: one per lane
 constexpr int kThreads = kTH * kTW;
 constexpr int kAcc = 32;                         // displacements per block
 constexpr int kChunk = 8;                        // channels per stage
-constexpr int kFastStride = 1024;                // b window floats per channel
+constexpr int kFastStride = 1024;                // b window elements a channel
 constexpr int kMaxSmem = 227 * 1024;             // a block's opt-in limit
 constexpr int kMaxDevices = 64;
 
@@ -93,29 +140,227 @@ constexpr int kS2Warps = 14;
 constexpr int kS2MinBlocks = 1;
 static_assert(kP * kLanesX == kTW && kTH * kLanesX == 32, "lane layout");
 
-// 4- and 16-byte asynchronous copies global -> shared; `valid` false writes
-// zeros and reads nothing.
-__device__ __forceinline__ void cp_async4(float* dst, const void* src,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0));
+// The tensor-core instances: output rows and 16-pixel m-tiles a block (one
+// warp each pair), channels a stage, stages, the most n-tiles a warp, and
+// blocks an SM (registers hold one).
+constexpr int kTcRows = 4;
+constexpr int kTcMTiles = 4;
+constexpr int kTcChunk = 32;
+constexpr int kTcStages = 3;
+constexpr int kTcMaxNT = 8;
+constexpr int kTcMinBlocks = 1;
+constexpr int kTcWarps = kTcRows * kTcMTiles;
+constexpr int kTcThreads = kTcWarps * 32;
+constexpr int kTcCols = 16 * kTcMTiles;          // a block's columns
+
+// The least odd multiple of 8 at or above n: a row stride, in 16-bit
+// elements, at which 8 consecutive rows start in 8 distinct 16-byte bank
+// groups (ldmatrix, and the epilogue's 32-bit stores).
+__host__ __device__ constexpr int odd8(int n) { return ((n + 7) / 8 | 1) * 8; }
+
+// A tensor-core warp's displacement rows at kNT n-tiles: at most 96
+// accumulators a thread.
+__host__ __device__ constexpr int tc_rows(int nt) { return 24 / nt; }
+
+// kN elements of E from global to shared memory: one cp.async of
+// kN·sizeof(E) bytes (4, 8 or 16); a single 16-bit element, a size cp.async
+// does not move, through a register.  `valid` false writes zeros and reads
+// nothing.
+template <int kN, typename E>
+__device__ __forceinline__ void stage_copy(E* dst, const E* src, bool valid) {
+  constexpr int kBytes = kN * static_cast<int>(sizeof(E));
+  if constexpr (kBytes == 16) {
+    mxtt::cp_async16(dst, src, valid);
+  } else if constexpr (kBytes == 8) {
+    mxtt::cp_async8(dst, src, valid);
+  } else if constexpr (kBytes == 4) {
+    mxtt::cp_async4(dst, src, valid);
+  } else {
+    static_assert(kBytes == 2, "a copy of 2, 4, 8 or 16 bytes");
+    *dst = valid ? *src : mxtt::from_f32<E>(0.f);
+  }
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
+// One stage's 16-byte copies of a tile of `rows` rows at stride s2 from
+// (y0, x0), kTcChunk channels from c0: each row and channel a line of kQ
+// groups of 8 elements, stored at kStride elements a line.  A warp copies
+// whole lines, kL lanes a line (kQ rounded up to a power of two), so each
+// line's address is worked out once.  Zero outside the image and past C;
+// W % 8 == 0 and x0 a multiple of 8 put each group wholly inside or
+// outside the image.
+template <int kStride, int kQ, typename E>
+__device__ __forceinline__ void stage_lines(E* dst, const E* img, int c0,
+                                            int C, int H, int W,
+                                            size_t plane, int y0, int x0,
+                                            int s2, int rows, int warp,
+                                            int lane) {
+  constexpr int kL = kQ <= 8 ? 8 : kQ <= 16 ? 16 : 32;
+  static_assert(kQ <= 32, "a line in one pass");
+  const int g = lane % kL, xx = x0 + 8 * g;
+  if (g >= kQ) return;
+  const bool col_in = xx >= 0 && xx + 8 <= W;
+  for (int line = warp * (32 / kL) + lane / kL; line < rows * kTcChunk;
+       line += kTcWarps * (32 / kL)) {
+    const int ch = line % kTcChunk, yy = y0 + line / kTcChunk * s2;
+    const bool in = col_in && c0 + ch < C && yy >= 0 && yy < H;
+    stage_copy<8>(dst + line * kStride + 8 * g,
+                  img + (in ? (size_t)(c0 + ch) * plane + (size_t)yy * W +
+                                  xx : 0),
+                  in);
+  }
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
+// Tensor-core instance, E float16 or bfloat16, kNT n-tiles of 8 window
+// columns a 16-pixel tile, at most kNI displacement rows a warp.  Shared
+// memory per stage: the a tile (kTcRows rows x kTcChunk channels x kAS
+// columns) then the b window (wrows = kTcRows + ni − 1 rows x kTcChunk x
+// kBS), each row of a (or b) the block's columns from x0 (wx0).  W % 8 ==
+// 0 and a and b 16-byte aligned (the launcher takes this instance only
+// there); shift: wx0's offset left of x0 − ng·s2, so wx0 is a multiple
+// of 8.
+template <typename E, int kNT, int kNI>
+__global__ void __launch_bounds__(kTcThreads, kTcMinBlocks)
+correlation_tc_kernel(const E* __restrict__ a, const E* __restrict__ b,
+                      E* __restrict__ out, int C, int H, int W, int D2,
+                      int ng, int s2, int ni, int n_igroups, int shift) {
+  constexpr int kAS = odd8(kTcCols);
+  constexpr int kWC = 16 * (kTcMTiles - 1) + 8 * kNT;  // window columns
+  constexpr int kBS = odd8(kWC);
+  constexpr int kSS = odd8(8 * kNT);                   // epilogue row stride
+  extern __shared__ __align__(16) unsigned char corr_smem[];
+  E* smem = reinterpret_cast<E*>(corr_smem);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = warp / kTcMTiles, mt = warp % kTcMTiles;
+  const int n = blockIdx.z / n_igroups;
+  const int i_first = (blockIdx.z % n_igroups) * ni;
+  const int n_i = min(ni, D2 - i_first);
+  // rows ya0, ya0 + s2, ...: row r against displacement row i_first + il
+  // reads b row wy0 + (r + il)·s2
+  const int ya0 = blockIdx.y / s2 * kTcRows * s2 + blockIdx.y % s2;
+  const int wy0 = ya0 + (i_first - ng) * s2;
+  const int x0 = blockIdx.x * kTcCols;
+  const int wx0 = x0 - ng * s2 - shift;
+  const int wrows = kTcRows + ni - 1;
+  const int a_elems = kTcRows * kTcChunk * kAS;
+  const int stage_elems = a_elems + wrows * kTcChunk * kBS;
+  const size_t plane = (size_t)H * W;
+  const E* an = a + (size_t)n * C * plane;
+  const E* bn = b + (size_t)n * C * plane;
 
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+  // Channels c0 .. c0 + kTcChunk − 1 of the a tile and the b window into
+  // `buf` as one commit group (a zero past C adds nothing)
+  auto stage = [&](int c0, E* buf) {
+    stage_lines<kAS, kTcCols / 8>(buf, an, c0, C, H, W, plane, ya0, x0, s2,
+                                  kTcRows, warp, lane);
+    stage_lines<kBS, kWC / 8>(buf + a_elems, bn, c0, C, H, W, plane, wy0,
+                              wx0, s2, wrows, warp, lane);
+    mxtt::cp_async_commit();
+  };
+
+  float acc[kNI][kNT][4];
+#pragma unroll
+  for (int il = 0; il < kNI; ++il)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[il][nt][e] = 0.f;
+  const int y = ya0 + r * s2;
+  const bool active = y < H && x0 + 16 * mt < W;
+  // ldmatrix rows (attention.cuh): A's matrices (x 0-7 | 8-15) x (channels
+  // 0-7 | 8-15) as a0..a3, B's (channels 0-7 | 8-15) x (n-tile nt | nt + 1)
+  // as b0, b1 of each
+  const int a_lane = r * kTcChunk * kAS + 16 * mt +
+                     ((lane & 7) + 8 * (lane >> 4)) * kAS +
+                     8 * ((lane >> 3) & 1);
+  const int b_lane = a_elems + r * kTcChunk * kBS + 16 * mt +
+                     ((lane & 7) + 8 * ((lane >> 3) & 1)) * kBS +
+                     8 * (lane >> 4);
+
+  // a ring of kTcStages: chunk k + kTcStages − 1 is issued while chunk k
+  // is multiplied, into the buffer chunk k − 1 left (every warp is past
+  // the barrier, so done with it)
+  const int n_chunks = (C + kTcChunk - 1) / kTcChunk;
+#pragma unroll
+  for (int k = 0; k < kTcStages - 1; ++k) {
+    if (k < n_chunks)
+      stage(k * kTcChunk, smem + k * stage_elems);
+    else
+      mxtt::cp_async_commit();
+  }
+  for (int k = 0; k < n_chunks; ++k) {
+    mxtt::cp_async_wait<kTcStages - 2>();
+    __syncthreads();
+    const int next = k + kTcStages - 1;
+    if (next < n_chunks)
+      stage(next * kTcChunk, smem + next % kTcStages * stage_elems);
+    else
+      mxtt::cp_async_commit();
+    if (!active) continue;
+    const E* s = smem + k % kTcStages * stage_elems;
+#pragma unroll
+    for (int ks = 0; ks < kTcChunk / 16; ++ks) {
+      uint32_t af[4];
+      mxtt::ldmatrix_x4_trans(af, s + a_lane + ks * 16 * kAS);
+#pragma unroll
+      for (int il = 0; il < kNI; ++il) {
+        if (il < n_i) {
+          const E* sb = s + b_lane + (il * kTcChunk + ks * 16) * kBS;
+#pragma unroll
+          for (int nt = 0; nt + 1 < kNT; nt += 2) {
+            uint32_t bf[4];
+            mxtt::ldmatrix_x4_trans(bf, sb + 8 * nt);
+            mxtt::mma_16<E>(acc[il][nt], af, bf[0], bf[1]);
+            mxtt::mma_16<E>(acc[il][nt + 1], af, bf[2], bf[3]);
+          }
+          if constexpr (kNT % 2 == 1) {
+            uint32_t bf[2];
+            mxtt::ldmatrix_x2_trans(bf, sb + 8 * (kNT - 1));
+            mxtt::mma_16<E>(acc[il][kNT - 1], af, bf[0], bf[1]);
+          }
+        }
+      }
+    }
+  }
+  mxtt::cp_async_wait<0>();
+  __syncthreads();                     // the stages' bytes are free now
+  if (!active) return;
+
+  // S / C rounded to E into the warp's 16 x 8·kNT scratch (accumulator
+  // (g, 2t), (g, 2t + 1), (g + 8, ...) of each n-tile), then the band:
+  // lane (m, j parity) reads S[m, m + shift + j·s2] and a half-warp stores
+  // x0 + 16·mt .. + 15 of one output row
+  E* sc = smem + warp * 16 * kSS;
+  const int g = lane >> 2, t = lane & 3, m = lane & 15;
+  const int x = x0 + 16 * mt + m;
+  // a power-of-two C divides exactly by a multiply with 1 / C, which
+  // spares the division's range check and the slow path it takes on the
+  // many zeros
+  const float norm = (float)C, rcp = 1.f / norm;
+  const bool pow2 = (C & (C - 1)) == 0;
+  auto rounded = [&](float c) {
+    return mxtt::from_f32<E>(pow2 ? c * rcp : c / norm);
+  };
+#pragma unroll
+  for (int il = 0; il < kNI; ++il) {
+    if (il < n_i) {
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        *reinterpret_cast<uint32_t*>(sc + g * kSS + 8 * nt + 2 * t) =
+            mxtt::pack16(rounded(acc[il][nt][0]), rounded(acc[il][nt][1]));
+        *reinterpret_cast<uint32_t*>(sc + (g + 8) * kSS + 8 * nt + 2 * t) =
+            mxtt::pack16(rounded(acc[il][nt][2]), rounded(acc[il][nt][3]));
+      }
+      __syncwarp();
+      if (x < W) {
+        const E* band = sc + m * kSS + m + shift;
+        E* o = out + ((size_t)n * D2 + i_first + il) * D2 * plane +
+               (size_t)y * W + x;
+        for (int j = lane >> 4; j < D2; j += 2)
+          o[(size_t)j * plane] = band[j * s2];
+      }
+      __syncwarp();
+    }
+  }
 }
 
 // The b window of a displacement group: the rows it reaches, and columns
@@ -132,7 +377,7 @@ struct Window {
   }
 };
 
-// kStride: floats between one channel's b window and the next in a stage;
+// kStride: elements between one channel's b window and the next in a stage;
 // a compile-time stride (kFastStride) turns every b read into a shared load
 // at an immediate offset from one pointer per displacement.  0: the
 // window's own size, for windows larger than kFastStride.
@@ -141,7 +386,8 @@ __global__ void __launch_bounds__(kThreads)
 correlation_kernel(const E* __restrict__ a, const E* __restrict__ b,
                    E* __restrict__ out, int C, int H, int W, int D2,
                    int ng, int s2, int n_groups, bool vec) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char corr_smem[];
+  E* smem = reinterpret_cast<E*>(corr_smem);
   const int DD = D2 * D2;
   const int n = blockIdx.z / n_groups;
   const int d0 = (blockIdx.z % n_groups) * kAcc;
@@ -169,30 +415,22 @@ correlation_kernel(const E* __restrict__ a, const E* __restrict__ b,
   const size_t plane = (size_t)H * W;
   const E* an = a + (size_t)n * C * plane;
   const E* bn = b + (size_t)n * C * plane;
-  const int stage_floats = kChunk * (kThreads + stride);
+  const int stage_elems = kChunk * (kThreads + stride);
 
   // Copy channels c0 .. c0 + kChunk - 1 of the a tile and the b window into
-  // `buf` with cp.async as one commit group (through registers for 16-bit
-  // operands), zero outside the image and past channel C (a zero a and b
-  // add nothing to either sum): 4 elements at a time when rows are aligned
-  // (`vec`: W % 4 == 0, so an aligned group of 4 columns lies wholly
-  // inside or outside), else 1.
-  auto copy = [&](float* dst, const E* src, bool in, bool wide) {
-    if constexpr (mxtt::is_f32<E>()) {
-      if (wide)
-        cp_async16(dst, src, in);
-      else
-        cp_async4(dst, src, in);
-    } else {
-      if (wide)
-        mxtt::stage_f32<4>(dst, src, in);
-      else
-        mxtt::stage_f32<1>(dst, src, in);
-    }
+  // `buf` as one commit group (stage_copy), zero outside the image and past
+  // channel C (a zero a and b add nothing to either sum): 4 elements at a
+  // time when rows are aligned (`vec`: W % 4 == 0, so an aligned group of 4
+  // columns lies wholly inside or outside), else 1.
+  auto copy = [&](E* dst, const E* src, bool in, bool wide) {
+    if (wide)
+      stage_copy<4>(dst, src, in);
+    else
+      stage_copy<1>(dst, src, in);
   };
-  auto stage = [&](int c0, float* buf) {
-    float* as = buf;
-    float* bs = buf + kChunk * kThreads;
+  auto stage = [&](int c0, E* buf) {
+    E* as = buf;
+    E* bs = buf + kChunk * kThreads;
     if (vec) {
       constexpr int kQ = kTW / 4;                  // float4s per tile row
       for (int i = threadIdx.x; i < kChunk * kTH * kQ; i += kThreads) {
@@ -224,7 +462,7 @@ correlation_kernel(const E* __restrict__ a, const E* __restrict__ b,
           copy(as + ci * kThreads + threadIdx.x,
                in ? ac + (size_t)yy * W + xx : ac, in, false);
         }
-        float* bsc = bs + ci * stride;
+        E* bsc = bs + ci * stride;
         for (int r = ty; r < win.rows; r += kTH) {
           const int yy = wy0 + r;
           const bool row_in = c_in && yy >= 0 && yy < H;
@@ -237,34 +475,35 @@ correlation_kernel(const E* __restrict__ a, const E* __restrict__ b,
         }
       }
     }
-    cp_async_commit();
+    mxtt::cp_async_commit();
   };
 
   // two stages: chunk k + 1 is in flight while chunk k is summed
   const int n_chunks = (C + kChunk - 1) / kChunk;
   stage(0, smem);
   for (int k = 0; k < n_chunks; ++k) {
-    const float* as = smem + (k & 1) * stage_floats;
-    const float* bs = as + kChunk * kThreads;
+    const E* as = smem + (k & 1) * stage_elems;
+    const E* bs = as + kChunk * kThreads;
     if (k + 1 < n_chunks) {
-      stage((k + 1) * kChunk, smem + ((k + 1) & 1) * stage_floats);
-      cp_async_wait<1>();
+      stage((k + 1) * kChunk, smem + ((k + 1) & 1) * stage_elems);
+      mxtt::cp_async_wait<1>();
     } else {
-      cp_async_wait<0>();
+      mxtt::cp_async_wait<0>();
     }
     __syncthreads();
     float av[kChunk];
 #pragma unroll
-    for (int ci = 0; ci < kChunk; ++ci) av[ci] = as[ci * kThreads + threadIdx.x];
-    const float* bw = bs + ty * win.cols + tx + shift;
+    for (int ci = 0; ci < kChunk; ++ci)
+      av[ci] = mxtt::to_f32(as[ci * kThreads + threadIdx.x]);
+    const E* bw = bs + ty * win.cols + tx + shift;
     // a group's spare slots repeat its last displacement and are never
     // stored, so no branch on nd splits the loads
 #pragma unroll
     for (int kk = 0; kk < kAcc; ++kk) {
-      const float* p = bw + koff[kk];
+      const E* p = bw + koff[kk];
 #pragma unroll
       for (int ci = 0; ci < kChunk; ++ci) {
-        const float bv = p[ci * stride];
+        const float bv = mxtt::to_f32(p[ci * stride]);
         acc[kk] = kMultiply ? fmaf(av[ci], bv, acc[kk])
                             : acc[kk] + fabsf(av[ci] - bv);
       }
@@ -356,16 +595,17 @@ correlation_rb_kernel(const E* __restrict__ a, const E* __restrict__ b,
                       E* __restrict__ out,
                       int C, int H, int W, int D2, int ng, int ni,
                       int n_igroups, int ra, int rb, int wrows, int wcols) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char corr_smem[];
+  E* smem = reinterpret_cast<E*>(corr_smem);
   const int n = blockIdx.z / n_igroups;
   const int i_first = (blockIdx.z % n_igroups) * ni;
   const int y0 = blockIdx.y * kTH, x0 = blockIdx.x * kTW;
   const int wy0 = y0 + (i_first - ng) * kS2;
   const int wx0 = (x0 - ng * kS2) & ~3;
   const int shift = x0 - ng * kS2 - wx0;          // 0 .. 3
-  const int a_floats = kTH * ra;
-  const int ch_floats = a_floats + wrows * rb;
-  const int stage_floats = kChunkN * ch_floats;
+  const int a_elems = kTH * ra;
+  const int ch_elems = a_elems + wrows * rb;
+  const int stage_elems = kChunkN * ch_elems;
   const ThreadMap t = rb_thread(threadIdx.x / 32, threadIdx.x % 32, D2, kS2,
                                 kJ);
 
@@ -374,13 +614,12 @@ correlation_rb_kernel(const E* __restrict__ a, const E* __restrict__ b,
   const E* bn = b + (size_t)n * C * plane;
 
   // Copy channels c0 .. c0 + kChunkN − 1 of the a tile and the b window
-  // into `buf` as one commit group (through registers for 16-bit
-  // operands), zero outside the image and past channel C (a zero a and b
-  // add nothing to either sum): 4 elements a copy at stride2 2 (W % 4 == 0
-  // puts an aligned group of 4 wholly inside or outside the image), 1 at
-  // stride2 1.  Each group's addresses are worked out once and walk the
-  // channels.
-  auto stage = [&](int c0, float* buf) {
+  // into `buf` as one commit group (stage_copy), zero outside the image
+  // and past channel C (a zero a and b add nothing to either sum): 4
+  // elements a copy at stride2 2 (W % 4 == 0 puts an aligned group of 4
+  // wholly inside or outside the image), 1 at stride2 1.  Each group's
+  // addresses are worked out once and walk the channels.
+  auto stage = [&](int c0, E* buf) {
     constexpr int kWide = kS2 == 2 ? 4 : 1;
     const int qa = kTW / kWide, qb = wcols / kWide;
     const int per = kTH * qa + wrows * qb;
@@ -394,7 +633,7 @@ correlation_rb_kernel(const E* __restrict__ a, const E* __restrict__ b,
         base = an;
       } else {
         const int f = e - kTH * qa;
-        dst = a_floats + (f / qb) * rb + (f % qb) * kWide;
+        dst = a_elems + (f / qb) * rb + (f % qb) * kWide;
         yy = wy0 + f / qb;
         xx = wx0 + (f % qb) * kWide;
         base = bn;
@@ -402,21 +641,16 @@ correlation_rb_kernel(const E* __restrict__ a, const E* __restrict__ b,
       const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W;
       const E* src =
           base + (in ? (size_t)c0 * plane + (size_t)yy * W + xx : 0);
-      float* to = buf + dst;
+      E* to = buf + dst;
 #pragma unroll
       for (int ci = 0; ci < kChunkN; ++ci) {
         const bool v = in && c0 + ci < C;
-        if constexpr (!mxtt::is_f32<E>())
-          mxtt::stage_f32<kWide>(to, v ? src : base, v);
-        else if (kWide == 4)
-          cp_async16(to, v ? src : base, v);
-        else
-          cp_async4(to, v ? src : base, v);
+        stage_copy<kWide>(to, v ? src : base, v);
         src += plane;
-        to += ch_floats;
+        to += ch_elems;
       }
     }
-    cp_async_commit();
+    mxtt::cp_async_commit();
   };
 
   float acc[kP][kJ];
@@ -425,33 +659,33 @@ correlation_rb_kernel(const E* __restrict__ a, const E* __restrict__ b,
 #pragma unroll
     for (int j = 0; j < kJ; ++j) acc[p][j] = 0.f;
   const int a_off = t.ty * ra + t.xoff;
-  const int b_off = a_floats + (t.ty + t.il * kS2) * rb + shift + t.xoff +
+  const int b_off = a_elems + (t.ty + t.il * kS2) * rb + shift + t.xoff +
                     t.j0 * kS2;
 
   // two stages: chunk k + 1 is in flight while chunk k is summed
   const int n_chunks = (C + kChunkN - 1) / kChunkN;
   stage(0, smem);
   for (int k = 0; k < n_chunks; ++k) {
-    const float* s = smem + (k & 1) * stage_floats;
+    const E* s = smem + (k & 1) * stage_elems;
     if (k + 1 < n_chunks) {
-      stage((k + 1) * kChunkN, smem + ((k + 1) & 1) * stage_floats);
-      cp_async_wait<1>();
+      stage((k + 1) * kChunkN, smem + ((k + 1) & 1) * stage_elems);
+      mxtt::cp_async_wait<1>();
     } else {
-      cp_async_wait<0>();
+      mxtt::cp_async_wait<0>();
     }
     __syncthreads();
 #pragma unroll 2
     for (int ci = 0; ci < kChunkN; ++ci) {
-      const float* sa = s + ci * ch_floats + a_off;
-      const float* sb = s + ci * ch_floats + b_off;
+      const E* sa = s + ci * ch_elems + a_off;
+      const E* sb = s + ci * ch_elems + b_off;
       float av[kP];
 #pragma unroll
-      for (int p = 0; p < kP; ++p) av[p] = sa[p * kS2];
+      for (int p = 0; p < kP; ++p) av[p] = mxtt::to_f32(sa[p * kS2]);
       // b column q serves pixel p and dx j0 + q − p: one b value live at
       // a time, so accumulators and a take the registers
 #pragma unroll
       for (int q = 0; q < kP + kJ - 1; ++q) {
-        const float bv = sb[q * kS2];
+        const float bv = mxtt::to_f32(sb[q * kS2]);
 #pragma unroll
         for (int p = 0; p < kP; ++p) {
           const int j = q - p;
@@ -533,7 +767,7 @@ cudaError_t launch_rb(const E* a, const E* b, E* out, int C, int H, int W,
   return cudaGetLastError();
 }
 
-RbPlan rb_plan(int D2, int ng, int s2, bool vec) {
+RbPlan rb_plan(int D2, int ng, int s2, bool vec, size_t esize) {
   RbPlan pl{};
   if (s2 != 1 && !(s2 == 2 && vec)) return pl;
   const int J = s2 == 1 ? kS1J : kS2J;
@@ -551,8 +785,7 @@ RbPlan rb_plan(int D2, int ng, int s2, bool vec) {
     pl.n_igroups = (D2 + cap - 1) / cap;
     pl.ni = (D2 + pl.n_igroups - 1) / pl.n_igroups;
     pl.wrows = kTH + (pl.ni - 1) * s2;
-    pl.bytes = 2 * sizeof(float) * chunk *
-               (size_t)(kTH * pl.ra + pl.wrows * pl.rb);
+    pl.bytes = 2 * esize * chunk * (size_t)(kTH * pl.ra + pl.wrows * pl.rb);
     if (pl.bytes <= (size_t)kMaxSmem) {
       pl.threads = 32 * pl.ni * runs;
       pl.ok = true;
@@ -562,7 +795,82 @@ RbPlan rb_plan(int D2, int ng, int s2, bool vec) {
   return pl;
 }
 
-// The instance for element type E: the register-blocked one where the
+// The tensor-core launch's geometry: n-tiles a 16-pixel tile, its
+// displacement rows a block and blocks over the D2 rows, the window's
+// shift, the grid and the shared bytes.  ok false where 16-byte copies
+// cannot stage the operands (W % 8 != 0, or a or b not 16-byte aligned),
+// a tile's window needs more than kTcMaxNT n-tiles, or the grid or the
+// shared memory cannot hold the shape.
+struct TcPlan {
+  bool ok;
+  int nt, ni, n_igroups, shift;
+  dim3 grid;
+  size_t bytes;
+};
+
+TcPlan tc_plan(const void* a, const void* b, int N, int H, int W, int D2,
+               int ng, int s2) {
+  TcPlan pl{};
+  if (W % 8 != 0 || !mxtt::aligned(a, 16) || !mxtt::aligned(b, 16))
+    return pl;
+  const int reach = ng * s2;          // the band's reach left and right
+  pl.shift = (8 - reach % 8) % 8;
+  pl.nt = (16 + pl.shift + 2 * reach + 7) / 8;
+  if (pl.nt > kTcMaxNT) return pl;
+  // the most displacement rows a warp holds, then rows spread evenly over
+  // blocks; fewer while the stages overflow the shared memory
+  const int bs = odd8(16 * (kTcMTiles - 1) + 8 * pl.nt);
+  for (int cap = tc_rows(pl.nt); cap >= 1 && !pl.ok; --cap) {
+    pl.n_igroups = (D2 + cap - 1) / cap;
+    pl.ni = (D2 + pl.n_igroups - 1) / pl.n_igroups;
+    pl.bytes = 2 * kTcStages * kTcChunk *
+               (size_t)(kTcRows * odd8(kTcCols) +
+                        (kTcRows + pl.ni - 1) * bs);
+    pl.ok = pl.bytes <= (size_t)kMaxSmem;
+  }
+  const long long gy =
+      (long long)s2 * ((H + kTcRows * s2 - 1) / (kTcRows * s2));
+  const long long gz = (long long)N * pl.n_igroups;
+  pl.ok = pl.ok && gy <= 65535 && gz <= 65535;
+  pl.grid = dim3((W + kTcCols - 1) / kTcCols, (unsigned)gy, (unsigned)gz);
+  return pl;
+}
+
+template <typename E, int kNT>
+cudaError_t launch_tc(const E* a, const E* b, E* out, int C, int H, int W,
+                      int D2, int ng, int s2, const TcPlan& pl, int device,
+                      cudaStream_t stream) {
+  auto kernel = correlation_tc_kernel<E, kNT, tc_rows(kNT)>;
+  static int opted[kMaxDevices];
+  const cudaError_t err = opt_in(kernel, opted, device, pl.bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<pl.grid, kTcThreads, pl.bytes, stream>>>(
+      a, b, out, C, H, W, D2, ng, s2, pl.ni, pl.n_igroups, pl.shift);
+  return cudaGetLastError();
+}
+
+template <typename E>
+cudaError_t launch_tc_dtype(const void* a, const void* b, void* out, int C,
+                            int H, int W, int D2, int ng, int s2,
+                            const TcPlan& pl, int device, cudaStream_t st) {
+  const E* ae = static_cast<const E*>(a);
+  const E* be = static_cast<const E*>(b);
+  E* o = static_cast<E*>(out);
+  switch (pl.nt) {
+#define CORR_TC(NT)                                                            case NT:                                                                       return launch_tc<E, NT>(ae, be, o, C, H, W, D2, ng, s2, pl, device, st)
+    CORR_TC(2);
+    CORR_TC(3);
+    CORR_TC(4);
+    CORR_TC(5);
+    CORR_TC(6);
+    CORR_TC(7);
+    CORR_TC(8);
+#undef CORR_TC
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The SIMT instance for element type E: the register-blocked one where the
 // plan found one, else the general one with a fixed or a runtime window
 // stride.
 template <typename E>
@@ -614,12 +922,31 @@ extern "C" int mxtt_correlation(const void* a, const void* b, void* out,
       dtype < 0 || dtype > 2 || device < 0 || device >= kMaxDevices)
     return cudaErrorInvalidValue;
   const int ng = m / s2, D2 = 2 * ng + 1, DD = D2 * D2;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto use_device = [&]() {
+    int current = -1;
+    cudaError_t err = cudaGetDevice(&current);
+    if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+    return err;
+  };
+  if (dtype != 0 && is_multiply) {
+    const TcPlan tp = tc_plan(a, b, N, H, W, D2, ng, s2);
+    if (tp.ok) {
+      const cudaError_t err = use_device();
+      if (err != cudaSuccess) return err;
+      if (dtype == 1)
+        return launch_tc_dtype<__half>(a, b, out, C, H, W, D2, ng, s2, tp,
+                                       device, st);
+      return launch_tc_dtype<__nv_bfloat16>(a, b, out, C, H, W, D2, ng, s2,
+                                            tp, device, st);
+    }
+  }
   const int gy = (H + kTH - 1) / kTH, gx = (W + kTW - 1) / kTW;
   // copies of 4 elements: 16 bytes of float32, 8 of a 16-bit type
-  const int wide = dtype == 0 ? 16 : 8;
-  const bool vec = W % 4 == 0 && mxtt::aligned(a, wide) &&
-                   mxtt::aligned(b, wide);
-  const RbPlan pl = rb_plan(D2, ng, s2, vec);
+  const size_t esize = dtype == 0 ? 4 : 2;
+  const bool vec = W % 4 == 0 && mxtt::aligned(a, 4 * (int)esize) &&
+                   mxtt::aligned(b, 4 * (int)esize);
+  const RbPlan pl = rb_plan(D2, ng, s2, vec, esize);
   // the general instance: the largest window of any group sets the
   // stride and shared memory
   const int n_groups = (DD + kAcc - 1) / kAcc;
@@ -634,18 +961,14 @@ extern "C" int mxtt_correlation(const void* a, const void* b, void* out,
   const bool fast = window <= kFastStride;
   const size_t bytes =
       pl.ok ? pl.bytes
-            : 2 * sizeof(float) * kChunk *
+            : 2 * esize * kChunk *
                   (kThreads + (size_t)(fast ? kFastStride : window));
   const long long gz = (long long)N * (pl.ok ? pl.n_igroups : n_groups);
   if (gz > 65535 || gy > 65535 || bytes > (size_t)kMaxSmem)
     return cudaErrorInvalidValue;
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
+  const cudaError_t err = use_device();
   if (err != cudaSuccess) return err;
-  if (current != device && (err = cudaSetDevice(device)) != cudaSuccess)
-    return err;
   const dim3 grid(gx, gy, (unsigned)gz);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return launch_dtype<__half>(a, b, out, C, H, W, D2, ng, s2, is_multiply,
                                 pl, n_groups, fast, vec, grid, bytes, device,

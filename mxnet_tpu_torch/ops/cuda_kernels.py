@@ -16,14 +16,15 @@ The counterpart of ``mxnet_tpu/ops/pallas_kernels.py``.  Each kernel has:
 Every kernel takes float32, float16 and bfloat16 operands
 (:data:`KERNEL_DTYPES`), as the TPU kernels do, and rounds its output
 once to the operands' dtype (``csrc/elem.cuh``).  The TPU kernels
-convert each element to float32 as they load it; so does correlation,
-and so do paged_attention's one-row path and any float32 q.  A 16-bit
-q, k and v in flash_attention, and a 16-bit q over pools of its dtype
-in paged_attention's row tiles, are multiplied on the tensor cores as
-they are (``csrc/attention.cuh``: q·k in one 16-bit product, exact in
-float32; p·v in two, p split into two 16-bit parts; float32 sums): the
-output lies within one unit in its last place of the float32
-arithmetic's, rounded.  The
+convert each element to float32 as they load it; so do correlation's
+``|a - b|``, paged_attention's one-row path and any float32 q, at the
+read from their 16-bit stages.  A 16-bit q, k and v in flash_attention,
+a 16-bit q over pools of its dtype in paged_attention's row tiles, and
+16-bit a and b in correlation's products are multiplied on the tensor
+cores as they are (``csrc/attention.cuh``: q·k and a·b in one 16-bit
+product, exact in float32; p·v in two, p split into two 16-bit parts;
+float32 sums): the output lies within one unit in its last place of the
+float32 arithmetic's, rounded.  The
 attention and correlation wrappers run the instance of their operands'
 dtype; operands of mixed float dtypes are upcast to float32 (exact) and
 run the float32 instance, the output cast to q's (or a's) dtype, which
@@ -884,8 +885,8 @@ def correlation(a: torch.Tensor, b: torch.Tensor, max_displacement: int,
 
     CUDA tensors launch the hand-written kernel (csrc/correlation.cu,
     float32, float16 or bfloat16, mixed dtypes upcast to float32,
-    contiguous, any D2; the output in a's dtype); CPU tensors take
-    :func:`correlation_reference`."""
+    contiguous, any D2; 16-bit products on the tensor cores; the output
+    in a's dtype); CPU tensors take :func:`correlation_reference`."""
     if a.dim() != 4 or b.shape != a.shape:
         raise MXNetError("correlation: need a and b of one shape (N, C, H, "
                          "W), got %s and %s" % (tuple(a.shape),

@@ -559,3 +559,223 @@ def test_launch_plans_fit_the_card(name, g):
     assert nbytes <= 227 * 1024 == K["kMaxSmem"]
     assert max(grid[1:]) <= 65535 and grid[0] < 2 ** 31
     assert 32 <= threads <= 1024 and threads % 32 == 0
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core instance (16-bit products), mirrored lane by lane
+#
+# csrc/correlation.cu's correlation_tc_kernel computes, per warp, the band
+# of S = A_y · B_{y+dy} for 16 pixels with mma.sync m16n8k16 on fragments
+# read by ldmatrix.trans.  The mirror plans a launch as tc_plan does, stages
+# a and b as the kernel's 16-byte copies do (each group of 8 wholly inside
+# or outside the image), gives every lane the registers ldmatrix.trans
+# gives it (lane
+# (g, t) of matrix q: elements (2t, g) and (2t + 1, g) of the rows lanes
+# 8q..8q+7 address), multiplies the fragments as mma.sync lays them out,
+# and stores the band as the epilogue does.
+
+def _tc_constants():
+    with open(os.path.join(ck._CSRC, ck.SOURCES["correlation"])) as f:
+        text = f.read()
+    per_nt = int(re.search(r"constexpr int tc_rows\(int nt\) \{ return "
+                           r"(\d+) / nt; \}", text).group(1))
+    return dict(rows=K["kTcRows"], mtiles=K["kTcMTiles"],
+                chunk=K["kTcChunk"], stages=K["kTcStages"],
+                max_nt=K["kTcMaxNT"], per_nt=per_nt)
+
+
+TC = _tc_constants()
+
+
+def _odd8(n):
+    return ((n + 7) // 8 | 1) * 8
+
+
+def _tc_plan(n, h, w, m, s2, align_a=16, align_b=16):
+    """tc_plan: (nt, ni, n_igroups, shift, grid, bytes), or None where
+    the SIMT instances run (a W or an alignment 16-byte copies cannot
+    stage, a window over kTcMaxNT n-tiles).  align_*: the operands'
+    alignment in bytes."""
+    if w % 8 or align_a % 16 or align_b % 16:
+        return None
+    ng, d2 = ck.correlation_geometry(m, s2)
+    reach = ng * s2
+    shift = (8 - reach % 8) % 8
+    nt = (16 + shift + 2 * reach + 7) // 8
+    if nt > TC["max_nt"]:
+        return None
+    cols, bs = 16 * TC["mtiles"], _odd8(16 * (TC["mtiles"] - 1) + 8 * nt)
+    for cap in range(TC["per_nt"] // nt, 0, -1):
+        nig = -(-d2 // cap)
+        ni = -(-d2 // nig)
+        nbytes = 2 * TC["stages"] * TC["chunk"] * (
+            TC["rows"] * _odd8(cols) + (TC["rows"] + ni - 1) * bs)
+        if nbytes <= K["kMaxSmem"]:
+            grid = (-(-w // cols), s2 * -(-h // (TC["rows"] * s2)), n * nig)
+            return dict(nt=nt, ni=ni, nig=nig, shift=shift, grid=grid,
+                        bytes=nbytes)
+    return None
+
+
+def _ldmatrix_trans(smem, rows, nmat):
+    """(32, nmat, 2): lane (g, t)'s registers of ldmatrix.x{nmat}.trans
+    over the 8-element rows at ``rows`` (one address a lane)."""
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    q = np.arange(nmat)
+    lo = rows[8 * q[None, :] + 2 * t[:, None]] + g[:, None]
+    return np.stack([smem[lo], smem[rows[8 * q[None, :] + 2 * t[:, None]
+                                         + 1] + g[:, None]]], -1)
+
+
+def _mma(acc, af, b0, b1):
+    """acc (32, 4) += A · B of mma.sync m16n8k16 from the lanes' A
+    registers af (32, 4, 2) and B registers b0, b1 (32, 2)."""
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    a_m, b_m = np.zeros((16, 16)), np.zeros((16, 8))
+    for half in (0, 1):
+        k = 2 * t + half
+        a_m[g, k], a_m[g + 8, k] = af[:, 0, half], af[:, 1, half]
+        a_m[g, k + 8], a_m[g + 8, k + 8] = af[:, 2, half], af[:, 3, half]
+        b_m[k, g], b_m[k + 8, g] = b0[:, half], b1[:, half]
+    c = a_m @ b_m
+    acc += np.stack([c[g, 2 * t], c[g, 2 * t + 1], c[g + 8, 2 * t],
+                     c[g + 8, 2 * t + 1]], -1)
+
+
+def _emulate_tc(a, b, m, s2):
+    """Every block, warp and lane of the tensor-core instance, replayed:
+    -> (output, stores per element, plan)."""
+    n, c, h, w = a.shape
+    ng, d2 = ck.correlation_geometry(m, s2)
+    pl = _tc_plan(n, h, w, m, s2)
+    nt, ni, nig = pl["nt"], pl["ni"], pl["nig"]
+    rows, mtiles, chunk = TC["rows"], TC["mtiles"], TC["chunk"]
+    k_ni, cols = TC["per_nt"] // nt, 16 * mtiles
+    a_s, wc = _odd8(cols), 16 * (mtiles - 1) + 8 * nt
+    b_s, s_s = _odd8(wc), _odd8(8 * nt)
+    wrows = rows + ni - 1
+    a_elems = rows * chunk * a_s
+    stage_elems = a_elems + wrows * chunk * b_s
+    assert pl["bytes"] == 2 * TC["stages"] * stage_elems
+    assert rows * mtiles * 16 * s_s <= stage_elems      # epilogue scratch
+    out = np.full((n, d2 * d2, h, w), np.nan)
+    stores = np.zeros(out.shape, np.int32)
+    lane = np.arange(32)
+    for bx, by, bz in np.ndindex(*pl["grid"]):
+        nn, i_first = bz // nig, bz % nig * ni
+        n_i = min(ni, d2 - i_first)
+        ya0 = by // s2 * rows * s2 + by % s2
+        wy0 = ya0 + (i_first - ng) * s2
+        x0 = bx * cols
+        wx0 = x0 - ng * s2 - pl["shift"]
+        accs = np.zeros((rows * mtiles, k_ni, nt, 32, 4))
+        for c0 in range(0, c, chunk):
+            smem = np.full(stage_elems, np.nan)
+            v = 8
+            for img, y_0, x_0, n_rows, width, stride, off in (
+                    (a, ya0, x0, rows, cols, a_s, 0),
+                    (b, wy0, wx0, wrows, wc, b_s, a_elems)):
+                assert x_0 % v == 0
+                for row, ch, col in np.ndindex(n_rows, chunk, width // v):
+                    yy, xx = y_0 + row * s2, x_0 + col * v
+                    dst = off + (row * chunk + ch) * stride + col * v
+                    inside = c0 + ch < c and 0 <= yy < h and 0 <= xx \
+                        and xx + v <= w
+                    smem[dst:dst + v] = img[nn, c0 + ch, yy, xx:xx + v] \
+                        if inside else 0.0
+            for warp in range(rows * mtiles):
+                r, mt = divmod(warp, mtiles)
+                if not (ya0 + r * s2 < h and x0 + 16 * mt < w):
+                    continue
+                a_lane = r * chunk * a_s + 16 * mt + \
+                    ((lane & 7) + 8 * (lane >> 4)) * a_s + \
+                    8 * ((lane >> 3) & 1)
+                b_lane = a_elems + r * chunk * b_s + 16 * mt + \
+                    ((lane & 7) + 8 * ((lane >> 3) & 1)) * b_s + \
+                    8 * (lane >> 4)
+                for ks in range(chunk // 16):
+                    af = _ldmatrix_trans(smem, a_lane + ks * 16 * a_s, 4)
+                    for il in range(min(k_ni, n_i)):
+                        sb = b_lane + (il * chunk + ks * 16) * b_s
+                        for j in range(0, nt - 1, 2):
+                            bf = _ldmatrix_trans(smem, sb + 8 * j, 4)
+                            _mma(accs[warp, il, j], af, bf[:, 0], bf[:, 1])
+                            _mma(accs[warp, il, j + 1], af, bf[:, 2],
+                                 bf[:, 3])
+                        if nt % 2:
+                            bf = _ldmatrix_trans(smem, sb + 8 * (nt - 1), 2)
+                            _mma(accs[warp, il, nt - 1], af, bf[:, 0],
+                                 bf[:, 1])
+        for warp in range(rows * mtiles):
+            r, mt = divmod(warp, mtiles)
+            y = ya0 + r * s2
+            if not (y < h and x0 + 16 * mt < w):
+                continue
+            for il in range(min(k_ni, n_i)):
+                sc = np.full((16, s_s), np.nan)     # the warp's scratch
+                g, t = lane >> 2, lane & 3
+                for j in range(nt):
+                    part = accs[warp, il, j] / c
+                    sc[g, 8 * j + 2 * t], sc[g, 8 * j + 2 * t + 1] = \
+                        part[:, 0], part[:, 1]
+                    sc[g + 8, 8 * j + 2 * t], sc[g + 8, 8 * j + 2 * t + 1] \
+                        = part[:, 2], part[:, 3]
+                for ln in range(32):
+                    mm = ln & 15
+                    x = x0 + 16 * mt + mm
+                    if x >= w:
+                        continue
+                    for jd in range(ln >> 4, d2, 2):
+                        col = mm + pl["shift"] + jd * s2
+                        assert col < 8 * nt
+                        d = (i_first + il) * d2 + jd
+                        out[nn, d, y, x] = sc[mm, col]
+                        stores[nn, d, y, x] += 1
+    return out, stores, pl
+
+
+# (id, N, C, H, W, m, stride2): FlowNetC's geometry at narrow C and H,
+# PWC-Net's, windows shifted off the 16-byte copies by 3 and by 7 columns
+# (stride2 3), the widest window (8 n-tiles at shift 0), m = 0, a width
+# narrower than the block's 64 columns
+TC_CASES = [("flownetc-narrow", 1, 19, 6, 64, 20, 2),
+            ("pwcnet-narrow", 1, 40, 5, 72, 4, 1),
+            ("shift3-s1", 1, 6, 5, 64, 5, 1),
+            ("s2-3-shift7", 1, 33, 7, 48, 9, 3),
+            ("reach-24", 1, 3, 7, 64, 24, 1),
+            ("m0", 1, 5, 5, 24, 0, 1),
+            ("w40", 2, 9, 6, 40, 2, 1)]
+
+
+@pytest.mark.parametrize("case", TC_CASES, ids=[c[0] for c in TC_CASES])
+def test_tensor_core_decomposition_matches_reference(case):
+    _id, n, c, h, w, m, s2 = case
+    rng = np.random.RandomState(len(_id))
+    an = rng.randn(n, c, h, w).astype(np.float32)
+    bn = rng.randn(n, c, h, w).astype(np.float32)
+    got, stores, _pl = _emulate_tc(an, bn, m, s2)
+    assert int(stores.min()) == int(stores.max()) == 1   # each output once
+    ref = ck.correlation_reference(torch.from_numpy(an), torch.from_numpy(bn),
+                                   m, s2)
+    np.testing.assert_allclose(got, ref.numpy(), rtol=0, atol=1e-5)
+
+
+def test_flownetc_and_pwcnet_take_the_tensor_core_instance():
+    for g, nt in ((FLOWNETC, 8), (PWCNET, 4)):
+        pl = _tc_plan(g["n"], g["h"], g["w"], g["m"], g["s2"])
+        assert pl is not None and pl["nt"] == nt and pl["shift"] == 4
+        assert pl["bytes"] <= K["kMaxSmem"] and max(pl["grid"][1:]) <= 65535
+        # a warp's accumulators: its displacement rows x n-tiles x 4
+        assert pl["ni"] * nt * 4 <= 96
+    fl = _tc_plan(FLOWNETC["n"], FLOWNETC["h"], FLOWNETC["w"], FLOWNETC["m"],
+                  FLOWNETC["s2"])
+    assert fl["ni"] == 3 and fl["nig"] == 7
+    # windows over kTcMaxNT n-tiles, widths and alignments 16-byte copies
+    # cannot stage run the SIMT instances
+    assert _tc_plan(1, 10, 64, 30, 2) is None
+    assert _tc_plan(1, 10, 64, 24, 1) is not None
+    assert _tc_plan(1, 10, 44, 4, 2) is None
+    assert _tc_plan(1, 10, 64, 4, 2, align_a=8) is None
+    assert _tc_plan(1, 10, 64, 4, 2, align_b=2) is None

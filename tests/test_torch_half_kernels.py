@@ -3,20 +3,22 @@ against the JAX package's, on the CPU.
 
 The JAX kernels take any float dtype: each operand is upcast to float32 as
 it is loaded, the arithmetic is float32, and the output is rounded once to
-q's (a's) dtype.  The port's correlation kernel does the same
-(``csrc/elem.cuh``); its flash and paged kernels multiply 16-bit operands
-on the tensor cores (``csrc/attention.cuh``: q·k in one 16-bit product,
-p·v in two, p split into ``rn(p)`` and ``rn(p - rn(p))`` in v's dtype,
-float32 sums), which ``chip_smoke.py`` phase 28 holds on the card within
-one unit in the last place of the float32 instance's output.  Here, on
+q's (a's) dtype.  The port's correlation kernel does the same for
+``|a - b|`` (``csrc/elem.cuh``); its flash, paged and correlation kernels
+multiply 16-bit operands on the tensor cores (``csrc/attention.cuh``: q·k
+and a·b in one 16-bit product, p·v in two, p split into ``rn(p)`` and
+``rn(p - rn(p))`` in v's dtype, float32 sums), which ``chip_smoke.py``
+phase 28 holds on the card within one unit in the last place of the
+float32 instance's output.  Here, on
 CPU tensors, the port's wrappers take their plain versions; each is held,
 in float16 and bfloat16, to the JAX Pallas kernel run with
 ``interpret=True`` in the same dtype, within one unit in the dtype's last
 place at the outputs' scale, ``HALF_ULP[dtype] * max(1, max|jax|)``
 (2^-10 for float16, 2^-7 for bfloat16): both sides round float32 results
-that differ by a few float32 ulps.  So is a plain-PyTorch emulation of the
-16-bit kernels' arithmetic (:func:`_emulate_16bit`), which shows that the
-one-ulp gate holds for the design and not only for the card's sums.
+that differ by a few float32 ulps.  So are plain-PyTorch emulations of the
+16-bit kernels' arithmetic (:func:`_emulate_16bit`,
+:func:`_emulate_corr_16bit`), which show that the one-ulp gate holds for
+the design and not only for the card's sums.
 Also: operands of mixed float dtypes; the ``Correlation`` op bound in
 float16 through ``simple_bind(type_dict=)`` against the JAX op (its lax
 lowering on the CPU); a bfloat16 ``KVBlockPool`` view; the wrappers'
@@ -281,11 +283,11 @@ def test_paged_16bit_arithmetic_within_one_ulp_of_pallas(dt, causal, c):
 
 
 def test_16bit_kernels_multiply_16bit_operands_from_16bit_stages():
-    """The 16-bit flash and paged paths: m16n8k16 products in float16 and
-    bfloat16 (one for q·k, two for p·v) on fragments read through ldmatrix
-    from stages in the operands' type, filled by cp.async; no staging
-    through float32 registers (elem.cuh's stage_f32, which correlation
-    still uses)."""
+    """The 16-bit flash, paged and correlation paths: m16n8k16 products
+    in float16 and bfloat16 (one for q·k and for a·b, two for p·v) on
+    fragments read through ldmatrix from stages in the operands' type,
+    filled by cp.async; no staging through float32 registers (the stage_f32
+    that correlation used is gone from elem.cuh)."""
     def read(name):
         with open(os.path.join(ck._CSRC, name)) as f:
             return f.read()
@@ -305,7 +307,31 @@ def test_16bit_kernels_multiply_16bit_operands_from_16bit_stages():
         assert "stage_f32" not in text
         assert stage in text and "cp_async16(ks + " in text
         assert "constexpr int kHalfStages = " in text
-    assert "stage_f32<" in read("correlation.cu")
+    corr = read("correlation.cu")
+    assert "stage_f32" not in corr and "stage_f32" not in read("elem.cuh")
+    # attention.cuh's copies, ldmatrix and mma_16, no copies of them
+    assert '#include "attention.cuh"' in corr
+    assert "asm volatile" not in corr
+    tc = corr[corr.index("correlation_tc_kernel(const E*"):]
+    tc = tc[:tc.index("\n}\n")]
+    assert "E* smem = reinterpret_cast<E*>(corr_smem);" in tc
+    # 16-bit stages by 16-byte cp.async copies of a and b
+    assert "stage_lines<kAS, kTcCols / 8>(buf, an," in tc
+    assert "stage_lines<kBS, kWC / 8>(buf + a_elems, bn," in tc
+    lines = corr[corr.index("void stage_lines(E* dst"):]
+    assert "stage_copy<8>(dst + line * kStride" in lines[:lines.index("\n}\n")]
+    assert tc.count("mxtt::ldmatrix_x4_trans(") == 2
+    assert "mxtt::ldmatrix_x2_trans(bf," in tc
+    assert tc.count("mxtt::mma_16<E>(acc[") == 3
+    copy = corr[corr.index("void stage_copy(E* dst"):]
+    copy = copy[:copy.index("\n}\n")]
+    for size in ("16", "8", "4"):
+        assert "mxtt::cp_async%s(dst, src, valid);" % size in copy
+    # 16-bit multiplies take the tensor-core instance wherever it plans one
+    launch = corr[corr.index('extern "C" int mxtt_correlation('):]
+    assert launch.index("if (dtype != 0 && is_multiply) {") < \
+        launch.index("tc_plan(a, b, N, H, W, D2, ng, s2)") < \
+        launch.index("rb_plan(D2, ng, s2, vec, esize)")
 
 
 # ---------------------------------------------------------------------------
@@ -325,6 +351,51 @@ def test_correlation_half_matches_pallas_interpret(dt, is_mult, m, stride2):
     want = pallas_corr(_to_jax(a), _to_jax(b), m, stride2, is_mult,
                        interpret=True)
     assert want is not None and want.dtype == jdt
+    _assert_ulp(got, want, tdt)
+
+
+def _emulate_corr_16bit(a, b, m, s2):
+    """The tensor-core correlation's arithmetic in plain PyTorch: a and b
+    of one 16-bit dtype, taken exactly in float32, channels zero-padded to
+    a multiple of 16 and b zero outside the image; for each displacement
+    the products a·b (exact in float32) summed 16 channels at a step in
+    float32, the steps added in channel order, the sum divided by C and
+    rounded once to the dtype."""
+    n, c, h, w = a.shape
+    ng, d2 = ck.correlation_geometry(m, s2)
+    cp = -(-c // 16) * 16
+    af = torch.zeros((n, cp, h, w))
+    af[:, :c] = a.float()
+    bp = torch.zeros((n, cp, h + 2 * m, w + 2 * m))
+    bp[:, :c, m:m + h, m:m + w] = b.float()
+    outs = []
+    for i in range(d2):
+        oy = m + (i - ng) * s2
+        for j in range(d2):
+            ox = m + (j - ng) * s2
+            prod = af * bp[:, :, oy:oy + h, ox:ox + w]
+            steps = prod.view(n, cp // 16, 16, h, w).sum(2)
+            acc = torch.zeros((n, h, w))
+            for k in range(cp // 16):
+                acc = acc + steps[:, k]
+            outs.append(acc / c)
+    return torch.stack(outs, 1).to(a.dtype)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("m,stride2,c", [(3, 1, 19), (3, 1, 40), (6, 1, 40),
+                                         (4, 2, 19), (4, 2, 40),
+                                         (12, 2, 19)])
+def test_correlation_16bit_arithmetic_within_one_ulp_of_pallas(dt, m,
+                                                               stride2, c):
+    """Windows with D2^2 <= 169 (the JAX kernel's unroll bound), C no
+    multiple of 16."""
+    tdt, _ = DTYPES[dt]
+    a, b = (_randn((2, c, 7, 11), tdt, 40 + s) for s in range(2))
+    got = _emulate_corr_16bit(a, b, m, stride2)
+    want = pallas_corr(_to_jax(a), _to_jax(b), m, stride2, True,
+                       interpret=True)
+    assert want is not None
     _assert_ulp(got, want, tdt)
 
 
