@@ -11,7 +11,16 @@ Phases, in order; any failure exits nonzero:
    with nvcc for sm_90a;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes and at ragged ones, with the tolerance each
-   case states; kernel, plain version and one library call timed; then
+   case states; ``fused_fc_epilogue`` with x and W in float16 and in
+   bfloat16 (``FC_HALF_CASES``: fc6 and fc7 at M 8, 1 and 33, every act,
+   no bias, a ragged K and N, and K % 8 != 0 and a 2-byte-aligned view on
+   the SIMT route; ``kernel check half fc`` lines), each on the route the
+   case names (``fc_route``: the launcher's workspace, 786,432 bytes at
+   fc6 and fc7), within one unit in the last place of the float32
+   instance on the upcast inputs, rounded, and of the plain version, two
+   calls bitwise equal, and int8 codes from 16-bit operands equal to the
+   plain version's; kernel, plain version and one library call timed;
+   then
    the int8 route (``torch._int_mm``, with im2col for convolutions)
    bitwise against its float64 plain version at VGG-16's conv1_1, conv5_3
    and fc6 and at codes near +127 whose sums pass 2^24, and timed against
@@ -353,9 +362,10 @@ Phases, in order; any failure exits nonzero:
    ``MXRtcCreate``/``MXRtcPush`` with phase 26's softmax on NDArrays
    made through the ABI against ``torch.softmax``, one launch counted;
    the ``native layer result`` line;
-28. float16 and bfloat16 in ``paged_attention``, ``flash_attention`` and
-   ``correlation`` (``kernel check half``, ``flownetc``, ``search (c)``,
-   ``search (d)``, ``pool (d)`` lines): (a) each 16-bit instance at the
+28. float16 and bfloat16 in ``paged_attention``, ``flash_attention``,
+   ``correlation`` and ``fused_fc_epilogue`` (``kernel check half``,
+   ``flownetc``, ``vgg16``, ``search (c)``, ``search (d)``, ``pool (d)``
+   lines): (a) each 16-bit instance at the
    main paths' shapes and ragged ones against the float32 instance on
    the upcast inputs, rounded (correlation's ``|a - b|`` bitwise; flash,
    paged and correlation's products, whose 16-bit products run on the
@@ -372,10 +382,15 @@ Phases, in order; any failure exits nonzero:
    ``KVBlockPool.add_view(dtype=)`` views at the page table's capacity;
    (e) each half instance timed beside the float32 instance, its plain
    version and the library call, correlation also at PWC-Net's shape,
-   and ``fused_fc_epilogue`` in float16 and bfloat16 at fc6 + fc7
-   (bucket 8) beside ``addmm`` + ``relu_`` in that dtype, with the
-   launches of phase 5's float16 serving; the ``half precision result``
-   line;
+   and ``fused_fc_epilogue``'s tensor-core instance in float16 and
+   bfloat16 at fc6 + fc7 (bucket 8) beside ``addmm`` + ``relu_`` in that
+   dtype, with the launches on (f)'s path; (f) VGG-16
+   at full width with the serving pipeline's fusion, bound at bucket 8
+   in float16 through ``Predictor(type_dict=)`` and in bfloat16 through
+   ``simple_bind(type_dict=)``: 4 forwards each, ``fused_fc_epilogue``
+   twice a forward in the dtype, held on fc6's captured inputs, the
+   logits within ``VGG_HALF_RTOL`` of the float32 fused forward's; the
+   ``half precision result`` line;
    then the whole script's wall, the ``kernels`` JSON line (all four
    kernels and their float16 and bfloat16 instances), then the
    ``{"ok": true, ...}`` line.
@@ -436,7 +451,10 @@ EARLIER_FROM = "quoted: PERF.md Findings (kernel_ab.py), not this run"
 # never in the kernels line.
 EARLIER_HALF_MS = {"flash_attention": {"float16": 0.1918, "bfloat16": 0.1920},
                    "paged_attention": {"float16": 0.1905, "bfloat16": 0.1925},
-                   "correlation": {"float16": 0.4713, "bfloat16": 0.4731}}
+                   "correlation": {"float16": 0.4713, "bfloat16": 0.4731},
+                   # fc6 + fc7 (bucket 8, relu) on the SIMT instance
+                   "fused_fc_epilogue": {"float16": 0.6263,
+                                         "bfloat16": 0.6253}}
 EARLIER_HALF_FROM = "quoted: PERF.md Findings (phase 28 (e)), not this run"
 # correlation before its register-blocked design, at FlowNetC's shape
 # (multiply), timed by chip_smoke.py the same way (PERF.md, Findings)
@@ -524,10 +542,62 @@ def time_ms(torch, fn, flush, iters=20):
 
 
 def fc_bound_ms(x, w, b, out):
+    """Least time for x · wᵀ + b: each input read once and the output
+    written once at the HBM rate, or the flops at the float32 rate (the
+    16-bit instance's products at the tensor cores' 16-bit rate)."""
     nbytes = sum(t.numel() * t.element_size() for t in (x, w, out)) \
         + (b.numel() * b.element_size() if b is not None else 0)
     flops = 2.0 * x.shape[0] * w.shape[0] * x.shape[1]
-    return 1e3 * max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS)
+    half = x.element_size() == 2 and w.dtype == x.dtype
+    return 1e3 * max(nbytes / PEAK_BYTES_PER_S,
+                     flops / (PEAK_HALF_FLOPS if half else PEAK_F32_FLOPS))
+
+
+def fc_serving_inputs(torch, dev):
+    """VGG-16's fc6 and fc7 at bucket 8 as the time rows take them: [(x,
+    w, b)] in float32, U(-1, 1) x, U(-1, 1) / sqrt(K) W, U(-0.1, 0.1) b
+    from one generator seeded 1234."""
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    out = []
+    for k in (25088, 4096):
+        x = torch.rand((8, k), generator=gen, device=dev) * 2 - 1
+        w = (torch.rand((4096, k), generator=gen, device=dev) * 2 - 1) \
+            / math.sqrt(k)
+        b = (torch.rand((4096,), generator=gen, device=dev) * 2 - 1) * 0.1
+        out.append((x, w, b))
+    return out
+
+
+def fc_half_time_row(torch, ck, dev, flush, dt):
+    """fused_fc_epilogue at fc6 + fc7 (bucket 8, relu) with x and W in
+    ``dt`` and the bias in float32 as the kernel reads it: the kernel
+    (``layer_ms`` by layer, ``route`` its operands'), the float32
+    instance, the plain version, ``addmm`` + ``relu_`` in ``dt`` and the
+    bound, each summed over the two layers."""
+    row = dict(ms=0.0, f32_ms=0.0, plain_ms=0.0, library_ms=0.0,
+               bound_ms=0.0)
+    layer_ms, routes = {}, set()
+    for layer, (x, w, b) in zip(("fc6", "fc7"),
+                                fc_serving_inputs(torch, dev)):
+        xh, wh, bh = x.to(dt), w.to(dt), b.to(dt)
+        out = ck.fused_fc_epilogue(xh, wh, b, "relu")
+        layer_ms[layer] = time_ms(torch, lambda: ck.fused_fc_epilogue(
+            xh, wh, b, "relu"), flush)
+        row["ms"] += layer_ms[layer]
+        routes.add(fc_route(ck, xh, wh))
+        row["f32_ms"] += time_ms(torch, lambda: ck.fused_fc_epilogue(
+            x, w, b, "relu"), flush)
+        row["plain_ms"] += time_ms(
+            torch, lambda: ck.fused_fc_epilogue_reference(
+                xh, wh, b, "relu"), flush)
+        row["library_ms"] += time_ms(torch, lambda: torch.relu_(
+            torch.addmm(bh, xh, wh.t())), flush)
+        row["bound_ms"] += fc_bound_ms(xh, wh, b, out)
+        del x, w, xh, wh, out
+    row.update(shape="fc6 + fc7, M=8, relu", bound_by="bytes",
+               library="addmm + relu_ in %s" % str(dt).split(".")[-1],
+               layer_ms=layer_ms, route=" + ".join(sorted(routes)))
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -611,6 +681,8 @@ def kernel_phase(torch, ck):
             fail("int8 %s: codes differ at %d places" % (
                 act, int((q != qr).sum().item())))
 
+    half_err = fc_half_checks(torch, ck, dev, inputs)
+
     # timing at the serving path's shapes (bucket 8, float32, relu)
     flush = torch.zeros(256 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
     rows = []
@@ -631,12 +703,102 @@ def kernel_phase(torch, ck):
         print("kernel time %s: %s" % (name, json.dumps(row)))
         rows.append(row)
     del flush
-    return {"max_abs_err": main_err,
+    return {"max_abs_err": main_err, "half_err": half_err,
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "library_ms": sum(r["library_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows),
             "rows": rows}
+
+
+# 16-bit fused_fc_epilogue cases: (label, M, K, N, act, bias, the route
+# fc_route must give, operands 2-byte aligned).  fc6 and fc7 at buckets 8,
+# 1 and 33; every act and no bias; a ragged K and N; the SIMT route's
+# shapes (K % 8 != 0, a view off 16 bytes)
+FC_HALF_CASES = (
+    [("fc6", 8, 25088, 4096, "relu", True, "tensor_core", False),
+     ("fc7", 8, 4096, 4096, "relu", True, "tensor_core", False),
+     ("fc6-m1", 1, 25088, 4096, "relu", True, "tensor_core", False),
+     ("fc7-m1", 1, 4096, 4096, "relu", True, "tensor_core", False),
+     ("fc6-m33", 33, 25088, 4096, "relu", True, "tensor_core", False),
+     ("fc7-m33", 33, 4096, 4096, "relu", True, "tensor_core", False)]
+    + [("ragged-" + act, 3, 784, 10, act, True, "tensor_core", False)
+       for act in ("none", "relu", "sigmoid", "tanh", "softrelu")]
+    + [("no-bias", 8, 4096, 512, "relu", False, "tensor_core", False),
+       ("ragged-k1000-n37", 5, 1000, 37, "tanh", True, "tensor_core", False),
+       ("simt-k1001", 5, 1001, 37, "tanh", True, "simt", False),
+       ("simt-2-byte-aligned", 8, 4096, 512, "sigmoid", True, "simt",
+        True)])
+
+
+# the tensor-core route's workspace at fc6 and fc7, buckets 1..8: 256
+# column tiles x 6 pieces x 512 bytes (tests/test_torch_fc_half.py's plan)
+FC_HALF_WORKSPACE = 786432
+
+
+def fc_route(ck, x, w):
+    """The route a CUDA call of fused_fc_epilogue on x and w takes, as
+    its launcher plans it: ``tensor_core`` where it needs a workspace."""
+    return "tensor_core" if ck.fc_workspace_bytes(x, w) else "simt"
+
+
+def fc_half_checks(torch, ck, dev, inputs):
+    """Phase 3's 16-bit cases (FC_HALF_CASES) in float16 and bfloat16:
+    each on the route the case names (fc_route; FC_HALF_WORKSPACE at fc6
+    and fc7, buckets 8 and 1), within one unit in the last place of the
+    float32 instance on the upcast inputs, rounded, and of the plain
+    version, two calls bitwise equal (hold_half); then int8 codes from
+    16-bit operands equal to the plain version's, two calls bitwise
+    equal.  -> {dtype name: max abs error at fc6 and fc7, bucket 8}."""
+    main = {}
+    for name in HALF_NAMES:
+        dt = getattr(torch, name)
+        main[name] = 0.0
+        for label, m, k, n, act, bias, route, odd in FC_HALF_CASES:
+            x, w, b = half_args(torch, inputs(m, k, n, bias=bias), dt, odd)
+            if b is not None:
+                b = b.float()
+            got = fc_route(ck, x, w)
+            if got != route:
+                fail("fc half %s %s: route %s, want %s" % (label, name, got,
+                                                          route))
+            ws = ck.fc_workspace_bytes(x, w)
+            if label in ("fc6", "fc7", "fc6-m1", "fc7-m1") and \
+                    ws != FC_HALF_WORKSPACE:
+                fail("fc half %s %s: workspace %d bytes, want %d"
+                     % (label, name, ws, FC_HALF_WORKSPACE))
+            err = hold_half(
+                torch, ck, "fc %s M=%d K=%d N=%d %s %s" % (
+                    label, m, k, n, act, route),
+                lambda *a: ck.fused_fc_epilogue(*a, act),
+                lambda *a: ck.fused_fc_epilogue_reference(*a, act),
+                [x, w, b], dt, exact=False)
+            if label in ("fc6", "fc7"):
+                main[name] = max(main[name], err)
+        # int8 codes from 16-bit operands: small integers are exact in both
+        # dtypes and their float32 sums exact on the tensor cores; scale 2
+        # puts odd sums on .5 ties, 0.7 has an inexact reciprocal
+        gi = torch.Generator(device=dev).manual_seed(11)
+        x = torch.randint(-3, 4, (8, 512), generator=gi, device=dev).to(dt)
+        w = torch.randint(-2, 3, (64, 512), generator=gi, device=dev).to(dt)
+        b = torch.randint(-5, 6, (64,), generator=gi, device=dev).float()
+        for act, scale in (("none", 2.0), ("relu", 2.0), ("none", 0.7)):
+            q = ck.fused_fc_epilogue(x, w, b, act, out_scale=scale)
+            again = ck.fused_fc_epilogue(x, w, b, act, out_scale=scale)
+            qr = ck.fused_fc_epilogue_reference(x, w, b, act,
+                                                out_scale=scale)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(q, qr) and torch.equal(q, again)) and \
+                q.dtype == torch.int8
+            print("kernel check half fc int8-%-4s %-14s scale %-4g route %s "
+                  "codes equal=%s" % (act, dt, scale, fc_route(ck, x, w),
+                                      same))
+            if not same:
+                fail("fc int8 %s %s: codes differ at %d places from the "
+                     "plain version's, at %d from a second call's" % (
+                         name, act, int((q != qr).sum().item()),
+                         int((q != again).sum().item())))
+    return main
 
 
 # ---------------------------------------------------------------------------
@@ -654,8 +816,12 @@ def xavier_params(sym, shapes, seed):
             continue
         scale = 0.01 if len(shape) == 1 else \
             math.sqrt(6.0 / float(np.prod(shape[1:])))
-        params[name] = (rng.random(shape, dtype=np.float32) * 2 - 1) * \
-            np.float32(scale)
+        # (u * 2 - 1) * scale in float32, in place
+        a = rng.random(shape, dtype=np.float32)
+        a *= 2
+        a -= 1
+        a *= np.float32(scale)
+        params[name] = a
     return params
 
 
@@ -795,8 +961,12 @@ def device_profile(torch, step, reps=3, by_op=None):
         step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / reps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # host ops are recorded only for ``by_op``: the rows are the kernels'
+    # own events, and parsing every host op of a training step's trace
+    # took most of the profiler's cost
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if by_op is not None else [])
+    with profile(activities=activities) as prof:
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
@@ -11075,8 +11245,8 @@ def p27_phase(torch, mt, ck, smi, root, native_build_thread):
 
 
 # ---------------------------------------------------------------------------
-# phase 28: float16 and bfloat16 in paged_attention, flash_attention and
-# correlation
+# phase 28: float16 and bfloat16 in paged_attention, flash_attention,
+# correlation and fused_fc_epilogue (its 16-bit cases are in phase 3)
 #
 # (a) each kernel's float16 and bfloat16 instances at the main paths'
 #     shapes and at ragged ones (T no multiple of the tile, an odd head dim
@@ -11114,9 +11284,21 @@ def p27_phase(torch, mt, ck, smi, root, native_build_thread):
 #     SDPA for flash, none for correlation), its bound at 2 bytes an
 #     element, and the earlier design's time, quoted (EARLIER_HALF_MS);
 #     correlation also at PWC-Net's shape; fused_fc_epilogue's float16
-#     and bfloat16 instances at fc6 + fc7 (bucket 8) beside addmm + relu_
-#     in the dtype, with the launches that phase 5's float16 serving made
-#     (its Cast sandwich leaves FullyConnected unfused).
+#     and bfloat16 tensor-core instance at fc6 + fc7 (bucket 8), at every
+#     tile, beside addmm + relu_ in the dtype, with the launches on (f)'s
+#     path;
+# (f) VGG-16 at full width (phase 4's checkpoint, 138,357,544 parameters)
+#     with the serving pipeline's fusion and no quantize (fc6 and fc7
+#     become _fused_FullyConnected with relu), bound at bucket 8 in
+#     float16 through Predictor(type_dict=float16, pipeline=) and in
+#     bfloat16 through simple_bind(type_dict=bfloat16) on the fused graph:
+#     4 forwards each on phase 4's wire images, fused_fc_epilogue launched
+#     2 times a forward in the dtype, fc6's inputs captured (a monitor
+#     callback) and the kernel held on them as in phase 3, the logits
+#     (fc8's output) within VGG_HALF_RTOL of the float32 fused forward's
+#     on the same images.  (Phase 5's float16 engine launches the kernel 0
+#     times: its Cast sandwich leaves FullyConnected unfused, as the JAX
+#     package's does.)
 
 HALF_NAMES = ("float16", "bfloat16")
 # FlowNetC's stage in a 16-bit dtype against the float32 stage, relative
@@ -11126,6 +11308,14 @@ HALF_NAMES = ("float16", "bfloat16")
 # while a wrong dtype path, channel order or displacement moves it by
 # O(1).  bfloat16 keeps 8 bits (2^-8, 8x float16's): 8 x 5e-3.
 FLOWNETC_HALF_RTOL = {"float16": 5e-3, "bfloat16": 4e-2}
+# VGG-16's logits in a 16-bit dtype against the float32 fused forward's,
+# relative L2, derived as FLOWNETC_HALF_RTOL: float16's unit roundoff
+# 2^-11 ~ 4.9e-4 enters at the rounded images, weights and activations of
+# 16 layers, about 16 x that if the errors added up in step and 4 x at
+# random: 1e-2 holds a right path, while a wrong dtype path, weight
+# layout or fragment order moves the logits by O(1).  bfloat16 keeps 8
+# bits (2^-8, 8x float16's): 8e-2.
+VGG_HALF_RTOL = {"float16": 1e-2, "bfloat16": 8e-2}
 
 
 def odd_offset(torch, x):
@@ -11418,6 +11608,123 @@ def p28_flownetc(torch, mt, ck, smi, f32_out, n=8, forwards=2, seed=0):
     return out
 
 
+def p28_vgg_half(torch, mt, ck, smi, prefix, wire, batch=8, forwards=4):
+    """(f): -> {dtype name: {launches, forwards, rel_l2, err, route,
+    wall_ms}} and ``wall_s``."""
+    from mxnet_tpu_torch.passes.quantize import build_serving_pipeline
+    t_phase = time.perf_counter()
+    shapes = {"data": (batch, 3) + tuple(wire[0].shape[:2]),
+              "softmax_label": (batch,)}
+    batches = [np.stack([wire_to_nchw(u)
+                         for u in wire[i * batch:(i + 1) * batch]])
+               for i in range(forwards)]
+    sym_file, params_file = prefix + "-symbol.json", prefix + "-0000.params"
+
+    def pipeline():
+        return build_serving_pipeline(fuse=True, ctx=mt.gpu(0))
+
+    def watch(ex, seen):
+        def monitor(node, arr):
+            if node in ("flatten_output", "fc8_output"):
+                seen.setdefault(node, []).append(arr._get().clone())
+        ex.set_monitor_callback(monitor)
+
+    # the float32 fused forward's logits on the same images
+    pred = mt.Predictor(sym_file, params_file, shapes, pipeline=pipeline())
+    fused = [n["op"] for n in json.loads(pred.symbol.tojson())["nodes"]]
+    if fused.count("_fused_FullyConnected") != 2:
+        fail("(f): the fused VGG-16 graph has %d _fused_FullyConnected "
+             "nodes, want 2" % fused.count("_fused_FullyConnected"))
+    seen32 = {}
+    watch(pred._exec, seen32)
+    for x in batches:
+        pred.set_input("data", x)
+        pred.forward()
+    torch.cuda.synchronize()
+    want = [t.float().cpu().numpy() for t in seen32["fc8_output"]]
+    del pred, seen32
+    out = {}
+    for name in HALF_NAMES:
+        dt = getattr(torch, name)
+        seen = {}
+        if name == "float16":
+            pred = mt.Predictor(
+                sym_file, params_file, shapes, pipeline=pipeline(),
+                type_dict={a: np.float16 for a in
+                           mt.sym.load(sym_file).list_arguments()})
+            ex, route = pred._exec, "Predictor(type_dict=float16)"
+
+            def forward(x):
+                pred.set_input("data", x)
+                pred.forward()
+        else:
+            pred = None
+            sym = mt.sym.load(sym_file)
+            _sym, args, aux = mt.model.load_checkpoint(prefix, 0,
+                                                       ctx=mt.cpu())
+            fsym, fargs = pipeline().run(sym, args)
+            ex = fsym.simple_bind(
+                mt.gpu(0), grad_req="null",
+                type_dict={a: name for a in fsym.list_arguments()},
+                **shapes)
+            ex.copy_params_from(dict(fargs), aux, allow_extra_params=True)
+            route = "simple_bind(type_dict=bfloat16) on the fused graph"
+
+            def forward(x):
+                ex.arg_dict["data"][:] = x
+                ex.forward(is_train=False)
+        forward(batches[0])               # cuDNN picks its algorithms
+        torch.cuda.synchronize()
+        watch(ex, seen)
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        for x in batches:
+            forward(x)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / forwards
+        launches = dict(ck.LAUNCHES)
+        x6 = seen["flatten_output"][-1]
+        w6 = ex.arg_dict["fc6_weight"]._get()
+        b6 = ex.arg_dict["fc6_bias"]._get()
+        if launches["fused_fc_epilogue"] != 2 * forwards or any(
+                v for k, v in launches.items() if k != "fused_fc_epilogue") \
+                or x6.dtype != dt or w6.dtype != dt:
+            fail("(f) %s: fused_fc_epilogue launched %d times for %d "
+                 "forwards, want 2 a forward (launches %s), fc6's inputs "
+                 "%s %s" % (name, launches["fused_fc_epilogue"], forwards,
+                            launches, x6.dtype, w6.dtype))
+        got = [t.float().cpu().numpy() for t in seen["fc8_output"]]
+        rel = max(rel_l2_diff(g, w_) for g, w_ in zip(got, want))
+        finite = all(np.all(np.isfinite(g)) for g in got)
+        x6 = x6.reshape(x6.shape[0], -1).contiguous()
+        if fc_route(ck, x6, w6) != "tensor_core":
+            fail("(f) %s: fc6's captured inputs take the %s route"
+                 % (name, fc_route(ck, x6, w6)))
+        err = hold_half(
+            torch, ck, "fc (f) fc6 captured inputs",
+            lambda *a: ck.fused_fc_epilogue(*a, "relu"),
+            lambda *a: ck.fused_fc_epilogue_reference(*a, "relu"),
+            [x6, w6, b6], dt, exact=False)
+        print("vgg16 %s: %d forwards at bucket %d through %s on gpu(0), "
+              "%.3f ms each; fused_fc_epilogue launches %d (2 a forward) "
+              "in %s; logits %s finite=%s, relative L2 to the float32 "
+              "fused forward %.3g (tol %g)"
+              % (name, forwards, batch, route, wall,
+                 launches["fused_fc_epilogue"], x6.dtype, got[0].shape,
+                 finite, rel, VGG_HALF_RTOL[name]))
+        if not (finite and rel <= VGG_HALF_RTOL[name]) or \
+                got[0].shape != want[0].shape:
+            fail("(f) %s: logits' relative L2 %.3g > %g, or not finite"
+                 % (name, rel, VGG_HALF_RTOL[name]))
+        out[name] = {"launches": launches["fused_fc_epilogue"],
+                     "forwards": forwards, "rel_l2": rel, "err": err,
+                     "route": route, "wall_ms": wall}
+        del ex, pred, seen
+    out["wall_s"] = time.perf_counter() - t_phase
+    print("vgg16 half (f): %.1f s; card %s" % (out["wall_s"], smi))
+    return out
+
+
 def p28_flash_search(torch, mt, ck, name, trials=2):
     """(c) for one dtype: -> {winner, launches, wall_s}."""
     ks = mt.autotune.kernelsearch
@@ -11586,14 +11893,14 @@ def p28_paged(torch, mt, ck, smi):
     return {"winner": win, "launches": launches, "wall_s": wall}
 
 
-def p28_times(torch, ck, flash_wins, fp16_serving_fc=None):
+def p28_times(torch, ck, flash_wins, vgg_half):
     """(e): -> {kernel: {dtype name: row}}, each row with the half
     instance's, the float32 instance's, the upcast path's (the operands
     upcast to float32, the float32 instance, the output cast back; not
     for fused_fc_epilogue), the plain version's and the library call's
     times and the bound; ``correlation pwcnet`` at PWC-Net's shape;
-    ``fused_fc_epilogue`` with ``fp16_serving_fc``, the launches of phase
-    5's float16 serving."""
+    ``fused_fc_epilogue`` with each layer's time, its route and the
+    launches on (f)'s path (``vgg_half``, p28_vgg_half's result)."""
     import torch.nn.functional as F
     dev = torch.device("cuda", 0)
     flush = torch.zeros(256 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
@@ -11680,35 +11987,11 @@ def p28_times(torch, ck, flash_wins, fp16_serving_fc=None):
             else:
                 rows["correlation pwcnet"][name] = row
 
-        # fused_fc_epilogue at VGG-16's fc6 + fc7, bucket 8, relu: x and W
-        # in the dtype, the bias float32 as the kernel reads it
-        row = dict(ms=0.0, f32_ms=0.0, plain_ms=0.0, library_ms=0.0,
-                   bound_ms=0.0)
-        gen = torch.Generator(device=dev).manual_seed(1234)
-        for k in (25088, 4096):
-            x = torch.rand((8, k), generator=gen, device=dev) * 2 - 1
-            w = (torch.rand((4096, k), generator=gen, device=dev) * 2 - 1) \
-                / math.sqrt(k)
-            b = (torch.rand((4096,), generator=gen, device=dev) * 2 - 1) * 0.1
-            xh, wh, bh = x.to(dt), w.to(dt), b.to(dt)
-            out = ck.fused_fc_epilogue(xh, wh, b, "relu")
-            row["ms"] += time_ms(torch, lambda: ck.fused_fc_epilogue(
-                xh, wh, b, "relu"), flush)
-            row["f32_ms"] += time_ms(torch, lambda: ck.fused_fc_epilogue(
-                x, w, b, "relu"), flush)
-            row["plain_ms"] += time_ms(
-                torch, lambda: ck.fused_fc_epilogue_reference(
-                    xh, wh, b, "relu"), flush)
-            row["library_ms"] += time_ms(torch, lambda: torch.relu_(
-                torch.addmm(bh, xh, wh.t())), flush)
-            row["bound_ms"] += fc_bound_ms(xh, wh, b, out)
-            del x, w, xh, wh, out
-        row.update(shape="fc6 + fc7, M=8, relu", bound_by="bytes",
-                   library="addmm + relu_ in %s" % name,
-                   launches_on_paths=fp16_serving_fc if name == "float16"
-                   else 0,
-                   paths="phase 5's float16 VGG-16 serving" if
-                   name == "float16" else "none serves bfloat16")
+        row = fc_half_time_row(torch, ck, dev, flush, dt)
+        row.update(earlier_ms=EARLIER_HALF_MS["fused_fc_epilogue"][name],
+                   earlier_from=EARLIER_HALF_FROM,
+                   launches_on_paths=vgg_half[name]["launches"],
+                   paths="phase 28 (f): " + vgg_half[name]["route"])
         rows["fused_fc_epilogue"][name] = row
     del flush
     for kernel, by_dt in rows.items():
@@ -11718,12 +12001,15 @@ def p28_times(torch, ck, flash_wins, fp16_serving_fc=None):
     return rows
 
 
-def p28_phase(torch, mt, ck, smi, f32_flow, fp16_serving_fc=None):
+def p28_phase(torch, mt, ck, smi, f32_flow, served):
     print("phase 28: float16 and bfloat16 in paged_attention, "
-          "flash_attention and correlation; card %s" % smi)
+          "flash_attention, correlation and fused_fc_epilogue; card %s"
+          % smi)
     t0 = time.perf_counter()
     out = {"main_err": p28_kernel_checks(torch, ck)}
     out["flownetc"] = p28_flownetc(torch, mt, ck, smi, f32_flow)
+    out["vgg"] = p28_vgg_half(torch, mt, ck, smi, served["prefix"],
+                              served["wire"])
     saved = {k: os.environ.get(k) for k in ("MXNET_AUTOTUNE_DIR",
                                             "MXNET_KERNEL_SEARCH")}
     with tempfile.TemporaryDirectory() as store:
@@ -11739,25 +12025,29 @@ def p28_phase(torch, mt, ck, smi, f32_flow, fp16_serving_fc=None):
                 else:
                     os.environ[key] = val
     out["times"] = p28_times(torch, ck, {n: out["flash"][n]["winner"]
-                                         for n in HALF_NAMES},
-                             fp16_serving_fc)
+                                         for n in HALF_NAMES}, out["vgg"])
     out["wall_s"] = time.perf_counter() - t0
     print("phase 28: %.1f s" % out["wall_s"])
     return out
 
 
-def half_kernel_entries(ck, p28):
+def half_kernel_entries(ck, p28, fc_half_err):
     """The kernels line's entries of the 16-bit instances: launches on
     phase 28's paths ((b) FlowNetC, (c) the flash searches and their
-    call-time use, (d) the bfloat16 paged search and the pool views)."""
+    call-time use, (d) the bfloat16 paged search and the pool views, (f)
+    VGG-16); fused_fc_epilogue's max_abs_err from phase 3's 16-bit fc6
+    and fc7 (``fc_half_err``)."""
     launches = {
         "paged_attention": p28["paged"]["launches"],
         "flash_attention": {n: p28["flash"][n]["launches"]
                             for n in HALF_NAMES},
         "correlation": {n: p28["flownetc"][n]["launches"]
-                        for n in HALF_NAMES}}
+                        for n in HALF_NAMES},
+        "fused_fc_epilogue": {n: p28["vgg"][n]["launches"]
+                              for n in HALF_NAMES}}
     entries = []
-    for kernel in ("paged_attention", "flash_attention", "correlation"):
+    for kernel in ("paged_attention", "flash_attention", "correlation",
+                   "fused_fc_epilogue"):
         for name in HALF_NAMES:
             row = p28["times"][kernel][name]
             entry = {
@@ -11765,11 +12055,13 @@ def half_kernel_entries(ck, p28):
                 "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES[kernel],
                 "replaces": REPLACES[kernel],
                 "launches": launches[kernel][name],
-                "max_abs_err": p28["main_err"][kernel][name],
+                "max_abs_err": (fc_half_err if kernel == "fused_fc_epilogue"
+                                else p28["main_err"][kernel])[name],
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"], "f32_ms": row["f32_ms"],
-                "upcast_ms": row["upcast_ms"]}
+                "library_ms": row["library_ms"], "f32_ms": row["f32_ms"]}
+            if "upcast_ms" in row:
+                entry["upcast_ms"] = row["upcast_ms"]
             if "bound_peak" in row:
                 entry["bound_peak"] = row["bound_peak"]
             entries.append(entry)
@@ -11848,8 +12140,8 @@ def main():
         print("build %s: %d kernel instantiations, registers max %d, "
               "spill/stack bytes max %d" % (name, len(regs), max(regs or [0]),
                                             max(spills or [0])))
-        if name in ("flash_attention", "paged_attention", "correlation"):
-            for inst, nreg, spill in ptxas_instances(log):
+        for inst, nreg, spill in ptxas_instances(log):
+            if name != "fused_fc_epilogue" or "_tc_" in inst:
                 print("build %s:   %-40s registers %3d, spill bytes %d"
                       % (name, inst, nreg, spill))
 
@@ -11859,6 +12151,7 @@ def main():
     mark('2-3')
 
     # the checkpoints of phases 4 and 5, kept for phase 17's multiplexer
+    # and phase 28 (f)
     tmpdir = tempfile.TemporaryDirectory()
     tmp = tmpdir.name
 
@@ -11935,7 +12228,6 @@ def main():
     # ModelMultiplexer
     ops = serving_ops_phase(torch, mt, ck, served, llm, served["prefix"],
                             smi)
-    tmpdir.cleanup()
     mark('17')
 
     # phase 18: the rest of training: superstep, FeedForward, several
@@ -12101,10 +12393,11 @@ def main():
         "mlp-first-update-max-diff": p27["d"]["first_update_err"],
         "rtc-abi-err": p27["e"]["err"],
         "wall_s": round(p27["wall_s"], 1)})))
-    # phase 28: float16 and bfloat16 in paged_attention, flash_attention
-    # and correlation: the kernels, FlowNetC, the searches, a pool's views
-    p28 = p28_phase(torch, mt, ck, smi, flow["out0"],
-                    quant["float16"]["launches"]["fused_fc_epilogue"])
+    # phase 28: float16 and bfloat16 in paged_attention, flash_attention,
+    # correlation and fused_fc_epilogue: the kernels, FlowNetC, the
+    # searches, a pool's views, VGG-16's fused fc6 and fc7
+    p28 = p28_phase(torch, mt, ck, smi, flow["out0"], served)
+    tmpdir.cleanup()
     mark('28')
     print("half precision result (card %s): %s" % (smi, json.dumps({
         "flownetc-rel_l2": {n: p28["flownetc"][n]["rel_l2"]
@@ -12113,6 +12406,8 @@ def main():
                                 for n in HALF_NAMES},
         "flash-winners": {n: p28["flash"][n]["winner"] for n in HALF_NAMES},
         "paged-bfloat16-winner": p28["paged"]["winner"],
+        "vgg16-logits-rel_l2": {n: p28["vgg"][n]["rel_l2"]
+                                for n in HALF_NAMES},
         "ms": {k: {n: round(r["ms"], 4) for n, r in v.items()}
                for k, v in p28["times"].items()},
         "wall_s": round(p28["wall_s"], 1)})))
@@ -12163,7 +12458,7 @@ def main():
         "ms": corr["ms"], "plain_ms": corr["plain_ms"],
         "bound_ms": corr["bound_ms"], "bound_by": corr["bound_by"],
         "library_ms": None,
-    }] + half_kernel_entries(ck, p28)
+    }] + half_kernel_entries(ck, p28, fc["half_err"])
     missing = [k for k in ck.SOURCES
                if k not in [e["name"] for e in kernels]]
     if missing:
@@ -12212,7 +12507,10 @@ def main():
           "bytes an element), their launches those of phase 28's paths: "
           "paged the bfloat16 search and the pool views, flash each "
           "dtype's search, store hit and call-time use, correlation "
-          "FlowNetC's forwards in each dtype")
+          "FlowNetC's forwards in each dtype, fused_fc_epilogue (its "
+          "tensor-core instance, fc6 + fc7 at bucket 8, max_abs_err from "
+          "phase 3's 16-bit fc6 and fc7) (f)'s VGG-16 forwards in each "
+          "dtype (2 a forward)")
     print("phase walls (s): %s" % json.dumps(walls))
     print("chip_smoke: the whole script took %.1f s" % (
         time.perf_counter() - t_script))

@@ -2,7 +2,7 @@
 """Time one checkout's hand-written kernels on the card, with chip_smoke.py's
 inputs and timer, so that two designs compare within one run.
 
-    python3 kernel_ab.py [TREE] [--kernels paged,flash,correlation]
+    python3 kernel_ab.py [TREE] [--kernels paged,flash,correlation,fc]
                          [--dtype float32|float16|bfloat16]
         # TREE: a directory holding a checkout's mxnet_tpu_torch
         # (default: this script's own); --kernels: which rows (default all);
@@ -22,7 +22,10 @@ by a 256 MB read and a spin kernel queued before each timed call):
 * ``flash_attention`` at the kernel search's shape (B 4, T 1024, H 12,
   D 64, causal, chip_smoke's inputs) with every tile TREE compiles;
 * ``correlation`` at FlowNetC's and PWC-Net's shapes (chip_smoke's
-  ``FLOWNETC`` and ``PWCNET``), multiply and absolute difference.
+  ``FLOWNETC`` and ``PWCNET``), multiply and absolute difference;
+* ``fused_fc_epilogue`` at VGG-16's fc6 + fc7, bucket 8, relu
+  (chip_smoke's ``fc_half_time_row``: the kernel and its route, the
+  float32 instance, the plain version, ``addmm`` + ``relu_``).
 
 Prints the card's line from nvidia-smi and one JSON line.  To compare two
 trees, run them in turns on one machine (A, B, B, A): only times taken
@@ -37,7 +40,7 @@ import numpy as np
 
 import chip_smoke as cs
 
-ALL = ("paged", "flash", "correlation")
+ALL = ("paged", "flash", "correlation", "fc")
 
 
 def rel_err(out, ref, scaled=True):
@@ -93,6 +96,19 @@ def correlation_rows(torch, ck, dev, flush, dt):
     return {"correlation_ms": times}, err
 
 
+def fc_rows(torch, ck, dev, flush, dt):
+    err = 0.0
+    for x, w, b in cs.fc_serving_inputs(torch, dev):
+        xh, wh = x.to(dt), w.to(dt)
+        out = ck.fused_fc_epilogue(xh, wh, b, "relu")
+        ref = ck.fused_fc_epilogue_reference(xh, wh, b, "relu")
+        err = max(err, rel_err(out, ref, dt != torch.float32))
+        del x, w
+    if not hasattr(ck, "fc_workspace_bytes"):
+        ck.fc_workspace_bytes = lambda x, w: 0  # a tree with SIMT only
+    return {"fc_ms": cs.fc_half_time_row(torch, ck, dev, flush, dt)}, err
+
+
 def main(argv):
     parser = argparse.ArgumentParser()
     parser.add_argument("tree", nargs="?",
@@ -114,11 +130,11 @@ def main(argv):
     dev = torch.device("cuda", 0)
     dt = getattr(torch, args.dtype)
     names = {"paged": "paged_attention", "flash": "flash_attention",
-             "correlation": "correlation"}
+             "correlation": "correlation", "fc": "fused_fc_epilogue"}
     ck.build([names[k] for k in kernels])
     flush = torch.zeros(256 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
     rows = {"paged": paged_rows, "flash": flash_rows,
-            "correlation": correlation_rows}
+            "correlation": correlation_rows, "fc": fc_rows}
     result, err = {"tree": args.tree, "dtype": args.dtype,
                    "kernels": os.path.relpath(ck.__file__)}, 0.0
     for k in kernels:

@@ -3,7 +3,8 @@
 // over float16 or bfloat16 ones), and the FlashAttention-2 key-tile steps
 // built on them, shared by the attention kernels: attention_tile for
 // float32 q, attention_tile_16 for 16-bit q, K and V.  correlation.cu
-// takes the copies, ldmatrix and mma_16 from here too.
+// takes the copies, ldmatrix and mma_16 from here too, fc_epilogue.cu
+// mma_16.
 //
 // A copy with `valid` false reads nothing and writes zeros (src-size 0), so
 // rows past a sequence's end land as zeros without a branch around the

@@ -1,14 +1,15 @@
-// Operand element types of the attention and correlation kernels: float,
-// __half and __nv_bfloat16.  As in the TPU kernels
-// (mxnet_tpu/ops/pallas_kernels.py: `.astype(jnp.float32)` on every load,
-// `.astype(o_ref.dtype)` on the store), the output is rounded once to the
-// operands' type, to nearest even, and float16 and bfloat16 convert to
-// float32 exactly.  The 16-bit instances stage their operands in their
-// own type and either convert each value as they read it from shared
-// memory (correlation's |a − b|, paged's one-row path) or multiply them
-// there on the tensor cores (attention.cuh's mma_16: flash, paged's row
-// tiles, correlation's products).  Dtype codes of the C interfaces: 0
-// float32, 1 float16, 2 bfloat16 (as mxtt_fc_epilogue).
+// Operand element types of the kernels: float, __half and
+// __nv_bfloat16.  As in the TPU kernels (mxnet_tpu/ops/pallas_kernels.py:
+// `.astype(jnp.float32)` on every load, `.astype(o_ref.dtype)` on the
+// store), the output is rounded once to the operands' type, to nearest
+// even, and float16 and bfloat16 convert to float32 exactly.  The 16-bit
+// instances stage their operands in their own type and either convert
+// each value as they read it (correlation's |a − b|, paged's one-row path,
+// fc_epilogue's SIMT instances) or multiply them on the tensor cores
+// (attention.cuh's mma_16: flash, paged's row tiles, correlation's
+// products, fc_epilogue's tensor-core instance).  fc_epilogue.cu takes its
+// conversions from here too.  Dtype codes of the C interfaces: 0 float32,
+// 1 float16, 2 bfloat16 (as mxtt_fc_epilogue).
 
 #pragma once
 

@@ -19,12 +19,13 @@ once to the operands' dtype (``csrc/elem.cuh``).  The TPU kernels
 convert each element to float32 as they load it; so do correlation's
 ``|a - b|``, paged_attention's one-row path and any float32 q, at the
 read from their 16-bit stages.  A 16-bit q, k and v in flash_attention,
-a 16-bit q over pools of its dtype in paged_attention's row tiles, and
-16-bit a and b in correlation's products are multiplied on the tensor
-cores as they are (``csrc/attention.cuh``: q·k and a·b in one 16-bit
-product, exact in float32; p·v in two, p split into two 16-bit parts;
-float32 sums): the output lies within one unit in its last place of the
-float32 arithmetic's, rounded.  The
+a 16-bit q over pools of its dtype in paged_attention's row tiles,
+16-bit a and b in correlation's products, and x and w of one 16-bit
+dtype in fused_fc_epilogue (where :func:`fc_workspace_bytes` is not 0)
+are multiplied on the tensor cores as they are (``csrc/attention.cuh``:
+q·k, a·b and x·wᵀ in one 16-bit product, exact in float32; p·v in two, p
+split into two 16-bit parts; float32 sums): the output lies within one
+unit in its last place of the float32 arithmetic's, rounded.  The
 attention and correlation wrappers run the instance of their operands'
 dtype; operands of mixed float dtypes are upcast to float32 (exact) and
 run the float32 instance, the output cast to q's (or a's) dtype, which
@@ -71,6 +72,7 @@ from .nn import ACTIVATIONS
 __all__ = ["KERNEL_DTYPES", "HALF_ULP",
            "fused_fc_epilogue", "fused_fc_epilogue_reference", "requantize",
            "reciprocal_f32", "FC_TILES", "FC_DEFAULT_TILE",
+           "fc_workspace_bytes",
            "paged_attention", "paged_attention_reference", "paged_partitions",
            "PAGED_PART_KEYS", "PAGED_PARTITION_KEYS",
            "flash_attention", "flash_attention_reference", "FLASH_TILES",
@@ -319,9 +321,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     lib.mxtt_error_string.argtypes = [i]
     lib.mxtt_error_string.restype = ctypes.c_char_p
     if name == "fused_fc_epilogue":
-        lib.mxtt_fc_epilogue.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
-                                         ctypes.c_float, i, i, p]
+        lib.mxtt_fc_epilogue.argtypes = [p] * 4 + [i] * 7 + [
+            ctypes.c_float, i, p, i, p]
         lib.mxtt_fc_epilogue.restype = i
+        lib.mxtt_fc_workspace_bytes.argtypes = [p, p] + [i] * 5
+        lib.mxtt_fc_workspace_bytes.restype = ctypes.c_longlong
     elif name == "paged_attention":
         lib.mxtt_paged_attention.argtypes = [p] * 9 + [i] * 8 + [
             ctypes.c_float, i, i, i, i, i, p]
@@ -424,6 +428,23 @@ def fc_tiles_for(x_dtype, w_dtype) -> tuple:
     return (FC_DEFAULT_TILE,)
 
 
+def fc_workspace_bytes(x: torch.Tensor, w: torch.Tensor) -> int:
+    """The float32 scratch a call of :func:`fused_fc_epilogue` on these
+    CUDA operands takes, as csrc/fc_epilogue.cu's launcher plans it: its
+    tensor-core route's partial sums (x and w both float16 or both
+    bfloat16, K > 0, K % 8 == 0, both 16-byte aligned: ``tc_route``), 0
+    on a SIMT route."""
+    if x.device.type != "cuda" or w.device != x.device:
+        raise MXNetError("fc_workspace_bytes: needs x and w on one CUDA "
+                         "device, got %s and %s" % (x.device, w.device))
+    if x.dtype not in _FLOAT_CODES or w.dtype not in _FLOAT_CODES:
+        return 0
+    lib = _library("fused_fc_epilogue")
+    return int(lib.mxtt_fc_workspace_bytes(
+        x.data_ptr(), w.data_ptr(), int(x.shape[0]), int(w.shape[0]),
+        int(x.shape[1]), _FLOAT_CODES[x.dtype], _FLOAT_CODES[w.dtype]))
+
+
 def _searched_fc(n, k, act_type, int8, dtype, device, tiles):
     """The kernel search's persisted ``block_n`` for this call's shape
     class on this device, or None; only under ``MXNET_KERNEL_SEARCH=1``
@@ -468,8 +489,13 @@ def fused_fc_epilogue(x: torch.Tensor, w: torch.Tensor,
     tile sums each output in the same order, so the result does not
     depend on it.
 
-    CUDA tensors launch the hand-written kernel (csrc/fc_epilogue.cu);
-    CPU tensors take :func:`fused_fc_epilogue_reference`."""
+    CUDA tensors launch the hand-written kernel (csrc/fc_epilogue.cu):
+    x and w of one 16-bit dtype on the tensor cores where
+    :func:`fc_workspace_bytes` is not 0, split over warps into that
+    float32 workspace, taken from the caching allocator, and summed in a
+    fixed order by a second kernel (one launch counted); every other call
+    a SIMT instance.  CPU tensors take
+    :func:`fused_fc_epilogue_reference`."""
     if act_type not in ACT_CODES:
         raise MXNetError("fused_fc_epilogue: unknown act_type %r (have %s)"
                          % (act_type, sorted(ACT_CODES)))
@@ -507,13 +533,17 @@ def fused_fc_epilogue(x: torch.Tensor, w: torch.Tensor,
     if m == 0 or n == 0:
         return out
     b32 = b.to(torch.float32).contiguous() if b is not None else None
+    ws_bytes = fc_workspace_bytes(x, w)
+    ws = torch.empty(ws_bytes // 4, dtype=torch.float32, device=x.device) \
+        if ws_bytes else None
     lib = _library("fused_fc_epilogue")
     rc = lib.mxtt_fc_epilogue(
         x.data_ptr(), w.data_ptr(), b32.data_ptr() if b32 is not None else None,
         out.data_ptr(), m, n, k, _FLOAT_CODES[x.dtype], _FLOAT_CODES[w.dtype],
         ACT_CODES[act_type], int(out_scale is not None),
         reciprocal_f32(out_scale) if out_scale is not None else 1.0, tile,
-        x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
+        ws.data_ptr() if ws is not None else None, x.device.index or 0,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _check(lib, "fused_fc_epilogue", rc)
     _count("fused_fc_epilogue")
     return out

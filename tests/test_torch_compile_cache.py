@@ -222,11 +222,13 @@ def test_library_key_covers_source_header_line_and_environment(
     shutil.copy(os.path.join(ck._CSRC, ck.SOURCES["paged_attention"]), src)
     assert ck._lib_digest("paged_attention", str(csrc)) == base
     # a header it includes (and not one it does not)
+    (csrc / "unused.cuh").write_text("// not included\n")
+    assert ck._lib_digest("paged_attention", str(csrc)) == base
     hdr = csrc / "attention.cuh"
     hdr.write_text(hdr.read_text() + "\n// edit\n")
     assert ck._lib_digest("paged_attention", str(csrc)) != base
-    assert ck._lib_digest("fused_fc_epilogue", str(csrc)) == \
-        ck._lib_digest("fused_fc_epilogue")
+    assert ck._lib_digest("fused_fc_epilogue", str(csrc)) != \
+        ck._lib_digest("fused_fc_epilogue")     # it includes it for mma_16
     # the compile line
     real = ck.nvcc_command
     monkeypatch.setattr(ck, "nvcc_command",

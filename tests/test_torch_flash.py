@@ -474,12 +474,17 @@ def test_library_digest_follows_included_headers(tmp_path):
     shutil.copytree(ck._CSRC, str(csrc))
     before = {n: ck._lib_path(n, csrc=str(csrc)) for n in ck.SOURCES}
     assert before == {n: ck._lib_path(n) for n in ck.SOURCES}
+    # a header no source includes: every library keeps its path
+    (csrc / "unused.cuh").write_bytes(b"// not included\n")
+    assert {n: ck._lib_path(n, csrc=str(csrc)) for n in ck.SOURCES} == \
+        before
+    # attention.cuh: every source includes it (fc_epilogue.cu for mma_16)
     header = csrc / "attention.cuh"
     header.write_bytes(header.read_bytes() + b"\n// edited\n")
     after = {n: ck._lib_path(n, csrc=str(csrc)) for n in ck.SOURCES}
-    for n in ("flash_attention", "paged_attention", "correlation"):
+    for n in ("flash_attention", "paged_attention", "correlation",
+              "fused_fc_epilogue"):
         assert after[n] != before[n]
-    assert after["fused_fc_epilogue"] == before["fused_fc_epilogue"]
 
 
 def test_autotuner_select_best_and_store_hit():

@@ -130,7 +130,9 @@ def test_build_targets_hopper_from_repo_source():
 
 def test_tile_is_a_compiled_instance_in_the_source():
     """block_n is a template parameter with an instance per FC_TILES
-    entry for float32 operands, and an argument of the C interface."""
+    entry for float32 operands, and an argument of the C interface; the
+    16-bit tensor-core instance has one block shape and takes the default
+    tile."""
     src = os.path.join(ck._CSRC, ck.SOURCES["fused_fc_epilogue"])
     with open(src) as f:
         text = f.read()
@@ -142,15 +144,23 @@ def test_tile_is_a_compiled_instance_in_the_source():
     for bn in ck.FC_TILES:
         if bn != ck.FC_DEFAULT_TILE:
             assert "block_n == kWarps * %d" % (bn // 4) in text
-    assert "float inv_scale, int block_n, int device," in text
+    assert "float inv_scale, int block_n, void* workspace," in text
+    assert "template <typename E>\n" in text and "fc_tc_kernel<E><<<" in text
+    assert "if (block_n != kWarps * kDefaultRows) return " \
+        "cudaErrorInvalidValue;" in text
     assert ck.FC_DEFAULT_TILE in ck.FC_TILES
     assert ck.fc_tiles_for(torch.float32, torch.float32) == ck.FC_TILES
     assert ck.fc_tiles_for(torch.float16, torch.float32) == \
+        ck.fc_tiles_for(torch.float16, torch.bfloat16) == \
+        ck.fc_tiles_for(torch.float16, torch.float16) == \
+        ck.fc_tiles_for(torch.bfloat16, torch.bfloat16) == \
         (ck.FC_DEFAULT_TILE,)
 
 
 @pytest.mark.parametrize("name,fn", [("fused_fc_epilogue",
                                       "mxtt_fc_epilogue"),
+                                     ("fused_fc_epilogue",
+                                      "mxtt_fc_workspace_bytes"),
                                      ("paged_attention",
                                       "mxtt_paged_attention")])
 def test_ctypes_declaration_matches_c_interface(name, fn):
@@ -158,7 +168,8 @@ def test_ctypes_declaration_matches_c_interface(name, fn):
     import re
     with open(os.path.join(ck._CSRC, ck.SOURCES[name])) as f:
         text = f.read()
-    sig = re.search(r'extern "C" int %s\(([^)]*)\)' % fn, text).group(1)
+    sig = re.search(r'extern "C" [\w ]+ %s\(([^)]*)\)' % fn,
+                    text).group(1)
     n_args = len([a for a in sig.split(",") if a.strip()])
 
     class Fn:
@@ -166,8 +177,9 @@ def test_ctypes_declaration_matches_c_interface(name, fn):
         restype = None
 
     class Lib:
-        mxtt_error_string = Fn()
-    setattr(Lib, fn, Fn())
+        def __getattr__(self, attr):        # each C function, on first use
+            setattr(self, attr, Fn())
+            return getattr(self, attr)
     lib = Lib()
     ck._declare(name, lib)
     assert len(getattr(lib, fn).argtypes) == n_args
