@@ -344,13 +344,20 @@ Phases, in order; any failure exits nonzero:
    findings the phase then requires; (a) a seeded workload of host
    closures on ``mx.engine`` over 4 vars holding ResNet-50 batches on
    the card, bitwise the same closures run serially, closures/s, the
-   host cost of a push, ``NativeStorage``'s pool hits; (b) 1,024 records
-   from the port's ``NativeRecordWriter`` (JPEG where libjpeg was found,
-   else raw CHW at 256 x 256, and then a JPEG record must raise naming
-   libjpeg) through ``mx.io.ImageRecordIter`` at ResNet-50's settings (a
-   ``NativeImageRecordIter``, its 8-thread batches bitwise a 1-thread
-   run's, img/s alone) into ResNet-50's ``Module.fit`` (img/s, the
-   loader's share, finite loss, 0 kernel launches); (c) VGG-16's fused
+   host cost of a push, ``NativeStorage``'s pool hits; (b) 1,024 JPEG
+   records from the port's ``NativeRecordWriter`` through
+   ``mx.io.ImageRecordIter`` at ResNet-50's settings (a
+   ``NativeImageRecordIter``; iterated directly without libjpeg a record
+   raises naming libjpeg): nvjpeg's decode of the fixtures and of the
+   samplings within a PSNR and a mean difference of libjpeg's pixels,
+   ``jpeg_color`` and ``image_augment`` bitwise their plain versions
+   and their times, the route on the card (``feed.device_feed``) at 8
+   threads bitwise 1 thread's, idle and under a GEMM load, img/s alone,
+   into ResNet-50's ``Module.fit(prefetch_to_device=True)`` (img/s, the
+   route's share, finite loss, each kernel once a batch, the four
+   TPU-kernel counterparts 0 times); then 384 raw CHW records on the
+   host route (8 threads bitwise 1, an epoch of ``fit`` with no
+   launch); (c) VGG-16's fused
    serving graph at batch 8 through the predict-only library opened in
    this process: 20 forwards bitwise the Python ``Predictor``'s,
    ``fused_fc_epilogue`` twice a forward, the output on (2, 0), ms a
@@ -468,6 +475,14 @@ REPLACES = {"fused_fc_epilogue": "mxnet_tpu/ops/pallas_kernels.py:347",
             "paged_attention": "mxnet_tpu/ops/pallas_kernels.py:262",
             "flash_attention": "mxnet_tpu/ops/pallas_kernels.py:121",
             "correlation": "mxnet_tpu/ops/pallas_kernels.py:417"}
+# the hand kernels with no TPU counterpart, and the JAX package's host
+# code that does their work
+REPLACES_NONE = {
+    "jpeg_color": "none: no TPU kernel (the JAX package decodes on the "
+                  "host with libjpeg, src/image_decode.cc:33 DecodeJPEG)",
+    "image_augment": "none: no TPU kernel (the JAX package's host loader, "
+                     "src/image_decode.cc:101 ResizeBilinear and "
+                     "src/data_loader.cc:157 EmitHWC)"}
 
 
 def fail(msg):
@@ -10605,11 +10620,24 @@ def p26_phase(torch, mt, ck, smi):
 #     checksum bitwise those of the same closures run serially in push
 #     order; the per-push host overhead over P27_PUSHES trivial pushes;
 #     NativeStorage's pool hits for a block-size sequence (gated exactly)
-# (b) P27_RECORDS records written with the port's NativeRecordWriter (JPEG
-#     from tests/data/native_jpegs where libjpeg was found, else raw CHW
-#     at 256 x 256, the same geometry) -> mx.io.ImageRecordIter at
-#     ResNet-50's settings (a NativeImageRecordIter, gated) -> Module.fit;
-#     the 8-thread batches bitwise a 1-thread run's; 0 kernel launches
+# (b) P27_RECORDS JPEG records written with the port's NativeRecordWriter
+#     (tests/data/native_jpegs in turn) -> mx.io.ImageRecordIter at
+#     ResNet-50's settings (a NativeImageRecordIter over JPEG, gated);
+#     iterated directly (the host route) a record raises naming libjpeg
+#     where the I/O library has none; nvjpeg's decode of the fixtures
+#     within P27_PSNR_MIN / P27_MEAN_DIFF_MAX of libjpeg's pixels
+#     (decoded.npz); jpeg_color and image_augment bitwise their plain
+#     versions on nvjpeg's components for four settings at batch 128, and
+#     their times; the route on the card (feed.device_feed for gpu(0)) at
+#     8 threads bitwise 1 thread's; Module.fit(prefetch_to_device=True)
+#     on the route: finite losses, jpeg_color and image_augment once a
+#     batch, the four TPU-kernel counterparts 0 times.  The committed
+#     samplings (gray, 4:4:4, 4:2:2, odd and tiny 4:2:0, progressive)
+#     pass the same nvjpeg gate, and a batch of their records the same
+#     kernel checks.  P27_RAW_RECORDS raw CHW records keep the host
+#     route: ImageRecordIter at 8 threads bitwise 1 thread's, then an
+#     epoch of Module.fit(prefetch_to_device=True) on the host route,
+#     finite losses, no hand kernel launched
 # (c) VGG-16 through the fused serving pipeline, served by the port's
 #     predict-only library opened in this process: outputs bitwise the
 #     Python Predictor's, fused_fc_epilogue twice a forward
@@ -10624,6 +10652,12 @@ P27_VARS, P27_OPS = 4, 96
 P27_PUSHES = 5000
 P27_BLOCKS = (77070336, 4 << 20, 1 << 20, 4 << 20)   # bytes, four rounds
 P27_RECORDS, P27_SIDE, P27_CROP, P27_THREADS = 1024, 256, 224, 8
+# raw CHW records, which keep the host route: three batches
+P27_RAW_RECORDS = 3 * RESNET_BATCH
+# nvjpeg against libjpeg on the fixtures: their IDCTs differ (the
+# upsampling and colour conversion are libjpeg's own, in jpeg_color); a
+# PSNR and a mean difference in levels, each image
+P27_PSNR_MIN, P27_MEAN_DIFF_MAX = 40.0, 1.0
 P27_FIT_EPOCHS = 2
 P27_VGG_BATCH, P27_FORWARDS = 8, 20
 P27_MLP_STEPS = 300
@@ -10636,9 +10670,17 @@ P27_UPDATE_ATOL = 1e-6
 
 def p27_probe():
     """What the card's machine offers the native layer; the phase then
-    requires every piece found here."""
+    requires every piece found here but libjpeg: nvjpeg's header and
+    library in the CUDA toolkit nvcc belongs to, and its version
+    (nvjpegGetProperty, through the jpeg_color library phase 2 built)."""
+    import glob
     import sysconfig
     from mxnet_tpu_torch import native_build
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    cuda = os.path.dirname(os.path.dirname(os.path.realpath(ck._nvcc())))
+    nvjpeg_h = os.path.join(cuda, "include", "nvjpeg.h")
+    libnvjpeg = sorted(glob.glob(os.path.join(cuda, "lib64",
+                                              "libnvjpeg.so*")))
     inc = os.path.join(sysconfig.get_paths()["include"], "Python.h")
     libdir = sysconfig.get_config_var("LIBDIR") or ""
     so = os.path.join(libdir, "libpython%s.so"
@@ -10653,9 +10695,14 @@ def p27_probe():
              "Py_ENABLE_SHARED": sysconfig.get_config_var("Py_ENABLE_SHARED"),
              "interpreter_links_libpython": linked,
              "g++": gxx.stdout.splitlines()[0] if gxx.returncode == 0
-             else None}
+             else None,
+             "nvjpeg.h": nvjpeg_h if os.path.exists(nvjpeg_h) else None,
+             "libnvjpeg": libnvjpeg[-1] if libnvjpeg else None}
+    probe["nvjpeg"] = ck.nvjpeg_version() if probe["nvjpeg.h"] and \
+        probe["libnvjpeg"] else None
     print("p27 probe: %s" % json.dumps(probe))
-    missing = [k for k in ("Python.h", "libpython", "g++") if not probe[k]]
+    missing = [k for k in ("Python.h", "libpython", "g++", "nvjpeg.h",
+                           "libnvjpeg", "nvjpeg") if not probe[k]]
     if missing:
         fail("the native layer needs %s on this machine" % missing)
     return probe
@@ -10764,158 +10811,462 @@ def p27_engine(torch, mt, smi):
     return out
 
 
-def p27_write_rec(mt, path, jpeg):
-    """P27_RECORDS records with the port's NativeRecordWriter, labels in
-    [0, 1000) from a numpy seed: the committed JPEGs in turn, or raw CHW
-    uint8 at P27_SIDE x P27_SIDE with the (h, w) uint16 prefix the loader
-    crops from."""
+def p27_write_rec(mt, path, blobs, n=P27_RECORDS):
+    """``n`` JPEG records with the port's NativeRecordWriter, ``blobs`` in
+    turn, labels in [0, 1000) from a numpy seed."""
     rng = np.random.default_rng(271)
-    labels = rng.integers(0, 1000, P27_RECORDS)
+    labels = rng.integers(0, 1000, n)
     w = mt.native_io.NativeRecordWriter(path)
-    if jpeg:
-        import glob
-        files = sorted(glob.glob(os.path.join(
-            os.path.dirname(os.path.abspath(__file__)), "tests", "data",
-            "native_jpegs", "*.jpg")))
-        blobs = [open(f, "rb").read() for f in files]
-        for i in range(P27_RECORDS):
-            w.write_image(float(labels[i]), i, blobs[i % len(blobs)])
-    else:
-        prefix = bytes([P27_SIDE & 255, P27_SIDE >> 8] * 2)
-        for i in range(P27_RECORDS):
-            img = rng.integers(0, 256, (3, P27_SIDE, P27_SIDE),
-                               dtype=np.uint8)
-            w.write_image(float(labels[i]), i, prefix + img.tobytes())
+    for i in range(n):
+        w.write_image(float(labels[i]), i, blobs[i % len(blobs)])
     w.close()
 
 
-class TimedIter:
-    """A data iterator that adds the wall of each ``next()`` to
-    ``seconds`` (the loader's share of a fit)."""
-
-    def __init__(self, it):
-        self.it = it
-        self.seconds = 0.0
-        self.batch_size = it.batch_size
-        self.provide_data = it.provide_data
-        self.provide_label = it.provide_label
-
-    def reset(self):
-        self.it.reset()
-
-    def __iter__(self):
-        return self
-
-    def __next__(self):
-        return self.next()
-
-    def next(self):
-        t0 = time.perf_counter()
-        try:
-            return self.it.next()
-        finally:
-            self.seconds += time.perf_counter() - t0
+def p27_fixtures(samplings=False):
+    """(stems, bytes) of the committed JPEGs (with ``samplings``, those of
+    native_jpegs/samplings: gray, 4:4:4, 4:2:2, 4:2:0, progressive, odd
+    and tiny sizes), and every fixture's pixels as the port's host loader
+    decodes them with libjpeg (decoded.npz)."""
+    import glob
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                     "data", "native_jpegs")
+    files = sorted(glob.glob(os.path.join(
+        d, "samplings" if samplings else "", "*.jpg")))
+    blobs = [open(f, "rb").read() for f in files]
+    stems = [os.path.splitext(os.path.basename(f))[0] for f in files]
+    return stems, blobs, np.load(os.path.join(d, "decoded.npz"))
 
 
-def p27_io(torch, mt, ck, smi, tmp, jpeg):
-    """(b): the native loader into ResNet-50."""
+def p27_plan(torch, mt, rec, **kw):
+    """The first batch's plan of a plan loader over ``rec`` at ResNet-50's
+    batch (the payload in pinned memory)."""
+    ld = mt.native_io.NativeBatchLoader(
+        rec, RESNET_BATCH, (3, P27_CROP, P27_CROP), threads=1, plan=True,
+        **kw)
+    return ld.next_plan(lambda n: torch.empty(n, dtype=torch.uint8,
+                                              pin_memory=True))
+
+
+def augment_bound_ms(geom, out_hw):
+    """Least time for image_augment: the float32 batch written once and
+    the decoded bytes its crops sample read once (each image's rows and
+    columns from the first to the last a crop's taps reach), at the HBM
+    rate; its ~27 float operations an element at the float32 rate."""
+    h_out, w_out = out_hw
+    nbytes = 4.0 * len(geom) * 3 * h_out * w_out
+    for _off, ok, h, w, rh, rw, dy, dx, _m in geom.tolist():
+        if not ok:
+            continue
+        if (rh, rw) == (h, w):
+            nbytes += 3.0 * h_out * w_out
+            continue
+
+        def span(lo, hi, n, n_res):
+            s = np.float32(n) / np.float32(n_res)
+            f = lambda v: max(0.0, (v + 0.5) * s - 0.5)  # noqa: E731
+            return min(int(f(hi)) + 1, n - 1) - min(int(f(lo)), n - 1) + 1
+        nbytes += 3.0 * span(dy, dy + h_out - 1, h, rh) * \
+            span(dx, dx + w_out - 1, w, rw)
+    flops = 27.0 * len(geom) * 3 * h_out * w_out
+    return 1e3 * max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS)
+
+
+def color_bound_ms(color):
+    """Least time for jpeg_color: the components read once and the RGB
+    written once at the HBM rate; its ~36 integer operations a pixel at
+    the float32 rate (the card's CUDA-core rate)."""
+    ok = color[:, 5] >= 0
+    hw = (color[ok, 1] * color[ok, 2]).astype(np.float64)
+    chroma = 2.0 * (color[ok, 3] * color[ok, 4])
+    nbytes = float((hw + chroma + 3 * hw).sum())
+    return 1e3 * max(nbytes / PEAK_BYTES_PER_S,
+                     36.0 * float(hw.sum()) / PEAK_F32_FLOPS)
+
+
+def p27_jpeg_kernels(torch, mt, ck, smi, rec, srec):
+    """(b)'s kernel checks on the card: nvjpeg's decode of the fixtures
+    and of the samplings' against libjpeg's (decoded.npz), jpeg_color and
+    image_augment bitwise their plain versions at the main path's shapes
+    (``rec``) and on a batch of the samplings (``srec``), their times."""
+    dev = torch.device("cuda", 0)
+    dec = ck.JpegDecoder(dev)
+    stems, blobs, ref = p27_fixtures()
+    more = p27_fixtures(samplings=True)
+    stems, blobs = stems + more[0], blobs + more[1]
+    payload = torch.from_numpy(np.frombuffer(b"".join(blobs), np.uint8)
+                               .copy()).pin_memory()
+    dims = [mt.native_io.jpeg_dims(b) for b in blobs]
+    sizes = [3 * h * w for h, w, _ in dims]
+    slots = np.cumsum([0] + sizes)[:-1]
+    offs = np.cumsum([0] + [len(b) for b in blobs])[:-1]
+    jobs = np.array([[offs[i], len(b), slots[i], dims[i][0], dims[i][1], 1]
+                     for i, b in enumerate(blobs)], np.int64)
+    rgb = dec.decode(payload, jobs, list(range(len(blobs)))).cpu().numpy()
+    worst = {"psnr": float("inf"), "mean": 0.0, "max": 0.0}
+    for i, stem in enumerate(stems):
+        got = rgb[slots[i]:slots[i] + sizes[i]].reshape(ref[stem].shape)
+        d = got.astype(np.float64) - ref[stem]
+        mse = float((d ** 2).mean())
+        psnr = 10 * math.log10(255.0 ** 2 / mse) if mse else float("inf")
+        mean, mx = float(np.abs(d).mean()), float(np.abs(d).max())
+        print("p27 (b) kernel check nvjpeg %s %dx%d: PSNR %.2f dB against "
+              "libjpeg's pixels (decoded.npz), mean |diff| %.4f, max %d "
+              "levels (gate: PSNR >= %g, mean <= %g)" % (
+                  stem, dims[i][0], dims[i][1], psnr, mean, mx,
+                  P27_PSNR_MIN, P27_MEAN_DIFF_MAX))
+        worst = {"psnr": min(worst["psnr"], psnr),
+                 "mean": max(worst["mean"], mean),
+                 "max": max(worst["max"], mx)}
+        if not (psnr >= P27_PSNR_MIN and mean <= P27_MEAN_DIFF_MAX):
+            fail("nvjpeg's decode of %s is not libjpeg's within the "
+                 "tolerance" % stem)
+    # the main path's shapes: a batch of 128 records, four settings; and a
+    # batch of 128 records of the samplings (every branch of jpeg_color)
+    cases = {
+        "center": (rec, dict(resize=P27_SIDE)),
+        "crop-mirror": (rec, dict(resize=P27_SIDE, rand_crop=True,
+                                  rand_mirror=True, seed=27,
+                                  mean_rgb=FEED_MEAN)),
+        "no-resize": (rec, dict(rand_crop=True, rand_mirror=True, seed=28)),
+        "mean-scale": (rec, dict(resize=P27_SIDE, rand_mirror=True, seed=29,
+                                 mean_rgb=FEED_MEAN, scale=1 / 58.0)),
+        "samplings": (srec, dict(resize=P27_SIDE, rand_crop=True,
+                                 rand_mirror=True, seed=30,
+                                 mean_rgb=FEED_MEAN))}
+    out = {"nvjpeg": worst, "checks": {}}
+    flush = torch.zeros(256 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    for name, (path, kw) in cases.items():
+        plan = p27_plan(torch, mt, path, **kw)
+        jobs, aug = mt.feed.staging.plan_jobs(plan.geom)
+        planes, color = dec.decode_planes(plan.payload, jobs,
+                                          plan.geom[:, 2])
+        crow = torch.from_numpy(color).to(dev)
+        ck.reset_launches()
+        pix = ck.jpeg_color(planes, crow)
+        geom = torch.from_numpy(aug).to(dev)
+        mean, scale = kw.get("mean_rgb"), kw.get("scale", 1.0)
+        got = ck.image_augment(pix, geom, (P27_CROP, P27_CROP), mean, scale)
+        torch.cuda.synchronize()
+        launched = dict(ck.LAUNCHES)
+        want_pix = ck.jpeg_color_reference(planes.cpu(), crow.cpu())
+        want = ck.image_augment_reference(want_pix, geom.cpu(),
+                                          (P27_CROP, P27_CROP), mean, scale)
+        same_pix = torch.equal(pix.cpu(), want_pix)
+        err_pix = float((pix.cpu().int() - want_pix.int()).abs().max())
+        err = float((got.cpu() - want).abs().max())
+        same = torch.equal(got.cpu(), want)
+        print("p27 (b) kernel check %s: %d images %s, jpeg_color bitwise "
+              "its plain version %s (max |diff| %g), image_augment bitwise "
+              "its plain version %s (max |diff| %g), launches %s (gate)" % (
+                  name, RESNET_BATCH, json.dumps(kw), same_pix, err_pix,
+                  same, err, {k: v for k, v in launched.items() if v}))
+        if not (same_pix and same) or launched["jpeg_color"] != 1 or \
+                launched["image_augment"] != 1:
+            fail("the JPEG route's kernels differ from their plain "
+                 "versions (%s)" % name)
+        out["checks"][name] = (err_pix, err)
+        if name != "crop-mirror":
+            continue
+        # the times at ResNet-50's settings: CUDA events, L2 flushed
+        nv = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec.decode_planes(plan.payload, jobs, plan.geom[:, 2])
+            torch.cuda.synchronize()
+            nv.append(1e3 * (time.perf_counter() - t0))
+        out["nvjpeg_ms"] = float(np.median(nv))
+        mp = int((color[:, 1] * color[:, 2]).max())
+        out["jpeg_color"] = {
+            "ms": time_ms(torch, lambda: ck.jpeg_color(planes, crow, mp),
+                          flush),
+            "plain_ms": time_ms(torch, lambda: ck.jpeg_color_reference(
+                planes, crow), flush, iters=5),
+            "bound_ms": color_bound_ms(color), "max_abs_err": err_pix}
+        out["image_augment"] = {
+            "ms": time_ms(torch, lambda: ck.image_augment(
+                pix, geom, (P27_CROP, P27_CROP), mean, scale), flush),
+            "plain_ms": time_ms(torch, lambda: ck.image_augment_reference(
+                pix, geom, (P27_CROP, P27_CROP), mean, scale), flush,
+                iters=5),
+            "bound_ms": augment_bound_ms(aug, (P27_CROP, P27_CROP)),
+            "max_abs_err": err}
+    for k in ("jpeg_color", "image_augment"):
+        r = out[k]
+        print("kernel time %s: %.4f ms (%.2f of its %.4f ms bound, bytes), "
+              "plain version %.4f ms, library call none; a batch of %d at "
+              "ResNet-50's settings, L2 flushed; card %s" % (
+                  k, r["ms"], r["bound_ms"] / r["ms"], r["bound_ms"],
+                  r["plain_ms"], RESNET_BATCH, smi))
+    print("p27 (b) nvjpeg: %.2f ms a batch of %d (nvjpegDecode an image to "
+          "its components, host wall to the card's completion, median of "
+          "5); worst of the fixtures against libjpeg: PSNR %.2f dB, mean "
+          "|diff| %.4f, max %d; card %s" % (
+              out["nvjpeg_ms"], RESNET_BATCH, worst["psnr"], worst["mean"],
+              worst["max"], smi))
+    del flush
+    dec.close()
+    return out
+
+
+def p27_io(torch, mt, ck, smi, tmp):
+    """(b): JPEG records into ResNet-50 through the route on the card."""
     rec = os.path.join(tmp, "p27.rec")
+    srec = os.path.join(tmp, "p27-samplings.rec")
     t0 = time.perf_counter()
-    p27_write_rec(mt, rec, jpeg)
-    print("p27 (b): %d %s records written by the port's NativeRecordWriter "
-          "(%d bytes) in %.1f s" % (
-              P27_RECORDS, "JPEG" if jpeg else "raw CHW 3x%dx%d" % (
-                  P27_SIDE, P27_SIDE), os.path.getsize(rec),
-              time.perf_counter() - t0))
-    if not mt.native_io.jpeg_available():
-        # this machine's I/O library has no JPEG path: a JPEG record
-        # raises naming libjpeg, never decodes into garbage
-        jrec = os.path.join(tmp, "p27-jpeg.rec")
-        w = mt.native_io.NativeRecordWriter(jrec)
-        w.write_image(1.0, 0, open(os.path.join(
-            os.path.dirname(os.path.abspath(__file__)), "tests", "data",
-            "native_jpegs", "img00.jpg"), "rb").read())
-        w.close()
-        try:
-            mt.native_io.NativeBatchLoader(jrec, 1, (3, 224, 224),
-                                           resize=256).next()
-        except RuntimeError as e:
-            msg = str(e)
-        else:
-            fail("a JPEG record decoded without libjpeg")
-        if "libjpeg" not in msg:
-            fail("the JPEG error does not name libjpeg: %r" % msg)
-        print("p27 (b): a JPEG record raises without libjpeg: %r" % msg)
+    p27_write_rec(mt, rec, p27_fixtures()[1])
+    p27_write_rec(mt, srec, p27_fixtures(samplings=True)[1], RESNET_BATCH)
+    print("p27 (b): %d JPEG records written by the port's NativeRecordWriter "
+          "(%d bytes) in %.1f s" % (P27_RECORDS, os.path.getsize(rec),
+                                    time.perf_counter() - t0))
     kw = dict(path_imgrec=rec, data_shape=(3, P27_CROP, P27_CROP),
               batch_size=RESNET_BATCH, resize=P27_SIDE, rand_crop=True,
               rand_mirror=True, mean_r=FEED_MEAN[0], mean_g=FEED_MEAN[1],
               mean_b=FEED_MEAN[2], seed=27)
     it = mt.io.ImageRecordIter(preprocess_threads=P27_THREADS, **kw)
-    if type(it).__name__ != "NativeImageRecordIter":
-        fail("ImageRecordIter at ResNet-50's settings is %s, not the native "
-             "loader" % type(it).__name__)
-    t0 = time.perf_counter()
-    batches = list(it)
-    load_s = time.perf_counter() - t0
-    one = list(mt.io.ImageRecordIter(preprocess_threads=1, **kw))
-    same = len(one) == len(batches) == P27_RECORDS // RESNET_BATCH and all(
-        a.pad == b.pad and np.array_equal(a.data[0].asnumpy(),
-                                          b.data[0].asnumpy())
-        and np.array_equal(a.label[0].asnumpy(), b.label[0].asnumpy())
-        for a, b in zip(batches, one))
+    if type(it).__name__ != "NativeImageRecordIter" or it.records != "jpeg":
+        fail("ImageRecordIter at ResNet-50's settings is %s over %s "
+             "records, not the native loader over JPEG" % (
+                 type(it).__name__, getattr(it, "records", "?")))
+    if not mt.native_io.jpeg_available():
+        # iterated directly, the host route: a JPEG record raises naming
+        # libjpeg, never decodes into garbage
+        try:
+            it.next()
+        except RuntimeError as e:
+            msg = str(e)
+        else:
+            fail("a JPEG record decoded on the host without libjpeg")
+        if "libjpeg" not in msg:
+            fail("the JPEG error does not name libjpeg: %r" % msg)
+        print("p27 (b): iterated directly (the host route), a JPEG record "
+              "raises without libjpeg: %r" % msg)
+    else:
+        print("p27 (b): iterated directly (the host route), JPEG records "
+              "decode with libjpeg on the host")
+    kern = p27_jpeg_kernels(torch, mt, ck, smi, rec, srec)
+    # the loader alone on the route on the card, 8 threads then 1
+    runs = {}
+    for threads in (P27_THREADS, 1):
+        feed = mt.feed.device_feed(mt.io.ImageRecordIter(
+            preprocess_threads=threads, **kw), sharding=mt.gpu(0))
+        if feed.route != "device":
+            fail("JPEG records wrapped for the card took the %s route"
+                 % feed.route)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batches = list(feed)
+        torch.cuda.synchronize()
+        runs[threads] = (batches, time.perf_counter() - t0,
+                         feed.route_report())
+    (b8, load_s, rep), (b1, _, _) = runs[P27_THREADS], runs[1]
+    same = len(b8) == len(b1) == P27_RECORDS // RESNET_BATCH and all(
+        a.pad == b.pad and torch.equal(a.data[0]._get(), b.data[0]._get())
+        and torch.equal(a.label[0]._get(), b.label[0]._get())
+        for a, b in zip(b8, b1))
     img_s = P27_RECORDS / load_s
-    print("p27 (b): ImageRecordIter(%s) -> %s: one epoch of %d batches of "
-          "%d alone %.1f img/s at %d threads; batches bitwise a 1-thread "
-          "run's %s (gate)" % (
+    print("p27 (b): ImageRecordIter(%s) wrapped by feed.device_feed for "
+          "gpu(0): route %s, %d batches of %d alone %.1f img/s at %d "
+          "threads (%d images decoded on the card, %.0f bytes crossed a "
+          "batch against %d of float32); batches bitwise a 1-thread run's "
+          "%s (gate)" % (
               ", ".join("%s=%s" % kv for kv in sorted(kw.items())
                         if kv[0] != "path_imgrec"),
-              type(it).__name__, len(batches), RESNET_BATCH, img_s,
-              P27_THREADS, same))
+              rep["route"], len(b8), RESNET_BATCH, img_s, P27_THREADS,
+              rep["images"], rep["bytes_per_batch"],
+              RESNET_BATCH * 3 * P27_CROP * P27_CROP * 4, same))
     if not same:
-        fail("the native loader's 8-thread batches differ from 1 thread's")
-    del batches, one
+        for k, (a, b) in enumerate(zip(b8, b1)):
+            da, db = a.data[0]._get(), b.data[0]._get()
+            if a.pad == b.pad and torch.equal(da, db) and torch.equal(
+                    a.label[0]._get(), b.label[0]._get()):
+                continue
+            rows = (da != db).reshape(da.shape[0], -1).any(1)
+            print("p27 (b): batch %d differs: pad %d/%d, labels equal %s, "
+                  "images %s, max |diff| %g" % (
+                      k, a.pad, b.pad, torch.equal(a.label[0]._get(),
+                                                   b.label[0]._get()),
+                      rows.nonzero().flatten().tolist()[:16],
+                      float((da - db).abs().max())))
+        fail("the route's 8-thread batches differ from 1 thread's")
+    # the same pass under load: a thread keeps float32 matrix products
+    # queued on a stream of its own while the route decodes (each image's
+    # nvjpeg work completes before the next image's begins,
+    # csrc/jpeg_decode.cu)
+    stop = threading.Event()
+
+    def gemms():
+        st = torch.cuda.Stream()
+        with torch.cuda.stream(st):
+            a = torch.randn(4096, 4096, device="cuda")
+            while not stop.is_set():
+                for _ in range(8):
+                    a = torch.mm(a, a).clamp_(-1, 1)
+                st.synchronize()
+    load = threading.Thread(target=gemms, daemon=True)
+    load.start()
+    t0 = time.perf_counter()
+    try:
+        loaded = list(mt.feed.device_feed(mt.io.ImageRecordIter(
+            preprocess_threads=P27_THREADS, **kw), sharding=mt.gpu(0)))
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        load.join()
+    loaded_s = time.perf_counter() - t0
+    same_loaded = len(loaded) == len(b1) and all(
+        torch.equal(a.data[0]._get(), b.data[0]._get()) and
+        torch.equal(a.label[0]._get(), b.label[0]._get())
+        for a, b in zip(loaded, b1))
+    print("p27 (b): the same pass under a matrix-product load on another "
+          "stream: %.1f img/s, batches bitwise the idle 1-thread run's %s "
+          "(gate)" % (P27_RECORDS / loaded_s, same_loaded))
+    if not same_loaded:
+        fail("the route's batches under load differ from the idle run's")
+    del loaded
+    del b8, b1, runs
     sym, arg0, aux0, _, _, _ = resnet_setup(mt, 0, 27)
-    timed = TimedIter(mt.io.ImageRecordIter(preprocess_threads=P27_THREADS,
-                                            **kw))
     mod = mt.mod.Module(sym, context=mt.gpu(0))
+    feeds = []
+    wrap = mod.prefetch_to_device
+
+    def spy(*a, **k):
+        feeds.append(wrap(*a, **k))
+        return feeds[-1]
+    mod.prefetch_to_device = spy
     n = P27_RECORDS // RESNET_BATCH
-    marks, loads, losses = [], [], []
+    marks, stalls, losses = [], [], []
 
     def cb(p):
         if p.epoch == P27_FIT_EPOCHS - 1 and p.nbatch in (0, n - 1):
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
-            loads.append(timed.seconds)
+            stalls.append(feeds[0].stats.report()["h2d"]["stall_in_s"])
         if p.nbatch == n - 1:
             losses.append(float(p.eval_metric.get_name_value()[0][1]))
     ck.reset_launches()
     t0 = time.perf_counter()
-    mod.fit(timed, num_epoch=P27_FIT_EPOCHS, arg_params=arg0,
-            aux_params=aux0, optimizer="sgd",
-            optimizer_params=dict(TRAIN_OPT), eval_metric="ce",
-            batch_end_callback=cb)
+    mod.fit(mt.io.ImageRecordIter(preprocess_threads=P27_THREADS, **kw),
+            num_epoch=P27_FIT_EPOCHS, arg_params=arg0, aux_params=aux0,
+            optimizer="sgd", optimizer_params=dict(TRAIN_OPT),
+            eval_metric="ce", batch_end_callback=cb,
+            prefetch_to_device=True)
     fit_s = time.perf_counter() - t0
     launches = dict(ck.LAUNCHES)
     stats = mod._fused.stats.report()
+    route = feeds[0].route_report() if feeds else {"route": "none"}
     wall = marks[1] - marks[0]
     fit_img_s = RESNET_BATCH * (n - 1) / wall
-    share = (loads[1] - loads[0]) / wall
-    print("p27 (b): ResNet-50 Module.fit from the native iterator, %d "
-          "epochs of %d batches in %.1f s: fused step %s; the last epoch's "
-          "last %d steps %.1f img/s, the loader's next() %.3f of that wall; "
-          "cross-entropy after each epoch %s; hand-kernel launches %s; "
-          "card %s" % (P27_FIT_EPOCHS, n, fit_s, stats, n - 1, fit_img_s,
-                       share, [round(x, 4) for x in losses], launches, smi))
+    share = (stalls[1] - stalls[0]) / wall
+    batches = P27_FIT_EPOCHS * n
+    print("p27 (b): ResNet-50 Module.fit(prefetch_to_device=True) from the "
+          "JPEG records, route %s, %d epochs of %d batches in %.1f s: fused "
+          "step %s; the last epoch's last %d steps %.1f img/s, the route's "
+          "next() %.3f of that wall; cross-entropy after each epoch %s; "
+          "hand-kernel launches %s (gate: image_augment and jpeg_color %d, "
+          "once a batch, the four TPU-kernel counterparts 0); %s; card %s"
+          % (route["route"], P27_FIT_EPOCHS, n, fit_s, stats, n - 1,
+             fit_img_s, share, [round(x, 4) for x in losses], launches,
+             batches, json.dumps(route), smi))
+    if route["route"] != "device":
+        fail("fit's prefetch took the %s route" % route["route"])
     if not all(math.isfinite(x) for x in losses):
-        fail("ResNet-50 from the native loader: loss %s" % losses)
-    if sum(launches.values()) != 0:
-        fail("hand kernels launched while training ResNet-50: %s"
-             % launches)
+        fail("ResNet-50 from the JPEG records: loss %s" % losses)
+    if launches["image_augment"] != batches or \
+            launches["jpeg_color"] != batches or \
+            any(launches[k] for k in REPLACES):
+        fail("hand-kernel launches while training ResNet-50 from JPEG "
+             "records: %s" % launches)
     del mod
     gc.collect()
     torch.cuda.empty_cache()
+    raw = p27_raw(torch, mt, ck, smi, tmp, kw, (sym, arg0, aux0))
     return {"loader_img_s": img_s, "fit_img_s": fit_img_s,
-            "loader_share": share, "loss": losses[-1], "jpeg": jpeg}
+            "loader_share": share, "loss": losses[-1], "kernels": kern,
+            "launches": launches, "bytes_per_batch": route["bytes_per_batch"],
+            "raw": raw}
+
+
+def p27_raw(torch, mt, ck, smi, tmp, kw, model):
+    """(b)'s raw leg: P27_RAW_RECORDS raw CHW records keep the host route.
+    ImageRecordIter at 8 threads bitwise 1 thread's, then
+    Module.fit(prefetch_to_device=True) over them for one epoch: the host
+    route, finite losses, no hand kernel launched."""
+    rec = os.path.join(tmp, "p27-raw.rec")
+    rng = np.random.default_rng(272)
+    labels = rng.integers(0, 1000, P27_RAW_RECORDS)
+    w = mt.native_io.NativeRecordWriter(rec)
+    # the (h, w) uint16 prefix the loader crops from, then CHW uint8
+    prefix = bytes([P27_SIDE & 255, P27_SIDE >> 8] * 2)
+    for i in range(P27_RAW_RECORDS):
+        img = rng.integers(0, 256, (3, P27_SIDE, P27_SIDE), dtype=np.uint8)
+        w.write_image(float(labels[i]), i, prefix + img.tobytes())
+    w.close()
+    kw = dict(kw, path_imgrec=rec)
+    it = mt.io.ImageRecordIter(preprocess_threads=P27_THREADS, **kw)
+    if type(it).__name__ != "NativeImageRecordIter" or it.records != "raw":
+        fail("ImageRecordIter over raw records is %s over %s records" % (
+            type(it).__name__, getattr(it, "records", "?")))
+    t0 = time.perf_counter()
+    b8 = list(it)
+    load_s = time.perf_counter() - t0
+    b1 = list(mt.io.ImageRecordIter(preprocess_threads=1, **kw))
+    n = P27_RAW_RECORDS // RESNET_BATCH
+    same = len(b8) == len(b1) == n and all(
+        a.pad == b.pad and np.array_equal(a.data[0].asnumpy(),
+                                          b.data[0].asnumpy())
+        and np.array_equal(a.label[0].asnumpy(), b.label[0].asnumpy())
+        for a, b in zip(b8, b1))
+    print("p27 (b) raw: %d raw CHW 3x%dx%d records, ImageRecordIter "
+          "iterated directly (the host route) %.1f img/s at %d threads; "
+          "batches bitwise a 1-thread run's %s (gate)" % (
+              P27_RAW_RECORDS, P27_SIDE, P27_SIDE, P27_RAW_RECORDS / load_s,
+              P27_THREADS, same))
+    if not same:
+        fail("the native loader's 8-thread raw batches differ from 1 "
+             "thread's")
+    del b8, b1
+    sym, arg0, aux0 = model
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    feeds, losses = [], []
+    wrap = mod.prefetch_to_device
+
+    def spy(*a, **k):
+        feeds.append(wrap(*a, **k))
+        return feeds[-1]
+    mod.prefetch_to_device = spy
+
+    def cb(p):
+        losses.append(float(p.eval_metric.get_name_value()[0][1]))
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    mod.fit(mt.io.ImageRecordIter(preprocess_threads=P27_THREADS, **kw),
+            num_epoch=1, arg_params=arg0, aux_params=aux0, optimizer="sgd",
+            optimizer_params=dict(TRAIN_OPT), eval_metric="ce",
+            batch_end_callback=cb, prefetch_to_device=True)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {k: v for k, v in ck.LAUNCHES.items() if v}
+    route = feeds[0].route_report() if feeds else {"route": "none"}
+    print("p27 (b) raw: ResNet-50 Module.fit(prefetch_to_device=True) from "
+          "the raw records, route %s, 1 epoch of %d batches in %.1f s; "
+          "cross-entropy after each batch %s; hand-kernel launches %s "
+          "(gates: route host, finite losses, no launch); card %s" % (
+              route["route"], n, fit_s, [round(x, 4) for x in losses],
+              launches, smi))
+    if route["route"] != "host":
+        fail("raw records wrapped for the card took the %s route"
+             % route["route"])
+    if len(losses) != n or not all(math.isfinite(x) for x in losses):
+        fail("ResNet-50 from the raw records: loss %s" % losses)
+    if launches:
+        fail("hand kernels launched while training ResNet-50 from raw "
+             "records: %s" % launches)
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loader_img_s": P27_RAW_RECORDS / load_s, "loss": losses[-1],
+            "route": route["route"]}
 
 
 def p27_abi(mt, name):
@@ -11229,8 +11580,7 @@ def p27_phase(torch, mt, ck, smi, root, native_build_thread):
     out = {"probe": probe}
     with tempfile.TemporaryDirectory() as tmp:
         for leg, fn in (("a", lambda: p27_engine(torch, mt, smi)),
-                        ("b", lambda: p27_io(torch, mt, ck, smi, tmp,
-                                             probe["jpeglib.h"])),
+                        ("b", lambda: p27_io(torch, mt, ck, smi, tmp)),
                         ("c", lambda: p27_predict(torch, mt, ck, smi, tmp)),
                         ("d", lambda: p27_client(torch, mt, smi, tmp, root)),
                         ("e", lambda: p27_rtc(torch, mt, smi))):
@@ -12385,7 +12735,12 @@ def main():
         "loader-img_s": round(p27["b"]["loader_img_s"], 1),
         "resnet50-native-fit-img_s": round(p27["b"]["fit_img_s"], 1),
         "resnet50-loader-share": round(p27["b"]["loader_share"], 3),
-        "records": "jpeg" if p27["b"]["jpeg"] else "raw",
+        "records": "jpeg",
+        "raw-loader-img_s": round(p27["b"]["raw"]["loader_img_s"], 1),
+        "raw-route": p27["b"]["raw"]["route"],
+        "route": "device",
+        "bytes-a-batch": round(p27["b"]["bytes_per_batch"], 1),
+        "nvjpeg-ms-a-batch": round(p27["b"]["kernels"]["nvjpeg_ms"], 3),
         "vgg16-abi-forward_ms": round(p27["c"]["abi_ms"], 3),
         "vgg16-predictor-forward_ms": round(p27["c"]["py_ms"], 3),
         "mlp-abi-steps_s": round(p27["d"]["steps_s"], 1),
@@ -12458,7 +12813,16 @@ def main():
         "ms": corr["ms"], "plain_ms": corr["plain_ms"],
         "bound_ms": corr["bound_ms"], "bound_by": corr["bound_by"],
         "library_ms": None,
-    }] + half_kernel_entries(ck, p28, fc["half_err"])
+    }] + half_kernel_entries(ck, p28, fc["half_err"]) + [{
+        "name": k, "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/" + ck.SOURCES[k],
+        "replaces": REPLACES_NONE[k],
+        "launches": p27["b"]["launches"][k],
+        "max_abs_err": p27["b"]["kernels"][k]["max_abs_err"],
+        "ms": p27["b"]["kernels"][k]["ms"],
+        "plain_ms": p27["b"]["kernels"][k]["plain_ms"],
+        "bound_ms": p27["b"]["kernels"][k]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None} for k in ("jpeg_color", "image_augment")]
     missing = [k for k in ck.SOURCES
                if k not in [e["name"] for e in kernels]]
     if missing:
@@ -12510,7 +12874,11 @@ def main():
           "FlowNetC's forwards in each dtype, fused_fc_epilogue (its "
           "tensor-core instance, fc6 + fc7 at bucket 8, max_abs_err from "
           "phase 3's 16-bit fc6 and fc7) (f)'s VGG-16 forwards in each "
-          "dtype (2 a forward)")
+          "dtype (2 a forward); jpeg_color and image_augment replace no "
+          "TPU kernel: each is one launch on a batch of 128 JPEG records "
+          "at ResNet-50's settings, its launches those of phase 27 (b)'s "
+          "fit (once a batch), no PyTorch call computes either, so their "
+          "library_ms is null")
     print("phase walls (s): %s" % json.dumps(walls))
     print("chip_smoke: the whole script took %.1f s" % (
         time.perf_counter() - t_script))

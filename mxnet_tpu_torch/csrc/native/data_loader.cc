@@ -8,6 +8,14 @@
 // bounded double-buffer queue -> python (ctypes) copies a batch out; the
 // port's iterator hands it to the module, which copies it to the card.
 //
+// A loader created with plan = 1 is the host half of the device route
+// (feed/staging.py JpegDeviceRoute): its workers read each JPEG record's
+// frame header (JpegDims, no libjpeg), size its shorter-edge resize and draw
+// its crop and mirror exactly as the host route would, and deliver per batch
+// the JPEG payloads back to back with each record's geometry (kPlanFields);
+// nvjpeg decodes them on the card, and the jpeg_color and image_augment
+// kernels (csrc/jpeg_decode.cu, csrc/image_augment.cu) finish the batch.
+//
 // The crop and mirror draws come from one stream an epoch, drawn batch by
 // batch in sequence order after each batch's decode, so a seed gives the
 // same batches at every thread count (at one thread, those of the JAX
@@ -33,6 +41,20 @@ struct Batch {
   std::vector<float> data;
   std::vector<float> label;
   int pad = 0;
+  // plan mode: the batch's JPEG payloads back to back, and kPlanFields
+  // numbers a record (PlanField)
+  std::vector<uint8_t> payload;
+  std::vector<int64_t> geom;
+};
+
+// A planned record's numbers, in this order: its payload's offset and
+// length in the batch's payload, its record number, whether it was read
+// (0: the record could not be read, its image is zeros), the decoded size,
+// the size after the shorter-edge resize (the decoded size where there is
+// none), the crop's offset in the resized image and the mirror bit.
+enum PlanField {
+  kPlanOffset, kPlanLength, kPlanRecord, kPlanOk, kPlanSrcH, kPlanSrcW,
+  kPlanResH, kPlanResW, kPlanDy, kPlanDx, kPlanMirror, kPlanFields
 };
 
 class BatchLoader {
@@ -41,11 +63,11 @@ class BatchLoader {
               int label_width, int threads, int shuffle, int rand_crop,
               int rand_mirror, const float* mean_rgb, float scale,
               int part_index, int num_parts, int seed, int queue_depth,
-              int resize)
+              int resize, int plan)
       : batch_(batch), c_(c), h_(h), w_(w), label_width_(label_width),
         shuffle_(shuffle), rand_crop_(rand_crop), rand_mirror_(rand_mirror),
         scale_(scale), queue_depth_(queue_depth), resize_(resize),
-        rng_(seed) {
+        plan_(plan != 0), rng_(seed) {
     ok_ = rec_.Open(path);
     if (!ok_) return;
     if (mean_rgb) {
@@ -88,6 +110,48 @@ class BatchLoader {
   // order, but eval parity and reproducible training require the
   // reference's sequential batch stream.
   int Next(float* data, float* label, int* pad) {
+    Batch b;
+    const int rc = Pop(&b);
+    if (rc != 0) return rc;
+    memcpy(data, b.data.data(), b.data.size() * sizeof(float));
+    memcpy(label, b.label.data(), b.label.size() * sizeof(float));
+    *pad = b.pad;
+    return 0;
+  }
+
+  // Plan mode: take the next batch's plan (return codes as Next) and say
+  // how many payload bytes TakePlan will write.
+  int NextPlan(long long* payload_bytes) {
+    const int rc = Pop(&plan_out_);
+    *payload_bytes = rc == 0
+        ? static_cast<long long>(plan_out_.payload.size()) : 0;
+    return rc;
+  }
+
+  // Copy out the plan NextPlan took: payloads, batch x kPlanFields
+  // numbers, labels and pad.
+  void TakePlan(uint8_t* payload, long long* geom, float* label, int* pad) {
+    memcpy(payload, plan_out_.payload.data(), plan_out_.payload.size());
+    for (size_t i = 0; i < plan_out_.geom.size(); ++i)
+      geom[i] = plan_out_.geom[i];
+    memcpy(label, plan_out_.label.data(),
+           plan_out_.label.size() * sizeof(float));
+    *pad = plan_out_.pad;
+  }
+
+  const char* last_error() {
+    std::lock_guard<std::mutex> lk(mu_);
+    return error_.c_str();
+  }
+
+  size_t total_batches() const {
+    return order_.empty() ? 0
+        : (order_.size() + static_cast<size_t>(batch_) - 1) /
+              static_cast<size_t>(batch_);
+  }
+
+ private:
+  int Pop(Batch* out) {
     std::unique_lock<std::mutex> lk(mu_);
     // End-of-epoch is EXACT: every one of the ceil(n/batch) sequences
     // must be delivered.  "Some worker ran off the end" is NOT the
@@ -110,29 +174,14 @@ class BatchLoader {
                " missing from the reorder buffer";
       return 2;
     }
-    Batch b = std::move(it->second);
+    *out = std::move(it->second);
     pending_.erase(it);
     ++next_seq_;
     lk.unlock();
     not_full_.notify_all();
-    memcpy(data, b.data.data(), b.data.size() * sizeof(float));
-    memcpy(label, b.label.data(), b.label.size() * sizeof(float));
-    *pad = b.pad;
     return 0;
   }
 
-  const char* last_error() {
-    std::lock_guard<std::mutex> lk(mu_);
-    return error_.c_str();
-  }
-
-  size_t total_batches() const {
-    return order_.empty() ? 0
-        : (order_.size() + static_cast<size_t>(batch_) - 1) /
-              static_cast<size_t>(batch_);
-  }
-
- private:
   void Stop() {
     stop_.store(true);
     not_full_.notify_all();
@@ -161,7 +210,9 @@ class BatchLoader {
 
   // One record of a batch between its decode and its emit: the pixels
   // (HWC RGB for JPEG, CHW for raw payloads), their geometry, and the
-  // crop/mirror draws planned for it.
+  // crop/mirror draws planned for it.  In plan mode px stays null: the
+  // payload, its decoded size (dec_h, dec_w) and src_h, src_w (after the
+  // resize) are what the card needs.
   struct Decoded {
     bool ok = false;       // false: the record could not be read (zeros)
     bool hwc = false;
@@ -170,6 +221,10 @@ class BatchLoader {
     std::vector<uint8_t> rgb, resized;  // JPEG scratch, reused
     int dy = 0, dx = 0;
     bool mirror = false;
+    size_t rec_no = 0;
+    const uint8_t* payload = nullptr;   // plan mode: the JPEG bytes
+    size_t payload_size = 0;
+    int dec_h = 0, dec_w = 0;
   };
 
   // The draws of one record, in the order and under the conditions of the
@@ -195,10 +250,12 @@ class BatchLoader {
     d->ok = false;
     ImageRecord r;
     const size_t rec_no = order_[rec_idx % order_.size()];
+    d->rec_no = rec_no;
     if (!rec_.Get(rec_no, &r)) return true;
     for (int l = 0; l < label_width_; ++l)
       label_out[l] = l < static_cast<int>(r.labels.size()) ? r.labels[l] : 0.f;
 
+    if (plan_) return PlanJpeg(r, rec_no, d);
     if (IsJPEG(r.payload, r.payload_size)) {
       if (!JpegAvailable()) {
         char msg[200];
@@ -213,14 +270,7 @@ class BatchLoader {
       // c_ != 3 (grayscale data_shape) the stride would walk RGB bytes
       // across x positions — corrupt images with real labels.  Fail
       // loud; the python side gates delegation on shape[0] == 3.
-      if (c_ != 3) {
-        char msg[160];
-        snprintf(msg, sizeof(msg),
-                 "JPEG records decode to 3 channels but data_shape has "
-                 "%d; use a 3-channel data_shape (record %zu)", c_, rec_no);
-        Fail(msg);
-        return false;
-      }
+      if (!CheckChannels(rec_no)) return false;
       // reference path: per-thread JPEG decode
       // (iter_image_recordio.cc:139-291 + image_aug_default.cc resize)
       int ih = 0, iw = 0;
@@ -240,14 +290,7 @@ class BatchLoader {
           iw = ow;
         }
       }
-      if (ih < h_ || iw < w_) {
-        char msg[160];
-        snprintf(msg, sizeof(msg),
-                 "record %zu decodes to %dx%d, smaller than the %dx%d "
-                 "crop (resize=%d)", rec_no, ih, iw, h_, w_, resize_);
-        Fail(msg);
-        return false;
-      }
+      if (!CheckCrop(rec_no, ih, iw)) return false;
       d->hwc = true;
       d->src_h = ih;
       d->src_w = iw;
@@ -271,6 +314,88 @@ class BatchLoader {
     d->hwc = false;
     d->ok = true;
     return true;
+  }
+
+  bool CheckChannels(size_t rec_no) {
+    if (c_ == 3) return true;
+    char msg[160];
+    snprintf(msg, sizeof(msg),
+             "JPEG records decode to 3 channels but data_shape has "
+             "%d; use a 3-channel data_shape (record %zu)", c_, rec_no);
+    Fail(msg);
+    return false;
+  }
+
+  bool CheckCrop(size_t rec_no, int ih, int iw) {
+    if (ih >= h_ && iw >= w_) return true;
+    char msg[160];
+    snprintf(msg, sizeof(msg),
+             "record %zu decodes to %dx%d, smaller than the %dx%d "
+             "crop (resize=%d)", rec_no, ih, iw, h_, w_, resize_);
+    Fail(msg);
+    return false;
+  }
+
+  // Plan mode: a JPEG record's sizes from its frame header, with the host
+  // route's checks and messages; the decode is left to the card.
+  bool PlanJpeg(const ImageRecord& r, size_t rec_no, Decoded* d) {
+    if (!IsJPEG(r.payload, r.payload_size)) {
+      char msg[200];
+      snprintf(msg, sizeof(msg),
+               "record %zu is not a JPEG; the device route decodes JPEG "
+               "records only (iterate the records on the host)", rec_no);
+      Fail(msg);
+      return false;
+    }
+    if (!CheckChannels(rec_no)) return false;
+    int ih = 0, iw = 0, comps = 0;
+    const int hdr = JpegDims(r.payload, r.payload_size, &ih, &iw, &comps);
+    if (hdr != kJpegOk) {
+      char msg[160];
+      if (hdr == kJpegOtherProcess)
+        snprintf(msg, sizeof(msg), "corrupt JPEG at record %zu (a frame "
+                 "other than SOF0/1/2, which nvjpeg does not decode)",
+                 rec_no);
+      else
+        snprintf(msg, sizeof(msg), "corrupt JPEG at record %zu", rec_no);
+      Fail(msg);
+      return false;
+    }
+    d->payload = r.payload;
+    d->payload_size = r.payload_size;
+    d->dec_h = ih;
+    d->dec_w = iw;
+    int oh = 0, ow = 0;
+    if (ShorterEdgeSize(ih, iw, resize_, &oh, &ow)) {
+      ih = oh;
+      iw = ow;
+    }
+    if (!CheckCrop(rec_no, ih, iw)) return false;
+    d->hwc = true;
+    d->src_h = ih;
+    d->src_w = iw;
+    d->ok = true;
+    return true;
+  }
+
+  // Plan mode: append a planned record's payload and numbers to b.
+  void EmitPlan(const Decoded& d, Batch* b) {
+    b->geom.resize(b->geom.size() + kPlanFields, 0);
+    int64_t* g = b->geom.data() + b->geom.size() - kPlanFields;
+    g[kPlanRecord] = static_cast<int64_t>(d.rec_no);
+    g[kPlanOffset] = static_cast<int64_t>(b->payload.size());
+    if (!d.ok) return;
+    g[kPlanLength] = static_cast<int64_t>(d.payload_size);
+    b->payload.insert(b->payload.end(), d.payload,
+                      d.payload + d.payload_size);
+    g[kPlanOk] = 1;
+    g[kPlanSrcH] = d.dec_h;
+    g[kPlanSrcW] = d.dec_w;
+    g[kPlanResH] = d.src_h;
+    g[kPlanResW] = d.src_w;
+    g[kPlanDy] = d.dy;
+    g[kPlanDx] = d.dx;
+    g[kPlanMirror] = d.mirror ? 1 : 0;
   }
 
   // Crop/mirror/normalize a decoded record into CHW float out.
@@ -331,7 +456,7 @@ class BatchLoader {
         if (stop_.load()) return;
       }
       Batch b;
-      b.data.resize(static_cast<size_t>(batch_) * img_sz);
+      if (!plan_) b.data.resize(static_cast<size_t>(batch_) * img_sz);
       b.label.resize(static_cast<size_t>(batch_) * label_width_);
       b.pad = start + batch_ > n ? static_cast<int>(start + batch_ - n) : 0;
       // decode in parallel with the other workers ...
@@ -354,8 +479,13 @@ class BatchLoader {
         ++plan_seq_;
       }
       plan_cv_.notify_all();
-      for (int i = 0; i < batch_; ++i)
-        Emit(recs[i], b.data.data() + i * img_sz);
+      if (plan_) {
+        b.geom.reserve(static_cast<size_t>(batch_) * kPlanFields);
+        for (int i = 0; i < batch_; ++i) EmitPlan(recs[i], &b);
+      } else {
+        for (int i = 0; i < batch_; ++i)
+          Emit(recs[i], b.data.data() + i * img_sz);
+      }
       {
         std::lock_guard<std::mutex> lk(mu_);
         pending_.emplace(seq, std::move(b));
@@ -375,6 +505,8 @@ class BatchLoader {
   int n_threads_ = 4;
   int queue_depth_;
   int resize_ = 0;  // shorter-edge resize target; 0 = off
+  bool plan_ = false;  // plan mode: JPEG headers and draws, no decode
+  Batch plan_out_;     // the plan NextPlan took, for TakePlan
   std::mt19937 rng_;
   // the epoch's augmentation stream, drawn batch by batch in sequence
   // order (plan_seq_ is the next batch to draw)
@@ -402,11 +534,12 @@ void* mxtpu_loader_create(const char* path, int batch, int c, int h, int w,
                           int rand_crop, int rand_mirror,
                           const float* mean_rgb, float scale, int part_index,
                           int num_parts, int seed, int queue_depth,
-                          int resize) {
+                          int resize, int plan) {
   auto* l = new mxtpu::BatchLoader(path, batch, c, h, w, label_width, threads,
                                    shuffle, rand_crop, rand_mirror, mean_rgb,
                                    scale, part_index, num_parts, seed,
-                                   queue_depth > 0 ? queue_depth : 4, resize);
+                                   queue_depth > 0 ? queue_depth : 4, resize,
+                                   plan);
   if (!l->ok()) {
     delete l;
     return nullptr;
@@ -421,6 +554,58 @@ long mxtpu_loader_num_records(void* handle) {
 int mxtpu_loader_next(void* handle, float* data, float* label, int* pad) {
   return static_cast<mxtpu::BatchLoader*>(handle)->Next(data, label, pad);
 }
+
+int mxtpu_loader_next_plan(void* handle, long long* payload_bytes) {
+  return static_cast<mxtpu::BatchLoader*>(handle)->NextPlan(payload_bytes);
+}
+
+void mxtpu_loader_take_plan(void* handle, unsigned char* payload,
+                            long long* geom, float* label, int* pad) {
+  static_cast<mxtpu::BatchLoader*>(handle)->TakePlan(payload, geom, label,
+                                                     pad);
+}
+
+int mxtpu_plan_fields() { return mxtpu::kPlanFields; }
+
+// A JPEG's frame header: 0 with its height, width and components, 1 when
+// it cannot be read, 2 for a frame of another coding process (JpegDims).
+int mxtpu_jpeg_dims(const unsigned char* buf, long len, int* h, int* w,
+                    int* comps) {
+  return mxtpu::JpegDims(buf, static_cast<size_t>(len), h, w, comps);
+}
+
+// The host decode (libjpeg, RGB): 0 with the pixels in out (h x w x 3
+// bytes) when they fit in cap, 1 on a corrupt JPEG, 2 without libjpeg, 3
+// when cap is too small (h and w are set).
+int mxtpu_jpeg_decode(const unsigned char* buf, long len, unsigned char* out,
+                      long cap, int* h, int* w) {
+  if (!mxtpu::JpegAvailable()) return 2;
+  std::vector<uint8_t> rgb;
+  if (!mxtpu::DecodeJPEG(buf, static_cast<size_t>(len), &rgb, h, w)) return 1;
+  if (static_cast<long>(rgb.size()) > cap) return 3;
+  memcpy(out, rgb.data(), rgb.size());
+  return 0;
+}
+
+// The host decode's components before upsampling and colour conversion
+// (DecodeJPEGPlanes): 0 with Y, then Cb and Cr, in out when they fit in
+// cap and info = (h, w, cw, ch, kind); 1 on a corrupt JPEG or a sampling
+// other than gray, 4:4:4, 4:2:2, 4:2:0; 2 without libjpeg; 3 when cap is
+// too small.
+int mxtpu_jpeg_decode_planes(const unsigned char* buf, long len,
+                             unsigned char* out, long cap, int* info) {
+  if (!mxtpu::JpegAvailable()) return 2;
+  std::vector<uint8_t> planes;
+  if (!mxtpu::DecodeJPEGPlanes(buf, static_cast<size_t>(len), &planes,
+                               &info[0], &info[1], &info[2], &info[3],
+                               &info[4]))
+    return 1;
+  if (static_cast<long>(planes.size()) > cap) return 3;
+  memcpy(out, planes.data(), planes.size());
+  return 0;
+}
+
+int mxtpu_have_jpeg() { return mxtpu::JpegAvailable() ? 1 : 0; }
 
 const char* mxtpu_loader_last_error(void* handle) {
   return static_cast<mxtpu::BatchLoader*>(handle)->last_error();

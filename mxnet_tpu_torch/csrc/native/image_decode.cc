@@ -15,6 +15,38 @@ bool IsJPEG(const uint8_t* buf, size_t len) {
   return len >= 3 && buf[0] == 0xFF && buf[1] == 0xD8 && buf[2] == 0xFF;
 }
 
+int JpegDims(const uint8_t* buf, size_t len, int* h, int* w, int* comps) {
+  if (!IsJPEG(buf, len)) return kJpegUnreadable;
+  size_t i = 2;
+  while (i < len) {
+    if (buf[i] != 0xFF) return kJpegUnreadable;
+    while (i < len && buf[i] == 0xFF) ++i;     // fill bytes
+    if (i >= len) return kJpegUnreadable;
+    const int marker = buf[i++];
+    // markers without a segment: TEM, RST0..7, SOI
+    if (marker == 0x01 || (marker >= 0xD0 && marker <= 0xD8)) continue;
+    // the image data or its end before any frame header
+    if (marker == 0xD9 || marker == 0xDA) return kJpegUnreadable;
+    if (i + 2 > len) return kJpegUnreadable;
+    const size_t seg = (static_cast<size_t>(buf[i]) << 8) | buf[i + 1];
+    if (seg < 2 || i + seg > len) return kJpegUnreadable;
+    // SOF0..SOF15 but DHT (C4), JPG (C8) and DAC (CC)
+    if (marker >= 0xC0 && marker <= 0xCF && marker != 0xC4 &&
+        marker != 0xC8 && marker != 0xCC) {
+      if (marker > 0xC2) return kJpegOtherProcess;
+      if (seg < 8) return kJpegUnreadable;
+      *h = (buf[i + 3] << 8) | buf[i + 4];
+      *w = (buf[i + 5] << 8) | buf[i + 6];
+      *comps = buf[i + 7];
+      if (*h == 0 || *w == 0 || (*comps != 1 && *comps != 3))
+        return kJpegUnreadable;
+      return kJpegOk;
+    }
+    i += seg;
+  }
+  return kJpegUnreadable;
+}
+
 #ifdef MXTT_HAVE_JPEG
 bool JpegAvailable() { return true; }
 
@@ -67,6 +99,88 @@ bool DecodeJPEG(const uint8_t* buf, size_t len, std::vector<uint8_t>* rgb,
   return true;
 }
 
+bool DecodeJPEGPlanes(const uint8_t* buf, size_t len,
+                      std::vector<uint8_t>* planes, int* h, int* w, int* cw,
+                      int* ch, int* kind) {
+  jpeg_decompress_struct cinfo;
+  JpegErr jerr;
+  cinfo.err = jpeg_std_error(&jerr.mgr);
+  jerr.mgr.error_exit = JpegErrExit;
+  // component row buffers, freed on every exit
+  std::vector<std::vector<uint8_t>> comp;
+  if (setjmp(jerr.jmp)) {
+    jpeg_destroy_decompress(&cinfo);
+    return false;
+  }
+  jpeg_create_decompress(&cinfo);
+  jpeg_mem_src(&cinfo, const_cast<uint8_t*>(buf),
+               static_cast<unsigned long>(len));
+  if (jpeg_read_header(&cinfo, TRUE) != JPEG_HEADER_OK) {
+    jpeg_destroy_decompress(&cinfo);
+    return false;
+  }
+  const int n = cinfo.num_components;
+  const jpeg_component_info* c = cinfo.comp_info;
+  int k = -1;
+  if (n == 1) {
+    k = kJpegGray;
+  } else if (n == 3 && c[1].h_samp_factor == 1 && c[1].v_samp_factor == 1 &&
+             c[2].h_samp_factor == 1 && c[2].v_samp_factor == 1) {
+    const int hs = c[0].h_samp_factor, vs = c[0].v_samp_factor;
+    k = hs == 1 && vs == 1 ? kJpeg444 : hs == 2 && vs == 1 ? kJpeg422
+        : hs == 2 && vs == 2 ? kJpeg420 : -1;
+  }
+  if (k < 0) {
+    jpeg_destroy_decompress(&cinfo);
+    return false;
+  }
+  cinfo.raw_data_out = TRUE;
+  jpeg_start_decompress(&cinfo);
+  *h = static_cast<int>(cinfo.image_height);
+  *w = static_cast<int>(cinfo.image_width);
+  *kind = k;
+  // a component's rows in iMCU-row steps of v_samp_factor * DCTSIZE, into
+  // buffers a whole number of blocks wide and tall
+  comp.resize(n);
+  std::vector<std::vector<JSAMPROW>> rows(n);
+  const int step = cinfo.max_v_samp_factor * DCTSIZE;
+  for (int i = 0; i < n; ++i) {
+    const size_t bw = c[i].width_in_blocks * DCTSIZE;
+    const size_t bh = (c[i].height_in_blocks + c[i].v_samp_factor) * DCTSIZE;
+    comp[i].resize(bw * bh);
+  }
+  JSAMPARRAY arrays[3];
+  for (JDIMENSION done = 0; cinfo.output_scanline < cinfo.output_height;) {
+    for (int i = 0; i < n; ++i) {
+      const int lines = c[i].v_samp_factor * DCTSIZE;
+      const size_t bw = c[i].width_in_blocks * DCTSIZE;
+      const size_t first = static_cast<size_t>(done) * lines / step;
+      rows[i].resize(lines);
+      for (int r = 0; r < lines; ++r)
+        rows[i][r] = comp[i].data() + (first + r) * bw;
+      arrays[i] = rows[i].data();
+    }
+    const JDIMENSION got = jpeg_read_raw_data(&cinfo, arrays, step);
+    if (got == 0) break;
+    done += got;
+  }
+  // the component sizes live in memory jpeg_finish_decompress frees
+  *cw = static_cast<int>(c[n - 1].downsampled_width);
+  *ch = static_cast<int>(c[n - 1].downsampled_height);
+  planes->clear();
+  for (int i = 0; i < n; ++i) {
+    const int pw = static_cast<int>(c[i].downsampled_width);
+    const int ph = static_cast<int>(c[i].downsampled_height);
+    const size_t bw = c[i].width_in_blocks * DCTSIZE;
+    for (int r = 0; r < ph; ++r)
+      planes->insert(planes->end(), comp[i].data() + r * bw,
+                     comp[i].data() + r * bw + pw);
+  }
+  jpeg_finish_decompress(&cinfo);
+  jpeg_destroy_decompress(&cinfo);
+  return true;
+}
+
 bool EncodeJPEG(const uint8_t* rgb, int h, int w, int quality,
                 std::vector<uint8_t>* out) {
   jpeg_compress_struct cinfo;
@@ -110,6 +224,11 @@ bool DecodeJPEG(const uint8_t*, size_t, std::vector<uint8_t>*, int*, int*) {
   return false;
 }
 
+bool DecodeJPEGPlanes(const uint8_t*, size_t, std::vector<uint8_t>*, int*,
+                      int*, int*, int*, int*) {
+  return false;
+}
+
 bool EncodeJPEG(const uint8_t*, int, int, int, std::vector<uint8_t>*) {
   return false;
 }
@@ -149,9 +268,7 @@ void ResizeBilinear(const uint8_t* src, int h, int w, uint8_t* dst, int oh,
   }
 }
 
-bool ResizeShorterEdge(const std::vector<uint8_t>& src, int h, int w,
-                       int target, std::vector<uint8_t>* dst, int* oh,
-                       int* ow) {
+bool ShorterEdgeSize(int h, int w, int target, int* oh, int* ow) {
   int shorter = h < w ? h : w;
   if (target <= 0 || shorter == target) return false;
   if (h < w) {
@@ -161,6 +278,13 @@ bool ResizeShorterEdge(const std::vector<uint8_t>& src, int h, int w,
     *ow = target;
     *oh = static_cast<int>(static_cast<int64_t>(h) * target / w);
   }
+  return true;
+}
+
+bool ResizeShorterEdge(const std::vector<uint8_t>& src, int h, int w,
+                       int target, std::vector<uint8_t>* dst, int* oh,
+                       int* ow) {
+  if (!ShorterEdgeSize(h, w, target, oh, ow)) return false;
   dst->resize(static_cast<size_t>(*oh) * (*ow) * 3);
   ResizeBilinear(src.data(), h, w, dst->data(), *oh, *ow, 3);
   return true;

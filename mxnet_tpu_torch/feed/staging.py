@@ -20,6 +20,18 @@ copied (a megabatch's K batches each cut before stacking; the batch
 says which arrays were cut, and ``make_batch`` cuts them no more).  On
 the host the wrapper is plain lookahead.
 
+The route is fixed at the wrap, before the first batch (:attr:`route`).
+A ``NativeImageRecordIter`` over JPEG records wrapped for a CUDA device
+takes the device route, :class:`JpegDeviceRoute`: the host workers read
+and plan without decoding, the JPEG bytes cross to the card from a
+pinned buffer, nvjpeg decodes to components, the ``jpeg_color`` and
+``image_augment`` kernels write the batch, on a copy stream, one event a
+batch; the batches are those the host loader gives but for nvjpeg's
+IDCT.  Every other iterator, raw CHW records included, takes
+the host route: its host batches are copied.  :meth:`route_report` says
+which, with the images decoded on the card and the bytes crossed a
+batch.
+
 ``Module.fit(..., prefetch_to_device=True)`` wires this in automatically
 (base_module.py); :func:`device_feed` is the manual entry point.
 """
@@ -36,7 +48,7 @@ from .stages import CopyStream, RowShard, claim_tensors, resolve_device
 from .stats import PipelineStats
 
 __all__ = ["MegaBatch", "DevicePrefetchIter", "device_feed",
-           "stack_batch_arrays"]
+           "stack_batch_arrays", "JpegDeviceRoute", "plan_jobs"]
 
 
 def _tensor(a):
@@ -100,6 +112,111 @@ class MegaBatch:
         return out
 
 
+def plan_jobs(geom: np.ndarray):
+    """A batch plan's rows (``native_io.PLAN_FIELDS``) -> (the decode's
+    job rows, ``ops.cuda_kernels.JPEG_JOB_FIELDS``; image_augment's
+    geometry rows, ``AUG_FIELDS``): each image read gets a slot of 3 *
+    h * w bytes in the decoded components and RGB, packed in order."""
+    from ..native_io import PLAN_FIELDS
+    f = {k: i for i, k in enumerate(PLAN_FIELDS)}
+    ok = geom[:, f["ok"]] != 0
+    h, w = geom[:, f["src_h"]], geom[:, f["src_w"]]
+    sizes = np.where(ok, 3 * h * w, 0)
+    slots = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    jobs = np.stack([geom[:, f["offset"]], geom[:, f["length"]], slots, h,
+                     w, geom[:, f["ok"]]], axis=1)
+    # AUG_FIELDS: the slot, then PLAN_FIELDS from "ok" to "mirror"
+    aug = np.concatenate([slots[:, None], geom[:, f["ok"]:]], axis=1)
+    return jobs, aug
+
+
+class JpegDeviceRoute:
+    """JPEG records decoded on ``device``, for a ``NativeImageRecordIter``
+    (``data_iter``) wrapped by :class:`DevicePrefetchIter`.
+
+    A plan loader with the iterator's parameters (``native_io``,
+    ``plan=True``) reads each record's frame header and draws its crop
+    and mirror as the host loader would, in the same order from the same
+    stream, on the iterator's threads.  Each batch's JPEG payloads are
+    copied into one pinned buffer, grown on demand; on a copy stream
+    nvjpeg decodes them to components, each image's work completed
+    before the next begins and so before ``next()`` returns, which frees
+    the buffer for the next batch (``ops.cuda_kernels.JpegDecoder``),
+    ``jpeg_color`` converts them to RGB and ``image_augment`` resizes,
+    crops, mirrors and normalizes into the (B, 3, H, W) float32 batch,
+    the labels copied beside it; one event is recorded after.
+    ``next()`` returns a DataBatch on the device whose ``ready`` is that
+    event.  A failed decode or launch raises, naming the record.  On the
+    CPU (``device`` cpu, for tests) the decode to components is the host
+    loader's libjpeg and the kernels take their plain versions."""
+
+    def __init__(self, data_iter, device):
+        from ..ops import cuda_kernels as ck
+        self.device = torch.device(device)
+        self.batch_size = data_iter.batch_size
+        self._hw = tuple(data_iter.data_shape[1:])
+        self._label_width = data_iter.label_width
+        self._mean, self._scale = data_iter.mean_rgb, data_iter.scale
+        self._loader = data_iter.make_loader(plan=True)
+        self._decoder = ck.JpegDecoder(self.device)
+        self._copies = CopyStream()
+        self._pin = self.device.type == "cuda"
+        self._payload = None
+        self._first = True
+        self.batches = self.images = self.bytes = 0
+
+    def _buffer(self, nbytes: int):
+        """The payload buffer, at least ``nbytes`` long."""
+        if self._payload is None or self._payload.numel() < nbytes:
+            self._payload = torch.empty(max(nbytes, 1) * 5 // 4,
+                                        dtype=torch.uint8,
+                                        pin_memory=self._pin)
+        return self._payload
+
+    def _host(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.pin_memory() if self._pin else t
+
+    def reset(self):
+        if not self._first:
+            self._loader.reset()
+        self._first = False
+
+    def next(self):
+        from ..io import DataBatch
+        from ..native_io import PLAN_FIELDS
+        from ..ndarray import NDArray
+        from ..ops import cuda_kernels as ck
+        self._first = False
+        plan = self._loader.next_plan(self._buffer)
+        if plan is None:
+            raise StopIteration
+        jobs, aug = plan_jobs(plan.geom)
+        records = plan.geom[:, PLAN_FIELDS.index("record")]
+        geom = self._host(aug)
+        label = plan.label.reshape(-1) if self._label_width == 1 \
+            else plan.label
+        label = self._host(label)
+        dev = self.device
+
+        def work():
+            pixels = self._decoder.decode(plan.payload, jobs, records)
+            data = ck.image_augment(pixels,
+                                    geom.to(dev, non_blocking=True),
+                                    self._hw, self._mean, self._scale)
+            return data, label.to(dev, non_blocking=True)
+        (data, lab), ev = self._copies.run(dev, work)
+        crossed = plan.nbytes + geom.nbytes + label.nbytes
+        self.batches += 1
+        self.images += int((aug[:, 1] != 0).sum())
+        self.bytes += crossed
+        out = DataBatch(data=[NDArray(data)], label=[NDArray(lab)],
+                        pad=plan.pad, index=None)
+        out.ready = ev
+        out.crossed_bytes = crossed
+        return out
+
+
 class DevicePrefetchIter:
     """DataIter wrapper: stage ``depth`` batches ahead on the device.
 
@@ -137,6 +254,39 @@ class DevicePrefetchIter:
         self.stats = PipelineStats(name).register()
         self._h2d = self.stats.stage("h2d")
         self.batch_size = getattr(data_iter, "batch_size", 0)
+        # the route, fixed here: JPEG records of a native iterator are
+        # decoded on a CUDA device, everything else crosses as host batches
+        self._route = None
+        dev = self._wrap_device()
+        if dev is not None and dev.type == "cuda" and \
+                getattr(data_iter, "records", None) == "jpeg" and \
+                callable(getattr(data_iter, "make_loader", None)):
+            self._route = JpegDeviceRoute(data_iter, dev)
+        self._source = self._route or data_iter
+
+    @property
+    def route(self) -> str:
+        """"device" (JPEG records decoded on the card) or "host"."""
+        return "host" if self._route is None else "device"
+
+    def route_report(self) -> dict:
+        """The route, and on the device route the batches made, the
+        images decoded on the card and the bytes crossed a batch (the
+        JPEG payloads, the geometry rows and the labels)."""
+        out = {"route": self.route}
+        r = self._route
+        if r is not None:
+            out.update(batches=r.batches, images=r.images,
+                       bytes_per_batch=r.bytes / max(1, r.batches))
+        return out
+
+    def _wrap_device(self):
+        """The device this wrapper stages onto, as known at the wrap: the
+        given one, else the module's context's."""
+        if self._device is not None:
+            return resolve_device(self._device)
+        ctx = getattr(self._module, "_context", None)
+        return ctx[0].torch_device() if ctx else None
 
     # -- DataIter surface -------------------------------------------------
     @property
@@ -166,7 +316,7 @@ class DevicePrefetchIter:
         self._pending_states.clear()
         self._exhausted = False
         self._consumed = 0
-        self._iter.reset()
+        self._source.reset()
 
     def next(self):
         self._fill()
@@ -225,10 +375,10 @@ class DevicePrefetchIter:
                     "prefetch_to_device or re-save with it enabled" % state)
             inner(state)
         else:
-            self._iter.reset()
+            self._source.reset()
             for _ in range(int(state.get("batch", 0))):
                 try:
-                    self._iter.next()
+                    self._source.next()
                 except StopIteration:
                     self._exhausted = True
                     break
@@ -266,7 +416,7 @@ class DevicePrefetchIter:
                 pre = inner_state() if callable(inner_state) else None
                 t0 = time.perf_counter()
                 try:
-                    batch = self._iter.next()
+                    batch = self._source.next()
                 except StopIteration:
                     self._exhausted = True
                     break
@@ -316,13 +466,15 @@ class DevicePrefetchIter:
         if host_bytes:
             staged, ev = self._copies.run(dev, put_all)
         else:
-            staged, ev = put_all(), None
+            # made on the device (the JPEG route's batches carry their
+            # event) or already there
+            staged, ev = put_all(), getattr(batch, "ready", None)
         nd = len(batch.data or [])
         n = staged[0].shape[0] if nd else 0
         dt = time.perf_counter() - t0
         self._h2d.add_items(int(n), dt)
         _trace.complete("feed:h2d_stage", t0, dt, cat="feed", items=int(n))
-        self._h2d.add_bytes(host_bytes)
+        self._h2d.add_bytes(host_bytes + getattr(batch, "crossed_bytes", 0))
         out = DataBatch(data=staged[:nd], label=staged[nd:], pad=batch.pad,
                         index=batch.index,
                         provide_data=getattr(batch, "provide_data", None),
@@ -350,6 +502,12 @@ class DevicePrefetchIter:
                  for i in range(nd, len(per[0]))]
         host_bytes = sum(_tensor(a).nbytes for col in cols + lcols
                          for a in col if _tensor(a).device != dev)
+        for b, arrs in zip(group, per):
+            # batches made on the device: stacked on this stream after
+            # their event
+            ev = getattr(b, "ready", None)
+            if ev is not None:
+                claim_tensors([_tensor(a) for a in arrs], ev)
 
         def put_all():
             return ([NDArray(stack_batch_arrays(c, dev)) for c in cols],
@@ -363,7 +521,8 @@ class DevicePrefetchIter:
         self._h2d.add_items(int(n), dt)
         _trace.complete("feed:h2d_stage_mega", t0, dt, cat="feed", k=k,
                         items=int(n))
-        self._h2d.add_bytes(host_bytes)
+        self._h2d.add_bytes(host_bytes + sum(
+            getattr(b, "crossed_bytes", 0) for b in group))
         return MegaBatch(data=data, label=label, k=k, rows_cut=cut), ev
 
 

@@ -24,7 +24,8 @@ first record holds a 3-channel JPEG or a raw CHW payload, as the
 reference's does (``MXNET_NATIVE_IO=0`` turns that off); otherwise the
 Python path below.  There raw CHW-packed payloads (exactly
 ``prod(data_shape)`` bytes) decode without PIL; JPEG/PNG payloads need
-PIL and raise without it.
+PIL and raise without it.  The native loader's JPEG records wrapped for
+a CUDA device are decoded on the card (``feed.staging.JpegDeviceRoute``).
 """
 from __future__ import annotations
 
@@ -563,7 +564,18 @@ class NativeImageRecordIter(DataIter):
     JPEG-packed and raw-CHW-packed .rec files (``csrc/native/
     data_loader.cc``: mmapped record index, N decode threads off the GIL,
     bounded double-buffer queue; reference iter_image_recordio.cc +
-    iter_prefetcher.h equivalent).  Batches are host NDArrays."""
+    iter_prefetcher.h equivalent).  Batches are host NDArrays, decoded
+    with libjpeg; without it a JPEG record raises naming libjpeg.
+
+    ``records`` says what the first record holds ("jpeg" or "raw").
+    Wrapped by ``feed.DevicePrefetchIter`` for a CUDA device (as
+    ``fit(prefetch_to_device=True)`` and ``feed.device_feed`` wrap it),
+    JPEG records take the route on the card instead
+    (``feed.staging.JpegDeviceRoute``: this iterator's parameters, a
+    loader that plans without decoding, nvjpeg, the ``jpeg_color`` and
+    ``image_augment`` kernels), with the host loader's batches but for
+    nvjpeg's IDCT.  The host loader starts at the first
+    ``next()``, so a wrapped iterator decodes nothing on the host."""
 
     def __init__(self, path_imgrec, data_shape, batch_size, label_width=1,
                  shuffle=False, mean_r=0, mean_g=0, mean_b=0, scale=1.0,
@@ -571,19 +583,29 @@ class NativeImageRecordIter(DataIter):
                  num_parts=1, preprocess_threads=4, seed=0, resize=0,
                  **kwargs):
         super().__init__()
-        from .native_io import NativeBatchLoader
-        mean = (mean_r, mean_g, mean_b) if (mean_r or mean_g or mean_b) \
-            else None
-        self._loader = NativeBatchLoader(
-            path_imgrec, batch_size, tuple(data_shape),
+        self.mean_rgb = (mean_r, mean_g, mean_b) \
+            if (mean_r or mean_g or mean_b) else None
+        self.scale = scale
+        self.path_imgrec = path_imgrec
+        self._loader_kw = dict(
             label_width=label_width, threads=preprocess_threads,
             shuffle=shuffle, rand_crop=rand_crop, rand_mirror=rand_mirror,
-            mean_rgb=mean, scale=scale, part_index=part_index,
+            mean_rgb=self.mean_rgb, scale=scale, part_index=part_index,
             num_parts=num_parts, seed=seed, resize=resize)
         self.batch_size = batch_size
         self.data_shape = tuple(data_shape)
         self.label_width = label_width
+        self.records = _first_record_kind(path_imgrec)
+        self._loader = None
         self._first = True
+
+    def make_loader(self, plan=False):
+        """A native loader with this iterator's parameters; ``plan=True``
+        gives the plan loader of the route on the card."""
+        from .native_io import NativeBatchLoader
+        return NativeBatchLoader(self.path_imgrec, self.batch_size,
+                                 self.data_shape, plan=plan,
+                                 **self._loader_kw)
 
     @property
     def provide_data(self):
@@ -595,14 +617,19 @@ class NativeImageRecordIter(DataIter):
             return [("softmax_label", (self.batch_size,))]
         return [("softmax_label", (self.batch_size, self.label_width))]
 
+    def _host_loader(self):
+        if self._loader is None:
+            self._loader = self.make_loader()
+        return self._loader
+
     def reset(self):
         if not self._first:
-            self._loader.reset()
+            self._host_loader().reset()
         self._first = False
 
     def next(self):
         self._first = False
-        out = self._loader.next()
+        out = self._host_loader().next()
         if out is None:
             raise StopIteration
         data, label, pad = out
@@ -610,6 +637,29 @@ class NativeImageRecordIter(DataIter):
             label = label.reshape(-1)
         return DataBatch(data=[nd_array(data)], label=[nd_array(label)],
                          pad=pad, index=None)
+
+
+_JPEG_MAGIC = b"\xff\xd8\xff"
+
+
+def _first_payload(path):
+    """The payload of the first record of ``path``, None for an empty
+    file (raises when the file cannot be read)."""
+    from . import recordio as _recordio
+    rec = _recordio.MXRecordIO(path, "r")
+    try:
+        s = rec.read()
+    finally:
+        rec.close()
+    return None if s is None else _recordio.unpack(s)[1]
+
+
+def _first_record_kind(path) -> str:
+    """"jpeg" when the first record of ``path`` holds a JPEG, else "raw"
+    (raises when the file cannot be read)."""
+    payload = _first_payload(path)
+    return "jpeg" if payload is not None and \
+        payload[:3] == _JPEG_MAGIC else "raw"
 
 
 def _native_io_delegable(kwargs) -> bool:
@@ -639,16 +689,10 @@ def _native_io_delegable(kwargs) -> bool:
     if not path or not shape:
         return False
     try:
-        from . import recordio as _recordio
-        rec = _recordio.MXRecordIO(path, "r")
-        try:
-            s = rec.read()
-        finally:
-            rec.close()
-        if s is None:
+        payload = _first_payload(path)
+        if payload is None:
             return False
-        _, payload = _recordio.unpack(s)
-        if payload[:3] == b"\xff\xd8\xff":     # JPEG
+        if payload[:3] == _JPEG_MAGIC:
             # the native JPEG path decodes to 3-channel RGB and strides
             # by shape[0]; only 3-channel shapes delegate (data_loader.cc
             # fails loud as defense in depth).  Raw-CHW payloads below
@@ -672,8 +716,12 @@ class ImageRecordIter(DataIter):
     records hold JPEG or raw CHW payloads — matching the reference, whose
     ImageRecordIter IS the C++ pipeline.  A native library that fails to
     build, or a file the native loader cannot open, raises; it does not
-    fall back.  Otherwise this Python implementation covers the full
-    augmenter set (PIL decode -> resize/rotate/HSL ->
+    fall back.  Wrapped for a CUDA device (``fit(prefetch_to_device=
+    True)``, ``feed.device_feed``), the native iterator's JPEG records
+    are decoded and augmented on the card (``feed.staging.
+    JpegDeviceRoute``), with the batches the host loader gives; no
+    keyword selects that.  Otherwise this Python implementation covers
+    the full augmenter set (PIL decode -> resize/rotate/HSL ->
     mean/scale -> crop/mirror -> batch) while streaming records through a
     lazy offset index in O(batch) memory; decode runs on a thread pool of
     ``preprocess_threads``.  Sharding via part_index/num_parts as in the

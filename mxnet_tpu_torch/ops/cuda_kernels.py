@@ -49,6 +49,15 @@ as flash's tile is: an explicit argument wins, then the searched winner
 under ``MXNET_KERNEL_SEARCH=1``, then the default.  ``fused_fc_epilogue``
 has ``block_n`` (:data:`FC_TILES`), ``paged_attention`` its split-K
 partition length (:data:`PAGED_PART_KEYS`, 0 for one pass).
+
+Two kernels replace no TPU kernel; they carry the JPEG records route on
+the card (``feed.staging.JpegDeviceRoute``), where the JAX package
+decodes and augments on the host.  ``jpeg_color`` (``csrc/
+jpeg_decode.cu``, beside nvjpeg's decode to components:
+:class:`JpegDecoder`, linked with ``-lnvjpeg``, :data:`EXTRA_FLAGS`)
+upsamples the chroma and converts to RGB as libjpeg does;
+``image_augment`` (``csrc/image_augment.cu``) resizes, crops, mirrors and
+normalizes as the host loader does.
 """
 from __future__ import annotations
 
@@ -77,6 +86,9 @@ __all__ = ["KERNEL_DTYPES", "HALF_ULP",
            "PAGED_PART_KEYS", "PAGED_PARTITION_KEYS",
            "flash_attention", "flash_attention_reference", "FLASH_TILES",
            "correlation", "correlation_reference",
+           "image_augment", "image_augment_reference", "AUG_FIELDS",
+           "jpeg_color", "jpeg_color_reference", "COLOR_FIELDS",
+           "JpegDecoder", "JPEG_JOB_FIELDS", "nvjpeg_version", "EXTRA_FLAGS",
            "LAUNCHES", "reset_launches", "build", "nvcc_command", "SOURCES",
            "NVCC_RUNS", "BUILD_WALLS"]
 
@@ -88,7 +100,15 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = {"fused_fc_epilogue": "fc_epilogue.cu",
            "paged_attention": "paged_attention.cu",
            "flash_attention": "flash_attention.cu",
-           "correlation": "correlation.cu"}
+           "correlation": "correlation.cu",
+           "jpeg_color": "jpeg_decode.cu",
+           "image_augment": "image_augment.cu"}
+
+# kernel name -> nvcc flags of its library alone, after the source: the
+# toolkit libraries it links, and --fmad=false where the kernel must round
+# as the host does
+EXTRA_FLAGS = {"jpeg_color": ("-lnvjpeg",),
+               "image_augment": ("--fmad=false",)}
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
@@ -125,15 +145,29 @@ def _nvcc() -> str:
     return path
 
 
-def nvcc_command(source: str, output: str, nvcc: str = "nvcc") -> list:
+def nvcc_command(source: str, output: str, nvcc: str = "nvcc",
+                 extra=()) -> list:
     """The compile line for one kernel source: Hopper (``sm_90a``) code,
     a shared library with a plain C interface.  ``--split-compile``
     optimizes a source's kernel instances (one a tile, head-dim bucket
     and operand dtype) on 4 threads, so the libraries built at once
-    share the machine's cores instead of waiting on the largest."""
+    share the machine's cores instead of waiting on the largest.
+    ``extra`` (a library's :data:`EXTRA_FLAGS`) goes after the source."""
     return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", "--split-compile=4", "-shared", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v", "-o", output, source]
+            "-Xptxas", "-v", "-o", output, source] + list(extra)
+
+
+def _toolkit_rpath(nvcc: str, extra) -> list:
+    """For a library linked against one of the toolkit's libraries (a
+    ``-l`` flag in ``extra``): the toolkit's library directory as its
+    run path, so it loads where that directory is not on the loader's
+    path.  A path of this machine, like nvcc's, so not in the digest."""
+    if not any(f.startswith("-l") for f in extra):
+        return []
+    lib = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.realpath(nvcc))), "lib64")
+    return ["-Xlinker", "-rpath=" + lib]
 
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
@@ -143,7 +177,8 @@ def _lib_digest(name: str, csrc: str = _CSRC) -> str:
     """sha256 of the library's compile line, its source and every header
     under ``csrc`` that the source includes (directly or through another
     header)."""
-    h = hashlib.sha256(" ".join(nvcc_command("", "")).encode())
+    h = hashlib.sha256(" ".join(nvcc_command(
+        "", "", "nvcc", EXTRA_FLAGS.get(name, ()))).encode())
     todo, seen = [SOURCES[name]], set()
     while todo:
         rel = todo.pop(0)
@@ -248,7 +283,9 @@ def _run_nvcc(todo, nvcc, cache, outdir, logs) -> None:
         out = _lib_path(n) if outdir is None else os.path.join(
             outdir, "lib%s.so" % n)
         tmp = "%s.tmp-%d" % (out, os.getpid())
-        cmd = nvcc_command(os.path.join(_CSRC, SOURCES[n]), tmp, nvcc)
+        extra = EXTRA_FLAGS.get(n, ())
+        cmd = nvcc_command(os.path.join(_CSRC, SOURCES[n]), tmp, nvcc,
+                           extra) + _toolkit_rpath(nvcc, extra)
         NVCC_RUNS += 1
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
@@ -337,6 +374,23 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "correlation":
         lib.mxtt_correlation.argtypes = [p] * 3 + [i] * 9 + [p]
         lib.mxtt_correlation.restype = i
+    elif name == "image_augment":
+        f = ctypes.c_float
+        lib.mxtt_image_augment.argtypes = [p] * 3 + [i] * 3 + [f] * 4 + [
+            i, p]
+        lib.mxtt_image_augment.restype = i
+    elif name == "jpeg_color":
+        lib.mxtt_jpeg_color.argtypes = [p] * 3 + [i] * 3 + [p]
+        lib.mxtt_jpeg_color.restype = i
+        lib.mxtt_nvjpeg_version.argtypes = []
+        lib.mxtt_nvjpeg_version.restype = i
+        lib.mxtt_jpeg_create.argtypes = [i, ctypes.POINTER(p)]
+        lib.mxtt_jpeg_create.restype = i
+        lib.mxtt_jpeg_destroy.argtypes = [p]
+        lib.mxtt_jpeg_destroy.restype = None
+        lib.mxtt_jpeg_decode.argtypes = [p, p, p, i, p, p, p,
+                                         ctypes.POINTER(i)]
+        lib.mxtt_jpeg_decode.restype = i
 
 
 def _check(lib: ctypes.CDLL, name: str, rc: int) -> None:
@@ -947,3 +1001,346 @@ def correlation(a: torch.Tensor, b: torch.Tensor, max_displacement: int,
     _check(lib, "correlation", rc)
     _count("correlation")
     return out.to(a.dtype)
+
+
+# ---------------------------------------------------------------------------
+# image_augment and the nvjpeg decode before it (no TPU counterpart: the JAX
+# package resizes, crops, mirrors and normalizes on the host, in its loader)
+
+# a row of image_augment's (B, len(AUG_FIELDS)) int64 geometry: the image's
+# offset in the decoded bytes, whether its record was read (0: zeros), its
+# decoded size, its size after the shorter-edge resize, the crop's offset in
+# the resized image, the mirror bit (csrc/image_augment.cu AugField)
+AUG_FIELDS = ("offset", "ok", "src_h", "src_w", "res_h", "res_w", "dy", "dx",
+              "mirror")
+
+
+def _aug_params(mean, scale):
+    """float32 mean per channel (zeros without one) and scale, as the
+    host loader stores them (C floats)."""
+    m = np.zeros(3, np.float32) if mean is None else \
+        np.asarray(mean, np.float32).reshape(3)
+    return m, np.float32(scale)
+
+
+def image_augment_reference(pixels: torch.Tensor, geom: torch.Tensor,
+                            out_hw, mean=None, scale: float = 1.0
+                            ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`image_augment`: per image, the
+    host loader's arithmetic (``csrc/native/image_decode.cc``
+    ResizeBilinear at the crop's rows and columns, then ``data_loader.cc``
+    Emit) in float32 tensor operations, one rounding each, in the host
+    expression's order."""
+    h_out, w_out = (int(v) for v in out_hw)
+    g = geom.cpu().numpy()
+    m, sc = _aug_params(mean, scale)
+    f32, dev = torch.float32, pixels.device
+    out = torch.zeros((g.shape[0], 3, h_out, w_out), dtype=f32, device=dev)
+    one = torch.tensor(1.0, dtype=f32, device=dev)
+    half = torch.tensor(0.5, dtype=f32, device=dev)
+    mean_t = torch.from_numpy(m).view(3, 1, 1).to(dev)
+    scale_t = torch.tensor(sc, dtype=f32, device=dev)
+    for b, (off, ok, h, w, rh, rw, dy, dx, mirror) in enumerate(g.tolist()):
+        if not ok:
+            continue
+        img = pixels[off:off + h * w * 3].reshape(h, w, 3)
+        ys = dy + torch.arange(h_out, device=dev)
+        xs = dx + (torch.arange(w_out - 1, -1, -1, device=dev) if mirror
+                   else torch.arange(w_out, device=dev))
+        if (rh, rw) == (h, w):
+            u8 = img[ys][:, xs]
+        else:
+            def axis(pos, n, n_out):
+                s = torch.tensor(float(n), dtype=f32, device=dev) / \
+                    torch.tensor(float(n_out), dtype=f32, device=dev)
+                f = (pos.to(f32) + half) * s - half
+                f = torch.where(f < 0, torch.zeros_like(f), f)
+                i0 = torch.clamp(f.to(torch.int64), max=n - 1)
+                i1 = torch.where(i0 + 1 < n, i0 + 1, i0)
+                return i0, i1, f - i0.to(f32)
+            y0, y1, wy = axis(ys, h, rh)
+            x0, x1, wx = axis(xs, w, rw)
+            wy, wx = wy.view(-1, 1, 1), wx.view(1, -1, 1)
+            img_f = img.to(f32)
+
+            def px(yi, xi):
+                return img_f[yi][:, xi]
+            v = px(y0, x0) * (one - wy) * (one - wx)
+            v = v + px(y0, x1) * (one - wy) * wx
+            v = v + px(y1, x0) * wy * (one - wx)
+            v = v + px(y1, x1) * wy * wx
+            u8 = (v + half).to(torch.uint8)
+        out[b] = (u8.permute(2, 0, 1).to(f32) - mean_t) * scale_t
+    return out
+
+
+def image_augment(pixels: torch.Tensor, geom: torch.Tensor, out_hw,
+                  mean=None, scale: float = 1.0) -> torch.Tensor:
+    """The (B, 3, H, W) float32 batch from decoded images: ``pixels``
+    uint8, the batch's HWC RGB images back to back; ``geom`` int64 (B,
+    len(AUG_FIELDS)), a row an image (:data:`AUG_FIELDS`).  Image b's
+    element (c, y, x) is the shorter-edge-resized image's channel c at
+    (dy + y, mirror ? dx + W-1-x : dx + x), bilinear with half-pixel
+    centres, rounded to uint8, then ``(u8 - mean[c]) * scale``; zeros for
+    a record that was not read.  Bitwise the host loader's batch on the
+    same pixels.
+
+    CUDA tensors launch the hand-written kernel (csrc/image_augment.cu);
+    CPU tensors take :func:`image_augment_reference`."""
+    h_out, w_out = (int(v) for v in out_hw)
+    if pixels.dtype != torch.uint8 or pixels.dim() != 1:
+        raise MXNetError("image_augment: pixels must be a 1-D uint8 tensor, "
+                         "got %s %s" % (pixels.dtype, tuple(pixels.shape)))
+    if geom.dtype != torch.int64 or geom.dim() != 2 or \
+            geom.shape[1] != len(AUG_FIELDS):
+        raise MXNetError("image_augment: geom must be int64 (B, %d), got %s "
+                         "%s" % (len(AUG_FIELDS), geom.dtype,
+                                 tuple(geom.shape)))
+    if h_out <= 0 or w_out <= 0 or geom.shape[0] == 0:
+        raise MXNetError("image_augment: empty batch or output size %s"
+                         % ((h_out, w_out),))
+    if pixels.device.type == "cpu" and geom.device.type == "cpu":
+        return image_augment_reference(pixels, geom, (h_out, w_out), mean,
+                                       scale)
+    if pixels.device != geom.device or pixels.device.type != "cuda":
+        raise MXNetError("image_augment: pixels and geom must both be on "
+                         "one CUDA device, got %s and %s"
+                         % (pixels.device, geom.device))
+    if not (pixels.is_contiguous() and geom.is_contiguous()):
+        raise MXNetError("image_augment: pixels and geom must be contiguous")
+    m, sc = _aug_params(mean, scale)
+    b = geom.shape[0]
+    out = torch.empty((b, 3, h_out, w_out), dtype=torch.float32,
+                      device=pixels.device)
+    lib = _library("image_augment")
+    rc = lib.mxtt_image_augment(
+        pixels.data_ptr(), geom.data_ptr(), out.data_ptr(), b, h_out, w_out,
+        float(m[0]), float(m[1]), float(m[2]), float(sc),
+        pixels.device.index or 0,
+        torch.cuda.current_stream(pixels.device).cuda_stream)
+    _check(lib, "image_augment", rc)
+    _count("image_augment")
+    return out
+
+
+# a row of a decode job: the JPEG's offset and length in the payload, its
+# slot (3 * h * w bytes) in the components and in the RGB output, its
+# planned height and width, whether its record was read
+# (csrc/jpeg_decode.cu JobField)
+JPEG_JOB_FIELDS = ("payload_offset", "payload_length", "slot", "h", "w",
+                   "ok")
+# a row of jpeg_color's geometry: the image's slot, its size, its chroma
+# planes' size, its sampling (an index of native_io.JPEG_SAMPLINGS; -1: no
+# image) (csrc/jpeg_decode.cu ColorField)
+COLOR_FIELDS = ("slot", "h", "w", "cw", "ch", "kind")
+# nvjpegStatus_t names, for messages
+_NVJPEG_STATUS = {1: "NOT_INITIALIZED", 2: "INVALID_PARAMETER",
+                  3: "BAD_JPEG", 4: "JPEG_NOT_SUPPORTED",
+                  5: "ALLOCATOR_FAILURE", 6: "EXECUTION_FAILED",
+                  7: "ARCH_MISMATCH", 8: "INTERNAL_ERROR",
+                  9: "IMPLEMENTATION_NOT_SUPPORTED",
+                  10: "INCOMPLETE_BITSTREAM"}
+
+
+def jpeg_color_reference(planes: torch.Tensor, geom: torch.Tensor
+                         ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`jpeg_color`: libjpeg's fancy
+    chroma upsampling and YCbCr->RGB conversion in int32 tensor
+    operations, an image at a time."""
+    g = geom.cpu().numpy()
+    out = torch.zeros(planes.numel(), dtype=torch.uint8,
+                      device=planes.device)
+    for slot, h, w, cw, ch, kind in g.tolist():
+        if kind < 0:
+            continue
+        img = planes[slot:slot + 3 * h * w].to(torch.int32)
+        y_ = img[:h * w].view(h, w)
+        if kind == 0:
+            rgb = y_.unsqueeze(-1).expand(h, w, 3)
+        else:
+            ys = torch.arange(h, device=planes.device)
+            xs = torch.arange(w, device=planes.device)
+            cb = img[h * w:h * w + cw * ch].view(ch, cw)
+            cr = img[h * w + cw * ch:h * w + 2 * cw * ch].view(ch, cw)
+
+            def up(c):
+                if kind == 1:
+                    return c
+                rows = ys // 2 if kind == 3 else ys
+                j = xs // 2
+                if cw <= 2:
+                    return c[rows][:, j]
+                jn = torch.where(xs % 2 == 1, (j + 1).clamp(max=cw - 1),
+                                 (j - 1).clamp(min=0))
+                if kind == 2:
+                    col, bias, shift = c[rows], (1, 2), 2
+                else:
+                    near = torch.where(ys % 2 == 1,
+                                       (rows + 1).clamp(max=ch - 1),
+                                       (rows - 1).clamp(min=0))
+                    col, bias, shift = 3 * c[rows] + c[near], (8, 7), 4
+                v = 3 * col[:, j] + col[:, jn]
+                return torch.where(xs % 2 == 1, v + bias[1],
+                                   v + bias[0]) >> shift
+            cbu, cru = up(cb) - 128, up(cr) - 128
+            rgb = torch.stack([
+                y_ + ((91881 * cru + 32768) >> 16),
+                y_ + ((-22554 * cbu + 32768 - 46802 * cru) >> 16),
+                y_ + ((116130 * cbu + 32768) >> 16)], dim=-1).clamp(0, 255)
+        out[slot:slot + 3 * h * w] = rgb.reshape(-1).to(torch.uint8)
+    return out
+
+
+def jpeg_color(planes: torch.Tensor, geom: torch.Tensor,
+               max_pixels: Optional[int] = None) -> torch.Tensor:
+    """HWC RGB images from JPEG components, as libjpeg gives them from
+    the same components: ``planes`` uint8, each image's Y (h x w) then
+    Cb and Cr (ch x cw each) at its slot; ``geom`` int64 (n,
+    len(COLOR_FIELDS)), a row an image (:data:`COLOR_FIELDS`).  -> a
+    uint8 tensor the size of ``planes`` with each image's h x w x 3 RGB
+    bytes at its slot.  ``max_pixels``, the largest h * w of ``geom``,
+    sizes the launch; without it it is read from ``geom``.
+
+    CUDA tensors launch the hand-written kernel (csrc/jpeg_decode.cu);
+    CPU tensors take :func:`jpeg_color_reference`."""
+    if planes.dtype != torch.uint8 or planes.dim() != 1:
+        raise MXNetError("jpeg_color: planes must be a 1-D uint8 tensor, got "
+                         "%s %s" % (planes.dtype, tuple(planes.shape)))
+    if geom.dtype != torch.int64 or geom.dim() != 2 or \
+            geom.shape[1] != len(COLOR_FIELDS) or geom.shape[0] == 0:
+        raise MXNetError("jpeg_color: geom must be int64 (n > 0, %d), got %s "
+                         "%s" % (len(COLOR_FIELDS), geom.dtype,
+                                 tuple(geom.shape)))
+    if planes.device.type == "cpu" and geom.device.type == "cpu":
+        return jpeg_color_reference(planes, geom)
+    if planes.device != geom.device or planes.device.type != "cuda":
+        raise MXNetError("jpeg_color: planes and geom must both be on one "
+                         "CUDA device, got %s and %s"
+                         % (planes.device, geom.device))
+    if not (planes.is_contiguous() and geom.is_contiguous()):
+        raise MXNetError("jpeg_color: planes and geom must be contiguous")
+    if max_pixels is None:
+        max_pixels = int((geom[:, 1] * geom[:, 2]).max())
+    out = torch.empty_like(planes)
+    lib = _library("jpeg_color")
+    rc = lib.mxtt_jpeg_color(
+        planes.data_ptr(), geom.data_ptr(), out.data_ptr(), geom.shape[0],
+        int(max_pixels), planes.device.index or 0,
+        torch.cuda.current_stream(planes.device).cuda_stream)
+    _check(lib, "jpeg_color", rc)
+    _count("jpeg_color")
+    return out
+
+
+def nvjpeg_version() -> str:
+    """nvjpeg's version as ``nvjpegGetProperty`` gives it (builds the
+    jpeg_color library, which links nvjpeg)."""
+    v = _library("jpeg_color").mxtt_nvjpeg_version()
+    if v < 0:
+        raise MXNetError("nvjpegGetProperty failed")
+    return "%d.%d.%d" % (v // 10000, v // 100 % 100, v % 100)
+
+
+class JpegDecoder:
+    """JPEG payloads to HWC RGB bytes on ``device``, as libjpeg decodes
+    them up to its IDCT: on a CUDA device nvjpeg (``nvjpegCreateEx`` on
+    the default backend, one ``nvjpegJpegState``, ``nvjpegDecode`` an
+    image to its components on the current stream) and then
+    :func:`jpeg_color`; on the CPU the port's libjpeg to components
+    (``native_io.decode_jpeg_planes``) and :func:`jpeg_color`'s plain
+    version.  One decoder a decode stream.  A failure raises naming the
+    record."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._ctx = None
+        if self.device.type == "cuda":
+            lib = _library("jpeg_color")
+            ctx = ctypes.c_void_p()
+            st = lib.mxtt_jpeg_create(self.device.index or 0,
+                                      ctypes.byref(ctx))
+            if st != 0:
+                raise MXNetError("nvjpegCreateEx on %s failed: status %d (%s)"
+                                 % (self.device, st,
+                                    _NVJPEG_STATUS.get(st, "?")))
+            self._lib, self._ctx = lib, ctx
+        elif self.device.type != "cpu":
+            raise MXNetError("JpegDecoder: no decoder for %s" % self.device)
+
+    def decode_planes(self, payload: torch.Tensor, jobs: np.ndarray,
+                      records):
+        """The components of the JPEGs of ``payload`` (a uint8 host tensor,
+        pinned for a CUDA device) described by ``jobs`` (int64 (n,
+        len(JPEG_JOB_FIELDS))) -> (a uint8 tensor on the device with each
+        image's components at its slot, the (n, len(COLOR_FIELDS)) int64
+        rows for :func:`jpeg_color`).  ``records`` names each job's
+        record in an error."""
+        jobs = np.ascontiguousarray(jobs, np.int64)
+        ok = jobs[:, 5] != 0
+        total = int((jobs[ok, 2] + 3 * jobs[ok, 3] * jobs[ok, 4]).max()) \
+            if ok.any() else 1
+        planes = torch.empty(total, dtype=torch.uint8, device=self.device)
+        color = np.zeros((len(jobs), len(COLOR_FIELDS)), np.int64)
+        if self._ctx is None:
+            from .. import native_io
+            raw = payload.numpy()
+            for j, (po, pl, slot, h, w, good) in enumerate(jobs.tolist()):
+                color[j] = (slot, h, w, 0, 0, -1)
+                if not good:
+                    continue
+                px, (ph, pw, cw, ch, kind) = native_io.decode_jpeg_planes(
+                    raw[po:po + pl].tobytes(), record=records[j])
+                if (ph, pw) != (h, w):
+                    raise MXNetError("the JPEG at record %d is %dx%d, its "
+                                     "frame header said %dx%d" % (
+                                         records[j], ph, pw, h, w))
+                planes[slot:slot + px.size] = torch.from_numpy(px)
+                color[j] = (slot, h, w, cw, ch, kind)
+            return planes, color
+        failed = ctypes.c_int(-1)
+        st = self._lib.mxtt_jpeg_decode(
+            self._ctx, payload.data_ptr(), jobs.ctypes.data, len(jobs),
+            planes.data_ptr(), color.ctypes.data,
+            torch.cuda.current_stream(self.device).cuda_stream,
+            ctypes.byref(failed))
+        self._check(st, failed.value, records)
+        return planes, color
+
+    @staticmethod
+    def _check(st, failed, records):
+        if st == 0:
+            return
+        rec = records[failed] if failed >= 0 else "?"
+        if st == -1:
+            raise MXNetError("nvjpeg: the JPEG at record %s is not the size "
+                             "its frame header gave the plan" % rec)
+        if st == -2:
+            raise MXNetError("the JPEG at record %s has a chroma sampling "
+                             "the device route does not take (it takes "
+                             "gray, 4:4:4, 4:2:2, 4:2:0)" % rec)
+        raise MXNetError("nvjpeg failed to decode the JPEG at record %s: "
+                         "status %d (%s)" % (rec, st,
+                                             _NVJPEG_STATUS.get(st, "?")))
+
+    def decode(self, payload: torch.Tensor, jobs: np.ndarray,
+               records) -> torch.Tensor:
+        """HWC RGB bytes on the device, each image at its job's slot:
+        :meth:`decode_planes`, then :func:`jpeg_color`."""
+        planes, color = self.decode_planes(payload, jobs, records)
+        rows = torch.from_numpy(color)
+        if self._ctx is None:
+            return jpeg_color(planes, rows)
+        max_pixels = int((color[:, 1] * color[:, 2]).max())
+        return jpeg_color(planes, rows.pin_memory().to(
+            self.device, non_blocking=True), max(max_pixels, 1))
+
+    def close(self):
+        if self._ctx is not None:
+            self._lib.mxtt_jpeg_destroy(self._ctx)
+            self._ctx = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:   # interpreter teardown
+            pass
